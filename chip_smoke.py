@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch port, `xclip_tpu_torch`, on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
+main path: flagship-width CLIP inference (dim 512, 6 + 6 layers, 257-row
+text, 64-patch vision, GEGLU inner 2048, bf16) through the kernels.
+One line per phase; any failure exits non-zero, and nothing is caught.
+
+  0 device   CUDA present; the card's name and power limit; TF32 off.
+  1 build    nvcc builds the kernels; seconds taken.
+  2 kernels  each kernel against its plain PyTorch version on the card, at
+             the main path's shapes (b = 8), fp32 and bf16.
+  3 golden   the tiny CLIP of tests/data/torch_port_golden.npz (outputs of
+             the JAX package) through the port's kernels.
+  4 main     the flagship answers requests: 4 batches of 64 pairs → scores,
+             a 10-class × 2-template zero-shot classifier over 64 images,
+             retrieval metrics; launch counts, finiteness, and agreement
+             with the plain routes on the same weights (bf16 and fp32).
+  5 times    CUDA-event medians: pairs/s at b = 256 on the kernel and plain
+             routes; each kernel against its plain version at b = 256.
+
+The last lines are the kernels' JSON record, the card line as nvidia-smi
+prints it, and {"ok": true, "device": {...}}.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
+
+FLAGSHIP = dict(dim_text=512, dim_image=512, dim_latent=512,
+                num_text_tokens=10000, text_enc_depth=6, text_seq_len=256,
+                text_heads=8, visual_enc_depth=6, visual_heads=8,
+                visual_image_size=256, visual_patch_size=32,
+                visual_patch_dropout=0.5)
+KERNEL_ROUTES = dict(attn_impl="fused", visual_attn_impl="xla",
+                     ff_impl="block_stored")
+PLAIN_ROUTES = dict(attn_impl="xla", visual_attn_impl="xla", ff_impl="xla")
+# fp32: summation order only. bf16: two storage ulps at |out| < 8 (2^-5
+# each); both sides round to bf16 at the same places.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2.0 ** -5}
+# kernel routes vs plain routes, latents (l2-normed, |v| <= 1): the routes
+# round in other places (q pre-scaled, -finfo.max masks); fp32 agrees to
+# summation order, bf16 to a few ulps of the 6-layer residual stream
+LATENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def phase(n, name, msg):
+    print(f"phase {n} {name}: {msg}", flush=True)
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, reps=5, iters=3):
+    """Median over `reps` of the mean CUDA-event time of `iters` calls, ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def rand(gen, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def ff_inputs(gen, rows, dtype, dim=512, inner=2048):
+    return (rand(gen, rows, dim, dtype=dtype),
+            1 + rand(gen, dim, scale=0.1, dtype=dtype),
+            rand(gen, dim, 2 * inner, scale=dim ** -0.5, dtype=dtype),
+            1 + rand(gen, inner, scale=0.1, dtype=dtype),
+            rand(gen, inner, dim, scale=inner ** -0.5, dtype=dtype))
+
+
+def mega_inputs(gen, b, n, dim, heads, dtype, lengths):
+    hd = heads * 64
+    mask = torch.arange(n, device="cuda")[None] < torch.as_tensor(
+        lengths, device="cuda")[:, None]
+    return (rand(gen, b, n, dim, dtype=dtype),
+            1 + rand(gen, dim, scale=0.1, dtype=dtype),
+            rand(gen, dim, 3 * hd, scale=dim ** -0.5, dtype=dtype),
+            rand(gen, hd, dim, scale=hd ** -0.5, dtype=dtype),
+            1 + rand(gen, dim, scale=0.1, dtype=dtype), mask)
+
+
+def compare(name, got, want, tol):
+    err = (got.float() - want.float()).abs()
+    max_abs = err.max().item()
+    max_rel = (err / want.float().abs().clamp_min(1e-3)).max().item()
+    ok = bool(torch.isfinite(got).all()) and max_abs <= tol
+    print(f"  {name}: max_abs_err {max_abs:.3e} (tol {tol:.1e}), "
+          f"max_rel_err {max_rel:.3e}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def texts(gen, b, seq=256, vocab=10000):
+    """Token ids with mixed caption lengths (pad id 0 after each)."""
+    ids = torch.randint(1, vocab, (b, seq), generator=gen, device="cuda")
+    lengths = torch.randint(4, seq + 1, (b,), generator=gen, device="cuda")
+    return ids * (torch.arange(seq, device="cuda")[None] < lengths[:, None])
+
+
+def main():
+    # ---------------------------------------------------------------- 0
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase(0, "device", f"{torch.cuda.get_device_name(0)} | {card} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda} | "
+          f"{torch.cuda.device_count()} device(s)")
+
+    from xclip_tpu_torch import CLIP
+    from xclip_tpu_torch import eval as teval
+    from xclip_tpu_torch.convert import load_jax_params, numpy_params
+    from xclip_tpu_torch.kernels import _build
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import fused_ff_block as ffb
+
+    # ---------------------------------------------------------------- 1
+    t0 = time.perf_counter()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    phase(1, "build", f"nvcc sm_90a, {seconds:.1f} s → {_build.library_path().name}")
+
+    # ---------------------------------------------------------------- 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+    phase(2, "kernels", "kernel vs plain version on the card")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for label, rows in (("text rows 8x257", 8 * 257),
+                            ("vision rows 8x64", 8 * 64)):
+            args = ff_inputs(gen, rows, dtype)
+            errs[("ff", label, dtype)] = compare(
+                f"K-FF {tag} {label} x512 -> 2x2048", ffb.ff_block(*args),
+                ffb.ff_block_plain(*args), TOL[dtype])
+        lengths = [257, 200, 150, 100, 60, 30, 10, 1]      # CLS always valid
+        args = mega_inputs(gen, 8, 257, 512, 8, dtype, lengths)
+        static = (8, 64, 64 ** -0.5, False, True)
+        errs[("mega", "text", dtype)] = compare(
+            f"K-MEGA {tag} (8, 257, 512) 8x64 key-pad",
+            mega.attention_block(*args, *static),
+            mega.attention_block_plain(*args, *static), TOL[dtype])
+        args = mega_inputs(gen, 2, 70, 128, 2, dtype, [50, 0])  # dead rows
+        static = (2, 64, 0.125, True, True)
+        compare(f"K-MEGA {tag} (2, 70, 128) 2x64 causal dead rows",
+                mega.attention_block(*args, *static),
+                mega.attention_block_plain(*args, *static), TOL[dtype])
+    torch.cuda.synchronize()
+
+    # ---------------------------------------------------------------- 3
+    g = np.load(GOLDEN)
+    config = json.loads(str(g["config"]))
+    tiny = CLIP(**config, device="cuda")
+    load_jax_params(tiny, numpy_params(config, int(g["seed"])))
+    text = torch.from_numpy(g["text"]).cuda()
+    images = torch.from_numpy(g["images"]).cuda()
+    before = (ffb.ff_block.launches, mega.attention_block.launches)
+    got = {"sims": tiny(text, images)}
+    got["text_latents"], got["image_latents"] = tiny(text, images,
+                                                     return_latents=True)
+    et, ei = tiny(text, images, return_encodings=True)
+    got["enc_text_head"], got["enc_image_head"] = et[:, :3], ei[:, :3]
+    worst = max((v.float().cpu() - torch.from_numpy(g[k])).abs().max().item()
+                for k, v in got.items())
+    if (ffb.ff_block.launches == before[0]
+            or mega.attention_block.launches == before[1]):
+        fail("the golden model did not run through the kernels")
+    if not worst <= 1e-4:
+        fail(f"port vs JAX golden: max_abs_err {worst:.3e} > 1e-4")
+    phase(3, "golden", f"tiny CLIP (fp32, kernel routes) vs JAX outputs: "
+          f"max_abs_err {worst:.3e} (tol 1e-4)")
+    del tiny
+
+    # ---------------------------------------------------------------- 4
+    clip = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
+                compute_dtype="bfloat16", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [(texts(gen, 64), rand(gen, 64, 3, 256, 256)) for _ in range(4)]
+    class_tokens = texts(gen, 20, seq=256)
+    labels = torch.randint(0, 10, (64,), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    ffb.ff_block.launches = mega.attention_block.launches = 0
+    scores = [clip(t, i) for t, i in batches]
+    classifier = teval.build_zero_shot_classifier(clip, class_tokens,
+                                                  templates_per_class=2)
+    top1 = teval.zero_shot_accuracy(clip, batches[0][1], labels, classifier)
+    tl, il = clip(*batches[0], return_latents=True)
+    recall = teval.retrieval_metrics(tl, il)
+    torch.cuda.synchronize()
+    launches = {"ff": ffb.ff_block.launches,
+                "mega": mega.attention_block.launches}
+
+    # 4 scored batches + 1 latent batch + the classifier's text encode each
+    # run 6 megablocks and 6 text FF blocks; every image encode (4 + 1 + 1
+    # for the zero-shot logits) runs 6 vision FF blocks
+    want = {"mega": 6 * 6, "ff": 6 * 6 + 6 * 6}
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    logits = teval.zero_shot_logits(clip, batches[0][1], classifier)
+    for name, t, shape in [("scores", torch.stack(scores), (4, 64)),
+                           ("classifier", classifier, (10, 512)),
+                           ("logits", logits, (64, 10)),
+                           ("latents", tl, (64, 512))]:
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            fail(f"{name}: shape {tuple(t.shape)} (want {shape}) or not finite")
+    counts = []
+    for fn in (lambda: clip.model.encode_text(batches[0][0]),
+               lambda: clip.model.encode_image(batches[0][1])):
+        f0, m0 = ffb.ff_block.launches, mega.attention_block.launches
+        fn()
+        counts.append((mega.attention_block.launches - m0,
+                       ffb.ff_block.launches - f0))
+    if counts != [(6, 6), (0, 6)]:
+        fail(f"(mega, ff) launches per text / image encode: {counts}")
+
+    def routes_agree(dtype, model, b):
+        plain = CLIP(**FLAGSHIP, **PLAIN_ROUTES, device="cuda",
+                     param_dtype=model.temperature.dtype,
+                     compute_dtype=model.model.compute_dtype)
+        plain.load_state_dict(model.state_dict())
+        t, i = batches[1][0][:b], batches[1][1][:b]
+        worst = 0.0
+        for k, p in zip(model(t, i, return_latents=True),
+                        plain(t, i, return_latents=True)):
+            worst = max(worst, (k - p).abs().max().item())
+        tag = str(dtype).split(".")[-1]
+        if not worst <= LATENT_TOL[dtype]:
+            fail(f"{tag} kernel routes vs plain routes: latents differ by "
+                 f"{worst:.3e} > {LATENT_TOL[dtype]:.0e}")
+        return f"{tag} latents vs plain routes {worst:.3e} (tol {LATENT_TOL[dtype]:.0e})"
+
+    agree = [routes_agree(torch.bfloat16, clip, 64)]
+    clip32 = CLIP(**FLAGSHIP, **KERNEL_ROUTES, device="cuda", seed=0)
+    agree.append(routes_agree(torch.float32, clip32, 8))
+    del clip32
+    phase(4, "main", f"4x64 pairs scored, zero-shot top1 {top1['top1']:.3f}, "
+          f"t2i r@1 {recall['t2i_r@1']:.3f}; launches {launches}; "
+          + "; ".join(agree))
+
+    # ---------------------------------------------------------------- 5
+    b = 256
+    big_text, big_images = texts(gen, b), rand(gen, b, 3, 256, 256)
+    plain = CLIP(**FLAGSHIP, **PLAIN_ROUTES, param_dtype=torch.bfloat16,
+                 compute_dtype="bfloat16", device="cuda")
+    plain.load_state_dict(clip.state_dict())
+    ms = {}
+    for route, model in (("plain", plain), ("kernel", clip),
+                         ("kernel2", clip), ("plain2", plain)):
+        ms[route] = cuda_ms(lambda: model(big_text, big_images), reps=3,
+                            iters=2)
+    kernel_ms = min(ms["kernel"], ms["kernel2"])
+    plain_ms = min(ms["plain"], ms["plain2"])
+    phase(5, "times", f"{card}: inference b={b} bf16: kernel routes "
+          f"{b / kernel_ms * 1e3:.1f} pairs/s ({ms['kernel']:.2f}, "
+          f"{ms['kernel2']:.2f} ms), plain routes {b / plain_ms * 1e3:.1f} "
+          f"pairs/s ({ms['plain']:.2f}, {ms['plain2']:.2f} ms)")
+
+    dt = torch.bfloat16
+    times = {}
+    for label, rows in (("text", b * 257), ("vision", b * 64)):
+        args = ff_inputs(gen, rows, dt)
+        times[("ff", label)] = (cuda_ms(lambda: ffb.ff_block(*args)),
+                                cuda_ms(lambda: ffb.ff_block_plain(*args)))
+        print(f"  K-FF bf16 ({rows}, 512) -> 2x2048: kernel "
+              f"{times[('ff', label)][0]:.3f} ms, plain "
+              f"{times[('ff', label)][1]:.3f} ms", flush=True)
+    lengths = torch.randint(1, 258, (b,), generator=gen,
+                            device="cuda").tolist()
+    args = mega_inputs(gen, b, 257, 512, 8, dt, lengths)
+    static = (8, 64, 64 ** -0.5, False, True)
+    times[("mega", "text")] = (
+        cuda_ms(lambda: mega.attention_block(*args, *static)),
+        cuda_ms(lambda: mega.attention_block_plain(*args, *static)))
+    print(f"  K-MEGA bf16 ({b}, 257, 512) 8x64: kernel "
+          f"{times[('mega', 'text')][0]:.3f} ms, plain "
+          f"{times[('mega', 'text')][1]:.3f} ms", flush=True)
+    torch.cuda.synchronize()
+
+    record = {"kernels": [
+        {"name": "K-FF ff_block forward", "route": "cuda",
+         "source": "xclip_tpu_torch/csrc/fused_ff_block.cu",
+         "replaces": "xclip_tpu/kernels/fused_ff_block.py:143",
+         "launches": launches["ff"],
+         "max_abs_err": errs[("ff", "text rows 8x257", torch.bfloat16)],
+         "ms": times[("ff", "text")][0], "plain_ms": times[("ff", "text")][1]},
+        {"name": "K-MEGA attention_block forward", "route": "cuda",
+         "source": "xclip_tpu_torch/csrc/attention_megablock.cu",
+         "replaces": "xclip_tpu/kernels/attention_megablock.py:278",
+         "launches": launches["mega"],
+         "max_abs_err": errs[("mega", "text", torch.bfloat16)],
+         "ms": times[("mega", "text")][0],
+         "plain_ms": times[("mega", "text")][1]},
+    ]}
+    print(json.dumps(record))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    rc = main()
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    sys.exit(rc)

@@ -1,0 +1,48 @@
+"""Inputs shared by the port's kernel tests, made from a numpy seed so the
+JAX package and the port see the same numbers. Imports no JAX: the
+GPU-only tests use it on a machine without JAX."""
+
+import numpy as np
+import torch
+
+# bf16 tolerance: two storage ulps at the test outputs' magnitude
+# (|out| < 8, ulp 2^-5); both sides round at the same places and only
+# summation order can flip a rounding
+BF16_ATOL = 2 * 2.0 ** -5
+
+
+def ff_args(R=40, D=64, I=128, seed=0):
+    npr = np.random.RandomState(seed)
+    return (npr.randn(R, D).astype(np.float32) * 0.5,
+            (1 + 0.1 * npr.randn(D)).astype(np.float32),
+            (npr.randn(D, 2 * I) / np.sqrt(D)).astype(np.float32),
+            (1 + 0.1 * npr.randn(I)).astype(np.float32),
+            (npr.randn(I, D) / np.sqrt(I)).astype(np.float32))
+
+
+def mega_args(b=2, n=37, dim=128, heads=2, dim_head=64, seed=0,
+              mask_kind="keypad"):
+    npr = np.random.RandomState(seed)
+    hd = heads * dim_head
+    x = npr.randn(b, n, dim).astype(np.float32)
+    mask = np.ones((b, n), dtype=bool)
+    if mask_kind in ("keypad", "dead"):
+        mask[0, n - 9:] = False
+        mask[1, n // 2:] = False
+    if mask_kind == "dead":
+        mask[1, :] = False          # every row of element 1 has no valid key
+    return (x, (1 + 0.1 * npr.randn(dim)).astype(np.float32),
+            (npr.randn(dim, 3 * hd) / np.sqrt(dim)).astype(np.float32),
+            (npr.randn(hd, dim) / np.sqrt(hd)).astype(np.float32),
+            (1 + 0.1 * npr.randn(dim)).astype(np.float32), mask)
+
+
+def to_torch(args, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=dtype)
+            if a.dtype != bool else torch.from_numpy(a).to(device)
+            for a in args]
+
+
+def to_np(t):
+    return np.asarray(t, dtype=np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().cpu().numpy()

@@ -1,0 +1,136 @@
+"""Weights carried across from the JAX package.
+
+The port keeps the JAX layout: linear weights are `(in, out)` and applied
+as `x @ w` (the kernels take them without a transpose), and parameter
+names are the JAX param tree's keys. The one difference is depth: JAX
+stacks the per-layer leaves along a leading `(depth, ...)` axis under
+`layers`, the port keeps an `nn.ModuleList`, so `layers.<leaf>` of shape
+(depth, ...) becomes `layers.<i>.<leaf>` for each i.
+
+`load_jax_params(model, tree)` fills a port model from the JAX package's
+param tree (nested dicts of numpy arrays, JAX arrays converted with
+`np.asarray`), strictly. `numpy_params(config, seed)` builds such a tree from
+`np.random.RandomState(seed)`, the same numbers on every machine, so the
+JAX package and the port can be given identical weights without JAX.
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            yield from _flatten(value, name + ".")
+        else:
+            yield name, value
+
+
+def _unstack(flat):
+    """`...layers.<leaf>` of shape (depth, ...) → `...layers.<i>.<leaf>`."""
+    out = {}
+    for name, value in flat:
+        value = np.asarray(value)
+        parts = name.split(".")
+        if "layers" in parts:
+            i = parts.index("layers") + 1
+            for d in range(value.shape[0]):
+                out[".".join(parts[:i] + [str(d)] + parts[i:])] = value[d]
+        else:
+            out[name] = value
+    return out
+
+
+def load_jax_params(model, tree) -> None:
+    """Copy a JAX `CLIPModel` param tree into `model` (a `CLIP` or a
+    `CLIPModel`) in place, cast to each parameter's dtype. Raises on a
+    missing key, an unused key or a shape that differs."""
+    model = getattr(model, "model", model)
+    flat = _unstack(_flatten(tree))
+    state = model.state_dict()
+    missing = sorted(state.keys() - flat.keys())
+    unused = sorted(flat.keys() - state.keys())
+    if missing or unused:
+        raise KeyError(f"param tree does not match the model: missing "
+                       f"{missing}, unused {unused}")
+    for name, param in state.items():
+        value = flat[name]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} in the "
+                             f"tree, {tuple(param.shape)} in the model")
+        src = torch.from_numpy(np.asarray(value, dtype=np.float32))
+        with torch.no_grad():
+            param.copy_(src.to(param.dtype))
+
+
+def _clip_defaults():
+    from .api import CLIP
+    return {k: p.default for k, p in
+            inspect.signature(CLIP.__init__).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+def numpy_params(config: dict, seed: int = 0) -> dict:
+    """A JAX-layout `CLIPModel` param tree for the `CLIP(**config)` kwargs
+    (defaults as `CLIP`'s), drawn from `np.random.RandomState(seed)`: linear
+    weights U(±1/sqrt(in)), embeddings N(0, 1), LayerNorm gains 1 + 0.1·N,
+    temperature 1. The extra latent heads are drawn apart from the main
+    ones, so tests can tell them apart. fp32 arrays."""
+    c = {**_clip_defaults(), **config}
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def lin(d_in, d_out, bias=False):
+        bound = 1.0 / math.sqrt(d_in)
+        p = {"w": rs.uniform(-bound, bound, (d_in, d_out)).astype(f32)}
+        if bias:
+            p["b"] = rs.uniform(-bound, bound, (d_out,)).astype(f32)
+        return p
+
+    def gain(d):
+        return {"g": (1.0 + 0.1 * rs.randn(d)).astype(f32)}
+
+    def emb(n, d):
+        return {"emb": rs.randn(n, d).astype(f32)}
+
+    def tower(dim, depth, heads, dim_head, ff_mult=4):
+        hd, inner = heads * dim_head, dim * ff_mult
+        layers = [{
+            "attn": {"norm": gain(dim), "to_qkv": lin(dim, 3 * hd),
+                     "to_out": lin(hd, dim), "out_norm": gain(dim)},
+            "ff": {"norm": gain(dim), "w_in": lin(dim, 2 * inner),
+                   "inner_norm": gain(inner), "w_out": lin(inner, dim)},
+        } for _ in range(depth)]
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+
+        return {"layers": stack(*layers), "norm_in": gain(dim),
+                "norm_out": gain(dim)}
+
+    dt, di = c["dim_text"], c["dim_image"]
+    p = c["visual_patch_size"]
+    text = {"token_emb": emb(c["num_text_tokens"], dt),
+            "abs_pos_emb": emb(c["text_seq_len"], dt),
+            "cls_token": rs.randn(dt).astype(f32),
+            "transformer": tower(dt, c["text_enc_depth"], c["text_heads"],
+                                 c["text_dim_head"])}
+    visual = {"patch_proj": lin(c["channels"] * p * p, di, bias=True),
+              "pos_emb": emb((c["visual_image_size"] // p) ** 2, di),
+              "transformer": tower(di, c["visual_enc_depth"],
+                                   c["visual_heads"], c["visual_dim_head"]),
+              "to_cls": lin(di, di)}
+    return {"text": text, "visual": visual,
+            "to_text_latent": lin(dt, c["dim_latent"]),
+            "to_visual_latent": lin(di, c["dim_latent"]),
+            "to_text_latent_extra": lin(dt, c["dim_latent"]),
+            "to_visual_latent_extra": lin(di, c["dim_latent"]),
+            "temperature": np.asarray(1.0, dtype=f32)}

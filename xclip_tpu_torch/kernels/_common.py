@@ -1,0 +1,72 @@
+"""Numerics shared by the kernels' plain versions, and the wrappers' checks.
+
+`eps_for` and `ln_fp32` are the counterparts of
+`xclip_tpu/kernels/_common.py`; the CUDA kernels compute the same gain-only
+LayerNorm (two-pass fp32 statistics) in `csrc/common.cuh`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def eps_for(dtype) -> float:
+    """Dtype-dependent LayerNorm eps: 1e-5 for fp32, 1e-3 otherwise."""
+    return 1e-5 if dtype == torch.float32 else 1e-3
+
+
+def ln_fp32(x32, g32, eps):
+    """Gain-only LayerNorm in fp32 over the last axis: returns (xhat·g, xhat, inv)."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    c = x32 - mean
+    var = (c * c).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = c * inv
+    return xhat * g32, xhat, inv
+
+
+def dot32(a, b):
+    """a @ b with fp32 accumulation of storage-dtype operands."""
+    return a.float() @ b.float()
+
+
+def route(name: str, tensors) -> bool:
+    """Which path a wrapper takes: False for the plain version (every tensor
+    on the CPU), True for the kernel (every tensor on one CUDA device).
+    Raises for mixed devices, other devices, and inputs that require grad
+    (the kernels have no backward yet)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the forward kernel has no backward yet; call it under "
+            "torch.no_grad() (ROADMAP.md Queue 2, training slice)")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    return True
+
+
+def check_kernel_args(name: str, tensors, dtype) -> None:
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def dtype_code(dtype) -> int:
+    """The C entry points' dtype code (csrc/common.cuh kF32 / kBF16)."""
+    return 0 if dtype == torch.float32 else 1
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,108 @@
+"""CLIP inference core — the counterpart of `xclip_tpu/model.py`'s
+`CLIPModel` for the inference slice: single-tower encoders, encodings,
+l2-normed fp32 latents and paired similarity scores × exp(temperature).
+
+Mixed precision follows the JAX model: with `compute_dtype`, every float
+parameter and the images are cast to it on entry (the modules cast each
+parameter as they apply it); latents are normalised in fp32 and
+exp(temperature) is taken in fp32. Every public method runs under
+`torch.no_grad()`: the kernels have no backward yet.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .nn.core import Linear
+from .utils import l2norm
+
+
+def as_dtype(d) -> Optional[torch.dtype]:
+    """torch dtype from a torch dtype, a name ('bfloat16') or None."""
+    if isinstance(d, str):
+        name, d = d, getattr(torch, d, None)
+        if not isinstance(d, torch.dtype):
+            raise ValueError(f"unknown dtype name {name!r}")
+    return d
+
+
+class CLIPModel(nn.Module):
+    def __init__(self, text_encoder, visual_encoder, *, dim_text: int = 512,
+                 dim_image: int = 512, dim_latent: int = 512,
+                 text_pad_id: int = 0, text_encode_without_mask: bool = False,
+                 extra_latent_projection: bool = False,
+                 attn_impl: str = "xla",
+                 visual_attn_impl: Optional[str] = None,
+                 compute_dtype=None, generator=None, dtype=torch.float32):
+        super().__init__()
+        self.text = text_encoder
+        self.visual = visual_encoder
+        self.text_pad_id = text_pad_id
+        self.text_encode_without_mask = text_encode_without_mask
+        self.extra_latent_projection = extra_latent_projection
+        self.attn_impl = attn_impl
+        self.visual_attn_impl = visual_attn_impl or attn_impl
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.to_text_latent = Linear(dim_text, dim_latent,
+                                     generator=generator, dtype=dtype)
+        self.to_visual_latent = Linear(dim_image, dim_latent,
+                                       generator=generator, dtype=dtype)
+        # always allocated, initialised as copies of the main heads
+        self.to_text_latent_extra = copy.deepcopy(self.to_text_latent)
+        self.to_visual_latent_extra = copy.deepcopy(self.to_visual_latent)
+        self.temperature = nn.Parameter(torch.ones((), dtype=dtype))
+
+    def _dtype(self):
+        return self.compute_dtype or self.temperature.dtype
+
+    def _encode_text(self, text):
+        mask = None if self.text_encode_without_mask else text != self.text_pad_id
+        return self.text(text, mask, attn_impl=self.attn_impl,
+                         dtype=self._dtype())
+
+    def _encode_image(self, image):
+        if self.compute_dtype is not None:
+            image = image.to(self.compute_dtype)
+        return self.visual(image, attn_impl=self.visual_attn_impl)
+
+    @staticmethod
+    def _latent(head, embeds):
+        return l2norm(head(embeds).float())
+
+    @torch.no_grad()
+    def encode_text(self, text):
+        """(b, n) token ids → (b, dim_latent) l2-normed fp32 latents."""
+        return self._latent(self.to_text_latent, self._encode_text(text)[:, 0])
+
+    @torch.no_grad()
+    def encode_image(self, image):
+        """(b, c, H, W) images → (b, dim_latent) l2-normed fp32 latents."""
+        return self._latent(self.to_visual_latent,
+                            self._encode_image(image)[:, 0])
+
+    @torch.no_grad()
+    def forward(self, text, image, *, return_encodings: bool = False,
+                return_latents: bool = False, text_to_image: bool = True):
+        enc_text = self._encode_text(text)
+        enc_image = self._encode_image(image)
+        if return_encodings:
+            return enc_text, enc_image
+        text_embeds, image_embeds = enc_text[:, 0], enc_image[:, 0]
+        tl = self._latent(self.to_text_latent, text_embeds)
+        il = self._latent(self.to_visual_latent, image_embeds)
+        tl_extra, il_extra = tl, il
+        if self.extra_latent_projection:
+            tl_extra = self._latent(self.to_text_latent_extra, text_embeds)
+            il_extra = self._latent(self.to_visual_latent_extra, image_embeds)
+        if return_latents:
+            if self.extra_latent_projection:
+                return tl, il, tl_extra, il_extra
+            return tl, il
+        temp = self.temperature.to(self._dtype()).float().exp()
+        if self.extra_latent_projection and not text_to_image:
+            tl, il = tl_extra, il_extra
+        return (tl * il).sum(dim=-1) * temp

@@ -1,0 +1,54 @@
+"""Text tower — the counterpart of `xclip_tpu/nn/text.py` for the inference
+slice: token embedding plus learned absolute position embedding, a learned
+CLS token prepended with the padding mask extended by a leading True, the
+transformer stack. Returns the full (b, n + 1, dim) sequence."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .core import Embedding
+from .layers import Transformer
+
+
+class TextTransformer(nn.Module):
+    def __init__(self, dim: int, num_tokens: int, max_seq_len: int,
+                 depth: int = 6, heads: int = 8, dim_head: int = 64,
+                 rotary_pos_emb: bool = False, causal: bool = False,
+                 ff_mult: int = 4, ff_impl: str = "xla", *, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if rotary_pos_emb:
+            raise NotImplementedError(
+                "text_rotary_pos_emb is not ported yet: ROADMAP.md Queue 1, "
+                "item 2 (rotary) and Queue 2, K6")
+        if causal:
+            raise NotImplementedError(
+                "a causal text tower (text_causal_mask, EOS pooling) is not "
+                "ported yet: ROADMAP.md Queue 1, items 3 and 5")
+        self.dim, self.ff_impl = dim, ff_impl
+        self.token_emb = Embedding(num_tokens, dim, generator=generator,
+                                   dtype=dtype)
+        self.abs_pos_emb = Embedding(max_seq_len, dim, generator=generator,
+                                     dtype=dtype)
+        cls = torch.empty(dim, dtype=torch.float32).normal_(generator=generator)
+        self.cls_token = nn.Parameter(cls.to(dtype))
+        self.transformer = Transformer(dim, depth=depth, dim_head=dim_head,
+                                       heads=heads, ff_mult=ff_mult,
+                                       generator=generator, dtype=dtype)
+
+    def forward(self, x, mask=None, *, attn_impl: str = "xla", dtype=None):
+        """x: (b, n) token ids; mask: (b, n) bool or None. `dtype` is the
+        compute dtype (default: the parameters')."""
+        b, n = x.shape
+        dtype = dtype or self.token_emb.emb.dtype
+        h = self.token_emb(x).to(dtype)
+        h = h + self.abs_pos_emb.emb[:n].to(dtype)[None]
+        cls = self.cls_token.to(dtype).expand(b, 1, self.dim)
+        h = torch.cat([cls, h], dim=1)
+        if mask is not None:
+            mask = F.pad(mask, (1, 0), value=True)
+        return self.transformer(h, mask, attn_impl=attn_impl,
+                                ff_impl=self.ff_impl)
