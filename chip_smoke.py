@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
-main path: flagship-width CLIP inference (dim 512, 6 + 6 layers, 257-row
-text, 64-patch vision, GEGLU inner 2048, bf16) through the kernels.
-One line per phase; any failure exits non-zero, and nothing is caught.
+main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
+64-patch vision, GEGLU inner 2048, bf16): inference through the forward
+kernels K-FF and K-MEGA, and the train step through the training kernels
+K1 (stored-GEGLU FF block) and K2 (stored attention megablock), forward
+and backward. One line per phase; any failure exits non-zero, and nothing
+is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -20,12 +23,28 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              with the plain routes on the same weights (bf16 and fp32).
   5 times    CUDA-event medians: pairs/s at b = 256 on the kernel and plain
              routes; each kernel against its plain version at b = 256.
+  6 train-kernels  K1 forward and both backward passes at the text (65,792
+             rows) and vision (8,192 rows) shapes, K2 forward and backward
+             at (256, 257, 512, 8 x 64), bf16, against their plain versions
+             on the card: max_abs_err and tolerance of every output and
+             gradient; CUDA-event times of kernel and plain version.
+  7 train-golden  one fp32 train step of the tiny CLIP of the golden file
+             on the kernel routes against the JAX package's loss, gradients
+             and updated parameters.
+  8 train    the flagship train step at b = 256, bf16, AdamW lr 1e-4 (the
+             rung-1 config of bench.py): 2 warm-up and 5 timed steps on the
+             kernel routes, then on the plain routes from the same initial
+             weights; pairs/s from CUDA events, peak memory, launch counts
+             per step, finite losses, the first near ln 256, and the
+             device's idle share and top kernels over one profiled step
+             (after one more to warm the profiler up).
 
 The last lines are the kernels' JSON record, the card line as nvidia-smi
 prints it, and {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -122,6 +141,287 @@ def texts(gen, b, seq=256, vocab=10000):
     return ids * (torch.arange(seq, device="cuda")[None] < lengths[:, None])
 
 
+# (key, record name, source, Pallas body replaced) of the training kernels
+TRAIN_KERNELS = [
+    ("k1_fwd", "K1 ff_block forward (stored GEGLU)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:303"),
+    ("k1_p1", "K1 ff_block backward pass 1 (dx)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:625"),
+    ("k1_p2", "K1 ff_block backward pass 2 (dW)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:841"),
+    ("k2_fwd", "K2 attention_block forward (stored)",
+     "xclip_tpu_torch/csrc/attention_megablock.cu",
+     "xclip_tpu/kernels/attention_megablock.py:359"),
+    ("k2_bwd", "K2 attention_block backward (stored)",
+     "xclip_tpu_torch/csrc/attention_megablock.cu",
+     "xclip_tpu/kernels/attention_megablock.py:396"),
+]
+
+
+def ulps2(want):
+    """Two bf16 ulps at the largest magnitude of `want` (fp32 values of a
+    bf16 computation: both sides round at the same places, and only
+    summation order can flip a rounding)."""
+    top = max(float(want.float().abs().max()), 2.0 ** -20)
+    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def compare_all(label, got, want, names):
+    """Each output against its plain version at two bf16 ulps of its own
+    magnitude; returns the largest max_abs_err."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        worst = max(worst, compare(f"{label} {name}", g, w, ulps2(w)))
+    return worst
+
+
+def train_kernels(gen, ffb, mega):
+    """Phase 6: K1 and K2, forward and backward, at the flagship shapes."""
+    phase(6, "train-kernels", "bf16 kernel vs plain version on the card")
+    dt = torch.bfloat16
+    errs, ms = {}, {}
+    for label, rows in (("text", 256 * 257), ("vision", 256 * 32)):
+        args = ff_inputs(gen, rows, dt)
+        tag = f"K1 ({rows}, 512) -> 2x2048"
+        out, stored = ffb.ff_block_fwd_stored(*args)
+        want_out, want_stored = ffb.ff_block_fwd_stored_plain(*args)
+        e_fwd = compare_all(tag, (out, *stored), (want_out, *want_stored),
+                            ("out", "prod", "gelu_b", "agdb", "stats"))
+        do = rand(gen, rows, 512, dtype=dt)
+        p1 = ffb.ff_block_bwd_p1(*args, do, want_stored)
+        want_p1 = ffb.ff_block_bwd_p1_plain(*args, do, want_stored)
+        e_p1 = compare_all(tag, (*p1[:4], *p1[4]),
+                           (*want_p1[:4], *want_p1[4]),
+                           ("dx", "dprod", "dg_pre", "dg_inner", "xn", "dh2",
+                            "y2"))
+        ops = want_p1[4]
+        e_p2 = compare_all(tag, ffb.ff_block_bwd_p2(*ops, do),
+                           ffb.ff_block_bwd_p2_plain(*ops, do),
+                           ("dw_in", "dw_out"))
+        del p1, want_p1, out, stored, want_out
+        if label == "text":
+            errs.update(k1_fwd=e_fwd, k1_p1=e_p1, k1_p2=e_p2)
+            ms["k1_fwd"] = (cuda_ms(lambda: ffb.ff_block_fwd_stored(*args)),
+                            cuda_ms(lambda: ffb.ff_block_fwd_stored_plain(
+                                *args)))
+            ms["k1_p1"] = (
+                cuda_ms(lambda: ffb.ff_block_bwd_p1(*args, do, want_stored)),
+                cuda_ms(lambda: ffb.ff_block_bwd_p1_plain(*args, do,
+                                                          want_stored)))
+            ms["k1_p2"] = (cuda_ms(lambda: ffb.ff_block_bwd_p2(*ops, do)),
+                           cuda_ms(lambda: ffb.ff_block_bwd_p2_plain(*ops,
+                                                                     do)))
+        del ops, want_stored, args, do
+        torch.cuda.empty_cache()
+    b = 256
+    lengths = torch.randint(1, 258, (b,), generator=gen,
+                            device="cuda").tolist()
+    args = mega_inputs(gen, b, 257, 512, 8, dt, lengths)
+    static = (8, 64, 64 ** -0.5, False, True)
+    tag = "K2 (256, 257, 512) 8x64 key-pad"
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    errs["k2_fwd"] = compare_all(
+        tag, (out, *stored), (want_out, *want_stored),
+        ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = rand(gen, b, 257, 512, dtype=dt)
+    errs["k2_bwd"] = compare_all(
+        tag, mega.attention_block_bwd(*args, do, want_stored, *static),
+        mega.attention_block_bwd_plain(*args, do, want_stored, *static),
+        ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out", "dqkv"))
+    del out, stored, want_out
+    ms["k2_fwd"] = (
+        cuda_ms(lambda: mega.attention_block_fwd_stored(*args, *static)),
+        cuda_ms(lambda: mega.attention_block_fwd_stored_plain(*args,
+                                                              *static)))
+    ms["k2_bwd"] = (
+        cuda_ms(lambda: mega.attention_block_bwd(*args, do, want_stored,
+                                                 *static)),
+        cuda_ms(lambda: mega.attention_block_bwd_plain(*args, do,
+                                                       want_stored, *static)))
+    torch.cuda.synchronize()
+    for key, name, _, _ in TRAIN_KERNELS:
+        print(f"  {name}: kernel {ms[key][0]:.3f} ms, plain "
+              f"{ms[key][1]:.3f} ms", flush=True)
+    del args, do, want_stored
+    torch.cuda.empty_cache()
+    return errs, ms
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                 make_train_step):
+    """Phase 7: one fp32 train step on the card against the JAX golden."""
+    from xclip_tpu_torch.convert import to_jax_tree
+    g = np.load(GOLDEN)
+    config = json.loads(str(g["config"]))
+    opt = json.loads(str(g["train_optimizer"]))
+    tiny = CLIP(**config, device="cuda")
+    load_jax_params(tiny, numpy_params(config, int(g["seed"])))
+    step = make_train_step(tiny, default_optimizer(tiny.parameters(), **opt))
+    metrics = step(torch.from_numpy(g["train_text"]).cuda(),
+                   torch.from_numpy(g["train_images"]).cuda(),
+                   keep_idx=torch.from_numpy(g["train_keep_idx"]).cuda())
+    loss_err = abs(metrics["loss"].item() - float(g["train_loss"]))
+    norm_err = abs(metrics["grad_norm"].item() - float(g["train_grad_norm"]))
+    grad_worst = param_worst = 0.0
+    for name, got in _flat(to_jax_tree(tiny, grads=True)):
+        want = g[f"grad/{name}"]
+        err = float(np.abs(got - want).max())
+        if not err <= 1e-3 * float(np.abs(want).max()) + 1e-5:
+            fail(f"golden train step: gradient {name} differs by {err:.3e}")
+        grad_worst = max(grad_worst, err)
+    for name, got in _flat(to_jax_tree(tiny)):
+        err = float(np.abs(got - g[f"param1/{name}"]).max())
+        if not err <= 1e-5:
+            fail(f"golden train step: parameter {name} differs by {err:.3e}")
+        param_worst = max(param_worst, err)
+    if not (loss_err <= 1e-5 and norm_err <= 1e-4):
+        fail(f"golden train step: loss err {loss_err:.3e}, grad norm err "
+             f"{norm_err:.3e}")
+    phase(7, "train-golden", f"tiny CLIP fp32 train step (kernel routes) vs "
+          f"JAX: loss err {loss_err:.3e} (tol 1e-5), grad_norm err "
+          f"{norm_err:.3e} (tol 1e-4), max grad err {grad_worst:.3e} (tol "
+          f"1e-3 of the leaf's magnitude + 1e-5), max param err after the "
+          f"step {param_worst:.3e} (tol 1e-5)")
+
+
+def device_events(prof):
+    """The profiler's device activity (kernels, copies, sets), without the
+    user-annotation ranges it mirrors on the device timeline."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def idle_share(prof):
+    """1 - (union of device-event intervals) / (first start to last end)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events(prof))
+    if not spans:
+        fail("the profiler saw no device activity")
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    return 1.0 - busy / window, busy / 1e3, window / 1e3
+
+
+def top_kernels(prof, k=12):
+    """(total device ms, [(ms, count, name)] of the k longest) over the
+    profiler's device events, grouped by name."""
+    by_name = {}
+    for e in device_events(prof):
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + (e.time_range.end - e.time_range.start) / 1e3,
+                           c + 1)
+    rows = sorted(((t, c, name) for name, (t, c) in by_name.items()),
+                  reverse=True)
+    return sum(r[0] for r in rows), rows[:k]
+
+
+def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
+    """Phase 8: the flagship train step on the kernel and plain routes."""
+    b, warm, timed = 256, 2, 5
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256,
+                                       dtype=torch.bfloat16)
+    kernel = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
+                  compute_dtype="bfloat16", device="cuda", seed=0)
+    init = {k: v.clone() for k, v in kernel.state_dict().items()}
+    counters = {"k1_fwd": ffb.ff_block_fwd_stored, "k1_p1": ffb.ff_block_bwd_p1,
+                "k1_p2": ffb.ff_block_bwd_p2,
+                "k2_fwd": mega.attention_block_fwd_stored,
+                "k2_bwd": mega.attention_block_bwd}
+    results = {}
+    for route, routes in (("kernel", KERNEL_ROUTES), ("plain", PLAIN_ROUTES)):
+        model = kernel if route == "kernel" else CLIP(
+            **FLAGSHIP, **routes, param_dtype=torch.bfloat16,
+            compute_dtype="bfloat16", device="cuda")
+        model.load_state_dict(init)
+        step = make_train_step(model, default_optimizer(model.parameters(),
+                                                        learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(100 + i))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if route == "kernel":
+            for fn in counters.values():
+                fn.launches = 0
+        losses = [run(i)["loss"] for i in range(warm)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [run(warm + i)["loss"] for i in range(timed)]
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / timed
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the first profiled step only warms the profiler up
+        for i in range(2):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run(warm + timed + i)
+                torch.cuda.synchronize()
+        idle, busy_ms, window_ms = idle_share(prof)
+        losses = torch.stack(losses).float().cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"{route} routes: a loss is not finite: {losses.tolist()}")
+        if not abs(losses[0].item() - math.log(b)) <= 0.5:
+            fail(f"{route} routes: first loss {losses[0].item():.4f} is not "
+                 f"within 0.5 of ln {b} = {math.log(b):.4f}")
+        results[route] = (step_ms, peak, idle, busy_ms, window_ms, losses)
+        print(f"  {route} routes: {b * 1e3 / step_ms:.1f} pairs/s "
+              f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
+              f"idle share {idle:.4f} over one step (device busy "
+              f"{busy_ms:.2f} of {window_ms:.2f} ms), losses "
+              + " ".join(f"{v:.4f}" for v in losses.tolist()), flush=True)
+        total, rows = top_kernels(prof)
+        for t, count, key in rows:
+            print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
+                  f"{key[:90]}", flush=True)
+        if route == "kernel":
+            per_step = {k: v / (warm + timed) for k, v in counts.items()}
+            want = {"k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, "k2_fwd": 6,
+                    "k2_bwd": 6}
+            if per_step != want:
+                fail(f"training launches per step {per_step}, expected "
+                     f"{want}")
+            launches = counts
+        del model, step
+        torch.cuda.empty_cache()
+    k, p = results["kernel"], results["plain"]
+    phase(8, "train", f"{card}: flagship train step b={b} bf16: kernel "
+          f"routes {b * 1e3 / k[0]:.1f} pairs/s ({k[0]:.2f} ms, peak "
+          f"{k[1]:.2f} GiB, idle {k[2]:.4f}), plain routes "
+          f"{b * 1e3 / p[0]:.1f} pairs/s ({p[0]:.2f} ms, peak {p[1]:.2f} "
+          f"GiB, idle {p[2]:.4f}); launches per step K1 fwd/p1/p2 12, "
+          f"K2 fwd/bwd 6")
+    return launches
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -139,6 +439,7 @@ def main():
     from xclip_tpu_torch import CLIP
     from xclip_tpu_torch import eval as teval
     from xclip_tpu_torch.convert import load_jax_params, numpy_params
+    from xclip_tpu_torch.train import default_optimizer, make_train_step
     from xclip_tpu_torch.kernels import _build
     from xclip_tpu_torch.kernels import attention_megablock as mega
     from xclip_tpu_torch.kernels import fused_ff_block as ffb
@@ -305,6 +606,18 @@ def main():
           f"{times[('mega', 'text')][1]:.3f} ms", flush=True)
     torch.cuda.synchronize()
 
+    # ---------------------------------------------------------------- 6
+    train_errs, train_ms = train_kernels(gen, ffb, mega)
+
+    # ---------------------------------------------------------------- 7
+    train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                 make_train_step)
+
+    # ---------------------------------------------------------------- 8
+    del clip, plain
+    train_launches = train_flagship(card, CLIP, default_optimizer,
+                                    make_train_step, ffb, mega)
+
     record = {"kernels": [
         {"name": "K-FF ff_block forward", "route": "cuda",
          "source": "xclip_tpu_torch/csrc/fused_ff_block.cu",
@@ -320,6 +633,12 @@ def main():
          "ms": times[("mega", "text")][0],
          "plain_ms": times[("mega", "text")][1]},
     ]}
+    for key, name, source, replaces in TRAIN_KERNELS:
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[key],
+            "max_abs_err": train_errs[key], "ms": train_ms[key][0],
+            "plain_ms": train_ms[key][1]})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

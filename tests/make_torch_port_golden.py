@@ -1,13 +1,21 @@
 """Write `tests/data/torch_port_golden.npz`: the JAX package's outputs for a
 tiny CLIP on numpy-seeded weights, for the PyTorch port to be held to on a
-machine without JAX (`tests/test_torch_golden.py` on the CPU, phase 3 of
-`chip_smoke.py` on the GPU).
+machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3 and
+7 of `chip_smoke.py` on the GPU).
+
+Regenerate it on a machine with JAX (the repo's CPU environment will do;
+Pallas runs in interpret mode), from the repo root:
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 
 The file holds the config, the weight seed, the inputs and the outputs
 (scores, latents, the first rows of both encodings); the weights are
-rebuilt from the seed with `xclip_tpu_torch.convert.numpy_params`.
+rebuilt from the seed with `xclip_tpu_torch.convert.numpy_params`. It also
+holds one training step of JAX's `make_train_step` with
+`default_optimizer(**TRAIN_OPTIMIZER)`: the batch, the patch indices its
+rng keeps (replayed as `CLIPModel.apply` draws them), the loss and
+pre-clip gradient norm, every gradient (`grad/<path>`) and every parameter
+after the step (`param1/<path>`), paths joined by "/".
 """
 
 import json
@@ -23,6 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import xclip_tpu  # noqa: E402
+from xclip_tpu.train import trainer  # noqa: E402
 from xclip_tpu_torch.convert import numpy_params  # noqa: E402
 
 OUT = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
@@ -33,6 +42,52 @@ CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
               visual_patch_size=16, attn_impl="fused",
               visual_attn_impl="xla", ff_impl="block_stored")
 SEED = 11
+TRAIN_OPTIMIZER = dict(learning_rate=1e-4, warmup_steps=2, total_steps=10)
+TRAIN_RNG = 7
+
+
+def flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v, np.float32)
+
+
+def keep_idx(rng, b, num_patches, prob):
+    """The patch indices `CLIPModel.apply(..., rng=rng, training=True)`
+    keeps: the vision tower takes `RngStream(rng)`'s second key and draws
+    uniform scores from the first half of its split."""
+    rng_pd, _ = jax.random.split(jax.random.fold_in(rng, 1))
+    scores = jax.random.uniform(rng_pd, (b, num_patches))
+    _, idx = jax.lax.top_k(scores, max(1, int(num_patches * (1 - prob))))
+    return np.asarray(idx)
+
+
+def train_step(clip, params, text, images):
+    rng = jax.random.PRNGKey(TRAIN_RNG)
+    jt, ji = jnp.asarray(text), jnp.asarray(images)
+
+    def loss_fn(p):
+        return clip.model.apply(p, jt, ji, return_loss=True, rng=rng,
+                                training=True)
+
+    grads = jax.grad(loss_fn)(params)
+    opt = trainer.default_optimizer(**TRAIN_OPTIMIZER)
+    state = trainer.TrainState(params=params, opt_state=opt.init(params),
+                               step=jnp.zeros((), jnp.int32))
+    step = trainer.make_train_step(clip.model, opt, donate=False)
+    state, metrics = step(state, jt, ji, rng)
+    num_patches = (CONFIG["visual_image_size"]
+                   // CONFIG["visual_patch_size"]) ** 2
+    out = {"train_optimizer": json.dumps(TRAIN_OPTIMIZER),
+           "train_text": text, "train_images": images,
+           "train_keep_idx": keep_idx(rng, text.shape[0], num_patches, 0.5),
+           "train_loss": np.asarray(metrics["loss"]),
+           "train_grad_norm": np.asarray(metrics["grad_norm"])}
+    out.update({f"grad/{k}": v for k, v in flat(grads)})
+    out.update({f"param1/{k}": v for k, v in flat(state.params)})
+    return out
 
 
 def main():
@@ -48,11 +103,17 @@ def main():
     sims = clip(jt, ji, params=params)
     tl, il = clip(jt, ji, return_latents=True, params=params)
     et, ei = clip(jt, ji, return_encodings=True, params=params)
+    npr = np.random.RandomState(SEED + 2)
+    train_text = npr.randint(1, 100, (6, 16))
+    for i in range(6):
+        train_text[i, 16 - 2 * i:] = 0
+    train_images = npr.randn(6, 3, 32, 32).astype(np.float32)
     np.savez_compressed(
         OUT, config=json.dumps(CONFIG), seed=SEED, text=text, images=images,
         sims=np.asarray(sims), text_latents=np.asarray(tl),
         image_latents=np.asarray(il), enc_text_head=np.asarray(et[:, :3]),
-        enc_image_head=np.asarray(ei[:, :3]))
+        enc_image_head=np.asarray(ei[:, :3]),
+        **train_step(clip, params, train_text, train_images))
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
 
 

@@ -6,8 +6,12 @@ module imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (`--noconftest`: the suite's conftest configures JAX). fp32 is compared at
-1e-4 absolute with TF32 off; bf16 at two storage ulps.
+1e-4 absolute with TF32 off; bf16 at two storage ulps. The training
+kernels' outputs and gradients are compared at 1e-4 (fp32) or two bf16
+ulps of each tensor's largest magnitude.
 """
+
+import math
 
 import pytest
 import torch
@@ -57,3 +61,125 @@ def test_attention_block_kernel_matches_plain(cuda_device, dtype, causal,
     want = mega.attention_block_plain(*args, *static)
     atol = 1e-4 if dtype == "float32" else BF16_ATOL
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------- training: K1, K2
+
+def _grad_atol(want, dtype):
+    """fp32: 1e-4 of the tensor's largest magnitude (dW sums every row, in
+    another order); bf16: two storage ulps of it."""
+    top = max(float(want.float().abs().max()), 1.0)
+    if dtype == "float32":
+        return 1e-4 * top
+    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _assert_all_close(got, want, dtype, names):
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=_grad_atol(w, dtype), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,dim,inner", [(130, 128, 256), (77, 64, 128),
+                                            (8192, 512, 2048)])
+def test_ff_block_train_kernels_match_plain(cuda_device, dtype, rows, dim,
+                                            inner):
+    args = to_torch(ff_args(R=rows, D=dim, I=inner), getattr(torch, dtype),
+                    cuda_device)
+    counts = (ffb.ff_block_fwd_stored.launches, ffb.ff_block_bwd_p1.launches,
+              ffb.ff_block_bwd_p2.launches)
+    out, stored = ffb.ff_block_fwd_stored(*args)
+    want_out, want_stored = ffb.ff_block_fwd_stored_plain(*args)
+    _assert_all_close((out, *stored), (want_out, *want_stored), dtype,
+                      ("out", "prod", "gelu_b", "agdb", "stats"))
+    do = torch.randn(rows, dim, device=cuda_device).to(args[0].dtype)
+    p1 = ffb.ff_block_bwd_p1(*args, do, want_stored)
+    want_p1 = ffb.ff_block_bwd_p1_plain(*args, do, want_stored)
+    names = ("dx", "dprod", "dg_pre", "dg_inner")
+    _assert_all_close(p1[:4], want_p1[:4], dtype, names)
+    _assert_all_close(p1[4], want_p1[4], dtype, ("xn", "dh2", "y2"))
+    p2 = ffb.ff_block_bwd_p2(*want_p1[4], do)
+    _assert_all_close(p2, ffb.ff_block_bwd_p2_plain(*want_p1[4], do), dtype,
+                      ("dw_in", "dw_out"))
+    assert (ffb.ff_block_fwd_stored.launches, ffb.ff_block_bwd_p1.launches,
+            ffb.ff_block_bwd_p2.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("n,dim,heads", [(70, 128, 2), (33, 64, 1)])
+def test_attention_block_train_kernels_match_plain(cuda_device, dtype, causal,
+                                                   mask_kind, n, dim, heads):
+    args = to_torch(mega_args(n=n, dim=dim, heads=heads, mask_kind=mask_kind),
+                    getattr(torch, dtype), cuda_device)
+    static = (heads, 64, 0.125, causal, mask_kind != "none")
+    counts = (mega.attention_block_fwd_stored.launches,
+              mega.attention_block_bwd.launches)
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    _assert_all_close((out, *stored), (want_out, *want_stored), dtype,
+                      ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = torch.randn(*out.shape, device=cuda_device).to(out.dtype)
+    got = mega.attention_block_bwd(*args, do, want_stored, *static)
+    want = mega.attention_block_bwd_plain(*args, do, want_stored, *static)
+    _assert_all_close(got, want, dtype, ("dx", "dg_pre", "dw_qkv", "dw_out",
+                                         "dg_out", "dqkv"))
+    assert (mega.attention_block_fwd_stored.launches,
+            mega.attention_block_bwd.launches) == (counts[0] + 1,
+                                                   counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_attention_block_train_kernels_flagship_shape(cuda_device):
+    """(b, n, dim, heads) = (16, 257, 512, 8), bf16, key-pad mask."""
+    torch.manual_seed(0)
+    b, n, dim, heads = 16, 257, 512, 8
+    dt = torch.bfloat16
+    lengths = torch.randint(1, n + 1, (b,), device=cuda_device)
+    mask = torch.arange(n, device=cuda_device)[None] < lengths[:, None]
+    hd = heads * 64
+    args = [torch.randn(b, n, dim, device=cuda_device).to(dt),
+            (1 + 0.1 * torch.randn(dim, device=cuda_device)).to(dt),
+            (torch.randn(dim, 3 * hd, device=cuda_device) / dim ** 0.5).to(dt),
+            (torch.randn(hd, dim, device=cuda_device) / hd ** 0.5).to(dt),
+            (1 + 0.1 * torch.randn(dim, device=cuda_device)).to(dt), mask]
+    static = (heads, 64, 64 ** -0.5, False, True)
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    _assert_all_close((out, *stored), (want_out, *want_stored), "bfloat16",
+                      ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = torch.randn_like(out)
+    _assert_all_close(
+        mega.attention_block_bwd(*args, do, want_stored, *static),
+        mega.attention_block_bwd_plain(*args, do, want_stored, *static),
+        "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out", "dqkv"))
+
+
+@pytest.mark.cuda
+def test_training_kernels_are_deterministic(cuda_device):
+    """No float atomics: two backward runs agree bit for bit."""
+    args = to_torch(mega_args(n=70, dim=128, heads=2, mask_kind="keypad"),
+                    torch.bfloat16, cuda_device)
+    out, stored = mega.attention_block_fwd_stored(*args, 2, 64, 0.125)
+    do = torch.randn(*out.shape, device=cuda_device).to(out.dtype)
+    a = mega.attention_block_bwd(*args, do, stored, 2, 64, 0.125)
+    b = mega.attention_block_bwd(*args, do, stored, 2, 64, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    fargs = to_torch(ff_args(R=4000, D=128, I=256), torch.bfloat16,
+                     cuda_device)
+    _, fstored = ffb.ff_block_fwd_stored(*fargs)
+    do = torch.randn(4000, 128, device=cuda_device).to(torch.bfloat16)
+    p1a = ffb.ff_block_bwd_p1(*fargs, do, fstored)
+    p1b = ffb.ff_block_bwd_p1(*fargs, do, fstored)
+    assert all(torch.equal(x, y) for x, y in zip(p1a[:4], p1b[:4]))
+    assert all(torch.equal(x, y) for x, y in
+               zip(ffb.ff_block_bwd_p2(*p1a[4], do),
+                   ffb.ff_block_bwd_p2(*p1b[4], do)))

@@ -1,7 +1,10 @@
 """The port on the CPU against committed JAX outputs
 (`tests/data/torch_port_golden.npz`, written by
-`tests/make_torch_port_golden.py`): the same check that `chip_smoke.py`
-makes on the GPU, where there is no JAX. fp32, 1e-4 absolute."""
+`tests/make_torch_port_golden.py`): the same checks that `chip_smoke.py`
+makes on the GPU (phases 3 and 7), where there is no JAX. fp32; outputs
+1e-4 absolute; one train step's loss 1e-5, gradients rtol 1e-3 with atol
+1e-5 times the leaf's largest magnitude, parameters after the step 2e-6
+(a few ulps of the O(1) weights, the step moves each by about 1e-4)."""
 
 import json
 from pathlib import Path
@@ -10,7 +13,8 @@ import numpy as np
 import torch
 
 import xclip_tpu_torch
-from xclip_tpu_torch.convert import load_jax_params, numpy_params
+from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
+from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 
@@ -29,3 +33,39 @@ def test_port_matches_jax_golden():
     for name, value in got.items():
         np.testing.assert_allclose(value.numpy(), g[name], atol=1e-4, rtol=0,
                                    err_msg=name)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def test_train_step_matches_jax_golden():
+    g = np.load(GOLDEN)
+    config = json.loads(str(g["config"]))
+    clip = xclip_tpu_torch.CLIP(**config)
+    load_jax_params(clip, numpy_params(config, int(g["seed"])))
+    opt = default_optimizer(clip.parameters(),
+                            **json.loads(str(g["train_optimizer"])))
+    metrics = make_train_step(clip, opt)(
+        torch.from_numpy(g["train_text"]), torch.from_numpy(g["train_images"]),
+        keep_idx=torch.from_numpy(g["train_keep_idx"]))
+    np.testing.assert_allclose(metrics["loss"].item(), g["train_loss"],
+                               atol=1e-5)
+    np.testing.assert_allclose(metrics["grad_norm"].item(),
+                               g["train_grad_norm"], rtol=1e-5)
+    grads = dict(_flat(to_jax_tree(clip, grads=True)))
+    params = dict(_flat(to_jax_tree(clip)))
+    assert {f"grad/{k}" for k in grads} == {k for k in g.files
+                                            if k.startswith("grad/")}
+    for name, got in grads.items():
+        want = g[f"grad/{name}"]
+        np.testing.assert_allclose(
+            got, want, rtol=1e-3,
+            atol=1e-5 * max(1.0, float(np.abs(want).max())), err_msg=name)
+    for name, got in params.items():
+        np.testing.assert_allclose(got, g[f"param1/{name}"], rtol=0,
+                                   atol=2e-6, err_msg=name)

@@ -1,9 +1,11 @@
 """xclip_tpu_torch: the PyTorch/CUDA port of xclip_tpu for one NVIDIA H100.
 
-This slice serves CLIP inference. Plain tensor code is PyTorch; the two
-Pallas kernels on the inference path are hand-written CUDA kernels for
-Hopper (`csrc/`), built with nvcc at first use. The package never imports
-JAX; `xclip_tpu` is the reference it is tested against.
+The port serves CLIP inference and trains it (`CLIP(..., return_loss=True)`,
+`train.make_train_step`). Plain tensor code is PyTorch; the Pallas kernels
+on those paths are hand-written CUDA kernels for Hopper (`csrc/`), built
+with nvcc at first use, each training kernel an autograd Function with a
+kernel backward. The package never imports JAX; `xclip_tpu` is the
+reference it is tested against.
 """
 
 from .api import CLIP

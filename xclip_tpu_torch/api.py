@@ -4,14 +4,18 @@
 Port additions (keyword-only): `device=` (where the parameters live; a CUDA
 device that is not there raises, nothing falls back to the CPU), `seed=` /
 `generator=` (a `torch.Generator` for initialisation; `seed` makes one).
+`forward` adds `generator=` and `keep_idx=` (the randomness of a training
+forward's patch dropout; by default the model's own call generator, as
+the JAX `CLIP` folds a call counter into its key) and `return_metrics=`.
 
-This slice serves inference. A flag whose behaviour is not ported raises
-`NotImplementedError` naming the ROADMAP.md item that will port it; flags
-that only act in training (`checkpoint_during_training`, `remat_policy`,
-the loss weights, `decoupled_contrastive_learning`, `visual_patch_dropout`)
-are kept for the training slice and have no effect at inference, as in the
-JAX model. `scan_layers` is a JAX compilation choice: layers are always an
-`nn.ModuleList` here.
+The port serves inference and trains (`return_loss=True`, and
+`train.make_train_step`). A flag whose behaviour is not ported raises
+`NotImplementedError` naming the ROADMAP.md item that will port it, at
+construction or, for flags that only act in training
+(`checkpoint_during_training`, `sim_reg_loss_weight`, augmented views),
+when a training forward meets them. `remat_policy` only qualifies
+`checkpoint_during_training`. `scan_layers` is a JAX compilation choice:
+layers are always an `nn.ModuleList` here.
 """
 
 from __future__ import annotations
@@ -128,6 +132,7 @@ class CLIP(nn.Module):
                 dim=dim_text, num_tokens=num_text_tokens,
                 max_seq_len=text_seq_len, depth=text_enc_depth,
                 heads=text_heads, dim_head=text_dim_head, ff_impl=ff_impl,
+                checkpoint_during_training=checkpoint_during_training,
                 generator=generator, dtype=dtype)
         if image_encoder is None:
             image_encoder = VisionTransformer(
@@ -135,16 +140,23 @@ class CLIP(nn.Module):
                 patch_size=visual_patch_size, channels=channels,
                 patch_dropout=visual_patch_dropout, depth=visual_enc_depth,
                 heads=visual_heads, dim_head=visual_dim_head,
-                ff_impl=ff_impl, generator=generator, dtype=dtype)
+                ff_impl=ff_impl,
+                checkpoint_during_training=checkpoint_during_training,
+                generator=generator, dtype=dtype)
         self.model = CLIPModel(
             text_encoder, image_encoder, dim_text=dim_text,
             dim_image=dim_image, dim_latent=dim_latent,
             text_pad_id=text_pad_id,
             text_encode_without_mask=text_encode_without_mask,
             extra_latent_projection=extra_latent_projection,
+            decoupled_contrastive_learning=decoupled_contrastive_learning,
             attn_impl=attn_impl, visual_attn_impl=visual_attn_impl,
             compute_dtype=compute_dtype, generator=generator, dtype=dtype)
+        self.sim_reg_loss_weight = sim_reg_loss_weight
         self.to(device)
+        # patch-dropout draws of training calls that bring no generator
+        call_seed = int(torch.randint(2 ** 62, (1,), generator=generator))
+        self.call_generator = torch.Generator(device).manual_seed(call_seed)
 
     # reference-style attribute aliases
     @property
@@ -169,16 +181,30 @@ class CLIP(nn.Module):
                 aug_text=None,
                 aug_image=None,
                 *,
-                training=None):
-        """Inference scores, encodings or latents. The freeze flags stop
+                training=None,
+                return_metrics=False,
+                generator=None,
+                keep_idx=None):
+        """Inference scores, encodings or latents; with `return_loss` (which
+        makes `training` default to True) the contrastive loss of a training
+        forward, differentiable in every parameter. The freeze flags stop
         gradients only, so at inference they change nothing."""
         training = return_loss if training is None else training
-        if return_loss or training:
-            _not_ported("training and return_loss=True",
-                        "Queue 1, items 4 and 6 (training slice)")
         if aug_text is not None or aug_image is not None:
-            raise ValueError("do not pass in augmented texts or images if "
-                             "not training")
-        return self.model(text, image, return_encodings=return_encodings,
+            if not training:
+                raise ValueError("do not pass in augmented texts or images "
+                                 "if not training")
+            _not_ported("augmented views in training (aug_text / aug_image,"
+                        " the multiview loss)", "Queue 1, item 4")
+        if training and return_loss and self.sim_reg_loss_weight > 0:
+            _not_ported("sim_reg_loss_weight > 0", "Queue 1, item 4")
+        if training and generator is None and keep_idx is None:
+            generator = self.call_generator
+        return self.model(text, image, return_loss=return_loss,
+                          return_encodings=return_encodings,
                           return_latents=return_latents,
-                          text_to_image=text_to_image)
+                          text_to_image=text_to_image,
+                          freeze_image_encoder=freeze_image_encoder,
+                          freeze_text_encoder=freeze_text_encoder,
+                          training=training, return_metrics=return_metrics,
+                          generator=generator, keep_idx=keep_idx)

@@ -9,7 +9,10 @@ stacks the per-layer leaves along a leading `(depth, ...)` axis under
 
 `load_jax_params(model, tree)` fills a port model from the JAX package's
 param tree (nested dicts of numpy arrays, JAX arrays converted with
-`np.asarray`), strictly. `numpy_params(config, seed)` builds such a tree from
+`np.asarray`), strictly. `to_jax_tree(model)` is the reverse map: the
+port's parameters, or with `grads=True` their `.grad` (zeros where there
+is none, as JAX differentiates every leaf), as a JAX-layout tree of fp32
+numpy arrays with the depth axis restacked. `numpy_params(config, seed)` builds such a tree from
 `np.random.RandomState(seed)`, the same numbers on every machine, so the
 JAX package and the port can be given identical weights without JAX.
 """
@@ -67,6 +70,42 @@ def load_jax_params(model, tree) -> None:
         src = torch.from_numpy(np.asarray(value, dtype=np.float32))
         with torch.no_grad():
             param.copy_(src.to(param.dtype))
+
+
+def _restack(flat):
+    """`...layers.<i>.<leaf>` → `...layers.<leaf>` of shape (depth, ...)."""
+    stacks, out = {}, {}
+    for name, value in flat.items():
+        parts = name.split(".")
+        if "layers" in parts:
+            i = parts.index("layers") + 1
+            key = ".".join(parts[:i] + parts[i + 1:])
+            stacks.setdefault(key, {})[int(parts[i])] = value
+        else:
+            out[name] = value
+    for key, by_depth in stacks.items():
+        out[key] = np.stack([by_depth[d] for d in sorted(by_depth)])
+    return out
+
+
+def to_jax_tree(model, *, grads: bool = False) -> dict:
+    """The JAX-layout param tree of `model` (a `CLIP` or a `CLIPModel`) as
+    nested dicts of fp32 numpy arrays: its parameters, or their gradients."""
+    model = getattr(model, "model", model)
+    flat = {}
+    for name, param in model.named_parameters():
+        t = param.grad if grads else param
+        if t is None:
+            t = torch.zeros_like(param)
+        flat[name] = t.detach().float().cpu().numpy()
+    tree = {}
+    for name, value in _restack(flat).items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
 
 
 def _clip_defaults():

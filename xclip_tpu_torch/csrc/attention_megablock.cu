@@ -1,8 +1,14 @@
-// K-MEGA: the whole attention block forward,
-//     out = x + LN_gout(attention(LN_gpre(x) @ w_qkv) @ w_out),
-// in place of the Pallas kernel `_fwd_kernel` (with `_fwd_common`) of
-// xclip_tpu/kernels/attention_megablock.py, reached through `_mega_fwd`
-// with need_residuals=False (the inference forward of `attention_block`).
+// The whole attention block,
+//     out = x + LN_gout(attention(LN_gpre(x) @ w_qkv) @ w_out):
+//   * K-MEGA, the inference forward, in place of the Pallas kernel
+//     `_fwd_kernel` (with `_fwd_common`) of
+//     xclip_tpu/kernels/attention_megablock.py, reached through `_mega_fwd`
+//     with need_residuals=False;
+//   * K2, the stored variant that training runs (`store_qkv=True`): the
+//     forward in place of `_fwd_kernel_stored` (the same five launches,
+//     also keeping the residuals and statistics the backward reads) and
+//     the backward in place of `_bwd_kernel_stored` with `_mega_bwd_vjp`'s
+//     dW_qkv product (its source note is further down).
 //
 // Cast order (as the Pallas kernel): LN_pre in fp32, xn cast to the storage
 // dtype; qkv = xn @ w_qkv accumulates in fp32 and is cast to the storage
@@ -40,6 +46,17 @@ constexpr int KC = 64;       // keys staged per step
 constexpr int DH = 64;       // dim_head
 constexpr int ALD = DH + 1;  // padded row stride of the staged q/k/v rows
 
+// The training forward keeps each row's softmax max m (0 on a dead row) and
+// normaliser l per head: sm is (b*n) x (2*heads), m at column h, l at
+// heads + h.
+__device__ __forceinline__ void store_softmax_stats(float* sm, int bi, int n,
+                                                    int q, int h, int heads,
+                                                    float m, float l) {
+  float* row = sm + ((long)bi * n + q) * 2 * heads;
+  row[h] = m;
+  row[heads + h] = l;
+}
+
 // --- fp32: FMAs from shared memory
 
 size_t attention_fma_smem_bytes(int n) {
@@ -51,7 +68,7 @@ __global__ void __launch_bounds__(xclip::kThreads)
 attention_fma_kernel(const T* __restrict__ qkv,
                      const uint8_t* __restrict__ mask, T* __restrict__ attnout,
                      int n, int heads, float scale, int causal,
-                     int maybe_dead) {
+                     int maybe_dead, float* __restrict__ sm) {
   using namespace xclip;
   // one dynamic shared-memory array per translation unit: every kernel
   // declares it alike and casts
@@ -110,6 +127,8 @@ attention_fma_kernel(const T* __restrict__ qkv,
       sum += p;
     }
     const float l = fmaxf(warp_sum(sum), 1e-30f);
+    if (sm && lane == 0)
+      store_softmax_stats(sm, bi, n, q0 + r, h, heads, mx, l);
     for (int j = lane; j < n; j += 32) sr[j] = round_to<T>(sr[j] / l);
   }
 
@@ -184,7 +203,8 @@ __global__ void __launch_bounds__(xclip::kThreads)
 attention_tc_kernel(const xclip::bf16* __restrict__ qkv,
                     const uint8_t* __restrict__ mask,
                     xclip::bf16* __restrict__ attnout, int n, int heads,
-                    float scale, int causal, int maybe_dead) {
+                    float scale, int causal, int maybe_dead,
+                    float* __restrict__ sm) {
   using namespace xclip;
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -258,6 +278,8 @@ attention_tc_kernel(const xclip::bf16* __restrict__ qkv,
       sum += e;
     }
     const float l = fmaxf(warp_sum(sum), 1e-30f);
+    if (sm && lane == 0)
+      store_softmax_stats(sm, bi, n, q0 + r, h, heads, mx, l);
     for (int j = lane; j < L.n_pad; j += 32)
       pr[j] = from_f<bf16>(j < n ? sr[j] / l : 0.f);
   }
@@ -299,7 +321,7 @@ attention_tc_kernel(const xclip::bf16* __restrict__ qkv,
 template <typename T>
 int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
                      int n, int heads, float scale, int causal, int maybe_dead,
-                     cudaStream_t st) {
+                     float* sm, cudaStream_t st) {
   const dim3 grid((n + QT - 1) / QT, heads, b);
   cudaError_t e;
   if constexpr (std::is_same<T, xclip::bf16>::value) {
@@ -309,7 +331,7 @@ int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     attention_tc_kernel<<<grid, xclip::kThreads, smem, st>>>(
-        qkv, mask, attnout, n, heads, scale, causal, maybe_dead);
+        qkv, mask, attnout, n, heads, scale, causal, maybe_dead, sm);
   } else {
     const size_t smem = attention_fma_smem_bytes(n);
     e = cudaFuncSetAttribute(attention_fma_kernel<T>,
@@ -317,32 +339,465 @@ int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     attention_fma_kernel<T><<<grid, xclip::kThreads, smem, st>>>(
-        qkv, mask, attnout, n, heads, scale, causal, maybe_dead);
+        qkv, mask, attnout, n, heads, scale, causal, maybe_dead, sm);
   }
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
+// The same five launches serve inference (K-MEGA) and the training
+// forward (K2, `_fwd_kernel_stored`): with `sm`, the attention kernel also
+// keeps its softmax statistics; with `ln_stats` (4 x rows: mean_pre,
+// inv_pre, mean_o, inv_o) the two LayerNorm launches keep theirs, and the
+// out-LN launch writes proj rounded to T into `proj_s` (the statistics come
+// from the fp32 proj, as in the Pallas kernel). qkv and attnout are the
+// stored residuals as they stand.
 template <typename T>
 int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
                         const T* w_out, const T* g_out, const uint8_t* mask,
                         T* out, T* xn, T* qkv, T* attnout, float* proj, int b,
                         int n, int dim, int heads, float scale, int causal,
-                        int maybe_dead, float eps, cudaStream_t st) {
+                        int maybe_dead, float eps, cudaStream_t st,
+                        T* proj_s = nullptr, float* sm = nullptr,
+                        float* ln_stats = nullptr) {
   using namespace xclip;
   const int rows = b * n, hd = heads * DH;
+  float* ls = ln_stats;
   int e;
-  if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, xn, rows, dim, eps, st)))
+  if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, xn, rows, dim, eps, st,
+                                ls, ls ? ls + rows : nullptr)))
     return e;
   if ((e = launch_mm<T, kStore>(xn, w_qkv, nullptr, qkv, rows, 3 * hd, dim, st)))
     return e;
   if ((e = launch_attention<T>(qkv, mask, attnout, b, n, heads, scale, causal,
-                               maybe_dead, st)))
+                               maybe_dead, sm, st)))
     return e;
   if ((e = launch_mm<T, kStoreF32>(attnout, w_out, nullptr, proj, rows, dim,
                                    hd, st)))
     return e;
-  return launch_ln_rows<float, T>(proj, g_out, x, out, rows, dim, eps, st);
+  return launch_ln_rows<float, T>(proj, g_out, x, out, rows, dim, eps, st,
+                                  ls ? ls + 2 * rows : nullptr,
+                                  ls ? ls + 3 * rows : nullptr, proj_s);
+}
+
+// ------------------------------------------------------------ K2 backward
+//
+// In place of `_bwd_kernel_stored` (with `_mega_bwd_vjp`'s dW_qkv product)
+// of xclip_tpu/kernels/attention_megablock.py. From the forward's stored
+// qkv, attnout, proj (T) and fp32 statistics, per batch element:
+//   dproj = T(LN_out vjp of do)           dg_out = sum of do * xhat_o
+//   dattn = dproj · w_outᵀ (fp32)          dW_out = attnoutᵀ · dproj
+//   per head: p = (dead ? 1 : exp(s - m)) / l from the stored m, l (not
+//   re-reduced), delta = scale * sum_d dattn * attnout, dp = T(dattn *
+//   scale) · vᵀ, ds = T(dead ? 0 : p * (dp - delta)), dq = ds · k,
+//   dk = dsᵀ · q, dv = T(p)ᵀ · T(dattn), each cast to T once
+//   dxn = dqkv · w_qkvᵀ (fp32), dx = T(LN_pre vjp + do), dg_pre
+//   dW_qkv = xnᵀ · dqkv, xn rebuilt from the stored mean_pre / inv_pre.
+// One head's 257 x 257 fp32 scores exceed a block's shared memory, and dk,
+// dv sum over every query while dq sums over every key. So the attention
+// part is two kernels, each owning its outputs (no atomics): a query-tile
+// kernel (32 queries x all keys, as the forward) gives dq and the row terms
+// delta; a key-tile kernel (64 keys, walking all queries 32 at a time)
+// recomputes s and dp for its keys and gives dk and dv. The products, LN
+// backwards and column sums are common.cuh's, dW through ordered split
+// partials, so two runs agree bit for bit.
+//
+// What bounds it on the card: s and dp are computed twice (once per
+// attention kernel), all on wmma 16x16x16 from shared memory; the
+// surrounding products on the wmma tiling; the fp32 dattn and dxn round
+// trips through HBM.
+constexpr int BQ = 32;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int PLD = BK + 8;   // row stride of the T key-tile rows (p, ds)
+
+// C (M x N, fp32, row stride ldc) (+)= opA · opB over K, in shared memory,
+// by the block's kThreads threads. opA(i, k) = ACOL ? a[i + k * lda] :
+// a[i * lda + k]; opB(k, j) = BCOL ? b[k + j * ldb] : b[k * ldb + j]. bf16:
+// wmma 16x16x16 tiles, one warp per output tile in turn; fp32: FMAs in k
+// order. The caller synchronises around it.
+template <int M, int N, bool ACOL, bool BCOL, typename T>
+__device__ void block_mma(float* C, int ldc, const T* a, int lda, const T* b,
+                          int ldb, int K, bool accumulate) {
+  if constexpr (std::is_same<T, xclip::bf16>::value) {
+    using namespace nvcuda;
+    using LA = typename std::conditional<ACOL, wmma::col_major,
+                                         wmma::row_major>::type;
+    using LB = typename std::conditional<BCOL, wmma::col_major,
+                                         wmma::row_major>::type;
+    constexpr int TN = N / 16;
+    for (int t = threadIdx.x >> 5; t < (M / 16) * TN;
+         t += xclip::kThreads / 32) {
+      const int ti = t / TN, tj = t % TN;
+      float* cp = C + ti * 16 * ldc + tj * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+      if (accumulate)
+        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
+      else
+        wmma::fill_fragment(c, 0.f);
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, xclip::bf16, LA> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, xclip::bf16, LB> fb;
+        wmma::load_matrix_sync(
+            fa, ACOL ? a + ti * 16 + k0 * lda : a + ti * 16 * lda + k0, lda);
+        wmma::load_matrix_sync(
+            fb, BCOL ? b + k0 + tj * 16 * ldb : b + k0 * ldb + tj * 16, ldb);
+        wmma::mma_sync(c, fa, fb, c);
+      }
+      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < M * N; idx += xclip::kThreads) {
+      const int i = idx / N, j = idx % N;
+      float s = accumulate ? C[i * ldc + j] : 0.f;
+      for (int k = 0; k < K; ++k)
+        s = fmaf(ACOL ? a[i + k * lda] : a[i * lda + k],
+                 BCOL ? b[k + j * ldb] : b[k * ldb + j], s);
+      C[i * ldc + j] = s;
+    }
+  }
+}
+
+// Stage rows [r0, r0 + rows) of the 64 columns at `col` (row stride ld) as
+// rows of stride QLD; rows at or past n read as 0.
+template <typename T>
+__device__ __forceinline__ void stage_head(T* dst, const T* base, int ld,
+                                           int col, int r0, int rows, int n) {
+  if constexpr (std::is_same<T, xclip::bf16>::value) {
+    stage_rows(dst, base, ld, col, r0, rows, n);
+  } else {
+    for (int i = threadIdx.x; i < rows * DH; i += xclip::kThreads) {
+      const int r = i / DH, d = i % DH;
+      dst[r * QLD + d] = r0 + r < n ? base[(long)(r0 + r) * ld + col + d] : 0.f;
+    }
+  }
+}
+
+// The first valid key of a batch element's mask (n if none): a row q is
+// dead when no key up to q (causal) or none at all is valid.
+__device__ int first_valid_key(const uint8_t* mrow, int n) {
+  __shared__ int fv;
+  if (threadIdx.x == 0) fv = n;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += xclip::kThreads)
+    if (mrow[j]) {
+      atomicMin(&fv, j);  // integer minimum: the same result in any order
+      break;
+    }
+  __syncthreads();
+  return fv;
+}
+
+struct DqLayout {
+  int n_pad, lds, ldp;
+  size_t sp, ds, qs, dos, kv, dpc, dqa, info, bytes;
+  __host__ __device__ DqLayout(int n, int tsize) {
+    n_pad = (n + BK - 1) / BK * BK;
+    lds = n_pad + 4;
+    ldp = n_pad + 8;
+    sp = 0;
+    ds = up128(sp + sizeof(float) * BQ * lds);
+    qs = up128(ds + (size_t)tsize * BQ * ldp);
+    dos = up128(qs + (size_t)tsize * BQ * QLD);
+    kv = up128(dos + (size_t)tsize * BQ * QLD);
+    dpc = up128(kv + (size_t)tsize * BK * QLD);
+    dqa = up128(dpc + sizeof(float) * BQ * OLD);
+    info = up128(dqa + sizeof(float) * BQ * OLD);
+    bytes = up128(info + sizeof(float) * 4 * BQ);
+  }
+};
+
+// dq for one (32-query tile, head, batch element), and delta for its rows.
+template <typename T>
+__global__ void __launch_bounds__(xclip::kThreads)
+attention_bwd_dq_kernel(const T* __restrict__ qkv,
+                        const uint8_t* __restrict__ mask,
+                        const float* __restrict__ dattn,
+                        const T* __restrict__ attnout,
+                        const float* __restrict__ sm, T* __restrict__ dqkv,
+                        float* __restrict__ delta, int n, int heads,
+                        float scale, int causal, int maybe_dead) {
+  using namespace xclip;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DqLayout L(n, sizeof(T));
+  float* sp = reinterpret_cast<float*>(smem + L.sp);
+  T* ds = reinterpret_cast<T*>(smem + L.ds);
+  T* qs = reinterpret_cast<T*>(smem + L.qs);
+  T* dos = reinterpret_cast<T*>(smem + L.dos);
+  T* kv = reinterpret_cast<T*>(smem + L.kv);
+  float* dpc = reinterpret_cast<float*>(smem + L.dpc);
+  float* dqa = reinterpret_cast<float*>(smem + L.dqa);
+  float* rm = reinterpret_cast<float*>(smem + L.info);
+  float* rl = rm + BQ;
+  float* rdelta = rl + BQ;
+  float* rdead = rdelta + BQ;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
+  const int hd = heads * DH, ld = 3 * hd;
+  const T* base = qkv + (long)bi * n * ld;
+  const uint8_t* mrow = mask + (long)bi * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fv = first_valid_key(mrow, n);
+
+  stage_head(qs, base, ld, h * DH, q0, BQ, n);
+  for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH, q = q0 + r;
+    dos[r * QLD + d] = from_f<T>(
+        q < n ? dattn[((long)bi * n + q) * hd + h * DH + d] * scale : 0.f);
+  }
+  for (int r = warp; r < BQ; r += kThreads / 32) {
+    const int q = q0 + r;
+    float dl = 0.f;
+    if (q < n)
+      for (int d = lane; d < DH; d += 32) {
+        const long o = ((long)bi * n + q) * hd + h * DH + d;
+        dl += dattn[o] * to_f(attnout[o]) * scale;
+      }
+    dl = warp_sum(dl);
+    if (lane == 0) {
+      const float* srow = sm + ((long)bi * n + (q < n ? q : 0)) * 2 * heads;
+      rm[r] = q < n ? srow[h] : 0.f;
+      rl[r] = q < n ? srow[heads + h] : 1.f;
+      rdelta[r] = dl;
+      rdead[r] = maybe_dead && (causal ? fv > q : fv >= n);
+      if (q < n) delta[((long)bi * n + q) * heads + h] = dl;
+    }
+  }
+  for (int j0 = 0; j0 < L.n_pad; j0 += BK) {  // s = q · kᵀ, raw fp32
+    __syncthreads();
+    stage_head(kv, base, ld, hd + h * DH, j0, BK, n);
+    __syncthreads();
+    block_mma<BQ, BK, false, true>(sp + j0, L.lds, qs, QLD, kv, QLD, DH,
+                                   false);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BQ * L.n_pad; i += kThreads) {
+    const int r = i / L.n_pad, j = i % L.n_pad, q = q0 + r;
+    float p = 0.f;
+    if (q < n && j < n) {
+      const bool valid = mrow[j] != 0 && !(causal && j > q);
+      const float v = valid ? sp[r * L.lds + j] * scale : -INFINITY;
+      p = (rdead[r] != 0.f ? 1.f : expf(v - rm[r])) / rl[r];
+    }
+    sp[r * L.lds + j] = p;
+  }
+  for (int j0 = 0; j0 < L.n_pad; j0 += BK) {  // dp, ds
+    __syncthreads();
+    stage_head(kv, base, ld, 2 * hd + h * DH, j0, BK, n);
+    __syncthreads();
+    block_mma<BQ, BK, false, true>(dpc, OLD, dos, QLD, kv, QLD, DH, false);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
+      const int r = i / BK, c = i % BK, j = j0 + c, q = q0 + r;
+      float v = 0.f;
+      if (q < n && j < n && rdead[r] == 0.f)
+        v = sp[r * L.lds + j] * (dpc[r * OLD + c] - rdelta[r]);
+      ds[r * L.ldp + j] = from_f<T>(v);
+    }
+  }
+  for (int j0 = 0; j0 < L.n_pad; j0 += BK) {  // dq = ds · k
+    __syncthreads();
+    stage_head(kv, base, ld, hd + h * DH, j0, BK, n);
+    __syncthreads();
+    block_mma<BQ, DH, false, false>(dqa, OLD, ds + j0, L.ldp, kv, QLD, BK,
+                                    j0 > 0);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    if (q0 + r < n)
+      dqkv[((long)bi * n + q0 + r) * ld + h * DH + d] =
+          from_f<T>(dqa[r * OLD + d]);
+  }
+}
+
+struct DkvLayout {
+  size_t ks, vs, qs, dos, dov, sc, dpc, pT, dsT, dka, dva, info, bytes;
+  __host__ __device__ explicit DkvLayout(int tsize) {
+    ks = 0;
+    vs = up128(ks + (size_t)tsize * BK * QLD);
+    qs = up128(vs + (size_t)tsize * BK * QLD);
+    dos = up128(qs + (size_t)tsize * BQ * QLD);
+    dov = up128(dos + (size_t)tsize * BQ * QLD);
+    sc = up128(dov + (size_t)tsize * BQ * QLD);
+    dpc = up128(sc + sizeof(float) * BQ * OLD);
+    pT = up128(dpc + sizeof(float) * BQ * OLD);
+    dsT = up128(pT + (size_t)tsize * BQ * PLD);
+    dka = up128(dsT + (size_t)tsize * BQ * PLD);
+    dva = up128(dka + sizeof(float) * BK * OLD);
+    info = up128(dva + sizeof(float) * BK * OLD);
+    bytes = up128(info + sizeof(float) * 4 * BQ);
+  }
+};
+
+// dk and dv for one (64-key tile, head, batch element), over every query.
+template <typename T>
+__global__ void __launch_bounds__(xclip::kThreads)
+attention_bwd_dkv_kernel(const T* __restrict__ qkv,
+                         const uint8_t* __restrict__ mask,
+                         const float* __restrict__ dattn,
+                         const float* __restrict__ sm,
+                         const float* __restrict__ delta, T* __restrict__ dqkv,
+                         int n, int heads, float scale, int causal,
+                         int maybe_dead) {
+  using namespace xclip;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DkvLayout L(sizeof(T));
+  T* ks = reinterpret_cast<T*>(smem + L.ks);
+  T* vs = reinterpret_cast<T*>(smem + L.vs);
+  T* qs = reinterpret_cast<T*>(smem + L.qs);
+  T* dos = reinterpret_cast<T*>(smem + L.dos);
+  T* dov = reinterpret_cast<T*>(smem + L.dov);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* dpc = reinterpret_cast<float*>(smem + L.dpc);
+  T* pT = reinterpret_cast<T*>(smem + L.pT);
+  T* dsT = reinterpret_cast<T*>(smem + L.dsT);
+  float* dka = reinterpret_cast<float*>(smem + L.dka);
+  float* dva = reinterpret_cast<float*>(smem + L.dva);
+  float* rm = reinterpret_cast<float*>(smem + L.info);
+  float* rl = rm + BQ;
+  float* rdelta = rl + BQ;
+  float* rdead = rdelta + BQ;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, bi = blockIdx.z;
+  const int hd = heads * DH, ld = 3 * hd;
+  const T* base = qkv + (long)bi * n * ld;
+  const uint8_t* mrow = mask + (long)bi * n;
+  const int fv = first_valid_key(mrow, n);
+
+  stage_head(ks, base, ld, hd + h * DH, k0, BK, n);
+  stage_head(vs, base, ld, 2 * hd + h * DH, k0, BK, n);
+  for (int r0 = 0; r0 < n; r0 += BQ) {
+    __syncthreads();
+    stage_head(qs, base, ld, h * DH, r0, BQ, n);
+    for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
+      const int r = i / DH, d = i % DH, q = r0 + r;
+      const float a =
+          q < n ? dattn[((long)bi * n + q) * hd + h * DH + d] : 0.f;
+      dos[r * QLD + d] = from_f<T>(a * scale);
+      dov[r * QLD + d] = from_f<T>(a);
+    }
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      const int q = r0 + r;
+      const long row = (long)bi * n + (q < n ? q : 0);
+      rm[r] = q < n ? sm[row * 2 * heads + h] : 0.f;
+      rl[r] = q < n ? sm[row * 2 * heads + heads + h] : 1.f;
+      rdelta[r] = q < n ? delta[row * heads + h] : 0.f;
+      rdead[r] = maybe_dead && (causal ? fv > q : fv >= n);
+    }
+    __syncthreads();
+    block_mma<BQ, BK, false, true>(sc, OLD, qs, QLD, ks, QLD, DH, false);
+    block_mma<BQ, BK, false, true>(dpc, OLD, dos, QLD, vs, QLD, DH, false);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
+      const int r = i / BK, c = i % BK, q = r0 + r, j = k0 + c;
+      float p = 0.f, v = 0.f;
+      if (q < n && j < n) {
+        const bool valid = mrow[j] != 0 && !(causal && j > q);
+        const float s = valid ? sc[r * OLD + c] * scale : -INFINITY;
+        p = (rdead[r] != 0.f ? 1.f : expf(s - rm[r])) / rl[r];
+        if (rdead[r] == 0.f) v = p * (dpc[r * OLD + c] - rdelta[r]);
+      }
+      pT[r * PLD + c] = from_f<T>(p);
+      dsT[r * PLD + c] = from_f<T>(v);
+    }
+    __syncthreads();
+    block_mma<BK, DH, true, false>(dka, OLD, dsT, PLD, qs, QLD, BQ, r0 > 0);
+    block_mma<BK, DH, true, false>(dva, OLD, pT, PLD, dov, QLD, BQ, r0 > 0);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BK * DH; i += kThreads) {
+    const int c = i / DH, d = i % DH, j = k0 + c;
+    if (j < n) {
+      const long o = ((long)bi * n + j) * ld + h * DH + d;
+      dqkv[o + hd] = from_f<T>(dka[c * OLD + d]);
+      dqkv[o + 2 * hd] = from_f<T>(dva[c * OLD + d]);
+    }
+  }
+}
+
+template <typename T>
+struct MegaBwdBuffers {
+  T* dproj;
+  float* dattn;
+  float* delta;
+  float* dxn;
+  T* xn;
+  float* part_out;
+  float* part_pre;
+  float* wpart;
+  MegaBwdBuffers(xclip::Workspace& ws, int b, int n, int dim, int heads) {
+    using namespace xclip;
+    const int rows = b * n, hd = heads * DH;
+    const bool tc = std::is_same<T, bf16>::value;
+    dproj = ws.take<T>((size_t)rows * dim);
+    dattn = ws.take<float>((size_t)rows * hd);
+    delta = ws.take<float>((size_t)rows * heads);
+    dxn = ws.take<float>((size_t)rows * dim);
+    xn = ws.take<T>((size_t)rows * dim);
+    part_out = ws.take<float>((size_t)ln_bwd_blocks(rows) * dim);
+    part_pre = ws.take<float>((size_t)ln_bwd_blocks(rows) * dim);
+    wpart = ws.take<float>(
+        std::max(weight_grad_part_bytes(hd, dim, rows, tc),
+                 weight_grad_part_bytes(dim, 3 * hd, rows, tc)) /
+        sizeof(float));
+  }
+};
+
+template <typename T>
+int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
+                        const T* w_out, const T* g_out, const uint8_t* mask,
+                        const T* dout, const T* qkv, const T* attnout,
+                        const T* proj_s, const float* sm,
+                        const float* ln_stats, T* dx, T* dqkv, T* dw_qkv,
+                        T* dw_out, T* dg_pre, T* dg_out, void* workspace,
+                        int b, int n, int dim, int heads, float scale,
+                        int causal, int maybe_dead, cudaStream_t st) {
+  using namespace xclip;
+  const int rows = b * n, hd = heads * DH, nblk = ln_bwd_blocks(rows);
+  Workspace ws(workspace);
+  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  int e;
+  if ((e = launch_ln_bwd_rows<T, T, kLnBwd>(
+           dout, proj_s, ln_stats + 2 * rows, ln_stats + 3 * rows, g_out,
+           nullptr, w.dproj, w.part_out, rows, dim, st)))
+    return e;
+  if ((e = launch_reduce_parts<T>(w.part_out, dg_out, nblk, dim, st)))
+    return e;
+  if ((e = launch_gemm<T, false, true>(w.dproj, w_out, w.dattn, rows, hd, dim,
+                                       st)))
+    return e;
+  if ((e = launch_weight_grad<T>(attnout, w.dproj, dw_out, w.wpart, hd, dim,
+                                 rows, st)))
+    return e;
+  const size_t dq_smem = DqLayout(n, sizeof(T)).bytes;
+  const size_t dkv_smem = DkvLayout(sizeof(T)).bytes;
+  cudaError_t ce = cudaFuncSetAttribute(
+      attention_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dq_smem);
+  if (ce == cudaSuccess)
+    ce = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dkv_smem);
+  if (ce != cudaSuccess) return (int)ce;
+  attention_bwd_dq_kernel<T>
+      <<<dim3((n + BQ - 1) / BQ, heads, b), kThreads, dq_smem, st>>>(
+          qkv, mask, w.dattn, attnout, sm, dqkv, w.delta, n, heads, scale,
+          causal, maybe_dead);
+  XCLIP_CHECK_LAUNCH();
+  attention_bwd_dkv_kernel<T>
+      <<<dim3((n + BK - 1) / BK, heads, b), kThreads, dkv_smem, st>>>(
+          qkv, mask, w.dattn, sm, w.delta, dqkv, n, heads, scale, causal,
+          maybe_dead);
+  XCLIP_CHECK_LAUNCH();
+  if ((e = launch_gemm<T, false, true>(dqkv, w_qkv, w.dxn, rows, dim, 3 * hd,
+                                       st)))
+    return e;
+  if ((e = launch_ln_bwd_rows<float, T, kLnBwd>(
+           w.dxn, x, ln_stats, ln_stats + rows, g_pre, dout, dx, w.part_pre,
+           rows, dim, st, w.xn)))
+    return e;
+  if ((e = launch_reduce_parts<T>(w.part_pre, dg_pre, nblk, dim, st)))
+    return e;
+  return launch_weight_grad<T>(w.xn, dqkv, dw_qkv, w.wpart, dim, 3 * hd, rows,
+                               st);
 }
 
 }  // namespace
@@ -358,41 +813,85 @@ extern "C" int xclip_attention_block_max_n(int dtype) {
   return n;
 }
 
+// Largest sequence length the K2 backward takes in `dtype` (its query-tile
+// kernel keeps 32 full score rows in shared memory).
+extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
+  constexpr size_t kMax = 232448;
+  const int tsize = dtype == xclip::kF32 ? 4 : 2;
+  if (DkvLayout(tsize).bytes > kMax) return 0;
+  int n = BK;
+  while (DqLayout(n + BK, tsize).bytes <= kMax) n += BK;
+  return n;
+}
+
+static bool mega_args_ok(int dtype, int b, int n, int dim, int heads) {
+  return !(dim % 64 || b < 0 || n < 0 || heads <= 0 ||
+           n > xclip_attention_block_max_n(dtype));
+}
+
 // Returns a cudaError_t code (0 on success). x/out are (b, n, dim), mask is
 // (b, n) uint8 (nonzero = valid key); w_qkv (dim, 3*heads*64), w_out
-// (heads*64, dim), gains (dim). Scratch: xn (b*n, dim) and qkv (b*n, 3hd)
-// and attnout (b*n, hd) of the storage dtype, proj (b*n, dim) fp32.
+// (heads*64, dim), gains (dim). Scratch: xn (b*n, dim) and proj (b*n, dim)
+// fp32; qkv (b*n, 3hd) and attnout (b*n, hd) of the storage dtype, which
+// K2 keeps as residuals. K-MEGA passes null residual pointers; K2 passes
+// proj_s (b*n x dim, dtype), sm (b*n x 2*heads, fp32: m then l per head)
+// and ln_stats (4 x b*n, fp32: mean_pre, inv_pre, mean_o, inv_o).
 extern "C" int xclip_attention_block_fwd(
     int dtype, const void* x, const void* g_pre, const void* w_qkv,
     const void* w_out, const void* g_out, const void* mask, void* out,
-    void* xn, void* qkv, void* attnout, void* proj, int b, int n, int dim,
-    int heads, float scale, int causal, int maybe_dead, float eps,
-    void* stream) {
+    void* xn, void* qkv, void* attnout, void* proj, void* proj_s, void* sm,
+    void* ln_stats, int b, int n, int dim, int heads, float scale, int causal,
+    int maybe_dead, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dim % 64 || b < 0 || n < 0 || heads <= 0 ||
-      n > xclip_attention_block_max_n(dtype))
-    return (int)cudaErrorInvalidValue;
+  if (!mega_args_ok(dtype, b, n, dim, heads)) return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0) return 0;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  XCLIP_DISPATCH(dtype, attention_block_fwd<T>(
+      XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
+      XCLIP_PTR(const T*, w_qkv), XCLIP_PTR(const T*, w_out),
+      XCLIP_PTR(const T*, g_out), m, XCLIP_PTR(T*, out), XCLIP_PTR(T*, xn),
+      XCLIP_PTR(T*, qkv), XCLIP_PTR(T*, attnout), XCLIP_PTR(float*, proj), b,
+      n, dim, heads, scale, causal, maybe_dead, eps, st,
+      XCLIP_PTR(T*, proj_s), XCLIP_PTR(float*, sm),
+      XCLIP_PTR(float*, ln_stats)));
+}
+
+// Bytes of the workspace the K2 backward takes.
+extern "C" long long xclip_attention_block_bwd_workspace(int dtype, int b,
+                                                         int n, int dim,
+                                                         int heads) {
+  xclip::Workspace ws(nullptr);
   if (dtype == xclip::kBF16) {
-    using T = __nv_bfloat16;
-    return attention_block_fwd<T>(
-        static_cast<const T*>(x), static_cast<const T*>(g_pre),
-        static_cast<const T*>(w_qkv), static_cast<const T*>(w_out),
-        static_cast<const T*>(g_out), m, static_cast<T*>(out),
-        static_cast<T*>(xn), static_cast<T*>(qkv), static_cast<T*>(attnout),
-        static_cast<float*>(proj), b, n, dim, heads, scale, causal,
-        maybe_dead, eps, st);
+    MegaBwdBuffers<__nv_bfloat16> sizes(ws, b, n, dim, heads);
+  } else {
+    MegaBwdBuffers<float> sizes(ws, b, n, dim, heads);
   }
-  if (dtype == xclip::kF32) {
-    using T = float;
-    return attention_block_fwd<T>(
-        static_cast<const T*>(x), static_cast<const T*>(g_pre),
-        static_cast<const T*>(w_qkv), static_cast<const T*>(w_out),
-        static_cast<const T*>(g_out), m, static_cast<T*>(out),
-        static_cast<T*>(xn), static_cast<T*>(qkv), static_cast<T*>(attnout),
-        static_cast<float*>(proj), b, n, dim, heads, scale, causal,
-        maybe_dead, eps, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (long long)ws.used;
+}
+
+// K2 backward. Inputs as saved by the forward plus dout (b*n x dim);
+// outputs dx (b*n x dim), dqkv (b*n x 3*heads*64), dw_qkv, dw_out, dg_pre,
+// dg_out, all of the dtype.
+extern "C" int xclip_attention_block_bwd(
+    int dtype, const void* x, const void* g_pre, const void* w_qkv,
+    const void* w_out, const void* g_out, const void* mask, const void* dout,
+    const void* qkv, const void* attnout, const void* proj_s, const void* sm,
+    const void* ln_stats, void* dx, void* dqkv, void* dw_qkv, void* dw_out,
+    void* dg_pre, void* dg_out, void* workspace, int b, int n, int dim,
+    int heads, float scale, int causal, int maybe_dead, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mega_args_ok(dtype, b, n, dim, heads) || b == 0 || n == 0 ||
+      n > xclip_attention_block_bwd_max_n(dtype))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  XCLIP_DISPATCH(dtype, attention_block_bwd<T>(
+      XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
+      XCLIP_PTR(const T*, w_qkv), XCLIP_PTR(const T*, w_out),
+      XCLIP_PTR(const T*, g_out), m, XCLIP_PTR(const T*, dout),
+      XCLIP_PTR(const T*, qkv), XCLIP_PTR(const T*, attnout),
+      XCLIP_PTR(const T*, proj_s), XCLIP_PTR(const float*, sm),
+      XCLIP_PTR(const float*, ln_stats), XCLIP_PTR(T*, dx),
+      XCLIP_PTR(T*, dqkv), XCLIP_PTR(T*, dw_qkv), XCLIP_PTR(T*, dw_out),
+      XCLIP_PTR(T*, dg_pre), XCLIP_PTR(T*, dg_out), workspace, b, n, dim,
+      heads, scale, causal, maybe_dead, st));
 }

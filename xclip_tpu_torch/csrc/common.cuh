@@ -5,11 +5,20 @@
 //     dtype exactly where the JAX kernels cast (`.astype(x.dtype)`).
 //   * ln_rows_kernel: gain-only LayerNorm over rows with two-pass fp32
 //     statistics (xclip_tpu/kernels/_common.py ln_fp32), optionally followed
-//     by a residual add in the storage dtype.
-//   * launch_mm: a shared-memory tiled matrix product with fused epilogues.
-//     bf16 operands go through the tensor cores (nvcuda::wmma 16x16x16
-//     tiles fed by a cp.async ring); fp32 operands through an FMA tiling in
-//     full fp32 (no TF32).
+//     by a residual add in the storage dtype; optionally also stores each
+//     row's mean and rsqrt(var + eps) and the input rounded to the storage
+//     dtype (the training forwards' residuals).
+//   * ln_bwd_rows_kernel: the gain-only LayerNorm vjp over rows from stored
+//     statistics (xclip_tpu/kernels/_common.py ln_bwd), with the column sums
+//     for dg taken per block and reduced by reduce_parts_kernel in a fixed
+//     order, so two runs agree bit for bit (no float atomics anywhere).
+//   * launch_mm: a shared-memory tiled matrix product with fused epilogues,
+//     either operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B),
+//     the k axis optionally split into ranges that write fp32 partials
+//     (the weight gradients over the long row axis, summed in order by
+//     reduce_parts_kernel). bf16 operands go through the tensor cores
+//     (nvcuda::wmma 16x16x16 tiles fed by a cp.async ring); fp32 operands
+//     through an FMA tiling in full fp32 (no TF32).
 //
 // Everything sits in an anonymous namespace: each .cu file gets its own
 // copies of the template kernels, so linking several of them into one
@@ -22,6 +31,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace xclip {
@@ -69,12 +79,15 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr int kLnRowsPerBlock = 4;  // one warp per row
 
 // out[r] = T((in[r] - mean) * rsqrt(var + eps) * g), fp32 statistics; with
-// `resid`, out[r] = that value (cast to T) + resid[r], the add in T.
+// `resid`, out[r] = that value (cast to T) + resid[r], the add in T. With
+// `mean_out`, the row's mean and rsqrt(var + eps) go to mean_out[r] and
+// inv_out[r]; with `in_copy`, in[r] rounded to T goes to in_copy[r].
 template <typename Tin, typename T>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
 ln_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
                const T* __restrict__ resid, T* __restrict__ out, int rows,
-               int d, float eps) {
+               int d, float eps, float* __restrict__ mean_out,
+               float* __restrict__ inv_out, T* __restrict__ in_copy) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * kLnRowsPerBlock + warp;
   if (row >= rows) return;
@@ -88,44 +101,205 @@ ln_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
     v += c * c;
   }
   const float inv = rsqrtf(warp_sum(v) / (float)d + eps);
+  if (mean_out && lane == 0) {
+    mean_out[row] = mean;
+    inv_out[row] = inv;
+  }
   T* o = out + row * d;
   const T* rr = resid ? resid + row * d : nullptr;
   for (int i = lane; i < d; i += 32) {
     const float y = ((to_f(x[i]) - mean) * inv) * to_f(g[i]);
     o[i] = rr ? from_f<T>(round_to<T>(y) + to_f(rr[i])) : from_f<T>(y);
+    if (in_copy) in_copy[row * d + i] = from_f<T>(to_f(x[i]));
   }
 }
 
 template <typename Tin, typename T>
 int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
-                   int rows, int d, float eps, cudaStream_t st) {
+                   int rows, int d, float eps, cudaStream_t st,
+                   float* mean_out = nullptr, float* inv_out = nullptr,
+                   T* in_copy = nullptr) {
   const int grid = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
   ln_rows_kernel<Tin, T><<<grid, 32 * kLnRowsPerBlock, 0, st>>>(
-      in, g, resid, out, rows, d, eps);
+      in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+// ------------------------------------------------------ LayerNorm backward
+//
+// Per row r, from the stored statistics (mean[r], inv[r]) of the forward:
+//   xhat = (v - mean) * inv,  dyg = dy * g,
+//   val  = inv * (dyg - mean(dyg) - xhat * mean(dyg * xhat))
+// and the column sums of dy * xhat (dg) over the block's rows.
+//   kLnBwd:      out = T(val + resid) (resid optional); with xn_out also
+//                xn_out = T(xhat * g), the pre-LN output the dW products
+//                read.
+//   kLnBwdGeglu: the inner LayerNorm of the FF block, v = the stored
+//                product: out = dprod = T(val); dh = T([val * gb, val *
+//                agdb]) (rows x 2d) for the dx product; dh2 = the same from
+//                T(val) (the dW pass's operand, skipped when dh2 == dh, as
+//                in fp32); y2 = T(xhat * g).
+constexpr int kLnBwd = 0;
+constexpr int kLnBwdGeglu = 1;
+constexpr int kBwdWarps = 8;   // one warp per row at a time
+constexpr int kBwdRows = 64;   // rows per block (8 per warp)
+
+template <typename Tdy, typename T, int MODE>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const T* __restrict__ v,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ inv, const T* __restrict__ g,
+                   const T* __restrict__ resid, T* __restrict__ out,
+                   float* __restrict__ dg_part, int rows, int d,
+                   T* __restrict__ xn_out, const T* __restrict__ gb,
+                   const T* __restrict__ agdb, T* __restrict__ dh,
+                   T* __restrict__ dh2, T* __restrict__ y2) {
+  extern __shared__ float colsum[];  // kBwdWarps x d: one sum row per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* cs = colsum + warp * d;
+  for (int i = lane; i < d; i += 32) cs[i] = 0.f;
+  const long r0 = (long)blockIdx.x * kBwdRows;
+  for (int rr = warp; rr < kBwdRows; rr += kBwdWarps) {
+    const long r = r0 + rr;
+    if (r >= rows) break;
+    const float mu = mean[r], iv = inv[r];
+    const Tdy* dyr = dy + r * d;
+    const T* vr = v + r * d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float xhat = (to_f(vr[i]) - mu) * iv;
+      const float dyv = to_f(dyr[i]);
+      const float dyg = dyv * to_f(g[i]);
+      s1 += dyg;
+      s2 += dyg * xhat;
+      cs[i] += dyv * xhat;
+    }
+    const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
+    for (int i = lane; i < d; i += 32) {
+      const float xhat = (to_f(vr[i]) - mu) * iv;
+      const float gi = to_f(g[i]);
+      const float val = iv * (to_f(dyr[i]) * gi - m1 - xhat * m2);
+      const long o = r * d + i;
+      if (MODE == kLnBwd) {
+        out[o] = from_f<T>(resid ? val + to_f(resid[o]) : val);
+        if (xn_out) xn_out[o] = from_f<T>(xhat * gi);
+      } else {
+        const float gbv = to_f(gb[o]), agv = to_f(agdb[o]);
+        out[o] = from_f<T>(val);
+        dh[r * 2 * d + i] = from_f<T>(val * gbv);
+        dh[r * 2 * d + d + i] = from_f<T>(val * agv);
+        if (dh2 != dh) {
+          const float pr = round_to<T>(val);
+          dh2[r * 2 * d + i] = from_f<T>(pr * gbv);
+          dh2[r * 2 * d + d + i] = from_f<T>(pr * agv);
+        }
+        y2[o] = from_f<T>(xhat * gi);
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += 32 * kBwdWarps) {
+    float s = 0.f;
+    for (int w = 0; w < kBwdWarps; ++w) s += colsum[w * d + c];
+    dg_part[(long)blockIdx.x * d + c] = s;
+  }
+}
+
+inline int ln_bwd_blocks(int rows) { return (rows + kBwdRows - 1) / kBwdRows; }
+
+template <typename Tdy, typename T, int MODE>
+int launch_ln_bwd_rows(const Tdy* dy, const T* v, const float* mean,
+                       const float* inv, const T* g, const T* resid, T* out,
+                       float* dg_part, int rows, int d, cudaStream_t st,
+                       T* xn_out = nullptr, const T* gb = nullptr,
+                       const T* agdb = nullptr, T* dh = nullptr,
+                       T* dh2 = nullptr, T* y2 = nullptr) {
+  const int smem = kBwdWarps * d * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      ln_bwd_rows_kernel<Tdy, T, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  ln_bwd_rows_kernel<Tdy, T, MODE>
+      <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
+          dy, v, mean, inv, g, resid, out, dg_part, rows, d, xn_out, gb,
+          agdb, dh, dh2, y2);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+// out[i] = Tout(sum over p of part[p * n + i]), p in order 0, 1, ...
+template <typename Tout>
+__global__ void __launch_bounds__(256)
+reduce_parts_kernel(const float* __restrict__ part, Tout* __restrict__ out,
+                    int parts, long n) {
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+#pragma unroll 8
+  for (int p = 0; p < parts; ++p) s += part[(long)p * n + i];
+  out[i] = from_f<Tout>(s);
+}
+
+template <typename Tout>
+int launch_reduce_parts(const float* part, Tout* out, int parts, long n,
+                        cudaStream_t st) {
+  reduce_parts_kernel<Tout><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      part, out, parts, n);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
 // ------------------------------------------------------- matrix product
 //
-// out (m x n) = epilogue(A (m x k) @ B (k x n)), all row-major and dense,
-// k a multiple of 32 and n of 64. Epilogues (acc is the fp32 product):
+// out (m x n) = epilogue(opA · opB) over a k-range, fp32 accumulation:
+//   opA(i, kk) = TA ? A[kk * m + i] : A[i * k + kk]  (A is m x k, or k x m)
+//   opB(kk, j) = TB ? B[j * k + kk] : B[kk * n + j]  (B is k x n, or n x k)
+// The forwards multiply row-major operands (TA = TB = false). The backward
+// needs A·Bᵀ (TB; m = rows, k = a weight width) and Aᵀ·B (TA; k = rows, m
+// and n weight widths). m, n and k are multiples of 64 except the ragged
+// row axis, which is masked. The row axis of Aᵀ·B is long (65,792 text
+// rows) and its output small (a weight), so the grid's z axis may split k
+// into `parts` ranges of `k_split` that write separate fp32 partials (out +
+// z * m * n); reduce_parts_kernel sums them in order. Epilogues (acc is the
+// fp32 product):
 constexpr int kStore = 0;     // out (T)    = T(acc)
-constexpr int kStoreF32 = 1;  // out (fp32) = acc
+constexpr int kStoreF32 = 1;  // out (fp32) = acc, the z-th partial
 constexpr int kGeglu = 2;     // out (fp32) = a * gelu(b): B is (k, 2n),
                               //   a from columns [0, n), b from [n, 2n)
 constexpr int kResidual = 3;  // out (T)    = T(acc) + resid, added in T
+constexpr int kGegluTriple = 4;  // as kGeglu, and also aux1 (T) = gelu(b),
+                                 //   aux2 (T) = a * gelu'(b)
+
+__host__ __device__ constexpr bool is_geglu(int epi) {
+  return epi == kGeglu || epi == kGegluTriple;
+}
+
+struct Split {
+  int parts, k_split;  // k_split 0: the whole k in one range
+};
+
+inline Split gemm_split(int m, int n, int k, bool tensor_cores) {
+  const int tile = tensor_cores ? 128 : 64;
+  const long tiles = (long)((m + tile - 1) / tile) * ((n + tile - 1) / tile);
+  // about two blocks per SM of the 132, k-ranges of at least 1024 rows
+  long parts = (264 + tiles - 1) / tiles;
+  parts = parts < k / 1024 ? parts : k / 1024;
+  if (parts < 1) parts = 1;
+  const int k_split = (int)(((k + parts - 1) / parts + 31) / 32 * 32);
+  return Split{(k + k_split - 1) / k_split, k_split};
+}
 
 // Writes one tile of `out` from the fp32 tile C (shared, row stride cld).
 // C's columns [0, 64) are output columns [c0, c0 + 64) and, when c1 >= 0,
-// C's columns [64, 128) are output columns [c1, c1 + 64). For kGeglu, C's
-// columns [64, 128) hold the gate b of columns [0, 64) instead.
+// C's columns [64, 128) are output columns [c1, c1 + 64). For the GEGLU
+// epilogues, C's columns [64, 128) hold the gate b of columns [0, 64).
 template <typename T, int EPI, int NT>
 __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
                                            int row0, int m, int n, int c0,
-                                           int c1, void* out,
-                                           const T* resid) {
-  const int width = (EPI == kGeglu || c1 < 0) ? 64 : 128;
+                                           int c1, void* out, const T* resid,
+                                           void* aux1, void* aux2) {
+  const int width = (is_geglu(EPI) || c1 < 0) ? 64 : 128;
   for (int i = threadIdx.x; i < bm * width; i += NT) {
     const int r = i / width, c = i % width;
     if (row0 + r >= m) break;  // rows only grow with i
@@ -135,11 +309,19 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
       static_cast<T*>(out)[o] = from_f<T>(v);
     } else if (EPI == kStoreF32) {
       static_cast<float*>(out)[o] = v;
-    } else if (EPI == kGeglu) {
+    } else if (is_geglu(EPI)) {
+      // exact (erf) GELU, as jax.nn.gelu(approximate=False): gelu(b) =
+      // b * Phi(b); gelu'(b) = Phi(b) + b * phi(b), one erf and one exp
+      // (xclip_tpu/kernels/fused_ff_block.py _gelu_val_grad)
       const float b = C[r * cld + 64 + c];
-      // exact (erf) GELU, as jax.nn.gelu(approximate=False)
-      static_cast<float*>(out)[o] =
-          v * (0.5f * b * (1.f + erff(b * 0.70710678118654752f)));
+      const float phi = 0.5f * (1.f + erff(b * 0.70710678118654752f));
+      const float gelu_b = b * phi;
+      static_cast<float*>(out)[o] = v * gelu_b;
+      if (EPI == kGegluTriple) {
+        const float pdf = expf(-0.5f * b * b) * 0.3989422804014327f;
+        static_cast<T*>(aux1)[o] = from_f<T>(gelu_b);
+        static_cast<T*>(aux2)[o] = from_f<T>(v * (phi + b * pdf));
+      }
     } else {
       static_cast<T*>(out)[o] = from_f<T>(round_to<T>(v) + to_f(resid[o]));
     }
@@ -149,13 +331,21 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
 // --- bf16: tensor cores. 128x128 block tiles, 8 warps of 32x64 (2x4 wmma
 // 16x16x16 accumulators), a 3-stage cp.async ring of 32-deep k slices.
 // The tile's 128 columns are two 64-wide panels of B: [c0, c0+64) and
-// [c1, c1+64) — for kGeglu the a and b halves of the same output columns.
+// [c1, c1+64) — for the GEGLU epilogues the a and b halves of the same
+// output columns. Transposed operands are staged k-major and read through
+// wmma's col_major fragments.
 constexpr int TBM = 128, TBK = 32, TSTAGES = 3, kTcThreads = 256;
 constexpr int TLDA = TBK + 8, TLDB = 128 + 8, TCLD = 128 + 4;
-constexpr int kTcStageBytes = (TBM * TLDA + TBK * TLDB) * 2;
-constexpr int kTcSmemBytes = TSTAGES * kTcStageBytes > TBM * TCLD * 4
-                                 ? TSTAGES * kTcStageBytes
-                                 : TBM * TCLD * 4;
+
+template <bool TA, bool TB>
+struct MmLayout {
+  static constexpr int a_elems = TA ? TBK * TLDB : TBM * TLDA;
+  static constexpr int b_elems = TB ? 128 * TLDA : TBK * TLDB;
+  static constexpr int stage_bytes = (a_elems + b_elems) * 2;
+  static constexpr int smem_bytes = TSTAGES * stage_bytes > TBM * TCLD * 4
+                                        ? TSTAGES * stage_bytes
+                                        : TBM * TCLD * 4;
+};
 
 // 16-byte global → shared copy; zero-fills when !pred
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -171,16 +361,22 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int EPI>
+template <int EPI, bool TA, bool TB>
 __global__ void __launch_bounds__(kTcThreads)
 mm_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
              const bf16* __restrict__ resid, void* __restrict__ out, int m,
-             int n, int k) {
+             int n, int k, int k_split, void* __restrict__ aux1,
+             void* __restrict__ aux2) {
   using namespace nvcuda;
+  using L = MmLayout<TA, TB>;
+  using LayA = typename std::conditional<TA, wmma::col_major,
+                                         wmma::row_major>::type;
+  using LayB = typename std::conditional<TB, wmma::col_major,
+                                         wmma::row_major>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   const int row0 = blockIdx.x * TBM;
   int c0, c1, ldb;
-  if (EPI == kGeglu) {
+  if (is_geglu(EPI)) {
     c0 = blockIdx.y * 64;
     c1 = n + c0;
     ldb = 2 * n;
@@ -189,26 +385,45 @@ mm_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     c1 = c0 + 64 < n ? c0 + 64 : -1;
     ldb = n;
   }
+  const int kb = blockIdx.z * k_split;
+  const int ke = k < kb + k_split ? k : kb + k_split;
   auto stage_a = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * kTcStageBytes);
+    return reinterpret_cast<bf16*>(smem + s * L::stage_bytes);
   };
   auto stage_b = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * kTcStageBytes + TBM * TLDA * 2);
+    return reinterpret_cast<bf16*>(smem + s * L::stage_bytes +
+                                   L::a_elems * 2);
   };
   auto load = [&](int s, int k0) {
     bf16* as = stage_a(s);
     bf16* bs = stage_b(s);
     for (int c = threadIdx.x; c < TBM * TBK / 8; c += kTcThreads) {
-      const int r = c / (TBK / 8), kk = (c % (TBK / 8)) * 8;
-      const bool ok = row0 + r < m;
-      cp_async16(as + r * TLDA + kk, A + (long)(ok ? row0 + r : 0) * k + k0 + kk,
-                 ok);
+      if (TA) {  // a k-row of 128 consecutive i
+        const int kk = c / (TBM / 8), i = (c % (TBM / 8)) * 8;
+        const bool ok = k0 + kk < ke && row0 + i < m;
+        cp_async16(as + kk * TLDB + i,
+                   A + (ok ? (long)(k0 + kk) * m + row0 + i : 0), ok);
+      } else {   // an i-row of 32 consecutive k
+        const int r = c / (TBK / 8), kk = (c % (TBK / 8)) * 8;
+        const bool ok = row0 + r < m && k0 + kk < ke;
+        cp_async16(as + r * TLDA + kk,
+                   A + (ok ? (long)(row0 + r) * k + k0 + kk : 0), ok);
+      }
     }
     for (int c = threadIdx.x; c < TBK * 128 / 8; c += kTcThreads) {
-      const int r = c / 16, cc = (c % 16) * 8;
-      const bool ok = cc < 64 || c1 >= 0;
-      const int col = !ok ? 0 : cc < 64 ? c0 + cc : c1 + cc - 64;
-      cp_async16(bs + r * TLDB + cc, B + (long)(k0 + r) * ldb + col, ok);
+      if (TB) {  // a j-row of 32 consecutive k
+        const int j = c / (TBK / 8), kk = (c % (TBK / 8)) * 8;
+        const bool ok = (j < 64 || c1 >= 0) && k0 + kk < ke;
+        const int col = j < 64 ? c0 + j : c1 + j - 64;
+        cp_async16(bs + j * TLDA + kk,
+                   B + (ok ? (long)col * k + k0 + kk : 0), ok);
+      } else {   // a k-row of the two 64-column panels
+        const int kk = c / 16, cc = (c % 16) * 8;
+        const bool ok = (cc < 64 || c1 >= 0) && k0 + kk < ke;
+        const int col = cc < 64 ? c0 + cc : c1 + cc - 64;
+        cp_async16(bs + kk * TLDB + cc,
+                   B + (ok ? (long)(k0 + kk) * ldb + col : 0), ok);
+      }
     }
   };
 
@@ -220,30 +435,38 @@ mm_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  const int nk = k / TBK;
+  const int nk = ke > kb ? (ke - kb + TBK - 1) / TBK : 0;
 #pragma unroll
   for (int s = 0; s < TSTAGES - 1; ++s) {
-    if (s < nk) load(s, s * TBK);
+    if (s < nk) load(s, kb + s * TBK);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<TSTAGES - 2>();  // slice kt has landed
     __syncthreads();               // ... for every thread; slot kt-1 is free
     if (kt + TSTAGES - 1 < nk)
-      load((kt + TSTAGES - 1) % TSTAGES, (kt + TSTAGES - 1) * TBK);
+      load((kt + TSTAGES - 1) % TSTAGES, kb + (kt + TSTAGES - 1) * TBK);
     cp_async_commit();
     const bf16* as = stage_a(kt % TSTAGES);
     const bf16* bs = stage_b(kt % TSTAGES);
 #pragma unroll
     for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wr + 16 * i) * TLDA + kk, TLDA);
+      for (int i = 0; i < 2; ++i) {
+        if (TA)
+          wmma::load_matrix_sync(fa[i], as + kk * TLDB + wr + 16 * i, TLDB);
+        else
+          wmma::load_matrix_sync(fa[i], as + (wr + 16 * i) * TLDA + kk, TLDA);
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * TLDB + wc + 16 * j, TLDB);
+      for (int j = 0; j < 4; ++j) {
+        if (TB)
+          wmma::load_matrix_sync(fb[j], bs + (wc + 16 * j) * TLDA + kk, TLDA);
+        else
+          wmma::load_matrix_sync(fb[j], bs + kk * TLDB + wc + 16 * j, TLDB);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -261,8 +484,11 @@ mm_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
       wmma::store_matrix_sync(C + (wr + 16 * i) * TCLD + wc + 16 * j,
                               acc[i][j], TCLD, wmma::mem_row_major);
   __syncthreads();
-  store_tile<bf16, EPI, kTcThreads>(C, TCLD, TBM, row0, m, n, c0, c1, out,
-                                    resid);
+  void* o = EPI == kStoreF32
+                ? static_cast<float*>(out) + (long)blockIdx.z * m * n
+                : out;
+  store_tile<bf16, EPI, kTcThreads>(C, TCLD, TBM, row0, m, n, c0, c1, o,
+                                    resid, aux1, aux2);
 }
 
 // --- fp32: FMA tiling in full fp32 (no TF32). 64x64 block tiles, each
@@ -276,23 +502,28 @@ struct FmaSmem {
   __align__(16) float b[FBK][FLDB];
 };
 
-// C[:, 0:64] (shared, row stride FCLD) = A[row0:row0+64, :k] @ B[:k, col:col+64]
+// C[:, 0:64] (shared, row stride FCLD) = opA rows [row0, row0 + 64) · opB
+// columns [col, col + 64) over k in [kb, ke); B's row stride is ldb.
+template <bool TA, bool TB>
 __device__ void fma_tile(FmaSmem& sm, float* C, const float* A, int m,
-                         int row0, const float* B, int ldb, int col, int k) {
+                         int row0, const float* B, int ldb, int col, int k,
+                         int kb, int ke) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[8][4] = {};
-  for (int k0 = 0; k0 < k; k0 += FBK) {
-    for (int c = threadIdx.x; c < FBM * FBK / 4; c += kThreads) {
-      const int r = c / (FBK / 4), kk = (c % (FBK / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < m)
-        v = *reinterpret_cast<const float4*>(A + (long)(row0 + r) * k + k0 + kk);
-      *reinterpret_cast<float4*>(&sm.a[r][kk]) = v;
+  for (int k0 = kb; k0 < ke; k0 += FBK) {
+    for (int c = threadIdx.x; c < FBM * FBK; c += kThreads) {
+      // consecutive threads read consecutive addresses of the source
+      const int i = TA ? c % FBM : c / FBK, kk = TA ? c / FBM : c % FBK;
+      const bool ok = row0 + i < m && k0 + kk < ke;
+      sm.a[i][kk] = !ok ? 0.f
+                  : TA ? A[(long)(k0 + kk) * m + row0 + i]
+                       : A[(long)(row0 + i) * k + k0 + kk];
     }
-    for (int c = threadIdx.x; c < FBK * 64 / 4; c += kThreads) {
-      const int r = c / 16, cc = (c % 16) * 4;
-      *reinterpret_cast<float4*>(&sm.b[r][cc]) =
-          *reinterpret_cast<const float4*>(B + (long)(k0 + r) * ldb + col + cc);
+    for (int c = threadIdx.x; c < 64 * FBK; c += kThreads) {
+      const int j = TB ? c / FBK : c % 64, kk = TB ? c % FBK : c / 64;
+      sm.b[kk][j] = k0 + kk >= ke ? 0.f
+                  : TB ? B[(long)(col + j) * k + k0 + kk]
+                       : B[(long)(k0 + kk) * ldb + col + j];
     }
     __syncthreads();
 #pragma unroll
@@ -316,40 +547,104 @@ __device__ void fma_tile(FmaSmem& sm, float* C, const float* A, int m,
   __syncthreads();
 }
 
-template <int EPI>
+template <int EPI, bool TA, bool TB>
 __global__ void __launch_bounds__(kThreads)
 mm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
               const float* __restrict__ resid, void* __restrict__ out, int m,
-              int n, int k) {
+              int n, int k, int k_split, void* __restrict__ aux1,
+              void* __restrict__ aux2) {
   __shared__ FmaSmem sm;
   __shared__ __align__(16) float C[FBM * FCLD];
   const int row0 = blockIdx.x * FBM, c0 = blockIdx.y * 64;
-  const int ldb = EPI == kGeglu ? 2 * n : n;
-  fma_tile(sm, C, A, m, row0, B, ldb, c0, k);
-  if (EPI == kGeglu) fma_tile(sm, C + 64, A, m, row0, B, ldb, n + c0, k);
-  store_tile<float, EPI, kThreads>(C, FCLD, FBM, row0, m, n, c0, -1, out,
-                                   resid);
+  const int kb = blockIdx.z * k_split;
+  const int ke = k < kb + k_split ? k : kb + k_split;
+  const int ldb = is_geglu(EPI) ? 2 * n : n;
+  fma_tile<TA, TB>(sm, C, A, m, row0, B, ldb, c0, k, kb, ke);
+  if (is_geglu(EPI))
+    fma_tile<TA, TB>(sm, C + 64, A, m, row0, B, ldb, n + c0, k, kb, ke);
+  void* o = EPI == kStoreF32
+                ? static_cast<float*>(out) + (long)blockIdx.z * m * n
+                : out;
+  store_tile<float, EPI, kThreads>(C, FCLD, FBM, row0, m, n, c0, -1, o,
+                                   resid, aux1, aux2);
 }
 
-template <typename T, int EPI>
+template <typename T, int EPI, bool TA = false, bool TB = false>
 int launch_mm(const T* A, const T* B, const T* resid, void* out, int m, int n,
-              int k, cudaStream_t st) {
+              int k, cudaStream_t st, void* aux1 = nullptr,
+              void* aux2 = nullptr, Split sp = Split{1, 0}) {
+  const int k_split = sp.k_split ? sp.k_split : k;
   if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = MmLayout<TA, TB>::smem_bytes;
     cudaError_t e = cudaFuncSetAttribute(
-        mm_tc_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTcSmemBytes);
+        mm_tc_kernel<EPI, TA, TB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((m + TBM - 1) / TBM,
-                    EPI == kGeglu ? n / 64 : (n + 127) / 128);
-    mm_tc_kernel<EPI><<<grid, kTcThreads, kTcSmemBytes, st>>>(A, B, resid,
-                                                             out, m, n, k);
+                    is_geglu(EPI) ? n / 64 : (n + 127) / 128, sp.parts);
+    mm_tc_kernel<EPI, TA, TB><<<grid, kTcThreads, smem, st>>>(
+        A, B, resid, out, m, n, k, k_split, aux1, aux2);
   } else {
-    const dim3 grid((m + FBM - 1) / FBM, n / 64);
-    mm_fma_kernel<EPI><<<grid, kThreads, 0, st>>>(A, B, resid, out, m, n, k);
+    const dim3 grid((m + FBM - 1) / FBM, n / 64, sp.parts);
+    mm_fma_kernel<EPI, TA, TB><<<grid, kThreads, 0, st>>>(
+        A, B, resid, out, m, n, k, k_split, aux1, aux2);
   }
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
+// The backward's products: out (m x n, fp32; `sp.parts` partials) =
+// opA · opB, as launch_mm with the kStoreF32 epilogue.
+template <typename T, bool TA, bool TB>
+int launch_gemm(const T* A, const T* B, float* out, int m, int n, int k,
+                cudaStream_t st, Split sp = Split{1, 0}) {
+  return launch_mm<T, kStoreF32, TA, TB>(A, B, nullptr, out, m, n, k, st,
+                                         nullptr, nullptr, sp);
+}
+
+// A weight gradient out (m x n, T) = T(Aᵀ·B), A (rows x m), B (rows x n):
+// fp32 partials over k-ranges of the rows in `part`, then an ordered sum.
+template <typename T>
+int launch_weight_grad(const T* A, const T* B, T* out, float* part, int m,
+                       int n, int rows, cudaStream_t st) {
+  const Split sp = gemm_split(m, n, rows, std::is_same<T, bf16>::value);
+  int e = launch_gemm<T, true, false>(A, B, part, m, n, rows, st, sp);
+  if (e) return e;
+  return launch_reduce_parts<T>(part, out, sp.parts, (long)m * n, st);
+}
+
+inline size_t weight_grad_part_bytes(int m, int n, int rows, bool bf16) {
+  return (size_t)gemm_split(m, n, rows, bf16).parts * m * n * sizeof(float);
+}
+
+// Bump allocator over one caller-provided workspace (256-byte aligned
+// pieces); with base == nullptr it only counts the bytes.
+struct Workspace {
+  unsigned char* base;
+  size_t used = 0;
+  explicit Workspace(void* b) : base(static_cast<unsigned char*>(b)) {}
+  template <typename U> U* take(size_t count) {
+    U* p = base ? reinterpret_cast<U*>(base + used) : nullptr;
+    used += (count * sizeof(U) + 255) / 256 * 256;
+    return p;
+  }
+};
+
 }  // namespace
 }  // namespace xclip
+
+// Entry points: run CALL with T the storage type of dtype code `dtype`.
+#define XCLIP_DISPATCH(dtype, CALL)          \
+  do {                                       \
+    if ((dtype) == xclip::kBF16) {           \
+      using T = __nv_bfloat16;               \
+      return CALL;                           \
+    }                                        \
+    if ((dtype) == xclip::kF32) {            \
+      using T = float;                       \
+      return CALL;                           \
+    }                                        \
+    return (int)cudaErrorInvalidValue;       \
+  } while (0)
+
+#define XCLIP_PTR(type, ptr) static_cast<type>(ptr)

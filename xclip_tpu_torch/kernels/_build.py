@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in `xclip_tpu_torch/csrc/`.
 
-All `csrc/*.cu` files are compiled by `nvcc` for `sm_90a` into ONE shared
-library with a plain C interface, loaded with `ctypes`. The library lives
+Each `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a`, all of
+them at once, and the objects are linked into ONE shared library with a
+plain C interface, loaded with `ctypes`. The library lives
 in `build/xclip_tpu_torch/` beside the package's checkout and its name
 carries a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is built once. Nothing here runs at import time: a
@@ -21,20 +22,30 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xclip_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes (all return int: a cudaError_t, or a size)
+# C entry points: name -> argtypes. Each returns an int (a cudaError_t, or
+# a sequence length) except the workspace queries, which return a byte
+# count (_RESTYPES).
 _SIGNATURES = {
-    "xclip_ff_block_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _F, _P],
-    "xclip_attention_block_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _P],
+    "xclip_ff_block_fwd": [_I, *[_P] * 13, _I, _I, _I, _F, _P],
+    "xclip_ff_block_bwd_workspace": [_I, _I, _I, _I],
+    "xclip_ff_block_bwd_p1": [_I, *[_P] * 18, _I, _I, _I, _P],
+    "xclip_ff_block_bwd_p2": [_I, *[_P] * 7, _I, _I, _I, _P],
+    "xclip_attention_block_fwd": [_I, *[_P] * 14, _I, _I, _I, _I, _F, _I, _I,
+                                  _F, _P],
+    "xclip_attention_block_bwd_workspace": [_I, _I, _I, _I, _I],
+    "xclip_attention_block_bwd": [_I, *[_P] * 19, _I, _I, _I, _I, _F, _I, _I,
+                                  _P],
     "xclip_attention_block_max_n": [_I],
+    "xclip_attention_block_bwd_max_n": [_I],
 }
+_RESTYPES = {"xclip_ff_block_bwd_workspace": ctypes.c_longlong,
+             "xclip_attention_block_bwd_workspace": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -58,6 +69,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libxclip_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(commands):
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{output}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the library unless it exists; returns its path."""
     out = library_path()
@@ -65,19 +90,14 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cus)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{cu.stem}.o") for cu in cus]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)]
+                  for cu, obj in zip(cus, objs)])
+        lib = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: concurrent builds agree
     return out
 
 
@@ -88,7 +108,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,8 +1,8 @@
 """Numerics shared by the kernels' plain versions, and the wrappers' checks.
 
-`eps_for` and `ln_fp32` are the counterparts of
+`eps_for`, `ln_fp32` and `ln_bwd` are the counterparts of
 `xclip_tpu/kernels/_common.py`; the CUDA kernels compute the same gain-only
-LayerNorm (two-pass fp32 statistics) in `csrc/common.cuh`.
+LayerNorm (two-pass fp32 statistics) and its vjp in `csrc/common.cuh`.
 """
 
 from __future__ import annotations
@@ -17,14 +17,28 @@ def eps_for(dtype) -> float:
     return 1e-5 if dtype == torch.float32 else 1e-3
 
 
-def ln_fp32(x32, g32, eps):
-    """Gain-only LayerNorm in fp32 over the last axis: returns (xhat·g, xhat, inv)."""
+def ln_stats_fp32(x32, eps):
+    """(mean, rsqrt(var + eps)) over the last axis, two-pass (the training
+    forwards store both)."""
     mean = x32.mean(dim=-1, keepdim=True)
     c = x32 - mean
-    var = (c * c).mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    xhat = c * inv
+    return mean, torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+
+
+def ln_fp32(x32, g32, eps):
+    """Gain-only LayerNorm in fp32 over the last axis: returns (xhat·g, xhat, inv)."""
+    mean, inv = ln_stats_fp32(x32, eps)
+    xhat = (x32 - mean) * inv
     return xhat * g32, xhat, inv
+
+
+def ln_bwd(dy, xhat, inv, g32):
+    """Gain-only LayerNorm vjp over rows → (dx, dg), dg summed over rows."""
+    dg = (dy * xhat).sum(dim=0)
+    dxhat = dy * g32
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return inv * (dxhat - m1 - xhat * m2), dg
 
 
 def dot32(a, b):
@@ -35,12 +49,10 @@ def dot32(a, b):
 def route(name: str, tensors) -> bool:
     """Which path a wrapper takes: False for the plain version (every tensor
     on the CPU), True for the kernel (every tensor on one CUDA device).
-    Raises for mixed devices, other devices, and inputs that require grad
-    (the kernels have no backward yet)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the forward kernel has no backward yet; call it under "
-            "torch.no_grad() (ROADMAP.md Queue 2, training slice)")
+    Raises for mixed devices and other devices. Whether gradients flow is
+    the caller's matter: the training kernels sit inside autograd
+    Functions, the inference wrappers refuse inputs that require grad
+    (`refuse_grad`)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
@@ -50,6 +62,15 @@ def route(name: str, tensors) -> bool:
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     return True
+
+
+def refuse_grad(name: str, tensors, training_route: str) -> None:
+    """An inference-only forward has no backward: raise rather than return
+    a result that silently stops gradients."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: this inference forward has no backward; call it under "
+            f"torch.no_grad(), or train through {training_route}")
 
 
 def check_kernel_args(name: str, tensors, dtype) -> None:

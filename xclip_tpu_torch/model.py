@@ -1,16 +1,23 @@
-"""CLIP inference core — the counterpart of `xclip_tpu/model.py`'s
-`CLIPModel` for the inference slice: single-tower encoders, encodings,
-l2-normed fp32 latents and paired similarity scores × exp(temperature).
+"""CLIP core — the counterpart of `xclip_tpu/model.py`'s `CLIPModel`:
+single-tower encoders, encodings, l2-normed fp32 latents, paired
+similarity scores × exp(temperature), and the training forward with the
+contrastive loss (`return_loss=True`).
 
 Mixed precision follows the JAX model: with `compute_dtype`, every float
 parameter and the images are cast to it on entry (the modules cast each
 parameter as they apply it); latents are normalised in fp32 and
-exp(temperature) is taken in fp32. Every public method runs under
-`torch.no_grad()`: the kernels have no backward yet.
+exp(temperature) is taken in fp32.
+
+Inference (training False) runs under `torch.no_grad()` through the
+kernels' lean forwards. Training (the default when `return_loss`) runs the
+stored-backward kernel routes with autograd, and FLIP patch dropout in the
+vision tower; its randomness comes from a `torch.Generator` or from
+injected `keep_idx`. The LiT freeze flags detach a tower's encodings.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Optional
 
@@ -18,6 +25,7 @@ import torch
 from torch import nn
 
 from .nn.core import Linear
+from .objectives.contrastive import clip_contrastive_loss
 from .utils import l2norm
 
 
@@ -35,6 +43,7 @@ class CLIPModel(nn.Module):
                  dim_image: int = 512, dim_latent: int = 512,
                  text_pad_id: int = 0, text_encode_without_mask: bool = False,
                  extra_latent_projection: bool = False,
+                 decoupled_contrastive_learning: bool = False,
                  attn_impl: str = "xla",
                  visual_attn_impl: Optional[str] = None,
                  compute_dtype=None, generator=None, dtype=torch.float32):
@@ -44,6 +53,7 @@ class CLIPModel(nn.Module):
         self.text_pad_id = text_pad_id
         self.text_encode_without_mask = text_encode_without_mask
         self.extra_latent_projection = extra_latent_projection
+        self.decoupled_contrastive_learning = decoupled_contrastive_learning
         self.attn_impl = attn_impl
         self.visual_attn_impl = visual_attn_impl or attn_impl
         self.compute_dtype = as_dtype(compute_dtype)
@@ -59,15 +69,18 @@ class CLIPModel(nn.Module):
     def _dtype(self):
         return self.compute_dtype or self.temperature.dtype
 
-    def _encode_text(self, text):
+    def _encode_text(self, text, training=False):
         mask = None if self.text_encode_without_mask else text != self.text_pad_id
         return self.text(text, mask, attn_impl=self.attn_impl,
-                         dtype=self._dtype())
+                         dtype=self._dtype(), training=training)
 
-    def _encode_image(self, image):
+    def _encode_image(self, image, training=False, generator=None,
+                      keep_idx=None):
         if self.compute_dtype is not None:
             image = image.to(self.compute_dtype)
-        return self.visual(image, attn_impl=self.visual_attn_impl)
+        return self.visual(image, attn_impl=self.visual_attn_impl,
+                           training=training, generator=generator,
+                           keep_idx=keep_idx)
 
     @staticmethod
     def _latent(head, embeds):
@@ -84,25 +97,56 @@ class CLIPModel(nn.Module):
         return self._latent(self.to_visual_latent,
                             self._encode_image(image)[:, 0])
 
-    @torch.no_grad()
-    def forward(self, text, image, *, return_encodings: bool = False,
-                return_latents: bool = False, text_to_image: bool = True):
-        enc_text = self._encode_text(text)
-        enc_image = self._encode_image(image)
-        if return_encodings:
-            return enc_text, enc_image
-        text_embeds, image_embeds = enc_text[:, 0], enc_image[:, 0]
-        tl = self._latent(self.to_text_latent, text_embeds)
-        il = self._latent(self.to_visual_latent, image_embeds)
-        tl_extra, il_extra = tl, il
-        if self.extra_latent_projection:
-            tl_extra = self._latent(self.to_text_latent_extra, text_embeds)
-            il_extra = self._latent(self.to_visual_latent_extra, image_embeds)
-        if return_latents:
+    def forward(self, text, image, *, return_loss: bool = False,
+                return_encodings: bool = False,
+                return_latents: bool = False, text_to_image: bool = True,
+                freeze_image_encoder: bool = False,
+                freeze_text_encoder: bool = False, training=None,
+                return_metrics: bool = False, generator=None,
+                keep_idx=None):
+        """As `xclip_tpu.model.CLIPModel.apply` for one view per side.
+        `training` defaults to `return_loss`; `generator` / `keep_idx` feed
+        the patch dropout of a training forward. With `return_loss`,
+        returns the loss (and, with `return_metrics`, a dict of `loss`,
+        `cl_loss` and `temperature` = exp(temperature))."""
+        training = return_loss if training is None else training
+        if return_loss and not training:
+            raise ValueError("loss cannot be used if not training")
+        with contextlib.nullcontext() if training else torch.no_grad():
+            enc_text = self._encode_text(text, training)
+            if freeze_text_encoder:
+                enc_text = enc_text.detach()
+            enc_image = self._encode_image(image, training, generator,
+                                           keep_idx)
+            if freeze_image_encoder:
+                enc_image = enc_image.detach()
+            if return_encodings:
+                return enc_text, enc_image
+            text_embeds, image_embeds = enc_text[:, 0], enc_image[:, 0]
+            tl = self._latent(self.to_text_latent, text_embeds)
+            il = self._latent(self.to_visual_latent, image_embeds)
+            tl_extra, il_extra = tl, il
             if self.extra_latent_projection:
-                return tl, il, tl_extra, il_extra
-            return tl, il
-        temp = self.temperature.to(self._dtype()).float().exp()
-        if self.extra_latent_projection and not text_to_image:
-            tl, il = tl_extra, il_extra
-        return (tl * il).sum(dim=-1) * temp
+                tl_extra = self._latent(self.to_text_latent_extra, text_embeds)
+                il_extra = self._latent(self.to_visual_latent_extra,
+                                        image_embeds)
+            if return_latents:
+                if self.extra_latent_projection:
+                    return tl, il, tl_extra, il_extra
+                return tl, il
+            temp = self.temperature.to(self._dtype()).float().exp()
+            if not return_loss:
+                if self.extra_latent_projection and not text_to_image:
+                    tl, il = tl_extra, il_extra
+                return (tl * il).sum(dim=-1) * temp
+            extra = self.extra_latent_projection
+            dcl = self.decoupled_contrastive_learning
+            cl_loss = clip_contrastive_loss(
+                tl, il, temp, decoupled_contrastive_learning=dcl,
+                text_latents_extra=tl_extra if extra else None,
+                image_latents_extra=il_extra if extra else None)
+            loss = cl_loss  # cl_loss_weight 1: no MLM, visual SSL or multiview
+            if return_metrics:
+                return loss, {"loss": loss, "cl_loss": cl_loss,
+                              "temperature": temp}
+            return loss

@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -53,7 +54,9 @@ class Embedding(nn.Module):
         self.emb = nn.Parameter(emb.to(dtype))
 
     def forward(self, ids):
-        return self.emb[ids]
+        # F.embedding, not self.emb[ids]: its backward sums rows with a
+        # segmented reduction instead of index_put's sort-and-accumulate
+        return F.embedding(ids, self.emb)
 
 
 def layer_norm(x, g):

@@ -1,27 +1,38 @@
-"""Transformer building blocks — the counterparts of `xclip_tpu/nn/layers.py`
-for the inference slice: the plain GEGLU feed-forward and attention (the
-`'xla'` route) and the sandwich-norm stack with kernel routing.
+"""Transformer building blocks — the counterparts of `xclip_tpu/nn/layers.py`:
+the plain GEGLU feed-forward and attention (the `'xla'` route), the
+sandwich-norm stack with kernel routing, and FLIP patch dropout.
 
-Routing, as the JAX stack does it at inference:
-  * `attn_impl` in ('fused', 'fused_recompute', 'fused_qkv') without rotary
-    → the attention megablock kernel (`kernels/attention_megablock.py`),
-    which also does the PreNorm, the output LayerNorm and the residual;
-  * `ff_impl` in ('block', 'block_stored') → the FF block kernel
-    (`kernels/fused_ff_block.py`), PreNorm to residual;
-  * `'xla'` → the plain PyTorch modules below plus the residual.
+Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
+  * inference: `attn_impl` in ('fused', 'fused_recompute', 'fused_qkv')
+    → the megablock's lean forward K-MEGA
+    (`kernels/attention_megablock.attention_block`), `ff_impl` in
+    ('block', 'block_stored') → the FF block's lean forward K-FF
+    (`kernels/fused_ff_block.ff_block`), each PreNorm to residual;
+  * training: 'fused' → K2, the stored megablock forward and backward
+    (`attention_block_train`); 'block_stored' → K1, the stored-GEGLU FF
+    block (`ff_block_train`). The JAX stack's scoped-VMEM gate on the
+    stored megablock is a TPU artefact. The other kernel routes in training
+    are not ported yet and raise `NotImplementedError` naming their
+    ROADMAP.md item;
+  * `'xla'` → the plain PyTorch modules below plus the residual, trained
+    by autograd.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
 both kernels run; the port does not, since pad rows are masked keys and the
-FF block is row-wise, so real rows are unchanged.
+FF block is row-wise, so real rows are unchanged and pad rows, whose
+cotangents are zero, add nothing to any gradient.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention_megablock import attention_block
-from ..kernels.fused_ff_block import ff_block
+from ..kernels.attention_megablock import (attention_block,
+                                          attention_block_train)
+from ..kernels.fused_ff_block import ff_block, ff_block_train
 from .core import LayerNorm, Linear, layer_norm
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv")
@@ -44,6 +55,51 @@ def check_impls(attn_impl, ff_impl):
             "fused_ff.py) is not ported yet: ROADMAP.md Queue 2, K8")
     if ff_impl not in FF_IMPLS:
         raise ValueError(f"unknown ff_impl {ff_impl!r}")
+
+
+def check_training_routes(attn_impl, ff_impl, *, checkpoint=False,
+                          attn_dropout=0.0, ff_dropout=0.0):
+    """Raise for a training route this slice of the port does not have."""
+    if checkpoint:
+        raise NotImplementedError(
+            "checkpoint_during_training (per-block remat) is not ported yet: "
+            "ROADMAP.md Queue 1, item 2")
+    if attn_dropout > 0.0 or ff_dropout > 0.0:
+        raise NotImplementedError(
+            "attention / FF dropout in training is not ported yet: "
+            "ROADMAP.md Queue 1, items 1-2")
+    if attn_impl in ("fused_qkv", "fused_recompute"):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} in training (the qkv-only / recompute "
+            "megablock backward) is not ported yet: ROADMAP.md Queue 2, K3 "
+            "fwd and K2/K3 bwd")
+    if ff_impl == "block":
+        raise NotImplementedError(
+            "ff_impl='block' in training (K-FF-s and the K1 recompute "
+            "backward) is not ported yet: ROADMAP.md Queue 2, K-FF-s and K1 "
+            "bwd")
+    if ff_impl == "block_stored" and os.environ.get("XCLIP_FF_STORE") == "h":
+        raise NotImplementedError(
+            "XCLIP_FF_STORE=h (the stored-h FF block) is not ported yet: "
+            "ROADMAP.md Queue 2, K1 fwd and K1 bwd")
+
+
+def patch_dropout(x, prob, *, generator=None, keep_idx=None):
+    """FLIP patch dropout (reference x_clip.py:134-151): keep
+    max(1, int(n·(1 − prob))) uniformly random, unordered patches per image
+    → (x gathered (b, kept, ·), keep_idx (b, kept)). `keep_idx` injects the
+    indices (the JAX package draws them with its own RNG); otherwise
+    they are the top-k of uniform scores drawn from `generator`."""
+    b, n = x.shape[:2]
+    if keep_idx is None:
+        num_keep = max(1, int(n * (1 - prob)))
+        scores = torch.rand((b, n), generator=generator,
+                            device=generator.device if generator is not None
+                            else x.device)
+        keep_idx = scores.topk(num_keep, dim=-1).indices
+    keep_idx = keep_idx.to(x.device, torch.long)
+    idx = keep_idx[..., None].expand(-1, -1, x.shape[-1])
+    return torch.gather(x, 1, idx), keep_idx
 
 
 class FeedForward(nn.Module):
@@ -130,10 +186,21 @@ class Transformer(nn.Module):
         self.norm_out = LayerNorm(dim, dtype=dtype)
 
     def forward(self, x, mask=None, *, causal=False, attn_impl="xla",
-                ff_impl="xla"):
+                ff_impl="xla", training=False,
+                checkpoint_during_training=False, attn_dropout=0.0,
+                ff_dropout=0.0):
+        """`training` selects the kernels' stored-backward routes (K2, K1);
+        otherwise the lean inference forwards run, which take no
+        gradient."""
         check_impls(attn_impl, ff_impl)
+        if training:
+            check_training_routes(
+                attn_impl, ff_impl, checkpoint=checkpoint_during_training,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout)
         use_mega = attn_impl in MEGA_IMPLS
         use_ffb = ff_impl in FF_BLOCK_IMPLS
+        mega = attention_block_train if training else attention_block
+        ffb = ff_block_train if training else ff_block
         dt = x.dtype
         x = self.norm_in(x)
         if use_mega:
@@ -143,15 +210,15 @@ class Transformer(nn.Module):
         for layer in self.layers:
             a, f = layer.attn, layer.ff
             if use_mega:
-                x = attention_block(
+                x = mega(
                     x, a.norm.g.to(dt), a.to_qkv.w.to(dt), a.to_out.w.to(dt),
                     a.out_norm.g.to(dt), key_mask, self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
                 x = a(x, mask, causal) + x
             if use_ffb:
-                x = ff_block(x, f.norm.g.to(dt), f.w_in.w.to(dt),
-                             f.inner_norm.g.to(dt), f.w_out.w.to(dt))
+                x = ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
+                        f.inner_norm.g.to(dt), f.w_out.w.to(dt))
             else:
                 x = f(x) + x
         return self.norm_out(x)

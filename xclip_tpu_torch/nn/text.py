@@ -1,7 +1,8 @@
-"""Text tower — the counterpart of `xclip_tpu/nn/text.py` for the inference
-slice: token embedding plus learned absolute position embedding, a learned
-CLS token prepended with the padding mask extended by a leading True, the
-transformer stack. Returns the full (b, n + 1, dim) sequence."""
+"""Text tower — the counterpart of `xclip_tpu/nn/text.py` (absolute
+positions, no causal mask): token embedding plus learned absolute position
+embedding, a learned CLS token prepended with the padding mask extended by
+a leading True, the transformer stack. Returns the full (b, n + 1, dim)
+sequence."""
 
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ class TextTransformer(nn.Module):
     def __init__(self, dim: int, num_tokens: int, max_seq_len: int,
                  depth: int = 6, heads: int = 8, dim_head: int = 64,
                  rotary_pos_emb: bool = False, causal: bool = False,
-                 ff_mult: int = 4, ff_impl: str = "xla", *, generator=None,
+                 ff_mult: int = 4, ff_impl: str = "xla", *,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 checkpoint_during_training: bool = False, generator=None,
                  dtype=torch.float32):
         super().__init__()
         if rotary_pos_emb:
@@ -29,6 +32,9 @@ class TextTransformer(nn.Module):
                 "a causal text tower (text_causal_mask, EOS pooling) is not "
                 "ported yet: ROADMAP.md Queue 1, items 3 and 5")
         self.dim, self.ff_impl = dim, ff_impl
+        self.train_flags = dict(
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+            checkpoint_during_training=checkpoint_during_training)
         self.token_emb = Embedding(num_tokens, dim, generator=generator,
                                    dtype=dtype)
         self.abs_pos_emb = Embedding(max_seq_len, dim, generator=generator,
@@ -39,7 +45,8 @@ class TextTransformer(nn.Module):
                                        heads=heads, ff_mult=ff_mult,
                                        generator=generator, dtype=dtype)
 
-    def forward(self, x, mask=None, *, attn_impl: str = "xla", dtype=None):
+    def forward(self, x, mask=None, *, attn_impl: str = "xla", dtype=None,
+                training: bool = False):
         """x: (b, n) token ids; mask: (b, n) bool or None. `dtype` is the
         compute dtype (default: the parameters')."""
         b, n = x.shape
@@ -51,4 +58,5 @@ class TextTransformer(nn.Module):
         if mask is not None:
             mask = F.pad(mask, (1, 0), value=True)
         return self.transformer(h, mask, attn_impl=attn_impl,
-                                ff_impl=self.ff_impl)
+                                ff_impl=self.ff_impl, training=training,
+                                **(self.train_flags if training else {}))

@@ -1,0 +1,65 @@
+"""Contrastive objective — the counterpart of the local dense path of
+`xclip_tpu/objectives/contrastive.py` (`clip_contrastive_loss` with
+`axis_name=None`, `_infonce_from_sims`): coarse InfoNCE over CLS latents in
+log space, with decoupled contrastive learning (DCL) and the CLOOB extra
+latent heads.
+
+One text view and one image view: t2i = text_latents · image_latentsᵀ ·
+temp; i2t is its transpose, or the extra heads' product when they are
+given. Each direction's loss is the batch mean of −pos + logsumexp(row);
+DCL sets the diagonal to finfo.min before the logsumexp. The CL loss is
+the mean of both directions.
+
+Not ported yet (each raises `NotImplementedError` naming ROADMAP.md
+Queue 1, item 4): multiview (more than one view), FILIP token matching,
+similarity regularisation, the `row_valid` pad-and-mask option. The
+cross-device paths are Queue 1, item 8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _not_ported(what):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
+                              "Queue 1, item 4")
+
+
+def infonce_from_sims(text_to_image, image_to_text, decoupled: bool):
+    """(b, b) paired similarity matrices (already × temp) → scalar CL loss
+    (`_infonce_from_sims` for one view pair)."""
+    b = text_to_image.shape[-1]
+    t2i_pos = text_to_image.diagonal(dim1=-2, dim2=-1)
+    i2t_pos = image_to_text.diagonal(dim1=-2, dim2=-1)
+    if decoupled:
+        eye = torch.eye(b, dtype=torch.bool, device=text_to_image.device)
+        neg = torch.finfo(text_to_image.dtype).min
+        text_to_image = text_to_image.masked_fill(eye, neg)
+        image_to_text = image_to_text.masked_fill(eye, neg)
+    t2i = (-t2i_pos + torch.logsumexp(text_to_image, dim=-1)).mean(dim=-1)
+    i2t = (-i2t_pos + torch.logsumexp(image_to_text, dim=-1)).mean(dim=-1)
+    return (t2i + i2t) / 2
+
+
+def clip_contrastive_loss(text_latents, image_latents, temp, *,
+                          decoupled_contrastive_learning: bool = False,
+                          text_latents_extra=None, image_latents_extra=None,
+                          use_all_token_embeds: bool = False,
+                          sim_reg: bool = False, row_valid=None):
+    """text_latents, image_latents: (b, d) l2-normed fp32 latents; temp:
+    scalar exp(temperature). Returns the scalar CL loss."""
+    if text_latents.ndim != 2 or image_latents.ndim != 2:
+        _not_ported("multiview and FILIP (latents other than (b, d))")
+    if use_all_token_embeds:
+        _not_ported("FILIP (use_all_token_embeds)")
+    if sim_reg:
+        _not_ported("similarity regularisation (sim_reg_loss_weight > 0)")
+    if row_valid is not None:
+        _not_ported("the row_valid pad-and-mask option")
+    t2i = text_latents @ image_latents.T * temp
+    if text_latents_extra is not None:
+        i2t = image_latents_extra @ text_latents_extra.T * temp
+    else:
+        i2t = t2i.T
+    return infonce_from_sims(t2i, i2t, decoupled_contrastive_learning)
