@@ -6,10 +6,13 @@
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
 64-patch vision, GEGLU inner 2048, bf16): inference through the forward
-kernels K-FF and K-MEGA, and the train step through the training kernels
-K1 (stored-GEGLU FF block) and K2 (stored attention megablock), forward
-and backward. One line per phase; any failure exits non-zero, and nothing
-is caught.
+kernels K-FF and K-MEGA; the train step through the training kernels K1
+(stored-GEGLU FF block) and K2 (stored attention megablock), forward and
+backward; and the memory-lean large-batch train step (b = 2048) through K3
+(the attention megablock keeping only row statistics, recompute
+backward), K-FF-s with the FF block's recompute backward, and K5 (the
+streaming-LSE InfoNCE). One line per phase; any failure exits non-zero,
+and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -38,9 +41,27 @@ is caught.
              per step, finite losses, the first near ln 256, and the
              device's idle share and top kernels over one profiled step
              (after one more to warm the profiler up).
+  9 lean-kernels  K-FF-s and the FF recompute backward at 65,792 and 8,192
+             rows, K3 (stats and qkv modes, forward and recompute
+             backward) at (256, 257, 512, 8 x 64) and (256, 32, 512), bf16,
+             and K5 at (2048, 512) with DCL, fp32, against their plain
+             versions on the card: max_abs_err and tolerance of every
+             output and gradient, CUDA-event times of kernel and plain.
+ 10 lean-golden  one fp32 train step of the golden file's tiny CLIP on the
+             memory-lean routes against the JAX package's.
+ 11 lean-train  the flagship train step on the memory-lean routes
+             (attn_impl='fused_recompute' in both towers, ff_impl='block',
+             loss_impl='fused'), bf16, AdamW lr 1e-4: (a) b = 256 from
+             phase 8's weights and inputs, 2 warm-up and 5 timed steps,
+             beside phase 8's stored routes; (b) b = 2048, 2 warm-up and 3
+             timed steps, pairs/s, peak memory, the idle share and top
+             kernels over one profiled step; launch counts per step, finite
+             losses, the first near ln b.
 
-The last lines are the kernels' JSON record, the card line as nvidia-smi
-prints it, and {"ok": true, "device": {...}}.
+The last lines are the kernels' JSON record (with each kernel's bound: the
+larger of its bytes over the HBM rate and its FLOPs over the peak rate of
+their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
+nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -72,6 +93,71 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2.0 ** -5}
 # round in other places (q pre-scaled, -finfo.max masks); fp32 agrees to
 # summation order, bf16 to a few ulps of the 6-layer residual stream
 LATENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LEAN_ROUTES = dict(attn_impl="fused_recompute", ff_impl="block",
+                   loss_impl="fused")
+# NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s, dense bf16 tensor
+# FLOP/s, fp32 FLOP/s outside the tensor cores
+HBM, BF16_PEAK, FP32_PEAK = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes, flops, peak=BF16_PEAK):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ff_cost(kind, rows, dim=512, inner=2048, it=2):
+    """(bytes each input read and output written once, FLOPs) of one FF
+    block call at `rows` rows; `it` the storage bytes per value."""
+    w = (3 * dim * inner + dim + inner) * it
+    x = rows * dim * it
+    fwd = 6 * rows * dim * inner
+    return {
+        "fwd": (w + 2 * x, fwd),
+        "fwd_stored": (w + 2 * x + 3 * rows * inner * it + 16 * rows, fwd),
+        "fwd_stats": (w + 2 * x + 16 * rows, fwd),
+        "p1": (w + 2 * x + 3 * rows * inner * it + 16 * rows + 2 * x
+               + 4 * rows * inner * it + (dim + inner) * it, fwd),
+        "p2": (2 * x + 3 * rows * inner * it + 3 * dim * inner * it, fwd),
+        "bwd_recompute": (3 * x + 16 * rows + 2 * w, 16 * rows * dim * inner),
+    }[kind]
+
+
+def mega_cost(kind, b, n, lengths, dim=512, heads=8, it=2):
+    """(bytes, FLOPs) of one attention megablock call; the score products
+    count each query against its valid keys only (`lengths`). The stored
+    backward's five n x keys products are s (rebuilt), dp, dv, dq and dk;
+    the recompute backward adds the qkv product, p·v and the out
+    projection (s it shares with the backward). "_qkv": K3 keeping qkv
+    (written by the forward, read by the backward in place of its qkv
+    product)."""
+    rows, hd = b * n, heads * 64
+    w = (4 * dim * hd + 2 * dim) * it
+    x = rows * dim * it
+    qkv, small = 3 * rows * hd * it, rows * (8 * heads + 16)
+    att = 2 * n * sum(lengths) * 64 * heads      # one n x keys product
+    proj = 2 * rows * hd * dim
+    fwd = 3 * proj + 2 * att + proj
+    bwd = 2 * proj + 5 * att + 2 * 3 * proj
+    io = w + 2 * x + b * n
+    return {
+        "fwd": (io, fwd),
+        "fwd_stored": (io + qkv + rows * (hd + dim) * it + small, fwd),
+        "fwd_stats": (io + small, fwd),
+        "bwd_stored": (io + x + qkv * 2 + rows * (hd + dim) * it + small + w,
+                       bwd),
+        "bwd_recompute": (io + x + small + w, bwd + 3 * proj + att + proj),
+        "fwd_stats_qkv": (io + small + qkv, fwd),
+        "bwd_recompute_qkv": (io + x + small + w + qkv, bwd + att + proj),
+    }[kind]
+
+
+def lse_cost(kind, R, C, d):
+    """(bytes, FLOPs) of K5 at fp32: the scores 2RCd, each backward
+    product 2RCd more."""
+    io = (R + C) * d * 4
+    return {"fwd": (io + 4 * R, 2 * R * C * d),
+            "bwd": (2 * io + 8 * R, 6 * R * C * d)}[kind]
 
 
 def phase(n, name, msg):
@@ -249,7 +335,154 @@ def train_kernels(gen, ffb, mega):
               f"{ms[key][1]:.3f} ms", flush=True)
     del args, do, want_stored
     torch.cuda.empty_cache()
-    return errs, ms
+    rows = 256 * 257
+    costs = {"k1_fwd": ff_cost("fwd_stored", rows), "k1_p1": ff_cost("p1", rows),
+             "k1_p2": ff_cost("p2", rows),
+             "k2_fwd": mega_cost("fwd_stored", b, 257, lengths),
+             "k2_bwd": mega_cost("bwd_stored", b, 257, lengths)}
+    return errs, ms, costs
+
+
+# (key, record name, source, Pallas body replaced) of the memory-lean
+# training kernels on the b = 2048 path (phase 11); K3's qkv mode is
+# checked and timed in phase 9 but not on that path
+LEAN_KERNELS = [
+    ("kffs", "K-FF-s ff_block forward (stats)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:163"),
+    ("ff_rc", "FF block recompute backward (K1 recompute / K4 fed bodies)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:456"),
+    ("k3_fwd", "K3 attention_block forward (stats)",
+     "xclip_tpu_torch/csrc/attention_megablock.cu",
+     "xclip_tpu/kernels/attention_megablock.py:294"),
+    ("k3_bwd", "K3 attention_block backward (recompute)",
+     "xclip_tpu_torch/csrc/attention_megablock.cu",
+     "xclip_tpu/kernels/attention_megablock.py:476"),
+    ("k5_fwd", "K5 streaming_lse forward",
+     "xclip_tpu_torch/csrc/fused_infonce.cu",
+     "xclip_tpu/kernels/fused_infonce.py:66"),
+    ("k5_bwd", "K5 streaming_lse backward (dx, dy)",
+     "xclip_tpu_torch/csrc/fused_infonce.cu",
+     "xclip_tpu/kernels/fused_infonce.py:121"),
+]
+
+
+def lean_kernels(gen, ffb, mega, lse5):
+    """Phase 9: K-FF-s, the FF recompute backward, K3 and K5 at the
+    flagship shapes, against their plain versions on the card."""
+    phase(9, "lean-kernels", "kernel vs plain version on the card (bf16; "
+          "K5 fp32)")
+    dt = torch.bfloat16
+    errs, ms, costs = {}, {}, {}
+    for label, rows in (("text", 256 * 257), ("vision", 256 * 32)):
+        args = ff_inputs(gen, rows, dt)
+        tag = f"K-FF-s ({rows}, 512) -> 2x2048"
+        got = ffb.ff_block_fwd_stats(*args)
+        want = ffb.ff_block_fwd_stats_plain(*args)
+        e_fwd = compare_all(tag, got, want, ("out", "stats"))
+        stats = want[1]
+        do = rand(gen, rows, 512, dtype=dt)
+        del got, want
+        e_bwd = compare_all(
+            f"FF recompute backward ({rows}, 512)",
+            ffb.ff_block_bwd_recompute(*args, do, stats),
+            ffb.ff_block_bwd_recompute_plain(*args, do, stats),
+            ("dx", "dg_pre", "dw_in", "dg_inner", "dw_out"))
+        if label == "text":
+            errs.update(kffs=e_fwd, ff_rc=e_bwd)
+            ms["kffs"] = (cuda_ms(lambda: ffb.ff_block_fwd_stats(*args)),
+                          cuda_ms(lambda: ffb.ff_block_fwd_stats_plain(
+                              *args)))
+            ms["ff_rc"] = (
+                cuda_ms(lambda: ffb.ff_block_bwd_recompute(*args, do,
+                                                           stats)),
+                cuda_ms(lambda: ffb.ff_block_bwd_recompute_plain(*args, do,
+                                                                 stats)))
+            costs.update(kffs=ff_cost("fwd_stats", rows),
+                         ff_rc=ff_cost("bwd_recompute", rows))
+        del args, do, stats
+        torch.cuda.empty_cache()
+    for label, n in (("text", 257), ("vision", 32)):
+        b = 256
+        lengths = (torch.randint(1, n + 1, (b,), generator=gen,
+                                 device="cuda").tolist()
+                   if label == "text" else [n] * b)
+        args = mega_inputs(gen, b, n, 512, 8, dt, lengths)
+        static = (8, 64, 64 ** -0.5, False, label == "text")
+        for keep in (False, True):
+            mode = "qkv" if keep else "stats"
+            tag = f"K3 {mode} ({b}, {n}, 512) 8x64"
+            got = mega.attention_block_fwd_stats(*args, *static, keep)
+            want = mega.attention_block_fwd_stats_plain(*args, *static, keep)
+            names = ("out", "sm", "ln_stats", "qkv")[:3 + keep]
+            e_fwd = compare_all(tag, got[:len(names)], want[:len(names)],
+                                names)
+            _, sm, ln_stats, qkv = want
+            do = rand(gen, b, n, 512, dtype=dt)
+            del got
+            e_bwd = compare_all(
+                f"{tag} backward",
+                mega.attention_block_bwd_recompute(*args, do, sm, ln_stats,
+                                                   *static, qkv=qkv),
+                mega.attention_block_bwd_recompute_plain(
+                    *args, do, sm, ln_stats, *static, qkv=qkv),
+                ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+            if label == "text":
+                key = "k3q" if keep else "k3"
+                errs.update({f"{key}_fwd": e_fwd, f"{key}_bwd": e_bwd})
+                ms[f"{key}_fwd"] = (
+                    cuda_ms(lambda: mega.attention_block_fwd_stats(
+                        *args, *static, keep)),
+                    cuda_ms(lambda: mega.attention_block_fwd_stats_plain(
+                        *args, *static, keep)))
+                ms[f"{key}_bwd"] = (
+                    cuda_ms(lambda: mega.attention_block_bwd_recompute(
+                        *args, do, sm, ln_stats, *static, qkv=qkv)),
+                    cuda_ms(lambda: mega.attention_block_bwd_recompute_plain(
+                        *args, do, sm, ln_stats, *static, qkv=qkv)))
+                suffix = "_qkv" if keep else ""
+                costs.update({f"{key}_fwd": mega_cost("fwd_stats" + suffix,
+                                                      b, n, lengths),
+                              f"{key}_bwd": mega_cost(
+                                  "bwd_recompute" + suffix, b, n, lengths)})
+            del want, sm, ln_stats, qkv, do
+        del args
+        torch.cuda.empty_cache()
+    R, d = 2048, 512
+    x = torch.nn.functional.normalize(rand(gen, R, d), dim=-1) * 14.0
+    y = torch.nn.functional.normalize(rand(gen, R, d), dim=-1)
+    lse = lse5.streaming_lse_fwd(x, y, 0, True)
+    want = lse5.streaming_lse_fwd_plain(x, y, 0, True)
+    # fp32 throughout: summation order only
+    errs["k5_fwd"] = compare("K5 (2048, 512) DCL lse", lse, want, 1e-4)
+    dlse = rand(gen, R)
+    got = lse5.streaming_lse_bwd(x, y, want, dlse, 0, True)
+    wgrad = lse5.streaming_lse_bwd_plain(x, y, want, dlse, 0, True)
+    # fp32, summation order only: each gradient within 1e-5 of its own
+    # largest magnitude, so a zero or scrambled gradient fails
+    errs["k5_bwd"] = max(
+        compare(f"K5 (2048, 512) DCL {name}", g, w,
+                1e-5 * float(w.abs().max()))
+        for name, g, w in zip(("dx", "dy"), got, wgrad))
+    ms["k5_fwd"] = (cuda_ms(lambda: lse5.streaming_lse_fwd(x, y, 0, True)),
+                    cuda_ms(lambda: lse5.streaming_lse_fwd_plain(x, y, 0,
+                                                                 True)))
+    ms["k5_bwd"] = (
+        cuda_ms(lambda: lse5.streaming_lse_bwd(x, y, want, dlse, 0, True)),
+        cuda_ms(lambda: lse5.streaming_lse_bwd_plain(x, y, want, dlse, 0,
+                                                     True)))
+    costs.update(k5_fwd=lse_cost("fwd", R, R, d), k5_bwd=lse_cost("bwd", R, R,
+                                                                  d))
+    torch.cuda.synchronize()
+    for key in ms:
+        b_ms, b_by = bound(*costs[key],
+                           FP32_PEAK if key.startswith("k5") else BF16_PEAK)
+        print(f"  {key}: kernel {ms[key][0]:.3f} ms, plain {ms[key][1]:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    del x, y, lse, want, dlse, got, wgrad
+    torch.cuda.empty_cache()
+    return errs, ms, costs
 
 
 def _flat(tree, prefix=""):
@@ -261,11 +494,12 @@ def _flat(tree, prefix=""):
 
 
 def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
-                 make_train_step):
-    """Phase 7: one fp32 train step on the card against the JAX golden."""
+                 make_train_step, number=7, prefix=""):
+    """Phase 7 (stored routes) or 10 (memory-lean routes, `prefix`
+    "lean_"): one fp32 train step on the card against the JAX golden."""
     from xclip_tpu_torch.convert import to_jax_tree
     g = np.load(GOLDEN)
-    config = json.loads(str(g["config"]))
+    config = json.loads(str(g[f"{prefix}config"]))
     opt = json.loads(str(g["train_optimizer"]))
     tiny = CLIP(**config, device="cuda")
     load_jax_params(tiny, numpy_params(config, int(g["seed"])))
@@ -273,24 +507,27 @@ def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
     metrics = step(torch.from_numpy(g["train_text"]).cuda(),
                    torch.from_numpy(g["train_images"]).cuda(),
                    keep_idx=torch.from_numpy(g["train_keep_idx"]).cuda())
-    loss_err = abs(metrics["loss"].item() - float(g["train_loss"]))
-    norm_err = abs(metrics["grad_norm"].item() - float(g["train_grad_norm"]))
+    loss_err = abs(metrics["loss"].item() - float(g[f"{prefix}train_loss"]))
+    norm_err = abs(metrics["grad_norm"].item()
+                   - float(g[f"{prefix}train_grad_norm"]))
     grad_worst = param_worst = 0.0
     for name, got in _flat(to_jax_tree(tiny, grads=True)):
-        want = g[f"grad/{name}"]
+        want = g[f"{prefix}grad/{name}"]
         err = float(np.abs(got - want).max())
         if not err <= 1e-3 * float(np.abs(want).max()) + 1e-5:
             fail(f"golden train step: gradient {name} differs by {err:.3e}")
         grad_worst = max(grad_worst, err)
     for name, got in _flat(to_jax_tree(tiny)):
-        err = float(np.abs(got - g[f"param1/{name}"]).max())
+        err = float(np.abs(got - g[f"{prefix}param1/{name}"]).max())
         if not err <= 1e-5:
             fail(f"golden train step: parameter {name} differs by {err:.3e}")
         param_worst = max(param_worst, err)
     if not (loss_err <= 1e-5 and norm_err <= 1e-4):
         fail(f"golden train step: loss err {loss_err:.3e}, grad norm err "
              f"{norm_err:.3e}")
-    phase(7, "train-golden", f"tiny CLIP fp32 train step (kernel routes) vs "
+    name = "lean-golden" if prefix else "train-golden"
+    routes = "memory-lean" if prefix else "kernel"
+    phase(number, name, f"tiny CLIP fp32 train step ({routes} routes) vs "
           f"JAX: loss err {loss_err:.3e} (tol 1e-5), grad_norm err "
           f"{norm_err:.3e} (tol 1e-4), max grad err {grad_worst:.3e} (tol "
           f"1e-3 of the leaf's magnitude + 1e-5), max param err after the "
@@ -419,7 +656,108 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
           f"{b * 1e3 / p[0]:.1f} pairs/s ({p[0]:.2f} ms, peak {p[1]:.2f} "
           f"GiB, idle {p[2]:.4f}); launches per step K1 fwd/p1/p2 12, "
           f"K2 fwd/bwd 6")
-    return launches
+    return launches, k
+
+
+def profile_step(run, i):
+    """The idle share and top kernels of one step, profiled after one more
+    that only warms the profiler up."""
+    for j in range(2):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(i + j)
+            torch.cuda.synchronize()
+    return idle_share(prof), top_kernels(prof)
+
+
+def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
+               stored):
+    """Phase 11: the flagship train step on the memory-lean routes, at
+    b = 256 (phase 8's weights and inputs; `stored` its kernel-route
+    result) and at b = 2048."""
+    want = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
+            "k5_fwd": 2, "k5_bwd": 2}
+    results = {}
+    for b, warm, timed, seed in ((256, 2, 5, 8), (2048, 2, 3, 11)):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        text, images = texts(gen, b), rand(gen, b, 3, 256, 256,
+                                           dtype=torch.bfloat16)
+        model = CLIP(**FLAGSHIP, **LEAN_ROUTES, param_dtype=torch.bfloat16,
+                     compute_dtype="bfloat16", device="cuda", seed=0)
+        step = make_train_step(model, default_optimizer(model.parameters(),
+                                                        learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(100 + i))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = [run(i)["loss"] for i in range(warm)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [run(warm + i)["loss"] for i in range(timed)]
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / timed
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).float().cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"lean routes b={b}: a loss is not finite: "
+                 f"{losses.tolist()}")
+        if not abs(losses[0].item() - math.log(b)) <= 0.5:
+            fail(f"lean routes b={b}: first loss {losses[0].item():.4f} is "
+                 f"not within 0.5 of ln {b} = {math.log(b):.4f}")
+        per_step = {k: v / (warm + timed) for k, v in counts.items()}
+        if per_step != want:
+            fail(f"lean routes b={b}: launches per step {per_step}, "
+                 f"expected {want}")
+        line = (f"  lean routes b={b}: {b * 1e3 / step_ms:.1f} pairs/s "
+                f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
+                f"losses " + " ".join(f"{v:.4f}" for v in losses.tolist()))
+        if b == 256:
+            # the same weights, inputs and patch draws as phase 8: the same
+            # function through other kernels, rounded at other places in bf16
+            diff = abs(losses[0].item() - stored[5][0].item())
+            if not diff <= 0.05:
+                fail(f"lean vs stored routes, first loss differs by "
+                     f"{diff:.4f} > 0.05")
+            line += (f"; stored routes (phase 8) "
+                     f"{b * 1e3 / stored[0]:.1f} pairs/s, peak "
+                     f"{stored[1]:.2f} GiB, first loss differs by {diff:.4f}"
+                     f" (tol 0.05)")
+            if not peak < stored[1]:
+                fail(f"lean peak {peak:.2f} GiB is not below the stored "
+                     f"routes' {stored[1]:.2f} GiB")
+        print(line, flush=True)
+        if b == 2048:
+            (idle, busy_ms, window_ms), (total, rows) = profile_step(
+                run, warm + timed)
+            print(f"  b={b} idle share {idle:.4f} over one step (device busy "
+                  f"{busy_ms:.2f} of {window_ms:.2f} ms)", flush=True)
+            for t, count, key in rows:
+                print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
+                      f"{key[:90]}", flush=True)
+            results[b] = (step_ms, peak, idle, counts)
+        else:
+            results[b] = (step_ms, peak)
+        del model, step, text, images
+        torch.cuda.empty_cache()
+    s256, s2048 = results[256], results[2048]
+    phase(11, "lean-train", f"{card}: flagship memory-lean train step bf16: "
+          f"b=256 {256e3 / s256[0]:.1f} pairs/s (peak {s256[1]:.2f} GiB; "
+          f"stored routes {256e3 / stored[0]:.1f} pairs/s, peak "
+          f"{stored[1]:.2f} GiB); b=2048 {2048e3 / s2048[0]:.1f} pairs/s "
+          f"({s2048[0]:.1f} ms per step, peak {s2048[1]:.2f} GiB, idle "
+          f"{s2048[2]:.4f}); launches per step K3 fwd/bwd 12, K-FF-s 12, FF "
+          f"recompute backward 12, K5 fwd/bwd 2")
+    return s2048[3]
 
 
 def main():
@@ -443,6 +781,7 @@ def main():
     from xclip_tpu_torch.kernels import _build
     from xclip_tpu_torch.kernels import attention_megablock as mega
     from xclip_tpu_torch.kernels import fused_ff_block as ffb
+    from xclip_tpu_torch.kernels import fused_infonce as lse5
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -594,9 +933,9 @@ def main():
         print(f"  K-FF bf16 ({rows}, 512) -> 2x2048: kernel "
               f"{times[('ff', label)][0]:.3f} ms, plain "
               f"{times[('ff', label)][1]:.3f} ms", flush=True)
-    lengths = torch.randint(1, 258, (b,), generator=gen,
-                            device="cuda").tolist()
-    args = mega_inputs(gen, b, 257, 512, 8, dt, lengths)
+    mega_lengths = torch.randint(1, 258, (b,), generator=gen,
+                                 device="cuda").tolist()
+    args = mega_inputs(gen, b, 257, 512, 8, dt, mega_lengths)
     static = (8, 64, 64 ** -0.5, False, True)
     times[("mega", "text")] = (
         cuda_ms(lambda: mega.attention_block(*args, *static)),
@@ -607,7 +946,7 @@ def main():
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 6
-    train_errs, train_ms = train_kernels(gen, ffb, mega)
+    train_errs, train_ms, train_costs = train_kernels(gen, ffb, mega)
 
     # ---------------------------------------------------------------- 7
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -615,30 +954,74 @@ def main():
 
     # ---------------------------------------------------------------- 8
     del clip, plain
-    train_launches = train_flagship(card, CLIP, default_optimizer,
-                                    make_train_step, ffb, mega)
+    train_launches, stored = train_flagship(card, CLIP, default_optimizer,
+                                            make_train_step, ffb, mega)
 
+    # ---------------------------------------------------------------- 9
+    lean_errs, lean_ms, lean_costs = lean_kernels(gen, ffb, mega, lse5)
+
+    # --------------------------------------------------------------- 10
+    lean_counters = {"k3_fwd": mega.attention_block_fwd_stats,
+                     "k3_bwd": mega.attention_block_bwd_recompute,
+                     "kffs": ffb.ff_block_fwd_stats,
+                     "ff_rc": ffb.ff_block_bwd_recompute,
+                     "k5_fwd": lse5.streaming_lse_fwd,
+                     "k5_bwd": lse5.streaming_lse_bwd}
+    before = {k: fn.launches for k, fn in lean_counters.items()}
+    train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                 make_train_step, number=10, prefix="lean_")
+    missed = [k for k, fn in lean_counters.items()
+              if fn.launches == before[k]]
+    if missed:
+        fail(f"the lean golden step did not run through {missed}")
+
+    # --------------------------------------------------------------- 11
+    lean_launches = lean_train(card, CLIP, default_optimizer, make_train_step,
+                               lean_counters, stored)
+    dt = torch.bfloat16
+    for tower, n in (("text", 257), ("vision", 32)):
+        rows = 2048 * n
+        print(f"  b=2048 {tower} ({rows} rows) chunks per call: K-FF-s "
+              f"{len(ffb.fwd_stats_spans(rows, 512, 2048, dt))}, FF recompute "
+              f"backward {len(ffb.bwd_recompute_spans(rows, 512, 2048, dt))}"
+              f", K3 forward "
+              f"{len(mega.fwd_stats_spans(2048, n, 512, 8, dt, False))}, K3 "
+              f"backward "
+              f"{len(mega.bwd_recompute_spans(2048, n, 512, 8, dt, False))}",
+              flush=True)
+
+    def entry(name, source, replaces, launches, err, kms, cost, peak):
+        b_ms, b_by = bound(*cost, peak)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": kms[0], "plain_ms": kms[1],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # no single PyTorch call computes any of these functions: library_ms
+    # is null throughout
+    rows = b * 257
     record = {"kernels": [
-        {"name": "K-FF ff_block forward", "route": "cuda",
-         "source": "xclip_tpu_torch/csrc/fused_ff_block.cu",
-         "replaces": "xclip_tpu/kernels/fused_ff_block.py:143",
-         "launches": launches["ff"],
-         "max_abs_err": errs[("ff", "text rows 8x257", torch.bfloat16)],
-         "ms": times[("ff", "text")][0], "plain_ms": times[("ff", "text")][1]},
-        {"name": "K-MEGA attention_block forward", "route": "cuda",
-         "source": "xclip_tpu_torch/csrc/attention_megablock.cu",
-         "replaces": "xclip_tpu/kernels/attention_megablock.py:278",
-         "launches": launches["mega"],
-         "max_abs_err": errs[("mega", "text", torch.bfloat16)],
-         "ms": times[("mega", "text")][0],
-         "plain_ms": times[("mega", "text")][1]},
+        entry("K-FF ff_block forward",
+              "xclip_tpu_torch/csrc/fused_ff_block.cu",
+              "xclip_tpu/kernels/fused_ff_block.py:143", launches["ff"],
+              errs[("ff", "text rows 8x257", torch.bfloat16)],
+              times[("ff", "text")], ff_cost("fwd", rows), BF16_PEAK),
+        entry("K-MEGA attention_block forward",
+              "xclip_tpu_torch/csrc/attention_megablock.cu",
+              "xclip_tpu/kernels/attention_megablock.py:278",
+              launches["mega"], errs[("mega", "text", torch.bfloat16)],
+              times[("mega", "text")],
+              mega_cost("fwd", b, 257, mega_lengths), BF16_PEAK),
     ]}
     for key, name, source, replaces in TRAIN_KERNELS:
-        record["kernels"].append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train_launches[key],
-            "max_abs_err": train_errs[key], "ms": train_ms[key][0],
-            "plain_ms": train_ms[key][1]})
+        record["kernels"].append(entry(
+            name, source, replaces, train_launches[key], train_errs[key],
+            train_ms[key], train_costs[key], BF16_PEAK))
+    for key, name, source, replaces in LEAN_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, lean_launches[key], lean_errs[key],
+            lean_ms[key], lean_costs[key],
+            FP32_PEAK if key.startswith("k5") else BF16_PEAK))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ holds one training step of JAX's `make_train_step` with
 `default_optimizer(**TRAIN_OPTIMIZER)`: the batch, the patch indices its
 rng keeps (replayed as `CLIPModel.apply` draws them), the loss and
 pre-clip gradient norm, every gradient (`grad/<path>`) and every parameter
-after the step (`param1/<path>`), paths joined by "/".
+after the step (`param1/<path>`), paths joined by "/". The same step on the
+memory-lean routes (`LEAN_ROUTES`: K3 in both towers, the recompute FF
+block, the streaming-LSE InfoNCE) from the same weights, batch and patch
+indices is stored under `lean_config`, `lean_train_loss`,
+`lean_train_grad_norm`, `lean_grad/<path>` and `lean_param1/<path>`.
 """
 
 import json
@@ -44,6 +48,8 @@ CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
 SEED = 11
 TRAIN_OPTIMIZER = dict(learning_rate=1e-4, warmup_steps=2, total_steps=10)
 TRAIN_RNG = 7
+LEAN_ROUTES = dict(attn_impl="fused_recompute", visual_attn_impl=None,
+                   ff_impl="block", loss_impl="fused")
 
 
 def flat(tree, prefix=""):
@@ -64,7 +70,9 @@ def keep_idx(rng, b, num_patches, prob):
     return np.asarray(idx)
 
 
-def train_step(clip, params, text, images):
+def train_step(clip, params, text, images, prefix=""):
+    """One step of make_train_step; keys under `prefix` (the batch and
+    patch indices only for the first config, which the others share)."""
     rng = jax.random.PRNGKey(TRAIN_RNG)
     jt, ji = jnp.asarray(text), jnp.asarray(images)
 
@@ -80,13 +88,15 @@ def train_step(clip, params, text, images):
     state, metrics = step(state, jt, ji, rng)
     num_patches = (CONFIG["visual_image_size"]
                    // CONFIG["visual_patch_size"]) ** 2
-    out = {"train_optimizer": json.dumps(TRAIN_OPTIMIZER),
-           "train_text": text, "train_images": images,
-           "train_keep_idx": keep_idx(rng, text.shape[0], num_patches, 0.5),
-           "train_loss": np.asarray(metrics["loss"]),
-           "train_grad_norm": np.asarray(metrics["grad_norm"])}
-    out.update({f"grad/{k}": v for k, v in flat(grads)})
-    out.update({f"param1/{k}": v for k, v in flat(state.params)})
+    out = {f"{prefix}train_loss": np.asarray(metrics["loss"]),
+           f"{prefix}train_grad_norm": np.asarray(metrics["grad_norm"])}
+    if not prefix:
+        out.update({"train_optimizer": json.dumps(TRAIN_OPTIMIZER),
+                    "train_text": text, "train_images": images,
+                    "train_keep_idx": keep_idx(rng, text.shape[0],
+                                               num_patches, 0.5)})
+    out.update({f"{prefix}grad/{k}": v for k, v in flat(grads)})
+    out.update({f"{prefix}param1/{k}": v for k, v in flat(state.params)})
     return out
 
 
@@ -108,11 +118,15 @@ def main():
     for i in range(6):
         train_text[i, 16 - 2 * i:] = 0
     train_images = npr.randn(6, 3, 32, 32).astype(np.float32)
+    lean_config = {**CONFIG, **LEAN_ROUTES}
+    lean = train_step(xclip_tpu.CLIP(**lean_config), params, train_text,
+                      train_images, prefix="lean_")
     np.savez_compressed(
         OUT, config=json.dumps(CONFIG), seed=SEED, text=text, images=images,
         sims=np.asarray(sims), text_latents=np.asarray(tl),
         image_latents=np.asarray(il), enc_text_head=np.asarray(et[:, :3]),
         enc_image_head=np.asarray(ei[:, :3]),
+        lean_config=json.dumps(lean_config), **lean,
         **train_step(clip, params, train_text, train_images))
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
 

@@ -8,7 +8,8 @@ module imports no JAX, so it runs on a machine without it:
 (`--noconftest`: the suite's conftest configures JAX). fp32 is compared at
 1e-4 absolute with TF32 off; bf16 at two storage ulps. The training
 kernels' outputs and gradients are compared at 1e-4 (fp32) or two bf16
-ulps of each tensor's largest magnitude.
+ulps of each tensor's largest magnitude; K5's lse (fp32, |lse| < 20) at
+1e-4 absolute.
 """
 
 import math
@@ -18,6 +19,7 @@ import torch
 
 from xclip_tpu_torch.kernels import attention_megablock as mega
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
+from xclip_tpu_torch.kernels import fused_infonce as lse5
 
 from torch_port_inputs import BF16_ATOL, to_torch, ff_args, mega_args
 
@@ -183,3 +185,183 @@ def test_training_kernels_are_deterministic(cuda_device):
     assert all(torch.equal(x, y) for x, y in
                zip(ffb.ff_block_bwd_p2(*p1a[4], do),
                    ffb.ff_block_bwd_p2(*p1b[4], do)))
+
+
+# ------------------------------------ memory-lean training: K-FF-s, K3, K5
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,dim,inner", [(130, 128, 256), (77, 64, 128),
+                                            (8192, 512, 2048)])
+def test_ff_block_lean_kernels_match_plain(cuda_device, dtype, rows, dim,
+                                           inner):
+    args = to_torch(ff_args(R=rows, D=dim, I=inner), getattr(torch, dtype),
+                    cuda_device)
+    counts = (ffb.ff_block_fwd_stats.launches,
+              ffb.ff_block_bwd_recompute.launches)
+    out, stats = ffb.ff_block_fwd_stats(*args)
+    want_out, want_stats = ffb.ff_block_fwd_stats_plain(*args)
+    _assert_all_close((out, stats), (want_out, want_stats), dtype,
+                      ("out", "stats"))
+    do = torch.randn(rows, dim, device=cuda_device).to(args[0].dtype)
+    _assert_all_close(
+        ffb.ff_block_bwd_recompute(*args, do, want_stats),
+        ffb.ff_block_bwd_recompute_plain(*args, do, want_stats), dtype,
+        ("dx", "dg_pre", "dw_in", "dg_inner", "dw_out"))
+    assert (ffb.ff_block_fwd_stats.launches,
+            ffb.ff_block_bwd_recompute.launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ff_block_recompute_chunks_agree_bit_for_bit(cuda_device,
+                                                     monkeypatch, dtype):
+    """Row chunks start at multiples of ROW_BLOCK and the dW partials cover
+    ROW_BLOCK rows each: one chunk and three (one ragged) give the same
+    bits, and so do two runs; the chunked forward matches the whole one."""
+    rows, dim, inner = 2 * ffb.ROW_BLOCK + 904, 128, 256
+    dt = getattr(torch, dtype)
+    args = to_torch(ff_args(R=rows, D=dim, I=inner), dt, cuda_device)
+    out, stats = ffb.ff_block_fwd_stats(*args)
+    do = torch.randn(rows, dim, device=cuda_device).to(dt)
+    whole = ffb.ff_block_bwd_recompute(*args, do, stats)
+    again = ffb.ff_block_bwd_recompute(*args, do, stats)
+    monkeypatch.setattr(ffb, "CHUNK_BYTES", sum(
+        t.nbytes for t in ffb._fwd_scratch(2000, dim, inner, dt, "meta")))
+    assert len(ffb.fwd_stats_spans(rows, dim, inner, dt)) == 3
+    out3, stats3 = ffb.ff_block_fwd_stats(*args)
+    assert torch.equal(out, out3) and torch.equal(stats, stats3)
+    monkeypatch.setattr(
+        ffb, "CHUNK_BYTES",
+        ffb._build.library().xclip_ff_block_bwd_recompute_workspace(
+            ffb.dtype_code(dt), ffb.ROW_BLOCK, dim, inner, ffb.ROW_BLOCK))
+    assert len(ffb.bwd_recompute_spans(rows, dim, inner, dt)) == 3
+    chunked = ffb.ff_block_bwd_recompute(*args, do, stats)
+    for a, b, c in zip(whole, again, chunked):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("n,dim,heads", [(70, 128, 2), (33, 64, 1)])
+@pytest.mark.parametrize("keep_qkv", [False, True])
+def test_attention_block_lean_kernels_match_plain(cuda_device, dtype, causal,
+                                                  mask_kind, n, dim, heads,
+                                                  keep_qkv):
+    args = to_torch(mega_args(n=n, dim=dim, heads=heads, mask_kind=mask_kind),
+                    getattr(torch, dtype), cuda_device)
+    static = (heads, 64, 0.125, causal, mask_kind != "none")
+    counts = (mega.attention_block_fwd_stats.launches,
+              mega.attention_block_bwd_recompute.launches)
+    got = mega.attention_block_fwd_stats(*args, *static, keep_qkv)
+    want = mega.attention_block_fwd_stats_plain(*args, *static, keep_qkv)
+    assert (got[3] is None) == (want[3] is None) == (not keep_qkv)
+    _assert_all_close(got[:3] + got[3:] * keep_qkv,
+                      want[:3] + want[3:] * keep_qkv, dtype,
+                      ("out", "sm", "ln_stats", "qkv"))
+    do = torch.randn(*got[0].shape, device=cuda_device).to(got[0].dtype)
+    _, sm, ln_stats, qkv = want
+    _assert_all_close(
+        mega.attention_block_bwd_recompute(*args, do, sm, ln_stats, *static,
+                                           qkv=qkv),
+        mega.attention_block_bwd_recompute_plain(*args, do, sm, ln_stats,
+                                                 *static, qkv=qkv),
+        dtype, ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+    assert (mega.attention_block_fwd_stats.launches,
+            mega.attention_block_bwd_recompute.launches) == (counts[0] + 1,
+                                                            counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_qkv", [False, True])
+def test_attention_block_lean_kernels_flagship_shape(cuda_device,
+                                                     monkeypatch, keep_qkv):
+    """(b, n, dim, heads) = (16, 257, 512, 8), bf16, key-pad mask, the
+    batch in three chunks; two backward runs agree bit for bit."""
+    torch.manual_seed(1)
+    b, n, dim, heads = 16, 257, 512, 8
+    dt = torch.bfloat16
+    lengths = torch.randint(1, n + 1, (b,), device=cuda_device)
+    mask = torch.arange(n, device=cuda_device)[None] < lengths[:, None]
+    hd = heads * 64
+    args = [torch.randn(b, n, dim, device=cuda_device).to(dt),
+            (1 + 0.1 * torch.randn(dim, device=cuda_device)).to(dt),
+            (torch.randn(dim, 3 * hd, device=cuda_device) / dim ** 0.5).to(dt),
+            (torch.randn(hd, dim, device=cuda_device) / hd ** 0.5).to(dt),
+            (1 + 0.1 * torch.randn(dim, device=cuda_device)).to(dt), mask]
+    static = (heads, 64, 64 ** -0.5, False, True)
+    monkeypatch.setattr(
+        mega, "CHUNK_BYTES",
+        mega._build.library().xclip_attention_block_bwd_recompute_workspace(
+            mega.dtype_code(dt), 6, n, dim, heads, int(keep_qkv)))
+    assert len(mega.bwd_recompute_spans(b, n, dim, heads, dt, keep_qkv)) == 3
+    got = mega.attention_block_fwd_stats(*args, *static, keep_qkv)
+    want = mega.attention_block_fwd_stats_plain(*args, *static, keep_qkv)
+    names = ("out", "sm", "ln_stats", "qkv")[:3 + keep_qkv]
+    _assert_all_close(got[:len(names)], want[:len(names)], "bfloat16", names)
+    do = torch.randn_like(got[0])
+    _, sm, ln_stats, qkv = want
+    run = [mega.attention_block_bwd_recompute(
+        *args, do, sm, ln_stats, *static, qkv=qkv) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*run))
+    _assert_all_close(
+        run[0], mega.attention_block_bwd_recompute_plain(
+            *args, do, sm, ln_stats, *static, qkv=qkv),
+        "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+
+
+def _lse_inputs(R, C, d, device):
+    """l2-normed rows at a CLIP temperature's scale (|x·y| <= 14)."""
+    g = torch.Generator(device=device).manual_seed(R + 7 * C + d)
+    x = torch.randn(R, d, generator=g, device=device)
+    y = torch.randn(C, d, generator=g, device=device)
+    x = 14 * x / x.norm(dim=-1, keepdim=True)
+    return x, y / y.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,d", [(37, 300, 64), (300, 37, 128),
+                                   (2048, 2048, 512)])
+@pytest.mark.parametrize("decoupled,row_offset", [(False, 0), (True, 0),
+                                                  (True, 5)])
+def test_streaming_lse_kernels_match_plain(cuda_device, R, C, d, decoupled,
+                                           row_offset):
+    x, y = _lse_inputs(R, C, d, cuda_device)
+    counts = (lse5.streaming_lse_fwd.launches,
+              lse5.streaming_lse_bwd.launches)
+    lse = lse5.streaming_lse_fwd(x, y, row_offset, decoupled)
+    want = lse5.streaming_lse_fwd_plain(x, y, row_offset, decoupled)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    dlse = torch.randn(R, device=cuda_device)
+    got = lse5.streaming_lse_bwd(x, y, want, dlse, row_offset, decoupled)
+    _assert_all_close(got, lse5.streaming_lse_bwd_plain(
+        x, y, want, dlse, row_offset, decoupled), "float32", ("dx", "dy"))
+    again = lse5.streaming_lse_bwd(x, y, want, dlse, row_offset, decoupled)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (lse5.streaming_lse_fwd.launches,
+            lse5.streaming_lse_bwd.launches) == (counts[0] + 1,
+                                                 counts[1] + 2)
+
+
+@pytest.mark.cuda
+def test_lean_backwards_are_deterministic(cuda_device):
+    """No float atomics: two runs of each memory-lean backward agree bit
+    for bit (K5's in the test above)."""
+    args = to_torch(mega_args(n=70, dim=128, heads=2, mask_kind="keypad"),
+                    torch.bfloat16, cuda_device)
+    for keep in (False, True):
+        out, sm, ln_stats, qkv = mega.attention_block_fwd_stats(
+            *args, 2, 64, 0.125, keep_qkv=keep)
+        do = torch.randn(*out.shape, device=cuda_device).to(out.dtype)
+        a, b = (mega.attention_block_bwd_recompute(
+            *args, do, sm, ln_stats, 2, 64, 0.125, qkv=qkv) for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    fargs = to_torch(ff_args(R=4000, D=128, I=256), torch.bfloat16,
+                     cuda_device)
+    _, stats = ffb.ff_block_fwd_stats(*fargs)
+    do = torch.randn(4000, 128, device=cuda_device).to(torch.bfloat16)
+    a, b = (ffb.ff_block_bwd_recompute(*fargs, do, stats) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

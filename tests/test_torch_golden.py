@@ -1,10 +1,11 @@
 """The port on the CPU against committed JAX outputs
 (`tests/data/torch_port_golden.npz`, written by
 `tests/make_torch_port_golden.py`): the same checks that `chip_smoke.py`
-makes on the GPU (phases 3 and 7), where there is no JAX. fp32; outputs
-1e-4 absolute; one train step's loss 1e-5, gradients rtol 1e-3 with atol
-1e-5 times the leaf's largest magnitude, parameters after the step 2e-6
-(a few ulps of the O(1) weights, the step moves each by about 1e-4)."""
+makes on the GPU (phases 3, 7 and 10), where there is no JAX. fp32;
+outputs 1e-4 absolute; one train step (stored routes, then memory-lean
+routes) loss 1e-5, gradients rtol 1e-3 with atol 1e-5 times the leaf's
+largest magnitude, parameters after the step 2e-6 (a few ulps of the O(1)
+weights, the step moves each by about 1e-4)."""
 
 import json
 from pathlib import Path
@@ -22,7 +23,7 @@ GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 def test_port_matches_jax_golden():
     g = np.load(GOLDEN)
     config = json.loads(str(g["config"]))
-    clip = xclip_tpu_torch.CLIP(**config)
+    clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
     text, images = torch.from_numpy(g["text"]), torch.from_numpy(g["images"])
     got = {"sims": clip(text, images)}
@@ -43,29 +44,39 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def test_train_step_matches_jax_golden():
+def _check_train_step(config_key, prefix):
     g = np.load(GOLDEN)
-    config = json.loads(str(g["config"]))
-    clip = xclip_tpu_torch.CLIP(**config)
+    config = json.loads(str(g[config_key]))
+    clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
     opt = default_optimizer(clip.parameters(),
                             **json.loads(str(g["train_optimizer"])))
     metrics = make_train_step(clip, opt)(
         torch.from_numpy(g["train_text"]), torch.from_numpy(g["train_images"]),
         keep_idx=torch.from_numpy(g["train_keep_idx"]))
-    np.testing.assert_allclose(metrics["loss"].item(), g["train_loss"],
-                               atol=1e-5)
+    np.testing.assert_allclose(metrics["loss"].item(),
+                               g[f"{prefix}train_loss"], atol=1e-5)
     np.testing.assert_allclose(metrics["grad_norm"].item(),
-                               g["train_grad_norm"], rtol=1e-5)
+                               g[f"{prefix}train_grad_norm"], rtol=1e-5)
     grads = dict(_flat(to_jax_tree(clip, grads=True)))
     params = dict(_flat(to_jax_tree(clip)))
-    assert {f"grad/{k}" for k in grads} == {k for k in g.files
-                                            if k.startswith("grad/")}
+    assert {f"{prefix}grad/{k}" for k in grads} == {
+        k for k in g.files if k.startswith(f"{prefix}grad/")}
     for name, got in grads.items():
-        want = g[f"grad/{name}"]
+        want = g[f"{prefix}grad/{name}"]
         np.testing.assert_allclose(
             got, want, rtol=1e-3,
             atol=1e-5 * max(1.0, float(np.abs(want).max())), err_msg=name)
     for name, got in params.items():
-        np.testing.assert_allclose(got, g[f"param1/{name}"], rtol=0,
+        np.testing.assert_allclose(got, g[f"{prefix}param1/{name}"], rtol=0,
                                    atol=2e-6, err_msg=name)
+
+
+def test_train_step_matches_jax_golden():
+    _check_train_step("config", "")
+
+
+def test_lean_train_step_matches_jax_golden():
+    """The memory-lean routes (K3 both towers, the recompute FF block, the
+    streaming-LSE InfoNCE) from the same weights and batch."""
+    _check_train_step("lean_config", "lean_")

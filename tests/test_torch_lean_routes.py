@@ -1,0 +1,83 @@
+"""Every training combination of the port's kernel routes against the JAX
+package on the CPU: `attn_impl` in ('fused', 'fused_qkv',
+'fused_recompute') × `ff_impl` in ('block', 'block_stored') × `loss_impl`
+in ('xla', 'fused'), one cheap case each (the tiny CLIP at batch 2, patch
+dropout on, one layer a tower): the loss and full gradient tree against
+`jax.value_and_grad`, at the tolerances of `test_torch_train.py` (loss
+1e-5; gradients rtol 1e-3 with atol 1e-5 times the leaf's largest
+magnitude). And what training still lacks raises, naming its ROADMAP.md
+item.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import xclip_tpu_torch
+from xclip_tpu_torch.convert import to_jax_tree
+from xclip_tpu_torch.nn import layers as tlayers
+
+from test_torch_lean_train import TINY, _inputs, _pair, _tree_close
+from test_torch_train import jax_keep_idx
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+COMBOS = list(itertools.product(("fused", "fused_qkv", "fused_recompute"),
+                                ("block", "block_stored"), ("xla", "fused")))
+
+
+@pytest.mark.parametrize("attn_impl,ff_impl,loss_impl", COMBOS)
+def test_training_route_matches_jax(attn_impl, ff_impl, loss_impl):
+    jclip, params, tclip = _pair(seed=2, attn_impl=attn_impl,
+                                 ff_impl=ff_impl, loss_impl=loss_impl,
+                                 text_enc_depth=1, visual_enc_depth=1)
+    text, image = _inputs(b=2, seed=2)
+    rng = jax.random.PRNGKey(9)
+
+    def loss_fn(p):
+        return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
+                                 return_loss=True, rng=rng, training=True)
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
+                 return_loss=True, keep_idx=jax_keep_idx(rng, 2, 9, 0.5))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=1e-5)
+    _tree_close(to_jax_tree(tclip, grads=True), want_grads, rtol=1e-3,
+                atol_scale=1e-5)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (dict(text_rotary_pos_emb=True), "rotary"),
+    (dict(attn_impl="flash"), "K7"),
+    (dict(ff_impl="fused"), "K8"),
+])
+def test_unported_routes_raise_at_construction(flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        xclip_tpu_torch.CLIP(**TINY, **flags, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(attn_impl="fused_recompute", checkpoint_during_training=True),
+     "Queue 1, item 2"),
+    (dict(attn_impl="fused_qkv", ff_dropout=0.1), "Queue 1, items 1-2"),
+])
+def test_lean_routes_keep_remat_and_dropout_raising(kwargs, match):
+    stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)
+    with pytest.raises(NotImplementedError, match=match):
+        stack(torch.zeros(1, 3, 64), ff_impl="block", training=True, **kwargs)
+
+
+def test_stored_h_still_raises_beside_the_recompute_route(monkeypatch):
+    """XCLIP_FF_STORE=h qualifies 'block_stored' only: 'block' trains."""
+    monkeypatch.setenv("XCLIP_FF_STORE", "h")
+    stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)
+    with pytest.raises(NotImplementedError, match="XCLIP_FF_STORE=h"):
+        stack(torch.zeros(1, 3, 64), ff_impl="block_stored", training=True)
+    x = torch.randn(1, 3, 64, requires_grad=True)
+    stack(x, ff_impl="block", training=True).sum().backward()
+    assert x.grad is not None

@@ -44,7 +44,7 @@ def _pair(seed=0, **flags):
     jclip = xclip_tpu.CLIP(**TINY, **flags)
     params = jax.tree.map(jnp.asarray, tree)
     assert (jax.tree.structure(params) == jax.tree.structure(jclip.params))
-    tclip = xclip_tpu_torch.CLIP(**TINY, **flags)
+    tclip = xclip_tpu_torch.CLIP(**TINY, **flags, device="cpu")
     load_jax_params(tclip, tree)
     return jclip, params, tclip
 
@@ -167,18 +167,18 @@ def test_signature_matches_jax_clip():
     (dict(attn_impl="flash"), "K7"),
     (dict(visual_attn_impl="flash"), "K7"),
     (dict(ff_impl="fused"), "K8"),
-    (dict(loss_impl="fused"), "K5"),
+    (dict(visual_ssl=object()), "use_visual_ssl"),
 ])
 def test_out_of_slice_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
-        xclip_tpu_torch.CLIP(**{**TINY, **flags})
+        xclip_tpu_torch.CLIP(**{**TINY, **flags}, device="cpu")
 
 
 def test_training_calls_raise():
     """Training runs (tests/test_torch_train.py); what it does not have yet
     raises: augmented views name their ROADMAP.md item, a loss without
     training and augmented views at inference are errors, as in JAX."""
-    clip = xclip_tpu_torch.CLIP(**TINY)
+    clip = xclip_tpu_torch.CLIP(**TINY, device="cpu")
     text, image = map(torch.from_numpy, _inputs(b=2))
     loss = clip(text, image, return_loss=True)
     assert loss.shape == () and loss.requires_grad
@@ -189,7 +189,7 @@ def test_training_calls_raise():
     with pytest.raises(ValueError, match="augmented"):
         clip(text, image, aug_text=text)
     with pytest.raises(TypeError, match="unexpected"):
-        xclip_tpu_torch.CLIP(**TINY, not_a_flag=1)
+        xclip_tpu_torch.CLIP(**TINY, not_a_flag=1, device="cpu")
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
@@ -198,8 +198,34 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
         xclip_tpu_torch.CLIP(**TINY, device="cuda")
 
 
+def test_device_defaults_to_cuda(monkeypatch):
+    """With no `device`, the parameters go to the card; without one that
+    raises rather than falling back to the CPU."""
+    assert inspect.signature(xclip_tpu_torch.CLIP).parameters[
+        "device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        xclip_tpu_torch.CLIP(**TINY)
+
+
+def test_loss_impl_fused_builds_and_runs():
+    """`loss_impl='fused'` (K5's streaming log-sum-exp, its plain version
+    on the CPU) gives the dense InfoNCE's loss, and trains."""
+    text, image = map(torch.from_numpy, _inputs(b=3))
+    keep = torch.tensor([[0, 2], [1, 3], [3, 0]])
+    losses = []
+    for impl in ("xla", "fused"):
+        clip = xclip_tpu_torch.CLIP(**TINY, loss_impl=impl, seed=2,
+                                    device="cpu")
+        loss = clip(text, image, return_loss=True, keep_idx=keep)
+        loss.backward()
+        assert clip.temperature.grad is not None
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses[1], losses[0], rtol=0, atol=1e-5)
+
+
 def test_load_jax_params_is_strict():
-    clip = xclip_tpu_torch.CLIP(**TINY)
+    clip = xclip_tpu_torch.CLIP(**TINY, device="cpu")
     tree = numpy_params(TINY, seed=0)
     del tree["to_text_latent_extra"]
     with pytest.raises(KeyError, match="to_text_latent_extra"):
@@ -214,8 +240,8 @@ def test_load_jax_params_is_strict():
 
 
 def test_seeded_init_is_reproducible():
-    a = xclip_tpu_torch.CLIP(**TINY, seed=7).state_dict()
-    b = xclip_tpu_torch.CLIP(**TINY, seed=7).state_dict()
+    a = xclip_tpu_torch.CLIP(**TINY, seed=7, device="cpu").state_dict()
+    b = xclip_tpu_torch.CLIP(**TINY, seed=7, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.equal(a["model.to_text_latent.w"],
                        a["model.to_text_latent_extra.w"])

@@ -66,7 +66,7 @@ def _pair(seed=0, **flags):
     config = {**TINY, **ROUTES, **flags}
     tree = numpy_params(config, seed)
     jclip = xclip_tpu.CLIP(**config)
-    tclip = xclip_tpu_torch.CLIP(**config)
+    tclip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(tclip, tree)
     return jclip, jax.tree.map(jnp.asarray, tree), tclip
 
@@ -197,9 +197,10 @@ def test_stack_grads_with_jax_sequence_padding():
 # ------------------------------------------------------------- routing
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(attn_impl="fused_qkv"), "K3"),
-    (dict(attn_impl="fused_recompute"), "K3"),
-    (dict(ff_impl="block"), "K-FF-s"),
+    (dict(attn_impl="flash"), "K7"),
+    (dict(ff_impl="fused"), "K8"),
+    (dict(ff_impl="block", checkpoint_during_training=True),
+     "Queue 1, item 2"),
     (dict(checkpoint_during_training=True), "Queue 1, item 2"),
     (dict(attn_dropout=0.1), "Queue 1, items 1-2"),
     (dict(ff_dropout=0.1), "Queue 1, items 1-2"),
@@ -219,10 +220,12 @@ def test_stored_h_variant_raises(monkeypatch):
 
 def test_unported_training_options_raise():
     text, image = map(torch.from_numpy, _inputs(b=2))
-    clip = xclip_tpu_torch.CLIP(**TINY, checkpoint_during_training=True)
+    clip = xclip_tpu_torch.CLIP(**TINY, checkpoint_during_training=True,
+                                device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
         clip(text, image, return_loss=True)
-    clip = xclip_tpu_torch.CLIP(**TINY, sim_reg_loss_weight=0.1)
+    clip = xclip_tpu_torch.CLIP(**TINY, sim_reg_loss_weight=0.1,
+                                device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         clip(text, image, return_loss=True)
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
@@ -249,7 +252,7 @@ def test_inference_keeps_the_lean_forwards(monkeypatch):
     for name in ("ff_block", "attention_block", "ff_block_train",
                  "attention_block_train"):
         spy(name, getattr(tlayers, name))
-    clip = xclip_tpu_torch.CLIP(**TINY, **ROUTES)
+    clip = xclip_tpu_torch.CLIP(**TINY, **ROUTES, device="cpu")
     text, image = map(torch.from_numpy, _inputs(b=2))
     clip(text, image)
     assert set(calls) == {"ff_block", "attention_block"}
@@ -259,7 +262,7 @@ def test_inference_keeps_the_lean_forwards(monkeypatch):
 
 
 def test_patch_dropout_draws_from_the_generator():
-    clip = xclip_tpu_torch.CLIP(**TINY)
+    clip = xclip_tpu_torch.CLIP(**TINY, device="cpu")
     text, image = map(torch.from_numpy, _inputs(b=2))
     a = clip(text, image, return_loss=True,
              generator=torch.Generator().manual_seed(3))

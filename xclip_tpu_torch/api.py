@@ -1,8 +1,9 @@
 """User-facing `CLIP` — the constructor kwargs and defaults of
 `xclip_tpu.CLIP` (minus the JAX-only `key`), around `CLIPModel`.
 
-Port additions (keyword-only): `device=` (where the parameters live; a CUDA
-device that is not there raises, nothing falls back to the CPU), `seed=` /
+Port additions (keyword-only): `device=` (where the parameters live: the
+card, "cuda", unless the caller asks for "cpu"; a CUDA device that is not
+there raises, nothing falls back to the CPU), `seed=` /
 `generator=` (a `torch.Generator` for initialisation; `seed` makes one).
 `forward` adds `generator=` and `keep_idx=` (the randomness of a training
 forward's patch dropout; by default the model's own call generator, as
@@ -38,8 +39,9 @@ def _not_ported(what: str, where: str):
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available; the port does not fall back to the CPU")
+        raise RuntimeError(f"device {device} requested (the default) but "
+                           "CUDA is not available; the port does not fall "
+                           "back to the CPU: pass device='cpu' to run there")
     return device
 
 
@@ -97,7 +99,7 @@ class CLIP(nn.Module):
         ff_impl: str = "xla",
         compute_dtype: Optional[str] = None,
         # port extras
-        device="cpu",
+        device="cuda",
         seed: int = 0,
         generator: Optional[torch.Generator] = None,
         **kwargs,
@@ -114,9 +116,8 @@ class CLIP(nn.Module):
             _not_ported("text_causal_mask (EOS pooling)", "Queue 1, items 3 and 5")
         if use_mlm or use_visual_ssl or visual_ssl is not None:
             _not_ported("use_mlm / use_visual_ssl", "Queue 1, item 7")
-        if loss_impl != "xla":
-            _not_ported(f"loss_impl={loss_impl!r} (streaming-LSE InfoNCE)",
-                        "Queue 2, K5")
+        if loss_impl not in ("xla", "fused"):
+            raise ValueError(f"unknown loss_impl {loss_impl!r}")
         check_impls(attn_impl, ff_impl)
         check_impls(visual_attn_impl or attn_impl, ff_impl)
         assert visual_has_cls_token or text_has_cls_token, (
@@ -151,7 +152,8 @@ class CLIP(nn.Module):
             extra_latent_projection=extra_latent_projection,
             decoupled_contrastive_learning=decoupled_contrastive_learning,
             attn_impl=attn_impl, visual_attn_impl=visual_attn_impl,
-            compute_dtype=compute_dtype, generator=generator, dtype=dtype)
+            loss_impl=loss_impl, compute_dtype=compute_dtype,
+            generator=generator, dtype=dtype)
         self.sim_reg_loss_weight = sim_reg_loss_weight
         self.to(device)
         # patch-dropout draws of training calls that bring no generator

@@ -8,7 +8,12 @@
 //     forward in place of `_fwd_kernel_stored` (the same five launches,
 //     also keeping the residuals and statistics the backward reads) and
 //     the backward in place of `_bwd_kernel_stored` with `_mega_bwd_vjp`'s
-//     dW_qkv product (its source note is further down).
+//     dW_qkv product (its source note is further down);
+//   * K3, the memory-lean variants (`store_qkv=False` / "qkv"): the
+//     forward in place of `_fwd_kernel_stats` and `_fwd_kernel_qkv` (the
+//     same five launches keeping only the fp32 statistics, and qkv for the
+//     second), the backward in place of `_bwd_kernel` and `_bwd_kernel_qkv`
+//     (its note is at the end).
 //
 // Cast order (as the Pallas kernel): LN_pre in fp32, xn cast to the storage
 // dtype; qkv = xn @ w_qkv accumulates in fp32 and is cast to the storage
@@ -346,12 +351,16 @@ int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
 }
 
 // The same five launches serve inference (K-MEGA) and the training
-// forward (K2, `_fwd_kernel_stored`): with `sm`, the attention kernel also
-// keeps its softmax statistics; with `ln_stats` (4 x rows: mean_pre,
-// inv_pre, mean_o, inv_o) the two LayerNorm launches keep theirs, and the
-// out-LN launch writes proj rounded to T into `proj_s` (the statistics come
-// from the fp32 proj, as in the Pallas kernel). qkv and attnout are the
-// stored residuals as they stand.
+// forwards (K2, `_fwd_kernel_stored`; K3, `_fwd_kernel_stats` and
+// `_fwd_kernel_qkv`): with `sm`, the attention kernel also keeps its
+// softmax statistics; with `ln_stats` (statistic k of row r at
+// ln_stats[k * stats_ld + r]: mean_pre, inv_pre, mean_o, inv_o) the two
+// LayerNorm launches keep theirs, and with `proj_s` the out-LN launch
+// writes proj rounded to T there (the statistics come from the fp32 proj,
+// as in the Pallas kernel). qkv and attnout are K2's residuals as they
+// stand, and qkv K3's "qkv" residual; K3 "stats" keeps neither. A batch
+// chunk of a longer call writes into its columns of the caller's
+// statistics (stats_ld the caller's rows).
 template <typename T>
 int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
                         const T* w_out, const T* g_out, const uint8_t* mask,
@@ -359,13 +368,14 @@ int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
                         int n, int dim, int heads, float scale, int causal,
                         int maybe_dead, float eps, cudaStream_t st,
                         T* proj_s = nullptr, float* sm = nullptr,
-                        float* ln_stats = nullptr) {
+                        float* ln_stats = nullptr, long stats_ld = 0) {
   using namespace xclip;
   const int rows = b * n, hd = heads * DH;
   float* ls = ln_stats;
+  const long ld = stats_ld;
   int e;
   if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, xn, rows, dim, eps, st,
-                                ls, ls ? ls + rows : nullptr)))
+                                ls, ls ? ls + ld : nullptr)))
     return e;
   if ((e = launch_mm<T, kStore>(xn, w_qkv, nullptr, qkv, rows, 3 * hd, dim, st)))
     return e;
@@ -376,8 +386,8 @@ int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
                                    hd, st)))
     return e;
   return launch_ln_rows<float, T>(proj, g_out, x, out, rows, dim, eps, st,
-                                  ls ? ls + 2 * rows : nullptr,
-                                  ls ? ls + 3 * rows : nullptr, proj_s);
+                                  ls ? ls + 2 * ld : nullptr,
+                                  ls ? ls + 3 * ld : nullptr, proj_s);
 }
 
 // ------------------------------------------------------------ K2 backward
@@ -741,31 +751,37 @@ struct MegaBwdBuffers {
   }
 };
 
-template <typename T>
-int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
-                        const T* w_out, const T* g_out, const uint8_t* mask,
-                        const T* dout, const T* qkv, const T* attnout,
-                        const T* proj_s, const float* sm,
-                        const float* ln_stats, T* dx, T* dqkv, T* dw_qkv,
-                        T* dw_out, T* dg_pre, T* dg_out, void* workspace,
-                        int b, int n, int dim, int heads, float scale,
-                        int causal, int maybe_dead, cudaStream_t st) {
+// The backward from qkv, attnout, proj (T for K2's stored proj, fp32 for
+// K3's recomputed one) and the statistics (`ln_stats` with row stride
+// stats_ld), into dx and dqkv; dW_qkv, dW_out, dg_pre and dg_out are
+// emitted as launch_emit_sum's `acc` says (0: T, K2; 1, 2: fp32 chunk sums,
+// K3).
+template <typename T, typename Tp>
+int attention_block_bwd_core(const T* x, const T* g_pre, const T* w_qkv,
+                             const T* w_out, const T* g_out,
+                             const uint8_t* mask, const T* dout,
+                             const T* qkv, const T* attnout, const Tp* proj,
+                             const float* sm, const float* ln_stats,
+                             long stats_ld, T* dx, T* dqkv, void* dw_qkv,
+                             void* dw_out, void* dg_pre, void* dg_out,
+                             MegaBwdBuffers<T>& w, int b, int n, int dim,
+                             int heads, float scale, int causal,
+                             int maybe_dead, int acc, cudaStream_t st) {
   using namespace xclip;
   const int rows = b * n, hd = heads * DH, nblk = ln_bwd_blocks(rows);
-  Workspace ws(workspace);
-  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  const long ld = stats_ld;
   int e;
-  if ((e = launch_ln_bwd_rows<T, T, kLnBwd>(
-           dout, proj_s, ln_stats + 2 * rows, ln_stats + 3 * rows, g_out,
-           nullptr, w.dproj, w.part_out, rows, dim, st)))
+  if ((e = launch_ln_bwd_rows<T, Tp, T, kLnBwd>(
+           dout, proj, ln_stats + 2 * ld, ln_stats + 3 * ld, g_out, nullptr,
+           w.dproj, w.part_out, rows, dim, st)))
     return e;
-  if ((e = launch_reduce_parts<T>(w.part_out, dg_out, nblk, dim, st)))
+  if ((e = launch_emit_sum<T>(w.part_out, dg_out, nblk, dim, acc, st)))
     return e;
   if ((e = launch_gemm<T, false, true>(w.dproj, w_out, w.dattn, rows, hd, dim,
                                        st)))
     return e;
   if ((e = launch_weight_grad<T>(attnout, w.dproj, dw_out, w.wpart, hd, dim,
-                                 rows, st)))
+                                 rows, st, acc)))
     return e;
   const size_t dq_smem = DqLayout(n, sizeof(T)).bytes;
   const size_t dkv_smem = DkvLayout(sizeof(T)).bytes;
@@ -790,14 +806,110 @@ int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
   if ((e = launch_gemm<T, false, true>(dqkv, w_qkv, w.dxn, rows, dim, 3 * hd,
                                        st)))
     return e;
-  if ((e = launch_ln_bwd_rows<float, T, kLnBwd>(
-           w.dxn, x, ln_stats, ln_stats + rows, g_pre, dout, dx, w.part_pre,
+  if ((e = launch_ln_bwd_rows<float, T, T, kLnBwd>(
+           w.dxn, x, ln_stats, ln_stats + ld, g_pre, dout, dx, w.part_pre,
            rows, dim, st, w.xn)))
     return e;
-  if ((e = launch_reduce_parts<T>(w.part_pre, dg_pre, nblk, dim, st)))
+  if ((e = launch_emit_sum<T>(w.part_pre, dg_pre, nblk, dim, acc, st)))
     return e;
   return launch_weight_grad<T>(w.xn, dqkv, dw_qkv, w.wpart, dim, 3 * hd, rows,
-                               st);
+                               st, acc);
+}
+
+template <typename T>
+int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
+                        const T* w_out, const T* g_out, const uint8_t* mask,
+                        const T* dout, const T* qkv, const T* attnout,
+                        const T* proj_s, const float* sm,
+                        const float* ln_stats, T* dx, T* dqkv, T* dw_qkv,
+                        T* dw_out, T* dg_pre, T* dg_out, void* workspace,
+                        int b, int n, int dim, int heads, float scale,
+                        int causal, int maybe_dead, cudaStream_t st) {
+  xclip::Workspace ws(workspace);
+  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  return attention_block_bwd_core<T, T>(
+      x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, attnout, proj_s, sm,
+      ln_stats, (long)b * n, dx, dqkv, dw_qkv, dw_out, dg_pre, dg_out, w, b,
+      n, dim, heads, scale, causal, maybe_dead, 0, st);
+}
+
+// ------------------------------------------------ K3 recompute backward
+//
+// In place of `_bwd_kernel` (recompute) and `_bwd_kernel_qkv` (qkv kept).
+// One call handles one chunk of batch elements; the wrapper walks the
+// batch in chunks whose transients stay under its bound and sums the
+// chunks' dW and dg in chunk order (`acc` 1 for the first chunk, 2 after),
+// as the Pallas grid accumulates them over batch elements. Per chunk:
+//   1. ln_rows: xn = T(LN_gpre(x)); 2. mm: qkv = T(xn · w_qkv) — skipped
+//      when the forward kept qkv (then xn for dW_qkv comes from the stored
+//      statistics in the pre-LN backward rows, `_bwd_kernel_qkv`:628-630);
+//   3. attention: attnout in T (p from the kernel's own m and l, which are
+//      the stored ones: the same launch on the same qkv);
+//   4. mm: proj = attnout · w_out in fp32, NOT rounded (`_bwd_kernel`
+//      :512-518, unlike K2, which reads the rounded stored proj);
+//   then K2's backward launches (attention_block_bwd_core) with the fp32
+//   proj: xhat_o = (proj - mean_o) * inv_o, dproj rounded, delta from the
+//   fp32 dattn, p rebuilt from the stored m and l, ds zeroed on dead rows
+//   then rounded, dqkv rounded once; dW and dg in fp32 across the batch.
+// The recompute launches are the forward's own, on the same inputs, so
+// qkv, attnout and proj are bit for bit what the forward computed.
+//
+// What bounds it on the card: K2's backward plus the forward's qkv, p·v
+// and projection products again; transients of one chunk cross HBM (xn,
+// qkv, attnout, the fp32 proj, dqkv and K2's workspace, ~16 KB per row at
+// dim 512).
+template <typename T>
+struct RecomputeBuffers {
+  T* xn;
+  T* qkv;
+  T* attnout;
+  float* proj;
+  T* dqkv;
+  RecomputeBuffers(xclip::Workspace& ws, int b, int n, int dim, int heads,
+                   bool keep_qkv) {
+    const size_t rows = (size_t)b * n, hd = (size_t)heads * DH;
+    xn = keep_qkv ? nullptr : ws.take<T>(rows * dim);
+    qkv = keep_qkv ? nullptr : ws.take<T>(rows * 3 * hd);
+    attnout = ws.take<T>(rows * hd);
+    proj = ws.take<float>(rows * dim);
+    dqkv = ws.take<T>(rows * 3 * hd);
+  }
+};
+
+template <typename T>
+int attention_block_bwd_recompute(
+    const T* x, const T* g_pre, const T* w_qkv, const T* w_out,
+    const T* g_out, const uint8_t* mask, const T* dout, const T* kept_qkv,
+    const float* sm, const float* ln_stats, long stats_ld, T* dx,
+    float* dw_qkv, float* dw_out, float* dg_pre, float* dg_out,
+    void* workspace, int b, int n, int dim, int heads, float scale,
+    int causal, int maybe_dead, float eps, int acc, cudaStream_t st) {
+  using namespace xclip;
+  const int rows = b * n, hd = heads * DH;
+  Workspace ws(workspace);
+  RecomputeBuffers<T> r(ws, b, n, dim, heads, kept_qkv != nullptr);
+  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  const T* qkv = kept_qkv;
+  int e;
+  if (!qkv) {
+    if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, r.xn, rows, dim, eps,
+                                  st)))
+      return e;
+    if ((e = launch_mm<T, kStore>(r.xn, w_qkv, nullptr, r.qkv, rows, 3 * hd,
+                                  dim, st)))
+      return e;
+    qkv = r.qkv;
+  }
+  if ((e = launch_attention<T>(qkv, mask, r.attnout, b, n, heads, scale,
+                               causal, maybe_dead, nullptr, st)))
+    return e;
+  if ((e = launch_mm<T, kStoreF32>(r.attnout, w_out, nullptr, r.proj, rows,
+                                   dim, hd, st)))
+    return e;
+  return attention_block_bwd_core<T, float>(
+      x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, r.attnout, r.proj, sm,
+      ln_stats, stats_ld, dx, r.dqkv, dw_qkv, dw_out, dg_pre, dg_out, w, b, n,
+      dim, heads, scale, causal, maybe_dead, acc, st);
 }
 
 }  // namespace
@@ -833,17 +945,20 @@ static bool mega_args_ok(int dtype, int b, int n, int dim, int heads) {
 // (b, n) uint8 (nonzero = valid key); w_qkv (dim, 3*heads*64), w_out
 // (heads*64, dim), gains (dim). Scratch: xn (b*n, dim) and proj (b*n, dim)
 // fp32; qkv (b*n, 3hd) and attnout (b*n, hd) of the storage dtype, which
-// K2 keeps as residuals. K-MEGA passes null residual pointers; K2 passes
-// proj_s (b*n x dim, dtype), sm (b*n x 2*heads, fp32: m then l per head)
-// and ln_stats (4 x b*n, fp32: mean_pre, inv_pre, mean_o, inv_o).
+// K2 keeps as residuals (K3 "qkv" keeps qkv). K-MEGA passes null residual
+// pointers; K2 passes proj_s (b*n x dim, dtype), sm (b*n x 2*heads, fp32: m
+// then l per head) and ln_stats (4 x stats_ld, fp32: mean_pre, inv_pre,
+// mean_o, inv_o); K3 passes sm and ln_stats.
 extern "C" int xclip_attention_block_fwd(
     int dtype, const void* x, const void* g_pre, const void* w_qkv,
     const void* w_out, const void* g_out, const void* mask, void* out,
     void* xn, void* qkv, void* attnout, void* proj, void* proj_s, void* sm,
-    void* ln_stats, int b, int n, int dim, int heads, float scale, int causal,
-    int maybe_dead, float eps, void* stream) {
+    void* ln_stats, long long stats_ld, int b, int n, int dim, int heads,
+    float scale, int causal, int maybe_dead, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mega_args_ok(dtype, b, n, dim, heads)) return (int)cudaErrorInvalidValue;
+  if (!mega_args_ok(dtype, b, n, dim, heads) ||
+      (ln_stats && stats_ld < (long long)b * n))
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0) return 0;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   XCLIP_DISPATCH(dtype, attention_block_fwd<T>(
@@ -853,7 +968,7 @@ extern "C" int xclip_attention_block_fwd(
       XCLIP_PTR(T*, qkv), XCLIP_PTR(T*, attnout), XCLIP_PTR(float*, proj), b,
       n, dim, heads, scale, causal, maybe_dead, eps, st,
       XCLIP_PTR(T*, proj_s), XCLIP_PTR(float*, sm),
-      XCLIP_PTR(float*, ln_stats)));
+      XCLIP_PTR(float*, ln_stats), (long)stats_ld));
 }
 
 // Bytes of the workspace the K2 backward takes.
@@ -894,4 +1009,48 @@ extern "C" int xclip_attention_block_bwd(
       XCLIP_PTR(T*, dqkv), XCLIP_PTR(T*, dw_qkv), XCLIP_PTR(T*, dw_out),
       XCLIP_PTR(T*, dg_pre), XCLIP_PTR(T*, dg_out), workspace, b, n, dim,
       heads, scale, causal, maybe_dead, st));
+}
+
+// Bytes of the workspace the K3 recompute backward takes for b elements.
+extern "C" long long xclip_attention_block_bwd_recompute_workspace(
+    int dtype, int b, int n, int dim, int heads, int keep_qkv) {
+  xclip::Workspace ws(nullptr);
+  if (dtype == xclip::kBF16) {
+    RecomputeBuffers<__nv_bfloat16> r(ws, b, n, dim, heads, keep_qkv);
+    MegaBwdBuffers<__nv_bfloat16> w(ws, b, n, dim, heads);
+  } else {
+    RecomputeBuffers<float> r(ws, b, n, dim, heads, keep_qkv);
+    MegaBwdBuffers<float> w(ws, b, n, dim, heads);
+  }
+  return (long long)ws.used;
+}
+
+// The K3 backward of one chunk of b batch elements: x, dout, dx (b*n x
+// dim), qkv (b*n x 3*heads*64, the forward's, or null to recompute it) and
+// sm (b*n x 2*heads) of the chunk, its columns of the forward's fp32
+// ln_stats (4 x stats_ld); dw_qkv, dw_out, dg_pre, dg_out fp32, written
+// when acc is 1 and added to when 2.
+extern "C" int xclip_attention_block_bwd_recompute(
+    int dtype, const void* x, const void* g_pre, const void* w_qkv,
+    const void* w_out, const void* g_out, const void* mask, const void* dout,
+    const void* qkv, const void* sm, const void* ln_stats,
+    long long stats_ld, void* dx, void* dw_qkv, void* dw_out, void* dg_pre,
+    void* dg_out, void* workspace, int b, int n, int dim, int heads,
+    float scale, int causal, int maybe_dead, float eps, int acc,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mega_args_ok(dtype, b, n, dim, heads) || b == 0 || n == 0 ||
+      n > xclip_attention_block_bwd_max_n(dtype) ||
+      stats_ld < (long long)b * n || (acc != 1 && acc != 2))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  XCLIP_DISPATCH(dtype, attention_block_bwd_recompute<T>(
+      XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
+      XCLIP_PTR(const T*, w_qkv), XCLIP_PTR(const T*, w_out),
+      XCLIP_PTR(const T*, g_out), m, XCLIP_PTR(const T*, dout),
+      XCLIP_PTR(const T*, qkv), XCLIP_PTR(const float*, sm),
+      XCLIP_PTR(const float*, ln_stats), (long)stats_ld, XCLIP_PTR(T*, dx),
+      XCLIP_PTR(float*, dw_qkv), XCLIP_PTR(float*, dw_out),
+      XCLIP_PTR(float*, dg_pre), XCLIP_PTR(float*, dg_out), workspace, b, n,
+      dim, heads, scale, causal, maybe_dead, eps, acc, st));
 }

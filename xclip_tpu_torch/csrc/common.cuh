@@ -11,7 +11,12 @@
 //   * ln_bwd_rows_kernel: the gain-only LayerNorm vjp over rows from stored
 //     statistics (xclip_tpu/kernels/_common.py ln_bwd), with the column sums
 //     for dg taken per block and reduced by reduce_parts_kernel in a fixed
-//     order, so two runs agree bit for bit (no float atomics anywhere).
+//     order, so two runs agree bit for bit (no float atomics anywhere). The
+//     normalised value may be fp32 (the recompute backward's unrounded
+//     proj) or the storage dtype.
+//   * geglu_recompute_bwd_rows_kernel: pass 1 of the FF block's recompute
+//     backward between its products: GEGLU and inner-LN backward from the
+//     recomputed fp32 h.
 //   * launch_mm: a shared-memory tiled matrix product with fused epilogues,
 //     either operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B),
 //     the k axis optionally split into ranges that write fp32 partials
@@ -126,6 +131,24 @@ int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
   return 0;
 }
 
+// exact (erf) GELU of the gate b and the GEGLU product a * gelu(b), as
+// jax.nn.gelu(approximate=False): gelu(b) = b * Phi(b); gelu'(b) = Phi(b) +
+// b * phi(b), one erf and one exp (xclip_tpu/kernels/fused_ff_block.py
+// _gelu_val_grad). The forward's product epilogue and the recompute
+// backward's row kernel both take them from here, so the recomputed prod
+// repeats the forward's op sequence on the same fp32 h.
+struct GegluParts {
+  float phi, gelu_b, prod;
+  __device__ __forceinline__ GegluParts(float a, float b) {
+    phi = 0.5f * (1.f + erff(b * 0.70710678118654752f));
+    gelu_b = b * phi;
+    prod = a * gelu_b;
+  }
+  __device__ __forceinline__ float gelu_db(float b) const {
+    return phi + b * (expf(-0.5f * b * b) * 0.3989422804014327f);
+  }
+};
+
 // ------------------------------------------------------ LayerNorm backward
 //
 // Per row r, from the stored statistics (mean[r], inv[r]) of the forward:
@@ -145,9 +168,9 @@ constexpr int kLnBwdGeglu = 1;
 constexpr int kBwdWarps = 8;   // one warp per row at a time
 constexpr int kBwdRows = 64;   // rows per block (8 per warp)
 
-template <typename Tdy, typename T, int MODE>
+template <typename Tdy, typename Tv, typename T, int MODE>
 __global__ void __launch_bounds__(32 * kBwdWarps)
-ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const T* __restrict__ v,
+ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const Tv* __restrict__ v,
                    const float* __restrict__ mean,
                    const float* __restrict__ inv, const T* __restrict__ g,
                    const T* __restrict__ resid, T* __restrict__ out,
@@ -165,7 +188,7 @@ ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const T* __restrict__ v,
     if (r >= rows) break;
     const float mu = mean[r], iv = inv[r];
     const Tdy* dyr = dy + r * d;
-    const T* vr = v + r * d;
+    const Tv* vr = v + r * d;
     float s1 = 0.f, s2 = 0.f;
     for (int i = lane; i < d; i += 32) {
       const float xhat = (to_f(vr[i]) - mu) * iv;
@@ -208,8 +231,84 @@ ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const T* __restrict__ v,
 
 inline int ln_bwd_blocks(int rows) { return (rows + kBwdRows - 1) / kBwdRows; }
 
-template <typename Tdy, typename T, int MODE>
-int launch_ln_bwd_rows(const Tdy* dy, const T* v, const float* mean,
+// Pass 1 of the FF block's recompute backward between its products
+// (`_p1_recompute_core`), per row r from the fp32 h = xn · w_in (rows x 2d,
+// a then b) and the fp32 dy = do · w_outᵀ (rows x d), d the inner width:
+//   prod = a * gelu(b) (GegluParts: the forward epilogue's op sequence),
+//   xhat = (prod - mean) * inv with the forward's stored fp32 statistics,
+//   dprod = inv * (dy * g - mean(dy * g) - xhat * mean(dy * g * xhat)),
+//   dh = T([dprod * gelu(b), dprod * a * gelu'(b)]), y = T(xhat * g),
+// all fp32 up to the casts, and the column partials of dy * xhat (dg) per
+// block, as ln_bwd_rows_kernel. erf and exp are evaluated twice per element
+// (once per sweep over the row) rather than held: a row is 2048 wide.
+template <typename T>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+geglu_recompute_bwd_rows_kernel(const float* __restrict__ dy,
+                                const float* __restrict__ h,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ inv,
+                                const T* __restrict__ g,
+                                float* __restrict__ dg_part, int rows, int d,
+                                T* __restrict__ dh, T* __restrict__ y) {
+  extern __shared__ float colsum[];  // kBwdWarps x d: one sum row per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* cs = colsum + warp * d;
+  for (int i = lane; i < d; i += 32) cs[i] = 0.f;
+  const long r0 = (long)blockIdx.x * kBwdRows;
+  for (int rr = warp; rr < kBwdRows; rr += kBwdWarps) {
+    const long r = r0 + rr;
+    if (r >= rows) break;
+    const float mu = mean[r], iv = inv[r];
+    const float* dyr = dy + r * d;
+    const float* hr = h + r * 2 * d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float xhat = (GegluParts(hr[i], hr[d + i]).prod - mu) * iv;
+      const float dyv = dyr[i];
+      const float dyg = dyv * to_f(g[i]);
+      s1 += dyg;
+      s2 += dyg * xhat;
+      cs[i] += dyv * xhat;
+    }
+    const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
+    for (int i = lane; i < d; i += 32) {
+      const float a = hr[i], b = hr[d + i];
+      const GegluParts q(a, b);
+      const float xhat = (q.prod - mu) * iv;
+      const float gi = to_f(g[i]);
+      const float val = iv * (dyr[i] * gi - m1 - xhat * m2);
+      dh[r * 2 * d + i] = from_f<T>(val * q.gelu_b);
+      dh[r * 2 * d + d + i] = from_f<T>(val * a * q.gelu_db(b));
+      y[r * d + i] = from_f<T>(xhat * gi);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += 32 * kBwdWarps) {
+    float s = 0.f;
+    for (int w = 0; w < kBwdWarps; ++w) s += colsum[w * d + c];
+    dg_part[(long)blockIdx.x * d + c] = s;
+  }
+}
+
+template <typename T>
+int launch_geglu_recompute_bwd_rows(const float* dy, const float* h,
+                                    const float* mean, const float* inv,
+                                    const T* g, float* dg_part, int rows,
+                                    int d, T* dh, T* y, cudaStream_t st) {
+  const int smem = kBwdWarps * d * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      geglu_recompute_bwd_rows_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  geglu_recompute_bwd_rows_kernel<T>
+      <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
+          dy, h, mean, inv, g, dg_part, rows, d, dh, y);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+template <typename Tdy, typename Tv, typename T, int MODE>
+int launch_ln_bwd_rows(const Tdy* dy, const Tv* v, const float* mean,
                        const float* inv, const T* g, const T* resid, T* out,
                        float* dg_part, int rows, int d, cudaStream_t st,
                        T* xn_out = nullptr, const T* gb = nullptr,
@@ -217,10 +316,10 @@ int launch_ln_bwd_rows(const Tdy* dy, const T* v, const float* mean,
                        T* dh2 = nullptr, T* y2 = nullptr) {
   const int smem = kBwdWarps * d * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      ln_bwd_rows_kernel<Tdy, T, MODE>,
+      ln_bwd_rows_kernel<Tdy, Tv, T, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  ln_bwd_rows_kernel<Tdy, T, MODE>
+  ln_bwd_rows_kernel<Tdy, Tv, T, MODE>
       <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
           dy, v, mean, inv, g, resid, out, dg_part, rows, d, xn_out, gb,
           agdb, dh, dh2, y2);
@@ -228,14 +327,18 @@ int launch_ln_bwd_rows(const Tdy* dy, const T* v, const float* mean,
   return 0;
 }
 
-// out[i] = Tout(sum over p of part[p * n + i]), p in order 0, 1, ...
+// out[i] = Tout(sum over p of part[p * n + i]), p in order 0, 1, ...; with
+// `accumulate` (fp32 out) the sum starts from out[i]: the recompute
+// backwards add one row chunk's partials at a time, in chunk order, so
+// partials over fixed row blocks are summed in one order however the
+// rows are chunked.
 template <typename Tout>
 __global__ void __launch_bounds__(256)
 reduce_parts_kernel(const float* __restrict__ part, Tout* __restrict__ out,
-                    int parts, long n) {
+                    int parts, long n, int accumulate) {
   const long i = (long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
-  float s = 0.f;
+  float s = accumulate ? to_f(out[i]) : 0.f;
 #pragma unroll 8
   for (int p = 0; p < parts; ++p) s += part[(long)p * n + i];
   out[i] = from_f<Tout>(s);
@@ -243,11 +346,24 @@ reduce_parts_kernel(const float* __restrict__ part, Tout* __restrict__ out,
 
 template <typename Tout>
 int launch_reduce_parts(const float* part, Tout* out, int parts, long n,
-                        cudaStream_t st) {
+                        cudaStream_t st, int accumulate = 0) {
   reduce_parts_kernel<Tout><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      part, out, parts, n);
+      part, out, parts, n, accumulate);
   XCLIP_CHECK_LAUNCH();
   return 0;
+}
+
+// The sums a backward emits (dW, dg): `acc` 0 writes them in the storage
+// dtype T (the stored backwards, one call over every row); 1 writes them in
+// fp32 and 2 adds them to the fp32 values there (the recompute backwards,
+// one call per row chunk, cast once by the caller after the last).
+template <typename T>
+int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
+                    cudaStream_t st) {
+  if (acc == 0)
+    return launch_reduce_parts<T>(part, static_cast<T*>(out), parts, n, st);
+  return launch_reduce_parts<float>(part, static_cast<float*>(out), parts, n,
+                                    st, acc == 2);
 }
 
 // ------------------------------------------------------- matrix product
@@ -279,7 +395,11 @@ struct Split {
   int parts, k_split;  // k_split 0: the whole k in one range
 };
 
-inline Split gemm_split(int m, int n, int k, bool tensor_cores) {
+// k_block > 0: k-ranges of exactly k_block (the last may be short), so a
+// caller that splits k at multiples of k_block gets the same partials.
+inline Split gemm_split(int m, int n, int k, bool tensor_cores,
+                        int k_block = 0) {
+  if (k_block > 0) return Split{(k + k_block - 1) / k_block, k_block};
   const int tile = tensor_cores ? 128 : 64;
   const long tiles = (long)((m + tile - 1) / tile) * ((n + tile - 1) / tile);
   // about two blocks per SM of the 132, k-ranges of at least 1024 rows
@@ -310,17 +430,12 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
     } else if (EPI == kStoreF32) {
       static_cast<float*>(out)[o] = v;
     } else if (is_geglu(EPI)) {
-      // exact (erf) GELU, as jax.nn.gelu(approximate=False): gelu(b) =
-      // b * Phi(b); gelu'(b) = Phi(b) + b * phi(b), one erf and one exp
-      // (xclip_tpu/kernels/fused_ff_block.py _gelu_val_grad)
       const float b = C[r * cld + 64 + c];
-      const float phi = 0.5f * (1.f + erff(b * 0.70710678118654752f));
-      const float gelu_b = b * phi;
-      static_cast<float*>(out)[o] = v * gelu_b;
+      const GegluParts q(v, b);
+      static_cast<float*>(out)[o] = q.prod;
       if (EPI == kGegluTriple) {
-        const float pdf = expf(-0.5f * b * b) * 0.3989422804014327f;
-        static_cast<T*>(aux1)[o] = from_f<T>(gelu_b);
-        static_cast<T*>(aux2)[o] = from_f<T>(v * (phi + b * pdf));
+        static_cast<T*>(aux1)[o] = from_f<T>(q.gelu_b);
+        static_cast<T*>(aux2)[o] = from_f<T>(v * q.gelu_db(b));
       }
     } else {
       static_cast<T*>(out)[o] = from_f<T>(round_to<T>(v) + to_f(resid[o]));
@@ -602,19 +717,24 @@ int launch_gemm(const T* A, const T* B, float* out, int m, int n, int k,
                                          nullptr, nullptr, sp);
 }
 
-// A weight gradient out (m x n, T) = T(Aᵀ·B), A (rows x m), B (rows x n):
-// fp32 partials over k-ranges of the rows in `part`, then an ordered sum.
+// A weight gradient out (m x n) = Aᵀ·B, A (rows x m), B (rows x n): fp32
+// partials over k-ranges of the rows in `part`, then an ordered sum, emitted
+// as launch_emit_sum's `acc` says (0: T(Aᵀ·B)).
 template <typename T>
-int launch_weight_grad(const T* A, const T* B, T* out, float* part, int m,
-                       int n, int rows, cudaStream_t st) {
-  const Split sp = gemm_split(m, n, rows, std::is_same<T, bf16>::value);
+int launch_weight_grad(const T* A, const T* B, void* out, float* part, int m,
+                       int n, int rows, cudaStream_t st, int acc = 0,
+                       int k_block = 0) {
+  const Split sp =
+      gemm_split(m, n, rows, std::is_same<T, bf16>::value, k_block);
   int e = launch_gemm<T, true, false>(A, B, part, m, n, rows, st, sp);
   if (e) return e;
-  return launch_reduce_parts<T>(part, out, sp.parts, (long)m * n, st);
+  return launch_emit_sum<T>(part, out, sp.parts, (long)m * n, acc, st);
 }
 
-inline size_t weight_grad_part_bytes(int m, int n, int rows, bool bf16) {
-  return (size_t)gemm_split(m, n, rows, bf16).parts * m * n * sizeof(float);
+inline size_t weight_grad_part_bytes(int m, int n, int rows, bool bf16,
+                                     int k_block = 0) {
+  return (size_t)gemm_split(m, n, rows, bf16, k_block).parts * m * n *
+         sizeof(float);
 }
 
 // Bump allocator over one caller-provided workspace (256-byte aligned

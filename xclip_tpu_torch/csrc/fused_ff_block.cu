@@ -7,7 +7,13 @@
 //     (`store_h='geglu'`): the forward in place of `_fwd_kernel_store_geglu`
 //     (the same four launches, also keeping the residuals the backward
 //     reads) and the two backward passes in place of `_bwd_dx_kernel_geglu`
-//     and `_bwd_dw_kernel_geglu` (their source note is further down).
+//     and `_bwd_dw_kernel_geglu` (their source note is further down);
+//   * K-FF-s and the recompute backward that the memory-lean training runs
+//     (`store_h=False`): the forward in place of `_fwd_kernel_stats` (the
+//     same four launches keeping only the four fp32 row statistics) and the
+//     backward in place of `_bwd_dx_kernel` + `_bwd_dw_kernel` and of K4's
+//     fed pair `_bwd_dx_kernel_fed` + `_bwd_dw_kernel_fed` (one design for
+//     both, since they compute the same gradients; its note is at the end).
 //
 // Cast order (as the Pallas kernel): LN_pre in fp32, xn cast to the storage
 // dtype before the w_in product; h accumulates in fp32 and a = h[:, :inner],
@@ -43,25 +49,28 @@ namespace {
 // LayerNorm launches keep their fp32 statistics, and the inner one writes
 // the fp32 prod rounded to T into `prod_s`. As in
 // `_fwd_store_geglu_core`, mean_in and inv_in come from the fp32 prod.
+// Statistic k of row r is stats[k * stats_ld + r]: a row chunk of a longer
+// call writes into its columns of the caller's (4 x total rows) array.
 template <typename T>
 int ff_block_fwd(const T* x, const T* g_pre, const T* w_in, const T* g_inner,
                  const T* w_out, T* out, T* xn, float* prod, T* y, int rows,
                  int dim, int inner, float eps, cudaStream_t st,
                  T* prod_s = nullptr, T* gb = nullptr, T* agdb = nullptr,
-                 float* stats = nullptr) {
+                 float* stats = nullptr, long stats_ld = 0) {
   using namespace xclip;
   float* s = stats;
+  const long ld = stats_ld;
   int e;
   if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, xn, rows, dim, eps, st, s,
-                                s ? s + rows : nullptr)))
+                                s ? s + ld : nullptr)))
     return e;
   e = gb ? launch_mm<T, kGegluTriple>(xn, w_in, nullptr, prod, rows, inner,
                                       dim, st, gb, agdb)
          : launch_mm<T, kGeglu>(xn, w_in, nullptr, prod, rows, inner, dim, st);
   if (e) return e;
   if ((e = launch_ln_rows<float, T>(prod, g_inner, nullptr, y, rows, inner,
-                                    eps, st, s ? s + 2 * rows : nullptr,
-                                    s ? s + 3 * rows : nullptr, prod_s)))
+                                    eps, st, s ? s + 2 * ld : nullptr,
+                                    s ? s + 3 * ld : nullptr, prod_s)))
     return e;
   return launch_mm<T, kResidual>(y, w_out, x, out, rows, dim, inner, st);
 }
@@ -133,7 +142,7 @@ int ff_block_bwd_p1(const T* x, const T* g_pre, const T* w_in,
   if ((e = launch_gemm<T, false, true>(dout, w_out, b.dy, rows, inner, dim,
                                        st)))
     return e;
-  if ((e = launch_ln_bwd_rows<float, T, kLnBwdGeglu>(
+  if ((e = launch_ln_bwd_rows<float, T, T, kLnBwdGeglu>(
            b.dy, prod_s, stats + 2 * rows, stats + 3 * rows, g_inner,
            nullptr, dprod, b.part_in, rows, inner, st, nullptr, gb, agdb, dh,
            dh2, y2)))
@@ -143,7 +152,7 @@ int ff_block_bwd_p1(const T* x, const T* g_pre, const T* w_in,
   if ((e = launch_gemm<T, false, true>(dh, w_in, b.dxn, rows, dim, 2 * inner,
                                        st)))
     return e;
-  if ((e = launch_ln_bwd_rows<float, T, kLnBwd>(
+  if ((e = launch_ln_bwd_rows<float, T, T, kLnBwd>(
            b.dxn, x, stats, stats + rows, g_pre, dout, dx, b.part_pre, rows,
            dim, st, xn)))
     return e;
@@ -163,6 +172,118 @@ int ff_block_bwd_p2(const T* xn, const T* dh2, const T* y2, const T* dout,
   return launch_weight_grad<T>(y2, dout, dw_out, part, inner, dim, rows, st);
 }
 
+// ------------------------------------------------- the recompute backward
+//
+// In place of `_bwd_dx_kernel` + `_bwd_dw_kernel` and of K4's fed pair
+// `_bwd_dx_kernel_fed` + `_bwd_dw_kernel_fed` (`_ff_block_bwd_fed`): the
+// two compute the same gradients, and the fed pair's design is the one
+// that suits the card (pass 2 is its products alone, fed by pass 1's dh, y
+// and xn). One call handles one chunk of rows; the wrapper walks the rows
+// in chunks whose transients stay under its bound (the fed variant's row
+// chunking) and sums the chunks' dW and dg in chunk order (`acc`: 1 for the
+// first chunk, 2 after). The chunks start at multiples of `row_block`
+// rows, and the weight gradients' split-k partials cover row_block rows
+// each, summed in row order onto the running fp32 sum, as are the dg
+// partials of 64-row blocks: the gradients come out bit for bit the same
+// whatever the chunking. From x, dout and the forward's stored fp32
+// statistics (K-FF-s), per chunk (`_p1_recompute_core`):
+//   1. ln_rows: xn = T(LN_gpre(x))                       (rows x dim, T)
+//   2. h = xn · w_in in fp32, not rounded                (rows x 2 inner)
+//   3. dy = dout · w_outᵀ                                (rows x inner, fp32)
+//   4. geglu_recompute_bwd_rows: dh = T([da, db]) from the fp32 dprod,
+//      y = T(xhat_in * g_inner), the partials of dy * xhat_in
+//   5. dg_inner (+)= their ordered sum
+//   6. dxn = dh · w_inᵀ                                  (rows x dim, fp32)
+//   7. pre LN backward rows: dx = T(LN vjp + dout), partials of dxn * xhat
+//   8. dg_pre (+)= their ordered sum
+//   9. dW_in (+)= xnᵀ · dh, dW_out (+)= yᵀ · dout, split-k fp32 partials
+//      summed in order.
+// The same rounded dh feeds the dx product (6) and dW_in (9), as in the
+// Pallas bodies. The inner LN statistics are not re-reduced: the stored
+// mean_in / inv_in are the forward's, and h comes from the same product
+// kernel on the same xn (each output's k-sum in the same order) with the
+// same GEGLU op sequence, so xhat_in is the forward's; a recompute that
+// summed in another order would differ from it at the fp32 ulp level. xn
+// is recomputed by ln_rows rather than from the stored mean_pre / inv_pre:
+// the same launch on the same x gives the same bits.
+//
+// What bounds it on the card: the five products (2 * rows * dim * 2 inner
+// FLOPs each for h, dxn and dW_in; 2 * rows * inner * dim for dy and
+// dW_out) on wmma, then the fp32 h and dy round trips through HBM (16 + 8
+// KB per row at inner 2048) and the row kernel's second erf/exp sweep.
+template <typename T>
+struct FfRecomputeBuffers {
+  T* xn;
+  float* h;
+  float* dy;  // dy, then dxn (inner >= dim)
+  T* dh;
+  T* y;
+  float* part_in;
+  float* part_pre;
+  float* wpart;
+  FfRecomputeBuffers(xclip::Workspace& ws, int rows, int dim, int inner,
+                     int row_block) {
+    using namespace xclip;
+    const bool tc = std::is_same<T, bf16>::value;
+    xn = ws.take<T>((size_t)rows * dim);
+    h = ws.take<float>((size_t)rows * 2 * inner);
+    dy = ws.take<float>((size_t)rows * std::max(inner, dim));
+    dh = ws.take<T>((size_t)rows * 2 * inner);
+    y = ws.take<T>((size_t)rows * inner);
+    part_in = ws.take<float>((size_t)ln_bwd_blocks(rows) * inner);
+    part_pre = ws.take<float>((size_t)ln_bwd_blocks(rows) * dim);
+    wpart = ws.take<float>(
+        std::max(weight_grad_part_bytes(dim, 2 * inner, rows, tc, row_block),
+                 weight_grad_part_bytes(inner, dim, rows, tc, row_block)) /
+        sizeof(float));
+  }
+};
+
+template <typename T>
+int ff_block_bwd_recompute(const T* x, const T* g_pre, const T* w_in,
+                           const T* g_inner, const T* w_out, const T* dout,
+                           const float* stats, long stats_ld, T* dx,
+                           float* dg_pre, float* dw_in, float* dg_inner,
+                           float* dw_out, void* workspace, int rows, int dim,
+                           int inner, int row_block, float eps, int acc,
+                           cudaStream_t st) {
+  using namespace xclip;
+  Workspace ws(workspace);
+  FfRecomputeBuffers<T> b(ws, rows, dim, inner, row_block);
+  const int nblk = ln_bwd_blocks(rows);
+  const long ld = stats_ld;
+  int e;
+  if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, b.xn, rows, dim, eps, st)))
+    return e;
+  if ((e = launch_gemm<T, false, false>(b.xn, w_in, b.h, rows, 2 * inner, dim,
+                                        st)))
+    return e;
+  if ((e = launch_gemm<T, false, true>(dout, w_out, b.dy, rows, inner, dim,
+                                       st)))
+    return e;
+  if ((e = launch_geglu_recompute_bwd_rows<T>(
+           b.dy, b.h, stats + 2 * ld, stats + 3 * ld, g_inner, b.part_in,
+           rows, inner, b.dh, b.y, st)))
+    return e;
+  if ((e = launch_emit_sum<T>(b.part_in, dg_inner, nblk, inner, acc, st)))
+    return e;
+  float* dxn = b.dy;
+  if ((e = launch_gemm<T, false, true>(b.dh, w_in, dxn, rows, dim, 2 * inner,
+                                       st)))
+    return e;
+  if ((e = launch_ln_bwd_rows<float, T, T, kLnBwd>(
+           dxn, x, stats, stats + ld, g_pre, dout, dx, b.part_pre, rows, dim,
+           st)))
+    return e;
+  if ((e = launch_emit_sum<T>(b.part_pre, dg_pre, nblk, dim, acc, st)))
+    return e;
+  if ((e = launch_weight_grad<T>(b.xn, b.dh, dw_in, b.wpart, dim, 2 * inner,
+                                 rows, st, acc, row_block)))
+    return e;
+  return launch_weight_grad<T>(b.y, dout, dw_out, b.wpart, inner, dim, rows,
+                               st, acc, row_block);
+}
+
 }  // namespace
 
 // Returns a cudaError_t code (0 on success). Pointers are dense row-major
@@ -170,15 +291,17 @@ int ff_block_bwd_p2(const T* xn, const T* dh2, const T* y2, const T* dout,
 // fp32 scratch of rows x inner, `xn` (rows x dim) and `y` (rows x inner)
 // scratch of the storage dtype. dim and inner must be multiples of 64.
 // K-FF passes null residual pointers; K1 passes prod_s, gb, agdb (rows x
-// inner, dtype) and stats (4 x rows, fp32).
+// inner, dtype) and stats (4 x stats_ld, fp32); K-FF-s passes stats alone.
 extern "C" int xclip_ff_block_fwd(int dtype, const void* x, const void* g_pre,
                                   const void* w_in, const void* g_inner,
                                   const void* w_out, void* out, void* xn,
                                   void* prod, void* y, void* prod_s, void* gb,
-                                  void* agdb, void* stats, int rows, int dim,
-                                  int inner, float eps, void* stream) {
+                                  void* agdb, void* stats, long long stats_ld,
+                                  int rows, int dim, int inner, float eps,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dim % 64 || inner % 64 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (dim % 64 || inner % 64 || rows < 0 || (stats && stats_ld < rows))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   XCLIP_DISPATCH(dtype, ff_block_fwd<T>(
       XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
@@ -186,7 +309,7 @@ extern "C" int xclip_ff_block_fwd(int dtype, const void* x, const void* g_pre,
       XCLIP_PTR(const T*, w_out), XCLIP_PTR(T*, out), XCLIP_PTR(T*, xn),
       XCLIP_PTR(float*, prod), XCLIP_PTR(T*, y), rows, dim, inner, eps, st,
       XCLIP_PTR(T*, prod_s), XCLIP_PTR(T*, gb), XCLIP_PTR(T*, agdb),
-      XCLIP_PTR(float*, stats)));
+      XCLIP_PTR(float*, stats), (long)stats_ld));
 }
 
 // Bytes of the workspace both K1 backward passes take.
@@ -232,4 +355,42 @@ extern "C" int xclip_ff_block_bwd_p2(int dtype, const void* xn,
       XCLIP_PTR(const T*, xn), XCLIP_PTR(const T*, dh2),
       XCLIP_PTR(const T*, y2), XCLIP_PTR(const T*, dout), XCLIP_PTR(T*, dw_in),
       XCLIP_PTR(T*, dw_out), workspace, rows, dim, inner, st));
+}
+
+// Bytes of the workspace the recompute backward takes for `rows` rows.
+extern "C" long long xclip_ff_block_bwd_recompute_workspace(
+    int dtype, int rows, int dim, int inner, int row_block) {
+  xclip::Workspace ws(nullptr);
+  if (dtype == xclip::kBF16) {
+    FfRecomputeBuffers<__nv_bfloat16> sizes(ws, rows, dim, inner, row_block);
+  } else {
+    FfRecomputeBuffers<float> sizes(ws, rows, dim, inner, row_block);
+  }
+  return (long long)ws.used;
+}
+
+// The recompute backward of one chunk of `rows` rows: x, dout, dx (rows x
+// dim, dtype) and the chunk's columns of the forward's fp32 stats (4 x
+// stats_ld). dg_pre (dim), dw_in (dim x 2 inner), dg_inner (inner) and
+// dw_out (inner x dim) are fp32: written when acc is 1, added to when 2.
+// row_block: a multiple of 64 that every chunk but the last is a multiple
+// of.
+extern "C" int xclip_ff_block_bwd_recompute(
+    int dtype, const void* x, const void* g_pre, const void* w_in,
+    const void* g_inner, const void* w_out, const void* dout,
+    const void* stats, long long stats_ld, void* dx, void* dg_pre,
+    void* dw_in, void* dg_inner, void* dw_out, void* workspace, int rows,
+    int dim, int inner, int row_block, float eps, int acc, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim % 64 || inner % 64 || rows <= 0 || stats_ld < rows ||
+      row_block <= 0 || row_block % 64 || (acc != 1 && acc != 2))
+    return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, ff_block_bwd_recompute<T>(
+      XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
+      XCLIP_PTR(const T*, w_in), XCLIP_PTR(const T*, g_inner),
+      XCLIP_PTR(const T*, w_out), XCLIP_PTR(const T*, dout),
+      XCLIP_PTR(const float*, stats), (long)stats_ld, XCLIP_PTR(T*, dx),
+      XCLIP_PTR(float*, dg_pre), XCLIP_PTR(float*, dw_in),
+      XCLIP_PTR(float*, dg_inner), XCLIP_PTR(float*, dw_out), workspace,
+      rows, dim, inner, row_block, eps, acc, st));
 }

@@ -27,25 +27,35 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns an int (a cudaError_t, or
 # a sequence length) except the workspace queries, which return a byte
 # count (_RESTYPES).
 _SIGNATURES = {
-    "xclip_ff_block_fwd": [_I, *[_P] * 13, _I, _I, _I, _F, _P],
+    "xclip_ff_block_fwd": [_I, *[_P] * 13, _L, _I, _I, _I, _F, _P],
     "xclip_ff_block_bwd_workspace": [_I, _I, _I, _I],
     "xclip_ff_block_bwd_p1": [_I, *[_P] * 18, _I, _I, _I, _P],
     "xclip_ff_block_bwd_p2": [_I, *[_P] * 7, _I, _I, _I, _P],
-    "xclip_attention_block_fwd": [_I, *[_P] * 14, _I, _I, _I, _I, _F, _I, _I,
-                                  _F, _P],
+    "xclip_ff_block_bwd_recompute_workspace": [_I] * 5,
+    "xclip_ff_block_bwd_recompute": [_I, *[_P] * 7, _L, *[_P] * 6, _I, _I,
+                                     _I, _I, _F, _I, _P],
+    "xclip_attention_block_fwd": [_I, *[_P] * 14, _L, _I, _I, _I, _I, _F, _I,
+                                  _I, _F, _P],
     "xclip_attention_block_bwd_workspace": [_I, _I, _I, _I, _I],
     "xclip_attention_block_bwd": [_I, *[_P] * 19, _I, _I, _I, _I, _F, _I, _I,
                                   _P],
+    "xclip_attention_block_bwd_recompute_workspace": [_I] * 6,
+    "xclip_attention_block_bwd_recompute": [_I, *[_P] * 10, _L, *[_P] * 6, _I,
+                                            _I, _I, _I, _F, _I, _I, _F, _I,
+                                            _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
+    "xclip_lse_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xclip_lse_bwd": [*[_P] * 6, _I, _I, _I, _I, _I, _P],
 }
-_RESTYPES = {"xclip_ff_block_bwd_workspace": ctypes.c_longlong,
-             "xclip_attention_block_bwd_workspace": ctypes.c_longlong}
+_RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES
+             if name.endswith("_workspace")}
 
 
 def _nvcc() -> str:

@@ -7,9 +7,41 @@ LayerNorm (two-pass fp32 statistics) and its vjp in `csrc/common.cuh`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The memory-lean training routes (K-FF-s / K3 forwards, the recompute
+# backwards) take their rows in chunks whose transients (the recomputed
+# activations, the backward's scratch) stay under this many bytes, so a
+# large batch's peak is one chunk's worth rather than the whole batch's.
+# Each wrapper sizes its chunks from its kernel's own scratch: the
+# workspace query of the CUDA entry point, or the scratch tensors it
+# allocates. 1 GiB: at dim 512 about 24,000 rows of the FF recompute
+# backward (~42 KB of workspace per bf16 row) and 250 text sequences of
+# the attention one.
+CHUNK_BYTES = 1 << 30
+
+
+def chunk_spans(total: int, nbytes, bound: int = CHUNK_BYTES,
+                align: int = 1):
+    """[(start, stop), ...] covering range(total) in the fewest chunks
+    whose scratch, `nbytes(count)` bytes for a chunk of `count` items (a
+    count that grows with the items), stays under `bound`, sized as evenly
+    as the count allows; every chunk but the last holds a multiple of
+    `align` items (at least `align`, whatever the bound)."""
+    lo, hi = 1, max(1, math.ceil(total / align))   # chunk sizes in aligns
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if nbytes(mid * align) <= bound:
+            lo = mid
+        else:
+            hi = mid - 1
+    n = max(1, math.ceil(total / (lo * align)))
+    size = max(align, math.ceil(math.ceil(total / n) / align) * align)
+    return [(s, min(s + size, total)) for s in range(0, total, size)]
 
 
 def eps_for(dtype) -> float:

@@ -13,7 +13,18 @@
   fp32, m then l) and the LayerNorm statistics (`ln_stats`, (4, b·n) fp32:
   mean_pre, inv_pre, mean_o, inv_o); the backward `attention_block_bwd`
   (Pallas `_bwd_kernel_stored`, plus `_mega_bwd_vjp`'s dW_qkv = xnᵀ·dqkv)
-  gives dx, dqkv, dW_qkv, dW_out, dg_pre and dg_out.
+  gives dx, dqkv, dW_qkv, dW_out, dg_pre and dg_out;
+* K3, the memory-lean training route `attention_block_train_recompute`
+  (`AttentionBlockRecompute`), the counterpart of `attention_block(...,
+  store_qkv=False)` and, with `keep_qkv`, of `store_qkv="qkv"`: the
+  forward `attention_block_fwd_stats` (Pallas `_fwd_kernel_stats`,
+  `_fwd_kernel_qkv`) keeps `sm`, `ln_stats` and, with `keep_qkv`, qkv; the
+  backward `attention_block_bwd_recompute` (Pallas `_bwd_kernel`,
+  `_bwd_kernel_qkv`) re-derives qkv (unless kept), attnout and the fp32
+  proj with the forward's own launches, then runs K2's backward on them.
+  Both kernels walk the batch in chunks under `_common.CHUNK_BYTES` of
+  scratch, the backward summing dW and dg over the chunks in order, in
+  fp32, cast once; their plain versions take the whole batch at once.
 
 The CUDA kernels are `csrc/attention_megablock.cu`; its source notes give
 the designs, what bounds them on the card and which intermediates cross
@@ -28,8 +39,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import (check_kernel_args, dot32, dtype_code, eps_for, ln_bwd,
-                      ln_stats_fp32, refuse_grad, route, stream_ptr)
+from ._common import (CHUNK_BYTES, check_kernel_args, chunk_spans, dot32,
+                      dtype_code, eps_for, ln_bwd, ln_stats_fp32, refuse_grad,
+                      route, stream_ptr)
 
 DIM_HEAD = 64  # the only head width the kernel takes
 
@@ -60,14 +72,26 @@ def attention_block_fwd_stored_plain(x, g_pre, w_qkv, w_out, g_out, mask,
     cast order of `_fwd_kernel_stored`: proj rounded, mean_o / inv_o from
     the fp32 proj, m and l the exact softmax max (0 on a dead row) and
     normaliser."""
+    out, (qkv, attnout, proj, sm, ln_stats) = _forward_plain(
+        x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head, scale, causal,
+        maybe_dead)
+    return out, (qkv, attnout, proj.to(x.dtype), sm, ln_stats)
+
+
+def _forward_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
+                   scale, causal, maybe_dead, qkv=None):
+    """The forward's five steps → (out, (qkv, attnout, proj in fp32, sm,
+    ln_stats)); a given (b·n, 3·hd) `qkv` skips the first two."""
     dtype = x.dtype
     b, n, _ = x.shape
     hd = heads * dim_head
     eps = eps_for(dtype)
     x32 = x.float()
     mean_pre, inv_pre = ln_stats_fp32(x32, eps)
-    xn = (((x32 - mean_pre) * inv_pre) * g_pre.float()).to(dtype)
-    qkv = dot32(xn, w_qkv).to(dtype)
+    if qkv is None:
+        xn = (((x32 - mean_pre) * inv_pre) * g_pre.float()).to(dtype)
+        qkv = dot32(xn, w_qkv).to(dtype)
+    qkv = qkv.reshape(b, n, 3 * hd)
     q, k, v = (_heads(qkv[..., i * hd:(i + 1) * hd], b, n, heads, dim_head)
                for i in range(3))
     s, dead = _softmax_parts(q, k, mask, scale, causal, maybe_dead)
@@ -86,7 +110,7 @@ def attention_block_fwd_stored_plain(x, g_pre, w_qkv, w_out, g_out, mask,
     sm = torch.cat([m, l], dim=1).squeeze(-1).permute(0, 2, 1)   # (b, n, 2h)
     ln_stats = torch.stack([mean_pre, inv_pre, mean_o, inv_o]).reshape(4, -1)
     return out, (qkv.reshape(b * n, 3 * hd), attnout.reshape(b * n, hd),
-                 proj.to(dtype).reshape(b * n, -1),
+                 proj.reshape(b * n, -1),
                  sm.reshape(b * n, 2 * heads).contiguous(), ln_stats)
 
 
@@ -135,10 +159,21 @@ def _check(name, tensors, mask, heads, dim_head, training=False):
     return b, n, dim, hd
 
 
+def _fwd_scratch(rows, dim, hd, dtype, device, keep_qkv=False):
+    """The forward launches' scratch for `rows` rows: xn, qkv (None when
+    the caller keeps it), attnout, the fp32 proj."""
+    return (torch.empty((rows, dim), dtype=dtype, device=device),
+            None if keep_qkv else torch.empty((rows, 3 * hd), dtype=dtype,
+                                              device=device),
+            torch.empty((rows, hd), dtype=dtype, device=device),
+            torch.empty((rows, dim), dtype=torch.float32, device=device))
+
+
 def _fwd_kernel(name, tensors, mask, heads, dim_head, scale, causal,
                 maybe_dead, stored):
     """Launch the forward kernel → (out, residuals or None); with `stored`,
-    the K2 residuals as the plain version returns."""
+    the K2 residuals as the plain version returns. One launch over the
+    whole batch: K-MEGA and K2 keep what they allocate here."""
     x = tensors[0]
     b, n, dim, hd = _check(name, tensors, mask, heads, dim_head,
                            training=stored)
@@ -146,10 +181,7 @@ def _fwd_kernel(name, tensors, mask, heads, dim_head, scale, causal,
     rows = b * n
     mask_u8 = mask.to(torch.uint8).contiguous()
     out = torch.empty_like(x)
-    xn = torch.empty((rows, dim), dtype=dt, device=dev)
-    qkv = torch.empty((rows, 3 * hd), dtype=dt, device=dev)
-    attnout = torch.empty((rows, hd), dtype=dt, device=dev)
-    proj = torch.empty((rows, dim), dtype=torch.float32, device=dev)
+    xn, qkv, attnout, proj = _fwd_scratch(rows, dim, hd, dt, dev)
     residuals, residual_ptrs = None, [None] * 3    # None: a null pointer
     if stored:
         extra = (torch.empty((rows, dim), dtype=dt, device=dev),
@@ -162,8 +194,8 @@ def _fwd_kernel(name, tensors, mask, heads, dim_head, scale, causal,
         err = _build.library().xclip_attention_block_fwd(
             dtype_code(dt), *(t.data_ptr() for t in (
                 *tensors, mask_u8, out, xn, qkv, attnout, proj)),
-            *residual_ptrs, b, n, dim, heads, float(scale), int(causal),
-            int(maybe_dead), eps_for(dt), stream_ptr(dev))
+            *residual_ptrs, rows, b, n, dim, heads, float(scale),
+            int(causal), int(maybe_dead), eps_for(dt), stream_ptr(dev))
     _build.check(err, "xclip_attention_block_fwd")
     return out, residuals
 
@@ -217,7 +249,20 @@ def attention_block_bwd_plain(x, g_pre, w_qkv, w_out, g_out, mask, dout,
                               maybe_dead=True):
     """`_bwd_kernel_stored` and `_mega_bwd_vjp`'s dW_qkv in PyTorch →
     (dx, dg_pre, dW_qkv, dW_out, dg_out, dqkv), all in x.dtype."""
-    qkv, attnout, proj, sm, ln_stats = stored
+    dx, dqkv, (dw_qkv, dw_out, dg_pre, dg_out) = _bwd_core_plain(
+        x, g_pre, w_qkv, w_out, g_out, mask, dout, *stored, heads, dim_head,
+        scale, causal, maybe_dead)
+    dtype = x.dtype
+    return (dx, dg_pre.to(dtype), dw_qkv.to(dtype), dw_out.to(dtype),
+            dg_out.to(dtype), dqkv)
+
+
+def _bwd_core_plain(x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, attnout,
+                    proj, sm, ln_stats, heads, dim_head, scale, causal,
+                    maybe_dead):
+    """The backward from qkv, attnout and proj (K2's rounded one or K3's
+    fp32 one) → (dx, dqkv, (dW_qkv, dW_out, dg_pre, dg_out)), dx and dqkv in
+    x.dtype, the sums over the rows in fp32."""
     dtype = x.dtype
     b, n, dim = x.shape
     hd = heads * dim_head
@@ -229,7 +274,7 @@ def attention_block_bwd_plain(x, g_pre, w_qkv, w_out, g_out, mask, dout,
     dproj, dg_out = ln_bwd(do.float(), xhat_o, inv_o, g_out.float())
     dproj = dproj.to(dtype)
     dattn = dot32(dproj, w_out.T)                                # (rows, hd)
-    dw_out = dot32(attnout.T, dproj).to(dtype)
+    dw_out = dot32(attnout.T, dproj)
 
     q, k, v = (_heads(qkv[:, i * hd:(i + 1) * hd], b, n, heads, dim_head)
                for i in range(3))
@@ -258,8 +303,7 @@ def attention_block_bwd_plain(x, g_pre, w_qkv, w_out, g_out, mask, dout,
     dx_pre, dg_pre = ln_bwd(dxn, xhat_pre, inv_pre, g_pre.float())
     dx = (dx_pre + do.float()).to(dtype).reshape(b, n, dim)
     xn = (xhat_pre * g_pre.float()).to(dtype)
-    dw_qkv = dot32(xn.T, dqkv).to(dtype)
-    return dx, dg_pre.to(dtype), dw_qkv, dw_out, dg_out.to(dtype), dqkv
+    return dx, dqkv, (dot32(xn.T, dqkv), dw_out, dg_pre, dg_out)
 
 
 def attention_block_bwd(x, g_pre, w_qkv, w_out, g_out, mask, dout, stored,
@@ -329,3 +373,190 @@ def attention_block_train(x, g_pre, w_qkv, w_out, g_out, mask, heads,
     `attention_block`."""
     return AttentionBlock.apply(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                                 dim_head, scale, causal, maybe_dead)
+
+
+# ------------------------------------------------------------ K3
+
+def fwd_stats_spans(b, n, dim, heads, dtype, keep_qkv):
+    """K3's forward batch chunks: [(start, stop), ...] of batch elements
+    whose scratch (`_fwd_scratch`) stays under CHUNK_BYTES."""
+    return chunk_spans(b, lambda k: sum(
+        t.nbytes for t in _fwd_scratch(k * n, dim, heads * DIM_HEAD, dtype,
+                                       "meta", keep_qkv) if t is not None),
+        CHUNK_BYTES)
+
+
+def bwd_recompute_spans(b, n, dim, heads, dtype, keep_qkv):
+    """K3's backward batch chunks: [(start, stop), ...] of batch elements
+    whose workspace (the CUDA entry point's query) stays under
+    CHUNK_BYTES. Needs the built library."""
+    lib = _build.library()
+    return chunk_spans(
+        b, lambda k: lib.xclip_attention_block_bwd_recompute_workspace(
+            dtype_code(dtype), k, n, dim, heads, int(keep_qkv)), CHUNK_BYTES)
+
+
+def attention_block_fwd_stats_plain(x, g_pre, w_qkv, w_out, g_out, mask,
+                                    heads, dim_head, scale, causal=False,
+                                    maybe_dead=True, keep_qkv=False):
+    """Plain K3 forward → (out, sm, ln_stats, qkv or None), the cast order
+    of `_fwd_kernel_stats` / `_fwd_kernel_qkv`."""
+    out, (qkv, _, _, sm, ln_stats) = _forward_plain(
+        x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head, scale, causal,
+        maybe_dead)
+    return out, sm, ln_stats, qkv if keep_qkv else None
+
+
+def attention_block_fwd_stats(x, g_pre, w_qkv, w_out, g_out, mask, heads,
+                              dim_head, scale, causal=False, maybe_dead=True,
+                              keep_qkv=False):
+    """K3 forward: (out, sm, ln_stats, qkv or None) as the plain version.
+    The kernel takes the batch in chunks (`fwd_stats_spans`), so its xn,
+    qkv, attnout and fp32 proj scratch stays under CHUNK_BYTES; with
+    `keep_qkv` qkv is written whole."""
+    tensors = (x, g_pre, w_qkv, w_out, g_out)
+    if not route("attention_block_fwd_stats", tensors + (mask,)):
+        return attention_block_fwd_stats_plain(
+            x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head, scale,
+            causal, maybe_dead, keep_qkv)
+    b, n, dim, hd = _check("attention_block_fwd_stats", tensors, mask, heads,
+                           dim_head, training=True)
+    dev, dt = x.device, x.dtype
+    rows = b * n
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    out = torch.empty_like(x)
+    sm = torch.empty((rows, 2 * heads), dtype=torch.float32, device=dev)
+    ln_stats = torch.empty((4, rows), dtype=torch.float32, device=dev)
+    kept = (torch.empty((rows, 3 * hd), dtype=dt, device=dev)
+            if keep_qkv else None)
+    spans = fwd_stats_spans(b, n, dim, heads, dt, keep_qkv)
+    xn, qkv, attnout, proj = _fwd_scratch(spans[0][1] * n if spans else 0,
+                                          dim, hd, dt, dev, keep_qkv)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        for s, e in spans:
+            r = s * n
+            err = lib.xclip_attention_block_fwd(
+                dtype_code(dt), x[s:].data_ptr(),
+                *(t.data_ptr() for t in tensors[1:]), mask_u8[s:].data_ptr(),
+                out[s:].data_ptr(), xn.data_ptr(),
+                (kept[r:] if keep_qkv else qkv).data_ptr(),
+                attnout.data_ptr(), proj.data_ptr(), None,
+                sm[r:].data_ptr(), ln_stats[0, r:].data_ptr(), rows, e - s, n,
+                dim, heads, float(scale), int(causal), int(maybe_dead),
+                eps_for(dt), stream_ptr(dev))
+            _build.check(err, "xclip_attention_block_fwd")
+    attention_block_fwd_stats.launches += 1
+    return out, sm, ln_stats, kept
+
+
+attention_block_fwd_stats.launches = 0
+
+
+def attention_block_bwd_recompute_plain(x, g_pre, w_qkv, w_out, g_out, mask,
+                                        dout, sm, ln_stats, heads, dim_head,
+                                        scale, causal=False, maybe_dead=True,
+                                        qkv=None):
+    """`_bwd_kernel` / `_bwd_kernel_qkv` on the whole batch: re-derive qkv
+    (unless given), attnout and the fp32 proj as the forward does, then the
+    backward with the fp32 proj; returns as
+    `attention_block_bwd_recompute`, the sums in fp32 and cast once."""
+    _, (qkv, attnout, proj, _, _) = _forward_plain(
+        x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head, scale, causal,
+        maybe_dead, qkv)
+    dx, _, sums = _bwd_core_plain(
+        x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, attnout, proj, sm,
+        ln_stats, heads, dim_head, scale, causal, maybe_dead)
+    dw_qkv, dw_out, dg_pre, dg_out = (t.to(x.dtype) for t in sums)
+    return dx, dg_pre, dw_qkv, dw_out, dg_out
+
+
+def attention_block_bwd_recompute(x, g_pre, w_qkv, w_out, g_out, mask, dout,
+                                  sm, ln_stats, heads, dim_head, scale,
+                                  causal=False, maybe_dead=True, qkv=None):
+    """K3 backward from x, dout, the forward's sm and ln_stats and, when it
+    kept it, qkv → (dx, dg_pre, dW_qkv, dW_out, dg_out) in x.dtype. The
+    kernel takes the batch in chunks (`bwd_recompute_spans`) whose
+    workspace stays under CHUNK_BYTES; the chunks' fp32 sums are added in
+    chunk order and cast once."""
+    tensors = (x, g_pre, w_qkv, w_out, g_out)
+    kept = () if qkv is None else (qkv,)
+    if not route("attention_block_bwd_recompute",
+                 tensors + (mask, dout, sm, ln_stats) + kept):
+        return attention_block_bwd_recompute_plain(
+            x, g_pre, w_qkv, w_out, g_out, mask, dout, sm, ln_stats, heads,
+            dim_head, scale, causal, maybe_dead, qkv)
+    b, n, dim, hd = _check("attention_block_bwd_recompute", tensors, mask,
+                           heads, dim_head, training=True)
+    check_kernel_args("attention_block_bwd_recompute", (dout,) + kept,
+                      x.dtype)
+    check_kernel_args("attention_block_bwd_recompute", (sm, ln_stats),
+                      torch.float32)
+    spans = bwd_recompute_spans(b, n, dim, heads, x.dtype, qkv is not None)
+    dev, dt = x.device, x.dtype
+    rows = b * n
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    dx = torch.empty_like(x)
+    sums = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((dim, 3 * hd), (hd, dim), (dim,), (dim,))]
+    lib = _build.library()
+    ws = torch.empty(lib.xclip_attention_block_bwd_recompute_workspace(
+        dtype_code(dt), spans[0][1], n, dim, heads, qkv is not None),
+        dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        for k, (s, e) in enumerate(spans):
+            r = s * n
+            err = lib.xclip_attention_block_bwd_recompute(
+                dtype_code(dt), x[s:].data_ptr(),
+                *(t.data_ptr() for t in tensors[1:]), mask_u8[s:].data_ptr(),
+                dout[s:].data_ptr(), qkv[r:].data_ptr() if kept else None,
+                sm[r:].data_ptr(), ln_stats[0, r:].data_ptr(), rows,
+                dx[s:].data_ptr(), *(t.data_ptr() for t in sums),
+                ws.data_ptr(), e - s, n, dim, heads, float(scale),
+                int(causal), int(maybe_dead), eps_for(dt), 1 if k == 0 else 2,
+                stream_ptr(dev))
+            _build.check(err, "xclip_attention_block_bwd_recompute")
+    attention_block_bwd_recompute.launches += 1
+    dw_qkv, dw_out, dg_pre, dg_out = (t.to(dt) for t in sums)
+    return dx, dg_pre, dw_qkv, dw_out, dg_out
+
+
+attention_block_bwd_recompute.launches = 0
+
+
+class AttentionBlockRecompute(torch.autograd.Function):
+    """K3: the memory-lean attention megablock; `keep_qkv` keeps qkv."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
+                scale, causal, maybe_dead, keep_qkv):
+        x = x.contiguous()
+        out, sm, ln_stats, qkv = attention_block_fwd_stats(
+            x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head, scale,
+            causal, maybe_dead, keep_qkv)
+        kept = () if qkv is None else (qkv,)
+        ctx.save_for_backward(x, g_pre, w_qkv, w_out, g_out, mask, sm,
+                              ln_stats, *kept)
+        ctx.static = (heads, dim_head, scale, causal, maybe_dead)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, g_pre, w_qkv, w_out, g_out, mask, sm, ln_stats, *kept = \
+            ctx.saved_tensors
+        grads = attention_block_bwd_recompute(
+            x, g_pre, w_qkv, w_out, g_out, mask,
+            dout.to(x.dtype).contiguous(), sm, ln_stats, *ctx.static,
+            qkv=kept[0] if kept else None)
+        return (*grads, *([None] * 7))
+
+
+def attention_block_train_recompute(x, g_pre, w_qkv, w_out, g_out, mask,
+                                    heads, dim_head, scale, causal=False,
+                                    maybe_dead=True, keep_qkv=False):
+    """x + LN(W_out · attention(LN(x)·W_qkv)) keeping only row statistics
+    (and qkv with `keep_qkv`) for the recompute backward; differentiable in
+    the five tensors. Same arguments as `attention_block`."""
+    return AttentionBlockRecompute.apply(x, g_pre, w_qkv, w_out, g_out, mask,
+                                         heads, dim_head, scale, causal,
+                                         maybe_dead, keep_qkv)

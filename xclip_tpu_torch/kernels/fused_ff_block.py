@@ -11,7 +11,18 @@
   the GEGLU triple (prod, gelu(b), a·gelu'(b)) in the storage dtype and
   four fp32 row statistics; the backward runs pass 1 `ff_block_bwd_p1`
   (Pallas `_bwd_dx_kernel_geglu`: dx, dprod, dg_pre, dg_inner) and pass 2
-  `ff_block_bwd_p2` (Pallas `_bwd_dw_kernel_geglu`: dW_in, dW_out).
+  `ff_block_bwd_p2` (Pallas `_bwd_dw_kernel_geglu`: dW_in, dW_out);
+* the memory-lean training route `ff_block_train_recompute`
+  (`FFBlockRecompute`), the counterpart of `ff_block(..., store_h=False)`:
+  the forward K-FF-s `ff_block_fwd_stats` (Pallas `_fwd_kernel_stats`)
+  keeps only the four fp32 row statistics; the backward
+  `ff_block_bwd_recompute` recomputes h = xn·W_in in fp32 and gives dx,
+  dg_pre, dW_in, dg_inner and dW_out (Pallas `_bwd_dx_kernel` +
+  `_bwd_dw_kernel`, or K4's fed and row-chunked pair `_bwd_dx_kernel_fed`
+  + `_bwd_dw_kernel_fed`, which compute the same gradients). Both kernels
+  walk the rows in chunks under `_common.CHUNK_BYTES` of scratch, the
+  backward summing the chunks' dW and dg in chunk order, in fp32, cast
+  once; their plain versions take all rows at once.
 
 The CUDA kernels are `csrc/fused_ff_block.cu`; its source notes give the
 designs, what bounds them on the card and which intermediates cross HBM.
@@ -35,17 +46,22 @@ import math
 import torch
 
 from . import _build
-from ._common import (check_kernel_args, dot32, dtype_code, eps_for, ln_bwd,
-                      ln_stats_fp32, refuse_grad, route, stream_ptr)
+from ._common import (CHUNK_BYTES, check_kernel_args, chunk_spans, dot32,
+                      dtype_code, eps_for, ln_bwd, ln_stats_fp32, refuse_grad,
+                      route, stream_ptr)
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# The recompute backward's row chunks start at multiples of this many rows,
+# and its weight gradients sum split-k partials of exactly this many rows in
+# row order, so the gradients do not depend on the chunking.
+ROW_BLOCK = 2048
 
 
 def ff_block_plain(x, g_pre, w_in, g_inner, w_out):
     """Plain PyTorch version, in the kernel's cast order: K1's forward
     without its residuals (the two kernels share every launch)."""
     out, _ = _forward_plain(x.reshape(-1, x.shape[-1]), g_pre, w_in, g_inner,
-                            w_out, keep=False)
+                            w_out, keep=None)
     return out.reshape(x.shape)
 
 
@@ -63,6 +79,13 @@ def _check(name, tensors):
     return x.numel() // dim, dim, inner
 
 
+def _fwd_scratch(rows, dim, inner, dtype, device):
+    """The forward launches' scratch for `rows` rows: xn, the fp32 prod, y."""
+    return (torch.empty((rows, dim), dtype=dtype, device=device),
+            torch.empty((rows, inner), dtype=torch.float32, device=device),
+            torch.empty((rows, inner), dtype=dtype, device=device))
+
+
 def _fwd_kernel(name, tensors, stored):
     """Launch the forward kernel on (rows, dim) x → (out, residuals or
     None); with `stored`, the K1 residuals as the plain version returns."""
@@ -70,9 +93,7 @@ def _fwd_kernel(name, tensors, stored):
     rows, dim, inner = _check(name, tensors)
     dev, dt = x.device, x.dtype
     out = torch.empty_like(x)
-    xn = torch.empty((rows, dim), dtype=dt, device=dev)
-    prod = torch.empty((rows, inner), dtype=torch.float32, device=dev)
-    y = torch.empty((rows, inner), dtype=dt, device=dev)
+    xn, prod, y = _fwd_scratch(rows, dim, inner, dt, dev)
     residuals, residual_ptrs = None, [None] * 4    # None: a null pointer
     if stored:
         residuals = (*(torch.empty((rows, inner), dtype=dt, device=dev)
@@ -83,7 +104,8 @@ def _fwd_kernel(name, tensors, stored):
         err = _build.library().xclip_ff_block_fwd(
             dtype_code(dt),
             *(t.data_ptr() for t in (*tensors, out, xn, prod, y)),
-            *residual_ptrs, rows, dim, inner, eps_for(dt), stream_ptr(dev))
+            *residual_ptrs, rows, rows, dim, inner, eps_for(dt),
+            stream_ptr(dev))
     _build.check(err, "xclip_ff_block_fwd")
     return out, residuals
 
@@ -111,10 +133,12 @@ def ff_block_fwd_stored_plain(x, g_pre, w_in, g_inner, w_out):
     cast order of `_fwd_store_geglu_core`: exact (erf) GELU as b·Φ(b), the
     triple rounded to x.dtype, stats (4, rows) fp32 with mean_in / inv_in
     from the fp32 prod."""
-    return _forward_plain(x, g_pre, w_in, g_inner, w_out, keep=True)
+    return _forward_plain(x, g_pre, w_in, g_inner, w_out, keep="geglu")
 
 
 def _forward_plain(x, g_pre, w_in, g_inner, w_out, keep):
+    """keep None: (out, None); "stats": (out, stats); "geglu": (out,
+    (prod, gelu_b, agdb, stats))."""
     dtype = x.dtype
     eps = eps_for(dtype)
     x32 = x.float()
@@ -129,12 +153,18 @@ def _forward_plain(x, g_pre, w_in, g_inner, w_out, keep):
     mean_in, inv_in = ln_stats_fp32(prod, eps)
     y = (((prod - mean_in) * inv_in) * g_inner.float()).to(dtype)
     out = dot32(y, w_out).to(dtype) + x
-    if not keep:
+    if keep is None:
         return out, None
-    pdf = torch.exp(-0.5 * b * b) * 0.3989422804014327
     stats = torch.cat([mean_pre, inv_pre, mean_in, inv_in], dim=1).T
+    if keep == "stats":
+        return out, stats.contiguous()
     return out, (prod.to(dtype), gelu_b.to(dtype),
-                 (a * (phi + b * pdf)).to(dtype), stats.contiguous())
+                 (a * _gelu_grad(b, phi)).to(dtype), stats.contiguous())
+
+
+def _gelu_grad(b, phi):
+    """gelu'(b) = Φ(b) + b·φ(b) (`_gelu_val_grad`), Φ(b) given."""
+    return phi + b * (torch.exp(-0.5 * b * b) * 0.3989422804014327)
 
 
 def ff_block_fwd_stored(x, g_pre, w_in, g_inner, w_out):
@@ -277,3 +307,152 @@ def ff_block_train(x, g_pre, w_in, g_inner, w_out):
     """x + FF(LN(x)) with the stored-GEGLU backward; differentiable in all
     five tensors. Same argument layout as `ff_block`."""
     return FFBlock.apply(x, g_pre, w_in, g_inner, w_out)
+
+
+# ------------------------------------------- K-FF-s and the recompute backward
+
+def fwd_stats_spans(rows, dim, inner, dtype):
+    """K-FF-s's row chunks: [(start, stop), ...] whose scratch
+    (`_fwd_scratch`) stays under CHUNK_BYTES."""
+    return chunk_spans(rows, lambda k: sum(t.nbytes for t in _fwd_scratch(
+        k, dim, inner, dtype, "meta")), CHUNK_BYTES)
+
+
+def bwd_recompute_spans(rows, dim, inner, dtype):
+    """The recompute backward's row chunks: [(start, stop), ...] starting
+    at multiples of ROW_BLOCK whose workspace (the CUDA entry point's
+    query) stays under CHUNK_BYTES. Needs the built library."""
+    lib = _build.library()
+    return chunk_spans(
+        rows, lambda k: lib.xclip_ff_block_bwd_recompute_workspace(
+            dtype_code(dtype), k, dim, inner, ROW_BLOCK), CHUNK_BYTES,
+        ROW_BLOCK)
+
+
+def ff_block_fwd_stats_plain(x, g_pre, w_in, g_inner, w_out):
+    """x: (rows, dim) → (out, stats (4, rows) fp32: mean_pre, inv_pre,
+    mean_in, inv_in), in the cast order of `_fwd_kernel_stats`."""
+    return _forward_plain(x, g_pre, w_in, g_inner, w_out, keep="stats")
+
+
+def ff_block_fwd_stats(x, g_pre, w_in, g_inner, w_out):
+    """K-FF-s on (rows, dim) x: (out, stats) as the plain version. The
+    kernel takes the rows in chunks (`fwd_stats_spans`), so its xn, fp32
+    prod and y scratch stays under CHUNK_BYTES."""
+    tensors = (x, g_pre, w_in, g_inner, w_out)
+    if not route("ff_block_fwd_stats", tensors):
+        return ff_block_fwd_stats_plain(*tensors)
+    rows, dim, inner = _check("ff_block_fwd_stats", tensors)
+    dev, dt = x.device, x.dtype
+    out = torch.empty_like(x)
+    stats = torch.empty((4, rows), dtype=torch.float32, device=dev)
+    spans = fwd_stats_spans(rows, dim, inner, dt)
+    xn, prod, y = _fwd_scratch(spans[0][1] if spans else 0, dim, inner, dt,
+                               dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        for s, e in spans:
+            err = lib.xclip_ff_block_fwd(
+                dtype_code(dt), x[s:].data_ptr(),
+                *(t.data_ptr() for t in tensors[1:]), out[s:].data_ptr(),
+                xn.data_ptr(), prod.data_ptr(), y.data_ptr(), None, None,
+                None, stats[0, s:].data_ptr(), rows, e - s, dim, inner,
+                eps_for(dt), stream_ptr(dev))
+            _build.check(err, "xclip_ff_block_fwd")
+    ff_block_fwd_stats.launches += 1
+    return out, stats
+
+
+ff_block_fwd_stats.launches = 0
+
+
+def ff_block_bwd_recompute_plain(x, g_pre, w_in, g_inner, w_out, do, stats):
+    """`_p1_recompute_core` and the fed pass 2 on (rows, ·) rows, all rows
+    at once; returns as `ff_block_bwd_recompute`, the sums over the rows
+    in fp32 and cast once. h stays fp32; dh is rounded once and feeds both
+    the dx product and dW_in."""
+    dtype = x.dtype
+    mp, ip, mi, ii = (stats[i][:, None] for i in range(4))
+    xhat_pre = (x.float() - mp) * ip
+    xn = (xhat_pre * g_pre.float()).to(dtype)
+    h = dot32(xn, w_in)
+    inner = h.shape[-1] // 2
+    a, b = h[:, :inner], h[:, inner:]
+    phi = 0.5 * (1.0 + torch.erf(b * _INV_SQRT2))
+    gelu_b = b * phi
+    xhat_in = (a * gelu_b - mi) * ii
+    dy = dot32(do, w_out.T)
+    dprod, dg_inner = ln_bwd(dy, xhat_in, ii, g_inner.float())
+    dh = torch.cat([dprod * gelu_b, dprod * a * _gelu_grad(b, phi)],
+                   dim=-1).to(dtype)
+    y = (xhat_in * g_inner.float()).to(dtype)
+    dx_pre, dg_pre = ln_bwd(dot32(dh, w_in.T), xhat_pre, ip, g_pre.float())
+    dx = (dx_pre + do.float()).to(dtype)
+    return (dx, *(t.to(dtype) for t in (dg_pre, dot32(xn.T, dh), dg_inner,
+                                        dot32(y.T, do))))
+
+
+def ff_block_bwd_recompute(x, g_pre, w_in, g_inner, w_out, do, stats):
+    """The recompute backward from (rows, dim) x, do and K-FF-s's stats →
+    (dx, dg_pre, dW_in, dg_inner, dW_out) in x.dtype. The kernel takes the
+    rows in chunks (`bwd_recompute_spans`) whose workspace stays under
+    CHUNK_BYTES; the chunks' fp32 sums are added in chunk order and cast
+    once."""
+    tensors = (x, g_pre, w_in, g_inner, w_out, do, stats)
+    if not route("ff_block_bwd_recompute", tensors):
+        return ff_block_bwd_recompute_plain(*tensors)
+    rows, dim, inner = _check("ff_block_bwd_recompute", tensors[:5])
+    check_kernel_args("ff_block_bwd_recompute", (do,), x.dtype)
+    check_kernel_args("ff_block_bwd_recompute", (stats,), torch.float32)
+    spans = bwd_recompute_spans(rows, dim, inner, x.dtype)
+    dx = torch.empty_like(x)
+    dev, dt = x.device, x.dtype
+    sums = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((dim,), (dim, 2 * inner), (inner,),
+                          (inner, dim))]
+    lib = _build.library()
+    ws = torch.empty(lib.xclip_ff_block_bwd_recompute_workspace(
+        dtype_code(dt), spans[0][1], dim, inner, ROW_BLOCK),
+        dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        for k, (s, e) in enumerate(spans):
+            err = lib.xclip_ff_block_bwd_recompute(
+                dtype_code(dt), x[s:].data_ptr(),
+                *(t.data_ptr() for t in tensors[1:5]), do[s:].data_ptr(),
+                stats[0, s:].data_ptr(), rows, dx[s:].data_ptr(),
+                *(t.data_ptr() for t in sums), ws.data_ptr(), e - s,
+                dim, inner, ROW_BLOCK, eps_for(dt), 1 if k == 0 else 2,
+                stream_ptr(dev))
+            _build.check(err, "xclip_ff_block_bwd_recompute")
+    ff_block_bwd_recompute.launches += 1
+    return (dx, *(t.to(x.dtype) for t in sums))
+
+
+ff_block_bwd_recompute.launches = 0
+
+
+class FFBlockRecompute(torch.autograd.Function):
+    """The memory-lean FF block: K-FF-s forward, recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_in, g_inner, w_out):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        out, stats = ff_block_fwd_stats(x2, g_pre, w_in, g_inner, w_out)
+        ctx.save_for_backward(x2, g_pre, w_in, g_inner, w_out, stats)
+        ctx.x_shape = x.shape
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, g_pre, w_in, g_inner, w_out, stats = ctx.saved_tensors
+        do = dout.reshape(x2.shape).to(x2.dtype).contiguous()
+        dx, *grads = ff_block_bwd_recompute(x2, g_pre, w_in, g_inner, w_out,
+                                            do, stats)
+        return (dx.reshape(ctx.x_shape), *grads)
+
+
+def ff_block_train_recompute(x, g_pre, w_in, g_inner, w_out):
+    """x + FF(LN(x)) keeping only the row statistics for the backward,
+    which recomputes h; differentiable in all five tensors. Same argument
+    layout as `ff_block`."""
+    return FFBlockRecompute.apply(x, g_pre, w_in, g_inner, w_out)

@@ -1,0 +1,135 @@
+"""K5, the streaming log-sum-exp of the InfoNCE loss — the counterpart of
+`xclip_tpu.kernels.fused_infonce.streaming_lse`:
+
+    lse[r] = log Σ_c exp(x[r]·y[c])   (with `decoupled`, c == r + row_offset
+                                       is left out: decoupled contrastive
+                                       learning's diagonal)
+
+without the (R, C) score matrix in device memory. Callers pre-scale the
+rows by the temperature, so d/d(temperature) flows through that product
+by autograd and the kernels only need the two matrix cotangents:
+
+    dx[r] = dlse[r]·Σ_c p[r, c]·y[c],   dy[c] = Σ_r p[r, c]·dlse[r]·x[r],
+    p[r, c] = exp(x[r]·y[c] − lse[r])  (0 on a masked column).
+
+`streaming_lse` (`StreamingLSE`, an autograd Function) casts both inputs
+to fp32 as the Pallas version does, runs the forward `streaming_lse_fwd`
+(Pallas `_lse_kernel`) and the backward `streaming_lse_bwd` (Pallas
+`_dx_kernel` and `_dy_kernel`), and casts the gradients back to the input
+dtypes. The CUDA kernels are `csrc/fused_infonce.cu`. Each wrapper takes
+its kernel for CUDA tensors and its plain version (`*_plain`) for CPU
+tensors, and never falls back from one to the other. `row_offset` is the
+global column of row 0's diagonal, for a row shard of a gathered batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._common import route, stream_ptr
+
+MAX_DIM = 1024  # the kernels keep 48 rows of d fp32 values in shared memory
+
+
+def _scores_plain(x, y, row_offset, decoupled):
+    """fp32 scores (R, C) and the validity mask (None: all valid)."""
+    s = x @ y.T
+    if not decoupled:
+        return s, None
+    cols = torch.arange(y.shape[0], device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device) + int(row_offset)
+    valid = cols[None, :] != rows[:, None]
+    return s.masked_fill(~valid, float("-inf")), valid
+
+
+def streaming_lse_fwd_plain(x, y, row_offset=0, decoupled=False):
+    """fp32 (R, d), (C, d) → lse (R,) fp32: m = 0 on a row whose every
+    column is masked, and the sum clamped at 1e-30 (`_lse_kernel`)."""
+    s, _ = _scores_plain(x, y, row_offset, decoupled)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m == float("-inf"), 0.0, m)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    return (m + torch.log(l.clamp_min(1e-30))).squeeze(-1)
+
+
+def streaming_lse_bwd_plain(x, y, lse, dlse, row_offset=0, decoupled=False):
+    """fp32 → (dx (R, d), dy (C, d)) fp32, p rebuilt from the stored lse."""
+    s, valid = _scores_plain(x, y, row_offset, decoupled)
+    p = torch.exp(s - lse[:, None])
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    return (p @ y) * dlse[:, None], p.T @ (x * dlse[:, None])
+
+
+def _check(name, tensors, d):
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name}: the kernel takes contiguous float32")
+    if d > MAX_DIM:
+        raise ValueError(f"{name}: d {d} exceeds the kernel's {MAX_DIM}")
+
+
+def streaming_lse_fwd(x, y, row_offset=0, decoupled=False):
+    """K5 forward on fp32 x (R, d), y (C, d) → lse (R,) fp32."""
+    if not route("streaming_lse_fwd", (x, y)):
+        return streaming_lse_fwd_plain(x, y, row_offset, decoupled)
+    (R, d), C = x.shape, y.shape[0]
+    _check("streaming_lse_fwd", (x, y), d)
+    lse = torch.empty(R, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().xclip_lse_fwd(
+            x.data_ptr(), y.data_ptr(), lse.data_ptr(), R, C, d,
+            int(row_offset), int(decoupled), stream_ptr(x.device))
+    _build.check(err, "xclip_lse_fwd")
+    streaming_lse_fwd.launches += 1
+    return lse
+
+
+streaming_lse_fwd.launches = 0
+
+
+def streaming_lse_bwd(x, y, lse, dlse, row_offset=0, decoupled=False):
+    """K5 backward (the dx and dy kernels) → (dx, dy) fp32."""
+    tensors = (x, y, lse, dlse)
+    if not route("streaming_lse_bwd", tensors):
+        return streaming_lse_bwd_plain(x, y, lse, dlse, row_offset, decoupled)
+    (R, d), C = x.shape, y.shape[0]
+    _check("streaming_lse_bwd", tensors, d)
+    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    with torch.cuda.device(x.device):
+        err = _build.library().xclip_lse_bwd(
+            *(t.data_ptr() for t in (*tensors, dx, dy)), R, C, d,
+            int(row_offset), int(decoupled), stream_ptr(x.device))
+    _build.check(err, "xclip_lse_bwd")
+    streaming_lse_bwd.launches += 1
+    return dx, dy
+
+
+streaming_lse_bwd.launches = 0
+
+
+class StreamingLSE(torch.autograd.Function):
+    """K5 forward and backward; the gradients in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, y, row_offset, decoupled):
+        x32, y32 = x.float().contiguous(), y.float().contiguous()
+        lse = streaming_lse_fwd(x32, y32, row_offset, decoupled)
+        ctx.save_for_backward(x32, y32, lse)
+        ctx.static = (row_offset, decoupled)
+        ctx.dtypes = (x.dtype, y.dtype)
+        return lse
+
+    @staticmethod
+    def backward(ctx, dlse):
+        x32, y32, lse = ctx.saved_tensors
+        dx, dy = streaming_lse_bwd(x32, y32, lse, dlse.float().contiguous(),
+                                   *ctx.static)
+        return dx.to(ctx.dtypes[0]), dy.to(ctx.dtypes[1]), None, None
+
+
+def streaming_lse(x, y, row_offset=0, decoupled=False):
+    """`lse[r] = logsumexp_c(x[r]·y[c])` without the (R, C) score matrix;
+    `x` rows already carry the temperature. Differentiable in x and y."""
+    return StreamingLSE.apply(x, y, row_offset, decoupled)

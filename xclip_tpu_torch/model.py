@@ -46,6 +46,7 @@ class CLIPModel(nn.Module):
                  decoupled_contrastive_learning: bool = False,
                  attn_impl: str = "xla",
                  visual_attn_impl: Optional[str] = None,
+                 loss_impl: str = "xla",
                  compute_dtype=None, generator=None, dtype=torch.float32):
         super().__init__()
         self.text = text_encoder
@@ -56,6 +57,7 @@ class CLIPModel(nn.Module):
         self.decoupled_contrastive_learning = decoupled_contrastive_learning
         self.attn_impl = attn_impl
         self.visual_attn_impl = visual_attn_impl or attn_impl
+        self.loss_impl = loss_impl
         self.compute_dtype = as_dtype(compute_dtype)
         self.to_text_latent = Linear(dim_text, dim_latent,
                                      generator=generator, dtype=dtype)
@@ -144,7 +146,8 @@ class CLIPModel(nn.Module):
             cl_loss = clip_contrastive_loss(
                 tl, il, temp, decoupled_contrastive_learning=dcl,
                 text_latents_extra=tl_extra if extra else None,
-                image_latents_extra=il_extra if extra else None)
+                image_latents_extra=il_extra if extra else None,
+                loss_impl=self.loss_impl)
             loss = cl_loss  # cl_loss_weight 1: no MLM, visual SSL or multiview
             if return_metrics:
                 return loss, {"loss": loss, "cl_loss": cl_loss,

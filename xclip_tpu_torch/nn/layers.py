@@ -9,11 +9,15 @@ Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
     ('block', 'block_stored') → the FF block's lean forward K-FF
     (`kernels/fused_ff_block.ff_block`), each PreNorm to residual;
   * training: 'fused' → K2, the stored megablock forward and backward
-    (`attention_block_train`); 'block_stored' → K1, the stored-GEGLU FF
-    block (`ff_block_train`). The JAX stack's scoped-VMEM gate on the
-    stored megablock is a TPU artefact. The other kernel routes in training
-    are not ported yet and raise `NotImplementedError` naming their
-    ROADMAP.md item;
+    (`attention_block_train`); 'fused_qkv' and 'fused_recompute' → K3, the
+    memory-lean megablock keeping qkv or nothing but row statistics
+    (`attention_block_train_recompute`); 'block_stored' → K1, the
+    stored-GEGLU FF block (`ff_block_train`); 'block' → K-FF-s with the
+    recompute backward (`ff_block_train_recompute`). The JAX stack's
+    scoped-VMEM gates between these variants are TPU artefacts: each flag
+    takes its own route. What training does not have yet (XCLIP_FF_STORE=h,
+    remat, dropout) raises `NotImplementedError` naming its ROADMAP.md
+    item;
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
@@ -24,6 +28,7 @@ cotangents are zero, add nothing to any gradient.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -31,8 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention_megablock import (attention_block,
-                                          attention_block_train)
-from ..kernels.fused_ff_block import ff_block, ff_block_train
+                                          attention_block_train,
+                                          attention_block_train_recompute)
+from ..kernels.fused_ff_block import (ff_block, ff_block_train,
+                                      ff_block_train_recompute)
 from .core import LayerNorm, Linear, layer_norm
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv")
@@ -68,16 +75,6 @@ def check_training_routes(attn_impl, ff_impl, *, checkpoint=False,
         raise NotImplementedError(
             "attention / FF dropout in training is not ported yet: "
             "ROADMAP.md Queue 1, items 1-2")
-    if attn_impl in ("fused_qkv", "fused_recompute"):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} in training (the qkv-only / recompute "
-            "megablock backward) is not ported yet: ROADMAP.md Queue 2, K3 "
-            "fwd and K2/K3 bwd")
-    if ff_impl == "block":
-        raise NotImplementedError(
-            "ff_impl='block' in training (K-FF-s and the K1 recompute "
-            "backward) is not ported yet: ROADMAP.md Queue 2, K-FF-s and K1 "
-            "bwd")
     if ff_impl == "block_stored" and os.environ.get("XCLIP_FF_STORE") == "h":
         raise NotImplementedError(
             "XCLIP_FF_STORE=h (the stored-h FF block) is not ported yet: "
@@ -189,9 +186,9 @@ class Transformer(nn.Module):
                 ff_impl="xla", training=False,
                 checkpoint_during_training=False, attn_dropout=0.0,
                 ff_dropout=0.0):
-        """`training` selects the kernels' stored-backward routes (K2, K1);
-        otherwise the lean inference forwards run, which take no
-        gradient."""
+        """`training` selects the kernels' training routes (K2 or K3, K1 or
+        the recompute FF block); otherwise the lean inference forwards run,
+        which take no gradient."""
         check_impls(attn_impl, ff_impl)
         if training:
             check_training_routes(
@@ -199,8 +196,13 @@ class Transformer(nn.Module):
                 attn_dropout=attn_dropout, ff_dropout=ff_dropout)
         use_mega = attn_impl in MEGA_IMPLS
         use_ffb = ff_impl in FF_BLOCK_IMPLS
-        mega = attention_block_train if training else attention_block
-        ffb = ff_block_train if training else ff_block
+        mega, ffb = attention_block, ff_block
+        if training:
+            mega = (attention_block_train if attn_impl == "fused" else
+                    functools.partial(attention_block_train_recompute,
+                                      keep_qkv=attn_impl == "fused_qkv"))
+            ffb = (ff_block_train if ff_impl == "block_stored"
+                   else ff_block_train_recompute)
         dt = x.dtype
         x = self.norm_in(x)
         if use_mega:
