@@ -57,6 +57,34 @@ and nothing is caught.
              timed steps, pairs/s, peak memory, the idle share and top
              kernels over one profiled step; launch counts per step, finite
              losses, the first near ln b.
+ 12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
+             backward at (256, 256, 3 x 512) causal with key pads and at n =
+             257 not causal, K7 (FlashAttention) forward and backward at
+             b*h = 2048, n = 256 (the text tower) and (2, 8, 8192, 64)
+             causal with key pads, and non-causal at the vision tower's 64
+             and 32 (padded to 64) tokens, fp32 and bf16, against their
+             plain versions on the card element by element (bf16: two ulps
+             of each element plus 3e-2 of its head row's RMS plus 1e-2 of
+             the tensor's; fp32 and every lse: 1e-4 of the largest
+             magnitude) and within 1e-3 relative Frobenius error each;
+             CUDA-event times of
+             kernel, plain version and scaled_dot_product_attention
+             (forward, backward, both) on the same q, k, v and mask, and
+             the bound.
+ 13 rotary-golden  the rotary causal-EOS tiny CLIP of
+             tests/data/torch_port_golden_rotary.npz on the K6 and K7
+             routes, fp32: outputs and one train step against the JAX
+             package's.
+ 14 rotary-serve  the flagship with text_rotary_pos_emb, text_causal_mask
+             and text_eos_id 9999 answers b = 256 requests, bf16, on the K6
+             route (attn_impl='fused', visual 'xla'), the K7 route
+             (attn_impl='flash' in both towers) and the plain route:
+             pairs/s, launch counts, latents against the plain route's.
+ 15 rotary-train  its train step at b = 256, bf16, AdamW lr 1e-4, on the K6
+             and K7 routes from the same weights: 2 warm-up and 5 timed
+             steps each, pairs/s, peak memory, launch counts per step, the
+             idle share and top kernels over one profiled step, finite
+             losses, the first near ln 256.
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
@@ -77,6 +105,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
+GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")
 
 FLAGSHIP = dict(dim_text=512, dim_image=512, dim_latent=512,
                 num_text_tokens=10000, text_enc_depth=6, text_seq_len=256,
@@ -95,6 +124,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2.0 ** -5}
 LATENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 LEAN_ROUTES = dict(attn_impl="fused_recompute", ff_impl="block",
                    loss_impl="fused")
+# the rotary, causal-EOS text tower (EOS the vocabulary's last id) and its
+# two kernel routes: K6 in the text tower, or K7 in both towers
+ROTARY = dict(text_rotary_pos_emb=True, text_causal_mask=True,
+              text_eos_id=9999)
+ROTARY_ROUTES = {
+    "K6": dict(attn_impl="fused", visual_attn_impl="xla",
+               ff_impl="block_stored"),
+    "K7": dict(attn_impl="flash", visual_attn_impl=None,
+               ff_impl="block_stored")}
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s, dense bf16 tensor
 # FLOP/s, fp32 FLOP/s outside the tensor cores
 HBM, BF16_PEAK, FP32_PEAK = 3.35e12, 989e12, 67e12
@@ -158,6 +196,34 @@ def lse_cost(kind, R, C, d):
     io = (R + C) * d * 4
     return {"fwd": (io + 4 * R, 2 * R * C * d),
             "bwd": (2 * io + 8 * R, 6 * R * C * d)}[kind]
+
+
+def valid_pairs(lengths, n, causal):
+    """(query, key) pairs whose key is valid, over batch elements whose
+    first `length` keys are valid (every query row is computed)."""
+    if causal:
+        return sum(L * (L + 1) // 2 + (n - L) * L for L in lengths)
+    return n * sum(lengths)
+
+
+def core_cost(kind, rows_heads, pairs, mask_bytes, it=2):
+    """(bytes, FLOPs) of one attention-core call over `rows_heads` (row,
+    head) pairs of width 64 and `pairs` valid (query, key, head) triples:
+    the forward reads q, k, v, writes out and the fp32 lse, and computes
+    q·kᵀ and p·v over the valid keys only; the backward reads q, k, v,
+    out, dout and lse, writes dq, dk and dv, and computes s, dp, dv, dq and
+    dk."""
+    e = rows_heads * 64 * it
+    if kind == "fwd":
+        return 4 * e + 4 * rows_heads + mask_bytes, 4 * pairs * 64
+    return 8 * e + 4 * rows_heads + mask_bytes, 10 * pairs * 64
+
+
+def flash_cost(kind, bh, n, lengths, causal, it=2):
+    """core_cost of K7 on (bh, n, 64), the key mask repeated per head
+    (`lengths` per bh row)."""
+    return core_cost(kind, bh * n, valid_pairs(lengths, n, causal), bh * n,
+                     it)
 
 
 def phase(n, name, msg):
@@ -225,6 +291,230 @@ def texts(gen, b, seq=256, vocab=10000):
     ids = torch.randint(1, vocab, (b, seq), generator=gen, device="cuda")
     lengths = torch.randint(4, seq + 1, (b,), generator=gen, device="cuda")
     return ids * (torch.arange(seq, device="cuda")[None] < lengths[:, None])
+
+
+def eos_texts(gen, b, seq=256, eos=9999):
+    """Captions of mixed lengths below `eos`, each ending in `eos`, then
+    pads (0)."""
+    ids = torch.randint(1, eos, (b, seq), generator=gen, device="cuda")
+    lengths = torch.randint(4, seq + 1, (b,), generator=gen, device="cuda")
+    pos = torch.arange(seq, device="cuda")[None]
+    ids = torch.where(pos == lengths[:, None] - 1, eos, ids)
+    return ids * (pos < lengths[:, None])
+
+
+def key_mask(lengths, n):
+    return torch.arange(n, device="cuda")[None] < torch.as_tensor(
+        lengths, device="cuda")[:, None]
+
+
+def sdpa_ms(q, k, v, mask, causal, scale, do):
+    """CUDA-event times of torch's scaled_dot_product_attention on (b, h,
+    n, d) q, k, v with one boolean mask of key pads and causality (no dead
+    rows): (forward, backward, forward + backward) ms."""
+    F = torch.nn.functional
+    n = q.shape[2]
+    m = mask[:, None, None, :]
+    if causal:
+        m = m & torch.ones(n, n, dtype=torch.bool, device="cuda").tril()
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              scale=scale)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd)
+    out = fwd()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                                 retain_graph=True))
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), do))
+    return fwd_ms, bwd_ms, both_ms
+
+
+# phase 12's bound on the relative Frobenius error of every K6 / K7 output
+# (bf16 runs at ~3e-4, fp32 at ~1e-6): a bias spread over every element
+# fails it, where each element alone stays within `attn_tol`
+ATTN_FROB = 1e-3
+
+
+def attn_tol(name, want, dtype):
+    """Phase 12's tolerance of each element of `want`: fp32 outputs and
+    every lse (fp32 in both dtypes) 1e-4 of the tensor's largest magnitude
+    (summation order only). bf16 outputs: two bf16 ulps of the element
+    plus 3e-2 of the RMS of its head row (its 64 features) plus 1e-2 of
+    the tensor's RMS. Both sides round at the same places, but summation
+    order can flip the bf16 rounding of a p or ds term, moving a sum by up
+    to one ulp of that term (2^-7 of it); in a row with few valid keys one
+    term is as large as the row, so a few flips reach ~2 % of the row."""
+    w = want.float()
+    if dtype == torch.float32 or name == "lse":
+        return torch.full_like(w, 1e-4 * max(1.0, float(w.abs().max())))
+    rows = w.reshape(-1, 64)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        rows.abs().clamp_min(2.0 ** -126))) - 7)
+    tol = (2 * ulp + 3e-2 * rows.pow(2).mean(-1, keepdim=True).sqrt()
+           + 1e-2 * w.pow(2).mean().sqrt())
+    return tol.reshape(w.shape)
+
+
+def compare_elementwise(label, names, got, want, dtype):
+    """Each output against its plain version element by element within
+    `attn_tol`, and as a whole within `ATTN_FROB` relative Frobenius
+    error; prints the max_abs_err, the worst err/tol and the relative
+    Frobenius error; returns the largest max_abs_err."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        err = (g.float() - w.float()).abs()
+        ratio = (err / attn_tol(name, w, dtype)).max().item()
+        max_abs = err.max().item()
+        frob = (err.norm() / w.float().norm().clamp_min(1e-30)).item()
+        rule = ("1e-4 of max" if dtype == torch.float32 or name == "lse"
+                else "2 ulps + 3e-2 row RMS + 1e-2 RMS")
+        print(f"  {label} {name}: max_abs_err {max_abs:.3e}, worst err/tol "
+              f"{ratio:.3f} (tol {rule} per element), rel Frobenius err "
+              f"{frob:.2e} (tol {ATTN_FROB:.0e})", flush=True)
+        if not (bool(torch.isfinite(g).all()) and ratio <= 1.0
+                and frob <= ATTN_FROB):
+            fail(f"{label} {name} disagrees with its plain version")
+        worst = max(worst, max_abs)
+    return worst
+
+
+def attn_kernels(gen, core, flash):
+    """Phase 12: K6 and K7, forward and backward, against their plain
+    versions on the card, fp32 and bf16, at the main path's shapes (K7 in
+    the vision tower too: 64 tokens at inference, 32 kept patches in
+    training, non-causal, padded to the kernel's tile); times at the text
+    tower's flagship shape and the long sequence."""
+    phase(12, "attn-kernels", "kernel vs plain version on the card")
+    errs, ms, costs, lib = {}, {}, {}, {}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for b, n, causal in ((256, 256, True), (256, 257, False)):
+            lengths = torch.randint(1, n + 1, (b,), generator=gen,
+                                    device="cuda").tolist()
+            mask = key_mask(lengths, n)
+            qkv = rand(gen, b, n, 3 * 512, dtype=dtype)
+            do = rand(gen, b, n, 512, dtype=dtype)
+            static = (8, 64, 0.125, causal, True)
+            label = (f"K6 {tag} ({b}, {n}, 3x512) 8x64 "
+                     f"{'causal ' if causal else ''}key-pad")
+            e_fwd = compare_elementwise(
+                label, ("out", "lse"), core.attention_core_fwd(qkv, mask,
+                                                               *static),
+                core.attention_core_fwd_plain(qkv, mask, *static), dtype)
+            out, lse = core.attention_core_fwd_plain(qkv, mask, *static)
+            e_bwd = compare_elementwise(
+                label, ("dqkv",),
+                (core.attention_core_bwd(qkv, mask, out, lse, do, *static),),
+                (core.attention_core_bwd_plain(qkv, mask, out, lse, do,
+                                               *static),), dtype)
+            if n == 256 and dtype == torch.bfloat16:
+                errs.update(k6_fwd=e_fwd, k6_bwd=e_bwd)
+                ms["k6_fwd"] = (
+                    cuda_ms(lambda: core.attention_core_fwd(qkv, mask,
+                                                            *static)),
+                    cuda_ms(lambda: core.attention_core_fwd_plain(
+                        qkv, mask, *static)))
+                ms["k6_bwd"] = (
+                    cuda_ms(lambda: core.attention_core_bwd(
+                        qkv, mask, out, lse, do, *static)),
+                    cuda_ms(lambda: core.attention_core_bwd_plain(
+                        qkv, mask, out, lse, do, *static)))
+                pairs = 8 * valid_pairs(lengths, n, causal)
+                costs.update(k6_fwd=core_cost("fwd", b * n * 8, pairs, b * n),
+                             k6_bwd=core_cost("bwd", b * n * 8, pairs, b * n))
+                q, k, v = (_heads_of(qkv, i) for i in range(3))
+                lib["k6"] = sdpa_ms(q, k, v, mask, causal, 0.125,
+                                    _heads_of(do, 0))
+            del qkv, do, out, lse
+        # (b, h, n, causal, key pads): the text tower, the long sequence,
+        # the vision tower at inference (64 tokens) and in training (32
+        # kept patches, padded to the kernel's tile)
+        for b, h, n, causal, pads in ((256, 8, 256, True, True),
+                                      (2, 8, 8192, True, True),
+                                      (256, 8, 64, False, False),
+                                      (256, 8, 32, False, False)):
+            lengths = (torch.randint(n // 2, n + 1, (b,), generator=gen,
+                                     device="cuda").tolist() if pads
+                       else [n] * b)
+            mask = key_mask(lengths, n)
+            q, k, v, do = (rand(gen, b, h, n, 64, dtype=dtype) for _ in
+                           range(4))
+            q = (q.float() * 0.125).to(dtype)
+            flat, mask_bh = flash.pad_flat((q, k, v, do),
+                                           mask if pads else None)
+            bh, n_pad = mask_bh.shape
+            label = (f"K7 {tag} ({b}, {h}, {n}, 64) "
+                     + ("causal key-pad" if pads else
+                        f"non-causal, padded to {n_pad}"))
+            e_fwd = compare_elementwise(
+                label, ("out", "lse"),
+                flash.flash_attention_fwd(*flat[:3], mask_bh, causal),
+                flash.flash_attention_fwd_plain(*flat[:3], mask_bh, causal),
+                dtype)
+            out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh,
+                                                       causal)
+            e_bwd = compare_elementwise(
+                label, ("dq", "dk", "dv"),
+                flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse,
+                                          flat[3], causal),
+                flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse,
+                                                flat[3], causal), dtype)
+            if dtype == torch.bfloat16 and pads:
+                key = "k7" if n == 256 else "k7_long"
+                errs.update({f"{key}_fwd": e_fwd, f"{key}_bwd": e_bwd})
+                ms[f"{key}_fwd"] = (
+                    cuda_ms(lambda: flash.flash_attention_fwd(
+                        *flat[:3], mask_bh, causal)),
+                    cuda_ms(lambda: flash.flash_attention_fwd_plain(
+                        *flat[:3], mask_bh, causal)))
+                ms[f"{key}_bwd"] = (
+                    cuda_ms(lambda: flash.flash_attention_bwd(
+                        *flat[:3], mask_bh, out, lse, flat[3], causal)),
+                    cuda_ms(lambda: flash.flash_attention_bwd_plain(
+                        *flat[:3], mask_bh, out, lse, flat[3], causal),
+                        reps=3, iters=1))
+                lengths_bh = [L for L in lengths for _ in range(h)]
+                costs.update({f"{key}_fwd": flash_cost("fwd", bh, n,
+                                                       lengths_bh, causal),
+                              f"{key}_bwd": flash_cost("bwd", bh, n,
+                                                       lengths_bh, causal)})
+                lib[key] = sdpa_ms(q, k, v, mask, causal, 1.0, do)
+            elif dtype == torch.bfloat16:
+                errs.update({k: max(errs[k], e) for k, e in
+                             (("k7_fwd", e_fwd), ("k7_bwd", e_bwd))})
+                fwd_ms = cuda_ms(lambda: flash.flash_attention_fwd(
+                    *flat[:3], mask_bh, False))
+                bwd_ms = cuda_ms(lambda: flash.flash_attention_bwd(
+                    *flat[:3], mask_bh, out, lse, flat[3], False))
+                print(f"  K7 vision {n} tokens (b*h {bh}, n_pad {n_pad}): "
+                      f"kernel forward {fwd_ms:.3f} ms, backward "
+                      f"{bwd_ms:.3f} ms", flush=True)
+            del q, k, v, do, flat, out, lse
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for key in ms:
+        b_ms, b_by = bound(*costs[key])
+        sdpa = lib[key.rsplit("_", 1)[0]]
+        print(f"  {key}: kernel {ms[key][0]:.3f} ms, plain {ms[key][1]:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
+              f"{'forward' if key.endswith('fwd') else 'backward'} "
+              f"{sdpa[0 if key.endswith('fwd') else 1]:.3f} ms (forward + "
+              f"backward {sdpa[2]:.3f} ms)", flush=True)
+    library = {key: lib[key.rsplit("_", 1)[0]][0 if key.endswith("fwd")
+                                                 else 1] for key in ms}
+    return errs, ms, costs, library
+
+
+def _heads_of(t, i, heads=8):
+    """The i-th 512-column third of a (b, n, ·) tensor as (b, heads, n,
+    64) (a view)."""
+    b, n, _ = t.shape
+    return t[..., i * 512:(i + 1) * 512].reshape(b, n, heads, 64).transpose(
+        1, 2)
 
 
 # (key, record name, source, Pallas body replaced) of the training kernels
@@ -368,6 +658,24 @@ LEAN_KERNELS = [
 ]
 
 
+# (key, record name, source, Pallas body replaced) of the rotary text
+# tower's attention kernels, timed at the text tower's flagship shape
+ATTN_KERNELS = [
+    ("k6_fwd", "K6 attention_core forward",
+     "xclip_tpu_torch/csrc/attention_block.cu",
+     "xclip_tpu/kernels/attention_block.py:83"),
+    ("k6_bwd", "K6 attention_core backward",
+     "xclip_tpu_torch/csrc/attention_block.cu",
+     "xclip_tpu/kernels/attention_block.py:117"),
+    ("k7_fwd", "K7 flash_attention forward",
+     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu/kernels/flash_attention.py:66"),
+    ("k7_bwd", "K7 flash_attention backward (dq, dk/dv)",
+     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu/kernels/flash_attention.py:134"),
+]
+
+
 def lean_kernels(gen, ffb, mega, lse5):
     """Phase 9: K-FF-s, the FF recompute backward, K3 and K5 at the
     flagship shapes, against their plain versions on the card."""
@@ -493,12 +801,32 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def golden_outputs_err(CLIP, load_jax_params, numpy_params, golden=GOLDEN,
+                       prefix=""):
+    """The largest abs difference of the golden file's tiny CLIP's
+    inference outputs on the card from the JAX package's."""
+    g = np.load(golden)
+    config = json.loads(str(g[f"{prefix}config"]))
+    tiny = CLIP(**config, device="cuda")
+    load_jax_params(tiny, numpy_params(config, int(g["seed"])))
+    text = torch.from_numpy(g["text"]).cuda()
+    images = torch.from_numpy(g["images"]).cuda()
+    got = {"sims": tiny(text, images)}
+    got["text_latents"], got["image_latents"] = tiny(text, images,
+                                                     return_latents=True)
+    et, ei = tiny(text, images, return_encodings=True)
+    got["enc_text_head"], got["enc_image_head"] = et[:, :3], ei[:, :3]
+    return max((v.float().cpu() - torch.from_numpy(g[f"{prefix}{k}"]))
+               .abs().max().item() for k, v in got.items())
+
+
 def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
-                 make_train_step, number=7, prefix=""):
+                 make_train_step, number=7, prefix="", golden=GOLDEN):
     """Phase 7 (stored routes) or 10 (memory-lean routes, `prefix`
-    "lean_"): one fp32 train step on the card against the JAX golden."""
+    "lean_"): one fp32 train step on the card against the JAX golden; with
+    `number` None (phase 13) no phase line, the errors returned."""
     from xclip_tpu_torch.convert import to_jax_tree
-    g = np.load(GOLDEN)
+    g = np.load(golden)
     config = json.loads(str(g[f"{prefix}config"]))
     opt = json.loads(str(g["train_optimizer"]))
     tiny = CLIP(**config, device="cuda")
@@ -525,6 +853,8 @@ def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
     if not (loss_err <= 1e-5 and norm_err <= 1e-4):
         fail(f"golden train step: loss err {loss_err:.3e}, grad norm err "
              f"{norm_err:.3e}")
+    if number is None:
+        return loss_err, norm_err, grad_worst, param_worst
     name = "lean-golden" if prefix else "train-golden"
     routes = "memory-lean" if prefix else "kernel"
     phase(number, name, f"tiny CLIP fp32 train step ({routes} routes) vs "
@@ -760,6 +1090,169 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
     return s2048[3]
 
 
+def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                  make_train_step, counters):
+    """Phase 13: the rotary causal-EOS tiny CLIP on the K6 and K7 routes
+    against the JAX golden, fp32: outputs and one train step, each route
+    through its kernels."""
+    lines = []
+    for route, prefix, keys in (("K6", "fused_", ("k6_fwd", "k6_bwd")),
+                                ("K7", "flash_", ("k7_fwd", "k7_bwd"))):
+        before = {k: counters[k].launches for k in keys}
+        worst = golden_outputs_err(CLIP, load_jax_params, numpy_params,
+                                   GOLDEN_ROTARY, prefix)
+        if not worst <= 1e-4:
+            fail(f"rotary {route} route vs JAX golden: max_abs_err "
+                 f"{worst:.3e} > 1e-4")
+        loss_err, norm_err, grad_worst, param_worst = train_golden(
+            CLIP, load_jax_params, numpy_params, default_optimizer,
+            make_train_step, None, prefix, GOLDEN_ROTARY)
+        missed = [k for k in keys if counters[k].launches == before[k]]
+        if missed:
+            fail(f"the rotary golden model did not run through {missed}")
+        lines.append(f"{route} route outputs max_abs_err {worst:.3e} (tol "
+                     f"1e-4), train step loss err {loss_err:.3e} (tol 1e-5),"
+                     f" grad_norm err {norm_err:.3e} (tol 1e-4), max grad err"
+                     f" {grad_worst:.3e}, max param err {param_worst:.3e} "
+                     f"(tol 1e-5)")
+    phase(13, "rotary-golden", "rotary causal-EOS tiny CLIP fp32 vs JAX: "
+          + "; ".join(lines))
+
+
+def rotary_models(CLIP, routes_by_name, dtype=torch.bfloat16):
+    """The flagship rotary causal-EOS CLIP on each named route, all with
+    the first one's weights."""
+    models = {}
+    for name, routes in routes_by_name.items():
+        models[name] = CLIP(**FLAGSHIP, **ROTARY, **routes, param_dtype=dtype,
+                            compute_dtype="bfloat16", device="cuda", seed=0)
+        models[name].load_state_dict(next(iter(models.values())).state_dict())
+    return models
+
+
+def rotary_serve(card, CLIP, counters):
+    """Phase 14: the flagship rotary causal-EOS CLIP serves b = 256 on the
+    K6, K7 and plain routes."""
+    b = 256
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    text, images = eos_texts(gen, b), rand(gen, b, 3, 256, 256)
+    models = rotary_models(CLIP, {**ROTARY_ROUTES, "plain": PLAIN_ROUTES})
+    want = {"K6": {"k6_fwd": 6, "k6_bwd": 0, "k7_fwd": 0, "k7_bwd": 0,
+                   "kff": 12},
+            "K7": {"k6_fwd": 0, "k6_bwd": 0, "k7_fwd": 12, "k7_bwd": 0,
+                   "kff": 12}}
+    plain = models["plain"](text, images, return_latents=True)
+    agree = []
+    for route in ROTARY_ROUTES:
+        for fn in counters.values():
+            fn.launches = 0
+        latents = models[route](text, images, return_latents=True)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        if counts != want[route]:
+            fail(f"rotary {route} route: launches {counts}, expected "
+                 f"{want[route]}")
+        worst = max((a - p).abs().max().item()
+                    for a, p in zip(latents, plain))
+        if not (worst <= LATENT_TOL[torch.bfloat16]
+                and all(torch.isfinite(t).all() for t in latents)):
+            fail(f"rotary {route} route: latents differ from the plain "
+                 f"route's by {worst:.3e} > {LATENT_TOL[torch.bfloat16]}")
+        agree.append(f"{route} latents vs plain {worst:.3e} (tol "
+                     f"{LATENT_TOL[torch.bfloat16]:.0e}), launches "
+                     f"{counts}")
+    ms = {}
+    for route in ("plain", "K6", "K7", "K7_2", "K6_2", "plain_2"):
+        model = models[route.split("_")[0]]
+        ms[route] = cuda_ms(lambda: model(text, images), reps=3, iters=2)
+    best = {r: min(ms[r], ms[f"{r}_2"]) for r in ("plain", "K6", "K7")}
+    phase(14, "rotary-serve", f"{card}: rotary causal-EOS flagship inference"
+          f" b={b} bf16: " + ", ".join(
+              f"{r} route {b / best[r] * 1e3:.1f} pairs/s ({ms[r]:.2f}, "
+              f"{ms[r + '_2']:.2f} ms)" for r in ("K6", "K7", "plain"))
+          + "; " + "; ".join(agree))
+    del models, plain
+    torch.cuda.empty_cache()
+
+
+def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
+    """Phase 15: the flagship rotary causal-EOS train step on the K6 and K7
+    routes, b = 256, from the same weights and inputs."""
+    b, warm, timed = 256, 2, 5
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    text, images = eos_texts(gen, b), rand(gen, b, 3, 256, 256,
+                                           dtype=torch.bfloat16)
+    models = rotary_models(CLIP, ROTARY_ROUTES)
+    want = {"K6": {"k6_fwd": 6, "k6_bwd": 6, "k7_fwd": 0, "k7_bwd": 0,
+                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12},
+            "K7": {"k6_fwd": 0, "k6_bwd": 0, "k7_fwd": 12, "k7_bwd": 12,
+                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12}}
+    results, launches = {}, {}
+    for route, model in models.items():
+        step = make_train_step(model, default_optimizer(model.parameters(),
+                                                        learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(100 + i))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = [run(i)["loss"] for i in range(warm)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [run(warm + i)["loss"] for i in range(timed)]
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / timed
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {k: v / (warm + timed) for k, v in counts.items()}
+        if per_step != want[route]:
+            fail(f"rotary {route} route: training launches per step "
+                 f"{per_step}, expected {want[route]}")
+        (idle, busy_ms, window_ms), (total, rows) = profile_step(
+            run, warm + timed)
+        losses = torch.stack(losses).float().cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"rotary {route} route: a loss is not finite: "
+                 f"{losses.tolist()}")
+        if not abs(losses[0].item() - math.log(b)) <= 0.5:
+            fail(f"rotary {route} route: first loss {losses[0].item():.4f} "
+                 f"is not within 0.5 of ln {b} = {math.log(b):.4f}")
+        print(f"  {route} route: {b * 1e3 / step_ms:.1f} pairs/s "
+              f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
+              f"idle share {idle:.4f} over one step (device busy "
+              f"{busy_ms:.2f} of {window_ms:.2f} ms), launches per step "
+              f"{per_step}, losses "
+              + " ".join(f"{v:.4f}" for v in losses.tolist()), flush=True)
+        for t, count, key in rows:
+            print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
+                  f"{key[:90]}", flush=True)
+        results[route] = (step_ms, peak, idle, losses)
+        launches.update({k: v for k, v in counts.items() if want[route][k]
+                         and k.startswith(route.lower())})
+        del step
+        torch.cuda.empty_cache()
+    diff = abs(results["K6"][3][0].item() - results["K7"][3][0].item())
+    if not diff <= 0.05:
+        fail(f"rotary K6 vs K7 routes: first losses differ by {diff:.4f} > "
+             f"0.05")
+    phase(15, "rotary-train", f"{card}: rotary causal-EOS flagship train "
+          f"step b={b} bf16: " + ", ".join(
+              f"{r} route {b * 1e3 / v[0]:.1f} pairs/s ({v[0]:.2f} ms, peak "
+              f"{v[1]:.2f} GiB, idle {v[2]:.4f})" for r, v in results.items())
+          + f"; first losses differ by {diff:.4f} (tol 0.05); launches per "
+          f"step K6 fwd/bwd 6, K7 fwd/bwd 12, K1 fwd/p1/p2 12")
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -779,7 +1272,9 @@ def main():
     from xclip_tpu_torch.convert import load_jax_params, numpy_params
     from xclip_tpu_torch.train import default_optimizer, make_train_step
     from xclip_tpu_torch.kernels import _build
+    from xclip_tpu_torch.kernels import attention_block as core
     from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import flash_attention as flash
     from xclip_tpu_torch.kernels import fused_ff_block as ffb
     from xclip_tpu_torch.kernels import fused_infonce as lse5
 
@@ -816,20 +1311,8 @@ def main():
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
-    g = np.load(GOLDEN)
-    config = json.loads(str(g["config"]))
-    tiny = CLIP(**config, device="cuda")
-    load_jax_params(tiny, numpy_params(config, int(g["seed"])))
-    text = torch.from_numpy(g["text"]).cuda()
-    images = torch.from_numpy(g["images"]).cuda()
     before = (ffb.ff_block.launches, mega.attention_block.launches)
-    got = {"sims": tiny(text, images)}
-    got["text_latents"], got["image_latents"] = tiny(text, images,
-                                                     return_latents=True)
-    et, ei = tiny(text, images, return_encodings=True)
-    got["enc_text_head"], got["enc_image_head"] = et[:, :3], ei[:, :3]
-    worst = max((v.float().cpu() - torch.from_numpy(g[k])).abs().max().item()
-                for k, v in got.items())
+    worst = golden_outputs_err(CLIP, load_jax_params, numpy_params)
     if (ffb.ff_block.launches == before[0]
             or mega.attention_block.launches == before[1]):
         fail("the golden model did not run through the kernels")
@@ -837,7 +1320,6 @@ def main():
         fail(f"port vs JAX golden: max_abs_err {worst:.3e} > 1e-4")
     phase(3, "golden", f"tiny CLIP (fp32, kernel routes) vs JAX outputs: "
           f"max_abs_err {worst:.3e} (tol 1e-4)")
-    del tiny
 
     # ---------------------------------------------------------------- 4
     clip = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
@@ -990,15 +1472,38 @@ def main():
               f"{len(mega.bwd_recompute_spans(2048, n, 512, 8, dt, False))}",
               flush=True)
 
-    def entry(name, source, replaces, launches, err, kms, cost, peak):
+    # --------------------------------------------------------------- 12
+    attn_errs, attn_ms, attn_costs, attn_library = attn_kernels(gen, core,
+                                                                flash)
+
+    # --------------------------------------------------------------- 13
+    rotary_counters = {"k6_fwd": core.attention_core_fwd,
+                       "k6_bwd": core.attention_core_bwd,
+                       "k7_fwd": flash.flash_attention_fwd,
+                       "k7_bwd": flash.flash_attention_bwd}
+    rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                  make_train_step, rotary_counters)
+
+    # --------------------------------------------------------------- 14
+    rotary_serve(card, CLIP, {**rotary_counters, "kff": ffb.ff_block})
+
+    # --------------------------------------------------------------- 15
+    rotary_launches = rotary_train(
+        card, CLIP, default_optimizer, make_train_step,
+        {**rotary_counters, "k1_fwd": ffb.ff_block_fwd_stored,
+         "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2})
+
+    def entry(name, source, replaces, launches, err, kms, cost, peak,
+              library_ms=None):
         b_ms, b_by = bound(*cost, peak)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": kms[0], "plain_ms": kms[1],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
-    # no single PyTorch call computes any of these functions: library_ms
-    # is null throughout
+    # no single PyTorch call computes the blocks' functions (library_ms
+    # null); K6 and K7 against scaled_dot_product_attention on the same q,
+    # k, v and mask, forward or backward
     rows = b * 257
     record = {"kernels": [
         entry("K-FF ff_block forward",
@@ -1022,6 +1527,10 @@ def main():
             name, source, replaces, lean_launches[key], lean_errs[key],
             lean_ms[key], lean_costs[key],
             FP32_PEAK if key.startswith("k5") else BF16_PEAK))
+    for key, name, source, replaces in ATTN_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, rotary_launches[key], attn_errs[key],
+            attn_ms[key], attn_costs[key], BF16_PEAK, attn_library[key]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,18 @@
-"""Write `tests/data/torch_port_golden.npz`: the JAX package's outputs for a
+"""Write `tests/data/torch_port_golden.npz` and
+`tests/data/torch_port_golden_rotary.npz`: the JAX package's outputs for a
 tiny CLIP on numpy-seeded weights, for the PyTorch port to be held to on a
-machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3 and
-7 of `chip_smoke.py` on the GPU).
+machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3, 7,
+10 and 13 of `chip_smoke.py` on the GPU).
 
-Regenerate it on a machine with JAX (the repo's CPU environment will do;
+Regenerate them on a machine with JAX (the repo's CPU environment will do;
 Pallas runs in interpret mode), from the repo root:
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 
-The file holds the config, the weight seed, the inputs and the outputs
-(scores, latents, the first rows of both encodings); the weights are
-rebuilt from the seed with `xclip_tpu_torch.convert.numpy_params`. It also
-holds one training step of JAX's `make_train_step` with
+The first file holds the config, the weight seed, the inputs and the
+outputs (scores, latents, the first rows of both encodings); the weights
+are rebuilt from the seed with `xclip_tpu_torch.convert.numpy_params`. It
+also holds one training step of JAX's `make_train_step` with
 `default_optimizer(**TRAIN_OPTIMIZER)`: the batch, the patch indices its
 rng keeps (replayed as `CLIPModel.apply` draws them), the loss and
 pre-clip gradient norm, every gradient (`grad/<path>`) and every parameter
@@ -20,6 +21,16 @@ memory-lean routes (`LEAN_ROUTES`: K3 in both towers, the recompute FF
 block, the streaming-LSE InfoNCE) from the same weights, batch and patch
 indices is stored under `lean_config`, `lean_train_loss`,
 `lean_train_grad_norm`, `lean_grad/<path>` and `lean_param1/<path>`.
+
+The second file is the rotary, causal-EOS text tower (`ROTARY`: rotary
+embeddings, no CLS, EOS pooling at the vocabulary's last id) on two routes,
+`ROTARY_ROUTES`: "fused" (K6 in the text tower, the plain vision tower, K1)
+and "flash" (K7 in both towers, K1). Captions end in EOS then pads, and one
+row of each batch has no EOS (it pools its last non-pad token). Per route
+<r>: `<r>_config`, the outputs as above under `<r>_`, and one train step
+under `<r>_train_loss`, `<r>_train_grad_norm`, `<r>_grad/<path>` and
+`<r>_param1/<path>`; the seed, the inputs, the batch, its patch indices and
+the optimizer once.
 """
 
 import json
@@ -39,6 +50,7 @@ from xclip_tpu.train import trainer  # noqa: E402
 from xclip_tpu_torch.convert import numpy_params  # noqa: E402
 
 OUT = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
+OUT_ROTARY = OUT.with_name("torch_port_golden_rotary.npz")
 # dim and inner multiples of 64 and dim_head 64, so the CUDA kernels take it
 CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
               text_enc_depth=2, text_seq_len=16, text_heads=2,
@@ -50,6 +62,14 @@ TRAIN_OPTIMIZER = dict(learning_rate=1e-4, warmup_steps=2, total_steps=10)
 TRAIN_RNG = 7
 LEAN_ROUTES = dict(attn_impl="fused_recompute", visual_attn_impl=None,
                    ff_impl="block", loss_impl="fused")
+EOS = 99   # the last id of the 100-token vocabulary
+ROTARY = {**{k: v for k, v in CONFIG.items() if not k.endswith("_impl")},
+          "text_rotary_pos_emb": True, "text_causal_mask": True,
+          "text_eos_id": EOS}
+ROTARY_ROUTES = {
+    "fused": dict(attn_impl="fused", visual_attn_impl="xla",
+                  ff_impl="block_stored"),
+    "flash": dict(attn_impl="flash", ff_impl="block_stored")}
 
 
 def flat(tree, prefix=""):
@@ -70,6 +90,16 @@ def keep_idx(rng, b, num_patches, prob):
     return np.asarray(idx)
 
 
+def batch_keys(text, images):
+    """The train step's batch, its patch indices and the optimizer."""
+    num_patches = (CONFIG["visual_image_size"]
+                   // CONFIG["visual_patch_size"]) ** 2
+    return {"train_optimizer": json.dumps(TRAIN_OPTIMIZER),
+            "train_text": text, "train_images": images,
+            "train_keep_idx": keep_idx(jax.random.PRNGKey(TRAIN_RNG),
+                                       text.shape[0], num_patches, 0.5)}
+
+
 def train_step(clip, params, text, images, prefix=""):
     """One step of make_train_step; keys under `prefix` (the batch and
     patch indices only for the first config, which the others share)."""
@@ -86,18 +116,57 @@ def train_step(clip, params, text, images, prefix=""):
                                step=jnp.zeros((), jnp.int32))
     step = trainer.make_train_step(clip.model, opt, donate=False)
     state, metrics = step(state, jt, ji, rng)
-    num_patches = (CONFIG["visual_image_size"]
-                   // CONFIG["visual_patch_size"]) ** 2
     out = {f"{prefix}train_loss": np.asarray(metrics["loss"]),
            f"{prefix}train_grad_norm": np.asarray(metrics["grad_norm"])}
     if not prefix:
-        out.update({"train_optimizer": json.dumps(TRAIN_OPTIMIZER),
-                    "train_text": text, "train_images": images,
-                    "train_keep_idx": keep_idx(rng, text.shape[0],
-                                               num_patches, 0.5)})
+        out.update(batch_keys(text, images))
     out.update({f"{prefix}grad/{k}": v for k, v in flat(grads)})
     out.update({f"{prefix}param1/{k}": v for k, v in flat(state.params)})
     return out
+
+
+def outputs(clip, params, text, images, prefix=""):
+    """Scores, latents and the first rows of both encodings."""
+    jt, ji = jnp.asarray(text), jnp.asarray(images)
+    tl, il = clip(jt, ji, return_latents=True, params=params)
+    et, ei = clip(jt, ji, return_encodings=True, params=params)
+    return {f"{prefix}sims": np.asarray(clip(jt, ji, params=params)),
+            f"{prefix}text_latents": np.asarray(tl),
+            f"{prefix}image_latents": np.asarray(il),
+            f"{prefix}enc_text_head": np.asarray(et[:, :3]),
+            f"{prefix}enc_image_head": np.asarray(ei[:, :3])}
+
+
+def captions(npr, b, step):
+    """Token ids below EOS with row i cut to 16 - step·i tokens; rows but
+    the second end in EOS then pads, the second has no EOS."""
+    text = npr.randint(1, EOS, (b, 16))
+    for i in range(b):
+        end = 16 - step * i
+        text[i, end:] = 0
+        if i != 1:
+            text[i, end - 1] = EOS
+    return text
+
+
+def write_rotary():
+    npr = np.random.RandomState(SEED + 3)
+    text, images = captions(npr, 4, 3), npr.randn(4, 3, 32, 32).astype(
+        np.float32)
+    train_text = captions(npr, 6, 2)
+    train_images = npr.randn(6, 3, 32, 32).astype(np.float32)
+    params = jax.tree.map(jnp.asarray, numpy_params(ROTARY, SEED))
+    out = {"seed": SEED, "text": text, "images": images,
+           **batch_keys(train_text, train_images)}
+    for route, flags in ROTARY_ROUTES.items():
+        config = {**ROTARY, **flags}
+        clip = xclip_tpu.CLIP(**config)
+        out[f"{route}_config"] = json.dumps(config)
+        out.update(outputs(clip, params, text, images, f"{route}_"))
+        out.update(train_step(clip, params, train_text, train_images,
+                              f"{route}_"))
+    np.savez_compressed(OUT_ROTARY, **out)
+    print(f"wrote {OUT_ROTARY} ({OUT_ROTARY.stat().st_size} bytes)")
 
 
 def main():
@@ -109,10 +178,6 @@ def main():
     images = npr.randn(4, 3, 32, 32).astype(np.float32)
     clip = xclip_tpu.CLIP(**CONFIG)
     params = jax.tree.map(jnp.asarray, numpy_params(CONFIG, SEED))
-    jt, ji = jnp.asarray(text), jnp.asarray(images)
-    sims = clip(jt, ji, params=params)
-    tl, il = clip(jt, ji, return_latents=True, params=params)
-    et, ei = clip(jt, ji, return_encodings=True, params=params)
     npr = np.random.RandomState(SEED + 2)
     train_text = npr.randint(1, 100, (6, 16))
     for i in range(6):
@@ -123,12 +188,11 @@ def main():
                       train_images, prefix="lean_")
     np.savez_compressed(
         OUT, config=json.dumps(CONFIG), seed=SEED, text=text, images=images,
-        sims=np.asarray(sims), text_latents=np.asarray(tl),
-        image_latents=np.asarray(il), enc_text_head=np.asarray(et[:, :3]),
-        enc_image_head=np.asarray(ei[:, :3]),
+        **outputs(clip, params, text, images),
         lean_config=json.dumps(lean_config), **lean,
         **train_step(clip, params, train_text, train_images))
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
+    write_rotary()
 
 
 if __name__ == "__main__":

@@ -9,7 +9,12 @@ module imports no JAX, so it runs on a machine without it:
 1e-4 absolute with TF32 off; bf16 at two storage ulps. The training
 kernels' outputs and gradients are compared at 1e-4 (fp32) or two bf16
 ulps of each tensor's largest magnitude; K5's lse (fp32, |lse| < 20) at
-1e-4 absolute.
+1e-4 absolute. K6 and K7 (out, lse, every gradient) element by element:
+fp32 outputs and every lse at 1e-4 of the tensor's largest magnitude,
+bf16 outputs at two bf16 ulps of the element plus 3e-2 of its head row's
+RMS plus 1e-2 of the tensor's, and each within 1e-3 relative Frobenius
+error; the plain versions follow the kernels' rounding points (K7's plain
+forward with the kernels' key block, `KERNEL_BLOCK`).
 """
 
 import math
@@ -17,11 +22,14 @@ import math
 import pytest
 import torch
 
+from xclip_tpu_torch.kernels import attention_block as core
 from xclip_tpu_torch.kernels import attention_megablock as mega
+from xclip_tpu_torch.kernels import flash_attention as flash
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 from xclip_tpu_torch.kernels import fused_infonce as lse5
 
-from torch_port_inputs import BF16_ATOL, to_torch, ff_args, mega_args
+from torch_port_inputs import (BF16_ATOL, core_args, ff_args, flash_args,
+                               mega_args, to_torch)
 
 
 @pytest.fixture
@@ -364,4 +372,161 @@ def test_lean_backwards_are_deterministic(cuda_device):
     _, stats = ffb.ff_block_fwd_stats(*fargs)
     do = torch.randn(4000, 128, device=cuda_device).to(torch.bfloat16)
     a, b = (ffb.ff_block_bwd_recompute(*fargs, do, stats) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------------------------------ rotary text tower: K6 and K7
+
+def _assert_elementwise(got, want, dtype, names):
+    """K6 and K7 element by element: fp32 outputs and every lse (fp32 in
+    both dtypes) within 1e-4 of the tensor's largest magnitude; bf16
+    outputs within two bf16 ulps of the element plus 3e-2 of the RMS of
+    its head row (64 features) plus 1e-2 of the tensor's RMS (a flipped
+    bf16 rounding of a p or ds term moves a sum by up to 2^-7 of that
+    term, as large as the row where few keys are valid); every output
+    within 1e-3 relative Frobenius error."""
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.isfinite(g.float()).all(), name
+        w = w.float()
+        if dtype == "float32" or name == "lse":
+            tol = 1e-4 * max(1.0, float(w.abs().max()))
+        else:
+            rows = w.reshape(-1, 64)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                rows.abs().clamp_min(2.0 ** -126))) - 7)
+            tol = (2 * ulp + 3e-2 * rows.pow(2).mean(-1, keepdim=True).sqrt()
+                   + 1e-2 * w.pow(2).mean().sqrt()).reshape(w.shape)
+        err = (g.float() - w).abs()
+        assert (err <= tol).all(), (
+            f"{name}: worst err/tol {(err / tol).max().item():.3f}")
+        assert err.norm() <= 1e-3 * w.norm(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("n,heads", [(33, 2), (257, 8), (256, 8)])
+def test_attention_core_kernels_match_plain(cuda_device, dtype, causal,
+                                            mask_kind, n, heads):
+    qkv, mask, do = to_torch(core_args(n=n, heads=heads, mask_kind=mask_kind),
+                             getattr(torch, dtype), cuda_device)
+    static = (heads, 64, 0.125, causal, mask_kind != "none")
+    counts = (core.attention_core_fwd.launches,
+              core.attention_core_bwd.launches)
+    got = core.attention_core_fwd(qkv, mask, *static)
+    want = core.attention_core_fwd_plain(qkv, mask, *static)
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
+    out, lse = want
+    _assert_elementwise(
+        (core.attention_core_bwd(qkv, mask, out, lse, do, *static),),
+        (core.attention_core_bwd_plain(qkv, mask, out, lse, do, *static),),
+        dtype, ("dqkv",))
+    assert (core.attention_core_fwd.launches,
+            core.attention_core_bwd.launches) == (counts[0] + 1,
+                                                 counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_attention_core_raises_above_max_seq_len(cuda_device):
+    """No fallback: a length the kernel does not take raises."""
+    n = mega.max_seq_len(torch.bfloat16) + 1
+    qkv = torch.zeros(1, n, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        core.attention_core(qkv, mask, 2, 64, 0.125)
+    n = mega.max_seq_len_bwd(torch.bfloat16) + 1
+    qkv = torch.zeros(1, n, 3 * 128, dtype=torch.bfloat16, device=cuda_device,
+                      requires_grad=True)
+    mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        core.attention_core(qkv, mask, 2, 64, 0.125)
+
+
+def _flash_padded(args, dtype, device):
+    """The (b·h, n_pad, 64) tensors and mask `flash_attention` hands the
+    core."""
+    q, k, v, mask, do = to_torch(args, dtype, device)
+    (q, k, v, do), mask = flash.pad_flat((q, k, v, do), mask)
+    return q, k, v, mask, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("n", [32, 37, 64, 200, 256])
+def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
+                                             mask_kind, n):
+    q, k, v, mask, do = _flash_padded(flash_args(n=n, mask_kind=mask_kind),
+                                      getattr(torch, dtype), cuda_device)
+    counts = (flash.flash_attention_fwd.launches,
+              flash.flash_attention_bwd.launches)
+    got = flash.flash_attention_fwd(q, k, v, mask, causal)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask, causal)
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
+    out, lse = want
+    if mask_kind == "dead":   # a dead row gives 0 and log 1e-30
+        assert not got[0][-2:].float().abs().any()
+        torch.testing.assert_close(got[1][-2:], torch.full_like(
+            got[1][-2:], math.log(1e-30)))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, out, lse, do, causal),
+        flash.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal),
+        dtype, ("dq", "dk", "dv"))
+    assert (flash.flash_attention_fwd.launches,
+            flash.flash_attention_bwd.launches) == (counts[0] + 1,
+                                                   counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_flash_attention_long_sequence(cuda_device):
+    """(2, 8, 2048, 64) causal with key pads, bf16: no length limit."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(b=2, h=8, n=2000, mask_kind="keypad"), torch.bfloat16,
+        cuda_device)
+    got = flash.flash_attention_fwd(q, k, v, mask, True)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
+    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
+        flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
+        "bfloat16", ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+def test_flash_attention_more_than_65535_heads(cuda_device):
+    """b·h = 70,000 (b 8,750 at 8 heads): b·h is the grid's x axis, so the
+    batch has no 65,535 limit."""
+    torch.manual_seed(2)
+    bh, n = 70000, 64
+    q, k, v, do = (torch.randn(bh, n, 64, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = torch.arange(n, device=cuda_device)[None] < torch.randint(
+        1, n + 1, (bh, 1), device=cuda_device)
+    got = flash.flash_attention_fwd(q, k, v, mask, True)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
+    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
+        flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
+        "bfloat16", ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+def test_attention_cores_are_deterministic(cuda_device):
+    """No float atomics: two backward runs of K6 and of K7 agree bit for
+    bit."""
+    qkv, mask, do = to_torch(core_args(n=70, heads=2), torch.bfloat16,
+                             cuda_device)
+    out, lse = core.attention_core_fwd(qkv, mask, 2, 64, 0.125, True)
+    a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, 2, 64, 0.125,
+                                    True) for _ in range(2))
+    assert torch.equal(a, b)
+    q, k, v, mask, do = _flash_padded(flash_args(n=200), torch.bfloat16,
+                                      cuda_device)
+    out, lse = flash.flash_attention_fwd(q, k, v, mask, True)
+    a, b = (flash.flash_attention_bwd(q, k, v, mask, out, lse, do, True)
+            for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a, b))

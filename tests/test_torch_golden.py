@@ -1,7 +1,9 @@
 """The port on the CPU against committed JAX outputs
-(`tests/data/torch_port_golden.npz`, written by
+(`tests/data/torch_port_golden.npz` and, for the rotary causal-EOS text
+tower on the 'fused' (K6) and 'flash' (K7) routes,
+`tests/data/torch_port_golden_rotary.npz`, written by
 `tests/make_torch_port_golden.py`): the same checks that `chip_smoke.py`
-makes on the GPU (phases 3, 7 and 10), where there is no JAX. fp32;
+makes on the GPU (phases 3, 7, 10 and 13), where there is no JAX. fp32;
 outputs 1e-4 absolute; one train step (stored routes, then memory-lean
 routes) loss 1e-5, gradients rtol 1e-3 with atol 1e-5 times the leaf's
 largest magnitude, parameters after the step 2e-6 (a few ulps of the O(1)
@@ -11,6 +13,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 import xclip_tpu_torch
@@ -18,11 +21,12 @@ from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
+GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")
 
 
-def test_port_matches_jax_golden():
-    g = np.load(GOLDEN)
-    config = json.loads(str(g["config"]))
+def _check_outputs(golden, prefix=""):
+    g = np.load(golden)
+    config = json.loads(str(g[f"{prefix}config"]))
     clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
     text, images = torch.from_numpy(g["text"]), torch.from_numpy(g["images"])
@@ -32,8 +36,17 @@ def test_port_matches_jax_golden():
     et, ei = clip(text, images, return_encodings=True)
     got["enc_text_head"], got["enc_image_head"] = et[:, :3], ei[:, :3]
     for name, value in got.items():
-        np.testing.assert_allclose(value.numpy(), g[name], atol=1e-4, rtol=0,
-                                   err_msg=name)
+        np.testing.assert_allclose(value.numpy(), g[f"{prefix}{name}"],
+                                   atol=1e-4, rtol=0, err_msg=name)
+
+
+def test_port_matches_jax_golden():
+    _check_outputs(GOLDEN)
+
+
+@pytest.mark.parametrize("route", ["fused", "flash"])
+def test_rotary_port_matches_jax_golden(route):
+    _check_outputs(GOLDEN_ROTARY, f"{route}_")
 
 
 def _flat(tree, prefix=""):
@@ -44,8 +57,8 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def _check_train_step(config_key, prefix):
-    g = np.load(GOLDEN)
+def _check_train_step(config_key, prefix, golden=GOLDEN):
+    g = np.load(golden)
     config = json.loads(str(g[config_key]))
     clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
@@ -80,3 +93,10 @@ def test_lean_train_step_matches_jax_golden():
     """The memory-lean routes (K3 both towers, the recompute FF block, the
     streaming-LSE InfoNCE) from the same weights and batch."""
     _check_train_step("lean_config", "lean_")
+
+
+@pytest.mark.parametrize("route", ["fused", "flash"])
+def test_rotary_train_step_matches_jax_golden(route):
+    """The rotary causal-EOS text tower's train step on K6 or K7, one
+    caption without EOS in the batch."""
+    _check_train_step(f"{route}_config", f"{route}_", GOLDEN_ROTARY)

@@ -52,8 +52,9 @@ def test_training_route_matches_jax(attn_impl, ff_impl, loss_impl):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(text_rotary_pos_emb=True), "rotary"),
-    (dict(attn_impl="flash"), "K7"),
+    # rotary (K6) and 'flash' (K7) are ported; K8 is not, beside either
+    (dict(text_rotary_pos_emb=True, ff_impl="fused"), "K8"),
+    (dict(attn_impl="flash", ff_impl="fused"), "K8"),
     (dict(ff_impl="fused"), "K8"),
 ])
 def test_unported_routes_raise_at_construction(flags, match):

@@ -160,12 +160,15 @@ def test_signature_matches_jax_clip():
     (dict(use_all_token_embeds=True), "FILIP"),
     (dict(downsample_image_embeds=True), "FILIP"),
     (dict(filip_block=4), "FILIP"),
-    (dict(text_rotary_pos_emb=True), "rotary"),
-    (dict(text_causal_mask=True, text_eos_id=1), "causal"),
+    # the rotary, causal text tower and 'flash' are ported
+    # (tests/test_torch_rotary.py); what they combine with may not be
+    (dict(use_all_token_embeds=True, text_rotary_pos_emb=True), "FILIP"),
+    (dict(use_visual_ssl=True, text_causal_mask=True, text_eos_id=1),
+     "use_visual_ssl"),
     (dict(use_mlm=True), "use_mlm"),
     (dict(use_visual_ssl=True), "use_visual_ssl"),
-    (dict(attn_impl="flash"), "K7"),
-    (dict(visual_attn_impl="flash"), "K7"),
+    (dict(attn_impl="flash", ff_impl="fused"), "K8"),
+    (dict(visual_attn_impl="flash", ff_impl="fused"), "K8"),
     (dict(ff_impl="fused"), "K8"),
     (dict(visual_ssl=object()), "use_visual_ssl"),
 ])

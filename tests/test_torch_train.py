@@ -197,7 +197,7 @@ def test_stack_grads_with_jax_sequence_padding():
 # ------------------------------------------------------------- routing
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(attn_impl="flash"), "K7"),
+    (dict(attn_impl="flash", attn_dropout=0.1), "Queue 1, items 1-2"),
     (dict(ff_impl="fused"), "K8"),
     (dict(ff_impl="block", checkpoint_during_training=True),
      "Queue 1, item 2"),

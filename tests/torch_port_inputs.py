@@ -46,3 +46,34 @@ def to_torch(args, dtype, device="cpu"):
 def to_np(t):
     return np.asarray(t, dtype=np.float32) if not isinstance(t, torch.Tensor) \
         else t.float().cpu().numpy()
+
+
+def _key_mask(b, n, mask_kind):
+    """(b, n) key mask: "none" all valid; "keypad" a right-padded row 0 and
+    a left-padded row 1; "dead" as keypad with row b - 1 all masked."""
+    mask = np.ones((b, n), dtype=bool)
+    if mask_kind in ("keypad", "dead"):
+        mask[0, n - 9:] = False
+        mask[1, :n // 3] = False
+    if mask_kind == "dead":
+        mask[b - 1, :] = False
+    return mask
+
+
+def core_args(b=3, n=33, heads=2, seed=0, mask_kind="keypad"):
+    """K6 inputs: the fused qkv (b, n, 3·heads·64), the key mask and a
+    cotangent of the output (b, n, heads·64)."""
+    npr = np.random.RandomState(seed)
+    hd = heads * 64
+    return (npr.randn(b, n, 3 * hd).astype(np.float32),
+            _key_mask(b, n, mask_kind),
+            npr.randn(b, n, hd).astype(np.float32))
+
+
+def flash_args(b=3, h=2, n=37, seed=0, mask_kind="keypad"):
+    """K7 inputs: q (pre-scaled by 64^-0.5), k, v (b, h, n, 64), the key
+    mask (b, n) and a cotangent of the output."""
+    npr = np.random.RandomState(seed)
+    q, k, v, do = (npr.randn(b, h, n, 64).astype(np.float32)
+                   for _ in range(4))
+    return q * 0.125, k, v, _key_mask(b, n, mask_kind), do

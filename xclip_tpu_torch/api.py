@@ -110,10 +110,6 @@ class CLIP(nn.Module):
         if use_all_token_embeds or downsample_image_embeds or filip_block:
             _not_ported("FILIP (use_all_token_embeds, downsample_image_embeds,"
                         " filip_block)", "Queue 1, items 4-5")
-        if text_rotary_pos_emb:
-            _not_ported("text_rotary_pos_emb", "Queue 1, item 2 and Queue 2, K6")
-        if text_causal_mask:
-            _not_ported("text_causal_mask (EOS pooling)", "Queue 1, items 3 and 5")
         if use_mlm or use_visual_ssl or visual_ssl is not None:
             _not_ported("use_mlm / use_visual_ssl", "Queue 1, item 7")
         if loss_impl not in ("xla", "fused"):
@@ -132,7 +128,9 @@ class CLIP(nn.Module):
             text_encoder = TextTransformer(
                 dim=dim_text, num_tokens=num_text_tokens,
                 max_seq_len=text_seq_len, depth=text_enc_depth,
-                heads=text_heads, dim_head=text_dim_head, ff_impl=ff_impl,
+                heads=text_heads, dim_head=text_dim_head,
+                rotary_pos_emb=text_rotary_pos_emb, causal=text_causal_mask,
+                ff_impl=ff_impl,
                 checkpoint_during_training=checkpoint_during_training,
                 generator=generator, dtype=dtype)
         if image_encoder is None:
@@ -147,7 +145,8 @@ class CLIP(nn.Module):
         self.model = CLIPModel(
             text_encoder, image_encoder, dim_text=dim_text,
             dim_image=dim_image, dim_latent=dim_latent,
-            text_pad_id=text_pad_id,
+            text_pad_id=text_pad_id, text_causal_mask=text_causal_mask,
+            text_eos_id=text_eos_id,
             text_encode_without_mask=text_encode_without_mask,
             extra_latent_projection=extra_latent_projection,
             decoupled_contrastive_learning=decoupled_contrastive_learning,

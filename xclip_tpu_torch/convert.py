@@ -157,11 +157,15 @@ def numpy_params(config: dict, seed: int = 0) -> dict:
 
     dt, di = c["dim_text"], c["dim_image"]
     p = c["visual_patch_size"]
-    text = {"token_emb": emb(c["num_text_tokens"], dt),
-            "abs_pos_emb": emb(c["text_seq_len"], dt),
-            "cls_token": rs.randn(dt).astype(f32),
-            "transformer": tower(dt, c["text_enc_depth"], c["text_heads"],
-                                 c["text_dim_head"])}
+    # drawn in one order, each leaf only where JAX's TextTransformer.init
+    # has it: no absolute positions under rotary, no CLS when causal
+    text = {"token_emb": emb(c["num_text_tokens"], dt)}
+    if not c["text_rotary_pos_emb"]:
+        text["abs_pos_emb"] = emb(c["text_seq_len"], dt)
+    if not c["text_causal_mask"]:
+        text["cls_token"] = rs.randn(dt).astype(f32)
+    text["transformer"] = tower(dt, c["text_enc_depth"], c["text_heads"],
+                                c["text_dim_head"])
     visual = {"patch_proj": lin(c["channels"] * p * p, di, bias=True),
               "pos_emb": emb((c["visual_image_size"] // p) ** 2, di),
               "transformer": tower(di, c["visual_enc_depth"],

@@ -53,6 +53,10 @@ _SIGNATURES = {
     "xclip_attention_block_bwd_max_n": [_I],
     "xclip_lse_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "xclip_lse_bwd": [*[_P] * 6, _I, _I, _I, _I, _I, _P],
+    "xclip_attention_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
+    "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
+    "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _P],
+    "xclip_flash_bwd": [_I, *[_P] * 10, _I, _I, _I, _P],
 }
 _RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES
              if name.endswith("_workspace")}

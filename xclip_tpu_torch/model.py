@@ -1,7 +1,8 @@
 """CLIP core — the counterpart of `xclip_tpu/model.py`'s `CLIPModel`:
 single-tower encoders, encodings, l2-normed fp32 latents, paired
 similarity scores × exp(temperature), and the training forward with the
-contrastive loss (`return_loss=True`).
+contrastive loss (`return_loss=True`). A causal text tower (no CLS) is
+pooled at its first EOS token, moved to position 0 (`_eos_reorder`).
 
 Mixed precision follows the JAX model: with `compute_dtype`, every float
 parameter and the images are cast to it on entry (the modules cast each
@@ -41,7 +42,9 @@ def as_dtype(d) -> Optional[torch.dtype]:
 class CLIPModel(nn.Module):
     def __init__(self, text_encoder, visual_encoder, *, dim_text: int = 512,
                  dim_image: int = 512, dim_latent: int = 512,
-                 text_pad_id: int = 0, text_encode_without_mask: bool = False,
+                 text_pad_id: int = 0, text_causal_mask: bool = False,
+                 text_eos_id: Optional[int] = None,
+                 text_encode_without_mask: bool = False,
                  extra_latent_projection: bool = False,
                  decoupled_contrastive_learning: bool = False,
                  attn_impl: str = "xla",
@@ -49,9 +52,13 @@ class CLIPModel(nn.Module):
                  loss_impl: str = "xla",
                  compute_dtype=None, generator=None, dtype=torch.float32):
         super().__init__()
+        if text_causal_mask and text_eos_id is None:   # JAX's assertion
+            raise AssertionError("text EOS token id must be given if using "
+                                 "causal mask in text transformer")
         self.text = text_encoder
         self.visual = visual_encoder
         self.text_pad_id = text_pad_id
+        self.text_causal_mask, self.text_eos_id = text_causal_mask, text_eos_id
         self.text_encode_without_mask = text_encode_without_mask
         self.extra_latent_projection = extra_latent_projection
         self.decoupled_contrastive_learning = decoupled_contrastive_learning
@@ -73,8 +80,27 @@ class CLIPModel(nn.Module):
 
     def _encode_text(self, text, training=False):
         mask = None if self.text_encode_without_mask else text != self.text_pad_id
-        return self.text(text, mask, attn_impl=self.attn_impl,
-                         dtype=self._dtype(), training=training)
+        enc = self.text(text, mask, attn_impl=self.attn_impl,
+                        dtype=self._dtype(), training=training)
+        return self._eos_reorder(enc, text) if self.text_causal_mask else enc
+
+    def _eos_reorder(self, enc_text, text):
+        """Causal-text pooling (`xclip_tpu/model.py:157-181`): the FIRST EOS
+        position's embedding moves to index 0, the other positions follow in
+        their order (the stable argsort of the one-hot, cut to n − 1). A row
+        with no EOS pools its last non-pad token (and, its one-hot being
+        empty, drops its last position from the rest); an all-pad row pools
+        position n − 1."""
+        n, dim = text.shape[-1], enc_text.shape[-1]
+        eos_mask = text == self.text_eos_id
+        eos_onehot = (eos_mask.cumsum(dim=-1) == 1) & eos_mask
+        nonpad = (text != self.text_pad_id).int()
+        last_valid = n - 1 - nonpad.flip(-1).argmax(dim=-1)
+        eos_idx = torch.where(eos_mask.any(dim=-1),
+                              eos_onehot.int().argmax(dim=-1), last_valid)
+        rest = torch.argsort(eos_onehot.int(), dim=-1, stable=True)[:, :n - 1]
+        order = torch.cat([eos_idx[:, None], rest], dim=1)
+        return enc_text.gather(1, order[..., None].expand(-1, -1, dim))
 
     def _encode_image(self, image, training=False, generator=None,
                       keep_idx=None):

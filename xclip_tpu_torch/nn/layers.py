@@ -1,23 +1,32 @@
 """Transformer building blocks — the counterparts of `xclip_tpu/nn/layers.py`:
-the plain GEGLU feed-forward and attention (the `'xla'` route), the
-sandwich-norm stack with kernel routing, and FLIP patch dropout.
+rotary embeddings, the plain GEGLU feed-forward and attention (the `'xla'`
+route), the sandwich-norm stack with kernel routing, and FLIP patch
+dropout.
 
 Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
-  * inference: `attn_impl` in ('fused', 'fused_recompute', 'fused_qkv')
-    → the megablock's lean forward K-MEGA
-    (`kernels/attention_megablock.attention_block`), `ff_impl` in
-    ('block', 'block_stored') → the FF block's lean forward K-FF
-    (`kernels/fused_ff_block.ff_block`), each PreNorm to residual;
-  * training: 'fused' → K2, the stored megablock forward and backward
-    (`attention_block_train`); 'fused_qkv' and 'fused_recompute' → K3, the
+  * the megablock, only when no rotary embedding is given (rotary acts
+    between the qkv product and the scores, inside the megablock): at
+    inference `attn_impl` in ('fused', 'fused_recompute', 'fused_qkv') →
+    the lean forward K-MEGA (`kernels/attention_megablock.attention_block`);
+    in training 'fused' → K2, the stored megablock forward and backward
+    (`attention_block_train`), 'fused_qkv' and 'fused_recompute' → K3, the
     memory-lean megablock keeping qkv or nothing but row statistics
-    (`attention_block_train_recompute`); 'block_stored' → K1, the
-    stored-GEGLU FF block (`ff_block_train`); 'block' → K-FF-s with the
-    recompute backward (`ff_block_train_recompute`). The JAX stack's
-    scoped-VMEM gates between these variants are TPU artefacts: each flag
-    takes its own route. What training does not have yet (XCLIP_FF_STORE=h,
-    remat, dropout) raises `NotImplementedError` naming its ROADMAP.md
-    item;
+    (`attention_block_train_recompute`);
+  * with a rotary embedding, `Attention` itself, as `attention_apply`:
+    'fused' (and 'fused_recompute' / 'fused_qkv', which mean it there) →
+    PreNorm, the qkv product, rotary on the fused qkv, K6's whole-head
+    attention core (`kernels/attention_block.attention_core`), the output
+    projection and LayerNorm; 'flash' → q pre-scaled, rotary on q, k and
+    v, K7 (`kernels/flash_attention.flash_attention`), in inference and
+    training alike; 'flash' takes this route with or without rotary;
+  * `ff_impl` in ('block', 'block_stored') → the FF block's lean forward
+    K-FF at inference (`kernels/fused_ff_block.ff_block`); in training
+    'block_stored' → K1, the stored-GEGLU FF block (`ff_block_train`),
+    'block' → K-FF-s with the recompute backward
+    (`ff_block_train_recompute`). The JAX stack's scoped-VMEM gates
+    between these variants are TPU artefacts: each flag takes its own
+    route. What training does not have yet (XCLIP_FF_STORE=h, remat,
+    dropout) raises `NotImplementedError` naming its ROADMAP.md item;
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
@@ -30,30 +39,29 @@ from __future__ import annotations
 
 import functools
 import os
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import attention_block as core
 from ..kernels.attention_megablock import (attention_block,
                                           attention_block_train,
                                           attention_block_train_recompute)
+from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ff_block import (ff_block, ff_block_train,
                                       ff_block_train_recompute)
 from .core import LayerNorm, Linear, layer_norm
 
-ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv")
-MEGA_IMPLS = ATTN_IMPLS[1:]
+ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv", "flash")
+MEGA_IMPLS = ("fused", "fused_recompute", "fused_qkv")
 FF_IMPLS = ("xla", "block", "block_stored")
 FF_BLOCK_IMPLS = FF_IMPLS[1:]
 
 
 def check_impls(attn_impl, ff_impl):
     """Raise for a route this slice of the port does not have."""
-    if attn_impl == "flash":
-        raise NotImplementedError(
-            "attn_impl='flash' (k-blocked FlashAttention, Pallas "
-            "flash_attention.py) is not ported yet: ROADMAP.md Queue 2, K7")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     if ff_impl == "fused":
@@ -120,9 +128,38 @@ class FeedForward(nn.Module):
         return self.w_out(x)
 
 
+def rotary_freqs(seq_len: int, rot_dim: int, device=None) -> torch.Tensor:
+    """`cat((freqs, freqs), -1)` of shape (seq_len, rot_dim), fp32, with
+    inv_freq = 1/10000^(2i/rot_dim) (`xclip_tpu/nn/layers.py:53-59`)."""
+    inv_freq = 1.0 / (10000 ** (torch.arange(
+        0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.einsum("i,j->ij", t, inv_freq)
+    return torch.cat([freqs, freqs], dim=-1)
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(freqs, t):
+    """Partial rotation: the first rot_dim features of `t` rotated, the rest
+    passed through; cos and sin are cast to t's dtype before the products
+    (`xclip_tpu/nn/layers.py:67-75`)."""
+    rot_dim = freqs.shape[-1]
+    t_rot, t_pass = t[..., :rot_dim], t[..., rot_dim:]
+    cos, sin = freqs.cos().to(t.dtype), freqs.sin().to(t.dtype)
+    t_rot = t_rot * cos + _rotate_half(t_rot) * sin
+    return torch.cat([t_rot, t_pass], dim=-1)
+
+
 class Attention(nn.Module):
-    """PreNorm → fused qkv → per-head softmax attention (q pre-scaled, masks
-    filled with -finfo.max, fp32 softmax) → output projection → LayerNorm."""
+    """PreNorm → fused qkv → per-head softmax attention → output projection
+    → LayerNorm, `attention_apply`'s routes: 'xla' (q pre-scaled, masks
+    filled with -finfo.max, fp32 softmax), 'fused' (K6 on the fused qkv)
+    and 'flash' (K7). A rotary embedding rotates q, k AND v (the reference
+    quirk, `x_clip.py:223`)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, *,
                  generator=None, dtype=torch.float32):
@@ -134,19 +171,56 @@ class Attention(nn.Module):
         self.to_out = Linear(inner, dim, generator=generator, dtype=dtype)
         self.out_norm = LayerNorm(dim, dtype=dtype)
 
-    def forward(self, x, mask=None, causal=False):
+    def forward(self, x, mask=None, causal=False, rotary=None,
+                attn_impl="xla"):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
+        scale = d ** -0.5
+        if attn_impl in ("fused_recompute", "fused_qkv"):
+            # the store/recompute distinction is the megablock's only
+            attn_impl = "fused"
+        if attn_impl == "fused" and not core.supported(h, d):
+            # the reference's routing and its warning (`nn/layers.py:170-173`)
+            warnings.warn(f"attn_impl='fused' requested, but heads={h}, "
+                          f"dim_head={d} do not tile into 128-lane head "
+                          "groups: the plain attention route runs, as in "
+                          "the reference", stacklevel=2)
+            attn_impl = "xla"
         qkv = self.to_qkv(self.norm(x))
+        if attn_impl == "fused":
+            if rotary is not None:
+                # the same rotation of every dim_head-wide head slice
+                qkv = apply_rotary_pos_emb(
+                    rotary[:, None, :], qkv.reshape(b, n, 3 * h, d)
+                ).reshape(b, n, 3 * h * d)
+            key_mask = (mask if mask is not None else
+                        torch.ones((b, n), dtype=torch.bool, device=x.device))
+            out = core.attention_core(qkv, key_mask, h, d, scale, causal,
+                                      mask is not None)
+            return self.out_norm(self.to_out(out))
         q, k, v = (t.reshape(b, n, h, d).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        sim = (q * d ** -0.5) @ k.transpose(-1, -2)
+        q = q * scale
+        if rotary is not None:
+            q, k, v = (apply_rotary_pos_emb(rotary, t) for t in (q, k, v))
+        if attn_impl == "flash":
+            out = flash_attention(q, k, v, mask=mask, causal=causal)
+        else:
+            out = self._attend(q, k, v, mask, causal)
+        out = out.transpose(1, 2).reshape(b, n, h * d)
+        return self.out_norm(self.to_out(out))
+
+    @staticmethod
+    def _attend(q, k, v, mask, causal):
+        """The 'xla' route's softmax(q·kᵀ)·v on (b, h, n, d), q pre-scaled."""
+        n = q.shape[2]
+        sim = q @ k.transpose(-1, -2)
         big_neg = -torch.finfo(sim.dtype).max
         if mask is not None:
             sim = torch.where(mask[:, None, None, :], sim, big_neg)
         if causal:
             future = torch.ones(n, n, dtype=torch.bool,
-                                device=x.device).triu(1)
+                                device=q.device).triu(1)
             sim = torch.where(future, big_neg, sim)
         if sim.dtype == torch.float32:
             attn = sim.softmax(dim=-1)
@@ -154,8 +228,7 @@ class Attention(nn.Module):
             shifted = (sim - sim.amax(dim=-1, keepdim=True)).float()
             denom = shifted.exp().sum(dim=-1, keepdim=True).log()
             attn = (shifted - denom).exp().to(sim.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, h * d)
-        return self.out_norm(self.to_out(out))
+        return attn @ v
 
 
 class Layer(nn.Module):
@@ -182,19 +255,20 @@ class Transformer(nn.Module):
         self.norm_in = LayerNorm(dim, dtype=dtype)
         self.norm_out = LayerNorm(dim, dtype=dtype)
 
-    def forward(self, x, mask=None, *, causal=False, attn_impl="xla",
-                ff_impl="xla", training=False,
+    def forward(self, x, mask=None, *, causal=False, rotary=None,
+                attn_impl="xla", ff_impl="xla", training=False,
                 checkpoint_during_training=False, attn_dropout=0.0,
                 ff_dropout=0.0):
-        """`training` selects the kernels' training routes (K2 or K3, K1 or
-        the recompute FF block); otherwise the lean inference forwards run,
-        which take no gradient."""
+        """`rotary`: (n, rot_dim) fp32 frequencies (`rotary_freqs`) or
+        None. `training` selects the kernels' training routes (K2 or K3, K1
+        or the recompute FF block); otherwise the lean inference forwards
+        run, which take no gradient."""
         check_impls(attn_impl, ff_impl)
         if training:
             check_training_routes(
                 attn_impl, ff_impl, checkpoint=checkpoint_during_training,
                 attn_dropout=attn_dropout, ff_dropout=ff_dropout)
-        use_mega = attn_impl in MEGA_IMPLS
+        use_mega = attn_impl in MEGA_IMPLS and rotary is None
         use_ffb = ff_impl in FF_BLOCK_IMPLS
         mega, ffb = attention_block, ff_block
         if training:
@@ -217,7 +291,7 @@ class Transformer(nn.Module):
                     a.out_norm.g.to(dt), key_mask, self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
-                x = a(x, mask, causal) + x
+                x = a(x, mask, causal, rotary, attn_impl) + x
             if use_ffb:
                 x = ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
                         f.inner_norm.g.to(dt), f.w_out.w.to(dt))

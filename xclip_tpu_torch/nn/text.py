@@ -1,8 +1,9 @@
-"""Text tower — the counterpart of `xclip_tpu/nn/text.py` (absolute
-positions, no causal mask): token embedding plus learned absolute position
-embedding, a learned CLS token prepended with the padding mask extended by
-a leading True, the transformer stack. Returns the full (b, n + 1, dim)
-sequence."""
+"""Text tower — the counterpart of `xclip_tpu/nn/text.py`: token embedding,
+EITHER a learned absolute position embedding OR rotary embeddings
+(`rotary_freqs(n + 1, min(dim_head, 32))` with the CLS at position 0; for
+the n tokens alone when causal), a learned CLS token prepended only when
+not causal (the padding mask extended by a leading True), the transformer
+stack. Returns the full (b, n[+1], dim) sequence."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .core import Embedding
-from .layers import Transformer
+from .layers import Transformer, rotary_freqs
 
 
 class TextTransformer(nn.Module):
@@ -23,24 +24,21 @@ class TextTransformer(nn.Module):
                  checkpoint_during_training: bool = False, generator=None,
                  dtype=torch.float32):
         super().__init__()
-        if rotary_pos_emb:
-            raise NotImplementedError(
-                "text_rotary_pos_emb is not ported yet: ROADMAP.md Queue 1, "
-                "item 2 (rotary) and Queue 2, K6")
-        if causal:
-            raise NotImplementedError(
-                "a causal text tower (text_causal_mask, EOS pooling) is not "
-                "ported yet: ROADMAP.md Queue 1, items 3 and 5")
         self.dim, self.ff_impl = dim, ff_impl
+        self.dim_head, self.causal = dim_head, causal
+        self.rotary_pos_emb = rotary_pos_emb
         self.train_flags = dict(
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             checkpoint_during_training=checkpoint_during_training)
         self.token_emb = Embedding(num_tokens, dim, generator=generator,
                                    dtype=dtype)
-        self.abs_pos_emb = Embedding(max_seq_len, dim, generator=generator,
-                                     dtype=dtype)
-        cls = torch.empty(dim, dtype=torch.float32).normal_(generator=generator)
-        self.cls_token = nn.Parameter(cls.to(dtype))
+        self.abs_pos_emb = None if rotary_pos_emb else Embedding(
+            max_seq_len, dim, generator=generator, dtype=dtype)
+        self.cls_token = None
+        if not causal:
+            cls = torch.empty(dim, dtype=torch.float32).normal_(
+                generator=generator)
+            self.cls_token = nn.Parameter(cls.to(dtype))
         self.transformer = Transformer(dim, depth=depth, dim_head=dim_head,
                                        heads=heads, ff_mult=ff_mult,
                                        generator=generator, dtype=dtype)
@@ -52,11 +50,18 @@ class TextTransformer(nn.Module):
         b, n = x.shape
         dtype = dtype or self.token_emb.emb.dtype
         h = self.token_emb(x).to(dtype)
-        h = h + self.abs_pos_emb.emb[:n].to(dtype)[None]
-        cls = self.cls_token.to(dtype).expand(b, 1, self.dim)
-        h = torch.cat([cls, h], dim=1)
-        if mask is not None:
-            mask = F.pad(mask, (1, 0), value=True)
-        return self.transformer(h, mask, attn_impl=attn_impl,
-                                ff_impl=self.ff_impl, training=training,
+        if self.abs_pos_emb is not None:
+            h = h + self.abs_pos_emb.emb[:n].to(dtype)[None]
+        rotary = None
+        if self.rotary_pos_emb:
+            rotary = rotary_freqs(n + (0 if self.causal else 1),
+                                  min(self.dim_head, 32), device=x.device)
+        if not self.causal:
+            cls = self.cls_token.to(dtype).expand(b, 1, self.dim)
+            h = torch.cat([cls, h], dim=1)
+            if mask is not None:
+                mask = F.pad(mask, (1, 0), value=True)
+        return self.transformer(h, mask, causal=self.causal, rotary=rotary,
+                                attn_impl=attn_impl, ff_impl=self.ff_impl,
+                                training=training,
                                 **(self.train_flags if training else {}))
