@@ -8,11 +8,14 @@ main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
 64-patch vision, GEGLU inner 2048, bf16): inference through the forward
 kernels K-FF and K-MEGA; the train step through the training kernels K1
 (stored-GEGLU FF block) and K2 (stored attention megablock), forward and
-backward; and the memory-lean large-batch train step (b = 2048) through K3
+backward; the memory-lean large-batch train step (b = 2048) through K3
 (the attention megablock keeping only row statistics, recompute
 backward), K-FF-s with the FF block's recompute backward, and K5 (the
-streaming-LSE InfoNCE). One line per phase; any failure exits non-zero,
-and nothing is caught.
+streaming-LSE InfoNCE); the rotary causal-EOS text tower through K6 and
+K7; and the two remaining FF routes, `ff_impl='fused'` through K8 (GEGLU +
+inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
+block). One line per phase; any failure exits non-zero, and nothing is
+caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -85,6 +88,24 @@ and nothing is caught.
              steps each, pairs/s, peak memory, launch counts per step, the
              idle share and top kernels over one profiled step, finite
              losses, the first near ln 256.
+ 16 ff-kernels  K8 (forward, backward) at (65,792, 2 x 2048) and (8,192,
+             2 x 2048), and K1-h (forward, pass 1, pass 2) at 65,792 and
+             8,192 rows of (512 -> 2 x 2048), fp32 and bf16, against their
+             plain versions on the card: max_abs_err and tolerance of every
+             output (fp32 1e-4 of its largest magnitude, bf16 two ulps of
+             it); CUDA-event times of kernel and plain version, and bounds.
+ 17 ff-golden  the tiny CLIP of tests/data/torch_port_golden_ff.npz, fp32:
+             ff_impl='fused' outputs and one train step, and one train step
+             on the kernel routes with XCLIP_FF_STORE=h (set around that
+             step only), against the JAX package's; K8 and K1-h must run.
+ 18 ff-routes  the flagship at b = 256, bf16, from phase 8's weights and
+             inputs: serving on the K8 route (attn_impl='fused', visual
+             'xla', ff_impl='fused': K-MEGA and K8) beside phase 5's kernel
+             routes; training on the K8 route (K2 and K8) and on the
+             stored-h route (phase 8's routes with XCLIP_FF_STORE=h: K2 and
+             K1-h), 2 warm-up and 5 timed steps each: pairs/s, peak memory,
+             launch counts per step, the idle share and top kernels over one
+             profiled step, finite losses, the first within 0.1 of ln 256.
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
@@ -94,11 +115,13 @@ nvidia-smi prints it, and {"ok": true, "device": {...}}.
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -106,6 +129,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")
+GOLDEN_FF = GOLDEN.with_name("torch_port_golden_ff.npz")
 
 FLAGSHIP = dict(dim_text=512, dim_image=512, dim_latent=512,
                 num_text_tokens=10000, text_enc_depth=6, text_seq_len=256,
@@ -133,6 +157,10 @@ ROTARY_ROUTES = {
                ff_impl="block_stored"),
     "K7": dict(attn_impl="flash", visual_attn_impl=None,
                ff_impl="block_stored")}
+# the GEGLU + inner-LayerNorm route (K8 in both towers beside the
+# megablock); the stored-h FF block is KERNEL_ROUTES under STORED_H
+K8_ROUTES = dict(attn_impl="fused", visual_attn_impl="xla", ff_impl="fused")
+STORED_H = {"XCLIP_FF_STORE": "h"}
 # NVIDIA H100 SXM data-sheet peaks (700 W): HBM bytes/s, dense bf16 tensor
 # FLOP/s, fp32 FLOP/s outside the tensor cores
 HBM, BF16_PEAK, FP32_PEAK = 3.35e12, 989e12, 67e12
@@ -158,7 +186,23 @@ def ff_cost(kind, rows, dim=512, inner=2048, it=2):
                + 4 * rows * inner * it + (dim + inner) * it, fwd),
         "p2": (2 * x + 3 * rows * inner * it + 3 * dim * inner * it, fwd),
         "bwd_recompute": (3 * x + 16 * rows + 2 * w, 16 * rows * dim * inner),
+        # K1-h: h (rows x 2 inner) in place of the GEGLU triple; its pass 2
+        # is K1's ("p2") on the operands pass 1 hands it
+        "fwd_stored_h": (w + 2 * x + 2 * rows * inner * it + 16 * rows, fwd),
+        "p1_h": (w + 2 * x + 2 * rows * inner * it + 16 * rows + 2 * x
+                 + 4 * rows * inner * it + (dim + inner) * it, fwd),
     }[kind]
+
+
+def geglu_ln_cost(kind, rows, inner=2048, it=2):
+    """(bytes, fp32 operations) of one K8 call at `rows` rows: the forward
+    reads h (rows x 2 inner) and g and writes out; the backward reads h, g
+    and do and writes dh and dg. About 10 (forward) and 25 (backward)
+    operations an inner element, erf and exp one each."""
+    h, y, g = rows * 2 * inner * it, rows * inner * it, inner * it
+    if kind == "fwd":
+        return h + y + g, 10 * rows * inner
+    return 2 * h + y + 2 * g, 25 * rows * inner
 
 
 def mega_cost(kind, b, n, lengths, dim=512, heads=8, it=2):
@@ -545,12 +589,15 @@ def ulps2(want):
     return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
-def compare_all(label, got, want, names):
-    """Each output against its plain version at two bf16 ulps of its own
-    magnitude; returns the largest max_abs_err."""
+def compare_all(label, got, want, names, dtype=torch.bfloat16):
+    """Each output against its plain version: bf16 at two ulps of its own
+    magnitude, fp32 (summation order only) at 1e-4 of it (at least 1e-4);
+    returns the largest max_abs_err."""
     worst = 0.0
     for name, g, w in zip(names, got, want):
-        worst = max(worst, compare(f"{label} {name}", g, w, ulps2(w)))
+        tol = (1e-4 * max(1.0, float(w.float().abs().max()))
+               if dtype == torch.float32 else ulps2(w))
+        worst = max(worst, compare(f"{label} {name}", g, w, tol))
     return worst
 
 
@@ -810,7 +857,7 @@ def golden_outputs_err(CLIP, load_jax_params, numpy_params, golden=GOLDEN,
     tiny = CLIP(**config, device="cuda")
     load_jax_params(tiny, numpy_params(config, int(g["seed"])))
     text = torch.from_numpy(g["text"]).cuda()
-    images = torch.from_numpy(g["images"]).cuda()
+    images = torch.from_numpy(g["images"]).cuda().float()
     got = {"sims": tiny(text, images)}
     got["text_latents"], got["image_latents"] = tiny(text, images,
                                                      return_latents=True)
@@ -824,17 +871,22 @@ def train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                  make_train_step, number=7, prefix="", golden=GOLDEN):
     """Phase 7 (stored routes) or 10 (memory-lean routes, `prefix`
     "lean_"): one fp32 train step on the card against the JAX golden; with
-    `number` None (phase 13) no phase line, the errors returned."""
+    `number` None (phases 13 and 17) no phase line, the errors returned.
+    The step runs under the environment the golden's was taken under
+    (`<prefix>env`, if the file has one)."""
     from xclip_tpu_torch.convert import to_jax_tree
     g = np.load(golden)
     config = json.loads(str(g[f"{prefix}config"]))
     opt = json.loads(str(g["train_optimizer"]))
+    env = (json.loads(str(g[f"{prefix}env"])) if f"{prefix}env" in g.files
+           else {})
     tiny = CLIP(**config, device="cuda")
     load_jax_params(tiny, numpy_params(config, int(g["seed"])))
     step = make_train_step(tiny, default_optimizer(tiny.parameters(), **opt))
-    metrics = step(torch.from_numpy(g["train_text"]).cuda(),
-                   torch.from_numpy(g["train_images"]).cuda(),
-                   keep_idx=torch.from_numpy(g["train_keep_idx"]).cuda())
+    with mock.patch.dict(os.environ, env):
+        metrics = step(torch.from_numpy(g["train_text"]).cuda(),
+                       torch.from_numpy(g["train_images"]).cuda().float(),
+                       keep_idx=torch.from_numpy(g["train_keep_idx"]).cuda())
     loss_err = abs(metrics["loss"].item() - float(g[f"{prefix}train_loss"]))
     norm_err = abs(metrics["grad_norm"].item()
                    - float(g[f"{prefix}train_grad_norm"]))
@@ -903,6 +955,38 @@ def top_kernels(prof, k=12):
     return sum(r[0] for r in rows), rows[:k]
 
 
+def timed_steps(run, warm, timed, counters):
+    """`warm` steps, then `timed` steps between CUDA events, every counter
+    in `counters` set to 0 first: (ms per timed step, launch counts, peak
+    memory in GiB, the losses on the CPU)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [run(i)["loss"] for i in range(warm)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [run(warm + i)["loss"] for i in range(timed)]
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / timed,
+            {k: fn.launches for k, fn in counters.items()},
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.stack(losses).float().cpu())
+
+
+def check_losses(label, losses, b, tol=0.5):
+    """Every loss finite, the first within `tol` of ln b (the loss of
+    untrained latents)."""
+    if not torch.isfinite(losses).all():
+        fail(f"{label}: a loss is not finite: {losses.tolist()}")
+    if not abs(losses[0].item() - math.log(b)) <= tol:
+        fail(f"{label}: first loss {losses[0].item():.4f} is not within "
+             f"{tol} of ln {b} = {math.log(b):.4f}")
+
+
 def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     """Phase 8: the flagship train step on the kernel and plain routes."""
     b, warm, timed = 256, 2, 5
@@ -929,43 +1013,17 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
             return step(text, images, generator=torch.Generator(
                 device="cuda").manual_seed(100 + i))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if route == "kernel":
-            for fn in counters.values():
-                fn.launches = 0
-        losses = [run(i)["loss"] for i in range(warm)]
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses += [run(warm + i)["loss"] for i in range(timed)]
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / timed
-        counts = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        # the first profiled step only warms the profiler up
-        for i in range(2):
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                run(warm + timed + i)
-                torch.cuda.synchronize()
-        idle, busy_ms, window_ms = idle_share(prof)
-        losses = torch.stack(losses).float().cpu()
-        if not torch.isfinite(losses).all():
-            fail(f"{route} routes: a loss is not finite: {losses.tolist()}")
-        if not abs(losses[0].item() - math.log(b)) <= 0.5:
-            fail(f"{route} routes: first loss {losses[0].item():.4f} is not "
-                 f"within 0.5 of ln {b} = {math.log(b):.4f}")
+        step_ms, counts, peak, losses = timed_steps(
+            run, warm, timed, counters if route == "kernel" else {})
+        (idle, busy_ms, window_ms), (total, rows) = profile_step(
+            run, warm + timed)
+        check_losses(f"{route} routes", losses, b)
         results[route] = (step_ms, peak, idle, busy_ms, window_ms, losses)
         print(f"  {route} routes: {b * 1e3 / step_ms:.1f} pairs/s "
               f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
               f"idle share {idle:.4f} over one step (device busy "
               f"{busy_ms:.2f} of {window_ms:.2f} ms), losses "
               + " ".join(f"{v:.4f}" for v in losses.tolist()), flush=True)
-        total, rows = top_kernels(prof)
         for t, count, key in rows:
             print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                   f"{key[:90]}", flush=True)
@@ -1022,28 +1080,9 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
             return step(text, images, generator=torch.Generator(
                 device="cuda").manual_seed(100 + i))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        losses = [run(i)["loss"] for i in range(warm)]
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses += [run(warm + i)["loss"] for i in range(timed)]
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / timed
-        counts = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        losses = torch.stack(losses).float().cpu()
-        if not torch.isfinite(losses).all():
-            fail(f"lean routes b={b}: a loss is not finite: "
-                 f"{losses.tolist()}")
-        if not abs(losses[0].item() - math.log(b)) <= 0.5:
-            fail(f"lean routes b={b}: first loss {losses[0].item():.4f} is "
-                 f"not within 0.5 of ln {b} = {math.log(b):.4f}")
+        step_ms, counts, peak, losses = timed_steps(run, warm, timed,
+                                                    counters)
+        check_losses(f"lean routes b={b}", losses, b)
         per_step = {k: v / (warm + timed) for k, v in counts.items()}
         if per_step != want:
             fail(f"lean routes b={b}: launches per step {per_step}, "
@@ -1196,34 +1235,15 @@ def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
             return step(text, images, generator=torch.Generator(
                 device="cuda").manual_seed(100 + i))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        losses = [run(i)["loss"] for i in range(warm)]
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses += [run(warm + i)["loss"] for i in range(timed)]
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / timed
-        counts = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms, counts, peak, losses = timed_steps(run, warm, timed,
+                                                    counters)
         per_step = {k: v / (warm + timed) for k, v in counts.items()}
         if per_step != want[route]:
             fail(f"rotary {route} route: training launches per step "
                  f"{per_step}, expected {want[route]}")
         (idle, busy_ms, window_ms), (total, rows) = profile_step(
             run, warm + timed)
-        losses = torch.stack(losses).float().cpu()
-        if not torch.isfinite(losses).all():
-            fail(f"rotary {route} route: a loss is not finite: "
-                 f"{losses.tolist()}")
-        if not abs(losses[0].item() - math.log(b)) <= 0.5:
-            fail(f"rotary {route} route: first loss {losses[0].item():.4f} "
-                 f"is not within 0.5 of ln {b} = {math.log(b):.4f}")
+        check_losses(f"rotary {route} route", losses, b)
         print(f"  {route} route: {b * 1e3 / step_ms:.1f} pairs/s "
               f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
               f"idle share {idle:.4f} over one step (device busy "
@@ -1253,6 +1273,237 @@ def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
     return launches
 
 
+# (key, record name, source, Pallas body replaced) of the last two kernel
+# families: K8 on the 'fused' FF route, K1-h on the stored-h route (its
+# pass 2 is K1's kernel, on the operands K1-h's pass 1 hands it)
+FF_KERNELS = [
+    ("k8_fwd", "K8 geglu_layernorm forward",
+     "xclip_tpu_torch/csrc/fused_ff.cu", "xclip_tpu/kernels/fused_ff.py:68"),
+    ("k8_bwd", "K8 geglu_layernorm backward (dh, dg)",
+     "xclip_tpu_torch/csrc/fused_ff.cu", "xclip_tpu/kernels/fused_ff.py:114"),
+    ("k1h_fwd", "K1-h ff_block forward (stored h)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:251"),
+    ("k1h_p1", "K1-h ff_block backward pass 1 (dx)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:540"),
+    ("k1h_p2", "K1-h ff_block backward pass 2 (dW)",
+     "xclip_tpu_torch/csrc/fused_ff_block.cu",
+     "xclip_tpu/kernels/fused_ff_block.py:779"),
+]
+
+
+def ff_kernels(gen, ffb, k8):
+    """Phase 16: K8 and K1-h against their plain versions on the card at
+    the flagship's text and vision rows, fp32 and bf16; times (bf16, text
+    rows) and bounds."""
+    phase(16, "ff-kernels", "K8 and K1-h vs plain version on the card")
+    errs, ms = {}, {}
+    text_rows = 256 * 257
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for rows in (text_rows, 256 * 32):
+            h = rand(gen, rows, 2 * 2048, dtype=dtype)
+            g = 1 + rand(gen, 2048, scale=0.1, dtype=dtype)
+            do = rand(gen, rows, 2048, dtype=dtype)
+            label = f"K8 {tag} ({rows}, 2x2048)"
+            e8f = compare_all(label, (k8.geglu_layernorm_fwd(h, g),),
+                             (k8.geglu_layernorm_plain(h, g),), ("out",),
+                             dtype)
+            e8b = compare_all(label, k8.geglu_layernorm_bwd(h, g, do),
+                             k8.geglu_layernorm_bwd_plain(h, g, do),
+                             ("dh", "dg"), dtype)
+            args = ff_inputs(gen, rows, dtype)
+            label = f"K1-h {tag} ({rows}, 512) -> 2x2048"
+            out, stored = ffb.ff_block_fwd_stored_h(*args)
+            want_out, want_stored = ffb.ff_block_fwd_stored_h_plain(*args)
+            ehf = compare_all(label, (out, *stored), (want_out, *want_stored),
+                             ("out", "h", "stats"), dtype)
+            del out, stored, want_out
+            dout = rand(gen, rows, 512, dtype=dtype)
+            p1 = ffb.ff_block_bwd_p1_stored_h(*args, dout, want_stored)
+            want_p1 = ffb.ff_block_bwd_p1_stored_h_plain(*args, dout,
+                                                         want_stored)
+            eh1 = compare_all(label, (*p1[:4], *p1[4]),
+                             (*want_p1[:4], *want_p1[4]),
+                             ("dx", "dprod", "dg_pre", "dg_inner", "xn",
+                              "dh2", "y2"), dtype)
+            ops = want_p1[4]
+            del p1, want_p1
+            eh2 = compare_all(label, ffb.ff_block_bwd_p2(*ops, dout),
+                             ffb.ff_block_bwd_p2_plain(*ops, dout),
+                             ("dw_in", "dw_out"), dtype)
+            if dtype == torch.bfloat16 and rows == text_rows:
+                errs.update(k8_fwd=e8f, k8_bwd=e8b, k1h_fwd=ehf, k1h_p1=eh1,
+                            k1h_p2=eh2)
+                ms["k8_fwd"] = (
+                    cuda_ms(lambda: k8.geglu_layernorm_fwd(h, g)),
+                    cuda_ms(lambda: k8.geglu_layernorm_plain(h, g)))
+                ms["k8_bwd"] = (
+                    cuda_ms(lambda: k8.geglu_layernorm_bwd(h, g, do)),
+                    cuda_ms(lambda: k8.geglu_layernorm_bwd_plain(h, g, do)))
+                ms["k1h_fwd"] = (
+                    cuda_ms(lambda: ffb.ff_block_fwd_stored_h(*args)),
+                    cuda_ms(lambda: ffb.ff_block_fwd_stored_h_plain(*args)))
+                ms["k1h_p1"] = (
+                    cuda_ms(lambda: ffb.ff_block_bwd_p1_stored_h(
+                        *args, dout, want_stored)),
+                    cuda_ms(lambda: ffb.ff_block_bwd_p1_stored_h_plain(
+                        *args, dout, want_stored)))
+                ms["k1h_p2"] = (
+                    cuda_ms(lambda: ffb.ff_block_bwd_p2(*ops, dout)),
+                    cuda_ms(lambda: ffb.ff_block_bwd_p2_plain(*ops, dout)))
+            del h, g, do, args, dout, want_stored, ops
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    costs = {"k8_fwd": geglu_ln_cost("fwd", text_rows),
+             "k8_bwd": geglu_ln_cost("bwd", text_rows),
+             "k1h_fwd": ff_cost("fwd_stored_h", text_rows),
+             "k1h_p1": ff_cost("p1_h", text_rows),
+             "k1h_p2": ff_cost("p2", text_rows)}
+    peaks = {k: FP32_PEAK if k.startswith("k8") else BF16_PEAK
+             for k in costs}
+    for key, name, _, _ in FF_KERNELS:
+        b_ms, b_by = bound(*costs[key], peaks[key])
+        print(f"  {name} bf16 ({text_rows} rows): kernel {ms[key][0]:.3f} "
+              f"ms, plain {ms[key][1]:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+    return errs, ms, costs, peaks
+
+
+def ff_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+              make_train_step, counters):
+    """Phase 17: the tiny CLIP of the FF golden on the card, fp32: the K8
+    route's outputs and train step, and the stored-h train step (the file
+    names the environment it runs under); K8 and K1-h must run."""
+    before = {k: fn.launches for k, fn in counters.items()}
+    worst = golden_outputs_err(CLIP, load_jax_params, numpy_params,
+                               GOLDEN_FF, "fused_")
+    if not worst <= 1e-4:
+        fail(f"K8 route vs JAX golden: max_abs_err {worst:.3e} > 1e-4")
+    lines = [f"K8 route outputs max_abs_err {worst:.3e} (tol 1e-4)"]
+    for route, prefix in (("K8", "fused_"), ("stored-h", "stored_h_")):
+        loss_err, norm_err, grad_worst, param_worst = train_golden(
+            CLIP, load_jax_params, numpy_params, default_optimizer,
+            make_train_step, None, prefix, GOLDEN_FF)
+        lines.append(f"{route} train step loss err {loss_err:.3e} (tol "
+                     f"1e-5), grad_norm err {norm_err:.3e} (tol 1e-4), max "
+                     f"grad err {grad_worst:.3e}, max param err "
+                     f"{param_worst:.3e} (tol 1e-5)")
+    missed = [k for k, fn in counters.items() if fn.launches == before[k]]
+    if missed:
+        fail(f"the FF golden model did not run through {missed}")
+    if os.environ.get("XCLIP_FF_STORE") is not None:
+        fail("XCLIP_FF_STORE is still set after the stored-h golden step")
+    phase(17, "ff-golden", "tiny CLIP fp32 vs JAX: " + "; ".join(lines))
+
+
+def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
+              stored):
+    """Phase 18: the flagship on the K8 route (serving and training) and
+    on the stored-h route (training), b = 256, bf16, from phase 8's
+    weights and inputs (`stored`: phase 8's kernel-route result)."""
+    b, warm, timed = 256, 2, 5
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256,
+                                       dtype=torch.bfloat16)
+    kernel = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
+                  compute_dtype="bfloat16", device="cuda", seed=0)
+    init = {k: v.clone() for k, v in kernel.state_dict().items()}
+    k8_model = CLIP(**FLAGSHIP, **K8_ROUTES, param_dtype=torch.bfloat16,
+                    compute_dtype="bfloat16", device="cuda")
+    k8_model.load_state_dict(init)
+
+    # serving: the K8 route beside the kernel routes, one forward counted
+    for fn in counters.values():
+        fn.launches = 0
+    latents = k8_model(text, images, return_latents=True)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(k8_fwd=12, mega=6)
+    if counts != want:
+        fail(f"K8 route serving: launches {counts}, expected {want}")
+    worst = max((a - p).abs().max().item() for a, p in zip(
+        latents, kernel(text, images, return_latents=True)))
+    if not (worst <= LATENT_TOL[torch.bfloat16]
+            and all(torch.isfinite(t).all() for t in latents)):
+        fail(f"K8 route latents differ from the kernel routes' by "
+             f"{worst:.3e} > {LATENT_TOL[torch.bfloat16]}")
+    ms = {}
+    for route in ("kernel", "K8", "K8_2", "kernel_2"):
+        model = k8_model if route.startswith("K8") else kernel
+        ms[route] = cuda_ms(lambda: model(text, images), reps=3, iters=2)
+    serve = {r: min(ms[r], ms[f"{r}_2"]) for r in ("kernel", "K8")}
+    print(f"  serving b={b}: K8 route {b / serve['K8'] * 1e3:.1f} pairs/s "
+          f"({ms['K8']:.2f}, {ms['K8_2']:.2f} ms), kernel routes "
+          f"{b / serve['kernel'] * 1e3:.1f} pairs/s ({ms['kernel']:.2f}, "
+          f"{ms['kernel_2']:.2f} ms); latents vs kernel routes {worst:.3e} "
+          f"(tol {LATENT_TOL[torch.bfloat16]:.0e}), launches {counts}",
+          flush=True)
+    del kernel, latents
+    torch.cuda.empty_cache()
+
+    # training: K8 route, then phase 8's routes with XCLIP_FF_STORE=h
+    want = {"K8": dict(k8_fwd=12, k8_bwd=12, k2_fwd=6, k2_bwd=6),
+            "stored-h": dict(k1h_fwd=12, k1h_p1=12, k1h_p2=12, k2_fwd=6,
+                             k2_bwd=6)}
+    results, launches = {}, {}
+    for route, env in (("K8", {}), ("stored-h", STORED_H)):
+        model = k8_model if route == "K8" else CLIP(
+            **FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
+            compute_dtype="bfloat16", device="cuda")
+        model.load_state_dict(init)
+        step = make_train_step(model, default_optimizer(model.parameters(),
+                                                        learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(100 + i))
+
+        with mock.patch.dict(os.environ, env):
+            step_ms, counts, peak, losses = timed_steps(run, warm, timed,
+                                                        counters)
+            (idle, busy_ms, window_ms), (total, rows) = profile_step(
+                run, warm + timed)
+        per_step = {k: v / (warm + timed) for k, v in counts.items() if v}
+        if per_step != want[route]:
+            fail(f"{route} route: training launches per step {per_step}, "
+                 f"expected {want[route]}")
+        check_losses(f"{route} route", losses, b, tol=0.1)
+        # the same weights, inputs and patch draws as phase 8
+        diff = abs(losses[0].item() - stored[5][0].item())
+        if not diff <= 0.05:
+            fail(f"{route} vs stored routes: first loss differs by "
+                 f"{diff:.4f} > 0.05")
+        print(f"  {route} route: {b * 1e3 / step_ms:.1f} pairs/s "
+              f"({step_ms:.2f} ms per step), peak memory {peak:.2f} GiB, "
+              f"idle share {idle:.4f} over one step (device busy "
+              f"{busy_ms:.2f} of {window_ms:.2f} ms), launches per step "
+              f"{per_step}, first loss vs phase 8 {diff:.4f} (tol 0.05), "
+              f"losses " + " ".join(f"{v:.4f}" for v in losses.tolist()),
+              flush=True)
+        for t, count, key in rows:
+            print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
+                  f"{key[:90]}", flush=True)
+        results[route] = (step_ms, peak, idle)
+        launches.update({k: counts[k] for k in want[route]
+                         if k.startswith("k8" if route == "K8" else "k1h")})
+        del model, step
+        torch.cuda.empty_cache()
+    if os.environ.get("XCLIP_FF_STORE") is not None:
+        fail("XCLIP_FF_STORE is still set after the stored-h route")
+    phase(18, "ff-routes", f"{card}: flagship b={b} bf16: K8 route serving "
+          f"{b / serve['K8'] * 1e3:.1f} pairs/s (kernel routes "
+          f"{b / serve['kernel'] * 1e3:.1f}); training " + ", ".join(
+              f"{r} route {b * 1e3 / v[0]:.1f} pairs/s ({v[0]:.2f} ms, peak "
+              f"{v[1]:.2f} GiB, idle {v[2]:.4f})" for r, v in results.items())
+          + f"; stored routes (phase 8) {b * 1e3 / stored[0]:.1f} pairs/s, "
+          f"peak {stored[1]:.2f} GiB; launches per step K8 fwd/bwd 12, K1-h "
+          f"fwd/p1/p2 12, K2 fwd/bwd 6")
+    return launches
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -1275,6 +1526,7 @@ def main():
     from xclip_tpu_torch.kernels import attention_block as core
     from xclip_tpu_torch.kernels import attention_megablock as mega
     from xclip_tpu_torch.kernels import flash_attention as flash
+    from xclip_tpu_torch.kernels import fused_ff as k8
     from xclip_tpu_torch.kernels import fused_ff_block as ffb
     from xclip_tpu_torch.kernels import fused_infonce as lse5
 
@@ -1493,6 +1745,26 @@ def main():
         {**rotary_counters, "k1_fwd": ffb.ff_block_fwd_stored,
          "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2})
 
+    # --------------------------------------------------------------- 16
+    ff_errs, ff_ms, ff_costs, ff_peaks = ff_kernels(gen, ffb, k8)
+
+    # --------------------------------------------------------------- 17
+    ff_counters = {"k8_fwd": k8.geglu_layernorm_fwd,
+                   "k8_bwd": k8.geglu_layernorm_bwd,
+                   "k1h_fwd": ffb.ff_block_fwd_stored_h,
+                   "k1h_p1": ffb.ff_block_bwd_p1_stored_h,
+                   "k1h_p2": ffb.ff_block_bwd_p2}
+    ff_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+              make_train_step, ff_counters)
+
+    # --------------------------------------------------------------- 18
+    ff_launches = ff_routes(
+        card, CLIP, default_optimizer, make_train_step,
+        {**ff_counters, "k1_fwd": ffb.ff_block_fwd_stored,
+         "kff": ffb.ff_block, "mega": mega.attention_block,
+         "k2_fwd": mega.attention_block_fwd_stored,
+         "k2_bwd": mega.attention_block_bwd}, stored)
+
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
         b_ms, b_by = bound(*cost, peak)
@@ -1501,9 +1773,10 @@ def main():
                 "max_abs_err": err, "ms": kms[0], "plain_ms": kms[1],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
-    # no single PyTorch call computes the blocks' functions (library_ms
-    # null); K6 and K7 against scaled_dot_product_attention on the same q,
-    # k, v and mask, forward or backward
+    # no single PyTorch call computes the blocks' functions, nor K8's or
+    # K1-h's (library_ms null); K6 and K7 against
+    # scaled_dot_product_attention on the same q, k, v and mask, forward or
+    # backward
     rows = b * 257
     record = {"kernels": [
         entry("K-FF ff_block forward",
@@ -1531,6 +1804,10 @@ def main():
         record["kernels"].append(entry(
             name, source, replaces, rotary_launches[key], attn_errs[key],
             attn_ms[key], attn_costs[key], BF16_PEAK, attn_library[key]))
+    for key, name, source, replaces in FF_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, ff_launches[key], ff_errs[key],
+            ff_ms[key], ff_costs[key], ff_peaks[key]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""Write `tests/data/torch_port_golden.npz` and
-`tests/data/torch_port_golden_rotary.npz`: the JAX package's outputs for a
+"""Write `tests/data/torch_port_golden.npz`,
+`tests/data/torch_port_golden_rotary.npz` and
+`tests/data/torch_port_golden_ff.npz`: the JAX package's outputs for a
 tiny CLIP on numpy-seeded weights, for the PyTorch port to be held to on a
 machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3, 7,
-10 and 13 of `chip_smoke.py` on the GPU).
+10, 13 and 17 of `chip_smoke.py` on the GPU).
 
 Regenerate them on a machine with JAX (the repo's CPU environment will do;
 Pallas runs in interpret mode), from the repo root:
@@ -31,12 +32,20 @@ row of each batch has no EOS (it pools its last non-pad token). Per route
 under `<r>_train_loss`, `<r>_train_grad_norm`, `<r>_grad/<path>` and
 `<r>_param1/<path>`; the seed, the inputs, the batch, its patch indices and
 the optimizer once.
+
+The third file holds the two remaining FF routes in the same layout:
+"fused" (`ff_impl='fused'`, the GEGLU + inner-LayerNorm kernel K8, in both
+towers beside the megablock) with its outputs and one train step, and
+"stored_h" (the kernel routes with `XCLIP_FF_STORE=h`, the stored-h FF
+block K1-h) with one train step and `stored_h_env`, the environment the
+step was taken under (JSON), which a loader sets around its own step.
 """
 
 import json
 import os
 import sys
 from pathlib import Path
+from unittest import mock
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -51,6 +60,7 @@ from xclip_tpu_torch.convert import numpy_params  # noqa: E402
 
 OUT = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 OUT_ROTARY = OUT.with_name("torch_port_golden_rotary.npz")
+OUT_FF = OUT.with_name("torch_port_golden_ff.npz")
 # dim and inner multiples of 64 and dim_head 64, so the CUDA kernels take it
 CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
               text_enc_depth=2, text_seq_len=16, text_heads=2,
@@ -70,6 +80,10 @@ ROTARY_ROUTES = {
     "fused": dict(attn_impl="fused", visual_attn_impl="xla",
                   ff_impl="block_stored"),
     "flash": dict(attn_impl="flash", ff_impl="block_stored")}
+FF_ROUTES = {
+    "fused": {**CONFIG, "ff_impl": "fused"},
+    "stored_h": CONFIG}
+STORED_H_ENV = {"XCLIP_FF_STORE": "h"}
 
 
 def flat(tree, prefix=""):
@@ -169,6 +183,40 @@ def write_rotary():
     print(f"wrote {OUT_ROTARY} ({OUT_ROTARY.stat().st_size} bytes)")
 
 
+def write_ff():
+    npr = np.random.RandomState(SEED + 4)
+    text = npr.randint(1, 100, (4, 16))
+    for i in range(4):
+        text[i, 16 - 3 * i:] = 0
+    # images on the float16 grid, stored as float16 (read back as float32):
+    # the file stays within the size of the other two
+    images = npr.randn(4, 3, 32, 32).astype(np.float16)
+    train_text = npr.randint(1, 100, (6, 16))
+    for i in range(6):
+        train_text[i, 16 - 2 * i:] = 0
+    train_images = npr.randn(6, 3, 32, 32).astype(np.float16)
+    params = jax.tree.map(jnp.asarray, numpy_params(CONFIG, SEED))
+    out = {"seed": SEED, "text": text, "images": images,
+           **batch_keys(train_text, train_images)}
+    images, train_images = (a.astype(np.float32)
+                            for a in (images, train_images))
+    for route, config in FF_ROUTES.items():
+        clip = xclip_tpu.CLIP(**config)
+        out[f"{route}_config"] = json.dumps(config)
+        if route == "fused":
+            out.update(outputs(clip, params, text, images, f"{route}_"))
+            out.update(train_step(clip, params, train_text, train_images,
+                                  f"{route}_"))
+            continue
+        out[f"{route}_env"] = json.dumps(STORED_H_ENV)
+        # read when the layers trace
+        with mock.patch.dict(os.environ, STORED_H_ENV):
+            out.update(train_step(clip, params, train_text, train_images,
+                                  f"{route}_"))
+    np.savez_compressed(OUT_FF, **out)
+    print(f"wrote {OUT_FF} ({OUT_FF.stat().st_size} bytes)")
+
+
 def main():
     jax.config.update("jax_default_matmul_precision", "highest")
     npr = np.random.RandomState(SEED + 1)
@@ -193,6 +241,7 @@ def main():
         **train_step(clip, params, train_text, train_images))
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
     write_rotary()
+    write_ff()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ fp32 outputs and every lse at 1e-4 of the tensor's largest magnitude,
 bf16 outputs at two bf16 ulps of the element plus 3e-2 of its head row's
 RMS plus 1e-2 of the tensor's, and each within 1e-3 relative Frobenius
 error; the plain versions follow the kernels' rounding points (K7's plain
-forward with the kernels' key block, `KERNEL_BLOCK`).
+forward with the kernels' key block, `KERNEL_BLOCK`). K8 and K1-h as the
+training kernels: 1e-4 (fp32) or two bf16 ulps of each tensor's largest
+magnitude.
 """
 
 import math
@@ -25,6 +27,7 @@ import torch
 from xclip_tpu_torch.kernels import attention_block as core
 from xclip_tpu_torch.kernels import attention_megablock as mega
 from xclip_tpu_torch.kernels import flash_attention as flash
+from xclip_tpu_torch.kernels import fused_ff as k8
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 from xclip_tpu_torch.kernels import fused_infonce as lse5
 
@@ -530,3 +533,93 @@ def test_attention_cores_are_deterministic(cuda_device):
     a, b = (flash.flash_attention_bwd(q, k, v, mask, out, lse, do, True)
             for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------------------------------- K8 (ff_impl='fused'), K1-h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,inner", [(77, 128), (130, 256), (8192, 2048)])
+def test_geglu_layernorm_kernels_match_plain(cuda_device, dtype, rows, inner):
+    torch.manual_seed(2)
+    dt = getattr(torch, dtype)
+    h = torch.randn(rows, 2 * inner, device=cuda_device).to(dt)
+    g = (1 + 0.1 * torch.randn(inner, device=cuda_device)).to(dt)
+    do = torch.randn(rows, inner, device=cuda_device).to(dt)
+    counts = (k8.geglu_layernorm_fwd.launches, k8.geglu_layernorm_bwd.launches)
+    _assert_all_close((k8.geglu_layernorm_fwd(h, g),),
+                      (k8.geglu_layernorm_plain(h, g),), dtype, ("out",))
+    runs = [k8.geglu_layernorm_bwd(h, g, do) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))  # no atomics
+    _assert_all_close(runs[0], k8.geglu_layernorm_bwd_plain(h, g, do), dtype,
+                      ("dh", "dg"))
+    assert (k8.geglu_layernorm_fwd.launches,
+            k8.geglu_layernorm_bwd.launches) == (counts[0] + 1, counts[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,dim,inner", [(130, 128, 256), (77, 64, 128),
+                                            (8192, 512, 2048)])
+def test_ff_block_stored_h_kernels_match_plain(cuda_device, dtype, rows, dim,
+                                               inner):
+    args = to_torch(ff_args(R=rows, D=dim, I=inner), getattr(torch, dtype),
+                    cuda_device)
+    counts = (ffb.ff_block_fwd_stored_h.launches,
+              ffb.ff_block_bwd_p1_stored_h.launches)
+    out, stored = ffb.ff_block_fwd_stored_h(*args)
+    want_out, want_stored = ffb.ff_block_fwd_stored_h_plain(*args)
+    _assert_all_close((out, *stored), (want_out, *want_stored), dtype,
+                      ("out", "h", "stats"))
+    do = torch.randn(rows, dim, device=cuda_device).to(args[0].dtype)
+    runs = [ffb.ff_block_bwd_p1_stored_h(*args, do, want_stored)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][:4], runs[1][:4]))
+    want_p1 = ffb.ff_block_bwd_p1_stored_h_plain(*args, do, want_stored)
+    _assert_all_close(runs[0][:4], want_p1[:4], dtype,
+                      ("dx", "dprod", "dg_pre", "dg_inner"))
+    _assert_all_close(runs[0][4], want_p1[4], dtype, ("xn", "dh2", "y2"))
+    _assert_all_close(ffb.ff_block_bwd_p2(*want_p1[4], do),
+                      ffb.ff_block_bwd_p2_plain(*want_p1[4], do), dtype,
+                      ("dw_in", "dw_out"))
+    assert (ffb.ff_block_fwd_stored_h.launches,
+            ffb.ff_block_bwd_p1_stored_h.launches) == (counts[0] + 1,
+                                                       counts[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ff_impl,store", [("fused", None),
+                                           ("block_stored", "h")])
+def test_ff_routes_train_on_the_card_as_on_the_cpu(cuda_device, monkeypatch,
+                                                   ff_impl, store):
+    """The stack on K8 (ff_impl='fused') or K1-h (XCLIP_FF_STORE=h) in
+    fp32 on the card against the same stack's plain versions on the CPU:
+    output and every gradient, and the kernels ran."""
+    from xclip_tpu_torch.nn import layers as tlayers
+    if store:
+        monkeypatch.setenv("XCLIP_FF_STORE", store)
+    torch.manual_seed(3)
+    x = torch.randn(3, 21, 128)
+    mask = torch.ones(3, 21, dtype=torch.bool)
+    mask[1, 9:] = False
+    cot = torch.randn(3, 21, 128)
+    counters = ((k8.geglu_layernorm_fwd, k8.geglu_layernorm_bwd)
+                if store is None else
+                (ffb.ff_block_fwd_stored_h, ffb.ff_block_bwd_p1_stored_h))
+    before = [c.launches for c in counters]
+    results = []
+    for dev in ("cpu", cuda_device):
+        stack = tlayers.Transformer(128, depth=2, dim_head=64, heads=2,
+                                    generator=torch.Generator().manual_seed(4))
+        stack.to(dev)
+        tx = x.to(dev, copy=True).requires_grad_(True)
+        out = stack(tx, mask.to(dev), attn_impl="fused", ff_impl=ff_impl,
+                    training=True)
+        out.backward(cot.to(dev))
+        results.append([out.detach(), tx.grad,
+                        *(p.grad for p in stack.parameters())])
+    assert [c.launches for c in counters] == [n + 2 for n in before]
+    for want, got in zip(*results):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=_grad_atol(want, "float32"))

@@ -1,9 +1,11 @@
 """The port on the CPU against committed JAX outputs
-(`tests/data/torch_port_golden.npz` and, for the rotary causal-EOS text
-tower on the 'fused' (K6) and 'flash' (K7) routes,
-`tests/data/torch_port_golden_rotary.npz`, written by
+(`tests/data/torch_port_golden.npz`; for the rotary causal-EOS text tower
+on the 'fused' (K6) and 'flash' (K7) routes,
+`tests/data/torch_port_golden_rotary.npz`; for `ff_impl='fused'` (K8) and
+the stored-h FF block under XCLIP_FF_STORE=h (K1-h),
+`tests/data/torch_port_golden_ff.npz`; written by
 `tests/make_torch_port_golden.py`): the same checks that `chip_smoke.py`
-makes on the GPU (phases 3, 7, 10 and 13), where there is no JAX. fp32;
+makes on the GPU (phases 3, 7, 10, 13 and 17), where there is no JAX. fp32;
 outputs 1e-4 absolute; one train step (stored routes, then memory-lean
 routes) loss 1e-5, gradients rtol 1e-3 with atol 1e-5 times the leaf's
 largest magnitude, parameters after the step 2e-6 (a few ulps of the O(1)
@@ -22,6 +24,7 @@ from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")
+GOLDEN_FF = GOLDEN.with_name("torch_port_golden_ff.npz")
 
 
 def _check_outputs(golden, prefix=""):
@@ -29,7 +32,8 @@ def _check_outputs(golden, prefix=""):
     config = json.loads(str(g[f"{prefix}config"]))
     clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
-    text, images = torch.from_numpy(g["text"]), torch.from_numpy(g["images"])
+    text = torch.from_numpy(g["text"])
+    images = torch.from_numpy(g["images"]).float()
     got = {"sims": clip(text, images)}
     got["text_latents"], got["image_latents"] = clip(text, images,
                                                      return_latents=True)
@@ -49,6 +53,10 @@ def test_rotary_port_matches_jax_golden(route):
     _check_outputs(GOLDEN_ROTARY, f"{route}_")
 
 
+def test_fused_ff_port_matches_jax_golden():
+    _check_outputs(GOLDEN_FF, "fused_")
+
+
 def _flat(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -57,15 +65,19 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def _check_train_step(config_key, prefix, golden=GOLDEN):
+def _check_train_step(config_key, prefix, golden=GOLDEN, monkeypatch=None):
     g = np.load(golden)
+    if f"{prefix}env" in g.files:     # the environment JAX's step saw
+        for k, v in json.loads(str(g[f"{prefix}env"])).items():
+            monkeypatch.setenv(k, v)
     config = json.loads(str(g[config_key]))
     clip = xclip_tpu_torch.CLIP(**config, device="cpu")
     load_jax_params(clip, numpy_params(config, int(g["seed"])))
     opt = default_optimizer(clip.parameters(),
                             **json.loads(str(g["train_optimizer"])))
     metrics = make_train_step(clip, opt)(
-        torch.from_numpy(g["train_text"]), torch.from_numpy(g["train_images"]),
+        torch.from_numpy(g["train_text"]),
+        torch.from_numpy(g["train_images"]).float(),
         keep_idx=torch.from_numpy(g["train_keep_idx"]))
     np.testing.assert_allclose(metrics["loss"].item(),
                                g[f"{prefix}train_loss"], atol=1e-5)
@@ -100,3 +112,10 @@ def test_rotary_train_step_matches_jax_golden(route):
     """The rotary causal-EOS text tower's train step on K6 or K7, one
     caption without EOS in the batch."""
     _check_train_step(f"{route}_config", f"{route}_", GOLDEN_ROTARY)
+
+
+@pytest.mark.parametrize("route", ["fused", "stored_h"])
+def test_ff_train_step_matches_jax_golden(route, monkeypatch):
+    """ff_impl='fused' (K8 in both towers), and the kernel routes with
+    XCLIP_FF_STORE=h (K1-h), from the same weights and batch."""
+    _check_train_step(f"{route}_config", f"{route}_", GOLDEN_FF, monkeypatch)

@@ -116,6 +116,9 @@ STACK_CASES = [  # (attn_impl, ff_impl, n, with_mask)
     ("fused_recompute", "block", 17, False),
     # n >= 128: the JAX stack pads 129 → 136 rows for its kernels
     ("fused", "block_stored", 129, True),
+    # K8 beside the plain attention and the megablock
+    ("xla", "fused", 17, True),
+    ("fused", "fused", 17, False),
 ]
 
 
@@ -155,16 +158,20 @@ def test_transformer_stack_matches_bf16():
 
 
 def test_routes_out_of_slice_raise():
+    """Every ff_impl has a route ('fused' runs K8); unknown routes raise."""
     stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)
     x = torch.zeros(1, 3, 64)
-    with pytest.raises(NotImplementedError, match="K8"):
-        stack(x, ff_impl="fused")
+    with torch.no_grad():
+        assert stack(x, ff_impl="fused").shape == x.shape
     with pytest.raises(ValueError):
         stack(x, attn_impl="nope")
+    with pytest.raises(ValueError):
+        stack(x, ff_impl="nope")
 
 
 @pytest.mark.parametrize("attn_impl,ff_impl", [("xla", "xla"),
-                                               ("fused", "block_stored")])
+                                               ("fused", "block_stored"),
+                                               ("fused", "fused")])
 def test_text_tower_matches(attn_impl, ff_impl):
     npr = np.random.RandomState(4)
     ids = npr.randint(1, 50, (3, 8))

@@ -5,8 +5,10 @@ in ('xla', 'fused'), one cheap case each (the tiny CLIP at batch 2, patch
 dropout on, one layer a tower): the loss and full gradient tree against
 `jax.value_and_grad`, at the tolerances of `test_torch_train.py` (loss
 1e-5; gradients rtol 1e-3 with atol 1e-5 times the leaf's largest
-magnitude). And what training still lacks raises, naming its ROADMAP.md
-item.
+magnitude). The same for `ff_impl='fused'` (K8) beside the rotary tower on
+K6, beside 'flash' (K7) and alone, and for the stored-h FF block
+(`XCLIP_FF_STORE=h`) beside the recompute route. And what training still
+lacks raises, naming its ROADMAP.md item.
 """
 
 import itertools
@@ -17,11 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-import xclip_tpu_torch
 from xclip_tpu_torch.convert import to_jax_tree
 from xclip_tpu_torch.nn import layers as tlayers
 
-from test_torch_lean_train import TINY, _inputs, _pair, _tree_close
+from test_torch_lean_train import _inputs, _pair, _tree_close
 from test_torch_train import jax_keep_idx
 
 jax.config.update("jax_default_matmul_precision", "highest")
@@ -30,11 +31,9 @@ COMBOS = list(itertools.product(("fused", "fused_qkv", "fused_recompute"),
                                 ("block", "block_stored"), ("xla", "fused")))
 
 
-@pytest.mark.parametrize("attn_impl,ff_impl,loss_impl", COMBOS)
-def test_training_route_matches_jax(attn_impl, ff_impl, loss_impl):
-    jclip, params, tclip = _pair(seed=2, attn_impl=attn_impl,
-                                 ff_impl=ff_impl, loss_impl=loss_impl,
-                                 text_enc_depth=1, visual_enc_depth=1)
+def _check_training_matches_jax(**flags):
+    jclip, params, tclip = _pair(seed=2, text_enc_depth=1,
+                                 visual_enc_depth=1, **flags)
     text, image = _inputs(b=2, seed=2)
     rng = jax.random.PRNGKey(9)
 
@@ -51,15 +50,22 @@ def test_training_route_matches_jax(attn_impl, ff_impl, loss_impl):
                 atol_scale=1e-5)
 
 
-@pytest.mark.parametrize("flags,match", [
-    # rotary (K6) and 'flash' (K7) are ported; K8 is not, beside either
-    (dict(text_rotary_pos_emb=True, ff_impl="fused"), "K8"),
-    (dict(attn_impl="flash", ff_impl="fused"), "K8"),
-    (dict(ff_impl="fused"), "K8"),
-])
-def test_unported_routes_raise_at_construction(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        xclip_tpu_torch.CLIP(**TINY, **flags, device="cpu")
+@pytest.mark.parametrize("attn_impl,ff_impl,loss_impl", COMBOS)
+def test_training_route_matches_jax(attn_impl, ff_impl, loss_impl):
+    _check_training_matches_jax(attn_impl=attn_impl, ff_impl=ff_impl,
+                                loss_impl=loss_impl)
+
+
+@pytest.mark.parametrize("flags", [
+    # K8 beside the rotary tower on K6, beside K7 in both towers, alone
+    dict(text_rotary_pos_emb=True, attn_impl="fused", ff_impl="fused"),
+    dict(attn_impl="flash", ff_impl="fused"),
+    dict(ff_impl="fused", loss_impl="fused"),
+], ids=["flags0-K8", "flags1-K8", "flags2-K8"])
+def test_unported_routes_raise_at_construction(flags):
+    """The routes that raised at construction while K8 was unported now
+    build, and train as the JAX package does."""
+    _check_training_matches_jax(**flags)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -74,11 +80,10 @@ def test_lean_routes_keep_remat_and_dropout_raising(kwargs, match):
 
 
 def test_stored_h_still_raises_beside_the_recompute_route(monkeypatch):
-    """XCLIP_FF_STORE=h qualifies 'block_stored' only: 'block' trains."""
+    """XCLIP_FF_STORE=h qualifies 'block_stored' only (K1-h, which no
+    longer raises); 'block' keeps the recompute route. Both train as JAX
+    does under the variable."""
     monkeypatch.setenv("XCLIP_FF_STORE", "h")
-    stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)
-    with pytest.raises(NotImplementedError, match="XCLIP_FF_STORE=h"):
-        stack(torch.zeros(1, 3, 64), ff_impl="block_stored", training=True)
-    x = torch.randn(1, 3, 64, requires_grad=True)
-    stack(x, ff_impl="block", training=True).sum().backward()
-    assert x.grad is not None
+    for ff_impl in ("block_stored", "block"):
+        _check_training_matches_jax(attn_impl="fused_recompute",
+                                    ff_impl=ff_impl, loss_impl="fused")

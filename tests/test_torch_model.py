@@ -167,14 +167,28 @@ def test_signature_matches_jax_clip():
      "use_visual_ssl"),
     (dict(use_mlm=True), "use_mlm"),
     (dict(use_visual_ssl=True), "use_visual_ssl"),
-    (dict(attn_impl="flash", ff_impl="fused"), "K8"),
-    (dict(visual_attn_impl="flash", ff_impl="fused"), "K8"),
-    (dict(ff_impl="fused"), "K8"),
     (dict(visual_ssl=object()), "use_visual_ssl"),
 ])
 def test_out_of_slice_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         xclip_tpu_torch.CLIP(**{**TINY, **flags}, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(attn_impl="flash", ff_impl="fused"),
+    dict(visual_attn_impl="flash", ff_impl="fused"),
+    dict(ff_impl="fused")], ids=["flash", "visual-flash", "megablock"])
+def test_fused_ff_flags_serve_like_jax(flags):
+    """ff_impl='fused' (K8) builds beside every attention route and its
+    scores and latents match the JAX package's."""
+    jclip, params, tclip = _pair(**{**KERNEL_ROUTES, **flags})
+    text, image = _inputs(seed=5)
+    jt, ji = jnp.asarray(text), jnp.asarray(image)
+    tt, ti = torch.from_numpy(text), torch.from_numpy(image)
+    _close(tclip(tt, ti), jclip(jt, ji, params=params))
+    for got, want in zip(tclip(tt, ti, return_latents=True),
+                         jclip(jt, ji, return_latents=True, params=params)):
+        _close(got, want)
 
 
 def test_training_calls_raise():

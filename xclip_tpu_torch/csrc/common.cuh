@@ -7,16 +7,18 @@
 //     statistics (xclip_tpu/kernels/_common.py ln_fp32), optionally followed
 //     by a residual add in the storage dtype; optionally also stores each
 //     row's mean and rsqrt(var + eps) and the input rounded to the storage
-//     dtype (the training forwards' residuals).
+//     dtype (the training forwards' residuals); optionally with a GEGLU
+//     prologue that normalises a * gelu(b) of a row [a, b] (K8's forward).
 //   * ln_bwd_rows_kernel: the gain-only LayerNorm vjp over rows from stored
 //     statistics (xclip_tpu/kernels/_common.py ln_bwd), with the column sums
 //     for dg taken per block and reduced by reduce_parts_kernel in a fixed
 //     order, so two runs agree bit for bit (no float atomics anywhere). The
 //     normalised value may be fp32 (the recompute backward's unrounded
 //     proj) or the storage dtype.
-//   * geglu_recompute_bwd_rows_kernel: pass 1 of the FF block's recompute
-//     backward between its products: GEGLU and inner-LN backward from the
-//     recomputed fp32 h.
+//   * geglu_bwd_rows_kernel: the GEGLU and inner-LN backward from h rather
+//     than from a stored product: the FF block's recompute backward (fp32 h,
+//     stored statistics), K8's backward (statistics recomputed from the
+//     row) and K1-h's pass 1 (the stored, rounded h, stored statistics).
 //   * launch_mm: a shared-memory tiled matrix product with fused epilogues,
 //     either operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B),
 //     the k axis optionally split into ranges that write fp32 partials
@@ -82,64 +84,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ------------------------------------------------------------- LayerNorm
-
-constexpr int kLnRowsPerBlock = 4;  // one warp per row
-
-// out[r] = T((in[r] - mean) * rsqrt(var + eps) * g), fp32 statistics; with
-// `resid`, out[r] = that value (cast to T) + resid[r], the add in T. With
-// `mean_out`, the row's mean and rsqrt(var + eps) go to mean_out[r] and
-// inv_out[r]; with `in_copy`, in[r] rounded to T goes to in_copy[r].
-template <typename Tin, typename T>
-__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
-ln_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
-               const T* __restrict__ resid, T* __restrict__ out, int rows,
-               int d, float eps, float* __restrict__ mean_out,
-               float* __restrict__ inv_out, T* __restrict__ in_copy) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * kLnRowsPerBlock + warp;
-  if (row >= rows) return;
-  const Tin* x = in + row * d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += to_f(x[i]);
-  const float mean = warp_sum(s) / (float)d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float c = to_f(x[i]) - mean;
-    v += c * c;
-  }
-  const float inv = rsqrtf(warp_sum(v) / (float)d + eps);
-  if (mean_out && lane == 0) {
-    mean_out[row] = mean;
-    inv_out[row] = inv;
-  }
-  T* o = out + row * d;
-  const T* rr = resid ? resid + row * d : nullptr;
-  for (int i = lane; i < d; i += 32) {
-    const float y = ((to_f(x[i]) - mean) * inv) * to_f(g[i]);
-    o[i] = rr ? from_f<T>(round_to<T>(y) + to_f(rr[i])) : from_f<T>(y);
-    if (in_copy) in_copy[row * d + i] = from_f<T>(to_f(x[i]));
-  }
-}
-
-template <typename Tin, typename T>
-int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
-                   int rows, int d, float eps, cudaStream_t st,
-                   float* mean_out = nullptr, float* inv_out = nullptr,
-                   T* in_copy = nullptr) {
-  const int grid = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
-  ln_rows_kernel<Tin, T><<<grid, 32 * kLnRowsPerBlock, 0, st>>>(
-      in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
-
 // exact (erf) GELU of the gate b and the GEGLU product a * gelu(b), as
 // jax.nn.gelu(approximate=False): gelu(b) = b * Phi(b); gelu'(b) = Phi(b) +
 // b * phi(b), one erf and one exp (xclip_tpu/kernels/fused_ff_block.py
-// _gelu_val_grad). The forward's product epilogue and the recompute
-// backward's row kernel both take them from here, so the recomputed prod
-// repeats the forward's op sequence on the same fp32 h.
+// _gelu_val_grad). The forward's product epilogue, K8's row kernels and the
+// GEGLU backward rows all take them from here, so a recomputed prod repeats
+// the forward's op sequence on the same h.
 struct GegluParts {
   float phi, gelu_b, prod;
   __device__ __forceinline__ GegluParts(float a, float b) {
@@ -151,6 +101,69 @@ struct GegluParts {
     return phi + b * (expf(-0.5f * b * b) * 0.3989422804014327f);
   }
 };
+
+// Element i of a row as a LayerNorm reads it: x[i] itself, or with GEGLU
+// the product a * gelu(b) of a row of h = [a, b] (2d wide), in fp32.
+template <bool GEGLU, typename Tin>
+__device__ __forceinline__ float row_value(const Tin* x, int i, int d) {
+  if constexpr (GEGLU) return GegluParts(to_f(x[i]), to_f(x[d + i])).prod;
+  return to_f(x[i]);
+}
+
+// ------------------------------------------------------------- LayerNorm
+
+constexpr int kLnRowsPerBlock = 4;  // one warp per row
+
+// out[r] = T((in[r] - mean) * rsqrt(var + eps) * g), fp32 statistics; with
+// `resid`, out[r] = that value (cast to T) + resid[r], the add in T. With
+// `mean_out`, the row's mean and rsqrt(var + eps) go to mean_out[r] and
+// inv_out[r]; with `in_copy`, in[r] rounded to T goes to in_copy[r]. With
+// GEGLU the row is the product a * gelu(b) of in's row [a, b] (2d wide),
+// rebuilt in each sweep (K8's forward).
+template <typename Tin, typename T, bool GEGLU = false>
+__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
+ln_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
+               const T* __restrict__ resid, T* __restrict__ out, int rows,
+               int d, float eps, float* __restrict__ mean_out,
+               float* __restrict__ inv_out, T* __restrict__ in_copy) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * kLnRowsPerBlock + warp;
+  if (row >= rows) return;
+  const Tin* x = in + row * (GEGLU ? 2 * d : d);
+  float s = 0.f;
+  for (int i = lane; i < d; i += 32) s += row_value<GEGLU>(x, i, d);
+  const float mean = warp_sum(s) / (float)d;
+  float v = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float c = row_value<GEGLU>(x, i, d) - mean;
+    v += c * c;
+  }
+  const float inv = rsqrtf(warp_sum(v) / (float)d + eps);
+  if (mean_out && lane == 0) {
+    mean_out[row] = mean;
+    inv_out[row] = inv;
+  }
+  T* o = out + row * d;
+  const T* rr = resid ? resid + row * d : nullptr;
+  for (int i = lane; i < d; i += 32) {
+    const float xv = row_value<GEGLU>(x, i, d);
+    const float y = ((xv - mean) * inv) * to_f(g[i]);
+    o[i] = rr ? from_f<T>(round_to<T>(y) + to_f(rr[i])) : from_f<T>(y);
+    if (in_copy) in_copy[row * d + i] = from_f<T>(xv);
+  }
+}
+
+template <typename Tin, typename T, bool GEGLU = false>
+int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
+                   int rows, int d, float eps, cudaStream_t st,
+                   float* mean_out = nullptr, float* inv_out = nullptr,
+                   T* in_copy = nullptr) {
+  const int grid = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
+  ln_rows_kernel<Tin, T, GEGLU><<<grid, 32 * kLnRowsPerBlock, 0, st>>>(
+      in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
 
 // ------------------------------------------------------ LayerNorm backward
 //
@@ -234,25 +247,42 @@ ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const Tv* __restrict__ v,
 
 inline int ln_bwd_blocks(int rows) { return (rows + kBwdRows - 1) / kBwdRows; }
 
-// Pass 1 of the FF block's recompute backward between its products
-// (`_p1_recompute_core`), per row r from the fp32 h = xn · w_in (rows x 2d,
-// a then b) and the fp32 dy = do · w_outᵀ (rows x d), d the inner width:
+// The GEGLU and inner-LayerNorm backward over rows, one kernel for the three
+// callers that rebuild the product from h (rows x 2d, a then b; d the inner
+// width) rather than read it. Per row r, with dy the cotangent of the LN
+// output (rows x d):
 //   prod = a * gelu(b) (GegluParts: the forward epilogue's op sequence),
-//   xhat = (prod - mean) * inv with the forward's stored fp32 statistics,
+//   xhat = (prod - mean) * inv,
 //   dprod = inv * (dy * g - mean(dy * g) - xhat * mean(dy * g * xhat)),
-//   dh = T([dprod * gelu(b), dprod * a * gelu'(b)]), y = T(xhat * g),
+//   dh = T([dprod * gelu(b), dprod * a * gelu'(b)]),
 // all fp32 up to the casts, and the column partials of dy * xhat (dg) per
-// block, as ln_bwd_rows_kernel. erf and exp are evaluated twice per element
-// (once per sweep over the row) rather than held: a row is 2048 wide.
-template <typename T>
+// block, as ln_bwd_rows_kernel. MODE says where mean and inv come from and
+// what else is written:
+//   kGegluRecompute: the FF block's recompute backward (`_p1_recompute_core`):
+//     fp32 h and dy, the forward's stored statistics; also y = T(xhat * g).
+//   kGegluLn: K8's backward (xclip_tpu/kernels/fused_ff.py `_bwd_kernel`):
+//     T h and T do; mean and the two-pass variance are recomputed from the
+//     row, as the forward took them (two extra sweeps); dh alone.
+//   kGegluStoredH: K1-h's pass 1 (`_p1_stored_core`, `_p2_stored_core`): T
+//     h, fp32 dy, the forward's stored statistics, which came from the fp32
+//     h while prod here comes from the rounded one (the reference's
+//     precision quirk, kept); also dprod_out = T(dprod), y = T(xhat * g) and
+//     dh2 = the same dh from T(dprod) (pass 2's operand; skipped when dh2 ==
+//     dh, as in fp32).
+// erf and exp are evaluated once per element per sweep rather than held: a
+// row is 2048 wide.
+constexpr int kGegluRecompute = 0;
+constexpr int kGegluLn = 1;
+constexpr int kGegluStoredH = 2;
+
+template <typename Th, typename Tdy, typename T, int MODE>
 __global__ void __launch_bounds__(32 * kBwdWarps)
-geglu_recompute_bwd_rows_kernel(const float* __restrict__ dy,
-                                const float* __restrict__ h,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ inv,
-                                const T* __restrict__ g,
-                                float* __restrict__ dg_part, int rows, int d,
-                                T* __restrict__ dh, T* __restrict__ y) {
+geglu_bwd_rows_kernel(const Tdy* __restrict__ dy, const Th* __restrict__ h,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv, const T* __restrict__ g,
+                      float* __restrict__ dg_part, int rows, int d, float eps,
+                      T* __restrict__ dh, T* __restrict__ y,
+                      T* __restrict__ dprod_out, T* __restrict__ dh2) {
   extern __shared__ float colsum[];  // kBwdWarps x d: one sum row per warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* cs = colsum + warp * d;
@@ -261,13 +291,27 @@ geglu_recompute_bwd_rows_kernel(const float* __restrict__ dy,
   for (int rr = warp; rr < kBwdRows; rr += kBwdWarps) {
     const long r = r0 + rr;
     if (r >= rows) break;
-    const float mu = mean[r], iv = inv[r];
-    const float* dyr = dy + r * d;
-    const float* hr = h + r * 2 * d;
+    const Tdy* dyr = dy + r * d;
+    const Th* hr = h + r * 2 * d;
+    float mu, iv;
+    if constexpr (MODE == kGegluLn) {
+      float s = 0.f;
+      for (int i = lane; i < d; i += 32) s += row_value<true>(hr, i, d);
+      mu = warp_sum(s) / (float)d;
+      float v = 0.f;
+      for (int i = lane; i < d; i += 32) {
+        const float c = row_value<true>(hr, i, d) - mu;
+        v += c * c;
+      }
+      iv = rsqrtf(warp_sum(v) / (float)d + eps);
+    } else {
+      mu = mean[r];
+      iv = inv[r];
+    }
     float s1 = 0.f, s2 = 0.f;
     for (int i = lane; i < d; i += 32) {
-      const float xhat = (GegluParts(hr[i], hr[d + i]).prod - mu) * iv;
-      const float dyv = dyr[i];
+      const float xhat = (row_value<true>(hr, i, d) - mu) * iv;
+      const float dyv = to_f(dyr[i]);
       const float dyg = dyv * to_f(g[i]);
       s1 += dyg;
       s2 += dyg * xhat;
@@ -275,14 +319,23 @@ geglu_recompute_bwd_rows_kernel(const float* __restrict__ dy,
     }
     const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
     for (int i = lane; i < d; i += 32) {
-      const float a = hr[i], b = hr[d + i];
+      const float a = to_f(hr[i]), b = to_f(hr[d + i]);
       const GegluParts q(a, b);
       const float xhat = (q.prod - mu) * iv;
       const float gi = to_f(g[i]);
-      const float val = iv * (dyr[i] * gi - m1 - xhat * m2);
+      const float val = iv * (to_f(dyr[i]) * gi - m1 - xhat * m2);
+      const float gdb = q.gelu_db(b);
       dh[r * 2 * d + i] = from_f<T>(val * q.gelu_b);
-      dh[r * 2 * d + d + i] = from_f<T>(val * a * q.gelu_db(b));
-      y[r * d + i] = from_f<T>(xhat * gi);
+      dh[r * 2 * d + d + i] = from_f<T>(val * a * gdb);
+      if (MODE != kGegluLn) y[r * d + i] = from_f<T>(xhat * gi);
+      if (MODE == kGegluStoredH) {
+        dprod_out[r * d + i] = from_f<T>(val);
+        if (dh2 != dh) {
+          const float pr = round_to<T>(val);
+          dh2[r * 2 * d + i] = from_f<T>(pr * q.gelu_b);
+          dh2[r * 2 * d + d + i] = from_f<T>(pr * a * gdb);
+        }
+      }
     }
   }
   __syncthreads();
@@ -293,19 +346,21 @@ geglu_recompute_bwd_rows_kernel(const float* __restrict__ dy,
   }
 }
 
-template <typename T>
-int launch_geglu_recompute_bwd_rows(const float* dy, const float* h,
-                                    const float* mean, const float* inv,
-                                    const T* g, float* dg_part, int rows,
-                                    int d, T* dh, T* y, cudaStream_t st) {
+// mean / inv: the stored statistics (null for kGegluLn, which takes eps).
+template <typename Th, typename Tdy, typename T, int MODE>
+int launch_geglu_bwd_rows(const Tdy* dy, const Th* h, const float* mean,
+                          const float* inv, const T* g, float* dg_part,
+                          int rows, int d, T* dh, cudaStream_t st,
+                          float eps = 0.f, T* y = nullptr,
+                          T* dprod_out = nullptr, T* dh2 = nullptr) {
   const int smem = kBwdWarps * d * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      geglu_recompute_bwd_rows_kernel<T>,
+      geglu_bwd_rows_kernel<Th, Tdy, T, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  geglu_recompute_bwd_rows_kernel<T>
+  geglu_bwd_rows_kernel<Th, Tdy, T, MODE>
       <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
-          dy, h, mean, inv, g, dg_part, rows, d, dh, y);
+          dy, h, mean, inv, g, dg_part, rows, d, eps, dh, y, dprod_out, dh2);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
@@ -389,9 +444,11 @@ constexpr int kGeglu = 2;     // out (fp32) = a * gelu(b): B is (k, 2n),
 constexpr int kResidual = 3;  // out (T)    = T(acc) + resid, added in T
 constexpr int kGegluTriple = 4;  // as kGeglu, and also aux1 (T) = gelu(b),
                                  //   aux2 (T) = a * gelu'(b)
+constexpr int kGegluH = 5;  // as kGeglu, and also aux1 (T, m x 2n) = the
+                            //   product itself rounded: a, then b
 
 __host__ __device__ constexpr bool is_geglu(int epi) {
-  return epi == kGeglu || epi == kGegluTriple;
+  return epi == kGeglu || epi == kGegluTriple || epi == kGegluH;
 }
 
 struct Split {
@@ -439,6 +496,10 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
       if (EPI == kGegluTriple) {
         static_cast<T*>(aux1)[o] = from_f<T>(q.gelu_b);
         static_cast<T*>(aux2)[o] = from_f<T>(v * q.gelu_db(b));
+      } else if (EPI == kGegluH) {
+        const long ho = (long)(row0 + r) * 2 * n + c0 + c;
+        static_cast<T*>(aux1)[ho] = from_f<T>(v);
+        static_cast<T*>(aux1)[ho + n] = from_f<T>(b);
       }
     } else {
       static_cast<T*>(out)[o] = from_f<T>(round_to<T>(v) + to_f(resid[o]));

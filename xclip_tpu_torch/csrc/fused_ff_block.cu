@@ -8,6 +8,11 @@
 //     (the same four launches, also keeping the residuals the backward
 //     reads) and the two backward passes in place of `_bwd_dx_kernel_geglu`
 //     and `_bwd_dw_kernel_geglu` (their source note is further down);
+//   * K1-h, the stored-h variant (`store_h=True`, XCLIP_FF_STORE=h): the
+//     forward in place of `_fwd_kernel_store` (K1's launches keeping h =
+//     xn · w_in rounded to the storage dtype and the four fp32 row
+//     statistics) and the backward in place of `_bwd_dx_kernel_stored` and
+//     `_bwd_dw_kernel_stored` (its note is with K1's backward);
 //   * K-FF-s and the recompute backward that the memory-lean training runs
 //     (`store_h=False`): the forward in place of `_fwd_kernel_stats` (the
 //     same four launches keeping only the four fp32 row statistics) and the
@@ -42,21 +47,24 @@
 
 namespace {
 
-// The same four launches serve inference (K-FF) and the training forward
-// (K1, `_fwd_kernel_store_geglu`). With `gb`, the GEGLU product's epilogue
-// also writes gelu(b) and a * gelu'(b) rounded to T (rows x inner each);
-// with `stats` (4 x rows: mean_pre, inv_pre, mean_in, inv_in) the two
-// LayerNorm launches keep their fp32 statistics, and the inner one writes
-// the fp32 prod rounded to T into `prod_s`. As in
-// `_fwd_store_geglu_core`, mean_in and inv_in come from the fp32 prod.
-// Statistic k of row r is stats[k * stats_ld + r]: a row chunk of a longer
-// call writes into its columns of the caller's (4 x total rows) array.
+// The same four launches serve inference (K-FF) and the training forwards
+// (K1, `_fwd_kernel_store_geglu`; K1-h, `_fwd_kernel_store`). With `gb`,
+// the GEGLU product's epilogue also writes gelu(b) and a * gelu'(b) rounded
+// to T (rows x inner each); with `h_s`, it writes h = xn · w_in rounded to T
+// instead (rows x 2 inner: a, then b). With `stats` (4 x rows: mean_pre,
+// inv_pre, mean_in, inv_in) the two LayerNorm launches keep their fp32
+// statistics, and with `prod_s` the inner one writes the fp32 prod rounded
+// to T there. As in `_fwd_store_geglu_core` and `_fwd_store_core`, mean_in
+// and inv_in come from the fp32 prod. Statistic k of row r is
+// stats[k * stats_ld + r]: a row chunk of a longer call writes into its
+// columns of the caller's (4 x total rows) array.
 template <typename T>
 int ff_block_fwd(const T* x, const T* g_pre, const T* w_in, const T* g_inner,
                  const T* w_out, T* out, T* xn, float* prod, T* y, int rows,
                  int dim, int inner, float eps, cudaStream_t st,
                  T* prod_s = nullptr, T* gb = nullptr, T* agdb = nullptr,
-                 float* stats = nullptr, long stats_ld = 0) {
+                 float* stats = nullptr, long stats_ld = 0,
+                 T* h_s = nullptr) {
   using namespace xclip;
   float* s = stats;
   const long ld = stats_ld;
@@ -64,9 +72,12 @@ int ff_block_fwd(const T* x, const T* g_pre, const T* w_in, const T* g_inner,
   if ((e = launch_ln_rows<T, T>(x, g_pre, nullptr, xn, rows, dim, eps, st, s,
                                 s ? s + ld : nullptr)))
     return e;
-  e = gb ? launch_mm<T, kGegluTriple>(xn, w_in, nullptr, prod, rows, inner,
-                                      dim, st, gb, agdb)
-         : launch_mm<T, kGeglu>(xn, w_in, nullptr, prod, rows, inner, dim, st);
+  e = gb    ? launch_mm<T, kGegluTriple>(xn, w_in, nullptr, prod, rows, inner,
+                                         dim, st, gb, agdb)
+      : h_s ? launch_mm<T, kGegluH>(xn, w_in, nullptr, prod, rows, inner, dim,
+                                    st, h_s)
+            : launch_mm<T, kGeglu>(xn, w_in, nullptr, prod, rows, inner, dim,
+                                   st);
   if (e) return e;
   if ((e = launch_ln_rows<float, T>(prod, g_inner, nullptr, y, rows, inner,
                                     eps, st, s ? s + 2 * ld : nullptr,
@@ -126,13 +137,27 @@ size_t ff_block_bwd_workspace(int rows, int dim, int inner) {
   return std::max(p1.used, p2);
 }
 
+// ----------------------------------------------------------- K1-h backward
+//
+// The stored-h variant (`store_h=True`: `_bwd_dx_kernel_stored` via
+// `_p1_stored_core`, `_bwd_dw_kernel_stored` via `_p2_stored_core`) is the
+// same six launches with another launch 2: geglu_bwd_rows in its stored-h
+// mode rebuilds prod, gelu(b) and a * gelu'(b) from the rounded h and takes
+// xhat_in from the forward's stored statistics (which came from the fp32 h:
+// the reference's precision quirk, reproduced), writing dprod, dh (from the
+// fp32 dprod), dh2 (from T(dprod), gelu from the rounded b, as
+// `_p2_stored_core` rebuilds it) and y2. Pass 2 is then K1's: the three
+// products `_bwd_dw_kernel_stored` computes, on the operands pass 1 handed
+// it. What bounds it: K1's products, and the row kernel's erf/exp sweeps
+// over the rows x 2 inner h, where K1 reads the triple.
 template <typename T>
 int ff_block_bwd_p1(const T* x, const T* g_pre, const T* w_in,
                     const T* g_inner, const T* w_out, const T* dout,
                     const T* prod_s, const T* gb, const T* agdb,
                     const float* stats, T* dx, T* dprod, T* dg_pre,
                     T* dg_inner, T* xn, T* dh2, T* y2, void* workspace,
-                    int rows, int dim, int inner, cudaStream_t st) {
+                    int rows, int dim, int inner, cudaStream_t st,
+                    const T* h_s = nullptr) {
   using namespace xclip;
   Workspace ws(workspace);
   FfBwdBuffers<T> b(ws, rows, dim, inner);
@@ -142,11 +167,14 @@ int ff_block_bwd_p1(const T* x, const T* g_pre, const T* w_in,
   if ((e = launch_gemm<T, false, true>(dout, w_out, b.dy, rows, inner, dim,
                                        st)))
     return e;
-  if ((e = launch_ln_bwd_rows<float, T, T, kLnBwdGeglu>(
-           b.dy, prod_s, stats + 2 * rows, stats + 3 * rows, g_inner,
-           nullptr, dprod, b.part_in, rows, inner, st, nullptr, gb, agdb, dh,
-           dh2, y2)))
-    return e;
+  e = h_s ? launch_geglu_bwd_rows<T, float, T, kGegluStoredH>(
+                b.dy, h_s, stats + 2 * rows, stats + 3 * rows, g_inner,
+                b.part_in, rows, inner, dh, st, 0.f, y2, dprod, dh2)
+          : launch_ln_bwd_rows<float, T, T, kLnBwdGeglu>(
+                b.dy, prod_s, stats + 2 * rows, stats + 3 * rows, g_inner,
+                nullptr, dprod, b.part_in, rows, inner, st, nullptr, gb, agdb,
+                dh, dh2, y2);
+  if (e) return e;
   if ((e = launch_reduce_parts<T>(b.part_in, dg_inner, nblk, inner, st)))
     return e;
   if ((e = launch_gemm<T, false, true>(dh, w_in, b.dxn, rows, dim, 2 * inner,
@@ -190,7 +218,7 @@ int ff_block_bwd_p2(const T* xn, const T* dh2, const T* y2, const T* dout,
 //   1. ln_rows: xn = T(LN_gpre(x))                       (rows x dim, T)
 //   2. h = xn · w_in in fp32, not rounded                (rows x 2 inner)
 //   3. dy = dout · w_outᵀ                                (rows x inner, fp32)
-//   4. geglu_recompute_bwd_rows: dh = T([da, db]) from the fp32 dprod,
+//   4. geglu_bwd_rows: dh = T([da, db]) from the fp32 dprod,
 //      y = T(xhat_in * g_inner), the partials of dy * xhat_in
 //   5. dg_inner (+)= their ordered sum
 //   6. dxn = dh · w_inᵀ                                  (rows x dim, fp32)
@@ -261,9 +289,9 @@ int ff_block_bwd_recompute(const T* x, const T* g_pre, const T* w_in,
   if ((e = launch_gemm<T, false, true>(dout, w_out, b.dy, rows, inner, dim,
                                        st)))
     return e;
-  if ((e = launch_geglu_recompute_bwd_rows<T>(
+  if ((e = launch_geglu_bwd_rows<float, float, T, kGegluRecompute>(
            b.dy, b.h, stats + 2 * ld, stats + 3 * ld, g_inner, b.part_in,
-           rows, inner, b.dh, b.y, st)))
+           rows, inner, b.dh, st, 0.f, b.y)))
     return e;
   if ((e = launch_emit_sum<T>(b.part_in, dg_inner, nblk, inner, acc, st)))
     return e;
@@ -291,14 +319,15 @@ int ff_block_bwd_recompute(const T* x, const T* g_pre, const T* w_in,
 // fp32 scratch of rows x inner, `xn` (rows x dim) and `y` (rows x inner)
 // scratch of the storage dtype. dim and inner must be multiples of 64.
 // K-FF passes null residual pointers; K1 passes prod_s, gb, agdb (rows x
-// inner, dtype) and stats (4 x stats_ld, fp32); K-FF-s passes stats alone.
+// inner, dtype) and stats (4 x stats_ld, fp32); K1-h passes h_s (rows x 2
+// inner, dtype) and stats; K-FF-s passes stats alone.
 extern "C" int xclip_ff_block_fwd(int dtype, const void* x, const void* g_pre,
                                   const void* w_in, const void* g_inner,
                                   const void* w_out, void* out, void* xn,
                                   void* prod, void* y, void* prod_s, void* gb,
-                                  void* agdb, void* stats, long long stats_ld,
-                                  int rows, int dim, int inner, float eps,
-                                  void* stream) {
+                                  void* agdb, void* h_s, void* stats,
+                                  long long stats_ld, int rows, int dim,
+                                  int inner, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dim % 64 || inner % 64 || rows < 0 || (stats && stats_ld < rows))
     return (int)cudaErrorInvalidValue;
@@ -309,7 +338,7 @@ extern "C" int xclip_ff_block_fwd(int dtype, const void* x, const void* g_pre,
       XCLIP_PTR(const T*, w_out), XCLIP_PTR(T*, out), XCLIP_PTR(T*, xn),
       XCLIP_PTR(float*, prod), XCLIP_PTR(T*, y), rows, dim, inner, eps, st,
       XCLIP_PTR(T*, prod_s), XCLIP_PTR(T*, gb), XCLIP_PTR(T*, agdb),
-      XCLIP_PTR(float*, stats), (long)stats_ld));
+      XCLIP_PTR(float*, stats), (long)stats_ld, XCLIP_PTR(T*, h_s)));
 }
 
 // Bytes of the workspace both K1 backward passes take.
@@ -342,7 +371,28 @@ extern "C" int xclip_ff_block_bwd_p1(
       XCLIP_PTR(T*, y2), workspace, rows, dim, inner, st));
 }
 
-// K1 backward pass 2: dw_in (dim x 2 inner) and dw_out (inner x dim) from
+// K1-h backward pass 1: as xclip_ff_block_bwd_p1, from the forward's h_s
+// (rows x 2 inner, dtype) and stats in place of prod_s, gb and agdb; the
+// workspace is xclip_ff_block_bwd_workspace's.
+extern "C" int xclip_ff_block_bwd_p1_h(
+    int dtype, const void* x, const void* g_pre, const void* w_in,
+    const void* g_inner, const void* w_out, const void* dout, const void* h_s,
+    const void* stats, void* dx, void* dprod, void* dg_pre, void* dg_inner,
+    void* xn, void* dh2, void* y2, void* workspace, int rows, int dim,
+    int inner, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim % 64 || inner % 64 || rows <= 0) return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, ff_block_bwd_p1<T>(
+      XCLIP_PTR(const T*, x), XCLIP_PTR(const T*, g_pre),
+      XCLIP_PTR(const T*, w_in), XCLIP_PTR(const T*, g_inner),
+      XCLIP_PTR(const T*, w_out), XCLIP_PTR(const T*, dout), nullptr,
+      nullptr, nullptr, XCLIP_PTR(const float*, stats), XCLIP_PTR(T*, dx),
+      XCLIP_PTR(T*, dprod), XCLIP_PTR(T*, dg_pre), XCLIP_PTR(T*, dg_inner),
+      XCLIP_PTR(T*, xn), XCLIP_PTR(T*, dh2), XCLIP_PTR(T*, y2), workspace,
+      rows, dim, inner, st, XCLIP_PTR(const T*, h_s)));
+}
+
+// K1 (and K1-h) backward pass 2: dw_in (dim x 2 inner) and dw_out (inner x dim) from
 // pass 1's xn, dh2, y2 and dout.
 extern "C" int xclip_ff_block_bwd_p2(int dtype, const void* xn,
                                      const void* dh2, const void* y2,

@@ -33,9 +33,13 @@ _F = ctypes.c_float
 # a sequence length) except the workspace queries, which return a byte
 # count (_RESTYPES).
 _SIGNATURES = {
-    "xclip_ff_block_fwd": [_I, *[_P] * 13, _L, _I, _I, _I, _F, _P],
+    "xclip_ff_block_fwd": [_I, *[_P] * 14, _L, _I, _I, _I, _F, _P],
     "xclip_ff_block_bwd_workspace": [_I, _I, _I, _I],
     "xclip_ff_block_bwd_p1": [_I, *[_P] * 18, _I, _I, _I, _P],
+    "xclip_ff_block_bwd_p1_h": [_I, *[_P] * 16, _I, _I, _I, _P],
+    "xclip_geglu_ln_fwd": [_I, _P, _P, _P, _I, _I, _F, _P],
+    "xclip_geglu_ln_bwd_workspace": [_I, _I],
+    "xclip_geglu_ln_bwd": [_I, *[_P] * 6, _I, _I, _F, _P],
     "xclip_ff_block_bwd_p2": [_I, *[_P] * 7, _I, _I, _I, _P],
     "xclip_ff_block_bwd_recompute_workspace": [_I] * 5,
     "xclip_ff_block_bwd_recompute": [_I, *[_P] * 7, _L, *[_P] * 6, _I, _I,

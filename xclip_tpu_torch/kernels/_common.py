@@ -1,6 +1,7 @@
 """Numerics shared by the kernels' plain versions, and the wrappers' checks.
 
-`eps_for`, `ln_fp32` and `ln_bwd` are the counterparts of
+`geglu_parts` and `gelu_grad` are the GEGLU of the FF kernels; `eps_for`,
+`ln_fp32` and `ln_bwd` are the counterparts of
 `xclip_tpu/kernels/_common.py`; the CUDA kernels compute the same gain-only
 LayerNorm (two-pass fp32 statistics) and its vjp in `csrc/common.cuh`.
 """
@@ -62,6 +63,24 @@ def ln_fp32(x32, g32, eps):
     mean, inv = ln_stats_fp32(x32, eps)
     xhat = (x32 - mean) * inv
     return xhat * g32, xhat, inv
+
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def geglu_parts(h32):
+    """(a, b, Φ(b), gelu(b)) of an fp32 h = [a, b] over the last axis: the
+    exact (erf) GELU as b·Φ(b), the op sequence of the kernels'
+    `GegluParts` (csrc/common.cuh)."""
+    inner = h32.shape[-1] // 2
+    a, b = h32[..., :inner], h32[..., inner:]
+    phi = 0.5 * (1.0 + torch.erf(b * _INV_SQRT2))
+    return a, b, phi, b * phi
+
+
+def gelu_grad(b, phi):
+    """gelu'(b) = Φ(b) + b·φ(b) (`_gelu_val_grad`), Φ(b) given."""
+    return phi + b * (torch.exp(-0.5 * b * b) * 0.3989422804014327)
 
 
 def ln_bwd(dy, xhat, inv, g32):

@@ -12,6 +12,16 @@
   four fp32 row statistics; the backward runs pass 1 `ff_block_bwd_p1`
   (Pallas `_bwd_dx_kernel_geglu`: dx, dprod, dg_pre, dg_inner) and pass 2
   `ff_block_bwd_p2` (Pallas `_bwd_dw_kernel_geglu`: dW_in, dW_out);
+* K1-h, the stored-h training route `ff_block_train_stored_h`
+  (`FFBlockStoredH`), the counterpart of `ff_block(..., store_h=True)`,
+  which `XCLIP_FF_STORE=h` selects: the forward `ff_block_fwd_stored_h`
+  (Pallas `_fwd_kernel_store`) keeps h = xn·W_in in the storage dtype and
+  the four statistics; pass 1 `ff_block_bwd_p1_stored_h` (Pallas
+  `_bwd_dx_kernel_stored`) rebuilds the GEGLU from the rounded h against
+  statistics of the fp32 h, the reference's precision quirk
+  (`xclip_tpu/kernels/fused_ff_block.py:54-64`), reproduced; pass 2 is
+  K1's `ff_block_bwd_p2` on the operands pass 1 hands it (Pallas
+  `_bwd_dw_kernel_stored` computes the same three products);
 * the memory-lean training route `ff_block_train_recompute`
   (`FFBlockRecompute`), the counterpart of `ff_block(..., store_h=False)`:
   the forward K-FF-s `ff_block_fwd_stats` (Pallas `_fwd_kernel_stats`)
@@ -41,16 +51,13 @@ Pass 1 also hands pass 2 the operands of its dW products (xn, dh2 =
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import _build
 from ._common import (CHUNK_BYTES, check_kernel_args, chunk_spans, dot32,
-                      dtype_code, eps_for, ln_bwd, ln_stats_fp32, refuse_grad,
-                      route, stream_ptr)
+                      dtype_code, eps_for, geglu_parts, gelu_grad, ln_bwd,
+                      ln_stats_fp32, refuse_grad, route, stream_ptr)
 
-_INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # The recompute backward's row chunks start at multiples of this many rows,
 # and its weight gradients sum split-k partials of exactly this many rows in
 # row order, so the gradients do not depend on the chunking.
@@ -86,20 +93,29 @@ def _fwd_scratch(rows, dim, inner, dtype, device):
             torch.empty((rows, inner), dtype=dtype, device=device))
 
 
-def _fwd_kernel(name, tensors, stored):
+def _fwd_kernel(name, tensors, keep):
     """Launch the forward kernel on (rows, dim) x → (out, residuals or
-    None); with `stored`, the K1 residuals as the plain version returns."""
+    None); `keep` "geglu" (K1) or "h" (K1-h): the residuals as the plain
+    version returns them."""
     x = tensors[0]
     rows, dim, inner = _check(name, tensors)
     dev, dt = x.device, x.dtype
     out = torch.empty_like(x)
     xn, prod, y = _fwd_scratch(rows, dim, inner, dt, dev)
-    residuals, residual_ptrs = None, [None] * 4    # None: a null pointer
-    if stored:
-        residuals = (*(torch.empty((rows, inner), dtype=dt, device=dev)
-                       for _ in range(3)),
-                     torch.empty((4, rows), dtype=torch.float32, device=dev))
-        residual_ptrs = [t.data_ptr() for t in residuals]
+    # the C entry point's prod_s, gb, agdb, h_s, stats (None: a null pointer)
+    residuals, residual_ptrs = None, [None] * 5
+    if keep is not None:
+        stats = torch.empty((4, rows), dtype=torch.float32, device=dev)
+        if keep == "geglu":
+            residuals = (*(torch.empty((rows, inner), dtype=dt, device=dev)
+                           for _ in range(3)), stats)
+            residual_ptrs = [*(t.data_ptr() for t in residuals[:3]), None,
+                             stats.data_ptr()]
+        else:
+            residuals = (torch.empty((rows, 2 * inner), dtype=dt,
+                                     device=dev), stats)
+            residual_ptrs = [None, None, None, residuals[0].data_ptr(),
+                             stats.data_ptr()]
     with torch.cuda.device(dev):  # launch on the tensors' card
         err = _build.library().xclip_ff_block_fwd(
             dtype_code(dt),
@@ -118,7 +134,7 @@ def ff_block(x, g_pre, w_in, g_inner, w_out):
     refuse_grad("ff_block", tensors, "ff_block_train")
     if not route("ff_block", tensors):
         return ff_block_plain(*tensors)
-    out, _ = _fwd_kernel("ff_block", tensors, stored=False)
+    out, _ = _fwd_kernel("ff_block", tensors, keep=None)
     ff_block.launches += 1
     return out
 
@@ -138,17 +154,14 @@ def ff_block_fwd_stored_plain(x, g_pre, w_in, g_inner, w_out):
 
 def _forward_plain(x, g_pre, w_in, g_inner, w_out, keep):
     """keep None: (out, None); "stats": (out, stats); "geglu": (out,
-    (prod, gelu_b, agdb, stats))."""
+    (prod, gelu_b, agdb, stats)); "h": (out, (h, stats))."""
     dtype = x.dtype
     eps = eps_for(dtype)
     x32 = x.float()
     mean_pre, inv_pre = ln_stats_fp32(x32, eps)
     xn = (((x32 - mean_pre) * inv_pre) * g_pre.float()).to(dtype)
     h = dot32(xn, w_in)
-    inner = h.shape[-1] // 2
-    a, b = h[:, :inner], h[:, inner:]
-    phi = 0.5 * (1.0 + torch.erf(b * _INV_SQRT2))
-    gelu_b = b * phi
+    a, b, phi, gelu_b = geglu_parts(h)
     prod = a * gelu_b
     mean_in, inv_in = ln_stats_fp32(prod, eps)
     y = (((prod - mean_in) * inv_in) * g_inner.float()).to(dtype)
@@ -158,13 +171,10 @@ def _forward_plain(x, g_pre, w_in, g_inner, w_out, keep):
     stats = torch.cat([mean_pre, inv_pre, mean_in, inv_in], dim=1).T
     if keep == "stats":
         return out, stats.contiguous()
+    if keep == "h":
+        return out, (h.to(dtype), stats.contiguous())
     return out, (prod.to(dtype), gelu_b.to(dtype),
-                 (a * _gelu_grad(b, phi)).to(dtype), stats.contiguous())
-
-
-def _gelu_grad(b, phi):
-    """gelu'(b) = Φ(b) + b·φ(b) (`_gelu_val_grad`), Φ(b) given."""
-    return phi + b * (torch.exp(-0.5 * b * b) * 0.3989422804014327)
+                 (a * gelu_grad(b, phi)).to(dtype), stats.contiguous())
 
 
 def ff_block_fwd_stored(x, g_pre, w_in, g_inner, w_out):
@@ -172,7 +182,7 @@ def ff_block_fwd_stored(x, g_pre, w_in, g_inner, w_out):
     tensors = (x, g_pre, w_in, g_inner, w_out)
     if not route("ff_block_fwd_stored", tensors):
         return ff_block_fwd_stored_plain(*tensors)
-    result = _fwd_kernel("ff_block_fwd_stored", tensors, stored=True)
+    result = _fwd_kernel("ff_block_fwd_stored", tensors, keep="geglu")
     ff_block_fwd_stored.launches += 1
     return result
 
@@ -187,11 +197,18 @@ def ff_block_bwd_p1_plain(x, g_pre, w_in, g_inner, w_out, do, stored):
     dg_inner, (xn, dh2, y2)); pass 2's operands as `_p2_geglu_core` builds
     them. dg_* are cast to the storage dtype."""
     prod, gelu_b, agdb, stats = stored
+    xhat_in = (prod.float() - stats[2][:, None]) * stats[3][:, None]
+    return _p1_plain(x, g_pre, w_in, g_inner, w_out, do, stats, xhat_in,
+                     gelu_b.float(), agdb.float())
+
+
+def _p1_plain(x, g_pre, w_in, g_inner, w_out, do, stats, xhat_in, gb32,
+              agdb32):
+    """Pass 1 of both stored backwards from xhat_in, gelu(b) and
+    a·gelu'(b) in fp32, however the caller rebuilt them."""
     dtype = x.dtype
-    mp, ip, mi, ii = (stats[i][:, None] for i in range(4))
+    mp, ip, ii = stats[0][:, None], stats[1][:, None], stats[3][:, None]
     xhat_pre = (x.float() - mp) * ip
-    xhat_in = (prod.float() - mi) * ii
-    gb32, agdb32 = gelu_b.float(), agdb.float()
     dy = dot32(do, w_out.T)
     dprod, dg_inner = ln_bwd(dy, xhat_in, ii, g_inner.float())
     dh = torch.cat([dprod * gb32, dprod * agdb32], dim=-1).to(dtype)
@@ -227,24 +244,26 @@ def ff_block_bwd_p1(x, g_pre, w_in, g_inner, w_out, do, stored):
     rows, dim, inner = _check("ff_block_bwd_p1",
                               (x, g_pre, w_in, g_inner, w_out))
     check_kernel_args("ff_block_bwd_p1", (do, *stored[:3]), x.dtype)
-    dev, dt = x.device, x.dtype
-    dx = torch.empty_like(x)
-    dprod, y2 = (torch.empty((rows, inner), dtype=dt, device=dev)
-                 for _ in range(2))
-    dh2 = torch.empty((rows, 2 * inner), dtype=dt, device=dev)
-    xn = torch.empty((rows, dim), dtype=dt, device=dev)
-    dg_pre = torch.empty((dim,), dtype=dt, device=dev)
-    dg_inner = torch.empty((inner,), dtype=dt, device=dev)
+    dx, dprod, dg_pre, dg_inner, ops = _p1_outputs(rows, dim, inner,
+                                                   x.dtype, x.device)
     ws = _bwd_workspace(x, inner)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(x.device):
         err = _build.library().xclip_ff_block_bwd_p1(
-            dtype_code(dt), *(t.data_ptr() for t in (
+            dtype_code(x.dtype), *(t.data_ptr() for t in (
                 x, g_pre, w_in, g_inner, w_out, do, *stored, dx, dprod,
-                dg_pre, dg_inner, xn, dh2, y2, ws)),
-            rows, dim, inner, stream_ptr(dev))
+                dg_pre, dg_inner, *ops, ws)),
+            rows, dim, inner, stream_ptr(x.device))
     _build.check(err, "xclip_ff_block_bwd_p1")
     ff_block_bwd_p1.launches += 1
-    return dx, dprod, dg_pre, dg_inner, (xn, dh2, y2)
+    return dx, dprod, dg_pre, dg_inner, ops
+
+
+def _p1_outputs(rows, dim, inner, dt, dev):
+    """Pass 1's outputs: dx, dprod, dg_pre, dg_inner, (xn, dh2, y2)."""
+    def new(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+    return (new(rows, dim), new(rows, inner), new(dim), new(inner),
+            (new(rows, dim), new(rows, 2 * inner), new(rows, inner)))
 
 
 ff_block_bwd_p1.launches = 0
@@ -309,6 +328,103 @@ def ff_block_train(x, g_pre, w_in, g_inner, w_out):
     return FFBlock.apply(x, g_pre, w_in, g_inner, w_out)
 
 
+# ------------------------------------------------------------ K1-h
+
+def ff_block_fwd_stored_h_plain(x, g_pre, w_in, g_inner, w_out):
+    """x: (rows, dim). Returns (out, (h, stats)) in the cast order of
+    `_fwd_store_core`: h = xn·W_in rounded to x.dtype (rows, 2·inner),
+    stats (4, rows) fp32 with mean_in / inv_in from the fp32 prod."""
+    return _forward_plain(x, g_pre, w_in, g_inner, w_out, keep="h")
+
+
+def ff_block_fwd_stored_h(x, g_pre, w_in, g_inner, w_out):
+    """K1-h forward on (rows, dim) x: (out, (h, stats)) as the plain
+    version."""
+    tensors = (x, g_pre, w_in, g_inner, w_out)
+    if not route("ff_block_fwd_stored_h", tensors):
+        return ff_block_fwd_stored_h_plain(*tensors)
+    result = _fwd_kernel("ff_block_fwd_stored_h", tensors, keep="h")
+    ff_block_fwd_stored_h.launches += 1
+    return result
+
+
+ff_block_fwd_stored_h.launches = 0
+
+
+def ff_block_bwd_p1_stored_h_plain(x, g_pre, w_in, g_inner, w_out, do,
+                                   stored):
+    """Pass 1 (`_p1_stored_core`) → as `ff_block_bwd_p1_plain`. prod,
+    gelu(b) and a·gelu'(b) are rebuilt from the rounded h, xhat_in from the
+    forward's statistics of the fp32 h (the reference's precision quirk);
+    dh2 from T(dprod), as `_p2_stored_core` builds it."""
+    h, stats = stored
+    a, b, phi, gelu_b = geglu_parts(h.float())
+    xhat_in = (a * gelu_b - stats[2][:, None]) * stats[3][:, None]
+    return _p1_plain(x, g_pre, w_in, g_inner, w_out, do, stats, xhat_in,
+                     gelu_b, a * gelu_grad(b, phi))
+
+
+def ff_block_bwd_p1_stored_h(x, g_pre, w_in, g_inner, w_out, do, stored):
+    """K1-h backward pass 1; returns as the plain version. Pass 2 is K1's
+    `ff_block_bwd_p2` on the operands it returns."""
+    tensors = (x, g_pre, w_in, g_inner, w_out, do, *stored)
+    if not route("ff_block_bwd_p1_stored_h", tensors):
+        return ff_block_bwd_p1_stored_h_plain(x, g_pre, w_in, g_inner,
+                                              w_out, do, stored)
+    rows, dim, inner = _check("ff_block_bwd_p1_stored_h",
+                              (x, g_pre, w_in, g_inner, w_out))
+    h, stats = stored
+    check_kernel_args("ff_block_bwd_p1_stored_h", (do, h), x.dtype)
+    check_kernel_args("ff_block_bwd_p1_stored_h", (stats,), torch.float32)
+    if h.shape != (rows, 2 * inner) or stats.shape != (4, rows):
+        raise ValueError("ff_block_bwd_p1_stored_h: h or stats of shape "
+                         f"{tuple(h.shape)}, {tuple(stats.shape)}")
+    dx, dprod, dg_pre, dg_inner, ops = _p1_outputs(rows, dim, inner,
+                                                   x.dtype, x.device)
+    ws = _bwd_workspace(x, inner)
+    with torch.cuda.device(x.device):
+        err = _build.library().xclip_ff_block_bwd_p1_h(
+            dtype_code(x.dtype), *(t.data_ptr() for t in (
+                x, g_pre, w_in, g_inner, w_out, do, h, stats, dx, dprod,
+                dg_pre, dg_inner, *ops, ws)),
+            rows, dim, inner, stream_ptr(x.device))
+    _build.check(err, "xclip_ff_block_bwd_p1_h")
+    ff_block_bwd_p1_stored_h.launches += 1
+    return dx, dprod, dg_pre, dg_inner, ops
+
+
+ff_block_bwd_p1_stored_h.launches = 0
+
+
+class FFBlockStoredH(torch.autograd.Function):
+    """K1-h: the stored-h FF block, forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_in, g_inner, w_out):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        out, stored = ff_block_fwd_stored_h(x2, g_pre, w_in, g_inner, w_out)
+        ctx.save_for_backward(x2, g_pre, w_in, g_inner, w_out, *stored)
+        ctx.x_shape = x.shape
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, g_pre, w_in, g_inner, w_out, *stored = ctx.saved_tensors
+        do = dout.reshape(x2.shape).to(x2.dtype).contiguous()
+        dx, _, dg_pre, dg_inner, ops = ff_block_bwd_p1_stored_h(
+            x2, g_pre, w_in, g_inner, w_out, do, stored)
+        dw_in, dw_out = ff_block_bwd_p2(*ops, do)
+        return dx.reshape(ctx.x_shape), dg_pre, dw_in, dg_inner, dw_out
+
+
+def ff_block_train_stored_h(x, g_pre, w_in, g_inner, w_out):
+    """x + FF(LN(x)) keeping h = xn·W_in (storage dtype) and the row
+    statistics for the backward (`ff_block(..., store_h=True)`, which
+    `XCLIP_FF_STORE=h` selects); differentiable in all five tensors. Same
+    argument layout as `ff_block`."""
+    return FFBlockStoredH.apply(x, g_pre, w_in, g_inner, w_out)
+
+
 # ------------------------------------------- K-FF-s and the recompute backward
 
 def fwd_stats_spans(rows, dim, inner, dtype):
@@ -356,7 +472,7 @@ def ff_block_fwd_stats(x, g_pre, w_in, g_inner, w_out):
                 dtype_code(dt), x[s:].data_ptr(),
                 *(t.data_ptr() for t in tensors[1:]), out[s:].data_ptr(),
                 xn.data_ptr(), prod.data_ptr(), y.data_ptr(), None, None,
-                None, stats[0, s:].data_ptr(), rows, e - s, dim, inner,
+                None, None, stats[0, s:].data_ptr(), rows, e - s, dim, inner,
                 eps_for(dt), stream_ptr(dev))
             _build.check(err, "xclip_ff_block_fwd")
     ff_block_fwd_stats.launches += 1
@@ -375,15 +491,11 @@ def ff_block_bwd_recompute_plain(x, g_pre, w_in, g_inner, w_out, do, stats):
     mp, ip, mi, ii = (stats[i][:, None] for i in range(4))
     xhat_pre = (x.float() - mp) * ip
     xn = (xhat_pre * g_pre.float()).to(dtype)
-    h = dot32(xn, w_in)
-    inner = h.shape[-1] // 2
-    a, b = h[:, :inner], h[:, inner:]
-    phi = 0.5 * (1.0 + torch.erf(b * _INV_SQRT2))
-    gelu_b = b * phi
+    a, b, phi, gelu_b = geglu_parts(dot32(xn, w_in))
     xhat_in = (a * gelu_b - mi) * ii
     dy = dot32(do, w_out.T)
     dprod, dg_inner = ln_bwd(dy, xhat_in, ii, g_inner.float())
-    dh = torch.cat([dprod * gelu_b, dprod * a * _gelu_grad(b, phi)],
+    dh = torch.cat([dprod * gelu_b, dprod * a * gelu_grad(b, phi)],
                    dim=-1).to(dtype)
     y = (xhat_in * g_inner.float()).to(dtype)
     dx_pre, dg_pre = ln_bwd(dot32(dh, w_in.T), xhat_pre, ip, g_pre.float())

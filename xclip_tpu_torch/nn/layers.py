@@ -21,14 +21,20 @@ Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
     training alike; 'flash' takes this route with or without rotary;
   * `ff_impl` in ('block', 'block_stored') → the FF block's lean forward
     K-FF at inference (`kernels/fused_ff_block.ff_block`); in training
-    'block_stored' → K1, the stored-GEGLU FF block (`ff_block_train`),
-    'block' → K-FF-s with the recompute backward
-    (`ff_block_train_recompute`). The JAX stack's scoped-VMEM gates
-    between these variants are TPU artefacts: each flag takes its own
-    route. What training does not have yet (XCLIP_FF_STORE=h, remat,
-    dropout) raises `NotImplementedError` naming its ROADMAP.md item;
+    'block_stored' → K1, the stored-GEGLU FF block (`ff_block_train`), or,
+    with the environment variable XCLIP_FF_STORE=h when the layer runs,
+    K1-h, the stored-h FF block (`ff_block_train_stored_h`); 'block' →
+    K-FF-s with the recompute backward (`ff_block_train_recompute`). The
+    JAX stack's scoped-VMEM gates between these variants are TPU
+    artefacts: each flag takes its own route;
+  * `ff_impl='fused'` → `FeedForward` itself, as `feed_forward_apply`:
+    PreNorm, the w_in product, K8's GEGLU + inner LayerNorm
+    (`kernels/fused_ff.geglu_layernorm`), the w_out product, in inference
+    and training alike;
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
+What training does not have yet (remat, dropout) raises
+`NotImplementedError` naming its ROADMAP.md item.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
 both kernels run; the port does not, since pad rows are masked keys and the
 FF block is row-wise, so real rows are unchanged and pad rows, whose
@@ -50,24 +56,22 @@ from ..kernels.attention_megablock import (attention_block,
                                           attention_block_train,
                                           attention_block_train_recompute)
 from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_ff import geglu_layernorm
 from ..kernels.fused_ff_block import (ff_block, ff_block_train,
-                                      ff_block_train_recompute)
+                                      ff_block_train_recompute,
+                                      ff_block_train_stored_h)
 from .core import LayerNorm, Linear, layer_norm
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv", "flash")
 MEGA_IMPLS = ("fused", "fused_recompute", "fused_qkv")
-FF_IMPLS = ("xla", "block", "block_stored")
-FF_BLOCK_IMPLS = FF_IMPLS[1:]
+FF_IMPLS = ("xla", "block", "block_stored", "fused")
+FF_BLOCK_IMPLS = ("block", "block_stored")
 
 
 def check_impls(attn_impl, ff_impl):
-    """Raise for a route this slice of the port does not have."""
+    """Raise for an unknown route."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    if ff_impl == "fused":
-        raise NotImplementedError(
-            "ff_impl='fused' (GEGLU + inner LayerNorm kernel, Pallas "
-            "fused_ff.py) is not ported yet: ROADMAP.md Queue 2, K8")
     if ff_impl not in FF_IMPLS:
         raise ValueError(f"unknown ff_impl {ff_impl!r}")
 
@@ -83,10 +87,6 @@ def check_training_routes(attn_impl, ff_impl, *, checkpoint=False,
         raise NotImplementedError(
             "attention / FF dropout in training is not ported yet: "
             "ROADMAP.md Queue 1, items 1-2")
-    if ff_impl == "block_stored" and os.environ.get("XCLIP_FF_STORE") == "h":
-        raise NotImplementedError(
-            "XCLIP_FF_STORE=h (the stored-h FF block) is not ported yet: "
-            "ROADMAP.md Queue 2, K1 fwd and K1 bwd")
 
 
 def patch_dropout(x, prob, *, generator=None, keep_idx=None):
@@ -108,7 +108,9 @@ def patch_dropout(x, prob, *, generator=None, keep_idx=None):
 
 
 class FeedForward(nn.Module):
-    """PreNorm → w_in → GEGLU (exact GELU) → inner LayerNorm → w_out."""
+    """PreNorm → w_in → GEGLU (exact GELU) → inner LayerNorm → w_out;
+    with `ff_impl='fused'` the middle is K8 (fp32 GEGLU and statistics,
+    the output rounded once), otherwise plain PyTorch."""
 
     def __init__(self, dim: int, mult: int = 4, *, generator=None,
                  dtype=torch.float32):
@@ -119,12 +121,15 @@ class FeedForward(nn.Module):
         self.inner_norm = LayerNorm(inner, dtype=dtype)
         self.w_out = Linear(inner, dim, generator=generator, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, ff_impl="xla"):
         x = self.norm(x)
         w = self.w_in.w.to(x.dtype)
-        inner = w.shape[-1] // 2
-        v, gate = x @ w[:, :inner], x @ w[:, inner:]
-        x = layer_norm(v * F.gelu(gate), self.inner_norm.g)
+        if ff_impl == "fused":
+            x = geglu_layernorm(x @ w, self.inner_norm.g.to(x.dtype))
+        else:
+            inner = w.shape[-1] // 2
+            v, gate = x @ w[:, :inner], x @ w[:, inner:]
+            x = layer_norm(v * F.gelu(gate), self.inner_norm.g)
         return self.w_out(x)
 
 
@@ -260,9 +265,10 @@ class Transformer(nn.Module):
                 checkpoint_during_training=False, attn_dropout=0.0,
                 ff_dropout=0.0):
         """`rotary`: (n, rot_dim) fp32 frequencies (`rotary_freqs`) or
-        None. `training` selects the kernels' training routes (K2 or K3, K1
-        or the recompute FF block); otherwise the lean inference forwards
-        run, which take no gradient."""
+        None. `training` selects the kernels' training routes (K2 or K3; K1,
+        K1-h or the recompute FF block; K8 with its backward); otherwise
+        the lean inference forwards run, which take no gradient (K8 serves
+        both)."""
         check_impls(attn_impl, ff_impl)
         if training:
             check_training_routes(
@@ -275,8 +281,12 @@ class Transformer(nn.Module):
             mega = (attention_block_train if attn_impl == "fused" else
                     functools.partial(attention_block_train_recompute,
                                       keep_qkv=attn_impl == "fused_qkv"))
-            ffb = (ff_block_train if ff_impl == "block_stored"
-                   else ff_block_train_recompute)
+            if ff_impl != "block_stored":
+                ffb = ff_block_train_recompute
+            elif os.environ.get("XCLIP_FF_STORE") == "h":   # as JAX reads it
+                ffb = ff_block_train_stored_h
+            else:
+                ffb = ff_block_train
         dt = x.dtype
         x = self.norm_in(x)
         if use_mega:
@@ -296,5 +306,5 @@ class Transformer(nn.Module):
                 x = ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
                         f.inner_norm.g.to(dt), f.w_out.w.to(dt))
             else:
-                x = f(x) + x
+                x = f(x, ff_impl) + x
         return self.norm_out(x)
