@@ -72,8 +72,8 @@ caught.
              magnitude) and within 1e-3 relative Frobenius error each;
              CUDA-event times of
              kernel, plain version and scaled_dot_product_attention
-             (forward, backward, both) on the same q, k, v and mask, and
-             the bound.
+             (forward, backward, both) on the same q, k, v and mask, the
+             kernel / SDPA ratio, and the bound.
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -250,24 +250,34 @@ def valid_pairs(lengths, n, causal):
     return n * sum(lengths)
 
 
-def core_cost(kind, rows_heads, pairs, mask_bytes, it=2):
+def used_keys(lengths, n):
+    """Keys that some query reads, over batch elements whose first
+    `length` keys are valid: the valid keys, or all n where the element
+    has a dead row (no valid key: it is uniform over every key). With
+    key 0 valid, causal rows are never dead."""
+    return sum(L if L > 0 else n for L in lengths)
+
+
+def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2):
     """(bytes, FLOPs) of one attention-core call over `rows_heads` (row,
-    head) pairs of width 64 and `pairs` valid (query, key, head) triples:
-    the forward reads q, k, v, writes out and the fp32 lse, and computes
-    q·kᵀ and p·v over the valid keys only; the backward reads q, k, v,
-    out, dout and lse, writes dq, dk and dv, and computes s, dp, dv, dq and
-    dk."""
-    e = rows_heads * 64 * it
+    head) pairs of width 64, `keys_heads` (key, head) pairs that some
+    query reads (`used_keys`) and `pairs` valid (query, key, head)
+    triples: the forward reads q, the used k and v, writes out and the
+    fp32 lse, and computes q·kᵀ and p·v over the valid pairs; the
+    backward reads q, the used k and v, out, dout and lse, writes dq, dk
+    and dv (zero for unused keys), and computes s, dp, dv, dq and dk."""
+    e, e_kv = rows_heads * 64 * it, keys_heads * 64 * it
     if kind == "fwd":
-        return 4 * e + 4 * rows_heads + mask_bytes, 4 * pairs * 64
-    return 8 * e + 4 * rows_heads + mask_bytes, 10 * pairs * 64
+        return 2 * e + 2 * e_kv + 4 * rows_heads + mask_bytes, 4 * pairs * 64
+    return (6 * e + 2 * e_kv + 4 * rows_heads + mask_bytes,
+            10 * pairs * 64)
 
 
 def flash_cost(kind, bh, n, lengths, causal, it=2):
     """core_cost of K7 on (bh, n, 64), the key mask repeated per head
     (`lengths` per bh row)."""
-    return core_cost(kind, bh * n, valid_pairs(lengths, n, causal), bh * n,
-                     it)
+    return core_cost(kind, bh * n, used_keys(lengths, n),
+                     valid_pairs(lengths, n, causal), bh * n, it)
 
 
 def phase(n, name, msg):
@@ -468,8 +478,10 @@ def attn_kernels(gen, core, flash):
                     cuda_ms(lambda: core.attention_core_bwd_plain(
                         qkv, mask, out, lse, do, *static)))
                 pairs = 8 * valid_pairs(lengths, n, causal)
-                costs.update(k6_fwd=core_cost("fwd", b * n * 8, pairs, b * n),
-                             k6_bwd=core_cost("bwd", b * n * 8, pairs, b * n))
+                keys = 8 * used_keys(lengths, n)
+                costs.update({f"k6_{kind}": core_cost(kind, b * n * 8, keys,
+                                                      pairs, b * n)
+                              for kind in ("fwd", "bwd")})
                 q, k, v = (_heads_of(qkv, i) for i in range(3))
                 lib["k6"] = sdpa_ms(q, k, v, mask, causal, 0.125,
                                     _heads_of(do, 0))
@@ -543,11 +555,13 @@ def attn_kernels(gen, core, flash):
     for key in ms:
         b_ms, b_by = bound(*costs[key])
         sdpa = lib[key.rsplit("_", 1)[0]]
-        print(f"  {key}: kernel {ms[key][0]:.3f} ms, plain {ms[key][1]:.3f} "
-              f"ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
+        one = sdpa[0 if key.endswith("fwd") else 1]
+        print(f"  {key}: kernel {ms[key][0]:.3f} ms ({ms[key][0] / one:.2f}x "
+              f"sdpa), plain {ms[key][1]:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}), sdpa "
               f"{'forward' if key.endswith('fwd') else 'backward'} "
-              f"{sdpa[0 if key.endswith('fwd') else 1]:.3f} ms (forward + "
-              f"backward {sdpa[2]:.3f} ms)", flush=True)
+              f"{one:.3f} ms (forward + backward {sdpa[2]:.3f} ms)",
+              flush=True)
     library = {key: lib[key.rsplit("_", 1)[0]][0 if key.endswith("fwd")
                                                  else 1] for key in ms}
     return errs, ms, costs, library
@@ -709,10 +723,10 @@ LEAN_KERNELS = [
 # tower's attention kernels, timed at the text tower's flagship shape
 ATTN_KERNELS = [
     ("k6_fwd", "K6 attention_core forward",
-     "xclip_tpu_torch/csrc/attention_block.cu",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
      "xclip_tpu/kernels/attention_block.py:83"),
-    ("k6_bwd", "K6 attention_core backward",
-     "xclip_tpu_torch/csrc/attention_block.cu",
+    ("k6_bwd", "K6 attention_core backward (dq, dk/dv)",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
      "xclip_tpu/kernels/attention_block.py:117"),
     ("k7_fwd", "K7 flash_attention forward",
      "xclip_tpu_torch/csrc/flash_attention.cu",
@@ -1518,6 +1532,9 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.device_count()} device(s)")
 
+    if not (ROOT / "xclip_tpu_torch" / "csrc").is_dir():
+        fail(f"no xclip_tpu_torch/csrc beside {Path(__file__).name}: run it "
+             "from the root of a checkout of the repository")
     from xclip_tpu_torch import CLIP
     from xclip_tpu_torch import eval as teval
     from xclip_tpu_torch.convert import load_jax_params, numpy_params

@@ -8,7 +8,8 @@ fp32; tolerances: outputs 1e-5 absolute (|out| < 4: summation order only),
 gradients 1e-4 absolute (sums over n keys or queries of O(1) terms, in
 another order). Key masks: none; a right-padded row and a left-padded row;
 the same with one batch element all masked (dead rows: K6 gives uniform
-weights, K7 zeros).
+weights, K7 zeros); for K6 also the same with a third element's middle
+half masked (whole 64-key tiles masked between valid keys at n = 257).
 """
 
 import jax
@@ -35,7 +36,7 @@ def _close(got, want, atol):
                                rtol=0)
 
 
-@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("n", [33, 257])
 def test_attention_core_matches_pallas(n, causal, mask_kind):

@@ -409,7 +409,7 @@ def _assert_elementwise(got, want, dtype, names):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
 @pytest.mark.parametrize("n,heads", [(33, 2), (257, 8), (256, 8)])
 def test_attention_core_kernels_match_plain(cuda_device, dtype, causal,
                                             mask_kind, n, heads):
@@ -429,6 +429,39 @@ def test_attention_core_kernels_match_plain(cuda_device, dtype, causal,
     assert (core.attention_core_fwd.launches,
             core.attention_core_bwd.launches) == (counts[0] + 1,
                                                  counts[1] + 1)
+
+
+def _nan_blocks(*specs):
+    """Allocate NaN-filled tensors of the given (shape, dtype)s and free
+    them: the caching allocator hands their blocks to the next tensors of
+    those sizes, so an element a kernel leaves unwritten reads NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+              for shape, dtype in specs]
+    torch.cuda.synchronize()
+    del blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["holes", "dead"])
+def test_attention_core_writes_every_element(cuda_device, causal, mask_kind):
+    """bf16 K6 skips causal and all-masked tiles, yet writes every element
+    of out, lse and dqkv (the wrapper takes them from torch.empty)."""
+    qkv, mask, do = to_torch(core_args(n=257, heads=8, mask_kind=mask_kind),
+                             torch.bfloat16, cuda_device)
+    static = (8, 64, 0.125, causal, True)
+    b, n, _ = qkv.shape
+    _nan_blocks(((b, n, 512), torch.bfloat16), ((b, n, 8), torch.float32))
+    out, lse = core.attention_core_fwd(qkv, mask, *static)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _nan_blocks((tuple(qkv.shape), torch.bfloat16),
+                ((b, n, 8), torch.float32))
+    dqkv = core.attention_core_bwd(qkv, mask, out, lse, do, *static)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dqkv).all()
 
 
 @pytest.mark.cuda
@@ -519,14 +552,18 @@ def test_flash_attention_more_than_65535_heads(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_cores_are_deterministic(cuda_device):
-    """No float atomics: two backward runs of K6 and of K7 agree bit for
+    """No float atomics: two backward runs of K6 (also at (4, 256, 8
+    heads) causal with whole masked key tiles) and of K7 agree bit for
     bit."""
-    qkv, mask, do = to_torch(core_args(n=70, heads=2), torch.bfloat16,
-                             cuda_device)
-    out, lse = core.attention_core_fwd(qkv, mask, 2, 64, 0.125, True)
-    a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, 2, 64, 0.125,
-                                    True) for _ in range(2))
-    assert torch.equal(a, b)
+    for kwargs in (dict(n=70, heads=2),
+                   dict(b=4, n=256, heads=8, mask_kind="holes")):
+        qkv, mask, do = to_torch(core_args(**kwargs), torch.bfloat16,
+                                 cuda_device)
+        static = (kwargs["heads"], 64, 0.125, True)
+        out, lse = core.attention_core_fwd(qkv, mask, *static)
+        a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, *static)
+                for _ in range(2))
+        assert torch.equal(a, b), kwargs
     q, k, v, mask, do = _flash_padded(flash_args(n=200), torch.bfloat16,
                                       cuda_device)
     out, lse = flash.flash_attention_fwd(q, k, v, mask, True)

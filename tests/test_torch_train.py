@@ -135,6 +135,31 @@ def test_train_steps_match_jax():
         _tree_close(to_jax_tree(tclip), state.params, atol=2e-6)
 
 
+def test_step_metrics_match_jax():
+    """One step's metrics: JAX's key set, every value within the step
+    tolerances (1e-5), and the four losses of features that are off
+    (text and image SSL, multiview, sim-reg) exactly 0."""
+    jclip, params, tclip = _pair(seed=2)
+    text, image = _inputs(seed=2)
+    jopt = jtrainer.default_optimizer(learning_rate=1e-4)
+    state = jtrainer.TrainState(params=params, opt_state=jopt.init(params),
+                                step=jnp.zeros((), jnp.int32))
+    rng = jax.random.PRNGKey(7)
+    _, want = jtrainer.make_train_step(jclip.model, jopt, donate=False)(
+        state, jnp.asarray(text), jnp.asarray(image), rng)
+    got = make_train_step(tclip, default_optimizer(
+        tclip.parameters(), learning_rate=1e-4))(
+        torch.from_numpy(text), torch.from_numpy(image),
+        keep_idx=jax_keep_idx(rng, 4, 9, 0.5))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].item(), float(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    for k in ("text_ssl_loss", "image_ssl_loss", "multiview_cl_loss",
+              "sim_reg_loss"):
+        assert got[k].item() == 0.0 and float(want[k]) == 0.0, k
+
+
 @pytest.mark.parametrize("warmup,total", [(0, None), (3, 10), (8, 5),
                                           (1, 2)])
 def test_schedule_matches_optax(warmup, total):

@@ -50,13 +50,17 @@ def to_np(t):
 
 def _key_mask(b, n, mask_kind):
     """(b, n) key mask: "none" all valid; "keypad" a right-padded row 0 and
-    a left-padded row 1; "dead" as keypad with row b - 1 all masked."""
+    a left-padded row 1; "dead" as keypad with row b - 1 all masked;
+    "holes" as keypad with keys [n // 4, 3n // 4) of row 2 masked between
+    valid ones (keys 64..191 at n = 257 or 256: two whole 64-key tiles)."""
     mask = np.ones((b, n), dtype=bool)
-    if mask_kind in ("keypad", "dead"):
+    if mask_kind in ("keypad", "dead", "holes"):
         mask[0, n - 9:] = False
         mask[1, :n // 3] = False
     if mask_kind == "dead":
         mask[b - 1, :] = False
+    if mask_kind == "holes":
+        mask[2, n // 4:3 * n // 4] = False
     return mask
 
 

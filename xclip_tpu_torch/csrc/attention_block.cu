@@ -6,10 +6,9 @@
 // PreNorm, the qkv product, the rotation and the output projection stay
 // outside, as in JAX, and the kernels see the rotated qkv.
 //
-// Both are the attention megablock's attention core (attention_core.cuh),
-// whose semantics are K6's: scores (q . k) * scale in fp32, -inf on masked
-// and future keys, a dead row uniform over the n real keys (m = 0), l =
-// max(sum p, 1e-30), p / l cast to the storage dtype before p @ v.
+// Semantics: scores (q . k) * scale in fp32, -inf on masked and future
+// keys, a dead row uniform over the n real keys (m = 0), l = max(sum p,
+// 1e-30), p / l cast to the storage dtype before p @ v.
 //   * forward: out (b, n, heads*64, T) and the fp32 log-sum-exp per row and
 //     head, lse = m + log l (log n on a dead row), (b, n, heads);
 //   * backward: from qkv, out, lse and do (b, n, heads*64, T), p = exp(s -
@@ -18,13 +17,14 @@
 //     dv = T(p)ᵀ . do, written into dqkv in the fused layout. Two kernels
 //     (query tiles for dq and delta, key tiles for dk and dv), no atomics.
 // The Pallas kernel pads n to 128 and groups two heads into one 128-lane
-// block, TPU artefacts; here a block is one (32-query or 64-key tile, head,
-// batch element) of the true (b, n, 3*heads*64) tensor.
+// block, TPU artefacts; here a block is one (64-row tile, head, batch
+// element) of the true (b, n, 3*heads*64) tensor.
 //
-// What bounds it on the card: at the text tower's shape (b 256, n 256, 8
-// heads) the exact softmax over full score rows in shared memory and the
-// re-staging of k and v per query tile; the products run on wmma, not
-// wgmma. Bytes are few (qkv once, out once), so the bound is operations.
+// bf16 runs the kernels of attention_block_sm90.cuh (register-resident
+// mma.sync tiles that skip causal and masked tiles; their notes give the
+// design and what bounds it). fp32 runs the attention megablock's FMA core
+// (attention_core.cuh), which also sets the length limits of both dtypes.
+#include "attention_block_sm90.cuh"
 #include "attention_core.cuh"
 
 static bool core_args_ok(int b, int n, int heads) {
@@ -43,9 +43,16 @@ extern "C" int xclip_attention_core_fwd(int dtype, const void* qkv,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  XCLIP_DISPATCH(dtype, launch_attention<T>(
-      XCLIP_PTR(const T*, qkv), m, XCLIP_PTR(T*, out), b, n, heads, scale,
-      causal, maybe_dead, nullptr, st, XCLIP_PTR(float*, lse)));
+  if (dtype == xclip::kBF16)
+    return xclip::launch_k6_fwd(XCLIP_PTR(const xclip::bf16*, qkv), m,
+                                XCLIP_PTR(xclip::bf16*, out),
+                                XCLIP_PTR(float*, lse), b, n, heads, scale,
+                                causal, maybe_dead, st);
+  if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  return launch_attention<float>(XCLIP_PTR(const float*, qkv), m,
+                                 XCLIP_PTR(float*, out), b, n, heads, scale,
+                                 causal, maybe_dead, nullptr, st,
+                                 XCLIP_PTR(float*, lse));
 }
 
 // The backward: qkv, out, do (b*n, heads*64) and lse as the forward's;
@@ -61,9 +68,16 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  XCLIP_DISPATCH(dtype, (launch_attention_bwd<T, T, true>(
-      XCLIP_PTR(const T*, qkv), m, XCLIP_PTR(const T*, dout),
-      XCLIP_PTR(const T*, out), XCLIP_PTR(const float*, lse),
-      XCLIP_PTR(T*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
-      causal, maybe_dead, st)));
+  if (dtype == xclip::kBF16)
+    return xclip::launch_k6_bwd(
+        XCLIP_PTR(const xclip::bf16*, qkv), m,
+        XCLIP_PTR(const xclip::bf16*, out), XCLIP_PTR(const float*, lse),
+        XCLIP_PTR(const xclip::bf16*, dout), XCLIP_PTR(xclip::bf16*, dqkv),
+        XCLIP_PTR(float*, delta), b, n, heads, scale, causal, maybe_dead, st);
+  if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  return launch_attention_bwd<float, float, true>(
+      XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dout),
+      XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
+      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
+      causal, maybe_dead, st);
 }

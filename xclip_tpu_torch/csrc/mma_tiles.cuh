@@ -1,0 +1,175 @@
+// Register-resident tensor-core tiles for one warp: mma.sync m16n8k16
+// (bf16 operands, fp32 accumulators) fed by ldmatrix from shared memory.
+//
+// A warp owns a 16-row strip. Its accumulator over 64 columns is
+// `float acc[8][4]`, eight 16x8 tiles: element e of tile t sits at row
+// (lane >> 2) + 8 * (e >> 1), column 8 t + 2 (lane & 3) + (e & 1). A
+// 16x64 A operand is `uint32_t a[4][4]`, four 16x16 k-slices of packed
+// bf16 pairs. The accumulator layout of m16n8k16 is the layout of its A
+// operand, so an accumulator rounded to bf16 (`pack_a`) is the A operand
+// of the next product without leaving registers: the attention kernels
+// turn scores into p and ds that way.
+//
+// Shared-memory tiles are 64 rows of 64 bf16 at a row stride of LDT = 72
+// elements (144 bytes): the eight 16-byte rows one ldmatrix phase reads
+// fall into distinct banks.
+#pragma once
+
+#include "common.cuh"
+
+namespace xclip {
+namespace {
+
+constexpr int LDT = 72;  // bf16 row stride of a staged 64-wide tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+}
+
+// The warp's 16 rows [r0, r0 + 16) of a staged tile as an A operand.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
+                                       int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    ldsm_x4(a[k], tile + (r0 + (lane & 15)) * LDT + 16 * k + (lane >> 4) * 8);
+}
+
+// The accumulator rounded to bf16, as an A operand over its 64 columns.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&acc)[8][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k][0] = pack_bf16(acc[2 * k][0], acc[2 * k][1]);
+    a[k][1] = pack_bf16(acc[2 * k][2], acc[2 * k][3]);
+    a[k][2] = pack_bf16(acc[2 * k + 1][0], acc[2 * k + 1][1]);
+    a[k][3] = pack_bf16(acc[2 * k + 1][2], acc[2 * k + 1][3]);
+  }
+}
+
+// acc += a . bᵀ: b a staged tile of 64 rows (the output's columns) by 64
+// (the depth), as q . kᵀ.
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+                                        const uint32_t (&a)[4][4],
+                                        const bf16* b) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t r[4];
+      ldsm_x4(r, b + (16 * np + (mi >> 1) * 8 + (lane & 7)) * LDT + 16 * k +
+                     (mi & 1) * 8);
+      mma_bf16(acc[2 * np], a[k], r[0], r[1]);
+      mma_bf16(acc[2 * np + 1], a[k], r[2], r[3]);
+    }
+}
+
+// acc += a . b: b a staged tile of 64 rows (the depth) by 64 (the output's
+// columns), as p . v.
+__device__ __forceinline__ void mma_ab(float (&acc)[8][4],
+                                       const uint32_t (&a)[4][4],
+                                       const bf16* b) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t r[4];
+      ldsm_x4_t(r, b + (16 * k + (mi & 1) * 8 + (lane & 7)) * LDT + 16 * np +
+                       (mi >> 1) * 8);
+      mma_bf16(acc[2 * np], a[k], r[0], r[1]);
+      mma_bf16(acc[2 * np + 1], a[k], r[2], r[3]);
+    }
+}
+
+// 4-byte global → shared copy (cp.async.ca); zero-fills when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// Stage rows [r0, r0 + 64) of the 64 bf16 columns at `col` of a row-major
+// matrix (row stride ld) into a tile, by cp.async from all of the block's
+// `threads` threads; rows at or past n read as 0. The caller commits.
+template <int threads>
+__device__ __forceinline__ void stage_tile_async(bf16* tile, const bf16* src,
+                                                 long ld, int col, int r0,
+                                                 int n) {
+  for (int c = threadIdx.x; c < 64 * 8; c += threads) {
+    const int r = c >> 3, d = (c & 7) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(tile + r * LDT + d, src + (in ? (long)(r0 + r) * ld + col + d : 0),
+               in);
+  }
+}
+
+// Write the warp's 16 rows [r0, r0 + 16) of the accumulator, rounded to
+// bf16, through its own rows of a staged tile (`stage`, which no other
+// warp reads) to rows q0 + r0 + i < n of dst (row stride ld, 16-byte
+// stores of 64 columns).
+__device__ __forceinline__ void store_rows(bf16* dst, long ld, int q0, int n,
+                                           bf16* stage, int r0,
+                                           const float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stage + (r0 + g + 8 * h) * LDT + 8 * t +
+                                   2 * tq) =
+          pack_bf16(acc[t][2 * h], acc[t][2 * h + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i, r = r0 + (c >> 3), d = (c & 7) * 8;
+    if (q0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (long)(q0 + r) * ld + d) =
+          *reinterpret_cast<const uint4*>(stage + r * LDT + d);
+  }
+}
+
+}  // namespace
+}  // namespace xclip

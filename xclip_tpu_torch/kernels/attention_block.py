@@ -19,10 +19,14 @@ The text tower runs it when rotary embeddings turn the megablock off
   (0 on a dead row) cast to qkv's dtype, dq = ds·k, dk = dsᵀ·q, dv =
   T(p)ᵀ·do.
 
-The CUDA kernels are `csrc/attention_block.cu` on the attention megablock's
-core (`csrc/attention_core.cuh`); its source notes give the design and
-what bounds it. Every wrapper takes its kernel for CUDA tensors and its
-plain version for CPU tensors; it never falls back from one to the other.
+The CUDA kernels are `csrc/attention_block.cu`: bf16 on its own kernels
+(`csrc/attention_block_sm90.cuh`: register-resident mma.sync tiles that
+skip causal and all-masked tiles; its source notes give the design and
+what bounds it), fp32 on the attention megablock's FMA core
+(`csrc/attention_core.cuh`), whose limits (`max_seq_len`,
+`max_seq_len_bwd`) hold for both. Every wrapper takes its kernel for CUDA
+tensors and its plain version for CPU tensors; it never falls back from
+one to the other.
 The Pallas kernel's padding to 128 rows and two-head groups are TPU
 artefacts: the kernels work on the true shapes.
 """

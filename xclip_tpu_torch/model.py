@@ -135,8 +135,10 @@ class CLIPModel(nn.Module):
         """As `xclip_tpu.model.CLIPModel.apply` for one view per side.
         `training` defaults to `return_loss`; `generator` / `keep_idx` feed
         the patch dropout of a training forward. With `return_loss`,
-        returns the loss (and, with `return_metrics`, a dict of `loss`,
-        `cl_loss` and `temperature` = exp(temperature))."""
+        returns the loss (and, with `return_metrics`, JAX's dict: `loss`,
+        `cl_loss`, `temperature` = exp(temperature), and `text_ssl_loss`,
+        `image_ssl_loss`, `multiview_cl_loss`, `sim_reg_loss`, 0 for the
+        features the port leaves out)."""
         training = return_loss if training is None else training
         if return_loss and not training:
             raise ValueError("loss cannot be used if not training")
@@ -175,7 +177,11 @@ class CLIPModel(nn.Module):
                 image_latents_extra=il_extra if extra else None,
                 loss_impl=self.loss_impl)
             loss = cl_loss  # cl_loss_weight 1: no MLM, visual SSL or multiview
-            if return_metrics:
+            if return_metrics:   # JAX's keys; the features left out give 0
+                zero = torch.zeros((), dtype=torch.float32,
+                                   device=loss.device)
                 return loss, {"loss": loss, "cl_loss": cl_loss,
-                              "temperature": temp}
+                              "text_ssl_loss": zero, "image_ssl_loss": zero,
+                              "multiview_cl_loss": zero,
+                              "sim_reg_loss": zero, "temperature": temp}
             return loss

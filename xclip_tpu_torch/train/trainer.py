@@ -20,7 +20,7 @@ A parameter that receives no gradient (an unused extra latent head) is
 updated with a zero gradient, as JAX differentiates every leaf.
 
 The step runs eagerly on the parameters' device and returns the metrics as
-0-d tensors (no host sync): `loss`, `cl_loss`, `temperature` and
+0-d tensors (no host sync): the model's metrics (JAX's seven keys) and
 `grad_norm` (before the clip).
 """
 
