@@ -65,7 +65,9 @@ caught.
              257 not causal, K7 (FlashAttention) forward and backward at
              b*h = 2048, n = 256 (the text tower) and (2, 8, 8192, 64)
              causal with key pads, and non-causal at the vision tower's 64
-             and 32 (padded to 64) tokens, fp32 and bf16, against their
+             and 32 (padded to 64) tokens, fp32 and bf16, and bf16 K7 at the
+             text shape with whole masked key tiles and dead rows (inputs
+             from a generator of its own), against their
              plain versions on the card element by element (bf16: two ulps
              of each element plus 3e-2 of its head row's RMS plus 1e-2 of
              the tensor's; fp32 and every lse: 1e-4 of the largest
@@ -73,7 +75,8 @@ caught.
              CUDA-event times of
              kernel, plain version and scaled_dot_product_attention
              (forward, backward, both) on the same q, k, v and mask, the
-             kernel / SDPA ratio, and the bound.
+             kernel / SDPA ratio, and the bound (K7 at the vision shapes:
+             kernel and bound).
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -439,8 +442,9 @@ def attn_kernels(gen, core, flash):
     """Phase 12: K6 and K7, forward and backward, against their plain
     versions on the card, fp32 and bf16, at the main path's shapes (K7 in
     the vision tower too: 64 tokens at inference, 32 kept patches in
-    training, non-causal, padded to the kernel's tile); times at the text
-    tower's flagship shape and the long sequence."""
+    training, non-causal, padded to the kernel's tile; bf16 at the text
+    shape with whole masked key tiles and dead rows); times at the text
+    tower's flagship shape, the long sequence and the vision shapes."""
     phase(12, "attn-kernels", "kernel vs plain version on the card")
     errs, ms, costs, lib = {}, {}, {}, {}
 
@@ -546,11 +550,46 @@ def attn_kernels(gen, core, flash):
                     *flat[:3], mask_bh, False))
                 bwd_ms = cuda_ms(lambda: flash.flash_attention_bwd(
                     *flat[:3], mask_bh, out, lse, flat[3], False))
+                lengths_bh = [n] * bh
+                fwd_b, bwd_b = (bound(*flash_cost(kind, bh, n_pad, lengths_bh,
+                                                  False))[0]
+                                for kind in ("fwd", "bwd"))
                 print(f"  K7 vision {n} tokens (b*h {bh}, n_pad {n_pad}): "
-                      f"kernel forward {fwd_ms:.3f} ms, backward "
-                      f"{bwd_ms:.3f} ms", flush=True)
+                      f"kernel forward {fwd_ms:.3f} ms (bound {fwd_b:.3f}), "
+                      f"backward {bwd_ms:.3f} ms (bound {bwd_b:.3f})",
+                      flush=True)
             del q, k, v, do, flat, out, lse
             torch.cuda.empty_cache()
+    # bf16 K7 at the text shape with whole 64-key tiles masked between
+    # valid keys, a leading masked tile (causal rows with no valid key) and
+    # one element all masked (dead rows), which the kernels skip; inputs
+    # from a generator of their own, so the later phases' draws stay put
+    hgen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, n, dt = 256, 8, 256, torch.bfloat16
+    mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=hgen,
+                                  device="cuda").tolist(), n)
+    mask[0::4, 64:128] = False
+    mask[1::4, :64] = False
+    mask[-1] = False
+    q, k, v, do = (rand(hgen, b, h, n, 64, dtype=dt) for _ in range(4))
+    q = (q.float() * 0.125).to(dt)
+    flat, mask_bh = flash.pad_flat((q, k, v, do), mask)
+    label = f"K7 bfloat16 ({b}, {h}, {n}, 64) causal, masked tiles, dead rows"
+    e_fwd = compare_elementwise(
+        label, ("out", "lse"), flash.flash_attention_fwd(*flat[:3], mask_bh,
+                                                         True),
+        flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True), dt)
+    out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True)
+    e_bwd = compare_elementwise(
+        label, ("dq", "dk", "dv"),
+        flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse, flat[3],
+                                  True),
+        flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse, flat[3],
+                                        True), dt)
+    errs.update(k7_fwd=max(errs["k7_fwd"], e_fwd),
+                k7_bwd=max(errs["k7_bwd"], e_bwd))
+    del q, k, v, do, flat, out, lse
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for key in ms:
         b_ms, b_by = bound(*costs[key])
@@ -729,10 +768,10 @@ ATTN_KERNELS = [
      "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
      "xclip_tpu/kernels/attention_block.py:117"),
     ("k7_fwd", "K7 flash_attention forward",
-     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu_torch/csrc/flash_attention_sm90.cuh",
      "xclip_tpu/kernels/flash_attention.py:66"),
     ("k7_bwd", "K7 flash_attention backward (dq, dk/dv)",
-     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu_torch/csrc/flash_attention_sm90.cuh",
      "xclip_tpu/kernels/flash_attention.py:134"),
 ]
 

@@ -8,8 +8,8 @@ fp32; tolerances: outputs 1e-5 absolute (|out| < 4: summation order only),
 gradients 1e-4 absolute (sums over n keys or queries of O(1) terms, in
 another order). Key masks: none; a right-padded row and a left-padded row;
 the same with one batch element all masked (dead rows: K6 gives uniform
-weights, K7 zeros); for K6 also the same with a third element's middle
-half masked (whole 64-key tiles masked between valid keys at n = 257).
+weights, K7 zeros); the same with a third element's middle half masked
+(whole 64-key tiles masked between valid keys at n = 257 and 200).
 """
 
 import jax
@@ -84,7 +84,7 @@ def test_supported_matches_jax(heads, dim_head, ok):
         heads, dim_head) == ok
 
 
-@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("n", [37, 200])
 def test_flash_attention_matches_pallas(n, causal, mask_kind):
@@ -125,6 +125,32 @@ def test_flash_lse_of_a_dead_row():
     _close(got, np.asarray(want)[..., 0], OUT_ATOL)
     np.testing.assert_allclose(got[1].numpy(), np.log(np.float32(1e-30)),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_masked_key_tiles_change_nothing(dtype):
+    """The bf16 kernels skip every 64-key tile with no valid key (forward,
+    dq) and write zero dk, dv for it (dk/dv): exact, because over such a
+    tile the plain recurrence leaves m, l and acc bit-equal. Keys 64..127
+    masked in every bh row (n = 256, non-causal): the plain forward with
+    the kernels' 64-key block gives bit for bit the out and lse of those
+    keys deleted, and the plain backward gives their dk, dv rows of 0."""
+    q, k, v, mask, do = flash_args(b=2, h=2, n=256, mask_kind="keypad")
+    q, k, v, do = (torch.from_numpy(t.reshape(4, 256, 64)).to(dtype)
+                   for t in (q, k, v, do))
+    key = torch.from_numpy(mask).repeat_interleave(2, 0)
+    key[:, 64:128] = False
+    out, lse = flash.flash_attention_fwd_plain(q, k, v, key, block_k=64)
+    kept = torch.cat([torch.arange(64), torch.arange(128, 256)])
+    # every query row against the kept keys (rows 64..127 in a second call)
+    for rows in (kept, torch.cat([torch.arange(64, 128), torch.arange(128)])):
+        want_out, want_lse = flash.flash_attention_fwd_plain(
+            q[:, rows], k[:, kept], v[:, kept], key[:, kept], block_k=64)
+        assert torch.equal(out[:, rows], want_out)
+        assert torch.equal(lse[:, rows], want_lse)
+    _, dk, dv = flash.flash_attention_bwd_plain(q, k, v, key, out, lse, do)
+    assert dk[:, kept].any() and dv[:, kept].any()
+    assert not dk[:, 64:128].any() and not dv[:, 64:128].any()
 
 
 @pytest.mark.parametrize("block", [64, 128])

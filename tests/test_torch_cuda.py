@@ -491,7 +491,7 @@ def _flash_padded(args, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead"])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
 @pytest.mark.parametrize("n", [32, 37, 64, 200, 256])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
                                              mask_kind, n):
@@ -517,10 +517,49 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["holes", "dead"])
+def test_flash_attention_writes_every_element(cuda_device, causal,
+                                              mask_kind):
+    """bf16 K7 skips causal and all-masked key tiles and zero-fills a key
+    tile with no valid key, yet writes every element of out, lse, dq, dk
+    and dv (the wrapper takes them from torch.empty)."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(b=3, h=2, n=256, mask_kind=mask_kind), torch.bfloat16,
+        cuda_device)
+    _nan_blocks((tuple(q.shape), torch.bfloat16),
+                (tuple(mask.shape), torch.float32))
+    out, lse = flash.flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _nan_blocks(*[(tuple(q.shape), torch.bfloat16)] * 3,
+                (tuple(mask.shape), torch.float32))
+    grads = flash.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
 def test_flash_attention_long_sequence(cuda_device):
     """(2, 8, 2048, 64) causal with key pads, bf16: no length limit."""
     q, k, v, mask, do = _flash_padded(
         flash_args(b=2, h=8, n=2000, mask_kind="keypad"), torch.bfloat16,
+        cuda_device)
+    got = flash.flash_attention_fwd(q, k, v, mask, True)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
+    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
+        flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
+        "bfloat16", ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_8192(cuda_device):
+    """(2, 8, 8192, 64) causal with key pads, bf16, against the plain
+    forward and backward: 128 tiles a row, no length limit."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(b=2, h=8, n=8192, mask_kind="keypad"), torch.bfloat16,
         cuda_device)
     got = flash.flash_attention_fwd(q, k, v, mask, True)
     want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
@@ -553,8 +592,9 @@ def test_flash_attention_more_than_65535_heads(cuda_device):
 @pytest.mark.cuda
 def test_attention_cores_are_deterministic(cuda_device):
     """No float atomics: two backward runs of K6 (also at (4, 256, 8
-    heads) causal with whole masked key tiles) and of K7 agree bit for
-    bit."""
+    heads) causal with whole masked key tiles) and of K7 (also at (4, 2,
+    256) causal with whole masked key tiles and a dead row, bf16) agree bit
+    for bit."""
     for kwargs in (dict(n=70, heads=2),
                    dict(b=4, n=256, heads=8, mask_kind="holes")):
         qkv, mask, do = to_torch(core_args(**kwargs), torch.bfloat16,
@@ -564,12 +604,14 @@ def test_attention_cores_are_deterministic(cuda_device):
         a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, *static)
                 for _ in range(2))
         assert torch.equal(a, b), kwargs
-    q, k, v, mask, do = _flash_padded(flash_args(n=200), torch.bfloat16,
-                                      cuda_device)
-    out, lse = flash.flash_attention_fwd(q, k, v, mask, True)
-    a, b = (flash.flash_attention_bwd(q, k, v, mask, out, lse, do, True)
-            for _ in range(2))
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    holes = flash_args(b=4, n=256, mask_kind="holes")
+    holes[3][-1] = False   # a dead row
+    for args in (flash_args(n=200), holes):
+        q, k, v, mask, do = _flash_padded(args, torch.bfloat16, cuda_device)
+        out, lse = flash.flash_attention_fwd(q, k, v, mask, True)
+        a, b = (flash.flash_attention_bwd(q, k, v, mask, out, lse, do, True)
+                for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # ------------------------------------------- K8 (ff_impl='fused'), K1-h

@@ -76,51 +76,6 @@ __device__ int k6_key_tiles(unsigned long long* bits, const uint8_t* mrow,
   return n;
 }
 
-// Walk tiles from `t` to `last` in the order `next` gives (the next tile
-// to visit after its argument, or `last`): `stage(t, buf)` issues the
-// tile's cp.async copies into buffer buf one tile ahead, `body(t, buf)`
-// runs once they have landed; the two buffers alternate.
-template <typename Next, typename Stage, typename Body>
-__device__ __forceinline__ void k6_walk(int t, int last, Next next,
-                                        Stage stage, Body body) {
-  int buf = 0;
-  if (t < last) stage(t, 0);
-  cp_async_commit();
-  while (t < last) {
-    const int u = next(t);
-    if (u < last) stage(u, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    body(t, buf);
-    __syncthreads();
-    t = u;
-    buf ^= 1;
-  }
-}
-
-// A thread's view of a key tile's word: bits (lo, hi) of word >> 2 (lane
-// & 3), so that the key at column 8 c + 2 (lane & 3) + e of the tile is a
-// shift by a constant (c and e unrolled).
-struct K6Bits {
-  uint32_t lo, hi;
-  __device__ __forceinline__ K6Bits(unsigned long long w, int tq)
-      : lo((uint32_t)(w >> (2 * tq))), hi((uint32_t)(w >> (32 + 2 * tq))) {}
-  __device__ __forceinline__ bool operator()(int c, int e) const {
-    return ((c < 4 ? lo >> (8 * c + e) : hi >> (8 * (c - 4) + e)) & 1u) != 0;
-  }
-};
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Forward, one block per (64-query tile, head, batch element); the last
 // query tiles, which walk the most key tiles when causal, start first.
 __global__ void __launch_bounds__(K6_THREADS, 4)
@@ -184,7 +139,7 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   auto scores = [&](float (&s)[8][4], int t, const bf16* kt) {
     zero_acc(s);
     mma_abt(s, qa, kt);
-    const K6Bits key(bits[t], tq);
+    const KeyBits key(bits[t], tq);
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -212,7 +167,7 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   };
   float o[8][4];
   zero_acc(o);
-  k6_walk(
+  tile_walk(
       first_step, END, next, stage,
       [&](int st, int buf) {
         const int t = st & 63;
@@ -340,7 +295,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
 
   float dq[8][4];
   zero_acc(dq);
-  k6_walk(
+  tile_walk(
       first, last, next, stage,
       [&](int t, int buf) {
         const bf16* kt = ks + buf * K6_TILE;
@@ -349,7 +304,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
         zero_acc(dp);
         mma_abt(s, qa, kt);
         mma_abt(dp, da, vs + buf * K6_TILE);
-        const K6Bits key(bits[t], tq);
+        const KeyBits key(bits[t], tq);
 #pragma unroll
         for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -429,7 +384,7 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   float dk[8][4], dv[8][4];
   zero_acc(dk);
   zero_acc(dv);
-  k6_walk(
+  tile_walk(
       first, tiles, next, stage,
       [&](int t, int buf) {
         const bf16* qt = qs + buf * K6_TILE;

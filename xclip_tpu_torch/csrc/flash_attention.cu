@@ -19,26 +19,22 @@
 // lse = m_safe + log l: a row with no valid key gives 0 and log 1e-30.
 // Causal: key tiles wholly past the query tile are skipped (their p is 0,
 // so they would change nothing).
-// Backward (delta = sum dO * O in PyTorch, outside, as `:186-187`): p =
-// exp(s - lse), 0 on masked entries; ds = p (dp - delta), dp = dO . vᵀ.
+// Backward: p = exp(s - lse), 0 on masked entries; ds = p (dp - delta),
+// dp = dO . vᵀ, delta = sum dO * O per row.
 //   * dq kernel, one block per (bh, 64-query tile), looping over key
 //     tiles: dq = sum T(ds) . k;
 //   * dk/dv kernel, one block per (bh, 64-key tile), looping over query
 //     tiles: dv = sum T(p)ᵀ . dO, dk = sum T(ds)ᵀ . q.
-// Each owns its outputs: no atomics, two runs agree bit for bit. The
-// Pallas kernels' 128 x 128 blocks are a TPU granule; 64 x 64 tiles keep a
-// block's shared memory (72 KB forward, 99 KB dq, 125 KB dk/dv in bf16)
-// within what two or three blocks per SM can hold.
+// Each owns its outputs: no atomics, two runs agree bit for bit.
 //
-// q . kᵀ, p . v and the backward's products run on the tensor cores in
-// bf16 (wmma 16x16x16, fp32 accumulation, common.cuh's block_mma), on FMAs
-// in fp32. What bounds it on the card: operations at the text tower's n =
-// 256 (4·n²·64 per head forward), but the accumulator round-trips through
-// shared memory between tiles (wmma fragments have no row layout to
-// rescale in registers) and tiles are staged without cp.async or TMA, so
-// the tensor cores wait on shared memory. A later PR moves the products to
-// mma.sync / wgmma with register-resident accumulators.
-#include "common.cuh"
+// bf16 runs the kernels of flash_attention_sm90.cuh (register-resident
+// mma.sync tiles on a cp.async ring that skip causal and all-masked key
+// tiles, delta computed in the dq kernel; their note gives the design and
+// what bounds it). fp32 runs the kernels below, on FMAs (common.cuh's
+// block_mma), with delta given by PyTorch (as the Pallas wrapper's
+// `:186-187`): tiles staged in shared memory by plain loads, the scores
+// and the accumulator kept in shared memory between tiles.
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -372,26 +368,44 @@ extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
                                void* stream) {
   if (!flash_args_ok(bh, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  XCLIP_DISPATCH(dtype, flash_fwd<T>(
-      XCLIP_PTR(const T*, q), XCLIP_PTR(const T*, k), XCLIP_PTR(const T*, v),
-      static_cast<const uint8_t*>(mask), XCLIP_PTR(T*, out),
-      XCLIP_PTR(float*, lse), bh, n, causal, st));
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (dtype == xclip::kBF16)
+    return xclip::launch_k7_fwd(
+        XCLIP_PTR(const bf16*, q), XCLIP_PTR(const bf16*, k),
+        XCLIP_PTR(const bf16*, v), m, XCLIP_PTR(bf16*, out),
+        XCLIP_PTR(float*, lse), bh, n, causal, st);
+  if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  return flash_fwd<float>(XCLIP_PTR(const float*, q),
+                          XCLIP_PTR(const float*, k),
+                          XCLIP_PTR(const float*, v), m,
+                          XCLIP_PTR(float*, out), XCLIP_PTR(float*, lse), bh,
+                          n, causal, st);
 }
 
-// The backward: q, k, v, mask, lse as the forward's; dout (bh, n, 64);
-// delta = sum dout * out (bh, n) fp32; dq, dk, dv (bh, n, 64).
+// The backward: q, k, v, mask, lse as the forward's; out and dout (bh, n,
+// 64); delta (bh, n) fp32: for bf16 scratch the kernels fill with sum
+// dout * out, for fp32 that sum, given; dq, dk, dv (bh, n, 64).
 extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, void* dk,
-                               void* dv, int bh, int n, int causal,
+                               const void* out, const void* dout,
+                               const void* lse, void* delta, void* dq,
+                               void* dk, void* dv, int bh, int n, int causal,
                                void* stream) {
   if (!flash_args_ok(bh, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  XCLIP_DISPATCH(dtype, flash_bwd<T>(
-      XCLIP_PTR(const T*, q), XCLIP_PTR(const T*, k), XCLIP_PTR(const T*, v),
-      static_cast<const uint8_t*>(mask), XCLIP_PTR(const T*, dout),
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (dtype == xclip::kBF16)
+    return xclip::launch_k7_bwd(
+        XCLIP_PTR(const bf16*, q), XCLIP_PTR(const bf16*, k),
+        XCLIP_PTR(const bf16*, v), m, XCLIP_PTR(const bf16*, out),
+        XCLIP_PTR(const float*, lse), XCLIP_PTR(const bf16*, dout),
+        XCLIP_PTR(bf16*, dq), XCLIP_PTR(bf16*, dk), XCLIP_PTR(bf16*, dv),
+        XCLIP_PTR(float*, delta), bh, n, causal, st);
+  if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  return flash_bwd<float>(
+      XCLIP_PTR(const float*, q), XCLIP_PTR(const float*, k),
+      XCLIP_PTR(const float*, v), m, XCLIP_PTR(const float*, dout),
       XCLIP_PTR(const float*, lse), XCLIP_PTR(const float*, delta),
-      XCLIP_PTR(T*, dq), XCLIP_PTR(T*, dk), XCLIP_PTR(T*, dv), bh, n, causal,
-      st));
+      XCLIP_PTR(float*, dq), XCLIP_PTR(float*, dk), XCLIP_PTR(float*, dv), bh,
+      n, causal, st);
 }

@@ -1,0 +1,449 @@
+// K7 in bf16: FlashAttention-2 forward and backward on register-resident
+// mma.sync tiles, in place of the Pallas bodies of
+// xclip_tpu/kernels/flash_attention.py: the forward `_fwd_kernel` (:66,
+// through `_flash_forward` :101) and the backward `_bwd_dq_kernel` (:134)
+// and `_bwd_dkv_kernel` (:156, through `_flash_backward` :182). The numbers
+// are theirs (csrc/flash_attention.cu gives the semantics): an online
+// softmax over 64-key tiles in fp32 with p rounded to bf16 against the
+// running max before p . v; l = max(l, 1e-30), out = T(acc / l), lse =
+// m_safe + log l (a row with no valid key: out 0, lse log 1e-30); the
+// backward's p = exp(s - lse), 0 on masked entries, ds = p (dp - delta),
+// dq = T(ds) . k, dk = T(ds)ᵀ . q, dv = T(p)ᵀ . dO, each rounded once.
+// exp is taken as 2^(x log2 e) (`k7_exp`).
+//
+// What bounds it on the card: bytes. At the text tower's shape (b·h 2048,
+// n 256, causal, key pads uniform in n/2..n) the forward reads q and the k
+// and v of the valid keys and writes out and lse (0.072 ms at 3.35 TB/s);
+// the backward also reads out, dO and lse and writes dq, dk and dv (0.152
+// ms); the products are ~16 GFLOP forward and ~40 backward, 0.016 and
+// 0.040 ms of the tensor cores. The wmma kernels this replaces (still the
+// fp32 path of flash_attention.cu) lost their time elsewhere, and the
+// design answers each:
+//   * scores went through shared memory as fp32 (wmma fragments have no
+//     row layout), were swept three times by two threads a row, written
+//     back as bf16 p, and the accumulator was rescaled in shared memory,
+//     five barriers a key tile: here a block is 64 queries (forward, dq)
+//     or 64 keys (dk/dv) of one bh row, 4 warps of 16 rows on mma.sync
+//     m16n8k16 with ldmatrix (mma_tiles.cuh). Scores, dp and the out / dq
+//     / dk / dv accumulators stay in registers, row statistics reduce over
+//     the quad with shuffles, p and ds pass from an accumulator to the
+//     next product's A operand through `pack_a`, and the forward rescales
+//     its accumulator by the correction in registers: no score tile
+//     exists in shared memory, and a key tile costs two barriers;
+//   * tiles were staged by synchronous loads, each load exposed: here the
+//     other side's 64-row tiles stream through a double-buffered cp.async
+//     ring (`tile_walk`), the next tile landing while this one computes;
+//   * shared memory (72, 99 and 125 KB) held 3, 2 and 1 blocks an SM:
+//     here 45 KB forward (q and two k, v buffers) and 54 KB dq, 55 KB
+//     dk/dv (q, dO or k, v and two buffers of the other pair), so
+//     registers set the blocks an SM: 4 forward, 3 dq and dk/dv;
+//   * only key tiles past the causal diagonal were skipped: here the
+//     forward and dq also skip every key tile whose 64 mask bits are all
+//     zero (exact: over such a tile the recurrence leaves m, l and acc
+//     bit-equal, and ds is 0), and a dk/dv block whose key tile has no
+//     valid key writes zeros and returns. Unlike K6 no row is uniform over
+//     every key, so every skip is unconditional. The mask has no length
+//     limit: each warp tests the mask bytes of the tiles ahead itself (8
+//     bytes a lane, four tiles a ballot) and builds a walked tile's 64-bit
+//     word with two ballots, instead of K6's per-row words in shared
+//     memory;
+//   * delta = sum dO * O was three fp32 tensors in PyTorch (~0.5 GB of
+//     traffic at the text shape, against the backward's bound of 0.152
+//     ms): here the dq kernel reads its out rows, computes delta in fp32,
+//     uses it and writes it to the (bh, n) scratch that the dk/dv kernel,
+//     launched after it on the same stream, reads (K6's scheme).
+// A block is one of bh x n/64 on a 1-D grid, the tiles of one bh row
+// adjacent so that they share its k and v (or q and dO) in the L2. Causal:
+// the forward and dq take a row's query tiles last first, the heaviest
+// (most key tiles) first, which trims the tail of a long row's launch
+// (1.5-3 % at n 8192) and costs 1-2 % (~0.004 ms) at n 256; dk/dv's
+// first key tiles are already its heaviest. Every block owns its outputs (no
+// atomics: two runs agree bit for bit) and writes every element of them
+// (the wrapper's tensors come from torch.empty).
+//
+// ptxas -v (sm_90a, -O3, CUDA 12.8): forward 126 registers (4 blocks an
+// SM under its bound), dq 157 and dk/dv 168 (3 blocks an SM each, under
+// their bounds, as K6's), no spill in any. tools/k7_variants.py times the
+// query-tile order and the exp against their alternatives.
+#pragma once
+
+#include "mma_tiles.cuh"
+
+namespace xclip {
+namespace {
+
+constexpr int K7_THREADS = 128;    // 4 warps of 16 rows: 64-row blocks
+constexpr int K7_TILE = 64 * LDT;  // bf16 elements of a staged tile
+
+// e^x as 2^(x log2 e): a multiply and one ex2.approx, within a few fp32
+// ulps of expf, whose range reduction made the backward 1.2x (text shape)
+// to 1.3x (n 8192) slower
+__device__ __forceinline__ float k7_exp(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+// The 64-bit word of a key tile's 64 mask bytes (bit c: key c valid), in
+// every lane of the warp.
+__device__ __forceinline__ unsigned long long key_word(const uint8_t* m) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(0xffffffffu, m[lane] != 0);
+  const unsigned hi = __ballot_sync(0xffffffffu, m[lane + 32] != 0);
+  return lo | (unsigned long long)hi << 32;
+}
+
+// The first key tile in [t, last) of a mask row with a valid key, or
+// `last`: each lane tests 8 mask bytes, four tiles a ballot. The same in
+// every lane of the warp.
+__device__ __forceinline__ int next_key_tile(const uint8_t* mrow, int t,
+                                             int last) {
+  const int lane = threadIdx.x & 31;
+  for (; t < last; t += 4) {
+    const int u = t + (lane >> 3);
+    uint2 w = make_uint2(0u, 0u);
+    if (u < last)
+      w = *reinterpret_cast<const uint2*>(mrow + 64L * u + 8 * (lane & 7));
+    const unsigned any = __ballot_sync(0xffffffffu, (w.x | w.y) != 0u);
+    if (any) return t + (__ffs(any) - 1) / 8;
+  }
+  return last;
+}
+
+// A block's (bh row, tile) from its place on the 1-D grid: the tiles of a
+// row adjacent, last first when `reverse`.
+struct K7Block {
+  long bh;
+  int t;
+  __device__ __forceinline__ K7Block(int tiles, bool reverse)
+      : bh(blockIdx.x / tiles), t(blockIdx.x % tiles) {
+    if (reverse) t = tiles - 1 - t;
+  }
+};
+
+// Forward, one block per (bh row, 64-query tile).
+__global__ void __launch_bounds__(K7_THREADS, 4)
+k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+              bf16* __restrict__ out, float* __restrict__ lse, int n,
+              int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + K7_TILE;      // two buffers
+  bf16* vs = ks + 2 * K7_TILE;  // two buffers
+  const int tiles = n / 64;
+  const K7Block blk(tiles, causal);
+  const int qt = blk.t, q0 = 64 * qt;
+  const long base = blk.bh * n * 64;
+  const uint8_t* mrow = mask + blk.bh * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  auto stage = [&](int t, int buf) {
+    stage_tile_async<K7_THREADS>(ks + buf * K7_TILE, k + base, 64, 0, 64 * t,
+                                 n);
+    stage_tile_async<K7_THREADS>(vs + buf * K7_TILE, v + base, 64, 0, 64 * t,
+                                 n);
+  };
+  // q lands with the first key tile
+  stage_tile_async<K7_THREADS>(qs, q + base, 64, 0, q0, n);
+  const int last = causal ? qt + 1 : tiles;
+  auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
+  const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows in the tile
+
+  // per row: the running max, this thread's share of the running sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[8][4];
+  zero_acc(o);
+  tile_walk(next(-1), last, next, stage, [&](int t, int buf) {
+    const KeyBits key(key_word(mrow + 64 * t), tq);
+    const bool diag = causal && t == qt;  // the only tile with future keys
+    uint32_t a[4][4];
+    float s[8][4];
+    load_a(a, qs, warp * 16);
+    zero_acc(s);
+    mma_abt(s, a, ks + buf * K7_TILE);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid =
+              key(c, e) && !(diag && 8 * c + 2 * tq + e > r[i]);
+          float& x = s[c][2 * i + e];
+          x = valid ? x : -INFINITY;
+          mt = fmaxf(mt, x);
+        }
+      const float mn = fmaxf(m[i], quad_max(mt));
+      const float msafe = mn == -INFINITY ? 0.f : mn;
+      const float corr = m[i] == -INFINITY ? 0.f : k7_exp(m[i] - msafe);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[c][2 * i + e];
+          x = k7_exp(x - msafe);  // exp(-inf) = 0: masked
+          sum += x;
+          o[c][2 * i + e] *= corr;
+        }
+      l[i] = l[i] * corr + sum;
+      m[i] = mn;
+    }
+    pack_a(a, s);  // p rounded to bf16 against the running max
+    mma_ab(o, a, vs + buf * K7_TILE);
+  });
+  cp_async_wait<0>();  // q has landed even if no tile was walked
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = fmaxf(quad_sum(l[i]), 1e-30f);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      o[c][2 * i] /= li;
+      o[c][2 * i + 1] /= li;
+    }
+    if (tq == 0)
+      lse[blk.bh * n + q0 + r[i]] =
+          (m[i] == -INFINITY ? 0.f : m[i]) + logf(li);
+  }
+  store_rows(out + base, 64, q0, n, qs, warp * 16, o);
+}
+
+// dq and delta, one block per (bh row, 64-query tile).
+__global__ void __launch_bounds__(K7_THREADS, 3)
+k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                 const bf16* __restrict__ out, const float* __restrict__ lse,
+                 const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                 float* __restrict__ delta, int n, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + K7_TILE;
+  bf16* ks = dos + K7_TILE;     // two buffers
+  bf16* vs = ks + 2 * K7_TILE;  // two buffers
+  const int tiles = n / 64;
+  const K7Block blk(tiles, causal);
+  const int qt = blk.t, q0 = 64 * qt;
+  const long base = blk.bh * n * 64, rows = blk.bh * n + q0;
+  const uint8_t* mrow = mask + blk.bh * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  auto stage = [&](int t, int buf) {
+    stage_tile_async<K7_THREADS>(ks + buf * K7_TILE, k + base, 64, 0, 64 * t,
+                                 n);
+    stage_tile_async<K7_THREADS>(vs + buf * K7_TILE, v + base, 64, 0, 64 * t,
+                                 n);
+  };
+  // q and dO land with the first key tile
+  stage_tile_async<K7_THREADS>(qs, q + base, 64, 0, q0, n);
+  stage_tile_async<K7_THREADS>(dos, dout + base, 64, 0, q0, n);
+  const int last = causal ? qt + 1 : tiles;
+  auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
+  const int first = next(-1);
+  const int r[2] = {warp * 16 + g, warp * 16 + g + 8};
+  float rlse[2], rdelta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rlse[i] = lse[rows + r[i]];
+
+  // delta = sum dO * out in fp32: lanes 2j, 2j + 1 take half of row
+  // warp * 16 + j each, from global memory while the tiles load
+  {
+    const long off = (rows + warp * 16 + (lane >> 1)) * 64 + (lane & 1) * 32;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; c += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(out + off + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += to_f(dp[e]) * to_f(op[e]);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((lane & 1) == 0) delta[rows + warp * 16 + (lane >> 1)] = acc;
+    rdelta[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
+    rdelta[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
+  }
+
+  float dqa[8][4];
+  zero_acc(dqa);
+  tile_walk(first, last, next, stage, [&](int t, int buf) {
+    const KeyBits key(key_word(mrow + 64 * t), tq);
+    const bool diag = causal && t == qt;
+    const bf16* kt = ks + buf * K7_TILE;
+    uint32_t a[4][4];
+    float s[8][4], dp[8][4];
+    load_a(a, qs, warp * 16);
+    zero_acc(s);
+    mma_abt(s, a, kt);
+    load_a(a, dos, warp * 16);
+    zero_acc(dp);
+    mma_abt(dp, a, vs + buf * K7_TILE);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const bool valid =
+            key(c, e & 1) && !(diag && 8 * c + 2 * tq + (e & 1) > r[i]);
+        const float p = valid ? k7_exp(s[c][e] - rlse[i]) : 0.f;
+        s[c][e] = p * (dp[c][e] - rdelta[i]);
+      }
+    pack_a(a, s);
+    mma_ab(dqa, a, kt);  // dq += T(ds) . k
+  });
+  cp_async_wait<0>();  // q, dO have landed even if no tile was walked
+  __syncthreads();
+  store_rows(dq + base, 64, q0, n, qs, warp * 16, dqa);
+}
+
+// dk and dv, one block per (bh row, 64-key tile), over the query tiles
+// that see it.
+__global__ void __launch_bounds__(K7_THREADS, 3)
+k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v,
+                  const uint8_t* __restrict__ mask,
+                  const float* __restrict__ lse,
+                  const bf16* __restrict__ dout,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int n, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + K7_TILE;
+  bf16* qs = vs + K7_TILE;       // two buffers
+  bf16* dos = qs + 2 * K7_TILE;  // two buffers
+  float* stats = reinterpret_cast<float*>(dos + 2 * K7_TILE);  // [2][2][64]
+  const int tiles = n / 64;
+  const K7Block blk(tiles, false);
+  const int kt = blk.t, k0 = 64 * kt;
+  const long base = blk.bh * n * 64, rows = blk.bh * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  const unsigned long long kw = key_word(mask + rows + k0);
+  if (kw == 0) {  // no valid key: no query reaches the tile
+    for (int c = threadIdx.x; c < 64 * 8; c += K7_THREADS) {
+      const long o = base + (long)(k0 + (c >> 3)) * 64 + (c & 7) * 8;
+      *reinterpret_cast<uint4*>(dk + o) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + o) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  auto stage = [&](int t, int buf) {
+    stage_tile_async<K7_THREADS>(qs + buf * K7_TILE, q + base, 64, 0, 64 * t,
+                                 n);
+    stage_tile_async<K7_THREADS>(dos + buf * K7_TILE, dout + base, 64, 0,
+                                 64 * t, n);
+    // lse (threads 0-63) and delta (64-127) of the tile's queries
+    const int c = threadIdx.x & 63;
+    cp_async4(stats + (buf * 2 + (threadIdx.x >> 6)) * 64 + c,
+              (threadIdx.x < 64 ? lse : delta) + rows + 64 * t + c, true);
+  };
+  // k and v land with the first query tile
+  stage_tile_async<K7_THREADS>(ks, k + base, 64, 0, k0, n);
+  stage_tile_async<K7_THREADS>(vs, v + base, 64, 0, k0, n);
+  const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // keys in the tile
+  bool kvalid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kvalid[i] = (kw >> r[i]) & 1ull;
+
+  float dka[8][4], dva[8][4];
+  zero_acc(dka);
+  zero_acc(dva);
+  // causal: query tiles before the key tile see none of its keys
+  tile_walk(causal ? kt : 0, tiles, [](int t) { return t + 1; }, stage,
+            [&](int t, int buf) {
+    const bool diag = causal && t == kt;
+    const bf16* qt = qs + buf * K7_TILE;
+    const bf16* dot = dos + buf * K7_TILE;
+    const float* tlse = stats + buf * 2 * 64;
+    const float* tdelta = tlse + 64;
+    uint32_t a[4][4];
+    float s[8][4], dp[8][4];
+    load_a(a, ks, warp * 16);
+    zero_acc(s);
+    mma_abt(s, a, qt);  // sᵀ = k . qᵀ
+    load_a(a, vs, warp * 16);
+    zero_acc(dp);
+    mma_abt(dp, a, dot);  // dpᵀ = v . dOᵀ
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
+        const bool valid = kvalid[i] && !(diag && r[i] > col);
+        const float p = valid ? k7_exp(s[c][e] - tlse[col]) : 0.f;
+        s[c][e] = p;
+        dp[c][e] = p * (dp[c][e] - tdelta[col]);
+      }
+    pack_a(a, s);
+    mma_ab(dva, a, dot);  // dv += T(p)ᵀ . dO
+    pack_a(a, dp);
+    mma_ab(dka, a, qt);  // dk += T(ds)ᵀ . q
+  });
+  cp_async_wait<0>();
+  __syncthreads();
+  store_rows(dk + base, 64, k0, n, ks, warp * 16, dka);
+  store_rows(dv + base, 64, k0, n, vs, warp * 16, dva);
+}
+
+constexpr size_t k7_fwd_smem() { return 5 * K7_TILE * sizeof(bf16); }
+constexpr size_t k7_dq_smem() { return 6 * K7_TILE * sizeof(bf16); }
+constexpr size_t k7_dkv_smem() {
+  return 6 * K7_TILE * sizeof(bf16) + 4 * 64 * sizeof(float);
+}
+
+// the 1-D grid of bh x n/64 blocks, 0 when it exceeds the grid's x limit
+inline unsigned k7_blocks(int bh, int n) {
+  const long blocks = (long)bh * (n / 64);
+  return blocks <= 0x7fffffffL ? (unsigned)blocks : 0u;
+}
+
+template <typename K>
+cudaError_t k7_allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// out (bh, n, 64) and lse (bh, n) fp32 from q (pre-scaled), k, v (bh, n,
+// 64) and the key mask (bh, n) uint8; n a multiple of 64.
+inline int launch_k7_fwd(const bf16* q, const bf16* k, const bf16* v,
+                         const uint8_t* mask, bf16* out, float* lse, int bh,
+                         int n, int causal, cudaStream_t st) {
+  const unsigned blocks = k7_blocks(bh, n);
+  if (!blocks) return (int)cudaErrorInvalidValue;
+  cudaError_t e = k7_allow_smem(k7_fwd_kernel, k7_fwd_smem());
+  if (e != cudaSuccess) return (int)e;
+  k7_fwd_kernel<<<blocks, K7_THREADS, k7_fwd_smem(), st>>>(
+      q, k, v, mask, out, lse, n, causal);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+// dq, dk, dv (bh, n, 64) from the forward's inputs, out, lse and dout;
+// delta (bh, n) fp32 is scratch the dq kernel writes and the dk/dv kernel
+// reads.
+inline int launch_k7_bwd(const bf16* q, const bf16* k, const bf16* v,
+                         const uint8_t* mask, const bf16* out,
+                         const float* lse, const bf16* dout, bf16* dq,
+                         bf16* dk, bf16* dv, float* delta, int bh, int n,
+                         int causal, cudaStream_t st) {
+  const unsigned blocks = k7_blocks(bh, n);
+  if (!blocks) return (int)cudaErrorInvalidValue;
+  cudaError_t e = k7_allow_smem(k7_bwd_dq_kernel, k7_dq_smem());
+  if (e == cudaSuccess)
+    e = k7_allow_smem(k7_bwd_dkv_kernel, k7_dkv_smem());
+  if (e != cudaSuccess) return (int)e;
+  k7_bwd_dq_kernel<<<blocks, K7_THREADS, k7_dq_smem(), st>>>(
+      q, k, v, mask, out, lse, dout, dq, delta, n, causal);
+  XCLIP_CHECK_LAUNCH();
+  k7_bwd_dkv_kernel<<<blocks, K7_THREADS, k7_dkv_smem(), st>>>(
+      q, k, v, mask, lse, dout, delta, dk, dv, n, causal);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+}  // namespace xclip

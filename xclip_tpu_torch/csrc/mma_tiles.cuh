@@ -13,6 +13,11 @@
 // Shared-memory tiles are 64 rows of 64 bf16 at a row stride of LDT = 72
 // elements (144 bytes): the eight 16-byte rows one ldmatrix phase reads
 // fall into distinct banks.
+//
+// Beside the fragments: the double-buffered cp.async walk over 64-row
+// tiles, a thread's view of a key tile's 64-bit mask word, and the quad
+// reductions of a row's statistics. K6 (attention_block_sm90.cuh) and K7
+// (flash_attention_sm90.cuh) are built from these.
 #pragma once
 
 #include "common.cuh"
@@ -169,6 +174,55 @@ __device__ __forceinline__ void store_rows(bf16* dst, long ld, int q0, int n,
       *reinterpret_cast<uint4*>(dst + (long)(q0 + r) * ld + d) =
           *reinterpret_cast<const uint4*>(stage + r * LDT + d);
   }
+}
+
+// Walk tiles from `t` to `last` in the order `next` gives (the next tile
+// to visit after its argument, or `last`): `stage(t, buf)` issues the
+// tile's cp.async copies into buffer buf one tile ahead, `body(t, buf)`
+// runs once they have landed; the two buffers alternate. Copies the
+// caller issued before the walk without committing them land with the
+// first tile's.
+template <typename Next, typename Stage, typename Body>
+__device__ __forceinline__ void tile_walk(int t, int last, Next next,
+                                          Stage stage, Body body) {
+  int buf = 0;
+  if (t < last) stage(t, 0);
+  cp_async_commit();
+  while (t < last) {
+    const int u = next(t);
+    if (u < last) stage(u, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    body(t, buf);
+    __syncthreads();
+    t = u;
+    buf ^= 1;
+  }
+}
+
+// A thread's view of a 64-key tile's mask word (bit c: key c valid): bits
+// (lo, hi) of word >> 2 (lane & 3), so that the key at column 8 c + 2
+// (lane & 3) + e of the tile, in the accumulator layout above, is a shift
+// by a constant (c and e unrolled).
+struct KeyBits {
+  uint32_t lo, hi;
+  __device__ __forceinline__ KeyBits(unsigned long long w, int tq)
+      : lo((uint32_t)(w >> (2 * tq))), hi((uint32_t)(w >> (32 + 2 * tq))) {}
+  __device__ __forceinline__ bool operator()(int c, int e) const {
+    return ((c < 4 ? lo >> (8 * c + e) : hi >> (8 * (c - 4) + e)) & 1u) != 0;
+  }
+};
+
+// max and sum over the quad (lanes 4g..4g+3) that holds one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace

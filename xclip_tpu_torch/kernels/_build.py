@@ -60,7 +60,7 @@ _SIGNATURES = {
     "xclip_attention_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
     "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
     "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _P],
-    "xclip_flash_bwd": [_I, *[_P] * 10, _I, _I, _I, _P],
+    "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _P],
 }
 _RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES
              if name.endswith("_workspace")}

@@ -17,18 +17,20 @@ Differentiable in q, k and v.
   −inf, p = 0 on masked entries, p cast to v's dtype before p·v, l =
   max(l, 1e-30)); out in q's dtype, lse = m_safe + log l: a row with no
   valid key gives out 0 and lse log 1e-30.
-* `flash_attention_bwd` → (dq, dk, dv): Δ = Σ dO∘O in PyTorch, then the
-  kernels with p = exp(s − lse) (0 on masked entries), ds = p·(dO·vᵀ − Δ),
-  dq = T(ds)·k, dk = T(ds)ᵀ·q, dv = T(p)ᵀ·dO.
+* `flash_attention_bwd` → (dq, dk, dv): Δ = Σ dO∘O per row, then p =
+  exp(s − lse) (0 on masked entries), ds = p·(dO·vᵀ − Δ), dq = T(ds)·k,
+  dk = T(ds)ᵀ·q, dv = T(p)ᵀ·dO.
 
-The CUDA kernels are `csrc/flash_attention.cu` (64 × 64 tiles; their source
-note gives the design and what bounds it). The plain versions follow the
-Pallas kernels' rounding points; the forward's online softmax rounds p
-against the running max, so its key block is a rounding point too: the
-plain forward takes it as `block_k`, `KERNEL_BLOCK` by default (the
-kernels' tile; the tests set the Pallas default, 128, to hold it to JAX).
-Every wrapper takes its kernel for CUDA tensors and its plain version for
-CPU tensors.
+The CUDA kernels are `csrc/flash_attention.cu` (64 × 64 tiles): bf16 on
+the mma.sync kernels of `csrc/flash_attention_sm90.cuh`, which skip causal
+and all-masked key tiles and compute Δ in the dq kernel; fp32 on FMA
+kernels, Δ from PyTorch. Their source notes give the design and what
+bounds it. The plain versions follow the Pallas kernels' rounding points;
+the forward's online softmax rounds p against the running max, so its key
+block is a rounding point too: the plain forward takes it as `block_k`,
+`KERNEL_BLOCK` by default (the kernels' tile; the tests set the Pallas
+default, 128, to hold it to JAX). Every wrapper takes its kernel for CUDA
+tensors and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -134,20 +136,24 @@ flash_attention_fwd.launches = 0  # kernel launches (plain calls not counted)
 
 
 def flash_attention_bwd(q, k, v, mask, out, lse, do, causal=False):
-    """K7 backward → (dq, dk, dv) as the plain version; Δ in PyTorch."""
+    """K7 backward → (dq, dk, dv) as the plain version; Δ = Σ dO∘O in
+    the dq kernel (bf16) or in PyTorch (fp32)."""
     if not route("flash_attention_bwd", (q, k, v, mask, out, lse, do)):
         return flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal)
     bh, n = _check("flash_attention_bwd", (q, k, v, out, do), mask)
     check_kernel_args("flash_attention_bwd", (lse,), torch.float32)
     if lse.shape != (bh, n):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}")
-    delta = (do.float() * out.float()).sum(dim=-1)
+    if q.dtype == torch.bfloat16:   # scratch: the dq kernel computes Δ
+        delta = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    else:
+        delta = (do.float() * out.float()).sum(dim=-1)
     mask_u8 = mask.to(torch.uint8).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         err = _build.library().xclip_flash_bwd(
             dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask_u8.data_ptr(), do.data_ptr(),
+            mask_u8.data_ptr(), out.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bh, n, int(causal), stream_ptr(q.device))
     _build.check(err, "xclip_flash_bwd")
