@@ -33,7 +33,14 @@ caught.
              rows) and vision (8,192 rows) shapes, K2 forward and backward
              at (256, 257, 512, 8 x 64), bf16, against their plain versions
              on the card: max_abs_err and tolerance of every output and
-             gradient; CUDA-event times of kernel and plain version.
+             gradient; CUDA-event times of kernel and plain version. Then
+             the megablock's attention core alone (the step every
+             megablock variant runs) at (256, 257, 3 x 512) with the text
+             tower's key pads and with full-length captions, forward and
+             backward, against its plain
+             version element by element (phase 12's rule), timed beside
+             its plain version, scaled_dot_product_attention on the same
+             q, k, v and mask, and its bound.
   7 train-golden  one fp32 train step of the tiny CLIP of the golden file
              on the kernel routes against the JAX package's loss, gradients
              and updated parameters.
@@ -49,7 +56,9 @@ caught.
              backward) at (256, 257, 512, 8 x 64) and (256, 32, 512), bf16,
              and K5 at (2048, 512) with DCL, fp32, against their plain
              versions on the card: max_abs_err and tolerance of every
-             output and gradient, CUDA-event times of kernel and plain.
+             output and gradient, CUDA-event times of kernel and plain;
+             the megablock's core alone as in phase 6 at the vision
+             tower's (256, 32) without pads.
  10 lean-golden  one fp32 train step of the golden file's tiny CLIP on the
              memory-lean routes against the JAX package's.
  11 lean-train  the flagship train step on the memory-lean routes
@@ -58,8 +67,9 @@ caught.
              phase 8's weights and inputs, 2 warm-up and 5 timed steps,
              beside phase 8's stored routes; (b) b = 2048, 2 warm-up and 3
              timed steps, pairs/s, peak memory, the idle share and top
-             kernels over one profiled step; launch counts per step, finite
-             losses, the first near ln b.
+             kernels over one profiled step; launch counts per step (the
+             megablock core's among them), finite losses, the first near
+             ln b.
  12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
              backward at (256, 256, 3 x 512) causal with key pads and at n =
              257 not causal, K7 (FlashAttention) forward and backward at
@@ -76,7 +86,7 @@ caught.
              kernel, plain version and scaled_dot_product_attention
              (forward, backward, both) on the same q, k, v and mask, the
              kernel / SDPA ratio, and the bound (K7 at the vision shapes:
-             kernel and bound).
+             kernel, bound, plain version and SDPA).
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -273,6 +283,18 @@ def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2):
     if kind == "fwd":
         return 2 * e + 2 * e_kv + 4 * rows_heads + mask_bytes, 4 * pairs * 64
     return (6 * e + 2 * e_kv + 4 * rows_heads + mask_bytes,
+            10 * pairs * 64)
+
+
+def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes):
+    """core_cost of the megablock's attention core in bf16: the forward
+    writes the (m, l) pair (8 bytes a row and head) in place of lse; the
+    backward reads the fp32 row cotangent dattn (4 bytes an element) and
+    the pair, and writes dq, dk and dv."""
+    e, e_kv = rows_heads * 64 * 2, keys_heads * 64 * 2
+    if kind == "fwd":
+        return 2 * e + 2 * e_kv + 8 * rows_heads + mask_bytes, 4 * pairs * 64
+    return (7 * e + 2 * e_kv + 8 * rows_heads + mask_bytes,
             10 * pairs * 64)
 
 
@@ -550,14 +572,21 @@ def attn_kernels(gen, core, flash):
                     *flat[:3], mask_bh, False))
                 bwd_ms = cuda_ms(lambda: flash.flash_attention_bwd(
                     *flat[:3], mask_bh, out, lse, flat[3], False))
+                plain_fwd = cuda_ms(lambda: flash.flash_attention_fwd_plain(
+                    *flat[:3], mask_bh, False))
+                plain_bwd = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+                    *flat[:3], mask_bh, out, lse, flat[3], False))
+                sdpa = sdpa_ms(q, k, v, mask, False, 1.0, do)
                 lengths_bh = [n] * bh
                 fwd_b, bwd_b = (bound(*flash_cost(kind, bh, n_pad, lengths_bh,
                                                   False))[0]
                                 for kind in ("fwd", "bwd"))
                 print(f"  K7 vision {n} tokens (b*h {bh}, n_pad {n_pad}): "
-                      f"kernel forward {fwd_ms:.3f} ms (bound {fwd_b:.3f}), "
-                      f"backward {bwd_ms:.3f} ms (bound {bwd_b:.3f})",
-                      flush=True)
+                      f"kernel forward {fwd_ms:.3f} ms (bound {fwd_b:.3f}, "
+                      f"plain {plain_fwd:.3f}, sdpa {sdpa[0]:.3f} on the "
+                      f"unpadded {n}), backward {bwd_ms:.3f} ms (bound "
+                      f"{bwd_b:.3f}, plain {plain_bwd:.3f}, sdpa "
+                      f"{sdpa[1]:.3f})", flush=True)
             del q, k, v, do, flat, out, lse
             torch.cuda.empty_cache()
     # bf16 K7 at the text shape with whole 64-key tiles masked between
@@ -731,6 +760,72 @@ def train_kernels(gen, ffb, mega):
              "k2_fwd": mega_cost("fwd_stored", b, 257, lengths),
              "k2_bwd": mega_cost("bwd_stored", b, 257, lengths)}
     return errs, ms, costs
+
+
+# (key, record name, source, Pallas body replaced) of the megablock's
+# attention core alone, timed at the text tower's shape in phase 6; its
+# launches are those of the memory-lean b = 2048 step (phase 11), where K3
+# runs it in both towers
+CORE_KERNELS = [
+    ("core_fwd", "megablock attention core forward (K-MEGA, K2, K3)",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:158"),
+    ("core_bwd", "megablock attention core backward (dq, dk/dv; K2, K3)",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:396"),
+]
+
+
+def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
+    """The megablock's attention core alone (`mega_core_fwd`, `_bwd`), bf16,
+    8 x 64 heads, non-causal, scale 64^-0.5, on random qkv and fp32 dattn
+    (from a generator of its own, so the later phases' draws stay put)
+    with `lengths` valid keys an element: against its plain version
+    element by element, timed beside its plain version, SDPA on the same
+    q, k, v and mask, and its bound. Returns (errs, ms, costs, library)
+    keyed core_fwd, core_bwd."""
+    cgen = torch.Generator(device="cuda").manual_seed(seed)
+    dt, scale = torch.bfloat16, 64 ** -0.5
+    mask = key_mask(lengths, n)
+    qkv = rand(cgen, b, n, 3 * 512, dtype=dt)
+    dattn = rand(cgen, b, n, 512)
+    static = (8, 64, scale, False, maybe_dead)
+    tag = f"megablock core bf16 ({b}, {n}, 3x512) 8x64 {label}"
+    want = mega.mega_core_fwd_plain(qkv, mask, *static)
+    errs = {"core_fwd": compare_elementwise(
+        tag, ("attnout", "sm"), mega.mega_core_fwd(qkv, mask, *static), want,
+        dt)}
+    errs["core_bwd"] = compare_elementwise(
+        tag, ("dqkv",), (mega.mega_core_bwd(qkv, mask, dattn, *want,
+                                            *static),),
+        (mega.mega_core_bwd_plain(qkv, mask, dattn, *want, *static),), dt)
+    ms = {"core_fwd": (
+        cuda_ms(lambda: mega.mega_core_fwd(qkv, mask, *static)),
+        cuda_ms(lambda: mega.mega_core_fwd_plain(qkv, mask, *static))),
+        "core_bwd": (
+        cuda_ms(lambda: mega.mega_core_bwd(qkv, mask, dattn, *want,
+                                           *static)),
+        cuda_ms(lambda: mega.mega_core_bwd_plain(qkv, mask, dattn, *want,
+                                                 *static)))}
+    q, k, v = (_heads_of(qkv, i) for i in range(3))
+    sdpa = sdpa_ms(q, k, v, mask, False, scale, _heads_of(dattn.to(dt), 0))
+    pairs = 8 * valid_pairs(lengths, n, False)
+    keys = 8 * used_keys(lengths, n)
+    costs = {f"core_{kind}": mega_core_cost(kind, b * n * 8, keys, pairs,
+                                            b * n)
+             for kind in ("fwd", "bwd")}
+    library = {"core_fwd": sdpa[0], "core_bwd": sdpa[1]}
+    torch.cuda.synchronize()
+    for key in ms:
+        b_ms, b_by = bound(*costs[key])
+        print(f"  {tag} {key}: kernel {ms[key][0]:.3f} ms "
+              f"({ms[key][0] / library[key]:.2f}x sdpa), plain "
+              f"{ms[key][1]:.3f} ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
+              f"{library[key]:.3f} ms (forward + backward {sdpa[2]:.3f} ms)",
+              flush=True)
+    del qkv, dattn, want, q, k, v
+    torch.cuda.empty_cache()
+    return errs, ms, costs, library
 
 
 # (key, record name, source, Pallas body replaced) of the memory-lean
@@ -1117,8 +1212,9 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
     """Phase 11: the flagship train step on the memory-lean routes, at
     b = 256 (phase 8's weights and inputs; `stored` its kernel-route
     result) and at b = 2048."""
+    # the core: K3's forward and its backward's recompute, K3's backward
     want = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
-            "k5_fwd": 2, "k5_bwd": 2}
+            "k5_fwd": 2, "k5_bwd": 2, "core_fwd": 24, "core_bwd": 12}
     results = {}
     for b, warm, timed, seed in ((256, 2, 5, 8), (2048, 2, 3, 11)):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1178,7 +1274,8 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
           f"{stored[1]:.2f} GiB); b=2048 {2048e3 / s2048[0]:.1f} pairs/s "
           f"({s2048[0]:.1f} ms per step, peak {s2048[1]:.2f} GiB, idle "
           f"{s2048[2]:.4f}); launches per step K3 fwd/bwd 12, K-FF-s 12, FF "
-          f"recompute backward 12, K5 fwd/bwd 2")
+          f"recompute backward 12, K5 fwd/bwd 2, megablock core fwd/bwd 24"
+          f"/12")
     return s2048[3]
 
 
@@ -1737,6 +1834,14 @@ def main():
 
     # ---------------------------------------------------------------- 6
     train_errs, train_ms, train_costs = train_kernels(gen, ffb, mega)
+    # the text tower's key pads: chip_smoke.texts' caption lengths and CLS
+    lgen = torch.Generator().manual_seed(6)
+    core_lengths = (torch.randint(4, 257, (256,), generator=lgen) + 1).tolist()
+    core_errs, core_ms, core_costs, core_library = mega_core_kernels(
+        mega, "text key-pad", 256, 257, core_lengths, True, seed=6)
+    # full-length captions: the fifth key tile (one key) is walked too
+    mega_core_kernels(mega, "text full-length", 256, 257, [257] * 256, True,
+                      seed=7)
 
     # ---------------------------------------------------------------- 7
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -1749,6 +1854,7 @@ def main():
 
     # ---------------------------------------------------------------- 9
     lean_errs, lean_ms, lean_costs = lean_kernels(gen, ffb, mega, lse5)
+    mega_core_kernels(mega, "vision", 256, 32, [32] * 256, False, seed=9)
 
     # --------------------------------------------------------------- 10
     lean_counters = {"k3_fwd": mega.attention_block_fwd_stats,
@@ -1756,7 +1862,9 @@ def main():
                      "kffs": ffb.ff_block_fwd_stats,
                      "ff_rc": ffb.ff_block_bwd_recompute,
                      "k5_fwd": lse5.streaming_lse_fwd,
-                     "k5_bwd": lse5.streaming_lse_bwd}
+                     "k5_bwd": lse5.streaming_lse_bwd,
+                     "core_fwd": mega.mega_core_fwd,
+                     "core_bwd": mega.mega_core_bwd}
     before = {k: fn.launches for k, fn in lean_counters.items()}
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                  make_train_step, number=10, prefix="lean_")
@@ -1830,7 +1938,7 @@ def main():
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
     # no single PyTorch call computes the blocks' functions, nor K8's or
-    # K1-h's (library_ms null); K6 and K7 against
+    # K1-h's (library_ms null); the megablock's core, K6 and K7 against
     # scaled_dot_product_attention on the same q, k, v and mask, forward or
     # backward
     rows = b * 257
@@ -1856,6 +1964,10 @@ def main():
             name, source, replaces, lean_launches[key], lean_errs[key],
             lean_ms[key], lean_costs[key],
             FP32_PEAK if key.startswith("k5") else BF16_PEAK))
+    for key, name, source, replaces in CORE_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, lean_launches[key], core_errs[key],
+            core_ms[key], core_costs[key], BF16_PEAK, core_library[key]))
     for key, name, source, replaces in ATTN_KERNELS:
         record["kernels"].append(entry(
             name, source, replaces, rotary_launches[key], attn_errs[key],

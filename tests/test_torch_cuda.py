@@ -9,7 +9,8 @@ module imports no JAX, so it runs on a machine without it:
 1e-4 absolute with TF32 off; bf16 at two storage ulps. The training
 kernels' outputs and gradients are compared at 1e-4 (fp32) or two bf16
 ulps of each tensor's largest magnitude; K5's lse (fp32, |lse| < 20) at
-1e-4 absolute. K6 and K7 (out, lse, every gradient) element by element:
+1e-4 absolute. K6, K7 and the megablock's attention core alone (out,
+the fp32 statistics, every gradient) element by element:
 fp32 outputs and every lse at 1e-4 of the tensor's largest magnitude,
 bf16 outputs at two bf16 ulps of the element plus 3e-2 of its head row's
 RMS plus 1e-2 of the tensor's, and each within 1e-3 relative Frobenius
@@ -31,8 +32,8 @@ from xclip_tpu_torch.kernels import fused_ff as k8
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 from xclip_tpu_torch.kernels import fused_infonce as lse5
 
-from torch_port_inputs import (BF16_ATOL, core_args, ff_args, flash_args,
-                               mega_args, to_torch)
+from torch_port_inputs import (BF16_ATOL, _key_mask, core_args, ff_args,
+                               flash_args, mega_args, to_torch)
 
 
 @pytest.fixture
@@ -381,8 +382,9 @@ def test_lean_backwards_are_deterministic(cuda_device):
 # ------------------------------------------ rotary text tower: K6 and K7
 
 def _assert_elementwise(got, want, dtype, names):
-    """K6 and K7 element by element: fp32 outputs and every lse (fp32 in
-    both dtypes) within 1e-4 of the tensor's largest magnitude; bf16
+    """K6, K7 and the megablock's core element by element: fp32 outputs
+    and every fp32 statistic (lse; the megablock's m and l) within 1e-4 of
+    the tensor's largest magnitude; bf16
     outputs within two bf16 ulps of the element plus 3e-2 of the RMS of
     its head row (64 features) plus 1e-2 of the tensor's RMS (a flipped
     bf16 rounding of a p or ds term moves a sum by up to 2^-7 of that
@@ -391,8 +393,9 @@ def _assert_elementwise(got, want, dtype, names):
     for name, g, w in zip(names, got, want):
         assert g.dtype == w.dtype, name
         assert torch.isfinite(g.float()).all(), name
+        fp32 = w.dtype == torch.float32
         w = w.float()
-        if dtype == "float32" or name == "lse":
+        if dtype == "float32" or fp32:
             tol = 1e-4 * max(1.0, float(w.abs().max()))
         else:
             rows = w.reshape(-1, 64)
@@ -612,6 +615,173 @@ def test_attention_cores_are_deterministic(cuda_device):
         a, b = (flash.flash_attention_bwd(q, k, v, mask, out, lse, do, True)
                 for _ in range(2))
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------ the megablock's attention core on the mma.sync kernels
+
+def _flagship_mega(device, kind, seed, b=256, n=257, dim=512, heads=8):
+    """Megablock inputs at the flagship text shape, bf16: "full" every key
+    valid, "keypad" caption lengths uniform in 5..n (`chip_smoke.texts`
+    with CLS), "dead" as "keypad" with the last element all pads."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt, hd = torch.bfloat16, heads * 64
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device) * scale
+                ).to(dt)
+
+    lengths = (torch.full((b,), n, device=device) if kind == "full" else
+               torch.randint(5, n + 1, (b,), generator=g, device=device))
+    mask = torch.arange(n, device=device)[None] < lengths[:, None]
+    if kind == "dead":
+        mask[-1] = False
+    return [randn(b, n, dim), 1 + randn(dim, scale=0.1),
+            randn(dim, 3 * hd, scale=dim ** -0.5),
+            randn(hd, dim, scale=hd ** -0.5), 1 + randn(dim, scale=0.1),
+            mask]
+
+
+MEGA_FLAGSHIP_CASES = [  # (mask kind, causal, scale)
+    ("full", False, 64 ** -0.5), ("keypad", False, 64 ** -0.5),
+    ("keypad", False, 0.1), ("dead", False, 64 ** -0.5),
+    ("dead", True, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,causal,scale", MEGA_FLAGSHIP_CASES)
+def test_megablock_variants_at_the_flagship_shape(cuda_device, kind, causal,
+                                                  scale):
+    """(256, 257, 512, 8 x 64), bf16, full-length and padded captions,
+    dead rows, causal, scale 0.1: K-MEGA, K2 forward and backward, K3
+    (stats and qkv) forward and recompute backward against their plain
+    versions (two bf16 ulps of each tensor's largest magnitude), and the
+    attention core alone element by element (as K6)."""
+    args = _flagship_mega(cuda_device, kind, seed=5)
+    static = (8, 64, scale, causal, True)
+    b, n, dim = args[0].shape
+    with torch.no_grad():
+        _assert_all_close((mega.attention_block(*args, *static),),
+                          (mega.attention_block_plain(*args, *static),),
+                          "bfloat16", ("out",))
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    _assert_all_close((out, *stored), (want_out, *want_stored), "bfloat16",
+                      ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = torch.randn_like(out)
+    _assert_all_close(
+        mega.attention_block_bwd(*args, do, want_stored, *static),
+        mega.attention_block_bwd_plain(*args, do, want_stored, *static),
+        "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out", "dqkv"))
+    del out, stored
+    for keep in (False, True):
+        got = mega.attention_block_fwd_stats(*args, *static, keep)
+        want = mega.attention_block_fwd_stats_plain(*args, *static, keep)
+        names = ("out", "sm", "ln_stats", "qkv")[:3 + keep]
+        _assert_all_close(got[:len(names)], want[:len(names)], "bfloat16",
+                          names)
+        _, sm, ln_stats, qkv = want
+        _assert_all_close(
+            mega.attention_block_bwd_recompute(*args, do, sm, ln_stats,
+                                               *static, qkv=qkv),
+            mega.attention_block_bwd_recompute_plain(
+                *args, do, sm, ln_stats, *static, qkv=qkv),
+            "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+    qkv = want_stored[0].reshape(b, n, -1)
+    counts = (mega.mega_core_fwd.launches, mega.mega_core_bwd.launches)
+    got = mega.mega_core_fwd(qkv, args[5], *static)
+    want = mega.mega_core_fwd_plain(qkv, args[5], *static)
+    _assert_elementwise(got, want, "bfloat16", ("attnout", "sm"))
+    dattn = torch.randn(b, n, 512, device=cuda_device)
+    _assert_elementwise(
+        (mega.mega_core_bwd(qkv, args[5], dattn, *want, *static),),
+        (mega.mega_core_bwd_plain(qkv, args[5], dattn, *want, *static),),
+        "bfloat16", ("dqkv",))
+    assert (mega.mega_core_fwd.launches,
+            mega.mega_core_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["holes", "dead"])
+def test_megablock_writes_every_element(cuda_device, causal, mask_kind):
+    """bf16 K2, K3 and the core alone run the attention on kernels that
+    skip tiles, yet write every element of their outputs, residuals and
+    gradients (the wrappers take them from torch.empty)."""
+    b, n, dim, heads = 8, 257, 512, 8
+    rows, hd, dt, f32 = b * n, heads * 64, torch.bfloat16, torch.float32
+    args = to_torch(mega_args(b=b, n=n, dim=dim, heads=heads), dt,
+                    cuda_device)
+    args[5] = torch.from_numpy(_key_mask(b, n, mask_kind)).to(cuda_device)
+    static = (heads, 64, 0.1, causal, True)
+    _nan_blocks(((b, n, dim), dt), ((rows, dim), dt), ((rows, 3 * hd), dt),
+                ((rows, hd), dt), ((rows, dim), f32), ((rows, 2 * heads), f32),
+                ((4, rows), f32))
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (out, *stored))
+    _nan_blocks(((b, n, dim), dt), ((rows, 3 * hd), dt))
+    grads = mega.attention_block_bwd(*args, torch.randn_like(out), stored,
+                                     *static)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in grads)
+    for keep in (False, True):
+        _nan_blocks(((b, n, dim), dt), ((rows, 2 * heads), f32),
+                    ((4, rows), f32), ((rows, 3 * hd), dt))
+        got = mega.attention_block_fwd_stats(*args, *static, keep)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t).all() for t in got if t is not None)
+        _nan_blocks(((b, n, dim), dt))
+        grads = mega.attention_block_bwd_recompute(
+            *args, torch.randn_like(out), got[1], got[2], *static,
+            qkv=got[3])
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t).all() for t in grads)
+    qkv = stored[0].reshape(b, n, 3 * hd)
+    _nan_blocks(((b, n, hd), dt), ((b, n, 2 * heads), f32))
+    attnout, sm = mega.mega_core_fwd(qkv, args[5], *static)
+    torch.cuda.synchronize()
+    assert torch.isfinite(attnout).all() and torch.isfinite(sm).all()
+    _nan_blocks(((b, n, 3 * hd), dt), ((b, n, heads), f32),
+                ((b, n, 2 * hd), dt))
+    dqkv = mega.mega_core_bwd(qkv, args[5], torch.randn(b, n, hd,
+                                                        device=cuda_device),
+                              attnout, sm, *static)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dqkv).all()
+
+
+@pytest.mark.cuda
+def test_megablock_length_limit_is_2048(cuda_device):
+    """bf16: the megablock, its core and K6 share the mma.sync kernels'
+    limit, 64 x 32 key tiles = 2048 keys. At n = 2048 the core agrees with
+    its plain version; at 2049 every wrapper raises (no fallback)."""
+    dt = torch.bfloat16
+    assert mega.max_seq_len(dt) == mega.max_seq_len_bwd(dt) == 2048
+    qkv, mask, _ = to_torch(core_args(b=3, n=2048, heads=2,
+                                      mask_kind="holes"), dt, cuda_device)
+    static = (2, 64, 0.1, True, True)
+    want = mega.mega_core_fwd_plain(qkv, mask, *static)
+    _assert_elementwise(mega.mega_core_fwd(qkv, mask, *static), want,
+                        "bfloat16", ("attnout", "sm"))
+    dattn = torch.randn(3, 2048, 128, device=cuda_device)
+    _assert_elementwise(
+        (mega.mega_core_bwd(qkv, mask, dattn, *want, *static),),
+        (mega.mega_core_bwd_plain(qkv, mask, dattn, *want, *static),),
+        "bfloat16", ("dqkv",))
+    args = to_torch(mega_args(n=2049, dim=128, heads=2), dt, cuda_device)
+    qkv = torch.zeros(2, 2049, 3 * 128, dtype=dt, device=cuda_device)
+    calls = [
+        lambda: mega.attention_block(*args, 2, 64, 0.125),
+        lambda: mega.attention_block_fwd_stats(*args, 2, 64, 0.125),
+        lambda: mega.attention_block_train(
+            *[t.requires_grad_(True) for t in args[:5]], args[5], 2, 64,
+            0.125),
+        lambda: mega.mega_core_fwd(qkv, args[5], 2, 64, 0.125),
+        lambda: core.attention_core_fwd(qkv, args[5], 2, 64, 0.125)]
+    for call in calls:
+        with pytest.raises(ValueError, match="exceeds"):
+            call()
 
 
 # ------------------------------------------- K8 (ff_impl='fused'), K1-h

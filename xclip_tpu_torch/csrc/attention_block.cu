@@ -20,11 +20,13 @@
 // block, TPU artefacts; here a block is one (64-row tile, head, batch
 // element) of the true (b, n, 3*heads*64) tensor.
 //
-// bf16 runs the kernels of attention_block_sm90.cuh (register-resident
-// mma.sync tiles that skip causal and masked tiles; their notes give the
-// design and what bounds it). fp32 runs the attention megablock's FMA core
-// (attention_core.cuh), which also sets the length limits of both dtypes.
-#include "attention_block_sm90.cuh"
+// bf16 runs the kernels of attention_block_sm90.cuh in their K6 mode
+// (register-resident mma.sync tiles that skip causal and masked tiles;
+// their notes give the design and what bounds it), which the attention
+// megablock's bf16 core shares. fp32 runs the megablock's FMA core
+// (attention_core.cuh). The length limits are the megablock's own, dtype
+// by dtype: bf16 that of the shared kernels (n <= 2048), fp32 that of the
+// FMA core.
 #include "attention_core.cuh"
 
 static bool core_args_ok(int b, int n, int heads) {
@@ -44,10 +46,10 @@ extern "C" int xclip_attention_core_fwd(int dtype, const void* qkv,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (dtype == xclip::kBF16)
-    return xclip::launch_k6_fwd(XCLIP_PTR(const xclip::bf16*, qkv), m,
-                                XCLIP_PTR(xclip::bf16*, out),
-                                XCLIP_PTR(float*, lse), b, n, heads, scale,
-                                causal, maybe_dead, st);
+    return xclip::launch_k6_fwd<false>(XCLIP_PTR(const xclip::bf16*, qkv), m,
+                                       XCLIP_PTR(xclip::bf16*, out),
+                                       XCLIP_PTR(float*, lse), b, n, heads,
+                                       scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_attention<float>(XCLIP_PTR(const float*, qkv), m,
                                  XCLIP_PTR(float*, out), b, n, heads, scale,
@@ -69,13 +71,14 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (dtype == xclip::kBF16)
-    return xclip::launch_k6_bwd(
+    return xclip::launch_k6_bwd<false>(
         XCLIP_PTR(const xclip::bf16*, qkv), m,
         XCLIP_PTR(const xclip::bf16*, out), XCLIP_PTR(const float*, lse),
-        XCLIP_PTR(const xclip::bf16*, dout), XCLIP_PTR(xclip::bf16*, dqkv),
-        XCLIP_PTR(float*, delta), b, n, heads, scale, causal, maybe_dead, st);
+        XCLIP_PTR(const xclip::bf16*, dout), nullptr,
+        XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
+        scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
-  return launch_attention_bwd<float, float, true>(
+  return launch_attention_fma_bwd<true>(
       XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dout),
       XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
       XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,

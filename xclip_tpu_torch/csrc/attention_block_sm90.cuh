@@ -1,22 +1,42 @@
-// K6 in bf16: whole-head attention on the fused qkv, forward and backward,
-// in place of the Pallas bodies of xclip_tpu/kernels/attention_block.py:
-// `_fwd_kernel` (:83) and `_bwd_kernel` (:117). The same numbers as they
-// compute (csrc/attention_block.cu gives the semantics): scores (q . k) *
+// The bf16 attention core of the port: whole-head attention on the fused
+// qkv (b*n x 3*heads*64), forward and backward, in two modes chosen at
+// compile time.
+//   * K6 (MEGA false), in place of the Pallas bodies of
+//     xclip_tpu/kernels/attention_block.py: `_fwd_kernel` (:83) and
+//     `_bwd_kernel` (:117); csrc/attention_block.cu gives the semantics.
+//   * The attention megablock's core (MEGA true), the attention step of
+//     K-MEGA, K2 and K3 (csrc/attention_megablock.cu), in place of the
+//     attention part of `_fwd_common` and of `_bwd_kernel_stored` /
+//     `_bwd_kernel` in xclip_tpu/kernels/attention_megablock.py.
+// Both compute the same numbers as the Pallas bodies: scores (q . k) *
 // scale in fp32, -inf on masked and future keys; a dead row (maybe_dead,
 // no valid key up to it) uniform over the n keys with m = 0; l = max(sum
-// p, 1e-30); p / l rounded to bf16 before p . v; lse = m + log l. The
-// backward takes p = exp(s - lse) (1/n on a dead row), delta = sum do *
-// out from the stored out, ds = T(p (dp - delta) scale) (0 on a dead
-// row), dq = ds . k, dk = dsᵀ . q, dv = T(p)ᵀ . do, each cast once.
+// p, 1e-30); p / l rounded to bf16 before p . v. They differ in what the
+// forward keeps and in where the backward puts the scale:
+//   * K6 keeps lse = m + log l (b*n x heads); its backward takes p =
+//     exp(s - lse) (1/n on a dead row), delta = sum do * out from the
+//     stored out and the bf16 do, ds = T(p (dp - delta) scale) with dp =
+//     do . vᵀ;
+//   * the megablock keeps its pair `sm` (b*n x 2*heads: m at column h, l at
+//     heads + h), or nothing (K-MEGA, K3's recompute); its backward takes p
+//     = (dead ? 1 : exp(s - m)) / l from the stored pair (not re-reduced),
+//     the fp32 row cotangent dattn, delta = scale * sum dattn * attnout in
+//     fp32, dp = T(dattn * scale) . vᵀ and ds = T(p (dp - delta)): the
+//     scale sits on do, not on ds (for a scale that is not a power of two
+//     the two orders round differently).
+// Then ds is 0 on a dead row; dq = ds . k, dk = dsᵀ . q, dv = T(p)ᵀ . do
+// (the megablock's do unscaled, T(dattn)), each cast once.
 //
-// What bounds it on the card: bytes. At the text tower's shape (b 256, n
-// 256, 8 heads, causal, key pads uniform in 1..n) the forward reads q and
-// the k and v of the keys some query uses (the valid ones; all n where a
-// row is dead) and writes out and lse (0.061 ms at 3.35 TB/s), the
-// backward also reads out, do and lse and writes all of dqkv (0.141 ms);
-// the products are ~29 GFLOP, 0.03 ms of the tensor cores. The attention
-// megablock's core (attention_core.cuh), which K6 ran on before, lost its
-// time elsewhere, and the design answers each:
+// What bounds it on the card: bytes. At K6's text shape (b 256, n 256, 8
+// heads, causal, key pads uniform in 1..n) the forward reads q and the k
+// and v of the keys some query uses (the valid ones; all n where a row is
+// dead) and writes out and lse (0.061 ms at 3.35 TB/s), the backward also
+// reads out, do and lse and writes all of dqkv (0.141 ms); the products
+// are ~29 GFLOP, 0.03 ms of the tensor cores. At the megablock's text
+// shape (b 256, n 257, 8 heads, not causal, caption lengths 5..257) the
+// bounds are 0.061 and 0.161 ms: its backward reads the cotangent in fp32.
+// The wmma core both ran on before (the megablock until this design took
+// it over) lost its time elsewhere, and the design answers each:
 //   * every 32-query tile re-staged the head's k and v: here a block is 64
 //     queries (forward, dq) or 64 keys (dk/dv) x one head x one batch
 //     element, and it streams the other side's 64-row tiles through a
@@ -43,9 +63,18 @@
 // outputs (no atomics, two runs agree bit for bit): query tiles give delta
 // (into the `delta` scratch) and dq; key tiles compute sᵀ = k . qᵀ and dpᵀ
 // = v . doᵀ, so pᵀ and dsᵀ are the A operands of dv += T(p)ᵀ . do and dk
-// += dsᵀ . q. Every output element is written (the wrapper's tensors come
-// from torch.empty): a skipped tile leaves its accumulator 0. Rows and keys
-// at or past n read as 0 and are never written.
+// += dsᵀ . q; registers bound the dk/dv kernel at three blocks an SM, so
+// it passes its A operands and p, ds one 16-wide slice at a time (whole
+// operands spill in the megablock's mode, two blocks an SM run slower:
+// tools/mega_core_variants.py). In megablock mode the dq kernel reads its
+// block's fp32 dattn rows once, sums delta from them and writes the two
+// bf16 copies the dk/dv kernel streams as K6 streams do: T(dattn * scale)
+// for dpᵀ and T(dattn) for dv, side by side in the 256 bytes of the row's
+// fp32 head slice (`dcopy`, which may be dattn's own storage: nothing
+// reads the fp32 values after the dq kernel). Every output element is
+// written (the wrappers' tensors come from torch.empty): a skipped tile
+// leaves its accumulator 0. Rows and keys at or past n read as 0 and are
+// never written.
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -53,9 +82,14 @@
 namespace xclip {
 namespace {
 
-constexpr int K6_THREADS = 128;  // 4 warps of 16 rows: 64-row blocks
-constexpr int K6_MAX_TILES = 32;  // n <= 2048
+constexpr int K6_THREADS = 128;   // 4 warps of 16 rows: 64-row blocks
+constexpr int K6_MAX_TILES = 32;  // key tiles of the longest sequence
+constexpr int K6_MAX_N = 64 * K6_MAX_TILES;
 constexpr int K6_TILE = 64 * LDT;  // bf16 elements of a staged tile
+
+// The backward's row cotangent: K6's bf16 do, the megablock's fp32 dattn.
+template <bool MEGA>
+using K6Cot = typename std::conditional<MEGA, float, bf16>::type;
 
 // One 64-bit word per 64-key tile of the batch element's mask (bit c: key
 // 64 t + c < n is valid), into `bits`; returns the first valid key (n if
@@ -78,9 +112,12 @@ __device__ int k6_key_tiles(unsigned long long* bits, const uint8_t* mrow,
 
 // Forward, one block per (64-query tile, head, batch element); the last
 // query tiles, which walk the most key tiles when causal, start first.
+// `stats`: K6's lse (b*n x heads); the megablock's sm (b*n x 2*heads), or
+// null to keep none.
+template <bool MEGA>
 __global__ void __launch_bounds__(K6_THREADS, 4)
 k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
-              bf16* __restrict__ out, float* __restrict__ lse, int n,
+              bf16* __restrict__ out, float* __restrict__ stats, int n,
               int heads, float scale, int causal, int maybe_dead) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -151,7 +188,8 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   };
 
   // pass 1 keeps the running max and sum of each row; then (m, l) are
-  // final and lse is written; pass 2 accumulates o = T(p / l) . v
+  // final and the statistics are written; pass 2 accumulates o = T(p /
+  // l) . v
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   bool rows_final = false;
   auto finish_rows = [&]() {
@@ -160,8 +198,14 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
       const float sum = quad_sum(l[i]);  // every lane shuffles
       l[i] = dead[i] ? (float)n : fmaxf(sum, 1e-30f);
       if (dead[i]) m[i] = 0.f;
-      if (tq == 0 && row[i] < n)
-        lse[((long)bi * n + row[i]) * heads + h] = m[i] + logf(l[i]);
+      const long r = (long)bi * n + row[i];
+      if (tq != 0 || row[i] >= n) continue;
+      if (!MEGA) {
+        stats[r * heads + h] = m[i] + logf(l[i]);
+      } else if (stats) {
+        stats[r * 2 * heads + h] = m[i];
+        stats[r * 2 * heads + heads + h] = l[i];
+      }
     }
     rows_final = true;
   };
@@ -214,13 +258,18 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
 }
 
 // dq and delta, one block per (64-query tile, head, batch element).
+// `stats`, `dout`: K6's lse and bf16 do, or the megablock's sm and fp32
+// dattn; in megablock mode the kernel also writes dattn's two bf16 copies
+// into `dcopy` (b*n x 2*heads*64, head h at columns 128 h: T(dattn *
+// scale), then T(dattn)), which may alias dattn.
+template <bool MEGA>
 __global__ void __launch_bounds__(K6_THREADS, 3)
 k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
                  const uint8_t* __restrict__ mask,
-                 const bf16* __restrict__ out, const float* __restrict__ lse,
-                 const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                 float* __restrict__ delta, int n, int heads, float scale,
-                 int causal, int maybe_dead) {
+                 const bf16* __restrict__ out, const float* __restrict__ stats,
+                 const K6Cot<MEGA>* dout, bf16* dcopy,
+                 bf16* __restrict__ dqkv, float* __restrict__ delta, int n,
+                 int heads, float scale, int causal, int maybe_dead) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + K6_TILE;
@@ -242,8 +291,9 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
                                  2 * hd + h * 64, 64 * t, n);
   };
   stage_tile_async<K6_THREADS>(qs, base, ld, h * 64, q0, n);
-  stage_tile_async<K6_THREADS>(dos, dout + (long)bi * n * hd, hd, h * 64, q0,
-                               n);
+  if constexpr (!MEGA)
+    stage_tile_async<K6_THREADS>(dos, dout + (long)bi * n * hd, hd, h * 64,
+                                 q0, n);
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
   // a dead row's ds is 0: only tiles with a valid key up to the diagonal
@@ -256,22 +306,77 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   const int first = next(-1);
   int row[2];
   bool dead[2];
-  float rlse[2];
+  float rm[2], rl[2];  // the row's m and l; K6: lse and 1
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     row[i] = q0 + warp * 16 + g + 8 * i;
     dead[i] = maybe_dead && row[i] < n && (causal ? fv > row[i] : fv >= n);
-    rlse[i] = row[i] < n ? lse[((long)bi * n + row[i]) * heads + h] : 0.f;
+    const long r = (long)bi * n + row[i];
+    rm[i] = 0.f;
+    rl[i] = 1.f;
+    if (row[i] < n) {
+      rm[i] = MEGA ? stats[r * 2 * heads + h] : stats[r * heads + h];
+      if (MEGA) rl[i] = stats[r * 2 * heads + heads + h];
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  // delta = sum do * out: lanes 2r, 2r + 1 take half of row r each
+  // delta: lanes 2r, 2r + 1 take half of row r each. K6: sum do * out from
+  // the staged do. Megablock: scale * sum dattn * attnout from the fp32
+  // rows, which also give the A tile T(dattn * scale) and the bf16 copies.
   float rdelta[2];
   {
     const int r = warp * 16 + (lane >> 1), d0 = (lane & 1) * 32;
+    const long q = (long)bi * n + q0 + r;
+    const bool in = q0 + r < n;
     float acc = 0.f;
-    if (q0 + r < n) {
+    if constexpr (MEGA) {
+      float dv[32];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 f =
+            in ? *reinterpret_cast<const float4*>(dout + q * hd + h * 64 +
+                                                  d0 + 4 * c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+        dv[4 * c] = f.x;
+        dv[4 * c + 1] = f.y;
+        dv[4 * c + 2] = f.z;
+        dv[4 * c + 3] = f.w;
+      }
+      if (in) {
+        const bf16* orow = out + q * hd + h * 64 + d0;
+#pragma unroll
+        for (int c = 0; c < 32; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc += dv[c + k] * to_f(op[k]) * scale;
+        }
+      }
+      // the warp's fp32 reads are done before the copies, which may
+      // overwrite them, are written
+      __syncwarp();
+      uint32_t sc[16], un[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        sc[k] = pack_bf16(dv[2 * k] * scale, dv[2 * k + 1] * scale);
+        un[k] = pack_bf16(dv[2 * k], dv[2 * k + 1]);
+      }
+      bf16* crow = dcopy + q * 2 * hd + 128 * h + d0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint4 vsc = make_uint4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
+                                     sc[4 * c + 3]);
+        *reinterpret_cast<uint4*>(dos + r * LDT + d0 + 8 * c) = vsc;
+        if (in) {
+          *reinterpret_cast<uint4*>(crow + 8 * c) = vsc;
+          *reinterpret_cast<uint4*>(crow + 64 + 8 * c) = make_uint4(
+              un[4 * c], un[4 * c + 1], un[4 * c + 2], un[4 * c + 3]);
+        }
+      }
+      __syncwarp();  // the warp's rows of the A tile
+    } else if (in) {
       const bf16* orow = obase + (long)(q0 + r) * hd + h * 64 + d0;
 #pragma unroll
       for (int c = 0; c < 32; c += 8) {
@@ -284,8 +389,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((lane & 1) == 0 && q0 + r < n)
-      delta[((long)bi * n + q0 + r) * heads + h] = acc;
+    if ((lane & 1) == 0 && in) delta[q * heads + h] = acc;
     rdelta[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
     rdelta[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
   }
@@ -312,8 +416,15 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
             const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
             const bool valid =
                 key(c, e & 1) && !(causal && 64 * t + col > row[i]);
-            const float p = valid ? expf(s[c][e] * scale - rlse[i]) : 0.f;
-            s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]) * scale;
+            if (MEGA) {
+              const float p =
+                  valid ? expf(__fmul_rn(s[c][e], scale) - rm[i]) / rl[i]
+                        : 0.f;
+              s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]);
+            } else {
+              const float p = valid ? expf(s[c][e] * scale - rm[i]) : 0.f;
+              s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]) * scale;
+            }
           }
         uint32_t dsa[4][4];
         pack_a(dsa, s);
@@ -323,39 +434,58 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
-// query tiles that reach it.
+// query tiles that reach it. `stats`: K6's lse or the megablock's sm;
+// `dsrc`: K6's do (b*n x hd) or the megablock's `dcopy`, which the dq
+// kernel wrote.
+template <bool MEGA>
 __global__ void __launch_bounds__(K6_THREADS, 3)
 k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                   const uint8_t* __restrict__ mask,
-                  const float* __restrict__ lse,
-                  const bf16* __restrict__ dout,
+                  const float* __restrict__ stats,
+                  const bf16* __restrict__ dsrc,
                   const float* __restrict__ delta, bf16* __restrict__ dqkv,
                   int n, int heads, float scale, int causal, int maybe_dead) {
+  // a query tile's row terms: K6 lse, delta; megablock m, l, delta
+  constexpr int NS = MEGA ? 3 : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + K6_TILE;
   bf16* qs = vs + K6_TILE;       // two buffers
-  bf16* dos = qs + 2 * K6_TILE;  // two buffers
-  float* stats = reinterpret_cast<float*>(dos + 2 * K6_TILE);  // [2][2][64]
-  auto* bits = reinterpret_cast<unsigned long long*>(stats + 4 * 64);
+  bf16* dos = qs + 2 * K6_TILE;  // two buffers: do (megablock: scaled)
+  bf16* dov = dos + 2 * K6_TILE;  // megablock: two buffers of T(dattn)
+  float* rows = reinterpret_cast<float*>(dov + (MEGA ? 2 * K6_TILE : 0));
+  auto* bits = reinterpret_cast<unsigned long long*>(rows + 2 * NS * 64);
   const int kt = blockIdx.x, k0 = 64 * kt, h = blockIdx.y, bi = blockIdx.z;
   const int hd = heads * 64, tiles = (n + 63) / 64;
-  const long ld = 3L * hd;
+  const long ld = 3L * hd, dld = MEGA ? 2L * hd : hd;
   const bf16* base = qkv + (long)bi * n * ld;
-  const bf16* dbase = dout + (long)bi * n * hd;
+  const bf16* dbase = dsrc + (long)bi * n * dld;
+  const int dcol = MEGA ? 128 * h : 64 * h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
     stage_tile_async<K6_THREADS>(qs + buf * K6_TILE, base, ld, h * 64, 64 * t,
                                  n);
-    stage_tile_async<K6_THREADS>(dos + buf * K6_TILE, dbase, hd, h * 64,
+    stage_tile_async<K6_THREADS>(dos + buf * K6_TILE, dbase, dld, dcol,
                                  64 * t, n);
-    // lse (threads 0-63) and delta (64-127) of the tile's queries
-    const int c = threadIdx.x & 63, q = 64 * t + c;
-    const float* src = threadIdx.x < 64 ? lse : delta;
-    cp_async4(stats + (buf * 2 + (threadIdx.x >> 6)) * 64 + c,
-              src + (q < n ? ((long)bi * n + q) * heads + h : 0), q < n);
+    if (MEGA)
+      stage_tile_async<K6_THREADS>(dov + buf * K6_TILE, dbase, dld, dcol + 64,
+                                   64 * t, n);
+    // the tile's row terms: K6 lse (threads 0-63) and delta (64-127);
+    // megablock m (0-63), l (64-127), then delta (0-63)
+    const int c = threadIdx.x & 63, q = 64 * t + c, k = threadIdx.x >> 6;
+    const long r = q < n ? (long)bi * n + q : 0;
+    if (MEGA) {
+      cp_async4(rows + (buf * NS + k) * 64 + c,
+                stats + r * 2 * heads + k * heads + h, q < n);
+      if (k == 0)
+        cp_async4(rows + (buf * NS + 2) * 64 + c, delta + r * heads + h,
+                  q < n);
+    } else {
+      cp_async4(rows + (buf * NS + k) * 64 + c,
+                (k == 0 ? stats : delta) + r * heads + h, q < n);
+    }
   };
   stage_tile_async<K6_THREADS>(ks, base, ld, hd + h * 64, k0, n);
   stage_tile_async<K6_THREADS>(vs, base, ld, 2 * hd + h * 64, k0, n);
@@ -389,39 +519,60 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
       [&](int t, int buf) {
         const bf16* qt = qs + buf * K6_TILE;
         const bf16* dot = dos + buf * K6_TILE;
-        const float* tlse = stats + buf * 2 * 64;
-        const float* tdelta = tlse + 64;
-        uint32_t a[4][4];
+        const float* tm = rows + buf * NS * 64;  // K6: lse
+        const float* tl = tm + 64;               // megablock only
+        const float* tdelta = tm + (NS - 1) * 64;
+        // registers bound the kernel (three blocks an SM): the A operands
+        // pass one 16-wide depth slice at a time, and p and ds go into the
+        // dv and dk products 16 queries at a time
         float s[8][4], dp[8][4];
         zero_acc(s);
         zero_acc(dp);
-        load_a(a, ks, warp * 16);
-        mma_abt(s, a, qt);  // sᵀ = k . qᵀ
-        load_a(a, vs, warp * 16);
-        mma_abt(dp, a, dot);  // dpᵀ = v . doᵀ
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+        for (int k = 0; k < 4; ++k) {
+          uint32_t a[4];
+          load_a_k(a, ks, warp * 16, k);
+          mma_abt_k(s, a, k, qt);  // sᵀ = k . qᵀ
+          load_a_k(a, vs, warp * 16, k);
+          mma_abt_k(dp, a, k, dot);  // dpᵀ = v . doᵀ
+        }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
-            const int q = 64 * t + col;
-            float p, ds;
-            if (q < dead_end) {
-              p = key[i] < n ? inv_n : 0.f;
-              ds = 0.f;
-            } else {
-              const bool valid =
-                  kvalid[i] && q < n && !(causal && key[i] > q);
-              p = valid ? expf(s[c][e] * scale - tlse[col]) : 0.f;
-              ds = p * (dp[c][e] - tdelta[col]) * scale;
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int c = 2 * k; c < 2 * k + 2; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
+              const int q = 64 * t + col;
+              float p, ds;
+              if (MEGA) {
+                // (dead ? 1 : exp(s - m)) / l, one division; l reads 1 past n
+                const bool valid =
+                    kvalid[i] && q < n && !(causal && key[i] > q);
+                float num = key[i] < n ? 1.f : 0.f;  // a dead row's
+                if (q >= dead_end)
+                  num = valid ? expf(__fmul_rn(s[c][e], scale) - tm[col])
+                              : 0.f;
+                p = num / (q < n ? tl[col] : 1.f);
+                ds = q < dead_end ? 0.f : p * (dp[c][e] - tdelta[col]);
+              } else if (q < dead_end) {
+                p = key[i] < n ? inv_n : 0.f;
+                ds = 0.f;
+              } else {
+                const bool valid =
+                    kvalid[i] && q < n && !(causal && key[i] > q);
+                p = valid ? expf(s[c][e] * scale - tm[col]) : 0.f;
+                ds = p * (dp[c][e] - tdelta[col]) * scale;
+              }
+              s[c][e] = p;
+              dp[c][e] = ds;
             }
-            s[c][e] = p;
-            dp[c][e] = ds;
-          }
-        pack_a(a, s);
-        mma_ab(dv, a, dot);  // dv += T(p)ᵀ . do
-        pack_a(a, dp);
-        mma_ab(dk, a, qt);   // dk += T(ds)ᵀ . q
+          uint32_t a[4];
+          pack_a_k(a, s, k);  // dv += T(p)ᵀ . do
+          mma_ab_k(dv, a, k, MEGA ? dov + buf * K6_TILE : dot);
+          pack_a_k(a, dp, k);  // dk += T(ds)ᵀ . q
+          mma_ab_k(dk, a, k, qt);
+        }
       });
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
   __syncthreads();
@@ -436,48 +587,62 @@ constexpr size_t k6_fwd_smem() {
 constexpr size_t k6_dq_smem() {
   return 6 * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
 }
-constexpr size_t k6_dkv_smem() {
-  return 6 * K6_TILE * sizeof(bf16) + 4 * 64 * sizeof(float) +
-         K6_MAX_TILES * 8;
+// megablock: 8 tiles, 75,520 bytes
+constexpr size_t k6_dkv_smem(bool mega) {
+  return (mega ? 8 : 6) * K6_TILE * sizeof(bf16) +
+         2 * (mega ? 3 : 2) * 64 * sizeof(float) + K6_MAX_TILES * 8;
 }
 
-// out (b*n x hd) and lse (b*n x heads, fp32) from qkv (b*n x 3hd).
+// out (b*n x hd) and the row statistics (K6: lse, b*n x heads; megablock:
+// sm, b*n x 2*heads, or null) from qkv (b*n x 3hd).
+template <bool MEGA>
 inline int launch_k6_fwd(const bf16* qkv, const uint8_t* mask, bf16* out,
-                         float* lse, int b, int n, int heads, float scale,
+                         float* stats, int b, int n, int heads, float scale,
                          int causal, int maybe_dead, cudaStream_t st) {
-  if (n > 64 * K6_MAX_TILES) return (int)cudaErrorInvalidValue;
+  if (n > K6_MAX_N) return (int)cudaErrorInvalidValue;
   const size_t smem = k6_fwd_smem();
   cudaError_t e = cudaFuncSetAttribute(
-      k6_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      k6_fwd_kernel<MEGA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  k6_fwd_kernel<<<dim3((n + 63) / 64, heads, b), K6_THREADS, smem, st>>>(
-      qkv, mask, out, lse, n, heads, scale, causal, maybe_dead);
+  k6_fwd_kernel<MEGA><<<dim3((n + 63) / 64, heads, b), K6_THREADS, smem, st>>>(
+      qkv, mask, out, stats, n, heads, scale, causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
-// dqkv (b*n x 3hd) from qkv, out, lse and do; delta (b*n x heads, fp32)
-// is scratch the dq kernel writes and the dk/dv kernel reads.
+// dqkv (b*n x 3hd) from qkv, out, the statistics and the row cotangent
+// (K6: lse and the bf16 do; megablock: sm and the fp32 dattn, whose bf16
+// copies go to `dcopy`, b*n x 2hd, which may alias dattn); delta (b*n x
+// heads, fp32) is scratch the dq kernel writes and the dk/dv kernel reads.
+template <bool MEGA>
 inline int launch_k6_bwd(const bf16* qkv, const uint8_t* mask, const bf16* out,
-                         const float* lse, const bf16* dout, bf16* dqkv,
-                         float* delta, int b, int n, int heads, float scale,
-                         int causal, int maybe_dead, cudaStream_t st) {
-  if (n > 64 * K6_MAX_TILES) return (int)cudaErrorInvalidValue;
+                         const float* stats, const K6Cot<MEGA>* dout,
+                         bf16* dcopy, bf16* dqkv, float* delta, int b, int n,
+                         int heads, float scale, int causal, int maybe_dead,
+                         cudaStream_t st) {
+  if (n > K6_MAX_N) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      k6_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k6_bwd_dq_kernel<MEGA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)k6_dq_smem());
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k6_bwd_dkv_kernel,
+    e = cudaFuncSetAttribute(k6_bwd_dkv_kernel<MEGA>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)k6_dkv_smem());
+                             (int)k6_dkv_smem(MEGA));
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n + 63) / 64, heads, b);
-  k6_bwd_dq_kernel<<<grid, K6_THREADS, k6_dq_smem(), st>>>(
-      qkv, mask, out, lse, dout, dqkv, delta, n, heads, scale, causal,
-      maybe_dead);
+  k6_bwd_dq_kernel<MEGA><<<grid, K6_THREADS, k6_dq_smem(), st>>>(
+      qkv, mask, out, stats, dout, dcopy, dqkv, delta, n, heads, scale,
+      causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
-  k6_bwd_dkv_kernel<<<grid, K6_THREADS, k6_dkv_smem(), st>>>(
-      qkv, mask, lse, dout, delta, dqkv, n, heads, scale, causal, maybe_dead);
+  const bf16* dsrc;
+  if constexpr (MEGA)
+    dsrc = dcopy;
+  else
+    dsrc = dout;
+  k6_bwd_dkv_kernel<MEGA><<<grid, K6_THREADS, k6_dkv_smem(MEGA), st>>>(
+      qkv, mask, stats, dsrc, delta, dqkv, n, heads, scale, causal,
+      maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }

@@ -1,5 +1,5 @@
-// The attention core shared by the attention megablock (K-MEGA, K2, K3:
-// csrc/attention_megablock.cu) and whole-head attention on a fused qkv
+// The attention core of the attention megablock (K-MEGA, K2, K3:
+// csrc/attention_megablock.cu) and of whole-head attention on a fused qkv
 // (K6: csrc/attention_block.cu): softmax(q . kᵀ · scale) · v per (batch
 // element, head) from the (b·n, 3·heads·64) qkv, and its backward.
 //
@@ -11,37 +11,37 @@
 // outputs are cast to the storage dtype. Head h takes q from columns
 // [h*64, (h+1)*64) of a row, k from hd + h*64 and v from 2*hd + h*64.
 //
+// bf16 runs on the mma.sync kernels of attention_block_sm90.cuh: K6 in
+// their K6 mode, the megablock in their megablock mode (launch_attention
+// and launch_mega_attention_bwd below); their notes give the design and
+// what bounds it. What follows is the fp32 path, which the tests and the
+// fp32 goldens run.
+//
 // Forward, one block per (32-query tile, head, batch element): the tile's
 // full fp32 score rows (32 x n) live in shared memory, so the softmax is
-// exact rather than online (at n = 257 one head's full score matrix, 264 KB,
-// would not fit one block). bf16: q.k and p.v on the tensor cores (wmma,
-// fp32 accumulation); fp32: FMAs. The row statistics go out as the
+// exact rather than online, by FMAs. The row statistics go out as the
 // megablock's (m, l) pair per head (`sm`) or as K6's log-sum-exp m + log l
 // (`lse`), or not at all.
 //
-// Backward: one head's 257 x 257 fp32 scores exceed a block's shared
-// memory, and dk, dv sum over every query while dq sums over every key. So
-// it is two kernels, each owning its outputs (no atomics): a query-tile
-// kernel (32 queries x all keys, as the forward) gives dq and the row terms
-// delta; a key-tile kernel (64 keys, walking all queries 32 at a time)
-// recomputes s and dp for its keys and gives dk and dv. p is rebuilt from
-// the forward's statistics (not re-reduced): the megablock's p = (dead ? 1
-// : exp(s - m)) / l, K6's p = exp(s - lse) and 1/n on a dead row. The row
-// cotangent do (`dattn`) is the megablock's fp32 dattn or K6's storage-dtype
-// do. The megablock folds the scale into do (dp = T(do * scale) · vᵀ, delta
-// = scale · Σ do · attnout, ds = p (dp - delta)); K6 applies it to ds as
+// Backward: two kernels, each owning its outputs (no atomics): a
+// query-tile kernel (32 queries x all keys, as the forward) gives dq and
+// the row terms delta; a key-tile kernel (64 keys, walking all queries 32
+// at a time) recomputes s and dp for its keys and gives dk and dv. p is
+// rebuilt from the forward's statistics (not re-reduced): the megablock's
+// p = (dead ? 1 : exp(s - m)) / l, K6's p = exp(s - lse) and 1/n on a dead
+// row. The row cotangent do (`dattn`) is the megablock's dattn or K6's do.
+// The megablock folds the scale into do (dp = do * scale · vᵀ, delta =
+// scale · Σ do · attnout, ds = p (dp - delta)); K6 applies it to ds as
 // `_bwd_kernel` does (dp = do · vᵀ, delta = Σ do · out, ds = p (dp - delta)
-// scale), the same numbers when the scale is a power of two. Then ds is
-// zeroed on dead rows and cast to the storage dtype, dq = ds · k, dk = dsᵀ
-// · q, dv = T(p)ᵀ · T(do), each cast to the storage dtype once.
+// scale). Then ds is zeroed on dead rows; dq = ds · k, dk = dsᵀ · q, dv =
+// pᵀ · do.
 //
-// What bounds it on the card: it re-stages k and v for every 32-query tile
-// and walks the score rows three times in shared memory; the backward
-// computes s and dp twice (once per kernel), all on wmma 16x16x16 from
-// shared memory, without wgmma or TMA.
+// What bounds it on the card: it runs in fp32 only, off the flagship's
+// bf16 paths; it re-stages k and v for every 32-query tile, keeps full
+// score rows in shared memory (which bounds n) and multiplies on FMAs.
 #pragma once
 
-#include "common.cuh"
+#include "attention_block_sm90.cuh"
 
 namespace {
 
@@ -49,8 +49,8 @@ constexpr int QT = 32;       // queries per forward block
 constexpr int KC = 64;       // keys staged per step
 constexpr int DH = 64;       // dim_head
 constexpr int ALD = DH + 1;  // padded row stride of the staged q/k/v rows
-constexpr int QLD = DH + 8;  // bf16 row stride of the staged q/k/v rows
-constexpr int OLD = DH + 4;  // fp32 row stride of staged output tiles
+constexpr int QLD = DH + 8;  // row stride of the backward's staged rows
+constexpr int OLD = DH + 4;  // row stride of staged output tiles
 
 using xclip::up128;
 
@@ -68,19 +68,16 @@ __device__ __forceinline__ void store_row_stats(float* sm, float* lse, int bi,
   if (lse) lse[row * heads + h] = m + logf(l);
 }
 
-// --- fp32: FMAs from shared memory
-
 inline size_t attention_fma_smem_bytes(int n) {
   return sizeof(float) * ((size_t)QT * n + QT * ALD + KC * ALD);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(xclip::kThreads)
-attention_fma_kernel(const T* __restrict__ qkv,
-                     const uint8_t* __restrict__ mask, T* __restrict__ attnout,
-                     int n, int heads, float scale, int causal,
-                     int maybe_dead, float* __restrict__ sm,
-                     float* __restrict__ lse) {
+attention_fma_kernel(const float* __restrict__ qkv,
+                     const uint8_t* __restrict__ mask,
+                     float* __restrict__ attnout, int n, int heads,
+                     float scale, int causal, int maybe_dead,
+                     float* __restrict__ sm, float* __restrict__ lse) {
   using namespace xclip;
   // one dynamic shared-memory array per translation unit: every kernel
   // declares it alike and casts
@@ -90,20 +87,19 @@ attention_fma_kernel(const T* __restrict__ qkv,
   float* kv = qs + QT * ALD;   // KC x ALD
   const int q0 = blockIdx.x * QT, h = blockIdx.y, bi = blockIdx.z;
   const int hd = heads * DH, ld = 3 * hd;
-  const T* base = qkv + (long)bi * n * ld;
+  const float* base = qkv + (long)bi * n * ld;
   const uint8_t* mrow = mask + (long)bi * n;
 
   for (int i = threadIdx.x; i < QT * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
-    qs[r * ALD + d] =
-        q0 + r < n ? to_f(base[(long)(q0 + r) * ld + h * DH + d]) : 0.f;
+    qs[r * ALD + d] = q0 + r < n ? base[(long)(q0 + r) * ld + h * DH + d] : 0.f;
   }
   for (int j0 = 0; j0 < n; j0 += KC) {
     __syncthreads();
     for (int i = threadIdx.x; i < KC * DH; i += kThreads) {
       const int r = i / DH, d = i % DH;
       kv[r * ALD + d] =
-          j0 + r < n ? to_f(base[(long)(j0 + r) * ld + hd + h * DH + d]) : 0.f;
+          j0 + r < n ? base[(long)(j0 + r) * ld + hd + h * DH + d] : 0.f;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < QT * KC; i += kThreads) {
@@ -140,7 +136,7 @@ attention_fma_kernel(const T* __restrict__ qkv,
     }
     const float l = fmaxf(warp_sum(sum), 1e-30f);
     if (lane == 0) store_row_stats(sm, lse, bi, n, q0 + r, h, heads, mx, l);
-    for (int j = lane; j < n; j += 32) sr[j] = round_to<T>(sr[j] / l);
+    for (int j = lane; j < n; j += 32) sr[j] = sr[j] / l;
   }
 
   // o = p @ v; thread t owns outputs (r, d) = divmod(t + i * kThreads, DH)
@@ -151,7 +147,7 @@ attention_fma_kernel(const T* __restrict__ qkv,
     for (int i = threadIdx.x; i < KC * DH; i += kThreads) {
       const int r = i / DH, d = i % DH;
       kv[r * ALD + d] = j0 + r < n
-          ? to_f(base[(long)(j0 + r) * ld + 2 * hd + h * DH + d]) : 0.f;
+          ? base[(long)(j0 + r) * ld + 2 * hd + h * DH + d] : 0.f;
     }
     __syncthreads();
     const int jn = min(KC, n - j0);
@@ -167,207 +163,48 @@ attention_fma_kernel(const T* __restrict__ qkv,
 #pragma unroll
   for (int t = 0; t < OPT; ++t) {
     const int i = threadIdx.x + t * kThreads, r = i / DH, d = i % DH;
-    if (q0 + r < n)
-      attnout[((long)bi * n + q0 + r) * hd + h * DH + d] = from_f<T>(acc[t]);
-  }
-}
-
-// --- bf16: tensor cores. Shared memory: fp32 scores (QT x ldS), bf16
-// probabilities (QT x ldP), the q tile and one k or v slice (bf16, KC keys).
-struct TcLayout {
-  int n_pad, lds, ldp;
-  size_t s, p, q, kv, bytes;  // byte offsets, total
-  __host__ __device__ explicit TcLayout(int n) {
-    n_pad = (n + KC - 1) / KC * KC;
-    lds = n_pad + 4;
-    ldp = n_pad + 8;
-    s = 0;
-    p = up128(s + sizeof(float) * QT * lds);
-    q = up128(p + 2 * (size_t)QT * ldp);
-    kv = up128(q + 2 * QT * QLD);
-    bytes = up128(kv + 2 * KC * QLD);
-  }
-};
-
-// Stage rows [r0, r0 + rows) of the 64 columns at `col` of head-major qkv
-// (row stride ld) as bf16 rows of stride QLD; rows at or past n read as 0.
-__device__ __forceinline__ void stage_rows(xclip::bf16* dst,
-                                           const xclip::bf16* base, int ld,
-                                           int col, int r0, int rows, int n) {
-  for (int c = threadIdx.x; c < rows * DH / 8; c += xclip::kThreads) {
-    const int r = c / (DH / 8), d = (c % (DH / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      v = *reinterpret_cast<const uint4*>(base + (long)(r0 + r) * ld + col + d);
-    *reinterpret_cast<uint4*>(dst + r * QLD + d) = v;
-  }
-}
-
-__global__ void __launch_bounds__(xclip::kThreads)
-attention_tc_kernel(const xclip::bf16* __restrict__ qkv,
-                    const uint8_t* __restrict__ mask,
-                    xclip::bf16* __restrict__ attnout, int n, int heads,
-                    float scale, int causal, int maybe_dead,
-                    float* __restrict__ sm, float* __restrict__ lse) {
-  using namespace xclip;
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const TcLayout L(n);
-  float* s = reinterpret_cast<float*>(smem + L.s);
-  bf16* p = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* kv = reinterpret_cast<bf16*>(smem + L.kv);
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, bi = blockIdx.z;
-  const int hd = heads * DH, ld = 3 * hd;
-  const bf16* base = qkv + (long)bi * n * ld;
-  const uint8_t* mrow = mask + (long)bi * n;
-  // warp w owns the 16-row block (w & 1) and 16-column blocks 2(w >> 1),
-  // 2(w >> 1) + 1 of each 32 x 64 product tile
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fr = (warp & 1) * 16, fc = (warp >> 1) * 32;
-
-  stage_rows(qs, base, ld, h * DH, q0, QT, n);
-  for (int j0 = 0; j0 < L.n_pad; j0 += KC) {  // s = q . k^T, raw fp32
-    __syncthreads();
-    stage_rows(kv, base, ld, hd + h * DH, j0, KC, n);
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, qs + fr * QLD + kk, QLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {  // k^T: column-major view of k rows
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, kv + (fc + 16 * j) * QLD + kk, QLD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s + fr * L.lds + j0 + fc + 16 * j, acc[j], L.lds,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // softmax, one warp per query row: scale, mask, max, exp, sum, p / l
-  for (int r = warp; r < QT; r += kThreads / 32) {
-    float* sr = s + r * L.lds;
-    bf16* pr = p + r * L.ldp;
-    if (q0 + r >= n) {
-      for (int j = lane; j < L.n_pad; j += 32) pr[j] = from_f<bf16>(0.f);
-      continue;
-    }
-    bool dead = false;
-    if (maybe_dead) {
-      const int lim = causal ? q0 + r + 1 : n;
-      int any = 0;
-      for (int j = lane; j < lim; j += 32) any |= mrow[j] != 0;
-      dead = !__any_sync(0xffffffffu, any);
-    }
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const bool valid = mrow[j] != 0 && !(causal && j > q0 + r);
-      const float v = valid ? sr[j] * scale : -INFINITY;
-      sr[j] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = dead ? 0.f : warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = dead ? 1.f : expf(sr[j] - mx);
-      sr[j] = e;
-      sum += e;
-    }
-    const float l = fmaxf(warp_sum(sum), 1e-30f);
-    if (lane == 0) store_row_stats(sm, lse, bi, n, q0 + r, h, heads, mx, l);
-    for (int j = lane; j < L.n_pad; j += 32)
-      pr[j] = from_f<bf16>(j < n ? sr[j] / l : 0.f);
-  }
-
-  // o = p @ v
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int j0 = 0; j0 < L.n_pad; j0 += KC) {
-    __syncthreads();
-    stage_rows(kv, base, ld, 2 * hd + h * DH, j0, KC, n);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, p + fr * L.ldp + j0 + kk, L.ldp);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, kv + kk * QLD + fc + 16 * j, QLD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-  // the scores are dead: stage the fp32 output tile in their place
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(s + fr * OLD + fc + 16 * j, acc[j], OLD,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < QT * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    if (q0 + r < n)
-      attnout[((long)bi * n + q0 + r) * hd + h * DH + d] =
-          from_f<bf16>(s[r * OLD + d]);
+    if (q0 + r < n) attnout[((long)bi * n + q0 + r) * hd + h * DH + d] = acc[t];
   }
 }
 
 // attnout (b*n x hd, T) from qkv (b*n x 3hd, T); with `sm` the rows' (m,
-// l), with `lse` their log-sum-exp.
+// l), with `lse` (fp32 only: bf16 K6 launches its own kernel) their
+// log-sum-exp.
 template <typename T>
 int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
                      int n, int heads, float scale, int causal, int maybe_dead,
                      float* sm, cudaStream_t st, float* lse = nullptr) {
-  const dim3 grid((n + QT - 1) / QT, heads, b);
-  cudaError_t e;
   if constexpr (std::is_same<T, xclip::bf16>::value) {
-    const size_t smem = TcLayout(n).bytes;
-    e = cudaFuncSetAttribute(attention_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attention_tc_kernel<<<grid, xclip::kThreads, smem, st>>>(
-        qkv, mask, attnout, n, heads, scale, causal, maybe_dead, sm, lse);
+    return xclip::launch_k6_fwd<true>(qkv, mask, attnout, sm, b, n, heads,
+                                      scale, causal, maybe_dead, st);
   } else {
     const size_t smem = attention_fma_smem_bytes(n);
-    e = cudaFuncSetAttribute(attention_fma_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(
+        attention_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
-    attention_fma_kernel<T><<<grid, xclip::kThreads, smem, st>>>(
-        qkv, mask, attnout, n, heads, scale, causal, maybe_dead, sm, lse);
+    attention_fma_kernel<<<dim3((n + QT - 1) / QT, heads, b), xclip::kThreads,
+                           smem, st>>>(qkv, mask, attnout, n, heads, scale,
+                                       causal, maybe_dead, sm, lse);
+    XCLIP_CHECK_LAUNCH();
+    return 0;
   }
-  XCLIP_CHECK_LAUNCH();
-  return 0;
 }
 
 // ------------------------------------------------------------ backward
 
 constexpr int BQ = 32;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
-constexpr int PLD = BK + 8;   // row stride of the T key-tile rows (p, ds)
+constexpr int PLD = BK + 8;   // row stride of the key-tile rows (p, ds)
 
 // Stage rows [r0, r0 + rows) of the 64 columns at `col` (row stride ld) as
 // rows of stride QLD; rows at or past n read as 0.
-template <typename T>
-__device__ __forceinline__ void stage_head(T* dst, const T* base, int ld,
-                                           int col, int r0, int rows, int n) {
-  if constexpr (std::is_same<T, xclip::bf16>::value) {
-    stage_rows(dst, base, ld, col, r0, rows, n);
-  } else {
-    for (int i = threadIdx.x; i < rows * DH; i += xclip::kThreads) {
-      const int r = i / DH, d = i % DH;
-      dst[r * QLD + d] = r0 + r < n ? base[(long)(r0 + r) * ld + col + d] : 0.f;
-    }
+__device__ __forceinline__ void stage_head(float* dst, const float* base,
+                                           int ld, int col, int r0, int rows,
+                                           int n) {
+  for (int i = threadIdx.x; i < rows * DH; i += xclip::kThreads) {
+    const int r = i / DH, d = i % DH;
+    dst[r * QLD + d] = r0 + r < n ? base[(long)(r0 + r) * ld + col + d] : 0.f;
   }
 }
 
@@ -405,16 +242,16 @@ __device__ __forceinline__ void load_row_stats(const float* stats, long row,
 struct DqLayout {
   int n_pad, lds, ldp;
   size_t sp, ds, qs, dos, kv, dpc, dqa, info, bytes;
-  __host__ __device__ DqLayout(int n, int tsize) {
+  __host__ __device__ explicit DqLayout(int n) {
     n_pad = (n + BK - 1) / BK * BK;
     lds = n_pad + 4;
     ldp = n_pad + 8;
     sp = 0;
     ds = up128(sp + sizeof(float) * BQ * lds);
-    qs = up128(ds + (size_t)tsize * BQ * ldp);
-    dos = up128(qs + (size_t)tsize * BQ * QLD);
-    kv = up128(dos + (size_t)tsize * BQ * QLD);
-    dpc = up128(kv + (size_t)tsize * BK * QLD);
+    qs = up128(ds + sizeof(float) * BQ * ldp);
+    dos = up128(qs + sizeof(float) * BQ * QLD);
+    kv = up128(dos + sizeof(float) * BQ * QLD);
+    dpc = up128(kv + sizeof(float) * BK * QLD);
     dqa = up128(dpc + sizeof(float) * BQ * OLD);
     info = up128(dqa + sizeof(float) * BQ * OLD);
     bytes = up128(info + sizeof(float) * 4 * BQ);
@@ -422,25 +259,26 @@ struct DqLayout {
 };
 
 // dq for one (32-query tile, head, batch element), and delta for its rows.
-// Tg: the type of the row cotangents `dattn` (b*n x hd); `out` the forward's
-// attention output (b*n x hd, T); `stats` the forward's row statistics.
-template <typename T, typename Tg, bool LSE>
+// `dattn` the row cotangents (b*n x hd); `out` the forward's attention
+// output (b*n x hd); `stats` the forward's row statistics.
+template <bool LSE>
 __global__ void __launch_bounds__(xclip::kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ qkv,
+attention_bwd_dq_kernel(const float* __restrict__ qkv,
                         const uint8_t* __restrict__ mask,
-                        const Tg* __restrict__ dattn,
-                        const T* __restrict__ attnout,
-                        const float* __restrict__ stats, T* __restrict__ dqkv,
-                        float* __restrict__ delta, int n, int heads,
-                        float scale, int causal, int maybe_dead) {
+                        const float* __restrict__ dattn,
+                        const float* __restrict__ attnout,
+                        const float* __restrict__ stats,
+                        float* __restrict__ dqkv, float* __restrict__ delta,
+                        int n, int heads, float scale, int causal,
+                        int maybe_dead) {
   using namespace xclip;
   extern __shared__ __align__(128) unsigned char smem[];
-  const DqLayout L(n, sizeof(T));
+  const DqLayout L(n);
   float* sp = reinterpret_cast<float*>(smem + L.sp);
-  T* ds = reinterpret_cast<T*>(smem + L.ds);
-  T* qs = reinterpret_cast<T*>(smem + L.qs);
-  T* dos = reinterpret_cast<T*>(smem + L.dos);
-  T* kv = reinterpret_cast<T*>(smem + L.kv);
+  float* ds = reinterpret_cast<float*>(smem + L.ds);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* dos = reinterpret_cast<float*>(smem + L.dos);
+  float* kv = reinterpret_cast<float*>(smem + L.kv);
   float* dpc = reinterpret_cast<float*>(smem + L.dpc);
   float* dqa = reinterpret_cast<float*>(smem + L.dqa);
   float* rm = reinterpret_cast<float*>(smem + L.info);
@@ -449,7 +287,7 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv,
   float* rdead = rdelta + BQ;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
   const int hd = heads * DH, ld = 3 * hd;
-  const T* base = qkv + (long)bi * n * ld;
+  const float* base = qkv + (long)bi * n * ld;
   const uint8_t* mrow = mask + (long)bi * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int fv = first_valid_key(mrow, n);
@@ -459,9 +297,8 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv,
   stage_head(qs, base, ld, h * DH, q0, BQ, n);
   for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH, q = q0 + r;
-    dos[r * QLD + d] = from_f<T>(
-        q < n ? to_f(dattn[((long)bi * n + q) * hd + h * DH + d]) * dscale
-              : 0.f);
+    dos[r * QLD + d] =
+        q < n ? dattn[((long)bi * n + q) * hd + h * DH + d] * dscale : 0.f;
   }
   for (int r = warp; r < BQ; r += kThreads / 32) {
     const int q = q0 + r;
@@ -469,7 +306,7 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv,
     if (q < n)
       for (int d = lane; d < DH; d += 32) {
         const long o = ((long)bi * n + q) * hd + h * DH + d;
-        dl += to_f(dattn[o]) * to_f(attnout[o]) * dscale;
+        dl += dattn[o] * attnout[o] * dscale;
       }
     dl = warp_sum(dl);
     if (lane == 0) {
@@ -516,7 +353,7 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv,
         v = sp[r * L.lds + j] * (dpc[r * OLD + c] - rdelta[r]);
         if (LSE) v *= scale;
       }
-      ds[r * L.ldp + j] = from_f<T>(v);
+      ds[r * L.ldp + j] = v;
     }
   }
   for (int j0 = 0; j0 < L.n_pad; j0 += BK) {  // dq = ds · k
@@ -530,24 +367,23 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv,
   for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     if (q0 + r < n)
-      dqkv[((long)bi * n + q0 + r) * ld + h * DH + d] =
-          from_f<T>(dqa[r * OLD + d]);
+      dqkv[((long)bi * n + q0 + r) * ld + h * DH + d] = dqa[r * OLD + d];
   }
 }
 
 struct DkvLayout {
   size_t ks, vs, qs, dos, dov, sc, dpc, pT, dsT, dka, dva, info, bytes;
-  __host__ __device__ explicit DkvLayout(int tsize) {
+  __host__ __device__ DkvLayout() {
     ks = 0;
-    vs = up128(ks + (size_t)tsize * BK * QLD);
-    qs = up128(vs + (size_t)tsize * BK * QLD);
-    dos = up128(qs + (size_t)tsize * BQ * QLD);
-    dov = up128(dos + (size_t)tsize * BQ * QLD);
-    sc = up128(dov + (size_t)tsize * BQ * QLD);
+    vs = up128(ks + sizeof(float) * BK * QLD);
+    qs = up128(vs + sizeof(float) * BK * QLD);
+    dos = up128(qs + sizeof(float) * BQ * QLD);
+    dov = up128(dos + sizeof(float) * BQ * QLD);
+    sc = up128(dov + sizeof(float) * BQ * QLD);
     dpc = up128(sc + sizeof(float) * BQ * OLD);
     pT = up128(dpc + sizeof(float) * BQ * OLD);
-    dsT = up128(pT + (size_t)tsize * BQ * PLD);
-    dka = up128(dsT + (size_t)tsize * BQ * PLD);
+    dsT = up128(pT + sizeof(float) * BQ * PLD);
+    dka = up128(dsT + sizeof(float) * BQ * PLD);
     dva = up128(dka + sizeof(float) * BK * OLD);
     info = up128(dva + sizeof(float) * BK * OLD);
     bytes = up128(info + sizeof(float) * 4 * BQ);
@@ -555,27 +391,27 @@ struct DkvLayout {
 };
 
 // dk and dv for one (64-key tile, head, batch element), over every query.
-template <typename T, typename Tg, bool LSE>
+template <bool LSE>
 __global__ void __launch_bounds__(xclip::kThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ qkv,
+attention_bwd_dkv_kernel(const float* __restrict__ qkv,
                          const uint8_t* __restrict__ mask,
-                         const Tg* __restrict__ dattn,
+                         const float* __restrict__ dattn,
                          const float* __restrict__ stats,
-                         const float* __restrict__ delta, T* __restrict__ dqkv,
-                         int n, int heads, float scale, int causal,
-                         int maybe_dead) {
+                         const float* __restrict__ delta,
+                         float* __restrict__ dqkv, int n, int heads,
+                         float scale, int causal, int maybe_dead) {
   using namespace xclip;
   extern __shared__ __align__(128) unsigned char smem[];
-  const DkvLayout L(sizeof(T));
-  T* ks = reinterpret_cast<T*>(smem + L.ks);
-  T* vs = reinterpret_cast<T*>(smem + L.vs);
-  T* qs = reinterpret_cast<T*>(smem + L.qs);
-  T* dos = reinterpret_cast<T*>(smem + L.dos);
-  T* dov = reinterpret_cast<T*>(smem + L.dov);
+  const DkvLayout L;
+  float* ks = reinterpret_cast<float*>(smem + L.ks);
+  float* vs = reinterpret_cast<float*>(smem + L.vs);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* dos = reinterpret_cast<float*>(smem + L.dos);
+  float* dov = reinterpret_cast<float*>(smem + L.dov);
   float* sc = reinterpret_cast<float*>(smem + L.sc);
   float* dpc = reinterpret_cast<float*>(smem + L.dpc);
-  T* pT = reinterpret_cast<T*>(smem + L.pT);
-  T* dsT = reinterpret_cast<T*>(smem + L.dsT);
+  float* pT = reinterpret_cast<float*>(smem + L.pT);
+  float* dsT = reinterpret_cast<float*>(smem + L.dsT);
   float* dka = reinterpret_cast<float*>(smem + L.dka);
   float* dva = reinterpret_cast<float*>(smem + L.dva);
   float* rm = reinterpret_cast<float*>(smem + L.info);
@@ -584,7 +420,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv,
   float* rdead = rdelta + BQ;
   const int k0 = blockIdx.x * BK, h = blockIdx.y, bi = blockIdx.z;
   const int hd = heads * DH, ld = 3 * hd;
-  const T* base = qkv + (long)bi * n * ld;
+  const float* base = qkv + (long)bi * n * ld;
   const uint8_t* mrow = mask + (long)bi * n;
   const int fv = first_valid_key(mrow, n);
   const float dscale = LSE ? 1.f : scale;
@@ -596,10 +432,9 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv,
     stage_head(qs, base, ld, h * DH, r0, BQ, n);
     for (int i = threadIdx.x; i < BQ * DH; i += kThreads) {
       const int r = i / DH, d = i % DH, q = r0 + r;
-      const float a =
-          q < n ? to_f(dattn[((long)bi * n + q) * hd + h * DH + d]) : 0.f;
-      dos[r * QLD + d] = from_f<T>(a * dscale);
-      dov[r * QLD + d] = from_f<T>(a);
+      const float a = q < n ? dattn[((long)bi * n + q) * hd + h * DH + d] : 0.f;
+      dos[r * QLD + d] = a * dscale;
+      dov[r * QLD + d] = a;
     }
     for (int r = threadIdx.x; r < BQ; r += kThreads) {
       const int q = r0 + r;
@@ -629,8 +464,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv,
           if (LSE) v *= scale;
         }
       }
-      pT[r * PLD + c] = from_f<T>(p);
-      dsT[r * PLD + c] = from_f<T>(v);
+      pT[r * PLD + c] = p;
+      dsT[r * PLD + c] = v;
     }
     __syncthreads();
     xclip::block_mma<BK, DH, true, false>(dka, OLD, dsT, PLD, qs, QLD, BQ,
@@ -643,37 +478,38 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv,
     const int c = i / DH, d = i % DH, j = k0 + c;
     if (j < n) {
       const long o = ((long)bi * n + j) * ld + h * DH + d;
-      dqkv[o + hd] = from_f<T>(dka[c * OLD + d]);
-      dqkv[o + 2 * hd] = from_f<T>(dva[c * OLD + d]);
+      dqkv[o + hd] = dka[c * OLD + d];
+      dqkv[o + 2 * hd] = dva[c * OLD + d];
     }
   }
 }
 
-// dqkv (b*n x 3hd, T) from qkv, the row cotangents dattn (b*n x hd, Tg),
-// the forward's output attnout (b*n x hd) and row statistics; `delta` is
-// b*n x heads fp32 scratch (the dq kernel writes it, the dk/dv kernel
-// reads it).
-template <typename T, typename Tg, bool LSE>
-int launch_attention_bwd(const T* qkv, const uint8_t* mask, const Tg* dattn,
-                         const T* attnout, const float* stats, T* dqkv,
-                         float* delta, int b, int n, int heads, float scale,
-                         int causal, int maybe_dead, cudaStream_t st) {
-  const size_t dq_smem = DqLayout(n, sizeof(T)).bytes;
-  const size_t dkv_smem = DkvLayout(sizeof(T)).bytes;
+// fp32: dqkv (b*n x 3hd) from qkv, the row cotangents dattn (b*n x hd),
+// the forward's output attnout (b*n x hd) and row statistics (LSE: K6's
+// lse; else the megablock's sm); `delta` is b*n x heads scratch (the dq
+// kernel writes it, the dk/dv kernel reads it).
+template <bool LSE>
+int launch_attention_fma_bwd(const float* qkv, const uint8_t* mask,
+                             const float* dattn, const float* attnout,
+                             const float* stats, float* dqkv, float* delta,
+                             int b, int n, int heads, float scale, int causal,
+                             int maybe_dead, cudaStream_t st) {
+  const size_t dq_smem = DqLayout(n).bytes;
+  const size_t dkv_smem = DkvLayout().bytes;
   cudaError_t ce = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<T, Tg, LSE>,
+      attention_bwd_dq_kernel<LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (ce == cudaSuccess)
-    ce = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, Tg, LSE>,
+    ce = cudaFuncSetAttribute(attention_bwd_dkv_kernel<LSE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)dkv_smem);
   if (ce != cudaSuccess) return (int)ce;
-  attention_bwd_dq_kernel<T, Tg, LSE>
+  attention_bwd_dq_kernel<LSE>
       <<<dim3((n + BQ - 1) / BQ, heads, b), xclip::kThreads, dq_smem, st>>>(
           qkv, mask, dattn, attnout, stats, dqkv, delta, n, heads, scale,
           causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
-  attention_bwd_dkv_kernel<T, Tg, LSE>
+  attention_bwd_dkv_kernel<LSE>
       <<<dim3((n + BK - 1) / BK, heads, b), xclip::kThreads, dkv_smem, st>>>(
           qkv, mask, dattn, stats, delta, dqkv, n, heads, scale, causal,
           maybe_dead);
@@ -681,26 +517,46 @@ int launch_attention_bwd(const T* qkv, const uint8_t* mask, const Tg* dattn,
   return 0;
 }
 
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
-
-// Largest sequence length whose forward tile fits one block's shared
-// memory, for dtype code `dtype`.
-inline int attention_max_n(int dtype) {
-  if (dtype == xclip::kF32)
-    return (int)((kMaxSmem - attention_fma_smem_bytes(0)) /
-                 (sizeof(float) * QT));
-  int n = KC;
-  while (TcLayout(n + KC).bytes <= kMaxSmem) n += KC;
-  return n;
+// The megablock's attention backward: dqkv (b*n x 3hd, T) from qkv, its
+// fp32 row cotangents dattn (b*n x hd), attnout and sm; delta (b*n x
+// heads) fp32 scratch. bf16 runs the megablock mode of
+// attention_block_sm90.cuh, whose dq kernel rewrites dattn in place as its
+// two bf16 copies (the caller's scratch, read by nothing after this
+// launch); fp32 the FMA kernels above.
+template <typename T>
+int launch_mega_attention_bwd(const T* qkv, const uint8_t* mask, float* dattn,
+                              const T* attnout, const float* sm, T* dqkv,
+                              float* delta, int b, int n, int heads,
+                              float scale, int causal, int maybe_dead,
+                              cudaStream_t st) {
+  if constexpr (std::is_same<T, xclip::bf16>::value)
+    return xclip::launch_k6_bwd<true>(
+        qkv, mask, attnout, sm, dattn, reinterpret_cast<xclip::bf16*>(dattn),
+        dqkv, delta, b, n, heads, scale, causal, maybe_dead, st);
+  else
+    return launch_attention_fma_bwd<false>(qkv, mask, dattn, attnout, sm,
+                                           dqkv, delta, b, n, heads, scale,
+                                           causal, maybe_dead, st);
 }
 
-// Largest sequence length the backward takes in `dtype` (its query-tile
-// kernel keeps 32 full score rows in shared memory).
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
+
+// Largest sequence length the forward takes in dtype code `dtype`: bf16
+// the mma.sync kernels' 64 * K6_MAX_TILES; fp32 as long as the forward
+// tile's score rows fit one block's shared memory.
+inline int attention_max_n(int dtype) {
+  if (dtype != xclip::kF32) return xclip::K6_MAX_N;
+  return (int)((kMaxSmem - attention_fma_smem_bytes(0)) /
+               (sizeof(float) * QT));
+}
+
+// Largest sequence length the backward takes in `dtype` (in fp32 its
+// query-tile kernel keeps 32 full score rows in shared memory).
 inline int attention_bwd_max_n(int dtype) {
-  const int tsize = dtype == xclip::kF32 ? 4 : 2;
-  if (DkvLayout(tsize).bytes > kMaxSmem) return 0;
+  if (dtype != xclip::kF32) return xclip::K6_MAX_N;
+  if (DkvLayout().bytes > kMaxSmem) return 0;
   int n = BK;
-  while (DqLayout(n + BK, tsize).bytes <= kMaxSmem) n += BK;
+  while (DqLayout(n + BK).bytes <= kMaxSmem) n += BK;
   return n;
 }
 

@@ -17,23 +17,27 @@
 //
 // Cast order (as the Pallas kernel): LN_pre in fp32, xn cast to the storage
 // dtype; qkv = xn @ w_qkv accumulates in fp32 and is cast to the storage
-// dtype; the attention core's cast order is in attention_core.cuh. proj =
+// dtype; the attention core's cast order is in attention_core.cuh and
+// attention_block_sm90.cuh. proj =
 // attnout @ w_out in fp32, LN_out in fp32, cast to the storage dtype, then
 // x is added in the storage dtype.
 //
 // Design: five launches on the caller's stream.
 //   1. ln_rows: xn = T(LN_gpre(x))                           (b*n x dim, T)
 //   2. mm: qkv = T(xn @ w_qkv)                               (b*n x 3hd, T)
-//   3. attention (attention_core.cuh), one block per (32-query tile, head,
-//      batch element), the exact softmax over full score rows  (b*n x hd, T)
+//   3. attention (launch_attention, attention_core.cuh): bf16 on the
+//      megablock mode of attention_block_sm90.cuh's forward, one block per
+//      (64-query tile, head, batch element), two passes over the 64-key
+//      tiles on register-resident mma.sync tiles, causal and all-masked
+//      key tiles skipped; fp32 on the FMA core              (b*n x hd, T)
 //   4. mm: proj = attnout @ w_out                            (b*n x dim, fp32)
 //   5. ln_rows with residual: out = T(LN_gout(proj)) + x     (b*n x dim, T)
 //
 // What bounds it on the card: the qkv and output products run on wmma
-// without wgmma or TMA (common.cuh), and the attention core re-stages k
-// and v for every 32-query tile and walks the score rows three times in
-// shared memory for the exact softmax. HBM round-trips a later PR removes
-// first: qkv (b*n x 3hd) and the fp32 proj, then xn and attnout.
+// without wgmma or TMA (common.cuh) and take most of the time now that
+// the attention runs on the mma.sync kernels (whose notes give their
+// bound). HBM round-trips a later PR removes first: qkv (b*n x 3hd) and
+// the fp32 proj, then xn and attnout.
 #include "attention_core.cuh"
 
 namespace {
@@ -91,15 +95,19 @@ int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
 //   dk = dsᵀ · q, dv = T(p)ᵀ · T(dattn), each cast to T once
 //   dxn = dqkv · w_qkvᵀ (fp32), dx = T(LN_pre vjp + do), dg_pre
 //   dW_qkv = xnᵀ · dqkv, xn rebuilt from the stored mean_pre / inv_pre.
-// The attention part is attention_core.cuh's two backward kernels (a
-// query-tile kernel for dq and delta, a key-tile kernel for dk and dv, no
-// atomics). The products, LN backwards and column sums are common.cuh's,
-// dW through ordered split partials, so two runs agree bit for bit.
+// The attention part is launch_mega_attention_bwd (attention_core.cuh):
+// in bf16 the megablock mode of attention_block_sm90.cuh's two backward
+// kernels (a query-tile kernel for delta and dq, which also rewrites each
+// head's fp32 dattn rows in place as the two bf16 copies T(dattn * scale)
+// and T(dattn), and a key-tile kernel for dk and dv that streams them; no
+// atomics); fp32 on the FMA core. The products, LN backwards and column
+// sums are common.cuh's, dW through ordered split partials, so two runs
+// agree bit for bit.
 //
-// What bounds it on the card: s and dp are computed twice (once per
-// attention kernel), all on wmma 16x16x16 from shared memory; the
-// surrounding products on the wmma tiling; the fp32 dattn and dxn round
-// trips through HBM.
+// What bounds it on the card: the surrounding products on the wmma tiling
+// (four of them, and the dW sums); the attention kernels compute s twice
+// (once per kernel) on mma.sync; the fp32 dattn and dxn round trips
+// through HBM.
 template <typename T>
 struct MegaBwdBuffers {
   T* dproj;
@@ -160,10 +168,9 @@ int attention_block_bwd_core(const T* x, const T* g_pre, const T* w_qkv,
   if ((e = launch_weight_grad<T>(attnout, w.dproj, dw_out, w.wpart, hd, dim,
                                  rows, st, acc)))
     return e;
-  if ((e = launch_attention_bwd<T, float, false>(qkv, mask, w.dattn, attnout,
-                                                 sm, dqkv, w.delta, b, n,
-                                                 heads, scale, causal,
-                                                 maybe_dead, st)))
+  if ((e = launch_mega_attention_bwd<T>(qkv, mask, w.dattn, attnout, sm, dqkv,
+                                        w.delta, b, n, heads, scale, causal,
+                                        maybe_dead, st)))
     return e;
   if ((e = launch_gemm<T, false, true>(dqkv, w_qkv, w.dxn, rows, dim, 3 * hd,
                                        st)))
@@ -216,10 +223,10 @@ int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
 // The recompute launches are the forward's own, on the same inputs, so
 // qkv, attnout and proj are bit for bit what the forward computed.
 //
-// What bounds it on the card: K2's backward plus the forward's qkv, p·v
-// and projection products again; transients of one chunk cross HBM (xn,
-// qkv, attnout, the fp32 proj, dqkv and K2's workspace, ~16 KB per row at
-// dim 512).
+// What bounds it on the card: K2's backward plus the forward's qkv,
+// attention and projection launches again; transients of one chunk cross
+// HBM (xn, qkv, attnout, the fp32 proj, dqkv and K2's workspace, ~16 KB
+// per row at dim 512).
 template <typename T>
 struct RecomputeBuffers {
   T* xn;
@@ -276,16 +283,66 @@ int attention_block_bwd_recompute(
 
 }  // namespace
 
-// Largest sequence length whose attention tile fits one block's shared
-// memory (232,448 bytes on sm_90), for dtype code `dtype`.
+// Largest sequence length the attention core's forward takes, for dtype
+// code `dtype`: bf16 64 * K6_MAX_TILES = 2048 (the mma.sync kernels, K6's
+// too); fp32 as long as the FMA core's score rows fit one block's shared
+// memory (232,448 bytes on sm_90).
 extern "C" int xclip_attention_block_max_n(int dtype) {
   return attention_max_n(dtype);
 }
 
-// Largest sequence length the K2 backward takes in `dtype` (its query-tile
-// kernel keeps 32 full score rows in shared memory).
+// Largest sequence length the attention core's backward takes in `dtype`
+// (bf16 2048; in fp32 its query-tile kernel keeps 32 full score rows in
+// shared memory).
 extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
   return attention_bwd_max_n(dtype);
+}
+
+// The attention core alone, as the megablock launches it (step 3 of the
+// forward, the attention launches of the backward), for tests and timing.
+// Returns a cudaError_t code. qkv (b*n, 3*heads*64) and attnout (b*n,
+// heads*64) of the storage dtype, mask (b, n) uint8, sm (b*n, 2*heads)
+// fp32 or null.
+extern "C" int xclip_mega_core_fwd(int dtype, const void* qkv,
+                                   const void* mask, void* attnout, void* sm,
+                                   int b, int n, int heads, float scale,
+                                   int causal, int maybe_dead, void* stream) {
+  if (b <= 0 || n <= 0 || heads <= 0 || n > attention_max_n(dtype))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  XCLIP_DISPATCH(dtype, launch_attention<T>(
+      XCLIP_PTR(const T*, qkv), m, XCLIP_PTR(T*, attnout), b, n, heads,
+      scale, causal, maybe_dead, XCLIP_PTR(float*, sm), st));
+}
+
+// Its backward: dqkv (b*n, 3*heads*64) from qkv, the fp32 row cotangents
+// dattn (b*n, heads*64), attnout and sm; delta (b*n, heads) fp32 scratch;
+// in bf16 `dcopy` (b*n, 2*heads*64, bf16) takes dattn's two bf16 copies
+// (the megablock passes dattn's own storage), in fp32 it is unused.
+extern "C" int xclip_mega_core_bwd(int dtype, const void* qkv,
+                                   const void* mask, const void* dattn,
+                                   const void* attnout, const void* sm,
+                                   void* dqkv, void* delta, void* dcopy,
+                                   int b, int n, int heads, float scale,
+                                   int causal, int maybe_dead, void* stream) {
+  if (b <= 0 || n <= 0 || heads <= 0 || n > attention_bwd_max_n(dtype))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == xclip::kBF16)
+    return xclip::launch_k6_bwd<true>(
+        XCLIP_PTR(const xclip::bf16*, qkv), m,
+        XCLIP_PTR(const xclip::bf16*, attnout), XCLIP_PTR(const float*, sm),
+        XCLIP_PTR(const float*, dattn), XCLIP_PTR(xclip::bf16*, dcopy),
+        XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
+        scale, causal, maybe_dead, st);
+  if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  return launch_attention_fma_bwd<false>(
+      XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dattn),
+      XCLIP_PTR(const float*, attnout), XCLIP_PTR(const float*, sm),
+      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
+      causal, maybe_dead, st);
 }
 
 static bool mega_args_ok(int dtype, int b, int n, int dim, int heads) {

@@ -26,9 +26,9 @@
 //     reduce_parts_kernel). bf16 operands go through the tensor cores
 //     (nvcuda::wmma 16x16x16 tiles fed by a cp.async ring); fp32 operands
 //     through an FMA tiling in full fp32 (no TF32).
-//   * block_mma: a small product between tiles already in shared memory,
-//     by one block (the attention kernels' q·kᵀ, p·v and their backward
-//     products); wmma for bf16, FMAs for fp32.
+//   * block_mma: a small fp32 product between tiles already in shared
+//     memory, by one block on FMAs (the fp32 attention kernels' q·kᵀ, p·v
+//     and their backward products).
 //
 // Everything sits in an anonymous namespace: each .cu file gets its own
 // copies of the template kernels, so linking several of them into one
@@ -806,49 +806,20 @@ __host__ __device__ constexpr size_t up128(size_t b) {
 }
 
 // C (M x N, fp32, row stride ldc) (+)= opA · opB over K, in shared memory,
-// by the block's kThreads threads. opA(i, k) = ACOL ? a[i + k * lda] :
-// a[i * lda + k]; opB(k, j) = BCOL ? b[k + j * ldb] : b[k * ldb + j]. bf16:
-// wmma 16x16x16 tiles, one warp per output tile in turn; fp32: FMAs in k
-// order. The caller synchronises around it.
-template <int M, int N, bool ACOL, bool BCOL, typename T>
-__device__ void block_mma(float* C, int ldc, const T* a, int lda, const T* b,
-                          int ldb, int K, bool accumulate) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<ACOL, wmma::col_major,
-                                         wmma::row_major>::type;
-    using LB = typename std::conditional<BCOL, wmma::col_major,
-                                         wmma::row_major>::type;
-    constexpr int TN = N / 16;
-    for (int t = threadIdx.x >> 5; t < (M / 16) * TN;
-         t += kThreads / 32) {
-      const int ti = t / TN, tj = t % TN;
-      float* cp = C + ti * 16 * ldc + tj * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (accumulate)
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-        wmma::load_matrix_sync(
-            fa, ACOL ? a + ti * 16 + k0 * lda : a + ti * 16 * lda + k0, lda);
-        wmma::load_matrix_sync(
-            fb, BCOL ? b + k0 + tj * 16 * ldb : b + k0 * ldb + tj * 16, ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-      const int i = idx / N, j = idx % N;
-      float s = accumulate ? C[i * ldc + j] : 0.f;
-      for (int k = 0; k < K; ++k)
-        s = fmaf(ACOL ? a[i + k * lda] : a[i * lda + k],
-                 BCOL ? b[k + j * ldb] : b[k * ldb + j], s);
-      C[i * ldc + j] = s;
-    }
+// by the block's kThreads threads, on FMAs in k order (the fp32 attention
+// kernels). opA(i, k) = ACOL ? a[i + k * lda] : a[i * lda + k]; opB(k, j)
+// = BCOL ? b[k + j * ldb] : b[k * ldb + j]. The caller synchronises around
+// it.
+template <int M, int N, bool ACOL, bool BCOL>
+__device__ void block_mma(float* C, int ldc, const float* a, int lda,
+                          const float* b, int ldb, int K, bool accumulate) {
+  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+    const int i = idx / N, j = idx % N;
+    float s = accumulate ? C[i * ldc + j] : 0.f;
+    for (int k = 0; k < K; ++k)
+      s = fmaf(ACOL ? a[i + k * lda] : a[i * lda + k],
+               BCOL ? b[k + j * ldb] : b[k * ldb + j], s);
+    C[i * ldc + j] = s;
   }
 }
 

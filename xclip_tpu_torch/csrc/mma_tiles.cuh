@@ -70,61 +70,84 @@ __device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 }
 
+// Depth slice k (columns [16k, 16k + 16)) of the warp's 16 rows [r0, r0 +
+// 16) of a staged tile, as an A operand.
+__device__ __forceinline__ void load_a_k(uint32_t (&a)[4], const bf16* tile,
+                                         int r0, int k) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * LDT + 16 * k + (lane >> 4) * 8);
+}
+
 // The warp's 16 rows [r0, r0 + 16) of a staged tile as an A operand.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
                                        int r0) {
-  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    ldsm_x4(a[k], tile + (r0 + (lane & 15)) * LDT + 16 * k + (lane >> 4) * 8);
+  for (int k = 0; k < 4; ++k) load_a_k(a[k], tile, r0, k);
+}
+
+// Columns [16k, 16k + 16) of the accumulator rounded to bf16, as depth
+// slice k of an A operand.
+__device__ __forceinline__ void pack_a_k(uint32_t (&a)[4],
+                                         const float (&acc)[8][4], int k) {
+  a[0] = pack_bf16(acc[2 * k][0], acc[2 * k][1]);
+  a[1] = pack_bf16(acc[2 * k][2], acc[2 * k][3]);
+  a[2] = pack_bf16(acc[2 * k + 1][0], acc[2 * k + 1][1]);
+  a[3] = pack_bf16(acc[2 * k + 1][2], acc[2 * k + 1][3]);
 }
 
 // The accumulator rounded to bf16, as an A operand over its 64 columns.
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
                                        const float (&acc)[8][4]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    a[k][0] = pack_bf16(acc[2 * k][0], acc[2 * k][1]);
-    a[k][1] = pack_bf16(acc[2 * k][2], acc[2 * k][3]);
-    a[k][2] = pack_bf16(acc[2 * k + 1][0], acc[2 * k + 1][1]);
-    a[k][3] = pack_bf16(acc[2 * k + 1][2], acc[2 * k + 1][3]);
+  for (int k = 0; k < 4; ++k) pack_a_k(a[k], acc, k);
+}
+
+// Depth slice k of acc += a . bᵀ: b a staged tile of 64 rows (the output's
+// columns) by 64 (the depth), as q . kᵀ.
+__device__ __forceinline__ void mma_abt_k(float (&acc)[8][4],
+                                          const uint32_t (&a)[4], int k,
+                                          const bf16* b) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t r[4];
+    ldsm_x4(r, b + (16 * np + (mi >> 1) * 8 + (lane & 7)) * LDT + 16 * k +
+                   (mi & 1) * 8);
+    mma_bf16(acc[2 * np], a, r[0], r[1]);
+    mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
   }
 }
 
-// acc += a . bᵀ: b a staged tile of 64 rows (the output's columns) by 64
-// (the depth), as q . kᵀ.
+// acc += a . bᵀ over the whole depth, slice by slice.
 __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
                                         const uint32_t (&a)[4][4],
                                         const bf16* b) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t r[4];
-      ldsm_x4(r, b + (16 * np + (mi >> 1) * 8 + (lane & 7)) * LDT + 16 * k +
-                     (mi & 1) * 8);
-      mma_bf16(acc[2 * np], a[k], r[0], r[1]);
-      mma_bf16(acc[2 * np + 1], a[k], r[2], r[3]);
-    }
+  for (int k = 0; k < 4; ++k) mma_abt_k(acc, a[k], k, b);
 }
 
-// acc += a . b: b a staged tile of 64 rows (the depth) by 64 (the output's
-// columns), as p . v.
+// Depth slice k of acc += a . b: b a staged tile of 64 rows (the depth) by
+// 64 (the output's columns), as p . v.
+__device__ __forceinline__ void mma_ab_k(float (&acc)[8][4],
+                                         const uint32_t (&a)[4], int k,
+                                         const bf16* b) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t r[4];
+    ldsm_x4_t(r, b + (16 * k + (mi & 1) * 8 + (lane & 7)) * LDT + 16 * np +
+                     (mi >> 1) * 8);
+    mma_bf16(acc[2 * np], a, r[0], r[1]);
+    mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+  }
+}
+
+// acc += a . b over the whole depth, slice by slice.
 __device__ __forceinline__ void mma_ab(float (&acc)[8][4],
                                        const uint32_t (&a)[4][4],
                                        const bf16* b) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t r[4];
-      ldsm_x4_t(r, b + (16 * k + (mi & 1) * 8 + (lane & 7)) * LDT + 16 * np +
-                       (mi >> 1) * 8);
-      mma_bf16(acc[2 * np], a[k], r[0], r[1]);
-      mma_bf16(acc[2 * np + 1], a[k], r[2], r[3]);
-    }
+  for (int k = 0; k < 4; ++k) mma_ab_k(acc, a[k], k, b);
 }
 
 // 4-byte global → shared copy (cp.async.ca); zero-fills when !pred

@@ -55,6 +55,8 @@ _SIGNATURES = {
                                             _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
+    "xclip_mega_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
+    "xclip_mega_core_bwd": [_I, *[_P] * 8, _I, _I, _I, _F, _I, _I, _P],
     "xclip_lse_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "xclip_lse_bwd": [*[_P] * 6, _I, _I, _I, _I, _I, _P],
     "xclip_attention_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],

@@ -19,14 +19,15 @@ The text tower runs it when rotary embeddings turn the megablock off
   (0 on a dead row) cast to qkv's dtype, dq = ds·k, dk = dsᵀ·q, dv =
   T(p)ᵀ·do.
 
-The CUDA kernels are `csrc/attention_block.cu`: bf16 on its own kernels
-(`csrc/attention_block_sm90.cuh`: register-resident mma.sync tiles that
+The CUDA kernels are `csrc/attention_block.cu`: bf16 on the K6 mode of
+`csrc/attention_block_sm90.cuh` (register-resident mma.sync tiles that
 skip causal and all-masked tiles; its source notes give the design and
-what bounds it), fp32 on the attention megablock's FMA core
-(`csrc/attention_core.cuh`), whose limits (`max_seq_len`,
-`max_seq_len_bwd`) hold for both. Every wrapper takes its kernel for CUDA
-tensors and its plain version for CPU tensors; it never falls back from
-one to the other.
+what bounds it), whose megablock mode runs the attention megablock's
+core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
+length limit is the megablock's, `attention_megablock.seq_len_limit` (bf16
+2048, the kernels' own). Every wrapper takes its kernel for CUDA tensors
+and its plain version for CPU tensors; it never falls back from one to the
+other.
 The Pallas kernel's padding to 128 rows and two-head groups are TPU
 artefacts: the kernels work on the true shapes.
 """
@@ -37,8 +38,8 @@ import torch
 
 from . import _build
 from ._common import check_kernel_args, dot32, dtype_code, route, stream_ptr
-from .attention_megablock import (DIM_HEAD, _heads, _softmax_parts,
-                                  max_seq_len, max_seq_len_bwd)
+from .attention_megablock import _check_core as _check
+from .attention_megablock import _heads, _softmax_parts
 
 
 def supported(heads: int, dim_head: int) -> bool:
@@ -98,24 +99,6 @@ def attention_core_bwd_plain(qkv, mask, out, lse, dout, heads, dim_head,
              dot32(p.to(dtype).transpose(-1, -2), do))
     return torch.cat([t.transpose(1, 2).reshape(b, n, heads * dim_head)
                       for t in parts], dim=-1).to(dtype)
-
-
-def _check(name, qkv, mask, heads, dim_head, training):
-    b, n, width = qkv.shape
-    check_kernel_args(name, (qkv,), qkv.dtype)
-    if dim_head != DIM_HEAD or width != 3 * heads * dim_head:
-        raise ValueError(f"{name}: the kernel takes dim_head {DIM_HEAD} and "
-                         f"qkv of width 3·heads·dim_head, not dim_head "
-                         f"{dim_head}, width {width}, heads {heads}")
-    if mask.shape != (b, n):
-        raise ValueError(f"{name}: mask {tuple(mask.shape)} for qkv "
-                         f"{tuple(qkv.shape)}")
-    limit = (min(max_seq_len(qkv.dtype), max_seq_len_bwd(qkv.dtype))
-             if training else max_seq_len(qkv.dtype))
-    if n > limit:
-        raise ValueError(f"{name}: n {n} exceeds the kernel's {limit} in "
-                         f"{qkv.dtype}")
-    return b, n
 
 
 def attention_core_fwd(qkv, mask, heads, dim_head, scale, causal=False,

@@ -26,12 +26,21 @@
   scratch, the backward summing dW and dg over the chunks in order, in
   fp32, cast once; their plain versions take the whole batch at once.
 
+* the attention core alone, `mega_core_fwd` / `mega_core_bwd`: the
+  attention step every variant runs (softmax(q·kᵀ·scale)·v per head from
+  the fused qkv, keeping `sm`; its backward from the fp32 row cotangent
+  dattn), for tests and timing. Its counters also count every megablock
+  wrapper call that runs it.
+
 The CUDA kernels are `csrc/attention_megablock.cu`; its source notes give
 the designs, what bounds them on the card and which intermediates cross
-HBM. Every wrapper takes its kernel for CUDA tensors and its plain version
-for CPU tensors; it never falls back from one to the other. The Pallas
-version's 128/16-row alignment and transposed stats layout are TPU
-artefacts: the kernels work on the true (b, n, ·) shapes.
+HBM. The attention core runs in bf16 on the megablock mode of K6's
+mma.sync kernels (`csrc/attention_block_sm90.cuh`), in fp32 on the FMA
+core of `csrc/attention_core.cuh`. Every wrapper takes its kernel for CUDA
+tensors and its plain version for CPU tensors; it never falls back from
+one to the other. The Pallas version's 128/16-row alignment and transposed
+stats layout are TPU artefacts: the kernels work on the true (b, n, ·)
+shapes.
 """
 
 from __future__ import annotations
@@ -92,6 +101,26 @@ def _forward_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
         xn = (((x32 - mean_pre) * inv_pre) * g_pre.float()).to(dtype)
         qkv = dot32(xn, w_qkv).to(dtype)
     qkv = qkv.reshape(b, n, 3 * hd)
+    attnout, sm = mega_core_fwd_plain(qkv, mask, heads, dim_head, scale,
+                                      causal, maybe_dead)
+    proj = dot32(attnout, w_out)
+    mean_o, inv_o = ln_stats_fp32(proj, eps)
+    out = (((proj - mean_o) * inv_o) * g_out.float()).to(dtype) + x
+    ln_stats = torch.stack([mean_pre, inv_pre, mean_o, inv_o]).reshape(4, -1)
+    return out, (qkv.reshape(b * n, 3 * hd), attnout.reshape(b * n, hd),
+                 proj.reshape(b * n, -1), sm.reshape(b * n, 2 * heads),
+                 ln_stats)
+
+
+def mega_core_fwd_plain(qkv, mask, heads, dim_head, scale, causal=False,
+                        maybe_dead=True):
+    """The megablock's attention step in PyTorch, in `_fwd_common`'s cast
+    order → (attnout (b, n, heads·dim_head) in qkv.dtype, sm (b, n,
+    2·heads) fp32: each row's softmax max m per head, then its normaliser
+    l; m = 0 and l = n on a dead row)."""
+    dtype = qkv.dtype
+    b, n, _ = qkv.shape
+    hd = heads * dim_head
     q, k, v = (_heads(qkv[..., i * hd:(i + 1) * hd], b, n, heads, dim_head)
                for i in range(3))
     s, dead = _softmax_parts(q, k, mask, scale, causal, maybe_dead)
@@ -104,14 +133,43 @@ def _forward_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = dot32((p / l).to(dtype), v).to(dtype)                     # (b, h, n, d)
     attnout = o.transpose(1, 2).reshape(b, n, hd)
-    proj = dot32(attnout, w_out)
-    mean_o, inv_o = ln_stats_fp32(proj, eps)
-    out = (((proj - mean_o) * inv_o) * g_out.float()).to(dtype) + x
     sm = torch.cat([m, l], dim=1).squeeze(-1).permute(0, 2, 1)   # (b, n, 2h)
-    ln_stats = torch.stack([mean_pre, inv_pre, mean_o, inv_o]).reshape(4, -1)
-    return out, (qkv.reshape(b * n, 3 * hd), attnout.reshape(b * n, hd),
-                 proj.reshape(b * n, -1),
-                 sm.reshape(b * n, 2 * heads).contiguous(), ln_stats)
+    return attnout, sm.contiguous()
+
+
+def mega_core_bwd_plain(qkv, mask, dattn, attnout, sm, heads, dim_head,
+                        scale, causal=False, maybe_dead=True):
+    """The attention part of `_bwd_kernel_stored` / `_bwd_kernel` in
+    PyTorch → dqkv (b, n, 3·heads·dim_head) in qkv.dtype, from the fp32
+    row cotangent dattn (b, n, heads·dim_head) and the forward's sm: p =
+    (dead ? 1 : exp(s − m)) / l from the stored pair, Δ = scale·Σ
+    dattn·attnout, dp = T(dattn·scale)·vᵀ, ds = T(p·(dp − Δ)) (0 on a dead
+    row; the scale sits on do, not on ds), dq = ds·k, dk = dsᵀ·q, dv =
+    T(p)ᵀ·T(dattn)."""
+    dtype = qkv.dtype
+    b, n, _ = qkv.shape
+    hd = heads * dim_head
+    q, k, v = (_heads(qkv[..., i * hd:(i + 1) * hd], b, n, heads, dim_head)
+               for i in range(3))
+    s, dead = _softmax_parts(q, k, mask, scale, causal, maybe_dead)
+    m, l = (sm[..., i * heads:(i + 1) * heads].permute(0, 2, 1)[..., None]
+            for i in range(2))
+    p = torch.exp(s - m)
+    if dead is not None:
+        p = torch.where(dead, 1.0, p)
+    p = p / l
+    do_h = _heads(dattn.float(), b, n, heads, dim_head)          # fp32
+    delta = (do_h * _heads(attnout, b, n, heads, dim_head).float() * scale
+             ).sum(dim=-1, keepdim=True)
+    dp = dot32((do_h * scale).to(dtype), v.transpose(-1, -2))
+    ds = p * (dp - delta)
+    if dead is not None:
+        ds = torch.where(dead, 0.0, ds)
+    ds = ds.to(dtype)
+    parts = (dot32(ds, k), dot32(ds.transpose(-1, -2), q),
+             dot32(p.to(dtype).transpose(-1, -2), do_h.to(dtype)))
+    return torch.cat([t.transpose(1, 2).reshape(b, n, hd) for t in parts],
+                     dim=-1).to(dtype)
 
 
 def attention_block_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads,
@@ -126,15 +184,26 @@ def attention_block_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads,
 
 
 def max_seq_len(dtype) -> int:
-    """Longest sequence the forward kernel takes in `dtype` (its 32 score
-    rows of length n sit in one block's shared memory). Needs the built
-    library."""
+    """Longest sequence the attention core's forward takes in `dtype`,
+    the megablock's and K6's alike: bf16 2048 (the mma.sync kernels' 32
+    key tiles), fp32 as long as the FMA core's 32 score rows of length n
+    sit in one block's shared memory. Needs the built library."""
     return _build.library().xclip_attention_block_max_n(dtype_code(dtype))
 
 
 def max_seq_len_bwd(dtype) -> int:
-    """Longest sequence the backward kernels take in `dtype`."""
+    """Longest sequence the attention core's backward takes in `dtype`
+    (bf16 2048)."""
     return _build.library().xclip_attention_block_bwd_max_n(dtype_code(dtype))
+
+
+def seq_len_limit(dtype, training=False) -> int:
+    """The longest sequence a wrapper of the attention core takes in
+    `dtype`: the forward's limit, with `training` the backward's too. The
+    megablock's wrappers, its core's and K6's all read it (in bf16 they run
+    the same kernels)."""
+    return (min(max_seq_len(dtype), max_seq_len_bwd(dtype)) if training
+            else max_seq_len(dtype))
 
 
 def _check(name, tensors, mask, heads, dim_head, training=False):
@@ -151,8 +220,7 @@ def _check(name, tensors, mask, heads, dim_head, training=False):
             or mask.shape != (b, n)):
         raise ValueError(f"{name}: inconsistent shapes "
                          f"{[t.shape for t in tensors + (mask,)]}")
-    limit = min(max_seq_len(x.dtype), max_seq_len_bwd(x.dtype)) \
-        if training else max_seq_len(x.dtype)
+    limit = seq_len_limit(x.dtype, training)
     if n > limit:
         raise ValueError(f"{name}: n {n} exceeds the kernel's {limit} in "
                          f"{x.dtype}")
@@ -197,6 +265,7 @@ def _fwd_kernel(name, tensors, mask, heads, dim_head, scale, causal,
             *residual_ptrs, rows, b, n, dim, heads, float(scale),
             int(causal), int(maybe_dead), eps_for(dt), stream_ptr(dev))
     _build.check(err, "xclip_attention_block_fwd")
+    mega_core_fwd.launches += 1
     return out, residuals
 
 
@@ -276,27 +345,10 @@ def _bwd_core_plain(x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, attnout,
     dattn = dot32(dproj, w_out.T)                                # (rows, hd)
     dw_out = dot32(attnout.T, dproj)
 
-    q, k, v = (_heads(qkv[:, i * hd:(i + 1) * hd], b, n, heads, dim_head)
-               for i in range(3))
-    s, dead = _softmax_parts(q, k, mask, scale, causal, maybe_dead)
-    m, l = (sm[:, i * heads:(i + 1) * heads].reshape(b, n, heads)
-            .permute(0, 2, 1)[..., None] for i in range(2))
-    p = torch.exp(s - m)
-    if dead is not None:
-        p = torch.where(dead, 1.0, p)
-    p = p / l
-    do_h = _heads(dattn, b, n, heads, dim_head)                  # fp32
-    delta = (do_h * _heads(attnout, b, n, heads, dim_head).float() * scale
-             ).sum(dim=-1, keepdim=True)
-    dp = dot32((do_h * scale).to(dtype), v.transpose(-1, -2))
-    ds = p * (dp - delta)
-    if dead is not None:
-        ds = torch.where(dead, 0.0, ds)
-    ds = ds.to(dtype)
-    parts = (dot32(ds, k), dot32(ds.transpose(-1, -2), q),
-             dot32(p.to(dtype).transpose(-1, -2), do_h.to(dtype)))
-    dqkv = torch.cat([t.transpose(1, 2).reshape(rows, hd) for t in parts],
-                     dim=-1).to(dtype)
+    dqkv = mega_core_bwd_plain(
+        qkv.reshape(b, n, 3 * hd), mask, dattn.reshape(b, n, hd),
+        attnout.reshape(b, n, hd), sm.reshape(b, n, 2 * heads), heads,
+        dim_head, scale, causal, maybe_dead).reshape(rows, 3 * hd)
 
     dxn = dot32(dqkv, w_qkv.T)
     xhat_pre = (x2.float() - mean_pre) * inv_pre
@@ -337,6 +389,7 @@ def attention_block_bwd(x, g_pre, w_qkv, w_out, g_out, mask, dout, stored,
             stream_ptr(dev))
     _build.check(err, "xclip_attention_block_bwd")
     attention_block_bwd.launches += 1
+    mega_core_bwd.launches += 1
     return dx, dg_pre, dw_qkv, dw_out, dg_out, dqkv
 
 
@@ -447,6 +500,7 @@ def attention_block_fwd_stats(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                 eps_for(dt), stream_ptr(dev))
             _build.check(err, "xclip_attention_block_fwd")
     attention_block_fwd_stats.launches += 1
+    mega_core_fwd.launches += 1
     return out, sm, ln_stats, kept
 
 
@@ -517,6 +571,8 @@ def attention_block_bwd_recompute(x, g_pre, w_qkv, w_out, g_out, mask, dout,
                 stream_ptr(dev))
             _build.check(err, "xclip_attention_block_bwd_recompute")
     attention_block_bwd_recompute.launches += 1
+    mega_core_fwd.launches += 1   # the recompute of attnout
+    mega_core_bwd.launches += 1
     dw_qkv, dw_out, dg_pre, dg_out = (t.to(dt) for t in sums)
     return dx, dg_pre, dw_qkv, dw_out, dg_out
 
@@ -560,3 +616,93 @@ def attention_block_train_recompute(x, g_pre, w_qkv, w_out, g_out, mask,
     return AttentionBlockRecompute.apply(x, g_pre, w_qkv, w_out, g_out, mask,
                                          heads, dim_head, scale, causal,
                                          maybe_dead, keep_qkv)
+
+
+# ------------------------------------------------ the attention core alone
+
+def _check_core(name, qkv, mask, heads, dim_head, training):
+    """The checks of the attention core's wrappers (the megablock's and
+    K6's) → (b, n)."""
+    b, n, width = qkv.shape
+    check_kernel_args(name, (qkv,), qkv.dtype)
+    if dim_head != DIM_HEAD or width != 3 * heads * dim_head:
+        raise ValueError(f"{name}: the kernel takes dim_head {DIM_HEAD} and "
+                         f"qkv of width 3·heads·dim_head, not dim_head "
+                         f"{dim_head}, width {width}, heads {heads}")
+    if mask.shape != (b, n):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} for qkv "
+                         f"{tuple(qkv.shape)}")
+    limit = seq_len_limit(qkv.dtype, training)
+    if n > limit:
+        raise ValueError(f"{name}: n {n} exceeds the kernel's {limit} in "
+                         f"{qkv.dtype}")
+    return b, n
+
+
+def mega_core_fwd(qkv, mask, heads, dim_head, scale, causal=False,
+                  maybe_dead=True):
+    """The megablock's attention step alone → (attnout, sm) as
+    `mega_core_fwd_plain`; qkv (b, n, 3·heads·dim_head), mask (b, n)
+    bool."""
+    if not route("mega_core_fwd", (qkv, mask)):
+        return mega_core_fwd_plain(qkv, mask, heads, dim_head, scale, causal,
+                                   maybe_dead)
+    b, n = _check_core("mega_core_fwd", qkv, mask, heads, dim_head, False)
+    dev, dt = qkv.device, qkv.dtype
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    attnout = torch.empty((b, n, heads * dim_head), dtype=dt, device=dev)
+    sm = torch.empty((b, n, 2 * heads), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().xclip_mega_core_fwd(
+            dtype_code(dt), qkv.data_ptr(), mask_u8.data_ptr(),
+            attnout.data_ptr(), sm.data_ptr(), b, n, heads, float(scale),
+            int(causal), int(maybe_dead), stream_ptr(dev))
+    _build.check(err, "xclip_mega_core_fwd")
+    mega_core_fwd.launches += 1
+    return attnout, sm
+
+
+# launches of the core's forward: by this wrapper, and one by each call of
+# a megablock wrapper that runs it (K-MEGA, K2 and K3 forwards, K3's
+# recompute backward); plain calls not counted
+mega_core_fwd.launches = 0
+
+
+def mega_core_bwd(qkv, mask, dattn, attnout, sm, heads, dim_head, scale,
+                  causal=False, maybe_dead=True):
+    """The megablock's attention backward alone → dqkv as
+    `mega_core_bwd_plain`; dattn (b, n, heads·dim_head) fp32."""
+    if not route("mega_core_bwd", (qkv, mask, dattn, attnout, sm)):
+        return mega_core_bwd_plain(qkv, mask, dattn, attnout, sm, heads,
+                                   dim_head, scale, causal, maybe_dead)
+    b, n = _check_core("mega_core_bwd", qkv, mask, heads, dim_head, True)
+    check_kernel_args("mega_core_bwd", (attnout,), qkv.dtype)
+    check_kernel_args("mega_core_bwd", (dattn, sm), torch.float32)
+    hd = heads * dim_head
+    if (dattn.shape != (b, n, hd) or attnout.shape != dattn.shape
+            or sm.shape != (b, n, 2 * heads)):
+        raise ValueError("mega_core_bwd: inconsistent shapes "
+                         f"{[tuple(t.shape) for t in (qkv, dattn, attnout, sm)]}")
+    dev, dt = qkv.device, qkv.dtype
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b, n, heads), dtype=torch.float32, device=dev)
+    # bf16: the dq kernel's two bf16 copies of dattn (the megablock writes
+    # them over its own dattn scratch)
+    dcopy = (torch.empty((b, n, 2 * hd), dtype=dt, device=dev)
+             if dt == torch.bfloat16 else None)
+    with torch.cuda.device(dev):
+        err = _build.library().xclip_mega_core_bwd(
+            dtype_code(dt), qkv.data_ptr(), mask_u8.data_ptr(),
+            dattn.data_ptr(), attnout.data_ptr(), sm.data_ptr(),
+            dqkv.data_ptr(), delta.data_ptr(),
+            None if dcopy is None else dcopy.data_ptr(), b, n, heads,
+            float(scale), int(causal), int(maybe_dead), stream_ptr(dev))
+    _build.check(err, "xclip_mega_core_bwd")
+    mega_core_bwd.launches += 1
+    return dqkv
+
+
+# launches of the core's backward: by this wrapper, and one by each call
+# of K2's or K3's backward
+mega_core_bwd.launches = 0
