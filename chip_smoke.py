@@ -14,8 +14,9 @@ backward), K-FF-s with the FF block's recompute backward, and K5 (the
 streaming-LSE InfoNCE); the rotary causal-EOS text tower through K6 and
 K7; and the two remaining FF routes, `ff_impl='fused'` through K8 (GEGLU +
 inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
-block). One line per phase; any failure exits non-zero, and nothing is
-caught.
+block); every bf16 product of the FF blocks and the megablock runs on one
+TMA-fed wgmma kernel, held alone in phase 19. One line per phase; any
+failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -69,7 +70,8 @@ caught.
              timed steps, pairs/s, peak memory, the idle share and top
              kernels over one profiled step; launch counts per step (the
              megablock core's among them), finite losses, the first near
-             ln b.
+             ln b; the bf16 product kernel's launches per step by
+             instance against the count the step's chunks give.
  12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
              backward at (256, 256, 3 x 512) causal with key pads and at n =
              257 not causal, K7 (FlashAttention) forward and backward at
@@ -119,6 +121,18 @@ caught.
              K1-h), 2 warm-up and 5 timed steps each: pairs/s, peak memory,
              launch counts per step, the idle share and top kernels over one
              profiled step, finite losses, the first within 0.1 of ln 256.
+ 19 products  the bf16 product kernel (csrc/gemm_sm90.cu, every bf16
+             product of the FF blocks and the megablock) alone, class by
+             class of the b = 2048 step (weight gradients, A.B^T and A.B to
+             fp32, the GEGLU forward in its three epilogues, qkv, the FF
+             out product with its residual), at the rows the step's calls
+             take a chunk at and at 65,792 rows: against kernels/matmul.py's
+             mm_plain (bf16 outputs at two ulps of their largest magnitude,
+             fp32 at 1e-4 of it), CUDA-event times beside mm_plain and one
+             PyTorch call (torch.mm with out_dtype=float32 where the output
+             is fp32 and PyTorch has it, torch.addmm for the residual), the
+             bound by FLOPs and by bytes, TFLOP/s. Phase 11 checks its
+             launches per b = 2048 step by instance, counted in the library.
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
@@ -1208,10 +1222,13 @@ def profile_step(run, i):
 
 
 def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
-               stored):
+               stored, products_per_step):
     """Phase 11: the flagship train step on the memory-lean routes, at
     b = 256 (phase 8's weights and inputs; `stored` its kernel-route
-    result) and at b = 2048."""
+    result) and at b = 2048, where the bf16 product kernel's launches by
+    instance (counted in the library) must be `products_per_step` a step.
+    Returns the b = 2048 run's launch counts and product launches."""
+    from xclip_tpu_torch.kernels import matmul
     # the core: K3's forward and its backward's recompute, K3's backward
     want = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
             "k5_fwd": 2, "k5_bwd": 2, "core_fwd": 24, "core_bwd": 12}
@@ -1229,8 +1246,10 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
             return step(text, images, generator=torch.Generator(
                 device="cuda").manual_seed(100 + i))
 
+        matmul.kernel_launches(reset=True)
         step_ms, counts, peak, losses = timed_steps(run, warm, timed,
                                                     counters)
+        products = matmul.kernel_launches()
         check_losses(f"lean routes b={b}", losses, b)
         per_step = {k: v / (warm + timed) for k, v in counts.items()}
         if per_step != want:
@@ -1255,6 +1274,16 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
                      f"routes' {stored[1]:.2f} GiB")
         print(line, flush=True)
         if b == 2048:
+            want_mm = {k: v * (warm + timed)
+                       for k, v in products_per_step.items()}
+            if products != want_mm:
+                fail(f"lean routes b={b}: product kernel launches "
+                     f"{products}, expected {want_mm}")
+            print(f"  b={b} bf16 product kernel launches per step "
+                  f"{sum(products_per_step.values())}: "
+                  + ", ".join(f"{k[0]} ta={int(k[1])} tb={int(k[2])} {v}"
+                              for k, v in products_per_step.items()),
+                  flush=True)
             (idle, busy_ms, window_ms), (total, rows) = profile_step(
                 run, warm + timed)
             print(f"  b={b} idle share {idle:.4f} over one step (device busy "
@@ -1262,7 +1291,7 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
             for t, count, key in rows:
                 print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                       f"{key[:90]}", flush=True)
-            results[b] = (step_ms, peak, idle, counts)
+            results[b] = (step_ms, peak, idle, counts, products)
         else:
             results[b] = (step_ms, peak)
         del model, step, text, images
@@ -1275,8 +1304,8 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
           f"({s2048[0]:.1f} ms per step, peak {s2048[1]:.2f} GiB, idle "
           f"{s2048[2]:.4f}); launches per step K3 fwd/bwd 12, K-FF-s 12, FF "
           f"recompute backward 12, K5 fwd/bwd 2, megablock core fwd/bwd 24"
-          f"/12")
-    return s2048[3]
+          f"/12, bf16 product kernel {sum(products_per_step.values())}")
+    return s2048[3], s2048[4]
 
 
 def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -1654,6 +1683,181 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
     return launches
 
 
+# The bf16 product kernel's classes on the b = 2048 step (phase 19): (key,
+# class, epilogues, ta, tb, [(call, call site, m, n, k)], Pallas body
+# replaced), "R" the rows of a call; the call sites' row chunks are those of
+# the step's text tower. The first call of a class is its record's.
+PRODUCT_CLASSES = [
+    ("mm_wgrad", "weight gradients A^T.B, split-k", ("store_f32",), True,
+     False, [("FF dW_in", "ff_bwd", 512, 4096, "R"),
+             ("FF dW_out", "ff_bwd", 2048, 512, "R"),
+             ("attn dW_out", "mega_bwd", 512, 512, "R"),
+             ("dW_qkv", "mega_bwd", 512, 1536, "R")],
+     "xclip_tpu/kernels/fused_ff_block.py:697"),
+    ("mm_abt", "A.B^T to fp32", ("store_f32",), False, True,
+     [("FF dxn", "ff_bwd", "R", 512, 4096), ("dy", "ff_bwd", "R", 2048, 512),
+      ("dattn", "mega_bwd", "R", 512, 512),
+      ("attn dxn", "mega_bwd", "R", 512, 1536)],
+     "xclip_tpu/kernels/fused_ff_block.py:411"),
+    ("mm_ab32", "A.B to fp32", ("store_f32",), False, False,
+     [("h", "ff_bwd", "R", 4096, 512), ("proj", "mega_bwd", "R", 512, 512)],
+     "xclip_tpu/kernels/fused_ff_block.py:387"),
+    ("mm_geglu", "GEGLU forward", ("geglu", "geglu_triple", "geglu_h"),
+     False, False, [("xn.W_in", "ff_fwd", "R", 2048, 512)],
+     "xclip_tpu/kernels/fused_ff_block.py:150"),
+    ("mm_qkv", "qkv", ("store",), False, False,
+     [("xn.W_qkv", "mega_fwd", "R", 1536, 512)],
+     "xclip_tpu/kernels/attention_megablock.py:120"),
+    ("mm_resid", "FF out + residual", ("residual",), False, False,
+     [("y.W_out + x", "ff_fwd", "R", 512, 2048)],
+     "xclip_tpu/kernels/fused_ff_block.py:158"),
+]
+def product_operands(gen, cls, rows, call=0, epilogue=None):
+    """bf16 operands of call `call` of class `cls` (a PRODUCT_CLASSES
+    entry) at `rows` rows, unit-scale A and B scaled by k^-1/2, and how to
+    run it: a dict for run_mm."""
+    from xclip_tpu_torch.kernels import matmul
+    key, _, epilogues, ta, tb, calls, _ = cls
+    name, _, m, n, k = calls[call]
+    m, n, k = (rows if v == "R" else v for v in (m, n, k))
+    epi = epilogue or epilogues[0]
+    width = 2 * n if epi.startswith("geglu") else n
+    dt = torch.bfloat16
+    a = rand(gen, *((k, m) if ta else (m, k)), dtype=dt)
+    b = rand(gen, *((width, k) if tb else (k, width)), scale=k ** -0.5,
+             dtype=dt)
+    names = {"geglu_triple": ("prod", "gelu_b", "agdb"),
+             "geglu_h": ("prod", "h")}.get(epi, ("out",))
+    return {"tag": f"{epi} ta={int(ta)} tb={int(tb)} {name} ({m} x {n} x "
+                   f"{k})", "a": a, "b": b, "epilogue": epi, "ta": ta,
+            "tb": tb, "m": m, "n": n, "k": k, "names": names,
+            "resid": rand(gen, m, n, dtype=dt) if epi == "residual" else None,
+            # the weight gradients' k-ranges, as gemm_split gives them
+            "k_split": matmul.split(m, n, k) if ta else None}
+
+
+def run_mm(ops, plain=False):
+    from xclip_tpu_torch.kernels import matmul
+    fn = matmul.mm_plain if plain else matmul.mm
+    return fn(ops["a"], ops["b"], ops["epilogue"], ops["ta"], ops["tb"],
+              ops["resid"], ops["k_split"])
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare_products(label, got, want, names):
+    """Each output of the product kernel against mm_plain's: bf16 at two
+    ulps of its largest magnitude, fp32 (the sums in another order only:
+    the operands are the same bf16 values) at 1e-4 of it."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        tol = (ulps2(w) if w.dtype == torch.bfloat16
+               else 1e-4 * max(float(w.abs().max()), 2.0 ** -20))
+        worst = max(worst, compare(f"{label} {name}", g, w, tol))
+    return worst
+
+
+def product_cost(ops):
+    """(bytes: A, B, resid read and every output written once; FLOPs) of
+    one product call."""
+    m, n, k, epi = ops["m"], ops["n"], ops["k"], ops["epilogue"]
+    width = 2 * n if epi.startswith("geglu") else n
+    out = {"store": 2, "residual": 2, "geglu": 4, "geglu_triple": 8,
+           "geglu_h": 8}.get(epi, 4)
+    parts = (math.ceil(k / ops["k_split"]) if ops["k_split"] else 1)
+    nbytes = (2 * m * k + 2 * k * width + out * parts * m * n
+              + (2 * m * n if epi == "residual" else 0))
+    return nbytes, 2 * m * width * k
+
+
+def library_ms(ops):
+    """(ms, what) of one PyTorch call for the product on the same bf16
+    operands: torch.mm with out_dtype=float32 where the epilogue's output
+    is fp32 and this PyTorch has it (else bf16 out), torch.addmm for
+    'residual', torch.mm in bf16 for 'store'; the split weight gradient as
+    one unsplit product."""
+    a = ops["a"].T if ops["ta"] else ops["a"]
+    b = ops["b"].T if ops["tb"] else ops["b"]
+    if ops["epilogue"] == "residual":
+        return cuda_ms(lambda: torch.addmm(ops["resid"], a, b)), "addmm bf16"
+    if ops["epilogue"] != "store":
+        try:
+            torch.mm(a[:8], b, out_dtype=torch.float32)
+            return (cuda_ms(lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                    "mm out_dtype=float32")
+        except (TypeError, RuntimeError):
+            pass
+    return cuda_ms(lambda: torch.mm(a, b)), "mm bf16"
+
+
+def products(gen, step_rows):
+    """Phase 19: every product class of the b = 2048 step on the bf16
+    product kernel, at the rows its call sites take a chunk at
+    (`step_rows`: call site -> rows) and at 65,792 rows: against mm_plain
+    (every epilogue of the GEGLU class), timed beside mm_plain and one
+    PyTorch call, with its bound and TFLOP/s. Returns (errs, ms, costs,
+    library) keyed by class, from each class's first call at 65,792 rows."""
+    phase(19, "products", "bf16 product kernel vs mm_plain on the card")
+    errs, ms, costs, library = {}, {}, {}, {}
+    for cls in PRODUCT_CLASSES:
+        key, title, epilogues = cls[:3]
+        worst = 0.0
+        for call, (_, site, *_) in enumerate(cls[5]):
+            for rows in (step_rows[site], 256 * 257):
+                for epi in (epilogues if call == 0 else epilogues[:1]):
+                    ops = product_operands(gen, cls, rows, call, epi)
+                    worst = max(worst, compare_products(
+                        ops["tag"], as_tuple(run_mm(ops)),
+                        as_tuple(run_mm(ops, plain=True)), ops["names"]))
+                    if epi != epilogues[0]:
+                        continue
+                    kms = cuda_ms(lambda: run_mm(ops))
+                    pms = cuda_ms(lambda: run_mm(ops, plain=True))
+                    lms, lwhat = library_ms(ops)
+                    cost = product_cost(ops)
+                    b_ms, b_by = bound(*cost)
+                    print(f"  {title}: {ops['tag']}: kernel {kms:.3f} ms "
+                          f"({cost[1] / kms / 1e9:.1f} TFLOP/s, "
+                          f"{b_ms / kms:.2f} of the bound), bound {b_ms:.3f}"
+                          f" ms ({b_by}; FLOPs {cost[1] / BF16_PEAK * 1e3:.3f}"
+                          f" ms, bytes {cost[0] / HBM * 1e3:.3f} ms), plain "
+                          f"{pms:.3f} ms, torch {lwhat} {lms:.3f} ms "
+                          f"({kms / lms:.2f}x)", flush=True)
+                    if call == 0 and rows == 256 * 257:
+                        ms[key], costs[key] = (kms, pms), cost
+                        library[key] = lms
+                    del ops
+                    torch.cuda.empty_cache()
+        errs[key] = worst
+    return errs, ms, costs, library
+
+
+def expected_products(ffb, mega):
+    """The bf16 product kernel's launches per b = 2048 memory-lean step, by
+    instance, from the chunks the step's calls take (6 layers a tower):
+    K-FF-s a GEGLU and a residual product per chunk; K3's forward qkv and
+    proj per chunk; the FF recompute backward h, dy, dxn, dW_in, dW_out per
+    chunk; K3's backward its qkv and proj recompute, dattn, dxn, dW_out,
+    dW_qkv per chunk."""
+    dt = torch.bfloat16
+    ff_f = ff_b = mg_f = mg_b = 0
+    for n in (257, 32):
+        ff_f += len(ffb.fwd_stats_spans(2048 * n, 512, 2048, dt))
+        ff_b += len(ffb.bwd_recompute_spans(2048 * n, 512, 2048, dt))
+        mg_f += len(mega.fwd_stats_spans(2048, n, 512, 8, dt, False))
+        mg_b += len(mega.bwd_recompute_spans(2048, n, 512, 8, dt, False))
+    return {("store", False, False): 6 * (mg_f + mg_b),
+            ("store_f32", False, False): 6 * (ff_b + mg_f + mg_b),
+            ("store_f32", False, True): 6 * 2 * (ff_b + mg_b),
+            ("store_f32", True, False): 6 * 2 * (ff_b + mg_b),
+            ("geglu", False, False): 6 * ff_f,
+            ("geglu_triple", False, False): 0,
+            ("geglu_h", False, False): 0,
+            ("residual", False, False): 6 * ff_f}
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -1874,8 +2078,9 @@ def main():
         fail(f"the lean golden step did not run through {missed}")
 
     # --------------------------------------------------------------- 11
-    lean_launches = lean_train(card, CLIP, default_optimizer, make_train_step,
-                               lean_counters, stored)
+    lean_launches, product_launches = lean_train(
+        card, CLIP, default_optimizer, make_train_step, lean_counters, stored,
+        expected_products(ffb, mega))
     dt = torch.bfloat16
     for tower, n in (("text", 257), ("vision", 32)):
         rows = 2048 * n
@@ -1929,6 +2134,21 @@ def main():
          "k2_fwd": mega.attention_block_fwd_stored,
          "k2_bwd": mega.attention_block_bwd}, stored)
 
+    # --------------------------------------------------------------- 19
+    # the rows of one chunk at each product call site of the b = 2048
+    # step's text tower
+    dt = torch.bfloat16
+    first = {"ff_fwd": ffb.fwd_stats_spans(2048 * 257, 512, 2048, dt)[0],
+             "ff_bwd": ffb.bwd_recompute_spans(2048 * 257, 512, 2048, dt)[0],
+             "mega_fwd": mega.fwd_stats_spans(2048, 257, 512, 8, dt,
+                                              False)[0],
+             "mega_bwd": mega.bwd_recompute_spans(2048, 257, 512, 8, dt,
+                                                  False)[0]}
+    step_rows = {site: (stop - start) * (257 if site.startswith("mega")
+                                         else 1)
+                 for site, (start, stop) in first.items()}
+    mm_errs, mm_ms, mm_costs, mm_library = products(gen, step_rows)
+
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
         b_ms, b_by = bound(*cost, peak)
@@ -1976,6 +2196,15 @@ def main():
         record["kernels"].append(entry(
             name, source, replaces, ff_launches[key], ff_errs[key],
             ff_ms[key], ff_costs[key], ff_peaks[key]))
+    # the product kernel by class: launches from phase 11's b = 2048 step,
+    # times at 65,792 rows (phase 19), beside torch.mm / addmm
+    for key, title, epilogues, ta, tb, calls, replaces in PRODUCT_CLASSES:
+        record["kernels"].append(entry(
+            f"bf16 product kernel: {title} ({calls[0][0]}, 65,792 rows)",
+            "xclip_tpu_torch/csrc/gemm_sm90.cu", replaces,
+            sum(product_launches[(epi, ta, tb)] for epi in epilogues),
+            mm_errs[key], mm_ms[key], mm_costs[key], BF16_PEAK,
+            mm_library[key]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

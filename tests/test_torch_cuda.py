@@ -31,6 +31,7 @@ from xclip_tpu_torch.kernels import flash_attention as flash
 from xclip_tpu_torch.kernels import fused_ff as k8
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 from xclip_tpu_torch.kernels import fused_infonce as lse5
+from xclip_tpu_torch.kernels import matmul
 
 from torch_port_inputs import (BF16_ATOL, _key_mask, core_args, ff_args,
                                flash_args, mega_args, to_torch)
@@ -872,3 +873,142 @@ def test_ff_routes_train_on_the_card_as_on_the_cpu(cuda_device, monkeypatch,
     for want, got in zip(*results):
         torch.testing.assert_close(got.cpu(), want, rtol=0,
                                    atol=_grad_atol(want, "float32"))
+
+
+# ------------------------------------------ the bf16 product kernel alone
+
+# (m, n, k) at the flagship widths, "R" the rows: each instance's product
+# in the b = 2048 step (kernels/matmul.py INSTANCES)
+MM_FLAGSHIP = {("store", False, False): ("R", 1536, 512),
+               ("store_f32", False, False): ("R", 4096, 512),
+               ("store_f32", False, True): ("R", 512, 4096),
+               ("store_f32", True, False): (512, 4096, "R"),
+               ("geglu", False, False): ("R", 2048, 512),
+               ("geglu_triple", False, False): ("R", 2048, 512),
+               ("geglu_h", False, False): ("R", 2048, 512),
+               ("residual", False, False): ("R", 512, 2048)}
+
+
+def _mm_args(instance, m, n, k, device, seed=0):
+    """bf16 operands of `instance` at (m, n, k): unit-scale A, B scaled by
+    k^-1/2, resid for 'residual', gemm_split's k-ranges for Aᵀ·B."""
+    epi, ta, tb = instance
+    g = torch.Generator(device=device).manual_seed(seed)
+    width = 2 * n if epi.startswith("geglu") else n
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device)
+                * scale).to(torch.bfloat16)
+
+    a = rnd(*((k, m) if ta else (m, k)))
+    b = rnd(*((width, k) if tb else (k, width)), scale=k ** -0.5)
+    resid = rnd(m, n) if epi == "residual" else None
+    return (a, b, epi, ta, tb, resid,
+            matmul.split(m, n, k) if ta else None)
+
+
+def _assert_products_close(got, want):
+    """bf16 outputs within two ulps of their largest magnitude; fp32 ones
+    (the same bf16 operands, summed in another order) within 1e-4 of it."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        top = max(float(w.float().abs().max()), 2.0 ** -20)
+        atol = (2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+                if w.dtype == torch.bfloat16 else 1e-4 * top)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=atol)
+
+
+def _step_rows():
+    """Rows of one chunk of the b = 2048 step's FF recompute backward."""
+    start, stop = ffb.bwd_recompute_spans(2048 * 257, 512, 2048,
+                                          torch.bfloat16)[0]
+    return stop - start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", matmul.INSTANCES,
+                         ids=["-".join(map(str, i)) for i in matmul.INSTANCES])
+@pytest.mark.parametrize("rows", ["small", "ragged", "step"])
+def test_product_kernel_matches_plain(cuda_device, instance, rows):
+    """Every instance at a ragged row count (77 rows of 64 / 192 wide
+    operands; 65,792 + 37 and one b = 2048 chunk at the flagship widths)."""
+    if rows == "small":
+        m, n, k = (64, 192, 77) if instance[1] else (77, 192, 64)
+    else:
+        r = 65_792 + 37 if rows == "ragged" else _step_rows()
+        m, n, k = (r if v == "R" else v for v in MM_FLAGSHIP[instance])
+    args = _mm_args(instance, m, n, k, cuda_device)
+    launches = matmul.kernel_launches()[instance]
+    got = matmul.mm(*args)
+    assert matmul.kernel_launches()[instance] == launches + 1
+    _assert_products_close(got, matmul.mm_plain(*args))
+
+
+@pytest.mark.cuda
+def test_product_kernel_is_deterministic(cuda_device):
+    for instance in matmul.INSTANCES:
+        m, n, k = (512, 1536, 20_000) if instance[1] else (3_001, 512, 1536)
+        args = _mm_args(instance, m, n, k, cuda_device, seed=1)
+        runs = [matmul.mm(*args) for _ in range(2)]
+        runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+        assert all(torch.equal(x, y) for x, y in zip(*runs)), instance
+
+
+@pytest.mark.cuda
+def test_chunked_weight_gradient_equals_unchunked(cuda_device):
+    """k-ranges of ROW_BLOCK rows: chunks of the rows at multiples of it
+    give the same partials as the whole, and the FF recompute backward's
+    running sum of each chunk's ordered partials the same bits."""
+    instance = ("store_f32", True, False)
+    rows, kb = 9_000, ffb.ROW_BLOCK
+    a, b, *_ = _mm_args(instance, 512, 1536, rows, cuda_device, seed=2)
+    whole = matmul.mm(a, b, "store_f32", True, False, None, kb)
+    pieces = [matmul.mm(a[s:e], b[s:e], "store_f32", True, False, None, kb)
+              for s, e in ((0, 4096), (4096, 6144), (6144, rows))]
+    assert torch.equal(torch.cat(pieces), whole)
+    assert torch.equal(matmul.ordered_sum(torch.cat(pieces)),
+                       matmul.ordered_sum(whole))
+
+
+@pytest.mark.cuda
+def test_product_kernel_raises_on_what_tma_cannot_take(cuda_device):
+    instance = ("store", False, False)
+    a, b, *_ = _mm_args(instance, 256, 128, 64, cuda_device)
+    flat = torch.empty(256 * 64 + 8, dtype=torch.bfloat16, device=cuda_device)
+    misaligned = flat[1:1 + 256 * 64].view(256, 64)   # 2 bytes off 16
+    misaligned.copy_(a)
+    with pytest.raises(RuntimeError, match="xclip_mm"):
+        matmul.mm(misaligned, b, "store")
+    with pytest.raises(RuntimeError, match="xclip_mm"):
+        matmul.mm(a, b[:, :96].contiguous(), "store")   # n not 64-aligned
+    rows_a, rows_b, *_ = _mm_args(("store_f32", True, False), 64, 128, 300,
+                                  cuda_device)
+    with pytest.raises(RuntimeError, match="xclip_mm"):  # k_split % 64 != 0
+        matmul.mm(rows_a, rows_b, "store_f32", True, False, None, 100)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_matches_the_library(cuda_device, dtype):
+    for m, n, k in [(512, 4096, 65_792), (2048, 512, 65_792),
+                    (512, 512, 3_341), (64, 192, 77), (512, 1536, 526_336),
+                    (512, 4096, 24_576)]:
+        assert matmul.library_split(m, n, k, dtype) == matmul.split(
+            m, n, k, dtype)
+        assert matmul.library_split(m, n, k, dtype, 2048) == 2048
+
+
+@pytest.mark.cuda
+def test_blocks_launch_the_product_kernel(cuda_device):
+    """K-FF's forward runs its two products on the kernel: the GEGLU and
+    the residual instance, once each."""
+    args = to_torch(ff_args(R=130, D=128, I=256), torch.bfloat16, cuda_device)
+    before = matmul.kernel_launches()
+    ffb.ff_block(*args)
+    after = matmul.kernel_launches()
+    grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert grew == {("geglu", False, False): 1, ("residual", False, False): 1}

@@ -15,7 +15,7 @@ Tolerances: loss 1e-5 absolute; gradients per leaf rtol 1e-3 with atol
 1e-5 times the leaf's largest magnitude; parameters after AdamW steps
 2e-6 absolute, a few fp32 ulps of the O(1) weights, since each step moves
 a weight by at most about the learning rate (1e-4) whatever the gradient's
-magnitude.
+magnitude. The bf16 step's tolerances are with its tests.
 """
 
 import jax
@@ -158,6 +158,115 @@ def test_step_metrics_match_jax():
     for k in ("text_ssl_loss", "image_ssl_loss", "multiview_cl_loss",
               "sim_reg_loss"):
         assert got[k].item() == 0.0 and float(want[k]) == 0.0, k
+
+
+# ---------------------------------------------------------- bf16 steps
+#
+# The flagship trains in bf16 (param_dtype and compute_dtype bfloat16): the
+# tiny CLIP on the kernel routes (their plain versions on the CPU) against
+# `xclip_tpu`'s bf16 step on the same weights rounded to bf16. The two
+# packages round to bf16 at other places (the port's kernels round where
+# the Pallas bodies cast; XLA's CPU dots and fusions keep other values in
+# fp32), so they are held to the size of bf16 rounding itself, taken from
+# JAX: its fp32 step on the same bf16 weights. Tolerances: the loss and
+# every gradient leaf within twice what JAX's own bf16 step differs from
+# its fp32 step (per leaf, by the largest magnitude) plus two bf16 ulps of
+# the leaf's largest magnitude (leaves both compute exactly, as zero
+# gradients, get that alone); the gradient norm, which JAX reports in
+# bf16, within two bf16 ulps of it; after one AdamW step (which moves a
+# weight by +-lr whatever its gradient's size), every weight within 2 lr
+# plus one bf16 ulp of it, and at most 1 % of them different at all: the
+# two move a weight apart only where its gradient's sign differs, i.e.
+# where the gradient is within rounding of zero.
+
+def _bf16_pair(seed):
+    config = {**TINY, **ROUTES}
+    tree = numpy_params(config, seed)
+    jclip = xclip_tpu.CLIP(**config, param_dtype=jnp.bfloat16,
+                           compute_dtype="bfloat16")
+    tclip = xclip_tpu_torch.CLIP(**config, param_dtype=torch.bfloat16,
+                                 compute_dtype="bfloat16", device="cpu")
+    load_jax_params(tclip, tree)
+    params = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), tree)
+    return jclip, xclip_tpu.CLIP(**config), params, tclip
+
+
+def _ulps(x, count=2):
+    """`count` bf16 ulps at |x|."""
+    return count * 2.0 ** (np.floor(np.log2(max(abs(float(x)),
+                                                 2.0 ** -126))) - 7)
+
+
+def _fp32_loss_and_grads(jclip32, params, text, image, rng):
+    """JAX's fp32 step on the bf16 weights: the scale of bf16 rounding."""
+    def loss_fn(p):
+        return jclip32.model.apply(p, jnp.asarray(text), jnp.asarray(image),
+                                   return_loss=True, rng=rng, training=True)
+    return jax.value_and_grad(loss_fn)(
+        jax.tree.map(lambda x: x.astype(jnp.float32), params))
+
+
+def test_bf16_loss_and_grads_match_jax():
+    jclip, jclip32, params, tclip = _bf16_pair(0)
+    text, image = _inputs()
+    rng = jax.random.PRNGKey(5)
+
+    def loss_fn(p):
+        return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
+                                 return_loss=True, rng=rng, training=True)
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    ref_loss, ref_grads = _fp32_loss_and_grads(jclip32, params, text, image,
+                                               rng)
+    loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
+                 return_loss=True, keep_idx=jax_keep_idx(rng, 4, 9, 0.5))
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= (
+        2 * abs(float(want_loss) - float(ref_loss)) + _ulps(want_loss))
+    got, want, ref = (_leaves(t) for t in (
+        to_jax_tree(tclip, grads=True), want_grads, ref_grads))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        top = np.abs(ref[k]).max()
+        tol = 2 * np.abs(w - ref[k]).max() + _ulps(top)
+        assert np.abs(got[k] - w).max() <= tol, k
+
+
+def test_bf16_train_step_matches_jax():
+    jclip, jclip32, params, tclip = _bf16_pair(1)
+    text, image = _inputs(seed=1)
+    lr = 1e-4
+    jopt = jtrainer.default_optimizer(learning_rate=lr)
+    state = jtrainer.TrainState(params=params, opt_state=jopt.init(params),
+                                step=jnp.zeros((), jnp.int32))
+    rng = jax.random.PRNGKey(100)
+    ref_loss, _ = _fp32_loss_and_grads(jclip32, params, text, image, rng)
+    state, want = jtrainer.make_train_step(jclip.model, jopt, donate=False)(
+        state, jnp.asarray(text), jnp.asarray(image), rng)
+    got = make_train_step(tclip, default_optimizer(
+        tclip.parameters(), learning_rate=lr))(
+        torch.from_numpy(text), torch.from_numpy(image),
+        keep_idx=jax_keep_idx(rng, 4, 9, 0.5))
+    for k in ("loss", "cl_loss"):
+        assert abs(got[k].item() - float(want[k])) <= (
+            2 * abs(float(want[k]) - float(ref_loss)) + _ulps(want[k])), k
+    for k in ("temperature", "grad_norm"):
+        assert abs(got[k].item() - float(want[k])) <= _ulps(want[k]), k
+    before = _leaves(params)
+    new, want_new = _leaves(to_jax_tree(tclip)), _leaves(state.params)
+    differ = moved = total = 0
+    for k, w in want_new.items():
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 2.0 ** -126)))
+                      - 7)
+        diff = np.abs(new[k] - w)
+        assert (diff <= 2 * lr + ulp).all(), k
+        differ += int((diff > 0).sum())
+        moved += int((w != before[k]).sum())
+        total += diff.size
+    # the step moves a third of the bf16 weights (the rest sit more than
+    # 2 lr from their neighbours); the two disagree on a few in a thousand
+    assert moved >= 0.1 * total
+    assert differ <= 0.01 * total
 
 
 @pytest.mark.parametrize("warmup,total", [(0, None), (3, 10), (8, 5),

@@ -33,10 +33,9 @@
 //   4. mm: proj = attnout @ w_out                            (b*n x dim, fp32)
 //   5. ln_rows with residual: out = T(LN_gout(proj)) + x     (b*n x dim, T)
 //
-// What bounds it on the card: the qkv and output products run on wmma
-// without wgmma or TMA (common.cuh) and take most of the time now that
-// the attention runs on the mma.sync kernels (whose notes give their
-// bound). HBM round-trips a later PR removes first: qkv (b*n x 3hd) and
+// What bounds it on the card: the qkv and output products (on the
+// TMA-fed wgmma kernel, gemm_sm90.cu) and the attention (on the mma.sync
+// kernels, whose notes give their bound). HBM round-trips a later PR removes first: qkv (b*n x 3hd) and
 // the fp32 proj, then xn and attnout.
 #include "attention_core.cuh"
 
@@ -104,8 +103,8 @@ int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
 // sums are common.cuh's, dW through ordered split partials, so two runs
 // agree bit for bit.
 //
-// What bounds it on the card: the surrounding products on the wmma tiling
-// (four of them, and the dW sums); the attention kernels compute s twice
+// What bounds it on the card: the surrounding products on the wgmma
+// kernel (four of them, and the dW sums); the attention kernels compute s twice
 // (once per kernel) on mma.sync; the fp32 dattn and dxn round trips
 // through HBM.
 template <typename T>

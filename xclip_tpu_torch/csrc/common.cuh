@@ -19,12 +19,12 @@
 //     than from a stored product: the FF block's recompute backward (fp32 h,
 //     stored statistics), K8's backward (statistics recomputed from the
 //     row) and K1-h's pass 1 (the stored, rounded h, stored statistics).
-//   * launch_mm: a shared-memory tiled matrix product with fused epilogues,
-//     either operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B),
-//     the k axis optionally split into ranges that write fp32 partials
-//     (the weight gradients over the long row axis, summed in order by
-//     reduce_parts_kernel). bf16 operands go through the tensor cores
-//     (nvcuda::wmma 16x16x16 tiles fed by a cp.async ring); fp32 operands
+//   * launch_mm: a tiled matrix product with fused epilogues, either
+//     operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B), the k
+//     axis optionally split into ranges that write fp32 partials (the
+//     weight gradients over the long row axis, summed in order by
+//     reduce_parts_kernel). bf16 operands go to the wgmma kernel of
+//     gemm_sm90.cu (TMA-fed, its own translation unit); fp32 operands
 //     through an FMA tiling in full fp32 (no TF32).
 //   * block_mma: a small fp32 product between tiles already in shared
 //     memory, by one block on FMAs (the fp32 attention kernels' q·kᵀ, p·v
@@ -38,11 +38,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace xclip {
 namespace {
@@ -433,8 +434,8 @@ int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
 // needs A·Bᵀ (TB; m = rows, k = a weight width) and Aᵀ·B (TA; k = rows, m
 // and n weight widths). m, n and k are multiples of 64 except the ragged
 // row axis, which is masked. The row axis of Aᵀ·B is long (65,792 text
-// rows) and its output small (a weight), so the grid's z axis may split k
-// into `parts` ranges of `k_split` that write separate fp32 partials (out +
+// rows) and its output small (a weight), so k may be split into `parts`
+// ranges of `k_split` that write separate fp32 partials (the z-th at out +
 // z * m * n); reduce_parts_kernel sums them in order. Epilogues (acc is the
 // fp32 product):
 constexpr int kStore = 0;     // out (T)    = T(acc)
@@ -456,34 +457,60 @@ struct Split {
 };
 
 // k_block > 0: k-ranges of exactly k_block (the last may be short), so a
-// caller that splits k at multiples of k_block gets the same partials.
+// caller that splits k at multiples of k_block gets the same partials; bf16
+// callers pass a multiple of kGemmBK. Otherwise, k-ranges of at least 1024
+// rows: in fp32 about two of the FMA kernel's 64x64 blocks an SM, ranges a
+// multiple of 32 long; in bf16 the fewest ranges whose work tiles fill the
+// wgmma kernel's persistent blocks (one on each of kGemmSMs) to within
+// 10 % in their last wave (else the fullest), ranges a multiple of its
+// kGemmBK-deep slice, so no TMA box crosses into the next range.
 inline Split gemm_split(int m, int n, int k, bool tensor_cores,
                         int k_block = 0) {
   if (k_block > 0) return Split{(k + k_block - 1) / k_block, k_block};
-  const int tile = tensor_cores ? 128 : 64;
-  const long tiles = (long)((m + tile - 1) / tile) * ((n + tile - 1) / tile);
-  // about two blocks per SM of the 132, k-ranges of at least 1024 rows
-  long parts = (264 + tiles - 1) / tiles;
-  parts = parts < k / 1024 ? parts : k / 1024;
+  long parts;
+  int align;
+  if (tensor_cores) {
+    const long tiles = (long)((m + kGemmBM - 1) / kGemmBM) *
+                       ((n + kGemmBN - 1) / kGemmBN);
+    const long slots = kGemmSMs;
+    long most = std::min((2 * slots + tiles - 1) / tiles, (long)k / 1024);
+    parts = 1;
+    double best = 0.0;
+    for (long p = 1; p <= most; ++p) {
+      const long work = tiles * p;
+      const double fill =
+          (double)work / ((double)((work + slots - 1) / slots) * slots);
+      if (fill > best + 1e-9) {
+        best = fill;
+        parts = p;
+      }
+      if (fill >= 0.9) break;
+    }
+    align = kGemmBK;
+  } else {
+    const long tiles = (long)((m + 63) / 64) * ((n + 63) / 64);
+    parts = (264 + tiles - 1) / tiles;
+    parts = parts < k / 1024 ? parts : k / 1024;
+    align = 32;
+  }
   if (parts < 1) parts = 1;
-  const int k_split = (int)(((k + parts - 1) / parts + 31) / 32 * 32);
+  const int k_split =
+      (int)(((k + parts - 1) / parts + align - 1) / align * align);
   return Split{(k + k_split - 1) / k_split, k_split};
 }
 
-// Writes one tile of `out` from the fp32 tile C (shared, row stride cld).
-// C's columns [0, 64) are output columns [c0, c0 + 64) and, when c1 >= 0,
-// C's columns [64, 128) are output columns [c1, c1 + 64). For the GEGLU
-// epilogues, C's columns [64, 128) hold the gate b of columns [0, 64).
+// Writes one 64-column tile of `out` (output columns [c0, c0 + 64)) from
+// the fp32 tile C (shared, row stride cld); for the GEGLU epilogues, C's
+// columns [64, 128) hold the gate b of columns [0, 64).
 template <typename T, int EPI, int NT>
 __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
                                            int row0, int m, int n, int c0,
-                                           int c1, void* out, const T* resid,
+                                           void* out, const T* resid,
                                            void* aux1, void* aux2) {
-  const int width = (is_geglu(EPI) || c1 < 0) ? 64 : 128;
-  for (int i = threadIdx.x; i < bm * width; i += NT) {
-    const int r = i / width, c = i % width;
+  for (int i = threadIdx.x; i < bm * 64; i += NT) {
+    const int r = i / 64, c = i % 64;
     if (row0 + r >= m) break;  // rows only grow with i
-    const long o = (long)(row0 + r) * n + (c < 64 ? c0 + c : c1 + c - 64);
+    const long o = (long)(row0 + r) * n + c0 + c;
     const float v = C[r * cld + c];
     if (EPI == kStore) {
       static_cast<T*>(out)[o] = from_f<T>(v);
@@ -507,25 +534,8 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
   }
 }
 
-// --- bf16: tensor cores. 128x128 block tiles, 8 warps of 32x64 (2x4 wmma
-// 16x16x16 accumulators), a 3-stage cp.async ring of 32-deep k slices.
-// The tile's 128 columns are two 64-wide panels of B: [c0, c0+64) and
-// [c1, c1+64) — for the GEGLU epilogues the a and b halves of the same
-// output columns. Transposed operands are staged k-major and read through
-// wmma's col_major fragments.
-constexpr int TBM = 128, TBK = 32, TSTAGES = 3, kTcThreads = 256;
-constexpr int TLDA = TBK + 8, TLDB = 128 + 8, TCLD = 128 + 4;
-
-template <bool TA, bool TB>
-struct MmLayout {
-  static constexpr int a_elems = TA ? TBK * TLDB : TBM * TLDA;
-  static constexpr int b_elems = TB ? 128 * TLDA : TBK * TLDB;
-  static constexpr int stage_bytes = (a_elems + b_elems) * 2;
-  static constexpr int smem_bytes = TSTAGES * stage_bytes > TBM * TCLD * 4
-                                        ? TSTAGES * stage_bytes
-                                        : TBM * TCLD * 4;
-};
-
+// cp.async, for the attention kernels' rings (mma_tiles.cuh and the FMA
+// cores)
 // 16-byte global → shared copy; zero-fills when !pred
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -538,136 +548,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int EPI, bool TA, bool TB>
-__global__ void __launch_bounds__(kTcThreads)
-mm_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-             const bf16* __restrict__ resid, void* __restrict__ out, int m,
-             int n, int k, int k_split, void* __restrict__ aux1,
-             void* __restrict__ aux2) {
-  using namespace nvcuda;
-  using L = MmLayout<TA, TB>;
-  using LayA = typename std::conditional<TA, wmma::col_major,
-                                         wmma::row_major>::type;
-  using LayB = typename std::conditional<TB, wmma::col_major,
-                                         wmma::row_major>::type;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int row0 = blockIdx.x * TBM;
-  int c0, c1, ldb;
-  if (is_geglu(EPI)) {
-    c0 = blockIdx.y * 64;
-    c1 = n + c0;
-    ldb = 2 * n;
-  } else {
-    c0 = blockIdx.y * 128;
-    c1 = c0 + 64 < n ? c0 + 64 : -1;
-    ldb = n;
-  }
-  const int kb = blockIdx.z * k_split;
-  const int ke = k < kb + k_split ? k : kb + k_split;
-  auto stage_a = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * L::stage_bytes);
-  };
-  auto stage_b = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * L::stage_bytes +
-                                   L::a_elems * 2);
-  };
-  auto load = [&](int s, int k0) {
-    bf16* as = stage_a(s);
-    bf16* bs = stage_b(s);
-    for (int c = threadIdx.x; c < TBM * TBK / 8; c += kTcThreads) {
-      if (TA) {  // a k-row of 128 consecutive i
-        const int kk = c / (TBM / 8), i = (c % (TBM / 8)) * 8;
-        const bool ok = k0 + kk < ke && row0 + i < m;
-        cp_async16(as + kk * TLDB + i,
-                   A + (ok ? (long)(k0 + kk) * m + row0 + i : 0), ok);
-      } else {   // an i-row of 32 consecutive k
-        const int r = c / (TBK / 8), kk = (c % (TBK / 8)) * 8;
-        const bool ok = row0 + r < m && k0 + kk < ke;
-        cp_async16(as + r * TLDA + kk,
-                   A + (ok ? (long)(row0 + r) * k + k0 + kk : 0), ok);
-      }
-    }
-    for (int c = threadIdx.x; c < TBK * 128 / 8; c += kTcThreads) {
-      if (TB) {  // a j-row of 32 consecutive k
-        const int j = c / (TBK / 8), kk = (c % (TBK / 8)) * 8;
-        const bool ok = (j < 64 || c1 >= 0) && k0 + kk < ke;
-        const int col = j < 64 ? c0 + j : c1 + j - 64;
-        cp_async16(bs + j * TLDA + kk,
-                   B + (ok ? (long)col * k + k0 + kk : 0), ok);
-      } else {   // a k-row of the two 64-column panels
-        const int kk = c / 16, cc = (c % 16) * 8;
-        const bool ok = (cc < 64 || c1 >= 0) && k0 + kk < ke;
-        const int col = cc < 64 ? c0 + cc : c1 + cc - 64;
-        cp_async16(bs + kk * TLDB + cc,
-                   B + (ok ? (long)(k0 + kk) * ldb + col : 0), ok);
-      }
-    }
-  };
-
-  const int warp = threadIdx.x >> 5;
-  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 64;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = ke > kb ? (ke - kb + TBK - 1) / TBK : 0;
-#pragma unroll
-  for (int s = 0; s < TSTAGES - 1; ++s) {
-    if (s < nk) load(s, kb + s * TBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<TSTAGES - 2>();  // slice kt has landed
-    __syncthreads();               // ... for every thread; slot kt-1 is free
-    if (kt + TSTAGES - 1 < nk)
-      load((kt + TSTAGES - 1) % TSTAGES, kb + (kt + TSTAGES - 1) * TBK);
-    cp_async_commit();
-    const bf16* as = stage_a(kt % TSTAGES);
-    const bf16* bs = stage_b(kt % TSTAGES);
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (TA)
-          wmma::load_matrix_sync(fa[i], as + kk * TLDB + wr + 16 * i, TLDB);
-        else
-          wmma::load_matrix_sync(fa[i], as + (wr + 16 * i) * TLDA + kk, TLDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (TB)
-          wmma::load_matrix_sync(fb[j], bs + (wc + 16 * j) * TLDA + kk, TLDA);
-        else
-          wmma::load_matrix_sync(fb[j], bs + kk * TLDB + wc + 16 * j, TLDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is dead; its memory becomes the result tile
-  float* C = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(C + (wr + 16 * i) * TCLD + wc + 16 * j,
-                              acc[i][j], TCLD, wmma::mem_row_major);
-  __syncthreads();
-  void* o = EPI == kStoreF32
-                ? static_cast<float*>(out) + (long)blockIdx.z * m * n
-                : out;
-  store_tile<bf16, EPI, kTcThreads>(C, TCLD, TBM, row0, m, n, c0, c1, o,
-                                    resid, aux1, aux2);
 }
 
 // --- fp32: FMA tiling in full fp32 (no TF32). 64x64 block tiles, each
@@ -744,8 +624,8 @@ mm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
   void* o = EPI == kStoreF32
                 ? static_cast<float*>(out) + (long)blockIdx.z * m * n
                 : out;
-  store_tile<float, EPI, kThreads>(C, FCLD, FBM, row0, m, n, c0, -1, o,
-                                   resid, aux1, aux2);
+  store_tile<float, EPI, kThreads>(C, FCLD, FBM, row0, m, n, c0, o, resid,
+                                   aux1, aux2);
 }
 
 template <typename T, int EPI, bool TA = false, bool TB = false>
@@ -754,15 +634,8 @@ int launch_mm(const T* A, const T* B, const T* resid, void* out, int m, int n,
               void* aux2 = nullptr, Split sp = Split{1, 0}) {
   const int k_split = sp.k_split ? sp.k_split : k;
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = MmLayout<TA, TB>::smem_bytes;
-    cudaError_t e = cudaFuncSetAttribute(
-        mm_tc_kernel<EPI, TA, TB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((m + TBM - 1) / TBM,
-                    is_geglu(EPI) ? n / 64 : (n + 127) / 128, sp.parts);
-    mm_tc_kernel<EPI, TA, TB><<<grid, kTcThreads, smem, st>>>(
-        A, B, resid, out, m, n, k, k_split, aux1, aux2);
+    return gemm_bf16(EPI, TA, TB, A, B, resid, out, m, n, k, sp.parts,
+                     k_split, aux1, aux2, st);
   } else {
     const dim3 grid((m + FBM - 1) / FBM, n / 64, sp.parts);
     mm_fma_kernel<EPI, TA, TB><<<grid, kThreads, 0, st>>>(

@@ -37,10 +37,10 @@
 // splits the block at it.
 //
 // What bounds it on the card: the two products (2 * rows * dim * 3 * inner
-// FLOPs). In bf16 they run on wmma 128x128 tiles fed by a cp.async ring
-// (common.cuh), well short of the tensor cores' rate without wgmma and
-// TMA; the weights (6 MB in bf16 at the flagship) come from L2 for every
-// row tile. Then the inner LN, which streams the fp32 prod from HBM.
+// FLOPs). In bf16 they run on the TMA-fed wgmma kernel (gemm_sm90.cu) at
+// about half the tensor cores' rate; the weights (6 MB in bf16 at the
+// flagship) come from L2 for every row tile. Then the inner LN, which
+// streams the fp32 prod from HBM.
 // HBM round-trips a later PR removes first: the fp32 prod (rows x inner x 4
 // bytes, written by 2 and read by 3), then y and xn.
 #include "common.cuh"
@@ -105,9 +105,9 @@ int ff_block_fwd(const T* x, const T* g_pre, const T* w_in, const T* g_inner,
 // fp32 over k-ranges of the rows and cast to T once after an ordered sum.
 //
 // What bounds it on the card: the four products (two of them over the
-// 65,792-row axis at the flagship) on wmma, and the HBM round trips of dy
-// (fp32) and dh/dh2 that the split at the two LayerNorms costs; the row
-// kernels stream rows x inner tensors once each.
+// 65,792-row axis at the flagship) on the wgmma kernel, and the HBM round
+// trips of dy (fp32) and dh/dh2 that the split at the two LayerNorms
+// costs; the row kernels stream rows x inner tensors once each.
 template <typename T>
 struct FfBwdBuffers {
   float* dy;
@@ -237,8 +237,9 @@ int ff_block_bwd_p2(const T* xn, const T* dh2, const T* y2, const T* dout,
 //
 // What bounds it on the card: the five products (2 * rows * dim * 2 inner
 // FLOPs each for h, dxn and dW_in; 2 * rows * inner * dim for dy and
-// dW_out) on wmma, then the fp32 h and dy round trips through HBM (16 + 8
-// KB per row at inner 2048) and the row kernel's second erf/exp sweep.
+// dW_out) on the wgmma kernel, then the fp32 h and dy round trips through
+// HBM (16 + 8 KB per row at inner 2048) and the row kernel's second
+// erf/exp sweep.
 template <typename T>
 struct FfRecomputeBuffers {
   T* xn;

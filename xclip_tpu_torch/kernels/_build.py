@@ -63,9 +63,12 @@ _SIGNATURES = {
     "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
     "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _P],
     "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _P],
+    "xclip_mm": [_I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P],
+    "xclip_mm_split": [_I] * 5,
+    "xclip_mm_launches": [_I, _I],
 }
 _RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES
-             if name.endswith("_workspace")}
+             if name.endswith("_workspace") or name == "xclip_mm_launches"}
 
 
 def _nvcc() -> str:
