@@ -15,8 +15,10 @@ streaming-LSE InfoNCE); the rotary causal-EOS text tower through K6 and
 K7; and the two remaining FF routes, `ff_impl='fused'` through K8 (GEGLU +
 inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
 block); every bf16 product of the FF blocks and the megablock runs on one
-TMA-fed wgmma kernel, held alone in phase 19. One line per phase; any
-failure exits non-zero, and nothing is caught.
+TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm and
+GEGLU backward over rows on the row kernels of csrc/row_kernels.cuh, held
+alone in phase 20. One line per phase; any failure exits non-zero, and
+nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -133,6 +135,21 @@ failure exits non-zero, and nothing is caught.
              is fp32 and PyTorch has it, torch.addmm for the residual), the
              bound by FLOPs and by bytes, TFLOP/s. Phase 11 checks its
              launches per b = 2048 step by instance, counted in the library.
+ 20 rows     the LayerNorm-backward and GEGLU-backward row kernels
+             (csrc/row_kernels.cuh) alone, mode by mode, at the rows and
+             widths their callers give them: the recompute mode at the
+             b = 2048 step's chunk rows and at 65,792 x 2048, the stored-h
+             and K8 modes and the GEGLU-triple LayerNorm backward at 65,792
+             x 2048, the plain LayerNorm backward at 65,792 x 512 (fp32 dy,
+             residual, xn) and at a megablock chunk's rows (K3's out
+             LayerNorm); fp32 and bf16 against kernels/rows.py's plain
+             versions (bf16 outputs at two ulps of their largest
+             magnitude, fp32 at 1e-4 of it), two launches bit for bit
+             equal; CUDA-event times beside the plain version, the bytes
+             bound and, for the LayerNorm backward, torch's
+             native_layer_norm_backward (dx and dg, no residual add).
+             Phases 8, 11, 15 and 18 check the row kernels' launches per
+             step by mode, counted in the library.
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
@@ -1117,14 +1134,32 @@ def top_kernels(prof, k=12):
     return sum(r[0] for r in rows), rows[:k]
 
 
+def read_counts(counters):
+    """{name: launches} of each counter in `counters`: a wrapper (its
+    `.launches`) or a row kernel's (kernel, mode) (its launches from every
+    caller, counted in the library)."""
+    from xclip_tpu_torch.kernels import rows as rk
+    library = rk.kernel_launches()
+    return {k: library[c] if isinstance(c, tuple) else c.launches
+            for k, c in counters.items()}
+
+
+def zero_counts(counters):
+    """Every counter in `counters` (as read_counts takes them) set to 0."""
+    from xclip_tpu_torch.kernels import rows as rk
+    rk.kernel_launches(reset=True)
+    for c in counters.values():
+        if not isinstance(c, tuple):
+            c.launches = 0
+
+
 def timed_steps(run, warm, timed, counters):
     """`warm` steps, then `timed` steps between CUDA events, every counter
     in `counters` set to 0 first: (ms per timed step, launch counts, peak
     memory in GiB, the losses on the CPU)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     losses = [run(i)["loss"] for i in range(warm)]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1134,7 +1169,7 @@ def timed_steps(run, warm, timed, counters):
     end.record()
     torch.cuda.synchronize()
     return (start.elapsed_time(end) / timed,
-            {k: fn.launches for k, fn in counters.items()},
+            read_counts(counters),
             torch.cuda.max_memory_allocated() / 2 ** 30,
             torch.stack(losses).float().cpu())
 
@@ -1149,7 +1184,8 @@ def check_losses(label, losses, b, tol=0.5):
              f"{tol} of ln {b} = {math.log(b):.4f}")
 
 
-def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
+def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+                   row_counters):
     """Phase 8: the flagship train step on the kernel and plain routes."""
     b, warm, timed = 256, 2, 5
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1161,7 +1197,9 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     counters = {"k1_fwd": ffb.ff_block_fwd_stored, "k1_p1": ffb.ff_block_bwd_p1,
                 "k1_p2": ffb.ff_block_bwd_p2,
                 "k2_fwd": mega.attention_block_fwd_stored,
-                "k2_bwd": mega.attention_block_bwd}
+                "k2_bwd": mega.attention_block_bwd,
+                "rows_ln_geglu": row_counters["rows_ln_geglu"],
+                "rows_ln_ln": row_counters["rows_ln_ln"]}
     results = {}
     for route, routes in (("kernel", KERNEL_ROUTES), ("plain", PLAIN_ROUTES)):
         model = kernel if route == "kernel" else CLIP(
@@ -1191,8 +1229,10 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
                   f"{key[:90]}", flush=True)
         if route == "kernel":
             per_step = {k: v / (warm + timed) for k, v in counts.items()}
+            # K1's pass 1: a GEGLU-mode and a plain LayerNorm-backward
+            # launch; K2's backward two plain ones
             want = {"k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, "k2_fwd": 6,
-                    "k2_bwd": 6}
+                    "k2_bwd": 6, "rows_ln_geglu": 12, "rows_ln_ln": 24}
             if per_step != want:
                 fail(f"training launches per step {per_step}, expected "
                      f"{want}")
@@ -1205,7 +1245,7 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega):
           f"{k[1]:.2f} GiB, idle {k[2]:.4f}), plain routes "
           f"{b * 1e3 / p[0]:.1f} pairs/s ({p[0]:.2f} ms, peak {p[1]:.2f} "
           f"GiB, idle {p[2]:.4f}); launches per step K1 fwd/p1/p2 12, "
-          f"K2 fwd/bwd 6")
+          f"K2 fwd/bwd 6, LN-backward rows 12 GEGLU mode + 24")
     return launches, k
 
 
@@ -1222,18 +1262,20 @@ def profile_step(run, i):
 
 
 def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
-               stored, products_per_step):
+               stored, products_per_step, rows_per_step):
     """Phase 11: the flagship train step on the memory-lean routes, at
     b = 256 (phase 8's weights and inputs; `stored` its kernel-route
     result) and at b = 2048, where the bf16 product kernel's launches by
-    instance (counted in the library) must be `products_per_step` a step.
+    instance (counted in the library) must be `products_per_step` a step;
+    the row kernels' launches (in `counters`) `rows_per_step(b)` a step.
     Returns the b = 2048 run's launch counts and product launches."""
     from xclip_tpu_torch.kernels import matmul
     # the core: K3's forward and its backward's recompute, K3's backward
-    want = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
+    base = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
             "k5_fwd": 2, "k5_bwd": 2, "core_fwd": 24, "core_bwd": 12}
     results = {}
     for b, warm, timed, seed in ((256, 2, 5, 8), (2048, 2, 3, 11)):
+        want = {**base, **rows_per_step(b)}
         gen = torch.Generator(device="cuda").manual_seed(seed)
         text, images = texts(gen, b), rand(gen, b, 3, 256, 256,
                                            dtype=torch.bfloat16)
@@ -1304,7 +1346,9 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
           f"({s2048[0]:.1f} ms per step, peak {s2048[1]:.2f} GiB, idle "
           f"{s2048[2]:.4f}); launches per step K3 fwd/bwd 12, K-FF-s 12, FF "
           f"recompute backward 12, K5 fwd/bwd 2, megablock core fwd/bwd 24"
-          f"/12, bf16 product kernel {sum(products_per_step.values())}")
+          f"/12, bf16 product kernel {sum(products_per_step.values())}, "
+          f"GEGLU-backward rows {rows_per_step(2048)['rows_geglu_recompute']}"
+          f", LN-backward rows {rows_per_step(2048)['rows_ln_ln']}")
     return s2048[3], s2048[4]
 
 
@@ -1362,11 +1406,10 @@ def rotary_serve(card, CLIP, counters):
     plain = models["plain"](text, images, return_latents=True)
     agree = []
     for route in ROTARY_ROUTES:
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         latents = models[route](text, images, return_latents=True)
         torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = read_counts(counters)
         if counts != want[route]:
             fail(f"rotary {route} route: launches {counts}, expected "
                  f"{want[route]}")
@@ -1401,10 +1444,12 @@ def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
     text, images = eos_texts(gen, b), rand(gen, b, 3, 256, 256,
                                            dtype=torch.bfloat16)
     models = rotary_models(CLIP, ROTARY_ROUTES)
+    # K1's pass 1: a GEGLU-mode and a plain LayerNorm-backward launch
+    k1_rows = {"rows_ln_geglu": 12, "rows_ln_ln": 12}
     want = {"K6": {"k6_fwd": 6, "k6_bwd": 6, "k7_fwd": 0, "k7_bwd": 0,
-                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12},
+                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, **k1_rows},
             "K7": {"k6_fwd": 0, "k6_bwd": 0, "k7_fwd": 12, "k7_bwd": 12,
-                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12}}
+                   "k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, **k1_rows}}
     results, launches = {}, {}
     for route, model in models.items():
         step = make_train_step(model, default_optimizer(model.parameters(),
@@ -1446,7 +1491,8 @@ def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
               f"{r} route {b * 1e3 / v[0]:.1f} pairs/s ({v[0]:.2f} ms, peak "
               f"{v[1]:.2f} GiB, idle {v[2]:.4f})" for r, v in results.items())
           + f"; first losses differ by {diff:.4f} (tol 0.05); launches per "
-          f"step K6 fwd/bwd 6, K7 fwd/bwd 12, K1 fwd/p1/p2 12")
+          f"step K6 fwd/bwd 6, K7 fwd/bwd 12, K1 fwd/p1/p2 12, LN-backward "
+          f"rows 12 GEGLU mode + 12")
     del models
     torch.cuda.empty_cache()
     return launches
@@ -1555,7 +1601,7 @@ def ff_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
     """Phase 17: the tiny CLIP of the FF golden on the card, fp32: the K8
     route's outputs and train step, and the stored-h train step (the file
     names the environment it runs under); K8 and K1-h must run."""
-    before = {k: fn.launches for k, fn in counters.items()}
+    before = read_counts(counters)
     worst = golden_outputs_err(CLIP, load_jax_params, numpy_params,
                                GOLDEN_FF, "fused_")
     if not worst <= 1e-4:
@@ -1569,7 +1615,8 @@ def ff_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                      f"1e-5), grad_norm err {norm_err:.3e} (tol 1e-4), max "
                      f"grad err {grad_worst:.3e}, max param err "
                      f"{param_worst:.3e} (tol 1e-5)")
-    missed = [k for k, fn in counters.items() if fn.launches == before[k]]
+    after = read_counts(counters)
+    missed = [k for k in counters if after[k] == before[k]]
     if missed:
         fail(f"the FF golden model did not run through {missed}")
     if os.environ.get("XCLIP_FF_STORE") is not None:
@@ -1594,11 +1641,10 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
     k8_model.load_state_dict(init)
 
     # serving: the K8 route beside the kernel routes, one forward counted
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     latents = k8_model(text, images, return_latents=True)
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = read_counts(counters)
     want = {k: 0 for k in counters}
     want.update(k8_fwd=12, mega=6)
     if counts != want:
@@ -1624,9 +1670,13 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
     torch.cuda.empty_cache()
 
     # training: K8 route, then phase 8's routes with XCLIP_FF_STORE=h
-    want = {"K8": dict(k8_fwd=12, k8_bwd=12, k2_fwd=6, k2_bwd=6),
+    # the row kernels: K8's backward its K8 mode, K1-h's pass 1 the
+    # stored-h mode and a LayerNorm backward, K2's backward two of those
+    want = {"K8": dict(k8_fwd=12, k8_bwd=12, k2_fwd=6, k2_bwd=6,
+                       rows_geglu_k8=12, rows_ln_ln=12),
             "stored-h": dict(k1h_fwd=12, k1h_p1=12, k1h_p2=12, k2_fwd=6,
-                             k2_bwd=6)}
+                             k2_bwd=6, rows_geglu_stored_h=12,
+                             rows_ln_ln=24)}
     results, launches = {}, {}
     for route, env in (("K8", {}), ("stored-h", STORED_H)):
         model = k8_model if route == "K8" else CLIP(
@@ -1666,8 +1716,9 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
             print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                   f"{key[:90]}", flush=True)
         results[route] = (step_ms, peak, idle)
-        launches.update({k: counts[k] for k in want[route]
-                         if k.startswith("k8" if route == "K8" else "k1h")})
+        launches.update({k: counts[k] for k in want[route] if k.startswith(
+            ("k8", "rows_geglu_k8") if route == "K8"
+            else ("k1h", "rows_geglu_stored_h"))})
         del model, step
         torch.cuda.empty_cache()
     if os.environ.get("XCLIP_FF_STORE") is not None:
@@ -1679,7 +1730,8 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
               f"{v[1]:.2f} GiB, idle {v[2]:.4f})" for r, v in results.items())
           + f"; stored routes (phase 8) {b * 1e3 / stored[0]:.1f} pairs/s, "
           f"peak {stored[1]:.2f} GiB; launches per step K8 fwd/bwd 12, K1-h "
-          f"fwd/p1/p2 12, K2 fwd/bwd 6")
+          f"fwd/p1/p2 12, K2 fwd/bwd 6, GEGLU-backward rows 12 (K8 or "
+          f"stored-h mode), LN-backward rows 12 / 24")
     return launches
 
 
@@ -1858,6 +1910,175 @@ def expected_products(ffb, mega):
             ("residual", False, False): 6 * ff_f}
 
 
+# The row kernels' modes (csrc/row_kernels.cuh; phase 20): (key, record
+# name, kernel, mode, Pallas body replaced, [(form, rows, d)]), "R" rows
+# the rows of one chunk at the call site named by the form (phase 19's
+# step_rows); the first shape is the record's. Forms, as the callers give
+# the inputs: "ff_bwd" and "geglu" fp32 dy; "pre" fp32 dy, v and resid of
+# the storage dtype, xn written (the FF and megablock pre-LayerNorms);
+# "mega_bwd" dy of the storage dtype and fp32 v (K3's out LayerNorm).
+ROW_KERNELS = [
+    ("rows_geglu_recompute", "GEGLU backward rows, recompute mode (FF "
+     "recompute backward)", "geglu", "recompute",
+     "xclip_tpu/kernels/fused_ff_block.py:369",
+     [("ff_bwd", "R", 2048), ("ff_bwd", 256 * 257, 2048)]),
+    ("rows_geglu_stored_h", "GEGLU backward rows, stored-h mode (K1-h pass "
+     "1)", "geglu", "stored_h", "xclip_tpu/kernels/fused_ff_block.py:494",
+     [("geglu", 256 * 257, 2048)]),
+    ("rows_geglu_k8", "GEGLU backward rows, K8 mode (K8 backward)", "geglu",
+     "k8", "xclip_tpu/kernels/fused_ff.py:75", [("geglu", 256 * 257, 2048)]),
+    ("rows_ln_geglu", "LayerNorm backward rows, GEGLU mode (K1 pass 1)",
+     "ln", "geglu", "xclip_tpu/kernels/fused_ff_block.py:585",
+     [("geglu", 256 * 257, 2048)]),
+    ("rows_ln_ln", "LayerNorm backward rows (every FF and megablock "
+     "LayerNorm)", "ln", "ln", "xclip_tpu/kernels/_common.py:50",
+     [("pre", 256 * 257, 512), ("mega_bwd", "R", 512)]),
+]
+ROW_OUTPUTS = {("geglu", "recompute"): ("dh", "y", "dg_part"),
+               ("geglu", "k8"): ("dh", "dg_part"),
+               ("geglu", "stored_h"): ("dh", "y", "dprod", "dh2", "dg_part"),
+               ("ln", "ln"): ("out", "xn", "dg_part"),
+               ("ln", "geglu"): ("dprod", "dh", "dh2", "y2", "dg_part")}
+
+
+def row_inputs(gen, kernel, mode, form, rows, d, dtype):
+    """(args, kwargs) of one row-kernel call as its callers give it:
+    unit-scale rows, gains near 1, and the statistics of the values the
+    rows normalise (the stored-h mode's from the fp32 h, as K1-h stores
+    them, while h is rounded)."""
+    from xclip_tpu_torch.kernels import _common as kc
+    f32 = torch.float32
+    g = 1 + rand(gen, d, scale=0.1, dtype=dtype)
+    eps = kc.eps_for(dtype)
+    if kernel == "geglu" or form == "geglu":
+        h32 = rand(gen, rows, 2 * d)
+        a, b, phi, gelu_b = kc.geglu_parts(h32)
+        prod = a * gelu_b
+        stats = tuple(s[:, 0] for s in kc.ln_stats_fp32(prod, eps))
+    if kernel == "geglu":
+        h = h32 if mode == "recompute" else h32.to(dtype)
+        dy = rand(gen, rows, d, dtype=dtype if mode == "k8" else f32)
+        return ((mode, dy, h, g), {"stats": None if mode == "k8" else stats})
+    if form == "geglu":
+        return (("geglu", rand(gen, rows, d), prod.to(dtype), g, stats),
+                {"gb": gelu_b.to(dtype),
+                 "agdb": (a * kc.gelu_grad(b, phi)).to(dtype)})
+    pre = form == "pre"
+    v = rand(gen, rows, d, dtype=dtype if pre else f32)
+    stats = tuple(s[:, 0] for s in kc.ln_stats_fp32(v.float(), eps))
+    dy = rand(gen, rows, d, dtype=f32 if pre else dtype)
+    return (("ln", dy, v, g, stats),
+            {"resid": rand(gen, rows, d, dtype=dtype) if pre else None,
+             "xn_out": pre})
+
+
+def rows_cost(kernel, mode, args, kw):
+    """(bytes: every input read once, every output written once, the dg
+    partials and g included; operations, erf and exp one each) of a call."""
+    from xclip_tpu_torch.kernels import rows as rk
+    dy, g = args[1], args[3]
+    n, d = dy.shape
+    it = g.element_size()
+    ins = [t for t in (*args[1:3], *(args[4] if len(args) > 4 else
+                                     kw.get("stats") or ()),
+                       kw.get("resid"), kw.get("gb"), kw.get("agdb"))
+           if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + d * it
+    width = {("geglu", "recompute"): 3, ("geglu", "k8"): 2,
+             ("geglu", "stored_h"): 4 + 2 * (it == 2),
+             ("ln", "ln"): 1 + kw.get("xn_out", False),
+             ("ln", "geglu"): 4 + 2 * (it == 2)}[(kernel, mode)]
+    nbytes += width * n * d * it + rk.blocks(n) * d * 4
+    return nbytes, n * d * (20 if kernel == "geglu" else 8)
+
+
+def run_rows(kernel, args, kw, plain=False):
+    from xclip_tpu_torch.kernels import rows as rk
+    fn = {("geglu", False): rk.geglu_bwd_rows,
+          ("geglu", True): rk.geglu_bwd_rows_plain,
+          ("ln", False): rk.ln_bwd_rows,
+          ("ln", True): rk.ln_bwd_rows_plain}[(kernel, plain)]
+    return fn(*args, **kw)
+
+
+def ln_library_ms(args):
+    """ms of torch's own LayerNorm backward on the same rows:
+    aten.native_layer_norm_backward on dy (cast to x's dtype outside the
+    timing), x, mean, rstd and g; it computes dx and dg, without the
+    residual add and xn."""
+    _, dy, x, g, (mean, inv) = args
+    dyx = dy.to(x.dtype)
+    return cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dyx, x, [x.shape[1]], mean[:, None], inv[:, None], g, None,
+        [True, True, False]))
+
+
+def rows_phase(gen, step_rows):
+    """Phase 20: each mode of the two row kernels alone at the rows and
+    widths its callers give it, fp32 and bf16, against its plain version
+    (compare_products' tolerances), two launches bit for bit equal; bf16
+    timed beside the plain version, the bound by bytes and, for the
+    LayerNorm backward, torch's native_layer_norm_backward. Returns (errs,
+    ms, costs, library) keyed by mode, from each mode's first shape."""
+    phase(20, "rows", "LN-backward and GEGLU-backward row kernels vs plain "
+          "version on the card")
+    errs, ms, costs, library = {}, {}, {}, {}
+    for key, title, kernel, mode, _, shapes in ROW_KERNELS:
+        worst = 0.0
+        for i, (form, rows, d) in enumerate(shapes):
+            rows = step_rows[form] if rows == "R" else rows
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{str(dtype).split('.')[-1]} ({rows} x {d}, {form})"
+                args, kw = row_inputs(gen, kernel, mode, form, rows, d, dtype)
+                got = run_rows(kernel, args, kw)
+                again = run_rows(kernel, args, kw)
+                want = run_rows(kernel, args, kw, plain=True)
+                trio = [(n, g, w) for n, g, w, a in zip(
+                    ROW_OUTPUTS[(kernel, mode)], got, want, again)
+                    if w is not None]
+                if not all(torch.equal(g, a) for g, a in zip(got, again)
+                           if g is not None):
+                    fail(f"{title} {tag}: two launches differ")
+                err = compare_products(f"{key} {tag}", *(
+                    [t[j] for t in trio] for j in (1, 2, 0)))
+                del got, again, want, trio
+                if dtype == torch.float32:
+                    continue
+                worst = max(worst, err)
+                kms = cuda_ms(lambda: run_rows(kernel, args, kw))
+                pms = cuda_ms(lambda: run_rows(kernel, args, kw, plain=True))
+                lms = ln_library_ms(args) if kernel == "ln" and mode == "ln" \
+                    and form == "pre" else None
+                cost = rows_cost(kernel, mode, args, kw)
+                b_ms, b_by = bound(*cost, FP32_PEAK)
+                print(f"  {title} {tag}: kernel {kms:.3f} ms "
+                      f"({cost[0] / kms / 1e6:.0f} GB/s, {b_ms / kms:.2f} of "
+                      f"the bound), bound {b_ms:.3f} ms ({b_by}), plain "
+                      f"{pms:.3f} ms"
+                      + (f", torch native_layer_norm_backward {lms:.3f} ms "
+                         "(dx and dg only, no residual add, no xn)"
+                         if lms is not None else ""), flush=True)
+                if i == 0:
+                    ms[key], costs[key], library[key] = (kms, pms), cost, lms
+                del args, kw
+                torch.cuda.empty_cache()
+        errs[key] = worst
+    return errs, ms, costs, library
+
+
+def expected_rows(ffb, mega, b):
+    """The row kernels' launches per memory-lean step at batch b (6 layers
+    a tower): the FF recompute backward a GEGLU-backward (recompute mode)
+    and a LayerNorm-backward launch per chunk, K3's backward two
+    LayerNorm-backward launches per chunk."""
+    dt = torch.bfloat16
+    ff = sum(len(ffb.bwd_recompute_spans(b * n, 512, 2048, dt))
+             for n in (257, 32))
+    mg = sum(len(mega.bwd_recompute_spans(b, n, 512, 8, dt, False))
+             for n in (257, 32))
+    return {"rows_geglu_recompute": 6 * ff, "rows_ln_ln": 6 * (ff + 2 * mg)}
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -1886,6 +2107,7 @@ def main():
     from xclip_tpu_torch.kernels import fused_ff as k8
     from xclip_tpu_torch.kernels import fused_ff_block as ffb
     from xclip_tpu_torch.kernels import fused_infonce as lse5
+    from xclip_tpu_torch.kernels import rows as rk
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -2053,8 +2275,10 @@ def main():
 
     # ---------------------------------------------------------------- 8
     del clip, plain
+    row_counters = {f"rows_{k}_{m}": (k, m) for k, m in rk.COUNTERS}
     train_launches, stored = train_flagship(card, CLIP, default_optimizer,
-                                            make_train_step, ffb, mega)
+                                            make_train_step, ffb, mega,
+                                            row_counters)
 
     # ---------------------------------------------------------------- 9
     lean_errs, lean_ms, lean_costs = lean_kernels(gen, ffb, mega, lse5)
@@ -2068,19 +2292,22 @@ def main():
                      "k5_fwd": lse5.streaming_lse_fwd,
                      "k5_bwd": lse5.streaming_lse_bwd,
                      "core_fwd": mega.mega_core_fwd,
-                     "core_bwd": mega.mega_core_bwd}
-    before = {k: fn.launches for k, fn in lean_counters.items()}
+                     "core_bwd": mega.mega_core_bwd,
+                     "rows_geglu_recompute":
+                         row_counters["rows_geglu_recompute"],
+                     "rows_ln_ln": row_counters["rows_ln_ln"]}
+    before = read_counts(lean_counters)
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                  make_train_step, number=10, prefix="lean_")
-    missed = [k for k, fn in lean_counters.items()
-              if fn.launches == before[k]]
+    after = read_counts(lean_counters)
+    missed = [k for k in lean_counters if after[k] == before[k]]
     if missed:
         fail(f"the lean golden step did not run through {missed}")
 
     # --------------------------------------------------------------- 11
     lean_launches, product_launches = lean_train(
         card, CLIP, default_optimizer, make_train_step, lean_counters, stored,
-        expected_products(ffb, mega))
+        expected_products(ffb, mega), lambda b: expected_rows(ffb, mega, b))
     dt = torch.bfloat16
     for tower, n in (("text", 257), ("vision", 32)):
         rows = 2048 * n
@@ -2112,7 +2339,9 @@ def main():
     rotary_launches = rotary_train(
         card, CLIP, default_optimizer, make_train_step,
         {**rotary_counters, "k1_fwd": ffb.ff_block_fwd_stored,
-         "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2})
+         "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2,
+         "rows_ln_geglu": row_counters["rows_ln_geglu"],
+         "rows_ln_ln": row_counters["rows_ln_ln"]})
 
     # --------------------------------------------------------------- 16
     ff_errs, ff_ms, ff_costs, ff_peaks = ff_kernels(gen, ffb, k8)
@@ -2132,7 +2361,7 @@ def main():
         {**ff_counters, "k1_fwd": ffb.ff_block_fwd_stored,
          "kff": ffb.ff_block, "mega": mega.attention_block,
          "k2_fwd": mega.attention_block_fwd_stored,
-         "k2_bwd": mega.attention_block_bwd}, stored)
+         "k2_bwd": mega.attention_block_bwd, **row_counters}, stored)
 
     # --------------------------------------------------------------- 19
     # the rows of one chunk at each product call site of the b = 2048
@@ -2148,6 +2377,9 @@ def main():
                                          else 1)
                  for site, (start, stop) in first.items()}
     mm_errs, mm_ms, mm_costs, mm_library = products(gen, step_rows)
+
+    # --------------------------------------------------------------- 20
+    row_errs, row_ms, row_costs, row_library = rows_phase(gen, step_rows)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
@@ -2205,6 +2437,17 @@ def main():
             sum(product_launches[(epi, ta, tb)] for epi in epilogues),
             mm_errs[key], mm_ms[key], mm_costs[key], BF16_PEAK,
             mm_library[key]))
+    # the row kernels by mode: launches from the run of the route that
+    # takes the mode (phases 8, 11, 18), times at phase 20's first shape,
+    # the plain LayerNorm backward beside native_layer_norm_backward
+    row_launches = {**train_launches, **lean_launches, **ff_launches}
+    for key, title, kernel, mode, replaces, shapes in ROW_KERNELS:
+        form, rows, d = shapes[0]
+        rows = step_rows[form] if rows == "R" else rows
+        record["kernels"].append(entry(
+            f"{title} ({rows} x {d})", "xclip_tpu_torch/csrc/row_kernels.cuh",
+            replaces, row_launches[key], row_errs[key], row_ms[key],
+            row_costs[key], FP32_PEAK, row_library[key]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

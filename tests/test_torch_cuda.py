@@ -17,7 +17,9 @@ RMS plus 1e-2 of the tensor's, and each within 1e-3 relative Frobenius
 error; the plain versions follow the kernels' rounding points (K7's plain
 forward with the kernels' key block, `KERNEL_BLOCK`). K8 and K1-h as the
 training kernels: 1e-4 (fp32) or two bf16 ulps of each tensor's largest
-magnitude.
+magnitude. The row kernels alone (every mode of the LayerNorm and GEGLU
+backward rows): bf16 outputs at two ulps of each tensor's largest
+magnitude, fp32 outputs and the dg partials at 1e-4 of it.
 """
 
 import math
@@ -31,7 +33,9 @@ from xclip_tpu_torch.kernels import flash_attention as flash
 from xclip_tpu_torch.kernels import fused_ff as k8
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 from xclip_tpu_torch.kernels import fused_infonce as lse5
+from xclip_tpu_torch.kernels import _common as kcommon
 from xclip_tpu_torch.kernels import matmul
+from xclip_tpu_torch.kernels import rows as rows_mod
 
 from torch_port_inputs import (BF16_ATOL, _key_mask, core_args, ff_args,
                                flash_args, mega_args, to_torch)
@@ -810,6 +814,28 @@ def test_geglu_layernorm_kernels_match_plain(cuda_device, dtype, rows, inner):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,inner", [(77, 96), (130, 160), (77, 100),
+                                        (66, 7)])
+def test_geglu_layernorm_takes_inner_widths_off_64(cuda_device, dtype, rows,
+                                                   inner):
+    """K8 forward and backward at inner widths that are not multiples of
+    64 (96, 160: 16-byte vectors with a short row; 100, 7: element by
+    element), as the plain version computes them."""
+    torch.manual_seed(3)
+    dt = getattr(torch, dtype)
+    h = torch.randn(rows, 2 * inner, device=cuda_device).to(dt)
+    g = (1 + 0.1 * torch.randn(inner, device=cuda_device)).to(dt)
+    do = torch.randn(rows, inner, device=cuda_device).to(dt)
+    _assert_all_close((k8.geglu_layernorm_fwd(h, g),),
+                      (k8.geglu_layernorm_plain(h, g),), dtype, ("out",))
+    runs = [k8.geglu_layernorm_bwd(h, g, do) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _assert_all_close(runs[0], k8.geglu_layernorm_bwd_plain(h, g, do), dtype,
+                      ("dh", "dg"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,dim,inner", [(130, 128, 256), (77, 64, 128),
                                             (8192, 512, 2048)])
 def test_ff_block_stored_h_kernels_match_plain(cuda_device, dtype, rows, dim,
@@ -1012,3 +1038,155 @@ def test_blocks_launch_the_product_kernel(cuda_device):
     after = matmul.kernel_launches()
     grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert grew == {("geglu", False, False): 1, ("residual", False, False): 1}
+
+
+# -------------------------------------------- LN / GEGLU backward row kernels
+
+# (kernel, mode, form): every mode, kLnBwd in its callers' two forms ("pre":
+# fp32 dy, v and resid of the storage dtype, xn written; "out": dy of the
+# storage dtype, fp32 v, as K3's out LayerNorm)
+ROW_FORMS = [("geglu", "recompute", None), ("geglu", "k8", None),
+             ("geglu", "stored_h", None), ("ln", "geglu", None),
+             ("ln", "ln", "pre"), ("ln", "ln", "out")]
+# rows x width: every width at a small and at the b = 2048 step's chunk
+# rows, ragged 65,792-row cases at the flagship's widths, and widths off
+# the 64 grid: short rows of 16-byte vectors (96, 160), element by element
+# (7, 100), and a last vector empty or short at two and four vectors a
+# thread (4104, 4100)
+ROW_SHAPES = [(rows, d) for rows in (77, 24_576)
+              for d in (64, 512, 2048, 3072, 8192)] + [
+    (65_792 + 37, 512), (65_792 + 37, 2048), (77, 7), (77, 96), (77, 100),
+    (77, 160), (130, 4100), (130, 4104)]
+
+
+def _row_args(kernel, mode, form, rows, d, dtype, device, seed=0):
+    """(args, kwargs) of a row-kernel call as its callers give it:
+    unit-scale rows, gains near 1, the statistics of the rows' values."""
+    gen = torch.Generator(device).manual_seed(seed)
+    f32 = torch.float32
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    def stats(v):
+        mean, inv = kcommon.ln_stats_fp32(
+            v, kcommon.eps_for(dtype))
+        return mean[:, 0], inv[:, 0]
+
+    g = 1 + 0.1 * rand(d, dtype=dtype)
+    if kernel == "geglu" or mode == "geglu":
+        h32 = rand(rows, 2 * d)
+        a, b, phi, gelu_b = kcommon.geglu_parts(h32)
+        st = stats(a * gelu_b)
+    if kernel == "geglu":
+        h = h32 if mode == "recompute" else h32.to(dtype)
+        dy = rand(rows, d, dtype=dtype if mode == "k8" else f32)
+        return (mode, dy, h, g), {"stats": None if mode == "k8" else st}
+    if mode == "geglu":
+        return (("geglu", rand(rows, d), (a * gelu_b).to(dtype), g, st),
+                {"gb": gelu_b.to(dtype),
+                 "agdb": (a * kcommon.gelu_grad(b, phi)).to(dtype)})
+    pre = form == "pre"
+    v = rand(rows, d, dtype=dtype if pre else f32)
+    return (("ln", rand(rows, d, dtype=f32 if pre else dtype), v, g,
+             stats(v.float())),
+            {"resid": rand(rows, d, dtype=dtype) if pre else None,
+             "xn_out": pre})
+
+
+def _run_rows(kernel, args, kw, plain=False):
+    fn = {"geglu": (rows_mod.geglu_bwd_rows, rows_mod.geglu_bwd_rows_plain),
+          "ln": (rows_mod.ln_bwd_rows, rows_mod.ln_bwd_rows_plain)}[kernel]
+    return fn[plain](*args, **kw)
+
+
+def _row_atol(want):
+    """bf16: two ulps of the tensor's largest magnitude; fp32 (the dg
+    partials in either dtype): 1e-4 of it."""
+    top = max(float(want.float().abs().max()), 2.0 ** -20)
+    if want.dtype == torch.bfloat16:
+        return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return 1e-4 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", ROW_SHAPES)
+@pytest.mark.parametrize("kernel,mode,form", ROW_FORMS)
+def test_row_kernels_match_plain(cuda_device, kernel, mode, form, rows, d,
+                                 dtype):
+    args, kw = _row_args(kernel, mode, form, rows, d, getattr(torch, dtype),
+                         cuda_device)
+    fn = rows_mod.geglu_bwd_rows if kernel == "geglu" else rows_mod.ln_bwd_rows
+    before = fn.launches
+    got = _run_rows(kernel, args, kw)
+    assert fn.launches == before + 1
+    want = _run_rows(kernel, args, kw, plain=True)
+    assert got[-1].shape == (rows_mod.blocks(rows), d)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), i
+        if w is not None:
+            assert g.dtype == w.dtype and torch.isfinite(g.float()).all(), i
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=_row_atol(w), msg=str(i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,mode,form", ROW_FORMS)
+def test_row_kernels_are_deterministic(cuda_device, kernel, mode, form):
+    args, kw = _row_args(kernel, mode, form, 24_576 + 37, 2048,
+                         torch.bfloat16, cuda_device, seed=1)
+    first, second = _run_rows(kernel, args, kw), _run_rows(kernel, args, kw)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8192 + 8, 8192 + 64])
+def test_row_kernels_raise_on_a_width_they_cannot_take(cuda_device, d):
+    for kernel, mode, form in ROW_FORMS:
+        args, kw = _row_args(kernel, mode, form, 70, d, torch.bfloat16,
+                             cuda_device)
+        with pytest.raises(ValueError, match="between 1 and 8192"):
+            _run_rows(kernel, args, kw)
+    # the C entry point refuses it too, launching nothing
+    x = torch.zeros(70, d, device=cuda_device)
+    part = torch.zeros(rows_mod.blocks(70), d, device=cuda_device)
+    g = torch.ones(d, device=cuda_device)
+    st = torch.ones(70, device=cuda_device)
+    err = rows_mod._build.library().xclip_ln_bwd_rows(
+        0, 0, 1, 0, x.data_ptr(), x.data_ptr(), st.data_ptr(), st.data_ptr(),
+        g.data_ptr(), None, x.data_ptr(), part.data_ptr(), 70, d, None, None,
+        None, None, None, None, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    h, dy = torch.randn(8, 2 * d, device=cuda_device), torch.randn(
+        8, d, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 8192"):
+        k8.geglu_layernorm_bwd(h, torch.ones(d, device=cuda_device), dy)
+
+
+@pytest.mark.cuda
+def test_blocks_count_their_row_kernel_launches(cuda_device):
+    """The library counts each row-kernel mode's launches from every
+    caller: the FF recompute backward launches the recompute mode and a
+    LayerNorm backward once a row chunk, K1's pass 1 the GEGLU-triple mode
+    and a LayerNorm backward, the wrappers their own mode."""
+    dt = torch.bfloat16
+    args = to_torch(ff_args(R=130, D=128, I=256), dt, cuda_device)
+    do = torch.randn(130, 128, device=cuda_device).to(dt)
+    rows_mod.kernel_launches(reset=True)
+    _, stats = ffb.ff_block_fwd_stats(*args)
+    ffb.ff_block_bwd_recompute(*args, do, stats)
+    _, stored = ffb.ff_block_fwd_stored(*args)
+    ffb.ff_block_bwd_p1(*args, do, stored)
+    counts = rows_mod.kernel_launches()
+    assert counts == {("geglu", "recompute"): 1, ("geglu", "k8"): 0,
+                      ("geglu", "stored_h"): 0, ("ln", "ln"): 2,
+                      ("ln", "geglu"): 1}
+    rows_mod.kernel_launches(reset=True)
+    for (kernel, mode, form) in ROW_FORMS:
+        args, kw = _row_args(kernel, mode, form, 77, 128, dt, cuda_device)
+        _run_rows(kernel, args, kw)
+    counts = rows_mod.kernel_launches(reset=True)
+    assert counts[("geglu", "k8")] == 1 and counts[("ln", "ln")] == 2
+    assert rows_mod.kernel_launches()[("ln", "ln")] == 0

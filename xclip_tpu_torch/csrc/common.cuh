@@ -9,16 +9,9 @@
 //     row's mean and rsqrt(var + eps) and the input rounded to the storage
 //     dtype (the training forwards' residuals); optionally with a GEGLU
 //     prologue that normalises a * gelu(b) of a row [a, b] (K8's forward).
-//   * ln_bwd_rows_kernel: the gain-only LayerNorm vjp over rows from stored
-//     statistics (xclip_tpu/kernels/_common.py ln_bwd), with the column sums
-//     for dg taken per block and reduced by reduce_parts_kernel in a fixed
-//     order, so two runs agree bit for bit (no float atomics anywhere). The
-//     normalised value may be fp32 (the recompute backward's unrounded
-//     proj) or the storage dtype.
-//   * geglu_bwd_rows_kernel: the GEGLU and inner-LN backward from h rather
-//     than from a stored product: the FF block's recompute backward (fp32 h,
-//     stored statistics), K8's backward (statistics recomputed from the
-//     row) and K1-h's pass 1 (the stored, rounded h, stored statistics).
+//   * row_kernels.cuh (included at the end): the LayerNorm-backward and
+//     GEGLU-backward row kernels (ln_bwd_rows_kernel, geglu_bwd_rows_kernel)
+//     and their launch functions.
 //   * launch_mm: a tiled matrix product with fused epilogues, either
 //     operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B), the k
 //     axis optionally split into ranges that write fp32 partials (the
@@ -162,226 +155,6 @@ int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
   const int grid = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
   ln_rows_kernel<Tin, T, GEGLU><<<grid, 32 * kLnRowsPerBlock, 0, st>>>(
       in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
-
-// ------------------------------------------------------ LayerNorm backward
-//
-// Per row r, from the stored statistics (mean[r], inv[r]) of the forward:
-//   xhat = (v - mean) * inv,  dyg = dy * g,
-//   val  = inv * (dyg - mean(dyg) - xhat * mean(dyg * xhat))
-// and the column sums of dy * xhat (dg) over the block's rows.
-//   kLnBwd:      out = T(val + resid) (resid optional); with xn_out also
-//                xn_out = T(xhat * g), the pre-LN output the dW products
-//                read.
-//   kLnBwdGeglu: the inner LayerNorm of the FF block, v = the stored
-//                product: out = dprod = T(val); dh = T([val * gb, val *
-//                agdb]) (rows x 2d) for the dx product; dh2 = the same from
-//                T(val) (the dW pass's operand, skipped when dh2 == dh, as
-//                in fp32); y2 = T(xhat * g).
-constexpr int kLnBwd = 0;
-constexpr int kLnBwdGeglu = 1;
-constexpr int kBwdWarps = 8;   // one warp per row at a time
-constexpr int kBwdRows = 64;   // rows per block (8 per warp)
-
-template <typename Tdy, typename Tv, typename T, int MODE>
-__global__ void __launch_bounds__(32 * kBwdWarps)
-ln_bwd_rows_kernel(const Tdy* __restrict__ dy, const Tv* __restrict__ v,
-                   const float* __restrict__ mean,
-                   const float* __restrict__ inv, const T* __restrict__ g,
-                   const T* __restrict__ resid, T* __restrict__ out,
-                   float* __restrict__ dg_part, int rows, int d,
-                   T* __restrict__ xn_out, const T* __restrict__ gb,
-                   const T* __restrict__ agdb, T* __restrict__ dh,
-                   T* __restrict__ dh2, T* __restrict__ y2) {
-  extern __shared__ float colsum[];  // kBwdWarps x d: one sum row per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* cs = colsum + warp * d;
-  for (int i = lane; i < d; i += 32) cs[i] = 0.f;
-  const long r0 = (long)blockIdx.x * kBwdRows;
-  for (int rr = warp; rr < kBwdRows; rr += kBwdWarps) {
-    const long r = r0 + rr;
-    if (r >= rows) break;
-    const float mu = mean[r], iv = inv[r];
-    const Tdy* dyr = dy + r * d;
-    const Tv* vr = v + r * d;
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float xhat = (to_f(vr[i]) - mu) * iv;
-      const float dyv = to_f(dyr[i]);
-      const float dyg = dyv * to_f(g[i]);
-      s1 += dyg;
-      s2 += dyg * xhat;
-      cs[i] += dyv * xhat;
-    }
-    const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
-    for (int i = lane; i < d; i += 32) {
-      const float xhat = (to_f(vr[i]) - mu) * iv;
-      const float gi = to_f(g[i]);
-      const float val = iv * (to_f(dyr[i]) * gi - m1 - xhat * m2);
-      const long o = r * d + i;
-      if (MODE == kLnBwd) {
-        out[o] = from_f<T>(resid ? val + to_f(resid[o]) : val);
-        if (xn_out) xn_out[o] = from_f<T>(xhat * gi);
-      } else {
-        const float gbv = to_f(gb[o]), agv = to_f(agdb[o]);
-        out[o] = from_f<T>(val);
-        dh[r * 2 * d + i] = from_f<T>(val * gbv);
-        dh[r * 2 * d + d + i] = from_f<T>(val * agv);
-        if (dh2 != dh) {
-          const float pr = round_to<T>(val);
-          dh2[r * 2 * d + i] = from_f<T>(pr * gbv);
-          dh2[r * 2 * d + d + i] = from_f<T>(pr * agv);
-        }
-        y2[o] = from_f<T>(xhat * gi);
-      }
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < d; c += 32 * kBwdWarps) {
-    float s = 0.f;
-    for (int w = 0; w < kBwdWarps; ++w) s += colsum[w * d + c];
-    dg_part[(long)blockIdx.x * d + c] = s;
-  }
-}
-
-inline int ln_bwd_blocks(int rows) { return (rows + kBwdRows - 1) / kBwdRows; }
-
-// The GEGLU and inner-LayerNorm backward over rows, one kernel for the three
-// callers that rebuild the product from h (rows x 2d, a then b; d the inner
-// width) rather than read it. Per row r, with dy the cotangent of the LN
-// output (rows x d):
-//   prod = a * gelu(b) (GegluParts: the forward epilogue's op sequence),
-//   xhat = (prod - mean) * inv,
-//   dprod = inv * (dy * g - mean(dy * g) - xhat * mean(dy * g * xhat)),
-//   dh = T([dprod * gelu(b), dprod * a * gelu'(b)]),
-// all fp32 up to the casts, and the column partials of dy * xhat (dg) per
-// block, as ln_bwd_rows_kernel. MODE says where mean and inv come from and
-// what else is written:
-//   kGegluRecompute: the FF block's recompute backward (`_p1_recompute_core`):
-//     fp32 h and dy, the forward's stored statistics; also y = T(xhat * g).
-//   kGegluLn: K8's backward (xclip_tpu/kernels/fused_ff.py `_bwd_kernel`):
-//     T h and T do; mean and the two-pass variance are recomputed from the
-//     row, as the forward took them (two extra sweeps); dh alone.
-//   kGegluStoredH: K1-h's pass 1 (`_p1_stored_core`, `_p2_stored_core`): T
-//     h, fp32 dy, the forward's stored statistics, which came from the fp32
-//     h while prod here comes from the rounded one (the reference's
-//     precision quirk, kept); also dprod_out = T(dprod), y = T(xhat * g) and
-//     dh2 = the same dh from T(dprod) (pass 2's operand; skipped when dh2 ==
-//     dh, as in fp32).
-// erf and exp are evaluated once per element per sweep rather than held: a
-// row is 2048 wide.
-constexpr int kGegluRecompute = 0;
-constexpr int kGegluLn = 1;
-constexpr int kGegluStoredH = 2;
-
-template <typename Th, typename Tdy, typename T, int MODE>
-__global__ void __launch_bounds__(32 * kBwdWarps)
-geglu_bwd_rows_kernel(const Tdy* __restrict__ dy, const Th* __restrict__ h,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ inv, const T* __restrict__ g,
-                      float* __restrict__ dg_part, int rows, int d, float eps,
-                      T* __restrict__ dh, T* __restrict__ y,
-                      T* __restrict__ dprod_out, T* __restrict__ dh2) {
-  extern __shared__ float colsum[];  // kBwdWarps x d: one sum row per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* cs = colsum + warp * d;
-  for (int i = lane; i < d; i += 32) cs[i] = 0.f;
-  const long r0 = (long)blockIdx.x * kBwdRows;
-  for (int rr = warp; rr < kBwdRows; rr += kBwdWarps) {
-    const long r = r0 + rr;
-    if (r >= rows) break;
-    const Tdy* dyr = dy + r * d;
-    const Th* hr = h + r * 2 * d;
-    float mu, iv;
-    if constexpr (MODE == kGegluLn) {
-      float s = 0.f;
-      for (int i = lane; i < d; i += 32) s += row_value<true>(hr, i, d);
-      mu = warp_sum(s) / (float)d;
-      float v = 0.f;
-      for (int i = lane; i < d; i += 32) {
-        const float c = row_value<true>(hr, i, d) - mu;
-        v += c * c;
-      }
-      iv = rsqrtf(warp_sum(v) / (float)d + eps);
-    } else {
-      mu = mean[r];
-      iv = inv[r];
-    }
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float xhat = (row_value<true>(hr, i, d) - mu) * iv;
-      const float dyv = to_f(dyr[i]);
-      const float dyg = dyv * to_f(g[i]);
-      s1 += dyg;
-      s2 += dyg * xhat;
-      cs[i] += dyv * xhat;
-    }
-    const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
-    for (int i = lane; i < d; i += 32) {
-      const float a = to_f(hr[i]), b = to_f(hr[d + i]);
-      const GegluParts q(a, b);
-      const float xhat = (q.prod - mu) * iv;
-      const float gi = to_f(g[i]);
-      const float val = iv * (to_f(dyr[i]) * gi - m1 - xhat * m2);
-      const float gdb = q.gelu_db(b);
-      dh[r * 2 * d + i] = from_f<T>(val * q.gelu_b);
-      dh[r * 2 * d + d + i] = from_f<T>(val * a * gdb);
-      if (MODE != kGegluLn) y[r * d + i] = from_f<T>(xhat * gi);
-      if (MODE == kGegluStoredH) {
-        dprod_out[r * d + i] = from_f<T>(val);
-        if (dh2 != dh) {
-          const float pr = round_to<T>(val);
-          dh2[r * 2 * d + i] = from_f<T>(pr * q.gelu_b);
-          dh2[r * 2 * d + d + i] = from_f<T>(pr * a * gdb);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < d; c += 32 * kBwdWarps) {
-    float s = 0.f;
-    for (int w = 0; w < kBwdWarps; ++w) s += colsum[w * d + c];
-    dg_part[(long)blockIdx.x * d + c] = s;
-  }
-}
-
-// mean / inv: the stored statistics (null for kGegluLn, which takes eps).
-template <typename Th, typename Tdy, typename T, int MODE>
-int launch_geglu_bwd_rows(const Tdy* dy, const Th* h, const float* mean,
-                          const float* inv, const T* g, float* dg_part,
-                          int rows, int d, T* dh, cudaStream_t st,
-                          float eps = 0.f, T* y = nullptr,
-                          T* dprod_out = nullptr, T* dh2 = nullptr) {
-  const int smem = kBwdWarps * d * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      geglu_bwd_rows_kernel<Th, Tdy, T, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  geglu_bwd_rows_kernel<Th, Tdy, T, MODE>
-      <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
-          dy, h, mean, inv, g, dg_part, rows, d, eps, dh, y, dprod_out, dh2);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
-
-template <typename Tdy, typename Tv, typename T, int MODE>
-int launch_ln_bwd_rows(const Tdy* dy, const Tv* v, const float* mean,
-                       const float* inv, const T* g, const T* resid, T* out,
-                       float* dg_part, int rows, int d, cudaStream_t st,
-                       T* xn_out = nullptr, const T* gb = nullptr,
-                       const T* agdb = nullptr, T* dh = nullptr,
-                       T* dh2 = nullptr, T* y2 = nullptr) {
-  const int smem = kBwdWarps * d * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ln_bwd_rows_kernel<Tdy, Tv, T, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  ln_bwd_rows_kernel<Tdy, Tv, T, MODE>
-      <<<ln_bwd_blocks(rows), 32 * kBwdWarps, smem, st>>>(
-          dy, v, mean, inv, g, resid, out, dg_part, rows, d, xn_out, gb,
-          agdb, dh, dh2, y2);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
@@ -727,3 +500,5 @@ struct Workspace {
   } while (0)
 
 #define XCLIP_PTR(type, ptr) static_cast<type>(ptr)
+
+#include "row_kernels.cuh"

@@ -17,18 +17,19 @@
 // Design: no shared row tile. The forward is one launch of common.cuh's
 // ln_rows kernel with its GEGLU prologue (a warp per row; the product is
 // rebuilt in each of the three sweeps over the row, whose 8 KB of bf16 h
-// stay in L1). The backward is geglu_bwd_rows in its K8 mode (a warp per
-// row, 64-row blocks; two sweeps for the statistics, one for the cotangent
-// reductions, one that writes dh) and an ordered sum of the blocks' dg
-// partials (reduce_parts): no float atomics, so two runs agree bit for bit.
+// stay in L1). The backward is row_kernels.cuh's GEGLU backward rows in
+// their K8 mode (each row read once into registers, the two-pass
+// statistics and the cotangent sums reduced from there, 64-row blocks) and
+// an ordered sum of the blocks' dg partials (reduce_parts): no float
+// atomics, so two runs agree bit for bit.
 // The Pallas kernel's row padding to 256-row blocks (and its halved
 // backward tile) are TPU artefacts: the kernels stop at the last row.
 //
 // What bounds it on the card: bytes. The forward reads h once (rows x 2
 // inner) and writes out (rows x inner); the backward reads h and do and
-// writes dh. Each sweep re-evaluates erf (and, in the last backward sweep,
-// exp) per element, ~30 fp32 operations, far below the card's fp32 rate
-// at these byte counts.
+// writes dh. Each forward sweep re-evaluates erf per element, and the
+// backward one erf and one exp, ~30 fp32 operations, below the card's
+// fp32 rate at these byte counts.
 #include "common.cuh"
 
 namespace {

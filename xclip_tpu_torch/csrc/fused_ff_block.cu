@@ -148,8 +148,9 @@ size_t ff_block_bwd_workspace(int rows, int dim, int inner) {
 // fp32 dprod), dh2 (from T(dprod), gelu from the rounded b, as
 // `_p2_stored_core` rebuilds it) and y2. Pass 2 is then K1's: the three
 // products `_bwd_dw_kernel_stored` computes, on the operands pass 1 handed
-// it. What bounds it: K1's products, and the row kernel's erf/exp sweeps
-// over the rows x 2 inner h, where K1 reads the triple.
+// it. What bounds it: K1's products, and the row kernel's bytes (the
+// rows x 2 inner h, fp32 dy, four outputs) and erf/exp per element, where
+// K1 reads the triple.
 template <typename T>
 int ff_block_bwd_p1(const T* x, const T* g_pre, const T* w_in,
                     const T* g_inner, const T* w_out, const T* dout,
@@ -238,8 +239,8 @@ int ff_block_bwd_p2(const T* xn, const T* dh2, const T* y2, const T* dout,
 // What bounds it on the card: the five products (2 * rows * dim * 2 inner
 // FLOPs each for h, dxn and dW_in; 2 * rows * inner * dim for dy and
 // dW_out) on the wgmma kernel, then the fp32 h and dy round trips through
-// HBM (16 + 8 KB per row at inner 2048) and the row kernel's second
-// erf/exp sweep.
+// HBM (16 + 8 KB per row at inner 2048), which the GEGLU backward rows
+// read once each.
 template <typename T>
 struct FfRecomputeBuffers {
   T* xn;

@@ -1,0 +1,120 @@
+// The row kernels of row_kernels.cuh alone, mode by mode, for tests and
+// timing (kernels/rows.py): the GEGLU backward rows and the LayerNorm
+// backward rows, which the FF blocks, K8 and the attention megablock launch
+// inside their own entry points. Also the kernels' launch counters, counted
+// by every caller.
+#include "common.cuh"
+
+namespace xclip {
+long long g_row_launches[kRowCounters];
+}  // namespace xclip
+
+namespace {
+
+// The input types each mode's callers give it: the recompute mode fp32 h
+// and dy, K8's T h and dy, the stored-h mode T h and fp32 dy.
+template <typename T>
+int geglu_rows(int mode, const void* dy, const void* h, const float* mean,
+               const float* inv, const T* g, float* dg_part, int rows, int d,
+               float eps, T* dh, T* y, T* dprod, T* dh2, cudaStream_t st) {
+  using namespace xclip;
+  switch (mode) {
+    case kGegluRecompute:
+      return launch_geglu_bwd_rows<float, float, T, kGegluRecompute>(
+          static_cast<const float*>(dy), static_cast<const float*>(h), mean,
+          inv, g, dg_part, rows, d, dh, st, 0.f, y);
+    case kGegluLn:
+      return launch_geglu_bwd_rows<T, T, T, kGegluLn>(
+          static_cast<const T*>(dy), static_cast<const T*>(h), nullptr,
+          nullptr, g, dg_part, rows, d, dh, st, eps);
+    case kGegluStoredH:
+      return launch_geglu_bwd_rows<T, float, T, kGegluStoredH>(
+          static_cast<const float*>(dy), static_cast<const T*>(h), mean, inv,
+          g, dg_part, rows, d, dh, st, 0.f, y, dprod, dh2);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// kLnBwd as its callers give it: fp32 dy and T v (the pre-LayerNorms), T dy
+// and T or fp32 v (the megablock's out LayerNorm, K2 and K3); kLnBwdGeglu
+// fp32 dy and the T product.
+template <typename T>
+int ln_rows(int mode, int dy_f32, int v_f32, const void* dy, const void* v,
+            const float* mean, const float* inv, const T* g, const T* resid,
+            T* out, float* dg_part, int rows, int d, T* xn_out, const T* gb,
+            const T* agdb, T* dh, T* dh2, T* y2, cudaStream_t st) {
+  using namespace xclip;
+  const float* dy32 = static_cast<const float*>(dy);
+  const T* dyT = static_cast<const T*>(dy);
+  const T* vT = static_cast<const T*>(v);
+  if (mode == kLnBwdGeglu && dy_f32 && !v_f32)
+    return launch_ln_bwd_rows<float, T, T, kLnBwdGeglu>(
+        dy32, vT, mean, inv, g, nullptr, out, dg_part, rows, d, st, nullptr,
+        gb, agdb, dh, dh2, y2);
+  if (mode != kLnBwd) return (int)cudaErrorInvalidValue;
+  if (dy_f32 && !v_f32)
+    return launch_ln_bwd_rows<float, T, T, kLnBwd>(
+        dy32, vT, mean, inv, g, resid, out, dg_part, rows, d, st, xn_out);
+  if (!dy_f32 && !v_f32)
+    return launch_ln_bwd_rows<T, T, T, kLnBwd>(
+        dyT, vT, mean, inv, g, resid, out, dg_part, rows, d, st, xn_out);
+  if (!dy_f32 && v_f32)
+    return launch_ln_bwd_rows<T, float, T, kLnBwd>(
+        dyT, static_cast<const float*>(v), mean, inv, g, resid, out,
+        dg_part, rows, d, st, xn_out);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Returns a cudaError_t code (0 on success). `mode` is row_kernels.cuh's
+// kGegluRecompute / kGegluLn / kGegluStoredH; the outputs (dh rows x 2d; y,
+// dprod rows x d; dh2 rows x 2d, or dh itself to skip it) and g are of
+// the dtype (0 fp32, 1 bf16), dy and h as geglu_rows says; mean, inv (rows)
+// fp32; dg_part (ln_bwd_blocks(rows) x d) fp32, one partial per 64-row
+// block.
+extern "C" int xclip_geglu_bwd_rows(int mode, int dtype, const void* dy,
+                                    const void* h, const void* mean,
+                                    const void* inv, const void* g,
+                                    void* dg_part, int rows, int d, float eps,
+                                    void* dh, void* y, void* dprod, void* dh2,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, geglu_rows<T>(
+      mode, dy, h, static_cast<const float*>(mean),
+      static_cast<const float*>(inv), XCLIP_PTR(const T*, g),
+      static_cast<float*>(dg_part), rows, d, eps, XCLIP_PTR(T*, dh),
+      XCLIP_PTR(T*, y), XCLIP_PTR(T*, dprod), XCLIP_PTR(T*, dh2), st));
+}
+
+// As xclip_geglu_bwd_rows for the LayerNorm backward rows: `mode` kLnBwd or
+// kLnBwdGeglu; dy fp32 when dy_f32 (else the dtype), v likewise; resid and
+// xn_out optional (kLnBwd); gb, agdb, dh, dh2, y2 for kLnBwdGeglu.
+extern "C" int xclip_ln_bwd_rows(int mode, int dtype, int dy_f32, int v_f32,
+                                 const void* dy, const void* v,
+                                 const void* mean, const void* inv,
+                                 const void* g, const void* resid, void* out,
+                                 void* dg_part, int rows, int d, void* xn_out,
+                                 const void* gb, const void* agdb, void* dh,
+                                 void* dh2, void* y2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, ln_rows<T>(
+      mode, dy_f32, v_f32, dy, v, static_cast<const float*>(mean),
+      static_cast<const float*>(inv), XCLIP_PTR(const T*, g),
+      XCLIP_PTR(const T*, resid), XCLIP_PTR(T*, out),
+      static_cast<float*>(dg_part), rows, d, XCLIP_PTR(T*, xn_out),
+      XCLIP_PTR(const T*, gb), XCLIP_PTR(const T*, agdb), XCLIP_PTR(T*, dh),
+      XCLIP_PTR(T*, dh2), XCLIP_PTR(T*, y2), st));
+}
+
+// Launches of row kernel `counter` (the GEGLU modes 0-2, then kLnBwd,
+// kLnBwdGeglu) by every caller since the library was loaded or last reset;
+// `reset` sets it to 0 after reading it.
+extern "C" long long xclip_rows_launches(int counter, int reset) {
+  if (counter < 0 || counter >= xclip::kRowCounters) return -1;
+  const long long n = xclip::g_row_launches[counter];
+  if (reset) xclip::g_row_launches[counter] = 0;
+  return n;
+}

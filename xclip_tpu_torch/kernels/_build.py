@@ -30,8 +30,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns an int (a cudaError_t, or
-# a sequence length) except the workspace queries, which return a byte
-# count (_RESTYPES).
+# a sequence length) except the workspace queries and the launch
+# counters, which return a byte count or a count (_RESTYPES).
 _SIGNATURES = {
     "xclip_ff_block_fwd": [_I, *[_P] * 14, _L, _I, _I, _I, _F, _P],
     "xclip_ff_block_bwd_workspace": [_I, _I, _I, _I],
@@ -66,9 +66,12 @@ _SIGNATURES = {
     "xclip_mm": [_I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P],
     "xclip_mm_split": [_I] * 5,
     "xclip_mm_launches": [_I, _I],
+    "xclip_geglu_bwd_rows": [_I, _I, *[_P] * 6, _I, _I, _F, *[_P] * 5],
+    "xclip_ln_bwd_rows": [_I, _I, _I, _I, *[_P] * 8, _I, _I, *[_P] * 7],
+    "xclip_rows_launches": [_I, _I],
 }
 _RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES
-             if name.endswith("_workspace") or name == "xclip_mm_launches"}
+             if name.endswith(("_workspace", "_launches"))}
 
 
 def _nvcc() -> str:

@@ -33,6 +33,7 @@ import torch
 from . import _build
 from ._common import (check_kernel_args, dtype_code, eps_for, geglu_parts,
                       gelu_grad, ln_bwd, ln_stats_fp32, route, stream_ptr)
+from .rows import MAX_WIDTH
 
 
 def _parts(h):
@@ -100,6 +101,9 @@ def geglu_layernorm_bwd(h, g, do):
     if do.shape != (*h.shape[:-1], inner):
         raise ValueError(f"geglu_layernorm_bwd: do of shape "
                          f"{tuple(do.shape)} for h of shape {tuple(h.shape)}")
+    if inner > MAX_WIDTH:
+        raise ValueError(f"geglu_layernorm_bwd: the backward kernel takes "
+                         f"inner up to {MAX_WIDTH}, not {inner}")
     dh = torch.empty_like(h)
     dg = torch.empty_like(g)
     lib = _build.library()
