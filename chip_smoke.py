@@ -15,10 +15,11 @@ streaming-LSE InfoNCE); the rotary causal-EOS text tower through K6 and
 K7; and the two remaining FF routes, `ff_impl='fused'` through K8 (GEGLU +
 inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
 block); every bf16 product of the FF blocks and the megablock runs on one
-TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm and
-GEGLU backward over rows on the row kernels of csrc/row_kernels.cuh, held
-alone in phase 20. One line per phase; any failure exits non-zero, and
-nothing is caught.
+TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm over
+rows (forward and backward) and GEGLU backward on the row kernels of
+csrc/row_kernels.cuh, held alone in phase 20; shapes the CUDA kernels do
+not take run on the plain route with a warning (phase 21). One line per
+phase; any failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -59,7 +60,8 @@ nothing is caught.
              backward) at (256, 257, 512, 8 x 64) and (256, 32, 512), bf16,
              and K5 at (2048, 512) with DCL, fp32, against their plain
              versions on the card: max_abs_err and tolerance of every
-             output and gradient, CUDA-event times of kernel and plain;
+             output and gradient (K5's backward also two launches bit for
+             bit equal), CUDA-event times of kernel and plain;
              the megablock's core alone as in phase 6 at the vision
              tower's (256, 32) without pads.
  10 lean-golden  one fp32 train step of the golden file's tiny CLIP on the
@@ -73,7 +75,9 @@ nothing is caught.
              kernels over one profiled step; launch counts per step (the
              megablock core's among them), finite losses, the first near
              ln b; the bf16 product kernel's launches per step by
-             instance against the count the step's chunks give.
+             instance against the count the step's chunks give; the
+             LayerNorm forward rows and K5's kernels by instance from the
+             profile.
  12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
              backward at (256, 256, 3 x 512) causal with key pads and at n =
              257 not causal, K7 (FlashAttention) forward and backward at
@@ -147,10 +151,32 @@ nothing is caught.
              magnitude, fp32 at 1e-4 of it), two launches bit for bit
              equal; CUDA-event times beside the plain version, the bytes
              bound and, for the LayerNorm backward, torch's
-             native_layer_norm_backward (dx and dg, no residual add).
-             Phases 8, 11, 15 and 18 check the row kernels' launches per
-             step by mode, counted in the library.
-
+             native_layer_norm_backward (dx and dg, no residual add). Then
+             the LayerNorm forward rows mode by mode (plain, stats,
+             residual, in_copy, GEGLU) at their callers' shapes (65,792
+             rows, 512 or 2048 wide, fp32 or bf16 rows) and at widths 7 to
+             8,192, fp32 and bf16, against the plain version, two launches
+             bit for bit equal, timed beside the plain version, the bytes
+             bound and, for the plain mode, F.layer_norm (for the stats
+             mode on bf16 rows, native_layer_norm). Phases 8, 11, 15
+             and 18 check the row kernels' launches per step by mode,
+             counted in the library.
+ 21 heads    small CLIPs (2 + 2 layers, bf16) whose text heads are 32
+             wide, under 'fused' (the megablock), 'fused' with rotary
+             (K6) and 'flash' (K7), and 128 wide under 'flash': the
+             kernels take a narrower head zero-padded to 64, and K7 in
+             bf16 a head of 128 as two 64-column halves; served and
+             trained one step on the card, every layer launching its
+             kernel and no fallback warning, latents and the first loss
+             against the plain routes'; the K-MEGA, K2, K6 and K7
+             wrappers at dim_head 32 (fp32) against their plain versions
+             at the true width (1e-4 of the largest magnitude), K7's
+             kernels at dim_head 128 (bf16, phase 12's rule) timed beside
+             their plain versions, their bound and SDPA, and K7 at 96
+             (padded to 128). Past the CUDA kernels (text dim_head 128
+             under 'fused', dim 72 with FF inner 288 under 'block') the
+             entry point raises ValueError naming the limit, and no plain
+             route runs in the kernel's place.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -164,6 +190,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -302,19 +329,21 @@ def used_keys(lengths, n):
     return sum(L if L > 0 else n for L in lengths)
 
 
-def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2):
+def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2,
+              width=64):
     """(bytes, FLOPs) of one attention-core call over `rows_heads` (row,
-    head) pairs of width 64, `keys_heads` (key, head) pairs that some
+    head) pairs of `width`, `keys_heads` (key, head) pairs that some
     query reads (`used_keys`) and `pairs` valid (query, key, head)
     triples: the forward reads q, the used k and v, writes out and the
     fp32 lse, and computes q·kᵀ and p·v over the valid pairs; the
     backward reads q, the used k and v, out, dout and lse, writes dq, dk
     and dv (zero for unused keys), and computes s, dp, dv, dq and dk."""
-    e, e_kv = rows_heads * 64 * it, keys_heads * 64 * it
+    e, e_kv = rows_heads * width * it, keys_heads * width * it
     if kind == "fwd":
-        return 2 * e + 2 * e_kv + 4 * rows_heads + mask_bytes, 4 * pairs * 64
+        return (2 * e + 2 * e_kv + 4 * rows_heads + mask_bytes,
+                4 * pairs * width)
     return (6 * e + 2 * e_kv + 4 * rows_heads + mask_bytes,
-            10 * pairs * 64)
+            10 * pairs * width)
 
 
 def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes):
@@ -329,11 +358,11 @@ def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes):
             10 * pairs * 64)
 
 
-def flash_cost(kind, bh, n, lengths, causal, it=2):
-    """core_cost of K7 on (bh, n, 64), the key mask repeated per head
+def flash_cost(kind, bh, n, lengths, causal, it=2, width=64):
+    """core_cost of K7 on (bh, n, width), the key mask repeated per head
     (`lengths` per bh row)."""
     return core_cost(kind, bh * n, used_keys(lengths, n),
-                     valid_pairs(lengths, n, causal), bh * n, it)
+                     valid_pairs(lengths, n, causal), bh * n, it, width)
 
 
 def phase(n, name, msg):
@@ -421,10 +450,11 @@ def key_mask(lengths, n):
 def sdpa_ms(q, k, v, mask, causal, scale, do):
     """CUDA-event times of torch's scaled_dot_product_attention on (b, h,
     n, d) q, k, v with one boolean mask of key pads and causality (no dead
-    rows): (forward, backward, forward + backward) ms."""
+    rows), or with no mask at all (`mask` None, not causal): (forward,
+    backward, forward + backward) ms."""
     F = torch.nn.functional
     n = q.shape[2]
-    m = mask[:, None, None, :]
+    m = None if mask is None else mask[:, None, None, :]
     if causal:
         m = m & torch.ones(n, n, dtype=torch.bool, device="cuda").tril()
     q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -854,6 +884,14 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
               f"{ms[key][1]:.3f} ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
               f"{library[key]:.3f} ms (forward + backward {sdpa[2]:.3f} ms)",
               flush=True)
+    if all(length == n for length in lengths):
+        # every key valid: SDPA needs no mask, and takes its fastest path
+        bare = sdpa_ms(q, k, v, None, False, scale,
+                       _heads_of(dattn.to(dt), 0))
+        print(f"  {tag}: sdpa without a mask {bare[0]:.3f} ms forward, "
+              f"{bare[1]:.3f} ms backward; kernel / sdpa "
+              f"{ms['core_fwd'][0] / bare[0]:.2f}x forward, "
+              f"{ms['core_bwd'][0] / bare[1]:.2f}x backward", flush=True)
     del qkv, dattn, want, q, k, v
     torch.cuda.empty_cache()
     return errs, ms, costs, library
@@ -992,6 +1030,11 @@ def lean_kernels(gen, ffb, mega, lse5):
     errs["k5_fwd"] = compare("K5 (2048, 512) DCL lse", lse, want, 1e-4)
     dlse = rand(gen, R)
     got = lse5.streaming_lse_bwd(x, y, want, dlse, 0, True)
+    again = lse5.streaming_lse_bwd(x, y, want, dlse, 0, True)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        fail("K5 backward: two launches differ")
+    print("  K5 (2048, 512) DCL backward: two launches bit for bit equal",
+          flush=True)
     wgrad = lse5.streaming_lse_bwd_plain(x, y, want, dlse, 0, True)
     # fp32, summation order only: each gradient within 1e-5 of its own
     # largest magnitude, so a zero or scrambled gradient fails
@@ -1014,7 +1057,7 @@ def lean_kernels(gen, ffb, mega, lse5):
                            FP32_PEAK if key.startswith("k5") else BF16_PEAK)
         print(f"  {key}: kernel {ms[key][0]:.3f} ms, plain {ms[key][1]:.3f} "
               f"ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
-    del x, y, lse, want, dlse, got, wgrad
+    del x, y, lse, want, dlse, got, again, wgrad
     torch.cuda.empty_cache()
     return errs, ms, costs
 
@@ -1122,8 +1165,9 @@ def idle_share(prof):
 
 
 def top_kernels(prof, k=12):
-    """(total device ms, [(ms, count, name)] of the k longest) over the
-    profiler's device events, grouped by name."""
+    """(total device ms, [(ms, count, name)] of the k longest, or all with
+    k None, longest first) over the profiler's device events, grouped by
+    name."""
     by_name = {}
     for e in device_events(prof):
         t, c = by_name.get(e.name, (0.0, 0))
@@ -1199,7 +1243,8 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
                 "k2_fwd": mega.attention_block_fwd_stored,
                 "k2_bwd": mega.attention_block_bwd,
                 "rows_ln_geglu": row_counters["rows_ln_geglu"],
-                "rows_ln_ln": row_counters["rows_ln_ln"]}
+                "rows_ln_ln": row_counters["rows_ln_ln"],
+                "rows_ln_fwd_in_copy": row_counters["rows_ln_fwd_in_copy"]}
     results = {}
     for route, routes in (("kernel", KERNEL_ROUTES), ("plain", PLAIN_ROUTES)):
         model = kernel if route == "kernel" else CLIP(
@@ -1224,15 +1269,17 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
               f"idle share {idle:.4f} over one step (device busy "
               f"{busy_ms:.2f} of {window_ms:.2f} ms), losses "
               + " ".join(f"{v:.4f}" for v in losses.tolist()), flush=True)
-        for t, count, key in rows:
+        for t, count, key in rows[:12]:
             print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                   f"{key[:90]}", flush=True)
         if route == "kernel":
             per_step = {k: v / (warm + timed) for k, v in counts.items()}
             # K1's pass 1: a GEGLU-mode and a plain LayerNorm-backward
-            # launch; K2's backward two plain ones
+            # launch; K2's backward two plain ones; K1's forward one
+            # in_copy LayerNorm forward (its inner LayerNorm)
             want = {"k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, "k2_fwd": 6,
-                    "k2_bwd": 6, "rows_ln_geglu": 12, "rows_ln_ln": 24}
+                    "k2_bwd": 6, "rows_ln_geglu": 12, "rows_ln_ln": 24,
+                    "rows_ln_fwd_in_copy": 12}
             if per_step != want:
                 fail(f"training launches per step {per_step}, expected "
                      f"{want}")
@@ -1249,6 +1296,11 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
     return launches, k
 
 
+# kernels phase 11 lists by instance from its profile, whatever their rank
+PROFILED = ("ln_fwd_rows_kernel", "lse_fwd_kernel", "k5_gemm_kernel",
+            "k5_sum_kernel")
+
+
 def profile_step(run, i):
     """The idle share and top kernels of one step, profiled after one more
     that only warms the profiler up."""
@@ -1258,7 +1310,7 @@ def profile_step(run, i):
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             run(i + j)
             torch.cuda.synchronize()
-    return idle_share(prof), top_kernels(prof)
+    return idle_share(prof), top_kernels(prof, k=None)
 
 
 def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
@@ -1330,9 +1382,15 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
                 run, warm + timed)
             print(f"  b={b} idle share {idle:.4f} over one step (device busy "
                   f"{busy_ms:.2f} of {window_ms:.2f} ms)", flush=True)
-            for t, count, key in rows:
+            for t, count, key in rows[:12]:
                 print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                       f"{key[:90]}", flush=True)
+            print(f"  b={b} LayerNorm forward rows and K5 by instance:",
+                  flush=True)
+            for t, count, key in rows:
+                if any(k in key for k in PROFILED):
+                    print(f"    {t:8.3f} ms {100 * t / total:5.1f} % "
+                          f"x{count:<4d} {key[:120]}", flush=True)
             results[b] = (step_ms, peak, idle, counts, products)
         else:
             results[b] = (step_ms, peak)
@@ -1474,7 +1532,7 @@ def rotary_train(card, CLIP, default_optimizer, make_train_step, counters):
               f"{busy_ms:.2f} of {window_ms:.2f} ms), launches per step "
               f"{per_step}, losses "
               + " ".join(f"{v:.4f}" for v in losses.tolist()), flush=True)
-        for t, count, key in rows:
+        for t, count, key in rows[:12]:
             print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                   f"{key[:90]}", flush=True)
         results[route] = (step_ms, peak, idle, losses)
@@ -1646,7 +1704,7 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
     torch.cuda.synchronize()
     counts = read_counts(counters)
     want = {k: 0 for k in counters}
-    want.update(k8_fwd=12, mega=6)
+    want.update(k8_fwd=12, mega=6, rows_ln_fwd_geglu=12)
     if counts != want:
         fail(f"K8 route serving: launches {counts}, expected {want}")
     worst = max((a - p).abs().max().item() for a, p in zip(
@@ -1673,7 +1731,8 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
     # the row kernels: K8's backward its K8 mode, K1-h's pass 1 the
     # stored-h mode and a LayerNorm backward, K2's backward two of those
     want = {"K8": dict(k8_fwd=12, k8_bwd=12, k2_fwd=6, k2_bwd=6,
-                       rows_geglu_k8=12, rows_ln_ln=12),
+                       rows_geglu_k8=12, rows_ln_ln=12,
+                       rows_ln_fwd_geglu=12),
             "stored-h": dict(k1h_fwd=12, k1h_p1=12, k1h_p2=12, k2_fwd=6,
                              k2_bwd=6, rows_geglu_stored_h=12,
                              rows_ln_ln=24)}
@@ -1712,12 +1771,12 @@ def ff_routes(card, CLIP, default_optimizer, make_train_step, counters,
               f"{per_step}, first loss vs phase 8 {diff:.4f} (tol 0.05), "
               f"losses " + " ".join(f"{v:.4f}" for v in losses.tolist()),
               flush=True)
-        for t, count, key in rows:
+        for t, count, key in rows[:12]:
             print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                   f"{key[:90]}", flush=True)
         results[route] = (step_ms, peak, idle)
         launches.update({k: counts[k] for k in want[route] if k.startswith(
-            ("k8", "rows_geglu_k8") if route == "K8"
+            ("k8", "rows_geglu_k8", "rows_ln_fwd_geglu") if route == "K8"
             else ("k1h", "rows_geglu_stored_h"))})
         del model, step
         torch.cuda.empty_cache()
@@ -2066,6 +2125,164 @@ def rows_phase(gen, step_rows):
     return errs, ms, costs, library
 
 
+# The LayerNorm forward rows' modes (csrc/row_kernels.cuh
+# ln_fwd_rows_kernel; phase 20): (key, record name, mode, Pallas body
+# replaced, [(input, rows, d)]), input "T" the storage dtype or "f32" as
+# the mode's callers give it; the first shape is the record's. Every mode
+# also runs at LN_FWD_WIDTHS.
+LN_FWD_BODY = "xclip_tpu/kernels/_common.py:40"
+LN_FWD_KERNELS = [
+    ("ln_fwd_stats", "LayerNorm forward rows, stats mode (the training "
+     "forwards' pre-LayerNorms, K-FF-s's and K1-h's inner)", "stats",
+     LN_FWD_BODY, [("f32", 256 * 257, 2048), ("T", 256 * 257, 512)]),
+    ("ln_fwd_residual", "LayerNorm forward rows, residual mode (the "
+     "megablock's out LayerNorm)", "residual", LN_FWD_BODY,
+     [("f32", 256 * 257, 512)]),
+    ("ln_fwd_plain", "LayerNorm forward rows, plain mode (K-FF's and the "
+     "recompute backwards' pre-LayerNorms)", "plain", LN_FWD_BODY,
+     [("T", 256 * 257, 512)]),
+    ("ln_fwd_in_copy", "LayerNorm forward rows, in_copy mode (K1's inner "
+     "LayerNorm)", "in_copy", LN_FWD_BODY, [("f32", 256 * 257, 2048)]),
+    ("ln_fwd_geglu", "LayerNorm forward rows, GEGLU mode (K8's forward)",
+     "geglu", "xclip_tpu/kernels/fused_ff.py:68", [("T", 256 * 257, 2048)]),
+]
+LN_FWD_WIDTHS = (7, 96, 100, 160, 4100, 4104, 8192)
+LN_FWD_OUTPUTS = {"plain": ("out",), "geglu": ("out",),
+                  "stats": ("out", "mean", "inv"),
+                  "residual": ("out", "mean", "inv"),
+                  "in_copy": ("out", "mean", "inv", "in_copy")}
+
+
+def ln_fwd_inputs(gen, mode, src, rows, d, dtype):
+    """(mode, x, g, resid) of one LayerNorm-forward call as its callers
+    give it: unit-scale rows (fp32 or of the storage dtype; [a, b] twice
+    as wide for GEGLU), gains near 1, a residual of the storage dtype."""
+    x = rand(gen, rows, 2 * d if mode == "geglu" else d,
+             dtype=torch.float32 if src == "f32" else dtype)
+    return (mode, x, 1 + rand(gen, d, scale=0.1, dtype=dtype),
+            rand(gen, rows, d, dtype=dtype) if mode == "residual" else None)
+
+
+def ln_fwd_cost(args):
+    """(bytes: x, g and resid read once, out, the statistics and the copy
+    written once; operations, erf one each) of one call."""
+    mode, x, g, resid = args
+    rows, d = x.shape[0], g.shape[0]
+    it = g.element_size()
+    nbytes = (x.numel() * x.element_size() + d * it + rows * d * it
+              * (1 + (resid is not None) + (mode == "in_copy"))
+              + 8 * rows * (len(LN_FWD_OUTPUTS[mode]) > 1))
+    return nbytes, rows * d * (18 if mode == "geglu" else 8)
+
+
+def ln_fwd_phase(gen):
+    """Phase 20, forward: each LayerNorm forward mode alone at its callers'
+    shapes and at LN_FWD_WIDTHS (77 rows), fp32 and bf16, against its plain
+    version (compare_products' tolerances), two launches bit for bit
+    equal; bf16 at the callers' shapes timed beside the plain version, the
+    bound by bytes and, for the plain mode, F.layer_norm on the same rows
+    (its output in the input's dtype, no statistics), for the stats mode
+    on rows of the storage dtype torch.native_layer_norm (out, mean and
+    rstd). Returns (errs, ms,
+    costs, library) keyed by mode, from each mode's first shape."""
+    from xclip_tpu_torch.kernels import rows as rk
+    errs, ms, costs, library = {}, {}, {}, {}
+    for key, title, mode, _, shapes in LN_FWD_KERNELS:
+        worst = 0.0
+        sweep = [(shapes[0][0], 77, w) for w in LN_FWD_WIDTHS]
+        for i, (src, rows, d) in enumerate([*shapes, *sweep]):
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = (f"{str(dtype).split('.')[-1]} ({rows} x {d}, "
+                       f"{src} in)")
+                args = ln_fwd_inputs(gen, mode, src, rows, d, dtype)
+                got, again = rk.ln_rows(*args), rk.ln_rows(*args)
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    fail(f"{title} {tag}: two launches differ")
+                err = compare_products(f"{key} {tag}", got,
+                                       rk.ln_rows_plain(*args),
+                                       LN_FWD_OUTPUTS[mode])
+                del got, again
+                if dtype == torch.float32 or i >= len(shapes):
+                    continue
+                worst = max(worst, err)
+                kms = cuda_ms(lambda: rk.ln_rows(*args))
+                pms = cuda_ms(lambda: rk.ln_rows_plain(*args))
+                lms, x, g = None, args[1], args[2]
+                if mode == "plain":
+                    lms = cuda_ms(lambda: torch.nn.functional.layer_norm(
+                        x, (d,), g, None, 1e-3))
+                elif mode == "stats" and x.dtype == g.dtype:
+                    # out, mean and rstd from one call
+                    lms = cuda_ms(lambda: torch.native_layer_norm(
+                        x, (d,), g, None, 1e-3))
+                cost = ln_fwd_cost(args)
+                b_ms, b_by = bound(*cost, FP32_PEAK)
+                print(f"  {title} {tag}: kernel {kms:.4f} ms "
+                      f"({cost[0] / kms / 1e6:.0f} GB/s, {b_ms / kms:.2f} of "
+                      f"the bound), bound {b_ms:.4f} ms ({b_by}), plain "
+                      f"{pms:.3f} ms"
+                      + (f", torch {'F.layer_norm' if mode == 'plain' else
+                                    'native_layer_norm'} {lms:.4f} ms"
+                         if lms is not None else ""), flush=True)
+                if i == 0:
+                    ms[key], costs[key], library[key] = (kms, pms), cost, lms
+                del args
+                torch.cuda.empty_cache()
+        errs[key] = worst
+    return errs, ms, costs, library
+
+
+def reduce_phase(gen, step_rows):
+    """Phase 20, the ordered sums (csrc/common.cuh reduce_parts_kernel)
+    alone at two of the b = 2048 step's calls, each added to a running
+    fp32 sum as the recompute backwards add their row chunks: the dg sum
+    after the GEGLU backward rows (one 64-row partial a row block of a
+    chunk, 2048 wide) and the split-k sum of W_in's gradient (one partial
+    per 2048 rows, 512 x 4096). Against the plain ordered sum (bit for
+    bit), timed beside its bytes bound (each partial read once, the
+    running sum read and written once)."""
+    from xclip_tpu_torch.kernels import rows as rk
+    rows = step_rows["ff_bwd"]
+    for label, parts, n in (("dg sum, GEGLU rows", rk.blocks(rows), 2048),
+                            ("W_in split-k sum", -(-rows // 2048),
+                             512 * 4096)):
+        part = rand(gen, parts, n)
+        out = rand(gen, n)
+        got = rk.reduce_parts(part, out.clone())
+        if not torch.equal(got, rk.reduce_parts(part.cpu(), out.cpu())
+                           .to(got.device)):
+            fail(f"reduce_parts {label}: not the plain ordered sum's bits")
+        acc = out.clone()
+        kms = cuda_ms(lambda: rk.reduce_parts(part, acc))
+        b_ms, _ = bound((parts + 2) * n * 4, parts * n, FP32_PEAK)
+        print(f"  ordered sums (reduce_parts_kernel), {label}: {parts} "
+              f"partials x {n} at a {rows}-row chunk: kernel {kms:.4f} ms, "
+              f"bound {b_ms:.4f} ms (bytes), {b_ms / kms:.2f} of the bound",
+              flush=True)
+        del part, out, got, acc
+    torch.cuda.empty_cache()
+
+
+def expected_ln_fwd(ffb, mega, b):
+    """The LayerNorm forward rows' launches per memory-lean step at batch b
+    (6 layers a tower): K-FF-s two in stats mode per chunk (pre and
+    inner), the FF recompute backward one plain per chunk (xn), K3's
+    forward one stats and one residual per chunk, K3's backward one plain
+    per chunk (its recomputed xn; the out LayerNorm's statistics are the
+    forward's)."""
+    dt = torch.bfloat16
+    fs = sum(len(ffb.fwd_stats_spans(b * n, 512, 2048, dt)) for n in (257, 32))
+    fr = sum(len(ffb.bwd_recompute_spans(b * n, 512, 2048, dt))
+             for n in (257, 32))
+    ms = sum(len(mega.fwd_stats_spans(b, n, 512, 8, dt, False))
+             for n in (257, 32))
+    mb = sum(len(mega.bwd_recompute_spans(b, n, 512, 8, dt, False))
+             for n in (257, 32))
+    return {"rows_ln_fwd_plain": 6 * (fr + mb),
+            "rows_ln_fwd_stats": 6 * (2 * fs + ms),
+            "rows_ln_fwd_residual": 6 * ms}
+
+
 def expected_rows(ffb, mega, b):
     """The row kernels' launches per memory-lean step at batch b (6 layers
     a tower): the FF recompute backward a GEGLU-backward (recompute mode)
@@ -2077,6 +2294,238 @@ def expected_rows(ffb, mega, b):
     mg = sum(len(mega.bwd_recompute_spans(b, n, 512, 8, dt, False))
              for n in (257, 32))
     return {"rows_geglu_recompute": 6 * ff, "rows_ln_ln": 6 * (ff + 2 * mg)}
+
+
+# Phase 21's small CLIPs (2 + 2 layers, 32 tokens, 16 patches), bf16:
+# (label, CLIP kwargs beside HEADS_BASE, routes, launches per serving
+# forward, launches per train step) with text heads other than 64, and
+# (label, CLIP kwargs, routes, the limit's words) past the CUDA kernels.
+HEADS_BASE = dict(dim_text=128, dim_image=128, dim_latent=64,
+                  num_text_tokens=1000, text_enc_depth=2, text_seq_len=32,
+                  text_heads=4, visual_enc_depth=2, visual_heads=2,
+                  visual_image_size=64, visual_patch_size=16)
+_K1 = {"k1_fwd": 4, "k1_p1": 4, "k1_p2": 4}
+NARROW_HEADS = [
+    ("text dim_head 32, 'fused'", dict(text_dim_head=32),
+     dict(attn_impl="fused", visual_attn_impl="fused",
+          ff_impl="block_stored"), {"mega": 4, "kff": 4},
+     {"k2_fwd": 4, "k2_bwd": 4, **_K1}),
+    ("text dim_head 32, rotary, 'fused' (K6)",
+     dict(text_dim_head=32, text_rotary_pos_emb=True),
+     dict(attn_impl="fused", visual_attn_impl="fused",
+          ff_impl="block_stored"), {"mega": 2, "k6_fwd": 2, "kff": 4},
+     {"k2_fwd": 2, "k2_bwd": 2, "k6_fwd": 2, "k6_bwd": 2, **_K1}),
+    ("text dim_head 32, 'flash'", dict(text_dim_head=32),
+     dict(attn_impl="flash", ff_impl="block_stored"),
+     {"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1}),
+    ("text dim_head 128, 'flash'", dict(text_dim_head=128),
+     dict(attn_impl="flash", ff_impl="block_stored"),
+     {"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1}),
+]
+PAST_KERNELS = [
+    ("text dim_head 128, 'fused'", dict(text_dim_head=128),
+     dict(attn_impl="fused", visual_attn_impl="fused",
+          ff_impl="block_stored"), "not 128"),
+    ("text FF inner 288 (dim 72), 'block'", dict(dim_text=72, text_heads=2),
+     dict(attn_impl="xla", ff_impl="block"), "not dim 72, inner 288"),
+]
+
+
+def narrow_wrappers():
+    """Phase 21's wrapper checks: K-MEGA, K2 (output and gradients), K6 and
+    K7 at dim_head 32, fp32, on the card against their plain versions at
+    the true width on the CPU (K7's: SDPA) → [line]."""
+    from xclip_tpu_torch.kernels import attention_block as core
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device="cuda").manual_seed(210)
+    b, n, heads, d, dim = 4, 77, 4, 32, 128
+    scale = d ** -0.5
+    mask = key_mask([77, 50, 13, 1], n)
+    x = rand(gen, b, n, dim)
+    g = 1 + rand(gen, dim, scale=0.1)
+    w_qkv = rand(gen, dim, 3 * heads * d, scale=dim ** -0.5)
+    w_out = rand(gen, heads * d, dim, scale=(heads * d) ** -0.5)
+    qkv = rand(gen, b, n, 3 * heads * d)
+    q, k, v = (rand(gen, b, heads, n, d) for _ in range(3))
+    cpu = [t.cpu() for t in (x, g, w_qkv, w_out, mask, qkv, q, k, v)]
+    before = (mega.attention_block.launches, mega.attention_block_bwd.launches,
+              core.attention_core_fwd.launches,
+              flash.flash_attention_fwd.launches)
+    out = {}
+    for dev, (xx, gg, wq, wo, mm, qq, q1, k1, v1) in (
+            ("cuda", (x, g, w_qkv, w_out, mask, qkv, q, k, v)),
+            ("cpu", cpu)):
+        # on the card the wrappers; on the CPU the plain versions at d
+        kernel = dev == "cuda"
+        leaves = [t.clone().requires_grad_(True) for t in (xx, wq, wo)]
+        with torch.no_grad():
+            mega_out = (mega.attention_block if kernel else
+                        mega.attention_block_plain)(xx, gg, wq, wo, gg, mm,
+                                                    heads, d, scale)
+        k2 = (mega.attention_block_train if kernel else
+              mega.attention_block_plain)(leaves[0], gg, leaves[1],
+                                          leaves[2], gg, mm, heads, d, scale)
+        grads = torch.autograd.grad(k2, leaves, torch.ones_like(k2))
+        with torch.no_grad():
+            k6 = (core.attention_core(qq, mm, heads, d, scale) if kernel else
+                  core.attention_core_fwd_plain(qq, mm, heads, d, scale)[0])
+            k7 = (flash.flash_attention(q1, k1, v1, mm) if kernel else
+                  torch.nn.functional.scaled_dot_product_attention(
+                      q1, k1, v1, attn_mask=mm[:, None, None, :], scale=1.0))
+        out[dev] = [mega_out, k2.detach(), *grads, k6, k7]
+    after = (mega.attention_block.launches, mega.attention_block_bwd.launches,
+             core.attention_core_fwd.launches,
+             flash.flash_attention_fwd.launches)
+    if any(a != b_ + 1 for a, b_ in zip(after, before)):
+        fail(f"dim_head 32 wrappers: launches {after} after {before}, "
+             "expected one each")
+    lines = []
+    for name, got, want in zip(("K-MEGA", "K2 out", "K2 dx", "K2 dw_qkv",
+                                "K2 dw_out", "K6", "K7"), out["cuda"],
+                               out["cpu"]):
+        err = compare(f"dim_head 32 {name}", got.cpu(), want,
+                      1e-4 * float(want.abs().max()))
+        lines.append(f"{name} {err:.2e}")
+    # K7 in bf16 on heads of 128 (two 64-column halves): the kernels alone
+    # against their plain versions (phase 12's rule), timed beside them,
+    # their bound and SDPA; then a head of 96 through `flash_attention`,
+    # zero-padded to 128, against the plain forward at 96
+    bf16, bh, n, h = torch.bfloat16, 512, 256, 8
+    lengths = [n // 2 + (37 * i) % (n // 2 + 1) for i in range(bh // h)]
+    mask_bh = key_mask([L for L in lengths for _ in range(h)], n)
+    q, k, v, do = (rand(gen, bh, n, 128, scale=128 ** -0.25 if i < 2 else 1.0,
+                        dtype=bf16) for i in range(4))
+    fwd = flash.flash_attention_fwd(q, k, v, mask_bh, True)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask_bh, True)
+    e_fwd = compare_elementwise("K7 dim_head 128", ("out", "lse"), fwd, want,
+                                bf16)
+    bwd_args = (q, k, v, mask_bh, *want, do, True)
+    e_bwd = compare_elementwise(
+        "K7 dim_head 128", ("dq", "dk", "dv"),
+        flash.flash_attention_bwd(*bwd_args),
+        flash.flash_attention_bwd_plain(*bwd_args), bf16)
+    ms = [cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, mask_bh, True)),
+          cuda_ms(lambda: flash.flash_attention_bwd(*bwd_args)),
+          cuda_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, mask_bh,
+                                                          True)),
+          cuda_ms(lambda: flash.flash_attention_bwd_plain(*bwd_args),
+                  reps=3, iters=1)]
+    b4 = [t.reshape(bh // h, h, n, 128) for t in (q, k, v, do)]
+    sdpa = sdpa_ms(*b4[:3], key_mask(lengths, n), True, 1.0, b4[3])
+    bounds = [bound(*flash_cost(kind, bh, n, [L for L in lengths
+                                              for _ in range(h)],
+                                True, width=128))[0]
+              for kind in ("fwd", "bwd")]
+    print(f"  K7 dim_head 128 (b*h {bh}, n {n}, causal, bf16): forward "
+          f"{ms[0]:.4f} ms (bound {bounds[0]:.4f}, plain {ms[2]:.4f}, sdpa "
+          f"{sdpa[0]:.4f}), backward {ms[1]:.4f} ms (bound {bounds[1]:.4f},"
+          f" plain {ms[3]:.4f}, sdpa {sdpa[1]:.4f})", flush=True)
+    lines.append(f"K7 dim_head 128 out/lse {e_fwd:.2e}, grads {e_bwd:.2e}, "
+                 f"{ms[0]:.3f} / {ms[1]:.3f} ms")
+    q4, k4, v4 = (rand(gen, 4, 2, 77, 96, scale=96 ** -0.25 if i < 2
+                       else 1.0, dtype=bf16) for i in range(3))
+    m4 = key_mask([77, 50, 13, 1], 77)
+    before96 = flash.flash_attention_fwd.launches
+    got = flash.flash_attention(q4, k4, v4, m4, causal=True)
+    if flash.flash_attention_fwd.launches != before96 + 1:
+        fail("K7 dim_head 96: no kernel launch")
+    (qf, kf, vf), mf = flash.pad_flat((q4, k4, v4), m4)
+    want = flash.flash_attention_fwd_plain(qf, kf, vf, mf, True)[0]
+    e96 = compare_elementwise(
+        "K7 dim_head 96 (padded to 128)", ("out",),
+        (got.reshape(8, 77, 96),), (want[:, :77],), bf16)
+    lines.append(f"K7 dim_head 96 out {e96:.2e}")
+    return lines
+
+
+def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
+    """Phase 21: text heads of 32 and 128 (NARROW_HEADS) served and trained
+    on the card through the entry points, every layer on its kernel and no
+    fallback warning; latents and the first loss
+    against the plain routes' on the same weights and inputs (phase 4's
+    and phase 11's tolerances); the wrappers alone at dim_head 32; and the
+    shapes past the CUDA kernels (PAST_KERNELS) raising at the entry
+    point."""
+    bf16, tol = torch.bfloat16, LATENT_TOL[torch.bfloat16]
+    lines = narrow_wrappers()
+    for label, extra, routes, want_serve, want_train in NARROW_HEADS:
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        text = texts(gen, 4, seq=32, vocab=1000)
+        images = rand(gen, 4, 3, 64, 64, dtype=bf16)
+        cfg = {**HEADS_BASE, **extra}
+        model = CLIP(**cfg, **routes, param_dtype=bf16,
+                     compute_dtype="bfloat16", device="cuda", seed=21)
+        plain = CLIP(**cfg, **PLAIN_ROUTES, param_dtype=bf16,
+                     compute_dtype="bfloat16", device="cuda")
+        plain.load_state_dict(model.state_dict())
+        zero_counts(counters)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.no_grad():
+                latents = model(text, images, return_latents=True)
+        torch.cuda.synchronize()
+        served = {k: v for k, v in read_counts(counters).items() if v}
+        fallbacks = [str(w.message) for w in caught
+                     if "falling back to the XLA path" in str(w.message)]
+        if fallbacks:
+            fail(f"{label}: fallback warnings {fallbacks}")
+        if served != want_serve:
+            fail(f"{label}: serving launches {served}, expected {want_serve}")
+        with torch.no_grad():
+            worst = max((a - b).abs().max().item() for a, b in zip(
+                latents, plain(text, images, return_latents=True)))
+        if not (worst <= tol and all(torch.isfinite(t).all()
+                                     for t in latents)):
+            fail(f"{label}: latents differ from the plain routes' by "
+                 f"{worst:.3e} > {tol:.0e}")
+        losses = []
+        for m in (model, plain):
+            step = make_train_step(m, default_optimizer(m.parameters(),
+                                                        learning_rate=1e-4))
+            zero_counts(counters)
+            # the same patch-dropout draw on both routes
+            losses.append(step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(22))["loss"].float().item())
+            torch.cuda.synchronize()
+            if m is model:
+                trained = {k: v for k, v in read_counts(counters).items()
+                           if v}
+        if trained != want_train:
+            fail(f"{label}: train-step launches {trained}, expected "
+                 f"{want_train}")
+        diff = abs(losses[0] - losses[1])
+        if not (math.isfinite(losses[0]) and diff <= 0.05):
+            fail(f"{label}: first loss {losses[0]:.4f} against the plain "
+                 f"routes' {losses[1]:.4f}")
+        lines.append(f"{label}: latents {worst:.2e}, loss {losses[0]:.4f} "
+                     f"(plain {losses[1]:.4f})")
+        print(f"  {label}: serving launches {served}, train-step launches "
+              f"{trained}; latents vs plain routes {worst:.3e} (tol "
+              f"{tol:.0e}); first loss {losses[0]:.4f}, plain routes "
+              f"{losses[1]:.4f} (tol 0.05)", flush=True)
+        del model, plain, step
+        torch.cuda.empty_cache()
+    for label, extra, routes, words in PAST_KERNELS:
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        model = CLIP(**{**HEADS_BASE, **extra}, **routes, param_dtype=bf16,
+                     compute_dtype="bfloat16", device="cuda", seed=21)
+        try:
+            with torch.no_grad():
+                model(texts(gen, 4, seq=32, vocab=1000),
+                      rand(gen, 4, 3, 64, 64, dtype=bf16),
+                      return_latents=True)
+        except ValueError as e:
+            if words not in str(e):
+                fail(f"{label}: raised {e!r}, expected the limit {words!r}")
+            print(f"  {label}: raises {e}", flush=True)
+            lines.append(f"{label}: raises")
+        else:
+            fail(f"{label}: served past the CUDA kernels' limit")
+        del model
+    phase(21, "heads", f"{card}: text heads of 32 (padded to 64) and, "
+          "under 'flash', 128 on the kernels; shapes past them raise: "
+          + "; ".join(lines))
 
 
 def main():
@@ -2275,7 +2724,8 @@ def main():
 
     # ---------------------------------------------------------------- 8
     del clip, plain
-    row_counters = {f"rows_{k}_{m}": (k, m) for k, m in rk.COUNTERS}
+    row_counters = {f"rows_{k}_{m}": (k, m)
+                    for k, m in (*rk.COUNTERS, *rk.LN_FWD_COUNTERS)}
     train_launches, stored = train_flagship(card, CLIP, default_optimizer,
                                             make_train_step, ffb, mega,
                                             row_counters)
@@ -2295,7 +2745,10 @@ def main():
                      "core_bwd": mega.mega_core_bwd,
                      "rows_geglu_recompute":
                          row_counters["rows_geglu_recompute"],
-                     "rows_ln_ln": row_counters["rows_ln_ln"]}
+                     "rows_ln_ln": row_counters["rows_ln_ln"],
+                     **{k: row_counters[k] for k in (
+                         "rows_ln_fwd_plain", "rows_ln_fwd_stats",
+                         "rows_ln_fwd_residual")}}
     before = read_counts(lean_counters)
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                  make_train_step, number=10, prefix="lean_")
@@ -2307,7 +2760,9 @@ def main():
     # --------------------------------------------------------------- 11
     lean_launches, product_launches = lean_train(
         card, CLIP, default_optimizer, make_train_step, lean_counters, stored,
-        expected_products(ffb, mega), lambda b: expected_rows(ffb, mega, b))
+        expected_products(ffb, mega),
+        lambda b: {**expected_rows(ffb, mega, b),
+                   **expected_ln_fwd(ffb, mega, b)})
     dt = torch.bfloat16
     for tower, n in (("text", 257), ("vision", 32)):
         rows = 2048 * n
@@ -2361,7 +2816,10 @@ def main():
         {**ff_counters, "k1_fwd": ffb.ff_block_fwd_stored,
          "kff": ffb.ff_block, "mega": mega.attention_block,
          "k2_fwd": mega.attention_block_fwd_stored,
-         "k2_bwd": mega.attention_block_bwd, **row_counters}, stored)
+         "k2_bwd": mega.attention_block_bwd,
+         **{k: c for k, c in row_counters.items()
+            if not k.startswith("rows_ln_fwd") or k == "rows_ln_fwd_geglu"}},
+        stored)
 
     # --------------------------------------------------------------- 19
     # the rows of one chunk at each product call site of the b = 2048
@@ -2380,6 +2838,20 @@ def main():
 
     # --------------------------------------------------------------- 20
     row_errs, row_ms, row_costs, row_library = rows_phase(gen, step_rows)
+    fwd_errs, fwd_ms, fwd_costs, fwd_library = ln_fwd_phase(gen)
+    reduce_phase(gen, step_rows)
+
+    # --------------------------------------------------------------- 21
+    narrow_heads(card, CLIP, default_optimizer, make_train_step, {
+        "mega": mega.attention_block, "kff": ffb.ff_block,
+        "k2_fwd": mega.attention_block_fwd_stored,
+        "k2_bwd": mega.attention_block_bwd,
+        "k1_fwd": ffb.ff_block_fwd_stored, "k1_p1": ffb.ff_block_bwd_p1,
+        "k1_p2": ffb.ff_block_bwd_p2, "kffs": ffb.ff_block_fwd_stats,
+        "ff_rc": ffb.ff_block_bwd_recompute,
+        "k6_fwd": core.attention_core_fwd, "k6_bwd": core.attention_core_bwd,
+        "k7_fwd": flash.flash_attention_fwd,
+        "k7_bwd": flash.flash_attention_bwd})
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
@@ -2448,6 +2920,16 @@ def main():
             f"{title} ({rows} x {d})", "xclip_tpu_torch/csrc/row_kernels.cuh",
             replaces, row_launches[key], row_errs[key], row_ms[key],
             row_costs[key], FP32_PEAK, row_library[key]))
+    # the LayerNorm forward rows by mode: launches from the run of the route
+    # that takes the mode (phases 8, 11, 18), times at phase 20's first
+    # shape, the plain mode beside F.layer_norm
+    for key, title, mode, replaces, shapes in LN_FWD_KERNELS:
+        src, rows, d = shapes[0]
+        record["kernels"].append(entry(
+            f"{title} ({rows} x {d}, {src} in)",
+            "xclip_tpu_torch/csrc/row_kernels.cuh", replaces,
+            row_launches[f"rows_{key}"], fwd_errs[key], fwd_ms[key],
+            fwd_costs[key], FP32_PEAK, fwd_library[key]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

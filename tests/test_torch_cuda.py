@@ -341,7 +341,8 @@ def _lse_inputs(R, C, d, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,C,d", [(37, 300, 64), (300, 37, 128),
-                                   (2048, 2048, 512)])
+                                   (2048, 2048, 512), (7, 13, 1100),
+                                   (129, 257, 1100), (1000, 3000, 100)])
 @pytest.mark.parametrize("decoupled,row_offset", [(False, 0), (True, 0),
                                                   (True, 5)])
 def test_streaming_lse_kernels_match_plain(cuda_device, R, C, d, decoupled,
@@ -361,6 +362,26 @@ def test_streaming_lse_kernels_match_plain(cuda_device, R, C, d, decoupled,
     assert (lse5.streaming_lse_fwd.launches,
             lse5.streaming_lse_bwd.launches) == (counts[0] + 1,
                                                  counts[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoupled,row_offset", [(False, 0), (True, 40)])
+def test_streaming_lse_backward_in_chunks_of_columns(cuda_device, monkeypatch,
+                                                      decoupled, row_offset):
+    """K5's backward with its scores scratch cut to a few columns at a
+    time: chunks of 128 columns (the last one short), dx summed across
+    them, each chunk's dy rows its own; against the plain version, and
+    two runs bit for bit equal."""
+    monkeypatch.setattr(lse5, "P_BYTES", 300 * 128 * 4)
+    x, y = _lse_inputs(300, 1000, 96, cuda_device)
+    assert lse5.bwd_plan(300, 1000, 96)[0] == 128
+    lse = lse5.streaming_lse_fwd_plain(x, y, row_offset, decoupled)
+    dlse = torch.randn(300, device=cuda_device)
+    got = lse5.streaming_lse_bwd(x, y, lse, dlse, row_offset, decoupled)
+    _assert_all_close(got, lse5.streaming_lse_bwd_plain(
+        x, y, lse, dlse, row_offset, decoupled), "float32", ("dx", "dy"))
+    again = lse5.streaming_lse_bwd(x, y, lse, dlse, row_offset, decoupled)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -526,14 +547,45 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
+@pytest.mark.parametrize("n", [37, 200, 256])
+def test_flash_attention_kernels_at_head_width_128(cuda_device, causal,
+                                                   mask_kind, n):
+    """bf16 K7 on heads of 128, two 64-column halves, against the plain
+    versions (phase 12's element rule)."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(n=n, mask_kind=mask_kind, d=128), torch.bfloat16,
+        cuda_device)
+    got = flash.flash_attention_fwd(q, k, v, mask, causal)
+    want = flash.flash_attention_fwd_plain(q, k, v, mask, causal)
+    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, *want, do, causal),
+        flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, causal),
+        "bfloat16", ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_past_its_head_widths(cuda_device):
+    """fp32 K7 takes heads of 64, bf16 of 64 and 128; `flash_attention`
+    pads a narrower head to one of those and raises past the widest."""
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 160)):
+        q = torch.zeros(1, 1, 64, d, dtype=dtype, device=cuda_device)
+        with pytest.raises(ValueError, match=f"not {d}"):
+            flash.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["holes", "dead"])
 def test_flash_attention_writes_every_element(cuda_device, causal,
-                                              mask_kind):
+                                              mask_kind, d):
     """bf16 K7 skips causal and all-masked key tiles and zero-fills a key
     tile with no valid key, yet writes every element of out, lse, dq, dk
     and dv (the wrapper takes them from torch.empty)."""
     q, k, v, mask, do = _flash_padded(
-        flash_args(b=3, h=2, n=256, mask_kind=mask_kind), torch.bfloat16,
+        flash_args(b=3, h=2, n=256, mask_kind=mask_kind, d=d), torch.bfloat16,
         cuda_device)
     _nan_blocks((tuple(q.shape), torch.bfloat16),
                 (tuple(mask.shape), torch.float32))
@@ -1180,9 +1232,14 @@ def test_blocks_count_their_row_kernel_launches(cuda_device):
     _, stored = ffb.ff_block_fwd_stored(*args)
     ffb.ff_block_bwd_p1(*args, do, stored)
     counts = rows_mod.kernel_launches()
-    assert counts == {("geglu", "recompute"): 1, ("geglu", "k8"): 0,
-                      ("geglu", "stored_h"): 0, ("ln", "ln"): 2,
-                      ("ln", "geglu"): 1}
+    assert {k: counts[k] for k in rows_mod.COUNTERS} == {
+        ("geglu", "recompute"): 1, ("geglu", "k8"): 0,
+        ("geglu", "stored_h"): 0, ("ln", "ln"): 2, ("ln", "geglu"): 1}
+    # the forward rows: K-FF-s's two LayerNorms with statistics, the
+    # recompute backward's xn, K1's pre-LayerNorm and its inner one
+    # keeping the product
+    assert {m: counts[("ln_fwd", m)] for m in rows_mod.LN_FWD_MODES} == {
+        "plain": 1, "stats": 3, "residual": 0, "in_copy": 1, "geglu": 0}
     rows_mod.kernel_launches(reset=True)
     for (kernel, mode, form) in ROW_FORMS:
         args, kw = _row_args(kernel, mode, form, 77, 128, dt, cuda_device)
@@ -1190,3 +1247,150 @@ def test_blocks_count_their_row_kernel_launches(cuda_device):
     counts = rows_mod.kernel_launches(reset=True)
     assert counts[("geglu", "k8")] == 1 and counts[("ln", "ln")] == 2
     assert rows_mod.kernel_launches()[("ln", "ln")] == 0
+
+
+# ------------------------------------------------- LayerNorm forward rows
+
+LN_FWD_WIDTHS = (7, 96, 100, 160, 512, 2048, 4100, 4104, 8192)
+
+
+def _ln_fwd_args(mode, rows, d, dtype, x_f32, device, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def rand(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dt)
+
+    x = rand(rows, 2 * d if mode == "geglu" else d,
+             dt=torch.float32 if x_f32 else dtype)
+    return (mode, x, 1 + 0.1 * rand(d, dt=dtype),
+            rand(rows, d, dt=dtype) if mode == "residual" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [77, 24_576])
+@pytest.mark.parametrize("d", LN_FWD_WIDTHS)
+@pytest.mark.parametrize("mode,x_f32", [
+    ("plain", False), ("stats", False), ("stats", True), ("residual", True),
+    ("in_copy", True), ("geglu", False)])
+def test_ln_fwd_rows_match_plain(cuda_device, mode, x_f32, d, rows, dtype):
+    """Every LayerNorm forward mode, rows of the storage dtype or fp32 as
+    its callers give them, at widths 7 to 8,192 on and off the 8-column
+    grid, against its plain version (bf16 two ulps of the largest
+    magnitude, fp32 1e-4 of it); two launches bit for bit equal."""
+    args = _ln_fwd_args(mode, rows, d, getattr(torch, dtype), x_f32,
+                        cuda_device)
+    before = rows_mod.ln_rows.launches
+    got = rows_mod.ln_rows(*args)
+    assert rows_mod.ln_rows.launches == before + 1
+    want = rows_mod.ln_rows_plain(*args)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all(), i
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=_row_atol(w), msg=str(i))
+    again = rows_mod.ln_rows(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_ln_fwd_rows_raise_past_8192(cuda_device):
+    """A row wider than the kernels' 8,192 raises before any launch; the C
+    entry point refuses it too."""
+    x = torch.zeros(8, 8200, device=cuda_device)
+    g = torch.ones(8200, device=cuda_device)
+    with pytest.raises(ValueError, match="between 1 and 8192"):
+        rows_mod.ln_rows("plain", x, g)
+    err = rows_mod._build.library().xclip_ln_fwd_rows(
+        0, 0, 0, x.data_ptr(), g.data_ptr(), None, x.data_ptr(), 8, 8200,
+        1e-5, None, None, None, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+# ------------------------------------ narrow heads, and past the kernels
+
+NARROW_CLIPS = [  # (CLIP kwargs, routes)
+    (dict(text_dim_head=32), dict(attn_impl="fused", visual_attn_impl="fused",
+                                  ff_impl="block_stored")),
+    (dict(text_dim_head=32), dict(attn_impl="fused_recompute",
+                                  ff_impl="block")),
+    (dict(text_dim_head=32, text_rotary_pos_emb=True),
+     dict(attn_impl="fused", ff_impl="block_stored")),
+    (dict(text_dim_head=32), dict(attn_impl="flash", ff_impl="block_stored")),
+    (dict(text_dim_head=128), dict(attn_impl="flash")),
+    (dict(text_dim_head=96), dict(attn_impl="flash")),
+]
+PAST_CLIPS = [  # (CLIP kwargs, routes, the limit's words)
+    (dict(text_dim_head=128), dict(attn_impl="fused_recompute",
+                                   ff_impl="block"), "not 128"),
+    (dict(dim_text=72, text_heads=2), dict(ff_impl="block"),
+     "not dim 72, inner 288"),
+]
+SMALL_CLIP = dict(dim_text=128, dim_image=128, dim_latent=64,
+                  num_text_tokens=1000, text_enc_depth=2, text_seq_len=32,
+                  text_heads=4, visual_enc_depth=2, visual_heads=2,
+                  visual_image_size=64, visual_patch_size=16)
+
+
+def _small_inputs(device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    text = torch.randint(1, 1000, (4, 32), generator=gen, device=device)
+    text[:, 20:] = 0
+    return text, torch.randn(4, 3, 64, 64, generator=gen,
+                             device=device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,routes", NARROW_CLIPS)
+def test_clip_with_narrow_heads_runs_the_kernels(cuda_device, extra, routes):
+    """A small CLIP whose text heads are 32 wide (zero-padded to 64) or,
+    under 'flash', 96 or 128 wide (K7's bf16 kernels take 128 as two
+    64-column halves) serves and trains on the card through its kernels, with no
+    fallback warning, and its latents and loss match the plain routes'
+    (bf16: latents 3e-2, the first loss 0.05)."""
+    import warnings
+    import xclip_tpu_torch
+    from xclip_tpu_torch.train import default_optimizer, make_train_step
+    bf = torch.bfloat16
+    text, images = _small_inputs(cuda_device, 3)
+    model = xclip_tpu_torch.CLIP(**SMALL_CLIP, **extra, **routes,
+                                 param_dtype=bf, compute_dtype="bfloat16",
+                                 seed=3)
+    plain = xclip_tpu_torch.CLIP(**SMALL_CLIP, **extra, param_dtype=bf,
+                                 compute_dtype="bfloat16")
+    plain.load_state_dict(model.state_dict())
+    counters = (mega.attention_block, flash.flash_attention_fwd,
+                core.attention_core_fwd)
+    before = [c.launches for c in counters]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with torch.no_grad():
+            got = model(text, images, return_latents=True)
+    # both towers' attention layers launched their kernels
+    assert sum(c.launches - b for c, b in zip(counters, before)) == 4
+    with torch.no_grad():
+        want = plain(text, images, return_latents=True)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max().item() <= 3e-2
+    # the same patch-dropout draw on both routes
+    losses = [make_train_step(m, default_optimizer(m.parameters()))(
+        text, images, generator=torch.Generator(cuda_device).manual_seed(4))[
+            "loss"].float().item() for m in (model, plain)]
+    assert math.isfinite(losses[0]) and abs(losses[0] - losses[1]) <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,routes,words", PAST_CLIPS)
+def test_clip_past_the_kernels_raises(cuda_device, extra, routes, words):
+    """Where the CUDA kernels cannot take a shape the JAX package runs,
+    the entry point raises naming the limit; no plain route runs in the
+    kernel's place."""
+    import xclip_tpu_torch
+    text, images = _small_inputs(cuda_device, 5)
+    model = xclip_tpu_torch.CLIP(**{**SMALL_CLIP, **extra}, **routes,
+                                 param_dtype=torch.bfloat16,
+                                 compute_dtype="bfloat16", seed=5)
+    with pytest.raises(ValueError, match=words):
+        with torch.no_grad():
+            model(text, images, return_latents=True)

@@ -321,6 +321,76 @@ def test_streaming_lse_matches_pallas(R, C, decoupled, row_offset):
     _close_grad(ty.grad, want_dy, "float32", "dy")
 
 
+def _ordered_bwd(x, y, lse, dlse, row_offset, decoupled, plan):
+    """The CUDA backward's decomposition (`csrc/fused_infonce.cu`
+    xclip_lse_bwd) in PyTorch: per chunk of cc columns, p = exp(x·yᵀ −
+    lse) (0 on the DCL diagonal), dx's product over column ranges of kx
+    and dy's over row ranges of ky, each range a partial added in order
+    from zero (dx from its running sum after the first chunk), dx scaled
+    by dlse after the last chunk."""
+    cc, kx, ky = plan
+    R, C = x.shape[0], y.shape[0]
+    dx, dy = torch.zeros_like(x), torch.empty_like(y)
+    xw = x * dlse[:, None]
+    for c0 in range(0, C, cc):
+        n = min(cc, C - c0)
+        p = torch.exp(x @ y[c0:c0 + n].T - lse[:, None])
+        if decoupled:
+            diag = (torch.arange(c0, c0 + n)[None]
+                    == torch.arange(R)[:, None] + row_offset)
+            p = torch.where(diag, 0.0, p)
+        acc = dx if c0 else torch.zeros_like(dx)
+        for k in range(0, n, kx):
+            acc = acc + p[:, k:k + kx] @ y[c0 + k:c0 + min(k + kx, n)]
+        dx = acc * dlse[:, None] if c0 + n == C else acc
+        part = torch.zeros(n, x.shape[1])
+        for k in range(0, R, ky):
+            part = part + p[k:k + ky].T @ xw[k:k + ky]
+        dy[c0:c0 + n] = part
+    return dx, dy
+
+
+@pytest.mark.parametrize("R,C,d,row_offset,decoupled", [
+    (37, 300, 64, 5, True), (300, 37, 64, 0, True), (37, 300, 1100, 0, False),
+    (24, 24, 1100, 0, True), (45, 130, 64, 3, True)])
+@pytest.mark.parametrize("forced", [False, True])
+def test_streaming_lse_ordered_partials_match(R, C, d, row_offset, decoupled,
+                                              forced):
+    """K5's backward as the CUDA kernels decompose it (chunks of columns,
+    ranges of the reductions, partials summed in order), with the wrapper's
+    plan or one forced to several chunks and ranges, against the dense
+    plain backward and JAX's `_lse_backward` in interpret mode."""
+    x, y = _lse_args(R, C, d, seed=4)
+    cot = _cot((R,), seed=6)
+    tx, ty, dlse = (torch.from_numpy(a) for a in (x, y, cot))
+    lse = lse5.streaming_lse_fwd_plain(tx, ty, row_offset, decoupled)
+    plan = lse5.bwd_plan(R, C, d)
+    assert plan[0] <= C and plan[1] % lse5.SLICE == plan[2] % lse5.SLICE == 0
+    if forced:
+        plan = (max(1, C // 3), 16, 8)
+    got = _ordered_bwd(tx, ty, lse, dlse, row_offset, decoupled, plan)
+    plain = lse5.streaming_lse_bwd_plain(tx, ty, lse, dlse, row_offset,
+                                         decoupled)
+    _close_sum_order(got, plain)
+
+    def f(a, b):
+        return jnp.sum(jlse.streaming_lse(a, b, row_offset, decoupled) * cot)
+
+    want = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    _close_grad(got[0], want[0], "float32", "dx")
+    _close_grad(got[1], want[1], "float32", "dy")
+
+
+def test_streaming_lse_bwd_plan_fills_the_card():
+    """At the b = 2048 step's (2048, 2048, 512), the plan computes p once
+    for every column and gives each backward product 4 ranges of 128 x 128
+    tiles: 256 blocks, two an SM on 132 SMs; at a row shard of a gathered
+    32k batch, chunks of columns keep p under 64 MiB."""
+    assert lse5.bwd_plan(2048, 2048, 512) == (2048, 512, 512)
+    cc, _, _ = lse5.bwd_plan(2048, 32768, 512)
+    assert 2048 * cc * 4 <= lse5.P_BYTES and cc % lse5.TILE == 0
+
+
 def test_streaming_lse_plain_matches_autograd():
     x, y = (torch.from_numpy(a).requires_grad_(True)
             for a in _lse_args(9, 13, 16, seed=3))

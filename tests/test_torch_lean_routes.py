@@ -70,8 +70,9 @@ def test_unported_routes_raise_at_construction(flags):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(attn_impl="fused_recompute", checkpoint_during_training=True),
-     "Queue 1, item 2"),
-    (dict(attn_impl="fused_qkv", ff_dropout=0.1), "Queue 1, items 1-2"),
+     "Queue 1, remat"),
+    (dict(attn_impl="fused_qkv", ff_dropout=0.1),
+     "Queue 1, dropout in training"),
 ])
 def test_lean_routes_keep_remat_and_dropout_raising(kwargs, match):
     stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)

@@ -1,8 +1,11 @@
 """The row kernels' plain versions (`xclip_tpu_torch.kernels.rows`: the
-GEGLU backward rows in their recompute, K8 and stored-h modes, the
-LayerNorm backward rows plain and from the GEGLU triple) against the JAX
-package's bodies on the CPU, on the same h, dy and statistics made from a
-numpy seed: `_p1_recompute_core`, `_p1_stored_core` (with
+LayerNorm forward rows in each mode, the GEGLU backward rows in their
+recompute, K8 and stored-h modes, the LayerNorm backward rows plain and
+from the GEGLU triple) against the JAX package's bodies on the CPU, on the
+same x, h, dy and statistics made from a numpy seed: `layer_norm_apply`
+(`xclip_tpu/nn/core.py`) and K8's forward (`fused_ff.py`, Pallas
+interpret mode) for the forward modes, `_p1_recompute_core`,
+`_p1_stored_core` (with
 `_p2_stored_core` for dh2 and y), K8's backward (`fused_ff.py`, Pallas
 interpret mode), `_common.ln_bwd` and `_p1_geglu_core` (with
 `_p2_geglu_core` for dh2 and y2). The pass-2 bodies hand back only weight
@@ -28,6 +31,7 @@ import torch
 from xclip_tpu.kernels import _common as jcommon
 from xclip_tpu.kernels import fused_ff as jff8
 from xclip_tpu.kernels import fused_ff_block as jffb
+from xclip_tpu.nn import core as jcore
 from xclip_tpu_torch.kernels import rows as rk
 from xclip_tpu_torch.kernels.matmul import ordered_sum
 
@@ -138,6 +142,71 @@ def test_geglu_stored_h_plain_matches_p1_stored_core(dtype):
     _close(dh2[:, :INNER], want_da, dtype, "dh2 a")
     _close(dh2[:, INNER:], want_db, dtype, "dh2 b")
     _close(y, np.asarray(want_yt, np.float32).T, dtype, "y")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["plain", "stats", "residual", "in_copy"])
+@pytest.mark.parametrize("d", [7, 100, 512])
+def test_ln_fwd_plain_matches_layer_norm_apply(dtype, mode, d):
+    """Each LayerNorm forward mode's plain version against
+    `layer_norm_apply` on the same rows of the storage dtype: out (with the
+    residual added in that dtype), the two-pass statistics, the copy."""
+    npr = np.random.RandomState(7)
+    dt = jnp.dtype(dtype)
+    x = jnp.asarray(npr.randn(ROWS, d) * 2 + 0.5, dt)
+    g = jnp.asarray(1 + 0.1 * npr.randn(d), dt)
+    resid = jnp.asarray(npr.randn(ROWS, d), dt) if mode == "residual" \
+        else None
+    want = jcore.layer_norm_apply({"g": g}, x)
+    if resid is not None:
+        want = want + resid
+    tdt = getattr(torch, dtype)
+    got = rk.ln_rows_plain(mode, _t(x, tdt), _t(g, tdt),
+                           None if resid is None else _t(resid, tdt))
+    assert got[0].dtype == tdt
+    _close(got[0], want, dtype, "out")
+    if mode != "plain":
+        mean, inv = _stats(jnp.asarray(x, jnp.float32))
+        _close(got[1], mean, "float32", "mean")
+        # eps of the storage dtype, as the kernels' callers pass it
+        inv = jax.lax.rsqrt(1 / inv ** 2 - jcommon.eps_for(jnp.float32)
+                            + jcommon.eps_for(dt))
+        _close(got[2], inv, "float32", "inv")
+    if mode == "in_copy":
+        assert torch.equal(got[3], _t(x, tdt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("inner", [7, 128])
+def test_ln_fwd_geglu_plain_matches_pallas_forward(dtype, inner):
+    """The GEGLU mode's plain version against K8's Pallas forward."""
+    npr = np.random.RandomState(8)
+    dt = jnp.dtype(dtype)
+    h = jnp.asarray(npr.randn(ROWS, 2 * inner), dt)
+    g = jnp.asarray(1 + 0.1 * npr.randn(inner), dt)
+    want = jff8.geglu_layernorm(h, g, None, 8, True)
+    tdt = getattr(torch, dtype)
+    got, = rk.ln_rows_plain("geglu", _t(h, tdt), _t(g, tdt))
+    _close(got, want, dtype, "out")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_fwd_plain_from_fp32_rows(dtype):
+    """The callers that normalise fp32 rows into the storage dtype (the FF
+    block's inner LayerNorm, the megablock's out LayerNorm): the
+    statistics of the fp32 rows with the storage dtype's eps, out rounded
+    once, as JAX's `_common.ln_fp32` then a cast."""
+    npr = np.random.RandomState(9)
+    x = jnp.asarray(npr.randn(ROWS, 96), jnp.float32)
+    g = jnp.asarray(1 + 0.1 * npr.randn(96), jnp.dtype(dtype))
+    eps = jcommon.eps_for(jnp.dtype(dtype))
+    want, _, _ = jcommon.ln_fp32(x, jnp.asarray(g, jnp.float32), eps)
+    tdt = getattr(torch, dtype)
+    for mode in ("stats", "in_copy"):
+        got = rk.ln_rows_plain(mode, _t(x), _t(g, tdt))
+        _close(got[0], jnp.asarray(want, jnp.dtype(dtype)), dtype, "out")
+        if mode == "in_copy":
+            assert torch.equal(got[3], _t(x).to(tdt))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

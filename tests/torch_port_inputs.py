@@ -74,10 +74,10 @@ def core_args(b=3, n=33, heads=2, seed=0, mask_kind="keypad"):
             npr.randn(b, n, hd).astype(np.float32))
 
 
-def flash_args(b=3, h=2, n=37, seed=0, mask_kind="keypad"):
-    """K7 inputs: q (pre-scaled by 64^-0.5), k, v (b, h, n, 64), the key
+def flash_args(b=3, h=2, n=37, seed=0, mask_kind="keypad", d=64):
+    """K7 inputs: q (pre-scaled by d^-0.5), k, v (b, h, n, d), the key
     mask (b, n) and a cotangent of the output."""
     npr = np.random.RandomState(seed)
-    q, k, v, do = (npr.randn(b, h, n, 64).astype(np.float32)
+    q, k, v, do = (npr.randn(b, h, n, d).astype(np.float32)
                    for _ in range(4))
-    return q * 0.125, k, v, _key_mask(b, n, mask_kind), do
+    return q * np.float32(d ** -0.5), k, v, _key_mask(b, n, mask_kind), do

@@ -11,7 +11,7 @@ the JAX `CLIP` folds a call counter into its key) and `return_metrics=`.
 
 The port serves inference and trains (`return_loss=True`, and
 `train.make_train_step`). A flag whose behaviour is not ported raises
-`NotImplementedError` naming the ROADMAP.md item that will port it, at
+`NotImplementedError` naming the ROADMAP.md module that will port it, at
 construction or, for flags that only act in training
 (`checkpoint_during_training`, `sim_reg_loss_weight`, augmented views),
 when a training forward meets them. `remat_policy` only qualifies
@@ -30,6 +30,10 @@ from .model import CLIPModel, as_dtype
 from .nn.layers import check_impls
 from .nn.text import TextTransformer
 from .nn.vision import VisionTransformer
+
+
+# where ROADMAP.md queues FILIP, MLM, SSL, multiview and sim-reg
+OBJECTIVES = "Queue 1, the objectives and heads"
 
 
 def _not_ported(what: str, where: str):
@@ -109,9 +113,9 @@ class CLIP(nn.Module):
             raise TypeError(f"unexpected CLIP kwargs: {sorted(kwargs)}")
         if use_all_token_embeds or downsample_image_embeds or filip_block:
             _not_ported("FILIP (use_all_token_embeds, downsample_image_embeds,"
-                        " filip_block)", "Queue 1, items 4-5")
+                        " filip_block)", OBJECTIVES)
         if use_mlm or use_visual_ssl or visual_ssl is not None:
-            _not_ported("use_mlm / use_visual_ssl", "Queue 1, item 7")
+            _not_ported("use_mlm / use_visual_ssl", OBJECTIVES)
         if loss_impl not in ("xla", "fused"):
             raise ValueError(f"unknown loss_impl {loss_impl!r}")
         check_impls(attn_impl, ff_impl)
@@ -196,9 +200,9 @@ class CLIP(nn.Module):
                 raise ValueError("do not pass in augmented texts or images "
                                  "if not training")
             _not_ported("augmented views in training (aug_text / aug_image,"
-                        " the multiview loss)", "Queue 1, item 4")
+                        " the multiview loss)", OBJECTIVES)
         if training and return_loss and self.sim_reg_loss_weight > 0:
-            _not_ported("sim_reg_loss_weight > 0", "Queue 1, item 4")
+            _not_ported("sim_reg_loss_weight > 0", OBJECTIVES)
         if training and generator is None and keep_idx is None:
             generator = self.call_generator
         return self.model(text, image, return_loss=return_loss,

@@ -3,15 +3,11 @@
 //   * dtype helpers: storage is fp32 or bf16; every statistic, softmax and
 //     product accumulates in fp32, and a value is rounded to the storage
 //     dtype exactly where the JAX kernels cast (`.astype(x.dtype)`).
-//   * ln_rows_kernel: gain-only LayerNorm over rows with two-pass fp32
-//     statistics (xclip_tpu/kernels/_common.py ln_fp32), optionally followed
-//     by a residual add in the storage dtype; optionally also stores each
-//     row's mean and rsqrt(var + eps) and the input rounded to the storage
-//     dtype (the training forwards' residuals); optionally with a GEGLU
-//     prologue that normalises a * gelu(b) of a row [a, b] (K8's forward).
-//   * row_kernels.cuh (included at the end): the LayerNorm-backward and
-//     GEGLU-backward row kernels (ln_bwd_rows_kernel, geglu_bwd_rows_kernel)
-//     and their launch functions.
+//   * row_kernels.cuh (included at the end): the LayerNorm row kernels,
+//     forward and backward, and the GEGLU-backward row kernel
+//     (ln_fwd_rows_kernel, ln_bwd_rows_kernel, geglu_bwd_rows_kernel) and
+//     their launch functions (launch_ln_rows, launch_ln_bwd_rows,
+//     launch_geglu_bwd_rows).
 //   * launch_mm: a tiled matrix product with fused epilogues, either
 //     operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B), the k
 //     axis optionally split into ranges that write fp32 partials (the
@@ -95,69 +91,6 @@ struct GegluParts {
     return phi + b * (expf(-0.5f * b * b) * 0.3989422804014327f);
   }
 };
-
-// Element i of a row as a LayerNorm reads it: x[i] itself, or with GEGLU
-// the product a * gelu(b) of a row of h = [a, b] (2d wide), in fp32.
-template <bool GEGLU, typename Tin>
-__device__ __forceinline__ float row_value(const Tin* x, int i, int d) {
-  if constexpr (GEGLU) return GegluParts(to_f(x[i]), to_f(x[d + i])).prod;
-  return to_f(x[i]);
-}
-
-// ------------------------------------------------------------- LayerNorm
-
-constexpr int kLnRowsPerBlock = 4;  // one warp per row
-
-// out[r] = T((in[r] - mean) * rsqrt(var + eps) * g), fp32 statistics; with
-// `resid`, out[r] = that value (cast to T) + resid[r], the add in T. With
-// `mean_out`, the row's mean and rsqrt(var + eps) go to mean_out[r] and
-// inv_out[r]; with `in_copy`, in[r] rounded to T goes to in_copy[r]. With
-// GEGLU the row is the product a * gelu(b) of in's row [a, b] (2d wide),
-// rebuilt in each sweep (K8's forward).
-template <typename Tin, typename T, bool GEGLU = false>
-__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
-ln_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
-               const T* __restrict__ resid, T* __restrict__ out, int rows,
-               int d, float eps, float* __restrict__ mean_out,
-               float* __restrict__ inv_out, T* __restrict__ in_copy) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * kLnRowsPerBlock + warp;
-  if (row >= rows) return;
-  const Tin* x = in + row * (GEGLU ? 2 * d : d);
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += row_value<GEGLU>(x, i, d);
-  const float mean = warp_sum(s) / (float)d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float c = row_value<GEGLU>(x, i, d) - mean;
-    v += c * c;
-  }
-  const float inv = rsqrtf(warp_sum(v) / (float)d + eps);
-  if (mean_out && lane == 0) {
-    mean_out[row] = mean;
-    inv_out[row] = inv;
-  }
-  T* o = out + row * d;
-  const T* rr = resid ? resid + row * d : nullptr;
-  for (int i = lane; i < d; i += 32) {
-    const float xv = row_value<GEGLU>(x, i, d);
-    const float y = ((xv - mean) * inv) * to_f(g[i]);
-    o[i] = rr ? from_f<T>(round_to<T>(y) + to_f(rr[i])) : from_f<T>(y);
-    if (in_copy) in_copy[row * d + i] = from_f<T>(xv);
-  }
-}
-
-template <typename Tin, typename T, bool GEGLU = false>
-int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
-                   int rows, int d, float eps, cudaStream_t st,
-                   float* mean_out = nullptr, float* inv_out = nullptr,
-                   T* in_copy = nullptr) {
-  const int grid = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
-  ln_rows_kernel<Tin, T, GEGLU><<<grid, 32 * kLnRowsPerBlock, 0, st>>>(
-      in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
 
 // out[i] = Tout(sum over p of part[p * n + i]), p in order 0, 1, ...; with
 // `accumulate` (fp32 out) the sum starts from out[i]: the recompute

@@ -5,7 +5,8 @@
 // `attn_impl='flash'`, and the long-sequence one: no score row is ever
 // whole, so the length has no limit.
 //
-// Shapes: q, k, v, out (bh, n, 64) of the storage dtype, q pre-scaled; the
+// Shapes: q, k, v, out (bh, n, d) of the storage dtype, q pre-scaled (d
+// 64; in bf16 also 128, a head of two 64-column halves); the
 // key mask (bh, n) uint8 (nonzero = valid), already repeated per head; n a
 // multiple of 64 (the wrapper pads, masking the padded keys); lse and
 // delta (bh, n) fp32.
@@ -361,19 +362,21 @@ static bool flash_args_ok(int bh, int n) {
 }
 
 // Returns a cudaError_t code (0 on success). q (pre-scaled), k, v, out
-// (bh, n, 64) of the storage dtype; mask (bh, n) uint8; lse (bh, n) fp32.
+// (bh, n, d) of the storage dtype, d 64 (fp32) or 64 or 128 (bf16); mask
+// (bh, n) uint8; lse (bh, n) fp32.
 extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask, void* out,
-                               void* lse, int bh, int n, int causal,
+                               void* lse, int bh, int n, int d, int causal,
                                void* stream) {
-  if (!flash_args_ok(bh, n)) return (int)cudaErrorInvalidValue;
+  if (!flash_args_ok(bh, n) || (dtype == xclip::kF32 && d != FD))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (dtype == xclip::kBF16)
     return xclip::launch_k7_fwd(
         XCLIP_PTR(const bf16*, q), XCLIP_PTR(const bf16*, k),
         XCLIP_PTR(const bf16*, v), m, XCLIP_PTR(bf16*, out),
-        XCLIP_PTR(float*, lse), bh, n, causal, st);
+        XCLIP_PTR(float*, lse), bh, n, d, causal, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return flash_fwd<float>(XCLIP_PTR(const float*, q),
                           XCLIP_PTR(const float*, k),
@@ -382,16 +385,17 @@ extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
                           n, causal, st);
 }
 
-// The backward: q, k, v, mask, lse as the forward's; out and dout (bh, n,
-// 64); delta (bh, n) fp32: for bf16 scratch the kernels fill with sum
-// dout * out, for fp32 that sum, given; dq, dk, dv (bh, n, 64).
+// The backward: q, k, v, mask, lse, d as the forward's; out and dout (bh,
+// n, d); delta (bh, n) fp32: for bf16 scratch the kernels fill with sum
+// dout * out, for fp32 that sum, given; dq, dk, dv (bh, n, d).
 extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask,
                                const void* out, const void* dout,
                                const void* lse, void* delta, void* dq,
-                               void* dk, void* dv, int bh, int n, int causal,
-                               void* stream) {
-  if (!flash_args_ok(bh, n)) return (int)cudaErrorInvalidValue;
+                               void* dk, void* dv, int bh, int n, int d,
+                               int causal, void* stream) {
+  if (!flash_args_ok(bh, n) || (dtype == xclip::kF32 && d != FD))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (dtype == xclip::kBF16)
@@ -400,7 +404,7 @@ extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
         XCLIP_PTR(const bf16*, v), m, XCLIP_PTR(const bf16*, out),
         XCLIP_PTR(const float*, lse), XCLIP_PTR(const bf16*, dout),
         XCLIP_PTR(bf16*, dq), XCLIP_PTR(bf16*, dk), XCLIP_PTR(bf16*, dv),
-        XCLIP_PTR(float*, delta), bh, n, causal, st);
+        XCLIP_PTR(float*, delta), bh, n, d, causal, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return flash_bwd<float>(
       XCLIP_PTR(const float*, q), XCLIP_PTR(const float*, k),

@@ -119,48 +119,73 @@ struct K7Block {
   }
 };
 
+// A head of D = 64 NH columns is NH staged 64-column tiles (NH = 1 or 2):
+// its scores sum the halves' products, and each half keeps its own output
+// accumulator. Tile h of a staged side sits at `tiles + h * K7_TILE`.
+template <int NH>
+__device__ __forceinline__ void k7_stage(bf16* tiles, const bf16* src,
+                                         int r0, int n) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    stage_tile_async<K7_THREADS>(tiles + h * K7_TILE, src, 64 * NH, 64 * h,
+                                 r0, n);
+}
+
+// acc += a . bᵀ over the whole head: a's NH tiles (the warp's rows) against
+// b's NH tiles
+template <int NH>
+__device__ __forceinline__ void k7_abt(float (&acc)[8][4], const bf16* a,
+                                       const bf16* b) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    uint32_t f[4][4];
+    load_a(f, a + h * K7_TILE, warp * 16);
+    mma_abt(acc, f, b + h * K7_TILE);
+  }
+}
+
 // Forward, one block per (bh row, 64-query tile).
-__global__ void __launch_bounds__(K7_THREADS, 4)
+template <int NH>
+__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 4 : 2)
 k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
               bf16* __restrict__ out, float* __restrict__ lse, int n,
               int causal) {
+  constexpr int D = 64 * NH, T = NH * K7_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + K7_TILE;      // two buffers
-  bf16* vs = ks + 2 * K7_TILE;  // two buffers
+  bf16* ks = qs + T;      // two buffers
+  bf16* vs = ks + 2 * T;  // two buffers
   const int tiles = n / 64;
   const K7Block blk(tiles, causal);
   const int qt = blk.t, q0 = 64 * qt;
-  const long base = blk.bh * n * 64;
+  const long base = blk.bh * n * D;
   const uint8_t* mrow = mask + blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    stage_tile_async<K7_THREADS>(ks + buf * K7_TILE, k + base, 64, 0, 64 * t,
-                                 n);
-    stage_tile_async<K7_THREADS>(vs + buf * K7_TILE, v + base, 64, 0, 64 * t,
-                                 n);
+    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n);
+    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n);
   };
   // q lands with the first key tile
-  stage_tile_async<K7_THREADS>(qs, q + base, 64, 0, q0, n);
+  k7_stage<NH>(qs, q + base, q0, n);
   const int last = causal ? qt + 1 : tiles;
   auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
   const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows in the tile
 
   // per row: the running max, this thread's share of the running sum
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[8][4];
-  zero_acc(o);
+  float o[NH][8][4];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) zero_acc(o[h]);
   tile_walk(next(-1), last, next, stage, [&](int t, int buf) {
     const KeyBits key(key_word(mrow + 64 * t), tq);
     const bool diag = causal && t == qt;  // the only tile with future keys
-    uint32_t a[4][4];
     float s[8][4];
-    load_a(a, qs, warp * 16);
     zero_acc(s);
-    mma_abt(s, a, ks + buf * K7_TILE);
+    k7_abt<NH>(s, qs, ks + buf * T);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mt = -INFINITY;
@@ -185,13 +210,16 @@ k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float& x = s[c][2 * i + e];
           x = k7_exp(x - msafe);  // exp(-inf) = 0: masked
           sum += x;
-          o[c][2 * i + e] *= corr;
+#pragma unroll
+          for (int h = 0; h < NH; ++h) o[h][c][2 * i + e] *= corr;
         }
       l[i] = l[i] * corr + sum;
       m[i] = mn;
     }
+    uint32_t a[4][4];
     pack_a(a, s);  // p rounded to bf16 against the running max
-    mma_ab(o, a, vs + buf * K7_TILE);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) mma_ab(o[h], a, vs + buf * T + h * K7_TILE);
   });
   cp_async_wait<0>();  // q has landed even if no tile was walked
   __syncthreads();
@@ -199,46 +227,51 @@ k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const float li = fmaxf(quad_sum(l[i]), 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      o[c][2 * i] /= li;
-      o[c][2 * i + 1] /= li;
-    }
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        o[h][c][2 * i] /= li;
+        o[h][c][2 * i + 1] /= li;
+      }
     if (tq == 0)
       lse[blk.bh * n + q0 + r[i]] =
           (m[i] == -INFINITY ? 0.f : m[i]) + logf(li);
   }
-  store_rows(out + base, 64, q0, n, qs, warp * 16, o);
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    store_rows(out + base + 64 * h, D, q0, n, qs + h * K7_TILE, warp * 16,
+               o[h]);
 }
 
 // dq and delta, one block per (bh row, 64-query tile).
-__global__ void __launch_bounds__(K7_THREADS, 3)
+template <int NH>
+__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 3 : 2)
 k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                  const bf16* __restrict__ out, const float* __restrict__ lse,
                  const bf16* __restrict__ dout, bf16* __restrict__ dq,
                  float* __restrict__ delta, int n, int causal) {
+  constexpr int D = 64 * NH, T = NH * K7_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + K7_TILE;
-  bf16* ks = dos + K7_TILE;     // two buffers
-  bf16* vs = ks + 2 * K7_TILE;  // two buffers
+  bf16* dos = qs + T;
+  bf16* ks = dos + T;     // two buffers
+  bf16* vs = ks + 2 * T;  // two buffers
   const int tiles = n / 64;
   const K7Block blk(tiles, causal);
   const int qt = blk.t, q0 = 64 * qt;
-  const long base = blk.bh * n * 64, rows = blk.bh * n + q0;
+  const long base = blk.bh * n * D, rows = blk.bh * n + q0;
   const uint8_t* mrow = mask + blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    stage_tile_async<K7_THREADS>(ks + buf * K7_TILE, k + base, 64, 0, 64 * t,
-                                 n);
-    stage_tile_async<K7_THREADS>(vs + buf * K7_TILE, v + base, 64, 0, 64 * t,
-                                 n);
+    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n);
+    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n);
   };
   // q and dO land with the first key tile
-  stage_tile_async<K7_THREADS>(qs, q + base, 64, 0, q0, n);
-  stage_tile_async<K7_THREADS>(dos, dout + base, 64, 0, q0, n);
+  k7_stage<NH>(qs, q + base, q0, n);
+  k7_stage<NH>(dos, dout + base, q0, n);
   const int last = causal ? qt + 1 : tiles;
   auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
   const int first = next(-1);
@@ -250,10 +283,11 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // delta = sum dO * out in fp32: lanes 2j, 2j + 1 take half of row
   // warp * 16 + j each, from global memory while the tiles load
   {
-    const long off = (rows + warp * 16 + (lane >> 1)) * 64 + (lane & 1) * 32;
+    const long off =
+        (rows + warp * 16 + (lane >> 1)) * D + (lane & 1) * (D / 2);
     float acc = 0.f;
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
+    for (int c = 0; c < D / 2; c += 8) {
       const uint4 ov = *reinterpret_cast<const uint4*>(out + off + c);
       const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
       const bf16* op = reinterpret_cast<const bf16*>(&ov);
@@ -267,20 +301,18 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rdelta[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
   }
 
-  float dqa[8][4];
-  zero_acc(dqa);
+  float dqa[NH][8][4];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) zero_acc(dqa[h]);
   tile_walk(first, last, next, stage, [&](int t, int buf) {
     const KeyBits key(key_word(mrow + 64 * t), tq);
     const bool diag = causal && t == qt;
-    const bf16* kt = ks + buf * K7_TILE;
-    uint32_t a[4][4];
+    const bf16* kt = ks + buf * T;
     float s[8][4], dp[8][4];
-    load_a(a, qs, warp * 16);
     zero_acc(s);
-    mma_abt(s, a, kt);
-    load_a(a, dos, warp * 16);
+    k7_abt<NH>(s, qs, kt);
     zero_acc(dp);
-    mma_abt(dp, a, vs + buf * K7_TILE);
+    k7_abt<NH>(dp, dos, vs + buf * T);
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -291,17 +323,24 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = valid ? k7_exp(s[c][e] - rlse[i]) : 0.f;
         s[c][e] = p * (dp[c][e] - rdelta[i]);
       }
+    uint32_t a[4][4];
     pack_a(a, s);
-    mma_ab(dqa, a, kt);  // dq += T(ds) . k
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      mma_ab(dqa[h], a, kt + h * K7_TILE);  // dq += T(ds) . k
   });
   cp_async_wait<0>();  // q, dO have landed even if no tile was walked
   __syncthreads();
-  store_rows(dq + base, 64, q0, n, qs, warp * 16, dqa);
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    store_rows(dq + base + 64 * h, D, q0, n, qs + h * K7_TILE, warp * 16,
+               dqa[h]);
 }
 
 // dk and dv, one block per (bh row, 64-key tile), over the query tiles
 // that see it.
-__global__ void __launch_bounds__(K7_THREADS, 3)
+template <int NH>
+__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 3 : 1)
 k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v,
                   const uint8_t* __restrict__ mask,
@@ -309,65 +348,64 @@ k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ dout,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, int n, int causal) {
+  constexpr int D = 64 * NH, T = NH * K7_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + K7_TILE;
-  bf16* qs = vs + K7_TILE;       // two buffers
-  bf16* dos = qs + 2 * K7_TILE;  // two buffers
-  float* stats = reinterpret_cast<float*>(dos + 2 * K7_TILE);  // [2][2][64]
+  bf16* vs = ks + T;
+  bf16* qs = vs + T;       // two buffers
+  bf16* dos = qs + 2 * T;  // two buffers
+  float* stats = reinterpret_cast<float*>(dos + 2 * T);  // [2][2][64]
   const int tiles = n / 64;
   const K7Block blk(tiles, false);
   const int kt = blk.t, k0 = 64 * kt;
-  const long base = blk.bh * n * 64, rows = blk.bh * n;
+  const long base = blk.bh * n * D, rows = blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   const unsigned long long kw = key_word(mask + rows + k0);
   if (kw == 0) {  // no valid key: no query reaches the tile
-    for (int c = threadIdx.x; c < 64 * 8; c += K7_THREADS) {
-      const long o = base + (long)(k0 + (c >> 3)) * 64 + (c & 7) * 8;
+    for (int c = threadIdx.x; c < 64 * D / 8; c += K7_THREADS) {
+      const long o = base + (long)(k0 + c / (D / 8)) * D + (c % (D / 8)) * 8;
       *reinterpret_cast<uint4*>(dk + o) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(dv + o) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
   auto stage = [&](int t, int buf) {
-    stage_tile_async<K7_THREADS>(qs + buf * K7_TILE, q + base, 64, 0, 64 * t,
-                                 n);
-    stage_tile_async<K7_THREADS>(dos + buf * K7_TILE, dout + base, 64, 0,
-                                 64 * t, n);
+    k7_stage<NH>(qs + buf * T, q + base, 64 * t, n);
+    k7_stage<NH>(dos + buf * T, dout + base, 64 * t, n);
     // lse (threads 0-63) and delta (64-127) of the tile's queries
     const int c = threadIdx.x & 63;
     cp_async4(stats + (buf * 2 + (threadIdx.x >> 6)) * 64 + c,
               (threadIdx.x < 64 ? lse : delta) + rows + 64 * t + c, true);
   };
   // k and v land with the first query tile
-  stage_tile_async<K7_THREADS>(ks, k + base, 64, 0, k0, n);
-  stage_tile_async<K7_THREADS>(vs, v + base, 64, 0, k0, n);
+  k7_stage<NH>(ks, k + base, k0, n);
+  k7_stage<NH>(vs, v + base, k0, n);
   const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // keys in the tile
   bool kvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) kvalid[i] = (kw >> r[i]) & 1ull;
 
-  float dka[8][4], dva[8][4];
-  zero_acc(dka);
-  zero_acc(dva);
+  float dka[NH][8][4], dva[NH][8][4];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    zero_acc(dka[h]);
+    zero_acc(dva[h]);
+  }
   // causal: query tiles before the key tile see none of its keys
   tile_walk(causal ? kt : 0, tiles, [](int t) { return t + 1; }, stage,
             [&](int t, int buf) {
     const bool diag = causal && t == kt;
-    const bf16* qt = qs + buf * K7_TILE;
-    const bf16* dot = dos + buf * K7_TILE;
+    const bf16* qt = qs + buf * T;
+    const bf16* dot = dos + buf * T;
     const float* tlse = stats + buf * 2 * 64;
     const float* tdelta = tlse + 64;
-    uint32_t a[4][4];
     float s[8][4], dp[8][4];
-    load_a(a, ks, warp * 16);
     zero_acc(s);
-    mma_abt(s, a, qt);  // sᵀ = k . qᵀ
-    load_a(a, vs, warp * 16);
+    k7_abt<NH>(s, ks, qt);  // sᵀ = k . qᵀ
     zero_acc(dp);
-    mma_abt(dp, a, dot);  // dpᵀ = v . dOᵀ
+    k7_abt<NH>(dp, vs, dot);  // dpᵀ = v . dOᵀ
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -378,21 +416,34 @@ k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[c][e] = p;
         dp[c][e] = p * (dp[c][e] - tdelta[col]);
       }
+    uint32_t a[4][4];
     pack_a(a, s);
-    mma_ab(dva, a, dot);  // dv += T(p)ᵀ . dO
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      mma_ab(dva[h], a, dot + h * K7_TILE);  // dv += T(p)ᵀ . dO
     pack_a(a, dp);
-    mma_ab(dka, a, qt);  // dk += T(ds)ᵀ . q
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      mma_ab(dka[h], a, qt + h * K7_TILE);  // dk += T(ds)ᵀ . q
   });
   cp_async_wait<0>();
   __syncthreads();
-  store_rows(dk + base, 64, k0, n, ks, warp * 16, dka);
-  store_rows(dv + base, 64, k0, n, vs, warp * 16, dva);
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    store_rows(dk + base + 64 * h, D, k0, n, ks + h * K7_TILE, warp * 16,
+               dka[h]);
+    store_rows(dv + base + 64 * h, D, k0, n, vs + h * K7_TILE, warp * 16,
+               dva[h]);
+  }
 }
 
-constexpr size_t k7_fwd_smem() { return 5 * K7_TILE * sizeof(bf16); }
-constexpr size_t k7_dq_smem() { return 6 * K7_TILE * sizeof(bf16); }
+template <int NH>
+constexpr size_t k7_fwd_smem() { return 5 * NH * K7_TILE * sizeof(bf16); }
+template <int NH>
+constexpr size_t k7_dq_smem() { return 6 * NH * K7_TILE * sizeof(bf16); }
+template <int NH>
 constexpr size_t k7_dkv_smem() {
-  return 6 * K7_TILE * sizeof(bf16) + 4 * 64 * sizeof(float);
+  return 6 * NH * K7_TILE * sizeof(bf16) + 4 * 64 * sizeof(float);
 }
 
 // the 1-D grid of bh x n/64 blocks, 0 when it exceeds the grid's x limit
@@ -407,42 +458,64 @@ cudaError_t k7_allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// out (bh, n, 64) and lse (bh, n) fp32 from q (pre-scaled), k, v (bh, n,
-// 64) and the key mask (bh, n) uint8; n a multiple of 64.
-inline int launch_k7_fwd(const bf16* q, const bf16* k, const bf16* v,
-                         const uint8_t* mask, bf16* out, float* lse, int bh,
-                         int n, int causal, cudaStream_t st) {
-  const unsigned blocks = k7_blocks(bh, n);
-  if (!blocks) return (int)cudaErrorInvalidValue;
-  cudaError_t e = k7_allow_smem(k7_fwd_kernel, k7_fwd_smem());
+template <int NH>
+int launch_k7_fwd_nh(const bf16* q, const bf16* k, const bf16* v,
+                     const uint8_t* mask, bf16* out, float* lse,
+                     unsigned blocks, int n, int causal, cudaStream_t st) {
+  cudaError_t e = k7_allow_smem(k7_fwd_kernel<NH>, k7_fwd_smem<NH>());
   if (e != cudaSuccess) return (int)e;
-  k7_fwd_kernel<<<blocks, K7_THREADS, k7_fwd_smem(), st>>>(
+  k7_fwd_kernel<NH><<<blocks, K7_THREADS, k7_fwd_smem<NH>(), st>>>(
       q, k, v, mask, out, lse, n, causal);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
-// dq, dk, dv (bh, n, 64) from the forward's inputs, out, lse and dout;
+template <int NH>
+int launch_k7_bwd_nh(const bf16* q, const bf16* k, const bf16* v,
+                     const uint8_t* mask, const bf16* out, const float* lse,
+                     const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
+                     float* delta, unsigned blocks, int n, int causal,
+                     cudaStream_t st) {
+  cudaError_t e = k7_allow_smem(k7_bwd_dq_kernel<NH>, k7_dq_smem<NH>());
+  if (e == cudaSuccess)
+    e = k7_allow_smem(k7_bwd_dkv_kernel<NH>, k7_dkv_smem<NH>());
+  if (e != cudaSuccess) return (int)e;
+  k7_bwd_dq_kernel<NH><<<blocks, K7_THREADS, k7_dq_smem<NH>(), st>>>(
+      q, k, v, mask, out, lse, dout, dq, delta, n, causal);
+  XCLIP_CHECK_LAUNCH();
+  k7_bwd_dkv_kernel<NH><<<blocks, K7_THREADS, k7_dkv_smem<NH>(), st>>>(
+      q, k, v, mask, lse, dout, delta, dk, dv, n, causal);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+// out (bh, n, d) and lse (bh, n) fp32 from q (pre-scaled), k, v (bh, n,
+// d) and the key mask (bh, n) uint8; n a multiple of 64, d 64 or 128.
+inline int launch_k7_fwd(const bf16* q, const bf16* k, const bf16* v,
+                         const uint8_t* mask, bf16* out, float* lse, int bh,
+                         int n, int d, int causal, cudaStream_t st) {
+  const unsigned blocks = k7_blocks(bh, n);
+  if (!blocks || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  return d == 64 ? launch_k7_fwd_nh<1>(q, k, v, mask, out, lse, blocks, n,
+                                       causal, st)
+                 : launch_k7_fwd_nh<2>(q, k, v, mask, out, lse, blocks, n,
+                                       causal, st);
+}
+
+// dq, dk, dv (bh, n, d) from the forward's inputs, out, lse and dout;
 // delta (bh, n) fp32 is scratch the dq kernel writes and the dk/dv kernel
 // reads.
 inline int launch_k7_bwd(const bf16* q, const bf16* k, const bf16* v,
                          const uint8_t* mask, const bf16* out,
                          const float* lse, const bf16* dout, bf16* dq,
                          bf16* dk, bf16* dv, float* delta, int bh, int n,
-                         int causal, cudaStream_t st) {
+                         int d, int causal, cudaStream_t st) {
   const unsigned blocks = k7_blocks(bh, n);
-  if (!blocks) return (int)cudaErrorInvalidValue;
-  cudaError_t e = k7_allow_smem(k7_bwd_dq_kernel, k7_dq_smem());
-  if (e == cudaSuccess)
-    e = k7_allow_smem(k7_bwd_dkv_kernel, k7_dkv_smem());
-  if (e != cudaSuccess) return (int)e;
-  k7_bwd_dq_kernel<<<blocks, K7_THREADS, k7_dq_smem(), st>>>(
-      q, k, v, mask, out, lse, dout, dq, delta, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  k7_bwd_dkv_kernel<<<blocks, K7_THREADS, k7_dkv_smem(), st>>>(
-      q, k, v, mask, lse, dout, delta, dk, dv, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+  if (!blocks || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  return d == 64 ? launch_k7_bwd_nh<1>(q, k, v, mask, out, lse, dout, dq, dk,
+                                       dv, delta, blocks, n, causal, st)
+                 : launch_k7_bwd_nh<2>(q, k, v, mask, out, lse, dout, dq, dk,
+                                       dv, delta, blocks, n, causal, st);
 }
 
 }  // namespace

@@ -14,10 +14,11 @@
 // dtype (the wrapper casts it, as `_geglu_ln_bwd` does), writes dh rounded
 // once, and sums dg over every row in fp32, cast once.
 //
-// Design: no shared row tile. The forward is one launch of common.cuh's
-// ln_rows kernel with its GEGLU prologue (a warp per row; the product is
-// rebuilt in each of the three sweeps over the row, whose 8 KB of bf16 h
-// stay in L1). The backward is row_kernels.cuh's GEGLU backward rows in
+// Design: no shared row tile. The forward is one launch of row_kernels.cuh's
+// LayerNorm forward rows with their GEGLU prologue (each row read once into
+// registers as 16-byte vectors, a * gelu(b) evaluated once an element, the
+// two-pass statistics reduced from there). The backward is row_kernels.cuh's
+// GEGLU backward rows in
 // their K8 mode (each row read once into registers, the two-pass
 // statistics and the cotangent sums reduced from there, 64-row blocks) and
 // an ordered sum of the blocks' dg partials (reduce_parts): no float
@@ -27,9 +28,10 @@
 //
 // What bounds it on the card: bytes. The forward reads h once (rows x 2
 // inner) and writes out (rows x inner); the backward reads h and do and
-// writes dh. Each forward sweep re-evaluates erf per element, and the
-// backward one erf and one exp, ~30 fp32 operations, below the card's
-// fp32 rate at these byte counts.
+// writes dh. The forward evaluates one erf an element, the backward one
+// erf and one exp, ~30 fp32 operations, below the card's fp32 rate at
+// these byte counts. Both take inner widths up to 8,192 (the row kernels'
+// widest row).
 #include "common.cuh"
 
 namespace {

@@ -1,8 +1,17 @@
-// The LayerNorm-backward and GEGLU-backward row kernels, for Hopper.
-// Included at the end of common.cuh, whose dtype helpers and GegluParts
-// they use; each .cu file that includes common.cuh gets its own copies of
-// the template kernels, as with common.cuh's own.
+// The LayerNorm row kernels, forward and backward, and the GEGLU-backward
+// row kernel, for Hopper. Included at the end of common.cuh, whose dtype
+// helpers and GegluParts they use; each .cu file that includes common.cuh
+// gets its own copies of the template kernels, as with common.cuh's own.
 //
+//   * ln_fwd_rows_kernel: the gain-only LayerNorm over rows with two-pass
+//     fp32 statistics (xclip_tpu/nn/core.py layer_norm_apply :91-93,
+//     xclip_tpu/kernels/_common.py ln_fp32), every LayerNorm of the FF
+//     blocks and the attention megablock (launch_ln_rows); optionally a
+//     residual add in the storage dtype, the row's mean and rsqrt(var +
+//     eps), the input rounded to the storage dtype (the training forwards'
+//     residuals), or a GEGLU prologue that normalises a * gelu(b) of a row
+//     [a, b] (K8's forward, xclip_tpu/kernels/fused_ff.py `_fwd_kernel`
+//     :68).
 //   * ln_bwd_rows_kernel: the gain-only LayerNorm vjp over rows from stored
 //     statistics (xclip_tpu/kernels/_common.py ln_bwd :50), the backward of
 //     every LayerNorm of the FF blocks and the attention megablock; in its
@@ -62,15 +71,26 @@ namespace xclip {
 
 // Launches of each kernel mode since the library was loaded or last reset
 // (xclip_rows_launches, rows.cu): the GEGLU modes at their mode, the
-// LayerNorm-backward modes at kGegluModes + theirs.
+// LayerNorm-backward modes at kGegluModes + theirs, the LayerNorm forward
+// modes at kLnFwdCounter + theirs.
 constexpr int kGegluModes = 3;
-constexpr int kRowCounters = kGegluModes + 2;
+constexpr int kLnFwdCounter = kGegluModes + 2;
+constexpr int kLnFwdModes = 5;
+constexpr int kRowCounters = kLnFwdCounter + kLnFwdModes;
 extern long long g_row_launches[kRowCounters];
 
 namespace {
 
 constexpr int kLnBwd = 0;
 constexpr int kLnBwdGeglu = 1;
+// the LayerNorm forward's modes, by what a call writes besides out: the
+// GEGLU prologue, else a residual add, else the input copy, else the
+// statistics, else nothing
+constexpr int kLnFwdPlain = 0;
+constexpr int kLnFwdStats = 1;
+constexpr int kLnFwdResidual = 2;
+constexpr int kLnFwdInCopy = 3;
+constexpr int kLnFwdGeglu = 4;
 constexpr int kGegluRecompute = 0;
 constexpr int kGegluLn = 1;
 constexpr int kGegluStoredH = 2;
@@ -592,6 +612,168 @@ geglu_bwd_rows_kernel(const Tdy* __restrict__ dy, const Th* __restrict__ h,
     cur = nxt;
   }
   write_partial<V>(acc, rg, part, dg_part, d, vec);
+}
+
+// ------------------------------------------------------- LayerNorm forward
+//
+// Per row r of v (d wide; with GEGLU v = a * gelu(b) of the row [a, b] of
+// in, 2d wide, evaluated once an element):
+//   mean = sum(v) / d,  inv = rsqrt(sum((v - mean)^2) / d + eps),
+//   out  = T((v - mean) * inv * g), or with resid T(that) + resid, the add
+//          in T;
+// with mean_out, mean and inv go to mean_out[r] and inv_out[r]; with
+// in_copy, T(v) goes to in_copy[r]. The two sums are taken from the
+// registers: the row is read once, as the backward rows read theirs
+// (RowGroups; the next step's loads issued before this step's sums), and
+// every output leaves as 16-byte vectors. Each sum reduces by shuffles
+// within a warp, then across the group's warps through `red` (one barrier
+// a sum, only where a row spans more than a warp). Bound by bytes: the
+// plain mode reads T and writes T, 4 bytes an element in bf16; the inner
+// LayerNorm of the FF blocks reads fp32 and writes bf16 (6), K8's reads
+// 2 x bf16 and writes bf16 (6).
+constexpr int kFwdRows = 32;      // rows a block
+constexpr int kFwdThreads = 256;  // threads a block
+// Vectors of 8 columns a thread holds of a row, at least (more when the
+// row is wider than the block's threads take one each): 2 puts a 512-wide
+// row on one warp, no barrier a sum, and twice the bytes in flight a
+// thread; the GEGLU mode, an erf an element, keeps the most threads a row
+// (1). tools/ln_fwd_variants.py times 1, 2 and 4 (PERF.md).
+constexpr int kFwdMinVectors = 2;
+
+// No least number of blocks an SM in the launch bounds: the compiler's
+// own register choice (128 a thread in the GEGLU mode) ran fastest; 3 an
+// SM (80 registers) helps the 512-wide bf16 rows 5-7 % and costs the
+// 2048-wide fp32 rows 10-20 % (tools/ln_fwd_variants.py, PERF.md).
+template <typename Tin, typename T, bool GEGLU, int V, int NT>
+__global__ void __launch_bounds__(NT)
+ln_fwd_rows_kernel(const Tin* __restrict__ in, const T* __restrict__ g,
+                   const T* __restrict__ resid, T* __restrict__ out,
+                   int rows, int d, float eps, float* __restrict__ mean_out,
+                   float* __restrict__ inv_out, T* __restrict__ in_copy,
+                   bool vec) {
+  __shared__ float red[kRedFloats];
+  const RowGroups rg(d, V);
+  const long r0 = (long)blockIdx.x * kFwdRows;
+  const int steps = (kFwdRows + rg.R - 1) / rg.R;
+  const long in_ld = GEGLU ? 2L * d : (long)d;
+  float gv[V][8];
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    unpack8(load8(g + rg.col(k), rg.n(k), vec), gv[k]);
+  struct Row {  // one row's inputs as loaded
+    Vec8<Tin> a[V], b[V];
+    Vec8<T> e[V];
+    bool ok;
+    long r;
+  };
+  auto fetch = [&](int s) {
+    Row x;
+    const int rr = s * rg.R + rg.grp;
+    x.r = r0 + rr;
+    x.ok = rg.cols && rr < kFwdRows && x.r < rows;
+    const long o = x.ok ? x.r : 0;  // the row's offset, in range
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int c = rg.col(k), n = x.ok ? rg.n(k) : 0;
+      x.a[k] = load8(in + o * in_ld + c, n, vec);
+      if (GEGLU) x.b[k] = load8(in + o * in_ld + d + c, n, vec);
+      x.e[k] = load8(resid + o * d + c, resid ? n : 0, vec);
+    }
+    return x;
+  };
+  int turn = 0;
+  Row cur = fetch(0), nxt;
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) nxt = fetch(s + 1);
+    float v[V][8], s1[1] = {0.f};
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      unpack8(cur.a[k], v[k]);
+      if constexpr (GEGLU) {
+        float b[8];
+        unpack8(cur.b[k], b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[k][e] = GegluParts(v[k][e], b[e]).prod;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s1[0] += v[k][e];  // masked columns are 0
+    }
+    group_sum(s1, rg, red, turn);
+    const float mu = s1[0] / (float)d;
+    float s2[1] = {0.f};
+    if (cur.ok)
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int n = rg.n(k);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float c = v[k][e] - mu;
+          if (e < n) s2[0] += c * c;
+        }
+      }
+    group_sum(s2, rg, red, turn);
+    const float iv = rsqrtf(s2[0] / (float)d + eps);
+    if (cur.ok) {
+      const long o = cur.r * d;
+      if (mean_out && rg.j == 0) {
+        mean_out[cur.r] = mu;
+        inv_out[cur.r] = iv;
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int c = rg.col(k), n = rg.n(k);
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = ((v[k][e] - mu) * iv) * gv[k][e];
+        if (resid) {
+          float rv[8];
+          unpack8(cur.e[k], rv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) y[e] = round_to<T>(y[e]) + rv[e];
+        }
+        store8(out + o + c, y, n, vec);
+        if (in_copy) store8(in_copy + o + c, v[k], n, vec);
+      }
+    }
+    cur = nxt;
+  }
+}
+
+template <typename Tin, typename T, bool GEGLU, int V>
+void ln_fwd_rows_v(const Tin* in, const T* g, const T* resid, T* out,
+                   int rows, int d, float eps, float* mean_out,
+                   float* inv_out, T* in_copy, bool vec, cudaStream_t st) {
+  ln_fwd_rows_kernel<Tin, T, GEGLU, V, kFwdThreads>
+      <<<(rows + kFwdRows - 1) / kFwdRows, kFwdThreads, 0, st>>>(
+          in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy, vec);
+}
+
+// out (rows x d) = T(LN_g(in)) [+ resid], as ln_fwd_rows_kernel says; with
+// GEGLU `in` is rows x 2d. Returns a cudaError_t code:
+// cudaErrorInvalidValue, launching nothing, for a width row_vectors
+// refuses; 0, launching nothing, for no rows.
+template <typename Tin, typename T, bool GEGLU = false>
+int launch_ln_rows(const Tin* in, const T* g, const T* resid, T* out,
+                   int rows, int d, float eps, cudaStream_t st,
+                   float* mean_out = nullptr, float* inv_out = nullptr,
+                   T* in_copy = nullptr) {
+  int vecs = row_vectors(d, kFwdThreads);
+  if (vecs == 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const int least = GEGLU ? 1 : kFwdMinVectors;
+  vecs = vecs > least ? vecs : least;
+  const bool vec = row_vec(d, {in, g, resid, out, in_copy});
+  (vecs == 1   ? ln_fwd_rows_v<Tin, T, GEGLU, 1>
+   : vecs == 2 ? ln_fwd_rows_v<Tin, T, GEGLU, 2>
+               : ln_fwd_rows_v<Tin, T, GEGLU, 4>)(
+      in, g, resid, out, rows, d, eps, mean_out, inv_out, in_copy, vec, st);
+  XCLIP_CHECK_LAUNCH();
+  const int mode = GEGLU ? kLnFwdGeglu
+                   : resid ? kLnFwdResidual
+                   : in_copy ? kLnFwdInCopy
+                   : mean_out ? kLnFwdStats : kLnFwdPlain;
+  ++g_row_launches[kLnFwdCounter + mode];
+  return 0;
 }
 
 // Each launch function returns a cudaError_t code: cudaErrorInvalidValue,

@@ -1,8 +1,8 @@
 // The row kernels of row_kernels.cuh alone, mode by mode, for tests and
-// timing (kernels/rows.py): the GEGLU backward rows and the LayerNorm
-// backward rows, which the FF blocks, K8 and the attention megablock launch
-// inside their own entry points. Also the kernels' launch counters, counted
-// by every caller.
+// timing (kernels/rows.py): the LayerNorm forward rows, the GEGLU backward
+// rows and the LayerNorm backward rows, which the FF blocks, K8 and the
+// attention megablock launch inside their own entry points. Also the
+// kernels' launch counters, counted by every caller.
 #include "common.cuh"
 
 namespace xclip {
@@ -65,7 +65,48 @@ int ln_rows(int mode, int dy_f32, int v_f32, const void* dy, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// The LayerNorm forward as its callers give it: T rows (the pre-LayerNorms),
+// fp32 rows (the FF inner LayerNorm, the megablock's out LayerNorm), or T
+// rows [a, b] twice as wide with the GEGLU prologue (K8).
+template <typename T>
+int ln_fwd(int in_f32, int geglu, const void* in, const T* g, const T* resid,
+           T* out, int rows, int d, float eps, float* mean, float* inv,
+           T* in_copy, cudaStream_t st) {
+  using namespace xclip;
+  if (geglu && in_f32 && !std::is_same<T, float>::value)
+    return (int)cudaErrorInvalidValue;
+  if (geglu)
+    return launch_ln_rows<T, T, true>(static_cast<const T*>(in), g, resid,
+                                      out, rows, d, eps, st, mean, inv,
+                                      in_copy);
+  if (in_f32)
+    return launch_ln_rows<float, T>(static_cast<const float*>(in), g, resid,
+                                    out, rows, d, eps, st, mean, inv,
+                                    in_copy);
+  return launch_ln_rows<T, T>(static_cast<const T*>(in), g, resid, out, rows,
+                              d, eps, st, mean, inv, in_copy);
+}
+
 }  // namespace
+
+// Returns a cudaError_t code (0 on success). The LayerNorm forward rows:
+// in (rows x d; rows x 2d with `geglu`) fp32 when in_f32, else of the
+// dtype (0 fp32, 1 bf16), as g, resid, out and in_copy (rows x d); mean,
+// inv (rows) fp32. resid, mean / inv and in_copy are optional (null), and
+// the call's mode (row_kernels.cuh kLnFwd*) follows from which are given.
+extern "C" int xclip_ln_fwd_rows(int dtype, int in_f32, int geglu,
+                                 const void* in, const void* g,
+                                 const void* resid, void* out, int rows,
+                                 int d, float eps, void* mean, void* inv,
+                                 void* in_copy, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || (mean == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, ln_fwd<T>(
+      in_f32, geglu, in, XCLIP_PTR(const T*, g), XCLIP_PTR(const T*, resid),
+      XCLIP_PTR(T*, out), rows, d, eps, static_cast<float*>(mean),
+      static_cast<float*>(inv), XCLIP_PTR(T*, in_copy), st));
+}
 
 // Returns a cudaError_t code (0 on success). `mode` is row_kernels.cuh's
 // kGegluRecompute / kGegluLn / kGegluStoredH; the outputs (dh rows x 2d; y,
@@ -109,8 +150,21 @@ extern "C" int xclip_ln_bwd_rows(int mode, int dtype, int dy_f32, int v_f32,
       XCLIP_PTR(T*, dh2), XCLIP_PTR(T*, y2), st));
 }
 
+// The ordered sum every backward's split-k and dg partials take
+// (common.cuh reduce_parts_kernel), alone: out (n fp32) = (accumulate ? out
+// : 0) + sum over p of part[p * n + i], p in order 0, 1, ...
+extern "C" int xclip_reduce_parts(const void* part, void* out, int parts,
+                                  long long n, int accumulate, void* stream) {
+  if (parts < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return xclip::launch_reduce_parts<float>(
+      static_cast<const float*>(part), static_cast<float*>(out), parts,
+      (long)n, static_cast<cudaStream_t>(stream), accumulate);
+}
+
 // Launches of row kernel `counter` (the GEGLU modes 0-2, then kLnBwd,
-// kLnBwdGeglu) by every caller since the library was loaded or last reset;
+// kLnBwdGeglu, then the LayerNorm forward's kLnFwdPlain, kLnFwdStats,
+// kLnFwdResidual, kLnFwdInCopy, kLnFwdGeglu) by every caller since the
+// library was loaded or last reset;
 // `reset` sets it to 0 after reading it.
 extern "C" long long xclip_rows_launches(int counter, int reset) {
   if (counter < 0 || counter >= xclip::kRowCounters) return -1;

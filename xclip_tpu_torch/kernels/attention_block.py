@@ -25,9 +25,12 @@ skip causal and all-masked tiles; its source notes give the design and
 what bounds it), whose megablock mode runs the attention megablock's
 core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
 length limit is the megablock's, `attention_megablock.seq_len_limit` (bf16
-2048, the kernels' own). Every wrapper takes its kernel for CUDA tensors
-and its plain version for CPU tensors; it never falls back from one to the
-other.
+2048, the kernels' own), and so is the predicate of what the kernels take,
+`attention_megablock.why_not` with no block width. The kernels take heads
+of 64; `attention_core` runs a narrower head on them zero-padded to 64
+(`attention_megablock.pad_heads`, exact). Every wrapper takes its kernel
+for CUDA tensors and its plain version for CPU tensors; it never falls back
+from one to the other.
 The Pallas kernel's padding to 128 rows and two-head groups are TPU
 artefacts: the kernels work on the true shapes.
 """
@@ -38,8 +41,10 @@ import torch
 
 from . import _build
 from ._common import check_kernel_args, dot32, dtype_code, route, stream_ptr
+from .attention_megablock import DIM_HEAD
 from .attention_megablock import _check_core as _check
-from .attention_megablock import _heads, _softmax_parts
+from .attention_megablock import (_heads, _softmax_parts, pad_heads,
+                                  unpad_heads)
 
 
 def supported(heads: int, dim_head: int) -> bool:
@@ -184,6 +189,10 @@ def attention_core(qkv, mask, heads, dim_head, scale, causal=False,
     """qkv: (b, n, 3·heads·dim_head); mask: (b, n) bool, True = a valid key.
     Returns (b, n, heads·dim_head) in qkv.dtype, differentiable in qkv.
     `maybe_dead=False` may be passed when every row has a valid key."""
+    if dim_head < DIM_HEAD:
+        return unpad_heads(attention_core(
+            pad_heads(qkv, dim_head), mask, heads, DIM_HEAD, scale, causal,
+            maybe_dead), dim_head)
     training = torch.is_grad_enabled() and qkv.requires_grad
     return AttentionCore.apply(qkv.contiguous(), mask, heads, dim_head, scale,
                                causal, maybe_dead, training)

@@ -46,13 +46,15 @@ shapes.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from ._common import (CHUNK_BYTES, check_kernel_args, chunk_spans, dot32,
-                      dtype_code, eps_for, ln_bwd, ln_stats_fp32, refuse_grad,
-                      route, stream_ptr)
+from ._common import (CHUNK_BYTES, KERNEL_DTYPES, check_kernel_args,
+                      chunk_spans, dot32, dtype_code, eps_for, ln_bwd,
+                      ln_stats_fp32, refuse_grad, route, stream_ptr)
+from .rows import MAX_WIDTH
 
-DIM_HEAD = 64  # the only head width the kernel takes
+DIM_HEAD = 64  # the only head width the kernels take (narrower: pad_heads)
 
 
 def _heads(t, b, n, heads, dim_head):
@@ -206,24 +208,59 @@ def seq_len_limit(dtype, training=False) -> int:
             else max_seq_len(dtype))
 
 
+def pad_heads(t, dim_head, dim=-1):
+    """`t` with each head slice of `dim_head` along `dim` (q, k and v's
+    heads, or the heads alone) zero-padded to DIM_HEAD: a head narrower than
+    the kernels' runs on them so. Exact: the zero columns of q and k add
+    nothing to q·kᵀ, those of v and of w_out's rows add nothing to the
+    output, and their gradients are dropped by autograd (the scale stays
+    the caller's)."""
+    t = t.movedim(dim, -1)
+    lead = t.shape[:-1]
+    t = F.pad(t.reshape(*lead, -1, dim_head), (0, DIM_HEAD - dim_head))
+    return t.reshape(*lead, -1).movedim(-1, dim).contiguous()
+
+
+def unpad_heads(t, dim_head):
+    """The inverse of `pad_heads` along the last dimension."""
+    lead = t.shape[:-1]
+    return t.reshape(*lead, -1, DIM_HEAD)[..., :dim_head].reshape(*lead, -1)
+
+
+def why_not(dim, heads, dim_head, n, dtype, training=False):
+    """Why the CUDA kernels cannot take this megablock (`dim` its width) or,
+    with `dim` None, this attention core (K6's, the megablock's alone): a
+    sentence naming the limit, or None when they can. The wrappers raise on
+    it before any launch (the top-level ones pad a narrower head first)."""
+    if dtype not in KERNEL_DTYPES:
+        return (f"the CUDA attention kernels take float32 or bfloat16, not "
+                f"{dtype}")
+    if dim_head != DIM_HEAD:
+        return (f"the CUDA attention kernels take dim_head {DIM_HEAD} (up to "
+                f"{DIM_HEAD} zero-padded), not {dim_head}")
+    if dim is not None and (dim % 64 or dim > MAX_WIDTH):
+        return (f"the CUDA megablock takes dim a multiple of 64 up to "
+                f"{MAX_WIDTH}, not {dim}")
+    limit = seq_len_limit(dtype, training)
+    if n > limit:
+        return (f"n {n} exceeds the CUDA attention kernels' {limit} in "
+                f"{dtype}" + (" training" if training else ""))
+    return None
+
+
 def _check(name, tensors, mask, heads, dim_head, training=False):
     x, g_pre, w_qkv, w_out, g_out = tensors
     b, n, dim = x.shape
     hd = heads * dim_head
     check_kernel_args(name, tensors, x.dtype)
-    if dim_head != DIM_HEAD or dim % 64:
-        raise ValueError(f"{name}: the kernel takes dim_head {DIM_HEAD} and "
-                         f"dim a multiple of 64, not dim_head {dim_head}, "
-                         f"dim {dim}")
+    reason = why_not(dim, heads, dim_head, n, x.dtype, training)
+    if reason:
+        raise ValueError(f"{name}: {reason}")
     if (g_pre.shape != (dim,) or g_out.shape != (dim,)
             or w_qkv.shape != (dim, 3 * hd) or w_out.shape != (hd, dim)
             or mask.shape != (b, n)):
         raise ValueError(f"{name}: inconsistent shapes "
                          f"{[t.shape for t in tensors + (mask,)]}")
-    limit = seq_len_limit(x.dtype, training)
-    if n > limit:
-        raise ValueError(f"{name}: n {n} exceeds the kernel's {limit} in "
-                         f"{x.dtype}")
     return b, n, dim, hd
 
 
@@ -276,6 +313,11 @@ def attention_block(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
     Returns x + LN(W_out · attention(LN(x)·W_qkv)) in x.dtype. Forward only:
     training goes through `attention_block_train`. `maybe_dead=False` may
     be passed when every row has a valid key."""
+    if dim_head < DIM_HEAD:
+        return attention_block(x, g_pre, pad_heads(w_qkv, dim_head),
+                               pad_heads(w_out, dim_head, 0),
+                               g_out, mask, heads, DIM_HEAD, scale, causal,
+                               maybe_dead)
     tensors = (x, g_pre, w_qkv, w_out, g_out)
     refuse_grad("attention_block", tensors, "attention_block_train")
     if not route("attention_block", tensors + (mask,)):
@@ -424,6 +466,9 @@ def attention_block_train(x, g_pre, w_qkv, w_out, g_out, mask, heads,
     """x + LN(W_out · attention(LN(x)·W_qkv)) with the stored backward;
     differentiable in the five tensors. Same arguments as
     `attention_block`."""
+    if dim_head < DIM_HEAD:
+        w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
+        dim_head = DIM_HEAD
     return AttentionBlock.apply(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                                 dim_head, scale, causal, maybe_dead)
 
@@ -613,6 +658,9 @@ def attention_block_train_recompute(x, g_pre, w_qkv, w_out, g_out, mask,
     """x + LN(W_out · attention(LN(x)·W_qkv)) keeping only row statistics
     (and qkv with `keep_qkv`) for the recompute backward; differentiable in
     the five tensors. Same arguments as `attention_block`."""
+    if dim_head < DIM_HEAD:
+        w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
+        dim_head = DIM_HEAD
     return AttentionBlockRecompute.apply(x, g_pre, w_qkv, w_out, g_out, mask,
                                          heads, dim_head, scale, causal,
                                          maybe_dead, keep_qkv)
@@ -625,17 +673,15 @@ def _check_core(name, qkv, mask, heads, dim_head, training):
     K6's) → (b, n)."""
     b, n, width = qkv.shape
     check_kernel_args(name, (qkv,), qkv.dtype)
-    if dim_head != DIM_HEAD or width != 3 * heads * dim_head:
-        raise ValueError(f"{name}: the kernel takes dim_head {DIM_HEAD} and "
-                         f"qkv of width 3·heads·dim_head, not dim_head "
-                         f"{dim_head}, width {width}, heads {heads}")
+    reason = why_not(None, heads, dim_head, n, qkv.dtype, training)
+    if reason:
+        raise ValueError(f"{name}: {reason}")
+    if width != 3 * heads * dim_head:
+        raise ValueError(f"{name}: qkv of width {width} for {heads} heads of "
+                         f"{dim_head}")
     if mask.shape != (b, n):
         raise ValueError(f"{name}: mask {tuple(mask.shape)} for qkv "
                          f"{tuple(qkv.shape)}")
-    limit = seq_len_limit(qkv.dtype, training)
-    if n > limit:
-        raise ValueError(f"{name}: n {n} exceeds the kernel's {limit} in "
-                         f"{qkv.dtype}")
     return b, n
 
 

@@ -25,7 +25,9 @@ The CUDA kernels are `csrc/flash_attention.cu` (64 × 64 tiles): bf16 on
 the mma.sync kernels of `csrc/flash_attention_sm90.cuh`, which skip causal
 and all-masked key tiles and compute Δ in the dq kernel; fp32 on FMA
 kernels, Δ from PyTorch. Their source notes give the design and what
-bounds it. The plain versions follow the Pallas kernels' rounding points;
+bounds it. They take heads of 64, and in bf16 of 128 (two 64-column
+halves); `flash_attention` runs a narrower head on them zero-padded to the
+next of those (`padded_width`). The plain versions follow the Pallas kernels' rounding points;
 the forward's online softmax rounds p against the running max, so its key
 block is a rounding point too: the plain forward takes it as `block_k`,
 `KERNEL_BLOCK` by default (the kernels' tile; the tests set the Pallas
@@ -39,11 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import check_kernel_args, dot32, dtype_code, route, stream_ptr
+from ._common import (KERNEL_DTYPES, check_kernel_args, dot32, dtype_code,
+                      route, stream_ptr)
 
 KERNEL_BLOCK = 64   # the kernels' query and key tiles (csrc FQ, FK),
                     # the sequence multiple they take
-DIM_HEAD = 64       # the only head width the kernels take
+DIM_HEAD = 64       # the kernels' head width (bf16: also twice it;
+                    # narrower heads zero-padded by `flash_attention`)
 NEG_INF = float("-inf")
 
 
@@ -99,14 +103,46 @@ def flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal=False):
             dot32(p.to(do.dtype).transpose(-1, -2), do).to(v.dtype))
 
 
+def kernel_widths(dtype):
+    """The head widths the CUDA kernels take in `dtype`: 64, and in bf16
+    also 128 (a head of two 64-column halves)."""
+    return (DIM_HEAD, 2 * DIM_HEAD) if dtype == torch.bfloat16 else (DIM_HEAD,)
+
+
+def padded_width(dim_head, dtype):
+    """The kernel width `flash_attention` runs a head of `dim_head` at: the
+    narrowest in `kernel_widths` that holds it, zero-padded (exact: the
+    zero columns add nothing to q·kᵀ, and the output's are sliced off);
+    `dim_head` itself past the widest."""
+    return next((w for w in kernel_widths(dtype) if dim_head <= w),
+                dim_head)
+
+
+def why_not(dim_head, dtype):
+    """Why the CUDA kernels cannot take heads of `dim_head` in `dtype`
+    (None if they can); any sequence runs, padded to the kernels' tile
+    (`pad_flat`), and a narrower head padded to a kernel width
+    (`padded_width`). The wrappers raise on it before any launch."""
+    if dtype not in KERNEL_DTYPES:
+        return f"the CUDA flash kernels take float32 or bfloat16, not {dtype}"
+    widths = kernel_widths(dtype)
+    if dim_head not in widths:
+        return (f"the CUDA flash kernels take dim_head "
+                f"{' or '.join(map(str, widths))} in {dtype} (narrower "
+                f"zero-padded), not {dim_head}")
+    return None
+
+
 def _check(name, tensors, mask):
     q = tensors[0]
     bh, n, d = q.shape
     check_kernel_args(name, tensors, q.dtype)
-    if any(t.shape != q.shape for t in tensors) or d != DIM_HEAD:
-        raise ValueError(f"{name}: the kernel takes (bh, n, {DIM_HEAD}) "
-                         f"tensors of one shape, not "
-                         f"{[tuple(t.shape) for t in tensors]}")
+    reason = why_not(d, q.dtype)
+    if reason:
+        raise ValueError(f"{name}: {reason}")
+    if any(t.shape != q.shape for t in tensors):
+        raise ValueError(f"{name}: the kernel takes (bh, n, d) tensors of "
+                         f"one shape, not {[tuple(t.shape) for t in tensors]}")
     if n % KERNEL_BLOCK or mask.shape != (bh, n):
         raise ValueError(f"{name}: n {n} must be a multiple of "
                          f"{KERNEL_BLOCK} and the mask (bh, n), not "
@@ -126,7 +162,7 @@ def flash_attention_fwd(q, k, v, mask, causal=False):
         err = _build.library().xclip_flash_fwd(
             dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask_u8.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, n,
-            int(causal), stream_ptr(q.device))
+            q.shape[-1], int(causal), stream_ptr(q.device))
     _build.check(err, "xclip_flash_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -155,7 +191,8 @@ def flash_attention_bwd(q, k, v, mask, out, lse, do, causal=False):
             dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask_u8.data_ptr(), out.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, n, int(causal), stream_ptr(q.device))
+            dv.data_ptr(), bh, n, q.shape[-1], int(causal),
+            stream_ptr(q.device))
     _build.check(err, "xclip_flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -202,6 +239,10 @@ def flash_attention(q, k, v, mask=None, causal=False):
     """q, k, v: (b, h, n, d) with q pre-scaled; mask: (b, n) key validity.
     Returns (b, h, n, d) in q's dtype, differentiable in q, k, v."""
     b, h, n, d = q.shape
+    width = padded_width(d, q.dtype)
+    if width != d:  # zero-padded heads
+        return flash_attention(*(F.pad(t, (0, width - d))
+                                 for t in (q, k, v)), mask, causal)[..., :d]
     (qf, kf, vf), key_valid = pad_flat((q, k, v), mask)
     out = FlashCore.apply(qf, kf, vf, key_valid, causal)
     return out.reshape(b, h, -1, d)[:, :, :n]

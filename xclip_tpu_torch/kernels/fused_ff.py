@@ -31,8 +31,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import (check_kernel_args, dtype_code, eps_for, geglu_parts,
-                      gelu_grad, ln_bwd, ln_stats_fp32, route, stream_ptr)
+from ._common import (KERNEL_DTYPES, check_kernel_args, dtype_code, eps_for,
+                      geglu_parts, gelu_grad, ln_bwd, ln_stats_fp32, route,
+                      stream_ptr)
 from .rows import MAX_WIDTH
 
 
@@ -63,12 +64,26 @@ def geglu_layernorm_bwd_plain(h, g, do):
     return dh.to(h.dtype).reshape(h.shape), dg.to(g.dtype)
 
 
+def why_not(inner, dtype):
+    """Why the CUDA kernels cannot take an inner width `inner` in `dtype`
+    (None if they can): the row kernels' widest row, forward and backward
+    alike. The wrappers raise on it before any launch."""
+    if dtype not in KERNEL_DTYPES:
+        return f"the CUDA K8 kernels take float32 or bfloat16, not {dtype}"
+    if inner > MAX_WIDTH:
+        return f"the CUDA K8 kernels take inner up to {MAX_WIDTH}, not {inner}"
+    return None
+
+
 def _check(name, h, g, *more):
     check_kernel_args(name, (h, g, *more), h.dtype)
     inner = h.shape[-1] // 2
     if h.shape[-1] != 2 * inner or g.shape != (inner,) or inner == 0:
         raise ValueError(f"{name}: h of shape {tuple(h.shape)} and g of "
                          f"shape {tuple(g.shape)} do not match")
+    reason = why_not(inner, h.dtype)
+    if reason:
+        raise ValueError(f"{name}: {reason}")
     return h.numel() // h.shape[-1], inner
 
 
@@ -101,9 +116,6 @@ def geglu_layernorm_bwd(h, g, do):
     if do.shape != (*h.shape[:-1], inner):
         raise ValueError(f"geglu_layernorm_bwd: do of shape "
                          f"{tuple(do.shape)} for h of shape {tuple(h.shape)}")
-    if inner > MAX_WIDTH:
-        raise ValueError(f"geglu_layernorm_bwd: the backward kernel takes "
-                         f"inner up to {MAX_WIDTH}, not {inner}")
     dh = torch.empty_like(h)
     dg = torch.empty_like(g)
     lib = _build.library()

@@ -54,9 +54,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import (CHUNK_BYTES, check_kernel_args, chunk_spans, dot32,
-                      dtype_code, eps_for, geglu_parts, gelu_grad, ln_bwd,
-                      ln_stats_fp32, refuse_grad, route, stream_ptr)
+from ._common import (CHUNK_BYTES, KERNEL_DTYPES, check_kernel_args,
+                      chunk_spans, dot32, dtype_code, eps_for, geglu_parts,
+                      gelu_grad, ln_bwd, ln_stats_fp32, refuse_grad, route,
+                      stream_ptr)
+from .rows import MAX_WIDTH
 
 # The recompute backward's row chunks start at multiples of this many rows,
 # and its weight gradients sum split-k partials of exactly this many rows in
@@ -72,6 +74,28 @@ def ff_block_plain(x, g_pre, w_in, g_inner, w_out):
     return out.reshape(x.shape)
 
 
+def supported(dim: int, inner: int) -> bool:
+    """Whether the JAX FF block takes inner width `inner`: its dW pass
+    needs a column block of at least 8 that divides it, up to 512
+    (`xclip_tpu/kernels/fused_ff_block.py` `pick_block_cols`, `supported`);
+    the reference falls back to its plain route otherwise, and so does the
+    port."""
+    return any(inner % bc == 0 for bc in range(min(512, inner), 7, -1))
+
+
+def why_not(dim, inner, dtype):
+    """Why the CUDA kernels cannot take an FF block of width `dim` and
+    inner width `inner` in `dtype` (None if they can): the product
+    kernel's 64-wide tiles and the row kernels' widest row. The wrappers
+    raise on it before any launch."""
+    if dtype not in KERNEL_DTYPES:
+        return f"the CUDA FF block takes float32 or bfloat16, not {dtype}"
+    if dim % 64 or inner % 64 or max(dim, inner) > MAX_WIDTH:
+        return (f"the CUDA FF block takes dim and inner width multiples of "
+                f"64 up to {MAX_WIDTH}, not dim {dim}, inner {inner}")
+    return None
+
+
 def _check(name, tensors):
     x, g_pre, w_in, g_inner, w_out = tensors
     dim = x.shape[-1]
@@ -80,9 +104,9 @@ def _check(name, tensors):
     if (g_pre.shape != (dim,) or w_in.shape != (dim, 2 * inner)
             or g_inner.shape != (inner,) or w_out.shape != (inner, dim)):
         raise ValueError(f"{name}: inconsistent shapes {[t.shape for t in tensors]}")
-    if dim % 64 or inner % 64:
-        raise ValueError(f"{name}: dim {dim} and inner {inner} must be "
-                         "multiples of 64 for the kernel")
+    reason = why_not(dim, inner, x.dtype)
+    if reason:
+        raise ValueError(f"{name}: {reason}")
     return x.numel() // dim, dim, inner
 
 

@@ -16,20 +16,59 @@ by autograd and the kernels only need the two matrix cotangents:
 to fp32 as the Pallas version does, runs the forward `streaming_lse_fwd`
 (Pallas `_lse_kernel`) and the backward `streaming_lse_bwd` (Pallas
 `_dx_kernel` and `_dy_kernel`), and casts the gradients back to the input
-dtypes. The CUDA kernels are `csrc/fused_infonce.cu`. Each wrapper takes
-its kernel for CUDA tensors and its plain version (`*_plain`) for CPU
-tensors, and never falls back from one to the other. `row_offset` is the
-global column of row 0's diagonal, for a row shard of a gathered batch.
+dtypes. The CUDA kernels are `csrc/fused_infonce.cu`: the backward computes
+p once a chunk of columns into a bounded scratch and takes dx and dy from
+it by register-tiled products over fixed ranges, summed in order
+(`bwd_plan`). Each wrapper takes its kernel for CUDA tensors and its plain
+version (`*_plain`) for CPU tensors, and never falls back from one to the
+other. `row_offset` is the global column of row 0's diagonal, for a row
+shard of a gathered batch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import _build
 from ._common import route, stream_ptr
 
-MAX_DIM = 1024  # the kernels keep 48 rows of d fp32 values in shared memory
+P_BYTES = 1 << 26  # the backward's scores scratch, R x (a chunk of columns)
+SLICE = 8          # the backward products' k-slice (csrc GBK)
+TILE = 128         # their output tile (csrc GBM, GBN)
+SLOTS = 2 * 132    # their blocks in flight: two an SM on 132 SMs
+
+
+def _ranges(tiles: int, length: int) -> int:
+    """The k-range of a product with `tiles` output tiles over a reduction
+    of `length`: the fewest ranges whose blocks fill the card's SLOTS to
+    within 10 % in their last wave (else the fullest), ranges of at least
+    256 and a multiple of SLICE."""
+    most = max(1, length // 256)
+    best, parts = 0.0, 1
+    for p in range(1, most + 1):
+        work = tiles * p
+        fill = work / (math.ceil(work / SLOTS) * SLOTS)
+        if fill > best + 1e-9:
+            best, parts = fill, p
+        if fill >= 0.9:
+            break
+    return math.ceil(math.ceil(length / parts) / SLICE) * SLICE
+
+
+def bwd_plan(R: int, C: int, d: int):
+    """(cc, kx, ky) of the backward kernels: chunks of cc columns, whose
+    R x cc scores stay under P_BYTES (all C when they fit); dx's product
+    over a chunk in column ranges of kx, dy's over the rows in ranges of
+    ky, each range an fp32 partial summed in order."""
+    cc = C if R * C * 4 <= P_BYTES else max(
+        TILE, P_BYTES // (4 * R) // TILE * TILE)
+    cc = min(cc, C)
+    d_tiles = math.ceil(d / TILE)
+    kx = _ranges(math.ceil(R / TILE) * d_tiles, cc)
+    ky = _ranges(math.ceil(cc / TILE) * d_tiles, R)
+    return cc, kx, ky
 
 
 def _scores_plain(x, y, row_offset, decoupled):
@@ -62,12 +101,10 @@ def streaming_lse_bwd_plain(x, y, lse, dlse, row_offset=0, decoupled=False):
     return (p @ y) * dlse[:, None], p.T @ (x * dlse[:, None])
 
 
-def _check(name, tensors, d):
+def _check(name, tensors):
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name}: the kernel takes contiguous float32")
-    if d > MAX_DIM:
-        raise ValueError(f"{name}: d {d} exceeds the kernel's {MAX_DIM}")
 
 
 def streaming_lse_fwd(x, y, row_offset=0, decoupled=False):
@@ -75,7 +112,7 @@ def streaming_lse_fwd(x, y, row_offset=0, decoupled=False):
     if not route("streaming_lse_fwd", (x, y)):
         return streaming_lse_fwd_plain(x, y, row_offset, decoupled)
     (R, d), C = x.shape, y.shape[0]
-    _check("streaming_lse_fwd", (x, y), d)
+    _check("streaming_lse_fwd", (x, y))
     lse = torch.empty(R, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().xclip_lse_fwd(
@@ -95,12 +132,17 @@ def streaming_lse_bwd(x, y, lse, dlse, row_offset=0, decoupled=False):
     if not route("streaming_lse_bwd", tensors):
         return streaming_lse_bwd_plain(x, y, lse, dlse, row_offset, decoupled)
     (R, d), C = x.shape, y.shape[0]
-    _check("streaming_lse_bwd", tensors, d)
+    _check("streaming_lse_bwd", tensors)
+    cc, kx, ky = bwd_plan(R, C, d)
     dx, dy = torch.empty_like(x), torch.empty_like(y)
+    p = torch.empty(R * cc, dtype=torch.float32, device=x.device)
+    part = torch.empty(max(-(-cc // kx) * R, -(-R // ky) * cc) * d,
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().xclip_lse_bwd(
-            *(t.data_ptr() for t in (*tensors, dx, dy)), R, C, d,
-            int(row_offset), int(decoupled), stream_ptr(x.device))
+            *(t.data_ptr() for t in (*tensors, dx, dy, p, part)), R, C, d,
+            cc, kx, ky, int(row_offset), int(decoupled),
+            stream_ptr(x.device))
     _build.check(err, "xclip_lse_bwd")
     streaming_lse_bwd.launches += 1
     return dx, dy

@@ -1,9 +1,24 @@
-"""The LayerNorm-backward and GEGLU-backward row kernels alone, mode by mode.
+"""The LayerNorm row kernels (forward and backward) and the GEGLU-backward
+row kernel alone, mode by mode.
 
-The FF blocks (K1, K1-h, the recompute backward), K8 and the attention
-megablock launch these kernels inside their own entry points
-(`csrc/row_kernels.cuh`); `geglu_bwd_rows` and `ln_bwd_rows` call them
-alone, for tests and timing, through `csrc/rows.cu`.
+The FF blocks (K-FF, K1, K1-h, K-FF-s, the recompute backward), K8 and the
+attention megablock launch these kernels inside their own entry points
+(`csrc/row_kernels.cuh`); `ln_rows`, `geglu_bwd_rows` and `ln_bwd_rows`
+call them alone, for tests and timing, through `csrc/rows.cu`.
+
+`ln_rows(mode, x, g, resid=None, eps=None)`, the gain-only LayerNorm over
+rows with two-pass fp32 statistics (`xclip_tpu/nn/core.py`
+`layer_norm_apply`), out = T(LN_g(x)) in g's dtype T, x fp32 or of T:
+
+* "plain": → (out,) (the recompute backwards' pre-LayerNorms, K-FF's);
+* "stats": → (out, mean, inv), each row's fp32 mean and rsqrt(var + eps)
+  (the training forwards' pre-LayerNorms and K-FF-s's inner one);
+* "residual": out = T(LN_g(x)) + resid, the add in T, → (out, mean, inv)
+  (the megablock's out LayerNorm, x its fp32 projection);
+* "in_copy": → (out, mean, inv, T(x)) (K1's inner LayerNorm, keeping the
+  rounded product);
+* "geglu": x = [a, b] (rows, 2d) of T, the row a·gelu(b) (K8's forward)
+  → (out,).
 
 `geglu_bwd_rows(mode, dy, h, g, stats, eps)`, the GEGLU and inner-LayerNorm
 backward from h = [a, b] (rows, 2d):
@@ -49,9 +64,13 @@ from ._common import (KERNEL_DTYPES, dtype_code, eps_for, geglu_parts,
 
 GEGLU_MODES = {"recompute": 0, "k8": 1, "stored_h": 2}
 LN_MODES = {"ln": 0, "geglu": 1}
-# the library's launch counters (csrc/rows.cu xclip_rows_launches), in order
+LN_FWD_MODES = ("plain", "stats", "residual", "in_copy", "geglu")
+# the library's launch counters (csrc/rows.cu xclip_rows_launches), in
+# order: the backward kernels' modes (those with dg partials), then the
+# LayerNorm forward's
 COUNTERS = (("geglu", "recompute"), ("geglu", "k8"), ("geglu", "stored_h"),
             ("ln", "ln"), ("ln", "geglu"))
+LN_FWD_COUNTERS = tuple(("ln_fwd", m) for m in LN_FWD_MODES)
 ROW_BLOCK = 64     # rows of one dg partial (csrc/row_kernels.cuh kBwdRows)
 MAX_WIDTH = 8192   # kRowMaxWidth
 
@@ -74,6 +93,24 @@ def partials(t):
     for i in range(1, ROW_BLOCK):
         total += t[:, i]
     return total
+
+
+def ln_rows_plain(mode, x, g, resid=None, eps=None):
+    """Plain PyTorch version of `ln_rows`; returns as it does."""
+    dt = g.dtype
+    if mode == "geglu":
+        a, _, _, gelu_b = geglu_parts(x.float())
+        v = a * gelu_b
+    else:
+        v = x.float()
+    mean, inv = ln_stats_fp32(v, eps_for(dt) if eps is None else eps)
+    out = (((v - mean) * inv) * g.float()).to(dt)
+    if mode == "residual":
+        out = (out.float() + resid.float()).to(dt)
+    if mode in ("plain", "geglu"):
+        return (out,)
+    stats = (mean[:, 0], inv[:, 0])
+    return (out, *stats, v.to(dt)) if mode == "in_copy" else (out, *stats)
 
 
 def geglu_bwd_rows_plain(mode, dy, h, g, stats=None, eps=None):
@@ -145,6 +182,53 @@ def _stats(name, stats, rows):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def ln_rows(mode, x, g, resid=None, eps=None):
+    """The LayerNorm forward rows in `mode` (LN_FWD_MODES); see the module."""
+    if mode not in LN_FWD_MODES:
+        raise ValueError(f"ln_rows: unknown mode {mode!r}")
+    if (resid is not None) != (mode == "residual"):
+        raise ValueError("ln_rows: resid is given in mode 'residual' only")
+    tensors = (x, g, *(() if resid is None else (resid,)))
+    if not route("ln_rows", tensors):
+        return ln_rows_plain(mode, x, g, resid, eps)
+    dt = g.dtype
+    rows, width = x.shape
+    d = width // 2 if mode == "geglu" else width
+    if (g.shape != (d,) or (mode == "geglu" and width != 2 * d)
+            or (resid is not None and resid.shape != (rows, d))):
+        raise ValueError(f"ln_rows: x {tuple(x.shape)}, g {tuple(g.shape)} "
+                         "and resid do not match")
+    in_f32 = x.dtype == torch.float32
+    if x.dtype not in (torch.float32, dt) or (mode == "geglu" and
+                                               x.dtype != dt):
+        raise TypeError(f"ln_rows: no kernel for mode {mode!r} with x "
+                        f"{x.dtype}, storage {dt}")
+    _check("ln_rows", d, [(x, x.dtype), (g, dt),
+                          *(() if resid is None else ((resid, dt),))])
+    dev = x.device
+    out = torch.empty(rows, d, dtype=dt, device=dev)
+    mean = inv = copy = None
+    if mode in ("stats", "residual", "in_copy"):
+        mean, inv = (torch.empty(rows, dtype=torch.float32, device=dev)
+                     for _ in range(2))
+    if mode == "in_copy":
+        copy = torch.empty(rows, d, dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().xclip_ln_fwd_rows(
+            dtype_code(dt), int(in_f32 and dt != torch.float32),
+            int(mode == "geglu"), x.data_ptr(), g.data_ptr(), _ptr(resid),
+            out.data_ptr(), rows, d, eps_for(dt) if eps is None else eps,
+            _ptr(mean), _ptr(inv), _ptr(copy), stream_ptr(dev))
+    _build.check(err, "xclip_ln_fwd_rows")
+    ln_rows.launches += 1
+    if mode in ("plain", "geglu"):
+        return (out,)
+    return (out, mean, inv, copy) if mode == "in_copy" else (out, mean, inv)
+
+
+ln_rows.launches = 0  # kernel launches (plain calls not counted)
 
 
 def geglu_bwd_rows(mode, dy, h, g, stats=None, eps=None):
@@ -254,11 +338,43 @@ def ln_bwd_rows(mode, dy, v, g, stats, resid=None, xn_out=False, gb=None,
 ln_bwd_rows.launches = 0  # kernel launches (plain calls not counted)
 
 
+def reduce_parts(part, out=None):
+    """The ordered sum of fp32 partials (parts, ...) that every backward's
+    split-k and dg sums run (`csrc/common.cuh` reduce_parts_kernel), alone:
+    the partials summed in order, added to `out` in place when given (the
+    recompute backwards' running sums over row chunks) → the sum."""
+    tensors = (part,) if out is None else (part, out)
+    if not route("reduce_parts", tensors):
+        total = part[0].clone() if out is None else out
+        for p in part[1:] if out is None else part:
+            total += p
+        return total
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors) or (out is not None
+                                 and out.shape != part.shape[1:]):
+        raise ValueError("reduce_parts: contiguous fp32 partials (parts, "
+                         "...) and an out of one partial's shape")
+    acc = out is not None
+    if out is None:
+        out = torch.empty(part.shape[1:], dtype=torch.float32,
+                          device=part.device)
+    with torch.cuda.device(part.device):
+        err = _build.library().xclip_reduce_parts(
+            part.data_ptr(), out.data_ptr(), part.shape[0], out.numel(),
+            int(acc), stream_ptr(part.device))
+    _build.check(err, "xclip_reduce_parts")
+    reduce_parts.launches += 1
+    return out
+
+
+reduce_parts.launches = 0  # kernel launches (plain calls not counted)
+
+
 def kernel_launches(reset: bool = False):
     """{(kernel, mode): launches of the row kernel in that mode since the
-    library was loaded or last reset} (COUNTERS), from every caller;
-    `reset` sets them to 0 after reading them."""
+    library was loaded or last reset} (COUNTERS, LN_FWD_COUNTERS), from
+    every caller; `reset` sets them to 0 after reading them."""
     lib = _build.library()
     return {key: lib.xclip_rows_launches(i, int(reset))
-            for i, key in enumerate(COUNTERS)}
+            for i, key in enumerate((*COUNTERS, *LN_FWD_COUNTERS))}
 

@@ -33,8 +33,17 @@ Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
     and training alike;
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
+Where the JAX package itself falls back to its XLA path (K6's head
+groups, the FF block's column blocks), so does the port, on every device,
+and warns once per cause as JAX's `_warn_fallback` words it;
+`transformer_routes` decides it from the shapes alone. Everywhere else a
+kernel flag takes its kernel: on the card the CUDA wrapper launches it or
+raises (`why_not` in each kernel module names the limit), and never gives
+way to the plain version; on the CPU every kernel route runs its plain
+version. A head narrower than the attention kernels' 64 runs on them
+zero-padded to 64 (`attention_megablock.pad_heads`).
 What training does not have yet (remat, dropout) raises
-`NotImplementedError` naming its ROADMAP.md item.
+`NotImplementedError` naming the module it waits for.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
 both kernels run; the port does not, since pad rows are masked keys and the
 FF block is row-wise, so real rows are unchanged and pad rows, whose
@@ -52,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import attention_block as core
+from ..kernels import fused_ff_block as _ffb
 from ..kernels.attention_megablock import (attention_block,
                                           attention_block_train,
                                           attention_block_train_recompute)
@@ -82,11 +92,72 @@ def check_training_routes(attn_impl, ff_impl, *, checkpoint=False,
     if checkpoint:
         raise NotImplementedError(
             "checkpoint_during_training (per-block remat) is not ported yet: "
-            "ROADMAP.md Queue 1, item 2")
+            "ROADMAP.md Queue 1, remat")
     if attn_dropout > 0.0 or ff_dropout > 0.0:
         raise NotImplementedError(
             "attention / FF dropout in training is not ported yet: "
-            "ROADMAP.md Queue 1, items 1-2")
+            "ROADMAP.md Queue 1, dropout in training")
+
+
+_warned_fallbacks = set()
+
+
+def _warn_fallback(requested: str, reason: str):
+    """Warn once per distinct cause when a requested kernel route takes the
+    plain ('xla') route, in the words of the JAX package's `_warn_fallback`
+    (`xclip_tpu/nn/layers.py:39-46`)."""
+    if (requested, reason) not in _warned_fallbacks:
+        _warned_fallbacks.add((requested, reason))
+        warnings.warn(f"{requested} requested but falling back to the XLA "
+                      f"path: {reason}", stacklevel=3)
+
+
+def attention_route(attn_impl, *, heads, dim_head):
+    """`Attention`'s route, as `attention_apply` takes it → (route,
+    fallback): route 'fused' (K6), 'flash' (K7) or 'xla'; fallback None, or
+    (requested, reason) where JAX's own gate turns 'fused' off (K6's head
+    groups)."""
+    if attn_impl in ("fused_recompute", "fused_qkv"):
+        # the store/recompute distinction is the megablock's only
+        attn_impl = "fused"
+    if attn_impl == "fused" and not core.supported(heads, dim_head):
+        return "xla", (f"attn_impl={attn_impl!r}",
+                       f"heads={heads}, dim_head={dim_head} does not tile "
+                       "into 128-lane head groups")
+    return attn_impl, None
+
+
+def ff_route(ff_impl, *, dim, inner):
+    """The FF route → (route, fallback): route 'block' (the FF block
+    kernels), 'fused' (K8) or 'xla'; fallback None, or (requested, reason)
+    where JAX's own gate turns the FF block off (its column blocks,
+    `fused_ff_block.supported`)."""
+    if ff_impl not in FF_BLOCK_IMPLS:
+        return ff_impl, None
+    if not _ffb.supported(dim, inner):
+        return "xla", (f"ff_impl={ff_impl!r}",
+                       f"inner width {inner} has no usable column block "
+                       "divisor for the dW pass")
+    return "block", None
+
+
+def transformer_routes(attn_impl, ff_impl, *, dim, heads, dim_head, inner,
+                       rotary):
+    """The routes `Transformer.forward` takes → (attn, ff, fallbacks): attn
+    'mega' (the megablock: a megablock flag and no rotary embedding) or
+    `attention_route`'s; ff `ff_route`'s; fallbacks the (requested, reason)
+    of each kernel route that JAX's gates turn off. A pure function of the
+    shapes, the same on every device."""
+    fallbacks = []
+    if attn_impl in MEGA_IMPLS and not rotary:
+        attn = "mega"
+    else:
+        attn, fallback = attention_route(attn_impl, heads=heads,
+                                         dim_head=dim_head)
+        fallbacks += [fallback] if fallback else []
+    ff, fallback = ff_route(ff_impl, dim=dim, inner=inner)
+    fallbacks += [fallback] if fallback else []
+    return attn, ff, fallbacks
 
 
 def patch_dropout(x, prob, *, generator=None, keep_idx=None):
@@ -178,21 +249,21 @@ class Attention(nn.Module):
 
     def forward(self, x, mask=None, causal=False, rotary=None,
                 attn_impl="xla"):
+        # the reference's routing and its warning (`nn/layers.py:163-175`)
+        route, fallback = attention_route(attn_impl, heads=self.heads,
+                                          dim_head=self.dim_head)
+        if fallback:
+            _warn_fallback(*fallback)
+        return self.run(x, mask, causal, rotary, route)
+
+    def run(self, x, mask, causal, rotary, route):
+        """The layer on a route `attention_route` has resolved: 'fused',
+        'flash' or 'xla'."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         scale = d ** -0.5
-        if attn_impl in ("fused_recompute", "fused_qkv"):
-            # the store/recompute distinction is the megablock's only
-            attn_impl = "fused"
-        if attn_impl == "fused" and not core.supported(h, d):
-            # the reference's routing and its warning (`nn/layers.py:170-173`)
-            warnings.warn(f"attn_impl='fused' requested, but heads={h}, "
-                          f"dim_head={d} do not tile into 128-lane head "
-                          "groups: the plain attention route runs, as in "
-                          "the reference", stacklevel=2)
-            attn_impl = "xla"
         qkv = self.to_qkv(self.norm(x))
-        if attn_impl == "fused":
+        if route == "fused":
             if rotary is not None:
                 # the same rotation of every dim_head-wide head slice
                 qkv = apply_rotary_pos_emb(
@@ -208,7 +279,7 @@ class Attention(nn.Module):
         q = q * scale
         if rotary is not None:
             q, k, v = (apply_rotary_pos_emb(rotary, t) for t in (q, k, v))
-        if attn_impl == "flash":
+        if route == "flash":
             out = flash_attention(q, k, v, mask=mask, causal=causal)
         else:
             out = self._attend(q, k, v, mask, causal)
@@ -274,8 +345,15 @@ class Transformer(nn.Module):
             check_training_routes(
                 attn_impl, ff_impl, checkpoint=checkpoint_during_training,
                 attn_dropout=attn_dropout, ff_dropout=ff_dropout)
-        use_mega = attn_impl in MEGA_IMPLS and rotary is None
-        use_ffb = ff_impl in FF_BLOCK_IMPLS
+        attn_route, ffn_route, fallbacks = transformer_routes(
+            attn_impl, ff_impl, dim=x.shape[-1], heads=self.heads,
+            dim_head=self.dim_head,
+            inner=self.layers[0].ff.inner_norm.g.shape[0] if self.layers
+            else 0, rotary=rotary is not None)
+        for fallback in fallbacks:
+            _warn_fallback(*fallback)
+        use_mega = attn_route == "mega"
+        use_ffb = ffn_route == "block"
         mega, ffb = attention_block, ff_block
         if training:
             mega = (attention_block_train if attn_impl == "fused" else
@@ -301,10 +379,10 @@ class Transformer(nn.Module):
                     a.out_norm.g.to(dt), key_mask, self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
-                x = a(x, mask, causal, rotary, attn_impl) + x
+                x = a.run(x, mask, causal, rotary, attn_route) + x
             if use_ffb:
                 x = ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
                         f.inner_norm.g.to(dt), f.w_out.w.to(dt))
             else:
-                x = f(x, ff_impl) + x
+                x = f(x, ffn_route) + x
         return self.norm_out(x)

@@ -20,9 +20,9 @@ temperature before the kernel, so its gradient flows by autograd; DCL
 drops the diagonal inside the kernel.
 
 Not ported yet (each raises `NotImplementedError` naming ROADMAP.md
-Queue 1, item 4): multiview (more than one view), FILIP token matching,
-similarity regularisation, the `row_valid` pad-and-mask option. The
-cross-device paths are Queue 1, item 8.
+Queue 1, the objectives and heads): multiview (more than one view), FILIP
+token matching, similarity regularisation, the `row_valid` pad-and-mask
+option. The cross-device paths are Queue 1, the row-sharded loss.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..kernels.fused_infonce import streaming_lse
 
 def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                              "Queue 1, item 4")
+                              "Queue 1, the objectives and heads")
 
 
 def infonce_from_sims(text_to_image, image_to_text, decoupled: bool):

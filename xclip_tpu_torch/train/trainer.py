@@ -137,13 +137,14 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
     call generator)."""
     if grad_accum != 1:
         raise NotImplementedError(
-            "grad_accum > 1 is not ported yet: ROADMAP.md Queue 1, item 6")
+            "grad_accum > 1 is not ported yet: ROADMAP.md Queue 1, "
+            "grad_accum and valid=")
 
     def step(text, image, generator=None, keep_idx=None, valid=None):
         if valid is not None:
             raise NotImplementedError(
                 "valid= (pad-and-mask of a short batch) is not ported yet: "
-                "ROADMAP.md Queue 1, item 6")
+                "ROADMAP.md Queue 1, grad_accum and valid=")
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = model(text, image, return_loss=True,
                               return_metrics=True, generator=generator,
