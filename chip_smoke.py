@@ -17,9 +17,10 @@ inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
 block); every bf16 product of the FF blocks and the megablock runs on one
 TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm over
 rows (forward and backward) and GEGLU backward on the row kernels of
-csrc/row_kernels.cuh, held alone in phase 20; shapes the CUDA kernels do
-not take run on the plain route with a warning (phase 21). One line per
-phase; any failure exits non-zero, and nothing is caught.
+csrc/row_kernels.cuh, held alone in phase 20; a shape past the CUDA
+kernels raises ValueError naming the limit (phase 21), and only the JAX
+package's own gates send a flag to the plain path, with JAX's warning. One
+line per phase; any failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -42,7 +43,8 @@ phase; any failure exits non-zero, and nothing is caught.
              megablock variant runs) at (256, 257, 3 x 512) with the text
              tower's key pads and with full-length captions, forward and
              backward, against its plain
-             version element by element (phase 12's rule), timed beside
+             version element by element (phase 12's rule), two launches
+             of each bit for bit equal, timed beside
              its plain version, scaled_dot_product_attention on the same
              q, k, v and mask, and its bound.
   7 train-golden  one fp32 train step of the tiny CLIP of the golden file
@@ -76,8 +78,8 @@ phase; any failure exits non-zero, and nothing is caught.
              megablock core's among them), finite losses, the first near
              ln b; the bf16 product kernel's launches per step by
              instance against the count the step's chunks give; the
-             LayerNorm forward rows and K5's kernels by instance from the
-             profile.
+             LayerNorm forward rows, K5's kernels and the attention core's
+             (forward, dq, dk/dv) by instance from the profile.
  12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
              backward at (256, 256, 3 x 512) causal with key pads and at n =
              257 not causal, K7 (FlashAttention) forward and backward at
@@ -89,7 +91,8 @@ phase; any failure exits non-zero, and nothing is caught.
              plain versions on the card element by element (bf16: two ulps
              of each element plus 3e-2 of its head row's RMS plus 1e-2 of
              the tensor's; fp32 and every lse: 1e-4 of the largest
-             magnitude) and within 1e-3 relative Frobenius error each;
+             magnitude) and within 1e-3 relative Frobenius error each
+             (K6: two launches of each bit for bit equal);
              CUDA-event times of
              kernel, plain version and scaled_dot_product_attention
              (forward, backward, both) on the same q, k, v and mask, the
@@ -158,7 +161,10 @@ phase; any failure exits non-zero, and nothing is caught.
              8,192, fp32 and bf16, against the plain version, two launches
              bit for bit equal, timed beside the plain version, the bytes
              bound and, for the plain mode, F.layer_norm (for the stats
-             mode on bf16 rows, native_layer_norm). Phases 8, 11, 15
+             mode on bf16 rows, native_layer_norm). Then the ordered sums
+             (reduce_parts_kernel) at two of the b = 2048 step's calls,
+             bit for bit against the plain ordered sum, timed beside it,
+             their bytes bound and part.sum(0). Phases 8, 11, 15
              and 18 check the row kernels' launches per step by mode,
              counted in the library.
  21 heads    small CLIPs (2 + 2 layers, bf16) whose text heads are 32
@@ -542,16 +548,23 @@ def attn_kernels(gen, core, flash):
             static = (8, 64, 0.125, causal, True)
             label = (f"K6 {tag} ({b}, {n}, 3x512) 8x64 "
                      f"{'causal ' if causal else ''}key-pad")
+            got = core.attention_core_fwd(qkv, mask, *static)
+            if not all(map(torch.equal, got,
+                           core.attention_core_fwd(qkv, mask, *static))):
+                fail(f"{label}: two forward launches differ")
             e_fwd = compare_elementwise(
-                label, ("out", "lse"), core.attention_core_fwd(qkv, mask,
-                                                               *static),
+                label, ("out", "lse"), got,
                 core.attention_core_fwd_plain(qkv, mask, *static), dtype)
             out, lse = core.attention_core_fwd_plain(qkv, mask, *static)
+            got = core.attention_core_bwd(qkv, mask, out, lse, do, *static)
+            if not torch.equal(got, core.attention_core_bwd(
+                    qkv, mask, out, lse, do, *static)):
+                fail(f"{label}: two backward launches differ")
             e_bwd = compare_elementwise(
-                label, ("dqkv",),
-                (core.attention_core_bwd(qkv, mask, out, lse, do, *static),),
+                label, ("dqkv",), (got,),
                 (core.attention_core_bwd_plain(qkv, mask, out, lse, do,
                                                *static),), dtype)
+            del got
             if n == 256 and dtype == torch.bfloat16:
                 errs.update(k6_fwd=e_fwd, k6_bwd=e_bwd)
                 ms["k6_fwd"] = (
@@ -842,9 +855,9 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
     8 x 64 heads, non-causal, scale 64^-0.5, on random qkv and fp32 dattn
     (from a generator of its own, so the later phases' draws stay put)
     with `lengths` valid keys an element: against its plain version
-    element by element, timed beside its plain version, SDPA on the same
-    q, k, v and mask, and its bound. Returns (errs, ms, costs, library)
-    keyed core_fwd, core_bwd."""
+    element by element, two launches of each bit for bit equal, timed
+    beside its plain version, SDPA on the same q, k, v and mask, and its
+    bound. Returns (errs, ms, costs, library) keyed core_fwd, core_bwd."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
     dt, scale = torch.bfloat16, 64 ** -0.5
     mask = key_mask(lengths, n)
@@ -853,13 +866,19 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
     static = (8, 64, scale, False, maybe_dead)
     tag = f"megablock core bf16 ({b}, {n}, 3x512) 8x64 {label}"
     want = mega.mega_core_fwd_plain(qkv, mask, *static)
-    errs = {"core_fwd": compare_elementwise(
-        tag, ("attnout", "sm"), mega.mega_core_fwd(qkv, mask, *static), want,
-        dt)}
+    got = mega.mega_core_fwd(qkv, mask, *static)
+    if not all(map(torch.equal, got, mega.mega_core_fwd(qkv, mask, *static))):
+        fail(f"{tag}: two forward launches differ")
+    errs = {"core_fwd": compare_elementwise(tag, ("attnout", "sm"), got,
+                                            want, dt)}
+    got = mega.mega_core_bwd(qkv, mask, dattn, *want, *static)
+    if not torch.equal(got, mega.mega_core_bwd(qkv, mask, dattn, *want,
+                                               *static)):
+        fail(f"{tag}: two backward launches differ")
     errs["core_bwd"] = compare_elementwise(
-        tag, ("dqkv",), (mega.mega_core_bwd(qkv, mask, dattn, *want,
-                                            *static),),
+        tag, ("dqkv",), (got,),
         (mega.mega_core_bwd_plain(qkv, mask, dattn, *want, *static),), dt)
+    del got
     ms = {"core_fwd": (
         cuda_ms(lambda: mega.mega_core_fwd(qkv, mask, *static)),
         cuda_ms(lambda: mega.mega_core_fwd_plain(qkv, mask, *static))),
@@ -1298,7 +1317,7 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
 
 # kernels phase 11 lists by instance from its profile, whatever their rank
 PROFILED = ("ln_fwd_rows_kernel", "lse_fwd_kernel", "k5_gemm_kernel",
-            "k5_sum_kernel")
+            "k5_sum_kernel", "k6_fwd", "k6_bwd")
 
 
 def profile_step(run, i):
@@ -1385,8 +1404,8 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
             for t, count, key in rows[:12]:
                 print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                       f"{key[:90]}", flush=True)
-            print(f"  b={b} LayerNorm forward rows and K5 by instance:",
-                  flush=True)
+            print(f"  b={b} LayerNorm forward rows, K5 and the attention "
+                  "core by instance:", flush=True)
             for t, count, key in rows:
                 if any(k in key for k in PROFILED):
                     print(f"    {t:8.3f} ms {100 * t / total:5.1f} % "
@@ -2240,7 +2259,9 @@ def reduce_phase(gen, step_rows):
     chunk, 2048 wide) and the split-k sum of W_in's gradient (one partial
     per 2048 rows, 512 x 4096). Against the plain ordered sum (bit for
     bit), timed beside its bytes bound (each partial read once, the
-    running sum read and written once)."""
+    running sum read and written once), its plain version (the partials
+    added one by one) and one PyTorch call, `part.sum(0)` (the same sum
+    without the running one, in torch's own order)."""
     from xclip_tpu_torch.kernels import rows as rk
     rows = step_rows["ff_bwd"]
     for label, parts, n in (("dg sum, GEGLU rows", rk.blocks(rows), 2048),
@@ -2254,11 +2275,19 @@ def reduce_phase(gen, step_rows):
             fail(f"reduce_parts {label}: not the plain ordered sum's bits")
         acc = out.clone()
         kms = cuda_ms(lambda: rk.reduce_parts(part, acc))
+
+        def plain():
+            for p in part:
+                acc.add_(p)
+
+        plain_ms = cuda_ms(plain, reps=3, iters=1)
+        lib_ms = cuda_ms(lambda: part.sum(0))
         b_ms, _ = bound((parts + 2) * n * 4, parts * n, FP32_PEAK)
         print(f"  ordered sums (reduce_parts_kernel), {label}: {parts} "
               f"partials x {n} at a {rows}-row chunk: kernel {kms:.4f} ms, "
-              f"bound {b_ms:.4f} ms (bytes), {b_ms / kms:.2f} of the bound",
-              flush=True)
+              f"bound {b_ms:.4f} ms (bytes), {b_ms / kms:.2f} of the bound, "
+              f"plain {plain_ms:.4f} ms, part.sum(0) {lib_ms:.4f} ms "
+              f"({kms / lib_ms:.2f}x)", flush=True)
         del part, out, got, acc
     torch.cuda.empty_cache()
 

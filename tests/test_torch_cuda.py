@@ -808,6 +808,69 @@ def test_megablock_writes_every_element(cuda_device, causal, mask_kind):
     assert torch.isfinite(dqkv).all()
 
 
+# (core, mask kind, b, n, causal, scale): full tiles and ragged tails of
+# the warp, chunk and slice cuts at the text tower's 257, the vision
+# tower's 32 and lengths around five tiles; "full" every key valid, "pads"
+# caption lengths uniform in 1..n
+CORE_PATH_CASES = [
+    ("mega", "full", 256, 257, False, 64 ** -0.5),
+    ("mega", "pads", 16, 320, False, 64 ** -0.5),
+    ("mega", "pads", 16, 321, False, 64 ** -0.5),
+    ("mega", "full", 64, 32, False, 64 ** -0.5),
+    ("mega", "pads", 16, 65, False, 64 ** -0.5),
+    ("mega", "dead", 8, 257, True, 0.1),
+    ("mega", "dead", 8, 320, True, 0.1),
+    ("mega", "dead", 8, 321, True, 0.1),
+    ("k6", "pads", 256, 256, True, 0.125),
+    ("k6", "dead", 8, 321, True, 0.125),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,kind,b,n,causal,scale", CORE_PATH_CASES)
+def test_attention_core_cuts(cuda_device, which, kind, b, n, causal, scale):
+    """bf16, 8 heads: the megablock's core and K6 with full tiles, ragged
+    tails (n = 32, 65, 257, 320, 321), dead rows, causal and scale 0.1,
+    forward and backward element by element against the plain versions
+    (phase 12's rule), and two launches of each bit for bit equal."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    qkv = torch.randn(b, n, 3 * 512, generator=g, device=cuda_device).to(dt)
+    if kind == "pads":
+        lengths = torch.randint(1, n + 1, (b, 1), generator=g,
+                                device=cuda_device)
+        mask = torch.arange(n, device=cuda_device)[None] < lengths
+    else:
+        mask = torch.from_numpy(_key_mask(b, n, "dead" if kind == "dead"
+                                          else "none")).to(cuda_device)
+    static = (8, 64, scale, causal, True)
+    if which == "mega":
+        fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+        fwd_plain = mega.mega_core_fwd_plain
+        bwd_plain = mega.mega_core_bwd_plain
+        names = ("attnout", "sm")
+        cot = torch.randn(b, n, 512, generator=g, device=cuda_device)
+    else:
+        fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+        fwd_plain = core.attention_core_fwd_plain
+        bwd_plain = core.attention_core_bwd_plain
+        names = ("out", "lse")
+        cot = torch.randn(b, n, 512, generator=g, device=cuda_device).to(dt)
+    got = fwd(qkv, mask, *static)
+    assert all(torch.equal(x, y) for x, y in zip(got, fwd(qkv, mask,
+                                                          *static)))
+    want = fwd_plain(qkv, mask, *static)
+    _assert_elementwise(got, want, "bfloat16", names)
+    if which == "mega":
+        grads = [bwd(qkv, mask, cot, *want, *static) for _ in range(2)]
+        plain = bwd_plain(qkv, mask, cot, *want, *static)
+    else:
+        grads = [bwd(qkv, mask, *want, cot, *static) for _ in range(2)]
+        plain = bwd_plain(qkv, mask, *want, cot, *static)
+    assert torch.equal(grads[0], grads[1])
+    _assert_elementwise((grads[0],), (plain,), "bfloat16", ("dqkv",))
+
+
 @pytest.mark.cuda
 def test_megablock_length_limit_is_2048(cuda_device):
     """bf16: the megablock, its core and K6 share the mma.sync kernels'

@@ -16,6 +16,9 @@ that design rests on:
   scale) · vᵀ, ds unscaled), as JAX's `_bwd_kernel_stored` does; at scale
   0.1 the plain version holds to it, and K6's order (ds scaled) rounds
   differently in bf16 (at a power of two the orders agree);
+* the finer cuts (16-row warps past n, 8-key chunks and 16-deep slices
+  past a warp's last key, full tiles without a mask) leave out only exact
+  zeros;
 * the core's plain versions against the JAX package's forward in
   interpret mode, the wrappers on CPU tensors, and the one length limit
   the megablock's and K6's wrappers read.
@@ -175,6 +178,104 @@ def test_mega_core_skipped_tiles_change_nothing(dtype, causal, kind, n):
         assert not sm[-1, :, :HEADS].any()
         assert torch.equal(sm[-1, :, HEADS:], torch.full((n, HEADS),
                                                          float(n)))
+
+
+def _parts(cols, unit):
+    """`tile_parts`: the 8-key chunks (unit 8) or 16-deep slices (unit 16)
+    of a 64-key tile holding one of its first `cols` keys."""
+    return min(64 // unit, max(0, -(-cols // unit)))
+
+
+def _cuts(mask, causal, maybe_dead):
+    """The bf16 kernels' cuts below the tile (csrc/attention_block_sm90.cuh),
+    as (b, N, N) boolean maps over (query, key), N the padded length:
+    `scored`, the chunks of 8 keys whose scores a forward warp (16 query
+    rows) computes, and the dq kernel's, which cuts the same; `multiplied`,
+    the 16-key slices a forward warp takes into p · v; `full`, the tiles a
+    forward or dq warp takes without a per-element mask; `full_kv`, those
+    a dk/dv warp (16 keys) takes so. A warp whose rows (or keys) all lie at
+    or past n does nothing."""
+    b, n = mask.shape
+    tiles = -(-n // 64)
+    size = 64 * tiles
+    bits, first = _tile_bits(mask)
+    padded = torch.zeros(b, size, dtype=torch.bool)
+    padded[:, :n] = mask
+    words_full = padded.reshape(b, tiles, 64).all(-1)
+    scored, multiplied, full, full_kv = (
+        torch.zeros(b, size, size, dtype=torch.bool) for _ in range(4))
+    for bi in range(b):
+        fv = int(first[bi])
+        dead_end = ((min(fv, n) if causal else (n if fv >= n else 0))
+                    if maybe_dead else 0)
+        for r0 in range(0, n, 16):
+            rows = slice(r0, r0 + 16)
+            warp_dead = maybe_dead and (fv > r0 if causal else fv >= n)
+            kend = min(n, r0 + 16) if causal else n
+            pend = n if warp_dead else kend
+            for t in range(tiles):
+                k0 = 64 * t
+                if bits[bi, t] and k0 < kend:
+                    scored[bi, rows, k0:k0 + 8 * _parts(kend - k0, 8)] = True
+                    if words_full[bi, t] and not (causal and k0 + 63 > r0):
+                        full[bi, rows, k0:k0 + 64] = True
+                if (k0 < n) if warp_dead else (k0 < kend and bits[bi, t]):
+                    multiplied[bi, rows,
+                               k0:k0 + 16 * _parts(pend - k0, 16)] = True
+        for kw0 in range(0, n, 16):
+            keys_full = bool(padded[bi, kw0:kw0 + 16].all())
+            for t in range(tiles):
+                q0 = 64 * t
+                if (keys_full and q0 + 64 <= n and q0 >= dead_end
+                        and not (causal and kw0 + 15 > q0)):
+                    full_kv[bi, q0:q0 + 64, kw0:kw0 + 16] = True
+    return scored, multiplied, full, full_kv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind,n", [("keypad", 257), ("holes", 257),
+                                    ("all", 257), ("all", 200),
+                                    ("none", 130), ("none", 32),
+                                    ("keypad", 65)])
+def test_warp_and_chunk_cuts_skip_only_zeros(causal, kind, n):
+    """What the warp, chunk and full-tile cuts leave out is exact: every
+    score a live row uses lies in a scored chunk, every nonzero p in a
+    multiplied slice, and a full tile holds only valid keys (at or before
+    every row, causal) and no dead row, in the forward and dq kernels'
+    layout and in the dk/dv kernel's."""
+    maybe_dead = kind != "none"
+    qkv, mask, _, _, _ = _inputs(n, kind, torch.float32)
+    b = qkv.shape[0]
+    attnout, sm = mega.mega_core_fwd_plain(qkv, mask, HEADS, 64, 0.125,
+                                           causal, maybe_dead)
+    q, k, _ = (mega._heads(qkv[..., i * 128:(i + 1) * 128], b, n, HEADS, 64)
+               for i in range(3))
+    s, dead = mega._softmax_parts(q, k, mask, 0.125, causal, maybe_dead)
+    if dead is None:
+        dead = torch.zeros(b, HEADS, n, 1, dtype=torch.bool)
+    m, l = (sm[..., i * HEADS:(i + 1) * HEADS].permute(0, 2, 1)[..., None]
+            for i in range(2))
+    p = torch.where(dead, 1.0, torch.exp(s - m)) / l
+    valid = s != float("-inf")
+    scored, multiplied, full, full_kv = (c[:, None, :n, :n] for c in
+                                         _cuts(mask, causal, maybe_dead))
+    assert not (valid & ~dead & ~scored).any()
+    assert not ((p != 0) & ~multiplied).any()
+    for cut in (full, full_kv):
+        assert not (cut & ~valid).any()
+        assert not (cut & dead).any()
+
+
+def test_cuts_at_full_length_257():
+    """At n = 257 with every key valid the forward's live warps (17 of
+    20) score 33 chunks of 8 keys each (four whole tiles and the fifth
+    tile's first chunk): 17.5 tile pairs of 64 x 64 in place of 25, and
+    every tile but the fifth is full."""
+    mask = torch.ones(1, 257, dtype=torch.bool)
+    scored, multiplied, full, _ = _cuts(mask, False, True)
+    assert int(scored.sum()) == 17 * 16 * 33 * 8
+    assert int(multiplied.sum()) == 17 * 16 * (4 * 64 + 16)
+    assert int(full.sum()) == 17 * 16 * 4 * 64
 
 
 def _jax_dqkv(monkeypatch, args, dtype, heads, scale, causal, maybe_dead,

@@ -56,25 +56,42 @@
 //     them: a forward block holding a dead row walks every key tile, and
 //     the dk/dv kernel walks every query tile that holds a dead row (its p
 //     = 1/n reaches dv for every key).
-// The forward takes two passes over the key tiles to keep the reference's
-// cast order (p divided by the whole row's l before rounding): the first
-// keeps a running (m, l), the second recomputes s and accumulates
-// T(exp(s - m) / l) . v. The backward is two kernels, each owning its
-// outputs (no atomics, two runs agree bit for bit): query tiles give delta
-// (into the `delta` scratch) and dq; key tiles compute sᵀ = k . qᵀ and dpᵀ
-// = v . doᵀ, so pᵀ and dsᵀ are the A operands of dv += T(p)ᵀ . do and dk
-// += dsᵀ . q; registers bound the dk/dv kernel at three blocks an SM, so
-// it passes its A operands and p, ds one 16-wide slice at a time (whole
-// operands spill in the megablock's mode, two blocks an SM run slower:
-// tools/mega_core_variants.py). In megablock mode the dq kernel reads its
-// block's fp32 dattn rows once, sums delta from them and writes the two
-// bf16 copies the dk/dv kernel streams as K6 streams do: T(dattn * scale)
-// for dpᵀ and T(dattn) for dv, side by side in the 256 bytes of the row's
-// fp32 head slice (`dcopy`, which may be dattn's own storage: nothing
-// reads the fp32 values after the dq kernel). Every output element is
-// written (the wrappers' tensors come from torch.empty): a skipped tile
-// leaves its accumulator 0. Rows and keys at or past n read as 0 and are
-// never written.
+// The forward takes two passes over the key tiles: the first keeps a
+// running (m, l), the second recomputes s and accumulates T(p / l) . v, so
+// that p / l is rounded with the whole row's l, as the reference rounds
+// it. Every kernel skips work a warp does not need: a warp whose 16 rows
+// are all at or past n runs no product (it still joins the block's
+// barriers); key columns past the last key a warp reads (n, or causal its
+// last row) are skipped in 8-key chunks in q . kᵀ and 16-deep slices in p
+// . v, and a whole tile takes its products without a branch; a full tile
+// (all 64 keys valid and, causal, none past the warp's first row) takes
+// only the scale, with no per-element mask. e^x is 2^(x log2 e) on
+// ex2.approx (`k6_exp`) and p / l is p times a reciprocal taken once a row
+// (`k6_norm`). Holding a block's score rows whole in registers up to 320
+// keys (one q . kᵀ and one exp a score) costs half the blocks an SM: on an
+// NVIDIA H100 (700 W) it won only where every key tile of a row holds
+// valid keys (full-length captions) and lost to two passes at the text
+// tower's key pads and under K6's causal triangle;
+// tools/mega_core_variants.py times it (tools/held_rows.patch), with the
+// scores in shared memory and with expf and the division, against the
+// shipped kernels (PERF.md).
+// The backward is two kernels, each owning its outputs (no atomics, two
+// runs agree bit for bit): query tiles give delta (into the `delta`
+// scratch) and dq; key tiles compute sᵀ = k . qᵀ and dpᵀ = v . doᵀ, so pᵀ
+// and dsᵀ are the A operands of dv += T(p)ᵀ . do and dk += dsᵀ . q. Both
+// take the same warp, chunk and full-tile cuts, and the row terms (m, 1 /
+// l, delta) once a row or a tile column. Registers bound the dk/dv kernel
+// at three blocks an SM, so it passes its A operands and p, ds one 16-wide
+// slice at a time (whole operands spill in the megablock's mode, two
+// blocks an SM run slower: tools/mega_core_variants.py). In megablock mode
+// the dq kernel reads its block's fp32 dattn rows once, sums delta from
+// them and writes the two bf16 copies the dk/dv kernel streams as K6
+// streams do: T(dattn * scale) for dpᵀ and T(dattn) for dv, side by side
+// in the 256 bytes of the row's fp32 head slice (`dcopy`, which may be
+// dattn's own storage: nothing reads the fp32 values after the dq kernel).
+// Every output element is written (the wrappers' tensors come from
+// torch.empty): a skipped tile leaves its accumulator 0. Rows and keys at
+// or past n read as 0 and are never written.
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -86,10 +103,27 @@ constexpr int K6_THREADS = 128;   // 4 warps of 16 rows: 64-row blocks
 constexpr int K6_MAX_TILES = 32;  // key tiles of the longest sequence
 constexpr int K6_MAX_N = 64 * K6_MAX_TILES;
 constexpr int K6_TILE = 64 * LDT;  // bf16 elements of a staged tile
+constexpr float K6_LOG2E = 1.4426950408889634f;
 
 // The backward's row cotangent: K6's bf16 do, the megablock's fp32 dattn.
 template <bool MEGA>
 using K6Cot = typename std::conditional<MEGA, float, bf16>::type;
+
+// e^(x - m) as 2^(x log2 e - m log2 e): one FFMA and one ex2.approx (m
+// log2 e is a row's, hoisted), within a few fp32 ulps of expf(x - m);
+// results below 2^-126 flush to 0.
+__device__ __forceinline__ float k6_exp(float x, float m) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(y)
+      : "f"(fmaf(x, K6_LOG2E, -m * K6_LOG2E)));
+  return y;
+}
+
+// p / l, given linv = 1 / l taken once a row (or a dk/dv tile column).
+__device__ __forceinline__ float k6_norm(float p, float l, float linv) {
+  return p * linv;
+}
 
 // One 64-bit word per 64-key tile of the batch element's mask (bit c: key
 // 64 t + c < n is valid), into `bits`; returns the first valid key (n if
@@ -110,10 +144,49 @@ __device__ int k6_key_tiles(unsigned long long* bits, const uint8_t* mrow,
   return n;
 }
 
-// Forward, one block per (64-query tile, head, batch element); the last
-// query tiles, which walk the most key tiles when causal, start first.
-// `stats`: K6's lse (b*n x heads); the megablock's sm (b*n x 2*heads), or
-// null to keep none.
+// Whether key tile t (mask word `word`) is full for the 16 query rows from
+// r0: every key valid and, causal, none past r0. Such a tile needs no
+// per-element mask, and holds no dead row.
+__device__ __forceinline__ bool k6_full(unsigned long long word, int t, int r0,
+                                        int causal) {
+  return word == ~0ull && !(causal && 64 * t + 63 > r0);
+}
+
+// The warp's scores over key tile t (staged at kt): s = (q . kᵀ) scale
+// over the tile's first `nc` 8-key chunks (the rest hold no key the warp
+// reads, and read -inf); a full tile takes only the scale, elsewhere
+// masked and future keys are -inf.
+__device__ __forceinline__ void k6_scores(float (&s)[8][4],
+                                          const uint32_t (&qa)[4][4],
+                                          const bf16* kt, int t,
+                                          unsigned long long word, bool full,
+                                          int nc, const int (&row)[2],
+                                          float scale, int causal) {
+  zero_acc(s);
+  mma_abt(s, qa, kt, nc);
+  if (full) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] *= scale;
+    return;
+  }
+  const int tq = threadIdx.x & 3;
+  const KeyBits key(word, tq);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 64 * t + 8 * c + 2 * tq + (e & 1);
+      const bool valid = key(c, e & 1) && !(causal && j > row[e >> 1]);
+      s[c][e] = valid ? s[c][e] * scale : -INFINITY;
+    }
+}
+
+// Forward, one block per (64-query tile, head, batch element), in two
+// passes over the key tiles; the last query tiles, which have the most key
+// tiles when causal, start first. `stats`: K6's lse (b*n x heads); the
+// megablock's sm (b*n x 2*heads), or null to keep none.
 template <bool MEGA>
 __global__ void __launch_bounds__(K6_THREADS, 4)
 k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
@@ -160,6 +233,13 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
     return st < 64 ? 64 + first : END;
   };
   const int first_step = first < last ? first : END;
+  // the warp's cuts: no product past n; no key scored from `kend` on, no
+  // p . v from `pend` on (a dead row reads every key)
+  const int r0 = q0 + warp * 16;
+  const bool live = r0 < n;
+  const bool warp_dead = maybe_dead && live && (causal ? fv > r0 : fv >= n);
+  const int kend = causal ? min(n, r0 + 16) : n;
+  const int pend = warp_dead ? n : kend;
   int row[2];
   bool dead[2];
 #pragma unroll
@@ -172,31 +252,17 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   uint32_t qa[4][4];
   load_a(qa, qs, warp * 16);
 
-  // s = (q . kᵀ) scale for key tile t, -inf on masked and future keys
-  auto scores = [&](float (&s)[8][4], int t, const bf16* kt) {
-    zero_acc(s);
-    mma_abt(s, qa, kt);
-    const KeyBits key(bits[t], tq);
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 64 * t + 8 * c + 2 * tq + (e & 1);
-        const bool valid = key(c, e & 1) && !(causal && j > row[e >> 1]);
-        s[c][e] = valid ? s[c][e] * scale : -INFINITY;
-      }
-  };
-
   // pass 1 keeps the running max and sum of each row; then (m, l) are
   // final and the statistics are written; pass 2 accumulates o = T(p /
   // l) . v
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2];
   bool rows_final = false;
   auto finish_rows = [&]() {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float sum = quad_sum(l[i]);  // every lane shuffles
       l[i] = dead[i] ? (float)n : fmaxf(sum, 1e-30f);
+      linv[i] = 1.f / l[i];
       if (dead[i]) m[i] = 0.f;
       const long r = (long)bi * n + row[i];
       if (tq != 0 || row[i] >= n) continue;
@@ -215,9 +281,13 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
       first_step, END, next, stage,
       [&](int st, int buf) {
         const int t = st & 63;
+        const bf16* kt = ks + buf * K6_TILE;
+        const bool full = k6_full(bits[t], t, r0, causal);
+        const int nc = tile_parts(kend - 64 * t, 8);
         float s[8][4];
-        scores(s, t, ks + buf * K6_TILE);
         if (st < 64) {
+          if (!live || nc == 0) return;
+          k6_scores(s, qa, kt, t, bits[t], full, nc, row, scale, causal);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             float mt = -INFINITY;
@@ -226,10 +296,10 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
               mt = fmaxf(mt, fmaxf(s[c][2 * i], s[c][2 * i + 1]));
             const float mn = fmaxf(m[i], quad_max(mt));
             if (mn != -INFINITY) {  // the same in the whole quad
-              float sum = l[i] * expf(m[i] - mn);
+              float sum = l[i] * k6_exp(m[i], mn);
 #pragma unroll
               for (int c = 0; c < 8; ++c)
-                sum += expf(s[c][2 * i] - mn) + expf(s[c][2 * i + 1] - mn);
+                sum += k6_exp(s[c][2 * i], mn) + k6_exp(s[c][2 * i + 1], mn);
               l[i] = sum;
               m[i] = mn;
             }
@@ -237,21 +307,31 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
           return;
         }
         if (!rows_final) finish_rows();
+        const int ns = tile_parts(pend - 64 * t, 16);
+        if (!live || ns == 0) return;
+        if (nc > 0) {
+          k6_scores(s, qa, kt, t, bits[t], full, nc, row, scale, causal);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[c][e] = -INFINITY;
+        }
 #pragma unroll
         for (int c = 0; c < 8; ++c)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = e >> 1;
             const int j = 64 * t + 8 * c + 2 * tq + (e & 1);
-            const float p = dead[i] ? (j < n ? 1.f : 0.f)
-                                    : (s[c][e] == -INFINITY
-                                           ? 0.f
-                                           : expf(s[c][e] - m[i]));
-            s[c][e] = p / l[i];
+            const float p = full ? k6_exp(s[c][e], m[i])
+                            : dead[i] ? (j < n ? 1.f : 0.f)
+                            : (s[c][e] == -INFINITY ? 0.f
+                                                    : k6_exp(s[c][e], m[i]));
+            s[c][e] = k6_norm(p, l[i], linv[i]);
           }
         uint32_t pa[4][4];
         pack_a(pa, s);
-        mma_ab(o, pa, vs + buf * K6_TILE);
+        mma_ab(o, pa, vs + buf * K6_TILE, ns);
       });
   if (!rows_final) finish_rows();
   store_rows(out + (long)bi * n * hd + h * 64, hd, q0, n, qs, warp * 16, o);
@@ -304,9 +384,13 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
     return t;
   };
   const int first = next(-1);
+  // the warp's cuts: no product past n, no key from `kend` on
+  const int r0 = q0 + warp * 16;
+  const bool live = r0 < n;
+  const int kend = causal ? min(n, r0 + 16) : n;
   int row[2];
   bool dead[2];
-  float rm[2], rl[2];  // the row's m and l; K6: lse and 1
+  float rm[2], rl[2], rinv[2];  // the row's m, l and 1 / l; K6: lse
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     row[i] = q0 + warp * 16 + g + 8 * i;
@@ -318,6 +402,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
       rm[i] = MEGA ? stats[r * 2 * heads + h] : stats[r * heads + h];
       if (MEGA) rl[i] = stats[r * 2 * heads + heads + h];
     }
+    rinv[i] = 1.f / rl[i];
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -402,33 +487,54 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   tile_walk(
       first, last, next, stage,
       [&](int t, int buf) {
+        const int nc = tile_parts(kend - 64 * t, 8);
+        if (!live || nc == 0) return;
         const bf16* kt = ks + buf * K6_TILE;
         float s[8][4], dp[8][4];
         zero_acc(s);
         zero_acc(dp);
-        mma_abt(s, qa, kt);
-        mma_abt(dp, da, vs + buf * K6_TILE);
-        const KeyBits key(bits[t], tq);
+        mma_abt(s, qa, kt, nc);
+        mma_abt(dp, da, vs + buf * K6_TILE, nc);
+        if (k6_full(bits[t], t, r0, causal)) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+          for (int c = 0; c < 8; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
-            const bool valid =
-                key(c, e & 1) && !(causal && 64 * t + col > row[i]);
-            if (MEGA) {
-              const float p =
-                  valid ? expf(__fmul_rn(s[c][e], scale) - rm[i]) / rl[i]
-                        : 0.f;
-              s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]);
-            } else {
-              const float p = valid ? expf(s[c][e] * scale - rm[i]) : 0.f;
-              s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]) * scale;
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              if (MEGA) {
+                const float p = k6_norm(
+                    k6_exp(__fmul_rn(s[c][e], scale), rm[i]), rl[i], rinv[i]);
+                s[c][e] = p * (dp[c][e] - rdelta[i]);
+              } else {
+                const float p = k6_exp(s[c][e] * scale, rm[i]);
+                s[c][e] = p * (dp[c][e] - rdelta[i]) * scale;
+              }
             }
-          }
+        } else {
+          const KeyBits key(bits[t], tq);
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
+              const bool valid =
+                  key(c, e & 1) && !(causal && 64 * t + col > row[i]);
+              if (MEGA) {
+                const float p =
+                    valid ? k6_norm(k6_exp(__fmul_rn(s[c][e], scale), rm[i]),
+                                    rl[i], rinv[i])
+                          : 0.f;
+                s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]);
+              } else {
+                const float p =
+                    valid ? k6_exp(s[c][e] * scale, rm[i]) : 0.f;
+                s[c][e] = dead[i] ? 0.f : p * (dp[c][e] - rdelta[i]) * scale;
+              }
+            }
+        }
         uint32_t dsa[4][4];
         pack_a(dsa, s);
-        mma_ab(dq, dsa, kt);
+        mma_ab(dq, dsa, kt, tile_parts(kend - 64 * t, 16));
       });
   store_rows(dqkv + (long)bi * n * ld + h * 64, ld, q0, n, qs, warp * 16, dq);
 }
@@ -500,6 +606,12 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
       if (64 * t < dead_end || (kw && !(causal && 64 * t + 63 < k0))) break;
     return t;
   };
+  // the warp's 16 keys: none at or past n runs a product; all valid makes
+  // a query tile full where every query is valid, live and (causal) at or
+  // past them
+  const int kw0 = k0 + warp * 16;
+  const bool live = kw0 < n;
+  const bool keys_full = ((kw >> (warp * 16)) & 0xffffull) == 0xffffull;
   int key[2];
   bool kvalid[2];
 #pragma unroll
@@ -517,55 +629,85 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   tile_walk(
       first, tiles, next, stage,
       [&](int t, int buf) {
+        if (!live) return;
         const bf16* qt = qs + buf * K6_TILE;
         const bf16* dot = dos + buf * K6_TILE;
         const float* tm = rows + buf * NS * 64;  // K6: lse
         const float* tl = tm + 64;               // megablock only
         const float* tdelta = tm + (NS - 1) * 64;
+        const int nc = tile_parts(n - 64 * t, 8);
+        const int ns = tile_parts(n - 64 * t, 16);
+        const bool full = keys_full && 64 * t + 64 <= n && 64 * t >= dead_end &&
+                          !(causal && kw0 + 15 > 64 * t);
         // registers bound the kernel (three blocks an SM): the A operands
         // pass one 16-wide depth slice at a time, and p and ds go into the
-        // dv and dk products 16 queries at a time
+        // dv and dk products 16 queries at a time; a whole query tile takes
+        // the products without a branch
         float s[8][4], dp[8][4];
         zero_acc(s);
         zero_acc(dp);
+        auto products = [&](auto cut) {
+          const int ncut = decltype(cut)::value ? nc : 8;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            uint32_t a[4];
+            load_a_k(a, ks, warp * 16, k);
+            mma_abt_k(s, a, k, qt, ncut);  // sᵀ = k . qᵀ
+            load_a_k(a, vs, warp * 16, k);
+            mma_abt_k(dp, a, k, dot, ncut);  // dpᵀ = v . doᵀ
+          }
+        };
+        if (nc < 8)
+          products(std::true_type{});
+        else
+          products(std::false_type{});
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          uint32_t a[4];
-          load_a_k(a, ks, warp * 16, k);
-          mma_abt_k(s, a, k, qt);  // sᵀ = k . qᵀ
-          load_a_k(a, vs, warp * 16, k);
-          mma_abt_k(dp, a, k, dot);  // dpᵀ = v . doᵀ
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
+          if (k >= ns) break;
 #pragma unroll
           for (int c = 2 * k; c < 2 * k + 2; ++c)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = e >> 1, col = 8 * c + 2 * tq + (e & 1);
-              const int q = 64 * t + col;
-              float p, ds;
-              if (MEGA) {
-                // (dead ? 1 : exp(s - m)) / l, one division; l reads 1 past n
-                const bool valid =
-                    kvalid[i] && q < n && !(causal && key[i] > q);
-                float num = key[i] < n ? 1.f : 0.f;  // a dead row's
-                if (q >= dead_end)
-                  num = valid ? expf(__fmul_rn(s[c][e], scale) - tm[col])
-                              : 0.f;
-                p = num / (q < n ? tl[col] : 1.f);
-                ds = q < dead_end ? 0.f : p * (dp[c][e] - tdelta[col]);
-              } else if (q < dead_end) {
-                p = key[i] < n ? inv_n : 0.f;
-                ds = 0.f;
-              } else {
-                const bool valid =
-                    kvalid[i] && q < n && !(causal && key[i] > q);
-                p = valid ? expf(s[c][e] * scale - tm[col]) : 0.f;
-                ds = p * (dp[c][e] - tdelta[col]) * scale;
+            for (int e1 = 0; e1 < 2; ++e1) {
+              // the column's row terms, once for the warp's two keys
+              const int col = 8 * c + 2 * tq + e1, q = 64 * t + col;
+              const float tmc = tm[col], tdc = tdelta[col];
+              // megablock: 1 / l; l reads 0 past n, taken as 1
+              const float tlc = MEGA && (full || q < n) ? tl[col] : 1.f;
+              const float tli = 1.f / tlc;
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int e = 2 * i + e1;
+                float p, ds;
+                if (full) {
+                  if (MEGA) {
+                    p = k6_norm(k6_exp(__fmul_rn(s[c][e], scale), tmc), tlc,
+                                tli);
+                    ds = p * (dp[c][e] - tdc);
+                  } else {
+                    p = k6_exp(s[c][e] * scale, tmc);
+                    ds = p * (dp[c][e] - tdc) * scale;
+                  }
+                } else if (MEGA) {
+                  // (dead ? 1 : exp(s - m)) / l
+                  const bool valid =
+                      kvalid[i] && q < n && !(causal && key[i] > q);
+                  float num = key[i] < n ? 1.f : 0.f;  // a dead row's
+                  if (q >= dead_end)
+                    num = valid ? k6_exp(__fmul_rn(s[c][e], scale), tmc) : 0.f;
+                  p = k6_norm(num, tlc, tli);
+                  ds = q < dead_end ? 0.f : p * (dp[c][e] - tdc);
+                } else if (q < dead_end) {
+                  p = key[i] < n ? inv_n : 0.f;
+                  ds = 0.f;
+                } else {
+                  const bool valid =
+                      kvalid[i] && q < n && !(causal && key[i] > q);
+                  p = valid ? k6_exp(s[c][e] * scale, tmc) : 0.f;
+                  ds = p * (dp[c][e] - tdc) * scale;
+                }
+                s[c][e] = p;
+                dp[c][e] = ds;
               }
-              s[c][e] = p;
-              dp[c][e] = ds;
             }
           uint32_t a[4];
           pack_a_k(a, s, k);  // dv += T(p)ᵀ . do

@@ -103,27 +103,35 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
 }
 
 // Depth slice k of acc += a . bᵀ: b a staged tile of 64 rows (the output's
-// columns) by 64 (the depth), as q . kᵀ.
+// columns) by 64 (the depth), as q . kᵀ. Only the output's first `nc`
+// 8-column chunks are computed (a ragged tail's); the rest are untouched.
 __device__ __forceinline__ void mma_abt_k(float (&acc)[8][4],
                                           const uint32_t (&a)[4], int k,
-                                          const bf16* b) {
+                                          const bf16* b, int nc = 8) {
   const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
   for (int np = 0; np < 4; ++np) {
+    if (2 * np >= nc) break;
     uint32_t r[4];
     ldsm_x4(r, b + (16 * np + (mi >> 1) * 8 + (lane & 7)) * LDT + 16 * k +
                    (mi & 1) * 8);
     mma_bf16(acc[2 * np], a, r[0], r[1]);
-    mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+    if (2 * np + 1 < nc) mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
   }
 }
 
-// acc += a . bᵀ over the whole depth, slice by slice.
+// acc += a . bᵀ over the whole depth, slice by slice (first `nc` chunks;
+// all 8 take a branch-free path).
 __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
                                         const uint32_t (&a)[4][4],
-                                        const bf16* b) {
+                                        const bf16* b, int nc = 8) {
+  if (nc >= 8) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) mma_abt_k(acc, a[k], k, b);
+    for (int k = 0; k < 4; ++k) mma_abt_k(acc, a[k], k, b);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mma_abt_k(acc, a[k], k, b, nc);
+  }
 }
 
 // Depth slice k of acc += a . b: b a staged tile of 64 rows (the depth) by
@@ -142,12 +150,25 @@ __device__ __forceinline__ void mma_ab_k(float (&acc)[8][4],
   }
 }
 
-// acc += a . b over the whole depth, slice by slice.
+// acc += a . b over the first `ns` 16-deep slices of the depth (a ragged
+// tail's: exact where the rest of a is zero).
 __device__ __forceinline__ void mma_ab(float (&acc)[8][4],
                                        const uint32_t (&a)[4][4],
-                                       const bf16* b) {
+                                       const bf16* b, int ns = 4) {
+  if (ns >= 4) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) mma_ab_k(acc, a[k], k, b);
+    for (int k = 0; k < 4; ++k) mma_ab_k(acc, a[k], k, b);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < ns) mma_ab_k(acc, a[k], k, b);
+  }
+}
+
+// The number of 8-column chunks (`unit` 8) or 16-deep slices (`unit` 16) of
+// a 64-column tile that hold one of its first `cols` columns (0 to 64 / unit).
+__device__ __forceinline__ int tile_parts(int cols, int unit) {
+  return min(64 / unit, max(0, (cols + unit - 1) / unit));
 }
 
 // 4-byte global → shared copy (cp.async.ca); zero-fills when !pred
@@ -196,6 +217,19 @@ __device__ __forceinline__ void store_rows(bf16* dst, long ld, int q0, int n,
     if (q0 + r < n)
       *reinterpret_cast<uint4*>(dst + (long)(q0 + r) * ld + d) =
           *reinterpret_cast<const uint4*>(stage + r * LDT + d);
+  }
+}
+
+// cp.async.wait_group with a count known once the caller's loop is unrolled.
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
   }
 }
 
