@@ -63,7 +63,8 @@ line per phase; any failure exits non-zero, and nothing is caught.
              and K5 at (2048, 512) with DCL, fp32, against their plain
              versions on the card: max_abs_err and tolerance of every
              output and gradient (K5's backward also two launches bit for
-             bit equal), CUDA-event times of kernel and plain;
+             bit equal), CUDA-event times of kernel and plain (K5's
+             forward too: two launches bit for bit equal);
              the megablock's core alone as in phase 6 at the vision
              tower's (256, 32) without pads.
  10 lean-golden  one fp32 train step of the golden file's tiny CLIP on the
@@ -78,8 +79,11 @@ line per phase; any failure exits non-zero, and nothing is caught.
              megablock core's among them), finite losses, the first near
              ln b; the bf16 product kernel's launches per step by
              instance against the count the step's chunks give; the
-             LayerNorm forward rows, K5's kernels and the attention core's
-             (forward, dq, dk/dv) by instance from the profile.
+             LayerNorm forward rows, K5's kernels, the attention core's
+             (forward, dq, dk/dv) and the ordered sums' by instance from
+             the profile; the ordered sums' launches per step by regime
+             (dg or split-k) and width, counted in the library, against
+             the count each call site's chunks give.
  12 attn-kernels  K6 (whole-head attention on the fused qkv) forward and
              backward at (256, 256, 3 x 512) causal with key pads and at n =
              257 not causal, K7 (FlashAttention) forward and backward at
@@ -162,11 +166,20 @@ line per phase; any failure exits non-zero, and nothing is caught.
              bit for bit equal, timed beside the plain version, the bytes
              bound and, for the plain mode, F.layer_norm (for the stats
              mode on bf16 rows, native_layer_norm). Then the ordered sums
-             (reduce_parts_kernel) at two of the b = 2048 step's calls,
-             bit for bit against the plain ordered sum, timed beside it,
-             their bytes bound and part.sum(0). Phases 8, 11, 15
-             and 18 check the row kernels' launches per step by mode,
-             counted in the library.
+             (csrc/common.cuh: the slab kernel for the dg sums, the wide
+             kernel for the split-k sums) at every call shape of the
+             b = 2048 step (dg at 2048 and 512 wide from a 24,576-row
+             chunk's 384 partials; the split-k sums of W_in, W_out, W_qkv
+             and W_proj from 12; and the stored backwards' bf16 dg sums of
+             1,028 partials), bit for bit against the plain ordered sum and
+             between two launches, timed back to back in a CUDA graph,
+             each call on its own copy of the partials, the copies
+             together twice the L2 cache (every byte from HBM, as the
+             bound counts it), beside their bytes bound and part.sum(0).
+             No kernel of the last JSON line may take less than its
+             bound. Phases 8, 11, 15 and 18 check the row kernels'
+             launches per step by mode, and phase 11 the ordered sums' by
+             regime and width, counted in the library.
  21 heads    small CLIPs (2 + 2 layers, bf16) whose text heads are 32
              wide, under 'fused' (the megablock), 'fused' with rotary
              (K6) and 'flash' (K7), and 128 wide under 'flash': the
@@ -189,6 +202,7 @@ their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
 nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import math
 import os
@@ -394,6 +408,74 @@ def cuda_ms(fn, reps=5, iters=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, calls=20):
+    """The device's time per call of `fn`: its kernels' durations over
+    `calls` calls from the profiler, summed, over `calls`, ms (no host
+    launch cost, which CUDA events around kernels of a few µs measure
+    instead; copies and sets not counted). The first profile only warms
+    the profiler up; a profile that comes back without device events (it
+    happens) is taken again, up to four times."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.end - e.time_range.start
+                    for e in device_events(prof)
+                    if not e.name.startswith(("Memcpy", "Memset")))
+        if attempt > 0 and total > 0:
+            return total / calls / 1e3
+    fail("device_ms: the profiler saw no kernel in five profiles")
+
+
+def graph_ms(fn, calls, reps=5):
+    """The device's time per call of `fn`, ms, from `calls` calls captured
+    into one CUDA graph and replayed `reps` times back to back between two
+    CUDA events: no gap on the host's launch between two kernels, in which
+    the L2 cache would write back, unseen by the timing, what the kernels
+    before left dirty."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(calls):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def cold_sets(*tensors, cap=2 << 30):
+    """Copies of `tensors` for timed calls to take in turn, a set a call
+    (itertools.cycle), so that a call reads its inputs from HBM, as a bytes
+    bound at the HBM rate counts them: each set was last touched before
+    every other, and the copies of each tensor together fill at least
+    twice the card's L2 cache (three sets at least; as many as `cap` bytes
+    of sets allow for a small tensor beside a large one). (On an H100,
+    inputs written just before the call and then evicted by a read of
+    twice the cache stay partly in L2, and so do a running sum's three
+    copies beside partials loaded evict-first.)"""
+    nbytes = [t.numel() * t.element_size() for t in tensors]
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    sets = max(3, -(-2 * l2 // sum(nbytes)),
+               min(-(-2 * l2 // min(nbytes)), cap // sum(nbytes)))
+    return [tuple(t.clone() for t in tensors) for _ in range(sets)]
 
 
 def rand(gen, *shape, scale=1.0, dtype=torch.float32):
@@ -1044,6 +1126,10 @@ def lean_kernels(gen, ffb, mega, lse5):
     x = torch.nn.functional.normalize(rand(gen, R, d), dim=-1) * 14.0
     y = torch.nn.functional.normalize(rand(gen, R, d), dim=-1)
     lse = lse5.streaming_lse_fwd(x, y, 0, True)
+    if not torch.equal(lse, lse5.streaming_lse_fwd(x, y, 0, True)):
+        fail("K5 forward: two launches differ")
+    print("  K5 (2048, 512) DCL forward: two launches bit for bit equal",
+          flush=True)
     want = lse5.streaming_lse_fwd_plain(x, y, 0, True)
     # fp32 throughout: summation order only
     errs["k5_fwd"] = compare("K5 (2048, 512) DCL lse", lse, want, 1e-4)
@@ -1199,11 +1285,14 @@ def top_kernels(prof, k=12):
 
 def read_counts(counters):
     """{name: launches} of each counter in `counters`: a wrapper (its
-    `.launches`) or a row kernel's (kernel, mode) (its launches from every
-    caller, counted in the library)."""
+    `.launches`), a row kernel's (kernel, mode) or the ordered sums' ("sum",
+    regime, width) (their launches from every caller, counted in the
+    library)."""
     from xclip_tpu_torch.kernels import rows as rk
     library = rk.kernel_launches()
-    return {k: library[c] if isinstance(c, tuple) else c.launches
+    sums = rk.sum_launches()
+    return {k: (sums.get(c[1:], 0) if c[0] == "sum" else library[c])
+            if isinstance(c, tuple) else c.launches
             for k, c in counters.items()}
 
 
@@ -1211,6 +1300,7 @@ def zero_counts(counters):
     """Every counter in `counters` (as read_counts takes them) set to 0."""
     from xclip_tpu_torch.kernels import rows as rk
     rk.kernel_launches(reset=True)
+    rk.sum_launches(reset=True)
     for c in counters.values():
         if not isinstance(c, tuple):
             c.launches = 0
@@ -1316,8 +1406,8 @@ def train_flagship(card, CLIP, default_optimizer, make_train_step, ffb, mega,
 
 
 # kernels phase 11 lists by instance from its profile, whatever their rank
-PROFILED = ("ln_fwd_rows_kernel", "lse_fwd_kernel", "k5_gemm_kernel",
-            "k5_sum_kernel", "k6_fwd", "k6_bwd")
+PROFILED = ("ln_fwd_rows_kernel", "lse_merge_kernel", "k5_gemm_kernel",
+            "k5_sum_kernel", "k6_fwd", "k6_bwd", "reduce_parts")
 
 
 def profile_step(run, i):
@@ -1404,12 +1494,18 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
             for t, count, key in rows[:12]:
                 print(f"    {t:8.3f} ms {100 * t / total:5.1f} % x{count:<4d} "
                       f"{key[:90]}", flush=True)
-            print(f"  b={b} LayerNorm forward rows, K5 and the attention "
-                  "core by instance:", flush=True)
+            print(f"  b={b} LayerNorm forward rows, K5, the attention "
+                  "core and the ordered sums by instance:", flush=True)
             for t, count, key in rows:
                 if any(k in key for k in PROFILED):
                     print(f"    {t:8.3f} ms {100 * t / total:5.1f} % "
                           f"x{count:<4d} {key[:120]}", flush=True)
+            print(f"  b={b} ordered sums per step by (regime, width), "
+                  f"named by call site: " + ", ".join(
+                      f"{k} {SUM_SITES[k][1]} {SUM_SITES[k][2]} "
+                      f"{per_step[k]:g}" for k in SUM_SITES)
+                  + f"; {sum(per_step[k] for k in SUM_SITES):g} in all",
+                  flush=True)
             results[b] = (step_ms, peak, idle, counts, products)
         else:
             results[b] = (step_ms, peak)
@@ -1425,7 +1521,8 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
           f"recompute backward 12, K5 fwd/bwd 2, megablock core fwd/bwd 24"
           f"/12, bf16 product kernel {sum(products_per_step.values())}, "
           f"GEGLU-backward rows {rows_per_step(2048)['rows_geglu_recompute']}"
-          f", LN-backward rows {rows_per_step(2048)['rows_ln_ln']}")
+          f", LN-backward rows {rows_per_step(2048)['rows_ln_ln']}, ordered "
+          f"sums {sum(rows_per_step(2048)[k] for k in SUM_SITES)}")
     return s2048[3], s2048[4]
 
 
@@ -2251,45 +2348,132 @@ def ln_fwd_phase(gen):
     return errs, ms, costs, library
 
 
+# The ordered sums' call shapes (csrc/common.cuh launch_reduce_parts;
+# phase 20): (key, record name, parts, width, acc, Pallas accumulator
+# replaced); "R" parts: the dg partials of one FF recompute chunk of the
+# b = 2048 step (phase 19's step_rows), acc 2 added to a running fp32 sum
+# (the recompute backwards' chunks), acc 0 one bf16 sum over 65,792 rows
+# (the stored backwards). The first six are the lean step's call sites,
+# counted by (regime, width) in phase 11; 12 parts are one FF chunk's
+# 2048-row k-ranges.
+SUM_SHAPES = [
+    ("sum_dg_inner", "ordered sum: dg of the inner LayerNorm (slab kernel)",
+     "R", 2048, 2, "xclip_tpu/kernels/fused_ff_block.py:448"),
+    ("sum_dg_dim", "ordered sum: dg of a model-width LayerNorm (slab "
+     "kernel)", "R", 512, 2, "xclip_tpu/kernels/fused_ff_block.py:447"),
+    ("sum_w_in", "ordered sum: split-k W_in gradient (wide kernel)", 12,
+     512 * 4096, 2, "xclip_tpu/kernels/fused_ff_block.py:697"),
+    ("sum_w_out", "ordered sum: split-k W_out gradient (wide kernel)", 12,
+     2048 * 512, 2, "xclip_tpu/kernels/fused_ff_block.py:701"),
+    ("sum_w_qkv", "ordered sum: split-k W_qkv gradient (wide kernel)", 12,
+     512 * 1536, 2, "xclip_tpu/kernels/attention_megablock.py:552"),
+    ("sum_w_proj", "ordered sum: split-k W_proj gradient (wide kernel)", 12,
+     512 * 512, 2, "xclip_tpu/kernels/attention_megablock.py:525"),
+    ("sum_dg_inner_stored", "", 1028, 2048, 0,
+     "xclip_tpu/kernels/fused_ff_block.py:577"),
+    ("sum_dg_dim_stored", "", 1028, 512, 0,
+     "xclip_tpu/kernels/fused_ff_block.py:576"),
+]
+# the lean step's sum sites by (regime, width), as the library counts them
+SUM_SITES = {"sum_dg_inner": ("sum", "slab", 2048),
+             "sum_dg_dim": ("sum", "slab", 512),
+             "sum_w_in": ("sum", "wide", 512 * 4096),
+             "sum_w_out": ("sum", "wide", 2048 * 512),
+             "sum_w_qkv": ("sum", "wide", 512 * 1536),
+             "sum_w_proj": ("sum", "wide", 512 * 512)}
+
+
 def reduce_phase(gen, step_rows):
-    """Phase 20, the ordered sums (csrc/common.cuh reduce_parts_kernel)
-    alone at two of the b = 2048 step's calls, each added to a running
-    fp32 sum as the recompute backwards add their row chunks: the dg sum
-    after the GEGLU backward rows (one 64-row partial a row block of a
-    chunk, 2048 wide) and the split-k sum of W_in's gradient (one partial
-    per 2048 rows, 512 x 4096). Against the plain ordered sum (bit for
-    bit), timed beside its bytes bound (each partial read once, the
-    running sum read and written once), its plain version (the partials
-    added one by one) and one PyTorch call, `part.sum(0)` (the same sum
-    without the running one, in torch's own order)."""
+    """Phase 20, the ordered sums (csrc/common.cuh launch_reduce_parts)
+    alone at every call shape of SUM_SHAPES: bit for bit against the
+    plain ordered sum (on the CPU) and between two launches, timed on
+    cold copies of its inputs (cold_sets) beside its bytes bound (each
+    partial read once from HBM, the running sum read and written once, or
+    the bf16 sum written once), its plain version (the
+    partials added one by one) and one PyTorch call, `part.sum(0)` (the
+    same sum without the running one, in torch's own order) → (errs, ms,
+    costs, library) by key."""
     from xclip_tpu_torch.kernels import rows as rk
     rows = step_rows["ff_bwd"]
-    for label, parts, n in (("dg sum, GEGLU rows", rk.blocks(rows), 2048),
-                            ("W_in split-k sum", -(-rows // 2048),
-                             512 * 4096)):
+    errs, ms, costs, library = {}, {}, {}, {}
+    for key, _, parts, n, acc, _ in SUM_SHAPES:
+        parts = rk.blocks(rows) if parts == "R" else parts
         part = rand(gen, parts, n)
         out = rand(gen, n)
-        got = rk.reduce_parts(part, out.clone())
-        if not torch.equal(got, rk.reduce_parts(part.cpu(), out.cpu())
-                           .to(got.device)):
-            fail(f"reduce_parts {label}: not the plain ordered sum's bits")
-        acc = out.clone()
-        kms = cuda_ms(lambda: rk.reduce_parts(part, acc))
+        dtype = torch.bfloat16 if acc == 0 else torch.float32
+        if acc == 2:
+            got = rk.reduce_parts(part, out.clone())
+            again = rk.reduce_parts(part, out.clone())
+            want = rk.reduce_parts(part.cpu(), out.cpu())
+        else:
+            got = rk.reduce_parts(part, dtype=dtype)
+            again = rk.reduce_parts(part, dtype=dtype)
+            want = rk.reduce_parts(part.cpu(), dtype=dtype)
+        if not torch.equal(got, want.to(got.device)):
+            fail(f"reduce_parts {key}: not the plain ordered sum's bits")
+        if not torch.equal(got, again):
+            fail(f"reduce_parts {key}: two launches differ")
+        errs[key] = 0.0
+        # each call on its own cold copy of the partials (and of the
+        # running sum): every byte comes from HBM, as the bound counts
+        sets = cold_sets(*((part, out) if acc == 2 else (part,)))
+        cold = itertools.cycle(sets)
+        if acc == 2:
+            def kernel():
+                rk.reduce_parts(*next(cold))
+        else:
+            def kernel():
+                rk.reduce_parts(next(cold)[0], dtype=dtype)
 
         def plain():
-            for p in part:
-                acc.add_(p)
+            p, *run = next(cold)
+            total = run[0] if acc == 2 else p[0].clone()
+            for x in (p if acc == 2 else p[1:]):
+                total.add_(x)
+            return total.to(dtype)
 
-        plain_ms = cuda_ms(plain, reps=3, iters=1)
-        lib_ms = cuda_ms(lambda: part.sum(0))
-        b_ms, _ = bound((parts + 2) * n * 4, parts * n, FP32_PEAK)
-        print(f"  ordered sums (reduce_parts_kernel), {label}: {parts} "
-              f"partials x {n} at a {rows}-row chunk: kernel {kms:.4f} ms, "
-              f"bound {b_ms:.4f} ms (bytes), {b_ms / kms:.2f} of the bound, "
-              f"plain {plain_ms:.4f} ms, part.sum(0) {lib_ms:.4f} ms "
-              f"({kms / lib_ms:.2f}x)", flush=True)
-        del part, out, got, acc
+        def lib():
+            next(cold)[0].sum(0)
+
+        # the kernel and part.sum(0) back to back, a graph of one call on
+        # each cold set (no host gap in which the L2 cache writes back
+        # unseen; the plain version, a launch a partial, by the profiler)
+        kms, library[key] = (graph_ms(f, len(sets)) for f in (kernel, lib))
+        plain_ms = device_ms(plain, 3)
+        events = cuda_ms(kernel)
+        nbytes = (parts + 2) * n * 4 if acc == 2 else parts * n * 4 + n * (
+            2 if acc == 0 else 4)
+        costs[key] = (nbytes, parts * n)
+        ms[key] = (kms, plain_ms)
+        b_ms, _ = bound(*costs[key], FP32_PEAK)
+        print(f"  ordered sums, {key}: {parts} partials x {n}, acc {acc}: "
+              f"kernel {kms:.4f} ms back to back in a CUDA graph "
+              f"({events:.4f} ms a call launched alone, the host's launch "
+              f"included), bound {b_ms:.4f} ms "
+              f"(bytes), {b_ms / kms:.2f} of the bound, plain "
+              f"{plain_ms:.4f} ms, part.sum(0) {library[key]:.4f} ms "
+              f"({kms / library[key]:.2f}x); bit for bit the plain ordered "
+              f"sum, two launches equal", flush=True)
+        del part, out, got, again, want, cold, sets
     torch.cuda.empty_cache()
+    return errs, ms, costs, library
+
+
+def expected_sums(ffb, mega, b):
+    """The ordered sums' launches per memory-lean step at batch b by call
+    site (SUM_SITES), from the chunks the step's calls take (6 layers a
+    tower): the FF recompute backward a dg sum of the inner and of the pre
+    LayerNorm and the split-k sums of W_in and W_out per chunk; K3's
+    backward the dg sums of its out and pre LayerNorms and the split-k
+    sums of W_proj and W_qkv per chunk."""
+    dt = torch.bfloat16
+    ff_b = mg_b = 0
+    for n in (257, 32):
+        ff_b += len(ffb.bwd_recompute_spans(b * n, 512, 2048, dt))
+        mg_b += len(mega.bwd_recompute_spans(b, n, 512, 8, dt, False))
+    return {"sum_dg_inner": 6 * ff_b, "sum_dg_dim": 6 * (ff_b + 2 * mg_b),
+            "sum_w_in": 6 * ff_b, "sum_w_out": 6 * ff_b,
+            "sum_w_qkv": 6 * mg_b, "sum_w_proj": 6 * mg_b}
 
 
 def expected_ln_fwd(ffb, mega, b):
@@ -2777,12 +2961,15 @@ def main():
                      "rows_ln_ln": row_counters["rows_ln_ln"],
                      **{k: row_counters[k] for k in (
                          "rows_ln_fwd_plain", "rows_ln_fwd_stats",
-                         "rows_ln_fwd_residual")}}
+                         "rows_ln_fwd_residual")},
+                     **SUM_SITES}
     before = read_counts(lean_counters)
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                  make_train_step, number=10, prefix="lean_")
     after = read_counts(lean_counters)
-    missed = [k for k in lean_counters if after[k] == before[k]]
+    # the ordered sums' sites are the flagship's widths, not the tiny CLIP's
+    missed = [k for k in lean_counters
+              if k not in SUM_SITES and after[k] == before[k]]
     if missed:
         fail(f"the lean golden step did not run through {missed}")
 
@@ -2791,7 +2978,8 @@ def main():
         card, CLIP, default_optimizer, make_train_step, lean_counters, stored,
         expected_products(ffb, mega),
         lambda b: {**expected_rows(ffb, mega, b),
-                   **expected_ln_fwd(ffb, mega, b)})
+                   **expected_ln_fwd(ffb, mega, b),
+                   **expected_sums(ffb, mega, b)})
     dt = torch.bfloat16
     for tower, n in (("text", 257), ("vision", 32)):
         rows = 2048 * n
@@ -2868,7 +3056,7 @@ def main():
     # --------------------------------------------------------------- 20
     row_errs, row_ms, row_costs, row_library = rows_phase(gen, step_rows)
     fwd_errs, fwd_ms, fwd_costs, fwd_library = ln_fwd_phase(gen)
-    reduce_phase(gen, step_rows)
+    sum_errs, sum_ms, sum_costs, sum_library = reduce_phase(gen, step_rows)
 
     # --------------------------------------------------------------- 21
     narrow_heads(card, CLIP, default_optimizer, make_train_step, {
@@ -2959,6 +3147,19 @@ def main():
             "xclip_tpu_torch/csrc/row_kernels.cuh", replaces,
             row_launches[f"rows_{key}"], fwd_errs[key], fwd_ms[key],
             fwd_costs[key], FP32_PEAK, fwd_library[key]))
+    # the ordered sums at the lean step's call sites: launches from phase
+    # 11's b = 2048 run, times at phase 20's shapes, beside part.sum(0)
+    for key, name, _, _, _, replaces in SUM_SHAPES[:len(SUM_SITES)]:
+        record["kernels"].append(entry(
+            name, "xclip_tpu_torch/csrc/common.cuh", replaces,
+            lean_launches[key], sum_errs[key], sum_ms[key], sum_costs[key],
+            FP32_PEAK, sum_library[key]))
+    # no time under the least the card could take: one below its bound was
+    # read from a cache the bound does not count
+    for k in record["kernels"]:
+        if k["ms"] < k["bound_ms"]:
+            fail(f"{k['name']}: {k['ms']:.4f} ms, under its bound "
+                 f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

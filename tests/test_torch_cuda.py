@@ -19,7 +19,8 @@ forward with the kernels' key block, `KERNEL_BLOCK`). K8 and K1-h as the
 training kernels: 1e-4 (fp32) or two bf16 ulps of each tensor's largest
 magnitude. The row kernels alone (every mode of the LayerNorm and GEGLU
 backward rows): bf16 outputs at two ulps of each tensor's largest
-magnitude, fp32 outputs and the dg partials at 1e-4 of it.
+magnitude, fp32 outputs and the dg partials at 1e-4 of it. The ordered
+sums of partials bit for bit against the strict left-to-right sum.
 """
 
 import math
@@ -362,6 +363,114 @@ def test_streaming_lse_kernels_match_plain(cuda_device, R, C, d, decoupled,
     assert (lse5.streaming_lse_fwd.launches,
             lse5.streaming_lse_bwd.launches) == (counts[0] + 1,
                                                  counts[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,d,row_offset,decoupled", [
+    (2048, 2048, 512, 0, True), (130, 1, 1, 0, True),
+    (130, 4099, 1100, 7, True), (130, 4099, 1, 3, False),
+    (130, 1, 1100, 0, False)])
+@pytest.mark.parametrize("span", [None, 3 * lse5.TILE])
+def test_streaming_lse_forward_ranges(cuda_device, monkeypatch, R, C, d,
+                                      row_offset, decoupled, span):
+    """K5's forward (the ranged product and the merge) within 1e-4 of its
+    plain version, with the plan's ranges and with ranges of three tiles
+    (the running (m, l) carried across tiles), at the b = 2048 step's
+    shape and at odd ones (C = 1 with DCL: row 0's only column masked);
+    two launches bit for bit equal."""
+    if span is not None:
+        monkeypatch.setattr(lse5, "fwd_plan", lambda R, C: span)
+    x, y = _lse_inputs(R, C, d, cuda_device)
+    got = lse5.streaming_lse_fwd(x, y, row_offset, decoupled)
+    want = lse5.streaming_lse_fwd_plain(x, y, row_offset, decoupled)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, lse5.streaming_lse_fwd(x, y, row_offset,
+                                                   decoupled))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 3), (2, 2)])
+def test_streaming_lse_takes_unaligned_views(cuda_device, offsets):
+    """x and y that start off a 16-byte boundary (contiguous views `offsets`
+    floats into a buffer) take K5's element loads: the forward and the
+    backward give the bits of the same values aligned."""
+    x, y = _lse_inputs(300, 1000, 96, cuda_device)
+
+    def view(t, offset):
+        v = torch.empty(offset + t.numel(), device=cuda_device)[offset:]
+        return v.view_as(t).copy_(t)
+
+    xv, yv = view(x, offsets[0]), view(y, offsets[1])
+    lse = lse5.streaming_lse_fwd(x, y, 5, True)
+    assert torch.equal(lse5.streaming_lse_fwd(xv, yv, 5, True), lse)
+    dlse = torch.randn(300, device=cuda_device)
+    got = lse5.streaming_lse_bwd(xv, yv, lse, dlse, 5, True)
+    want = lse5.streaming_lse_bwd(x, y, lse, dlse, 5, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# (parts, width) of the ordered sums' tests: every pair of these counts
+# and widths whose partials stay within 1 GiB
+SUM_PARTS = (1, 2, 12, 15, 384, 1028, 4097)
+SUM_WIDTHS = (1, 7, 500, 512, 2048, 2_097_152)
+SUM_SHAPES = [(p, n) for p in SUM_PARTS for n in SUM_WIDTHS
+              if p * n <= 1 << 28]
+
+
+def _sum_case(parts, n, acc, device, part_offset=0, out_offset=0):
+    """(got, want) of rows.reduce_parts on seeded partials at `acc` (0: a
+    bf16 sum, 1: fp32, 2: added to a running fp32 sum), the partials and
+    the running sum optionally views `*_offset` floats into a buffer (not
+    16-byte aligned); want: matmul.ordered_sum, the strict order, on the
+    card."""
+    g = torch.Generator(device=device).manual_seed(parts + 3 * n + acc)
+    buf = torch.randn(part_offset + parts * n, generator=g, device=device)
+    part = buf[part_offset:].view(parts, n)
+    if acc == 2:
+        run = torch.randn(out_offset + n, generator=g, device=device)
+        out = run[out_offset:]
+        want = out.clone()
+        for p in part:
+            want += p
+        return rows_mod.reduce_parts(part, out), want
+    dtype = torch.bfloat16 if acc == 0 else torch.float32
+    return (rows_mod.reduce_parts(part, dtype=dtype),
+            matmul.ordered_sum(part).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,n", SUM_SHAPES)
+@pytest.mark.parametrize("acc", [0, 1, 2])
+def test_reduce_parts_is_the_strict_ordered_sum(cuda_device, parts, n, acc):
+    """The ordered sums' kernels (the slab kernel up to 67,584 columns, the
+    wide one from there) bit for bit equal to the strict left-to-right
+    sum, at parts counts from 1 to past any ring depth and widths on and
+    off every slab and vector grid."""
+    got, want = _sum_case(parts, n, acc, cuda_device)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [500, 2048, 2_097_152])
+@pytest.mark.parametrize("acc", [0, 1, 2])
+def test_reduce_parts_takes_unaligned_views(cuda_device, n, acc):
+    """Partials and a running sum that start off a 16-byte boundary take
+    the element walk of the same kernels: the same bits."""
+    for offsets in ((1, 0), (0, 1), (3, 3)):
+        got, want = _sum_case(12, n, acc, cuda_device, *offsets)
+        assert torch.equal(got, want), offsets
+
+
+@pytest.mark.cuda
+def test_reduce_parts_counts_launches_by_regime(cuda_device):
+    """The library counts each ordered sum by (regime, width), from every
+    caller: the dg widths go to the slab kernel, the split-k widths wide."""
+    rows_mod.sum_launches(reset=True)
+    for parts, n in ((384, 2048), (384, 2048), (12, 512 * 4096)):
+        rows_mod.reduce_parts(torch.zeros(parts, n, device=cuda_device))
+    assert rows_mod.sum_launches(reset=True) == {("slab", 2048): 2,
+                                                 ("wide", 512 * 4096): 1}
+    assert rows_mod.sum_launches() == {}
 
 
 @pytest.mark.cuda

@@ -19,7 +19,8 @@ exactly, and the row sums are taken in another order); bf16 at two ulps
 of each output's largest magnitude (both sides round at the same places;
 those differences can flip a rounding). The dg partials of 64-row blocks,
 summed in order, carry the same bits whether the rows are taken whole or
-in chunks at multiples of 64.
+in chunks at multiples of 64. `reduce_parts` is bit for bit the strict
+left-to-right fp32 sum (a numpy float32 loop) at every `acc`.
 """
 
 import jax
@@ -328,3 +329,37 @@ def test_partials_add_each_block_in_row_order():
         for r in range(64 * b + 1, min(64 * (b + 1), t.shape[0])):
             want += t[r]
         assert torch.equal(part[b], want)
+
+
+def _strict_sum(part, start=None):
+    """numpy float32, one partial at a time, left to right (from `start`
+    when given, else from part[0])."""
+    part = part.numpy()
+    total = part[0].copy() if start is None else start.numpy().copy()
+    for p in part[0 if start is not None else 1:]:
+        total = (total + p).astype(np.float32)
+    return torch.from_numpy(total)
+
+
+@pytest.mark.parametrize("parts,n", [(4097, 7), (1, 500), (384, 2048 + 7),
+                                     (12, 4096 + 3)])
+@pytest.mark.parametrize("acc", [0, 1, 2])
+def test_reduce_parts_is_the_strict_ordered_sum(parts, n, acc):
+    """`rows.reduce_parts` (its plain version here) at parts counts above
+    any ring depth of the slab kernel and widths off its 4-, 8- and
+    16-column slabs: bit for bit the strict left-to-right fp32 sum and
+    `matmul.ordered_sum`, rounded once to bf16 (`acc` 0), written in fp32
+    (1) or added to a running fp32 sum (2)."""
+    gen = torch.Generator().manual_seed(parts + n)
+    part = torch.randn(parts, n, generator=gen)
+    if acc == 2:
+        out = torch.randn(n, generator=gen)
+        want = _strict_sum(part, out)
+        got = rk.reduce_parts(part, out.clone())
+    else:
+        want = _strict_sum(part)
+        assert torch.equal(ordered_sum(part), want)
+        dtype = torch.bfloat16 if acc == 0 else torch.float32
+        want = want.to(dtype)
+        got = rk.reduce_parts(part, dtype=dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)

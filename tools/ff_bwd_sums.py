@@ -8,7 +8,7 @@ Profiles (torch.profiler) `ff_block_bwd_recompute` on one row chunk of
 the b = 2048 step's text tower (24,576 rows) and on 8,192 rows, bf16, dim
 512, inner 2048, and prints one call's device kernels in launch order,
 each with its median time over five calls. Then, for the two dg sums (the
-`reduce_parts_kernel` launch after the GEGLU backward rows, which sums
+`reduce_parts*` kernel launch after the GEGLU backward rows, which sums
 their 64-row partials of inner width, and the one after the LayerNorm
 backward rows, of dim width), the time per partial. At 8,192 rows the
 row kernels' 128 blocks run in one wave; at 24,576 rows their 384 blocks

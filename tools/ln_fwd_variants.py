@@ -38,6 +38,7 @@ import re
 import shutil
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import torch
@@ -338,12 +339,22 @@ extern "C" int xclip_lse_bwd(const void* x, const void* y, const void* lse,
 
 """
 K5_ONE_KERNEL = [(K5, K5_ENTRY, K5_FUSED_KERNEL + K5_FUSED)]
-K5_ASYNC = [(K5, K5_HELPER, K5_HELPER_ASYNC), (K5, K5_LOAD, K5_LOAD_ASYNC),
-            (K5, K5_LOAD_B, K5_LOAD_B_ASYNC),
-            (K5, K5_STORE_A, K5_STORE_A_ASYNC),
-            (K5, K5_STORE_B, K5_STORE_B_ASYNC),
-            (K5, K5_LANDED, K5_LANDED_ASYNC), (K5, K5_FIRST, K5_FIRST_ASYNC),
-            (K5, K5_NEXT, K5_NEXT_ASYNC)]
+
+
+def in_tile_loop(text):
+    """`text` as it stands in k5_gemm_kernel's loop over its column tiles:
+    two more spaces a line, directives and blank lines as they are."""
+    return textwrap.indent(text, "  ",
+                           lambda line: line.strip()
+                           and not line.startswith("#"))
+
+
+K5_ASYNC = [(K5, K5_HELPER, K5_HELPER_ASYNC)] + [
+    (K5, in_tile_loop(old), in_tile_loop(new)) for old, new in (
+        (K5_LOAD, K5_LOAD_ASYNC), (K5_LOAD_B, K5_LOAD_B_ASYNC),
+        (K5_STORE_A, K5_STORE_A_ASYNC), (K5_STORE_B, K5_STORE_B_ASYNC),
+        (K5_LANDED, K5_LANDED_ASYNC), (K5_FIRST, K5_FIRST_ASYNC),
+        (K5_NEXT, K5_NEXT_ASYNC))]
 
 # (variant, [(file, shipped text, its replacement)])
 EDITS = {

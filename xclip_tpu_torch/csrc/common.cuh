@@ -12,9 +12,13 @@
 //     operand optionally transposed (the backward's A·Bᵀ and Aᵀ·B), the k
 //     axis optionally split into ranges that write fp32 partials (the
 //     weight gradients over the long row axis, summed in order by
-//     reduce_parts_kernel). bf16 operands go to the wgmma kernel of
+//     launch_reduce_parts). bf16 operands go to the wgmma kernel of
 //     gemm_sm90.cu (TMA-fed, its own translation unit); fp32 operands
 //     through an FMA tiling in full fp32 (no TF32).
+//   * launch_reduce_parts / launch_emit_sum: the ordered sums of fp32
+//     partials (the dg and split-k sums of every backward), strictly in
+//     order, on a slab kernel with a cp.async ring (narrow and deep) or a
+//     grid-stride vector kernel (wide and shallow).
 //   * block_mma: a small fp32 product between tiles already in shared
 //     memory, by one block on FMAs (the fp32 attention kernels' q·kᵀ, p·v
 //     and their backward products).
@@ -35,6 +39,20 @@
 #include "gemm_sm90.cuh"
 
 namespace xclip {
+
+// Launches of the ordered sums (below) by (regime, width) since the library
+// was loaded or last reset (xclip_sum_launches, rows.cu), from every
+// caller: a step's sums by width, which tells its call sites apart where
+// their widths differ. Up to kSumSites widths; a launch of a width past
+// them goes to g_sum_unrecorded, which makes the reading an error.
+struct SumSite {
+  long long n, launches;
+  int wide;
+};
+constexpr int kSumSites = 32;
+extern SumSite g_sum_sites[kSumSites];
+extern long long g_sum_unrecorded;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -92,45 +110,6 @@ struct GegluParts {
   }
 };
 
-// out[i] = Tout(sum over p of part[p * n + i]), p in order 0, 1, ...; with
-// `accumulate` (fp32 out) the sum starts from out[i]: the recompute
-// backwards add one row chunk's partials at a time, in chunk order, so
-// partials over fixed row blocks are summed in one order however the
-// rows are chunked.
-template <typename Tout>
-__global__ void __launch_bounds__(256)
-reduce_parts_kernel(const float* __restrict__ part, Tout* __restrict__ out,
-                    int parts, long n, int accumulate) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
-  float s = accumulate ? to_f(out[i]) : 0.f;
-#pragma unroll 8
-  for (int p = 0; p < parts; ++p) s += part[(long)p * n + i];
-  out[i] = from_f<Tout>(s);
-}
-
-template <typename Tout>
-int launch_reduce_parts(const float* part, Tout* out, int parts, long n,
-                        cudaStream_t st, int accumulate = 0) {
-  reduce_parts_kernel<Tout><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      part, out, parts, n, accumulate);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
-
-// The sums a backward emits (dW, dg): `acc` 0 writes them in the storage
-// dtype T (the stored backwards, one call over every row); 1 writes them in
-// fp32 and 2 adds them to the fp32 values there (the recompute backwards,
-// one call per row chunk, cast once by the caller after the last).
-template <typename T>
-int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
-                    cudaStream_t st) {
-  if (acc == 0)
-    return launch_reduce_parts<T>(part, static_cast<T*>(out), parts, n, st);
-  return launch_reduce_parts<float>(part, static_cast<float*>(out), parts, n,
-                                    st, acc == 2);
-}
-
 // ------------------------------------------------------- matrix product
 //
 // out (m x n) = epilogue(opA · opB) over a k-range, fp32 accumulation:
@@ -142,7 +121,7 @@ int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
 // row axis, which is masked. The row axis of Aᵀ·B is long (65,792 text
 // rows) and its output small (a weight), so k may be split into `parts`
 // ranges of `k_split` that write separate fp32 partials (the z-th at out +
-// z * m * n); reduce_parts_kernel sums them in order. Epilogues (acc is the
+// z * m * n); launch_reduce_parts sums them in order. Epilogues (acc is the
 // fp32 product):
 constexpr int kStore = 0;     // out (T)    = T(acc)
 constexpr int kStoreF32 = 1;  // out (fp32) = acc, the z-th partial
@@ -241,7 +220,7 @@ __device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
 }
 
 // cp.async, for the attention kernels' rings (mma_tiles.cuh and the FMA
-// cores)
+// cores) and the ordered sums' slab ring
 // 16-byte global → shared copy; zero-fills when !pred
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -254,6 +233,283 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// 4-byte global → shared copy (cp.async.ca: .cg takes only 16 bytes);
+// zero-fills when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// ------------------------------------------------------- ordered sums
+//
+// out[i] = Tout(part[0][i] + part[1][i] + ... + part[parts - 1][i]),
+// strictly left to right in fp32 (kernels/matmul.py `ordered_sum`); with
+// `accumulate` (fp32 out) the sum starts from out[i]: the recompute
+// backwards add one row chunk's partials at a time, in chunk order, so
+// partials over fixed row blocks are summed in one order however the rows
+// are chunked. They take the place of the Pallas backwards' dg and dW
+// accumulators, carried in VMEM scratch across the sequential row grid
+// (xclip_tpu/kernels/fused_ff_block.py `dgpre_scr` / `dgin_scr` :447-448,
+// :576-577, `dwina_scr` / `dwout_scr` :697-701, :802-804; the megablock's
+// likewise): every partial of a row block or k-range written by the
+// kernel before, then one ordered sum, no float atomics, two runs agree
+// bit for bit.
+//
+// What bounds them: the bytes (each partial read once, the out read and
+// written once), and for the dg sums a chain of `parts` dependent fp32 adds
+// a column. The order runs along the parts, so the parallelism comes from
+// columns and bytes in flight, never from reordering. Two regimes, by
+// (parts, n), in launch_reduce_parts:
+//   * Narrow and deep, the dg sums (n = 512 or 2048, 384 to 1,028 parts):
+//     reduce_parts_slab_kernel. The columns are cut into slabs of S = 16,
+//     8 or 4 fp32 (the widest that still gives kSumMinBlocks blocks); a
+//     block of kSumThreads streams its slab of every part (parts x S, row
+//     stride n) through a ring of kSumRing stages in shared memory by
+//     cp.async, one 16-byte copy a thread a stage (kSumRing - 1 stages in
+//     flight: 28 KB a block, ~7 MB across the card at n = 2048), and S
+//     threads add the stage's rows in order, one column each, from shared
+//     memory. A width off the 4-column grid or a partial pointer that is
+//     not 16-byte aligned takes the same walk by 4-byte copies; a ragged
+//     last slab zero-fills its columns past n and stores only below n.
+//   * Wide and shallow, the split-k sums (n = 262,144 to 2,097,152, 12-15
+//     parts): reduce_parts_wide_kernel, a persistent grid-stride loop over
+//     kSumWideBlocks blocks an SM, a thread the columns of one 16-byte
+//     vector of its out (4 fp32, 8 bf16), every part of them loaded (up
+//     to kSumBatch at once) before their adds, as 16-byte loads marked
+//     evict-first (the partials are dead after the sum), the out read and
+//     written as one 16-byte vector. Off that vector grid, or with a
+//     pointer not 16-byte aligned, one column a thread.
+// tools/sums_variants.py times the slab width, the ring depth, the block
+// and the regimes against part.sum(0) (and an older checkout's kernels,
+// --parent).
+constexpr int kSumThreads = 256;     // threads of a slab block
+constexpr int kSumRing = 8;          // stages of a slab block's ring
+constexpr int kSumMinBlocks = kGemmSMs;  // slab blocks wanted: one an SM
+constexpr int kSumWideThreads = 256;  // threads of a wide block
+constexpr int kSumWideBlocks = 4;     // wide blocks an SM (132 SMs)
+constexpr int kSumBatch = 12;         // parts a wide thread loads at once
+// columns a wide thread: one 16-byte vector of its out (4 fp32, 8 bf16)
+template <typename Tout> constexpr int kSumWideColumns = 16 / sizeof(Tout);
+// n from which the sums go wide: a vector a thread for two warps an SM
+constexpr long kSumWideMin = 8L * kGemmSMs * 64;
+
+inline void count_sum(long n, int wide) {
+  for (SumSite& s : g_sum_sites) {
+    if (s.launches == 0 || (s.n == n && s.wide == wide)) {
+      s.n = n;
+      s.wide = wide;
+      ++s.launches;
+      return;
+    }
+  }
+  ++g_sum_unrecorded;
+}
+
+template <typename Tout, int S, bool VEC>
+__global__ void __launch_bounds__(kSumThreads)
+reduce_parts_slab_kernel(const float* __restrict__ part,
+                         Tout* __restrict__ out, int parts, long n,
+                         int accumulate) {
+  constexpr int V = S / 4;                 // 4-column vectors a part row
+  constexpr int ROWS = kSumThreads / V;    // part rows a stage
+  __shared__ __align__(16) float ring[kSumRing][ROWS * S];
+  const int t = threadIdx.x;
+  const long c0 = (long)blockIdx.x * S;
+  // this thread's copy each stage: part row `row` of the stage, columns
+  // [col, col + 4) of the slab
+  const int row = t / V, col = (t % V) * 4;
+  const int stages = (parts + ROWS - 1) / ROWS;
+  auto fetch = [&](int s) {
+    if (s < stages) {
+      const int p = s * ROWS + row;
+      float* dst = &ring[s % kSumRing][row * S + col];
+      const float* src = part + (long)p * n + c0 + col;
+      if (VEC) {
+        const bool ok = p < parts && c0 + col < n;
+        cp_async16(dst, ok ? src : part, ok);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = p < parts && c0 + col + q < n;
+          cp_async4(dst + q, ok ? src + q : part, ok);
+        }
+      }
+    }
+    cp_async_commit();  // empty groups past the last stage keep the count
+  };
+#pragma unroll
+  for (int s = 0; s < kSumRing - 1; ++s) fetch(s);
+  const long c = c0 + t;
+  float acc = 0.f;
+  if (t < S && accumulate && c < n) acc = to_f(out[c]);
+  for (int s = 0; s < stages; ++s) {
+    fetch(s + kSumRing - 1);  // into the stage consumed last iteration
+    cp_async_wait<kSumRing - 1>();
+    __syncthreads();
+    if (t < S) {
+      const float* v = ring[s % kSumRing] + t;
+      const int rows = min(ROWS, parts - s * ROWS);
+      int r = 0;
+      if (s == 0 && !accumulate) {
+        acc = v[0];
+        r = 1;
+      }
+#pragma unroll 16
+      for (; r < rows; ++r) acc += v[r * S];
+    }
+    __syncthreads();
+  }
+  if (t < S && c < n) out[c] = from_f<Tout>(acc);
+}
+
+// W fp32 from p (16-byte aligned) into v, evict-first
+template <int W>
+__device__ __forceinline__ void load_cs(float (&v)[W], const float* p) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p) + q);
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
+  }
+}
+
+template <typename Tout, bool VEC>
+__global__ void __launch_bounds__(kSumWideThreads)
+reduce_parts_wide_kernel(const float* __restrict__ part,
+                         Tout* __restrict__ out, int parts, long n,
+                         int accumulate) {
+  constexpr int W = VEC ? kSumWideColumns<Tout> : 1;  // columns a thread
+  const long units = n / W;
+  for (long u = (long)blockIdx.x * kSumWideThreads + threadIdx.x; u < units;
+       u += (long)gridDim.x * kSumWideThreads) {
+    const long i = u * W;
+    float s[W];
+    int p = 0;
+    if (accumulate) {  // fp32 out
+      if constexpr (VEC && std::is_same<Tout, float>::value) {
+#pragma unroll
+        for (int q = 0; q < W / 4; ++q) {
+          const float4 a = reinterpret_cast<const float4*>(out + i)[q];
+          s[4 * q] = a.x;
+          s[4 * q + 1] = a.y;
+          s[4 * q + 2] = a.z;
+          s[4 * q + 3] = a.w;
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) s[w] = to_f(out[i + w]);
+      }
+    } else {
+      if constexpr (VEC) {
+        load_cs<W>(s, part + i);
+      } else {
+        s[0] = __ldcs(part + i);
+      }
+      p = 1;
+    }
+    for (; p < parts; p += kSumBatch) {
+      float q[kSumBatch][W];
+#pragma unroll
+      for (int b = 0; b < kSumBatch; ++b) {
+        if (p + b < parts) {
+          const float* src = part + (long)(p + b) * n + i;
+          if constexpr (VEC)
+            load_cs<W>(q[b], src);
+          else
+            q[b][0] = __ldcs(src);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kSumBatch; ++b)
+        if (p + b < parts)
+#pragma unroll
+          for (int w = 0; w < W; ++w) s[w] += q[b][w];
+    }
+    if constexpr (VEC && std::is_same<Tout, float>::value) {
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q)
+        reinterpret_cast<float4*>(out + i)[q] =
+            make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+    } else if constexpr (VEC) {  // bf16: W values, 16-byte stores
+      static_assert(W % 8 == 0, "whole 16-byte vectors of bf16");
+      __align__(16) Tout v[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) v[w] = from_f<Tout>(s[w]);
+#pragma unroll
+      for (int q = 0; q < W / 8; ++q)
+        reinterpret_cast<uint4*>(out + i)[q] = reinterpret_cast<uint4*>(v)[q];
+    } else {
+      out[i] = from_f<Tout>(s[0]);
+    }
+  }
+}
+
+template <typename Tout, int S>
+void launch_slab(const float* part, Tout* out, int parts, long n, bool vec,
+                 int accumulate, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((n + S - 1) / S);
+  if (vec)
+    reduce_parts_slab_kernel<Tout, S, true><<<blocks, kSumThreads, 0, st>>>(
+        part, out, parts, n, accumulate);
+  else
+    reduce_parts_slab_kernel<Tout, S, false><<<blocks, kSumThreads, 0, st>>>(
+        part, out, parts, n, accumulate);
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename Tout>
+int launch_reduce_parts(const float* part, Tout* out, int parts, long n,
+                        cudaStream_t st, int accumulate = 0) {
+  if (parts < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int wide = n >= kSumWideMin;
+  if (wide) {
+    constexpr int W = kSumWideColumns<Tout>;
+    const bool vec = n % W == 0 && aligned16(part) && aligned16(out);
+    const long units = vec ? n / W : n;
+    const long blocks = std::min((units + kSumWideThreads - 1) /
+                                     kSumWideThreads,
+                                 (long)kSumWideBlocks * kGemmSMs);
+    if (vec)
+      reduce_parts_wide_kernel<Tout, true>
+          <<<(unsigned)blocks, kSumWideThreads, 0, st>>>(part, out, parts, n,
+                                                         accumulate);
+    else
+      reduce_parts_wide_kernel<Tout, false>
+          <<<(unsigned)blocks, kSumWideThreads, 0, st>>>(part, out, parts, n,
+                                                         accumulate);
+  } else {
+    const bool vec = n % 4 == 0 && aligned16(part);
+    if ((n + 15) / 16 >= kSumMinBlocks)
+      launch_slab<Tout, 16>(part, out, parts, n, vec, accumulate, st);
+    else if ((n + 7) / 8 >= kSumMinBlocks)
+      launch_slab<Tout, 8>(part, out, parts, n, vec, accumulate, st);
+    else
+      launch_slab<Tout, 4>(part, out, parts, n, vec, accumulate, st);
+  }
+  XCLIP_CHECK_LAUNCH();
+  count_sum(n, wide);
+  return 0;
+}
+
+// The sums a backward emits (dW, dg): `acc` 0 writes them in the storage
+// dtype T (the stored backwards, one call over every row); 1 writes them in
+// fp32 and 2 adds them to the fp32 values there (the recompute backwards,
+// one call per row chunk, cast once by the caller after the last).
+template <typename T>
+int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
+                    cudaStream_t st) {
+  if (acc == 0)
+    return launch_reduce_parts<T>(part, static_cast<T*>(out), parts, n, st);
+  return launch_reduce_parts<float>(part, static_cast<float*>(out), parts, n,
+                                    st, acc == 2);
 }
 
 // --- fp32: FMA tiling in full fp32 (no TF32). 64x64 block tiles, each

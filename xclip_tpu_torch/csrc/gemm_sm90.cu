@@ -52,7 +52,7 @@
 //     and a * gelu(b), gelu(b), a * gelu'(b) and the rounded h come out of
 //     registers (GegluParts: the op sequence of the LayerNorm and
 //     GEGLU-backward row kernels).
-// Split-k writes fp32 partials (out + z * m * n) that reduce_parts_kernel
+// Split-k writes fp32 partials (out + z * m * n) that launch_reduce_parts
 // sums in order: no float atomics, two runs agree bit for bit.
 //
 // Tensor maps are encoded on the host for every launch (the pointers

@@ -171,14 +171,6 @@ __device__ __forceinline__ int tile_parts(int cols, int unit) {
   return min(64 / unit, max(0, (cols + unit - 1) / unit));
 }
 
-// 4-byte global → shared copy (cp.async.ca); zero-fills when !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
 // Stage rows [r0, r0 + 64) of the 64 bf16 columns at `col` of a row-major
 // matrix (row stride ld) into a tile, by cp.async from all of the block's
 // `threads` threads; rows at or past n read as 0. The caller commits.

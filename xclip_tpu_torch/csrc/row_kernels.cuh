@@ -52,7 +52,7 @@
 // thread adds dy * xhat of its columns over its rows and writes them once;
 // with several row groups the groups' sums are added in group order
 // through shared memory. One partial per fixed 64-row block, summed in
-// order by reduce_parts_kernel: no float atomics, two runs agree bit for
+// order by launch_reduce_parts: no float atomics, two runs agree bit for
 // bit, and the recompute backwards' chunking (at multiples of 64 rows)
 // leaves the sums' bits alone.
 //

@@ -1,12 +1,15 @@
 // The row kernels of row_kernels.cuh alone, mode by mode, for tests and
 // timing (kernels/rows.py): the LayerNorm forward rows, the GEGLU backward
 // rows and the LayerNorm backward rows, which the FF blocks, K8 and the
-// attention megablock launch inside their own entry points. Also the
-// kernels' launch counters, counted by every caller.
+// attention megablock launch inside their own entry points; the ordered
+// sums of partials (common.cuh launch_emit_sum) alone. Also the kernels'
+// launch counters, counted by every caller.
 #include "common.cuh"
 
 namespace xclip {
 long long g_row_launches[kRowCounters];
+SumSite g_sum_sites[kSumSites];
+long long g_sum_unrecorded = 0;
 }  // namespace xclip
 
 namespace {
@@ -151,14 +154,43 @@ extern "C" int xclip_ln_bwd_rows(int mode, int dtype, int dy_f32, int v_f32,
 }
 
 // The ordered sum every backward's split-k and dg partials take
-// (common.cuh reduce_parts_kernel), alone: out (n fp32) = (accumulate ? out
-// : 0) + sum over p of part[p * n + i], p in order 0, 1, ...
-extern "C" int xclip_reduce_parts(const void* part, void* out, int parts,
-                                  long long n, int accumulate, void* stream) {
-  if (parts < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  return xclip::launch_reduce_parts<float>(
-      static_cast<const float*>(part), static_cast<float*>(out), parts,
-      (long)n, static_cast<cudaStream_t>(stream), accumulate);
+// (common.cuh launch_emit_sum), alone: out (n) = (acc == 2 ? out : 0) +
+// part[0][i] + part[1][i] + ..., in order, written in fp32 (acc 1, 2) or
+// rounded to `dtype` (acc 0).
+extern "C" int xclip_reduce_parts(int dtype, const void* part, void* out,
+                                  int parts, long long n, int acc,
+                                  void* stream) {
+  if (parts < 1 || n < 1 || acc < 0 || acc > 2)
+    return (int)cudaErrorInvalidValue;
+  if (acc != 0 && dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
+  XCLIP_DISPATCH(dtype, xclip::launch_emit_sum<T>(
+      static_cast<const float*>(part), out, parts, (long)n, acc,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The ordered sums' launches by (regime, width) from every caller
+// (common.cuh g_sum_sites): up to `cap` widths into n[], wide[] (1: the
+// wide kernel) and launches[]; returns how many, or -1 when a launch went
+// unrecorded (more widths than the table holds). `reset` empties the
+// table.
+extern "C" long long xclip_sum_launches(long long* n, int* wide,
+                                        long long* launches, int cap,
+                                        int reset) {
+  long long k = xclip::g_sum_unrecorded ? -1 : 0;
+  for (xclip::SumSite& s : xclip::g_sum_sites) {
+    if (s.launches == 0) break;
+    if (k >= 0 && k < cap) {
+      n[k] = s.n;
+      wide[k] = s.wide;
+      launches[k] = s.launches;
+      ++k;
+    }
+  }
+  if (reset) {
+    for (xclip::SumSite& s : xclip::g_sum_sites) s = xclip::SumSite{};
+    xclip::g_sum_unrecorded = 0;
+  }
+  return k;
 }
 
 // Launches of row kernel `counter` (the GEGLU modes 0-2, then kLnBwd,

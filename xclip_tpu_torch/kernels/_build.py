@@ -57,7 +57,7 @@ _SIGNATURES = {
     "xclip_attention_block_bwd_max_n": [_I],
     "xclip_mega_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
     "xclip_mega_core_bwd": [_I, *[_P] * 8, _I, _I, _I, _F, _I, _I, _P],
-    "xclip_lse_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xclip_lse_fwd": [*[_P] * 4, *[_I] * 6, _P],
     "xclip_lse_bwd": [*[_P] * 8, *[_I] * 8, _P],
     "xclip_attention_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
     "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
@@ -69,7 +69,8 @@ _SIGNATURES = {
     "xclip_geglu_bwd_rows": [_I, _I, *[_P] * 6, _I, _I, _F, *[_P] * 5],
     "xclip_ln_bwd_rows": [_I, _I, _I, _I, *[_P] * 8, _I, _I, *[_P] * 7],
     "xclip_ln_fwd_rows": [_I, _I, _I, *[_P] * 4, _I, _I, _F, *[_P] * 4],
-    "xclip_reduce_parts": [_P, _P, _I, _L, _I, _P],
+    "xclip_reduce_parts": [_I, _P, _P, _I, _L, _I, _P],
+    "xclip_sum_launches": [_P, _P, _P, _I, _I],
     "xclip_rows_launches": [_I, _I],
 }
 _RESTYPES = {name: ctypes.c_longlong for name in _SIGNATURES

@@ -16,13 +16,15 @@ by autograd and the kernels only need the two matrix cotangents:
 to fp32 as the Pallas version does, runs the forward `streaming_lse_fwd`
 (Pallas `_lse_kernel`) and the backward `streaming_lse_bwd` (Pallas
 `_dx_kernel` and `_dy_kernel`), and casts the gradients back to the input
-dtypes. The CUDA kernels are `csrc/fused_infonce.cu`: the backward computes
-p once a chunk of columns into a bounded scratch and takes dx and dy from
-it by register-tiled products over fixed ranges, summed in order
-(`bwd_plan`). Each wrapper takes its kernel for CUDA tensors and its plain
-version (`*_plain`) for CPU tensors, and never falls back from one to the
-other. `row_offset` is the global column of row 0's diagonal, for a row
-shard of a gathered batch.
+dtypes. The CUDA kernels are `csrc/fused_infonce.cu`, register-tiled fp32
+products: the forward computes each row's (m, l) over fixed ranges of
+columns and merges the ranges in order (`fwd_plan`; a call launches the
+product and the merge); the backward computes p once a chunk of columns
+into a bounded scratch and takes dx and dy from it by products over fixed
+ranges, summed in order (`bwd_plan`). Each wrapper takes its kernel for
+CUDA tensors and its plain version (`*_plain`) for CPU tensors, and never
+falls back from one to the other. `row_offset` is the global column of
+row 0's diagonal, for a row shard of a gathered batch.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ TILE = 128         # their output tile (csrc GBM, GBN)
 SLOTS = 2 * 132    # their blocks in flight: two an SM on 132 SMs
 
 
+def _fill(work: int) -> float:
+    """The share of the card's SLOTS that `work` blocks keep busy over
+    their waves."""
+    return work / (math.ceil(work / SLOTS) * SLOTS)
+
+
 def _ranges(tiles: int, length: int) -> int:
     """The k-range of a product with `tiles` output tiles over a reduction
     of `length`: the fewest ranges whose blocks fill the card's SLOTS to
@@ -48,13 +56,31 @@ def _ranges(tiles: int, length: int) -> int:
     most = max(1, length // 256)
     best, parts = 0.0, 1
     for p in range(1, most + 1):
-        work = tiles * p
-        fill = work / (math.ceil(work / SLOTS) * SLOTS)
+        fill = _fill(tiles * p)
         if fill > best + 1e-9:
             best, parts = fill, p
         if fill >= 0.9:
             break
     return math.ceil(math.ceil(length / parts) / SLICE) * SLICE
+
+
+def fwd_plan(R: int, C: int) -> int:
+    """The columns each block of the forward walks: whole TILE-column
+    tiles, in the fewest ranges whose (row tile, range) blocks fill the
+    card's SLOTS to within 10 % (else the fullest), as `_ranges` fills the
+    backward's products. 16 ranges of one tile at R = C = 2048."""
+    row_tiles, col_tiles = math.ceil(R / TILE), math.ceil(C / TILE)
+    best, span = 0.0, col_tiles
+    for p in range(1, col_tiles + 1):
+        per = math.ceil(col_tiles / p)
+        if math.ceil(col_tiles / per) != p:
+            continue  # no split into p ranges of whole tiles
+        fill = _fill(row_tiles * p)
+        if fill > best + 1e-9:
+            best, span = fill, per
+        if fill >= 0.9:
+            break
+    return span * TILE
 
 
 def bwd_plan(R: int, C: int, d: int):
@@ -113,17 +139,20 @@ def streaming_lse_fwd(x, y, row_offset=0, decoupled=False):
         return streaming_lse_fwd_plain(x, y, row_offset, decoupled)
     (R, d), C = x.shape, y.shape[0]
     _check("streaming_lse_fwd", (x, y))
+    span = fwd_plan(R, C)
     lse = torch.empty(R, dtype=torch.float32, device=x.device)
+    ml = torch.empty(2 * math.ceil(C / span) * R, dtype=torch.float32,
+                     device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().xclip_lse_fwd(
-            x.data_ptr(), y.data_ptr(), lse.data_ptr(), R, C, d,
-            int(row_offset), int(decoupled), stream_ptr(x.device))
+            x.data_ptr(), y.data_ptr(), lse.data_ptr(), ml.data_ptr(), R, C,
+            d, span, int(row_offset), int(decoupled), stream_ptr(x.device))
     _build.check(err, "xclip_lse_fwd")
     streaming_lse_fwd.launches += 1
     return lse
 
 
-streaming_lse_fwd.launches = 0
+streaming_lse_fwd.launches = 0  # calls on CUDA: each the product and merge
 
 
 def streaming_lse_bwd(x, y, lse, dlse, row_offset=0, decoupled=False):

@@ -90,7 +90,8 @@ def k_ranges(k: int, k_split: int):
 
 def ordered_sum(parts):
     """The partials (parts, m, n) summed in range order, in fp32, as
-    csrc/common.cuh `reduce_parts_kernel` sums them."""
+    csrc/common.cuh `launch_reduce_parts` sums them (its slab and wide
+    kernels)."""
     total = parts[0].clone()
     for p in parts[1:]:
         total += p

@@ -43,9 +43,12 @@ from stored (mean, inv) (`_common.py` `ln_bwd`):
 g, resid, gb, agdb and the outputs are of g's dtype. dg_part (fp32,
 (ceil(rows / 64), d)) holds one column sum of dy·xhat per 64-row block,
 its rows added in order; `matmul.ordered_sum` adds the blocks in order,
-as the kernels' callers do. Widths: any up to 8,192 (16-byte vectors
-where the width is a multiple of 8 and every tensor 16-byte aligned,
-element by element otherwise); a wider row raises.
+as the kernels' callers do (`reduce_parts`: the ordered sums of
+`csrc/common.cuh` alone, every backward's dg and split-k sums; their
+launches from every caller by regime and width: `sum_launches`).
+Widths: any up to 8,192 (16-byte vectors where the width is a multiple
+of 8 and every tensor 16-byte aligned, element by element otherwise); a
+wider row raises.
 
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (`*_plain`, the kernels' rounding points in PyTorch) for CPU tensors; on a
@@ -56,11 +59,14 @@ counted in the library, mode by mode (`kernel_launches`).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from ._common import (KERNEL_DTYPES, dtype_code, eps_for, geglu_parts,
                       gelu_grad, ln_bwd, ln_stats_fp32, route, stream_ptr)
+from .matmul import ordered_sum
 
 GEGLU_MODES = {"recompute": 0, "k8": 1, "stored_h": 2}
 LN_MODES = {"ln": 0, "geglu": 1}
@@ -338,36 +344,62 @@ def ln_bwd_rows(mode, dy, v, g, stats, resid=None, xn_out=False, gb=None,
 ln_bwd_rows.launches = 0  # kernel launches (plain calls not counted)
 
 
-def reduce_parts(part, out=None):
+def reduce_parts(part, out=None, dtype=torch.float32):
     """The ordered sum of fp32 partials (parts, ...) that every backward's
-    split-k and dg sums run (`csrc/common.cuh` reduce_parts_kernel), alone:
-    the partials summed in order, added to `out` in place when given (the
-    recompute backwards' running sums over row chunks) → the sum."""
+    split-k and dg sums run (`csrc/common.cuh` launch_emit_sum), alone:
+    part[0] + part[1] + ..., strictly in order in fp32
+    (`matmul.ordered_sum`), rounded once to `dtype` (fp32 or bf16; the
+    stored backwards' `acc` 0); with `out` (fp32, one partial's shape) the
+    partials are added to it in place (the recompute backwards' running
+    sums over row chunks, `acc` 2) → the sum."""
     tensors = (part,) if out is None else (part, out)
     if not route("reduce_parts", tensors):
-        total = part[0].clone() if out is None else out
-        for p in part[1:] if out is None else part:
-            total += p
-        return total
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors) or (out is not None
-                                 and out.shape != part.shape[1:]):
+        if out is None:
+            return ordered_sum(part).to(dtype)
+        for p in part:
+            out += p
+        return out
+    if (part.dtype != torch.float32 or part.dim() < 2
+            or any(not t.is_contiguous() for t in tensors)
+            or (out is not None and (out.dtype != torch.float32
+                                     or out.shape != part.shape[1:]))
+            or dtype not in KERNEL_DTYPES):
         raise ValueError("reduce_parts: contiguous fp32 partials (parts, "
-                         "...) and an out of one partial's shape")
-    acc = out is not None
+                         "...), an fp32 out of one partial's shape, and an "
+                         "fp32 or bf16 sum")
+    acc = 0 if out is None else 2
     if out is None:
-        out = torch.empty(part.shape[1:], dtype=torch.float32,
-                          device=part.device)
+        out = torch.empty(part.shape[1:], dtype=dtype, device=part.device)
     with torch.cuda.device(part.device):
         err = _build.library().xclip_reduce_parts(
-            part.data_ptr(), out.data_ptr(), part.shape[0], out.numel(),
-            int(acc), stream_ptr(part.device))
+            dtype_code(out.dtype), part.data_ptr(), out.data_ptr(),
+            part.shape[0], out.numel(), acc, stream_ptr(part.device))
     _build.check(err, "xclip_reduce_parts")
     reduce_parts.launches += 1
     return out
 
 
 reduce_parts.launches = 0  # kernel launches (plain calls not counted)
+
+
+def sum_launches(reset: bool = False):
+    """{(regime, width): launches of the ordered sums since the library was
+    loaded or last reset}, from every caller (csrc/common.cuh
+    g_sum_sites): regime "slab" (the narrow, deep dg sums) or "wide" (the
+    split-k sums); `reset` empties the table after reading it. Raises
+    RuntimeError when more widths were summed than the table holds (32)."""
+    cap = 32
+    n = (ctypes.c_longlong * cap)()
+    wide = (ctypes.c_int * cap)()
+    launches = (ctypes.c_longlong * cap)()
+    k = _build.library().xclip_sum_launches(n, wide, launches, cap,
+                                            int(reset))
+    if k < 0:
+        raise RuntimeError(f"sum_launches: more than {cap} widths were "
+                           "summed since the last reset; some launches "
+                           "went unrecorded")
+    return {("wide" if wide[i] else "slab", n[i]): launches[i]
+            for i in range(k)}
 
 
 def kernel_launches(reset: bool = False):
