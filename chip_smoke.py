@@ -19,7 +19,9 @@ TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm over
 rows (forward and backward) and GEGLU backward on the row kernels of
 csrc/row_kernels.cuh, held alone in phase 20; a shape past the CUDA
 kernels raises ValueError naming the limit (phase 21), and only the JAX
-package's own gates send a flag to the plain path, with JAX's warning. One
+package's own gates send a flag to the plain path, with JAX's warning;
+remat, grad_accum, valid=, checkpoint and resume, and dropout train the
+flagship (phase 22). One
 line per phase; any failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
@@ -165,7 +167,8 @@ line per phase; any failure exits non-zero, and nothing is caught.
              8,192, fp32 and bf16, against the plain version, two launches
              bit for bit equal, timed beside the plain version, the bytes
              bound and, for the plain mode, F.layer_norm (for the stats
-             mode on bf16 rows, native_layer_norm). Then the ordered sums
+             mode native_layer_norm, on the same fp32 or bf16 rows). Then
+             the ordered sums
              (csrc/common.cuh: the slab kernel for the dg sums, the wide
              kernel for the split-k sums) at every call shape of the
              b = 2048 step (dg at 2048 and 512 wide from a 24,576-row
@@ -196,6 +199,34 @@ line per phase; any failure exits non-zero, and nothing is caught.
              under 'fused', dim 72 with FF inner 288 under 'block') the
              entry point raises ValueError naming the limit, and no plain
              route runs in the kernel's place.
+ 22 train-surface  the training surface on the flagship, bf16, from phase
+             8's weights and inputs: (a) the stored route (K2, K1) at
+             b = 256 under checkpoint_during_training with remat_policy
+             None, 'dots' and 'wide': loss and every gradient bit for bit
+             the step without remat (whose two launches must agree first),
+             K2's and K1's forward launches twice a layer under None and
+             'dots' and once under 'wide', 'dots' keeping no product in a
+             text layer and two (qkv, out) in a vision layer; pairs/s and
+             peak memory of all four; (b) the stored route at b = 2048
+             under remat None (without remat it would not fit), 2 warm-up
+             and 3 timed steps, beside phase 11's lean step; (c)
+             grad_accum=2 at b = 256: its gradient bit for bit (g1 + g2) / 2
+             of two 128-row backwards and its update the optimizer's on it;
+             pairs/s; (d) valid= with the last 56 rows padding, in bf16
+             and in fp32 on the same weights: the loss within 1e-5
+             relative of the 200-row batch's, every gradient within 1e-3
+             relative Frobenius in fp32 and within bf16's unit roundoff
+             2^-8 in bf16, and JAX's refusal under loss_impl='fused'; (e)
+             two steps, a checkpoint, a third step; a fresh model and
+             optimizer loaded from it take the third step bit for bit
+             (parameters, both moments, count, metrics), and the checkpoint
+             loads on the CPU; (f) custom encoders with attention
+             and FF dropout 0.1 on attn_impl='fused', ff_impl='block_stored',
+             loss_impl='fused': JAX's two fallback warnings once each, K5
+             launching and no megablock or FF block, every site's kept share
+             1 - 0.1 within 4 sigma, remat None with the same seeds bit for
+             bit; pairs/s. Every timed configuration also prints its idle
+             share and device time over one profiled step.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -1429,7 +1460,8 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
     result) and at b = 2048, where the bf16 product kernel's launches by
     instance (counted in the library) must be `products_per_step` a step;
     the row kernels' launches (in `counters`) `rows_per_step(b)` a step.
-    Returns the b = 2048 run's launch counts and product launches."""
+    Returns the b = 2048 run's launch counts, product launches and (ms
+    per step, peak GiB)."""
     from xclip_tpu_torch.kernels import matmul
     # the core: K3's forward and its backward's recompute, K3's backward
     base = {"k3_fwd": 12, "k3_bwd": 12, "kffs": 12, "ff_rc": 12,
@@ -1523,7 +1555,7 @@ def lean_train(card, CLIP, default_optimizer, make_train_step, counters,
           f"GEGLU-backward rows {rows_per_step(2048)['rows_geglu_recompute']}"
           f", LN-backward rows {rows_per_step(2048)['rows_ln_ln']}, ordered "
           f"sums {sum(rows_per_step(2048)[k] for k in SUM_SITES)}")
-    return s2048[3], s2048[4]
+    return s2048[3], s2048[4], s2048[:2]
 
 
 def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -2298,9 +2330,10 @@ def ln_fwd_phase(gen):
     equal; bf16 at the callers' shapes timed beside the plain version, the
     bound by bytes and, for the plain mode, F.layer_norm on the same rows
     (its output in the input's dtype, no statistics), for the stats mode
-    on rows of the storage dtype torch.native_layer_norm (out, mean and
-    rstd). Returns (errs, ms,
-    costs, library) keyed by mode, from each mode's first shape."""
+    torch.native_layer_norm on the same rows (out, mean and rstd; on fp32
+    rows its out is fp32, where the kernel writes the storage dtype).
+    Returns (errs, ms, costs, library) keyed by mode, from each mode's
+    first shape."""
     from xclip_tpu_torch.kernels import rows as rk
     errs, ms, costs, library = {}, {}, {}, {}
     for key, title, mode, _, shapes in LN_FWD_KERNELS:
@@ -2327,10 +2360,12 @@ def ln_fwd_phase(gen):
                 if mode == "plain":
                     lms = cuda_ms(lambda: torch.nn.functional.layer_norm(
                         x, (d,), g, None, 1e-3))
-                elif mode == "stats" and x.dtype == g.dtype:
-                    # out, mean and rstd from one call
+                elif mode == "stats":
+                    # out, mean and rstd from one call, the gain in the
+                    # rows' dtype
+                    gx = g.to(x.dtype)
                     lms = cuda_ms(lambda: torch.native_layer_norm(
-                        x, (d,), g, None, 1e-3))
+                        x, (d,), gx, None, 1e-3))
                 cost = ln_fwd_cost(args)
                 b_ms, b_by = bound(*cost, FP32_PEAK)
                 print(f"  {title} {tag}: kernel {kms:.4f} ms "
@@ -2741,6 +2776,386 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
           + "; ".join(lines))
 
 
+# phase 22: remat configurations (label, checkpoint_during_training,
+# remat_policy), the first without remat
+REMAT_CONFIGS = (("no remat", False, None), ("None", True, None),
+                 ("dots", True, "dots"), ("wide", True, "wide"))
+# JAX's words when attention and FF dropout take the kernels off
+DROPOUT_WARNINGS = {
+    "attn_impl='fused' requested but falling back to the XLA path: "
+    "attn_dropout > 0 in training mode (the fused whole-head kernel has no "
+    "attention dropout)",
+    "ff_impl='block_stored' requested but falling back to the XLA path: "
+    "ff_dropout active in training mode"}
+VALID_REFUSAL = ("row_valid requires the plain InfoNCE loss "
+                 "(loss_impl='xla', no FILIP, no sim_reg)")
+
+
+def step_gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def grads_of(model, text, images, **kw):
+    """One training forward and backward: (loss, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss = model(text, images, return_loss=True, **kw)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def differing(a, b):
+    """What of two (loss, gradients) results is not bit for bit equal."""
+    (la, ga), (lb, gb) = a, b
+    bad = [] if torch.equal(la, lb) else ["loss"]
+    if ga.keys() != gb.keys():
+        return bad + ["the set of gradients"]
+    return bad + [k for k in ga if not torch.equal(ga[k], gb[k])]
+
+
+def same_params(a, b):
+    """Names of the parameters of two models that differ."""
+    return [n for (n, p), q in zip(a.named_parameters(), b.parameters())
+            if not torch.equal(p.detach().cpu(), q.detach().cpu())]
+
+
+def train_surface(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+                  lse5, lean2048):
+    """Phase 22: the training surface on the flagship at b = 256 from phase
+    8's weights and inputs (stored route, bf16): remat under None, 'dots'
+    and 'wide' bit for bit the step without remat, with the kernels'
+    forward launches it computes and 'dots''s saved products per layer;
+    the stored route at b = 2048 under remat beside phase 11's lean step
+    (`lean2048`: ms, peak GiB); grad_accum=2 bit for bit the mean of two
+    128-row backwards; valid= against the truncated batch; checkpoint and
+    resume bit for bit; custom encoders with dropout: JAX's warnings, K5
+    and no block kernel, the kept share, remat + dropout bit for bit."""
+    import tempfile
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    from xclip_tpu_torch.nn import layers
+    from xclip_tpu_torch.nn.core import RngStream
+    from xclip_tpu_torch.nn.text import TextTransformer
+    from xclip_tpu_torch.nn.vision import VisionTransformer
+    from xclip_tpu_torch.train import restore_checkpoint, save_checkpoint
+    bf16 = torch.bfloat16
+    b, warm, timed, depth = 256, 2, 5, 6
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256, dtype=bf16)
+    keep = torch.rand((b, 64), generator=gen, device="cuda").topk(
+        32, dim=-1).indices
+    on_card = dict(param_dtype=bf16, compute_dtype="bfloat16", device="cuda")
+    init = {k: v.clone() for k, v in CLIP(**FLAGSHIP, **KERNEL_ROUTES,
+                                          **on_card, seed=0)
+            .state_dict().items()}
+
+    def model(routes=KERNEL_ROUTES, **flags):
+        m = CLIP(**FLAGSHIP, **routes, **on_card, **flags)
+        m.load_state_dict(init)
+        return m
+
+    def timed_run(m, label, batch, steps, counters, want, accum=1):
+        """Warm-up and timed steps of `m` (AdamW lr 1e-4): every counter
+        `want` a step; → (ms, peak GiB); prints pairs/s, and the idle share
+        and device time of one profiled step after them."""
+        t, im = batch
+        step = make_train_step(m, default_optimizer(m.parameters(),
+                                                    learning_rate=1e-4),
+                               grad_accum=accum)
+
+        def run(i):
+            return step(t, im, generator=step_gen(100 + i))
+
+        ms, counts, peak, losses = timed_steps(run, *steps, counters)
+        per_step = {k: v / sum(steps) for k, v in counts.items()}
+        if per_step != want:
+            fail(f"{label}: launches per step {per_step}, expected {want}")
+        check_losses(label, losses, t.shape[0] // accum)   # a microbatch's
+        (idle, busy, window), _ = profile_step(run, sum(steps))
+        print(f"  {label}: {t.shape[0] * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms "
+              f"per step), peak memory {peak:.2f} GiB, idle share "
+              f"{idle:.4f} (device busy {busy:.2f} of {window:.2f} ms), "
+              "losses " + " ".join(f"{v:.4f}" for v in losses.tolist()),
+              flush=True)
+        return ms, peak
+
+    stored = {"k2_fwd": mega.attention_block_fwd_stored,
+              "k2_bwd": mega.attention_block_bwd,
+              "k1_fwd": ffb.ff_block_fwd_stored, "k1_p1": ffb.ff_block_bwd_p1,
+              "k1_p2": ffb.ff_block_bwd_p2}
+
+    def stored_launches(passes):
+        """The stored route's launches over one forward and backward: K2 in
+        the text tower's layers, K1 in both towers'; each forward kernel
+        `passes` times (2 where a recompute runs it again)."""
+        return {"k2_fwd": depth * passes, "k2_bwd": depth,
+                "k1_fwd": 2 * depth * passes, "k1_p1": 2 * depth,
+                "k1_p2": 2 * depth}
+
+    # (a) remat on the stored route, b = 256
+    regions = []
+
+    def counting_context():
+        """'dots''s contexts, counting the products each layer keeps."""
+        regions.append(0)
+
+        def policy(ctx, op, *args, **kwargs):
+            kept = layers.save_products(ctx, op, *args, **kwargs)
+            if kept == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                regions[-1] += 1
+            return kept
+        return create_selective_checkpoint_contexts(policy)
+
+    remat = {}
+    for label, ckpt, policy in REMAT_CONFIGS:
+        m = model(checkpoint_during_training=ckpt, remat_policy=policy)
+        passes = 2 if ckpt and policy != "wide" else 1
+        want = stored_launches(passes)
+        zero_counts(stored)
+        regions.clear()
+        with mock.patch.object(layers, "_dots_context", counting_context):
+            result = grads_of(m, text, images, generator=step_gen(100))
+        torch.cuda.synchronize()
+        if read_counts(stored) != want:
+            fail(f"remat {label}: launches {read_counts(stored)} over one "
+                 f"forward and backward, expected {want}")
+        if policy == "dots" and regions != [0] * depth + [2] * depth:
+            fail(f"remat 'dots': products kept per layer {regions}, "
+                 f"expected none in a text layer, 2 in a vision layer")
+        if label == "no remat":
+            ref = result
+            bad = differing(ref, grads_of(m, text, images,
+                                          generator=step_gen(100)))
+            if bad:
+                fail(f"two launches of the same step differ in {bad}")
+        else:
+            bad = differing(ref, result)
+            if bad:
+                fail(f"remat {label}: loss and gradients are not bit for "
+                     f"bit the step's without remat: {bad}")
+        remat[label] = timed_run(m, f"stored b={b} remat {label}",
+                                 (text, images), (warm, timed), stored,
+                                 stored_launches(passes))
+        del m, result
+        torch.cuda.empty_cache()
+    lines = ["remat None / 'dots' / 'wide' bit for bit the step without, "
+             "K2 and K1 forwards 2 / 2 / 1 a layer, 'dots' keeping 0 "
+             "products a text layer and 2 a vision layer; pairs/s "
+             + " / ".join(f"{label} {b * 1e3 / ms:.1f} ({peak:.2f} GiB)"
+                          for label, (ms, peak) in remat.items())]
+
+    # (b) the stored route at b = 2048 under remat (without it, it would
+    # not fit), beside phase 11's memory-lean step on the same inputs
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    big = texts(gen, 2048), rand(gen, 2048, 3, 256, 256, dtype=bf16)
+    ms, peak = timed_run(model(checkpoint_during_training=True),
+                         "stored b=2048 remat None", big, (2, 3), stored,
+                         stored_launches(2))
+    del big
+    torch.cuda.empty_cache()
+    print(f"  lean routes b=2048 (phase 11): {2048e3 / lean2048[0]:.1f} "
+          f"pairs/s ({lean2048[0]:.2f} ms), peak {lean2048[1]:.2f} GiB",
+          flush=True)
+    lines.append(f"b=2048 stored + remat None {2048e3 / ms:.1f} pairs/s "
+                 f"({peak:.2f} GiB; lean {2048e3 / lean2048[0]:.1f}, "
+                 f"{lean2048[1]:.2f} GiB)")
+
+    # (c) grad_accum=2: the mean of two 128-row backwards, bit for bit, and
+    # the optimizer's update of it
+    m, twin = model(), model()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        opt = default_optimizer(m.parameters(), learning_rate=1e-4)
+        step = make_train_step(m, opt, grad_accum=2)
+    if not any("grad_accum=2" in str(w.message) for w in caught):
+        fail("grad_accum=2 gave no warning")
+    metrics = step(text, images, keep_idx=keep)
+    halves = [grads_of(twin, text[r], images[r], keep_idx=keep[r])
+              for r in (slice(0, b // 2), slice(b // 2, b))]
+    mean = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in halves[0][1]}
+    got = {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
+    bad = differing((metrics["loss"], got),
+                    ((halves[0][0] + halves[1][0]) / 2, mean))
+    if bad:
+        fail(f"grad_accum=2: not bit for bit the mean of two 128-row calls: "
+             f"{bad}")
+    twin_opt = default_optimizer(twin.parameters(), learning_rate=1e-4)
+    for n, p in twin.named_parameters():
+        p.grad = mean.get(n)
+    twin_opt.step()
+    bad = same_params(m, twin)
+    if bad:
+        fail(f"grad_accum=2: the update is not the optimizer's on the mean "
+             f"gradient: {bad[:5]}")
+    del twin, twin_opt, halves, mean, got
+    accum = timed_run(m, f"stored b={b} grad_accum=2", (text, images),
+                      (2, 3), stored,
+                      {k: 2 * v for k, v in stored_launches(1).items()},
+                      accum=2)
+    lines.append(f"grad_accum=2 bit for bit (g1 + g2) / 2 and its update, "
+                 f"{b * 1e3 / accum[0]:.1f} pairs/s ({accum[1]:.2f} GiB)")
+    del m, step, opt
+    torch.cuda.empty_cache()
+
+    # (d) valid=: the last 56 rows padding, against the truncated batch.
+    # bf16 gradients are held to bf16's unit roundoff, 2^-8: the two
+    # batches' cotangents differ by fp32 rounding (the LSE sums 256 columns
+    # or 200), which the bf16 backward rounds to other neighbours in some
+    # elements, summed over the batch in the shared weights; fp32 on the
+    # same weights holds the masking itself to 1e-3
+    valid = torch.arange(b, device="cuda") < 200
+    held = []
+    for dtype, tol in ((bf16, 2.0 ** -8), (torch.float32, 1e-3)):
+        m = (model() if dtype == bf16 else
+             CLIP(**FLAGSHIP, **KERNEL_ROUTES, device="cuda"))
+        m.load_state_dict(init)
+        im = images.to(dtype)
+        padded = grads_of(m, text, im, keep_idx=keep, row_valid=valid)
+        short = grads_of(m, text[:200], im[:200], keep_idx=keep[:200])
+        loss_rel = (abs(padded[0].item() - short[0].item())
+                    / abs(short[0].item()))
+        frob = {k: ((padded[1][k].float() - g.float()).norm()
+                    / g.float().norm().clamp(min=1e-30)).item()
+                for k, g in short[1].items()}
+        worst = sorted(frob, key=frob.get, reverse=True)
+        tag = str(dtype).split(".")[-1]
+        print(f"  valid= {tag} (56 of {b} rows padding): loss "
+              f"{padded[0].item():.6f} vs the 200-row batch's "
+              f"{short[0].item():.6f}, relative {loss_rel:.2e} (tol 1e-5); "
+              f"gradients' relative Frobenius error: "
+              + ", ".join(f"{k} {frob[k]:.2e}" for k in worst[:3])
+              + f"; {sum(v > 1e-3 for v in frob.values())} of {len(frob)} "
+              f"above 1e-3 (tol {tol:.2e})", flush=True)
+        if not loss_rel <= 1e-5 or not frob[worst[0]] <= tol:
+            fail(f"valid= {tag}: loss {loss_rel:.2e} relative (tol 1e-5), "
+                 f"gradient {worst[0]} {frob[worst[0]]:.2e} relative "
+                 f"Frobenius (tol {tol:.2e})")
+        held.append(f"{tag} loss {loss_rel:.1e}, gradients "
+                    f"{frob[worst[0]]:.1e}")
+        del m, padded, short
+        torch.cuda.empty_cache()
+    fused = model({**KERNEL_ROUTES, "loss_impl": "fused"})
+    try:
+        fused(text, images, return_loss=True, keep_idx=keep, row_valid=valid)
+        fail("valid= under loss_impl='fused' did not raise")
+    except AssertionError as e:
+        if str(e) != VALID_REFUSAL:
+            fail(f"valid= under loss_impl='fused' raised {e!r}")
+    del fused
+    torch.cuda.empty_cache()
+    lines.append("valid= against the truncated batch: " + ", ".join(held)
+                 + "; refused under K5")
+
+    # (e) checkpoint and resume: save after two steps; a fresh model and
+    # optimizer loaded from it take the third step bit for bit
+    m = model()
+    opt = default_optimizer(m.parameters(), learning_rate=1e-4)
+    step = make_train_step(m, opt)
+    for i in range(2):
+        step(text, images, generator=step_gen(100 + i))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step_2")
+        save_checkpoint(path, m, opt, step=2)
+        saved = CLIP(**FLAGSHIP, **KERNEL_ROUTES, **on_card, seed=2)
+        saved.load_state_dict(m.state_dict())
+        want = step(text, images, generator=step_gen(102))
+        fresh = CLIP(**FLAGSHIP, **KERNEL_ROUTES, **on_card, seed=1)
+        fresh_opt = default_optimizer(fresh.parameters(), learning_rate=1e-4)
+        if restore_checkpoint(path, fresh, fresh_opt) != 2:
+            fail("checkpoint: the saved step is not 2")
+        host = CLIP(**FLAGSHIP, **KERNEL_ROUTES,
+                    **{**on_card, "device": "cpu"}, seed=1)
+        restore_checkpoint(path, host)
+        bad = same_params(saved, fresh) + same_params(saved, host)
+        if bad:
+            fail(f"checkpoint: parameters loaded on the card or the CPU "
+                 f"differ from the saved ones: {bad[:5]}")
+        del saved, host
+        got = make_train_step(fresh, fresh_opt)(text, images,
+                                                generator=step_gen(102))
+    bad = same_params(m, fresh)
+    bad += [k for k in want if not torch.equal(want[k], got[k])]
+    a, c = opt.state_dict(), fresh_opt.state_dict()
+    bad += ["count"] if a["count"] != c["count"] else []
+    bad += [f"{i} {mom}" for i in a["state"] for mom in ("mu", "nu")
+            if not torch.equal(a["state"][i][mom], c["state"][i][mom])]
+    if bad:
+        fail(f"checkpoint: the resumed third step differs in {bad[:8]}")
+    lines.append("resume bit for bit (parameters, moments, count 3, "
+                 "metrics); loads on the CPU")
+    del m, opt, step, fresh, fresh_opt
+    torch.cuda.empty_cache()
+
+    # (f) custom encoders with attention and FF dropout 0.1 on the kernel
+    # flags: JAX's warnings, K5 and no block kernel, the kept share, and
+    # remat + dropout bit for bit dropout alone
+    def dropout_model(**flags):
+        g = torch.Generator().manual_seed(0)
+        tower = dict(depth=depth, heads=8, ff_impl="block_stored",
+                     attn_dropout=0.1, ff_dropout=0.1, generator=g,
+                     dtype=bf16, **flags)
+        m = CLIP(**FLAGSHIP, attn_impl="fused", loss_impl="fused", **on_card,
+                 text_encoder=TextTransformer(512, 10000, 256, **tower),
+                 image_encoder=VisionTransformer(512, 256, 32, **tower))
+        m.load_state_dict(init)
+        return m
+
+    blocks = {"mega": mega.attention_block, "kff": ffb.ff_block, **stored,
+              "k3_fwd": mega.attention_block_fwd_stats,
+              "k3_bwd": mega.attention_block_bwd_recompute,
+              "kffs": ffb.ff_block_fwd_stats,
+              "ff_rc": ffb.ff_block_bwd_recompute,
+              "k5_fwd": lse5.streaming_lse_fwd,
+              "k5_bwd": lse5.streaming_lse_bwd}
+    want = {k: 2 if k.startswith("k5") else 0 for k in blocks}
+    sites = []
+    draw = RngStream.keep
+
+    def recording(self, shape, rate, device):
+        mask = draw(self, shape, rate, device)
+        sites.append((mask.sum(), mask.numel(), rate))
+        return mask
+
+    m = dropout_model()
+    zero_counts(blocks)
+    with warnings.catch_warnings(record=True) as caught, \
+            mock.patch.object(RngStream, "keep", recording):
+        warnings.simplefilter("always")
+        ref = grads_of(m, text, images, generator=step_gen(100))
+    torch.cuda.synchronize()
+    said = [str(w.message) for w in caught if "falling back" in str(w.message)]
+    if sorted(said) != sorted(DROPOUT_WARNINGS):
+        fail(f"dropout: fallback warnings {said}, expected JAX's "
+             f"{sorted(DROPOUT_WARNINGS)} once each")
+    if read_counts(blocks) != want:
+        fail(f"dropout: launches {read_counts(blocks)}, expected {want}")
+    if len(sites) != 4 * depth:
+        fail(f"dropout: {len(sites)} sites drew, expected {4 * depth}")
+    shares = []
+    for kept, n, rate in sites:
+        kept = kept.item()
+        shares.append(kept / n)
+        if not abs(kept - n * (1 - rate)) <= 4 * math.sqrt(
+                n * rate * (1 - rate)):
+            fail(f"dropout: a site kept {kept} of {n}, not 1 - {rate} "
+                 f"within 4 sigma")
+    drop = timed_run(m, f"dropout b={b}", (text, images), (warm, timed),
+                     blocks, want)
+    del m
+    torch.cuda.empty_cache()
+    m = dropout_model(checkpoint_during_training=True)
+    bad = differing(ref, grads_of(m, text, images, generator=step_gen(100)))
+    if bad:
+        fail(f"dropout: remat None is not bit for bit dropout alone: {bad}")
+    del m, ref
+    torch.cuda.empty_cache()
+    lines.append(f"dropout: JAX's 2 warnings, K5 and no block kernel, kept "
+                 f"shares {min(shares):.5f}-{max(shares):.5f} of 24 sites, "
+                 f"remat + dropout bit for bit, {b * 1e3 / drop[0]:.1f} "
+                 f"pairs/s ({drop[1]:.2f} GiB)")
+    phase(22, "train-surface", f"{card}: " + "; ".join(lines))
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -2974,7 +3389,7 @@ def main():
         fail(f"the lean golden step did not run through {missed}")
 
     # --------------------------------------------------------------- 11
-    lean_launches, product_launches = lean_train(
+    lean_launches, product_launches, lean2048 = lean_train(
         card, CLIP, default_optimizer, make_train_step, lean_counters, stored,
         expected_products(ffb, mega),
         lambda b: {**expected_rows(ffb, mega, b),
@@ -3069,6 +3484,10 @@ def main():
         "k6_fwd": core.attention_core_fwd, "k6_bwd": core.attention_core_bwd,
         "k7_fwd": flash.flash_attention_fwd,
         "k7_bwd": flash.flash_attention_bwd})
+
+    # --------------------------------------------------------------- 22
+    train_surface(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+                  lse5, lean2048)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):

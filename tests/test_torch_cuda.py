@@ -1566,3 +1566,131 @@ def test_clip_past_the_kernels_raises(cuda_device, extra, routes, words):
     with pytest.raises(ValueError, match=words):
         with torch.no_grad():
             model(text, images, return_latents=True)
+
+
+# ----------------------------------------- the training surface on the card
+
+SURFACE_CLIP = dict(dim_text=128, dim_image=128, dim_latent=128,
+                  num_text_tokens=500, text_enc_depth=2, text_seq_len=32,
+                  text_heads=2, visual_enc_depth=2, visual_heads=2,
+                  visual_image_size=64, visual_patch_size=16,
+                  visual_patch_dropout=0.5)
+CARD_ROUTES = {"stored": dict(attn_impl="fused", ff_impl="block_stored"),
+               "lean": dict(attn_impl="fused_recompute", ff_impl="block",
+                            loss_impl="fused")}
+
+
+def _small_batch(device, b=8):
+    g = torch.Generator(device=device).manual_seed(5)
+    text = torch.randint(1, 500, (b, 32), generator=g, device=device)
+    text[:, 20:] = 0
+    image = torch.randn(b, 3, 64, 64, generator=g, device=device)
+    return text, image.to(torch.bfloat16)
+
+
+def _card_clip(routes, **flags):
+    from xclip_tpu_torch import CLIP
+    return CLIP(**SURFACE_CLIP, **routes, param_dtype=torch.bfloat16,
+                compute_dtype="bfloat16", device="cuda", seed=0, **flags)
+
+
+def _card_grads(model, text, image, seed=7):
+    model.zero_grad(set_to_none=True)
+    loss = model(text, image, return_loss=True,
+                 generator=torch.Generator(device="cuda").manual_seed(seed))
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stored", "lean"])
+@pytest.mark.parametrize("policy", [None, "dots"])
+def test_remat_is_bit_equal_on_the_card(cuda_device, route, policy):
+    """Remat None and 'dots' on the stored (K2, K1) and lean (K3, K-FF-s,
+    K5) routes: loss and every gradient bit for bit the step without
+    remat, each forward kernel launched twice a layer."""
+    forwards = ((mega.attention_block_fwd_stored, ffb.ff_block_fwd_stored)
+                if route == "stored" else
+                (mega.attention_block_fwd_stats, ffb.ff_block_fwd_stats))
+    text, image = _small_batch(cuda_device)
+    plain = _card_clip(CARD_ROUTES[route])
+    remat = _card_clip(CARD_ROUTES[route], checkpoint_during_training=True,
+                       remat_policy=policy)
+    launches = []
+    results = []
+    for model in (plain, remat):
+        before = [c.launches for c in forwards]
+        results.append(_card_grads(model, text, image))
+        launches.append([c.launches - n for c, n in zip(forwards, before)])
+    (l0, g0), (l1, g1) = results
+    assert torch.equal(l0, l1)
+    assert g0.keys() == g1.keys()
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+    # the megablock and the FF block in both towers' 4 layers
+    assert launches[0] == [4, 4]
+    assert launches[1] == [2 * n for n in launches[0]]
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_is_bit_equal_on_the_card(cuda_device, tmp_path):
+    from xclip_tpu_torch.train import (default_optimizer, make_train_step,
+                                       restore_checkpoint, save_checkpoint)
+    text, image = _small_batch(cuda_device)
+    model = _card_clip(CARD_ROUTES["stored"])
+    opt = default_optimizer(model.parameters(), learning_rate=1e-3)
+    step = make_train_step(model, opt)
+
+    def gen(i):
+        return torch.Generator(device="cuda").manual_seed(i)
+
+    for i in range(2):
+        step(text, image, generator=gen(i))
+    save_checkpoint(str(tmp_path / "ck"), model, opt, step=2)
+    want = step(text, image, generator=gen(2))
+    fresh = _card_clip(CARD_ROUTES["stored"])
+    fresh_opt = default_optimizer(fresh.parameters(), learning_rate=1e-3)
+    assert restore_checkpoint(str(tmp_path / "ck"), fresh, fresh_opt) == 2
+    got = make_train_step(fresh, fresh_opt)(text, image, generator=gen(2))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        assert torch.equal(p, q)
+    a, b = opt.state_dict(), fresh_opt.state_dict()
+    assert a["count"] == b["count"] == 3
+    for i in a["state"]:
+        for m in ("mu", "nu"):
+            assert torch.equal(a["state"][i][m], b["state"][i][m]), (i, m)
+
+
+@pytest.mark.cuda
+def test_dropout_route_launches_k5_and_no_block_kernel(cuda_device,
+                                                      monkeypatch):
+    """Custom encoders with attention and FF dropout on the kernel flags:
+    the plain attention and FF run, K5 the loss; no megablock or FF block
+    launches."""
+    from xclip_tpu_torch import CLIP
+    from xclip_tpu_torch.nn import layers as tlayers
+    from xclip_tpu_torch.nn.text import TextTransformer
+    from xclip_tpu_torch.nn.vision import VisionTransformer
+    g = torch.Generator().manual_seed(0)
+    tower = dict(depth=2, heads=2, ff_impl="block_stored", attn_dropout=0.1,
+                 ff_dropout=0.1, generator=g, dtype=torch.bfloat16)
+    model = CLIP(**SURFACE_CLIP, attn_impl="fused", loss_impl="fused",
+                 param_dtype=torch.bfloat16, compute_dtype="bfloat16",
+                 device="cuda", text_encoder=TextTransformer(128, 500, 32,
+                                                             **tower),
+                 image_encoder=VisionTransformer(128, 64, 16, **tower))
+    counters = (mega.attention_block, mega.attention_block_fwd_stored,
+                mega.attention_block_fwd_stats, ffb.ff_block,
+                ffb.ff_block_fwd_stored, ffb.ff_block_fwd_stats,
+                lse5.streaming_lse_fwd, lse5.streaming_lse_bwd)
+    before = [c.launches for c in counters]
+    text, image = _small_batch(cuda_device)
+    monkeypatch.setattr(tlayers, "_warned_fallbacks", set())
+    with pytest.warns(UserWarning, match="falling back"):
+        loss, grads = _card_grads(model, text, image)
+    assert torch.isfinite(loss) and grads
+    assert [c.launches - n for c, n in zip(counters, before)] == (
+        [0] * 6 + [2, 2])

@@ -7,8 +7,8 @@ dropout on, one layer a tower): the loss and full gradient tree against
 1e-5; gradients rtol 1e-3 with atol 1e-5 times the leaf's largest
 magnitude). The same for `ff_impl='fused'` (K8) beside the rotary tower on
 K6, beside 'flash' (K7) and alone, and for the stored-h FF block
-(`XCLIP_FF_STORE=h`) beside the recompute route. And what training still
-lacks raises, naming its ROADMAP.md item.
+(`XCLIP_FF_STORE=h`) beside the recompute route, and of the lean routes
+under remat and FF dropout.
 """
 
 import itertools
@@ -68,16 +68,19 @@ def test_unported_routes_raise_at_construction(flags):
     _check_training_matches_jax(**flags)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(attn_impl="fused_recompute", checkpoint_during_training=True),
-     "Queue 1, remat"),
-    (dict(attn_impl="fused_qkv", ff_dropout=0.1),
-     "Queue 1, dropout in training"),
+@pytest.mark.parametrize("kwargs", [
+    pytest.param(dict(attn_impl="fused_recompute",
+                      checkpoint_during_training=True),
+                 id="kwargs0-Queue 1, remat"),
+    pytest.param(dict(attn_impl="fused_qkv", ff_dropout=0.1),
+                 id="kwargs1-Queue 1, dropout in training"),
 ])
-def test_lean_routes_keep_remat_and_dropout_raising(kwargs, match):
-    stack = tlayers.Transformer(64, depth=1, dim_head=64, heads=1)
-    with pytest.raises(NotImplementedError, match=match):
-        stack(torch.zeros(1, 3, 64), ff_impl="block", training=True, **kwargs)
+def test_lean_routes_keep_remat_and_dropout_raising(kwargs):
+    """The lean routes under remat and FF dropout, which raised before,
+    train as JAX's `transformer_apply` does
+    (`test_torch_dropout.check_stack_matches_jax`)."""
+    from test_torch_dropout import check_stack_matches_jax
+    check_stack_matches_jax(ff_impl="block", **kwargs)
 
 
 def test_stored_h_still_raises_beside_the_recompute_route(monkeypatch):

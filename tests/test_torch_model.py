@@ -149,10 +149,12 @@ def test_signature_matches_jax_clip():
             assert jax_init[k] == port_init[k], k
     jax_call = _params(xclip_tpu.CLIP.__call__,
                        drop=("rng", "params", "axis_name", "return_metrics"))
-    # the port's own training extras: the patch-dropout draws (JAX's rng)
-    # and the metrics flag
+    # the port's own training extras: the patch-dropout and dropout draws
+    # (JAX's rng), the metrics flag, and the pad-and-mask rows (JAX's train
+    # step hands them to `CLIPModel.apply`)
     port_call = _params(xclip_tpu_torch.CLIP.forward,
-                        drop=("return_metrics", "generator", "keep_idx"))
+                        drop=("return_metrics", "generator", "keep_idx",
+                              "dropout_keep", "row_valid"))
     assert list(jax_call) == list(port_call)
 
 

@@ -5,17 +5,21 @@ Port additions (keyword-only): `device=` (where the parameters live: the
 card, "cuda", unless the caller asks for "cpu"; a CUDA device that is not
 there raises, nothing falls back to the CPU), `seed=` /
 `generator=` (a `torch.Generator` for initialisation; `seed` makes one).
-`forward` adds `generator=` and `keep_idx=` (the randomness of a training
-forward's patch dropout; by default the model's own call generator, as
-the JAX `CLIP` folds a call counter into its key) and `return_metrics=`.
+`forward` adds `generator=` (the randomness of a training forward: patch
+dropout, and custom encoders' dropout; by default the model's own call
+generator, as the JAX `CLIP` folds a call counter into its key),
+`keep_idx=` and `dropout_keep=` (injected patch indices and dropout keep
+masks, see `CLIPModel.forward`), `row_valid=` and `return_metrics=`.
+`save(path)` / `load(path)` keep and restore the parameters
+(`train.checkpoint`).
 
 The port serves inference and trains (`return_loss=True`, and
-`train.make_train_step`). A flag whose behaviour is not ported raises
-`NotImplementedError` naming the ROADMAP.md module that will port it, at
-construction or, for flags that only act in training
-(`checkpoint_during_training`, `sim_reg_loss_weight`, augmented views),
-when a training forward meets them. `remat_policy` only qualifies
-`checkpoint_during_training`. `scan_layers` is a JAX compilation choice:
+`train.make_train_step`), with remat (`checkpoint_during_training`, whose
+`remat_policy` is None, 'dots' or 'wide'; `nn.layers`). A flag whose
+behaviour is not ported raises `NotImplementedError` naming the
+ROADMAP.md module that will port it, at construction or, for flags that
+only act in training (`sim_reg_loss_weight`, augmented views), when a
+training forward meets them. `scan_layers` is a JAX compilation choice:
 layers are always an `nn.ModuleList` here.
 """
 
@@ -30,6 +34,7 @@ from .model import CLIPModel, as_dtype
 from .nn.layers import check_impls
 from .nn.text import TextTransformer
 from .nn.vision import VisionTransformer
+from .train.checkpoint import restore_checkpoint, save_checkpoint
 
 
 # where ROADMAP.md queues FILIP, MLM, SSL, multiview and sim-reg
@@ -118,7 +123,7 @@ class CLIP(nn.Module):
             _not_ported("use_mlm / use_visual_ssl", OBJECTIVES)
         if loss_impl not in ("xla", "fused"):
             raise ValueError(f"unknown loss_impl {loss_impl!r}")
-        check_impls(attn_impl, ff_impl)
+        check_impls(attn_impl, ff_impl, remat_policy)
         check_impls(visual_attn_impl or attn_impl, ff_impl)
         assert visual_has_cls_token or text_has_cls_token, (
             "CLS token must be included on both vision and text transformers "
@@ -136,7 +141,7 @@ class CLIP(nn.Module):
                 rotary_pos_emb=text_rotary_pos_emb, causal=text_causal_mask,
                 ff_impl=ff_impl,
                 checkpoint_during_training=checkpoint_during_training,
-                generator=generator, dtype=dtype)
+                remat_policy=remat_policy, generator=generator, dtype=dtype)
         if image_encoder is None:
             image_encoder = VisionTransformer(
                 dim=dim_image, image_size=visual_image_size,
@@ -145,7 +150,7 @@ class CLIP(nn.Module):
                 heads=visual_heads, dim_head=visual_dim_head,
                 ff_impl=ff_impl,
                 checkpoint_during_training=checkpoint_during_training,
-                generator=generator, dtype=dtype)
+                remat_policy=remat_policy, generator=generator, dtype=dtype)
         self.model = CLIPModel(
             text_encoder, image_encoder, dim_text=dim_text,
             dim_image=dim_image, dim_latent=dim_latent,
@@ -176,6 +181,15 @@ class CLIP(nn.Module):
     def temperature(self):
         return self.model.temperature
 
+    def save(self, path: str) -> None:
+        """Keep the parameters in `path` (`xclip_tpu/api.py:238-243`)."""
+        save_checkpoint(path, self)
+
+    def load(self, path: str) -> None:
+        """Restore parameters kept by `save` into this model, in place, on
+        its device."""
+        restore_checkpoint(path, self)
+
     def forward(self, text, image,
                 return_loss=False,
                 return_encodings=False,
@@ -189,7 +203,9 @@ class CLIP(nn.Module):
                 training=None,
                 return_metrics=False,
                 generator=None,
-                keep_idx=None):
+                keep_idx=None,
+                dropout_keep=None,
+                row_valid=None):
         """Inference scores, encodings or latents; with `return_loss` (which
         makes `training` default to True) the contrastive loss of a training
         forward, differentiable in every parameter. The freeze flags stop
@@ -203,7 +219,7 @@ class CLIP(nn.Module):
                         " the multiview loss)", OBJECTIVES)
         if training and return_loss and self.sim_reg_loss_weight > 0:
             _not_ported("sim_reg_loss_weight > 0", OBJECTIVES)
-        if training and generator is None and keep_idx is None:
+        if training and generator is None:
             generator = self.call_generator
         return self.model(text, image, return_loss=return_loss,
                           return_encodings=return_encodings,
@@ -212,4 +228,5 @@ class CLIP(nn.Module):
                           freeze_image_encoder=freeze_image_encoder,
                           freeze_text_encoder=freeze_text_encoder,
                           training=training, return_metrics=return_metrics,
-                          generator=generator, keep_idx=keep_idx)
+                          generator=generator, keep_idx=keep_idx,
+                          dropout_keep=dropout_keep, row_valid=row_valid)

@@ -11,9 +11,10 @@ exp(temperature) is taken in fp32.
 
 Inference (training False) runs under `torch.no_grad()` through the
 kernels' lean forwards. Training (the default when `return_loss`) runs the
-stored-backward kernel routes with autograd, and FLIP patch dropout in the
-vision tower; its randomness comes from a `torch.Generator` or from
-injected `keep_idx`. The LiT freeze flags detach a tower's encodings.
+stored-backward kernel routes with autograd, FLIP patch dropout in the
+vision tower and custom encoders' dropout; their randomness comes from a
+`torch.Generator` or from injected `keep_idx` and keep masks. The LiT
+freeze flags detach a tower's encodings.
 """
 
 from __future__ import annotations
@@ -78,10 +79,12 @@ class CLIPModel(nn.Module):
     def _dtype(self):
         return self.compute_dtype or self.temperature.dtype
 
-    def _encode_text(self, text, training=False):
+    def _encode_text(self, text, training=False, generator=None,
+                     dropout_keep=None):
         mask = None if self.text_encode_without_mask else text != self.text_pad_id
         enc = self.text(text, mask, attn_impl=self.attn_impl,
-                        dtype=self._dtype(), training=training)
+                        dtype=self._dtype(), training=training,
+                        generator=generator, dropout_keep=dropout_keep)
         return self._eos_reorder(enc, text) if self.text_causal_mask else enc
 
     def _eos_reorder(self, enc_text, text):
@@ -103,12 +106,12 @@ class CLIPModel(nn.Module):
         return enc_text.gather(1, order[..., None].expand(-1, -1, dim))
 
     def _encode_image(self, image, training=False, generator=None,
-                      keep_idx=None):
+                      keep_idx=None, dropout_keep=None):
         if self.compute_dtype is not None:
             image = image.to(self.compute_dtype)
         return self.visual(image, attn_impl=self.visual_attn_impl,
                            training=training, generator=generator,
-                           keep_idx=keep_idx)
+                           keep_idx=keep_idx, dropout_keep=dropout_keep)
 
     @staticmethod
     def _latent(head, embeds):
@@ -131,10 +134,15 @@ class CLIPModel(nn.Module):
                 freeze_image_encoder: bool = False,
                 freeze_text_encoder: bool = False, training=None,
                 return_metrics: bool = False, generator=None,
-                keep_idx=None):
+                keep_idx=None, dropout_keep=None, row_valid=None):
         """As `xclip_tpu.model.CLIPModel.apply` for one view per side.
         `training` defaults to `return_loss`; `generator` / `keep_idx` feed
-        the patch dropout of a training forward. With `return_loss`,
+        the patch dropout of a training forward, and `generator` /
+        `dropout_keep` (a dict of each tower's per-layer keep masks, keys
+        'text' and 'visual') the dropout of custom encoders. `row_valid`
+        (b,) bool marks the rows of a padded short batch that count: the
+        others leave the contrastive loss (`clip_contrastive_loss`), so the
+        loss is the truncated batch's. With `return_loss`,
         returns the loss (and, with `return_metrics`, JAX's dict: `loss`,
         `cl_loss`, `temperature` = exp(temperature), and `text_ssl_loss`,
         `image_ssl_loss`, `multiview_cl_loss`, `sim_reg_loss`, 0 for the
@@ -143,11 +151,13 @@ class CLIPModel(nn.Module):
         if return_loss and not training:
             raise ValueError("loss cannot be used if not training")
         with contextlib.nullcontext() if training else torch.no_grad():
-            enc_text = self._encode_text(text, training)
+            keep = dropout_keep or {}
+            enc_text = self._encode_text(text, training, generator,
+                                         keep.get("text"))
             if freeze_text_encoder:
                 enc_text = enc_text.detach()
             enc_image = self._encode_image(image, training, generator,
-                                           keep_idx)
+                                           keep_idx, keep.get("visual"))
             if freeze_image_encoder:
                 enc_image = enc_image.detach()
             if return_encodings:
@@ -175,7 +185,7 @@ class CLIPModel(nn.Module):
                 tl, il, temp, decoupled_contrastive_learning=dcl,
                 text_latents_extra=tl_extra if extra else None,
                 image_latents_extra=il_extra if extra else None,
-                loss_impl=self.loss_impl)
+                row_valid=row_valid, loss_impl=self.loss_impl)
             loss = cl_loss  # cl_loss_weight 1: no MLM, visual SSL or multiview
             if return_metrics:   # JAX's keys; the features left out give 0
                 zero = torch.zeros((), dtype=torch.float32,

@@ -1,5 +1,5 @@
-"""Parameter containers and the gain-only LayerNorm — the counterparts of
-`xclip_tpu/nn/core.py`.
+"""Parameter containers, the gain-only LayerNorm and dropout — the
+counterparts of `xclip_tpu/nn/core.py`.
 
 Layout: every linear weight is stored as JAX stores it, `(in_features,
 out_features)`, and applied as `x @ w` — the transpose of `torch.nn.Linear`.
@@ -14,6 +14,14 @@ embeddings N(0, 1), LayerNorm gains 1. The numbers differ from JAX's.
 Mixed precision: a module applies its parameters cast to the dtype of the
 activation it is given (`w.to(x.dtype)`), which is what the JAX model's
 cast of every float parameter to `compute_dtype` at entry amounts to.
+
+Dropout draws from explicit generators, as JAX's `RngStream` folds a site
+counter into one key a layer: `RngStream(seed)` gives the i-th dropout
+site of a layer its own generator, seeded from (seed, i). A stream is
+built anew each time its layer runs, so a recomputing backward
+(`torch.utils.checkpoint`) draws the same masks. `RngStream(masks=...)`
+hands out injected keep masks instead (JAX's and torch's random bits
+never agree, so tests inject the masks JAX draws).
 """
 
 from __future__ import annotations
@@ -78,3 +86,27 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.g)
+
+
+class RngStream:
+    """One layer's dropout sites in order (`xclip_tpu/nn/core.py:22-41`):
+    the i-th `keep(shape, rate, device)` is the i-th site's keep mask,
+    Bernoulli(1 − rate) drawn from a generator seeded from (seed, i), or
+    the i-th of the injected `masks`."""
+
+    def __init__(self, seed: int | None = None, masks=None):
+        self.seed, self.masks, self.count = seed, masks, 0
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        i, self.count = self.count, self.count + 1
+        if self.masks is not None:
+            return self.masks[i].to(device)
+        g = torch.Generator(device).manual_seed(hash((self.seed, i)) % 2 ** 63)
+        return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+
+
+def dropout(x, rate: float, rngs: RngStream):
+    """`where(keep, x / (1 − rate), 0)` in x's dtype, keep from `rngs`
+    (`xclip_tpu/nn/core.py:97-101`)."""
+    keep = rngs.keep(x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)

@@ -34,16 +34,31 @@ Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
 Where the JAX package itself falls back to its XLA path (K6's head
-groups, the FF block's column blocks), so does the port, on every device,
-and warns once per cause as JAX's `_warn_fallback` words it;
-`transformer_routes` decides it from the shapes alone. Everywhere else a
-kernel flag takes its kernel: on the card the CUDA wrapper launches it or
-raises (`why_not` in each kernel module names the limit), and never gives
-way to the plain version; on the CPU every kernel route runs its plain
-version. A head narrower than the attention kernels' 64 runs on them
+groups, the FF block's column blocks, and in training attention or FF
+dropout, which no kernel has: the megablock, 'fused', 'flash', the FF
+block and K8 all give way), so does the port, on every device, and warns
+once per cause as JAX's `_warn_fallback` words it; `transformer_routes`
+decides it from the shapes and, in training, the dropout rates. Everywhere
+else a kernel flag takes its kernel: on the card the CUDA wrapper launches
+it or raises (`why_not` in each kernel module names the limit), and never
+gives way to the plain version; on the CPU every kernel route runs its
+plain version. A head narrower than the attention kernels' 64 runs on them
 zero-padded to 64 (`attention_megablock.pad_heads`).
-What training does not have yet (remat, dropout) raises
-`NotImplementedError` naming the module it waits for.
+
+Dropout (training only): the plain attention drops its weights after the
+softmax, the plain FF its inner activations after the inner LayerNorm;
+each layer's sites draw from a `core.RngStream` whose seed is drawn from
+the step's generator before the stack runs (one seed a layer, as JAX
+splits one key a layer), or take injected keep masks.
+
+Remat (`checkpoint_during_training` in training, `nn/layers.py:298-312`,
+`:421-424` of the JAX package): `remat_policy=None` wraps each layer's
+attention and FF in `torch.utils.checkpoint` (non-reentrant: the kernels'
+autograd Functions keep their `save_for_backward` tensors only through
+its hooks, and their forwards run again in the backward); `'dots'` does
+the same keeping the outputs of the 2-D products (`save_products`);
+`'wide'` wraps no layer, only the plain FF's middle and, without attention
+dropout, the plain attention's softmax part, as JAX does.
 The JAX stack pads a text sequence of n >= 128 to the TPU sublane tile when
 both kernels run; the port does not, since pad rows are masked keys and the
 FF block is row-wise, so real rows are unchanged and pad rows, whose
@@ -59,6 +74,8 @@ import warnings
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels import attention_block as core
 from ..kernels import fused_ff_block as _ffb
@@ -70,33 +87,38 @@ from ..kernels.fused_ff import geglu_layernorm
 from ..kernels.fused_ff_block import (ff_block, ff_block_train,
                                       ff_block_train_recompute,
                                       ff_block_train_stored_h)
-from .core import LayerNorm, Linear, layer_norm
+from .core import LayerNorm, Linear, RngStream, dropout, layer_norm
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv", "flash")
 MEGA_IMPLS = ("fused", "fused_recompute", "fused_qkv")
 FF_IMPLS = ("xla", "block", "block_stored", "fused")
 FF_BLOCK_IMPLS = ("block", "block_stored")
+REMAT_POLICIES = (None, "dots", "wide")
 
 
-def check_impls(attn_impl, ff_impl):
-    """Raise for an unknown route."""
+def check_impls(attn_impl, ff_impl, remat_policy=None):
+    """Raise for an unknown route or remat policy."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     if ff_impl not in FF_IMPLS:
         raise ValueError(f"unknown ff_impl {ff_impl!r}")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
 
 
-def check_training_routes(attn_impl, ff_impl, *, checkpoint=False,
-                          attn_dropout=0.0, ff_dropout=0.0):
-    """Raise for a training route this slice of the port does not have."""
-    if checkpoint:
-        raise NotImplementedError(
-            "checkpoint_during_training (per-block remat) is not ported yet: "
-            "ROADMAP.md Queue 1, remat")
-    if attn_dropout > 0.0 or ff_dropout > 0.0:
-        raise NotImplementedError(
-            "attention / FF dropout in training is not ported yet: "
-            "ROADMAP.md Queue 1, dropout in training")
+def save_products(ctx, op, *args, **kwargs):
+    """The `'dots'` remat policy, JAX's `dots_with_no_batch_dims_saveable`:
+    keep the outputs of 2-D products (`aten.mm`, which a 3-D × 2-D `@`
+    reaches; a batched one reaches `aten.bmm`) and recompute the rest. A
+    CUDA kernel's products run inside its library, unseen by the
+    dispatcher, so a kernel layer keeps none, as a `pallas_call` is no
+    dot."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(save_products)
 
 
 _warned_fallbacks = set()
@@ -112,28 +134,46 @@ def _warn_fallback(requested: str, reason: str):
                       f"path: {reason}", stacklevel=3)
 
 
-def attention_route(attn_impl, *, heads, dim_head):
+def attention_route(attn_impl, *, heads, dim_head, training=False,
+                    attn_dropout=0.0):
     """`Attention`'s route, as `attention_apply` takes it → (route,
     fallback): route 'fused' (K6), 'flash' (K7) or 'xla'; fallback None, or
-    (requested, reason) where JAX's own gate turns 'fused' off (K6's head
-    groups)."""
+    (requested, reason) where JAX's own gates turn the kernel off
+    (attention dropout in training for both; K6's head groups)."""
     if attn_impl in ("fused_recompute", "fused_qkv"):
         # the store/recompute distinction is the megablock's only
         attn_impl = "fused"
+    dropout_active = training and attn_dropout > 0.0
+    if attn_impl == "fused" and dropout_active:
+        return "xla", ("attn_impl='fused'",
+                       "attn_dropout > 0 in training mode (the fused "
+                       "whole-head kernel has no attention dropout)")
     if attn_impl == "fused" and not core.supported(heads, dim_head):
         return "xla", (f"attn_impl={attn_impl!r}",
                        f"heads={heads}, dim_head={dim_head} does not tile "
                        "into 128-lane head groups")
+    if attn_impl == "flash" and dropout_active:
+        return "xla", ("attn_impl='flash'",
+                       "attn_dropout > 0 in training mode (the flash kernel "
+                       "does not implement attention-weight dropout)")
     return attn_impl, None
 
 
-def ff_route(ff_impl, *, dim, inner):
+def ff_route(ff_impl, *, dim, inner, training=False, ff_dropout=0.0):
     """The FF route → (route, fallback): route 'block' (the FF block
     kernels), 'fused' (K8) or 'xla'; fallback None, or (requested, reason)
-    where JAX's own gate turns the FF block off (its column blocks,
-    `fused_ff_block.supported`)."""
+    where JAX's own gates turn the kernel off (FF dropout in training for
+    both; the FF block's column blocks, `fused_ff_block.supported`)."""
+    dropout_active = training and ff_dropout > 0.0
+    if ff_impl == "fused" and dropout_active:
+        return "xla", ("ff_impl='fused'",
+                       "ff_dropout > 0 in training mode (the fused GEGLU+LN "
+                       "kernel has no dropout epilogue)")
     if ff_impl not in FF_BLOCK_IMPLS:
         return ff_impl, None
+    if dropout_active:
+        return "xla", (f"ff_impl={ff_impl!r}",
+                       "ff_dropout active in training mode")
     if not _ffb.supported(dim, inner):
         return "xla", (f"ff_impl={ff_impl!r}",
                        f"inner width {inner} has no usable column block "
@@ -142,20 +182,25 @@ def ff_route(ff_impl, *, dim, inner):
 
 
 def transformer_routes(attn_impl, ff_impl, *, dim, heads, dim_head, inner,
-                       rotary):
+                       rotary, training=False, attn_dropout=0.0,
+                       ff_dropout=0.0):
     """The routes `Transformer.forward` takes → (attn, ff, fallbacks): attn
-    'mega' (the megablock: a megablock flag and no rotary embedding) or
-    `attention_route`'s; ff `ff_route`'s; fallbacks the (requested, reason)
-    of each kernel route that JAX's gates turn off. A pure function of the
-    shapes, the same on every device."""
+    'mega' (the megablock: a megablock flag, no rotary embedding and no
+    attention dropout in training) or `attention_route`'s; ff `ff_route`'s;
+    fallbacks the (requested, reason) of each kernel route that JAX's gates
+    turn off. A function of the shapes and, in training, of the dropout
+    rates, the same on every device."""
     fallbacks = []
-    if attn_impl in MEGA_IMPLS and not rotary:
+    if (attn_impl in MEGA_IMPLS and not rotary
+            and not (training and attn_dropout > 0.0)):
         attn = "mega"
     else:
-        attn, fallback = attention_route(attn_impl, heads=heads,
-                                         dim_head=dim_head)
+        attn, fallback = attention_route(
+            attn_impl, heads=heads, dim_head=dim_head, training=training,
+            attn_dropout=attn_dropout)
         fallbacks += [fallback] if fallback else []
-    ff, fallback = ff_route(ff_impl, dim=dim, inner=inner)
+    ff, fallback = ff_route(ff_impl, dim=dim, inner=inner, training=training,
+                            ff_dropout=ff_dropout)
     fallbacks += [fallback] if fallback else []
     return attn, ff, fallbacks
 
@@ -178,10 +223,20 @@ def patch_dropout(x, prob, *, generator=None, keep_idx=None):
     return torch.gather(x, 1, idx), keep_idx
 
 
+def ff_middle(x, w, g):
+    """w_in (as two half products) → GEGLU (exact GELU) → inner LayerNorm:
+    the inner-width part of the plain FF, which `'wide'` remat recomputes
+    (`_ff_middle`)."""
+    inner = w.shape[-1] // 2
+    v, gate = x @ w[:, :inner], x @ w[:, inner:]
+    return layer_norm(v * F.gelu(gate), g)
+
+
 class FeedForward(nn.Module):
     """PreNorm → w_in → GEGLU (exact GELU) → inner LayerNorm → w_out;
     with `ff_impl='fused'` the middle is K8 (fp32 GEGLU and statistics,
-    the output rounded once), otherwise plain PyTorch."""
+    the output rounded once), otherwise plain PyTorch, dropping its inner
+    activations at `rate` from `rngs`."""
 
     def __init__(self, dim: int, mult: int = 4, *, generator=None,
                  dtype=torch.float32):
@@ -192,15 +247,20 @@ class FeedForward(nn.Module):
         self.inner_norm = LayerNorm(inner, dtype=dtype)
         self.w_out = Linear(inner, dim, generator=generator, dtype=dtype)
 
-    def forward(self, x, ff_impl="xla"):
+    def forward(self, x, ff_impl="xla", *, rate=0.0, rngs=None,
+                remat_wide=False):
         x = self.norm(x)
         w = self.w_in.w.to(x.dtype)
         if ff_impl == "fused":
             x = geglu_layernorm(x @ w, self.inner_norm.g.to(x.dtype))
         else:
-            inner = w.shape[-1] // 2
-            v, gate = x @ w[:, :inner], x @ w[:, inner:]
-            x = layer_norm(v * F.gelu(gate), self.inner_norm.g)
+            if remat_wide:
+                x = checkpoint(ff_middle, x, w, self.inner_norm.g,
+                               use_reentrant=False)
+            else:
+                x = ff_middle(x, w, self.inner_norm.g)
+            if rate:
+                x = dropout(x, rate, rngs)
         return self.w_out(x)
 
 
@@ -256,9 +316,12 @@ class Attention(nn.Module):
             _warn_fallback(*fallback)
         return self.run(x, mask, causal, rotary, route)
 
-    def run(self, x, mask, causal, rotary, route):
+    def run(self, x, mask, causal, rotary, route, *, rate=0.0, rngs=None,
+            remat_wide=False):
         """The layer on a route `attention_route` has resolved: 'fused',
-        'flash' or 'xla'."""
+        'flash' or 'xla' (which drops its attention weights at `rate` from
+        `rngs`, and under `remat_wide` without dropout recomputes its
+        softmax part in the backward)."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         scale = d ** -0.5
@@ -281,14 +344,18 @@ class Attention(nn.Module):
             q, k, v = (apply_rotary_pos_emb(rotary, t) for t in (q, k, v))
         if route == "flash":
             out = flash_attention(q, k, v, mask=mask, causal=causal)
+        elif remat_wide and not rate:
+            out = checkpoint(self._attend, q, k, v, mask, causal,
+                             use_reentrant=False)
         else:
-            out = self._attend(q, k, v, mask, causal)
+            out = self._attend(q, k, v, mask, causal, rate, rngs)
         out = out.transpose(1, 2).reshape(b, n, h * d)
         return self.out_norm(self.to_out(out))
 
     @staticmethod
-    def _attend(q, k, v, mask, causal):
-        """The 'xla' route's softmax(q·kᵀ)·v on (b, h, n, d), q pre-scaled."""
+    def _attend(q, k, v, mask, causal, rate=0.0, rngs=None):
+        """The 'xla' route's softmax(q·kᵀ)·v on (b, h, n, d), q pre-scaled,
+        the weights dropped at `rate` after the softmax."""
         n = q.shape[2]
         sim = q @ k.transpose(-1, -2)
         big_neg = -torch.finfo(sim.dtype).max
@@ -304,6 +371,8 @@ class Attention(nn.Module):
             shifted = (sim - sim.amax(dim=-1, keepdim=True)).float()
             denom = shifted.exp().sum(dim=-1, keepdim=True).log()
             attn = (shifted - denom).exp().to(sim.dtype)
+        if rate:
+            attn = dropout(attn, rate, rngs)
         return attn @ v
 
 
@@ -333,23 +402,26 @@ class Transformer(nn.Module):
 
     def forward(self, x, mask=None, *, causal=False, rotary=None,
                 attn_impl="xla", ff_impl="xla", training=False,
-                checkpoint_during_training=False, attn_dropout=0.0,
-                ff_dropout=0.0):
+                checkpoint_during_training=False, remat_policy=None,
+                attn_dropout=0.0, ff_dropout=0.0, generator=None,
+                dropout_keep=None):
         """`rotary`: (n, rot_dim) fp32 frequencies (`rotary_freqs`) or
         None. `training` selects the kernels' training routes (K2 or K3; K1,
-        K1-h or the recompute FF block; K8 with its backward); otherwise
-        the lean inference forwards run, which take no gradient (K8 serves
-        both)."""
-        check_impls(attn_impl, ff_impl)
-        if training:
-            check_training_routes(
-                attn_impl, ff_impl, checkpoint=checkpoint_during_training,
-                attn_dropout=attn_dropout, ff_dropout=ff_dropout)
+        K1-h or the recompute FF block; K8 with its backward), dropout and
+        remat; otherwise the lean inference forwards run, which take no
+        gradient (K8 serves both). Dropout seeds, one a layer, are drawn
+        from `generator` (None: PyTorch's default generator);
+        `dropout_keep` injects the keep masks instead: for each layer, its
+        sites' masks in order (attention, then FF)."""
+        check_impls(attn_impl, ff_impl, remat_policy)
+        attn_rate = attn_dropout if training else 0.0
+        ff_rate = ff_dropout if training else 0.0
         attn_route, ffn_route, fallbacks = transformer_routes(
             attn_impl, ff_impl, dim=x.shape[-1], heads=self.heads,
             dim_head=self.dim_head,
             inner=self.layers[0].ff.inner_norm.g.shape[0] if self.layers
-            else 0, rotary=rotary is not None)
+            else 0, rotary=rotary is not None, training=training,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout)
         for fallback in fallbacks:
             _warn_fallback(*fallback)
         use_mega = attn_route == "mega"
@@ -365,24 +437,52 @@ class Transformer(nn.Module):
                 ffb = ff_block_train_stored_h
             else:
                 ffb = ff_block_train
-        dt = x.dtype
+        streams = [None] * len(self.layers)
+        if dropout_keep is not None:
+            streams = [dict(masks=m) for m in dropout_keep]
+        elif attn_rate or ff_rate:
+            # one seed a layer, fixed before the stack, so that a
+            # recomputing backward draws the same masks
+            seeds = torch.randint(
+                2 ** 62, (len(self.layers),), generator=generator,
+                device=generator.device if generator is not None else "cpu")
+            streams = [dict(seed=s) for s in seeds.tolist()]
+        remat = training and checkpoint_during_training
+        wide = remat and remat_policy == "wide"
         x = self.norm_in(x)
         if use_mega:
             key_mask = (mask if mask is not None else
                         torch.ones(x.shape[:2], dtype=torch.bool,
                                    device=x.device))
-        for layer in self.layers:
+
+        def block(x, layer, stream):
+            """One layer, attention then FF; its weight casts and dropout
+            stream inside, where a recompute repeats them."""
             a, f = layer.attn, layer.ff
+            dt = x.dtype
+            rngs = RngStream(**stream) if stream else None
             if use_mega:
                 x = mega(
                     x, a.norm.g.to(dt), a.to_qkv.w.to(dt), a.to_out.w.to(dt),
                     a.out_norm.g.to(dt), key_mask, self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
-                x = a.run(x, mask, causal, rotary, attn_route) + x
+                x = a.run(x, mask, causal, rotary, attn_route, rate=attn_rate,
+                          rngs=rngs, remat_wide=wide) + x
             if use_ffb:
-                x = ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
-                        f.inner_norm.g.to(dt), f.w_out.w.to(dt))
+                return ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
+                           f.inner_norm.g.to(dt), f.w_out.w.to(dt))
+            return f(x, ffn_route, rate=ff_rate, rngs=rngs,
+                     remat_wide=wide) + x
+
+        for layer, stream in zip(self.layers, streams):
+            if remat and not wide:
+                # the masks come from the layer's own seeds, so the default
+                # generators' states need no saving
+                x = checkpoint(block, x, layer, stream, use_reentrant=False,
+                               preserve_rng_state=False,
+                               **({"context_fn": _dots_context}
+                                  if remat_policy == "dots" else {}))
             else:
-                x = f(x, ffn_route) + x
+                x = block(x, layer, stream)
         return self.norm_out(x)

@@ -3,7 +3,8 @@ EITHER a learned absolute position embedding OR rotary embeddings
 (`rotary_freqs(n + 1, min(dim_head, 32))` with the CLS at position 0; for
 the n tokens alone when causal), a learned CLS token prepended only when
 not causal (the padding mask extended by a leading True), the transformer
-stack. Returns the full (b, n[+1], dim) sequence."""
+stack (with its dropout and remat in training). Returns the full
+(b, n[+1], dim) sequence."""
 
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ class TextTransformer(nn.Module):
                  rotary_pos_emb: bool = False, causal: bool = False,
                  ff_mult: int = 4, ff_impl: str = "xla", *,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
-                 checkpoint_during_training: bool = False, generator=None,
+                 checkpoint_during_training: bool = False,
+                 remat_policy: str | None = None, generator=None,
                  dtype=torch.float32):
         super().__init__()
         self.dim, self.ff_impl = dim, ff_impl
@@ -29,7 +31,8 @@ class TextTransformer(nn.Module):
         self.rotary_pos_emb = rotary_pos_emb
         self.train_flags = dict(
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-            checkpoint_during_training=checkpoint_during_training)
+            checkpoint_during_training=checkpoint_during_training,
+            remat_policy=remat_policy)
         self.token_emb = Embedding(num_tokens, dim, generator=generator,
                                    dtype=dtype)
         self.abs_pos_emb = None if rotary_pos_emb else Embedding(
@@ -44,9 +47,11 @@ class TextTransformer(nn.Module):
                                        generator=generator, dtype=dtype)
 
     def forward(self, x, mask=None, *, attn_impl: str = "xla", dtype=None,
-                training: bool = False):
+                training: bool = False, generator=None, dropout_keep=None):
         """x: (b, n) token ids; mask: (b, n) bool or None. `dtype` is the
-        compute dtype (default: the parameters')."""
+        compute dtype (default: the parameters'). In training, `generator`
+        and `dropout_keep` feed the stack's dropout
+        (`Transformer.forward`)."""
         b, n = x.shape
         dtype = dtype or self.token_emb.emb.dtype
         h = self.token_emb(x).to(dtype)
@@ -64,4 +69,7 @@ class TextTransformer(nn.Module):
         return self.transformer(h, mask, causal=self.causal, rotary=rotary,
                                 attn_impl=attn_impl, ff_impl=self.ff_impl,
                                 training=training,
-                                **(self.train_flags if training else {}))
+                                **(dict(self.train_flags,
+                                        generator=generator,
+                                        dropout_keep=dropout_keep)
+                                   if training else {}))

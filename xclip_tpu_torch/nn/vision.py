@@ -24,7 +24,8 @@ class VisionTransformer(nn.Module):
                  depth: int = 6, heads: int = 8, dim_head: int = 64,
                  ff_mult: int = 4, ff_impl: str = "xla", *,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
-                 checkpoint_during_training: bool = False, generator=None,
+                 checkpoint_during_training: bool = False,
+                 remat_policy: str | None = None, generator=None,
                  dtype=torch.float32):
         super().__init__()
         if image_size % patch_size:
@@ -34,7 +35,8 @@ class VisionTransformer(nn.Module):
         self.patch_dropout = patch_dropout
         self.train_flags = dict(
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-            checkpoint_during_training=checkpoint_during_training)
+            checkpoint_during_training=checkpoint_during_training,
+            remat_policy=remat_policy)
         num_patches = (image_size // patch_size) ** 2
         self.patch_proj = Linear(channels * patch_size ** 2, dim, bias=True,
                                  generator=generator, dtype=dtype)
@@ -53,10 +55,12 @@ class VisionTransformer(nn.Module):
         return x.reshape(b, (H // p) * (W // p), p * p * c)
 
     def forward(self, x, *, attn_impl: str = "xla", training: bool = False,
-                generator=None, keep_idx=None):
+                generator=None, keep_idx=None, dropout_keep=None):
         """In training with patch dropout, `keep_idx` ((b, kept) patch
         indices) injects the kept patches; otherwise they are drawn from
-        `generator` (see `layers.patch_dropout`)."""
+        `generator` (see `layers.patch_dropout`), which then feeds the
+        stack's dropout, or `dropout_keep` its masks
+        (`Transformer.forward`)."""
         patches = self.patchify(x)
         n = patches.shape[1]
         if training and self.patch_dropout > 0.0:
@@ -70,6 +74,8 @@ class VisionTransformer(nn.Module):
         tokens = tokens + pos.to(tokens.dtype)
         out = self.transformer(tokens, attn_impl=attn_impl,
                                ff_impl=self.ff_impl, training=training,
-                               **(self.train_flags if training else {}))
+                               **(dict(self.train_flags, generator=generator,
+                                       dropout_keep=dropout_keep)
+                                  if training else {}))
         cls = self.to_cls(out.mean(dim=1))
         return torch.cat([cls[:, None], out], dim=1)

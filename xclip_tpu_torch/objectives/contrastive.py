@@ -19,10 +19,17 @@ mains when there are no extra heads). The rows are multiplied by the
 temperature before the kernel, so its gradient flows by autograd; DCL
 drops the diagonal inside the kernel.
 
+`row_valid` (b,) bool, the pad-and-mask option for a final short batch
+(`xclip_tpu/objectives/contrastive.py:251-262`): invalid columns leave
+every denominator, invalid rows the mean, which divides by the count of
+valid rows, so a padded batch scores as the truncated batch of its valid
+rows. On one device the columns' mask is the rows'. Only the dense loss
+takes it (`loss_impl='xla'`), as in JAX.
+
 Not ported yet (each raises `NotImplementedError` naming ROADMAP.md
 Queue 1, the objectives and heads): multiview (more than one view), FILIP
-token matching, similarity regularisation, the `row_valid` pad-and-mask
-option. The cross-device paths are Queue 1, the row-sharded loss.
+token matching, similarity regularisation. The cross-device paths are
+Queue 1, the row-sharded loss.
 """
 
 from __future__ import annotations
@@ -37,20 +44,29 @@ def _not_ported(what):
                               "Queue 1, the objectives and heads")
 
 
-def infonce_from_sims(text_to_image, image_to_text, decoupled: bool):
+def infonce_from_sims(text_to_image, image_to_text, decoupled: bool,
+                      valid=None):
     """(b, b) paired similarity matrices (already × temp) → scalar CL loss
-    (`_infonce_from_sims` for one view pair)."""
+    (`_infonce_from_sims` for one view pair); `valid` (b,) bool as
+    `row_valid`. The positives are taken before any masking."""
     b = text_to_image.shape[-1]
     t2i_pos = text_to_image.diagonal(dim1=-2, dim2=-1)
     i2t_pos = image_to_text.diagonal(dim1=-2, dim2=-1)
+    neg = torch.finfo(text_to_image.dtype).min
     if decoupled:
         eye = torch.eye(b, dtype=torch.bool, device=text_to_image.device)
-        neg = torch.finfo(text_to_image.dtype).min
         text_to_image = text_to_image.masked_fill(eye, neg)
         image_to_text = image_to_text.masked_fill(eye, neg)
-    t2i = (-t2i_pos + torch.logsumexp(text_to_image, dim=-1)).mean(dim=-1)
-    i2t = (-i2t_pos + torch.logsumexp(image_to_text, dim=-1)).mean(dim=-1)
-    return (t2i + i2t) / 2
+    if valid is not None:
+        text_to_image = torch.where(valid[None, :], text_to_image, neg)
+        image_to_text = torch.where(valid[None, :], image_to_text, neg)
+    t2i = -t2i_pos + torch.logsumexp(text_to_image, dim=-1)
+    i2t = -i2t_pos + torch.logsumexp(image_to_text, dim=-1)
+    if valid is None:
+        return (t2i.mean(dim=-1) + i2t.mean(dim=-1)) / 2
+    w = valid.to(t2i.dtype)
+    count = w.sum()
+    return ((t2i * w).sum(dim=-1) / count + (i2t * w).sum(dim=-1) / count) / 2
 
 
 def _fused_infonce(rows_lat, cols_lat, temp, decoupled):
@@ -76,8 +92,11 @@ def clip_contrastive_loss(text_latents, image_latents, temp, *,
         _not_ported("FILIP (use_all_token_embeds)")
     if sim_reg:
         _not_ported("similarity regularisation (sim_reg_loss_weight > 0)")
+    if row_valid is not None and loss_impl == "fused":   # JAX's assertion
+        raise AssertionError("row_valid requires the plain InfoNCE loss "
+                             "(loss_impl='xla', no FILIP, no sim_reg)")
     if row_valid is not None:
-        _not_ported("the row_valid pad-and-mask option")
+        row_valid = row_valid.to(text_latents.device, torch.bool)
     if loss_impl == "fused":
         if text_latents_extra is None:
             text_latents_extra, image_latents_extra = (text_latents,
@@ -94,4 +113,5 @@ def clip_contrastive_loss(text_latents, image_latents, temp, *,
         i2t = image_latents_extra @ text_latents_extra.T * temp
     else:
         i2t = t2i.T
-    return infonce_from_sims(t2i, i2t, decoupled_contrastive_learning)
+    return infonce_from_sims(t2i, i2t, decoupled_contrastive_learning,
+                             row_valid)

@@ -1,5 +1,5 @@
 """The train step — the counterpart of `xclip_tpu/train/trainer.py`'s
-`make_train_step` (`grad_accum=1`, `valid=None`) and `default_optimizer`.
+`make_train_step` and `default_optimizer`.
 
 `default_optimizer` is optax's chain `clip_by_global_norm(max_grad_norm)`
 → `adamw(schedule, b1, b2, eps=1e-8, weight_decay)` written out in
@@ -19,14 +19,25 @@ PyTorch, operation for operation:
 A parameter that receives no gradient (an unused extra latent head) is
 updated with a zero gradient, as JAX differentiates every leaf.
 
+The optimizer's step count (`AdamW.count`, which optax keeps in its state)
+is part of `AdamW.state_dict()`, so a restored optimizer resumes the
+schedule and the bias corrections where they were.
+
 The step runs eagerly on the parameters' device and returns the metrics as
 0-d tensors (no host sync): the model's metrics (JAX's seven keys) and
-`grad_norm` (before the clip).
+`grad_norm` (before the clip). `grad_accum > 1` splits the batch into that
+many microbatches, each with its own forward and backward (activation
+memory is one microbatch's, as under JAX's `lax.scan`); the gradients
+accumulate in the parameters' dtype in microbatch order, as JAX sums them
+from zeros, and are divided by `grad_accum` once, at the end, as are the
+metrics; `grad_norm` is the averaged gradients'. `valid=` is the loader's
+pad-and-mask (`CLIPModel.forward`'s `row_valid`).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
 import torch
@@ -88,6 +99,22 @@ class AdamW(torch.optim.Optimizer):
         self.count = t
         return norm
 
+    def state_dict(self):
+        """`torch.optim.Optimizer.state_dict()` and the step count."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+        # the moments keep their own dtype, which `Optimizer` would cast to
+        # the parameter's: a 0-d bf16 parameter's are fp32, as its clipped
+        # gradient is (times the fp32 0-d clip factor)
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, saved in state_dict["state"].items():
+            for k, v in saved.items():
+                self.state[params[i]][k] = v.to(params[i].device, copy=True)
+
     def _update(self, group, ps, gs, t):
         """One AdamW update of `ps` in place, in optax's operation order;
         multi-tensor (`torch._foreach_*`) so a step costs a few launches,
@@ -131,26 +158,59 @@ def default_optimizer(params, learning_rate: float = 3e-4,
 
 def make_train_step(model, optimizer, *, grad_accum: int = 1):
     """Returns `step(text, image, generator=None, keep_idx=None, valid=None)
-    -> metrics`: one forward with the contrastive loss, its backward, and
-    one optimizer update of `model` (a `CLIP` or a `CLIPModel`) in place.
-    `generator` / `keep_idx` feed the patch dropout (default: the `CLIP`'s
-    call generator)."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 is not ported yet: ROADMAP.md Queue 1, "
-            "grad_accum and valid=")
+    -> metrics`: the forward with the contrastive loss and its backward
+    (once, or once a microbatch), and one optimizer update of `model` (a
+    `CLIP` or a `CLIPModel`) in place. `generator` feeds the patch dropout
+    and any encoder dropout (default: the `CLIP`'s call generator; a
+    microbatch draws after the one before it), `keep_idx` injects the
+    patch indices (a microbatch takes its rows); `valid` (b,) bool marks
+    the rows of a padded short batch that count."""
+    if grad_accum > 1:
+        # the contrastive objective is NOT invariant to this split
+        warnings.warn(
+            f"grad_accum={grad_accum}: each microbatch sees only its OWN "
+            f"1/{grad_accum} of the batch as contrastive negatives. This "
+            "is a materially different (easier) InfoNCE objective than one "
+            "full-batch step — if you wanted more negatives, raise the "
+            "batch size or shard the loss over more chips instead. "
+            "(See the make_train_step docstring.)",
+            stacklevel=2)
 
-    def step(text, image, generator=None, keep_idx=None, valid=None):
-        if valid is not None:
-            raise NotImplementedError(
-                "valid= (pad-and-mask of a short batch) is not ported yet: "
-                "ROADMAP.md Queue 1, grad_accum and valid=")
-        optimizer.zero_grad(set_to_none=True)
+    def forward_backward(text, image, generator, keep_idx, valid):
         loss, metrics = model(text, image, return_loss=True,
                               return_metrics=True, generator=generator,
-                              keep_idx=keep_idx)
+                              keep_idx=keep_idx, row_valid=valid)
         loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def step(text, image, generator=None, keep_idx=None, valid=None):
+        optimizer.zero_grad(set_to_none=True)
+        if grad_accum == 1:
+            metrics = forward_backward(text, image, generator, keep_idx,
+                                       valid)
+        else:   # JAX's assertions, in its words
+            if valid is not None:
+                raise AssertionError(
+                    "pad-and-mask (valid=) is not supported with grad_accum "
+                    "> 1: a microbatch could end up fully padded (0/0 loss)."
+                    " Drop the final short batch instead.")
+            if text.shape[0] % grad_accum:
+                raise AssertionError(
+                    f"batch size {text.shape[0]} must divide evenly into "
+                    f"grad_accum={grad_accum} microbatches (no silent drops)")
+            mb = text.shape[0] // grad_accum
+            metrics = None
+            for i in range(grad_accum):
+                rows = slice(i * mb, (i + 1) * mb)
+                m = forward_backward(
+                    text[rows], image[rows], generator,
+                    None if keep_idx is None else keep_idx[rows], None)
+                metrics = m if metrics is None else {
+                    k: metrics[k] + v for k, v in m.items()}
+            grads = [p.grad for g in optimizer.param_groups
+                     for p in g["params"] if p.grad is not None]
+            torch._foreach_div_(grads, grad_accum)
+            metrics = {k: v / grad_accum for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.step()
         return metrics
 

@@ -1,8 +1,12 @@
-"""Small numeric helpers — the counterparts of `xclip_tpu/utils/__init__.py`."""
+"""Small numeric helpers and the debugging and profiling hooks — the
+counterparts of `xclip_tpu/utils/`."""
 
 from __future__ import annotations
 
 import torch
+
+from .debug import assert_finite, debug_nans  # noqa: F401
+from .profiling import annotate, step_timer, trace  # noqa: F401
 
 
 def cast_tuple(t):
