@@ -21,7 +21,8 @@ csrc/row_kernels.cuh, held alone in phase 20; a shape past the CUDA
 kernels raises ValueError naming the limit (phase 21), and only the JAX
 package's own gates send a flag to the plain path, with JAX's warning;
 remat, grad_accum, valid=, checkpoint and resume, and dropout train the
-flagship (phase 22). One
+flagship (phase 22); every objective of the JAX `CLIP` (MLM, SimSiam and
+SimCLR, multiview, sim-reg, FILIP, downsampling) trains it (phase 23). One
 line per phase; any failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
@@ -227,6 +228,35 @@ line per phase; any failure exits non-zero, and nothing is caught.
              1 - 0.1 within 4 sigma, remat None with the same seeds bit for
              bit; pairs/s. Every timed configuration also prints its idle
              share and device time over one profiled step.
+ 23 objectives  every objective on the flagship, bf16, seed 0, b = 256:
+             (a) the reference README's full configuration (use_mlm,
+             use_visual_ssl (SimSiam), DCL, the extra heads, sim-reg 0.1,
+             loss_impl='fused') with a second caption and the port's
+             default_augment of the batch as the augmented views, on the
+             stored routes in both towers (K2, K1; K-MEGA and K-FF for the
+             SimSiam targets' no_grad passes; K5 over the 2 x 2 view
+             pairs): the first step's metrics in their ranges (CL and
+             multiview near ln 255, MLM near ln 10000, SimSiam in [0, 8])
+             and the BatchNorm statistics folded, the same step from the
+             same weights and draws on the plain routes (under remat,
+             which is bit for bit) within 0.05 or two bf16 ulps; 2 warm-up
+             and 5 timed steps, pairs/s, peak memory, launches a step (K2
+             and K1 30, K-MEGA and K-FF 12, K5 8 + 8), the idle share and
+             top kernels of one profiled step; a target pass (fp32 and
+             bf16 views) on the inference forwards bit for bit the
+             training forwards'; (b) the same on the memory-lean routes
+             (K3, K-FF-s, their backwards 30 a step); (c) SimCLR, one
+             step, its statistics folded; (d) FILIP with the extra heads,
+             dense and in blocks of 32 columns: losses within bf16
+             rounding, the blocked peak below the dense; (e)
+             downsample_image_embeds without patch dropout: (64, 256, 16)
+             scores and a step; (f) grad_accum=2 with SimSiam: the
+             statistics after the step bit for bit the second
+             microbatch's fold alone; (g) the tiny CLIP with every
+             objective that combines, fp32, on the kernel routes, one step
+             against `tests/data/torch_port_golden_objectives.npz`
+             (metrics 1e-5, gradients 1e-3 of the leaf's magnitude + 1e-5,
+             parameters 1e-5, statistics 1e-6 + 1e-5 relative).
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -3156,6 +3186,388 @@ def train_surface(card, CLIP, default_optimizer, make_train_step, ffb, mega,
     phase(22, "train-surface", f"{card}: " + "; ".join(lines))
 
 
+# ------------------------------------------------------------------- 23
+GOLDEN_OBJECTIVES = GOLDEN.with_name("torch_port_golden_objectives.npz")
+# the reference README's full configuration: every objective that combines
+OBJECTIVE_FLAGS = dict(use_mlm=True, use_visual_ssl=True,
+                       decoupled_contrastive_learning=True,
+                       extra_latent_projection=True, sim_reg_loss_weight=0.1,
+                       loss_impl="fused")
+# the kernel routes in both towers: stored (K2, K1) and memory-lean (K3,
+# K-FF-s with the recompute backward); the plain routes everywhere
+STORED_BOTH = dict(attn_impl="fused", visual_attn_impl=None,
+                   ff_impl="block_stored")
+LEAN_BOTH = dict(attn_impl="fused_recompute", visual_attn_impl=None,
+                 ff_impl="block")
+PLAIN_BOTH = dict(attn_impl="xla", visual_attn_impl=None, ff_impl="xla")
+METRIC_KEYS = ("loss", "cl_loss", "text_ssl_loss", "image_ssl_loss",
+               "multiview_cl_loss", "sim_reg_loss", "temperature")
+
+
+def objective_draws(model, gen, text, views=2, ssl_passes=4):
+    """Every draw of one training forward of `model` (a `CLIP`) on `text`
+    and its images, from `gen`: the main vision pass's patch indices over
+    `views` image views, the MLM's and the visual SSL's draws."""
+    from xclip_tpu_torch.objectives.augment import augment_draws
+    core = model.model
+    b, patches = text.shape[0], core.visual.num_patches
+    kept = max(1, int(patches * (1 - core.visual.patch_dropout)))
+
+    def keep(rows):
+        return torch.rand(rows, patches, generator=gen,
+                          device="cuda").topk(kept, dim=-1).indices
+
+    d = {"keep_idx": keep(b * views)}
+    if core.mlm is not None:
+        d["mlm_draws"] = core.mlm.draws(text, gen)
+    if core.visual_ssl is not None:
+        d["ssl_draws"] = {"augment": [augment_draws(gen) for _ in range(2)],
+                          "keep_idx": [keep(b) for _ in range(ssl_passes)]}
+    return d
+
+
+def bf16_tol(v):
+    """0.05, or two bf16 ulps at |v| where that is more (a loss returned
+    in bf16, as the MLM's is)."""
+    return max(0.05, 2 * 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30)))
+                                 - 7))
+
+
+def check_objective_metrics(label, m, b):
+    """The first step's metrics at init: all finite; the CL and multiview
+    losses within 0.5 of ln(b − 1) (DCL drops the positive), the MLM loss
+    within 1.5 of ln 10000, SimSiam's 2 − 2cos pair sum in [0, 8], sim-reg
+    in [0, 4]."""
+    v = {k: m[k].float().item() for k in METRIC_KEYS}
+    if not all(math.isfinite(x) for x in v.values()):
+        fail(f"{label}: a metric is not finite: {v}")
+    ln = math.log(b - 1)
+    checks = {"cl_loss": abs(v["cl_loss"] - ln) <= 0.5,
+              "multiview_cl_loss": abs(v["multiview_cl_loss"] - ln) <= 0.5,
+              "text_ssl_loss": abs(v["text_ssl_loss"] - math.log(1e4)) <= 1.5,
+              "image_ssl_loss": 0.0 <= v["image_ssl_loss"] <= 8.0,
+              "sim_reg_loss": 0.0 <= v["sim_reg_loss"] <= 4.0}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"{label}: {bad} out of range: {v}")
+    return v
+
+
+def bn_buffers(model):
+    return {n: t.clone() for n, t in model.state_dict().items()
+            if n.endswith((".mean", ".var"))}
+
+
+def objectives_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
+                      make_train_step, counters):
+    """The tiny CLIP with every objective that combines, fp32, on the
+    kernel routes in both towers, one step against the JAX golden: the
+    loss and each metric 1e-5, every gradient 1e-3 of the leaf's largest
+    magnitude + 1e-5, the parameters after the step 1e-5 (phase 7's rule),
+    the BatchNorm statistics 1e-6 + 1e-5 relative. → a summary line."""
+    from xclip_tpu_torch.convert import to_jax_tree
+    from xclip_tpu_torch.objectives.ssl import SimSiam
+    g = np.load(GOLDEN_OBJECTIVES)
+    config = json.loads(str(g["config"]))
+    ssl = SimSiam(**json.loads(str(g["ssl"])))
+    tiny = CLIP(**config, visual_ssl=ssl, device="cuda")
+    load_jax_params(tiny, numpy_params({**config, "visual_ssl": ssl},
+                                       int(g["seed"])))
+
+    def dev(k):
+        return torch.from_numpy(g[k]).cuda()
+
+    draws = dict(keep_idx=dev("keep_idx"),
+                 mlm_draws={k[4:]: dev(k) for k in g.files
+                            if k.startswith("mlm/")},
+                 ssl_draws={"augment": json.loads(str(g["ssl_augment"])),
+                            "keep_idx": [dev(f"ssl_keep_idx/{i}")
+                                         for i in range(4)]})
+    step = make_train_step(tiny, default_optimizer(
+        tiny.parameters(), **json.loads(str(g["train_optimizer"]))))
+    zero_counts(counters)
+    metrics = step(dev("text"), dev("images"), aug_text=dev("aug_text"),
+                   aug_image=dev("aug_images"), **draws)
+    torch.cuda.synchronize()
+    idle = [k for k, v in read_counts(counters).items() if not v]
+    if idle:
+        fail(f"objectives golden: {idle} never launched")
+    metric_err = max(abs(metrics[k].item() - float(g[f"metric/{k}"]))
+                     for k in METRIC_KEYS)
+    norm_err = abs(metrics["grad_norm"].item() - float(g["train_grad_norm"]))
+    if not (metric_err <= 1e-5 and norm_err <= 1e-4):
+        fail(f"objectives golden: metric err {metric_err:.3e}, grad norm "
+             f"err {norm_err:.3e}")
+    grad_worst = param_worst = bn_worst = 0.0
+    for name, got in _flat(to_jax_tree(tiny, grads=True)):
+        want = g[f"grad/{name}"]
+        err = float(np.abs(got - want).max())
+        if not err <= 1e-3 * float(np.abs(want).max()) + 1e-5:
+            fail(f"objectives golden: gradient {name} differs by {err:.3e}")
+        grad_worst = max(grad_worst, err)
+    for name, got in _flat(to_jax_tree(tiny)):
+        want = g[f"param1/{name}"]
+        err = float(np.abs(got - want).max())
+        if name.endswith(("/mean", "/var")):
+            if not err <= 1e-6 + 1e-5 * float(np.abs(want).max()):
+                fail(f"objectives golden: statistic {name} differs by "
+                     f"{err:.3e}")
+            bn_worst = max(bn_worst, err)
+        elif not err <= 1e-5:
+            fail(f"objectives golden: parameter {name} differs by {err:.3e}")
+        else:
+            param_worst = max(param_worst, err)
+    return (f"golden (fp32, kernel routes, MLM + SimSiam + multiview + "
+            f"sim-reg + DCL + extra + K5) metrics err {metric_err:.3e} (tol "
+            f"1e-5), max grad err {grad_worst:.3e}, params after the step "
+            f"{param_worst:.3e} (tol 1e-5), BN statistics {bn_worst:.3e}")
+
+
+def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+               lse5, load_jax_params, numpy_params, b=256, warm=2, timed=5):
+    """Phase 23: every objective on the flagship, bf16, b = 256 (see the
+    module docstring)."""
+    from xclip_tpu_torch.objectives.augment import default_augment
+    from xclip_tpu_torch.objectives.ssl import get_representation
+    few = min(64, b)
+    gen = step_gen(23)
+    text, aug_text = texts(gen, b), texts(gen, b)
+    images = rand(gen, b, 3, 256, 256, dtype=torch.bfloat16)
+    # the batch's own dtype, as a user passes it (an fp32 view would
+    # promote the batch, as jnp.concatenate does)
+    aug_images = default_augment(images, 256, generator=gen).bfloat16()
+    views = dict(aug_text=aug_text, aug_image=aug_images)
+    lines = []
+
+    def build(routes, **flags):
+        return CLIP(**{**FLAGSHIP, **flags}, **routes,
+                    param_dtype=torch.bfloat16, compute_dtype="bfloat16",
+                    device="cuda", seed=0)
+
+    def one_step(m, draws, **kw):
+        step = make_train_step(m, default_optimizer(m.parameters(),
+                                                    learning_rate=1e-4))
+        return step(text, images, **kw, **draws)
+
+    blocks = {"mega": mega.attention_block, "kff": ffb.ff_block,
+              "k5_fwd": lse5.streaming_lse_fwd,
+              "k5_bwd": lse5.streaming_lse_bwd}
+    stored = {"k2_fwd": mega.attention_block_fwd_stored,
+              "k2_bwd": mega.attention_block_bwd,
+              "k1_fwd": ffb.ff_block_fwd_stored, "k1_p1": ffb.ff_block_bwd_p1,
+              "k1_p2": ffb.ff_block_bwd_p2, **blocks}
+    lean = {"k3_fwd": mega.attention_block_fwd_stats,
+            "k3_bwd": mega.attention_block_bwd_recompute,
+            "kffs": ffb.ff_block_fwd_stats,
+            "ff_rc": ffb.ff_block_bwd_recompute, **blocks}
+    # a step's tower calls, 6 layers each: with gradients the MLM pass and
+    # the main text pass (text), SimSiam's two online passes and the main
+    # pass over both image views (vision); without, its two target passes
+    # (the inference forwards K-MEGA, K-FF); K5 over 2 x 2 view pairs, two
+    # directions each
+    depth, grad_calls, target_calls = 6, 5, 2
+    per_block = {"mega": depth * target_calls, "kff": depth * target_calls,
+                 "k5_fwd": 8, "k5_bwd": 8}
+    want_stored = {**{k: depth * grad_calls for k in stored
+                      if k not in blocks}, **per_block}
+    want_lean = {**{k: depth * grad_calls for k in lean if k not in blocks},
+                 **per_block}
+
+    # (a) the full objective on the stored routes, then the plain routes
+    kernel = build(STORED_BOTH, **OBJECTIVE_FLAGS)
+    init = {k: v.clone() for k, v in kernel.state_dict().items()}
+    draws0 = objective_draws(kernel, step_gen(7), text)
+    first = one_step(kernel, draws0, **views)
+    torch.cuda.synchronize()
+    v = check_objective_metrics("stored routes", first, b)
+    moved = [k for k, t in bn_buffers(kernel).items()
+             if torch.equal(t, init[k])]
+    if moved:
+        fail(f"BatchNorm statistics not folded: {moved}")
+    # under remat (bit for bit without it, phase 22): 768 caption rows of
+    # the plain attention's saved scores would not fit in 80 GB
+    plain = build(PLAIN_BOTH, **OBJECTIVE_FLAGS,
+                  checkpoint_during_training=True)
+    plain.load_state_dict(init)
+    p = {k: x.float().item() for k, x in one_step(plain, draws0,
+                                                  **views).items()}
+    del plain
+    torch.cuda.empty_cache()
+    diffs = {k: abs(v[k] - p[k]) for k in METRIC_KEYS}
+    bad = [k for k, d in diffs.items() if not d <= bf16_tol(p[k])]
+    if bad:
+        fail(f"stored vs plain routes, same weights and draws: {bad} "
+             f"differ: {v} vs {p}")
+    lines.append("first step " + ", ".join(
+        f"{k} {v[k]:.4f}" for k in METRIC_KEYS[1:6])
+        + f" (ln 255 = {math.log(255):.4f}, ln 10000 = {math.log(1e4):.4f});"
+        f" vs plain routes max diff {max(diffs.values()):.3e} (tol 0.05 or "
+        "2 bf16 ulps)")
+
+    def timed_objective(m, label, counters, want):
+        m.load_state_dict(init)
+        step = make_train_step(m, default_optimizer(m.parameters(),
+                                                    learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=step_gen(100 + i), **views)
+
+        ms, counts, peak, losses = timed_steps(run, warm, timed, counters)
+        per_step = {k: c / (warm + timed) for k, c in counts.items()}
+        if per_step != want:
+            fail(f"{label}: launches per step {per_step}, expected {want}")
+        if not torch.isfinite(losses).all():
+            fail(f"{label}: a loss is not finite: {losses.tolist()}")
+        (idle, busy, window), (total, rows) = profile_step(run, warm + timed)
+        top = "; ".join(
+            f"{t:.2f} ms x{c} "
+            f"{name.replace('void xclip::(anonymous namespace)::', '')[:60]}"
+            for t, c, name in rows[:8])
+        print(f"  {label}: {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms per "
+              f"step), peak {peak:.2f} GiB, idle share {idle:.4f} (device "
+              f"busy {busy:.2f} of {window:.2f} ms), launches per step "
+              f"{per_step}, losses "
+              + " ".join(f"{x:.4f}" for x in losses.tolist()), flush=True)
+        print(f"    top kernels of {total:.2f} ms: {top}", flush=True)
+        return (f"{label} {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms, peak "
+                f"{peak:.2f} GiB, idle {idle:.4f})")
+
+    lines.append(timed_objective(kernel, "stored", stored, want_stored))
+
+    # the SimSiam targets' passes (no_grad) take the inference forwards;
+    # their outputs are bit for bit the training forwards'
+    core = kernel.model
+    view = default_augment(images[:few], 256, generator=step_gen(8))
+    keep = torch.rand(few, 64, generator=step_gen(9),
+                      device="cuda").topk(32, dim=-1).indices
+    for x in (view, view.bfloat16()):
+        zero_counts(stored)
+        with torch.no_grad():
+            lean_out = get_representation(core.visual, x, -1,
+                                          attn_impl="fused", keep_idx=keep)
+        with torch.enable_grad():
+            train_out = get_representation(core.visual, x, -1,
+                                           attn_impl="fused", keep_idx=keep)
+        counts = read_counts(stored)
+        if not (counts["mega"] == counts["kff"] == counts["k2_fwd"]
+                == counts["k1_fwd"] == depth):
+            fail(f"target pass check: launches {counts}")
+        if not torch.equal(lean_out, train_out.detach()):
+            fail(f"the {x.dtype} target pass on the inference forwards is "
+                 "not bit for bit the training forwards' "
+                 f"({(lean_out - train_out).abs().max().item():.3e})")
+    lines.append("target passes on K-MEGA / K-FF bit for bit K2 / K1's "
+                 "forwards (fp32 and bf16 views)")
+    del kernel, core
+    torch.cuda.empty_cache()
+
+    # (b) the memory-lean routes
+    lines.append(timed_objective(build(LEAN_BOTH, **OBJECTIVE_FLAGS),
+                                 "lean", lean, want_lean))
+    torch.cuda.empty_cache()
+
+    # (c) SimCLR: one step, its BatchNorm statistics folded
+    m = build(STORED_BOTH, use_visual_ssl=True, visual_ssl_type="simclr",
+              loss_impl="fused")
+    before = bn_buffers(m)
+    metrics = one_step(m, objective_draws(m, step_gen(10), text, views=1,
+                                          ssl_passes=2))
+    if not all(torch.isfinite(x).all() for x in metrics.values()):
+        fail(f"SimCLR: a metric is not finite: {metrics}")
+    if any(torch.equal(t, before[k]) for k, t in bn_buffers(m).items()):
+        fail("SimCLR: BatchNorm statistics not folded")
+    lines.append(f"SimCLR step: image_ssl_loss "
+                 f"{metrics['image_ssl_loss'].item():.4f}, statistics "
+                 "folded")
+    del m
+    torch.cuda.empty_cache()
+
+    # (d) FILIP with the extra heads, dense and in blocks of 32 columns
+    filip, block32 = {}, min(32, b)
+    for block in (None, block32):
+        m = build(STORED_BOTH, use_all_token_embeds=True,
+                  extra_latent_projection=True, filip_block=block)
+        if block is None:
+            filip_init = {k: x.clone() for k, x in m.state_dict().items()}
+        m.load_state_dict(filip_init)
+        draws = objective_draws(m, step_gen(11), text, views=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        loss, grads = grads_of(m, text, images, **draws)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                             for g in grads.values())):
+            fail(f"FILIP block {block}: the loss or a gradient is not "
+                 "finite")
+        filip[block] = (loss.float().item(), peak, base)
+        del m, grads
+        torch.cuda.empty_cache()
+    (dense, dpeak, dbase), (blocked, bpeak, _) = filip[None], filip[block32]
+    if not abs(dense - blocked) <= bf16_tol(dense):
+        fail(f"FILIP: blocked loss {blocked:.4f} vs dense {dense:.4f}")
+    if not bpeak < dpeak:
+        fail(f"FILIP: blocked peak {bpeak:.2f} GiB not below dense "
+             f"{dpeak:.2f}")
+    lines.append(f"FILIP b={b} loss dense {dense:.4f} / blocked {block32} "
+                 f"{blocked:.4f}, peak {dpeak:.2f} / {bpeak:.2f} GiB "
+                 f"(weights {dbase:.2f})")
+
+    # (e) downsampled image latents: 8 x 8 patches to 4 x 4 latent tokens
+    m = build(STORED_BOTH, use_all_token_embeds=True,
+              downsample_image_embeds=True, visual_patch_dropout=0.0)
+    scores = m(text[:few], images[:few])
+    if tuple(scores.shape) != (few, 256, 16) or not torch.isfinite(
+            scores).all():
+        fail(f"downsampling: scores {tuple(scores.shape)}, want ({few}, "
+             "256, 16), finite")
+    metrics = one_step(m, {})
+    if not torch.isfinite(metrics["loss"]):
+        fail("downsampling: the step's loss is not finite")
+    lines.append(f"downsampling serves ({few}, 256, 16) and steps, loss "
+                 f"{metrics['loss'].item():.4f}")
+    del m
+    torch.cuda.empty_cache()
+
+    # (f) grad_accum=2 with SimSiam: the statistics after the step are the
+    # second microbatch's fold alone, from the stored statistics
+    m = build(STORED_BOTH, use_visual_ssl=True, loss_impl="fused")
+    ssl_init = {k: x.clone() for k, x in m.state_dict().items()}
+    micro = [objective_draws(m, step_gen(12 + i), text[:b // 2], views=1)
+             for i in range(2)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        step = make_train_step(m, default_optimizer(m.parameters(),
+                                                    learning_rate=1e-4),
+                               grad_accum=2)
+    step(text, images, keep_idx=torch.cat([d["keep_idx"] for d in micro]),
+         ssl_draws=[d["ssl_draws"] for d in micro])
+    after = bn_buffers(m)
+    m.load_state_dict(ssl_init)
+    _, second = m(text[b // 2:], images[b // 2:], return_loss=True,
+                  return_metrics=True, **micro[1])
+    for path, (mean, var) in second["bn_updates"].items():
+        for name, t in ((f"model.{path}.mean", mean),
+                        (f"model.{path}.var", var)):
+            if not torch.equal(after[name], t.to(after[name].dtype)):
+                fail(f"grad_accum=2: {name} is not the second microbatch's "
+                     "fold alone")
+    lines.append(f"grad_accum=2: {len(second['bn_updates'])} BatchNorms' "
+                 "statistics bit for bit the second microbatch's fold")
+    del m, step, after
+    torch.cuda.empty_cache()
+
+    # (g) the golden step
+    lines.append(objectives_golden(
+        CLIP, load_jax_params, numpy_params, default_optimizer,
+        make_train_step,
+        {k: stored[k] for k in ("k2_fwd", "k2_bwd", "k1_fwd", "k1_p1",
+                                "k1_p2", "mega", "kff", "k5_fwd",
+                                "k5_bwd")}))
+    phase(23, "objectives", f"{card}: " + "; ".join(lines))
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -3488,6 +3900,10 @@ def main():
     # --------------------------------------------------------------- 22
     train_surface(card, CLIP, default_optimizer, make_train_step, ffb, mega,
                   lse5, lean2048)
+
+    # --------------------------------------------------------------- 23
+    objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+               lse5, load_jax_params, numpy_params)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):

@@ -1,14 +1,17 @@
 """Write `tests/data/torch_port_golden.npz`,
-`tests/data/torch_port_golden_rotary.npz` and
-`tests/data/torch_port_golden_ff.npz`: the JAX package's outputs for a
+`tests/data/torch_port_golden_rotary.npz`,
+`tests/data/torch_port_golden_ff.npz` and
+`tests/data/torch_port_golden_objectives.npz`: the JAX package's outputs for a
 tiny CLIP on numpy-seeded weights, for the PyTorch port to be held to on a
 machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3, 7,
-10, 13 and 17 of `chip_smoke.py` on the GPU).
+10, 13, 17 and 23 of `chip_smoke.py` on the GPU).
 
 Regenerate them on a machine with JAX (the repo's CPU environment will do;
 Pallas runs in interpret mode), from the repo root:
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
+
+or only the fourth file with the argument `objectives`.
 
 The first file holds the config, the weight seed, the inputs and the
 outputs (scores, latents, the first rows of both encodings); the weights
@@ -39,6 +42,19 @@ towers beside the megablock) with its outputs and one train step, and
 "stored_h" (the kernel routes with `XCLIP_FF_STORE=h`, the stored-h FF
 block K1-h) with one train step and `stored_h_env`, the environment the
 step was taken under (JSON), which a loader sets around its own step.
+
+The fourth, `tests/data/torch_port_golden_objectives.npz`, is a tiny CLIP
+with every objective that combines (`OBJECTIVES`: MLM, a small SimSiam,
+sim-reg, DCL, the extra heads, K5's loss) on the kernel routes in both
+towers, fp32, one head a layer: `config` and `ssl` (the SimSiam's fields,
+JSON), the seed, the batch (`text`, `images`, one augmented view of each
+`aug_text`, `aug_images`) and every draw of the training forward, replayed
+from JAX's key as `tests/torch_objectives_draws.py` does (`keep_idx`,
+`mlm/<name>`, `ssl_keep_idx/<i>`, `ssl_augment` JSON); the forward's loss
+and metrics (`metric/<name>`), every gradient (`grad/<path>`), and one
+step, composed as `make_train_step` composes it (JAX's step takes no
+augmented views): `train_grad_norm` and every parameter and BatchNorm
+statistic after it (`param1/<path>`).
 """
 
 import json
@@ -49,6 +65,7 @@ from unittest import mock
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -61,6 +78,7 @@ from xclip_tpu_torch.convert import numpy_params  # noqa: E402
 OUT = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 OUT_ROTARY = OUT.with_name("torch_port_golden_rotary.npz")
 OUT_FF = OUT.with_name("torch_port_golden_ff.npz")
+OUT_OBJECTIVES = OUT.with_name("torch_port_golden_objectives.npz")
 # dim and inner multiples of 64 and dim_head 64, so the CUDA kernels take it
 CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
               text_enc_depth=2, text_seq_len=16, text_heads=2,
@@ -84,6 +102,15 @@ FF_ROUTES = {
     "fused": {**CONFIG, "ff_impl": "fused"},
     "stored_h": CONFIG}
 STORED_H_ENV = {"XCLIP_FF_STORE": "h"}
+OBJECTIVES = {**{k: v for k, v in CONFIG.items() if not k.endswith("_impl")},
+              "text_heads": 1, "visual_heads": 1, "attn_impl": "fused",
+              "ff_impl": "block_stored", "loss_impl": "fused",
+              "use_mlm": True, "decoupled_contrastive_learning": True,
+              "extra_latent_projection": True, "sim_reg_loss_weight": 0.1}
+OBJECTIVES_SSL = dict(image_size=32, hidden_layer=-1, projection_size=32,
+                      projection_hidden_size=64)
+METRICS = ("loss", "cl_loss", "text_ssl_loss", "image_ssl_loss",
+           "multiview_cl_loss", "sim_reg_loss", "temperature")
 
 
 def flat(tree, prefix=""):
@@ -217,8 +244,62 @@ def write_ff():
     print(f"wrote {OUT_FF} ({OUT_FF.stat().st_size} bytes)")
 
 
+def write_objectives():
+    import optax
+    from xclip_tpu.objectives.ssl import SimSiam
+    from torch_objectives_draws import jax_draws
+    npr = np.random.RandomState(SEED + 5)
+    b = 4
+    text = npr.randint(1, 100, (b, 16))
+    for i in range(b):
+        text[i, 16 - 3 * i:] = 0
+    aug_text = npr.randint(1, 100, (b, 16))
+    images, aug_images = (npr.rand(b, 3, 32, 32).astype(np.float32)
+                          for _ in range(2))
+    ssl = SimSiam(**OBJECTIVES_SSL)
+    clip = xclip_tpu.CLIP(**OBJECTIVES, visual_ssl=ssl)
+    params = jax.tree.map(jnp.asarray,
+                          numpy_params({**OBJECTIVES, "visual_ssl": ssl},
+                                       SEED))
+    rng = jax.random.PRNGKey(TRAIN_RNG)
+
+    def loss_fn(p):
+        return clip.model.apply(
+            p, jnp.asarray(text), jnp.asarray(images),
+            aug_text=(jnp.asarray(aug_text),),
+            aug_image=(jnp.asarray(aug_images),), return_loss=True,
+            rng=rng, training=True, return_metrics=True)
+
+    (_, metrics), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    opt = trainer.default_optimizer(**TRAIN_OPTIMIZER)
+    updates, _ = opt.update(grads, opt.init(params), params)
+    params1 = trainer._merge_bn_stats(optax.apply_updates(params, updates),
+                                      metrics["bn_updates"])
+    draws = jax_draws(rng, b=b, views=2, mlm=True, ssl="simsiam",
+                      num_patches=4, prob=0.5)
+    out = {"config": json.dumps(OBJECTIVES),
+           "ssl": json.dumps(OBJECTIVES_SSL), "seed": SEED,
+           "train_optimizer": json.dumps(TRAIN_OPTIMIZER), "text": text,
+           "images": images, "aug_text": aug_text, "aug_images": aug_images,
+           "keep_idx": draws["keep_idx"].numpy(),
+           "ssl_augment": json.dumps(draws["ssl_draws"]["augment"]),
+           "train_grad_norm": np.asarray(optax.global_norm(grads))}
+    out.update({f"mlm/{k}": v.numpy()
+                for k, v in draws["mlm_draws"].items()})
+    out.update({f"ssl_keep_idx/{i}": k.numpy()
+                for i, k in enumerate(draws["ssl_draws"]["keep_idx"])})
+    out.update({f"metric/{k}": np.asarray(metrics[k]) for k in METRICS})
+    out.update({f"grad/{k}": v for k, v in flat(grads)})
+    out.update({f"param1/{k}": v for k, v in flat(params1)})
+    np.savez_compressed(OUT_OBJECTIVES, **out)
+    print(f"wrote {OUT_OBJECTIVES} ({OUT_OBJECTIVES.stat().st_size} bytes)")
+
+
 def main():
     jax.config.update("jax_default_matmul_precision", "highest")
+    if sys.argv[1:] == ["objectives"]:
+        write_objectives()
+        return
     npr = np.random.RandomState(SEED + 1)
     text = npr.randint(1, 100, (4, 16))
     for i in range(4):
@@ -242,6 +323,7 @@ def main():
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
     write_rotary()
     write_ff()
+    write_objectives()
 
 
 if __name__ == "__main__":

@@ -1694,3 +1694,113 @@ def test_dropout_route_launches_k5_and_no_block_kernel(cuda_device,
     assert torch.isfinite(loss) and grads
     assert [c.launches - n for c, n in zip(counters, before)] == (
         [0] * 6 + [2, 2])
+
+
+OBJECTIVE_FLAGS = dict(use_mlm=True, use_visual_ssl=True,
+                       decoupled_contrastive_learning=True,
+                       extra_latent_projection=True, sim_reg_loss_weight=0.1,
+                       loss_impl="fused")
+CARD_PLAIN = dict(attn_impl="xla", ff_impl="xla")
+
+
+def _objective_step(model, text, image, draws):
+    """One fp32 training forward and backward with every draw injected:
+    (metrics, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss, metrics = model(text, image, return_loss=True, return_metrics=True,
+                          aug_text=text.flip(0), aug_image=image.flip(0),
+                          **draws)
+    loss.backward()
+    return metrics, {n: p.grad for n, p in model.named_parameters()
+                     if p.grad is not None}
+
+
+def _gradient_rule(got, want):
+    """The repo's gradient rule: 1e-3 relative with 1e-5 of the tensor's
+    largest magnitude."""
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(
+            got[k], want[k], rtol=1e-3,
+            atol=1e-5 * max(1.0, want[k].abs().max().item()), msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stored", "lean"])
+def test_every_objective_on_the_kernel_routes_matches_plain(cuda_device,
+                                                            route):
+    """MLM, SimSiam, an augmented text and image view, sim-reg, DCL, the
+    extra heads and K5, fp32, from the same weights and draws, against the
+    plain routes with the dense loss: every metric at 1e-4, every
+    gradient to the gradient rule, the BatchNorm statistics at 1e-4; the
+    kernels launch in every pass (the SimSiam targets on K-MEGA / K-FF),
+    and the plain routes launch none."""
+    from xclip_tpu_torch import CLIP
+    from xclip_tpu_torch.objectives.augment import augment_draws
+    text, image = _small_batch(cuda_device)
+    image = image.float()
+    kw = dict(**SURFACE_CLIP, **{**OBJECTIVE_FLAGS, "loss_impl": "xla"},
+              device="cuda", seed=0)
+    kernel = CLIP(**{**kw, **CARD_ROUTES[route], "loss_impl": "fused"})
+    plain = CLIP(**kw, **CARD_PLAIN)
+    plain.load_state_dict(kernel.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def keep(rows):
+        return torch.rand(rows, 16, generator=g, device="cuda").topk(
+            8, dim=-1).indices
+
+    draws = dict(keep_idx=keep(16), mlm_draws=kernel.model.mlm.draws(text, g),
+                 ssl_draws={"augment": [augment_draws(g), augment_draws(g)],
+                            "keep_idx": [keep(8) for _ in range(4)]})
+    counters = (mega.attention_block, ffb.ff_block,
+                mega.attention_block_fwd_stored, ffb.ff_block_fwd_stored,
+                mega.attention_block_fwd_stats, ffb.ff_block_fwd_stats,
+                lse5.streaming_lse_fwd, lse5.streaming_lse_bwd)
+    before = [c.launches for c in counters]
+    want, want_g = _objective_step(plain, text, image, draws)
+    assert [c.launches for c in counters] == before
+    got, got_g = _objective_step(kernel, text, image, draws)
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    # 5 passes with gradients (MLM, main text, 2 online, main vision) and
+    # the 2 targets, 2 layers each; K5 over 2 x 2 view pairs
+    forwards = [10, 10, 0, 0] if route == "stored" else [0, 0, 10, 10]
+    assert launched == [4, 4] + forwards + [8, 8]
+    for k in ("loss", "cl_loss", "text_ssl_loss", "image_ssl_loss",
+              "multiview_cl_loss", "sim_reg_loss"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-4,
+                                   msg=k)
+    _gradient_rule(got_g, want_g)
+    for path, stats in want["bn_updates"].items():
+        for a, b in zip(got["bn_updates"][path], stats):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=path)
+
+
+@pytest.mark.cuda
+def test_filip_blocked_matches_dense_on_the_card(cuda_device):
+    """FILIP with the extra heads on the stored kernel routes, fp32: the
+    column-blocked loss (blocks of 2) and every gradient against the
+    dense at 1e-5 and the gradient rule."""
+    from xclip_tpu_torch import CLIP
+    text, image = _small_batch(cuda_device)
+    image = image.float()
+    kw = dict(**SURFACE_CLIP, **CARD_ROUTES["stored"],
+              use_all_token_embeds=True, extra_latent_projection=True,
+              device="cuda", seed=0)
+    dense = CLIP(**kw)
+    blocked = CLIP(**kw, filip_block=2)
+    blocked.load_state_dict(dense.state_dict())
+    keep = torch.rand(8, 16, generator=torch.Generator(device="cuda")
+                      .manual_seed(4), device="cuda").topk(8, dim=-1).indices
+    results = []
+    for model in (dense, blocked):
+        model.zero_grad(set_to_none=True)
+        loss = model(text, image, return_loss=True, keep_idx=keep)
+        loss.backward()
+        results.append((loss.detach(), {n: p.grad for n, p in
+                                        model.named_parameters()
+                                        if p.grad is not None}))
+    (want, want_g), (got, got_g) = results
+    assert torch.isfinite(want)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    _gradient_rule(got_g, want_g)

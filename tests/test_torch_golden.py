@@ -3,9 +3,10 @@
 on the 'fused' (K6) and 'flash' (K7) routes,
 `tests/data/torch_port_golden_rotary.npz`; for `ff_impl='fused'` (K8) and
 the stored-h FF block under XCLIP_FF_STORE=h (K1-h),
-`tests/data/torch_port_golden_ff.npz`; written by
+`tests/data/torch_port_golden_ff.npz`; for every objective that combines,
+`tests/data/torch_port_golden_objectives.npz`; written by
 `tests/make_torch_port_golden.py`): the same checks that `chip_smoke.py`
-makes on the GPU (phases 3, 7, 10, 13 and 17), where there is no JAX. fp32;
+makes on the GPU (phases 3, 7, 10, 13, 17 and 23), where there is no JAX. fp32;
 outputs 1e-4 absolute; one train step (stored routes, then memory-lean
 routes) loss 1e-5, gradients rtol 1e-3 with atol 1e-5 times the leaf's
 largest magnitude, parameters after the step 2e-6 (a few ulps of the O(1)
@@ -25,6 +26,7 @@ from xclip_tpu_torch.train import default_optimizer, make_train_step
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")
 GOLDEN_FF = GOLDEN.with_name("torch_port_golden_ff.npz")
+GOLDEN_OBJECTIVES = GOLDEN.with_name("torch_port_golden_objectives.npz")
 
 
 def _check_outputs(golden, prefix=""):
@@ -119,3 +121,48 @@ def test_ff_train_step_matches_jax_golden(route, monkeypatch):
     """ff_impl='fused' (K8 in both towers), and the kernel routes with
     XCLIP_FF_STORE=h (K1-h), from the same weights and batch."""
     _check_train_step(f"{route}_config", f"{route}_", GOLDEN_FF, monkeypatch)
+
+
+def test_objectives_step_matches_jax_golden():
+    """The tiny CLIP with every objective that combines (MLM, SimSiam,
+    sim-reg, DCL, the extra heads, K5's loss; an augmented text and image
+    view) on the kernel routes, given JAX's draws: the loss and every
+    metric 1e-5, every gradient 1e-3 relative, one step's parameters 2e-6
+    and its BatchNorm statistics 1e-6 absolute with 1e-5 relative."""
+    from xclip_tpu_torch.objectives.ssl import SimSiam
+    g = np.load(GOLDEN_OBJECTIVES)
+    config = json.loads(str(g["config"]))
+    ssl = SimSiam(**json.loads(str(g["ssl"])))
+    clip = xclip_tpu_torch.CLIP(**config, visual_ssl=ssl, device="cpu")
+    load_jax_params(clip, numpy_params({**config, "visual_ssl": ssl},
+                                       int(g["seed"])))
+    t = {k: torch.from_numpy(g[k]) for k in ("text", "images", "aug_text",
+                                             "aug_images", "keep_idx")}
+    draws = dict(
+        keep_idx=t["keep_idx"],
+        mlm_draws={k[4:]: torch.from_numpy(g[k]) for k in g.files
+                   if k.startswith("mlm/")},
+        ssl_draws={"augment": json.loads(str(g["ssl_augment"])),
+                   "keep_idx": [torch.from_numpy(g[f"ssl_keep_idx/{i}"])
+                                for i in range(4)]})
+    opt = default_optimizer(clip.parameters(),
+                            **json.loads(str(g["train_optimizer"])))
+    metrics = make_train_step(clip, opt)(
+        t["text"], t["images"], aug_text=t["aug_text"],
+        aug_image=t["aug_images"], **draws)
+    for k in ("loss", "cl_loss", "text_ssl_loss", "image_ssl_loss",
+              "multiview_cl_loss", "sim_reg_loss", "temperature"):
+        np.testing.assert_allclose(metrics[k].item(), g[f"metric/{k}"],
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(metrics["grad_norm"].item(),
+                               g["train_grad_norm"], rtol=1e-5)
+    for name, got in _flat(to_jax_tree(clip, grads=True)):
+        want = g[f"grad/{name}"]
+        np.testing.assert_allclose(
+            got, want, rtol=1e-3,
+            atol=1e-5 * max(1.0, float(np.abs(want).max())), err_msg=name)
+    for name, got in _flat(to_jax_tree(clip)):
+        bn = name.endswith(("/mean", "/var"))
+        np.testing.assert_allclose(got, g[f"param1/{name}"],
+                                   rtol=1e-5 if bn else 0,
+                                   atol=1e-6 if bn else 2e-6, err_msg=name)

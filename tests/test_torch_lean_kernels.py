@@ -415,10 +415,12 @@ def test_fused_infonce_matches_dense(decoupled, extra):
     for impl in ("xla", "fused"):
         ts = [torch.from_numpy(a).requires_grad_(True) for a in lats]
         temp = torch.tensor(np.exp(1.5), requires_grad=True)
-        loss = clip_contrastive_loss(
-            ts[0], ts[1], temp, decoupled_contrastive_learning=decoupled,
-            text_latents_extra=ts[2] if extra else None,
-            image_latents_extra=ts[3] if extra else None, loss_impl=impl)
+        views = [t[None] for t in ts]       # one view a side: (1, b, d)
+        (loss,), _ = clip_contrastive_loss(
+            views[0], views[1], temp,
+            decoupled_contrastive_learning=decoupled,
+            text_latents_extra=views[2] if extra else None,
+            image_latents_extra=views[3] if extra else None, loss_impl=impl)
         grads = torch.autograd.grad(loss, ts[:2 + 2 * extra] + [temp])
         results.append((loss, grads))
     (want, want_g), (got, got_g) = results

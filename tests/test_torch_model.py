@@ -149,31 +149,84 @@ def test_signature_matches_jax_clip():
             assert jax_init[k] == port_init[k], k
     jax_call = _params(xclip_tpu.CLIP.__call__,
                        drop=("rng", "params", "axis_name", "return_metrics"))
-    # the port's own training extras: the patch-dropout and dropout draws
-    # (JAX's rng), the metrics flag, and the pad-and-mask rows (JAX's train
-    # step hands them to `CLIPModel.apply`)
+    # the port's own training extras: the patch-dropout, dropout, MLM and
+    # visual SSL draws (JAX's rng), the metrics flag, and the pad-and-mask
+    # rows (JAX's train step hands them to `CLIPModel.apply`)
     port_call = _params(xclip_tpu_torch.CLIP.forward,
                         drop=("return_metrics", "generator", "keep_idx",
-                              "dropout_keep", "row_valid"))
+                              "dropout_keep", "row_valid", "mlm_draws",
+                              "ssl_draws"))
     assert list(jax_call) == list(port_call)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (dict(use_all_token_embeds=True), "FILIP"),
-    (dict(downsample_image_embeds=True), "FILIP"),
-    (dict(filip_block=4), "FILIP"),
+def _jax_loss_and_port_draws(jclip, params, text, image, rng, b, **kw):
+    """JAX's training loss with `rng`, and the draws the port is given
+    for it (`torch_objectives_draws.jax_draws`)."""
+    from torch_objectives_draws import jax_draws
+    model = jclip.model
+    views = 1 + len(kw.get("aug_image", ()))
+    want = jax.jit(lambda p: model.apply(
+        p, jnp.asarray(text), jnp.asarray(image), return_loss=True, rng=rng,
+        training=True, **kw))(params)
+    draws = jax_draws(rng, b=b, views=views, mlm=model.mlm is not None,
+                      ssl=(None if model.visual_ssl is None else
+                           type(model.visual_ssl).__name__.lower()),
+                      num_patches=4, prob=0.5)
+    return want, draws
+
+
+SSL_INSTANCE = "a SimSiam instance"
+
+
+@pytest.mark.parametrize("flags", [
+    pytest.param(dict(use_all_token_embeds=True), id="flags0-FILIP"),
+    pytest.param(dict(downsample_image_embeds=True), id="flags1-FILIP"),
+    pytest.param(dict(filip_block=4), id="flags2-FILIP"),
     # the rotary, causal text tower and 'flash' are ported
-    # (tests/test_torch_rotary.py); what they combine with may not be
-    (dict(use_all_token_embeds=True, text_rotary_pos_emb=True), "FILIP"),
-    (dict(use_visual_ssl=True, text_causal_mask=True, text_eos_id=1),
-     "use_visual_ssl"),
-    (dict(use_mlm=True), "use_mlm"),
-    (dict(use_visual_ssl=True), "use_visual_ssl"),
-    (dict(visual_ssl=object()), "use_visual_ssl"),
+    # (tests/test_torch_rotary.py); so is what they combine with
+    pytest.param(dict(use_all_token_embeds=True, text_rotary_pos_emb=True),
+                 id="flags3-FILIP"),
+    pytest.param(dict(use_visual_ssl=True, text_causal_mask=True,
+                      text_eos_id=1), id="flags4-use_visual_ssl"),
+    pytest.param(dict(use_mlm=True), id="flags5-use_mlm"),
+    pytest.param(dict(use_visual_ssl=True), id="flags6-use_visual_ssl"),
+    pytest.param(dict(visual_ssl=SSL_INSTANCE), id="flags7-use_visual_ssl"),
 ])
-def test_out_of_slice_flags_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        xclip_tpu_torch.CLIP(**{**TINY, **flags}, device="cpu")
+def test_out_of_slice_flags_raise(flags):
+    """The objectives' flags, which raised while they were unported, now
+    build as JAX's do: where JAX refuses them (downsampling without FILIP)
+    the port refuses them in its words; elsewhere the port's inference
+    scores (1e-4) and training loss (1e-5, JAX's draws injected) match
+    JAX's. `visual_ssl` takes each package's own SimSiam."""
+    import re
+    from xclip_tpu.objectives.ssl import SimSiam as JSimSiam
+    from xclip_tpu_torch.objectives.ssl import SimSiam as TSimSiam
+    jflags, tflags = dict(flags), dict(flags)
+    if flags.get("visual_ssl") == SSL_INSTANCE:
+        kw = dict(image_size=32, projection_size=16,
+                  projection_hidden_size=32)
+        jflags["visual_ssl"], tflags["visual_ssl"] = (JSimSiam(**kw),
+                                                      TSimSiam(**kw))
+    try:
+        jclip = xclip_tpu.CLIP(**TINY, **jflags)
+    except AssertionError as err:
+        with pytest.raises(AssertionError, match=re.escape(str(err))):
+            xclip_tpu_torch.CLIP(**TINY, **tflags, device="cpu")
+        return
+    tree = numpy_params({**TINY, **jflags}, 0)
+    params = jax.tree.map(jnp.asarray, tree)
+    assert jax.tree.structure(params) == jax.tree.structure(jclip.params)
+    tclip = xclip_tpu_torch.CLIP(**TINY, **tflags, device="cpu")
+    load_jax_params(tclip, tree)
+    text, image = _inputs(seed=6)
+    tt, ti = torch.from_numpy(text), torch.from_numpy(image)
+    _close(tclip(tt, ti), jclip(jnp.asarray(text), jnp.asarray(image),
+                                params=params))
+    want, draws = _jax_loss_and_port_draws(jclip, params, text, image,
+                                           jax.random.PRNGKey(9), 4)
+    np.testing.assert_allclose(
+        tclip(tt, ti, return_loss=True, **draws).item(), float(want),
+        atol=1e-5)
 
 
 @pytest.mark.parametrize("flags", [
@@ -194,15 +247,21 @@ def test_fused_ff_flags_serve_like_jax(flags):
 
 
 def test_training_calls_raise():
-    """Training runs (tests/test_torch_train.py); what it does not have yet
-    raises: augmented views name their ROADMAP.md item, a loss without
+    """Training runs (tests/test_torch_train.py), with augmented views too:
+    their loss is JAX's (1e-5, JAX's patch draws injected); a loss without
     training and augmented views at inference are errors, as in JAX."""
-    clip = xclip_tpu_torch.CLIP(**TINY, device="cpu")
-    text, image = map(torch.from_numpy, _inputs(b=2))
+    jclip, params, clip = _pair()
+    npt, npi = _inputs(b=2)
+    text, image = torch.from_numpy(npt), torch.from_numpy(npi)
     loss = clip(text, image, return_loss=True)
     assert loss.shape == () and loss.requires_grad
-    with pytest.raises(NotImplementedError, match="training"):
-        clip(text, image, return_loss=True, aug_image=image)
+    want, draws = _jax_loss_and_port_draws(
+        jclip, params, npt, npi, jax.random.PRNGKey(2), 2,
+        aug_image=(jnp.asarray(npi[::-1].copy()),))
+    loss = clip(text, image, return_loss=True, aug_image=image.flip(0),
+                **draws)
+    assert loss.requires_grad
+    np.testing.assert_allclose(loss.item(), float(want), atol=1e-5)
     with pytest.raises(ValueError, match="not training"):
         clip(text, image, return_loss=True, training=False)
     with pytest.raises(ValueError, match="augmented"):

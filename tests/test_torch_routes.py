@@ -257,9 +257,9 @@ def test_loss_route(d):
     for loss_impl in ("fused", "xla"):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            loss = tcon.clip_contrastive_loss(
-                *lat, temp, decoupled_contrastive_learning=True,
-                loss_impl=loss_impl)
+            (loss,), _ = tcon.clip_contrastive_loss(
+                *(t[None] for t in lat), temp,
+                decoupled_contrastive_learning=True, loss_impl=loss_impl)
         got.append((loss.detach(), *torch.autograd.grad(loss, lat)))
     for a, b in zip(*got):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

@@ -363,20 +363,33 @@ def test_stored_h_variant_raises(monkeypatch):
 
 
 def test_unported_training_options_raise():
-    """What training still lacks raises, naming its ROADMAP.md module;
-    remat, `grad_accum` and `valid=`, which raised before, run."""
+    """Remat, `grad_accum`, `valid=`, sim-reg and augmented views, which
+    raised before, run; sim-reg and an augmented text view train as JAX's
+    do (loss 1e-5, gradients 1e-3 relative, JAX's patch draws)."""
     text, image = map(torch.from_numpy, _inputs(b=2))
     clip = xclip_tpu_torch.CLIP(**TINY, checkpoint_during_training=True,
                                 device="cpu")
     assert torch.isfinite(clip(text, image, return_loss=True))
-    clip = xclip_tpu_torch.CLIP(**TINY, sim_reg_loss_weight=0.1,
-                                device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, the objectives and heads"):
-        clip(text, image, return_loss=True)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, the objectives and heads"):
-        clip(text, image, return_loss=True, aug_text=text)
+    jclip, params, tclip = _pair(seed=3, sim_reg_loss_weight=0.1)
+    npt, npi = _inputs(b=2, seed=3)
+    aug = npt[:, ::-1].copy()
+    rng = jax.random.PRNGKey(8)
+    for kw in ({}, {"aug_text": aug}):
+        def loss_fn(p):
+            return jclip.model.apply(
+                p, jnp.asarray(npt), jnp.asarray(npi), return_loss=True,
+                rng=rng, training=True,
+                **{k: (jnp.asarray(v),) for k, v in kw.items()})
+
+        want, want_grads = jax.value_and_grad(loss_fn)(params)
+        tclip.zero_grad(set_to_none=True)
+        loss = tclip(torch.from_numpy(npt), torch.from_numpy(npi),
+                     return_loss=True, keep_idx=jax_keep_idx(rng, 2, 9, 0.5),
+                     **{k: torch.from_numpy(v) for k, v in kw.items()})
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), float(want), atol=1e-5)
+        _tree_close(to_jax_tree(tclip, grads=True), want_grads, rtol=1e-3,
+                    atol_scale=1e-5)
     clip = xclip_tpu_torch.CLIP(**TINY, device="cpu")
     with pytest.warns(UserWarning, match="grad_accum=2"):
         step = make_train_step(clip, default_optimizer(clip.parameters()),

@@ -6,21 +6,23 @@ card, "cuda", unless the caller asks for "cpu"; a CUDA device that is not
 there raises, nothing falls back to the CPU), `seed=` /
 `generator=` (a `torch.Generator` for initialisation; `seed` makes one).
 `forward` adds `generator=` (the randomness of a training forward: patch
-dropout, and custom encoders' dropout; by default the model's own call
-generator, as the JAX `CLIP` folds a call counter into its key),
-`keep_idx=` and `dropout_keep=` (injected patch indices and dropout keep
-masks, see `CLIPModel.forward`), `row_valid=` and `return_metrics=`.
-`save(path)` / `load(path)` keep and restore the parameters
-(`train.checkpoint`).
+dropout, custom encoders' dropout, the MLM's and the visual SSL's draws; by
+default the model's own call generator, as the JAX `CLIP` folds a call
+counter into its key), `keep_idx=`, `dropout_keep=`, `mlm_draws=` and
+`ssl_draws=` (injected draws, see `CLIPModel.forward`), `row_valid=` and
+`return_metrics=`. `save(path)` / `load(path)` keep and restore the
+parameters and the SSL heads' BatchNorm statistics (`train.checkpoint`).
 
 The port serves inference and trains (`return_loss=True`, and
-`train.make_train_step`), with remat (`checkpoint_during_training`, whose
-`remat_policy` is None, 'dots' or 'wide'; `nn.layers`). A flag whose
-behaviour is not ported raises `NotImplementedError` naming the
-ROADMAP.md module that will port it, at construction or, for flags that
-only act in training (`sim_reg_loss_weight`, augmented views), when a
-training forward meets them. `scan_layers` is a JAX compilation choice:
-layers are always an `nn.ModuleList` here.
+`train.make_train_step`) with every objective of the JAX `CLIP`: FILIP
+(`use_all_token_embeds`, `filip_block`, `downsample_image_embeds`), DCL,
+the extra latent heads, DeCLIP's MLM (`use_mlm` and the `mlm_*` kwargs),
+SimSiam or SimCLR (`use_visual_ssl`, `visual_ssl_type`, or the port's own
+`objectives.ssl.SimSiam` / `SimCLR` as `visual_ssl`), multiview
+(`aug_text` / `aug_image`) and similarity regularisation; and remat
+(`checkpoint_during_training`, whose `remat_policy` is None, 'dots' or
+'wide'; `nn.layers`). `scan_layers` is a JAX compilation choice: layers
+are always an `nn.ModuleList` here.
 """
 
 from __future__ import annotations
@@ -34,15 +36,17 @@ from .model import CLIPModel, as_dtype
 from .nn.layers import check_impls
 from .nn.text import TextTransformer
 from .nn.vision import VisionTransformer
+from .objectives.mlm import MLM
+from .objectives.ssl import SimCLR, SimSiam
 from .train.checkpoint import restore_checkpoint, save_checkpoint
 
 
-# where ROADMAP.md queues FILIP, MLM, SSL, multiview and sim-reg
-OBJECTIVES = "Queue 1, the objectives and heads"
-
-
-def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {where}")
+def groupby_prefix_and_trim(prefix: str, d: dict):
+    """kwargs routing helper (`xclip_tpu/api.py:52-56`)."""
+    with_prefix = {k[len(prefix):]: v for k, v in d.items()
+                   if k.startswith(prefix)}
+    without = {k: v for k, v in d.items() if not k.startswith(prefix)}
+    return with_prefix, without
 
 
 def _resolve_device(device) -> torch.device:
@@ -114,20 +118,28 @@ class CLIP(nn.Module):
         **kwargs,
     ):
         super().__init__()
+        mlm_kwargs = {}
+        if use_mlm:
+            mlm_kwargs, kwargs = groupby_prefix_and_trim("mlm_", kwargs)
+        use_visual_ssl = use_visual_ssl or (visual_ssl is not None)
+        if visual_ssl is None and use_visual_ssl:
+            if visual_ssl_type == 'simsiam':
+                visual_ssl = SimSiam(
+                    image_size=visual_image_size, channels=channels,
+                    hidden_layer=visual_ssl_hidden_layer)
+            elif visual_ssl_type == 'simclr':
+                visual_ssl = SimCLR(
+                    image_size=visual_image_size, channels=channels,
+                    temperature=simclr_temperature,
+                    hidden_layer=visual_ssl_hidden_layer)
+            else:
+                raise ValueError('unknown visual_ssl_type')
         if kwargs:
             raise TypeError(f"unexpected CLIP kwargs: {sorted(kwargs)}")
-        if use_all_token_embeds or downsample_image_embeds or filip_block:
-            _not_ported("FILIP (use_all_token_embeds, downsample_image_embeds,"
-                        " filip_block)", OBJECTIVES)
-        if use_mlm or use_visual_ssl or visual_ssl is not None:
-            _not_ported("use_mlm / use_visual_ssl", OBJECTIVES)
         if loss_impl not in ("xla", "fused"):
             raise ValueError(f"unknown loss_impl {loss_impl!r}")
         check_impls(attn_impl, ff_impl, remat_policy)
         check_impls(visual_attn_impl or attn_impl, ff_impl)
-        assert visual_has_cls_token or text_has_cls_token, (
-            "CLS token must be included on both vision and text transformers "
-            "if you are not using fine-grained contrastive learning loss")
 
         device = _resolve_device(device)
         dtype = as_dtype(param_dtype)
@@ -135,7 +147,8 @@ class CLIP(nn.Module):
             generator = torch.Generator().manual_seed(seed)
         if text_encoder is None:
             text_encoder = TextTransformer(
-                dim=dim_text, num_tokens=num_text_tokens,
+                dim=dim_text, num_tokens=num_text_tokens + (1 if use_mlm
+                                                            else 0),
                 max_seq_len=text_seq_len, depth=text_enc_depth,
                 heads=text_heads, dim_head=text_dim_head,
                 rotary_pos_emb=text_rotary_pos_emb, causal=text_causal_mask,
@@ -151,18 +164,33 @@ class CLIP(nn.Module):
                 ff_impl=ff_impl,
                 checkpoint_during_training=checkpoint_during_training,
                 remat_policy=remat_policy, generator=generator, dtype=dtype)
+        mlm = None
+        if use_mlm:
+            if 'mask_ignore_token_ids' in mlm_kwargs:
+                mlm_kwargs['mask_ignore_token_ids'] = tuple(
+                    mlm_kwargs['mask_ignore_token_ids'])
+            mlm = MLM(dim=dim_text, num_tokens=num_text_tokens, **mlm_kwargs,
+                      generator=generator, dtype=dtype)
         self.model = CLIPModel(
             text_encoder, image_encoder, dim_text=dim_text,
             dim_image=dim_image, dim_latent=dim_latent,
-            text_pad_id=text_pad_id, text_causal_mask=text_causal_mask,
-            text_eos_id=text_eos_id,
+            text_pad_id=text_pad_id, text_has_cls_token=text_has_cls_token,
+            visual_has_cls_token=visual_has_cls_token,
+            text_causal_mask=text_causal_mask, text_eos_id=text_eos_id,
             text_encode_without_mask=text_encode_without_mask,
+            use_all_token_embeds=use_all_token_embeds,
+            downsample_image_embeds=downsample_image_embeds,
             extra_latent_projection=extra_latent_projection,
             decoupled_contrastive_learning=decoupled_contrastive_learning,
+            mlm=mlm, text_ssl_loss_weight=text_ssl_loss_weight if use_mlm
+            else 0, visual_ssl=visual_ssl,
+            image_ssl_loss_weight=(image_ssl_loss_weight if use_visual_ssl
+                                   else 0),
+            multiview_loss_weight=multiview_loss_weight,
+            sim_reg_loss_weight=sim_reg_loss_weight,
             attn_impl=attn_impl, visual_attn_impl=visual_attn_impl,
-            loss_impl=loss_impl, compute_dtype=compute_dtype,
-            generator=generator, dtype=dtype)
-        self.sim_reg_loss_weight = sim_reg_loss_weight
+            loss_impl=loss_impl, filip_block=filip_block,
+            compute_dtype=compute_dtype, generator=generator, dtype=dtype)
         self.to(device)
         # patch-dropout draws of training calls that bring no generator
         call_seed = int(torch.randint(2 ** 62, (1,), generator=generator))
@@ -205,20 +233,15 @@ class CLIP(nn.Module):
                 generator=None,
                 keep_idx=None,
                 dropout_keep=None,
-                row_valid=None):
+                row_valid=None,
+                mlm_draws=None,
+                ssl_draws=None):
         """Inference scores, encodings or latents; with `return_loss` (which
-        makes `training` default to True) the contrastive loss of a training
-        forward, differentiable in every parameter. The freeze flags stop
-        gradients only, so at inference they change nothing."""
+        makes `training` default to True) the loss of a training forward
+        with every objective the model has, differentiable in every
+        parameter. The freeze flags stop gradients only, so at inference
+        they change nothing."""
         training = return_loss if training is None else training
-        if aug_text is not None or aug_image is not None:
-            if not training:
-                raise ValueError("do not pass in augmented texts or images "
-                                 "if not training")
-            _not_ported("augmented views in training (aug_text / aug_image,"
-                        " the multiview loss)", OBJECTIVES)
-        if training and return_loss and self.sim_reg_loss_weight > 0:
-            _not_ported("sim_reg_loss_weight > 0", OBJECTIVES)
         if training and generator is None:
             generator = self.call_generator
         return self.model(text, image, return_loss=return_loss,
@@ -227,6 +250,8 @@ class CLIP(nn.Module):
                           text_to_image=text_to_image,
                           freeze_image_encoder=freeze_image_encoder,
                           freeze_text_encoder=freeze_text_encoder,
+                          aug_text=aug_text, aug_image=aug_image,
                           training=training, return_metrics=return_metrics,
                           generator=generator, keep_idx=keep_idx,
-                          dropout_keep=dropout_keep, row_valid=row_valid)
+                          dropout_keep=dropout_keep, row_valid=row_valid,
+                          mlm_draws=mlm_draws, ssl_draws=ssl_draws)

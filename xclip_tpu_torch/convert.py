@@ -15,6 +15,13 @@ is none, as JAX differentiates every leaf), as a JAX-layout tree of fp32
 numpy arrays with the depth axis restacked. `numpy_params(config, seed)` builds such a tree from
 `np.random.RandomState(seed)`, the same numbers on every machine, so the
 JAX package and the port can be given identical weights without JAX.
+
+The SSL heads' BatchNorm running statistics (`.../bnN/mean`, `var`) are
+leaves of JAX's param tree and buffers of the port's modules: both maps
+carry them (in `to_jax_tree(grads=True)` as zeros, JAX's gradient of
+them). JAX's optimizer state also holds Adam moments for them, zeros at
+every step; the port's `AdamW` has none, and no map carries optimizer
+state.
 """
 
 from __future__ import annotations
@@ -98,6 +105,9 @@ def to_jax_tree(model, *, grads: bool = False) -> dict:
         if t is None:
             t = torch.zeros_like(param)
         flat[name] = t.detach().float().cpu().numpy()
+    for name, buf in model.named_buffers():   # the BatchNorm statistics
+        flat[name] = (torch.zeros_like(buf) if grads else buf).float().cpu(
+        ).numpy()
     tree = {}
     for name, value in _restack(flat).items():
         *path, leaf = name.split(".")
@@ -115,12 +125,33 @@ def _clip_defaults():
             if p.default is not inspect.Parameter.empty}
 
 
+def _ssl_spec(c):
+    """(kind, hidden_layer, projection, hidden) of the config's visual SSL
+    head, or None: from `visual_ssl_type` / `visual_ssl_hidden_layer`, or
+    from a `visual_ssl` instance's fields (the JAX package's or the
+    port's)."""
+    ssl = c.get("visual_ssl")
+    if ssl is not None:
+        if hasattr(ssl, "project_dim"):
+            return "simclr", ssl.hidden_layer, ssl.project_dim, 4096
+        return ("simsiam", ssl.hidden_layer, ssl.projection_size,
+                ssl.projection_hidden_size)
+    if not c["use_visual_ssl"]:
+        return None
+    if c["visual_ssl_type"] == "simclr":
+        return "simclr", c["visual_ssl_hidden_layer"], 128, 4096
+    return "simsiam", c["visual_ssl_hidden_layer"], 256, 4096
+
+
 def numpy_params(config: dict, seed: int = 0) -> dict:
     """A JAX-layout `CLIPModel` param tree for the `CLIP(**config)` kwargs
     (defaults as `CLIP`'s), drawn from `np.random.RandomState(seed)`: linear
     weights U(±1/sqrt(in)), embeddings N(0, 1), LayerNorm gains 1 + 0.1·N,
-    temperature 1. The extra latent heads are drawn apart from the main
-    ones, so tests can tell them apart. fp32 arrays."""
+    temperature 1; BatchNorm scale 1 + 0.1·N, bias, mean 0.1·N and var
+    1 + 0.1·|N|; convolutions U(±1/sqrt(fan_in)). The extra latent heads
+    are drawn apart from the main ones, so tests can tell them apart. The
+    MLM head, the visual SSL heads and the downsampling latent heads are
+    drawn after the rest, where the config has them. fp32 arrays."""
     c = {**_clip_defaults(), **config}
     rs = np.random.RandomState(seed)
     f32 = np.float32
@@ -155,11 +186,26 @@ def numpy_params(config: dict, seed: int = 0) -> dict:
         return {"layers": stack(*layers), "norm_in": gain(dim),
                 "norm_out": gain(dim)}
 
+    def bn(d, affine=True):
+        p = {"mean": (0.1 * rs.randn(d)).astype(f32),
+             "var": (1.0 + 0.1 * np.abs(rs.randn(d))).astype(f32)}
+        if affine:
+            p["scale"] = (1.0 + 0.1 * rs.randn(d)).astype(f32)
+            p["bias"] = (0.1 * rs.randn(d)).astype(f32)
+        return p
+
+    def conv(out_c, in_c, k, bias=False):
+        bound = 1.0 / math.sqrt(in_c * k * k)
+        p = {"w": rs.uniform(-bound, bound, (out_c, in_c, k, k)).astype(f32)}
+        if bias:
+            p["b"] = rs.uniform(-bound, bound, (out_c,)).astype(f32)
+        return p
+
     dt, di = c["dim_text"], c["dim_image"]
     p = c["visual_patch_size"]
     # drawn in one order, each leaf only where JAX's TextTransformer.init
     # has it: no absolute positions under rotary, no CLS when causal
-    text = {"token_emb": emb(c["num_text_tokens"], dt)}
+    text = {"token_emb": emb(c["num_text_tokens"] + bool(c["use_mlm"]), dt)}
     if not c["text_rotary_pos_emb"]:
         text["abs_pos_emb"] = emb(c["text_seq_len"], dt)
     if not c["text_causal_mask"]:
@@ -171,9 +217,31 @@ def numpy_params(config: dict, seed: int = 0) -> dict:
               "transformer": tower(di, c["visual_enc_depth"],
                                    c["visual_heads"], c["visual_dim_head"]),
               "to_cls": lin(di, di)}
-    return {"text": text, "visual": visual,
+    tree = {"text": text, "visual": visual,
             "to_text_latent": lin(dt, c["dim_latent"]),
             "to_visual_latent": lin(di, c["dim_latent"]),
             "to_text_latent_extra": lin(dt, c["dim_latent"]),
             "to_visual_latent_extra": lin(di, c["dim_latent"]),
             "temperature": np.asarray(1.0, dtype=f32)}
+    if c["use_mlm"]:
+        tree["mlm"] = {"to_logits": lin(dt, c["num_text_tokens"], bias=True)}
+    spec = _ssl_spec(c)
+    if spec is not None:
+        kind, hidden_layer, proj, hidden = spec
+        num = (c["visual_image_size"] // p) ** 2
+        if c["visual_patch_dropout"] > 0.0:
+            num = max(1, int(num * (1 - c["visual_patch_dropout"])))
+        rep = di if hidden_layer in (-1, "-1") else num * di
+        projector = {"l1": lin(rep, hidden), "bn1": bn(hidden),
+                     "l2": lin(hidden, hidden), "bn2": bn(hidden),
+                     "l3": lin(hidden, proj), "bn3": bn(proj, affine=False)}
+        tree["visual_ssl"] = {"projector": projector}
+        if kind == "simsiam":
+            tree["visual_ssl"]["predictor"] = {
+                "l1": lin(proj, hidden, bias=True), "bn1": bn(hidden),
+                "l2": lin(hidden, proj, bias=True)}
+    if c["downsample_image_embeds"]:
+        for key in ("to_visual_latent", "to_visual_latent_extra"):
+            tree[key] = {"dw": conv(di, 1, 4),
+                         "pw": conv(c["dim_latent"], di, 1, bias=True)}
+    return tree

@@ -1,5 +1,5 @@
-"""Parameter containers, the gain-only LayerNorm and dropout — the
-counterparts of `xclip_tpu/nn/core.py`.
+"""Parameter containers, the gain-only LayerNorm, BatchNorm1d and dropout —
+the counterparts of `xclip_tpu/nn/core.py`.
 
 Layout: every linear weight is stored as JAX stores it, `(in_features,
 out_features)`, and applied as `x @ w` — the transpose of `torch.nn.Linear`.
@@ -14,6 +14,11 @@ embeddings N(0, 1), LayerNorm gains 1. The numbers differ from JAX's.
 Mixed precision: a module applies its parameters cast to the dtype of the
 activation it is given (`w.to(x.dtype)`), which is what the JAX model's
 cast of every float parameter to `compute_dtype` at entry amounts to.
+
+BatchNorm1d (the SSL heads' only normalisation) keeps its running `mean`
+and `var` as buffers, not parameters: they carry no gradient, so the
+optimizer never touches them; the train step folds their new values in
+(`objectives/ssl.py`, `train/trainer.py`).
 
 Dropout draws from explicit generators, as JAX's `RngStream` folds a site
 counter into one key a layer: `RngStream(seed)` gives the i-th dropout
@@ -86,6 +91,39 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.g)
+
+
+class BatchNorm1d(nn.Module):
+    """`batch_norm_init` / `batch_norm_apply` (`xclip_tpu/nn/core.py:
+    104-128`): in training, normalised by the batch's mean and biased
+    variance; outside it, by the running statistics (buffers, zeros and
+    ones at init). `affine=False` leaves out `scale` and `bias`. eps 1e-5
+    whatever the dtype."""
+
+    def __init__(self, dim: int, *, affine: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(dim, dtype=dtype))
+        self.register_buffer("var", torch.ones(dim, dtype=dtype))
+        self.scale = self.bias = None
+        if affine:
+            self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+            self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
+
+    def forward(self, x, training: bool, eps: float = 1e-5):
+        """(rows, dim) x → (out, (mean, var)): the statistics it normalised
+        by, in x.dtype (the batch's are taken in fp32, as jnp.mean /
+        jnp.var take a bf16 input's)."""
+        if training:
+            xf = x.float()
+            mean = xf.mean(dim=0).to(x.dtype)
+            var = xf.var(dim=0, unbiased=False).to(x.dtype)
+        else:
+            mean, var = self.mean.to(x.dtype), self.var.to(x.dtype)
+        out = (x - mean) * torch.rsqrt(var + eps)
+        if self.scale is not None:
+            out = out * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+        return out, (mean, var)
 
 
 class RngStream:

@@ -33,6 +33,8 @@ Routing, as `transformer_apply` does it (`nn/layers.py:311-419`):
     and training alike;
   * `'xla'` → the plain PyTorch modules below plus the residual, trained
     by autograd.
+A training pass under `torch.no_grad()` (the SimSiam targets) takes the
+inference forwards K-MEGA and K-FF: no backward will read residuals.
 Where the JAX package itself falls back to its XLA path (K6's head
 groups, the FF block's column blocks, and in training attention or FF
 dropout, which no kernel has: the megablock, 'fused', 'flash', the FF
@@ -404,15 +406,20 @@ class Transformer(nn.Module):
                 attn_impl="xla", ff_impl="xla", training=False,
                 checkpoint_during_training=False, remat_policy=None,
                 attn_dropout=0.0, ff_dropout=0.0, generator=None,
-                dropout_keep=None):
+                dropout_keep=None, return_hidden=None):
         """`rotary`: (n, rot_dim) fp32 frequencies (`rotary_freqs`) or
-        None. `training` selects the kernels' training routes (K2 or K3; K1,
-        K1-h or the recompute FF block; K8 with its backward), dropout and
-        remat; otherwise the lean inference forwards run, which take no
-        gradient (K8 serves both). Dropout seeds, one a layer, are drawn
-        from `generator` (None: PyTorch's default generator);
-        `dropout_keep` injects the keep masks instead: for each layer, its
-        sites' masks in order (attention, then FF)."""
+        None. `training` selects dropout and remat and, where a gradient
+        will be taken (`torch.is_grad_enabled()`), the kernels' training
+        routes (K2 or K3; K1, K1-h or the recompute FF block; K8 with its
+        backward); otherwise the lean inference forwards run, which take
+        no gradient and keep no residuals (K8 serves both): a training
+        pass under `torch.no_grad()`, as the SimSiam targets', takes them.
+        Dropout seeds, one a layer, are drawn from `generator` (None:
+        PyTorch's default generator); `dropout_keep` injects the keep masks
+        instead: for each layer, its sites' masks in order (attention,
+        then FF). `return_hidden` (an int, negative counting from the end)
+        also returns the residual stream after that layer:
+        (out, hidden)."""
         check_impls(attn_impl, ff_impl, remat_policy)
         attn_rate = attn_dropout if training else 0.0
         ff_rate = ff_dropout if training else 0.0
@@ -427,7 +434,7 @@ class Transformer(nn.Module):
         use_mega = attn_route == "mega"
         use_ffb = ffn_route == "block"
         mega, ffb = attention_block, ff_block
-        if training:
+        if training and torch.is_grad_enabled():
             mega = (attention_block_train if attn_impl == "fused" else
                     functools.partial(attention_block_train_recompute,
                                       keep_qkv=attn_impl == "fused_qkv"))
@@ -447,7 +454,8 @@ class Transformer(nn.Module):
                 2 ** 62, (len(self.layers),), generator=generator,
                 device=generator.device if generator is not None else "cpu")
             streams = [dict(seed=s) for s in seeds.tolist()]
-        remat = training and checkpoint_during_training
+        remat = (training and checkpoint_during_training
+                 and torch.is_grad_enabled())
         wide = remat and remat_policy == "wide"
         x = self.norm_in(x)
         if use_mega:
@@ -475,6 +483,7 @@ class Transformer(nn.Module):
             return f(x, ffn_route, rate=ff_rate, rngs=rngs,
                      remat_wide=wide) + x
 
+        hiddens = []
         for layer, stream in zip(self.layers, streams):
             if remat and not wide:
                 # the masks come from the layer's own seeds, so the default
@@ -485,4 +494,9 @@ class Transformer(nn.Module):
                                   if remat_policy == "dots" else {}))
             else:
                 x = block(x, layer, stream)
-        return self.norm_out(x)
+            if return_hidden is not None:
+                hiddens.append(x)
+        out = self.norm_out(x)
+        if return_hidden is not None:   # `transformer_apply`'s tap
+            return out, hiddens[return_hidden]
+        return out

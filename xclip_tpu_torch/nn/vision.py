@@ -31,13 +31,14 @@ class VisionTransformer(nn.Module):
         if image_size % patch_size:
             raise ValueError("Image dimensions must be divisible by the "
                              "patch size.")
-        self.patch_size, self.ff_impl = patch_size, ff_impl
+        self.dim, self.patch_size, self.ff_impl = dim, patch_size, ff_impl
         self.patch_dropout = patch_dropout
+        self.num_patches = (image_size // patch_size) ** 2
         self.train_flags = dict(
             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             checkpoint_during_training=checkpoint_during_training,
             remat_policy=remat_policy)
-        num_patches = (image_size // patch_size) ** 2
+        num_patches = self.num_patches
         self.patch_proj = Linear(channels * patch_size ** 2, dim, bias=True,
                                  generator=generator, dtype=dtype)
         self.pos_emb = Embedding(num_patches, dim, generator=generator,
@@ -55,12 +56,15 @@ class VisionTransformer(nn.Module):
         return x.reshape(b, (H // p) * (W // p), p * p * c)
 
     def forward(self, x, *, attn_impl: str = "xla", training: bool = False,
-                generator=None, keep_idx=None, dropout_keep=None):
+                generator=None, keep_idx=None, dropout_keep=None,
+                return_hidden=None):
         """In training with patch dropout, `keep_idx` ((b, kept) patch
         indices) injects the kept patches; otherwise they are drawn from
         `generator` (see `layers.patch_dropout`), which then feeds the
         stack's dropout, or `dropout_keep` its masks
-        (`Transformer.forward`)."""
+        (`Transformer.forward`). With `return_hidden` (a layer index),
+        returns (out, the residual stream after that layer), as the JAX
+        tower does for the visual SSL's hidden-layer tap."""
         patches = self.patchify(x)
         n = patches.shape[1]
         if training and self.patch_dropout > 0.0:
@@ -74,8 +78,12 @@ class VisionTransformer(nn.Module):
         tokens = tokens + pos.to(tokens.dtype)
         out = self.transformer(tokens, attn_impl=attn_impl,
                                ff_impl=self.ff_impl, training=training,
+                               return_hidden=return_hidden,
                                **(dict(self.train_flags, generator=generator,
                                        dropout_keep=dropout_keep)
                                   if training else {}))
+        if return_hidden is not None:
+            out, hidden = out
         cls = self.to_cls(out.mean(dim=1))
-        return torch.cat([cls[:, None], out], dim=1)
+        full = torch.cat([cls[:, None], out], dim=1)
+        return full if return_hidden is None else (full, hidden)

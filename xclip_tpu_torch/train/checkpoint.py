@@ -2,7 +2,8 @@
 `xclip_tpu/train/checkpoint.py`, through `torch.save` / `torch.load`.
 
 A checkpoint holds what JAX's `TrainState` holds: the parameters (the
-model's `state_dict()`), the optimizer's state (`AdamW.state_dict()`, its
+model's `state_dict()`, with the SSL heads' BatchNorm running statistics,
+which JAX keeps among its parameters), the optimizer's state (`AdamW.state_dict()`, its
 step count included) and the step. It holds no generator state, as JAX's
 holds no key. A save is atomic, as Orbax's is: the file is written under a
 temporary name and moved into place with `os.replace`, so a kill during a

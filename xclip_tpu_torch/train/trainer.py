@@ -32,6 +32,15 @@ accumulate in the parameters' dtype in microbatch order, as JAX sums them
 from zeros, and are divided by `grad_accum` once, at the end, as are the
 metrics; `grad_norm` is the averaged gradients'. `valid=` is the loader's
 pad-and-mask (`CLIPModel.forward`'s `row_valid`).
+
+With a visual SSL head, the step writes the forward's BatchNorm statistics
+(`bn_updates`) into the heads' buffers after the optimizer's update, in
+their stored dtype (`trainer.py:44-56`, `:146-151`): they are buffers, so
+AdamW never sees them (JAX's optax keeps moments for them, zeros at every
+step, as their gradient is zero, and its update of them is overwritten by
+the fold). Under `grad_accum > 1`, as JAX documents it, only the LAST
+microbatch's statistics are kept, each microbatch folding from the
+statistics stored before the step.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import warnings
 from typing import Optional
 
 import torch
+
+from ..utils import cast_tuple
 
 
 def warmup_cosine_lr(step: int, learning_rate: float, warmup_steps: int = 0,
@@ -157,14 +168,19 @@ def default_optimizer(params, learning_rate: float = 3e-4,
 
 
 def make_train_step(model, optimizer, *, grad_accum: int = 1):
-    """Returns `step(text, image, generator=None, keep_idx=None, valid=None)
-    -> metrics`: the forward with the contrastive loss and its backward
-    (once, or once a microbatch), and one optimizer update of `model` (a
-    `CLIP` or a `CLIPModel`) in place. `generator` feeds the patch dropout
-    and any encoder dropout (default: the `CLIP`'s call generator; a
-    microbatch draws after the one before it), `keep_idx` injects the
-    patch indices (a microbatch takes its rows); `valid` (b,) bool marks
-    the rows of a padded short batch that count."""
+    """Returns `step(text, image, generator=None, keep_idx=None, valid=None,
+    *, aug_text=None, aug_image=None, mlm_draws=None, ssl_draws=None) ->
+    metrics`: the forward with the model's loss and its backward (once, or
+    once a microbatch), one optimizer update of `model` (a `CLIP` or a
+    `CLIPModel`) in place, and the fold of its SSL heads' BatchNorm
+    statistics. `generator` feeds every draw of the forward (default: the
+    `CLIP`'s call generator; a microbatch draws after the one before it);
+    `keep_idx` injects the patch indices (a microbatch takes its rows);
+    `valid` (b,) bool marks the rows of a padded short batch that count.
+    `aug_text` / `aug_image` are the augmented views (a microbatch takes
+    its rows of each); `mlm_draws` / `ssl_draws` inject the MLM's and the
+    visual SSL's draws (`CLIPModel.forward`), under `grad_accum > 1` as a
+    list of one a microbatch."""
     if grad_accum > 1:
         # the contrastive objective is NOT invariant to this split
         warnings.warn(
@@ -176,18 +192,22 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
             "(See the make_train_step docstring.)",
             stacklevel=2)
 
-    def forward_backward(text, image, generator, keep_idx, valid):
+    def forward_backward(text, image, generator, keep_idx, valid, **kw):
         loss, metrics = model(text, image, return_loss=True,
                               return_metrics=True, generator=generator,
-                              keep_idx=keep_idx, row_valid=valid)
+                              keep_idx=keep_idx, row_valid=valid, **kw)
         loss.backward()
-        return {k: v.detach() for k, v in metrics.items()}
+        bn = metrics.pop("bn_updates", None)
+        return {k: v.detach() for k, v in metrics.items()}, bn
 
-    def step(text, image, generator=None, keep_idx=None, valid=None):
+    def step(text, image, generator=None, keep_idx=None, valid=None, *,
+             aug_text=None, aug_image=None, mlm_draws=None, ssl_draws=None):
         optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            metrics = forward_backward(text, image, generator, keep_idx,
-                                       valid)
+            metrics, bn = forward_backward(
+                text, image, generator, keep_idx, valid, aug_text=aug_text,
+                aug_image=aug_image, mlm_draws=mlm_draws,
+                ssl_draws=ssl_draws)
         else:   # JAX's assertions, in its words
             if valid is not None:
                 raise AssertionError(
@@ -202,9 +222,18 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
             metrics = None
             for i in range(grad_accum):
                 rows = slice(i * mb, (i + 1) * mb)
-                m = forward_backward(
+
+                def part(views):
+                    return None if views is None else tuple(
+                        v[rows] for v in cast_tuple(views))
+
+                # the last microbatch's BatchNorm statistics are kept
+                m, bn = forward_backward(
                     text[rows], image[rows], generator,
-                    None if keep_idx is None else keep_idx[rows], None)
+                    None if keep_idx is None else keep_idx[rows], None,
+                    aug_text=part(aug_text), aug_image=part(aug_image),
+                    mlm_draws=None if mlm_draws is None else mlm_draws[i],
+                    ssl_draws=None if ssl_draws is None else ssl_draws[i])
                 metrics = m if metrics is None else {
                     k: metrics[k] + v for k, v in m.items()}
             grads = [p.grad for g in optimizer.param_groups
@@ -212,6 +241,8 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
             torch._foreach_div_(grads, grad_accum)
             metrics = {k: v / grad_accum for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.step()
+        if bn is not None:
+            getattr(model, "model", model).fold_bn_updates(bn)
         return metrics
 
     return step
