@@ -22,8 +22,10 @@ kernels raises ValueError naming the limit (phase 21), and only the JAX
 package's own gates send a flag to the plain path, with JAX's warning;
 remat, grad_accum, valid=, checkpoint and resume, and dropout train the
 flagship (phase 22); every objective of the JAX `CLIP` (MLM, SimSiam and
-SimCLR, multiview, sim-reg, FILIP, downsampling) trains it (phase 23). One
-line per phase; any failure exits non-zero, and nothing is caught.
+SimCLR, multiview, sim-reg, FILIP, downsampling) trains it (phase 23); the
+data-parallel step runs in a one-rank NCCL group, and K5 at one rank of the
+32k global batch (phase 24). One line per phase; any failure exits
+non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -257,6 +259,32 @@ line per phase; any failure exits non-zero, and nothing is caught.
              against `tests/data/torch_port_golden_objectives.npz`
              (metrics 1e-5, gradients 1e-3 of the leaf's magnitude + 1e-5,
              parameters 1e-5, statistics 1e-6 + 1e-5 relative).
+ 24 data-parallel  (a) a world-1 NCCL group (a file store, no TCP): the
+             flagship on the memory-lean routes at b = 256 from phase 8's
+             weights and inputs, one step as make_train_step takes it
+             (forward with axis_name, backward, the gradients' all-reduce,
+             AdamW) under gather_impl 'sharded' and 'replicated': with
+             loss_impl='fused' the loss, the metrics, every gradient and
+             every parameter after it bit for bit the step without a group,
+             K5's launches the same; with the dense loss the metrics within
+             1e-6 relative and the gradients within bf16's unit roundoff
+             (relative Frobenius); make_train_step(axis_name=group) timed
+             beside the step without a group (pairs/s), K5 launching 2 + 2
+             a step, and the gradient all-reduce's ms; (b) K5 at one rank
+             of the 32k global batch, x (2048, 512) against y (32,768, 512),
+             fp32 l2-normed, the rows × 14: forward and backward at row
+             offsets 0, 14,336 and 30,720 (ranks 0, 7 and 15; the
+             backward's column chunks are 8,192, so rank 15's diagonal lies
+             in its last chunk), DCL off and on, against the plain version
+             (lse 1e-4, gradients 1e-4 of their largest magnitude); CUDA-
+             event times of kernel, plain version and logsumexp(x @ y.T)
+             beside the bounds; (c) an emulated 8-rank split on the card:
+             b = 2048 latents with the extra heads and DCL, the port's
+             _fused_pair_losses on rows [256 r, 256 r + 256) against all
+             2048 columns at row offset 256 r: the summed loss within 1e-6
+             relative of the unsharded, the row gradients (in their rows)
+             and the column gradients summed over r within 1e-4 relative
+             Frobenius.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -3568,6 +3596,242 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
     phase(23, "objectives", f"{card}: " + "; ".join(lines))
 
 
+# one rank of the 32k global batch (docs/SCALING.md): 2048 rows against the
+# 32,768 gathered columns, d = 512; the ranks whose diagonal K5 masks
+SHARD_R, SHARD_C, SHARD_D = 2048, 32768, 512
+SHARD_OFFSETS = (0, 14336, 30720)        # ranks 0, 7 and 15 of 16
+SHARD_KERNELS = [
+    ("k5_fwd_shard", "K5 streaming_lse forward, one rank of the 32k batch "
+     "(2048 x 32,768 x 512)", "xclip_tpu_torch/csrc/fused_infonce.cu",
+     "xclip_tpu/kernels/fused_infonce.py:66"),
+    ("k5_bwd_shard", "K5 streaming_lse backward (dx, dy), one rank of the "
+     "32k batch (2048 x 32,768 x 512)",
+     "xclip_tpu_torch/csrc/fused_infonce.cu",
+     "xclip_tpu/kernels/fused_infonce.py:121"),
+]
+
+
+def rel_frob(got, want):
+    """‖got − want‖ / ‖want‖ over lists of tensors taken as one vector."""
+    num = sum(float((g.float() - w.float()).pow(2).sum())
+              for g, w in zip(got, want))
+    den = sum(float(w.float().pow(2).sum()) for w in want)
+    return math.sqrt(num / den)
+
+
+def data_parallel(card, CLIP, default_optimizer, make_train_step, lse5):
+    """Phase 24: (a) the flagship's data-parallel step in a world-1 NCCL
+    group beside the step without a group; (b) K5 at one rank of the 32k
+    global batch; (c) an emulated 8-rank split of the b = 2048 loss.
+    Returns (launches, errs, ms, costs, library) of the SHARD_KERNELS."""
+    import tempfile
+    import torch.distributed as dist
+    from xclip_tpu_torch.objectives.contrastive import _fused_pair_losses
+    from xclip_tpu_torch.parallel import all_reduce_sum_
+    normalize = torch.nn.functional.normalize
+    lines = []
+    bf16 = torch.bfloat16
+
+    # (a) --------------------------------------------------------------
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    group = dist.group.WORLD
+    b = 256
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256, dtype=bf16)
+    model = CLIP(**FLAGSHIP, **LEAN_ROUTES, param_dtype=bf16,
+                 compute_dtype="bfloat16", device="cuda", seed=0)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    k5 = {"k5_fwd": lse5.streaming_lse_fwd, "k5_bwd": lse5.streaming_lse_bwd}
+
+    def dp_step(axis_name, gather_impl, loss_impl):
+        """One step from phase 8's weights, as make_train_step takes it
+        (forward with the group, backward, the gradients' all-reduce,
+        AdamW): (metrics, gradients, parameters after, K5 launches)."""
+        model.load_state_dict(init)
+        model.model.loss_impl = loss_impl
+        opt = default_optimizer(model.parameters(), learning_rate=1e-4)
+        opt.zero_grad(set_to_none=True)
+        zero_counts(k5)
+        loss, metrics = model(text, images, return_loss=True,
+                              return_metrics=True, generator=step_gen(100),
+                              axis_name=axis_name, gather_impl=gather_impl)
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if axis_name is not None:
+            all_reduce_sum_(grads, axis_name)
+        metrics["grad_norm"] = opt.step()
+        torch.cuda.synchronize()
+        return ({k: v.detach().float() for k, v in metrics.items()},
+                [g.clone() for g in grads],
+                [p.detach().clone() for p in model.parameters()],
+                read_counts(k5))
+
+    for loss_impl in ("fused", "xla"):
+        base = dp_step(None, "sharded", loss_impl)
+        for gather_impl in ("sharded", "replicated"):
+            got = dp_step(group, gather_impl, loss_impl)
+            if got[3] != base[3] or base[3]["k5_fwd"] != (
+                    2 if loss_impl == "fused" else 0):
+                fail(f"world-1 {gather_impl} {loss_impl}: K5 launches "
+                     f"{got[3]}, without a group {base[3]}")
+            label = f"world-1 NCCL {gather_impl}, loss_impl='{loss_impl}'"
+            if loss_impl == "fused":
+                bad = [k for k in base[0]
+                       if not torch.equal(got[0][k], base[0][k])]
+                bad += [f"gradient {i}" for i, (g, w) in enumerate(
+                    zip(got[1], base[1])) if not torch.equal(g, w)]
+                bad += [f"parameter {i}" for i, (p, q) in enumerate(
+                    zip(got[2], base[2])) if not torch.equal(p, q)]
+                if bad or len(got[1]) != len(base[1]):
+                    fail(f"{label}: not bit for bit the step without a "
+                         f"group: {bad[:8]}")
+                lines.append(f"{gather_impl} fused: loss, metrics, "
+                             f"{len(got[1])} gradients and parameters bit "
+                             "for bit")
+            else:
+                worst = max(abs(float(got[0][k] - base[0][k]))
+                            / max(abs(float(base[0][k])), 1e-30)
+                            for k in base[0] if float(base[0][k]) != 0)
+                frob = rel_frob(got[1], base[1])
+                # the dense blocks take i2t as its own product (not the
+                # transpose of t2i), which may round otherwise in fp32;
+                # bf16 gradients then within bf16's unit roundoff
+                if not (worst <= 1e-6 and frob <= 2.0 ** -8):
+                    fail(f"{label}: metrics {worst:.3e} relative (tol "
+                         f"1e-6), gradients {frob:.3e} relative Frobenius "
+                         f"(tol 2^-8)")
+                lines.append(f"{gather_impl} dense: metrics {worst:.2e} "
+                             f"relative (tol 1e-6), gradients {frob:.2e} "
+                             "(tol 2^-8)")
+            print(f"  {label}: loss {float(got[0]['loss']):.6f} (without "
+                  f"a group {float(base[0]['loss']):.6f}), K5 launches "
+                  f"{got[3]}", flush=True)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    reduce_ms = cuda_ms(lambda: all_reduce_sum_(grads, group))
+    model.model.loss_impl = "fused"
+    timed = {}
+    for label, axis_name in (("none", None), ("group", group),
+                             ("none2", None), ("group2", group)):
+        model.load_state_dict(init)
+        step = make_train_step(model, default_optimizer(
+            model.parameters(), learning_rate=1e-4), axis_name=axis_name)
+
+        def run(i):
+            return step(text, images, generator=step_gen(100 + i))
+
+        ms, counts, _, losses = timed_steps(run, 1, 3,
+                                            k5 if label == "group" else {})
+        check_losses(f"data-parallel step ({label})", losses, b)
+        timed[label] = ms
+        if label == "group":
+            launches = {"k5_fwd_shard": counts["k5_fwd"],
+                        "k5_bwd_shard": counts["k5_bwd"]}
+            if launches != {"k5_fwd_shard": 8, "k5_bwd_shard": 8}:
+                fail(f"data-parallel step: K5 launches {counts} over 4 "
+                     "steps, expected 2 + 2 a step")
+    dp_ms = min(timed["group"], timed["group2"])
+    none_ms = min(timed["none"], timed["none2"])
+    lines.append(f"step {b * 1e3 / dp_ms:.1f} pairs/s in the group, "
+                 f"{b * 1e3 / none_ms:.1f} without; gradient all-reduce "
+                 f"{reduce_ms:.3f} ms ({nbytes / 2 ** 20:.1f} MiB)")
+    print(f"  lean step b={b}: world-1 NCCL group {dp_ms:.2f} ms "
+          f"({timed['group']:.2f}, {timed['group2']:.2f}), without a group "
+          f"{none_ms:.2f} ms ({timed['none']:.2f}, {timed['none2']:.2f}); "
+          f"gradient all-reduce {reduce_ms:.3f} ms over {len(grads)} "
+          f"gradients, {nbytes} bytes in one bf16 bucket", flush=True)
+    del model, init, step, grads
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) --------------------------------------------------------------
+    R, C, d = SHARD_R, SHARD_C, SHARD_D
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = normalize(rand(g, R, d), dim=-1) * 14.0   # rows × the temperature
+    y = normalize(rand(g, C, d), dim=-1)
+    dlse = rand(g, R)
+    errs = {"k5_fwd_shard": 0.0, "k5_bwd_shard": 0.0}
+    for offset in SHARD_OFFSETS:
+        for dcl in (False, True):
+            tag = f"K5 (2048, 32768, 512) row_offset {offset} DCL {dcl}"
+            lse = lse5.streaming_lse_fwd(x, y, offset, dcl)
+            want = lse5.streaming_lse_fwd_plain(x, y, offset, dcl)
+            errs["k5_fwd_shard"] = max(errs["k5_fwd_shard"], compare(
+                f"{tag} lse", lse, want, 1e-4))
+            got = lse5.streaming_lse_bwd(x, y, want, dlse, offset, dcl)
+            wgrad = lse5.streaming_lse_bwd_plain(x, y, want, dlse, offset,
+                                                 dcl)
+            errs["k5_bwd_shard"] = max(errs["k5_bwd_shard"], *(
+                compare(f"{tag} {name}", gg, w, 1e-4 * float(w.abs().max()))
+                for name, gg, w in zip(("dx", "dy"), got, wgrad)))
+            del lse, want, got, wgrad
+    offset = SHARD_OFFSETS[-1]
+    want = lse5.streaming_lse_fwd_plain(x, y, offset, False)
+    ms = {"k5_fwd_shard": (
+        cuda_ms(lambda: lse5.streaming_lse_fwd(x, y, offset, False)),
+        cuda_ms(lambda: lse5.streaming_lse_fwd_plain(x, y, offset, False))),
+        "k5_bwd_shard": (
+        cuda_ms(lambda: lse5.streaming_lse_bwd(x, y, want, dlse, offset,
+                                               False)),
+        cuda_ms(lambda: lse5.streaming_lse_bwd_plain(x, y, want, dlse,
+                                                     offset, False)))}
+    library = {"k5_fwd_shard": cuda_ms(
+        lambda: torch.logsumexp(x @ y.T, dim=-1)), "k5_bwd_shard": None}
+    costs = {"k5_fwd_shard": lse_cost("fwd", R, C, d),
+             "k5_bwd_shard": lse_cost("bwd", R, C, d)}
+    for key in ms:
+        b_ms, b_by = bound(*costs[key], FP32_PEAK)
+        lib = ("" if library[key] is None else
+               f", logsumexp(x @ y.T) {library[key]:.3f} ms")
+        print(f"  {key}: kernel {ms[key][0]:.3f} ms, plain "
+              f"{ms[key][1]:.3f} ms{lib}, bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+    lines.append(f"K5 at (2048, 32768, 512), row offsets "
+                 f"{list(SHARD_OFFSETS)} with and without DCL: fwd "
+                 f"{ms['k5_fwd_shard'][0]:.3f} ms, bwd "
+                 f"{ms['k5_bwd_shard'][0]:.3f} ms")
+    del x, y, dlse, want
+    torch.cuda.empty_cache()
+
+    # (c) --------------------------------------------------------------
+    B, ranks = 2048, 8
+    lat = [normalize(rand(g, B, 512), dim=-1) for _ in range(4)]
+    temp = torch.tensor(14.0, device="cuda")
+
+    def split_loss(parts):
+        """(the summed loss, the gradients of text, image, text extra,
+        image extra): each part's rows against every column at its row
+        offset, one backward through all of them (the rows' gradients
+        land in their own rows; the columns' add up over the parts, as
+        the reduce-scatter adds them)."""
+        tl, il, tx, ix = leaves = [t.clone().requires_grad_() for t in lat]
+        total = sum(_fused_pair_losses(
+            tl[None, rows], il[None], ix[None, rows], tx[None], temp, True,
+            offset, global_batch, None)[0]
+            for rows, offset, global_batch in parts)
+        total.backward()
+        return total.detach(), [t.grad for t in leaves]
+
+    whole, whole_g = split_loss([(slice(None), 0, None)])
+    per = B // ranks
+    split, split_g = split_loss([(slice(per * r, per * (r + 1)), per * r, B)
+                                 for r in range(ranks)])
+    loss_rel = abs(float(split - whole)) / abs(float(whole))
+    grad_rel = rel_frob(split_g, whole_g)
+    if not (loss_rel <= 1e-6 and grad_rel <= 1e-4):
+        fail(f"8-rank split of the b = 2048 K5 loss: loss {loss_rel:.3e} "
+             f"relative (tol 1e-6), gradients {grad_rel:.3e} relative "
+             "Frobenius (tol 1e-4)")
+    lines.append(f"8-rank split of b=2048 (DCL, extra heads): loss "
+                 f"{loss_rel:.2e} relative, gradients {grad_rel:.2e}")
+    del lat, whole_g, split_g
+    torch.cuda.empty_cache()
+    phase(24, "data-parallel", f"{card}: " + "; ".join(lines))
+    return launches, errs, ms, costs, library
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -3905,6 +4169,10 @@ def main():
     objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
                lse5, load_jax_params, numpy_params)
 
+    # --------------------------------------------------------------- 24
+    shard = data_parallel(card, CLIP, default_optimizer, make_train_step,
+                          lse5)
+
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
         b_ms, b_by = bound(*cost, peak)
@@ -3989,6 +4257,14 @@ def main():
             name, "xclip_tpu_torch/csrc/common.cuh", replaces,
             lean_launches[key], sum_errs[key], sum_ms[key], sum_costs[key],
             FP32_PEAK, sum_library[key]))
+    # K5 at one rank of the 32k batch: launches from phase 24's
+    # data-parallel step, times at (2048, 32768, 512) beside
+    # logsumexp(x @ y.T)
+    shard_launches, shard_errs, shard_ms, shard_costs, shard_library = shard
+    for key, name, source, replaces in SHARD_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, shard_launches[key], shard_errs[key],
+            shard_ms[key], shard_costs[key], FP32_PEAK, shard_library[key]))
     # no time under the least the card could take: one below its bound was
     # read from a cache the bound does not count
     for k in record["kernels"]:

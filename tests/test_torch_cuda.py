@@ -1804,3 +1804,43 @@ def test_filip_blocked_matches_dense_on_the_card(cuda_device):
     assert torch.isfinite(want)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     _gradient_rule(got_g, want_g)
+
+
+@pytest.mark.cuda
+def test_streaming_lse_at_one_rank_of_the_32k_batch(cuda_device):
+    """K5 at one rank of the 32k global batch: 2048 rows against 32,768
+    gathered columns (d = 512), DCL at row_offset 30,720 (rank 15). The
+    backward takes the columns in chunks of 8,192, so the diagonal falls
+    in its last chunk; forward and backward against the plain version."""
+    R, C, d, offset = 2048, 32768, 512, 30720
+    assert lse5.bwd_plan(R, C, d)[0] == 8192
+    x, y = _lse_inputs(R, C, d, cuda_device)
+    lse = lse5.streaming_lse_fwd(x, y, offset, True)
+    want = lse5.streaming_lse_fwd_plain(x, y, offset, True)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    dlse = torch.randn(R, device=cuda_device)
+    got = lse5.streaming_lse_bwd(x, y, want, dlse, offset, True)
+    _assert_all_close(got, lse5.streaming_lse_bwd_plain(
+        x, y, want, dlse, offset, True), "float32", ("dx", "dy"))
+
+
+@pytest.mark.cuda
+def test_gloo_group_refuses_cuda_tensors(cuda_device, tmp_path):
+    """A gloo group carries CPU tensors only: the collectives raise on a
+    CUDA tensor instead of staging it through the host."""
+    import torch.distributed as dist
+    from xclip_tpu_torch.parallel import all_gather, all_reduce_sum_, psum
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        x = torch.ones(2, 3, device=cuda_device, requires_grad=True)
+        for call in (lambda: all_gather(x, group, dim=1),
+                     lambda: psum(x, group),
+                     lambda: all_reduce_sum_([x.detach()], group)):
+            with pytest.raises(ValueError, match="gloo"):
+                call()
+        assert torch.equal(all_gather(x.detach().cpu(), group, dim=1),
+                           torch.ones(2, 3))
+    finally:
+        dist.destroy_process_group()

@@ -103,6 +103,37 @@ def test_zero_shot_and_retrieval_match(kernel_pair):
     assert teval.retrieval_metrics(tl, il) == jeval.retrieval_metrics(*jl)
 
 
+@pytest.mark.parametrize("helper", ["build_zero_shot_classifier",
+                                    "zero_shot_logits"])
+def test_zero_shot_refuses_filip(helper):
+    """A FILIP model's latents are per token: both zero-shot helpers raise
+    JAX's ValueError, in its words, where JAX raises it."""
+    jclip, params, tclip = _pair(use_all_token_embeds=True)
+    classes, image = _inputs(b=2, seed=5)
+    with pytest.raises(ValueError) as want:
+        if helper == "build_zero_shot_classifier":
+            jeval.build_zero_shot_classifier(jclip.model, params,
+                                             jnp.asarray(classes))
+        else:
+            jeval.zero_shot_logits(jclip.model, params, jnp.asarray(image),
+                                   jnp.zeros((2, 64)))
+    with pytest.raises(ValueError) as got:
+        if helper == "build_zero_shot_classifier":
+            teval.build_zero_shot_classifier(tclip,
+                                             torch.from_numpy(classes))
+        else:
+            teval.zero_shot_logits(tclip.model, torch.from_numpy(image),
+                                   torch.zeros(2, 64))
+    assert str(got.value) == str(want.value)
+    assert "use_all_token_embeds=True" in str(got.value)
+
+
+def test_exports_match_jax():
+    assert xclip_tpu_torch.__all__ == xclip_tpu.__all__
+    for name in xclip_tpu_torch.__all__:
+        assert getattr(xclip_tpu_torch, name).__name__ == name
+
+
 def test_extra_latent_heads_match():
     """All-plain routes, with the extra latent heads: text_to_image=False
     scores through the extra heads, and return_latents gives four."""
@@ -148,14 +179,15 @@ def test_signature_matches_jax_clip():
         if k != "param_dtype":              # jnp.float32 vs torch.float32
             assert jax_init[k] == port_init[k], k
     jax_call = _params(xclip_tpu.CLIP.__call__,
-                       drop=("rng", "params", "axis_name", "return_metrics"))
+                       drop=("rng", "params", "return_metrics"))
     # the port's own training extras: the patch-dropout, dropout, MLM and
-    # visual SSL draws (JAX's rng), the metrics flag, and the pad-and-mask
-    # rows (JAX's train step hands them to `CLIPModel.apply`)
+    # visual SSL draws (JAX's rng), the metrics flag, the pad-and-mask
+    # rows and `gather_impl` (JAX's train step and shard_map callers hand
+    # them to `CLIPModel.apply`)
     port_call = _params(xclip_tpu_torch.CLIP.forward,
                         drop=("return_metrics", "generator", "keep_idx",
                               "dropout_keep", "row_valid", "mlm_draws",
-                              "ssl_draws"))
+                              "ssl_draws", "gather_impl"))
     assert list(jax_call) == list(port_call)
 
 
@@ -327,7 +359,7 @@ def test_seeded_init_is_reproducible():
 
 def test_import_leaves_jax_out():
     code = ("import sys, xclip_tpu_torch, xclip_tpu_torch.eval, "
-            "xclip_tpu_torch.convert; "
+            "xclip_tpu_torch.convert, xclip_tpu_torch.parallel; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], check=True)

@@ -1,0 +1,270 @@
+"""The ranks of the port's data-parallel tests: `spawn(cases, world, dir)`
+starts `world` processes (multiprocessing 'spawn'; this module is their
+target, so it imports torch and `xclip_tpu_torch` only, never JAX), joins
+them within a time limit and kills them past it, and returns each rank's
+results.
+
+Each rank joins a gloo group through a file store in `dir` (no TCP port),
+with a 60 s collective timeout and one thread, runs every case in order,
+and writes its results to `dir/rank{r}.npz`: for case `name`, the arrays
+`name/<key>`, or `name/error` with the traceback when the case raised.
+A case is a dict with `kind` (a function of this module), and what that
+function reads: the port's CLIP config and weights (`numpy_params` trees),
+the global batch as numpy, and keyword arguments.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+import time
+import traceback
+import warnings
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+COLLECTIVE_TIMEOUT = 60
+
+
+def spawn(cases, world, work_dir, timeout=300):
+    """Run `cases` on `world` gloo ranks; returns [rank's results dict]
+    ({case name: {key: array}}); a rank that did not finish in `timeout`
+    seconds is killed and its results are missing ({})."""
+    path = os.path.join(work_dir, "cases.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(cases, f)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=main, args=(r, world, work_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        f = os.path.join(work_dir, f"rank{r}.npz")
+        results = {}
+        if os.path.exists(f):
+            with np.load(f) as z:
+                for key in z.files:
+                    name, item = key.split("/", 1)
+                    results.setdefault(name, {})[item] = z[key]
+        out.append(results)
+    return out
+
+
+def main(rank, world, work_dir):
+    torch.set_num_threads(1)
+    warnings.simplefilter("ignore")
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(work_dir, 'store')}",
+        rank=rank, world_size=world,
+        timeout=timedelta(seconds=COLLECTIVE_TIMEOUT))
+    group = dist.group.WORLD
+    with open(os.path.join(work_dir, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    flat = {}
+    try:
+        for case in cases:
+            try:
+                res = globals()[case["kind"]](case, group)
+            except Exception:
+                res = {"error": np.array(traceback.format_exc())}
+            for k, v in res.items():
+                flat[f"{case['name']}/{k}"] = np.asarray(v)
+            dist.barrier(group)
+    finally:
+        np.savez(os.path.join(work_dir, f"rank{rank}.npz"), **flat)
+        dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------- helpers
+
+def _clip(case):
+    import xclip_tpu_torch
+    from xclip_tpu_torch.convert import load_jax_params
+    ssl = case.get("ssl")
+    if ssl is not None:
+        from xclip_tpu_torch.objectives import ssl as tssl
+        kind, kw = ssl
+        ssl = (tssl.SimSiam if kind == "simsiam" else tssl.SimCLR)(**kw)
+    clip = xclip_tpu_torch.CLIP(**case["config"], visual_ssl=ssl,
+                                device="cpu")
+    load_jax_params(clip, case["tree"])
+    return clip
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as {"a.b.c": fp32 numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def _grads(clip):
+    from xclip_tpu_torch.convert import to_jax_tree
+    return {f"grad:{k}": v for k, v in
+            flat_tree(to_jax_tree(clip, grads=True)).items()}
+
+
+def _shard(group, arrays):
+    """This rank's rows of each numpy array (None stays None), as torch
+    tensors, through the port's `shard_batch`."""
+    from xclip_tpu_torch.train import shard_batch
+    present = [torch.from_numpy(np.asarray(a)) for a in arrays
+               if a is not None]
+    shards = iter(shard_batch(present, group))
+    return [None if a is None else next(shards) for a in arrays]
+
+
+def _draws(case, rank):
+    """The injected draws of this rank (numpy → torch), if any."""
+    draws = case.get("draws")
+    if draws is None:
+        return {}
+    draws = draws[rank] if isinstance(draws, list) else draws
+
+    def conv(x):
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(x)
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return x
+    return conv(draws)
+
+
+# ------------------------------------------------------------------- cases
+
+def loss(case, group):
+    """One training forward on this rank's shard with `axis_name=group`:
+    the loss, the metrics and this rank's parameter gradients."""
+    clip = _clip(case)
+    b = case["batch"]
+    text, image, aug_text, aug_image, valid = _shard(group, [
+        b["text"], b["image"], b.get("aug_text"), b.get("aug_image"),
+        b.get("valid")])
+    kw = dict(case.get("kwargs", {}))
+    loss, metrics = clip(text, image, return_loss=True, return_metrics=True,
+                         aug_text=aug_text, aug_image=aug_image,
+                         row_valid=valid, axis_name=group,
+                         **_draws(case, dist.get_rank(group)), **kw)
+    loss.backward()
+    out = {"loss": loss.item()}
+    out.update({f"metric:{k}": v.item() for k, v in metrics.items()
+                if k != "bn_updates"})
+    out.update(_grads(clip))
+    return out
+
+
+def raises(case, group):
+    """The type and message of what a forward with `axis_name=group`
+    raises (nothing: type '')."""
+    clip = _clip(case)
+    b = case["batch"]
+    text, image, valid = _shard(group, [b["text"], b["image"],
+                                        b.get("valid")])
+    try:
+        clip(text, image, return_loss=True, row_valid=valid,
+             axis_name=group)
+    except Exception as e:   # what is raised is the result
+        return {"type": type(e).__name__, "message": str(e)}
+    return {"type": "", "message": ""}
+
+
+def shard_rows(case, group):
+    """`shard_batch`'s rows for this rank, and its refusal of a batch that
+    does not divide."""
+    from xclip_tpu_torch.train import shard_batch
+    text, image = (torch.from_numpy(case["batch"][k])
+                   for k in ("text", "image"))
+    st, si = shard_batch((text, image), group)
+    try:
+        shard_batch((text[:case["indivisible"]],), group)
+        message = ""
+    except ValueError as e:
+        message = str(e)
+    return {"text": st.numpy(), "image": si.numpy(), "message": message}
+
+
+def collectives(case, group):
+    """The collectives and their backward on rank-dependent inputs."""
+    from xclip_tpu_torch.parallel import (all_gather, all_reduce_sum_,
+                                          axis_index, axis_size, pmean,
+                                          psum, replicated)
+    rank, world = axis_index(group), axis_size(group)
+    out = {"rank": rank, "world": world, "jax_imported": any(
+        m.split(".")[0] in ("jax", "xclip_tpu") for m in sys.modules)}
+    # (m, b, d) views gathered on dim 1; each rank's loss weighs the
+    # gathered tensor by its own weights, so the backward must sum the
+    # ranks' gradients of this rank's slice
+    gen = torch.Generator().manual_seed(100 + rank)
+    x = torch.randn(2, 3, 5, generator=gen, requires_grad=True)
+    w = torch.randn(2, 3 * world, 5, generator=gen)
+    y = all_gather(x, group, dim=1)
+    (y * w).sum().backward()
+    out.update(x=x.detach(), w=w, gathered=y.detach(), gather_grad=x.grad)
+    # psum of a replicated sum: backward the identity, not world ×
+    v = torch.tensor(float(rank + 1), requires_grad=True)
+    total = psum(v * v, group)
+    total.backward()
+    out.update(psum=total.detach(), psum_grad=v.grad)
+    # the trap: torch.distributed.nn's all_reduce all-reduces the gradient
+    import torch.distributed.nn.functional as dnn
+    v2 = torch.tensor(float(rank + 1), requires_grad=True)
+    dnn.all_reduce(v2 * v2, group=group).backward()
+    out.update(dnn_grad=v2.grad)
+    # pmean: forward psum / world, backward / world
+    v3 = torch.tensor(float(rank + 1), requires_grad=True)
+    mean = pmean(v3 * v3, group)
+    mean.backward()
+    out.update(pmean=mean.detach(), pmean_grad=v3.grad)
+    # a replicated value: the identity forward, / world backward
+    v4 = torch.tensor(3.0, requires_grad=True)
+    rep = replicated(v4 * v4, group)
+    rep.backward()
+    out.update(replicated=rep.detach(), replicated_grad=v4.grad)
+    # masks gather as they are
+    mask = torch.arange(4) % (rank + 2) == 0
+    out.update(mask=mask, gathered_mask=all_gather(mask, group, dim=0))
+    # the flat all-reduce, two dtypes
+    ts = [torch.full((2, 3), float(rank)), torch.arange(4.0) * (rank + 1),
+          torch.full((3,), rank + 1, dtype=torch.float64)]
+    all_reduce_sum_(ts, group)
+    out.update({f"flat{i}": t for i, t in enumerate(ts)})
+    return out
+
+
+def step(case, group):
+    """One (or `steps`) data-parallel `make_train_step` on this rank's
+    shard: the metrics, the warnings and the parameters after it."""
+    from xclip_tpu_torch.convert import to_jax_tree
+    from xclip_tpu_torch.train import default_optimizer, make_train_step
+    clip = _clip(case)
+    b = case["batch"]
+    text, image = _shard(group, [b["text"], b["image"]])
+    opt = default_optimizer(clip.parameters(), **case["optimizer"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn = make_train_step(clip, opt, axis_name=group,
+                             **case.get("step", {}))
+    metrics = fn(text, image)
+    out = {f"metric:{k}": v.item() for k, v in metrics.items()}
+    out["warnings"] = np.array([str(w.message) for w in caught] or [""])
+    out.update({f"param:{k}": v for k, v in
+                flat_tree(to_jax_tree(clip)).items()})
+    return out

@@ -12,5 +12,10 @@ from .api import CLIP
 from .model import CLIPModel
 from .nn.text import TextTransformer
 from .nn.vision import VisionTransformer
+from .objectives.mlm import MLM
+from .objectives.ssl import SimCLR, SimSiam
 
-__all__ = ["CLIP", "CLIPModel", "TextTransformer", "VisionTransformer"]
+__all__ = [
+    "CLIP", "CLIPModel", "TextTransformer", "VisionTransformer",
+    "MLM", "SimSiam", "SimCLR",
+]

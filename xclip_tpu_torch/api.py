@@ -9,8 +9,9 @@ there raises, nothing falls back to the CPU), `seed=` /
 dropout, custom encoders' dropout, the MLM's and the visual SSL's draws; by
 default the model's own call generator, as the JAX `CLIP` folds a call
 counter into its key), `keep_idx=`, `dropout_keep=`, `mlm_draws=` and
-`ssl_draws=` (injected draws, see `CLIPModel.forward`), `row_valid=` and
-`return_metrics=`. `save(path)` / `load(path)` keep and restore the
+`ssl_draws=` (injected draws, see `CLIPModel.forward`), `row_valid=`,
+`return_metrics=`, and JAX's `axis_name=` (here a `torch.distributed`
+`ProcessGroup`) and `gather_impl=` for data parallelism. `save(path)` / `load(path)` keep and restore the
 parameters and the SSL heads' BatchNorm statistics (`train.checkpoint`).
 
 The port serves inference and trains (`return_loss=True`, and
@@ -235,7 +236,9 @@ class CLIP(nn.Module):
                 dropout_keep=None,
                 row_valid=None,
                 mlm_draws=None,
-                ssl_draws=None):
+                ssl_draws=None,
+                axis_name=None,
+                gather_impl="sharded"):
         """Inference scores, encodings or latents; with `return_loss` (which
         makes `training` default to True) the loss of a training forward
         with every objective the model has, differentiable in every
@@ -254,4 +257,5 @@ class CLIP(nn.Module):
                           training=training, return_metrics=return_metrics,
                           generator=generator, keep_idx=keep_idx,
                           dropout_keep=dropout_keep, row_valid=row_valid,
-                          mlm_draws=mlm_draws, ssl_draws=ssl_draws)
+                          mlm_draws=mlm_draws, ssl_draws=ssl_draws,
+                          axis_name=axis_name, gather_impl=gather_impl)

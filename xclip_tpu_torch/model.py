@@ -8,11 +8,14 @@ A causal text tower (no CLS) is pooled at its first EOS token, moved to
 position 0 (`_eos_reorder`).
 
 Mixed precision follows the JAX model: with `compute_dtype`, the images
-are cast to it on entry and every float parameter is applied in it (the
-modules cast each parameter to the dtype of the activation they are
-given); latents are normalised in fp32 and exp(temperature) is taken in
-fp32. Augmented views are concatenated as given (an fp32 view promotes
-the batch, as `jnp.concatenate` does).
+are cast to it on entry and every float parameter, BatchNorm statistics
+included, is rounded to it before it meets an activation (the forward
+and the encoders run under `nn.core.computing_in(compute_dtype)`; the
+modules cast each rounded parameter to the dtype of the activation they
+are given, which is fp32 on the SSL views); latents are normalised in
+fp32 and exp(temperature) is taken in fp32. Augmented views are
+concatenated as given (an fp32 view promotes the batch, as
+`jnp.concatenate` does).
 
 Inference (training False) runs under `torch.no_grad()` through the
 kernels' lean forwards. Training (the default when `return_loss`) runs the
@@ -38,8 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn.core import Linear, _uniform
+from .nn.core import Linear, _uniform, cast, computing_in
 from .objectives.contrastive import clip_contrastive_loss
+from .parallel.collectives import pmean
 from .utils import cast_tuple, l2norm
 
 
@@ -89,9 +93,9 @@ class DownsampleLatent(nn.Module):
                                  "path)")
         dt = image_embeds.dtype
         x = image_embeds.transpose(1, 2).reshape(b, d, h, h)
-        x = F.conv2d(x, self.dw.w.to(dt), stride=2, padding=1, groups=d)
-        x = F.conv2d(x, self.pw.w.to(dt)) + self.pw.b.to(dt)[None, :, None,
-                                                              None]
+        x = F.conv2d(x, cast(self.dw.w, dt), stride=2, padding=1, groups=d)
+        x = F.conv2d(x, cast(self.pw.w, dt)) + cast(self.pw.b, dt)[
+            None, :, None, None]
         return x.reshape(b, x.shape[1], -1).transpose(1, 2)
 
 
@@ -221,16 +225,18 @@ class CLIPModel(nn.Module):
     def encode_text(self, text):
         """(b, n) token ids → (b, dim_latent) l2-normed fp32 latents ((b,
         n, dim_latent) per token with FILIP)."""
-        return self._latent(self.to_text_latent, self._embeds(
-            self._encode_text(text), self.text_has_cls_token))
+        with computing_in(self.compute_dtype):
+            return self._latent(self.to_text_latent, self._embeds(
+                self._encode_text(text), self.text_has_cls_token))
 
     @torch.no_grad()
     def encode_image(self, image):
         """(b, c, H, W) images → (b, dim_latent) l2-normed fp32 latents (per
         token with FILIP)."""
-        return self._latent(self.to_visual_latent, self._embeds(
-            self._encode_image(self._cast_image(image)),
-            self.visual_has_cls_token))
+        with computing_in(self.compute_dtype):
+            return self._latent(self.to_visual_latent, self._embeds(
+                self._encode_image(self._cast_image(image)),
+                self.visual_has_cls_token))
 
     def forward(self, text, image, *, return_loss: bool = False,
                 return_encodings: bool = False,
@@ -239,7 +245,8 @@ class CLIPModel(nn.Module):
                 freeze_text_encoder: bool = False, aug_text=None,
                 aug_image=None, training=None, return_metrics: bool = False,
                 generator=None, keep_idx=None, dropout_keep=None,
-                row_valid=None, mlm_draws=None, ssl_draws=None):
+                row_valid=None, mlm_draws=None, ssl_draws=None,
+                axis_name=None, gather_impl: str = "sharded"):
         """As `xclip_tpu.model.CLIPModel.apply`. `training` defaults to
         `return_loss`. `aug_text` / `aug_image`: augmented views (a tensor
         or a tuple of them, each the shape of `text` / `image`), training
@@ -252,6 +259,17 @@ class CLIPModel(nn.Module):
         exp(temperature), and with a visual SSL head `bn_updates`, its
         BatchNorm statistics' new values ({module path: (mean, var)}, which
         `fold_bn_updates` writes into the buffers).
+
+        Data parallelism (`model.py:237-238`, `:394-407`): under
+        `axis_name`, a `torch.distributed` `ProcessGroup` whose ranks each
+        hold an equal shard of the global batch (`train.shard_batch`), the
+        contrastive loss brings in the other ranks' latents as
+        `gather_impl` says ('sharded': local rows against gathered
+        columns; 'replicated': the whole batch on every rank;
+        `objectives.contrastive`) and is the global batch's; the MLM and
+        visual SSL losses are this shard's, averaged over the ranks
+        (`parallel.pmean`). Summing the ranks' parameter gradients then
+        gives the gradient of that loss (`train.make_train_step`).
 
         The randomness of a training forward comes from `generator` (by
         default PyTorch's), or is injected, as JAX's and PyTorch's random
@@ -277,19 +295,20 @@ class CLIPModel(nn.Module):
             raise AssertionError(   # JAX's assertion, in its words
                 "row_valid only masks the contrastive loss; disable "
                 "use_mlm / use_visual_ssl or drop the final short batch")
-        with contextlib.nullcontext() if training else torch.no_grad():
+        with contextlib.nullcontext() if training else torch.no_grad(), \
+                computing_in(self.compute_dtype):
             return self._forward(
                 text, image, return_loss, return_encodings, return_latents,
                 text_to_image, freeze_image_encoder, freeze_text_encoder,
                 aug_text, aug_image, training, return_metrics, generator,
                 keep_idx, dropout_keep or {}, row_valid, mlm_draws,
-                ssl_draws)
+                ssl_draws, axis_name, gather_impl)
 
     def _forward(self, text, image, return_loss, return_encodings,
                  return_latents, text_to_image, freeze_image_encoder,
                  freeze_text_encoder, aug_text, aug_image, training,
                  return_metrics, generator, keep_idx, keep, row_valid,
-                 mlm_draws, ssl_draws):
+                 mlm_draws, ssl_draws, axis_name, gather_impl):
         image = self._cast_image(image)
         text_mask = text != self.text_pad_id
         zero = torch.zeros((), dtype=torch.float32, device=text.device)
@@ -374,8 +393,12 @@ class CLIPModel(nn.Module):
             image_latents_extra=(views(il_extra, num_images) if extra
                                  else None),
             sim_reg=self.sim_reg_loss_weight > 0.0, row_valid=row_valid,
-            loss_impl=self.loss_impl, filip_block=self.filip_block)
+            loss_impl=self.loss_impl, filip_block=self.filip_block,
+            axis_name=axis_name, gather_impl=gather_impl)
         cl_loss, multiview_cl_loss = cl_losses[0], cl_losses[1:]
+        if axis_name is not None:   # this shard's SSL losses, averaged
+            text_ssl_loss = pmean(text_ssl_loss, axis_name)
+            image_ssl_loss = pmean(image_ssl_loss, axis_name)
 
         # the weighted total (`model.py:412-421`)
         text_ssl_w = self.text_ssl_loss_weight if self.mlm is not None else 0.0

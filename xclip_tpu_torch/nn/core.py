@@ -12,8 +12,14 @@ package's distributions: linear weight and bias U(-1/sqrt(in), 1/sqrt(in)),
 embeddings N(0, 1), LayerNorm gains 1. The numbers differ from JAX's.
 
 Mixed precision: a module applies its parameters cast to the dtype of the
-activation it is given (`w.to(x.dtype)`), which is what the JAX model's
-cast of every float parameter to `compute_dtype` at entry amounts to.
+activation it is given, through `cast(w, x.dtype)`. Under
+`computing_in(dtype)` (the model's `compute_dtype`, set by `CLIPModel`)
+`cast` rounds a parameter to that dtype first, as the JAX model casts
+every float parameter, BatchNorm statistics included, to `compute_dtype`
+on entry: an fp32 activation (the SSL views, which the augmentation
+promotes) then meets the rounded weight, and the gradient is rounded on
+its way back, as JAX's is. A remat recompute runs outside the forward's
+context, so `Transformer` carries it into what it recomputes.
 
 BatchNorm1d (the SSL heads' only normalisation) keeps its running `mean`
 and `var` as buffers, not parameters: they carry no gradient, so the
@@ -31,11 +37,41 @@ never agree, so tests inject the masks JAX draws).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_COMPUTE_DTYPE = contextvars.ContextVar("compute_dtype", default=None)
+
+
+@contextlib.contextmanager
+def computing_in(dtype):
+    """Parameters are rounded to `dtype` (None: not at all) by `cast`
+    within this context."""
+    token = _COMPUTE_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.reset(token)
+
+
+def compute_dtype():
+    """The dtype of the innermost `computing_in`, or None."""
+    return _COMPUTE_DTYPE.get()
+
+
+def cast(p, dtype):
+    """Parameter or buffer `p` in `dtype`, rounded first to the compute
+    dtype where one is set (`computing_in`)."""
+    rounding = _COMPUTE_DTYPE.get()
+    if rounding is not None and p.dtype != rounding and p.is_floating_point():
+        p = p.to(rounding)
+    return p.to(dtype)
 
 
 def _uniform(shape, bound, generator, dtype):
@@ -54,8 +90,8 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        y = x @ self.w.to(x.dtype)
-        return y + self.b.to(x.dtype) if self.b is not None else y
+        y = x @ cast(self.w, x.dtype)
+        return y + cast(self.b, x.dtype) if self.b is not None else y
 
 
 class Embedding(nn.Module):
@@ -80,7 +116,7 @@ def layer_norm(x, g):
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
-    inv = (torch.rsqrt(var + eps) * g.to(x.dtype).float()).to(x.dtype)
+    inv = (torch.rsqrt(var + eps) * cast(g, x.dtype).float()).to(x.dtype)
     return (x - mean.to(x.dtype)) * inv
 
 
@@ -119,10 +155,10 @@ class BatchNorm1d(nn.Module):
             mean = xf.mean(dim=0).to(x.dtype)
             var = xf.var(dim=0, unbiased=False).to(x.dtype)
         else:
-            mean, var = self.mean.to(x.dtype), self.var.to(x.dtype)
+            mean, var = cast(self.mean, x.dtype), cast(self.var, x.dtype)
         out = (x - mean) * torch.rsqrt(var + eps)
         if self.scale is not None:
-            out = out * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+            out = out * cast(self.scale, x.dtype) + cast(self.bias, x.dtype)
         return out, (mean, var)
 
 

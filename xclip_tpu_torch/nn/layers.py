@@ -89,7 +89,8 @@ from ..kernels.fused_ff import geglu_layernorm
 from ..kernels.fused_ff_block import (ff_block, ff_block_train,
                                       ff_block_train_recompute,
                                       ff_block_train_stored_h)
-from .core import LayerNorm, Linear, RngStream, dropout, layer_norm
+from .core import (LayerNorm, Linear, RngStream, cast, compute_dtype,
+                   computing_in, dropout, layer_norm)
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv", "flash")
 MEGA_IMPLS = ("fused", "fused_recompute", "fused_qkv")
@@ -252,15 +253,15 @@ class FeedForward(nn.Module):
     def forward(self, x, ff_impl="xla", *, rate=0.0, rngs=None,
                 remat_wide=False):
         x = self.norm(x)
-        w = self.w_in.w.to(x.dtype)
+        w = cast(self.w_in.w, x.dtype)
+        g = cast(self.inner_norm.g, x.dtype)
         if ff_impl == "fused":
-            x = geglu_layernorm(x @ w, self.inner_norm.g.to(x.dtype))
+            x = geglu_layernorm(x @ w, g)
         else:
             if remat_wide:
-                x = checkpoint(ff_middle, x, w, self.inner_norm.g,
-                               use_reentrant=False)
+                x = checkpoint(ff_middle, x, w, g, use_reentrant=False)
             else:
-                x = ff_middle(x, w, self.inner_norm.g)
+                x = ff_middle(x, w, g)
             if rate:
                 x = dropout(x, rate, rngs)
         return self.w_out(x)
@@ -463,23 +464,31 @@ class Transformer(nn.Module):
                         torch.ones(x.shape[:2], dtype=torch.bool,
                                    device=x.device))
 
+        rounding = compute_dtype()
+
         def block(x, layer, stream):
-            """One layer, attention then FF; its weight casts and dropout
-            stream inside, where a recompute repeats them."""
+            """One layer, attention then FF; its weight casts (in the
+            forward's compute dtype) and dropout stream inside, where a
+            recompute repeats them."""
+            with computing_in(rounding):
+                return layer_body(x, layer, stream)
+
+        def layer_body(x, layer, stream):
             a, f = layer.attn, layer.ff
             dt = x.dtype
             rngs = RngStream(**stream) if stream else None
             if use_mega:
                 x = mega(
-                    x, a.norm.g.to(dt), a.to_qkv.w.to(dt), a.to_out.w.to(dt),
-                    a.out_norm.g.to(dt), key_mask, self.heads, self.dim_head,
+                    x, cast(a.norm.g, dt), cast(a.to_qkv.w, dt),
+                    cast(a.to_out.w, dt), cast(a.out_norm.g, dt), key_mask,
+                    self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
                 x = a.run(x, mask, causal, rotary, attn_route, rate=attn_rate,
                           rngs=rngs, remat_wide=wide) + x
             if use_ffb:
-                return ffb(x, f.norm.g.to(dt), f.w_in.w.to(dt),
-                           f.inner_norm.g.to(dt), f.w_out.w.to(dt))
+                return ffb(x, cast(f.norm.g, dt), cast(f.w_in.w, dt),
+                           cast(f.inner_norm.g, dt), cast(f.w_out.w, dt))
             return f(x, ffn_route, rate=ff_rate, rngs=rngs,
                      remat_wide=wide) + x
 

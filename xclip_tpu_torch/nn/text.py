@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .core import Embedding
+from .core import Embedding, cast
 from .layers import Transformer, rotary_freqs
 
 
@@ -54,15 +54,15 @@ class TextTransformer(nn.Module):
         (`Transformer.forward`)."""
         b, n = x.shape
         dtype = dtype or self.token_emb.emb.dtype
-        h = self.token_emb(x).to(dtype)
+        h = cast(self.token_emb(x), dtype)
         if self.abs_pos_emb is not None:
-            h = h + self.abs_pos_emb.emb[:n].to(dtype)[None]
+            h = h + cast(self.abs_pos_emb.emb[:n], dtype)[None]
         rotary = None
         if self.rotary_pos_emb:
             rotary = rotary_freqs(n + (0 if self.causal else 1),
                                   min(self.dim_head, 32), device=x.device)
         if not self.causal:
-            cls = self.cls_token.to(dtype).expand(b, 1, self.dim)
+            cls = cast(self.cls_token, dtype).expand(b, 1, self.dim)
             h = torch.cat([cls, h], dim=1)
             if mask is not None:
                 mask = F.pad(mask, (1, 0), value=True)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .core import Embedding, Linear
+from .core import Embedding, Linear, cast
 from .layers import Transformer, patch_dropout
 
 
@@ -75,7 +75,7 @@ class VisionTransformer(nn.Module):
         else:
             pos = self.pos_emb.emb[:n][None]
         tokens = self.patch_proj(patches)
-        tokens = tokens + pos.to(tokens.dtype)
+        tokens = tokens + cast(pos, tokens.dtype)
         out = self.transformer(tokens, attn_impl=attn_impl,
                                ff_impl=self.ff_impl, training=training,
                                return_hidden=return_hidden,

@@ -42,8 +42,27 @@ holds with `loss_impl='fused'`; not with FILIP.
 invalid rows the mean, which divides by the count of valid rows. Only the
 plain loss takes it (`loss_impl='xla'`, no FILIP, no sim-reg), as in JAX.
 
-The cross-device paths (`axis_name`) are ROADMAP.md Queue 1, the
-row-sharded loss.
+Across ranks (`axis_name`, a `torch.distributed` `ProcessGroup` whose
+every rank holds b_local rows of the global batch B = b_local · world, in
+rank order; `parallel.collectives`):
+  * `gather_impl='sharded'` (`_sharded_contrastive_loss`,
+    `contrastive.py:223-350`): this rank's rows against the gathered
+    columns, (b_local, B) blocks; the positive of local row r is global
+    column row_offset + r, row_offset = rank · b_local; each direction's
+    sum over the rows is psum'd and divided by B (by the psum of the valid
+    rows with `row_valid`, whose gathered copy masks the columns). K5
+    takes the row offset for its DCL diagonal; FILIP has the local texts
+    as rows and the gathered images as columns in both directions, and
+    `filip_block` must divide B; sim-reg takes the local rows of the
+    self-similarities against the gathered columns over B·(B − 1) pairs.
+  * `gather_impl='replicated'` (`contrastive.py:404-436`): the four
+    latents, `row_valid` and FILIP's `text_mask` are gathered, and every
+    rank runs the local loss on the whole batch; its gradient is divided
+    by the world size (`parallel.replicated`), as JAX's shard_map divides
+    the cotangent of a replicated output.
+Either way the loss is the same on every rank, and the gradients that
+reach this rank's latents (the gathers' backward sums every rank's
+contribution) are those of the global loss.
 """
 
 from __future__ import annotations
@@ -52,6 +71,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_infonce import streaming_lse
+from ..parallel.collectives import (all_gather, axis_index, axis_size, psum,
+                                    replicated)
 from ..utils import masked_mean
 
 
@@ -80,27 +101,39 @@ def infonce_from_sims(text_to_image, image_to_text, decoupled: bool,
     return ((t2i * w).sum(dim=-1) / count + (i2t * w).sum(dim=-1) / count) / 2
 
 
-def _fused_infonce(rows_lat, cols_lat, temp, decoupled):
-    """One direction's InfoNCE loss through K5; positives on the diagonal
-    (row offset 0: one device holds every column)."""
+def _fused_infonce(rows_lat, cols_lat, temp, decoupled, row_offset=0,
+                   global_batch=None, axis_name=None):
+    """One direction's InfoNCE loss through K5 (`contrastive.py:47-62`):
+    `rows_lat` (b, d) against `cols_lat` (C, d), the positive of row r at
+    column `row_offset + r`; the sum over the rows psum'd over `axis_name`
+    and divided by `global_batch` (default b: one rank holds every
+    column)."""
     xs = rows_lat * temp
-    lse = streaming_lse(xs, cols_lat, 0, decoupled)
-    pos = torch.einsum("bd,bd->b", xs, cols_lat)
-    return (-pos + lse).sum() / xs.shape[0]
+    b = xs.shape[0]
+    lse = streaming_lse(xs, cols_lat, row_offset, decoupled)
+    pos = torch.einsum("bd,bd->b", xs, cols_lat[row_offset:row_offset + b])
+    total = (-pos + lse).sum()
+    if axis_name is not None:
+        total = psum(total, axis_name)
+    return total / (b if global_batch is None else global_batch)
 
 
-def _fused_pair_losses(text_latents, image_latents, text_latents_extra,
-                       image_latents_extra, temp, decoupled):
+def _fused_pair_losses(text_rows, image_cols, image_rows_x, text_cols_x,
+                       temp, decoupled, row_offset=0, global_batch=None,
+                       axis_name=None):
     """Every (m × n) view pair's CL loss through K5, in JAX's (m n) order
-    (`contrastive.py:65-81`); i2t takes the extra latents (the mains when
-    there are no extra heads)."""
+    (`contrastive.py:65-81`): t2i has the text rows against the image
+    columns, i2t the extra image rows against the extra text columns (the
+    mains when there are no extra heads)."""
     cl = []
-    for mi in range(text_latents.shape[0]):
-        for ni in range(image_latents.shape[0]):
-            t2i = _fused_infonce(text_latents[mi], image_latents[ni], temp,
-                                 decoupled)
-            i2t = _fused_infonce(image_latents_extra[ni],
-                                 text_latents_extra[mi], temp, decoupled)
+    for mi in range(text_rows.shape[0]):
+        for ni in range(image_rows_x.shape[0]):
+            t2i = _fused_infonce(text_rows[mi], image_cols[ni], temp,
+                                 decoupled, row_offset, global_batch,
+                                 axis_name)
+            i2t = _fused_infonce(image_rows_x[ni], text_cols_x[mi], temp,
+                                 decoupled, row_offset, global_batch,
+                                 axis_name)
             cl.append((t2i + i2t) / 2)
     return torch.stack(cl)
 
@@ -149,6 +182,80 @@ def filip_sims_blocked(text_tok, img_tok, tmask, temp, block,
     return t2i, i2t
 
 
+def _filip_dense(text_rows, image_cols, text_rows_x, image_cols_x,
+                 text_mask, temp):
+    """FILIP's (m·n, r, C) t2i and i2t from text rows (m, r, t, d) and
+    image columns (n, C, i, d), both (text row, image column); the extra
+    latents give i2t when `text_rows_x` is not None. `text_mask` (m·r,
+    t)."""
+    m, r = text_rows.shape[:2]
+    cols = image_cols.shape[1]
+    sim_t2i = torch.einsum("mxtd,nyid->mnxyti", text_rows, image_cols) * temp
+    sim_i2t = sim_t2i
+    if text_rows_x is not None:
+        sim_i2t = torch.einsum("mxtd,nyid->mnxyti", text_rows_x,
+                               image_cols_x) * temp
+    tmask = text_mask.reshape(m, 1, r, 1, -1)
+    return (_filip_t2i(sim_t2i, tmask).reshape(-1, r, cols),
+            _filip_i2t(sim_i2t, tmask).reshape(-1, r, cols))
+
+
+def _filip_blocked(text_rows, image_cols, text_rows_x, image_cols_x,
+                   text_mask, temp, block):
+    """`_filip_dense` a block of image columns at a time
+    (`filip_sims_blocked`): the stacked (m·n, r, C) t2i and i2t."""
+    m, r = text_rows.shape[:2]
+    tmask = text_mask.reshape(m, r, -1)
+    extra = text_rows_x is not None
+    t2i_rows, i2t_rows = [], []
+    for mi in range(m):
+        for ni in range(image_cols.shape[0]):
+            t2i, i2t = filip_sims_blocked(
+                text_rows[mi], image_cols[ni], tmask[mi], temp, block,
+                "t2i" if extra else "both")
+            if extra:
+                _, i2t = filip_sims_blocked(
+                    text_rows_x[mi], image_cols_x[ni], tmask[mi], temp,
+                    block, "i2t")
+            t2i_rows.append(t2i)
+            i2t_rows.append(i2t)
+    return torch.stack(t2i_rows), torch.stack(i2t_rows)
+
+
+def _infonce_from_blocks(text_to_image, image_to_text, row_offset,
+                         global_batch, decoupled, axis_name, row_valid=None,
+                         col_valid=None):
+    """Row-sharded InfoNCE (`contrastive.py:132-176`): (v, b_local, B)
+    blocks (already × temp) whose rows are this rank's and whose columns
+    are the gathered batch → the (v,) global-batch CL losses. The positive
+    of local row r sits at column `row_offset + r`, taken before any
+    masking; DCL masks that column; `col_valid` (B,) masks the columns,
+    `row_valid` (b_local,) float weighs the rows, and the mean divides by
+    the psum of the valid rows."""
+    b_local = text_to_image.shape[-2]
+    cols = row_offset + torch.arange(b_local, device=text_to_image.device)
+    denom_count = global_batch
+    if row_valid is not None:
+        denom_count = psum(row_valid.sum(), axis_name)
+
+    def direction_loss(sims):
+        v = sims.shape[0]
+        pos = sims.gather(-1, cols[None, :, None].expand(v, -1, 1))[..., 0]
+        neg = torch.finfo(sims.dtype).min
+        if decoupled:
+            hit = (torch.arange(sims.shape[-1], device=sims.device)[None, :]
+                   == cols[:, None])
+            sims = sims.masked_fill(hit[None], neg)
+        if col_valid is not None:
+            sims = torch.where(col_valid[None, None, :], sims, neg)
+        term = -pos + torch.logsumexp(sims, dim=-1)
+        if row_valid is not None:
+            term = term * row_valid[None, :]
+        return psum(term.sum(dim=-1), axis_name) / denom_count
+
+    return (direction_loss(text_to_image) + direction_loss(image_to_text)) / 2
+
+
 def _sim_reg(text_latents, image_latents, text_latents_extra,
              image_latents_extra):
     """`contrastive.py:443-461`."""
@@ -169,17 +276,111 @@ def _sim_reg(text_latents, image_latents, text_latents_extra,
             + off_diag_mse(text_latents_extra, image_latents_extra)) / 2
 
 
+def _sharded_sim_reg(text_latents, image_latents, text_latents_extra,
+                     image_latents_extra, row_offset, global_batch, gather,
+                     axis_name):
+    """Row-sharded sim-reg (`contrastive.py:263-281`): the local rows of
+    the self-similarities against the gathered columns, each rank's
+    diagonal at `row_offset`, over global_batch · (global_batch − 1)
+    pairs."""
+    b_local = text_latents.shape[1]
+    dev = text_latents.device
+    cols_hit = (torch.arange(global_batch, device=dev)[None, :]
+                == (row_offset + torch.arange(b_local, device=dev))[:, None])
+    count = global_batch * (global_batch - 1)
+
+    def off_diag_mse(a, b):
+        d_t = torch.einsum("mrd,mCd->mrC", a, gather(a))
+        d_i = torch.einsum("mrd,mCd->mrC", b, gather(b))
+        diff2 = torch.where(cols_hit[None], 0.0, (d_t - d_i) ** 2)
+        return psum(diff2.sum(), axis_name) / (a.shape[0] * count)
+
+    return (off_diag_mse(text_latents, image_latents)
+            + off_diag_mse(text_latents_extra, image_latents_extra)) / 2
+
+
+def _check_sim_reg(use_all_token_embeds):
+    if use_all_token_embeds:
+        raise AssertionError(
+            "sim_reg with fine-grained token latents is undefined "
+            "(text/image token counts differ); the reference path is "
+            "broken there too")
+
+
+def _sharded_contrastive_loss(text_latents, image_latents, temp, *,
+                              text_mask, use_all_token_embeds, dcl,
+                              text_latents_extra, image_latents_extra,
+                              sim_reg, axis_name, loss_impl, filip_block,
+                              row_valid):
+    """This rank's rows against the gathered columns (see the module
+    docstring); `contrastive.py:223-350`."""
+    has_extra = text_latents_extra is not None
+    if not has_extra:
+        text_latents_extra, image_latents_extra = text_latents, image_latents
+    b_local = text_latents.shape[1]
+    global_batch = b_local * axis_size(axis_name)
+    row_offset = axis_index(axis_name) * b_local
+
+    def gather(x):
+        return all_gather(x, axis_name, dim=1)
+
+    col_valid = None
+    if row_valid is not None:
+        row_valid = row_valid.float()
+        col_valid = all_gather(row_valid, axis_name, dim=0).bool()
+
+    sim_reg_loss = torch.zeros((), dtype=text_latents.dtype,
+                               device=text_latents.device)
+    if sim_reg:
+        _check_sim_reg(use_all_token_embeds)
+        sim_reg_loss = _sharded_sim_reg(
+            text_latents, image_latents, text_latents_extra,
+            image_latents_extra, row_offset, global_batch, gather, axis_name)
+
+    if use_all_token_embeds:
+        if text_mask is None:
+            raise AssertionError("FILIP loss requires the text padding mask")
+        g_img = gather(image_latents)
+        g_img_x = gather(image_latents_extra) if has_extra else None
+        x_rows = text_latents_extra if has_extra else None
+        if filip_block is not None:
+            t2i, i2t = _filip_blocked(text_latents, g_img, x_rows, g_img_x,
+                                      text_mask, temp, filip_block)
+            return _infonce_from_blocks(t2i, i2t, row_offset, global_batch,
+                                        dcl, axis_name), sim_reg_loss
+        t2i, i2t = _filip_dense(text_latents, g_img, x_rows, g_img_x,
+                                text_mask, temp)
+    elif loss_impl == "fused":
+        return _fused_pair_losses(
+            text_latents, gather(image_latents), image_latents_extra,
+            gather(text_latents_extra), temp, dcl, row_offset, global_batch,
+            axis_name), sim_reg_loss
+    else:
+        t2i = torch.einsum("mrd,nCd->mnrC", text_latents,
+                           gather(image_latents)) * temp
+        i2t = torch.einsum("nrd,mCd->mnrC", image_latents_extra,
+                           gather(text_latents_extra)) * temp
+        t2i = t2i.reshape(-1, b_local, global_batch)
+        i2t = i2t.reshape(-1, b_local, global_batch)
+    return _infonce_from_blocks(t2i, i2t, row_offset, global_batch, dcl,
+                                axis_name, row_valid, col_valid), sim_reg_loss
+
+
 def clip_contrastive_loss(text_latents, image_latents, temp, *,
                           text_mask=None,
                           decoupled_contrastive_learning: bool = False,
                           text_latents_extra=None, image_latents_extra=None,
                           use_all_token_embeds: bool = False,
                           sim_reg: bool = False, row_valid=None,
-                          loss_impl: str = "xla", filip_block=None):
+                          loss_impl: str = "xla", filip_block=None,
+                          axis_name=None, gather_impl: str = "sharded"):
     """text_latents (m, b, d) or (m, b, t, d), image_latents (n, b, d) or
     (n, b, i, d): l2-normed fp32 latents; temp: scalar exp(temperature);
-    text_mask (m·b, t) for FILIP. Returns ((m·n,) CL losses, the sim-reg
-    loss)."""
+    text_mask (m·b, t) for FILIP. `axis_name`: None, or the
+    `ProcessGroup` whose ranks hold the global batch in equal shards;
+    `gather_impl` 'sharded' or 'replicated' (see the module docstring).
+    Returns ((m·n,) CL losses, the sim-reg loss), the same on every
+    rank."""
     if row_valid is not None:
         if use_all_token_embeds or sim_reg or loss_impl == "fused":
             raise AssertionError(   # JAX's assertion, in its words
@@ -188,55 +389,90 @@ def clip_contrastive_loss(text_latents, image_latents, temp, *,
         row_valid = row_valid.to(text_latents.device, torch.bool)
     if loss_impl not in ("xla", "fused"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
+    if gather_impl not in ("sharded", "replicated"):
+        raise ValueError(f"unknown gather_impl {gather_impl!r}")
     dcl = decoupled_contrastive_learning
+    if axis_name is not None and gather_impl == "sharded":
+        return _sharded_contrastive_loss(
+            text_latents, image_latents, temp, text_mask=text_mask,
+            use_all_token_embeds=use_all_token_embeds, dcl=dcl,
+            text_latents_extra=text_latents_extra,
+            image_latents_extra=image_latents_extra, sim_reg=sim_reg,
+            axis_name=axis_name, loss_impl=loss_impl,
+            filip_block=filip_block, row_valid=row_valid)
+    if axis_name is not None:   # replicated: every rank the whole batch
+        cl_losses, sim_reg_loss = _replicated_contrastive_loss(
+            text_latents, image_latents, temp, text_mask=text_mask,
+            use_all_token_embeds=use_all_token_embeds, dcl=dcl,
+            text_latents_extra=text_latents_extra,
+            image_latents_extra=image_latents_extra, sim_reg=sim_reg,
+            axis_name=axis_name, loss_impl=loss_impl,
+            filip_block=filip_block, row_valid=row_valid)
+        return (replicated(cl_losses, axis_name),
+                replicated(sim_reg_loss, axis_name))
+    return _local_contrastive_loss(
+        text_latents, image_latents, temp, text_mask=text_mask,
+        use_all_token_embeds=use_all_token_embeds, dcl=dcl,
+        text_latents_extra=text_latents_extra,
+        image_latents_extra=image_latents_extra, sim_reg=sim_reg,
+        loss_impl=loss_impl, filip_block=filip_block, row_valid=row_valid)
+
+
+def _replicated_contrastive_loss(text_latents, image_latents, temp, *,
+                                 text_mask, text_latents_extra,
+                                 image_latents_extra, axis_name, row_valid,
+                                 **kw):
+    """The whole batch gathered on every rank, then the local loss
+    (`contrastive.py:425-436`)."""
+    def gather(x):
+        return all_gather(x, axis_name, dim=1)
+
+    if text_latents_extra is not None:
+        text_latents_extra = gather(text_latents_extra)
+        image_latents_extra = gather(image_latents_extra)
+    if row_valid is not None:
+        row_valid = all_gather(row_valid, axis_name, dim=0)
+    if text_mask is not None:
+        tm = text_mask.reshape(text_latents.shape[0], -1,
+                               text_mask.shape[-1])
+        text_mask = gather(tm).reshape(-1, text_mask.shape[-1])
+    return _local_contrastive_loss(
+        gather(text_latents), gather(image_latents), temp,
+        text_mask=text_mask, text_latents_extra=text_latents_extra,
+        image_latents_extra=image_latents_extra, row_valid=row_valid, **kw)
+
+
+def _local_contrastive_loss(text_latents, image_latents, temp, *, text_mask,
+                            use_all_token_embeds, dcl, text_latents_extra,
+                            image_latents_extra, sim_reg, loss_impl,
+                            filip_block, row_valid):
+    """One rank holds every row and every column."""
     has_extra = text_latents_extra is not None
     if not has_extra:
         text_latents_extra, image_latents_extra = text_latents, image_latents
-    num_batch_texts, batch = text_latents.shape[:2]
+    batch = text_latents.shape[1]
 
     sim_reg_loss = torch.zeros((), dtype=text_latents.dtype,
                                device=text_latents.device)
     if sim_reg:
-        if use_all_token_embeds:
-            raise AssertionError(
-                "sim_reg with fine-grained token latents is undefined "
-                "(text/image token counts differ); the reference path is "
-                "broken there too")
+        _check_sim_reg(use_all_token_embeds)
         sim_reg_loss = _sim_reg(text_latents, image_latents,
                                 text_latents_extra, image_latents_extra)
 
     if use_all_token_embeds:
         if text_mask is None:
             raise AssertionError("FILIP loss requires the text padding mask")
+        x_rows, x_cols = ((text_latents_extra, image_latents_extra)
+                          if has_extra else (None, None))
         if filip_block is not None:
-            tmask = text_mask.reshape(num_batch_texts, batch, -1)
-            t2i_rows, i2t_rows = [], []
-            for mi in range(num_batch_texts):
-                for ni in range(image_latents.shape[0]):
-                    t2i, i2t = filip_sims_blocked(
-                        text_latents[mi], image_latents[ni], tmask[mi], temp,
-                        filip_block, "t2i" if has_extra else "both")
-                    if has_extra:
-                        _, i2t = filip_sims_blocked(
-                            text_latents_extra[mi], image_latents_extra[ni],
-                            tmask[mi], temp, filip_block, "i2t")
-                    t2i_rows.append(t2i)
-                    i2t_rows.append(i2t)
-            return infonce_from_sims(torch.stack(t2i_rows),
-                                     torch.stack(i2t_rows), dcl), \
-                sim_reg_loss
-        sim_t2i = torch.einsum("mxtd,nyid->mnxyti", text_latents,
-                               image_latents) * temp
-        sim_i2t = sim_t2i
-        if has_extra:
-            sim_i2t = torch.einsum("mxtd,nyid->mnxyti", text_latents_extra,
-                                   image_latents_extra) * temp
-        tmask = text_mask.reshape(num_batch_texts, 1, batch, 1, -1)
-        text_to_image = _filip_t2i(sim_t2i, tmask).reshape(-1, batch, batch)
-        image_to_text = _filip_i2t(sim_i2t, tmask).reshape(-1, batch, batch)
+            return infonce_from_sims(*_filip_blocked(
+                text_latents, image_latents, x_rows, x_cols, text_mask,
+                temp, filip_block), dcl), sim_reg_loss
+        text_to_image, image_to_text = _filip_dense(
+            text_latents, image_latents, x_rows, x_cols, text_mask, temp)
     elif loss_impl == "fused":
         return _fused_pair_losses(text_latents, image_latents,
-                                  text_latents_extra, image_latents_extra,
+                                  image_latents_extra, text_latents_extra,
                                   temp, dcl), sim_reg_loss
     else:
         t2i = torch.einsum("mtd,nid->mnti", text_latents, image_latents) * temp

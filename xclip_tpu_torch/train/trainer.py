@@ -1,5 +1,5 @@
 """The train step — the counterpart of `xclip_tpu/train/trainer.py`'s
-`make_train_step` and `default_optimizer`.
+`make_train_step`, `default_optimizer` and `shard_batch`.
 
 `default_optimizer` is optax's chain `clip_by_global_norm(max_grad_norm)`
 → `adamw(schedule, b1, b2, eps=1e-8, weight_decay)` written out in
@@ -41,6 +41,21 @@ step, as their gradient is zero, and its update of them is overwritten by
 the fold). Under `grad_accum > 1`, as JAX documents it, only the LAST
 microbatch's statistics are kept, each microbatch folding from the
 statistics stored before the step.
+
+Data parallelism (`axis_name`, a `torch.distributed` `ProcessGroup`): each
+rank runs the step on its shard of the global batch (`shard_batch`: its
+contiguous rows), every forward with `axis_name`, so the contrastive loss
+is the global batch's on every rank (`CLIPModel.forward`). The summed
+gradients are then all-reduced (summed) once a step, one flat buffer a
+dtype, before the division by `grad_accum`, the norm and the clip, so
+`grad_norm` and the clip are the global ones and every rank makes the same
+update. For the contrastive objectives this is JAX's GSPMD step
+(`make_train_step` over `shard_batch`ed arrays); the MLM and visual SSL
+losses follow JAX's `axis_name` semantics instead (this shard's loss,
+averaged over the ranks), and each rank folds its own shard's BatchNorm
+statistics: JAX's two distributed entry points differ there (ROADMAP.md).
+A microbatch under `grad_accum` is each rank's share of it, so its
+negatives are the ranks' i-th microbatches together.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum_, axis_index, axis_size
 from ..utils import cast_tuple
 
 
@@ -167,7 +183,29 @@ def default_optimizer(params, learning_rate: float = 3e-4,
                  total_steps=total_steps)
 
 
-def make_train_step(model, optimizer, *, grad_accum: int = 1):
+def shard_batch(batch_arrays, group):
+    """This rank's contiguous rows of each array's leading (batch) dim,
+    `group` a `ProcessGroup` (`trainer.py:174-197`). A global batch that
+    does not divide into equal shards raises JAX's `ValueError`: the
+    sharded loss locates positives by row offset."""
+    n_data = axis_size(group)
+    rank = axis_index(group)
+    out = []
+    for a in batch_arrays:
+        if a.shape[0] % n_data != 0:
+            raise ValueError(
+                f"global batch {a.shape[0]} is not divisible by the 'data' "
+                f"mesh axis ({n_data}): the sharded contrastive loss "
+                "requires equal per-device batches (positives are located "
+                "by row offset). Pad or truncate the batch to a multiple — "
+                "the TextImageLoader does this automatically.")
+        rows = a.shape[0] // n_data
+        out.append(a[rank * rows:(rank + 1) * rows])
+    return tuple(out)
+
+
+def make_train_step(model, optimizer, *, grad_accum: int = 1,
+                    axis_name=None):
     """Returns `step(text, image, generator=None, keep_idx=None, valid=None,
     *, aug_text=None, aug_image=None, mlm_draws=None, ssl_draws=None) ->
     metrics`: the forward with the model's loss and its backward (once, or
@@ -180,7 +218,9 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
     `aug_text` / `aug_image` are the augmented views (a microbatch takes
     its rows of each); `mlm_draws` / `ssl_draws` inject the MLM's and the
     visual SSL's draws (`CLIPModel.forward`), under `grad_accum > 1` as a
-    list of one a microbatch."""
+    list of one a microbatch. With `axis_name` (a `ProcessGroup`) the
+    step is data-parallel: the batch is this rank's shard (see the module
+    docstring)."""
     if grad_accum > 1:
         # the contrastive objective is NOT invariant to this split
         warnings.warn(
@@ -195,7 +235,8 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
     def forward_backward(text, image, generator, keep_idx, valid, **kw):
         loss, metrics = model(text, image, return_loss=True,
                               return_metrics=True, generator=generator,
-                              keep_idx=keep_idx, row_valid=valid, **kw)
+                              keep_idx=keep_idx, row_valid=valid,
+                              axis_name=axis_name, **kw)
         loss.backward()
         bn = metrics.pop("bn_updates", None)
         return {k: v.detach() for k, v in metrics.items()}, bn
@@ -236,8 +277,11 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1):
                     ssl_draws=None if ssl_draws is None else ssl_draws[i])
                 metrics = m if metrics is None else {
                     k: metrics[k] + v for k, v in m.items()}
-            grads = [p.grad for g in optimizer.param_groups
-                     for p in g["params"] if p.grad is not None]
+        grads = [p.grad for g in optimizer.param_groups
+                 for p in g["params"] if p.grad is not None]
+        if axis_name is not None:
+            all_reduce_sum_(grads, axis_name)
+        if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
             metrics = {k: v / grad_accum for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.step()
