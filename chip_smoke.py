@@ -24,8 +24,9 @@ remat, grad_accum, valid=, checkpoint and resume, and dropout train the
 flagship (phase 22); every objective of the JAX `CLIP` (MLM, SimSiam and
 SimCLR, multiview, sim-reg, FILIP, downsampling) trains it (phase 23); the
 data-parallel step runs in a one-rank NCCL group, and K5 at one rank of the
-32k global batch (phase 24). One line per phase; any failure exits
-non-zero, and nothing is caught.
+32k global batch (phase 24); the data pipeline tokenizes captions and
+stages batches in pinned memory for the flagship train step (phase 25).
+One line per phase; any failure exits non-zero, and nothing is caught.
 
   0 device   CUDA present; the card's name and power limit; TF32 off.
   1 build    nvcc builds the kernels; seconds taken.
@@ -285,6 +286,28 @@ non-zero, and nothing is caught.
              relative of the unsharded, the row gradients (in their rows)
              and the column gradients summed over r within 1e-4 relative
              Frobenius.
+ 25 data     the data pipeline (xclip_tpu_torch.data), without PIL: (a)
+             the BPE merge loop built with g++ and in use, 4,096 seeded
+             captions (5-60 words, some non-ASCII) the same ids through
+             the native and Python loops, the 512 captions of
+             tests/data/torch_port_golden_tokens.npz JAX's ids through
+             both; captions/s of both, cold and warm; (b) TextImageLoader
+             alone at b = 256, 4 thread workers, prefetch 2, on 2,048
+             in-memory pairs (a caption each, one of 64 256-px fp32
+             images): fp32, bf16, and pad_remainder on 2,000 pairs; every
+             batch on the card bit for bit its host collate (tokens,
+             images, valid, loader_state), every staging buffer pinned;
+             pairs/s; the loader's copies of a staged batch re-enacted
+             on the default stream and timed with CUDA events, and the
+             producer's collate of a batch into a staging buffer from
+             captions and from ids (ms a batch); (c) phase
+             8's flagship with a 49,408-token vocabulary trained from the
+             loader (bf16 images), 2 warm-up and 6 timed steps: launches
+             per step K1 fwd/p1/p2 12, K2 fwd/bwd 6, the first step's
+             loss and metrics bit for bit the same step on the host
+             collate of its batch placed by .to('cuda'); pairs/s beside
+             the same step on batches already on the card, each with the
+             median idle share of three profiled steps.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -3832,6 +3855,305 @@ def data_parallel(card, CLIP, default_optimizer, make_train_step, lse5):
     return launches, errs, ms, costs, library
 
 
+GOLDEN_TOKENS = GOLDEN.with_name("torch_port_golden_tokens.npz")
+# words of other scripts that phase 25's captions mix in, one word in eight
+OTHER_WORDS = ("café", "naïve", "Straße", "ünïcode", "Ωμέγα", "привет",
+               "مرحبا", "क्या", "日本語", "한국어", "😀", "🧠🚀", "½", "Ⅻ",
+               "don't", "it's", "¡hola!", "&amp;")
+
+
+def data_captions(tok, n, seed):
+    """`n` seeded captions, the i-th starting with i, then 5-60 words:
+    whole-word entries of the BPE vocabulary, one in eight from
+    OTHER_WORDS, now and then capitalised, a number or punctuation."""
+    npr = np.random.RandomState(seed)
+    vocab = sorted(w[:-4] for w in tok.encoder
+                   if w.endswith("</w>") and w[:-4].isascii()
+                   and w[:-4].isalpha())
+    out = []
+    for i in range(n):
+        words = []
+        for _ in range(npr.randint(5, 61)):
+            u = npr.rand()
+            w = (OTHER_WORDS[npr.randint(len(OTHER_WORDS))] if u < 0.125
+                 else str(npr.randint(10 ** 4)) if u < 0.2
+                 else "!?.,-"[npr.randint(5)] if u < 0.25
+                 else vocab[npr.randint(len(vocab))])
+            words.append(w.capitalize() if npr.rand() < 0.1 else w)
+        out.append(f"{i} " + " ".join(words))
+    return out
+
+
+class DataPairs:
+    """(caption, image) pairs: caption i of `captions`, image i mod the
+    images given (256-px fp32 CHW arrays; no decode, so the phase needs
+    no PIL)."""
+
+    def __init__(self, captions, images):
+        self.captions, self.images = captions, images
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, i):
+        return self.captions[i], self.images[i % len(self.images)]
+
+
+def profiled(fn, tries=4):
+    """`fn()` under torch.profiler (CPU and CUDA): the profile of the first
+    try whose device events are not empty (one sometimes comes back
+    without them)."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if device_events(prof):
+            return prof
+    fail(f"the profiler saw no device activity in {tries} profiles")
+
+
+def same_batch(label, got, want):
+    """A batch on the card against its host collate, bit for bit."""
+    if got.keys() != want.keys() or got["loader_state"] != want[
+            "loader_state"]:
+        fail(f"{label}: keys or loader_state differ: {sorted(got)} "
+             f"{got['loader_state']} against {want['loader_state']}")
+    for k in got:
+        if k == "loader_state":
+            continue
+        g, w = got[k], want[k]
+        if not g.is_cuda or g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{label}: '{k}' {g.device} {g.dtype} {tuple(g.shape)}, "
+                 f"host {w.dtype} {tuple(w.shape)}")
+        g = g.cpu()
+        if g.dtype.is_floating_point:
+            g, w = (t.view({2: torch.int16, 4: torch.int32}[t.itemsize])
+                    for t in (g, w))
+        if not torch.equal(g, w):
+            fail(f"{label}: '{k}' is not bit for bit its host collate")
+
+
+def data_pipeline(card, CLIP, default_optimizer, make_train_step, ffb, mega):
+    """Phase 25: (a) the tokenizer's native merge loop against its Python
+    loop and the golden ids; (b) TextImageLoader alone at b = 256; (c) the
+    flagship (vocabulary 49,408) trained from it."""
+    from xclip_tpu_torch.data import SimpleTokenizer, TextImageLoader
+    from xclip_tpu_torch.data import pipeline
+    from xclip_tpu_torch.native import fast_bpe
+    lines = []
+
+    # (a) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = fast_bpe.build()
+    build_s = time.perf_counter() - t0
+    native, python = SimpleTokenizer(), SimpleTokenizer(use_native=False)
+    if native._native is None or python._native is not None:
+        fail("SimpleTokenizer() does not run the native merge loop")
+    caps = data_captions(native, 4096, 25)
+    ids, rates = {}, {}
+    for name, tok in (("native", native), ("python", python)):
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            ids[name] = [tok.encode(c) for c in caps]
+            rates[name, run] = len(caps) / (time.perf_counter() - t0)
+    if ids["native"] != ids["python"]:
+        bad = [i for i, (a, b) in enumerate(zip(ids["native"],
+                                                ids["python"])) if a != b]
+        fail(f"native and Python merge loops differ on {len(bad)} of 4096 "
+             f"captions, first {caps[bad[0]]!r}")
+    g = np.load(GOLDEN_TOKENS)
+    cb, co, gi, io = (g["caption_bytes"], g["caption_offsets"], g["ids"],
+                      g["id_offsets"])
+    for i in range(len(co) - 1):
+        text = bytes(cb[co[i]:co[i + 1]]).decode("utf-8")
+        want = gi[io[i]:io[i + 1]].tolist()
+        for tok in (native, python):
+            if tok.encode(text) != want:
+                fail(f"golden caption {i} {text!r}: {tok.encode(text)} "
+                     f"against JAX's {want}")
+    n_tokens = sum(map(len, ids["native"]))
+    print(f"  tokenizer: g++ build {build_s:.1f} s ({lib.name}); 4096 "
+          f"captions ({n_tokens} ids): native {rates['native', 'cold']:.0f}"
+          f" captions/s cold, {rates['native', 'warm']:.0f} warm; Python "
+          f"{rates['python', 'cold']:.0f} cold, {rates['python', 'warm']:.0f}"
+          f" warm; {len(co) - 1} golden captions equal JAX's ids",
+          flush=True)
+    lines.append(f"tokenizer native {rates['native', 'warm']:.0f} / Python "
+                 f"{rates['python', 'warm']:.0f} captions/s warm "
+                 f"({rates['native', 'cold']:.0f} / "
+                 f"{rates['python', 'cold']:.0f} cold), golden ids equal")
+
+    # (b) ---------------------------------------------------------------
+    b = 256
+    npr = np.random.RandomState(25)
+    images = [npr.randn(3, 256, 256).astype(np.float32) for _ in range(64)]
+    pairs = DataPairs(data_captions(native, 2048, 26), images)
+    loader_kw = dict(tokenizer=native, num_workers=4, prefetch=2)
+    cases = [("float32", pairs, {}), ("bfloat16", pairs, {}),
+             ("float32 pad", DataPairs(pairs.captions[:2000], images),
+              dict(drop_remainder=False, pad_remainder=True))]
+    pinned, staged = [], {}
+    real_staging = pipeline._staging_batch
+
+    def spy(*args, **kw):
+        """The loader's staging buffers: whether each is pinned, and the
+        last one."""
+        staged["last"] = real_staging(*args, **kw)
+        pinned.extend(t.is_pinned() for t in staged["last"].values())
+        return staged["last"]
+
+    for label, ds, kw in cases:
+        dtype = label.split()[0]
+        kw = {**loader_kw, **kw, "image_dtype": dtype}
+        runs = []
+        for run in ("first", "second"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mock.patch.object(pipeline, "_staging_batch", spy):
+                got = list(TextImageLoader(ds, b, **kw))
+            torch.cuda.synchronize()
+            runs.append(len(ds) / (time.perf_counter() - t0))
+        want = list(TextImageLoader(ds, b, device="cpu", **kw))
+        if not len(got) == len(want) == 8:
+            fail(f"loader {label}: {len(got)} batches, host {len(want)}")
+        for i, (gb, wb) in enumerate(zip(got, want)):
+            same_batch(f"loader {label} batch {i}", gb, wb)
+        if "pad" in label and int(got[-1]["valid"].sum()) != 2000 - 7 * b:
+            fail(f"loader {label}: last batch valid rows "
+                 f"{int(got[-1]['valid'].sum())}, expected {2000 - 7 * b}")
+        keys = [k for k in got[0] if k != "loader_state"]
+        del got, want
+        # the loader's copies re-enacted: the same non_blocking copies of
+        # one batch from its pinned staging buffer, on the default stream
+        # (the profiler drops copies of a loader run)
+        host = staged["last"]
+        h2d = cuda_ms(lambda: [host[k].to("cuda", non_blocking=True)
+                               for k in keys])
+        mb = sum(host[k].numel() * host[k].itemsize for k in keys) / 1e6
+        # the producer's collate of one batch into that staging buffer,
+        # from captions (tokenized in it) and from their ids
+        loader = TextImageLoader(ds, b, device="cpu", **kw)
+        caps_b = [ds[i][0] for i in range(b)]
+        imgs_b = [ds[i][1] for i in range(b)]
+        ids_b = list(native.tokenize(caps_b, context_length=256,
+                                     truncate_text=True,
+                                     pad_to_context_length=True))
+        collate = {}
+        for name, texts in (("captions", caps_b), ("ids", ids_b)):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                loader._collate(texts, imgs_b, host)
+                times.append((time.perf_counter() - t0) * 1e3)
+            collate[name] = statistics.median(times)
+        print(f"  loader {label}: {runs[0]:.0f} pairs/s first run, "
+              f"{runs[1]:.0f} second; host-to-device (the loader's copies "
+              f"re-enacted on the default stream) {h2d:.3f} ms a batch "
+              f"({mb:.1f} MB from pinned memory, {mb / h2d:.2f} GB/s); "
+              f"collate into pinned memory {collate['captions']:.2f} ms a "
+              f"batch from captions, {collate['ids']:.2f} from ids; 8 "
+              "batches bit for bit their host collate", flush=True)
+        lines.append(f"loader {label} {runs[1]:.0f} pairs/s, H2D "
+                     f"(re-enacted) {h2d:.3f} ms, collate "
+                     f"{collate['captions']:.2f} / {collate['ids']:.2f} ms "
+                     "a batch")
+    if not pinned or not all(pinned):
+        fail(f"{pinned.count(False)} of {len(pinned)} staging buffers are "
+             "not pinned")
+    del staged
+
+    # (c) ---------------------------------------------------------------
+    warm, timed, profiles = 2, 6, 4
+    model = CLIP(**{**FLAGSHIP, "num_text_tokens": 49408}, **KERNEL_ROUTES,
+                 param_dtype=torch.bfloat16, compute_dtype="bfloat16",
+                 device="cuda", seed=0)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, default_optimizer(model.parameters(),
+                                                    learning_rate=1e-4))
+    kw = {**loader_kw, "image_dtype": "bfloat16"}
+    counters = {"k1_fwd": ffb.ff_block_fwd_stored,
+                "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2,
+                "k2_fwd": mega.attention_block_fwd_stored,
+                "k2_bwd": mega.attention_block_bwd}
+    it = iter(TextImageLoader(pairs, b, num_epochs=None, **kw))
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    batches, metrics = [], []
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        batch = next(it)
+        metrics.append(step(batch["text"], batch["image"],
+                            generator=step_gen(100 + i)))
+        batches.append(batch)
+    torch.cuda.synchronize()
+    composed_ms = (time.perf_counter() - t0) * 1e3 / timed
+    per_step = {k: v / (warm + timed)
+                for k, v in read_counts(counters).items()}
+    want = {"k1_fwd": 12, "k1_p1": 12, "k1_p2": 12, "k2_fwd": 6,
+            "k2_bwd": 6}
+    if per_step != want:
+        fail(f"loader-fed steps: launches per step {per_step}, expected "
+             f"{want}")
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    check_losses("loader-fed steps", losses, b)
+
+    def idle(run):
+        shares = [idle_share(profiled(run))[0] for _ in range(profiles)]
+        return statistics.median(shares[1:]), shares[1:]
+
+    def composed_step():
+        batch = next(it)
+        step(batch["text"], batch["image"], generator=step_gen(7))
+
+    composed_idle = idle(composed_step)
+    it.close()
+    # the same step on batches already on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches[warm:]):
+        step(batch["text"], batch["image"], generator=step_gen(200 + i))
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t0) * 1e3 / timed
+    resident_idle = idle(lambda: step(batches[-1]["text"],
+                                      batches[-1]["image"],
+                                      generator=step_gen(7)))
+
+    # the first step again, on the host collate of its batch placed by a
+    # synchronous .to('cuda'), from the same weights and generator
+    host = next(iter(TextImageLoader(pairs, b, device="cpu", **kw)))
+    same_batch("first loader-fed batch", batches[0], host)
+    model.load_state_dict(init)
+    step = make_train_step(model, default_optimizer(model.parameters(),
+                                                    learning_rate=1e-4))
+    again = step(host["text"].to("cuda"), host["image"].to("cuda"),
+                 generator=step_gen(100))
+    bad = [k for k in metrics[0] if not torch.equal(metrics[0][k], again[k])]
+    if bad or metrics[0].keys() != again.keys():
+        fail(f"the first loader-fed step differs from the same step on a "
+             f"synchronously placed batch in {bad}")
+    print(f"  composed (loader -> flagship step, b={b}, bf16 images): "
+          f"{b * 1e3 / composed_ms:.1f} pairs/s ({composed_ms:.2f} ms a "
+          f"step), idle share median {composed_idle[0]:.4f} of "
+          + " ".join(f"{s:.4f}" for s in composed_idle[1])
+          + f"; device-resident batches {b * 1e3 / resident_ms:.1f} pairs/s "
+          f"({resident_ms:.2f} ms), idle {resident_idle[0]:.4f} of "
+          + " ".join(f"{s:.4f}" for s in resident_idle[1])
+          + "; first step's loss and metrics bit for bit the synchronously "
+          f"placed step's (loss {float(again['loss']):.6f}); launches per "
+          "step K1 fwd/p1/p2 12, K2 fwd/bwd 6", flush=True)
+    lines.append(f"composed {b * 1e3 / composed_ms:.1f} pairs/s (idle "
+                 f"{composed_idle[0]:.4f}) against device-resident "
+                 f"{b * 1e3 / resident_ms:.1f} (idle {resident_idle[0]:.4f})"
+                 "; first step bit for bit")
+    del model, step, batches, it
+    torch.cuda.empty_cache()
+    phase(25, "data", f"{card}: " + "; ".join(lines))
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -4172,6 +4494,9 @@ def main():
     # --------------------------------------------------------------- 24
     shard = data_parallel(card, CLIP, default_optimizer, make_train_step,
                           lse5)
+
+    # --------------------------------------------------------------- 25
+    data_pipeline(card, CLIP, default_optimizer, make_train_step, ffb, mega)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):

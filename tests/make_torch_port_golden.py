@@ -4,14 +4,17 @@
 `tests/data/torch_port_golden_objectives.npz`: the JAX package's outputs for a
 tiny CLIP on numpy-seeded weights, for the PyTorch port to be held to on a
 machine without JAX (`tests/test_torch_golden.py` on the CPU, phases 3, 7,
-10, 13, 17 and 23 of `chip_smoke.py` on the GPU).
+10, 13, 17 and 23 of `chip_smoke.py` on the GPU); and
+`tests/data/torch_port_golden_tokens.npz`, JAX's BPE ids of 512 captions
+(`tests/test_torch_tokenizer.py`, phase 25).
 
 Regenerate them on a machine with JAX (the repo's CPU environment will do;
 Pallas runs in interpret mode), from the repo root:
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 
-or only the fourth file with the argument `objectives`.
+or only the fourth file with the argument `objectives`, the fifth with
+`tokens`.
 
 The first file holds the config, the weight seed, the inputs and the
 outputs (scores, latents, the first rows of both encodings); the weights
@@ -55,6 +58,12 @@ and metrics (`metric/<name>`), every gradient (`grad/<path>`), and one
 step, composed as `make_train_step` composes it (JAX's step takes no
 augmented views): `train_grad_norm` and every parameter and BatchNorm
 statistic after it (`param1/<path>`).
+
+The fifth, `tests/data/torch_port_golden_tokens.npz`, holds
+`token_captions()` (edge cases of the pre-tokenizer, then seeded captions
+of 5-60 words from many scripts) as UTF-8 bytes `caption_bytes` cut at
+`caption_offsets`, and the ids of JAX's `SimpleTokenizer.encode` (the
+Python merge loop) as `ids` cut at `id_offsets`.
 """
 
 import json
@@ -79,6 +88,7 @@ OUT = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 OUT_ROTARY = OUT.with_name("torch_port_golden_rotary.npz")
 OUT_FF = OUT.with_name("torch_port_golden_ff.npz")
 OUT_OBJECTIVES = OUT.with_name("torch_port_golden_objectives.npz")
+OUT_TOKENS = OUT.with_name("torch_port_golden_tokens.npz")
 # dim and inner multiples of 64 and dim_head 64, so the CUDA kernels take it
 CONFIG = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
               text_enc_depth=2, text_seq_len=16, text_heads=2,
@@ -295,10 +305,109 @@ def write_objectives():
     print(f"wrote {OUT_OBJECTIVES} ({OUT_OBJECTIVES.stat().st_size} bytes)")
 
 
+# what the pre-tokenizer and the cleaning must get right: JAX's test
+# captions, U+001C-U+001F (space to str.strip, not to regex's \s), the long
+# s in contractions and specials, specials in capitals, html entities
+# (unescaped twice), U+0345, combining marks, numbers of other scripts,
+# Unicode spaces and separators, joiners, controls and private use
+TOKEN_EDGE_CASES = [
+    "a photo of a cat", "The Quick Brown Fox jumps over 123 lazy dogs!!",
+    "hello   world,   with\tweird   whitespace",
+    "émoji ünïcode tëst ¡hola!", "<|startoftext|>special tokens<|endoftext|>",
+    "don't stop believing", "", "ISN'T she LOVELY (stevie wonder, 1976)",
+    "we've they'll i'm you're it's won't can't",
+    "3.14159 2,000,000 -42 1e-5 0xFF", "日本語のテキスト 中文文本 한국어",
+    "emoji 😀 🚀 🧠 test", "'''quotes\"\"\" ``backticks`` «guillemets»",
+    "https://example.com/path?query=1&x=2#frag",
+    "\x1cfile\x1dgroup\x1erecord\x1funit\x1c", "a\x1c b \x1f",
+    "  \x1f leading and trailing \x1c ", "the cat'ſ toy",
+    "it'ſ <|ſtartoftext|> <|ENDOFTEXT|> <|EndOfText|>", "IT'S THE DOG'S",
+    "!'s ?'ll ,'d ''re 'L 'LL",
+    "&amp;amp; &lt;3 &#39;s &quot;quoted&quot; &nbsp;space",
+    "\u0345 iota subscript \u03b1\u0345 \u1fb3",
+    "e\u0301 combining acute, n\u0303",
+    "numbers ٣٤ １２３ ² ½ Ⅻ ⑩ 𝟙",
+    "tabs\tand\nnewlines\r\nand\x0bvertical\x0cfeed\x85nel",
+    "\u2028line\u2029para\u200bzero\u200dwidth\ufeffbom\u3000ideo",
+    "👨‍👩‍👧 family 🏳️‍🌈 flag",
+    "ﬁ ligature ß straße ǅ titlecase", "İstanbul ıi Kelvin K",
+    "control \x00 \x07 \x7f chars", "private \ue000 use",
+    "rtl עברית العربية", "snake_case camelCase kebab-case",
+    "antidisestablishmentarianism " * 3]
+# (first, last) code points of the scripts seeded captions draw words from
+TOKEN_SCRIPTS = [(0x00C0, 0x024F), (0x0370, 0x03FF), (0x0400, 0x04FF),
+                 (0x0590, 0x06FF), (0x0900, 0x097F), (0x0E00, 0x0E7F),
+                 (0x3040, 0x30FF), (0x4E00, 0x9FFF), (0xAC00, 0xD7A3),
+                 (0x1F300, 0x1F64F), (0x2000, 0x206F), (0x2150, 0x218F),
+                 (0x0300, 0x036F)]
+TOKEN_WORDS = ("a photo of the cat dog on in with and two red blue green "
+               "small large old young man woman child sitting standing "
+               "beach city street mountain river painting drawing close up "
+               "view people group table food car bike house tree sky night "
+               "morning").split()
+TOKEN_PUNCT = ["!", "?", "...", ",", ".", "'s", "'ll", "n't", "-", "(", ")",
+               "\"", "&", "#", "@", "--", "!?"]
+TOKEN_SEPS = [" "] * 30 + ["  ", "\t", "\n", "\u00a0", "\u3000", "\x1c"]
+ASCII_LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
+def token_captions(n=512):
+    """TOKEN_EDGE_CASES, then seeded captions of 5-60 words: common words,
+    random ASCII strings in either case, numbers, punctuation and
+    contractions, and words of 1-6 code points from TOKEN_SCRIPTS (those
+    Python's database assigns)."""
+    import unicodedata
+    npr = np.random.RandomState(SEED + 5)
+
+    def word():
+        kind = npr.rand()
+        if kind < 0.5:
+            w = TOKEN_WORDS[npr.randint(len(TOKEN_WORDS))]
+            return w.capitalize() if npr.rand() < 0.1 else w
+        if kind < 0.65:
+            return "".join(ASCII_LETTERS[i] for i in npr.randint(
+                52, size=npr.randint(2, 13)))
+        if kind < 0.75:
+            return str(npr.randint(0, 10 ** npr.randint(1, 7)))
+        if kind < 0.85:
+            return TOKEN_PUNCT[npr.randint(len(TOKEN_PUNCT))]
+        lo, hi = TOKEN_SCRIPTS[npr.randint(len(TOKEN_SCRIPTS))]
+        out, size = "", npr.randint(1, 7)
+        while len(out) < size:
+            c = chr(npr.randint(lo, hi + 1))
+            if unicodedata.category(c) not in ("Cn", "Cs"):
+                out += c
+        return out
+
+    out = list(TOKEN_EDGE_CASES)
+    while len(out) < n:
+        words = [word() for _ in range(npr.randint(5, 61))]
+        out.append("".join(w + TOKEN_SEPS[npr.randint(len(TOKEN_SEPS))]
+                           for w in words).strip(" "))
+    return out
+
+
+def write_tokens():
+    from xclip_tpu.data.tokenizer import SimpleTokenizer
+    tok = SimpleTokenizer(use_native=False)
+    caps = [c.encode("utf-8") for c in token_captions()]
+    ids = [tok.encode(c.decode("utf-8")) for c in caps]
+    np.savez_compressed(
+        OUT_TOKENS,
+        caption_bytes=np.frombuffer(b"".join(caps), np.uint8),
+        caption_offsets=np.cumsum([0] + [len(c) for c in caps]),
+        ids=np.asarray([i for row in ids for i in row], np.int32),
+        id_offsets=np.cumsum([0] + [len(r) for r in ids]))
+    print(f"wrote {OUT_TOKENS} ({OUT_TOKENS.stat().st_size} bytes)")
+
+
 def main():
     jax.config.update("jax_default_matmul_precision", "highest")
     if sys.argv[1:] == ["objectives"]:
         write_objectives()
+        return
+    if sys.argv[1:] == ["tokens"]:
+        write_tokens()
         return
     npr = np.random.RandomState(SEED + 1)
     text = npr.randint(1, 100, (4, 16))
@@ -324,6 +433,7 @@ def main():
     write_rotary()
     write_ff()
     write_objectives()
+    write_tokens()
 
 
 if __name__ == "__main__":

@@ -1844,3 +1844,40 @@ def test_gloo_group_refuses_cuda_tensors(cuda_device, tmp_path):
                            torch.ones(2, 3))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_dtype", ["float32", "bfloat16"])
+def test_loader_batches_reach_the_card_bit_for_bit(cuda_device, image_dtype):
+    """20 batches with prefetch 2 while the default stream is kept busy:
+    each batch on the card (staged in pinned memory, copied on the
+    loader's stream) equals the host collate of the same indices, bit for
+    bit, tokens, images, `valid` and `loader_state`."""
+    import numpy as np
+    from xclip_tpu_torch.data import SimpleTokenizer, TextImageLoader
+    npr = np.random.RandomState(0)
+    examples = [(f"{i} a photo of a cat", npr.randn(3, 64, 64).astype(
+        np.float32)) for i in range(20 * 16 - 5)]
+    kw = dict(batch_size=16, context_length=32, prefetch=2, shuffle_seed=0,
+              tokenizer=SimpleTokenizer(), num_workers=2,
+              image_dtype=image_dtype, drop_remainder=False,
+              pad_remainder=True)
+    host = list(TextImageLoader(examples, device="cpu", **kw))
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    got = []
+    for batch in TextImageLoader(examples, device=cuda_device, **kw):
+        # read on the consumer's stream at once: it must wait for the copy
+        batch["early"] = batch["image"].clone()
+        for _ in range(4):             # the consumer's stream stays busy
+            busy = torch.tanh(busy @ busy)
+        got.append(batch)
+    torch.cuda.synchronize()
+    assert len(got) == len(host) == 20
+    for g, h in zip(got, host):
+        assert g["loader_state"] == h["loader_state"]
+        assert g["image"].is_cuda and g["image"].dtype == h["image"].dtype
+        assert torch.equal(g["text"].cpu(), h["text"])
+        assert torch.equal(g["valid"].cpu(), h["valid"])
+        for image in (g["image"], g["early"]):
+            assert torch.equal(image.cpu().view(torch.int16),
+                               h["image"].view(torch.int16))

@@ -90,8 +90,13 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        y = x @ cast(self.w, x.dtype)
-        return y + cast(self.b, x.dtype) if self.b is not None else y
+        # JAX's x @ w: the product in the promoted dtype of the input and
+        # of the weight as the model holds it (the compute dtype, if set),
+        # so bf16 images meet fp32 weights in fp32
+        dtype = torch.promote_types(x.dtype,
+                                    _COMPUTE_DTYPE.get() or self.w.dtype)
+        y = x.to(dtype) @ cast(self.w, dtype)
+        return y + cast(self.b, dtype) if self.b is not None else y
 
 
 class Embedding(nn.Module):
