@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port, `xclip_tpu_torch`, on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(--parent: an older checkout unpacked at DIR, e.g. by `git archive HEAD |
+tar -x -C DIR`, whose product kernels phase 19 builds and times beside
+this checkout's fp32 kernel.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -15,7 +19,8 @@ streaming-LSE InfoNCE); the rotary causal-EOS text tower through K6 and
 K7; and the two remaining FF routes, `ff_impl='fused'` through K8 (GEGLU +
 inner LayerNorm) and XCLIP_FF_STORE=h through K1-h (the stored-h FF
 block); every bf16 product of the FF blocks and the megablock runs on one
-TMA-fed wgmma kernel, held alone in phase 19, and every LayerNorm over
+TMA-fed wgmma kernel and every fp32 one on one cp.async-fed FMA kernel,
+both held alone in phase 19, and every LayerNorm over
 rows (forward and backward) and GEGLU backward on the row kernels of
 csrc/row_kernels.cuh, held alone in phase 20; a shape past the CUDA
 kernels raises ValueError naming the limit (phase 21), and only the JAX
@@ -52,7 +57,9 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              version element by element (phase 12's rule), two launches
              of each bit for bit equal, timed beside
              its plain version, scaled_dot_product_attention on the same
-             q, k, v and mask, and its bound.
+             q, k, v and mask, and its bound; the same for its fp32 FMA
+             core at the text tower's shape and at one SimSiam pass's
+             (256, 33), beside SDPA in fp32.
   7 train-golden  one fp32 train step of the tiny CLIP of the golden file
              on the kernel routes against the JAX package's loss, gradients
              and updated parameters.
@@ -107,11 +114,13 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              kernel, plain version and scaled_dot_product_attention
              (forward, backward, both) on the same q, k, v and mask, the
              kernel / SDPA ratio, and the bound (K7 at the vision shapes:
-             kernel, bound, plain version and SDPA).
+             kernel, bound, plain version and SDPA); K6 and K7 in fp32
+             (the FMA kernels) timed likewise at the text shape, beside
+             SDPA in fp32 and the 67 TFLOP/s fp32 bound.
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
-             package's.
+             package's; K6's and K7's fp32 launches.
  14 rotary-serve  the flagship with text_rotary_pos_emb, text_causal_mask
              and text_eos_id 9999 answers b = 256 requests, bf16, on the K6
              route (attn_impl='fused', visual 'xla'), the K7 route
@@ -152,6 +161,16 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              is fp32 and PyTorch has it, torch.addmm for the residual), the
              bound by FLOPs and by bytes, TFLOP/s. Phase 11 checks its
              launches per b = 2048 step by instance, counted in the library.
+             Then the fp32 product kernel (csrc/gemm_f32.cu, every fp32
+             product of the FF blocks and the megablock) class by class,
+             every call at 8,448 rows (one SimSiam pass of phase 23) and
+             at 65,792: against mm_plain at 1e-4 of each output's largest
+             magnitude (every GEGLU epilogue), CUDA-event times beside
+             mm_plain, torch.mm / addmm in fp32 (TF32 off) and, with
+             --parent, the older checkout's kernel on the same operands;
+             TFLOP/s and the share of the 67 TFLOP/s bound, each class
+             under half its bound or slower than torch marked. Phase 23
+             checks its launches per step by instance.
  20 rows     the LayerNorm-backward and GEGLU-backward row kernels
              (csrc/row_kernels.cuh) alone, mode by mode, at the rows and
              widths their callers give them: the recompute mode at the
@@ -244,8 +263,11 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              same weights and draws on the plain routes (under remat,
              which is bit for bit) within 0.05 or two bf16 ulps; 2 warm-up
              and 5 timed steps, pairs/s, peak memory, launches a step (K2
-             and K1 30, K-MEGA and K-FF 12, K5 8 + 8), the idle share and
-             top kernels of one profiled step; a target pass (fp32 and
+             and K1 30, K-MEGA and K-FF 12, K5 8 + 8; the fp32 product
+             kernel's by instance, counted in the library, against the
+             count the SimSiam passes' calls give), the idle share and
+             top kernels of one profiled step with its fp32 products' and
+             fp32 attention core's device ms; a target pass (fp32 and
              bf16 views) on the inference forwards bit for bit the
              training forwards'; (b) the same on the memory-lean routes
              (K3, K-FF-s, their backwards 30 a step); (c) SimCLR, one
@@ -314,6 +336,7 @@ their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
 nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import itertools
 import json
 import math
@@ -478,16 +501,16 @@ def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2,
             10 * pairs * width)
 
 
-def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes):
-    """core_cost of the megablock's attention core in bf16: the forward
-    writes the (m, l) pair (8 bytes a row and head) in place of lse; the
-    backward reads the fp32 row cotangent dattn (4 bytes an element) and
-    the pair, and writes dq, dk and dv."""
-    e, e_kv = rows_heads * 64 * 2, keys_heads * 64 * 2
+def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2):
+    """core_cost of the megablock's attention core, `it` bytes a stored
+    value: the forward writes the (m, l) pair (8 bytes a row and head) in
+    place of lse; the backward reads q, attnout, the fp32 row cotangent
+    dattn (4 bytes an element) and the pair, and writes dq, dk and dv."""
+    e, e_kv = rows_heads * 64 * it, keys_heads * 64 * it
     if kind == "fwd":
         return 2 * e + 2 * e_kv + 8 * rows_heads + mask_bytes, 4 * pairs * 64
-    return (7 * e + 2 * e_kv + 8 * rows_heads + mask_bytes,
-            10 * pairs * 64)
+    return (5 * e + rows_heads * 64 * 4 + 2 * e_kv + 8 * rows_heads
+            + mask_bytes, 10 * pairs * 64)
 
 
 def flash_cost(kind, bh, n, lengths, causal, it=2, width=64):
@@ -759,26 +782,28 @@ def attn_kernels(gen, core, flash):
                 (core.attention_core_bwd_plain(qkv, mask, out, lse, do,
                                                *static),), dtype)
             del got
-            if n == 256 and dtype == torch.bfloat16:
-                errs.update(k6_fwd=e_fwd, k6_bwd=e_bwd)
-                ms["k6_fwd"] = (
+            if n == 256:
+                # bf16 "k6"; fp32 (the FMA core) "k6_f32"
+                key = "k6" if dtype == torch.bfloat16 else "k6_f32"
+                errs.update({f"{key}_fwd": e_fwd, f"{key}_bwd": e_bwd})
+                ms[f"{key}_fwd"] = (
                     cuda_ms(lambda: core.attention_core_fwd(qkv, mask,
                                                             *static)),
                     cuda_ms(lambda: core.attention_core_fwd_plain(
                         qkv, mask, *static)))
-                ms["k6_bwd"] = (
+                ms[f"{key}_bwd"] = (
                     cuda_ms(lambda: core.attention_core_bwd(
                         qkv, mask, out, lse, do, *static)),
                     cuda_ms(lambda: core.attention_core_bwd_plain(
                         qkv, mask, out, lse, do, *static)))
                 pairs = 8 * valid_pairs(lengths, n, causal)
                 keys = 8 * used_keys(lengths, n)
-                costs.update({f"k6_{kind}": core_cost(kind, b * n * 8, keys,
-                                                      pairs, b * n)
-                              for kind in ("fwd", "bwd")})
+                costs.update({f"{key}_{kind}": core_cost(
+                    kind, b * n * 8, keys, pairs, b * n,
+                    it=qkv.element_size()) for kind in ("fwd", "bwd")})
                 q, k, v = (_heads_of(qkv, i) for i in range(3))
-                lib["k6"] = sdpa_ms(q, k, v, mask, causal, 0.125,
-                                    _heads_of(do, 0))
+                lib[key] = sdpa_ms(q, k, v, mask, causal, 0.125,
+                                   _heads_of(do, 0))
             del qkv, do, out, lse
         # (b, h, n, causal, key pads): the text tower, the long sequence,
         # the vision tower at inference (64 tokens) and in training (32
@@ -813,8 +838,9 @@ def attn_kernels(gen, core, flash):
                                           flat[3], causal),
                 flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse,
                                                 flat[3], causal), dtype)
-            if dtype == torch.bfloat16 and pads:
-                key = "k7" if n == 256 else "k7_long"
+            if pads and (dtype == torch.bfloat16 or n == 256):
+                key = ("k7_f32" if dtype == torch.float32 else
+                       "k7" if n == 256 else "k7_long")
                 errs.update({f"{key}_fwd": e_fwd, f"{key}_bwd": e_bwd})
                 ms[f"{key}_fwd"] = (
                     cuda_ms(lambda: flash.flash_attention_fwd(
@@ -828,10 +854,12 @@ def attn_kernels(gen, core, flash):
                         *flat[:3], mask_bh, out, lse, flat[3], causal),
                         reps=3, iters=1))
                 lengths_bh = [L for L in lengths for _ in range(h)]
+                it = q.element_size()
                 costs.update({f"{key}_fwd": flash_cost("fwd", bh, n,
-                                                       lengths_bh, causal),
+                                                       lengths_bh, causal, it),
                               f"{key}_bwd": flash_cost("bwd", bh, n,
-                                                       lengths_bh, causal)})
+                                                       lengths_bh, causal,
+                                                       it)})
                 lib[key] = sdpa_ms(q, k, v, mask, causal, 1.0, do)
             elif dtype == torch.bfloat16:
                 errs.update({k: max(errs[k], e) for k, e in
@@ -889,7 +917,8 @@ def attn_kernels(gen, core, flash):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for key in ms:
-        b_ms, b_by = bound(*costs[key])
+        b_ms, b_by = bound(*costs[key],
+                           FP32_PEAK if "_f32" in key else BF16_PEAK)
         sdpa = lib[key.rsplit("_", 1)[0]]
         one = sdpa[0 if key.endswith("fwd") else 1]
         print(f"  {key}: kernel {ms[key][0]:.3f} ms ({ms[key][0] / one:.2f}x "
@@ -1042,23 +1071,55 @@ CORE_KERNELS = [
      "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
      "xclip_tpu/kernels/attention_megablock.py:396"),
 ]
+# the fp32 attention kernels (FMAs), timed at the flagship shapes: (key,
+# launch counter's key, record name, source, Pallas body replaced); the
+# megablock's core at (256, 257) and at one SimSiam pass's (256, 33), K6
+# and K7 at the text tower's shape
+F32_CORE_KERNELS = [
+    ("core_fwd", "attention core forward",
+     "megablock attention core forward, fp32",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:158"),
+    ("core_bwd", "attention core dq",
+     "megablock attention core backward (dq, dk/dv), fp32",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:396"),
+]
+F32_ATTN_KERNELS = [
+    ("k6_f32_fwd", "k6_fwd", "K6 attention_core forward, fp32",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_block.py:83"),
+    ("k6_f32_bwd", "k6_bwd", "K6 attention_core backward (dq, dk/dv), fp32",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_block.py:117"),
+    ("k7_f32_fwd", "k7_fwd", "K7 flash_attention forward, fp32",
+     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu/kernels/flash_attention.py:66"),
+    ("k7_f32_bwd", "k7_bwd", "K7 flash_attention backward (dq, dk/dv), fp32",
+     "xclip_tpu_torch/csrc/flash_attention.cu",
+     "xclip_tpu/kernels/flash_attention.py:134"),
+]
 
 
-def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
-    """The megablock's attention core alone (`mega_core_fwd`, `_bwd`), bf16,
-    8 x 64 heads, non-causal, scale 64^-0.5, on random qkv and fp32 dattn
-    (from a generator of its own, so the later phases' draws stay put)
-    with `lengths` valid keys an element: against its plain version
-    element by element, two launches of each bit for bit equal, timed
-    beside its plain version, SDPA on the same q, k, v and mask, and its
-    bound. Returns (errs, ms, costs, library) keyed core_fwd, core_bwd."""
+def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed,
+                      dt=torch.bfloat16):
+    """The megablock's attention core alone (`mega_core_fwd`, `_bwd`), in
+    `dt` (bf16: the mma.sync kernels; fp32: the FMA core), 8 x 64 heads,
+    non-causal, scale 64^-0.5, on random qkv and fp32 dattn (from a
+    generator of its own, so the later phases' draws stay put) with
+    `lengths` valid keys an element: against its plain version element by
+    element, two launches of each bit for bit equal, timed beside its
+    plain version, SDPA on the same q, k, v and mask, and its bound.
+    Returns (errs, ms, costs, library) keyed core_fwd, core_bwd."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
-    dt, scale = torch.bfloat16, 64 ** -0.5
+    scale = 64 ** -0.5
+    peak = FP32_PEAK if dt == torch.float32 else BF16_PEAK
     mask = key_mask(lengths, n)
     qkv = rand(cgen, b, n, 3 * 512, dtype=dt)
     dattn = rand(cgen, b, n, 512)
     static = (8, 64, scale, False, maybe_dead)
-    tag = f"megablock core bf16 ({b}, {n}, 3x512) 8x64 {label}"
+    tag = (f"megablock core {str(dt).split('.')[-1]} ({b}, {n}, 3x512) 8x64 "
+           f"{label}")
     want = mega.mega_core_fwd_plain(qkv, mask, *static)
     got = mega.mega_core_fwd(qkv, mask, *static)
     if not all(map(torch.equal, got, mega.mega_core_fwd(qkv, mask, *static))):
@@ -1086,12 +1147,12 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed):
     pairs = 8 * valid_pairs(lengths, n, False)
     keys = 8 * used_keys(lengths, n)
     costs = {f"core_{kind}": mega_core_cost(kind, b * n * 8, keys, pairs,
-                                            b * n)
+                                            b * n, qkv.element_size())
              for kind in ("fwd", "bwd")}
     library = {"core_fwd": sdpa[0], "core_bwd": sdpa[1]}
     torch.cuda.synchronize()
     for key in ms:
-        b_ms, b_by = bound(*costs[key])
+        b_ms, b_by = bound(*costs[key], peak)
         print(f"  {tag} {key}: kernel {ms[key][0]:.3f} ms "
               f"({ms[key][0] / library[key]:.2f}x sdpa), plain "
               f"{ms[key][1]:.3f} ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
@@ -1643,8 +1704,8 @@ def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                   make_train_step, counters):
     """Phase 13: the rotary causal-EOS tiny CLIP on the K6 and K7 routes
     against the JAX golden, fp32: outputs and one train step, each route
-    through its kernels."""
-    lines = []
+    through its kernels. Returns the kernels' launches (fp32) by key."""
+    lines, launches = [], {}
     for route, prefix, keys in (("K6", "fused_", ("k6_fwd", "k6_bwd")),
                                 ("K7", "flash_", ("k7_fwd", "k7_bwd"))):
         before = {k: counters[k].launches for k in keys}
@@ -1656,7 +1717,8 @@ def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
         loss_err, norm_err, grad_worst, param_worst = train_golden(
             CLIP, load_jax_params, numpy_params, default_optimizer,
             make_train_step, None, prefix, GOLDEN_ROTARY)
-        missed = [k for k in keys if counters[k].launches == before[k]]
+        launches.update({k: counters[k].launches - before[k] for k in keys})
+        missed = [k for k in keys if launches[k] == 0]
         if missed:
             fail(f"the rotary golden model did not run through {missed}")
         lines.append(f"{route} route outputs max_abs_err {worst:.3e} (tol "
@@ -1666,6 +1728,7 @@ def rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
                      f"(tol 1e-5)")
     phase(13, "rotary-golden", "rotary causal-EOS tiny CLIP fp32 vs JAX: "
           + "; ".join(lines))
+    return launches
 
 
 def rotary_models(CLIP, routes_by_name, dtype=torch.bfloat16):
@@ -2052,8 +2115,14 @@ PRODUCT_CLASSES = [
      [("y.W_out + x", "ff_fwd", "R", 512, 2048)],
      "xclip_tpu/kernels/fused_ff_block.py:158"),
 ]
-def product_operands(gen, cls, rows, call=0, epilogue=None):
-    """bf16 operands of call `call` of class `cls` (a PRODUCT_CLASSES
+# phase 19's fp32 rows: one SSL pass of phase 23 (256 images of 32 kept
+# patches and CLS in fp32 views) and the flagship text tower's 256 x 257
+F32_ROWS = (256 * 33, 256 * 257)
+
+
+def product_operands(gen, cls, rows, call=0, epilogue=None,
+                     dt=torch.bfloat16):
+    """Operands in `dt` of call `call` of class `cls` (a PRODUCT_CLASSES
     entry) at `rows` rows, unit-scale A and B scaled by k^-1/2, and how to
     run it: a dict for run_mm."""
     from xclip_tpu_torch.kernels import matmul
@@ -2062,7 +2131,6 @@ def product_operands(gen, cls, rows, call=0, epilogue=None):
     m, n, k = (rows if v == "R" else v for v in (m, n, k))
     epi = epilogue or epilogues[0]
     width = 2 * n if epi.startswith("geglu") else n
-    dt = torch.bfloat16
     a = rand(gen, *((k, m) if ta else (m, k)), dtype=dt)
     b = rand(gen, *((width, k) if tb else (k, width)), scale=k ** -0.5,
              dtype=dt)
@@ -2073,7 +2141,7 @@ def product_operands(gen, cls, rows, call=0, epilogue=None):
             "tb": tb, "m": m, "n": n, "k": k, "names": names,
             "resid": rand(gen, m, n, dtype=dt) if epi == "residual" else None,
             # the weight gradients' k-ranges, as gemm_split gives them
-            "k_split": matmul.split(m, n, k) if ta else None}
+            "k_split": matmul.split(m, n, k, dt) if ta else None}
 
 
 def run_mm(ops, plain=False):
@@ -2090,7 +2158,7 @@ def as_tuple(x):
 def compare_products(label, got, want, names):
     """Each output of the product kernel against mm_plain's: bf16 at two
     ulps of its largest magnitude, fp32 (the sums in another order only:
-    the operands are the same bf16 values) at 1e-4 of it."""
+    the operands are the same values) at 1e-4 of it."""
     worst = 0.0
     for name, g, w in zip(names, got, want):
         tol = (ulps2(w) if w.dtype == torch.bfloat16
@@ -2103,25 +2171,31 @@ def product_cost(ops):
     """(bytes: A, B, resid read and every output written once; FLOPs) of
     one product call."""
     m, n, k, epi = ops["m"], ops["n"], ops["k"], ops["epilogue"]
+    it = ops["a"].element_size()
     width = 2 * n if epi.startswith("geglu") else n
-    out = {"store": 2, "residual": 2, "geglu": 4, "geglu_triple": 8,
-           "geglu_h": 8}.get(epi, 4)
+    out = {"store": it, "residual": it, "geglu": 4, "geglu_triple": 4 + 2 * it,
+           "geglu_h": 4 + 2 * it}.get(epi, 4)
     parts = (math.ceil(k / ops["k_split"]) if ops["k_split"] else 1)
-    nbytes = (2 * m * k + 2 * k * width + out * parts * m * n
-              + (2 * m * n if epi == "residual" else 0))
+    nbytes = (it * m * k + it * k * width + out * parts * m * n
+              + (it * m * n if epi == "residual" else 0))
     return nbytes, 2 * m * width * k
 
 
 def library_ms(ops):
-    """(ms, what) of one PyTorch call for the product on the same bf16
-    operands: torch.mm with out_dtype=float32 where the epilogue's output
-    is fp32 and this PyTorch has it (else bf16 out), torch.addmm for
-    'residual', torch.mm in bf16 for 'store'; the split weight gradient as
-    one unsplit product."""
+    """(ms, what) of one PyTorch call for the product on the same operands:
+    in fp32 torch.mm (TF32 off) or torch.addmm for 'residual'; in bf16
+    torch.mm with out_dtype=float32 where the epilogue's output is fp32 and
+    this PyTorch has it (else bf16 out), torch.addmm for 'residual',
+    torch.mm in bf16 for 'store'; the split weight gradient as one unsplit
+    product."""
     a = ops["a"].T if ops["ta"] else ops["a"]
     b = ops["b"].T if ops["tb"] else ops["b"]
+    tag = "fp32" if a.dtype == torch.float32 else "bf16"
     if ops["epilogue"] == "residual":
-        return cuda_ms(lambda: torch.addmm(ops["resid"], a, b)), "addmm bf16"
+        return (cuda_ms(lambda: torch.addmm(ops["resid"], a, b)),
+                f"addmm {tag}")
+    if a.dtype == torch.float32:
+        return cuda_ms(lambda: torch.mm(a, b)), "mm fp32"
     if ops["epilogue"] != "store":
         try:
             torch.mm(a[:8], b, out_dtype=torch.float32)
@@ -2172,6 +2246,121 @@ def products(gen, step_rows):
                     torch.cuda.empty_cache()
         errs[key] = worst
     return errs, ms, costs, library
+
+
+def parent_library(parent):
+    """The kernel library of the older checkout at `parent`, built from its
+    own csrc/ into its own build/ directory, its xclip_mm and
+    xclip_mm_split typed as this checkout's."""
+    from xclip_tpu_torch.kernels import _build
+    saved = _build.CSRC, _build.BUILD_DIR
+    _build.CSRC = parent / "xclip_tpu_torch" / "csrc"
+    _build.BUILD_DIR = parent / "build" / "xclip_tpu_torch"
+    try:
+        path = _build.build()
+    finally:
+        _build.CSRC, _build.BUILD_DIR = saved
+    lib = ctypes.CDLL(str(path))
+    for name in ("xclip_mm", "xclip_mm_split"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def f32_products(gen, parent=None):
+    """Phase 19, fp32: every product class on the fp32 kernel, every call
+    at F32_ROWS: against mm_plain (every epilogue of the GEGLU class; 1e-4
+    of each output's largest magnitude), timed beside mm_plain, torch.mm /
+    addmm in fp32 (TF32 off), its bound at 67 TFLOP/s and, with `parent`
+    (an older checkout's library), the parent's kernel on the same
+    operands (its own split-k ranges). Returns (errs, ms, costs, library,
+    parent ms) keyed by (class, rows), from each class's first call."""
+    from xclip_tpu_torch.kernels import _build
+    phase(19, "products-fp32", "fp32 product kernel vs mm_plain on the card"
+          + ("" if parent is None else ", beside the parent's"))
+    errs, ms, costs, library, old = {}, {}, {}, {}, {}
+    for cls in PRODUCT_CLASSES:
+        key, title, epilogues = cls[:3]
+        for rows in F32_ROWS:
+            worst = 0.0
+            for call in range(len(cls[5])):
+                for epi in (epilogues if call == 0 else epilogues[:1]):
+                    ops = product_operands(gen, cls, rows, call, epi,
+                                           torch.float32)
+                    worst = max(worst, compare_products(
+                        ops["tag"], as_tuple(run_mm(ops)),
+                        as_tuple(run_mm(ops, plain=True)), ops["names"]))
+                    if epi != epilogues[0]:
+                        continue
+                    kms = cuda_ms(lambda: run_mm(ops))
+                    pms = cuda_ms(lambda: run_mm(ops, plain=True))
+                    lms, lwhat = library_ms(ops)
+                    cost = product_cost(ops)
+                    b_ms, b_by = bound(*cost, FP32_PEAK)
+                    line = (f"  fp32 {title}: {ops['tag']}: kernel {kms:.3f}"
+                            f" ms ({cost[1] / kms / 1e9:.1f} TFLOP/s, "
+                            f"{b_ms / kms:.2f} of the bound), bound "
+                            f"{b_ms:.3f} ms ({b_by}), plain {pms:.3f} ms, "
+                            f"torch {lwhat} {lms:.3f} ms ({kms / lms:.2f}x)")
+                    if parent is not None:
+                        m, n, k = ops["m"], ops["n"], ops["k"]
+                        prev = dict(ops, k_split=parent.xclip_mm_split(
+                            0, m, n, k, 0) if ops["ta"] else None)
+                        with mock.patch.object(_build, "library",
+                                               lambda: parent):
+                            pk = cuda_ms(lambda: run_mm(prev))
+                        line += f", parent {pk:.3f} ms ({pk / kms:.2f}x)"
+                        del prev
+                    marks = [w for w, bad in (
+                        ("under half its bound", b_ms / kms < 0.5),
+                        ("slower than torch", kms > lms)) if bad]
+                    print(line + (f" [{'; '.join(marks)}]" if marks else ""),
+                          flush=True)
+                    if call == 0:
+                        ms[key, rows], costs[key, rows] = (kms, pms), cost
+                        library[key, rows] = lms
+                        if parent is not None:
+                            old[key, rows] = pk
+                    del ops
+                    torch.cuda.empty_cache()
+            errs[key, rows] = worst
+    return errs, ms, costs, library, old
+
+
+def expected_f32_products(ffb, mega, lean, b=256, n=33, online=2, target=2,
+                          depth=6):
+    """The fp32 product kernel's launches per phase 23 step, by instance:
+    the SimSiam passes over fp32 views, `online` with gradients and
+    `target` without, `depth` layers each, at b images of n rows. The
+    targets take K-MEGA (qkv, proj) and K-FF (GEGLU, residual) once a
+    layer. Stored routes: K2's forward qkv and proj, its backward dattn,
+    dxn (A.B^T), dW_out, dW_qkv; K1's forward GEGLU-triple and residual,
+    pass 1 dy and dxn, pass 2 dW_in and dW_out. Lean routes, per chunk: K3's
+    forward qkv and proj, its backward their recompute and its four; K-FF-s
+    GEGLU and residual; the FF recompute backward h, dy, dxn, dW_in,
+    dW_out."""
+    dt, rows = torch.float32, b * n
+    S, AB, ABT, ATB = (("store", False, False), ("store_f32", False, False),
+                       ("store_f32", False, True), ("store_f32", True, False))
+    G, G3, GH, R = (("geglu", False, False), ("geglu_triple", False, False),
+                    ("geglu_h", False, False), ("residual", False, False))
+    count = dict.fromkeys((S, AB, ABT, ATB, G, G3, GH, R), 0)
+
+    def add(times, calls):
+        for inst, c in calls.items():
+            count[inst] += times * c
+
+    add(depth * target, {S: 1, AB: 1, G: 1, R: 1})
+    if not lean:
+        add(depth * online, {S: 1, AB: 1, ABT: 4, ATB: 4, G3: 1, R: 1})
+        return count
+    mf = len(mega.fwd_stats_spans(b, n, 512, 8, dt, False))
+    mb = len(mega.bwd_recompute_spans(b, n, 512, 8, dt, False))
+    ff = len(ffb.fwd_stats_spans(rows, 512, 2048, dt))
+    fb = len(ffb.bwd_recompute_spans(rows, 512, 2048, dt))
+    add(depth * online, {S: mf + mb, AB: mf + mb + fb, ABT: 2 * (mb + fb),
+                         ATB: 2 * (mb + fb), G: ff, R: ff})
+    return count
 
 
 def expected_products(ffb, mega):
@@ -3239,6 +3428,13 @@ def train_surface(card, CLIP, default_optimizer, make_train_step, ffb, mega,
 
 # ------------------------------------------------------------------- 23
 GOLDEN_OBJECTIVES = GOLDEN.with_name("torch_port_golden_objectives.npz")
+# the fp32 kernels of phase 23's step by the names the profiler gives
+# them: the product kernel, and the FMA attention core's forward, dq and
+# dk/dv (csrc/attention_core.cuh, fp32 only)
+FP32_STEP_KERNELS = {"products": ("gemm_f32_kernel",),
+                     "attention core forward": ("attention_fma_kernel",),
+                     "attention core dq": ("attention_bwd_dq_kernel",),
+                     "attention core dk/dv": ("attention_bwd_dkv_kernel",)}
 # the reference README's full configuration: every objective that combines
 OBJECTIVE_FLAGS = dict(use_mlm=True, use_visual_ssl=True,
                        decoupled_contrastive_learning=True,
@@ -3378,6 +3574,7 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
                lse5, load_jax_params, numpy_params, b=256, warm=2, timed=5):
     """Phase 23: every objective on the flagship, bf16, b = 256 (see the
     module docstring)."""
+    from xclip_tpu_torch.kernels import matmul
     from xclip_tpu_torch.objectives.augment import default_augment
     from xclip_tpu_torch.objectives.ssl import get_representation
     few = min(64, b)
@@ -3455,7 +3652,7 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
         f" vs plain routes max diff {max(diffs.values()):.3e} (tol 0.05 or "
         "2 bf16 ulps)")
 
-    def timed_objective(m, label, counters, want):
+    def timed_objective(m, label, counters, want, lean):
         m.load_state_dict(init)
         step = make_train_step(m, default_optimizer(m.parameters(),
                                                     learning_rate=1e-4))
@@ -3463,10 +3660,17 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
         def run(i):
             return step(text, images, generator=step_gen(100 + i), **views)
 
+        matmul.kernel_launches(reset=True, dtype=torch.float32)
         ms, counts, peak, losses = timed_steps(run, warm, timed, counters)
+        f32 = matmul.kernel_launches(dtype=torch.float32)
         per_step = {k: c / (warm + timed) for k, c in counts.items()}
         if per_step != want:
             fail(f"{label}: launches per step {per_step}, expected {want}")
+        # the SimSiam passes' fp32 products, counted in the library
+        want_f32 = expected_f32_products(ffb, mega, lean)
+        if {k: c / (warm + timed) for k, c in f32.items()} != want_f32:
+            fail(f"{label}: fp32 product kernel launches {f32} over "
+                 f"{warm + timed} steps, expected {want_f32} a step")
         if not torch.isfinite(losses).all():
             fail(f"{label}: a loss is not finite: {losses.tolist()}")
         (idle, busy, window), (total, rows) = profile_step(run, warm + timed)
@@ -3474,16 +3678,34 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
             f"{t:.2f} ms x{c} "
             f"{name.replace('void xclip::(anonymous namespace)::', '')[:60]}"
             for t, c, name in rows[:8])
+        # the step's fp32 kernels by name: the products and the
+        # megablock's FMA attention core (fp32 only)
+        fp32 = {kind: [(t, c) for t, c, name in rows
+                       if any(k in name for k in names)]
+                for kind, names in FP32_STEP_KERNELS.items()}
+        fp32 = {kind: (sum(t for t, _ in v), sum(c for _, c in v))
+                for kind, v in fp32.items()}
         print(f"  {label}: {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms per "
               f"step), peak {peak:.2f} GiB, idle share {idle:.4f} (device "
               f"busy {busy:.2f} of {window:.2f} ms), launches per step "
               f"{per_step}, losses "
               + " ".join(f"{x:.4f}" for x in losses.tolist()), flush=True)
         print(f"    top kernels of {total:.2f} ms: {top}", flush=True)
+        print(f"    fp32 kernels of the step (SimSiam passes): "
+              + "; ".join(f"{kind} {t:.2f} ms x{c}"
+                          for kind, (t, c) in fp32.items())
+              + "; fp32 product launches per step "
+              + ", ".join(f"{e} ta={int(ta)} tb={int(tb)} {c:g}"
+                          for (e, ta, tb), c in want_f32.items() if c),
+              flush=True)
         return (f"{label} {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms, peak "
-                f"{peak:.2f} GiB, idle {idle:.4f})")
+                f"{peak:.2f} GiB, idle {idle:.4f}, fp32 products "
+                f"{fp32['products'][0]:.2f} of {total:.2f} device ms)",
+                {"products": f32, "attention": fp32})
 
-    lines.append(timed_objective(kernel, "stored", stored, want_stored))
+    line, f32_stored = timed_objective(kernel, "stored", stored, want_stored,
+                                       False)
+    lines.append(line)
 
     # the SimSiam targets' passes (no_grad) take the inference forwards;
     # their outputs are bit for bit the training forwards'
@@ -3514,7 +3736,7 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
 
     # (b) the memory-lean routes
     lines.append(timed_objective(build(LEAN_BOTH, **OBJECTIVE_FLAGS),
-                                 "lean", lean, want_lean))
+                                 "lean", lean, want_lean, True)[0])
     torch.cuda.empty_cache()
 
     # (c) SimCLR: one step, its BatchNorm statistics folded
@@ -3617,6 +3839,7 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
                                 "k1_p2", "mega", "kff", "k5_fwd",
                                 "k5_bwd")}))
     phase(23, "objectives", f"{card}: " + "; ".join(lines))
+    return f32_stored
 
 
 # one rank of the 32k global batch (docs/SCALING.md): 2048 rows against the
@@ -4154,7 +4377,13 @@ def data_pipeline(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     phase(25, "data", f"{card}: " + "; ".join(lines))
 
 
-def main():
+def main(argv):
+    # an older checkout whose product kernel phase 19 times beside this one's
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = Path(argv[1]).resolve()
+    elif argv:
+        fail(f"usage: chip_smoke.py [--parent DIR], not {argv}")
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -4343,6 +4572,13 @@ def main():
     # full-length captions: the fifth key tile (one key) is walked too
     mega_core_kernels(mega, "text full-length", 256, 257, [257] * 256, True,
                       seed=7)
+    # the fp32 FMA core: at the text tower's shape, and at one SimSiam pass
+    # of phase 23 (256 fp32 views of 32 kept patches and CLS, no pads)
+    f32_core = {shape: mega_core_kernels(
+        mega, label, 256, n, lengths, dead, seed=seed, dt=torch.float32)
+        for shape, label, n, lengths, dead, seed in (
+            ("text", "text key-pad", 257, core_lengths, True, 6),
+            ("ssl", "SimSiam pass", 33, [33] * 256, False, 23))}
 
     # ---------------------------------------------------------------- 7
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -4414,8 +4650,9 @@ def main():
                        "k6_bwd": core.attention_core_bwd,
                        "k7_fwd": flash.flash_attention_fwd,
                        "k7_bwd": flash.flash_attention_bwd}
-    rotary_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
-                  make_train_step, rotary_counters)
+    f32_attn_launches = rotary_golden(
+        CLIP, load_jax_params, numpy_params, default_optimizer,
+        make_train_step, rotary_counters)
 
     # --------------------------------------------------------------- 14
     rotary_serve(card, CLIP, {**rotary_counters, "kff": ffb.ff_block})
@@ -4465,6 +4702,7 @@ def main():
                                          else 1)
                  for site, (start, stop) in first.items()}
     mm_errs, mm_ms, mm_costs, mm_library = products(gen, step_rows)
+    f32_mm = f32_products(gen, parent and parent_library(parent))
 
     # --------------------------------------------------------------- 20
     row_errs, row_ms, row_costs, row_library = rows_phase(gen, step_rows)
@@ -4488,8 +4726,8 @@ def main():
                   lse5, lean2048)
 
     # --------------------------------------------------------------- 23
-    objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
-               lse5, load_jax_params, numpy_params)
+    f32_step = objectives(card, CLIP, default_optimizer, make_train_step,
+                          ffb, mega, lse5, load_jax_params, numpy_params)
 
     # --------------------------------------------------------------- 24
     shard = data_parallel(card, CLIP, default_optimizer, make_train_step,
@@ -4554,6 +4792,35 @@ def main():
             sum(product_launches[(epi, ta, tb)] for epi in epilogues),
             mm_errs[key], mm_ms[key], mm_costs[key], BF16_PEAK,
             mm_library[key]))
+    # the fp32 product kernel by class: launches from phase 23's stored
+    # step (7 steps; the SimSiam passes' fp32 views, counted in the
+    # library), times at phase 19's fp32 rows beside torch.mm / addmm in
+    # fp32
+    f32_errs, f32_ms, f32_costs, f32_library, _ = f32_mm
+    for key, title, epilogues, ta, tb, calls, replaces in PRODUCT_CLASSES:
+        for rows in F32_ROWS:
+            record["kernels"].append(entry(
+                f"fp32 product kernel: {title} ({calls[0][0]}, {rows:,} "
+                f"rows)", "xclip_tpu_torch/csrc/gemm_f32.cu", replaces,
+                sum(f32_step["products"][(epi, ta, tb)]
+                    for epi in epilogues),
+                f32_errs[key, rows], f32_ms[key, rows], f32_costs[key, rows],
+                FP32_PEAK, f32_library[key, rows]))
+    # the fp32 attention kernels: the megablock's FMA core (launches in
+    # phase 23's profiled stored step, by kernel name), K6's and K7's fp32
+    # kernels (launches in phase 13's fp32 goldens), beside SDPA in fp32
+    for shape, where in (("text", "(256, 257)"), ("ssl", "(256, 33)")):
+        c_errs, c_ms, c_costs, c_library = f32_core[shape]
+        for key, kernel, name, source, replaces in F32_CORE_KERNELS:
+            record["kernels"].append(entry(
+                f"{name} {where}", source, replaces,
+                f32_step["attention"][kernel][1], c_errs[key], c_ms[key],
+                c_costs[key], FP32_PEAK, c_library[key]))
+    for key, counter, name, source, replaces in F32_ATTN_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, f32_attn_launches[counter],
+            attn_errs[key], attn_ms[key], attn_costs[key], FP32_PEAK,
+            attn_library[key]))
     # the row kernels by mode: launches from the run of the route that
     # takes the mode (phases 8, 11, 18), times at phase 20's first shape,
     # the plain LayerNorm backward beside native_layer_norm_backward
@@ -4606,6 +4873,6 @@ def main():
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    rc = main()
+    rc = main(sys.argv[1:])
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -1125,7 +1125,7 @@ def test_ff_routes_train_on_the_card_as_on_the_cpu(cuda_device, monkeypatch,
                                    atol=_grad_atol(want, "float32"))
 
 
-# ------------------------------------------ the bf16 product kernel alone
+# ------------------------------------ the bf16 and fp32 product kernels alone
 
 # (m, n, k) at the flagship widths, "R" the rows: each instance's product
 # in the b = 2048 step (kernels/matmul.py INSTANCES)
@@ -1139,27 +1139,28 @@ MM_FLAGSHIP = {("store", False, False): ("R", 1536, 512),
                ("residual", False, False): ("R", 512, 2048)}
 
 
-def _mm_args(instance, m, n, k, device, seed=0):
-    """bf16 operands of `instance` at (m, n, k): unit-scale A, B scaled by
-    k^-1/2, resid for 'residual', gemm_split's k-ranges for Aᵀ·B."""
+def _mm_args(instance, m, n, k, device, seed=0, dtype=torch.bfloat16):
+    """Operands of `instance` at (m, n, k) in `dtype`: unit-scale A, B
+    scaled by k^-1/2, resid for 'residual', gemm_split's k-ranges for
+    Aᵀ·B."""
     epi, ta, tb = instance
     g = torch.Generator(device=device).manual_seed(seed)
     width = 2 * n if epi.startswith("geglu") else n
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=device)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype)
 
     a = rnd(*((k, m) if ta else (m, k)))
     b = rnd(*((width, k) if tb else (k, width)), scale=k ** -0.5)
     resid = rnd(m, n) if epi == "residual" else None
     return (a, b, epi, ta, tb, resid,
-            matmul.split(m, n, k) if ta else None)
+            matmul.split(m, n, k, dtype) if ta else None)
 
 
 def _assert_products_close(got, want):
     """bf16 outputs within two ulps of their largest magnitude; fp32 ones
-    (the same bf16 operands, summed in another order) within 1e-4 of it."""
+    (the same operands, summed in another order) within 1e-4 of it."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
@@ -1182,39 +1183,73 @@ def _step_rows():
 @pytest.mark.parametrize("instance", matmul.INSTANCES,
                          ids=["-".join(map(str, i)) for i in matmul.INSTANCES])
 @pytest.mark.parametrize("rows", ["small", "ragged", "step"])
-def test_product_kernel_matches_plain(cuda_device, instance, rows):
-    """Every instance at a ragged row count (77 rows of 64 / 192 wide
-    operands; 65,792 + 37 and one b = 2048 chunk at the flagship widths)."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_product_kernel_matches_plain(cuda_device, instance, rows, dtype):
+    """Every instance of either kernel at a ragged row count (77 rows of
+    64 / 192 wide operands; 65,792 + 37 and one b = 2048 chunk at the
+    flagship widths)."""
     if rows == "small":
         m, n, k = (64, 192, 77) if instance[1] else (77, 192, 64)
     else:
         r = 65_792 + 37 if rows == "ragged" else _step_rows()
         m, n, k = (r if v == "R" else v for v in MM_FLAGSHIP[instance])
-    args = _mm_args(instance, m, n, k, cuda_device)
-    launches = matmul.kernel_launches()[instance]
+    args = _mm_args(instance, m, n, k, cuda_device, dtype=dtype)
+    launches = matmul.kernel_launches(dtype=dtype)[instance]
     got = matmul.mm(*args)
-    assert matmul.kernel_launches()[instance] == launches + 1
+    assert matmul.kernel_launches(dtype=dtype)[instance] == launches + 1
     _assert_products_close(got, matmul.mm_plain(*args))
 
 
 @pytest.mark.cuda
-def test_product_kernel_is_deterministic(cuda_device):
+@pytest.mark.parametrize("instance", matmul.INSTANCES,
+                         ids=["-".join(map(str, i)) for i in matmul.INSTANCES])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fp32_product_kernel_takes_any_shape_and_pointer(cuda_device,
+                                                         instance, offset):
+    """The fp32 kernel's 4-byte copies: m and k off the 4-float grid (66
+    and 75), and with offset 1 every operand a float off 16 bytes; against
+    mm_plain as above."""
+    epi, ta, tb = instance
+    m, n, k = 66, 192, 75
+    args = list(_mm_args(instance, m, n, k, cuda_device, seed=3,
+                         dtype=torch.float32))
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + offset, device=cuda_device)
+        out = flat[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    args[0], args[1] = shifted(args[0]), shifted(args[1])
+    if args[5] is not None:
+        args[5] = shifted(args[5])
+    _assert_products_close(matmul.mm(*args), matmul.mm_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_product_kernel_is_deterministic(cuda_device, dtype):
     for instance in matmul.INSTANCES:
         m, n, k = (512, 1536, 20_000) if instance[1] else (3_001, 512, 1536)
-        args = _mm_args(instance, m, n, k, cuda_device, seed=1)
+        args = _mm_args(instance, m, n, k, cuda_device, seed=1, dtype=dtype)
         runs = [matmul.mm(*args) for _ in range(2)]
         runs = [r if isinstance(r, tuple) else (r,) for r in runs]
         assert all(torch.equal(x, y) for x, y in zip(*runs)), instance
 
 
 @pytest.mark.cuda
-def test_chunked_weight_gradient_equals_unchunked(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_chunked_weight_gradient_equals_unchunked(cuda_device, dtype):
     """k-ranges of ROW_BLOCK rows: chunks of the rows at multiples of it
     give the same partials as the whole, and the FF recompute backward's
     running sum of each chunk's ordered partials the same bits."""
     instance = ("store_f32", True, False)
     rows, kb = 9_000, ffb.ROW_BLOCK
-    a, b, *_ = _mm_args(instance, 512, 1536, rows, cuda_device, seed=2)
+    a, b, *_ = _mm_args(instance, 512, 1536, rows, cuda_device, seed=2,
+                        dtype=dtype)
     whole = matmul.mm(a, b, "store_f32", True, False, None, kb)
     pieces = [matmul.mm(a[s:e], b[s:e], "store_f32", True, False, None, kb)
               for s, e in ((0, 4096), (4096, 6144), (6144, rows))]
@@ -1253,15 +1288,20 @@ def test_split_matches_the_library(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_blocks_launch_the_product_kernel(cuda_device):
-    """K-FF's forward runs its two products on the kernel: the GEGLU and
-    the residual instance, once each."""
-    args = to_torch(ff_args(R=130, D=128, I=256), torch.bfloat16, cuda_device)
-    before = matmul.kernel_launches()
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_blocks_launch_the_product_kernel(cuda_device, dtype):
+    """K-FF's forward runs its two products on the kernel of its dtype: the
+    GEGLU and the residual instance, once each, and nothing on the other."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    args = to_torch(ff_args(R=130, D=128, I=256), dtype, cuda_device)
+    before = matmul.kernel_launches(dtype=dtype)
+    others = matmul.kernel_launches(dtype=other)
     ffb.ff_block(*args)
-    after = matmul.kernel_launches()
+    after = matmul.kernel_launches(dtype=dtype)
     grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert grew == {("geglu", False, False): 1, ("residual", False, False): 1}
+    assert matmul.kernel_launches(dtype=other) == others
 
 
 # -------------------------------------------- LN / GEGLU backward row kernels

@@ -78,27 +78,26 @@ def test_epilogues_match_the_blocks_plain_compositions(dtype):
 
 def _split_emulated(m, n, k, bf16=True):
     """gemm_split written out again: the fewest ranges (each at least 1024
-    rows, at most two blocks a slot) whose 128 x 256 work tiles fill 132
-    persistent blocks to within 10 % in their last wave (else the
-    fullest), rounded up to the 64-deep k slice; fp32: about two 64 x 64
-    blocks an SM, rounded up to 32."""
-    if not bf16:
-        tiles = -(-m // 64) * -(-n // 64)
-        parts = max(1, min(-(-264 // tiles), k // 1024))
-        return -(-(-(-k // parts)) // 32) * 32
-    tiles = -(-m // 128) * -(-n // 256)
+    rows, at most two blocks a slot) whose work tiles fill the kernel's
+    slots to within 10 % in their last wave (else the fullest): bf16 128 x
+    256 tiles on 132 persistent blocks, rounded up to the 64-deep k slice;
+    fp32 128 x 128 tiles on 264 slots (two blocks an SM), rounded up to
+    32."""
+    width, slots, align = (256, 132, 64) if bf16 else (128, 264, 32)
+    tiles = -(-m // 128) * -(-n // width)
     fills = {}
-    for p in range(1, max(1, min(-(-264 // tiles), k // 1024)) + 1):
+    for p in range(1, max(1, min(-(-2 * slots // tiles), k // 1024)) + 1):
         work = tiles * p
-        fills[p] = work / (-(-work // 132) * 132)
+        fills[p] = work / (-(-work // slots) * slots)
     good = [p for p in fills if fills[p] >= 0.9]
     parts = min(good) if good else max(fills, key=lambda p: (fills[p], -p))
-    return -(-(-(-k // parts)) // 64) * 64
+    return -(-(-(-k // parts)) // align) * align
 
 
 SPLIT_SHAPES = [(512, 4096, 65_792), (2048, 512, 65_792), (512, 512, 65_792),
                 (512, 1536, 65_792), (512, 4096, 24_576), (512, 512, 3_341),
-                (64, 192, 77), (512, 1536, 526_336)]
+                (64, 192, 77), (512, 1536, 526_336), (512, 4096, 8_448),
+                (2048, 512, 8_448)]
 
 
 @pytest.mark.parametrize("m,n,k", SPLIT_SHAPES)
@@ -111,9 +110,14 @@ def test_split_ranges_are_whole_k_slices(m, n, k):
     assert all(e == s2 for (_, e), (s2, _) in zip(ranges, ranges[1:]))
     assert all(kb % matmul.SLICE == 0 for kb, _ in ranges)
     assert len(ranges) == 1 or min(ke - kb for kb, ke in ranges[:-1]) >= 1024
-    # fp32 keeps the FMA tiling's split (its bits do not change)
-    assert matmul.split(m, n, k, torch.float32) == _split_emulated(
-        m, n, k, bf16=False)
+    # fp32: the FMA kernel's 128 x 128 tiles, whole 16-deep slices
+    k32 = matmul.split(m, n, k, torch.float32)
+    assert k32 == _split_emulated(m, n, k, bf16=False)
+    assert k32 % 32 == 0
+    ranges32 = matmul.k_ranges(k, k32)
+    assert ranges32[-1][1] == k
+    assert len(ranges32) == 1 or min(
+        ke - kb for kb, ke in ranges32[:-1]) >= 1024
 
 
 def test_split_partials_match_an_emulation_bit_for_bit():

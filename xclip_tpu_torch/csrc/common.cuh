@@ -13,8 +13,9 @@
 //     axis optionally split into ranges that write fp32 partials (the
 //     weight gradients over the long row axis, summed in order by
 //     launch_reduce_parts). bf16 operands go to the wgmma kernel of
-//     gemm_sm90.cu (TMA-fed, its own translation unit); fp32 operands
-//     through an FMA tiling in full fp32 (no TF32).
+//     gemm_sm90.cu (TMA-fed), fp32 operands to the register-tiled FMA
+//     kernel of gemm_f32.cu (cp.async-fed, full fp32, no TF32); each is
+//     its own translation unit.
 //   * launch_reduce_parts / launch_emit_sum: the ordered sums of fp32
 //     partials (the dg and split-k sums of every backward), strictly in
 //     order, on a slab kernel with a cp.async ring (narrow and deep) or a
@@ -143,84 +144,42 @@ struct Split {
 
 // k_block > 0: k-ranges of exactly k_block (the last may be short), so a
 // caller that splits k at multiples of k_block gets the same partials; bf16
-// callers pass a multiple of kGemmBK. Otherwise, k-ranges of at least 1024
-// rows: in fp32 about two of the FMA kernel's 64x64 blocks an SM, ranges a
-// multiple of 32 long; in bf16 the fewest ranges whose work tiles fill the
-// wgmma kernel's persistent blocks (one on each of kGemmSMs) to within
-// 10 % in their last wave (else the fullest), ranges a multiple of its
-// kGemmBK-deep slice, so no TMA box crosses into the next range.
+// callers pass a multiple of kGemmBK. Otherwise the fewest k-ranges (each
+// at least 1024 long, at most two work tiles a slot) whose work tiles fill
+// the card's slots to within 10 % in their last wave (else the fullest):
+// in bf16 the wgmma kernel's 128 x kGemmBN tiles on its persistent blocks,
+// one on each of kGemmSMs, ranges a multiple of its kGemmBK-deep slice, so
+// no TMA box crosses into the next range; in fp32 the FMA kernel's 128 x
+// 128 tiles on two blocks an SM, ranges a multiple of 32 (whole 16-deep
+// slices).
 inline Split gemm_split(int m, int n, int k, bool tensor_cores,
                         int k_block = 0) {
   if (k_block > 0) return Split{(k + k_block - 1) / k_block, k_block};
-  long parts;
-  int align;
-  if (tensor_cores) {
-    const long tiles = (long)((m + kGemmBM - 1) / kGemmBM) *
-                       ((n + kGemmBN - 1) / kGemmBN);
-    const long slots = kGemmSMs;
-    long most = std::min((2 * slots + tiles - 1) / tiles, (long)k / 1024);
-    parts = 1;
-    double best = 0.0;
-    for (long p = 1; p <= most; ++p) {
-      const long work = tiles * p;
-      const double fill =
-          (double)work / ((double)((work + slots - 1) / slots) * slots);
-      if (fill > best + 1e-9) {
-        best = fill;
-        parts = p;
-      }
-      if (fill >= 0.9) break;
+  const int tile_n = tensor_cores ? kGemmBN : kGemmF32Tile;
+  const long tiles = (long)((m + kGemmBM - 1) / kGemmBM) *
+                     ((n + tile_n - 1) / tile_n);
+  const long slots = tensor_cores ? kGemmSMs : 2 * kGemmSMs;
+  const long most = std::min((2 * slots + tiles - 1) / tiles, (long)k / 1024);
+  long parts = 1;
+  double best = 0.0;
+  for (long p = 1; p <= most; ++p) {
+    const long work = tiles * p;
+    const double fill =
+        (double)work / ((double)((work + slots - 1) / slots) * slots);
+    if (fill > best + 1e-9) {
+      best = fill;
+      parts = p;
     }
-    align = kGemmBK;
-  } else {
-    const long tiles = (long)((m + 63) / 64) * ((n + 63) / 64);
-    parts = (264 + tiles - 1) / tiles;
-    parts = parts < k / 1024 ? parts : k / 1024;
-    align = 32;
+    if (fill >= 0.9) break;
   }
-  if (parts < 1) parts = 1;
+  const int align = tensor_cores ? kGemmBK : 32;
   const int k_split =
       (int)(((k + parts - 1) / parts + align - 1) / align * align);
   return Split{(k + k_split - 1) / k_split, k_split};
 }
 
-// Writes one 64-column tile of `out` (output columns [c0, c0 + 64)) from
-// the fp32 tile C (shared, row stride cld); for the GEGLU epilogues, C's
-// columns [64, 128) hold the gate b of columns [0, 64).
-template <typename T, int EPI, int NT>
-__device__ __forceinline__ void store_tile(const float* C, int cld, int bm,
-                                           int row0, int m, int n, int c0,
-                                           void* out, const T* resid,
-                                           void* aux1, void* aux2) {
-  for (int i = threadIdx.x; i < bm * 64; i += NT) {
-    const int r = i / 64, c = i % 64;
-    if (row0 + r >= m) break;  // rows only grow with i
-    const long o = (long)(row0 + r) * n + c0 + c;
-    const float v = C[r * cld + c];
-    if (EPI == kStore) {
-      static_cast<T*>(out)[o] = from_f<T>(v);
-    } else if (EPI == kStoreF32) {
-      static_cast<float*>(out)[o] = v;
-    } else if (is_geglu(EPI)) {
-      const float b = C[r * cld + 64 + c];
-      const GegluParts q(v, b);
-      static_cast<float*>(out)[o] = q.prod;
-      if (EPI == kGegluTriple) {
-        static_cast<T*>(aux1)[o] = from_f<T>(q.gelu_b);
-        static_cast<T*>(aux2)[o] = from_f<T>(v * q.gelu_db(b));
-      } else if (EPI == kGegluH) {
-        const long ho = (long)(row0 + r) * 2 * n + c0 + c;
-        static_cast<T*>(aux1)[ho] = from_f<T>(v);
-        static_cast<T*>(aux1)[ho + n] = from_f<T>(b);
-      }
-    } else {
-      static_cast<T*>(out)[o] = from_f<T>(round_to<T>(v) + to_f(resid[o]));
-    }
-  }
-}
-
 // cp.async, for the attention kernels' rings (mma_tiles.cuh and the FMA
-// cores) and the ordered sums' slab ring
+// cores), the fp32 product kernel's ring and the ordered sums' slab ring
 // 16-byte global → shared copy; zero-fills when !pred
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -512,83 +471,9 @@ int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
                                     st, acc == 2);
 }
 
-// --- fp32: FMA tiling in full fp32 (no TF32). 64x64 block tiles, each
-// thread an 8x4 block, 16-deep k slices staged synchronously.
-constexpr int kThreads = 128;  // also the attention kernels' block size
-constexpr int FBM = 64, FBK = 16, FLDA = FBK + 4, FLDB = 64 + 4,
-              FCLD = 128 + 4;
-
-struct FmaSmem {
-  __align__(16) float a[FBM][FLDA];
-  __align__(16) float b[FBK][FLDB];
-};
-
-// C[:, 0:64] (shared, row stride FCLD) = opA rows [row0, row0 + 64) · opB
-// columns [col, col + 64) over k in [kb, ke); B's row stride is ldb.
-template <bool TA, bool TB>
-__device__ void fma_tile(FmaSmem& sm, float* C, const float* A, int m,
-                         int row0, const float* B, int ldb, int col, int k,
-                         int kb, int ke) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][4] = {};
-  for (int k0 = kb; k0 < ke; k0 += FBK) {
-    for (int c = threadIdx.x; c < FBM * FBK; c += kThreads) {
-      // consecutive threads read consecutive addresses of the source
-      const int i = TA ? c % FBM : c / FBK, kk = TA ? c / FBM : c % FBK;
-      const bool ok = row0 + i < m && k0 + kk < ke;
-      sm.a[i][kk] = !ok ? 0.f
-                  : TA ? A[(long)(k0 + kk) * m + row0 + i]
-                       : A[(long)(row0 + i) * k + k0 + kk];
-    }
-    for (int c = threadIdx.x; c < 64 * FBK; c += kThreads) {
-      const int j = TB ? c / FBK : c % 64, kk = TB ? c % FBK : c / 64;
-      sm.b[kk][j] = k0 + kk >= ke ? 0.f
-                  : TB ? B[(long)(col + j) * k + k0 + kk]
-                       : B[(long)(k0 + kk) * ldb + col + j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sm.a[ty * 8 + i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sm.b[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) C[(ty * 8 + i) * FCLD + tx * 4 + j] = acc[i][j];
-  __syncthreads();
-}
-
-template <int EPI, bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-mm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
-              const float* __restrict__ resid, void* __restrict__ out, int m,
-              int n, int k, int k_split, void* __restrict__ aux1,
-              void* __restrict__ aux2) {
-  __shared__ FmaSmem sm;
-  __shared__ __align__(16) float C[FBM * FCLD];
-  const int row0 = blockIdx.x * FBM, c0 = blockIdx.y * 64;
-  const int kb = blockIdx.z * k_split;
-  const int ke = k < kb + k_split ? k : kb + k_split;
-  const int ldb = is_geglu(EPI) ? 2 * n : n;
-  fma_tile<TA, TB>(sm, C, A, m, row0, B, ldb, c0, k, kb, ke);
-  if (is_geglu(EPI))
-    fma_tile<TA, TB>(sm, C + 64, A, m, row0, B, ldb, n + c0, k, kb, ke);
-  void* o = EPI == kStoreF32
-                ? static_cast<float*>(out) + (long)blockIdx.z * m * n
-                : out;
-  store_tile<float, EPI, kThreads>(C, FCLD, FBM, row0, m, n, c0, o, resid,
-                                   aux1, aux2);
-}
+// The fp32 attention kernels' block size (attention_core.cuh,
+// flash_attention.cu, block_mma below).
+constexpr int kThreads = 128;
 
 template <typename T, int EPI, bool TA = false, bool TB = false>
 int launch_mm(const T* A, const T* B, const T* resid, void* out, int m, int n,
@@ -599,12 +484,9 @@ int launch_mm(const T* A, const T* B, const T* resid, void* out, int m, int n,
     return gemm_bf16(EPI, TA, TB, A, B, resid, out, m, n, k, sp.parts,
                      k_split, aux1, aux2, st);
   } else {
-    const dim3 grid((m + FBM - 1) / FBM, n / 64, sp.parts);
-    mm_fma_kernel<EPI, TA, TB><<<grid, kThreads, 0, st>>>(
-        A, B, resid, out, m, n, k, k_split, aux1, aux2);
+    return gemm_f32(EPI, TA, TB, A, B, resid, out, m, n, k, sp.parts, k_split,
+                    aux1, aux2, st);
   }
-  XCLIP_CHECK_LAUNCH();
-  return 0;
 }
 
 // The backward's products: out (m x n, fp32; `sp.parts` partials) =

@@ -671,7 +671,7 @@ int gemm_bf16(int epi, bool ta, bool tb, const bf16* A, const bf16* B,
 namespace {
 
 // The product alone (kernels/matmul.py `mm`), dtype code `dtype`: bf16 on
-// the wgmma kernel, fp32 on common.cuh's FMA tiling.
+// the wgmma kernel, fp32 on the FMA kernel of gemm_f32.cu.
 template <typename T>
 int mm_any(int instance, const T* A, const T* B, const T* resid, void* out,
            int m, int n, int k, void* aux1, void* aux2, xclip::Split sp,
@@ -725,13 +725,18 @@ extern "C" int xclip_mm_split(int dtype, int m, int n, int k, int k_block) {
   return xclip::gemm_split(m, n, k, dtype == xclip::kBF16, k_block).k_split;
 }
 
-// Launches of the bf16 product kernel's instance `instance` (0 ..
-// kGemmInstances - 1, kernels/matmul.py INSTANCES) since the library was
+// Launches of instance `instance` (0 .. kGemmInstances - 1,
+// kernels/matmul.py INSTANCES) of the product kernel of dtype code `dtype`
+// (bf16: the wgmma kernel, fp32: the FMA kernel) since the library was
 // loaded or last reset, from every caller (the FF and megablock entry
 // points, xclip_mm); reset != 0 sets it to 0 after reading it.
-extern "C" long long xclip_mm_launches(int instance, int reset) {
-  if (instance < 0 || instance >= xclip::kGemmInstances) return -1;
-  const long long n = xclip::g_launches[instance];
-  if (reset) xclip::g_launches[instance] = 0;
+extern "C" long long xclip_mm_launches(int dtype, int instance, int reset) {
+  if (instance < 0 || instance >= xclip::kGemmInstances ||
+      (dtype != xclip::kBF16 && dtype != xclip::kF32))
+    return -1;
+  long long& count = dtype == xclip::kBF16 ? xclip::g_launches[instance]
+                                           : xclip::g_f32_launches[instance];
+  const long long n = count;
+  if (reset) count = 0;
   return n;
 }

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _I, _P],
     "xclip_mm": [_I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P],
     "xclip_mm_split": [_I] * 5,
-    "xclip_mm_launches": [_I, _I],
+    "xclip_mm_launches": [_I, _I, _I],
     "xclip_geglu_bwd_rows": [_I, _I, *[_P] * 6, _I, _I, _F, *[_P] * 5],
     "xclip_ln_bwd_rows": [_I, _I, _I, _I, *[_P] * 8, _I, _I, *[_P] * 7],
     "xclip_ln_fwd_rows": [_I, _I, _I, *[_P] * 4, _I, _I, _F, *[_P] * 4],

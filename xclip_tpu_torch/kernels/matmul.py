@@ -1,11 +1,12 @@
 """The product kernel alone: out = epilogue(opA · opB), fp32 accumulation.
 
-Every bf16 product of the FF block (K-FF, K1, K1-h, K-FF-s, the recompute
-backward) and of the attention megablock (K-MEGA, K2, K3) runs on one
-hand-written kernel, `csrc/gemm_sm90.cu` (TMA-fed wgmma), inside those
-blocks' own entry points; its counterparts are the `dot_general` calls in
-their Pallas bodies. `mm` calls it alone, for tests and timing; fp32
-operands go to `csrc/common.cuh`'s FMA tiling, as in the blocks.
+Every product of the FF block (K-FF, K1, K1-h, K-FF-s, the recompute
+backward) and of the attention megablock (K-MEGA, K2, K3) runs on one of
+two hand-written kernels inside those blocks' own entry points: bf16 on
+`csrc/gemm_sm90.cu` (TMA-fed wgmma), fp32 on `csrc/gemm_f32.cu`
+(cp.async-fed, register-tiled FMAs in full fp32, no TF32); their
+counterparts are the `dot_general` calls in their Pallas bodies. `mm`
+calls them alone, for tests and timing.
 
 opA is `a` (m x k) or, with `ta`, `a`ᵀ for `a` (k x m); opB is `b` (k x n)
 or, with `tb`, `b`ᵀ for `b` (n x k). Epilogues, on the fp32 product acc:
@@ -21,10 +22,10 @@ or, with `tb`, `b`ᵀ for `b` (n x k). Epilogues, on the fp32 product acc:
 * "residual": T(acc) + resid, the add in T (the FF block's out product).
 
 `mm` takes the kernel for CUDA tensors and its plain version `mm_plain`
-for CPU tensors; on a CUDA tensor it launches the kernel or raises, and
-an operand TMA cannot take (a pointer not 16-byte aligned, n not a
-multiple of 64, a row stride not a multiple of 16 bytes) raises.
-`mm.launches` counts its own launches; the kernel's launches from every
+for CPU tensors; on a CUDA tensor it launches the kernel or raises: n not
+a multiple of 64 raises, and in bf16 so does an operand TMA cannot take (a
+pointer not 16-byte aligned, a row stride not a multiple of 16 bytes).
+`mm.launches` counts its own launches; each kernel's launches from every
 caller, the blocks' included, are counted inside the library per instance
 (`kernel_launches`).
 """
@@ -42,8 +43,8 @@ from ._common import (check_kernel_args, dtype_code, geglu_parts, gelu_grad,
 # csrc/common.cuh's epilogue codes
 EPILOGUES = {"store": 0, "store_f32": 1, "geglu": 2, "residual": 3,
              "geglu_triple": 4, "geglu_h": 5}
-# the (epilogue, ta, tb) instances the bf16 kernel is built for, in the
-# order of its launch counters (csrc/gemm_sm90.cu gemm_instance)
+# the (epilogue, ta, tb) instances both kernels are built for, in the
+# order of their launch counters (csrc/gemm_sm90.cu gemm_instance)
 INSTANCES = (("store", False, False), ("store_f32", False, False),
              ("store_f32", False, True), ("store_f32", True, False),
              ("geglu", False, False), ("geglu_triple", False, False),
@@ -52,34 +53,36 @@ INSTANCES = (("store", False, False), ("store_f32", False, False),
 # persistent blocks it runs (132 SMs, one block each)
 TILE_M, TILE_N, SLICE = 128, 256, 64
 SLOTS = 132
+# the fp32 kernel's tile (rows and columns, csrc/gemm_sm90.cuh
+# kGemmF32Tile), its blocks in flight (two an SM) and its split-k ranges'
+# multiple
+F32_TILE, F32_SLOTS, F32_ALIGN = 128, 2 * SLOTS, 32
 
 
 def split(m: int, n: int, k: int, dtype=torch.bfloat16,
           k_block: int = 0) -> int:
     """The k-range length csrc/common.cuh `gemm_split` gives an (m x n)
-    weight gradient over k rows: k_block itself when given; in bf16 the
-    fewest ranges (each at least 1024 rows) whose work tiles fill the
-    kernel's persistent blocks to within 10 % in their last wave (else the
-    fullest), a multiple of the 64-deep k slice; in fp32 about two 64 x 64
-    FMA blocks an SM, a multiple of 32."""
+    weight gradient over k rows: k_block itself when given; else the
+    fewest ranges (each at least 1024 rows, at most two work tiles a slot)
+    whose work tiles fill the kernel's slots to within 10 % in their last
+    wave (else the fullest): in bf16 128 x 256 tiles on 132 persistent
+    blocks, ranges a multiple of the 64-deep k slice; in fp32 128 x 128
+    tiles on two blocks an SM, ranges a multiple of 32."""
     if k_block > 0:
         return k_block
-    if dtype == torch.bfloat16:
-        tiles = math.ceil(m / TILE_M) * math.ceil(n / TILE_N)
-        most = min(math.ceil(2 * SLOTS / tiles), k // 1024)
-        parts, best = 1, 0.0
-        for p in range(1, most + 1):
-            fill = tiles * p / (math.ceil(tiles * p / SLOTS) * SLOTS)
-            if fill > best + 1e-9:
-                parts, best = p, fill
-            if fill >= 0.9:
-                break
-        align = SLICE
-    else:
-        tiles = math.ceil(m / 64) * math.ceil(n / 64)
-        parts = min(math.ceil(264 / tiles), k // 1024)
-        align = 32
-    parts = max(parts, 1)
+    bf16 = dtype == torch.bfloat16
+    tiles = (math.ceil(m / TILE_M)
+             * math.ceil(n / (TILE_N if bf16 else F32_TILE)))
+    slots = SLOTS if bf16 else F32_SLOTS
+    most = min(math.ceil(2 * slots / tiles), k // 1024)
+    parts, best = 1, 0.0
+    for p in range(1, most + 1):
+        fill = tiles * p / (math.ceil(tiles * p / slots) * slots)
+        if fill > best + 1e-9:
+            parts, best = p, fill
+        if fill >= 0.9:
+            break
+    align = SLICE if bf16 else F32_ALIGN
     return math.ceil(math.ceil(k / parts) / align) * align
 
 
@@ -202,10 +205,11 @@ def library_split(m: int, n: int, k: int, dtype=torch.bfloat16,
                                            k_block)
 
 
-def kernel_launches(reset: bool = False):
-    """{instance: launches of the bf16 product kernel since the library
-    was loaded or last reset}, from every caller; `reset` sets them to 0
-    after reading them."""
+def kernel_launches(reset: bool = False, dtype=torch.bfloat16):
+    """{instance: launches of the product kernel of `dtype` (bf16: the
+    wgmma kernel, fp32: the FMA kernel) since the library was loaded or
+    last reset}, from every caller; `reset` sets them to 0 after reading
+    them."""
     lib = _build.library()
-    return {inst: lib.xclip_mm_launches(i, int(reset))
+    return {inst: lib.xclip_mm_launches(dtype_code(dtype), i, int(reset))
             for i, inst in enumerate(INSTANCES)}
