@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--parent DIR]
 
 (--parent: an older checkout unpacked at DIR, e.g. by `git archive HEAD |
-tar -x -C DIR`, whose product kernels phase 19 builds and times beside
-this checkout's fp32 kernel.)
+tar -x -C DIR`, whose library is built once and whose fp32 attention core
+backward (phases 6 and 12) and fp32 product kernel (phase 19) are timed
+beside this checkout's on the same operands.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -59,7 +60,11 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              its plain version, scaled_dot_product_attention on the same
              q, k, v and mask, and its bound; the same for its fp32 FMA
              core at the text tower's shape and at one SimSiam pass's
-             (256, 33), beside SDPA in fp32.
+             (256, 33), beside SDPA in fp32 (and, with --parent, the
+             older checkout's backward); its backward past 640 keys, the
+             megablock's core and K6's causal at (8, 1024) with key pads,
+             masked tiles and a dead element, against the plain version,
+             two launches bit for bit, launched into NaN-filled memory.
   7 train-golden  one fp32 train step of the tiny CLIP of the golden file
              on the kernel routes against the JAX package's loss, gradients
              and updated parameters.
@@ -116,7 +121,8 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              kernel / SDPA ratio, and the bound (K7 at the vision shapes:
              kernel, bound, plain version and SDPA); K6 and K7 in fp32
              (the FMA kernels) timed likewise at the text shape, beside
-             SDPA in fp32 and the 67 TFLOP/s fp32 bound.
+             SDPA in fp32 and the 67 TFLOP/s fp32 bound (with --parent,
+             the older checkout's fp32 K6 backward beside it).
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -744,15 +750,83 @@ def compare_elementwise(label, names, got, want, dtype):
     return worst
 
 
-def attn_kernels(gen, core, flash):
+def parent_ms(parent, fn, kernel_ms):
+    """", parent X ms (Y x the kernel)": `fn` timed on the older checkout's
+    library `parent` (the wrappers bound to it) beside this checkout's
+    `kernel_ms`."""
+    from xclip_tpu_torch.kernels import _build
+    with mock.patch.object(_build, "library", lambda: parent):
+        ms = cuda_ms(fn)
+    return f", parent {ms:.3f} ms ({ms / kernel_ms:.2f}x the kernel)"
+
+
+def nan_fill(*specs):
+    """Allocate NaN-filled tensors of the given (shape, dtype)s and free
+    them: the caching allocator hands their blocks to the next tensors of
+    those sizes, so an element a kernel leaves unwritten reads NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+              for shape, dtype in specs]
+    torch.cuda.synchronize()
+    del blocks
+
+
+def f32_long_core(core, mega):
+    """The fp32 core's backward at a length past 640 (it keeps no score row
+    whole): the megablock's core (not causal) and K6's (causal) at (8,
+    1024, 8 x 64) with key pads, whole masked 64-key tiles, a leading
+    masked tile and a dead element, as in training (the forward's
+    statistics from the plain version): against the plain versions
+    (phase 12's rule), two launches bit for bit, every element written
+    (the first launch into NaN-filled memory)."""
+    g = torch.Generator(device="cuda").manual_seed(64)
+    b, n, f32 = 8, 1024, torch.float32
+    mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=g,
+                                  device="cuda").tolist(), n)
+    mask[0::4, 128:256] = False
+    mask[1::4, :64] = False
+    mask[-1] = False
+    qkv = rand(g, b, n, 3 * 512)
+    cot = rand(g, b, n, 512)
+    for label, causal in (("megablock core", False), ("K6", True)):
+        static = (8, 64, 0.125, causal, True)
+        if causal:
+            fwd = core.attention_core_fwd_plain(qkv, mask, *static)
+            want = core.attention_core_bwd_plain(qkv, mask, *fwd, cot,
+                                                 *static)
+
+            def run():
+                return core.attention_core_bwd(qkv, mask, *fwd, cot, *static)
+        else:
+            fwd = mega.mega_core_fwd_plain(qkv, mask, *static)
+            want = mega.mega_core_bwd_plain(qkv, mask, cot, *fwd, *static)
+
+            def run():
+                return mega.mega_core_bwd(qkv, mask, cot, *fwd, *static)
+        nan_fill((tuple(qkv.shape), f32), ((b, n, 8), f32))
+        got = run()
+        if not torch.equal(got, run()):
+            fail(f"{label} fp32 at n = {n}: two backward launches differ")
+        compare_elementwise(
+            f"{label} fp32 ({b}, {n}, 3x512) 8x64 "
+            f"{'causal ' if causal else ''}key-pad, masked tiles, dead rows",
+            ("dqkv",), (got,), (want,), f32)
+        del got, want, fwd
+    torch.cuda.empty_cache()
+
+
+def attn_kernels(gen, core, flash, parent=None):
     """Phase 12: K6 and K7, forward and backward, against their plain
     versions on the card, fp32 and bf16, at the main path's shapes (K7 in
     the vision tower too: 64 tokens at inference, 32 kept patches in
     training, non-causal, padded to the kernel's tile; bf16 at the text
     shape with whole masked key tiles and dead rows); times at the text
-    tower's flagship shape, the long sequence and the vision shapes."""
+    tower's flagship shape, the long sequence and the vision shapes; with
+    `parent` (an older checkout's library) the parent's fp32 K6 backward
+    on the same operands."""
     phase(12, "attn-kernels", "kernel vs plain version on the card")
-    errs, ms, costs, lib = {}, {}, {}, {}
+    errs, ms, costs, lib, old = {}, {}, {}, {}, {}
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
@@ -804,6 +878,11 @@ def attn_kernels(gen, core, flash):
                 q, k, v = (_heads_of(qkv, i) for i in range(3))
                 lib[key] = sdpa_ms(q, k, v, mask, causal, 0.125,
                                    _heads_of(do, 0))
+                if parent is not None and dtype == torch.float32:
+                    old[f"{key}_bwd"] = parent_ms(
+                        parent, lambda: core.attention_core_bwd(
+                            qkv, mask, out, lse, do, *static),
+                        ms[f"{key}_bwd"][0])
             del qkv, do, out, lse
         # (b, h, n, causal, key pads): the text tower, the long sequence,
         # the vision tower at inference (64 tokens) and in training (32
@@ -925,8 +1004,8 @@ def attn_kernels(gen, core, flash):
               f"sdpa), plain {ms[key][1]:.3f} ms, bound {b_ms:.3f} ms "
               f"({b_by}), sdpa "
               f"{'forward' if key.endswith('fwd') else 'backward'} "
-              f"{one:.3f} ms (forward + backward {sdpa[2]:.3f} ms)",
-              flush=True)
+              f"{one:.3f} ms (forward + backward {sdpa[2]:.3f} ms)"
+              + old.get(key, ""), flush=True)
     library = {key: lib[key.rsplit("_", 1)[0]][0 if key.endswith("fwd")
                                                  else 1] for key in ms}
     return errs, ms, costs, library
@@ -1102,15 +1181,17 @@ F32_ATTN_KERNELS = [
 
 
 def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed,
-                      dt=torch.bfloat16):
+                      dt=torch.bfloat16, parent=None):
     """The megablock's attention core alone (`mega_core_fwd`, `_bwd`), in
     `dt` (bf16: the mma.sync kernels; fp32: the FMA core), 8 x 64 heads,
     non-causal, scale 64^-0.5, on random qkv and fp32 dattn (from a
     generator of its own, so the later phases' draws stay put) with
     `lengths` valid keys an element: against its plain version element by
     element, two launches of each bit for bit equal, timed beside its
-    plain version, SDPA on the same q, k, v and mask, and its bound.
-    Returns (errs, ms, costs, library) keyed core_fwd, core_bwd."""
+    plain version, SDPA on the same q, k, v and mask, its bound and, with
+    `parent` (an older checkout's library), the parent's backward on the
+    same operands. Returns (errs, ms, costs, library) keyed core_fwd,
+    core_bwd."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
     scale = 64 ** -0.5
     peak = FP32_PEAK if dt == torch.float32 else BF16_PEAK
@@ -1150,14 +1231,18 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed,
                                             b * n, qkv.element_size())
              for kind in ("fwd", "bwd")}
     library = {"core_fwd": sdpa[0], "core_bwd": sdpa[1]}
+    old = {}
+    if parent is not None:
+        old["core_bwd"] = parent_ms(parent, lambda: mega.mega_core_bwd(
+            qkv, mask, dattn, *want, *static), ms["core_bwd"][0])
     torch.cuda.synchronize()
     for key in ms:
         b_ms, b_by = bound(*costs[key], peak)
         print(f"  {tag} {key}: kernel {ms[key][0]:.3f} ms "
               f"({ms[key][0] / library[key]:.2f}x sdpa), plain "
               f"{ms[key][1]:.3f} ms, bound {b_ms:.3f} ms ({b_by}), sdpa "
-              f"{library[key]:.3f} ms (forward + backward {sdpa[2]:.3f} ms)",
-              flush=True)
+              f"{library[key]:.3f} ms (forward + backward {sdpa[2]:.3f} ms)"
+              + old.get(key, ""), flush=True)
     if all(length == n for length in lengths):
         # every key valid: SDPA needs no mask, and takes its fastest path
         bare = sdpa_ms(q, k, v, None, False, scale,
@@ -2250,8 +2335,8 @@ def products(gen, step_rows):
 
 def parent_library(parent):
     """The kernel library of the older checkout at `parent`, built from its
-    own csrc/ into its own build/ directory, its xclip_mm and
-    xclip_mm_split typed as this checkout's."""
+    own csrc/ into its own build/ directory, every entry point it has
+    typed as this checkout's."""
     from xclip_tpu_torch.kernels import _build
     saved = _build.CSRC, _build.BUILD_DIR
     _build.CSRC = parent / "xclip_tpu_torch" / "csrc"
@@ -2260,10 +2345,19 @@ def parent_library(parent):
         path = _build.build()
     finally:
         _build.CSRC, _build.BUILD_DIR = saved
+    return typed_library(path)
+
+
+def typed_library(path):
+    """The kernel library at `path`, loaded, every entry point it has typed
+    as this checkout's."""
+    from xclip_tpu_torch.kernels import _build
     lib = ctypes.CDLL(str(path))
-    for name in ("xclip_mm", "xclip_mm_split"):
-        getattr(lib, name).argtypes = _build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
+    for name, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = _build._RESTYPES.get(name,
+                                                              ctypes.c_int)
     return lib
 
 
@@ -3700,8 +3794,10 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
               flush=True)
         return (f"{label} {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms, peak "
                 f"{peak:.2f} GiB, idle {idle:.4f}, fp32 products "
-                f"{fp32['products'][0]:.2f} of {total:.2f} device ms)",
-                {"products": f32, "attention": fp32})
+                f"{fp32['products'][0]:.2f}, fp32 attention core dq "
+                f"{fp32['attention core dq'][0]:.2f} + dk/dv "
+                f"{fp32['attention core dk/dv'][0]:.2f} of {total:.2f} "
+                "device ms)", {"products": f32, "attention": fp32})
 
     line, f32_stored = timed_objective(kernel, "stored", stored, want_stored,
                                        False)
@@ -4418,6 +4514,9 @@ def main(argv):
     _build.library()
     seconds = time.perf_counter() - t0
     phase(1, "build", f"nvcc sm_90a, {seconds:.1f} s → {_build.library_path().name}")
+    # the older checkout's library (phases 6, 12 and 19 time its kernels
+    # beside this checkout's)
+    parent_lib = parent and parent_library(parent)
 
     # ---------------------------------------------------------------- 2
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4575,10 +4674,14 @@ def main(argv):
     # the fp32 FMA core: at the text tower's shape, and at one SimSiam pass
     # of phase 23 (256 fp32 views of 32 kept patches and CLS, no pads)
     f32_core = {shape: mega_core_kernels(
-        mega, label, 256, n, lengths, dead, seed=seed, dt=torch.float32)
+        mega, label, 256, n, lengths, dead, seed=seed, dt=torch.float32,
+        parent=parent_lib)
         for shape, label, n, lengths, dead, seed in (
             ("text", "text key-pad", 257, core_lengths, True, 6),
             ("ssl", "SimSiam pass", 33, [33] * 256, False, 23))}
+    # past 640 keys: the fp32 backward keeps no score row whole, so fp32
+    # training takes the forward's lengths
+    f32_long_core(core, mega)
 
     # ---------------------------------------------------------------- 7
     train_golden(CLIP, load_jax_params, numpy_params, default_optimizer,
@@ -4642,8 +4745,8 @@ def main(argv):
               flush=True)
 
     # --------------------------------------------------------------- 12
-    attn_errs, attn_ms, attn_costs, attn_library = attn_kernels(gen, core,
-                                                                flash)
+    attn_errs, attn_ms, attn_costs, attn_library = attn_kernels(
+        gen, core, flash, parent_lib)
 
     # --------------------------------------------------------------- 13
     rotary_counters = {"k6_fwd": core.attention_core_fwd,
@@ -4702,7 +4805,7 @@ def main(argv):
                                          else 1)
                  for site, (start, stop) in first.items()}
     mm_errs, mm_ms, mm_costs, mm_library = products(gen, step_rows)
-    f32_mm = f32_products(gen, parent and parent_library(parent))
+    f32_mm = f32_products(gen, parent_lib)
 
     # --------------------------------------------------------------- 20
     row_errs, row_ms, row_costs, row_library = rows_phase(gen, step_rows)

@@ -548,9 +548,12 @@ def _assert_elementwise(got, want, dtype, names):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
-@pytest.mark.parametrize("n,heads", [(33, 2), (257, 8), (256, 8)])
+@pytest.mark.parametrize("n,heads", [(33, 2), (257, 8), (256, 8), (1024, 2),
+                                     (1621, 1)])
 def test_attention_core_kernels_match_plain(cuda_device, dtype, causal,
                                             mask_kind, n, heads):
+    """K6's kernels against their plain versions, in fp32 up to the
+    forward's 1,621 keys (the backward keeps no score row whole)."""
     qkv, mask, do = to_torch(core_args(n=n, heads=heads, mask_kind=mask_kind),
                              getattr(torch, dtype), cuda_device)
     static = (heads, 64, 0.125, causal, mask_kind != "none")
@@ -582,29 +585,38 @@ def _nan_blocks(*specs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["holes", "dead"])
-def test_attention_core_writes_every_element(cuda_device, causal, mask_kind):
-    """bf16 K6 skips causal and all-masked tiles, yet writes every element
-    of out, lse and dqkv (the wrapper takes them from torch.empty)."""
+def test_attention_core_writes_every_element(cuda_device, dtype, causal,
+                                             mask_kind):
+    """K6 skips causal and all-masked tiles (the fp32 backward too, and its
+    ragged last tile's empty column groups), yet writes every element of
+    out, lse and dqkv (the wrapper takes them from torch.empty), and the
+    backward agrees with its plain version."""
     qkv, mask, do = to_torch(core_args(n=257, heads=8, mask_kind=mask_kind),
-                             torch.bfloat16, cuda_device)
+                             dtype, cuda_device)
     static = (8, 64, 0.125, causal, True)
     b, n, _ = qkv.shape
-    _nan_blocks(((b, n, 512), torch.bfloat16), ((b, n, 8), torch.float32))
+    _nan_blocks(((b, n, 512), dtype), ((b, n, 8), torch.float32))
     out, lse = core.attention_core_fwd(qkv, mask, *static)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-    _nan_blocks((tuple(qkv.shape), torch.bfloat16),
-                ((b, n, 8), torch.float32))
+    _nan_blocks((tuple(qkv.shape), dtype), ((b, n, 8), torch.float32))
     dqkv = core.attention_core_bwd(qkv, mask, out, lse, do, *static)
     torch.cuda.synchronize()
     assert torch.isfinite(dqkv).all()
+    _assert_elementwise(
+        (dqkv,), (core.attention_core_bwd_plain(qkv, mask, out, lse, do,
+                                                *static),),
+        str(dtype).split(".")[-1], ("dqkv",))
 
 
 @pytest.mark.cuda
 def test_attention_core_raises_above_max_seq_len(cuda_device):
-    """No fallback: a length the kernel does not take raises."""
+    """No fallback: a length the kernel does not take raises. fp32
+    training takes up to the forward's limit (the backward's, 2048, lies
+    past it) and raises one past it and one past the backward's."""
     n = mega.max_seq_len(torch.bfloat16) + 1
     qkv = torch.zeros(1, n, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
     mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
@@ -616,6 +628,20 @@ def test_attention_core_raises_above_max_seq_len(cuda_device):
     mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="exceeds"):
         core.attention_core(qkv, mask, 2, 64, 0.125)
+    f32 = torch.float32
+    assert mega.max_seq_len_bwd(f32) == 2048 > mega.max_seq_len(f32) >= 1621
+    assert mega.seq_len_limit(f32, training=True) == mega.max_seq_len(f32)
+    for n in (mega.max_seq_len(f32) + 1, mega.max_seq_len_bwd(f32) + 1):
+        qkv = torch.zeros(1, n, 3 * 128, device=cuda_device,
+                          requires_grad=True)
+        mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
+        with pytest.raises(ValueError, match="exceeds"):
+            core.attention_core(qkv, mask, 2, 64, 0.125)
+    n = mega.max_seq_len(f32)
+    qkv = torch.randn(1, n, 3 * 128, device=cuda_device, requires_grad=True)
+    mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
+    core.attention_core(qkv, mask, 2, 64, 0.125, True).sum().backward()
+    assert torch.isfinite(qkv.grad).all()
 
 
 def _flash_padded(args, dtype, device):
@@ -760,19 +786,28 @@ def test_flash_attention_more_than_65535_heads(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_cores_are_deterministic(cuda_device):
-    """No float atomics: two backward runs of K6 (also at (4, 256, 8
-    heads) causal with whole masked key tiles) and of K7 (also at (4, 2,
-    256) causal with whole masked key tiles and a dead row, bf16) agree bit
-    for bit."""
-    for kwargs in (dict(n=70, heads=2),
-                   dict(b=4, n=256, heads=8, mask_kind="holes")):
-        qkv, mask, do = to_torch(core_args(**kwargs), torch.bfloat16,
-                                 cuda_device)
-        static = (kwargs["heads"], 64, 0.125, True)
-        out, lse = core.attention_core_fwd(qkv, mask, *static)
-        a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, *static)
-                for _ in range(2))
-        assert torch.equal(a, b), kwargs
+    """No float atomics: two backward runs of K6 in bf16 and fp32 (also at
+    (4, 256, 8 heads) causal with whole masked key tiles), of the
+    megablock's fp32 core (dead rows) and of K7 (also at (4, 2, 256) causal
+    with whole masked key tiles and a dead row, bf16) agree bit for bit."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for kwargs in (dict(n=70, heads=2),
+                       dict(b=4, n=256, heads=8, mask_kind="holes")):
+            qkv, mask, do = to_torch(core_args(**kwargs), dtype, cuda_device)
+            static = (kwargs["heads"], 64, 0.125, True)
+            out, lse = core.attention_core_fwd(qkv, mask, *static)
+            a, b = (core.attention_core_bwd(qkv, mask, out, lse, do, *static)
+                    for _ in range(2))
+            assert torch.equal(a, b), (dtype, kwargs)
+    # the megablock's fp32 core (its own scale order), dead rows
+    qkv, mask, dattn = to_torch(core_args(b=4, n=257, heads=8,
+                                          mask_kind="dead"), torch.float32,
+                                cuda_device)
+    static = (8, 64, 0.125, False, True)
+    fwd = mega.mega_core_fwd(qkv, mask, *static)
+    a, b = (mega.mega_core_bwd(qkv, mask, dattn, *fwd, *static)
+            for _ in range(2))
+    assert torch.equal(a, b)
     holes = flash_args(b=4, n=256, mask_kind="holes")
     holes[3][-1] = False   # a dead row
     for args in (flash_args(n=200), holes):

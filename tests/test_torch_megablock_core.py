@@ -278,6 +278,83 @@ def test_cuts_at_full_length_257():
     assert int(full.sum()) == 17 * 16 * 4 * 64
 
 
+def _f32_cuts(mask, causal, maybe_dead):
+    """The fp32 backward's cuts below the tile (csrc/attention_core.cuh), as
+    (b, N, N) boolean maps over (query, key), N the padded length, on the
+    tiles each kernel walks (the bf16 kernels' walks, `_walks`): `dq`, the
+    pairs whose ds the dq kernel forms (a warp's 16 query rows below n,
+    its keys in groups of 16 up to the tile's last valid key and, causal,
+    its last row); `dkv`, the pairs whose p and ds the dk/dv kernel forms
+    (16 keys below n holding a valid key, or any 16 below n on a query tile
+    holding a dead row; the tile's queries in groups of 16 below n)."""
+    b, n = mask.shape
+    tiles = -(-n // 64)
+    size = 64 * tiles
+    _, first = _tile_bits(mask)
+    _, dq_walk, dkv_walk = _walks(mask, causal, maybe_dead)
+    padded = torch.zeros(b, size, dtype=torch.bool)
+    padded[:, :n] = mask
+    dq, dkv = (torch.zeros(b, size, size, dtype=torch.bool) for _ in range(2))
+    for (bi, t), us in dq_walk.items():
+        for u in us:
+            valid = padded[bi, 64 * u:64 * u + 64].nonzero()
+            last = int(valid.max()) + 1
+            for r0 in range(64 * t, min(n, 64 * t + 64), 16):
+                kend = min(n, r0 + 16) if causal else n
+                cols = -(-min(kend - 64 * u, last) // 16) * 16
+                dq[bi, r0:r0 + 16, 64 * u:64 * u + cols] = True
+    for (bi, t), us in dkv_walk.items():
+        fv = int(first[bi])
+        dead_end = ((min(fv, n) if causal else (n if fv >= n else 0))
+                    if maybe_dead else 0)
+        for u in us:
+            cols = -(-min(64, n - 64 * u) // 16) * 16
+            for k0 in range(64 * t, min(n, 64 * t + 64), 16):
+                if padded[bi, k0:k0 + 16].any() or 64 * u < dead_end:
+                    dkv[bi, 64 * u:64 * u + cols, k0:k0 + 16] = True
+    return dq, dkv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind,n", [("keypad", 257), ("holes", 257),
+                                    ("all", 257), ("all", 200),
+                                    ("none", 130), ("none", 33),
+                                    ("keypad", 65)])
+def test_f32_cuts_skip_only_zeros(causal, kind, n):
+    """What the fp32 kernels' warp and column-group cuts leave out is
+    exact: the dq kernel forms ds wherever a live row has a nonzero p, the
+    dk/dv kernel p and ds wherever p is nonzero (a dead row's 1/n on every
+    key included)."""
+    maybe_dead = kind != "none"
+    qkv, mask, _, _, _ = _inputs(n, kind, torch.float32)
+    b = qkv.shape[0]
+    attnout, sm = mega.mega_core_fwd_plain(qkv, mask, HEADS, 64, 0.125,
+                                           causal, maybe_dead)
+    q, k, _ = (mega._heads(qkv[..., i * 128:(i + 1) * 128], b, n, HEADS, 64)
+               for i in range(3))
+    s, dead = mega._softmax_parts(q, k, mask, 0.125, causal, maybe_dead)
+    if dead is None:
+        dead = torch.zeros(b, HEADS, n, 1, dtype=torch.bool)
+    m, l = (sm[..., i * HEADS:(i + 1) * HEADS].permute(0, 2, 1)[..., None]
+            for i in range(2))
+    p = torch.where(dead, 1.0, torch.exp(s - m)) / l
+    dq, dkv = (c[:, None, :n, :n] for c in _f32_cuts(mask, causal,
+                                                     maybe_dead))
+    assert not ((p != 0) & ~dead & ~dq).any()
+    assert not ((p != 0) & ~dkv).any()
+
+
+def test_f32_cuts_at_full_length_257():
+    """At n = 257 with every key valid the dq kernel's live warps (17 of
+    20) form ds over 4 whole key tiles and the fifth tile's first group of
+    16 keys; the dk/dv kernel's (17 of 20 key warps) over the 4 whole query
+    tiles and the fifth's first group: 17 x 16 x 272 pairs each, in place
+    of 20 x 16 x 320."""
+    mask = torch.ones(1, 257, dtype=torch.bool)
+    dq, dkv = _f32_cuts(mask, False, True)
+    assert int(dq.sum()) == int(dkv.sum()) == 17 * 16 * 272
+
+
 def _jax_dqkv(monkeypatch, args, dtype, heads, scale, causal, maybe_dead,
               dout):
     """dqkv as JAX's `_bwd_kernel_stored` emits it (interpret mode): the

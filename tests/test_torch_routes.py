@@ -52,13 +52,13 @@ MAX_WIDTH = 8192
 class _Limits:
     """A stand-in for the kernel library's two length queries, with the
     limits its source states (csrc/attention_core.cuh): bf16 2048 forward
-    and backward, fp32 1621 forward and 640 backward."""
+    and backward, fp32 1621 forward and 2048 backward."""
 
     def xclip_attention_block_max_n(self, dtype):
         return 2048 if dtype else 1621
 
     def xclip_attention_block_bwd_max_n(self, dtype):
-        return 2048 if dtype else 640
+        return 2048
 
 
 @pytest.fixture
@@ -69,9 +69,9 @@ def limits(monkeypatch):
 def _cuda_takes_attention(dim, dim_head, n, dtype, training):
     """The CUDA attention wrappers' limits, as documented: dim_head up to
     64 (narrower heads zero-padded), a block width on the 64 grid up to
-    8192 (None: no block), n up to 2048 in bf16; fp32 1621 forward, 640
-    with a backward."""
-    limit = 2048 if dtype == BF16 else (640 if training else 1621)
+    8192 (None: no block), n up to 2048 in bf16; in fp32 the forward's
+    1621, with a backward too."""
+    limit = 2048 if dtype == BF16 else 1621
     return (dim_head <= 64 and n <= limit and (
         dim is None or (dim % 64 == 0 and dim <= MAX_WIDTH)))
 
@@ -124,6 +124,8 @@ MEGA_CASES = [  # (attn_impl, dim, heads, dim_head, n, dtype, training)
     ("fused", 512, 8, 64, 641, F32, True),
     ("fused", 512, 8, 64, 1621, F32, False),
     ("fused", 512, 8, 64, 1622, F32, False),
+    ("fused", 512, 8, 64, 1621, F32, True),
+    ("fused", 512, 8, 64, 1622, F32, True),
     ("fused", 72, 2, 64, 257, BF16, True),
 ]
 

@@ -84,3 +84,11 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
       XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
       causal, maybe_dead, st);
 }
+
+// Blocks an SM of the fp32 backward's kernels, K6's (lse 1) or the
+// megablock's (lse 0): dq (`which` 0) or dk/dv (1); a negative cudaError_t
+// code on failure.
+extern "C" int xclip_attention_bwd_blocks(int lse, int which) {
+  return lse ? attention_bwd_blocks<true>(which)
+             : attention_bwd_blocks<false>(which);
+}

@@ -290,9 +290,9 @@ extern "C" int xclip_attention_block_max_n(int dtype) {
   return attention_max_n(dtype);
 }
 
-// Largest sequence length the attention core's backward takes in `dtype`
-// (bf16 2048; in fp32 its query-tile kernel keeps 32 full score rows in
-// shared memory).
+// Largest sequence length the attention core's backward takes in `dtype`:
+// 2048 in both (the mask words of 32 key tiles; the fp32 kernels keep no
+// score row whole, so fp32 training stops at the forward's limit).
 extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
   return attention_bwd_max_n(dtype);
 }

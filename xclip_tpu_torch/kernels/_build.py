@@ -55,6 +55,7 @@ _SIGNATURES = {
                                             _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
+    "xclip_attention_bwd_blocks": [_I, _I],
     "xclip_mega_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
     "xclip_mega_core_bwd": [_I, *[_P] * 8, _I, _I, _I, _F, _I, _I, _P],
     "xclip_lse_fwd": [*[_P] * 4, *[_I] * 6, _P],
