@@ -5,8 +5,9 @@
 
 (--parent: an older checkout unpacked at DIR, e.g. by `git archive HEAD |
 tar -x -C DIR`, whose library is built once and whose fp32 attention core
-backward (phases 6 and 12) and fp32 product kernel (phase 19) are timed
-beside this checkout's on the same operands.)
+forward and backward (phases 6 and 12), fp32 K7 backward (phase 12) and
+fp32 product kernel (phase 19) are timed beside this checkout's on the
+same operands.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -61,10 +62,12 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              q, k, v and mask, and its bound; the same for its fp32 FMA
              core at the text tower's shape and at one SimSiam pass's
              (256, 33), beside SDPA in fp32 (and, with --parent, the
-             older checkout's backward); its backward past 640 keys, the
-             megablock's core and K6's causal at (8, 1024) with key pads,
-             masked tiles and a dead element, against the plain version,
-             two launches bit for bit, launched into NaN-filled memory.
+             older checkout's forward and backward); its forward and
+             backward at (8, 1024) and (4, 2048), up to the mask words'
+             limit, the megablock's core and K6's causal with key
+             pads, masked tiles and a dead element, against the plain
+             version, two launches bit for bit, launched into NaN-filled
+             memory.
   7 train-golden  one fp32 train step of the tiny CLIP of the golden file
              on the kernel routes against the JAX package's loss, gradients
              and updated parameters.
@@ -107,14 +110,16 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              257 not causal, K7 (FlashAttention) forward and backward at
              b*h = 2048, n = 256 (the text tower) and (2, 8, 8192, 64)
              causal with key pads, and non-causal at the vision tower's 64
-             and 32 (padded to 64) tokens, fp32 and bf16, and bf16 K7 at the
-             text shape with whole masked key tiles and dead rows (inputs
-             from a generator of its own), against their
+             and 32 (padded to 64) tokens, fp32 and bf16, and K7 in both
+             dtypes at the text shape with whole masked key tiles and dead
+             rows, launched into NaN-filled memory (inputs from a
+             generator of its own), against their
              plain versions on the card element by element (bf16: two ulps
              of each element plus 3e-2 of its head row's RMS plus 1e-2 of
              the tensor's; fp32 and every lse: 1e-4 of the largest
              magnitude) and within 1e-3 relative Frobenius error each
-             (K6: two launches of each bit for bit equal);
+             (K6 and the K7 backwards: two launches of each bit for bit
+             equal);
              CUDA-event times of
              kernel, plain version and scaled_dot_product_attention
              (forward, backward, both) on the same q, k, v and mask, the
@@ -122,7 +127,8 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              kernel, bound, plain version and SDPA); K6 and K7 in fp32
              (the FMA kernels) timed likewise at the text shape, beside
              SDPA in fp32 and the 67 TFLOP/s fp32 bound (with --parent,
-             the older checkout's fp32 K6 backward beside it).
+             the older checkout's fp32 K6 forward and backward and fp32 K7
+             backward beside them).
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -760,6 +766,25 @@ def parent_ms(parent, fn, kernel_ms):
     return f", parent {ms:.3f} ms ({ms / kernel_ms:.2f}x the kernel)"
 
 
+def parent_flash_bwd(parent, q, k, v, mask_bh, out, lse, do, causal):
+    """An older checkout's fp32 K7 backward (library `parent`) as its own
+    wrapper called it: Δ = Σ dO∘O from PyTorch (its fp32 kernels read it),
+    then its xclip_flash_bwd → (dq, dk, dv). For timing beside this
+    checkout's kernels, whose dq kernel computes Δ itself."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    mask_u8 = mask_bh.to(torch.uint8).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    bh, n, d = q.shape
+    err = parent.xclip_flash_bwd(
+        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, d, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the parent's xclip_flash_bwd failed with cudaError_t {err}")
+    return dq, dk, dv
+
+
 def nan_fill(*specs):
     """Allocate NaN-filled tensors of the given (shape, dtype)s and free
     them: the caching allocator hands their blocks to the next tensors of
@@ -773,58 +798,82 @@ def nan_fill(*specs):
 
 
 def f32_long_core(core, mega):
-    """The fp32 core's backward at a length past 640 (it keeps no score row
-    whole): the megablock's core (not causal) and K6's (causal) at (8,
-    1024, 8 x 64) with key pads, whole masked 64-key tiles, a leading
-    masked tile and a dead element, as in training (the forward's
-    statistics from the plain version): against the plain versions
-    (phase 12's rule), two launches bit for bit, every element written
-    (the first launch into NaN-filled memory)."""
+    """The fp32 core's forward and backward at long lengths, up to the mask
+    words' 2048 (neither keeps a score row whole): the megablock's core
+    (not causal) and K6's (causal) at
+    (8, 1024, 8 x 64) and (4, 2048, 8 x 64) with key pads, whole masked
+    64-key tiles, a leading masked tile and a dead element, the backward
+    as in training (the forward's statistics from the plain version):
+    each against its plain version (phase 12's rule), two launches bit for
+    bit, every element written (the first launch into NaN-filled
+    memory)."""
     g = torch.Generator(device="cuda").manual_seed(64)
-    b, n, f32 = 8, 1024, torch.float32
-    mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=g,
-                                  device="cuda").tolist(), n)
-    mask[0::4, 128:256] = False
-    mask[1::4, :64] = False
-    mask[-1] = False
-    qkv = rand(g, b, n, 3 * 512)
-    cot = rand(g, b, n, 512)
-    for label, causal in (("megablock core", False), ("K6", True)):
-        static = (8, 64, 0.125, causal, True)
-        if causal:
-            fwd = core.attention_core_fwd_plain(qkv, mask, *static)
-            want = core.attention_core_bwd_plain(qkv, mask, *fwd, cot,
-                                                 *static)
+    f32 = torch.float32
+    for b, n in ((8, 1024), (4, 2048)):
+        mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=g,
+                                      device="cuda").tolist(), n)
+        mask[0::4, 128:256] = False
+        mask[1::4, :64] = False
+        mask[-1] = False
+        qkv = rand(g, b, n, 3 * 512)
+        cot = rand(g, b, n, 512)
+        for label, causal in (("megablock core", False), ("K6", True)):
+            static = (8, 64, 0.125, causal, True)
+            if causal:
+                fwd_names, fwd_stats = ("out", "lse"), (b, n, 8)
 
-            def run():
-                return core.attention_core_bwd(qkv, mask, *fwd, cot, *static)
-        else:
-            fwd = mega.mega_core_fwd_plain(qkv, mask, *static)
-            want = mega.mega_core_bwd_plain(qkv, mask, cot, *fwd, *static)
+                def run_fwd(plain=False):
+                    fn = (core.attention_core_fwd_plain if plain
+                          else core.attention_core_fwd)
+                    return fn(qkv, mask, *static)
 
-            def run():
-                return mega.mega_core_bwd(qkv, mask, cot, *fwd, *static)
-        nan_fill((tuple(qkv.shape), f32), ((b, n, 8), f32))
-        got = run()
-        if not torch.equal(got, run()):
-            fail(f"{label} fp32 at n = {n}: two backward launches differ")
-        compare_elementwise(
-            f"{label} fp32 ({b}, {n}, 3x512) 8x64 "
-            f"{'causal ' if causal else ''}key-pad, masked tiles, dead rows",
-            ("dqkv",), (got,), (want,), f32)
-        del got, want, fwd
-    torch.cuda.empty_cache()
+                def run_bwd(fwd, plain=False):
+                    fn = (core.attention_core_bwd_plain if plain
+                          else core.attention_core_bwd)
+                    return fn(qkv, mask, *fwd, cot, *static)
+            else:
+                fwd_names, fwd_stats = ("attnout", "sm"), (b, n, 16)
+
+                def run_fwd(plain=False):
+                    fn = (mega.mega_core_fwd_plain if plain
+                          else mega.mega_core_fwd)
+                    return fn(qkv, mask, *static)
+
+                def run_bwd(fwd, plain=False):
+                    fn = (mega.mega_core_bwd_plain if plain
+                          else mega.mega_core_bwd)
+                    return fn(qkv, mask, cot, *fwd, *static)
+            tag = (f"{label} fp32 ({b}, {n}, 3x512) 8x64 "
+                   f"{'causal ' if causal else ''}key-pad, masked tiles, "
+                   f"dead rows")
+            nan_fill(((b, n, 512), f32), (fwd_stats, f32))
+            got = run_fwd()
+            if not all(map(torch.equal, got, run_fwd())):
+                fail(f"{tag}: two forward launches differ")
+            fwd = run_fwd(plain=True)
+            compare_elementwise(tag, fwd_names, got, fwd, f32)
+            del got
+            nan_fill((tuple(qkv.shape), f32), ((b, n, 8), f32))
+            got = run_bwd(fwd)
+            if not torch.equal(got, run_bwd(fwd)):
+                fail(f"{tag}: two backward launches differ")
+            compare_elementwise(tag, ("dqkv",), (got,),
+                                (run_bwd(fwd, plain=True),), f32)
+            del got, fwd
+        del qkv, cot, mask
+        torch.cuda.empty_cache()
 
 
 def attn_kernels(gen, core, flash, parent=None):
     """Phase 12: K6 and K7, forward and backward, against their plain
     versions on the card, fp32 and bf16, at the main path's shapes (K7 in
     the vision tower too: 64 tokens at inference, 32 kept patches in
-    training, non-causal, padded to the kernel's tile; bf16 at the text
-    shape with whole masked key tiles and dead rows); times at the text
-    tower's flagship shape, the long sequence and the vision shapes; with
-    `parent` (an older checkout's library) the parent's fp32 K6 backward
-    on the same operands."""
+    training, non-causal, padded to the kernel's tile; both dtypes at the
+    text shape with whole masked key tiles and dead rows, into NaN-filled
+    memory); times at the text tower's flagship shape, the long sequence
+    and the vision shapes; with `parent` (an older checkout's library) the
+    parent's fp32 K6 forward and backward and fp32 K7 backward on the same
+    operands."""
     phase(12, "attn-kernels", "kernel vs plain version on the card")
     errs, ms, costs, lib, old = {}, {}, {}, {}, {}
 
@@ -879,6 +928,9 @@ def attn_kernels(gen, core, flash, parent=None):
                 lib[key] = sdpa_ms(q, k, v, mask, causal, 0.125,
                                    _heads_of(do, 0))
                 if parent is not None and dtype == torch.float32:
+                    old[f"{key}_fwd"] = parent_ms(
+                        parent, lambda: core.attention_core_fwd(
+                            qkv, mask, *static), ms[f"{key}_fwd"][0])
                     old[f"{key}_bwd"] = parent_ms(
                         parent, lambda: core.attention_core_bwd(
                             qkv, mask, out, lse, do, *static),
@@ -911,12 +963,16 @@ def attn_kernels(gen, core, flash, parent=None):
                 dtype)
             out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh,
                                                        causal)
+            got = flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse,
+                                            flat[3], causal)
+            if not all(map(torch.equal, got, flash.flash_attention_bwd(
+                    *flat[:3], mask_bh, out, lse, flat[3], causal))):
+                fail(f"{label}: two backward launches differ")
             e_bwd = compare_elementwise(
-                label, ("dq", "dk", "dv"),
-                flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse,
-                                          flat[3], causal),
+                label, ("dq", "dk", "dv"), got,
                 flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse,
                                                 flat[3], causal), dtype)
+            del got
             if pads and (dtype == torch.bfloat16 or n == 256):
                 key = ("k7_f32" if dtype == torch.float32 else
                        "k7" if n == 256 else "k7_long")
@@ -932,6 +988,11 @@ def attn_kernels(gen, core, flash, parent=None):
                     cuda_ms(lambda: flash.flash_attention_bwd_plain(
                         *flat[:3], mask_bh, out, lse, flat[3], causal),
                         reps=3, iters=1))
+                if parent is not None and dtype == torch.float32:
+                    old[f"{key}_bwd"] = parent_ms(
+                        parent, lambda: parent_flash_bwd(
+                            parent, *flat[:3], mask_bh, out, lse, flat[3],
+                            causal), ms[f"{key}_bwd"][0])
                 lengths_bh = [L for L in lengths for _ in range(h)]
                 it = q.element_size()
                 costs.update({f"{key}_fwd": flash_cost("fwd", bh, n,
@@ -964,35 +1025,52 @@ def attn_kernels(gen, core, flash, parent=None):
                       f"{sdpa[1]:.3f})", flush=True)
             del q, k, v, do, flat, out, lse
             torch.cuda.empty_cache()
-    # bf16 K7 at the text shape with whole 64-key tiles masked between
-    # valid keys, a leading masked tile (causal rows with no valid key) and
-    # one element all masked (dead rows), which the kernels skip; inputs
-    # from a generator of their own, so the later phases' draws stay put
+    # K7 at the text shape with whole 64-key tiles masked between valid
+    # keys, a leading masked tile (causal rows with no valid key) and one
+    # element all masked (dead rows), which the kernels skip, in both
+    # dtypes, each launched into NaN-filled memory and twice (bit for bit);
+    # inputs from a generator of their own, so the later phases' draws
+    # stay put
     hgen = torch.Generator(device="cuda").manual_seed(12)
-    b, h, n, dt = 256, 8, 256, torch.bfloat16
+    b, h, n = 256, 8, 256
     mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=hgen,
                                   device="cuda").tolist(), n)
     mask[0::4, 64:128] = False
     mask[1::4, :64] = False
     mask[-1] = False
-    q, k, v, do = (rand(hgen, b, h, n, 64, dtype=dt) for _ in range(4))
-    q = (q.float() * 0.125).to(dt)
-    flat, mask_bh = flash.pad_flat((q, k, v, do), mask)
-    label = f"K7 bfloat16 ({b}, {h}, {n}, 64) causal, masked tiles, dead rows"
-    e_fwd = compare_elementwise(
-        label, ("out", "lse"), flash.flash_attention_fwd(*flat[:3], mask_bh,
-                                                         True),
-        flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True), dt)
-    out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True)
-    e_bwd = compare_elementwise(
-        label, ("dq", "dk", "dv"),
-        flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse, flat[3],
-                                  True),
-        flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse, flat[3],
-                                        True), dt)
-    errs.update(k7_fwd=max(errs["k7_fwd"], e_fwd),
-                k7_bwd=max(errs["k7_bwd"], e_bwd))
-    del q, k, v, do, flat, out, lse
+    draws = [rand(hgen, b, h, n, 64) for _ in range(4)]
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (t.to(dt) for t in draws)
+        q = (q.float() * 0.125).to(dt)
+        flat, mask_bh = flash.pad_flat((q, k, v, do), mask)
+        tag = str(dt).split(".")[-1]
+        label = f"K7 {tag} ({b}, {h}, {n}, 64) causal, masked tiles, dead rows"
+        key = "k7" if dt == torch.bfloat16 else "k7_f32"
+        nan_fill((tuple(flat[0].shape), dt),
+                 (tuple(mask_bh.shape), torch.float32))
+        got = flash.flash_attention_fwd(*flat[:3], mask_bh, True)
+        if not all(map(torch.equal, got, flash.flash_attention_fwd(
+                *flat[:3], mask_bh, True))):
+            fail(f"{label}: two forward launches differ")
+        e_fwd = compare_elementwise(
+            label, ("out", "lse"), got,
+            flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True), dt)
+        out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True)
+        nan_fill(*[(tuple(flat[0].shape), dt)] * 3,
+                 (tuple(mask_bh.shape), torch.float32))
+        got = flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse, flat[3],
+                                        True)
+        if not all(map(torch.equal, got, flash.flash_attention_bwd(
+                *flat[:3], mask_bh, out, lse, flat[3], True))):
+            fail(f"{label}: two backward launches differ")
+        e_bwd = compare_elementwise(
+            label, ("dq", "dk", "dv"), got,
+            flash.flash_attention_bwd_plain(*flat[:3], mask_bh, out, lse,
+                                            flat[3], True), dt)
+        errs.update({f"{key}_fwd": max(errs[f"{key}_fwd"], e_fwd),
+                     f"{key}_bwd": max(errs[f"{key}_bwd"], e_bwd)})
+        del q, k, v, do, flat, out, lse, got
+    del draws
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for key in ms:
@@ -1174,8 +1252,9 @@ F32_ATTN_KERNELS = [
     ("k7_f32_fwd", "k7_fwd", "K7 flash_attention forward, fp32",
      "xclip_tpu_torch/csrc/flash_attention.cu",
      "xclip_tpu/kernels/flash_attention.py:66"),
-    ("k7_f32_bwd", "k7_bwd", "K7 flash_attention backward (dq, dk/dv), fp32",
-     "xclip_tpu_torch/csrc/flash_attention.cu",
+    ("k7_f32_bwd", "k7_bwd",
+     "K7 flash_attention backward (dq, dk/dv), fp32: the core's K7 mode",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
      "xclip_tpu/kernels/flash_attention.py:134"),
 ]
 
@@ -1189,9 +1268,9 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed,
     `lengths` valid keys an element: against its plain version element by
     element, two launches of each bit for bit equal, timed beside its
     plain version, SDPA on the same q, k, v and mask, its bound and, with
-    `parent` (an older checkout's library), the parent's backward on the
-    same operands. Returns (errs, ms, costs, library) keyed core_fwd,
-    core_bwd."""
+    `parent` (an older checkout's library), the parent's forward and
+    backward on the same operands. Returns (errs, ms, costs, library)
+    keyed core_fwd, core_bwd."""
     cgen = torch.Generator(device="cuda").manual_seed(seed)
     scale = 64 ** -0.5
     peak = FP32_PEAK if dt == torch.float32 else BF16_PEAK
@@ -1233,6 +1312,8 @@ def mega_core_kernels(mega, label, b, n, lengths, maybe_dead, seed,
     library = {"core_fwd": sdpa[0], "core_bwd": sdpa[1]}
     old = {}
     if parent is not None:
+        old["core_fwd"] = parent_ms(parent, lambda: mega.mega_core_fwd(
+            qkv, mask, *static), ms["core_fwd"][0])
         old["core_bwd"] = parent_ms(parent, lambda: mega.mega_core_bwd(
             qkv, mask, dattn, *want, *static), ms["core_bwd"][0])
     torch.cuda.synchronize()
@@ -3526,7 +3607,7 @@ GOLDEN_OBJECTIVES = GOLDEN.with_name("torch_port_golden_objectives.npz")
 # them: the product kernel, and the FMA attention core's forward, dq and
 # dk/dv (csrc/attention_core.cuh, fp32 only)
 FP32_STEP_KERNELS = {"products": ("gemm_f32_kernel",),
-                     "attention core forward": ("attention_fma_kernel",),
+                     "attention core forward": ("attention_fwd_kernel",),
                      "attention core dq": ("attention_bwd_dq_kernel",),
                      "attention core dk/dv": ("attention_bwd_dkv_kernel",)}
 # the reference README's full configuration: every objective that combines
@@ -3794,7 +3875,8 @@ def objectives(card, CLIP, default_optimizer, make_train_step, ffb, mega,
               flush=True)
         return (f"{label} {b * 1e3 / ms:.1f} pairs/s ({ms:.2f} ms, peak "
                 f"{peak:.2f} GiB, idle {idle:.4f}, fp32 products "
-                f"{fp32['products'][0]:.2f}, fp32 attention core dq "
+                f"{fp32['products'][0]:.2f}, fp32 attention core forward "
+                f"{fp32['attention core forward'][0]:.2f} + dq "
                 f"{fp32['attention core dq'][0]:.2f} + dk/dv "
                 f"{fp32['attention core dk/dv'][0]:.2f} of {total:.2f} "
                 "device ms)", {"products": f32, "attention": fp32})
@@ -4679,8 +4761,7 @@ def main(argv):
         for shape, label, n, lengths, dead, seed in (
             ("text", "text key-pad", 257, core_lengths, True, 6),
             ("ssl", "SimSiam pass", 33, [33] * 256, False, 23))}
-    # past 640 keys: the fp32 backward keeps no score row whole, so fp32
-    # training takes the forward's lengths
+    # long lengths, up to the mask words' 2048
     f32_long_core(core, mega)
 
     # ---------------------------------------------------------------- 7

@@ -549,11 +549,12 @@ def _assert_elementwise(got, want, dtype, names):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
 @pytest.mark.parametrize("n,heads", [(33, 2), (257, 8), (256, 8), (1024, 2),
-                                     (1621, 1)])
+                                     (1621, 1), (2048, 1)])
 def test_attention_core_kernels_match_plain(cuda_device, dtype, causal,
                                             mask_kind, n, heads):
-    """K6's kernels against their plain versions, in fp32 up to the
-    forward's 1,621 keys (the backward keeps no score row whole)."""
+    """K6's kernels against their plain versions, in both dtypes up to
+    their 2048 keys (no kernel keeps a score row whole); 1,621 ends in a
+    ragged query and key tile."""
     qkv, mask, do = to_torch(core_args(n=n, heads=heads, mask_kind=mask_kind),
                              getattr(torch, dtype), cuda_device)
     static = (heads, 64, 0.125, causal, mask_kind != "none")
@@ -614,9 +615,9 @@ def test_attention_core_writes_every_element(cuda_device, dtype, causal,
 
 @pytest.mark.cuda
 def test_attention_core_raises_above_max_seq_len(cuda_device):
-    """No fallback: a length the kernel does not take raises. fp32
-    training takes up to the forward's limit (the backward's, 2048, lies
-    past it) and raises one past it and one past the backward's."""
+    """No fallback: a length the kernel does not take raises. fp32 takes
+    the one limit of the mask words, 2048, forward and backward, for
+    inference and training, and raises one past it."""
     n = mega.max_seq_len(torch.bfloat16) + 1
     qkv = torch.zeros(1, n, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
     mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
@@ -629,12 +630,12 @@ def test_attention_core_raises_above_max_seq_len(cuda_device):
     with pytest.raises(ValueError, match="exceeds"):
         core.attention_core(qkv, mask, 2, 64, 0.125)
     f32 = torch.float32
-    assert mega.max_seq_len_bwd(f32) == 2048 > mega.max_seq_len(f32) >= 1621
-    assert mega.seq_len_limit(f32, training=True) == mega.max_seq_len(f32)
-    for n in (mega.max_seq_len(f32) + 1, mega.max_seq_len_bwd(f32) + 1):
-        qkv = torch.zeros(1, n, 3 * 128, device=cuda_device,
-                          requires_grad=True)
-        mask = torch.ones(1, n, dtype=torch.bool, device=cuda_device)
+    assert mega.max_seq_len(f32) == mega.max_seq_len_bwd(f32) == 2048
+    assert mega.seq_len_limit(f32) == mega.seq_len_limit(f32, True) == 2048
+    for grad in (False, True):
+        qkv = torch.zeros(1, 2049, 3 * 128, device=cuda_device,
+                          requires_grad=grad)
+        mask = torch.ones(1, 2049, dtype=torch.bool, device=cuda_device)
         with pytest.raises(ValueError, match="exceeds"):
             core.attention_core(qkv, mask, 2, 64, 0.125)
     n = mega.max_seq_len(f32)
@@ -763,6 +764,36 @@ def test_flash_attention_at_8192(cuda_device):
         flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
         flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
         "bfloat16", ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["holes", "dead"])
+def test_flash_attention_f32_backward_past_2048(cuda_device, causal,
+                                                mask_kind):
+    """fp32 K7's backward runs the attention core's tiled kernels in their
+    K7 mode, which keep no mask word a tile in shared memory: at n = 2304,
+    past the core's 2048, with whole masked key tiles and a dead row, it
+    writes every element of dq, dk and dv (launched into NaN-filled
+    memory), two launches agree bit for bit, and it matches its plain
+    version element by element."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(b=3, h=2, n=2304, mask_kind=mask_kind), torch.float32,
+        cuda_device)
+    out, lse = flash.flash_attention_fwd_plain(q, k, v, mask, causal)
+    before = flash.flash_attention_bwd.launches
+    _nan_blocks(*[(tuple(q.shape), torch.float32)] * 3,
+                (tuple(mask.shape), torch.float32))
+    got = flash.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    again = flash.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash.flash_attention_bwd.launches == before + 2
+    _assert_elementwise(
+        got, flash.flash_attention_bwd_plain(q, k, v, mask, out, lse, do,
+                                             causal),
+        "float32", ("dq", "dk", "dv"))
 
 
 @pytest.mark.cuda

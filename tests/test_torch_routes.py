@@ -51,11 +51,11 @@ MAX_WIDTH = 8192
 
 class _Limits:
     """A stand-in for the kernel library's two length queries, with the
-    limits its source states (csrc/attention_core.cuh): bf16 2048 forward
-    and backward, fp32 1621 forward and 2048 backward."""
+    limits its source states (csrc/attention_core.cuh): 2048 forward and
+    backward in both dtypes (the mask words of 32 key tiles)."""
 
     def xclip_attention_block_max_n(self, dtype):
-        return 2048 if dtype else 1621
+        return 2048
 
     def xclip_attention_block_bwd_max_n(self, dtype):
         return 2048
@@ -69,10 +69,9 @@ def limits(monkeypatch):
 def _cuda_takes_attention(dim, dim_head, n, dtype, training):
     """The CUDA attention wrappers' limits, as documented: dim_head up to
     64 (narrower heads zero-padded), a block width on the 64 grid up to
-    8192 (None: no block), n up to 2048 in bf16; in fp32 the forward's
-    1621, with a backward too."""
-    limit = 2048 if dtype == BF16 else 1621
-    return (dim_head <= 64 and n <= limit and (
+    8192 (None: no block), n up to 2048 in both dtypes, with a backward
+    too."""
+    return (dim_head <= 64 and n <= 2048 and (
         dim is None or (dim % 64 == 0 and dim <= MAX_WIDTH)))
 
 
@@ -126,6 +125,10 @@ MEGA_CASES = [  # (attn_impl, dim, heads, dim_head, n, dtype, training)
     ("fused", 512, 8, 64, 1622, F32, False),
     ("fused", 512, 8, 64, 1621, F32, True),
     ("fused", 512, 8, 64, 1622, F32, True),
+    ("fused", 512, 8, 64, 2048, F32, False),
+    ("fused", 512, 8, 64, 2049, F32, False),
+    ("fused", 512, 8, 64, 2048, F32, True),
+    ("fused_recompute", 512, 8, 64, 2049, F32, True),
     ("fused", 72, 2, 64, 257, BF16, True),
 ]
 
@@ -161,7 +164,8 @@ K6_CASES = [  # (heads, dim_head, n, dtype, training)
     (8, 64, 256, BF16, True), (8, 32, 256, BF16, False),
     (4, 128, 256, BF16, True), (3, 64, 256, BF16, False),
     (2, 32, 256, BF16, False), (8, 64, 2049, BF16, False),
-    (8, 64, 700, F32, True), (8, 64, 700, F32, False)]
+    (8, 64, 700, F32, True), (8, 64, 700, F32, False),
+    (8, 64, 2048, F32, True), (8, 64, 2049, F32, False)]
 
 
 @pytest.mark.parametrize("heads,dim_head,n,dtype,training", K6_CASES)

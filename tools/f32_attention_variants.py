@@ -1,37 +1,45 @@
 #!/usr/bin/env python3
-"""The fp32 attention core backward's register tile, blocks an SM,
-exponential and unrolling, as shipped and against their alternatives, on
-one NVIDIA card.
+"""The fp32 attention core's forward and backward (the megablock's, K6's,
+and K7's fp32 backward in its own mode) as shipped and against their
+alternatives, on one NVIDIA card.
 
     python3 tools/f32_attention_variants.py [--parent DIR] [variant ...]
 
-`csrc/attention_core.cuh` fixes the fp32 backward's register tile (4 x 4
-sums of each 64 x 64 product a thread, 256 threads: `kBwdTN` 4), the dk/dv
+`csrc/attention_core.cuh` fixes the kernels' register tile (4 x 4 sums of
+each 64 x 64 product a thread, 256 threads: `kBwdTN` 4), the dk/dv
 kernel's p and ds tiles (one tile for both, seven tiles a block, two blocks
-an SM: `kBwdPTiles` 1), its exponential (ex2.approx: `kBwdEx2` true), the
-unrolling of a product's depth (two halves of 8 unrolled steps) and the dq
-kernel's register budget (two blocks an SM). The variants: "tile-4x8" (4
-x 8 sums a thread, 128 threads), "one-block" (p and ds in a tile each, one
-dk/dv block an SM), "expf", "unroll-hi" (the whole depth unrolled) and
-"dq-one-block". Each is an edited copy of `csrc/` under
-`build/f32_attention_variants/`, of which attention_block.cu and
-attention_megablock.cu are compiled with ptxas -v (the backward kernels'
-registers and spills printed) and linked with the shipped gemm_f32.cu,
-gemm_sm90.cu and rows.cu (built once); the occupancy calculator gives each
-kernel's blocks an SM, and cuobjdump its instruction mix. With `--parent
-DIR` (a checkout unpacked there, e.g. `git archive HEAD | tar -x -C DIR`)
-that checkout's library is built too and its fp32 backward timed beside
-them. Each library is checked against the plain versions under
-chip_smoke.py's phase 12 rule (fp32: 1e-4 of each output's largest
+an SM: `kBwdPTiles` 1), the backward's exponential (ex2.approx: `kBwdEx2`
+true), the unrolling of a product's depth (two halves of 8 unrolled
+steps), the dq kernel's register budget (two blocks an SM); the forward
+always takes a row's 16 threads in one warp (its running max and sum by
+shuffles) and ex2.approx. The variants: "tile-4x8" (4 x 8 sums a thread,
+128 threads, forward and backward), "one-block" (p and ds in a tile each,
+one dk/dv block an SM), "expf" (the backward's exponential), "unroll-hi"
+(the whole depth unrolled), "dq-one-block", "fwd-exchange" (the
+forward's rows over two warps, as the backward's, their max and sum
+exchanged through shared memory: two more block barriers a key tile;
+`tools/fwd_exchange.patch`) and "fwd-expf" (the forward's exponential,
+`tools/fwd_expf.patch`). Each is an edited copy of `csrc/`
+under `build/f32_attention_variants/`, of which attention_block.cu,
+attention_megablock.cu and flash_attention.cu are compiled with ptxas -v
+(the fp32 kernels' registers and spills printed) and linked with the
+shipped gemm_f32.cu, gemm_sm90.cu and rows.cu (built once); the occupancy
+calculator gives each kernel's blocks an SM, and cuobjdump its instruction
+mix. With `--parent DIR` (a checkout unpacked there, e.g. `git archive
+HEAD | tar -x -C DIR`) that checkout's library is built too and its fp32
+kernels timed beside them (its K7 backward with Δ from PyTorch, as its
+wrapper gave it). Each library is checked against the plain versions
+under chip_smoke.py's phase 12 rule (fp32: 1e-4 of each output's largest
 magnitude, 1e-3 relative Frobenius; two launches bit for bit), then timed
-(CUDA events) in turns, through the list and back, at the megablock core's
-(256, 257) with the text tower's key pads, one SimSiam pass's (256, 33) and
-K6's (256, 256) causal with key pads (chip_smoke.py's shapes), beside the
-plain version, SDPA in fp32 and the 67 TFLOP/s bound, and the shipped
-backward's dq and dk/dv kernels apart (the profiler's device times); the
-variants also at (16, 1024) with whole masked tiles and a dead element
-(checked, not timed). Needs a card and nvcc; prints the card and its power
-limit first.
+(CUDA events) in turns, through the list and back, at the megablock
+core's (256, 257) with the text tower's key pads, one SimSiam pass's (256,
+33) and K6's (256, 256) causal with key pads (forward and backward), and
+K7's backward at phase 12's text shape (256, 8, 256, 64) causal with key
+pads, beside the plain version, SDPA in fp32 and the 67 TFLOP/s bound, and
+the shipped kernels apart (the profiler's device times); the variants
+also at (16, 1024) and (4, 2048) with whole masked tiles and a dead
+element (checked, not timed). Needs a card and nvcc; prints the card and
+its power limit first.
 """
 
 import re
@@ -45,17 +53,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 import chip_smoke as cs  # noqa: E402
+from rows_variants import hunks  # noqa: E402
 from xclip_tpu_torch.kernels import _build  # noqa: E402
 from xclip_tpu_torch.kernels import attention_block as core  # noqa: E402
 from xclip_tpu_torch.kernels import attention_megablock as mega  # noqa: E402
+from xclip_tpu_torch.kernels import flash_attention as flash  # noqa: E402
 
 SOURCE = "attention_core.cuh"
-OWN = ("attention_block.cu", "attention_megablock.cu")  # built per variant
+OWN = ("attention_block.cu", "attention_megablock.cu",
+       "flash_attention.cu")                            # built per variant
 SHARED = ("gemm_f32.cu", "gemm_sm90.cu", "rows.cu")     # built once
 VARIANTS = _build.BUILD_DIR.parent / "f32_attention_variants"
-# (variant, [(shipped text, its replacement)])
-DQ_BOUNDS = "__global__ void __launch_bounds__(kBwdThreads, 2)"
+TOOLS = Path(__file__).resolve().parent
+# (variant, [(shipped text, its replacement)], applied in order)
+DQ_BOUNDS = "__launch_bounds__(kBwdThreads, 2)\nattention_bwd_dq_kernel"
 EDITS = {
     "shipped": [],
     "tile-4x8": [("constexpr int kBwdTN = 4;", "constexpr int kBwdTN = 8;")],
@@ -68,8 +81,11 @@ EDITS = {
     "unroll-hi": [("#pragma unroll 1\n  for (int hi = 0; hi < 2; ++hi) {",
                    "#pragma unroll\n  for (int hi = 0; hi < 2; ++hi) {")],
     "dq-one-block": [(DQ_BOUNDS, DQ_BOUNDS.replace(", 2)", ", 1)"))],
+    "fwd-exchange": hunks(TOOLS / "fwd_exchange.patch"),
+    "fwd-expf": hunks(TOOLS / "fwd_expf.patch"),
 }
 F32 = torch.float32
+KERNELS = r"(attention_(?:fwd|bwd_dq|bwd_dkv)_kernel)IL[bi](\d)E"
 
 
 def variant_csrc(name):
@@ -96,38 +112,37 @@ def nvcc_c(src, obj, verbose=False):
 
 
 def resources(name, src, out):
-    """Print the registers and spills ptxas reports for the fp32
-    backward's kernels."""
+    """Print the registers and spills ptxas reports for the fp32 core's
+    kernels (a template argument: the forward's LSE flag, the backward's
+    mode, 0 megablock, 1 K6, 2 K7)."""
     kernel = None
     for line in out.splitlines():
-        m = re.search(r"entry function '\S*(attention_bwd_(?:dq|dkv)_kernel)"
-                      r"ILb(\d)E", line)
+        m = re.search(r"entry function '\S*" + KERNELS, line)
         if m:
-            kernel = f"{m.group(1)}<LSE={m.group(2)}>"
+            kernel = f"{m.group(1)}<{m.group(2)}>"
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and kernel:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
-            print(f"{name:10s} {src} {kernel}: {m.group(1)} registers, "
+            print(f"{name:12s} {src} {kernel}: {m.group(1)} registers, "
                   f"{spill} bytes spilled", flush=True)
             kernel = None
 
 
 def sass_mix(name, lib):
     """Print the instruction mix cuobjdump reads from the library's fp32
-    backward kernels: instructions in all, FFMA, shared loads (LDS), generic
+    core kernels: instructions in all, FFMA, shared loads (LDS), generic
     loads (LD), local spill traffic (LDL, STL) and barriers (BAR)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True).stdout
     counts, kernel = {}, None
     for line in out.splitlines():
-        m = re.search(r"Function : \S*(attention_bwd_(?:dq|dkv)_kernel)"
-                      r"ILb(\d)E", line)
+        m = re.search(r"Function : \S*" + KERNELS, line)
         if m:
-            kernel = f"{m.group(1)}<LSE={m.group(2)}>"
+            kernel = f"{m.group(1)}<{m.group(2)}>"
             counts[kernel] = {}
             continue
         if "Function :" in line:
@@ -173,11 +188,15 @@ def build_all(names):
                        check=True)
         libs[name] = cs.typed_library(lib)
         sass_mix(name, lib)
-        blocks = [libs[name].xclip_attention_bwd_blocks(lse, which)
-                  for lse in (1, 0) for which in (0, 1)]
-        print(f"{name:10s} blocks an SM (occupancy calculator): K6 dq "
-              f"{blocks[0]}, dk/dv {blocks[1]}; megablock dq {blocks[2]}, "
-              f"dk/dv {blocks[3]}", flush=True)
+        built = libs[name]
+        core_blocks = [(built.xclip_attention_fwd_blocks(mode),
+                        *(built.xclip_attention_bwd_blocks(mode, which)
+                          for which in (0, 1))) for mode in (1, 0)]
+        k7_blocks = [built.xclip_flash_bwd_blocks(which) for which in (0, 1)]
+        print(f"{name:12s} blocks an SM (occupancy calculator): K6 forward "
+              "{}, dq {}, dk/dv {}; megablock forward {}, dq {}, dk/dv {}; "
+              "K7 dq {}, dk/dv {}".format(*core_blocks[0], *core_blocks[1],
+                                          *k7_blocks), flush=True)
     return libs
 
 
@@ -193,61 +212,153 @@ def holes_mask(g, b, n):
     return mask
 
 
+class Case:
+    """One shape: kind "mega" (the megablock's core, its fp32 dattn and
+    (attnout, sm)), "k6" (its do and (out, lse)) or "k7" (K7's backward
+    alone on the (b·h, n, 64) tensors its wrapper hands the kernels, q
+    pre-scaled); `fwd` the plain forward's outputs."""
+
+    def __init__(self, label, kind, b, n, causal, dead, mask, timed, g):
+        self.label, self.kind, self.b, self.n = label, kind, b, n
+        self.causal, self.mask, self.timed = causal, mask, timed
+        if kind == "k7":
+            q, k, v, do = (cs.rand(g, b, 8, n, 64) for _ in range(4))
+            self.heads4 = (q * 0.125, k, v, do)
+            (q, k, v, do), self.mask_bh = flash.pad_flat(self.heads4, mask)
+            self.flat = (q, k, v, do)
+            self.fwd = flash.flash_attention_fwd_plain(q, k, v, self.mask_bh,
+                                                       causal)
+            return
+        scale = 64 ** -0.5 if kind == "mega" else 0.125
+        self.static = (8, 64, scale, causal, dead)
+        self.qkv = cs.rand(g, b, n, 3 * 512)
+        self.cot = cs.rand(g, b, n, 512)
+        self.fwd = self.forward(plain=True)
+
+    def forward(self, plain=False):
+        if self.kind == "mega":
+            fn = mega.mega_core_fwd_plain if plain else mega.mega_core_fwd
+        else:
+            fn = (core.attention_core_fwd_plain if plain
+                  else core.attention_core_fwd)
+        return fn(self.qkv, self.mask, *self.static)
+
+    def backward(self, plain=False, parent=None):
+        if self.kind == "k7":
+            q, k, v, do = self.flat
+            args = (q, k, v, self.mask_bh, *self.fwd, do, self.causal)
+            if parent is not None:
+                return cs.parent_flash_bwd(parent, *args)
+            fn = (flash.flash_attention_bwd_plain if plain
+                  else flash.flash_attention_bwd)
+            return fn(*args)
+        if self.kind == "mega":
+            fn = mega.mega_core_bwd_plain if plain else mega.mega_core_bwd
+            return fn(self.qkv, self.mask, self.cot, *self.fwd, *self.static)
+        fn = core.attention_core_bwd_plain if plain else core.attention_core_bwd
+        return fn(self.qkv, self.mask, *self.fwd, self.cot, *self.static)
+
+    def names(self, which):
+        if which == "fwd":
+            return (("attnout", "sm") if self.kind == "mega"
+                    else ("out", "lse"))
+        return ("dq", "dk", "dv") if self.kind == "k7" else ("dqkv",)
+
+    def cost(self, which):
+        lengths = self.mask.sum(-1).tolist()
+        if self.kind == "k7":
+            lengths_bh = [L for L in lengths for _ in range(8)]
+            return cs.flash_cost(which, self.b * 8, self.n, lengths_bh,
+                                 self.causal, 4)
+        pairs = 8 * cs.valid_pairs(lengths, self.n, self.causal)
+        keys = 8 * cs.used_keys(lengths, self.n)
+        fn = cs.mega_core_cost if self.kind == "mega" else cs.core_cost
+        return fn(which, self.b * self.n * 8, keys, pairs, self.b * self.n, 4)
+
+    def sdpa(self):
+        """SDPA fp32 (forward, backward) ms on the same q, k, v and mask."""
+        if self.kind == "k7":
+            q, k, v, do = self.heads4
+            return cs.sdpa_ms(q, k, v, self.mask, self.causal, 1.0, do)[:2]
+        q, k, v = (cs._heads_of(self.qkv, i) for i in range(3))
+        return cs.sdpa_ms(q, k, v, self.mask, self.causal, self.static[2],
+                          cs._heads_of(self.cot, 0))[:2]
+
+
 def cases():
-    """{label: (kind, b, n, static arguments, qkv, mask, cotangent, the
-    plain forward's outputs, timed)}: the megablock's core with its fp32
-    dattn and (attnout, sm), K6 with its do and (out, lse)."""
+    """The shapes: the megablock's core at the text tower's (256, 257) with
+    key pads and at one SimSiam pass's (256, 33), K6's (256, 256) causal
+    with key pads, K7's backward at (256, 8, 256) causal with key pads
+    (timed); the megablock's and K6's at (16, 1024) and (4, 2048), K7's at
+    (2, 2304), with holes and a dead element (checked)."""
     lgen = torch.Generator().manual_seed(6)
     pads = (torch.randint(4, 257, (256,), generator=lgen) + 1).tolist()
     g = torch.Generator(device="cuda").manual_seed(19)
-    out = {}
+
+    def lengths(b, n, low=1):
+        return torch.randint(low, n + 1, (b,), generator=g,
+                             device="cuda").tolist()
+
+    out = []
     for label, kind, b, n, causal, dead, mask, timed in (
             ("megablock (256, 257) key-pad", "mega", 256, 257, False, True,
              cs.key_mask(pads, 257), True),
             ("megablock (256, 33) SimSiam pass", "mega", 256, 33, False,
              False, cs.key_mask([33] * 256, 33), True),
             ("K6 (256, 256) causal key-pad", "k6", 256, 256, True, True,
-             cs.key_mask(torch.randint(1, 257, (256,), generator=g,
-                                       device="cuda").tolist(), 256), True),
+             cs.key_mask(lengths(256, 256), 256), True),
+            ("K7 (256, 8, 256, 64) causal key-pad", "k7", 256, 256, True,
+             False, cs.key_mask(lengths(256, 256, 128), 256), True),
             ("megablock (16, 1024) holes, dead", "mega", 16, 1024, False,
              True, holes_mask(g, 16, 1024), False),
             ("K6 (16, 1024) causal holes, dead", "k6", 16, 1024, True, True,
-             holes_mask(g, 16, 1024), False)):
-        scale = 64 ** -0.5 if kind == "mega" else 0.125
-        static = (8, 64, scale, causal, dead)
-        qkv = cs.rand(g, b, n, 3 * 512)
-        cot = cs.rand(g, b, n, 512)
-        plain_fwd = (mega.mega_core_fwd_plain if kind == "mega"
-                     else core.attention_core_fwd_plain)
-        out[label] = (kind, b, n, static, qkv, mask, cot,
-                      plain_fwd(qkv, mask, *static), timed)
+             holes_mask(g, 16, 1024), False),
+            ("megablock (4, 2048) holes, dead", "mega", 4, 2048, False,
+             True, holes_mask(g, 4, 2048), False),
+            ("K6 (4, 2048) causal holes, dead", "k6", 4, 2048, True, True,
+             holes_mask(g, 4, 2048), False),
+            ("K7 (2, 8, 2304, 64) causal holes, dead", "k7", 2, 2304, True,
+             False, holes_mask(g, 2, 2304), False)):
+        out.append(Case(label, kind, b, n, causal, dead, mask, timed, g))
     return out
 
 
-def bwd(case, plain=False):
-    kind, _, _, static, qkv, mask, cot, fwd, _ = case
-    if kind == "mega":
-        fn = mega.mega_core_bwd_plain if plain else mega.mega_core_bwd
-        return fn(qkv, mask, cot, *fwd, *static)
-    fn = core.attention_core_bwd_plain if plain else core.attention_core_bwd
-    return fn(qkv, mask, *fwd, cot, *static)
-
-
-def run(lib, case):
+def run(lib, fn):
     with mock.patch.object(_build, "library", lambda: lib):
-        return bwd(case)
+        return fn()
 
 
-def split_ms(lib, case, calls=5):
-    """{kernel: device ms a call} of the backward's dq and dk/dv kernels on
-    `lib`, from the profiler over `calls` calls."""
-    names = ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
-    run(lib, case)
+def check(name, lib, case):
+    """The case's forward (not K7's) and backward on `lib` against the plain
+    versions, two launches of each bit for bit."""
+    if name == "parent" and case.n > 1621:
+        return   # an older fp32 forward stops at 1,621
+    steps = [("bwd", lambda: case.backward(
+        parent=lib if name == "parent" else None))]
+    if case.kind != "k7":
+        steps.insert(0, ("fwd", case.forward))
+    for which, fn in steps:
+        got = cs.as_tuple(run(lib, fn))
+        again = cs.as_tuple(run(lib, fn))
+        if not all(map(torch.equal, got, again)):
+            raise SystemExit(f"{name} {case.label} {which}: two launches "
+                             "differ")
+        want = cs.as_tuple(case.forward(plain=True) if which == "fwd"
+                           else case.backward(plain=True))
+        cs.compare_elementwise(f"{name} {case.label} {which}",
+                               case.names(which), got, want, F32)
+        del got, again, want
+
+
+def split_ms(lib, fn, names, calls=5):
+    """{kernel: device ms a call} of `names` run by `fn` on `lib`, from the
+    profiler over `calls` calls."""
+    run(lib, fn)
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            run(lib, case)
+            run(lib, fn)
         torch.cuda.synchronize()
     ms = dict.fromkeys(names, 0.0)
     for e in cs.device_events(prof):
@@ -272,50 +383,57 @@ def main(args):
     if parent is not None:
         libs["parent"] = cs.parent_library(parent)
     shapes = cases()
-    for label, case in shapes.items():
-        want = bwd(case, plain=True)
+    for case in shapes:
         for name, lib in libs.items():
-            if name == "parent" and not case[-1]:
-                continue   # an older fp32 backward may stop at 640
-            got = run(lib, case)
-            if not torch.equal(got, run(lib, case)):
-                raise SystemExit(f"{name} {label}: two launches differ")
-            cs.compare_elementwise(f"{name} {label}", ("dqkv",), (got,),
-                                   (want,), F32)
-            del got
-        del want
-    timed = {label: case for label, case in shapes.items() if case[-1]}
+            check(name, lib, case)
+    timed = [c for c in shapes if c.timed]
+    # (case, which): the call timed on a library
+    calls = []
+    for case in timed:
+        if case.kind != "k7":
+            calls.append((case, "fwd"))
+        calls.append((case, "bwd"))
+
+    def call(name, case, which):
+        if which == "fwd":
+            return lambda: run(libs[name], case.forward)
+        return lambda: run(libs[name], lambda: case.backward(
+            parent=libs[name] if name == "parent" else None))
+
     times = {}
     for name in [*libs, *reversed(libs)]:
-        for label, case in timed.items():
-            ms = cs.cuda_ms(lambda: run(libs[name], case), reps=5, iters=3)
-            times.setdefault((name, label), []).append(ms)
-    for label, case in timed.items():
-        kind, b, n, static, qkv, mask, cot, fwd, _ = case
-        causal = static[3]
-        lengths = mask.sum(-1).tolist()
-        pairs = 8 * cs.valid_pairs(lengths, n, causal)
-        keys = 8 * cs.used_keys(lengths, n)
-        cost = (cs.mega_core_cost("bwd", b * n * 8, keys, pairs, b * n, 4)
-                if kind == "mega" else
-                cs.core_cost("bwd", b * n * 8, keys, pairs, b * n, 4))
-        b_ms, b_by = cs.bound(*cost, cs.FP32_PEAK)
-        q, k, v = (cs._heads_of(qkv, i) for i in range(3))
-        sdpa = cs.sdpa_ms(q, k, v, mask, causal, static[2],
-                          cs._heads_of(cot, 0))[1]
-        plain = cs.cuda_ms(lambda: bwd(case, plain=True), reps=3, iters=1)
-        print(f"{label}: bound {b_ms:.4f} ms ({b_by}), sdpa fp32 backward "
-              f"{sdpa:.4f} ms, plain {plain:.4f} ms", flush=True)
-        for name in libs:
-            ts = times[name, label]
-            best = min(ts)
-            print(f"  {name:12s} " + " ".join(f"{t:.4f}" for t in ts)
-                  + f" ms: {b_ms / best:.3f} of the bound, "
-                  f"{best / sdpa:.2f}x sdpa", flush=True)
-        if "shipped" in libs:
-            split = split_ms(libs["shipped"], case)
-            print("  shipped by kernel (profiler): " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
+        for case, which in calls:
+            ms = cs.cuda_ms(call(name, case, which), reps=5, iters=3)
+            times.setdefault((name, case.label, which), []).append(ms)
+    for case in timed:
+        sdpa = case.sdpa()
+        for which in ("fwd", "bwd"):
+            if (case, which) not in calls:
+                continue
+            b_ms, b_by = cs.bound(*case.cost(which), cs.FP32_PEAK)
+            one = sdpa[0 if which == "fwd" else 1]
+            plain = cs.cuda_ms(
+                (lambda: case.forward(plain=True)) if which == "fwd" else
+                (lambda: case.backward(plain=True)), reps=3, iters=1)
+            print(f"{case.label} {which}: bound {b_ms:.4f} ms ({b_by}), "
+                  f"sdpa fp32 {one:.4f} ms, plain {plain:.4f} ms",
+                  flush=True)
+            for name in libs:
+                ts = times[name, case.label, which]
+                best = min(ts)
+                print(f"  {name:12s} " + " ".join(f"{t:.4f}" for t in ts)
+                      + f" ms: {b_ms / best:.3f} of the bound, "
+                      f"{best / one:.2f}x sdpa", flush=True)
+            if "shipped" in libs:
+                kernels = (("attention_fwd_kernel",) if which == "fwd" else
+                           ("attention_bwd_dq_kernel",
+                            "attention_bwd_dkv_kernel"))
+                split = split_ms(
+                    libs["shipped"],
+                    case.forward if which == "fwd" else case.backward,
+                    kernels)
+                print("  shipped by kernel (profiler): " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
     return 0
 
 

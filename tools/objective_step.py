@@ -14,8 +14,8 @@ share, and the device ms of the fp32 product kernel and of the fp32
 attention core (csrc/attention_core.cuh) by kernel name. The SimSiam
 passes take fp32 views (JAX's default_augment), so their products run on
 the fp32 kernel. Runs unchanged in an older checkout (copy it into that
-checkout's tools/), whose fp32 product kernel is named mm_fma_kernel: to
-compare two commits on one card, run it in each, in the order parent,
+checkout's tools/), whose fp32 kernels may carry older names (both are
+matched): to compare two commits on one card, run it in each, in the order parent,
 change, change, parent. Prints the card and its power limit first.
 """
 
@@ -31,9 +31,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 # the fp32 kernels by the names the profiler gives them; mm_fma_kernel is
-# the fp32 product kernel of checkouts before csrc/gemm_f32.cu
+# the fp32 product kernel of checkouts before csrc/gemm_f32.cu,
+# attention_fma_kernel the fp32 core's forward before attention_fwd_kernel
 FP32_KERNELS = {"fp32 products": ("gemm_f32_kernel", "mm_fma_kernel"),
-                "fp32 attention core": ("attention_fma_kernel",
+                "fp32 attention core": ("attention_fwd_kernel",
+                                        "attention_fma_kernel",
                                         "attention_bwd_dq_kernel",
                                         "attention_bwd_dkv_kernel")}
 

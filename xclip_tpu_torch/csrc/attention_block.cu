@@ -24,9 +24,8 @@
 // (register-resident mma.sync tiles that skip causal and masked tiles;
 // their notes give the design and what bounds it), which the attention
 // megablock's bf16 core shares. fp32 runs the megablock's FMA core
-// (attention_core.cuh). The length limits are the megablock's own, dtype
-// by dtype: bf16 that of the shared kernels (n <= 2048), fp32 that of the
-// FMA core.
+// (attention_core.cuh). The length limit is the megablock's own, n <= 2048
+// in both dtypes (the mask words of 32 key tiles).
 #include "attention_core.cuh"
 
 static bool core_args_ok(int b, int n, int heads) {
@@ -78,17 +77,23 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
         XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
         scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
-  return launch_attention_fma_bwd<true>(
+  return launch_attention_fma_bwd<kK6>(
       XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dout),
       XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
       XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
       causal, maybe_dead, st);
 }
 
-// Blocks an SM of the fp32 backward's kernels, K6's (lse 1) or the
-// megablock's (lse 0): dq (`which` 0) or dk/dv (1); a negative cudaError_t
-// code on failure.
-extern "C" int xclip_attention_bwd_blocks(int lse, int which) {
-  return lse ? attention_bwd_blocks<true>(which)
-             : attention_bwd_blocks<false>(which);
+// Blocks an SM of the fp32 backward's kernels, K6's (mode 1) or the
+// megablock's (mode 0): dq (`which` 0) or dk/dv (1); a negative
+// cudaError_t code on failure.
+extern "C" int xclip_attention_bwd_blocks(int mode, int which) {
+  return mode == kK6 ? attention_bwd_blocks<kK6>(which)
+                     : attention_bwd_blocks<kMega>(which);
+}
+
+// Blocks an SM of the fp32 forward, K6's (lse 1) or the megablock's (lse
+// 0); a negative cudaError_t code on failure.
+extern "C" int xclip_attention_fwd_blocks(int lse) {
+  return lse ? attention_fwd_blocks<true>() : attention_fwd_blocks<false>();
 }

@@ -1,7 +1,9 @@
 // The attention core of the attention megablock (K-MEGA, K2, K3:
 // csrc/attention_megablock.cu) and of whole-head attention on a fused qkv
 // (K6: csrc/attention_block.cu): softmax(q . kᵀ · scale) · v per (batch
-// element, head) from the (b·n, 3·heads·64) qkv, and its backward.
+// element, head) from the (b·n, 3·heads·64) qkv, and its backward, which
+// K7's fp32 backward (csrc/flash_attention.cu) also runs, in a mode of its
+// own.
 //
 // Cast order (as the Pallas kernels): scores are fp32 (q . k) * scale; keys
 // where the mask is 0, and keys past the query when causal, get -inf. With
@@ -14,16 +16,17 @@
 // bf16 runs on the mma.sync kernels of attention_block_sm90.cuh: K6 in
 // their K6 mode, the megablock in their megablock mode (launch_attention
 // and launch_mega_attention_bwd below); their notes give the design and
-// what bounds it. What follows is the fp32 path, which the tests and the
-// fp32 goldens run.
+// what bounds it. What follows is the fp32 path, which the tests, the fp32
+// goldens and every fp32 tower pass (the SimSiam / SimCLR views) run.
 //
-// Forward, one block per (32-query tile, head, batch element): the tile's
-// full fp32 score rows (32 x n) live in shared memory, so the softmax is
-// exact rather than online, by FMAs. The row statistics go out as the
-// megablock's (m, l) pair per head (`sm`) or as K6's log-sum-exp m + log l
-// (`lse`), or not at all. What bounds it: it re-stages k and v for every
-// 32-query tile, keeps full score rows in shared memory (which bounds n)
-// and multiplies through block_mma (two shared loads an FMA).
+// Forward: one kernel, one block per (64-query tile, head, batch element),
+// an online softmax over the 64-key tiles in registers (per row a running
+// max m and sum l, o rescaled by e^(m_old - m_new) when m grows; a dead
+// row's m is 0 and its p 1). Skipped tiles hold no valid key of the
+// block's rows, so the final m is each row's true maximum, which the
+// backward rebuilds p from. The row statistics go out as the megablock's
+// (m, l) pair per head (`sm`) or as K6's log-sum-exp m + log l (`lse`), or
+// not at all, and o / l is stored once at the end.
 //
 // Backward: two kernels, each owning its outputs (no atomics; two runs
 // agree bit for bit): a query-tile kernel gives delta (into the `delta`
@@ -37,53 +40,71 @@
 // attnout, ds = p (dp - delta)); K6 applies it to ds as `_bwd_kernel` does
 // (dp = do · vᵀ, delta = Σ do · out, ds = p (dp - delta) scale). Then ds
 // is zeroed on dead rows; dq = ds · k, dk = dsᵀ · q, dv = pᵀ · do.
+// K7's mode (kK7) is K6's with scale 1 (its q comes pre-scaled) and no
+// dead-row rule (a K7 row with no valid key has lse = log 1e-30 and p 0 on
+// every key), on separate (b·h, n, 64) q, k, v, out, do and dq, dk, dv
+// (one head, row stride 64) and a (b·h, n) mask, with no length limit:
+// each warp reads a key tile's mask word from global memory as it walks
+// it (mma_tiles.cuh's key_word, next_key_tile) instead of
+// keeping every tile's word in shared memory.
 //
-// What bounds the backward on the card: the FMAs. It makes seven 64-deep
+// What bounds them on the card: the FMAs. The backward makes seven 64-deep
 // products of a (query, key) pair where the bound counts five (s and dp
-// are made in both kernels), at 67 TFLOP/s; the bytes (q, k, v, out, do
-// and the statistics read, dqkv written) are a tenth of that time at the
-// flagship's shapes. Its design, as the bf16 kernels' (their notes) with
-// fp32 FMAs in place of mma.sync:
-//   * a block is 64 queries (dq) or 64 keys (dk/dv) x one head x one batch
-//     element, 256 threads; the other side's 64-row tiles (k and v; q and
-//     do) stream once through a double-buffered cp.async ring of 16-byte
-//     copies (tile_walk), no score row is kept whole, so n is bounded by
-//     the mask words (2048), not by shared memory;
+// are made in both kernels), the forward two, at 67 TFLOP/s; the bytes (q,
+// k, v, out, do and the statistics read, the outputs written) are a tenth
+// of that time at the flagship's shapes. The design, as the bf16 kernels'
+// (their notes) with fp32 FMAs in place of mma.sync:
+//   * a block is 64 queries (forward, dq) or 64 keys (dk/dv) x one head x
+//     one batch element, 256 threads (K7's mode: on a 1-D grid, b·h x
+//     tiles, as its b·h grows past the grid's 65,535 on y and z); the
+//     other side's 64-row tiles (k
+//     and v; q and do) stream once through a double-buffered cp.async ring
+//     of 16-byte copies (tile_walk), no score row is kept whole, so n is
+//     bounded by the mask words (2048), not by shared memory;
 //   * each thread owns a 4 x 4 register tile of every 64 x 64 product
-//     (rows 4 ty + i, columns tx + 16 j; a warp 4 x 8 threads) and reads
-//     its operands as 16-byte shared loads, 8 per 64 FMAs, each load of a
-//     warp one 128-byte wavefront; tiles are unpadded 16 KB, their 16-byte
-//     chunks swizzled by row (`swz`) so that no load or p / ds store of a
-//     warp meets a bank conflict;
-//   * s and dp of a tile stay in registers, p and ds are formed there; ds
-//     (dq) or p, then ds (dk/dv) pass through one tile as the A operand of
-//     dq += ds · k, dv += pᵀ · do, dk += dsᵀ · q, whose sums stay in
-//     registers: seven 16 KB tiles a block, two blocks an SM;
+//     (rows 4 ty + i, columns tx + 16 j) and reads its operands as 16-byte
+//     shared loads, 8 per 64 FMAs, each quarter warp's load one 128-byte
+//     wavefront; tiles are unpadded 16 KB, their 16-byte chunks swizzled
+//     by row (`swz`) so that no load or p / ds store of a warp meets a bank
+//     conflict. The backward's warp is 4 rows of threads by 8 columns; the
+//     forward's is 2 rows by 16, so that a row's 16 threads share a warp
+//     and its running max and sum reduce by shuffles,
+//     and the p tile's rows a warp reads are its own (a warp barrier, not a
+//     block one, between p and o += p · v);
+//   * s (forward), s and dp (backward) of a tile stay in registers, p and
+//     ds are formed there and pass through one tile as the A operand of o
+//     += p · v, dq += ds · k, dv += pᵀ · do, dk += dsᵀ · q, whose sums stay
+//     in registers: six 16 KB tiles a forward block (q, two k, two v, p),
+//     seven a backward block, two blocks an SM either way: 128 registers
+//     a thread fill the register file at two, and a third block would
+//     need 293 KB (forward) or 342 KB (backward) of the SM's 228 KB of
+//     shared memory;
 //   * the mask is read once into one 64-bit word per key tile; key tiles
-//     above the causal diagonal and with no valid key are skipped (dq),
-//     and so are query tiles wholly before the key tile under causal
-//     (dk/dv), except where dead rows reach them (a dead row's p = 1/n
-//     reaches dv for every key). Below the tile, a warp (16 rows) runs no
-//     product when its rows lie at or past n; in dq its key columns stop
-//     (in groups of 16) at the tile's last valid key and, causal, at its
-//     last row; in dk/dv its query columns stop at n, and 16 keys none of
-//     which is valid run nothing on a query tile without a dead row;
-//   * every element of dqkv is written: a skipped tile leaves its sums 0.
+//     above the causal diagonal and with no valid key are skipped
+//     (forward, dq), and so are query tiles wholly before the key tile
+//     under causal (dk/dv), except where dead rows reach them (a dead row's
+//     p reaches every key: the forward walks every key tile for a block
+//     holding one, and dk/dv every query tile holding one). Below the tile,
+//     a warp runs no product when its rows lie at or past n; in the forward
+//     and dq its key columns stop (in groups of 16) at the tile's last
+//     valid key and, causal, at its last row; in dk/dv its query columns
+//     stop at n, and 16 keys none of which is valid run nothing on a query
+//     tile without a dead row;
+//   * every element of the outputs is written: a skipped tile leaves its
+//     sums 0.
 // tools/f32_attention_variants.py times the register tile (4 x 8 a
-// thread), one block an SM (p and ds in two tiles) and ex2.approx in place
-// of expf against the shipped choices (PERF.md).
+// thread), one block an SM (p and ds in two tiles), the backward's expf
+// in place of ex2.approx, the forward's rows split over two warps (their
+// max and sum exchanged through shared memory: tools/fwd_exchange.patch),
+// the forward's expf (tools/fwd_expf.patch) and K7's mode against the
+// shipped choices (PERF.md).
 #pragma once
 
 #include "attention_block_sm90.cuh"
 
 namespace {
 
-constexpr int QT = 32;       // queries per forward block
-constexpr int KC = 64;       // keys staged per step
-constexpr int DH = 64;       // dim_head
-constexpr int ALD = DH + 1;  // padded row stride of the staged q/k/v rows
-
-using xclip::up128;
+constexpr int DH = 64;  // dim_head
 
 // The row statistics of query q, head h: the megablock's (m, l) in sm,
 // (b*n) x (2*heads) with m at column h and l at heads + h; K6's lse,
@@ -99,142 +120,22 @@ __device__ __forceinline__ void store_row_stats(float* sm, float* lse, int bi,
   if (lse) lse[row * heads + h] = m + logf(l);
 }
 
-inline size_t attention_fma_smem_bytes(int n) {
-  return sizeof(float) * ((size_t)QT * n + QT * ALD + KC * ALD);
-}
+// The fp32 kernels' modes: the megablock's (m, l) statistics; K6's lse;
+// K7's lse on separate (b·h, n, 64) tensors, no dead-row rule and no
+// length limit (the mask words read per tile from global memory).
+enum CoreMode : int { kMega = 0, kK6 = 1, kK7 = 2 };
 
-__global__ void __launch_bounds__(xclip::kThreads)
-attention_fma_kernel(const float* __restrict__ qkv,
-                     const uint8_t* __restrict__ mask,
-                     float* __restrict__ attnout, int n, int heads,
-                     float scale, int causal, int maybe_dead,
-                     float* __restrict__ sm, float* __restrict__ lse) {
-  using namespace xclip;
-  // one dynamic shared-memory array per translation unit: every kernel
-  // declares it alike and casts
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s = reinterpret_cast<float*>(smem);  // QT x n scores, then probs
-  float* qs = s + QT * n;      // QT x ALD
-  float* kv = qs + QT * ALD;   // KC x ALD
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, bi = blockIdx.z;
-  const int hd = heads * DH, ld = 3 * hd;
-  const float* base = qkv + (long)bi * n * ld;
-  const uint8_t* mrow = mask + (long)bi * n;
-
-  for (int i = threadIdx.x; i < QT * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    qs[r * ALD + d] = q0 + r < n ? base[(long)(q0 + r) * ld + h * DH + d] : 0.f;
-  }
-  for (int j0 = 0; j0 < n; j0 += KC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < KC * DH; i += kThreads) {
-      const int r = i / DH, d = i % DH;
-      kv[r * ALD + d] =
-          j0 + r < n ? base[(long)(j0 + r) * ld + hd + h * DH + d] : 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < QT * KC; i += kThreads) {
-      const int r = i / KC, c = i % KC, j = j0 + c;
-      if (j >= n) continue;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) acc = fmaf(qs[r * ALD + d], kv[c * ALD + d], acc);
-      const bool valid = mrow[j] != 0 && !(causal && j > q0 + r);
-      s[(long)r * n + j] = valid ? acc * scale : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // softmax, one warp per query row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < QT && q0 + r < n; r += kThreads / 32) {
-    float* sr = s + (long)r * n;
-    bool dead = false;
-    if (maybe_dead) {
-      const int lim = causal ? q0 + r + 1 : n;
-      int any = 0;
-      for (int j = lane; j < lim; j += 32) any |= mrow[j] != 0;
-      dead = !__any_sync(0xffffffffu, any);
-    }
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
-    mx = dead ? 0.f : warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = dead ? 1.f : expf(sr[j] - mx);
-      sr[j] = p;
-      sum += p;
-    }
-    const float l = fmaxf(warp_sum(sum), 1e-30f);
-    if (lane == 0) store_row_stats(sm, lse, bi, n, q0 + r, h, heads, mx, l);
-    for (int j = lane; j < n; j += 32) sr[j] = sr[j] / l;
-  }
-
-  // o = p @ v; thread t owns outputs (r, d) = divmod(t + i * kThreads, DH)
-  constexpr int OPT = QT * DH / kThreads;
-  float acc[OPT] = {};
-  for (int j0 = 0; j0 < n; j0 += KC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < KC * DH; i += kThreads) {
-      const int r = i / DH, d = i % DH;
-      kv[r * ALD + d] = j0 + r < n
-          ? base[(long)(j0 + r) * ld + 2 * hd + h * DH + d] : 0.f;
-    }
-    __syncthreads();
-    const int jn = min(KC, n - j0);
-#pragma unroll
-    for (int t = 0; t < OPT; ++t) {
-      const int i = threadIdx.x + t * kThreads, r = i / DH, d = i % DH;
-      const float* pr = s + (long)r * n + j0;
-      float a = acc[t];
-      for (int c = 0; c < jn; ++c) a = fmaf(pr[c], kv[c * ALD + d], a);
-      acc[t] = a;
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < OPT; ++t) {
-    const int i = threadIdx.x + t * kThreads, r = i / DH, d = i % DH;
-    if (q0 + r < n) attnout[((long)bi * n + q0 + r) * hd + h * DH + d] = acc[t];
-  }
-}
-
-// attnout (b*n x hd, T) from qkv (b*n x 3hd, T); with `sm` the rows' (m,
-// l), with `lse` (fp32 only: bf16 K6 launches its own kernel) their
-// log-sum-exp.
-template <typename T>
-int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
-                     int n, int heads, float scale, int causal, int maybe_dead,
-                     float* sm, cudaStream_t st, float* lse = nullptr) {
-  if constexpr (std::is_same<T, xclip::bf16>::value) {
-    return xclip::launch_k6_fwd<true>(qkv, mask, attnout, sm, b, n, heads,
-                                      scale, causal, maybe_dead, st);
-  } else {
-    const size_t smem = attention_fma_smem_bytes(n);
-    cudaError_t e = cudaFuncSetAttribute(
-        attention_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attention_fma_kernel<<<dim3((n + QT - 1) / QT, heads, b), xclip::kThreads,
-                           smem, st>>>(qkv, mask, attnout, n, heads, scale,
-                                       causal, maybe_dead, sm, lse);
-    XCLIP_CHECK_LAUNCH();
-    return 0;
-  }
-}
-
-// ------------------------------------------------------------ backward
-
-// The backward's tiles hold 64 rows of 64 fp32 (a head's q, k, v or do
-// rows, or a 64 x 64 block of p or ds), 16 KB, unpadded. The 16-byte chunk
-// c of row r sits at chunk c ^ swz(r) (`swz`): the rows a warp reads at
-// one chunk fall into distinct banks.
-constexpr int BT = 64 * DH;  // floats of a backward tile
+// The tiles hold 64 rows of 64 fp32 (a head's q, k, v or do rows, or a 64
+// x 64 block of p or ds), 16 KB, unpadded. The 16-byte chunk c of row r
+// sits at chunk c ^ swz(r) (`swz`): the rows a warp reads at one chunk
+// fall into distinct banks.
+constexpr int BT = 64 * DH;  // floats of a tile
 // The register tile: a thread owns 4 rows and kBwdTN columns of each 64 x
 // 64 product (4 x kBwdTN fp32 sums), rows 4 ty + i and columns tx + TX j,
 // TX = 64 / kBwdTN threads along the columns, 16 rows of threads: 4096 /
-// (4 kBwdTN) threads a block. A warp is 4 rows of threads by 8 columns
-// (`bwd_tx`, `bwd_ty`), TX / 8 warps side by side: its 16 rows of a
-// product are contiguous.
+// (4 kBwdTN) threads a block. The backward's warp is 4 rows of threads by
+// 8 columns (`thr_tx`, `thr_ty`), TX / 8 warps side by side: its 16 rows
+// of a product are contiguous.
 constexpr int kBwdTN = 4;
 constexpr int kBwdTX = 64 / kBwdTN;
 constexpr int kBwdThreads = 16 * kBwdTX;
@@ -242,16 +143,19 @@ constexpr int kBwdThreads = 16 * kBwdTX;
 // (seven tiles a block, two blocks an SM); 2, a tile each (one block).
 constexpr int kBwdPTiles = 1;
 constexpr int kBwdBlocks = kBwdPTiles == 1 ? 2 : 1;  // blocks an SM
-// e^(x - m) as K6's 2^(x log2 e - m log2 e) on ex2.approx (true; a few
-// fp32 ulps from expf, well inside the 1e-4 gate), or on expf (false)
+// The backward's e^(x - m): K6's 2^(x log2 e - m log2 e) on ex2.approx
+// (true; a few fp32 ulps from expf, well inside the 1e-4 gate), or expf
+// (false). The forward's is always ex2.approx.
 constexpr bool kBwdEx2 = true;
 constexpr size_t kBwdDqSmem =
     sizeof(float) * (7 * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
 constexpr size_t kBwdDkvSmem = sizeof(float) *
     ((6 + kBwdPTiles) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
+constexpr size_t kFwdSmem = sizeof(float) * 6 * BT + 8 * xclip::K6_MAX_TILES;
 
-__device__ __forceinline__ float bwd_exp(float x, float m) {
-  if constexpr (kBwdEx2)
+template <bool EX2>
+__device__ __forceinline__ float core_exp(float x, float m) {
+  if constexpr (EX2)
     return xclip::k6_exp(x, m);
   else
     return expf(x - m);
@@ -261,16 +165,62 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ int bwd_tx() {
+// The thread's column (tx) and row (ty) of threads: RW, a warp 2 rows of
+// threads by TX columns (32 / TX rows); else 4 rows by 8 columns, TX / 8
+// warps side by side.
+template <bool RW = false>
+__device__ __forceinline__ int thr_tx() {
+  if constexpr (RW) return threadIdx.x % kBwdTX;
   return (threadIdx.x & 7) + 8 * ((threadIdx.x >> 5) % (kBwdTX / 8));
 }
-__device__ __forceinline__ int bwd_ty() {
+template <bool RW = false>
+__device__ __forceinline__ int thr_ty() {
+  if constexpr (RW) return threadIdx.x / kBwdTX;
   return ((threadIdx.x & 31) >> 3) + 4 * ((threadIdx.x >> 5) / (kBwdTX / 8));
 }
+// The rows of a product a warp holds, and the first of them.
+template <bool RW = false>
+constexpr int kWarpRows = RW ? 4 * (32 / kBwdTX) : 16;
+template <bool RW = false>
+__device__ __forceinline__ int warp_row0() {
+  const int warp = threadIdx.x >> 5;
+  return RW ? kWarpRows<true> * warp : 16 * (warp / (kBwdTX / 8));
+}
 
-// The chunk swizzle of tile row r: distinct for 8 consecutive rows (a
-// warp's B rows tx + TX j), and for rows 4 apart from 4 ty (its 4 A rows
-// 4 ty + i): the low 3 bits of r, bit 1 flipped by bit 3.
+// A block's (batch element, head, tile): kMega, kK6 on the grid (tiles,
+// heads, b); kK7 (one head) on a 1-D grid of b·h x tiles, the tiles of one
+// b·h row adjacent (its b·h grows with the batch, past the 65,535 blocks
+// of the grid's y and z).
+template <int MODE>
+struct CoreBlock {
+  int bi, h, t;
+  __device__ __forceinline__ explicit CoreBlock(int tiles) {
+    if constexpr (MODE == kK7) {
+      t = blockIdx.x % tiles;
+      bi = blockIdx.x / tiles;
+      h = 0;
+    } else {
+      t = blockIdx.x;
+      h = blockIdx.y;
+      bi = blockIdx.z;
+    }
+  }
+};
+
+// The launch grid of CoreBlock<MODE> (kMega, kK6: b at most 65,535); a
+// zero x when it does not fit.
+template <int MODE>
+dim3 core_grid(int b, int n, int heads) {
+  const long tiles = (n + 63) / 64;
+  if (MODE == kK7)
+    return dim3(tiles * b <= 0x7fffffffL ? (unsigned)(tiles * b) : 0u);
+  return dim3(b <= 65535 ? (unsigned)tiles : 0u, heads, b);
+}
+
+// The chunk swizzle of tile row r: distinct for 8 consecutive rows from a
+// multiple of 8 (a quarter warp's B rows tx + TX j), and for rows 4 apart
+// from 4 ty (its 4 A rows 4 ty + i): the low 3 bits of r, bit 1 flipped by
+// bit 3.
 __device__ __forceinline__ int swz(int r) { return (r & 7) ^ ((r >> 2) & 2); }
 
 // Rows [r0, r0 + 64) of the 64 fp32 columns at `col` of a row-major matrix
@@ -300,11 +250,11 @@ __device__ __forceinline__ void row_bases(const float* (&base)[8],
 // vᵀ and, in the dk/dv kernel, k . qᵀ, v . doᵀ), for the first NJ column
 // groups j (the rest hold no key or query of the tile and are left
 // alone); one FMA chain an element, in column order.
-template <int NJ>
+template <int NJ, bool RW = false>
 __device__ __forceinline__ void tile_abt(float (&acc)[4][kBwdTN],
                                          const float* a, const float* b) {
   constexpr int TX = kBwdTX;
-  const int tx = bwd_tx(), ty = bwd_ty();
+  const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
   const float* pa[8];
   row_bases(pa, a, ty);
   // rows tx + TX j: chunk c at c ^ swz(tx + TX j), which for TX 16 is
@@ -344,13 +294,13 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][kBwdTN],
 }
 
 // acc[i][4 g + e] += Σ_kk p[4 ty + i][kk] b[kk][4 (tx + TX g) + e] over
-// the first 4 NC keys kk of a p or ds tile (ds . k, pᵀ . do, dsᵀ . q), in
-// key order.
-template <int NC>
+// the first 4 NC keys kk of a p or ds tile (p . v, ds . k, pᵀ . do, dsᵀ .
+// q), in key order.
+template <int NC, bool RW = false>
 __device__ __forceinline__ void tile_ab(float (&acc)[4][kBwdTN],
                                         const float* p, const float* b) {
   constexpr int TX = kBwdTX;
-  const int tx = bwd_tx(), ty = bwd_ty();
+  const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
   const float* pa[8];
   row_bases(pa, p, ty);
   // row kk of b, chunk tx + TX g, sits at TX g + (tx ^ swz(kk))
@@ -399,17 +349,19 @@ __device__ __forceinline__ void with_groups(int m, F&& f) {
 }
 
 // Element (4 ty + i, tx + TX j) of a p or ds tile.
+template <bool RW = false>
 __device__ __forceinline__ float& tile_at(float* tile, int i, int j) {
-  const int r = 4 * bwd_ty() + i, c = bwd_tx() + kBwdTX * j;
+  const int r = 4 * thr_ty<RW>() + i, c = thr_tx<RW>() + kBwdTX * j;
   return tile[r * 64 + (((c >> 2) ^ swz(r)) << 2) + (c & 3)];
 }
 
 // Rows 4 ty + i of a (64 x 64) output tile from registers to rows r0 + 4
 // ty + i < n of dst (row stride ld), 16-byte stores.
+template <bool RW = false>
 __device__ __forceinline__ void store_tile(float* dst, long ld, int r0, int n,
                                            const float (&acc)[4][kBwdTN]) {
   constexpr int TX = kBwdTX;
-  const int tx = bwd_tx(), ty = bwd_ty();
+  const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 4 * ty + i;
@@ -422,27 +374,270 @@ __device__ __forceinline__ void store_tile(float* dst, long ld, int r0, int n,
   }
 }
 
-// The first of the warp's 16 rows of a product.
-__device__ __forceinline__ int warp_row0() {
-  return 16 * ((threadIdx.x >> 5) / (kBwdTX / 8));
+// v reduced with `op` (max or sum) over the TX threads of each row of
+// threads in the forward's warp shape (a row's threads in one warp), by
+// shuffles, the same in each of them. The sum's order is fixed: two runs
+// agree bit for bit.
+template <typename Op>
+__device__ __forceinline__ void row_reduce(float (&v)[4], Op op) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int o = kBwdTX / 2; o > 0; o >>= 1)
+      v[i] = op(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
 }
 
-// dq and delta, one block per (64-query tile, head, batch element), the
-// last query tiles (the most key tiles when causal) first. `dattn` the
-// row cotangents (b*n x hd); `attnout` the forward's attention output (b*n
-// x hd); `stats` the forward's row statistics (K6's lse; the megablock's
-// (m, l)). Writes delta into its scratch for the dk/dv kernel.
+// ------------------------------------------------------------- forward
+
+// attnout (b*n x hd) from q, k, v (row stride ld, head h at column h*64),
+// one block per (64-query tile, head, batch element), the last query
+// tiles (the most key tiles when causal) first; the rows' statistics into
+// `stats`: K6's lse (LSE) or the megablock's (m, l) (or none, null).
 template <bool LSE>
 __global__ void __launch_bounds__(kBwdThreads, 2)
-attention_bwd_dq_kernel(const float* __restrict__ qkv,
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, long ld,
+                     const uint8_t* __restrict__ mask,
+                     float* __restrict__ attnout, float* __restrict__ stats,
+                     int n, int heads, float scale, int causal,
+                     int maybe_dead) {
+  using namespace xclip;
+  constexpr bool RW = true;  // the warp shape: a row's threads in one warp
+  constexpr int TX = kBwdTX;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + BT;      // two buffers
+  float* vs = ks + 2 * BT;  // two buffers
+  float* ps = vs + 2 * BT;  // p
+  auto* bits = reinterpret_cast<unsigned long long*>(ps + BT);
+  const int tiles = (n + 63) / 64;
+  const CoreBlock<kK6> blk(tiles);
+  const int q0 = 64 * (tiles - 1 - blk.t), h = blk.h, bi = blk.bi;
+  const int hd = heads * DH;
+  const long rows = (long)bi * n;
+  const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
+
+  // the walked rows' bases (the head's first column)
+  const float* kb = k + rows * ld + h * DH;
+  const float* vb = v + rows * ld + h * DH;
+  auto stage = [&](int t, int buf) {
+    stage_f32(ks + buf * BT, kb, ld, 0, 64 * t, n);
+    stage_f32(vs + buf * BT, vb, ld, 0, 64 * t, n);
+  };
+  // q lands with the first key tile's copies (tile_walk)
+  stage_f32(qs, q + rows * ld, ld, h * DH, q0, n);
+  const int fv = k6_key_tiles<kBwdThreads>(bits, mask + rows, n);
+  // a row below `dead_end` has no valid key (maybe_dead): m = 0 and p = 1
+  // on every real key, so a block holding one walks every key tile
+  const int dead_end =
+      maybe_dead ? (causal ? min(fv, n) : (fv >= n ? n : 0)) : 0;
+  const bool bdead = q0 < dead_end;
+  const int last = bdead || !causal ? tiles : min(tiles, q0 / 64 + 1);
+  auto next = [&](int t) {
+    for (++t; t < last && !bdead && !bits[t]; ++t) {
+    }
+    return t;
+  };
+  // the warp's rows: none at or past n runs a product (the warp still
+  // joins the barriers); a warp holding a dead row reads every real key,
+  // the others no key past their last row (causal)
+  const int row0 = q0 + warp_row0<RW>();
+  const bool wlive = row0 < n, wdead = row0 < dead_end;
+  const int kend = causal ? min(n, row0 + kWarpRows<RW>) : n;
+  const int r0 = q0 + 4 * ty;  // the thread's rows r0 + i
+
+  // per row: the running max, this thread's share of the running sum
+  float m[4], l[4], o[4][kBwdTN] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  tile_walk(next(-1), last, next, stage, [&](int t, int buf) {
+    const unsigned long long word = bits[t];
+    // the column groups (of TX keys) that hold a key the warp's rows read
+    const int cols =
+        wdead ? min(64, n - 64 * t)
+              : word ? min(kend - 64 * t, 64 - __clzll((long long)word)) : 0;
+    const bool wrun = wlive && cols > 0;
+    with_groups<kBwdTN>((cols + TX - 1) / TX, [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+      float s[4][kBwdTN], mt[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mt[i] = -INFINITY;
+      if (wrun) {
+        tile_abt<NJ, RW>(s, qs, ks + buf * BT);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int c = tx + TX * j, key = 64 * t + c;
+            // a dead row's scores read 0 on every real key (p = 1)
+            const bool dead = r0 + i < dead_end;
+            const bool valid =
+                dead ? key < n
+                     : ((word >> c) & 1ull) && !(causal && key > r0 + i);
+            s[i][j] = valid ? (dead ? 0.f : s[i][j] * scale) : -INFINITY;
+            mt[i] = fmaxf(mt[i], s[i][j]);
+          }
+      }
+      if (wrun) row_reduce(mt, [](float a, float b) { return fmaxf(a, b); });
+      if (wrun) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mn = fmaxf(m[i], mt[i]);
+          // e^(m_old - m_new): 0 from -inf, exactly 1 where m stays
+          const float corr = mn == m[i] ? 1.f : k6_exp(m[i], mn);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float x = s[i][j];
+            const float p = x == -INFINITY    ? 0.f
+                            : r0 + i < dead_end ? 1.f
+                                                : k6_exp(x, mn);
+            sum += p;
+            tile_at<RW>(ps, i, j) = p;
+          }
+          l[i] = l[i] * corr + sum;
+#pragma unroll
+          for (int e = 0; e < kBwdTN; ++e) o[i][e] *= corr;
+          m[i] = mn;
+        }
+      }
+      __syncwarp();  // the warp reads only its own rows of p
+      if (wrun) tile_ab<NJ * TX / 4, RW>(o, ps, vs + buf * BT);
+    });
+  });
+  cp_async_wait<0>();  // q has landed even if no tile was walked
+  row_reduce(l, [](float a, float b) { return a + b; });
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int e = 0; e < kBwdTN; ++e) o[i][e] /= li;
+    if (tx == 0 && r0 + i < n)
+      store_row_stats(LSE ? nullptr : stats, LSE ? stats : nullptr, bi, n,
+                      r0 + i, h, heads, m[i], li);
+  }
+  store_tile<RW>(attnout + rows * hd + h * DH, hd, q0, n, o);
+}
+
+// A kernel's shared memory (above the 48 KB default) and the SM's largest
+// shared-memory carveout.
+inline cudaError_t core_setup(const void* kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// attnout (b*n x hd, T) from qkv (b*n x 3hd, T); with `sm` the rows' (m,
+// l), with `lse` (fp32 only: bf16 K6 launches its own kernel) their
+// log-sum-exp. fp32: every pointer 16-byte aligned (the tiles are copied
+// 16 bytes at a time), n at most K6_MAX_N (the mask words).
+template <typename T>
+int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
+                     int n, int heads, float scale, int causal, int maybe_dead,
+                     float* sm, cudaStream_t st, float* lse = nullptr) {
+  if constexpr (std::is_same<T, xclip::bf16>::value) {
+    return xclip::launch_k6_fwd<true>(qkv, mask, attnout, sm, b, n, heads,
+                                      scale, causal, maybe_dead, st);
+  } else {
+    using xclip::aligned16;
+    const dim3 grid = core_grid<kK6>(b, n, heads);
+    if (n > xclip::K6_MAX_N || !grid.x || !aligned16(qkv) ||
+        !aligned16(attnout))
+      return (int)cudaErrorInvalidValue;
+    const int hd = heads * DH;
+    auto launch = [&](auto kernel, float* stats) {
+      const cudaError_t e = core_setup((const void*)kernel, kFwdSmem);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, kBwdThreads, kFwdSmem, st>>>(
+          qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask, attnout, stats, n,
+          heads, scale, causal, maybe_dead);
+      XCLIP_CHECK_LAUNCH();
+      return 0;
+    };
+    return lse ? launch(attention_fwd_kernel<true>, lse)
+               : launch(attention_fwd_kernel<false>, sm);
+  }
+}
+
+// Blocks an SM of the fp32 forward (K6's lse when LSE, else the
+// megablock's (m, l)), as the occupancy calculator gives them for the
+// build's registers and the kernel's shared memory; a negative cudaError_t
+// code on failure. A template, so that only a file calling it builds the
+// forward.
+template <bool LSE>
+int attention_fwd_blocks() {
+  const void* fwd = (const void*)attention_fwd_kernel<LSE>;
+  int blocks = 0;
+  cudaError_t e = core_setup(fwd, kFwdSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fwd,
+                                                      kBwdThreads, kFwdSmem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// ------------------------------------------------------------ backward
+
+// The walk's mask: WORDS (kMega, kK6), one 64-bit word per key tile of the
+// batch element in shared memory (k6_key_tiles, at most K6_MAX_TILES
+// tiles), and its first valid key; else (kK7, n a multiple of 64) each
+// tile's word read by each warp from global memory as it walks it, and the
+// next tile with a valid key found so (no length limit, no dead rows).
+template <int MODE>
+struct KeyTiles {
+  static constexpr bool WORDS = MODE != kK7;
+  const uint8_t* mrow;
+  unsigned long long* bits;
+  int fv;  // the first valid key (WORDS), else n
+  __device__ __forceinline__ KeyTiles(unsigned long long* b,
+                                      const uint8_t* m, int n)
+      : mrow(m), bits(b), fv(n) {
+    if constexpr (WORDS) fv = xclip::k6_key_tiles<kBwdThreads>(bits, m, n);
+  }
+  __device__ __forceinline__ unsigned long long word(int t) const {
+    if constexpr (WORDS)
+      return bits[t];
+    else
+      return xclip::key_word(mrow + 64 * t);
+  }
+  // the first tile after t, below last, with a valid key (or last)
+  __device__ __forceinline__ int next(int t, int last) const {
+    if constexpr (WORDS) {
+      for (++t; t < last && !bits[t]; ++t) {
+      }
+      return t;
+    } else {
+      return xclip::next_key_tile(mrow, t + 1, last);
+    }
+  }
+};
+
+// dq and delta, one block per (64-query tile, head, batch element), the
+// last query tiles (the most key tiles when causal) first. q, k, v with
+// row stride ld, head h at column h*64; `dattn` the row cotangents (b*n x
+// hd); `attnout` the forward's attention output (b*n x hd); `stats` the
+// forward's row statistics (K6's and K7's lse; the megablock's (m, l)).
+// Writes delta into its scratch for the dk/dv kernel, dq (row stride ld).
+template <int MODE>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+attention_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, long ld,
                         const uint8_t* __restrict__ mask,
                         const float* __restrict__ dattn,
                         const float* __restrict__ attnout,
                         const float* __restrict__ stats,
-                        float* __restrict__ dqkv, float* __restrict__ delta,
+                        float* __restrict__ dq, float* __restrict__ delta,
                         int n, int heads, float scale, int causal,
                         int maybe_dead) {
   using namespace xclip;
+  constexpr bool LSE = MODE != kMega;
   constexpr int TX = kBwdTX;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -450,35 +645,42 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
   float* ks = dos + BT;      // two buffers
   float* vs = ks + 2 * BT;   // two buffers
   float* dss = vs + 2 * BT;  // ds
-  // the tile's rows: delta, m (K6: lse) and 1 / l (K6: 1)
+  // the tile's rows: delta, m (K6, K7: lse) and 1 / l (K6, K7: 1)
   float* rdelta = dss + BT;
   float* rmax = rdelta + 64;
   float* rlinv = rmax + 64;
   auto* bits = reinterpret_cast<unsigned long long*>(rlinv + 64);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * DH, tiles = (n + 63) / 64;
-  const long ld = 3L * hd;
-  const float* base = qkv + (long)bi * n * ld;
-  const int tx = bwd_tx(), ty = bwd_ty();
+  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+    heads = 1;
+    ld = DH;
+    scale = 1.f;
+    maybe_dead = 0;
+  }
+  const int tiles = (n + 63) / 64;
+  const CoreBlock<MODE> blk(tiles);
+  const int q0 = 64 * (tiles - 1 - blk.t), h = blk.h, bi = blk.bi;
+  const int hd = heads * DH;
+  const long rows = (long)bi * n;
+  const int tx = thr_tx(), ty = thr_ty();
   // the megablock folds the softmax scale into dp and delta, K6 into ds
   const float dscale = LSE ? 1.f : scale;
 
+  // the walked rows' bases (the head's first column)
+  const float* kb = k + rows * ld + h * DH;
+  const float* vb = v + rows * ld + h * DH;
   auto stage = [&](int t, int buf) {
-    stage_f32(ks + buf * BT, base, ld, hd + h * DH, 64 * t, n);
-    stage_f32(vs + buf * BT, base, ld, 2 * hd + h * DH, 64 * t, n);
+    stage_f32(ks + buf * BT, kb, ld, 0, 64 * t, n);
+    stage_f32(vs + buf * BT, vb, ld, 0, 64 * t, n);
   };
-  stage_f32(qs, base, ld, h * DH, q0, n);
-  stage_f32(dos, dattn + (long)bi * n * hd, hd, h * DH, q0, n);
+  stage_f32(qs, q + rows * ld, ld, h * DH, q0, n);
+  stage_f32(dos, dattn + rows * hd, hd, h * DH, q0, n);
   cp_async_commit();
-  const int fv = k6_key_tiles<kBwdThreads>(bits, mask + (long)bi * n, n);
+  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  const int fv = keys.fv;
   // a dead row's ds is 0: only key tiles with a valid key up to the
   // diagonal
   const int last = causal ? min(tiles, q0 / 64 + 1) : tiles;
-  auto next = [&](int t) {
-    for (++t; t < last && !bits[t]; ++t) {
-    }
-    return t;
-  };
+  auto next = [&](int t) { return keys.next(t, last); };
   const int first = next(-1);
   cp_async_wait<0>();  // q, do
   __syncthreads();
@@ -486,10 +688,10 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
   // a row, in column order within a thread, then summed over the G
   {
     constexpr int G = kBwdThreads / 64, CH = 16 / G;
-    const int r = threadIdx.x / G, part = threadIdx.x % G, q = q0 + r;
+    const int r = threadIdx.x / G, part = threadIdx.x % G, qi = q0 + r;
     float acc = 0.f;
-    if (q < n) {
-      const float* orow = attnout + ((long)bi * n + q) * hd + h * DH;
+    if (qi < n) {
+      const float* orow = attnout + (rows + qi) * hd + h * DH;
 #pragma unroll
       for (int c = part * CH; c < (part + 1) * CH; ++c) {
         const float4 o = *reinterpret_cast<const float4*>(orow + 4 * c);
@@ -504,11 +706,11 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
     for (int o = G / 2; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (part == 0) {
-      const long row = (long)bi * n + q;
+      const long row = rows + qi;
       rdelta[r] = acc;
       rmax[r] = 0.f;
       rlinv[r] = 1.f;
-      if (q < n) {
+      if (qi < n) {
         delta[row * heads + h] = acc;
         rmax[r] = LSE ? stats[row * heads + h] : stats[row * 2 * heads + h];
         if (!LSE) rlinv[r] = 1.f / stats[row * 2 * heads + heads + h];
@@ -522,10 +724,10 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
   const bool wlive = row0 < n;
   const int kend = causal ? min(n, row0 + 16) : n;
 
-  float dq[4][kBwdTN] = {};
+  float dqa[4][kBwdTN] = {};
   tile_walk(first, last, next, stage, [&](int t, int buf) {
     const float* kt = ks + buf * BT;
-    const unsigned long long word = bits[t];
+    const unsigned long long word = keys.word(t);
     // the column groups (of TX keys) that hold a key the warp's rows read:
     // up to the tile's last valid key and, causal, the warp's last row
     const int cols = min(kend - 64 * t, 64 - __clzll((long long)word));
@@ -539,18 +741,18 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           // the row's terms; a dead row's ds is 0
-          const int r = 4 * ty + i, q = q0 + r;
-          const bool live = q < n &&
-                            !(maybe_dead && (causal ? fv > q : fv >= n));
+          const int r = 4 * ty + i, qi = q0 + r;
+          const bool live = qi < n &&
+                            !(maybe_dead && (causal ? fv > qi : fv >= n));
           const float rm = rmax[r], rl = rlinv[r], rd = rdelta[r];
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             const int c = tx + TX * j;
             const bool valid = live && ((word >> c) & 1ull) &&
-                               !(causal && 64 * t + c > q);
+                               !(causal && 64 * t + c > qi);
             float ds = 0.f;
             if (valid) {
-              float p = bwd_exp(s[i][j] * scale, rm);
+              float p = core_exp<kBwdEx2>(s[i][j] * scale, rm);
               if (!LSE) p *= rl;
               ds = LSE ? p * (dp[i][j] - rd) * scale
                        : p * (dp[i][j] * scale - rd);
@@ -564,26 +766,30 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv,
     // the ds tile)
     if (wlive)
       with_groups<kBwdTN>(groups, [&](auto nj) {
-        tile_ab<decltype(nj)::value * TX / 4>(dq, dss, kt);
+        tile_ab<decltype(nj)::value * TX / 4>(dqa, dss, kt);
       });
   });
-  store_tile(dqkv + (long)bi * n * ld + h * DH, ld, q0, n, dq);
+  store_tile(dq + rows * ld + h * DH, ld, q0, n, dqa);
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
 // query tiles that reach it: from the key tile's on when causal, and
-// every tile holding a dead row (its p = 1/n reaches every key). `stats`
-// and `delta` as the dq kernel's (delta its output).
-template <bool LSE>
+// every tile holding a dead row (its p = 1/n reaches every key). Operands
+// as the dq kernel's (delta its output); dk, dv with row stride ld.
+template <int MODE>
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
-attention_bwd_dkv_kernel(const float* __restrict__ qkv,
+attention_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, long ld,
                          const uint8_t* __restrict__ mask,
                          const float* __restrict__ dattn,
                          const float* __restrict__ stats,
                          const float* __restrict__ delta,
-                         float* __restrict__ dqkv, int n, int heads,
-                         float scale, int causal, int maybe_dead) {
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int n, int heads, float scale, int causal,
+                         int maybe_dead) {
   using namespace xclip;
+  constexpr bool LSE = MODE != kMega;
   constexpr int TX = kBwdTX;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
@@ -592,26 +798,36 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
   float* dos = qs + 2 * BT;   // two buffers
   float* ps = dos + 2 * BT;   // p, then ds (kBwdPTiles 2: p; ds next)
   float* dss = ps + (kBwdPTiles - 1) * BT;
-  // the walked query tile's row terms: m (K6: lse), 1 / l (K6: 1; 1/n on a
-  // dead row) and delta, 64 each
+  // the walked query tile's row terms: m (K6, K7: lse), 1 / l (K6: 1; 1/n
+  // on a dead row) and delta, 64 each
   float* terms = ps + kBwdPTiles * BT;
   auto* bits = reinterpret_cast<unsigned long long*>(terms + 3 * 64);
-  const int kt = blockIdx.x, k0 = 64 * kt, h = blockIdx.y, bi = blockIdx.z;
-  const int hd = heads * DH, tiles = (n + 63) / 64;
-  const long ld = 3L * hd;
-  const float* base = qkv + (long)bi * n * ld;
-  const float* dbase = dattn + (long)bi * n * hd;
-  const int tx = bwd_tx(), ty = bwd_ty();
+  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+    heads = 1;
+    ld = DH;
+    scale = 1.f;
+    maybe_dead = 0;
+  }
+  const int tiles = (n + 63) / 64;
+  const CoreBlock<MODE> blk(tiles);
+  const int kt = blk.t, k0 = 64 * kt, h = blk.h, bi = blk.bi;
+  const int hd = heads * DH;
+  const long rows = (long)bi * n;
+  const int tx = thr_tx(), ty = thr_ty();
 
+  // the walked rows' bases (the head's first column)
+  const float* qb = q + rows * ld + h * DH;
+  const float* db = dattn + rows * hd + h * DH;
   auto stage = [&](int t, int buf) {
-    stage_f32(qs + buf * BT, base, ld, h * DH, 64 * t, n);
-    stage_f32(dos + buf * BT, dbase, hd, h * DH, 64 * t, n);
+    stage_f32(qs + buf * BT, qb, ld, 0, 64 * t, n);
+    stage_f32(dos + buf * BT, db, hd, 0, 64 * t, n);
   };
-  stage_f32(ks, base, ld, hd + h * DH, k0, n);
-  stage_f32(vs, base, ld, 2 * hd + h * DH, k0, n);
+  stage_f32(ks, k + rows * ld, ld, h * DH, k0, n);
+  stage_f32(vs, v + rows * ld, ld, h * DH, k0, n);
   cp_async_commit();
-  const int fv = k6_key_tiles<kBwdThreads>(bits, mask + (long)bi * n, n);
-  const unsigned long long kw = bits[kt];
+  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  const int fv = keys.fv;
+  const unsigned long long kw = keys.word(kt);
   // queries below `dead_end` are dead rows
   const int dead_end =
       maybe_dead ? (causal ? min(fv, n) : (fv >= n ? n : 0)) : 0;
@@ -621,7 +837,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
     return t;
   };
   const int first = next(-1);
-  // the thread's keys k0 + 4 ty + i: valid, and < n
+  // the thread's keys k0 + 4 ty + i: valid, and < n (kept apart: fewer
+  // spills than one word of their bits)
   int key[4];
   bool kvalid[4], klive[4];
 #pragma unroll
@@ -641,14 +858,14 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
   // stored once the tile's own are read
   constexpr int FT = (3 * 64 + kBwdThreads - 1) / kBwdThreads;  // a thread
   auto fetch = [&](int u, int e) {
-    const int w = e >> 6, q = 64 * u + (e & 63);
-    const long row = (long)bi * n + q;
+    const int w = e >> 6, qi = 64 * u + (e & 63);
+    const long row = rows + qi;
     if (w >= 3 || u >= tiles) return 0.f;
-    if (q >= n) return w == 1 ? 1.f : 0.f;
+    if (qi >= n) return w == 1 ? 1.f : 0.f;
     if (w == 0)
       return LSE ? stats[row * heads + h] : stats[row * 2 * heads + h];
     if (w == 2) return delta[row * heads + h];
-    return LSE ? (q < dead_end ? inv_n : 1.f)
+    return LSE ? (qi < dead_end ? inv_n : 1.f)
                : 1.f / stats[row * 2 * heads + heads + h];
   };
 #pragma unroll
@@ -657,7 +874,7 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
     if (e < 3 * 64) terms[e] = fetch(first, e);
   }
 
-  float dk[4][kBwdTN] = {}, dv[4][kBwdTN] = {};
+  float dka[4][kBwdTN] = {}, dva[4][kBwdTN] = {};
   tile_walk(first, tiles, next, stage, [&](int t, int buf) {
     const float* qt = qs + buf * BT;
     const float* dt = dos + buf * BT;
@@ -681,20 +898,21 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            const int c = tx + TX * j, q = 64 * t + c;
+            const int c = tx + TX * j, qi = 64 * t + c;
             float num;
-            if (q < dead_end) {
+            if (qi < dead_end) {
               num = klive[i] ? 1.f : 0.f;  // uniform over the n keys
             } else {
-              const bool valid = kvalid[i] && q < n && !(causal && key[i] > q);
-              num = valid ? bwd_exp(a[i][j] * scale, cm[c]) : 0.f;
+              const bool valid =
+                  kvalid[i] && qi < n && !(causal && key[i] > qi);
+              num = valid ? core_exp<kBwdEx2>(a[i][j] * scale, cm[c]) : 0.f;
             }
             tile_at(ps, i, j) = num * clinv[c];
           }
       }
       if constexpr (kBwdPTiles == 1) {
         __syncthreads();
-        if (wrun) tile_ab<NJ * TX / 4>(dv, ps, dt);
+        if (wrun) tile_ab<NJ * TX / 4>(dva, ps, dt);
       }
       if (wrun) {
         tile_abt<NJ>(a, vs, dt);
@@ -702,10 +920,10 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            const int c = tx + TX * j, q = 64 * t + c;
+            const int c = tx + TX * j, qi = 64 * t + c;
             const float p = tile_at(ps, i, j);  // this thread's own
             float ds = 0.f;
-            if (q >= dead_end && p != 0.f)
+            if (qi >= dead_end && p != 0.f)
               ds = LSE ? p * (a[i][j] - cd[c]) * scale
                        : p * (a[i][j] * scale - cd[c]);
             a[i][j] = ds;
@@ -725,80 +943,94 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv,
         if (e < 3 * 64) terms[e] = fetched[f];
       }
       if (wrun) {
-        if constexpr (kBwdPTiles == 2) tile_ab<NJ * TX / 4>(dv, ps, dt);
-        tile_ab<NJ * TX / 4>(dk, dss, qt);
+        if constexpr (kBwdPTiles == 2) tile_ab<NJ * TX / 4>(dva, ps, dt);
+        tile_ab<NJ * TX / 4>(dka, dss, qt);
       }
     });
   });
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
-  float* dst = dqkv + (long)bi * n * ld + h * DH;
-  store_tile(dst + hd, ld, k0, n, dk);
-  store_tile(dst + 2 * hd, ld, k0, n, dv);
+  store_tile(dk + rows * ld + h * DH, ld, k0, n, dka);
+  store_tile(dv + rows * ld + h * DH, ld, k0, n, dva);
 }
 
-// The fp32 backward's kernels take their shared memory (above the 48 KB
-// default) and the SM's largest shared-memory carveout.
-template <bool LSE>
+template <int MODE>
 cudaError_t attention_bwd_setup() {
-  auto setup = [](const void* kernel, size_t smem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    return e;
-  };
-  cudaError_t e = setup((const void*)attention_bwd_dq_kernel<LSE>, kBwdDqSmem);
+  cudaError_t e =
+      core_setup((const void*)attention_bwd_dq_kernel<MODE>, kBwdDqSmem);
   return e == cudaSuccess
-             ? setup((const void*)attention_bwd_dkv_kernel<LSE>, kBwdDkvSmem)
+             ? core_setup((const void*)attention_bwd_dkv_kernel<MODE>,
+                          kBwdDkvSmem)
              : e;
 }
 
-// Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel,
-// as the occupancy calculator gives them for the build's registers and
-// the kernels' shared memory; a negative cudaError_t code on failure.
-template <bool LSE>
+// Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel
+// in MODE, as the occupancy calculator gives them for the build's
+// registers and the kernels' shared memory; a negative cudaError_t code on
+// failure.
+template <int MODE>
 int attention_bwd_blocks(int which) {
-  cudaError_t e = attention_bwd_setup<LSE>();
   int blocks = 0;
+  cudaError_t e = attention_bwd_setup<MODE>();
   if (e == cudaSuccess)
     e = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dq_kernel<LSE>, kBwdThreads,
+                         &blocks, attention_bwd_dq_kernel<MODE>, kBwdThreads,
                          kBwdDqSmem)
                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dkv_kernel<LSE>, kBwdThreads,
+                         &blocks, attention_bwd_dkv_kernel<MODE>, kBwdThreads,
                          kBwdDkvSmem);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-// fp32: dqkv (b*n x 3hd) from qkv, the row cotangents dattn (b*n x hd),
-// the forward's output attnout (b*n x hd) and row statistics (LSE: K6's
-// lse; else the megablock's sm); `delta` is b*n x heads scratch (the dq
-// kernel writes it, the dk/dv kernel reads it). The tiles are copied 16
-// bytes at a time: every pointer 16-byte aligned.
-template <bool LSE>
+// fp32: dq, dk, dv (row stride ld, head h at column h*64) from q, k, v
+// (the same strides), the row cotangents dattn (b*n x hd), the forward's
+// output attnout (b*n x hd) and row statistics (kK6, kK7: lse; kMega: the
+// megablock's sm); `delta` is b*n x heads scratch (the dq kernel writes
+// it, the dk/dv kernel reads it). The tiles are copied 16 bytes at a time:
+// every pointer 16-byte aligned. kMega, kK6: n at most K6_MAX_N (the mask
+// words); kK7: one head, n a multiple of 64, no dead rows, any length.
+template <int MODE>
+int launch_fma_bwd(const float* q, const float* k, const float* v, long ld,
+                   const uint8_t* mask, const float* dattn,
+                   const float* attnout, const float* stats, float* dq,
+                   float* dk, float* dv, float* delta, int b, int n,
+                   int heads, float scale, int causal, int maybe_dead,
+                   cudaStream_t st) {
+  using xclip::aligned16;
+  const dim3 grid = core_grid<MODE>(b, n, heads);
+  const bool shape_ok =
+      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == DH && !maybe_dead
+                  : n <= xclip::K6_MAX_N;
+  if (!shape_ok || !grid.x || ld % 4 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dattn) ||
+      !aligned16(attnout) || !aligned16(dq) || !aligned16(dk) ||
+      !aligned16(dv) || (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t ce = attention_bwd_setup<MODE>();
+  if (ce != cudaSuccess) return (int)ce;
+  attention_bwd_dq_kernel<MODE><<<grid, kBwdThreads, kBwdDqSmem, st>>>(
+          q, k, v, ld, mask, dattn, attnout, stats, dq, delta, n, heads,
+          scale, causal, maybe_dead);
+  XCLIP_CHECK_LAUNCH();
+  attention_bwd_dkv_kernel<MODE><<<grid, kBwdThreads, kBwdDkvSmem, st>>>(
+          q, k, v, ld, mask, dattn, stats, delta, dk, dv, n, heads, scale,
+          causal, maybe_dead);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
+// The fused layout's backward (kMega, kK6): dqkv (b*n x 3hd) from qkv and
+// the rest as launch_fma_bwd's.
+template <int MODE>
 int launch_attention_fma_bwd(const float* qkv, const uint8_t* mask,
                              const float* dattn, const float* attnout,
                              const float* stats, float* dqkv, float* delta,
                              int b, int n, int heads, float scale, int causal,
                              int maybe_dead, cudaStream_t st) {
-  using xclip::aligned16;
-  if (n > xclip::K6_MAX_N || !aligned16(qkv) || !aligned16(dattn) ||
-      !aligned16(attnout) || !aligned16(dqkv))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t ce = attention_bwd_setup<LSE>();
-  if (ce != cudaSuccess) return (int)ce;
-  const dim3 grid((n + 63) / 64, heads, b);
-  attention_bwd_dq_kernel<LSE><<<grid, kBwdThreads, kBwdDqSmem, st>>>(
-      qkv, mask, dattn, attnout, stats, dqkv, delta, n, heads, scale, causal,
-      maybe_dead);
-  XCLIP_CHECK_LAUNCH();
-  attention_bwd_dkv_kernel<LSE><<<grid, kBwdThreads, kBwdDkvSmem, st>>>(
-      qkv, mask, dattn, stats, delta, dqkv, n, heads, scale, causal,
-      maybe_dead);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+  const int hd = heads * DH;
+  return launch_fma_bwd<MODE>(qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask,
+                              dattn, attnout, stats, dqkv, dqkv + hd,
+                              dqkv + 2 * hd, delta, b, n, heads, scale,
+                              causal, maybe_dead, st);
 }
 
 // The megablock's attention backward: dqkv (b*n x 3hd, T) from qkv, its
@@ -818,29 +1050,23 @@ int launch_mega_attention_bwd(const T* qkv, const uint8_t* mask, float* dattn,
         qkv, mask, attnout, sm, dattn, reinterpret_cast<xclip::bf16*>(dattn),
         dqkv, delta, b, n, heads, scale, causal, maybe_dead, st);
   else
-    return launch_attention_fma_bwd<false>(qkv, mask, dattn, attnout, sm,
+    return launch_attention_fma_bwd<kMega>(qkv, mask, dattn, attnout, sm,
                                            dqkv, delta, b, n, heads, scale,
                                            causal, maybe_dead, st);
 }
 
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
+// Largest sequence length the forward takes in dtype code `dtype`: the
+// mask words of K6_MAX_TILES key tiles, 2048, in both dtypes (bf16 the
+// mma.sync kernels', fp32 the FMA forward's: neither keeps a score row
+// whole).
+inline int attention_max_n(int dtype) { return xclip::K6_MAX_N; }
 
-// Largest sequence length the forward takes in dtype code `dtype`: bf16
-// the mma.sync kernels' 64 * K6_MAX_TILES; fp32 as long as the forward
-// tile's score rows fit one block's shared memory.
-inline int attention_max_n(int dtype) {
-  if (dtype != xclip::kF32) return xclip::K6_MAX_N;
-  return (int)((kMaxSmem - attention_fma_smem_bytes(0)) /
-               (sizeof(float) * QT));
-}
-
-// Largest sequence length the backward takes in `dtype`: the mask words
-// of K6_MAX_TILES key tiles, 2048, in both dtypes (the fp32 kernels keep
-// no score row whole; fp32 training stops at the forward's limit).
+// Largest sequence length the backward takes in `dtype`: the same 2048.
 inline int attention_bwd_max_n(int dtype) { return xclip::K6_MAX_N; }
 
-// the fp32 backward's blocks an SM: each takes its shared memory and 1 KB
+// the fp32 kernels' blocks an SM: each takes its shared memory and 1 KB
 // the card reserves a block, of the SM's 233,472 bytes
+static_assert(2 * (kFwdSmem + 1024) <= 233472, "two forward blocks an SM");
 static_assert(2 * (kBwdDqSmem + 1024) <= 233472, "two dq blocks an SM");
 static_assert(kBwdBlocks * (kBwdDkvSmem + 1024) <= 233472,
               "the dk/dv kernel's blocks an SM");

@@ -283,16 +283,14 @@ int attention_block_bwd_recompute(
 }  // namespace
 
 // Largest sequence length the attention core's forward takes, for dtype
-// code `dtype`: bf16 64 * K6_MAX_TILES = 2048 (the mma.sync kernels, K6's
-// too); fp32 as long as the FMA core's score rows fit one block's shared
-// memory (232,448 bytes on sm_90).
+// code `dtype`: 64 * K6_MAX_TILES = 2048 in both (the mask words of the
+// mma.sync kernels, K6's too, and of the FMA core).
 extern "C" int xclip_attention_block_max_n(int dtype) {
   return attention_max_n(dtype);
 }
 
 // Largest sequence length the attention core's backward takes in `dtype`:
-// 2048 in both (the mask words of 32 key tiles; the fp32 kernels keep no
-// score row whole, so fp32 training stops at the forward's limit).
+// 2048 in both (the mask words of 32 key tiles), the forward's.
 extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
   return attention_bwd_max_n(dtype);
 }
@@ -337,7 +335,7 @@ extern "C" int xclip_mega_core_bwd(int dtype, const void* qkv,
         XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
         scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
-  return launch_attention_fma_bwd<false>(
+  return launch_attention_fma_bwd<kMega>(
       XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dattn),
       XCLIP_PTR(const float*, attnout), XCLIP_PTR(const float*, sm),
       XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,

@@ -31,10 +31,15 @@
 // bf16 runs the kernels of flash_attention_sm90.cuh (register-resident
 // mma.sync tiles on a cp.async ring that skip causal and all-masked key
 // tiles, delta computed in the dq kernel; their note gives the design and
-// what bounds it). fp32 runs the kernels below, on FMAs (common.cuh's
-// block_mma), with delta given by PyTorch (as the Pallas wrapper's
-// `:186-187`): tiles staged in shared memory by plain loads, the scores
-// and the accumulator kept in shared memory between tiles.
+// what bounds it). The fp32 backward runs the attention core's tiled FMA
+// kernels (attention_core.cuh) in their K7 mode: K6's lse backward with
+// scale 1 and no dead-row rule, on the separate (bh, n, 64) tensors, delta
+// computed in the dq kernel, causal and all-masked tiles skipped, no length
+// limit (that file's note gives the design and what bounds it). The fp32
+// forward is the FMA kernel below (common.cuh's block_mma): tiles staged in
+// shared memory by plain loads, the scores and the accumulator kept in
+// shared memory between tiles.
+#include "attention_core.cuh"
 #include "flash_attention_sm90.cuh"
 
 namespace {
@@ -161,161 +166,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse[base + qi] = (rm[r] == -INFINITY ? 0.f : rm[r]) + logf(l);
 }
 
-// The tiles both backward kernels stage: q, dO (FQ rows), k, v (FK rows),
-// the fp32 products s = q . kᵀ and dp = dO . vᵀ (FQ x FK), and per query
-// row its lse and delta, per key its mask.
-struct BwdLayout {
-  size_t q, dO, k, v, s, dp, a, b, acc1, acc2, st, bytes;
-  __host__ __device__ BwdLayout(int tsize, bool dkv) {
-    q = 0;
-    dO = up128(q + (size_t)tsize * FQ * TLD);
-    k = up128(dO + (size_t)tsize * FQ * TLD);
-    v = up128(k + (size_t)tsize * FK * TLD);
-    s = up128(v + (size_t)tsize * FK * TLD);
-    dp = up128(s + sizeof(float) * FQ * SLD);
-    a = up128(dp + sizeof(float) * FQ * SLD);       // T(ds)
-    b = up128(a + (size_t)tsize * FQ * TLD);        // T(p) (dk/dv only)
-    acc1 = up128(b + (dkv ? (size_t)tsize * FQ * TLD : 0));
-    acc2 = up128(acc1 + sizeof(float) * FQ * ALD);  // (dk/dv only)
-    st = up128(acc2 + (dkv ? sizeof(float) * FK * ALD : 0));
-    bytes = up128(st + sizeof(float) * (2 * FQ + FK));
-  }
-};
-
-// p and ds of one (FQ x FK) tile from s, dp, the rows' lse and delta and
-// the keys' mask, into T tiles (ds always, p when `pt`).
-template <typename T>
-__device__ __forceinline__ void tile_p_ds(const float* s, const float* dp,
-                                          const float* lse_r,
-                                          const float* delta_r,
-                                          const float* kvalid, int q0, int j0,
-                                          int causal, T* ds, T* pt) {
-  using namespace xclip;
-  for (int i = threadIdx.x; i < FQ * FK; i += kThreads) {
-    const int r = i / FK, c = i % FK;
-    const bool ok = kvalid[c] != 0.f && !(causal && j0 + c > q0 + r);
-    const float pv = ok ? expf(s[r * SLD + c] - lse_r[r]) : 0.f;
-    ds[r * TLD + c] = from_f<T>(pv * (dp[r * SLD + c] - delta_r[r]));
-    if (pt) pt[r * TLD + c] = from_f<T>(pv);
-  }
-}
-
-// dq for one (bh, 64-query tile): dq = sum over key tiles of T(ds) . k.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int n, int causal) {
-  using namespace xclip;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L(sizeof(T), false);
-  T* qs = reinterpret_cast<T*>(smem + L.q);
-  T* dos = reinterpret_cast<T*>(smem + L.dO);
-  T* ks = reinterpret_cast<T*>(smem + L.k);
-  T* vs = reinterpret_cast<T*>(smem + L.v);
-  float* s = reinterpret_cast<float*>(smem + L.s);
-  float* dp = reinterpret_cast<float*>(smem + L.dp);
-  T* ds = reinterpret_cast<T*>(smem + L.a);
-  float* acc = reinterpret_cast<float*>(smem + L.acc1);
-  float* lse_r = reinterpret_cast<float*>(smem + L.st);
-  float* delta_r = lse_r + FQ;
-  float* kvalid = delta_r + FQ;
-  const int q0 = blockIdx.y * FQ;
-  const long bh = blockIdx.x, base = bh * n;
-  const uint8_t* mrow = mask + base;
-
-  stage_tile(qs, q + (base + q0) * FD, FQ);
-  stage_tile(dos, dout + (base + q0) * FD, FQ);
-  for (int i = threadIdx.x; i < FQ * FD; i += kThreads)
-    acc[(i / FD) * ALD + i % FD] = 0.f;
-  if (threadIdx.x < FQ) {
-    lse_r[threadIdx.x] = lse[base + q0 + threadIdx.x];
-    delta_r[threadIdx.x] = delta[base + q0 + threadIdx.x];
-  }
-  const int kend = causal ? min(n, q0 + FQ) : n;
-  for (int j0 = 0; j0 < kend; j0 += FK) {
-    __syncthreads();
-    stage_tile(ks, k + (base + j0) * FD, FK);
-    stage_tile(vs, v + (base + j0) * FD, FK);
-    if (threadIdx.x < FK) kvalid[threadIdx.x] = mrow[j0 + threadIdx.x] != 0;
-    __syncthreads();
-    block_mma<FQ, FK, false, true>(s, SLD, qs, TLD, ks, TLD, FD, false);
-    block_mma<FQ, FK, false, true>(dp, SLD, dos, TLD, vs, TLD, FD, false);
-    __syncthreads();
-    tile_p_ds<T>(s, dp, lse_r, delta_r, kvalid, q0, j0, causal, ds, nullptr);
-    __syncthreads();
-    block_mma<FQ, FD, false, false>(acc, ALD, ds, TLD, ks, TLD, FK, true);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < FQ * FD; i += kThreads)
-    dq[(base + q0) * FD + i] = from_f<T>(acc[(i / FD) * ALD + i % FD]);
-}
-
-// dk, dv for one (bh, 64-key tile): sums over query tiles of T(ds)ᵀ . q and
-// T(p)ᵀ . dO.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const uint8_t* __restrict__ mask,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int n, int causal) {
-  using namespace xclip;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L(sizeof(T), true);
-  T* qs = reinterpret_cast<T*>(smem + L.q);
-  T* dos = reinterpret_cast<T*>(smem + L.dO);
-  T* ks = reinterpret_cast<T*>(smem + L.k);
-  T* vs = reinterpret_cast<T*>(smem + L.v);
-  float* s = reinterpret_cast<float*>(smem + L.s);
-  float* dp = reinterpret_cast<float*>(smem + L.dp);
-  T* ds = reinterpret_cast<T*>(smem + L.a);
-  T* pt = reinterpret_cast<T*>(smem + L.b);
-  float* dka = reinterpret_cast<float*>(smem + L.acc1);
-  float* dva = reinterpret_cast<float*>(smem + L.acc2);
-  float* lse_r = reinterpret_cast<float*>(smem + L.st);
-  float* delta_r = lse_r + FQ;
-  float* kvalid = delta_r + FQ;
-  const int j0 = blockIdx.y * FK;
-  const long bh = blockIdx.x, base = bh * n;
-
-  stage_tile(ks, k + (base + j0) * FD, FK);
-  stage_tile(vs, v + (base + j0) * FD, FK);
-  for (int i = threadIdx.x; i < FK * FD; i += kThreads) {
-    dka[(i / FD) * ALD + i % FD] = 0.f;
-    dva[(i / FD) * ALD + i % FD] = 0.f;
-  }
-  if (threadIdx.x < FK) kvalid[threadIdx.x] = mask[base + j0 + threadIdx.x] != 0;
-  // causal: query tiles wholly before the key tile see none of its keys
-  for (int q0 = causal ? j0 / FQ * FQ : 0; q0 < n; q0 += FQ) {
-    __syncthreads();
-    stage_tile(qs, q + (base + q0) * FD, FQ);
-    stage_tile(dos, dout + (base + q0) * FD, FQ);
-    if (threadIdx.x < FQ) {
-      lse_r[threadIdx.x] = lse[base + q0 + threadIdx.x];
-      delta_r[threadIdx.x] = delta[base + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    block_mma<FQ, FK, false, true>(s, SLD, qs, TLD, ks, TLD, FD, false);
-    block_mma<FQ, FK, false, true>(dp, SLD, dos, TLD, vs, TLD, FD, false);
-    __syncthreads();
-    tile_p_ds<T>(s, dp, lse_r, delta_r, kvalid, q0, j0, causal, ds, pt);
-    __syncthreads();
-    block_mma<FK, FD, true, false>(dva, ALD, pt, TLD, dos, TLD, FQ, true);
-    block_mma<FK, FD, true, false>(dka, ALD, ds, TLD, qs, TLD, FQ, true);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < FK * FD; i += kThreads) {
-    const long o = (base + j0) * FD + i;
-    dk[o] = from_f<T>(dka[(i / FD) * ALD + i % FD]);
-    dv[o] = from_f<T>(dva[(i / FD) * ALD + i % FD]);
-  }
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -331,24 +181,6 @@ int flash_fwd(const T* q, const T* k, const T* v, const uint8_t* mask,
   if (e != cudaSuccess) return (int)e;
   flash_fwd_kernel<T><<<dim3(bh, n / FQ), kThreads, smem, st>>>(
       q, k, v, mask, out, lse, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
-}
-
-template <typename T>
-int flash_bwd(const T* q, const T* k, const T* v, const uint8_t* mask,
-              const T* dout, const float* lse, const float* delta, T* dq,
-              T* dk, T* dv, int bh, int n, int causal, cudaStream_t st) {
-  const size_t dq_smem = BwdLayout(sizeof(T), false).bytes;
-  const size_t dkv_smem = BwdLayout(sizeof(T), true).bytes;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T>, dq_smem);
-  if (e == cudaSuccess) e = allow_smem(flash_bwd_dkv_kernel<T>, dkv_smem);
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_kernel<T><<<dim3(bh, n / FQ), kThreads, dq_smem, st>>>(
-      q, k, v, mask, dout, lse, delta, dq, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  flash_bwd_dkv_kernel<T><<<dim3(bh, n / FK), kThreads, dkv_smem, st>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, n, causal);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
@@ -386,8 +218,9 @@ extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
 }
 
 // The backward: q, k, v, mask, lse, d as the forward's; out and dout (bh,
-// n, d); delta (bh, n) fp32: for bf16 scratch the kernels fill with sum
-// dout * out, for fp32 that sum, given; dq, dk, dv (bh, n, d).
+// n, d); delta (bh, n) fp32 scratch the dq kernel fills with sum dout * out
+// for the dk/dv kernel; dq, dk, dv (bh, n, d). fp32: every tensor 16-byte
+// aligned, the mask 8-byte aligned.
 extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask,
                                const void* out, const void* dout,
@@ -406,10 +239,16 @@ extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
         XCLIP_PTR(bf16*, dq), XCLIP_PTR(bf16*, dk), XCLIP_PTR(bf16*, dv),
         XCLIP_PTR(float*, delta), bh, n, d, causal, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
-  return flash_bwd<float>(
+  return launch_fma_bwd<kK7>(
       XCLIP_PTR(const float*, q), XCLIP_PTR(const float*, k),
-      XCLIP_PTR(const float*, v), m, XCLIP_PTR(const float*, dout),
-      XCLIP_PTR(const float*, lse), XCLIP_PTR(const float*, delta),
-      XCLIP_PTR(float*, dq), XCLIP_PTR(float*, dk), XCLIP_PTR(float*, dv), bh,
-      n, causal, st);
+      XCLIP_PTR(const float*, v), FD, m, XCLIP_PTR(const float*, dout),
+      XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
+      XCLIP_PTR(float*, dq), XCLIP_PTR(float*, dk), XCLIP_PTR(float*, dv),
+      XCLIP_PTR(float*, delta), bh, n, 1, 1.f, causal, 0, st);
+}
+
+// Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel
+// in K7's mode; a negative cudaError_t code on failure.
+extern "C" int xclip_flash_bwd_blocks(int which) {
+  return attention_bwd_blocks<kK7>(which);
 }

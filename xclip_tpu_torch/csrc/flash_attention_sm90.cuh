@@ -82,32 +82,6 @@ __device__ __forceinline__ float k7_exp(float x) {
   return exp2f(x * 1.4426950408889634f);
 }
 
-// The 64-bit word of a key tile's 64 mask bytes (bit c: key c valid), in
-// every lane of the warp.
-__device__ __forceinline__ unsigned long long key_word(const uint8_t* m) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lo = __ballot_sync(0xffffffffu, m[lane] != 0);
-  const unsigned hi = __ballot_sync(0xffffffffu, m[lane + 32] != 0);
-  return lo | (unsigned long long)hi << 32;
-}
-
-// The first key tile in [t, last) of a mask row with a valid key, or
-// `last`: each lane tests 8 mask bytes, four tiles a ballot. The same in
-// every lane of the warp.
-__device__ __forceinline__ int next_key_tile(const uint8_t* mrow, int t,
-                                             int last) {
-  const int lane = threadIdx.x & 31;
-  for (; t < last; t += 4) {
-    const int u = t + (lane >> 3);
-    uint2 w = make_uint2(0u, 0u);
-    if (u < last)
-      w = *reinterpret_cast<const uint2*>(mrow + 64L * u + 8 * (lane & 7));
-    const unsigned any = __ballot_sync(0xffffffffu, (w.x | w.y) != 0u);
-    if (any) return t + (__ffs(any) - 1) / 8;
-  }
-  return last;
-}
-
 // A block's (bh row, tile) from its place on the 1-D grid: the tiles of a
 // row adjacent, last first when `reverse`.
 struct K7Block {

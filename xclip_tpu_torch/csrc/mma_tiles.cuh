@@ -15,9 +15,11 @@
 // fall into distinct banks.
 //
 // Beside the fragments: the double-buffered cp.async walk over 64-row
-// tiles, a thread's view of a key tile's 64-bit mask word, and the quad
-// reductions of a row's statistics. K6 (attention_block_sm90.cuh) and K7
-// (flash_attention_sm90.cuh) are built from these.
+// tiles, a key tile's 64-bit mask word read by a warp from global memory
+// and a thread's view of it, and the quad reductions of a row's
+// statistics. K6 (attention_block_sm90.cuh) and K7
+// (flash_attention_sm90.cuh) are built from these; the fp32 attention
+// core (attention_core.cuh) reads its K7 mode's mask words with them.
 #pragma once
 
 #include "common.cuh"
@@ -248,6 +250,32 @@ __device__ __forceinline__ void tile_walk(int t, int last, Next next,
     t = u;
     buf ^= 1;
   }
+}
+
+// The 64-bit word of a key tile's 64 mask bytes (bit c: key c valid), in
+// every lane of the warp.
+__device__ __forceinline__ unsigned long long key_word(const uint8_t* m) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(0xffffffffu, m[lane] != 0);
+  const unsigned hi = __ballot_sync(0xffffffffu, m[lane + 32] != 0);
+  return lo | (unsigned long long)hi << 32;
+}
+
+// The first key tile in [t, last) of a mask row with a valid key, or
+// `last`: each lane tests 8 mask bytes, four tiles a ballot. The same in
+// every lane of the warp.
+__device__ __forceinline__ int next_key_tile(const uint8_t* mrow, int t,
+                                             int last) {
+  const int lane = threadIdx.x & 31;
+  for (; t < last; t += 4) {
+    const int u = t + (lane >> 3);
+    uint2 w = make_uint2(0u, 0u);
+    if (u < last)
+      w = *reinterpret_cast<const uint2*>(mrow + 64L * u + 8 * (lane & 7));
+    const unsigned any = __ballot_sync(0xffffffffu, (w.x | w.y) != 0u);
+    if (any) return t + (__ffs(any) - 1) / 8;
+  }
+  return last;
 }
 
 // A thread's view of a 64-key tile's mask word (bit c: key c valid): bits

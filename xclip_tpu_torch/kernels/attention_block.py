@@ -24,8 +24,8 @@ The CUDA kernels are `csrc/attention_block.cu`: bf16 on the K6 mode of
 skip causal and all-masked tiles; its source notes give the design and
 what bounds it), whose megablock mode runs the attention megablock's
 core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
-length limit is the megablock's, `attention_megablock.seq_len_limit` (bf16
-2048, the kernels' own; fp32 1,621, the FMA forward's, in training too),
+length limit is the megablock's, `attention_megablock.seq_len_limit` (2048
+in both dtypes, the kernels' mask words, in training too),
 and so is the predicate of what the kernels take,
 `attention_megablock.why_not` with no block width. The kernels take heads
 of 64; `attention_core` runs a narrower head on them zero-padded to 64

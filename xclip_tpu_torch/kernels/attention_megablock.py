@@ -187,25 +187,24 @@ def attention_block_plain(x, g_pre, w_qkv, w_out, g_out, mask, heads,
 
 def max_seq_len(dtype) -> int:
     """Longest sequence the attention core's forward takes in `dtype`,
-    the megablock's and K6's alike: bf16 2048 (the mma.sync kernels' 32
-    key tiles), fp32 1,621 (the FMA forward's 32 score rows of length n
-    sit in one block's shared memory). Needs the built library."""
+    the megablock's and K6's alike: 2048 in both, the mask words of 32 key
+    tiles (the bf16 mma.sync kernels and the fp32 FMA forward alike keep
+    no score row whole). Needs the built library."""
     return _build.library().xclip_attention_block_max_n(dtype_code(dtype))
 
 
 def max_seq_len_bwd(dtype) -> int:
     """Longest sequence the attention core's backward takes in `dtype`:
-    2048 in both, the mask words of 32 key tiles (the fp32 backward keeps
-    no score row whole, so it reaches past the fp32 forward's limit)."""
+    2048 in both, the mask words of 32 key tiles."""
     return _build.library().xclip_attention_block_bwd_max_n(dtype_code(dtype))
 
 
 def seq_len_limit(dtype, training=False) -> int:
     """The longest sequence a wrapper of the attention core takes in
-    `dtype`: the forward's limit, with `training` the backward's too (bf16
-    2048 either way; fp32 the forward's 1,621 either way, the backward's
-    2048 lying past it). The megablock's wrappers, its core's and K6's all
-    read it (in bf16 they run the same kernels)."""
+    `dtype`: the forward's limit, with `training` the backward's too (2048
+    either way, in both dtypes, for inference and training). The
+    megablock's wrappers, its core's and K6's all read it (in bf16 they run
+    the same kernels, in fp32 the same FMA core)."""
     return (min(max_seq_len(dtype), max_seq_len_bwd(dtype)) if training
             else max_seq_len(dtype))
 
@@ -684,6 +683,8 @@ def _check_core(name, qkv, mask, heads, dim_head, training):
     if mask.shape != (b, n):
         raise ValueError(f"{name}: mask {tuple(mask.shape)} for qkv "
                          f"{tuple(qkv.shape)}")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernels take a 16-byte aligned qkv")
     return b, n
 
 

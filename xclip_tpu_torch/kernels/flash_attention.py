@@ -22,10 +22,14 @@ Differentiable in q, k and v.
   dk = T(ds)ᵀ·q, dv = T(p)ᵀ·dO.
 
 The CUDA kernels are `csrc/flash_attention.cu` (64 × 64 tiles): bf16 on
-the mma.sync kernels of `csrc/flash_attention_sm90.cuh`, which skip causal
-and all-masked key tiles and compute Δ in the dq kernel; fp32 on FMA
-kernels, Δ from PyTorch. Their source notes give the design and what
-bounds it. They take heads of 64, and in bf16 of 128 (two 64-column
+the mma.sync kernels of `csrc/flash_attention_sm90.cuh`; the fp32
+backward on the attention core's tiled FMA kernels
+(`csrc/attention_core.cuh`) in their K7 mode (K6's lse backward with scale
+1 and no dead-row rule, any length); the fp32 forward on an FMA kernel of
+its own. Every backward skips causal and all-masked key tiles and computes
+Δ in its dq kernel. Their source notes give the design and what bounds
+it. The kernels take 16-byte aligned tensors (`flash_attention` hands them
+fresh ones). They take heads of 64, and in bf16 of 128 (two 64-column
 halves); `flash_attention` runs a narrower head on them zero-padded to the
 next of those (`padded_width`). The plain versions follow the Pallas kernels' rounding points;
 the forward's online softmax rounds p against the running max, so its key
@@ -147,7 +151,16 @@ def _check(name, tensors, mask):
         raise ValueError(f"{name}: n {n} must be a multiple of "
                          f"{KERNEL_BLOCK} and the mask (bh, n), not "
                          f"{tuple(mask.shape)}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the kernels take 16-byte aligned tensors")
     return bh, n
+
+
+def _mask_u8(mask):
+    """The (bh, n) key mask as the kernels read it: uint8, contiguous and
+    16-byte aligned (their 8-byte mask loads)."""
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    return mask_u8 if mask_u8.data_ptr() % 16 == 0 else mask_u8.clone()
 
 
 def flash_attention_fwd(q, k, v, mask, causal=False):
@@ -155,7 +168,7 @@ def flash_attention_fwd(q, k, v, mask, causal=False):
     if not route("flash_attention_fwd", (q, k, v, mask)):
         return flash_attention_fwd_plain(q, k, v, mask, causal)
     bh, n = _check("flash_attention_fwd", (q, k, v), mask)
-    mask_u8 = mask.to(torch.uint8).contiguous()
+    mask_u8 = _mask_u8(mask)
     out = torch.empty_like(q)
     lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -173,18 +186,16 @@ flash_attention_fwd.launches = 0  # kernel launches (plain calls not counted)
 
 def flash_attention_bwd(q, k, v, mask, out, lse, do, causal=False):
     """K7 backward → (dq, dk, dv) as the plain version; Δ = Σ dO∘O in
-    the dq kernel (bf16) or in PyTorch (fp32)."""
+    the dq kernel."""
     if not route("flash_attention_bwd", (q, k, v, mask, out, lse, do)):
         return flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal)
     bh, n = _check("flash_attention_bwd", (q, k, v, out, do), mask)
     check_kernel_args("flash_attention_bwd", (lse,), torch.float32)
     if lse.shape != (bh, n):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}")
-    if q.dtype == torch.bfloat16:   # scratch: the dq kernel computes Δ
-        delta = torch.empty((bh, n), dtype=torch.float32, device=q.device)
-    else:
-        delta = (do.float() * out.float()).sum(dim=-1)
-    mask_u8 = mask.to(torch.uint8).contiguous()
+    # scratch: the dq kernel computes Δ, the dk/dv kernel reads it
+    delta = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    mask_u8 = _mask_u8(mask)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         err = _build.library().xclip_flash_bwd(
