@@ -5,9 +5,9 @@
 
 (--parent: an older checkout unpacked at DIR, e.g. by `git archive HEAD |
 tar -x -C DIR`, whose library is built once and whose fp32 attention core
-forward and backward (phases 6 and 12), fp32 K7 backward (phase 12) and
-fp32 product kernel (phase 19) are timed beside this checkout's on the
-same operands.)
+forward and backward (phases 6 and 12), fp32 K7 forward and backward
+(phase 12) and fp32 product kernel (phase 19) are timed beside this
+checkout's on the same operands.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -127,8 +127,8 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              kernel, bound, plain version and SDPA); K6 and K7 in fp32
              (the FMA kernels) timed likewise at the text shape, beside
              SDPA in fp32 and the 67 TFLOP/s fp32 bound (with --parent,
-             the older checkout's fp32 K6 forward and backward and fp32 K7
-             backward beside them).
+             the older checkout's fp32 K6 and K7 forwards and backwards
+             beside them).
  13 rotary-golden  the rotary causal-EOS tiny CLIP of
              tests/data/torch_port_golden_rotary.npz on the K6 and K7
              routes, fp32: outputs and one train step against the JAX
@@ -766,25 +766,6 @@ def parent_ms(parent, fn, kernel_ms):
     return f", parent {ms:.3f} ms ({ms / kernel_ms:.2f}x the kernel)"
 
 
-def parent_flash_bwd(parent, q, k, v, mask_bh, out, lse, do, causal):
-    """An older checkout's fp32 K7 backward (library `parent`) as its own
-    wrapper called it: Δ = Σ dO∘O from PyTorch (its fp32 kernels read it),
-    then its xclip_flash_bwd → (dq, dk, dv). For timing beside this
-    checkout's kernels, whose dq kernel computes Δ itself."""
-    delta = (do.float() * out.float()).sum(dim=-1)
-    mask_u8 = mask_bh.to(torch.uint8).contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    bh, n, d = q.shape
-    err = parent.xclip_flash_bwd(
-        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
-        out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, d, int(causal),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        fail(f"the parent's xclip_flash_bwd failed with cudaError_t {err}")
-    return dq, dk, dv
-
-
 def nan_fill(*specs):
     """Allocate NaN-filled tensors of the given (shape, dtype)s and free
     them: the caching allocator hands their blocks to the next tensors of
@@ -872,8 +853,7 @@ def attn_kernels(gen, core, flash, parent=None):
     text shape with whole masked key tiles and dead rows, into NaN-filled
     memory); times at the text tower's flagship shape, the long sequence
     and the vision shapes; with `parent` (an older checkout's library) the
-    parent's fp32 K6 forward and backward and fp32 K7 backward on the same
-    operands."""
+    parent's fp32 K6 and K7 forwards and backwards on the same operands."""
     phase(12, "attn-kernels", "kernel vs plain version on the card")
     errs, ms, costs, lib, old = {}, {}, {}, {}, {}
 
@@ -989,10 +969,15 @@ def attn_kernels(gen, core, flash, parent=None):
                         *flat[:3], mask_bh, out, lse, flat[3], causal),
                         reps=3, iters=1))
                 if parent is not None and dtype == torch.float32:
+                    # the parent's C entry points, called by this
+                    # checkout's wrappers (its fp32 dq kernel computes Δ)
+                    old[f"{key}_fwd"] = parent_ms(
+                        parent, lambda: flash.flash_attention_fwd(
+                            *flat[:3], mask_bh, causal), ms[f"{key}_fwd"][0])
                     old[f"{key}_bwd"] = parent_ms(
-                        parent, lambda: parent_flash_bwd(
-                            parent, *flat[:3], mask_bh, out, lse, flat[3],
-                            causal), ms[f"{key}_bwd"][0])
+                        parent, lambda: flash.flash_attention_bwd(
+                            *flat[:3], mask_bh, out, lse, flat[3], causal),
+                        ms[f"{key}_bwd"][0])
                 lengths_bh = [L for L in lengths for _ in range(h)]
                 it = q.element_size()
                 costs.update({f"{key}_fwd": flash_cost("fwd", bh, n,
@@ -1028,9 +1013,10 @@ def attn_kernels(gen, core, flash, parent=None):
     # K7 at the text shape with whole 64-key tiles masked between valid
     # keys, a leading masked tile (causal rows with no valid key) and one
     # element all masked (dead rows), which the kernels skip, in both
-    # dtypes, each launched into NaN-filled memory and twice (bit for bit);
-    # inputs from a generator of their own, so the later phases' draws
-    # stay put
+    # dtypes, each launched into NaN-filled memory and twice (bit for bit),
+    # the backward fed the kernel forward's out and lse (a dead row's lse
+    # is log 1e-30); inputs from a generator of their own, so the later
+    # phases' draws stay put
     hgen = torch.Generator(device="cuda").manual_seed(12)
     b, h, n = 256, 8, 256
     mask = key_mask(torch.randint(n // 2, n + 1, (b,), generator=hgen,
@@ -1055,7 +1041,12 @@ def attn_kernels(gen, core, flash, parent=None):
         e_fwd = compare_elementwise(
             label, ("out", "lse"), got,
             flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True), dt)
-        out, lse = flash.flash_attention_fwd_plain(*flat[:3], mask_bh, True)
+        out, lse = got
+        dead = slice(-h, None)   # the last element's heads
+        if out[dead].float().abs().any() or float(
+                (lse[dead] - math.log(1e-30)).abs().max()) > 1e-3:
+            fail(f"{label}: a dead row's out is not 0 or its lse not "
+                 "log 1e-30")
         nan_fill(*[(tuple(flat[0].shape), dt)] * 3,
                  (tuple(mask_bh.shape), torch.float32))
         got = flash.flash_attention_bwd(*flat[:3], mask_bh, out, lse, flat[3],
@@ -1249,8 +1240,9 @@ F32_ATTN_KERNELS = [
     ("k6_f32_bwd", "k6_bwd", "K6 attention_core backward (dq, dk/dv), fp32",
      "xclip_tpu_torch/csrc/attention_core.cuh",
      "xclip_tpu/kernels/attention_block.py:117"),
-    ("k7_f32_fwd", "k7_fwd", "K7 flash_attention forward, fp32",
-     "xclip_tpu_torch/csrc/flash_attention.cu",
+    ("k7_f32_fwd", "k7_fwd",
+     "K7 flash_attention forward, fp32: the core's K7 mode",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
      "xclip_tpu/kernels/flash_attention.py:66"),
     ("k7_f32_bwd", "k7_bwd",
      "K7 flash_attention backward (dq, dk/dv), fp32: the core's K7 mode",

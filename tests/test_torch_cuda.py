@@ -712,23 +712,24 @@ def test_flash_attention_raises_past_its_head_widths(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
+                                     ("float32", 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["holes", "dead"])
 def test_flash_attention_writes_every_element(cuda_device, causal,
-                                              mask_kind, d):
-    """bf16 K7 skips causal and all-masked key tiles and zero-fills a key
-    tile with no valid key, yet writes every element of out, lse, dq, dk
-    and dv (the wrapper takes them from torch.empty)."""
+                                              mask_kind, dtype, d):
+    """K7 skips causal and all-masked key tiles (bf16 also zero-fills a
+    key tile with no valid key), yet writes every element of out, lse, dq,
+    dk and dv (the wrapper takes them from torch.empty)."""
+    dtype = getattr(torch, dtype)
     q, k, v, mask, do = _flash_padded(
-        flash_args(b=3, h=2, n=256, mask_kind=mask_kind, d=d), torch.bfloat16,
+        flash_args(b=3, h=2, n=256, mask_kind=mask_kind, d=d), dtype,
         cuda_device)
-    _nan_blocks((tuple(q.shape), torch.bfloat16),
-                (tuple(mask.shape), torch.float32))
+    _nan_blocks((tuple(q.shape), dtype), (tuple(mask.shape), torch.float32))
     out, lse = flash.flash_attention_fwd(q, k, v, mask, causal)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-    _nan_blocks(*[(tuple(q.shape), torch.bfloat16)] * 3,
+    _nan_blocks(*[(tuple(q.shape), dtype)] * 3,
                 (tuple(mask.shape), torch.float32))
     grads = flash.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
     torch.cuda.synchronize()
@@ -736,34 +737,75 @@ def test_flash_attention_writes_every_element(cuda_device, causal,
 
 
 @pytest.mark.cuda
-def test_flash_attention_long_sequence(cuda_device):
-    """(2, 8, 2048, 64) causal with key pads, bf16: no length limit."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_long_sequence(cuda_device, dtype):
+    """(2, 8, 2048, 64) causal with key pads: no length limit."""
     q, k, v, mask, do = _flash_padded(
-        flash_args(b=2, h=8, n=2000, mask_kind="keypad"), torch.bfloat16,
-        cuda_device)
+        flash_args(b=2, h=8, n=2000, mask_kind="keypad"),
+        getattr(torch, dtype), cuda_device)
     got = flash.flash_attention_fwd(q, k, v, mask, True)
     want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
-    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
     _assert_elementwise(
         flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
         flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
-        "bfloat16", ("dq", "dk", "dv"))
+        dtype, ("dq", "dk", "dv"))
 
 
 @pytest.mark.cuda
-def test_flash_attention_at_8192(cuda_device):
-    """(2, 8, 8192, 64) causal with key pads, bf16, against the plain
-    forward and backward: 128 tiles a row, no length limit."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_8192(cuda_device, dtype):
+    """(2, 8, 8192, 64) causal with key pads, against the plain forward
+    and backward: 128 tiles a row, no length limit (fp32: past the core's
+    other modes' 2048, every element written into NaN-filled memory)."""
     q, k, v, mask, do = _flash_padded(
-        flash_args(b=2, h=8, n=8192, mask_kind="keypad"), torch.bfloat16,
-        cuda_device)
+        flash_args(b=2, h=8, n=8192, mask_kind="keypad"),
+        getattr(torch, dtype), cuda_device)
+    _nan_blocks((tuple(q.shape), q.dtype), (tuple(mask.shape), torch.float32))
     got = flash.flash_attention_fwd(q, k, v, mask, True)
     want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
-    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
     _assert_elementwise(
         flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
         flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
-        "bfloat16", ("dq", "dk", "dv"))
+        dtype, ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask_kind", ["holes", "dead"])
+def test_flash_attention_f32_forward_past_2048(cuda_device, causal,
+                                               mask_kind):
+    """fp32 K7's forward runs the attention core's tiled forward in its K7
+    mode (no mask word a tile kept in shared memory, no dead-row rule): at
+    n = 2304, past the core's other modes' 2048, with whole masked key
+    tiles and a dead row, it writes every element of out and lse
+    (launched into NaN-filled memory), two launches agree bit for bit, it
+    matches its plain version element by element, a dead row gives out 0
+    and lse log 1e-30, and the backward fed its out and lse matches the
+    plain backward on them."""
+    q, k, v, mask, do = _flash_padded(
+        flash_args(b=3, h=2, n=2304, mask_kind=mask_kind), torch.float32,
+        cuda_device)
+    before = flash.flash_attention_fwd.launches
+    _nan_blocks((tuple(q.shape), torch.float32),
+                (tuple(mask.shape), torch.float32))
+    got = flash.flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got)
+    again = flash.flash_attention_fwd(q, k, v, mask, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash.flash_attention_fwd.launches == before + 2
+    _assert_elementwise(got, flash.flash_attention_fwd_plain(
+        q, k, v, mask, causal), "float32", ("out", "lse"))
+    if mask_kind == "dead":   # the last element's two heads
+        assert not got[0][-2:].abs().any()
+        torch.testing.assert_close(got[1][-2:], torch.full_like(
+            got[1][-2:], math.log(1e-30)))
+    _assert_elementwise(
+        flash.flash_attention_bwd(q, k, v, mask, *got, do, causal),
+        flash.flash_attention_bwd_plain(q, k, v, mask, *got, do, causal),
+        "float32", ("dq", "dk", "dv"))
 
 
 @pytest.mark.cuda
@@ -797,22 +839,24 @@ def test_flash_attention_f32_backward_past_2048(cuda_device, causal,
 
 
 @pytest.mark.cuda
-def test_flash_attention_more_than_65535_heads(cuda_device):
-    """b·h = 70,000 (b 8,750 at 8 heads): b·h is the grid's x axis, so the
-    batch has no 65,535 limit."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_more_than_65535_heads(cuda_device, dtype):
+    """b·h = 70,000 (b 8,750 at 8 heads): b·h is the grid's x axis (bf16)
+    or a factor of its 1-D grid (fp32), so the batch has no 65,535
+    limit."""
     torch.manual_seed(2)
     bh, n = 70000, 64
     q, k, v, do = (torch.randn(bh, n, 64, device=cuda_device)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(getattr(torch, dtype)) for _ in range(4))
     mask = torch.arange(n, device=cuda_device)[None] < torch.randint(
         1, n + 1, (bh, 1), device=cuda_device)
     got = flash.flash_attention_fwd(q, k, v, mask, True)
     want = flash.flash_attention_fwd_plain(q, k, v, mask, True)
-    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
     _assert_elementwise(
         flash.flash_attention_bwd(q, k, v, mask, *want, do, True),
         flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, True),
-        "bfloat16", ("dq", "dk", "dv"))
+        dtype, ("dq", "dk", "dv"))
 
 
 @pytest.mark.cuda

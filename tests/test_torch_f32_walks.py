@@ -15,6 +15,13 @@ rests on, with PyTorch models of the walks:
   their m bit for bit (the skipped tiles hold no valid key), and the JAX
   package's Pallas forwards (interpret mode) within 1e-5: K6's
   `_attention_fwd` and the megablock's `_mega_fwd`;
+* K7's fp32 forward, the same kernel in its K7 mode (separate (b·h, n,
+  64) tensors, scale 1, no dead-row rule, each tile's mask word read as
+  it is walked, lse = m_safe + log l): at n = 2304, past the 2048 the
+  core's other modes take, its walk reaches every score a nonzero p
+  needs and gives `flash_attention_fwd_plain`'s out and lse within 1e-5
+  and its m bit for bit (a row with no valid key: out 0, lse log 1e-30),
+  and JAX's `_flash_forward` (interpret mode, 64-key blocks) within 1e-5;
 * K7's fp32 backward, the core's kernels in their K7 mode (no dead-row
   rule): their walks and cuts cover every (query, key) pair with a
   nonzero p at n = 2304, past the 2048 the core's other modes take; and
@@ -49,67 +56,99 @@ WARP_ROWS, GROUP = 8, 16   # the forward's warp: 8 query rows; key groups
 NEG_INF = float("-inf")
 
 
+def _walk(q, k, v, scores, mask, causal, maybe_dead):
+    """The fp32 forward kernel's arithmetic over its walk, on q, k, v (b, H,
+    n, 64) and their scaled scores (b, H, n, n) → (out (b, H, n, 64), m and
+    l (b, H, n), the (b, N, N) map of the (query, key) pairs whose scores
+    it computes, N the padded length). One key tile at a time, every block
+    at once, so each block sees its tiles in its order; a row whose block
+    does not walk the tile, or whose warp's cut leaves the tile out, reads
+    it as -inf, which leaves its m, l and o as they were (correction 1, p
+    0), as a skipped tile does."""
+    b, heads, n, _ = q.shape
+    tiles = -(-n // 64)
+    _, first = _tile_bits(mask)
+    walked = torch.zeros(b, tiles, tiles, dtype=torch.bool)
+    for (bi, t), us in _walks(mask, causal, maybe_dead)[0].items():
+        walked[bi, t, us] = True
+    rows = torch.arange(n)
+    dead_end = torch.tensor([
+        ((min(int(f), n) if causal else (n if f >= n else 0))
+         if maybe_dead else 0) for f in first])
+    dead = rows[None] < dead_end[:, None]                  # (b, n)
+    r0 = rows - rows % WARP_ROWS                           # each row's warp
+    kend = (r0 + WARP_ROWS).clamp(max=n) if causal else torch.full_like(r0, n)
+    m = torch.full((b, heads, n), NEG_INF)
+    l = torch.zeros(b, heads, n)
+    o = torch.zeros(b, heads, n, 64)
+    computed = torch.zeros(b, 64 * tiles, 64 * tiles, dtype=torch.bool)
+    for u in range(tiles):
+        keys = torch.arange(64 * u, min(n, 64 * u + 64))
+        col = torch.arange(len(keys))
+        key_valid = mask[:, keys]                          # (b, keys)
+        last = (key_valid * (col + 1)).amax(-1)            # 0: no valid key
+        # the warp's columns: every real key for a warp holding a dead row,
+        # else up to the tile's last valid key and, causal, its last row
+        cols = torch.where(
+            r0[None] < dead_end[:, None], min(64, n - 64 * u),
+            torch.where(last[:, None] > 0,
+                        torch.minimum(kend[None] - 64 * u, last[:, None]), 0))
+        cols = torch.where(walked[:, rows // 64, u], cols, 0)
+        comp = ((cols[..., None] > 0)
+                & (col < (cols[..., None] + GROUP - 1) // GROUP * GROUP))
+        future = ((keys[None] > rows[:, None]) if causal
+                  else torch.zeros(n, len(keys), dtype=torch.bool))
+        valid = torch.where(dead[..., None], (keys < n)[None, None],
+                            key_valid[:, None] & ~future[None])
+        use = (comp & valid)[:, None]                      # (b, 1, n, keys)
+        row_dead = dead[:, None, :, None]
+        x = torch.where(use, torch.where(row_dead, 0.0, scores[..., keys]),
+                        NEG_INF)
+        mn = torch.maximum(m, x.amax(-1))
+        corr = torch.where(mn == m, 1.0, torch.exp(m - mn))
+        p = torch.where(use, torch.where(row_dead, 1.0,
+                                         torch.exp(x - mn[..., None])), 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p @ v[:, :, keys]
+        m = mn
+        computed[:, :n, 64 * u:64 * u + len(keys)] |= comp
+    l = l.clamp_min(1e-30)
+    return o / l[..., None], m, l, computed
+
+
 def _fwd_walk(qkv, mask, scale, causal, maybe_dead):
-    """The fp32 forward kernel's arithmetic over its walk, block by block
-    in its order → (out (b, n, HEADS·64), m and l (b, n, HEADS), the (b, N,
-    N) map of the (query, key) pairs whose scores it computes, N the
-    padded length)."""
+    """The forward's walk on the fused qkv (the megablock's and K6's modes)
+    → (out (b, n, HEADS·64), m and l (b, n, HEADS), the pairs computed)."""
     b, n, _ = qkv.shape
     hd = HEADS * 64
     q, k, v = (mega._heads(qkv[..., i * hd:(i + 1) * hd], b, n, HEADS, 64)
                for i in range(3))
     # the scores as the plain versions take them (the kernel's are FMA
     # chains in column order: the same values up to summation order)
-    scores = (q @ k.transpose(-1, -2)) * scale
-    size = 64 * -(-n // 64)
-    _, first = _tile_bits(mask)
-    walk = _walks(mask, causal, maybe_dead)[0]
-    out = torch.zeros(b, HEADS, n, 64)
-    m_all = torch.full((b, HEADS, n), NEG_INF)
-    l_all = torch.zeros(b, HEADS, n)
-    computed = torch.zeros(b, size, size, dtype=torch.bool)
-    for (bi, t), us in walk.items():
-        fv = int(first[bi])
-        dead_end = ((min(fv, n) if causal else (n if fv >= n else 0))
-                    if maybe_dead else 0)
-        q0 = 64 * t
-        rows = torch.arange(q0, min(n, q0 + 64))
-        dead = (rows < dead_end)[:, None]
-        m = torch.full((HEADS, len(rows)), NEG_INF)
-        l = torch.zeros(HEADS, len(rows))
-        o = torch.zeros(HEADS, len(rows), 64)
-        for u in us:
-            keys = torch.arange(64 * u, min(n, 64 * u + 64))
-            in_tile = mask[bi, keys].nonzero()
-            last = int(in_tile.max()) + 1 if len(in_tile) else 0
-            comp = torch.zeros(len(rows), len(keys), dtype=torch.bool)
-            for w0 in range(0, len(rows), WARP_ROWS):
-                r0 = q0 + w0
-                kend = min(n, r0 + WARP_ROWS) if causal else n
-                cols = (min(64, n - 64 * u) if r0 < dead_end
-                        else min(kend - 64 * u, last) if last else 0)
-                if cols > 0:
-                    comp[w0:w0 + WARP_ROWS, :-(-cols // GROUP) * GROUP] = True
-            valid = torch.where(
-                dead, keys[None] < n,
-                mask[bi, keys][None] & ~(causal & (keys[None] > rows[:, None])))
-            use = comp & valid
-            x = scores[bi][:, rows][:, :, keys]
-            x = torch.where(use, torch.where(dead, 0.0, x), NEG_INF)
-            mn = torch.maximum(m, x.amax(-1))
-            corr = torch.where(mn == m, 1.0, torch.exp(m - mn))
-            p = torch.where(use, torch.where(dead, 1.0,
-                                             torch.exp(x - mn[..., None])),
-                            0.0)
-            l = l * corr + p.sum(-1)
-            o = o * corr[..., None] + p @ v[bi][:, keys]
-            m = mn
-            computed[bi, q0:q0 + len(rows), 64 * u:64 * u + len(keys)] |= comp
-        l = l.clamp_min(1e-30)
-        out[bi, :, rows] = o / l[..., None]
-        m_all[bi, :, rows], l_all[bi, :, rows] = m, l
+    out, m, l, computed = _walk(q, k, v, (q @ k.transpose(-1, -2)) * scale,
+                                mask, causal, maybe_dead)
     out = out.transpose(1, 2).reshape(b, n, hd)
-    return out, m_all.transpose(1, 2), l_all.transpose(1, 2), computed
+    return out, m.transpose(1, 2), l.transpose(1, 2), computed
+
+
+def _k7_scores(q, k):
+    """(bh, n, n) q · kᵀ as `flash_attention_fwd_plain` takes them, one
+    64-key block at a time."""
+    return torch.cat([flash.dot32(q, k[:, j0:j0 + 64].transpose(-1, -2))
+                      for j0 in range(0, q.shape[1], 64)], -1)
+
+
+def _k7_fwd_walk(q, k, v, mask, causal):
+    """The forward's walk in K7's mode on (bh, n, 64) q (pre-scaled), k, v:
+    one head, scale 1, no dead-row rule, the key tiles with a valid key
+    (each tile's mask word read as it is walked) → (out (bh, n, 64), lse =
+    m_safe + log l, m (bh, n), the pairs computed)."""
+    out, m, l, computed = _walk(q[:, None], k[:, None], v[:, None],
+                                _k7_scores(q, k)[:, None], mask, causal,
+                                False)
+    m = m[:, 0]
+    lse = torch.where(m == NEG_INF, 0.0, m) + torch.log(l[:, 0])
+    return out[:, 0], lse, m, computed
 
 
 def _nonzero_p(mask, causal, maybe_dead):
@@ -188,6 +227,66 @@ def test_f32_forward_walk_matches_pallas(causal, kind):
                                rtol=1e-5)
     np.testing.assert_allclose(l.numpy(), stats[..., HEADS:], atol=1e-5,
                                rtol=1e-5)
+
+
+def _k7_inputs(n, kind):
+    """(bh, n, 64) q (pre-scaled), k, v at b·h 4 and the (4, n) mask of
+    `kind`: "holes" (key pads, two whole masked tiles between valid keys
+    in row 2) or "all" (the same with the last row all masked)."""
+    q, k, v, _, _ = flash_args(b=4, h=1, n=n)
+    return [t[:, 0] for t in (q, k, v)], _mask(4, n, kind)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["holes", "all"])
+def test_k7_f32_forward_walk_matches_plain_at_2304(causal, kind):
+    """K7's mode of the forward walks the key tiles with a valid key up to
+    the causal diagonal, reading each tile's mask word as it goes, so it
+    has no length limit: at n = 2304 (36 key tiles) its walk and warp cuts
+    reach every score a nonzero p needs, and its online softmax gives the
+    plain version's out and lse (1e-5) and its m bit for bit (the row max
+    of the valid scores, the skipped tiles holding none). A row with no
+    valid key (the dead element; causal, the rows before row 1's first
+    valid key) keeps m = -inf and gives out 0 and lse log 1e-30."""
+    n = 2304
+    (q, k, v), mask = _k7_inputs(n, kind)
+    q, k, v = (torch.from_numpy(t) for t in (q, k, v))
+    mask = torch.from_numpy(mask)
+    out, lse, m, computed = _k7_fwd_walk(q, k, v, mask, causal)
+    assert not (_nonzero_p(mask, causal, False) & ~computed).any()
+    want_out, want_lse = flash.flash_attention_fwd_plain(q, k, v, mask,
+                                                         causal)
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    valid = flash._valid(mask, n, 0, n, causal)
+    assert torch.equal(m, torch.where(valid, _k7_scores(q, k),
+                                      NEG_INF).amax(-1))
+    none = ~valid.any(-1).expand(-1, n)   # rows with no valid key
+    assert none[-1].all() == (kind == "all")
+    log_floor = torch.log(torch.tensor(1e-30))
+    assert not out[none].any()
+    assert torch.equal(lse[none], torch.full_like(lse[none], log_floor))
+    assert torch.equal(want_lse[none], lse[none])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["holes", "all"])
+def test_k7_f32_forward_walk_matches_pallas(causal, kind):
+    """K7's forward walk against the JAX package's Pallas `_flash_forward`
+    in interpret mode with 64-key blocks (the kernel's rounding point), at
+    n = 256 (the holes two whole masked tiles): out and lse within 1e-5."""
+    n = 256
+    flat, mask = _k7_inputs(n, kind)
+    want_out, want_lse = jflash._flash_forward(
+        *(jnp.asarray(t) for t in flat),
+        jnp.asarray(mask.reshape(4, 1, n).astype(np.int32)), causal, 64, 64,
+        True)
+    out, lse, _, _ = _k7_fwd_walk(*(torch.from_numpy(t) for t in flat),
+                                  torch.from_numpy(mask), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0],
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [False, True])

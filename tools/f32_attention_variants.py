@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The fp32 attention core's forward and backward (the megablock's, K6's,
-and K7's fp32 backward in its own mode) as shipped and against their
-alternatives, on one NVIDIA card.
+and K7's fp32 forward and backward in their own mode) as shipped and
+against their alternatives, on one NVIDIA card.
 
     python3 tools/f32_attention_variants.py [--parent DIR] [variant ...]
 
@@ -26,20 +26,20 @@ attention_megablock.cu and flash_attention.cu are compiled with ptxas -v
 shipped gemm_f32.cu, gemm_sm90.cu and rows.cu (built once); the occupancy
 calculator gives each kernel's blocks an SM, and cuobjdump its instruction
 mix. With `--parent DIR` (a checkout unpacked there, e.g. `git archive
-HEAD | tar -x -C DIR`) that checkout's library is built too and its fp32
-kernels timed beside them (its K7 backward with Δ from PyTorch, as its
-wrapper gave it). Each library is checked against the plain versions
+HEAD | tar -x -C DIR`; one whose fp32 K7 dq kernel computes Δ, as this
+checkout's wrappers expect) that checkout's library is built too and its
+fp32 kernels timed beside them. Each library is checked against the plain versions
 under chip_smoke.py's phase 12 rule (fp32: 1e-4 of each output's largest
 magnitude, 1e-3 relative Frobenius; two launches bit for bit), then timed
 (CUDA events) in turns, through the list and back, at the megablock
 core's (256, 257) with the text tower's key pads, one SimSiam pass's (256,
-33) and K6's (256, 256) causal with key pads (forward and backward), and
-K7's backward at phase 12's text shape (256, 8, 256, 64) causal with key
-pads, beside the plain version, SDPA in fp32 and the 67 TFLOP/s bound, and
-the shipped kernels apart (the profiler's device times); the variants
-also at (16, 1024) and (4, 2048) with whole masked tiles and a dead
-element (checked, not timed). Needs a card and nvcc; prints the card and
-its power limit first.
+33), K6's (256, 256) causal with key pads and K7's at phase 12's text
+shape (256, 8, 256, 64) causal with key pads (forward and backward),
+beside the plain version, SDPA in fp32 and the 67 TFLOP/s bound, and the
+shipped kernels apart (the profiler's device times); the variants also
+at (16, 1024) and (4, 2048) with whole masked tiles and a dead element,
+K7's at (2, 8, 2304) (checked, not timed). Needs a card and nvcc; prints
+the card and its power limit first.
 """
 
 import re
@@ -113,8 +113,7 @@ def nvcc_c(src, obj, verbose=False):
 
 def resources(name, src, out):
     """Print the registers and spills ptxas reports for the fp32 core's
-    kernels (a template argument: the forward's LSE flag, the backward's
-    mode, 0 megablock, 1 K6, 2 K7)."""
+    kernels (the template argument: the mode, 0 megablock, 1 K6, 2 K7)."""
     kernel = None
     for line in out.splitlines():
         m = re.search(r"entry function '\S*" + KERNELS, line)
@@ -192,11 +191,13 @@ def build_all(names):
         core_blocks = [(built.xclip_attention_fwd_blocks(mode),
                         *(built.xclip_attention_bwd_blocks(mode, which)
                           for which in (0, 1))) for mode in (1, 0)]
-        k7_blocks = [built.xclip_flash_bwd_blocks(which) for which in (0, 1)]
+        k7_blocks = [built.xclip_flash_fwd_blocks(),
+                     *(built.xclip_flash_bwd_blocks(which)
+                       for which in (0, 1))]
         print(f"{name:12s} blocks an SM (occupancy calculator): K6 forward "
               "{}, dq {}, dk/dv {}; megablock forward {}, dq {}, dk/dv {}; "
-              "K7 dq {}, dk/dv {}".format(*core_blocks[0], *core_blocks[1],
-                                          *k7_blocks), flush=True)
+              "K7 forward {}, dq {}, dk/dv {}".format(
+                  *core_blocks[0], *core_blocks[1], *k7_blocks), flush=True)
     return libs
 
 
@@ -214,9 +215,9 @@ def holes_mask(g, b, n):
 
 class Case:
     """One shape: kind "mega" (the megablock's core, its fp32 dattn and
-    (attnout, sm)), "k6" (its do and (out, lse)) or "k7" (K7's backward
-    alone on the (b·h, n, 64) tensors its wrapper hands the kernels, q
-    pre-scaled); `fwd` the plain forward's outputs."""
+    (attnout, sm)), "k6" (its do and (out, lse)) or "k7" (K7's kernels on
+    the (b·h, n, 64) tensors its wrapper hands them, q pre-scaled); `fwd`
+    the plain forward's outputs."""
 
     def __init__(self, label, kind, b, n, causal, dead, mask, timed, g):
         self.label, self.kind, self.b, self.n = label, kind, b, n
@@ -236,6 +237,10 @@ class Case:
         self.fwd = self.forward(plain=True)
 
     def forward(self, plain=False):
+        if self.kind == "k7":
+            fn = (flash.flash_attention_fwd_plain if plain
+                  else flash.flash_attention_fwd)
+            return fn(*self.flat[:3], self.mask_bh, self.causal)
         if self.kind == "mega":
             fn = mega.mega_core_fwd_plain if plain else mega.mega_core_fwd
         else:
@@ -243,15 +248,12 @@ class Case:
                   else core.attention_core_fwd)
         return fn(self.qkv, self.mask, *self.static)
 
-    def backward(self, plain=False, parent=None):
+    def backward(self, plain=False):
         if self.kind == "k7":
             q, k, v, do = self.flat
-            args = (q, k, v, self.mask_bh, *self.fwd, do, self.causal)
-            if parent is not None:
-                return cs.parent_flash_bwd(parent, *args)
             fn = (flash.flash_attention_bwd_plain if plain
                   else flash.flash_attention_bwd)
-            return fn(*args)
+            return fn(q, k, v, self.mask_bh, *self.fwd, do, self.causal)
         if self.kind == "mega":
             fn = mega.mega_core_bwd_plain if plain else mega.mega_core_bwd
             return fn(self.qkv, self.mask, self.cot, *self.fwd, *self.static)
@@ -288,8 +290,7 @@ class Case:
 def cases():
     """The shapes: the megablock's core at the text tower's (256, 257) with
     key pads and at one SimSiam pass's (256, 33), K6's (256, 256) causal
-    with key pads, K7's backward at (256, 8, 256) causal with key pads
-    (timed); the megablock's and K6's at (16, 1024) and (4, 2048), K7's at
+    with key pads, K7's at (256, 8, 256) causal with key pads (timed); the megablock's and K6's at (16, 1024) and (4, 2048), K7's at
     (2, 2304), with holes and a dead element (checked)."""
     lgen = torch.Generator().manual_seed(6)
     pads = (torch.randint(4, 257, (256,), generator=lgen) + 1).tolist()
@@ -329,15 +330,9 @@ def run(lib, fn):
 
 
 def check(name, lib, case):
-    """The case's forward (not K7's) and backward on `lib` against the plain
-    versions, two launches of each bit for bit."""
-    if name == "parent" and case.n > 1621:
-        return   # an older fp32 forward stops at 1,621
-    steps = [("bwd", lambda: case.backward(
-        parent=lib if name == "parent" else None))]
-    if case.kind != "k7":
-        steps.insert(0, ("fwd", case.forward))
-    for which, fn in steps:
+    """The case's forward and backward on `lib` against the plain versions,
+    two launches of each bit for bit."""
+    for which, fn in (("fwd", case.forward), ("bwd", case.backward)):
         got = cs.as_tuple(run(lib, fn))
         again = cs.as_tuple(run(lib, fn))
         if not all(map(torch.equal, got, again)):
@@ -388,17 +383,11 @@ def main(args):
             check(name, lib, case)
     timed = [c for c in shapes if c.timed]
     # (case, which): the call timed on a library
-    calls = []
-    for case in timed:
-        if case.kind != "k7":
-            calls.append((case, "fwd"))
-        calls.append((case, "bwd"))
+    calls = [(case, which) for case in timed for which in ("fwd", "bwd")]
 
     def call(name, case, which):
-        if which == "fwd":
-            return lambda: run(libs[name], case.forward)
-        return lambda: run(libs[name], lambda: case.backward(
-            parent=libs[name] if name == "parent" else None))
+        fn = case.forward if which == "fwd" else case.backward
+        return lambda: run(libs[name], fn)
 
     times = {}
     for name in [*libs, *reversed(libs)]:
@@ -408,8 +397,6 @@ def main(args):
     for case in timed:
         sdpa = case.sdpa()
         for which in ("fwd", "bwd"):
-            if (case, which) not in calls:
-                continue
             b_ms, b_by = cs.bound(*case.cost(which), cs.FP32_PEAK)
             one = sdpa[0 if which == "fwd" else 1]
             plain = cs.cuda_ms(

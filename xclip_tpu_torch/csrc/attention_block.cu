@@ -95,5 +95,5 @@ extern "C" int xclip_attention_bwd_blocks(int mode, int which) {
 // Blocks an SM of the fp32 forward, K6's (lse 1) or the megablock's (lse
 // 0); a negative cudaError_t code on failure.
 extern "C" int xclip_attention_fwd_blocks(int lse) {
-  return lse ? attention_fwd_blocks<true>() : attention_fwd_blocks<false>();
+  return lse ? attention_fwd_blocks<kK6>() : attention_fwd_blocks<kMega>();
 }

@@ -1,9 +1,9 @@
 // The attention core of the attention megablock (K-MEGA, K2, K3:
 // csrc/attention_megablock.cu) and of whole-head attention on a fused qkv
 // (K6: csrc/attention_block.cu): softmax(q . kᵀ · scale) · v per (batch
-// element, head) from the (b·n, 3·heads·64) qkv, and its backward, which
-// K7's fp32 backward (csrc/flash_attention.cu) also runs, in a mode of its
-// own.
+// element, head) from the (b·n, 3·heads·64) qkv, and its backward; K7's
+// fp32 forward and backward (csrc/flash_attention.cu) run the same kernels
+// in a mode of their own.
 //
 // Cast order (as the Pallas kernels): scores are fp32 (q . k) * scale; keys
 // where the mask is 0, and keys past the query when causal, get -inf. With
@@ -26,7 +26,10 @@
 // block's rows, so the final m is each row's true maximum, which the
 // backward rebuilds p from. The row statistics go out as the megablock's
 // (m, l) pair per head (`sm`) or as K6's log-sum-exp m + log l (`lse`), or
-// not at all, and o / l is stored once at the end.
+// not at all, and o / l is stored once at the end. K7's lse is m_safe +
+// log l, m_safe 0 where m = -inf (the Pallas `_fwd_kernel`'s): a row with
+// no valid key keeps m = -inf, p = 0 and l = 0 on every tile, and gives
+// out 0 and lse log 1e-30.
 //
 // Backward: two kernels, each owning its outputs (no atomics; two runs
 // agree bit for bit): a query-tile kernel gives delta (into the `delta`
@@ -40,12 +43,12 @@
 // attnout, ds = p (dp - delta)); K6 applies it to ds as `_bwd_kernel` does
 // (dp = do · vᵀ, delta = Σ do · out, ds = p (dp - delta) scale). Then ds
 // is zeroed on dead rows; dq = ds · k, dk = dsᵀ · q, dv = pᵀ · do.
-// K7's mode (kK7) is K6's with scale 1 (its q comes pre-scaled) and no
-// dead-row rule (a K7 row with no valid key has lse = log 1e-30 and p 0 on
-// every key), on separate (b·h, n, 64) q, k, v, out, do and dq, dk, dv
-// (one head, row stride 64) and a (b·h, n) mask, with no length limit:
-// each warp reads a key tile's mask word from global memory as it walks
-// it (mma_tiles.cuh's key_word, next_key_tile) instead of
+// K7's mode (kK7), forward and backward, is K6's with scale 1 (its q comes
+// pre-scaled) and no dead-row rule (a K7 row with no valid key has lse =
+// log 1e-30 and p 0 on every key), on separate (b·h, n, 64) q, k, v, out,
+// do and dq, dk, dv (one head, row stride 64) and a (b·h, n) mask, with no
+// length limit: each warp reads a key tile's mask word from global memory
+// as it walks it (mma_tiles.cuh's key_word, next_key_tile) instead of
 // keeping every tile's word in shared memory.
 //
 // What bounds them on the card: the FMAs. The backward makes seven 64-deep
@@ -60,7 +63,8 @@
 //     other side's 64-row tiles (k
 //     and v; q and do) stream once through a double-buffered cp.async ring
 //     of 16-byte copies (tile_walk), no score row is kept whole, so n is
-//     bounded by the mask words (2048), not by shared memory;
+//     bounded by the mask words (2048; K7's mode: not at all), not by
+//     shared memory;
 //   * each thread owns a 4 x 4 register tile of every 64 x 64 product
 //     (rows 4 ty + i, columns tx + 16 j) and reads its operands as 16-byte
 //     shared loads, 8 per 64 FMAs, each quarter warp's load one 128-byte
@@ -79,7 +83,8 @@
 //     a thread fill the register file at two, and a third block would
 //     need 293 KB (forward) or 342 KB (backward) of the SM's 228 KB of
 //     shared memory;
-//   * the mask is read once into one 64-bit word per key tile; key tiles
+//   * the mask is read once into one 64-bit word per key tile (K7's mode:
+//     each warp reads a tile's word as it walks it); key tiles
 //     above the causal diagonal and with no valid key are skipped
 //     (forward, dq), and so are query tiles wholly before the key tile
 //     under causal (dk/dv), except where dead rows reach them (a dead row's
@@ -96,8 +101,8 @@
 // thread), one block an SM (p and ds in two tiles), the backward's expf
 // in place of ex2.approx, the forward's rows split over two warps (their
 // max and sum exchanged through shared memory: tools/fwd_exchange.patch),
-// the forward's expf (tools/fwd_expf.patch) and K7's mode against the
-// shipped choices (PERF.md).
+// the forward's expf (tools/fwd_expf.patch), in every mode (K7's too),
+// against the shipped choices (PERF.md).
 #pragma once
 
 #include "attention_block_sm90.cuh"
@@ -387,13 +392,48 @@ __device__ __forceinline__ void row_reduce(float (&v)[4], Op op) {
       v[i] = op(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
 }
 
+// The walk's mask: WORDS (kMega, kK6), one 64-bit word per key tile of the
+// batch element in shared memory (k6_key_tiles, at most K6_MAX_TILES
+// tiles), and its first valid key; else (kK7, n a multiple of 64) each
+// tile's word read by each warp from global memory as it walks it, and the
+// next tile with a valid key found so (no length limit, no dead rows).
+template <int MODE>
+struct KeyTiles {
+  static constexpr bool WORDS = MODE != kK7;
+  const uint8_t* mrow;
+  unsigned long long* bits;
+  int fv;  // the first valid key (WORDS), else n
+  __device__ __forceinline__ KeyTiles(unsigned long long* b,
+                                      const uint8_t* m, int n)
+      : mrow(m), bits(b), fv(n) {
+    if constexpr (WORDS) fv = xclip::k6_key_tiles<kBwdThreads>(bits, m, n);
+  }
+  __device__ __forceinline__ unsigned long long word(int t) const {
+    if constexpr (WORDS)
+      return bits[t];
+    else
+      return xclip::key_word(mrow + 64 * t);
+  }
+  // the first tile after t, below last, with a valid key (or last)
+  __device__ __forceinline__ int next(int t, int last) const {
+    if constexpr (WORDS) {
+      for (++t; t < last && !bits[t]; ++t) {
+      }
+      return t;
+    } else {
+      return xclip::next_key_tile(mrow, t + 1, last);
+    }
+  }
+};
+
 // ------------------------------------------------------------- forward
 
 // attnout (b*n x hd) from q, k, v (row stride ld, head h at column h*64),
 // one block per (64-query tile, head, batch element), the last query
 // tiles (the most key tiles when causal) first; the rows' statistics into
-// `stats`: K6's lse (LSE) or the megablock's (m, l) (or none, null).
-template <bool LSE>
+// `stats`: the megablock's (m, l) (kMega; or none, null), K6's lse (kK6)
+// or K7's (kK7: m_safe + log l, one head, q pre-scaled).
+template <int MODE>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, long ld,
@@ -410,8 +450,14 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + 2 * BT;  // two buffers
   float* ps = vs + 2 * BT;  // p
   auto* bits = reinterpret_cast<unsigned long long*>(ps + BT);
+  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+    heads = 1;
+    ld = DH;
+    scale = 1.f;
+    maybe_dead = 0;
+  }
   const int tiles = (n + 63) / 64;
-  const CoreBlock<kK6> blk(tiles);
+  const CoreBlock<MODE> blk(tiles);
   const int q0 = 64 * (tiles - 1 - blk.t), h = blk.h, bi = blk.bi;
   const int hd = heads * DH;
   const long rows = (long)bi * n;
@@ -426,18 +472,15 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   // q lands with the first key tile's copies (tile_walk)
   stage_f32(qs, q + rows * ld, ld, h * DH, q0, n);
-  const int fv = k6_key_tiles<kBwdThreads>(bits, mask + rows, n);
+  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  const int fv = keys.fv;
   // a row below `dead_end` has no valid key (maybe_dead): m = 0 and p = 1
   // on every real key, so a block holding one walks every key tile
   const int dead_end =
       maybe_dead ? (causal ? min(fv, n) : (fv >= n ? n : 0)) : 0;
   const bool bdead = q0 < dead_end;
   const int last = bdead || !causal ? tiles : min(tiles, q0 / 64 + 1);
-  auto next = [&](int t) {
-    for (++t; t < last && !bdead && !bits[t]; ++t) {
-    }
-    return t;
-  };
+  auto next = [&](int t) { return bdead ? t + 1 : keys.next(t, last); };
   // the warp's rows: none at or past n runs a product (the warp still
   // joins the barriers); a warp holding a dead row reads every real key,
   // the others no key past their last row (causal)
@@ -454,7 +497,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[i] = 0.f;
   }
   tile_walk(next(-1), last, next, stage, [&](int t, int buf) {
-    const unsigned long long word = bits[t];
+    const unsigned long long word = keys.word(t);
     // the column groups (of TX keys) that hold a key the warp's rows read
     const int cols =
         wdead ? min(64, n - 64 * t)
@@ -515,9 +558,12 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < kBwdTN; ++e) o[i][e] /= li;
+    // K7's lse takes m_safe: 0 where the row had no valid key
+    const float mi = MODE == kK7 && m[i] == -INFINITY ? 0.f : m[i];
     if (tx == 0 && r0 + i < n)
-      store_row_stats(LSE ? nullptr : stats, LSE ? stats : nullptr, bi, n,
-                      r0 + i, h, heads, m[i], li);
+      store_row_stats(MODE == kMega ? stats : nullptr,
+                      MODE == kMega ? nullptr : stats, bi, n, r0 + i, h,
+                      heads, mi, li);
   }
   store_tile<RW>(attnout + rows * hd + h * DH, hd, q0, n, o);
 }
@@ -534,10 +580,39 @@ inline cudaError_t core_setup(const void* kernel, size_t smem) {
   return e;
 }
 
+// fp32: attnout (b*n x heads*64) from q, k, v (row stride ld, head h at
+// column h*64) and the rows' statistics into `stats` (kMega: the
+// megablock's sm, or none; kK6, kK7: lse). The tiles are copied 16 bytes
+// at a time: every pointer 16-byte aligned. kMega, kK6: n at most K6_MAX_N
+// (the mask words); kK7: one head, n a multiple of 64, no dead rows, any
+// length, the mask 8-byte aligned.
+template <int MODE>
+int launch_fma_fwd(const float* q, const float* k, const float* v, long ld,
+                   const uint8_t* mask, float* attnout, float* stats, int b,
+                   int n, int heads, float scale, int causal, int maybe_dead,
+                   cudaStream_t st) {
+  using xclip::aligned16;
+  const dim3 grid = core_grid<MODE>(b, n, heads);
+  const bool shape_ok =
+      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == DH && !maybe_dead
+                  : n <= xclip::K6_MAX_N;
+  if (!shape_ok || !grid.x || ld % 4 || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(attnout) ||
+      (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      core_setup((const void*)attention_fwd_kernel<MODE>, kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
+  attention_fwd_kernel<MODE><<<grid, kBwdThreads, kFwdSmem, st>>>(
+      q, k, v, ld, mask, attnout, stats, n, heads, scale, causal,
+      maybe_dead);
+  XCLIP_CHECK_LAUNCH();
+  return 0;
+}
+
 // attnout (b*n x hd, T) from qkv (b*n x 3hd, T); with `sm` the rows' (m,
 // l), with `lse` (fp32 only: bf16 K6 launches its own kernel) their
-// log-sum-exp. fp32: every pointer 16-byte aligned (the tiles are copied
-// 16 bytes at a time), n at most K6_MAX_N (the mask words).
+// log-sum-exp. fp32: launch_fma_fwd's limits.
 template <typename T>
 int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
                      int n, int heads, float scale, int causal, int maybe_dead,
@@ -546,34 +621,20 @@ int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
     return xclip::launch_k6_fwd<true>(qkv, mask, attnout, sm, b, n, heads,
                                       scale, causal, maybe_dead, st);
   } else {
-    using xclip::aligned16;
-    const dim3 grid = core_grid<kK6>(b, n, heads);
-    if (n > xclip::K6_MAX_N || !grid.x || !aligned16(qkv) ||
-        !aligned16(attnout))
-      return (int)cudaErrorInvalidValue;
     const int hd = heads * DH;
-    auto launch = [&](auto kernel, float* stats) {
-      const cudaError_t e = core_setup((const void*)kernel, kFwdSmem);
-      if (e != cudaSuccess) return (int)e;
-      kernel<<<grid, kBwdThreads, kFwdSmem, st>>>(
-          qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask, attnout, stats, n,
-          heads, scale, causal, maybe_dead);
-      XCLIP_CHECK_LAUNCH();
-      return 0;
-    };
-    return lse ? launch(attention_fwd_kernel<true>, lse)
-               : launch(attention_fwd_kernel<false>, sm);
+    auto* launch = lse ? launch_fma_fwd<kK6> : launch_fma_fwd<kMega>;
+    return launch(qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask, attnout,
+                  lse ? lse : sm, b, n, heads, scale, causal, maybe_dead, st);
   }
 }
 
-// Blocks an SM of the fp32 forward (K6's lse when LSE, else the
-// megablock's (m, l)), as the occupancy calculator gives them for the
-// build's registers and the kernel's shared memory; a negative cudaError_t
-// code on failure. A template, so that only a file calling it builds the
-// forward.
-template <bool LSE>
+// Blocks an SM of the fp32 forward in MODE, as the occupancy calculator
+// gives them for the build's registers and the kernel's shared memory; a
+// negative cudaError_t code on failure. A template, so that only a file
+// calling it builds the forward.
+template <int MODE>
 int attention_fwd_blocks() {
-  const void* fwd = (const void*)attention_fwd_kernel<LSE>;
+  const void* fwd = (const void*)attention_fwd_kernel<MODE>;
   int blocks = 0;
   cudaError_t e = core_setup(fwd, kFwdSmem);
   if (e == cudaSuccess)
@@ -583,40 +644,6 @@ int attention_fwd_blocks() {
 }
 
 // ------------------------------------------------------------ backward
-
-// The walk's mask: WORDS (kMega, kK6), one 64-bit word per key tile of the
-// batch element in shared memory (k6_key_tiles, at most K6_MAX_TILES
-// tiles), and its first valid key; else (kK7, n a multiple of 64) each
-// tile's word read by each warp from global memory as it walks it, and the
-// next tile with a valid key found so (no length limit, no dead rows).
-template <int MODE>
-struct KeyTiles {
-  static constexpr bool WORDS = MODE != kK7;
-  const uint8_t* mrow;
-  unsigned long long* bits;
-  int fv;  // the first valid key (WORDS), else n
-  __device__ __forceinline__ KeyTiles(unsigned long long* b,
-                                      const uint8_t* m, int n)
-      : mrow(m), bits(b), fv(n) {
-    if constexpr (WORDS) fv = xclip::k6_key_tiles<kBwdThreads>(bits, m, n);
-  }
-  __device__ __forceinline__ unsigned long long word(int t) const {
-    if constexpr (WORDS)
-      return bits[t];
-    else
-      return xclip::key_word(mrow + 64 * t);
-  }
-  // the first tile after t, below last, with a valid key (or last)
-  __device__ __forceinline__ int next(int t, int last) const {
-    if constexpr (WORDS) {
-      for (++t; t < last && !bits[t]; ++t) {
-      }
-      return t;
-    } else {
-      return xclip::next_key_tile(mrow, t + 1, last);
-    }
-  }
-};
 
 // dq and delta, one block per (64-query tile, head, batch element), the
 // last query tiles (the most key tiles when causal) first. q, k, v with

@@ -20,9 +20,6 @@
 //     partials (the dg and split-k sums of every backward), strictly in
 //     order, on a slab kernel with a cp.async ring (narrow and deep) or a
 //     grid-stride vector kernel (wide and shallow).
-//   * block_mma: a small fp32 product between tiles already in shared
-//     memory, by one block on FMAs (the fp32 attention kernels' q·kᵀ, p·v
-//     and their backward products).
 //
 // Everything sits in an anonymous namespace: each .cu file gets its own
 // copies of the template kernels, so linking several of them into one
@@ -471,10 +468,6 @@ int launch_emit_sum(const float* part, void* out, int parts, long n, int acc,
                                     st, acc == 2);
 }
 
-// The fp32 attention kernels' block size (attention_core.cuh,
-// flash_attention.cu, block_mma below).
-constexpr int kThreads = 128;
-
 template <typename T, int EPI, bool TA = false, bool TB = false>
 int launch_mm(const T* A, const T* B, const T* resid, void* out, int m, int n,
               int k, cudaStream_t st, void* aux1 = nullptr,
@@ -516,28 +509,6 @@ inline size_t weight_grad_part_bytes(int m, int n, int rows, bool bf16,
                                      int k_block = 0) {
   return (size_t)gemm_split(m, n, rows, bf16, k_block).parts * m * n *
          sizeof(float);
-}
-
-__host__ __device__ constexpr size_t up128(size_t b) {
-  return (b + 127) / 128 * 128;
-}
-
-// C (M x N, fp32, row stride ldc) (+)= opA · opB over K, in shared memory,
-// by the block's kThreads threads, on FMAs in k order (the fp32 attention
-// kernels). opA(i, k) = ACOL ? a[i + k * lda] : a[i * lda + k]; opB(k, j)
-// = BCOL ? b[k + j * ldb] : b[k * ldb + j]. The caller synchronises around
-// it.
-template <int M, int N, bool ACOL, bool BCOL>
-__device__ void block_mma(float* C, int ldc, const float* a, int lda,
-                          const float* b, int ldb, int K, bool accumulate) {
-  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-    const int i = idx / N, j = idx % N;
-    float s = accumulate ? C[i * ldc + j] : 0.f;
-    for (int k = 0; k < K; ++k)
-      s = fmaf(ACOL ? a[i + k * lda] : a[i * lda + k],
-               BCOL ? b[k + j * ldb] : b[k * ldb + j], s);
-    C[i * ldc + j] = s;
-  }
 }
 
 // Bump allocator over one caller-provided workspace (256-byte aligned

@@ -65,6 +65,7 @@ _SIGNATURES = {
     "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
     "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _I, _P],
     "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _I, _P],
+    "xclip_flash_fwd_blocks": [],
     "xclip_flash_bwd_blocks": [_I],
     "xclip_mm": [_I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P],
     "xclip_mm_split": [_I] * 5,

@@ -22,13 +22,12 @@ Differentiable in q, k and v.
   dk = T(ds)ᵀ·q, dv = T(p)ᵀ·dO.
 
 The CUDA kernels are `csrc/flash_attention.cu` (64 × 64 tiles): bf16 on
-the mma.sync kernels of `csrc/flash_attention_sm90.cuh`; the fp32
-backward on the attention core's tiled FMA kernels
-(`csrc/attention_core.cuh`) in their K7 mode (K6's lse backward with scale
-1 and no dead-row rule, any length); the fp32 forward on an FMA kernel of
-its own. Every backward skips causal and all-masked key tiles and computes
-Δ in its dq kernel. Their source notes give the design and what bounds
-it. The kernels take 16-byte aligned tensors (`flash_attention` hands them
+the mma.sync kernels of `csrc/flash_attention_sm90.cuh`; fp32, forward
+and backward, on the attention core's tiled FMA kernels
+(`csrc/attention_core.cuh`) in their K7 mode (K6's with scale 1 and no
+dead-row rule, lse = m_safe + log l, any length). Every kernel skips
+causal and all-masked key tiles, and every backward computes Δ in its dq
+kernel. Their source notes give the design and what bounds it. The kernels take 16-byte aligned tensors (`flash_attention` hands them
 fresh ones). They take heads of 64, and in bf16 of 128 (two 64-column
 halves); `flash_attention` runs a narrower head on them zero-padded to the
 next of those (`padded_width`). The plain versions follow the Pallas kernels' rounding points;
@@ -48,8 +47,8 @@ from . import _build
 from ._common import (KERNEL_DTYPES, check_kernel_args, dot32, dtype_code,
                       route, stream_ptr)
 
-KERNEL_BLOCK = 64   # the kernels' query and key tiles (csrc FQ, FK),
-                    # the sequence multiple they take
+KERNEL_BLOCK = 64   # the kernels' query and key tiles, the sequence
+                    # multiple they take
 DIM_HEAD = 64       # the kernels' head width (bf16: also twice it;
                     # narrower heads zero-padded by `flash_attention`)
 NEG_INF = float("-inf")
