@@ -342,6 +342,20 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              collate of its batch placed by .to('cuda'); pairs/s beside
              the same step on batches already on the card, each with the
              median idle share of three profiled steps.
+ 26 tensor-parallel
+             the (data, model) mesh (xclip_tpu_torch.parallel): (a) phase
+             8's flagship step (its weights, inputs and first draw; stored
+             kernel routes, b = 256, bf16) through create_mesh((1, 1))
+             over a world-1 NCCL group, shard_state, shard_batch and
+             make_train_step(mesh=): the loss, grad_norm, every parameter
+             and AdamW moment after the step bit for bit the step without
+             a mesh, whose loss is phase 8's first; K1 and K2 launches
+             equal; pairs/s of both steps timed in turns beside phase 8's,
+             and the bytes of parameters and moments on the rank; (b)
+             dryrun_multichip(1, device="cuda"): JAX's nine stages in a
+             spawned NCCL rank, each loss finite, K5 launched in stage 6,
+             K2 and K1 in stage 8, K3, K-FF-s and K5 in stage 9; and
+             dryrun_multichip(2) refused with ValueError on one card.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -4043,7 +4057,7 @@ def data_parallel(card, CLIP, default_optimizer, make_train_step, lse5):
     import tempfile
     import torch.distributed as dist
     from xclip_tpu_torch.objectives.contrastive import _fused_pair_losses
-    from xclip_tpu_torch.parallel import all_reduce_sum_
+    from xclip_tpu_torch.parallel.collectives import all_reduce_sum_
     normalize = torch.nn.functional.normalize
     lines = []
     bf16 = torch.bfloat16
@@ -4246,6 +4260,130 @@ def data_parallel(card, CLIP, default_optimizer, make_train_step, lse5):
     torch.cuda.empty_cache()
     phase(24, "data-parallel", f"{card}: " + "; ".join(lines))
     return launches, errs, ms, costs, library
+
+
+def tensor_parallel(card, CLIP, default_optimizer, make_train_step, ffb,
+                    mega, phase8):
+    """Phase 26: (a) phase 8's flagship step on a (1, 1) mesh beside the
+    step without one; (b) the torch dryrun at one NCCL rank."""
+    import tempfile
+    import torch.distributed as dist
+    from xclip_tpu_torch.dryrun import dryrun_multichip
+    from xclip_tpu_torch.parallel import create_mesh
+    from xclip_tpu_torch.train import shard_batch, shard_state
+    bf16 = torch.bfloat16
+    lines = []
+
+    # (a) --------------------------------------------------------------
+    b = 256
+    gen = torch.Generator(device="cuda").manual_seed(8)   # phase 8's batch
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256, dtype=bf16)
+    counters = {"k1_fwd": ffb.ff_block_fwd_stored,
+                "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2,
+                "k2_fwd": mega.attention_block_fwd_stored,
+                "k2_bwd": mega.attention_block_bwd}
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    mesh = create_mesh((1, 1))
+    runs = {}
+    for label in ("without a mesh", "mesh (1, 1)"):
+        model = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=bf16,
+                     compute_dtype="bfloat16", device="cuda", seed=0)
+        opt = default_optimizer(model.parameters(), learning_rate=1e-4)
+        t, i, kw = text, images, {}
+        if label != "without a mesh":
+            shard_state(model, opt, mesh)
+            t, i = shard_batch((text, images), mesh)
+            kw = dict(mesh=mesh)
+        step = make_train_step(model, opt, **kw)
+        zero_counts(counters)
+        m = step(t, i, generator=step_gen(100))   # phase 8's first draw
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        after = ({k: v.detach().float() for k, v in m.items()},
+                 [p.detach().clone() for p in model.parameters()],
+                 [opt.state[p][k].clone() for p in model.parameters()
+                  for k in ("mu", "nu")])
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in [*after[1], *after[2]])
+        runs[label] = dict(step=step, after=after, counts=counts,
+                           nbytes=nbytes, t=t, i=i)
+    base, got = runs["without a mesh"], runs["mesh (1, 1)"]
+    bad = [k for k in base["after"][0]
+           if not torch.equal(got["after"][0][k], base["after"][0][k])]
+    bad += [f"parameter {n}" for n, (p, q) in enumerate(zip(
+        got["after"][1], base["after"][1])) if not torch.equal(p, q)]
+    bad += [f"moment {n}" for n, (p, q) in enumerate(zip(
+        got["after"][2], base["after"][2])) if not torch.equal(p, q)]
+    if bad:
+        fail(f"mesh (1, 1) step: not bit for bit the step without a mesh: "
+             f"{bad[:8]}")
+    if float(base["after"][0]["loss"]) != float(phase8[5][0]):
+        fail(f"the step without a mesh: loss "
+             f"{float(base['after'][0]['loss'])!r}, phase 8's first "
+             f"{float(phase8[5][0])!r}")
+    if got["counts"] != base["counts"] or min(got["counts"].values()) < 1:
+        fail(f"mesh (1, 1) launches {got['counts']}, without a mesh "
+             f"{base['counts']}")
+    # the two steps timed in turns, 1 warm-up and 3 timed steps each
+    ms = {label: [] for label in runs}
+    for _ in range(2):
+        for label, r in runs.items():
+            ms[label].append(timed_steps(
+                lambda j, r=r: r["step"](r["t"], r["i"],
+                                         generator=step_gen(101 + j)),
+                1, 3, {})[0])
+    rate = {label: b * 1e3 / min(v) for label, v in ms.items()}
+    print(f"  {card}: flagship b={b} bf16 stored kernel routes, one step: "
+          f"mesh (1, 1) bit for bit the step without a mesh (loss "
+          f"{float(got['after'][0]['loss']):.6f} = phase 8's first, "
+          f"grad_norm {float(got['after'][0]['grad_norm']):.6f}, "
+          f"{len(got['after'][1])} parameters, {len(got['after'][2])} "
+          f"moments); launches K1 fwd/p1/p2 {got['counts']['k1_fwd']}/"
+          f"{got['counts']['k1_p1']}/{got['counts']['k1_p2']}, K2 fwd/bwd "
+          f"{got['counts']['k2_fwd']}/{got['counts']['k2_bwd']} (without "
+          f"a mesh the same; phase 8: 12/12/12, 6/6 a step)", flush=True)
+    print(f"  {card}: pairs/s mesh (1, 1) {rate['mesh (1, 1)']:.1f}, "
+          f"without a mesh {rate['without a mesh']:.1f} (best of 2 x 3 "
+          f"steps each, in turns), phase 8 {b * 1e3 / phase8[0]:.1f}; "
+          f"parameters + AdamW moments on the rank {got['nbytes']} bytes "
+          f"({got['nbytes'] / 2 ** 20:.1f} MiB)", flush=True)
+    lines.append(f"flagship mesh (1, 1) step bit for bit, "
+                 f"{rate['mesh (1, 1)']:.1f} pairs/s (without a mesh "
+                 f"{rate['without a mesh']:.1f}, phase 8 "
+                 f"{b * 1e3 / phase8[0]:.1f}), {got['nbytes']} bytes of "
+                 "parameters and moments")
+    del runs, base, got, model, opt, step
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) --------------------------------------------------------------
+    try:
+        dryrun_multichip(torch.cuda.device_count() + 1, device="cuda")
+        fail("dryrun_multichip past the device count did not raise")
+    except ValueError as e:
+        print(f"  dryrun_multichip({torch.cuda.device_count() + 1}): "
+              f"ValueError: {e}", flush=True)
+    t0 = time.perf_counter()
+    res = dryrun_multichip(1, device="cuda")
+    seconds = time.perf_counter() - t0
+    want = {"fused_loss_sharded": ("K5",),
+            "pallas_kernels_train_step(tp2)": ("K2", "K1"),
+            "memory_lean_train_step": ("K3", "K-FF-s", "K5")}
+    if len(res["losses"]) != 9:
+        fail(f"dryrun: {len(res['losses'])} stages, not 9")
+    for name, kernels in want.items():
+        got = res["launches"].get(name, {})
+        if any(got.get(k, 0) < 1 for k in kernels):
+            fail(f"dryrun stage {name}: launches {got}, expected "
+                 f"{kernels} each at least once")
+    lines.append(f"dryrun_multichip(1) on NCCL: 9 stages in {seconds:.1f} s,"
+                 " launches " + "; ".join(
+                     f"{k} " + " ".join(f"{n}={c}" for n, c in
+                                        res["launches"][k].items())
+                     for k in want))
+    phase(26, "tensor-parallel", f"{card}: " + "; ".join(lines))
 
 
 GOLDEN_TOKENS = GOLDEN.with_name("torch_port_golden_tokens.npz")
@@ -4911,6 +5049,10 @@ def main(argv):
 
     # --------------------------------------------------------------- 25
     data_pipeline(card, CLIP, default_optimizer, make_train_step, ffb, mega)
+
+    # --------------------------------------------------------------- 26
+    tensor_parallel(card, CLIP, default_optimizer, make_train_step, ffb,
+                    mega, stored)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):

@@ -1979,7 +1979,8 @@ def test_gloo_group_refuses_cuda_tensors(cuda_device, tmp_path):
     """A gloo group carries CPU tensors only: the collectives raise on a
     CUDA tensor instead of staging it through the host."""
     import torch.distributed as dist
-    from xclip_tpu_torch.parallel import all_gather, all_reduce_sum_, psum
+    from xclip_tpu_torch.parallel.collectives import (all_gather,
+                                                      all_reduce_sum_, psum)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:
@@ -1994,6 +1995,50 @@ def test_gloo_group_refuses_cuda_tensors(cuda_device, tmp_path):
                            torch.ones(2, 3))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stored", "lean"])
+def test_mesh_step_at_one_rank_is_bit_equal(cuda_device, tmp_path, route):
+    """A (1, 1) mesh over a world-1 NCCL group (`create_mesh`,
+    `shard_state`, `shard_batch`, `make_train_step(mesh=)`): the tiny
+    model's kernel-route step bit for bit the step without a mesh (loss,
+    `grad_norm`, every parameter and moment), with the same kernel
+    launches."""
+    import torch.distributed as dist
+    from xclip_tpu_torch.parallel import create_mesh
+    from xclip_tpu_torch.train import (default_optimizer, make_train_step,
+                                       shard_batch, shard_state)
+    counters = ((mega.attention_block_fwd_stored, ffb.ff_block_fwd_stored)
+                if route == "stored" else
+                (mega.attention_block_fwd_stats, ffb.ff_block_fwd_stats))
+    text, image = _small_batch(cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh((1, 1))
+        runs = []
+        for on_mesh in (False, True):
+            model = _card_clip(CARD_ROUTES[route])
+            opt = default_optimizer(model.parameters(), learning_rate=1e-4)
+            t, i, kw = text, image, {}
+            if on_mesh:
+                shard_state(model, opt, mesh)
+                t, i = shard_batch((text, image), mesh)
+                kw = dict(mesh=mesh)
+            before = [c.launches for c in counters]
+            m = make_train_step(model, opt, **kw)(
+                t, i, generator=torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            runs.append((m, list(model.parameters()),
+                         [opt.state[p]["mu"] for p in model.parameters()],
+                         [c.launches - n for c, n in zip(counters, before)]))
+    finally:
+        dist.destroy_process_group()
+    (m0, p0, mu0, n0), (m1, p1, mu1, n1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(map(torch.equal, p0, p1)) and all(map(torch.equal, mu0, mu1))
+    assert n0 == n1 and min(n0) > 0
 
 
 @pytest.mark.cuda

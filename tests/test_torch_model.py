@@ -134,6 +134,30 @@ def test_exports_match_jax():
         assert getattr(xclip_tpu_torch, name).__name__ == name
 
 
+def test_parallel_and_train_exports_match_jax():
+    """`xclip_tpu_torch.parallel` and `.train` hold every name of JAX's,
+    each with JAX's meaning: `replicated` is the placement whole on every
+    rank (the data-parallel loss's collective of that name stays in
+    `parallel.collectives`). JAX's `TrainState` and `create_train_state`
+    have no counterpart: the port's state is the model and its
+    optimizer."""
+    import xclip_tpu.parallel as jpar
+    import xclip_tpu.train as jtrain
+    import xclip_tpu_torch.parallel as tpar
+    import xclip_tpu_torch.train as ttrain
+    from xclip_tpu_torch.parallel import collectives, mesh, sharding
+    assert set(jpar.__all__) <= set(tpar.__all__)
+    assert set(jtrain.__all__) - {"TrainState", "create_train_state"} \
+        <= set(ttrain.__all__)
+    for module, names in ((tpar, jpar.__all__), (ttrain, jtrain.__all__)):
+        for name in set(names) & set(module.__all__):
+            assert getattr(module, name).__name__ == name
+    assert tpar.replicated is mesh.replicated
+    assert tpar.replicated is not collectives.replicated
+    assert tpar.param_spec is sharding.param_spec
+    assert tpar.create_mesh.__module__ == "xclip_tpu_torch.parallel.mesh"
+
+
 def test_extra_latent_heads_match():
     """All-plain routes, with the extra latent heads: text_to_image=False
     scores through the extra heads, and return_latents gives four."""

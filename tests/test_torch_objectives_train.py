@@ -7,11 +7,11 @@ the last microbatch's statistics count; the statistics through a
 checkpoint; remat over the extra passes; the SimSiam targets on the
 inference forwards; and JAX's assertions.
 
-Tolerances (fp32): metrics 1e-5 absolute and relative, but the gradient
-norm, a function of the gradients, 1e-3 relative, the gradients' rule
-(SimCLR's NT-Xent at temperature 0.1 puts it near 270, 4e-4 from JAX's);
-parameters after the step 2e-6 absolute (the repo's rule); BatchNorm
-statistics 1e-6 absolute with 1e-5 relative.
+Tolerances (fp32): metrics, the gradient norm among them, 1e-5 absolute
+and relative (the norm is accumulated in fp64: an fp32 norm on the CPU
+summed the squares of SimCLR's 4096 × 4096 projector one by one and read
+4e-4 low); parameters after the step 2e-6 absolute (the repo's rule);
+BatchNorm statistics 1e-6 absolute with 1e-5 relative.
 """
 
 import jax
@@ -59,8 +59,7 @@ def _metrics_close(got, want):
     assert set(got) == set(want) - {"bn_updates"}
     for k in got:
         np.testing.assert_allclose(got[k].item(), float(want[k]),
-                                   rtol=1e-3 if k == "grad_norm" else 1e-5,
-                                   atol=1e-5, err_msg=k)
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("ssl", ["simsiam", "simclr"])

@@ -203,9 +203,9 @@ def shard_rows(case, group):
 
 def collectives(case, group):
     """The collectives and their backward on rank-dependent inputs."""
-    from xclip_tpu_torch.parallel import (all_gather, all_reduce_sum_,
-                                          axis_index, axis_size, pmean,
-                                          psum, replicated)
+    from xclip_tpu_torch.parallel.collectives import (
+        all_gather, all_reduce_sum_, axis_index, axis_size, pmean, psum,
+        replicated)
     rank, world = axis_index(group), axis_size(group)
     out = {"rank": rank, "world": world, "jax_imported": any(
         m.split(".")[0] in ("jax", "xclip_tpu") for m in sys.modules)}
@@ -267,4 +267,185 @@ def step(case, group):
     out["warnings"] = np.array([str(w.message) for w in caught] or [""])
     out.update({f"param:{k}": v for k, v in
                 flat_tree(to_jax_tree(clip)).items()})
+    return out
+
+
+# ------------------------------------------------- the (data, model) mesh
+
+def _moments(clip, opt):
+    """AdamW's moments gathered to JAX's layout, as {"mu:<leaf>": array,
+    "nu:<leaf>": ...} with the depth axis restacked (`to_jax_tree`'s
+    names)."""
+    from xclip_tpu_torch.convert import _restack
+    from xclip_tpu_torch.parallel.sharding import gather_tensor
+    out = {}
+    for k in ("mu", "nu"):
+        flat = {}
+        for name, p in clip.model.named_parameters():
+            t = opt.state[p][k].detach()
+            if getattr(p, "sharding", None) is not None:
+                t = gather_tensor(t, p.sharding)
+            flat[name] = t.float().numpy()
+        out.update({f"{k}:{n}": v for n, v in _restack(flat).items()})
+    return out
+
+
+def _placement(clip, opt, tag):
+    """Each TP-sharded parameter's shape and its moments' (when made) on
+    this rank: {"<tag>:<name>": (param shape, mu shape, nu shape)}."""
+    out = {}
+    for name, p in clip.model.named_parameters():
+        if p.sharding.is_fully_replicated:
+            continue
+        st = opt.state.get(p, {})
+        out[f"{tag}:{name}"] = np.array(
+            [list(p.shape), list(st["mu"].shape) if st else [-1] * p.ndim,
+             list(st["nu"].shape) if st else [-1] * p.ndim])
+    return out
+
+
+def tp_step(case, group):
+    """One (data, model) mesh step (`shard_state`, `shard_batch(mesh)`,
+    `make_train_step(mesh=)`) on the ranks of `case["devices"]`: the
+    metrics, the parameters and moments after it gathered to JAX's
+    layout, and the TP-sharded tensors' local shapes before and after."""
+    from xclip_tpu_torch.convert import to_jax_tree
+    from xclip_tpu_torch.parallel import create_mesh
+    from xclip_tpu_torch.train import (default_optimizer, make_train_step,
+                                       shard_batch, shard_state)
+    mesh = create_mesh(case["mesh"], devices=case.get("devices"))
+    if not mesh.member:
+        return {"member": False}
+    clip = _clip(case)
+    opt = default_optimizer(clip.parameters(), **case["optimizer"])
+    shard_state(clip, opt, mesh)
+    out = {"member": True, **_placement(clip, opt, "before")}
+    b = case["batch"]
+    text, image = shard_batch((torch.from_numpy(b["text"]),
+                               torch.from_numpy(b["image"])), mesh)
+    kw = _draws(case, dist.get_rank())
+    if case.get("seed_by_rank"):
+        kw["generator"] = torch.Generator().manual_seed(dist.get_rank())
+    metrics = make_train_step(clip, opt, mesh=mesh,
+                              **case.get("step", {}))(text, image, **kw)
+    out.update({f"metric:{k}": v.item() for k, v in metrics.items()})
+    out.update(_placement(clip, opt, "after"))
+    out.update({f"param:{k}": v for k, v in
+                flat_tree(to_jax_tree(clip)).items()})
+    out.update(_moments(clip, opt))
+    return out
+
+
+def tp_layout(case, group):
+    """A whole JAX tree loaded into a model sharded on a (1, world) mesh:
+    layer 0's local `to_qkv.w` and `w_in.w` of each tower, the tree
+    gathered back; `shard_state` of an optimizer holding whole moments;
+    and the errors of an indivisible batch and of a grid that does not
+    cover the world."""
+    from xclip_tpu_torch.convert import load_jax_params, to_jax_tree
+    from xclip_tpu_torch.parallel import create_mesh, shard_params
+    from xclip_tpu_torch.train import shard_batch
+    import xclip_tpu_torch
+    world = dist.get_world_size()
+    mesh = create_mesh((1, world))
+    clip = xclip_tpu_torch.CLIP(**case["config"], device="cpu")
+    shard_params(clip, mesh)
+    load_jax_params(clip, case["tree"])
+    out = {f"param:{k}": v for k, v in flat_tree(to_jax_tree(clip)).items()}
+    for tower in ("text", "visual"):
+        layer = getattr(clip.model, tower).transformer.layers[0]
+        out[f"local:{tower}.to_qkv"] = layer.attn.to_qkv.w.detach().numpy()
+        out[f"local:{tower}.w_in"] = layer.ff.w_in.w.detach().numpy()
+    # moments made before (a restored optimizer) are sharded as their
+    # parameters
+    from xclip_tpu_torch.train import default_optimizer, shard_state
+    clip = xclip_tpu_torch.CLIP(**case["config"], device="cpu")
+    load_jax_params(clip, case["tree"])
+    opt = default_optimizer(clip.parameters())
+    for p in clip.parameters():
+        opt.state[p] = {"mu": p.detach().clone(), "nu": 2 * p.detach()}
+    shard_state(clip, opt, mesh)
+    out["moments_follow"] = opt.model_group is not None and all(
+        torch.equal(opt.state[p]["mu"], p) and torch.equal(
+            opt.state[p]["nu"], 2 * p) for p in clip.parameters())
+    dp = create_mesh((world, 1))
+    try:
+        shard_batch((torch.zeros(world + 2, 3),), dp)
+        out["indivisible"] = ""
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    try:
+        create_mesh((world - 1, 1))
+        out["uncovered"] = ""
+    except AssertionError as e:
+        out["uncovered"] = str(e)
+    return out
+
+
+def tp_unsharded(case, group):
+    """On rank 0 alone, a (1, 1) mesh: the mesh step against the step
+    without a mesh from the same weights, bit for bit."""
+    import xclip_tpu_torch  # noqa: F401
+    from xclip_tpu_torch.parallel import create_mesh
+    from xclip_tpu_torch.train import (default_optimizer, make_train_step,
+                                       shard_batch, shard_state)
+    mesh = create_mesh((1, 1), devices=[0])
+    if not mesh.member:
+        return {"member": False}
+    b = case["batch"]
+    text, image = (torch.from_numpy(b[k]) for k in ("text", "image"))
+    runs = []
+    for on_mesh in (False, True):
+        clip = _clip(case)
+        opt = default_optimizer(clip.parameters(), **case["optimizer"])
+        kw = {}
+        if on_mesh:
+            shard_state(clip, opt, mesh)
+            text, image = shard_batch((text, image), mesh)
+            kw["mesh"] = mesh
+        m = make_train_step(clip, opt, **kw)(
+            text, image, generator=torch.Generator().manual_seed(3))
+        runs.append((m, [p.detach().clone() for p in clip.parameters()],
+                     [opt.state[p]["mu"] for p in clip.parameters()]))
+    (m0, p0, mu0), (m1, p1, mu1) = runs
+    return {"member": True,
+            "metrics_equal": all(torch.equal(m0[k], m1[k]) for k in m0),
+            "params_equal": all(map(torch.equal, p0, p1)),
+            "moments_equal": all(map(torch.equal, mu0, mu1))}
+
+
+def tp_stack(case, group):
+    """A transformer stack sharded over a (1, world) mesh against the same
+    stack whole, in training on the plain route with injected dropout
+    masks (whole-shaped; each rank takes its heads' and its inner slice's
+    block): the output and every gradient, gathered (JAX's layout)."""
+    from xclip_tpu_torch.nn.layers import Transformer, rotary_freqs
+    from xclip_tpu_torch.parallel import create_mesh, shard_params
+    from xclip_tpu_torch.parallel.sharding import gather_tensor
+    mesh = create_mesh((1, dist.get_world_size()))
+    c = case["stack"]
+    x = torch.from_numpy(case["x"])
+    mask = torch.from_numpy(case["mask"])
+    keep = [[torch.from_numpy(m) for m in layer] for layer in case["keep"]]
+    rotary = (rotary_freqs(x.shape[1], c["dim_head"])
+              if case.get("rotary") else None)
+    out = {}
+    for tag in ("whole", "sharded"):
+        stack = Transformer(c["dim"], depth=c["depth"], heads=c["heads"],
+                            dim_head=c["dim_head"],
+                            generator=torch.Generator().manual_seed(0))
+        if tag == "sharded":
+            shard_params(stack, mesh)
+        xx = x.clone().requires_grad_()
+        y = stack(xx, mask, causal=bool(case.get("rotary")), rotary=rotary,
+                  training=True, attn_dropout=0.25, ff_dropout=0.25,
+                  dropout_keep=keep, **case.get("flags", {}))
+        (y * torch.from_numpy(case["cot"])).sum().backward()
+        out[f"{tag}:out"] = y.detach().numpy()
+        out[f"{tag}:dx"] = xx.grad.numpy()
+        for name, p in stack.named_parameters():
+            g = p.grad
+            if getattr(p, "sharding", None) is not None:
+                g = gather_tensor(g, p.sharding)
+            out[f"{tag}:grad:{name}"] = g.numpy()
     return out

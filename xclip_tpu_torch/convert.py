@@ -22,6 +22,12 @@ carry them (in `to_jax_tree(grads=True)` as zeros, JAX's gradient of
 them). JAX's optimizer state also holds Adam moments for them, zeros at
 every step; the port's `AdamW` has none, and no map carries optimizer
 state.
+
+A model whose parameters are sharded over a mesh (`parallel.shard_params`)
+loads each sharded leaf's shard from the whole JAX tensor
+(`parallel.sharding.shard_tensor`), and `to_jax_tree` gathers the shards
+back into JAX's layout (`gather_tensor`): then it is collective, and every
+rank of the mesh calls it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import math
 
 import numpy as np
 import torch
+
+from .parallel.sharding import gather_tensor, shard_tensor
 
 
 def _flatten(tree, prefix=""):
@@ -64,17 +72,20 @@ def load_jax_params(model, tree) -> None:
     model = getattr(model, "model", model)
     flat = _unstack(_flatten(tree))
     state = model.state_dict()
+    shardings = {name: p.sharding for name, p in model.named_parameters()
+                 if getattr(p, "sharding", None) is not None}
     missing = sorted(state.keys() - flat.keys())
     unused = sorted(flat.keys() - state.keys())
     if missing or unused:
         raise KeyError(f"param tree does not match the model: missing "
                        f"{missing}, unused {unused}")
     for name, param in state.items():
-        value = flat[name]
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: shape {tuple(value.shape)} in the "
+        src = torch.from_numpy(np.asarray(flat[name], dtype=np.float32))
+        if name in shardings:
+            src = shard_tensor(src, shardings[name])
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} in the "
                              f"tree, {tuple(param.shape)} in the model")
-        src = torch.from_numpy(np.asarray(value, dtype=np.float32))
         with torch.no_grad():
             param.copy_(src.to(param.dtype))
 
@@ -104,7 +115,10 @@ def to_jax_tree(model, *, grads: bool = False) -> dict:
         t = param.grad if grads else param
         if t is None:
             t = torch.zeros_like(param)
-        flat[name] = t.detach().float().cpu().numpy()
+        t = t.detach()
+        if getattr(param, "sharding", None) is not None:
+            t = gather_tensor(t, param.sharding)
+        flat[name] = t.float().cpu().numpy()
     for name, buf in model.named_buffers():   # the BatchNorm statistics
         flat[name] = (torch.zeros_like(buf) if grads else buf).float().cpu(
         ).numpy()

@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import axis_size, psum, pvary
+
 
 _COMPUTE_DTYPE = contextvars.ContextVar("compute_dtype", default=None)
 
@@ -90,13 +92,16 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        # JAX's x @ w: the product in the promoted dtype of the input and
-        # of the weight as the model holds it (the compute dtype, if set),
-        # so bf16 images meet fp32 weights in fp32
-        dtype = torch.promote_types(x.dtype,
-                                    _COMPUTE_DTYPE.get() or self.w.dtype)
-        y = x.to(dtype) @ cast(self.w, dtype)
-        return y + cast(self.b, dtype) if self.b is not None else y
+        return linear(x, self.w, self.b)
+
+
+def linear(x, w, b=None):
+    """JAX's x @ w (+ b): the product in the promoted dtype of the input
+    and of the weight as the model holds it (the compute dtype, if set), so
+    bf16 images meet fp32 weights in fp32."""
+    dtype = torch.promote_types(x.dtype, _COMPUTE_DTYPE.get() or w.dtype)
+    y = x.to(dtype) @ cast(w, dtype)
+    return y + cast(b, dtype) if b is not None else y
 
 
 class Embedding(nn.Module):
@@ -113,14 +118,27 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.emb)
 
 
-def layer_norm(x, g):
+def layer_norm(x, g, group=None):
     """Gain-only LayerNorm with a dtype-dependent eps (1e-5 fp32, 1e-3
     otherwise) and fp32 biased statistics; the normalisation itself runs in
-    x.dtype: inv and mean are cast to x.dtype before (x - mean) * inv."""
+    x.dtype: inv and mean are cast to x.dtype before (x - mean) * inv.
+    With `group` (a model group), `x` and `g` are this rank's slices of a
+    width sharded over it, and the statistics are the whole row's: the
+    ranks' fp32 row sums, then their sums of squares about the mean (two
+    passes, as above), each summed over the group (`pvary(psum(...))`)."""
     eps = 1e-5 if x.dtype == torch.float32 else 1e-3
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    if group is None:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    else:
+        width = x.shape[-1] * axis_size(group)
+
+        def total(t):
+            return pvary(psum(t.sum(dim=-1, keepdim=True), group), group)
+
+        mean = total(xf) / width
+        var = total((xf - mean) ** 2) / width
     inv = (torch.rsqrt(var + eps) * cast(g, x.dtype).float()).to(x.dtype)
     return (x - mean.to(x.dtype)) * inv
 
@@ -184,8 +202,17 @@ class RngStream:
         return torch.rand(shape, generator=g, device=device) < 1.0 - rate
 
 
-def dropout(x, rate: float, rngs: RngStream):
+def dropout(x, rate: float, rngs: RngStream, shard=None):
     """`where(keep, x / (1 − rate), 0)` in x's dtype, keep from `rngs`
-    (`xclip_tpu/nn/core.py:97-101`)."""
-    keep = rngs.keep(x.shape, rate, x.device)
+    (`xclip_tpu/nn/core.py:97-101`). `shard` (dim, index, count): `x` is
+    block `index` of `count` along `dim` of the whole tensor (a rank's heads
+    or inner slice), and takes that block of the whole tensor's mask."""
+    if shard is None:
+        keep = rngs.keep(x.shape, rate, x.device)
+    else:
+        dim, index, count = shard
+        shape = list(x.shape)
+        shape[dim] *= count
+        keep = rngs.keep(tuple(shape), rate, x.device).narrow(
+            dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)

@@ -47,6 +47,20 @@ gives way to the plain version; on the CPU every kernel route runs its
 plain version. A head narrower than the attention kernels' 64 runs on them
 zero-padded to 64 (`attention_megablock.pad_heads`).
 
+Tensor parallelism (`parallel.shard_params`, `Transformer.model_group`):
+on the plain route a layer holds its heads' q, k and v columns of
+`to_qkv.w`, their rows of `to_out.w`, and its inner slice of `w_in.w`
+(value and gate), `inner_norm.g` and `w_out.w`. The replicated input of
+each column-parallel product passes `collectives.pvary` (the identity;
+its backward sums the ranks' gradients), the row-parallel outputs are
+summed over the model group (`collectives.psum`), and the inner
+LayerNorm's statistics are the whole row's (`core.layer_norm` with the
+group), so each rank computes the whole layer's output and every
+replicated parameter's whole gradient. A kernel route gathers the
+layer's weights over the model group (`sharding.whole`) and runs its
+kernel on the whole layer, unchanged; the gather's backward keeps this
+rank's shard of the weight gradient, which every rank computes whole.
+
 Dropout (training only): the plain attention drops its weights after the
 softmax, the plain FF its inner activations after the inner LayerNorm;
 each layer's sites draw from a `core.RngStream` whose seed is drawn from
@@ -89,8 +103,10 @@ from ..kernels.fused_ff import geglu_layernorm
 from ..kernels.fused_ff_block import (ff_block, ff_block_train,
                                       ff_block_train_recompute,
                                       ff_block_train_stored_h)
+from ..parallel.collectives import axis_index, axis_size, psum, pvary
+from ..parallel.sharding import whole
 from .core import (LayerNorm, Linear, RngStream, cast, compute_dtype,
-                   computing_in, dropout, layer_norm)
+                   computing_in, dropout, layer_norm, linear)
 
 ATTN_IMPLS = ("xla", "fused", "fused_recompute", "fused_qkv", "flash")
 MEGA_IMPLS = ("fused", "fused_recompute", "fused_qkv")
@@ -226,45 +242,59 @@ def patch_dropout(x, prob, *, generator=None, keep_idx=None):
     return torch.gather(x, 1, idx), keep_idx
 
 
-def ff_middle(x, w, g):
+def ff_middle(x, w, g, group=None):
     """w_in (as two half products) → GEGLU (exact GELU) → inner LayerNorm:
     the inner-width part of the plain FF, which `'wide'` remat recomputes
-    (`_ff_middle`)."""
+    (`_ff_middle`). With a model `group`, `w` holds this rank's value and
+    gate columns and `g` its slice of the gain (`parallel.sharding`)."""
     inner = w.shape[-1] // 2
     v, gate = x @ w[:, :inner], x @ w[:, inner:]
-    return layer_norm(v * F.gelu(gate), g)
+    return layer_norm(v * F.gelu(gate), g, group)
 
 
 class FeedForward(nn.Module):
     """PreNorm → w_in → GEGLU (exact GELU) → inner LayerNorm → w_out;
     with `ff_impl='fused'` the middle is K8 (fp32 GEGLU and statistics,
     the output rounded once), otherwise plain PyTorch, dropping its inner
-    activations at `rate` from `rngs`."""
+    activations at `rate` from `rngs`. Under a model `group` (its weights
+    sharded, `parallel.sharding`) the plain route computes this rank's
+    inner slice and sums the ranks' outputs; K8 runs on the gathered
+    weights."""
 
     def __init__(self, dim: int, mult: int = 4, *, generator=None,
                  dtype=torch.float32):
         super().__init__()
         inner = dim * mult
+        self.inner = inner
         self.norm = LayerNorm(dim, dtype=dtype)
         self.w_in = Linear(dim, inner * 2, generator=generator, dtype=dtype)
         self.inner_norm = LayerNorm(inner, dtype=dtype)
         self.w_out = Linear(inner, dim, generator=generator, dtype=dtype)
 
     def forward(self, x, ff_impl="xla", *, rate=0.0, rngs=None,
-                remat_wide=False):
+                remat_wide=False, group=None):
         x = self.norm(x)
-        w = cast(self.w_in.w, x.dtype)
-        g = cast(self.inner_norm.g, x.dtype)
+        w_in, g, w_out = self.w_in.w, self.inner_norm.g, self.w_out.w
+        shard = None
+        if ff_impl == "fused":   # K8 takes the layer whole
+            w_in, g, w_out = whole(w_in), whole(g), whole(w_out)
+        elif group is not None:
+            x = pvary(x, group)
+            shard = (-1, axis_index(group), axis_size(group))
+        w = cast(w_in, x.dtype)
+        g = cast(g, x.dtype)
         if ff_impl == "fused":
             x = geglu_layernorm(x @ w, g)
         else:
             if remat_wide:
-                x = checkpoint(ff_middle, x, w, g, use_reentrant=False)
+                x = checkpoint(ff_middle, x, w, g, group,
+                               use_reentrant=False)
             else:
-                x = ff_middle(x, w, g)
+                x = ff_middle(x, w, g, group)
             if rate:
-                x = dropout(x, rate, rngs)
-        return self.w_out(x)
+                x = dropout(x, rate, rngs, shard)
+        x = linear(x, w_out)
+        return x if shard is None else psum(x, group)
 
 
 def rotary_freqs(seq_len: int, rot_dim: int, device=None) -> torch.Tensor:
@@ -298,7 +328,10 @@ class Attention(nn.Module):
     → LayerNorm, `attention_apply`'s routes: 'xla' (q pre-scaled, masks
     filled with -finfo.max, fp32 softmax), 'fused' (K6 on the fused qkv)
     and 'flash' (K7). A rotary embedding rotates q, k AND v (the reference
-    quirk, `x_clip.py:223`)."""
+    quirk, `x_clip.py:223`). Under a model `group` (its weights sharded,
+    `parallel.sharding`) the plain route attends with this rank's heads
+    and sums the ranks' output projections; the kernels run on the
+    gathered weights."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, *,
                  generator=None, dtype=torch.float32):
@@ -320,15 +353,24 @@ class Attention(nn.Module):
         return self.run(x, mask, causal, rotary, route)
 
     def run(self, x, mask, causal, rotary, route, *, rate=0.0, rngs=None,
-            remat_wide=False):
+            remat_wide=False, group=None):
         """The layer on a route `attention_route` has resolved: 'fused',
         'flash' or 'xla' (which drops its attention weights at `rate` from
         `rngs`, and under `remat_wide` without dropout recomputes its
-        softmax part in the backward)."""
+        softmax part in the backward); `group` the model group of sharded
+        weights, or None."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         scale = d ** -0.5
-        qkv = self.to_qkv(self.norm(x))
+        w_qkv, w_out = self.to_qkv.w, self.to_out.w
+        xn, shard = self.norm(x), None
+        if route != "xla":   # K6 and K7 take the layer whole
+            w_qkv, w_out = whole(w_qkv), whole(w_out)
+        elif group is not None:
+            xn = pvary(xn, group)
+            h //= axis_size(group)
+            shard = (1, axis_index(group), axis_size(group))
+        qkv = linear(xn, w_qkv)
         if route == "fused":
             if rotary is not None:
                 # the same rotation of every dim_head-wide head slice
@@ -339,7 +381,7 @@ class Attention(nn.Module):
                         torch.ones((b, n), dtype=torch.bool, device=x.device))
             out = core.attention_core(qkv, key_mask, h, d, scale, causal,
                                       mask is not None)
-            return self.out_norm(self.to_out(out))
+            return self.out_norm(linear(out, w_out))
         q, k, v = (t.reshape(b, n, h, d).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         q = q * scale
@@ -351,14 +393,17 @@ class Attention(nn.Module):
             out = checkpoint(self._attend, q, k, v, mask, causal,
                              use_reentrant=False)
         else:
-            out = self._attend(q, k, v, mask, causal, rate, rngs)
-        out = out.transpose(1, 2).reshape(b, n, h * d)
-        return self.out_norm(self.to_out(out))
+            out = self._attend(q, k, v, mask, causal, rate, rngs, shard)
+        out = linear(out.transpose(1, 2).reshape(b, n, h * d), w_out)
+        if shard is not None:
+            out = psum(out, group)
+        return self.out_norm(out)
 
     @staticmethod
-    def _attend(q, k, v, mask, causal, rate=0.0, rngs=None):
+    def _attend(q, k, v, mask, causal, rate=0.0, rngs=None, shard=None):
         """The 'xla' route's softmax(q·kᵀ)·v on (b, h, n, d), q pre-scaled,
-        the weights dropped at `rate` after the softmax."""
+        the weights dropped at `rate` after the softmax (`shard`: q holds
+        that block of the heads, `core.dropout`)."""
         n = q.shape[2]
         sim = q @ k.transpose(-1, -2)
         big_neg = -torch.finfo(sim.dtype).max
@@ -375,7 +420,7 @@ class Attention(nn.Module):
             denom = shifted.exp().sum(dim=-1, keepdim=True).log()
             attn = (shifted - denom).exp().to(sim.dtype)
         if rate:
-            attn = dropout(attn, rate, rngs)
+            attn = dropout(attn, rate, rngs, shard)
         return attn @ v
 
 
@@ -390,7 +435,9 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """Sandwich-norm stack: norm_in → depth × (attention + residual, FF +
-    residual) → norm_out, layers in an `nn.ModuleList`."""
+    residual) → norm_out, layers in an `nn.ModuleList`. `model_group` is
+    the model group of its tensor-parallel weights once
+    `parallel.shard_params` has sharded them (None: whole weights)."""
 
     def __init__(self, dim: int, *, depth: int, dim_head: int = 64,
                  heads: int = 8, ff_mult: int = 4, generator=None,
@@ -402,6 +449,7 @@ class Transformer(nn.Module):
                   generator=generator, dtype=dtype) for _ in range(depth))
         self.norm_in = LayerNorm(dim, dtype=dtype)
         self.norm_out = LayerNorm(dim, dtype=dtype)
+        self.model_group = None
 
     def forward(self, x, mask=None, *, causal=False, rotary=None,
                 attn_impl="xla", ff_impl="xla", training=False,
@@ -427,8 +475,8 @@ class Transformer(nn.Module):
         attn_route, ffn_route, fallbacks = transformer_routes(
             attn_impl, ff_impl, dim=x.shape[-1], heads=self.heads,
             dim_head=self.dim_head,
-            inner=self.layers[0].ff.inner_norm.g.shape[0] if self.layers
-            else 0, rotary=rotary is not None, training=training,
+            inner=self.layers[0].ff.inner if self.layers else 0,
+            rotary=rotary is not None, training=training,
             attn_dropout=attn_dropout, ff_dropout=ff_dropout)
         for fallback in fallbacks:
             _warn_fallback(*fallback)
@@ -465,6 +513,7 @@ class Transformer(nn.Module):
                                    device=x.device))
 
         rounding = compute_dtype()
+        group = self.model_group
 
         def block(x, layer, stream):
             """One layer, attention then FF; its weight casts (in the
@@ -477,20 +526,23 @@ class Transformer(nn.Module):
             a, f = layer.attn, layer.ff
             dt = x.dtype
             rngs = RngStream(**stream) if stream else None
+            # a kernel takes the layer's weights whole (`whole` gathers
+            # the shards of a tensor-parallel one)
             if use_mega:
                 x = mega(
-                    x, cast(a.norm.g, dt), cast(a.to_qkv.w, dt),
-                    cast(a.to_out.w, dt), cast(a.out_norm.g, dt), key_mask,
-                    self.heads, self.dim_head,
+                    x, cast(a.norm.g, dt), cast(whole(a.to_qkv.w), dt),
+                    cast(whole(a.to_out.w), dt), cast(a.out_norm.g, dt),
+                    key_mask, self.heads, self.dim_head,
                     self.dim_head ** -0.5, causal, mask is not None)
             else:
                 x = a.run(x, mask, causal, rotary, attn_route, rate=attn_rate,
-                          rngs=rngs, remat_wide=wide) + x
+                          rngs=rngs, remat_wide=wide, group=group) + x
             if use_ffb:
-                return ffb(x, cast(f.norm.g, dt), cast(f.w_in.w, dt),
-                           cast(f.inner_norm.g, dt), cast(f.w_out.w, dt))
+                return ffb(x, cast(f.norm.g, dt), cast(whole(f.w_in.w), dt),
+                           cast(whole(f.inner_norm.g), dt),
+                           cast(whole(f.w_out.w), dt))
             return f(x, ffn_route, rate=ff_rate, rngs=rngs,
-                     remat_wide=wide) + x
+                     remat_wide=wide, group=group) + x
 
         hiddens = []
         for layer, stream in zip(self.layers, streams):

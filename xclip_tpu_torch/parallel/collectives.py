@@ -21,6 +21,13 @@ holds d(global loss)/dθ, the single-device gradient on the global batch.
     again, which gives world × the gradient of a replicated loss; it is not
     used).
   * `pmean(x, group)` — psum / world. Backward: the gradient / world.
+  * `pvary(x, group)` — `jax.lax.pvary`: a value that every rank of the
+    group holds whole, fed into each rank's own share of the work (the
+    input of a column-parallel product; Megatron's *f*). The identity
+    forward; backward an all-reduce (sum), as each rank's gradient holds
+    only its share's part. `psum` is Megatron's *g* (the row-parallel
+    product's output), and `pvary(psum(x))` sums a statistic that each
+    rank then uses on its own share (a LayerNorm over a sharded width).
   * `replicated(x, group)` — marks a value that every rank computes whole
     from gathered inputs (the replicated loss; a shard_map output with
     out_specs P()): the identity forward, the gradient / world backward,
@@ -133,6 +140,17 @@ class _PMean(torch.autograd.Function):
         return g / ctx.world, None
 
 
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class _Replicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -156,6 +174,12 @@ def all_gather(x, group, dim: int = 0):
 def psum(x, group):
     """All-reduce (sum) of `x` over `group`; backward the identity."""
     return _PSum.apply(x, group)
+
+
+def pvary(x, group):
+    """`x` as it is; backward the all-reduce (sum) of its gradient over
+    `group`."""
+    return _PVary.apply(x, group)
 
 
 def replicated(x, group):

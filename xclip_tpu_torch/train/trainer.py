@@ -5,8 +5,9 @@
 → `adamw(schedule, b1, b2, eps=1e-8, weight_decay)` written out in
 PyTorch, operation for operation:
   * the global norm is sqrt(Σ_leaves Σ g²) (here in fp32, from the
-    per-tensor norms), and the clip scales by max_norm / norm only when
-    norm ≥ max_norm (`clip_by_global_norm`; `torch.nn.utils.
+    per-tensor norms, an fp32 tensor's accumulated in fp64, as JAX's tree
+    reductions come close to it), and the clip scales by max_norm / norm
+    only when norm ≥ max_norm (`clip_by_global_norm`; `torch.nn.utils.
     clip_grad_norm_` adds 1e-6 to the norm, so it is not used);
   * Adam moments live in the parameter dtype (optax's `mu_dtype=None`),
     mu = (1 − b1)·g + b1·mu, nu = (1 − b2)·g² + b2·nu, divided by the
@@ -56,6 +57,33 @@ averaged over the ranks), and each rank folds its own shard's BatchNorm
 statistics: JAX's two distributed entry points differ there (ROADMAP.md).
 A microbatch under `grad_accum` is each rank's share of it, so its
 negatives are the ranks' i-th microbatches together.
+
+The mesh step (`make_train_step(..., mesh=mesh)`, a `parallel.create_mesh`
+grid of (data, model) ranks, after `shard_state` and `shard_batch(...,
+mesh)`): the counterpart of JAX's step over a (data, model) mesh.
+  * The batch is this rank's shard along 'data'; the forward runs with
+    the data group as `axis_name` where that axis has more than one rank
+    (a data axis of 1 shards nothing, and the loss is the plain one).
+  * The tensor-parallel layers run on the rank's shards over its model
+    group (`parallel.sharding`, `nn/layers.py`), and every rank of a model
+    group computes the same loss: its gradients of the replicated
+    parameters are whole, those of the sharded ones its shards' whole
+    gradients. So the gradients are summed over the data group only,
+    one flat all-reduce a dtype, as above.
+  * The global norm of the clip is `optax.global_norm` over JAX's global
+    arrays: the squared norms of the sharded gradients summed over the
+    model group, those of the replicated ones counted once
+    (`AdamW.model_group`), the same on every rank.
+  * The ranks of a model group draw the same patch keep indices, dropout
+    masks and objective draws: the step gives them the state of the
+    generator of its first rank before the forward.
+  * The AdamW update runs on the local shards; the moments are the
+    shards' (`shard_state`).
+For the contrastive objectives this is JAX's GSPMD step. The MLM and
+visual SSL losses keep the port's `axis_name` semantics above where the
+data axis has more than one rank (each shard's loss, averaged), which
+differs from GSPMD's global batch statistics; with one data rank, tensor
+parallelism does not touch the batch and the two agree.
 """
 
 from __future__ import annotations
@@ -65,8 +93,14 @@ import warnings
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from ..parallel.collectives import all_reduce_sum_, axis_index, axis_size
+from ..parallel.collectives import (all_reduce_sum_, axis_index, axis_size,
+                                    check_device, psum)
+from ..parallel.mesh import Mesh, data_sharding
+from ..parallel.sharding import (is_sharded, model_group,
+                                 opt_state_shardings, shard_params,
+                                 shard_tensor)
 from ..utils import cast_tuple
 
 
@@ -86,7 +120,10 @@ def warmup_cosine_lr(step: int, learning_rate: float, warmup_steps: int = 0,
 
 class AdamW(torch.optim.Optimizer):
     """optax `clip_by_global_norm` + `adamw`, see the module docstring.
-    `step()` returns the global gradient norm before the clip."""
+    `step()` returns the global gradient norm before the clip.
+    `model_group` (set by `shard_state` where the model axis shards
+    anything) makes the norm that of the whole parameters: the sharded
+    gradients' squared norms summed over it."""
 
     def __init__(self, params, learning_rate=3e-4, weight_decay=0.2,
                  b1=0.9, b2=0.98, eps=1e-8, max_grad_norm=1.0,
@@ -97,6 +134,7 @@ class AdamW(torch.optim.Optimizer):
             total_steps=total_steps))
         self.max_grad_norm = max_grad_norm
         self.count = 0
+        self.model_group = None
 
     def lr(self, group) -> float:
         return warmup_cosine_lr(self.count, group["learning_rate"],
@@ -109,9 +147,27 @@ class AdamW(torch.optim.Optimizer):
         params = [p for g in self.param_groups for p in g["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        # the global norm, taken in fp32 from the per-tensor norms
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)).float())
+        # the global norm, taken in fp32 from the per-tensor norms, the fp32
+        # tensors' first: an fp32 tensor's norm accumulated in fp64 (in fp32
+        # on the CPU its squares are summed one by one, 7.5e-4 low at 16.7M
+        # elements), the others' in their dtype
+        wide = [g.dtype == torch.float32 for g in grads]
+        order = [i for w in (True, False) for i in range(len(grads))
+                 if wide[i] == w]
+        norms = torch.cat([
+            torch.stack(torch._foreach_norm(ts, 2, dtype=dt)).float()
+            for ts, dt in (([g for g, w in zip(grads, wide) if w],
+                            torch.float64),
+                           ([g for g, w in zip(grads, wide) if not w], None))
+            if ts])
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            sharded = torch.tensor([is_sharded(params[i]) for i in order],
+                                   device=norms.device)
+            sq = norms * norms
+            norm = torch.sqrt(psum(sq[sharded].sum(), self.model_group)
+                              + sq[~sharded].sum())
         if self.max_grad_norm is not None:
             factor = torch.where(norm < self.max_grad_norm, 1.0,
                                  self.max_grad_norm / norm)
@@ -183,13 +239,39 @@ def default_optimizer(params, learning_rate: float = 3e-4,
                  total_steps=total_steps)
 
 
-def shard_batch(batch_arrays, group):
-    """This rank's contiguous rows of each array's leading (batch) dim,
-    `group` a `ProcessGroup` (`trainer.py:174-197`). A global batch that
-    does not divide into equal shards raises JAX's `ValueError`: the
-    sharded loss locates positives by row offset."""
-    n_data = axis_size(group)
-    rank = axis_index(group)
+def shard_state(model, optimizer, mesh: Mesh):
+    """Place `model`'s parameters AND `optimizer`'s state (an `AdamW`) on
+    `mesh` by the TP/DP rules (`parallel.sharding`), in place
+    (`trainer.py:160-171`): each rank keeps its shard of every
+    tensor-parallel parameter and of both of its moments, and whole copies
+    of the rest; the step count stays as it is on every rank. Moments made
+    before (a restored optimizer) are sharded as their parameters; a fresh
+    optimizer makes them in the shards' shapes at its first step. Returns
+    (model, optimizer)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    placement = opt_state_shardings(optimizer, model, mesh)["state"]
+    shard_params(model, mesh)
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                for k, v in optimizer.state.get(p, {}).items():
+                    s = placement[names[id(p)]][k]
+                    if v.shape != p.shape:
+                        optimizer.state[p][k] = shard_tensor(
+                            v, s).contiguous()
+    optimizer.model_group = model_group(mesh)
+    return model, optimizer
+
+
+def shard_batch(batch_arrays, mesh):
+    """This rank's contiguous rows of each array's leading (batch) dim
+    (`trainer.py:174-197`): its shard along the 'data' axis of `mesh`, a
+    `parallel.create_mesh` mesh, or, `mesh` a `ProcessGroup`, its rows
+    among the group's ranks. A global batch that does not divide into
+    equal shards raises JAX's `ValueError`: the sharded loss locates
+    positives by row offset."""
+    on_mesh = isinstance(mesh, Mesh)
+    n_data = mesh.axis_size("data") if on_mesh else axis_size(mesh)
     out = []
     for a in batch_arrays:
         if a.shape[0] % n_data != 0:
@@ -199,13 +281,34 @@ def shard_batch(batch_arrays, group):
                 "requires equal per-device batches (positives are located "
                 "by row offset). Pad or truncate the batch to a multiple — "
                 "the TextImageLoader does this automatically.")
-        rows = a.shape[0] // n_data
-        out.append(a[rank * rows:(rank + 1) * rows])
+        if on_mesh:
+            out.append(shard_tensor(a, data_sharding(mesh, a.ndim)))
+        else:
+            rows = a.shape[0] // n_data
+            rank = axis_index(mesh)
+            out.append(a[rank * rows:(rank + 1) * rows])
     return tuple(out)
 
 
+def _share_draws(generator, group, device):
+    """Give every rank of `group` the state of its first rank's generator
+    (`generator`, or PyTorch's default one on `device`), so that they draw
+    alike."""
+    if generator is None:
+        generator = (torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+            if device.type == "cuda" else torch.default_generator)
+    state = generator.get_state()
+    on = state.to(device) if str(dist.get_backend(group)) == "nccl" \
+        else state
+    check_device(on, group)
+    dist.broadcast(on, src=dist.get_global_rank(group, 0), group=group)
+    generator.set_state(on.cpu())
+
+
 def make_train_step(model, optimizer, *, grad_accum: int = 1,
-                    axis_name=None):
+                    axis_name=None, mesh: Mesh = None):
     """Returns `step(text, image, generator=None, keep_idx=None, valid=None,
     *, aug_text=None, aug_image=None, mlm_draws=None, ssl_draws=None) ->
     metrics`: the forward with the model's loss and its backward (once, or
@@ -219,8 +322,19 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
     its rows of each); `mlm_draws` / `ssl_draws` inject the MLM's and the
     visual SSL's draws (`CLIPModel.forward`), under `grad_accum > 1` as a
     list of one a microbatch. With `axis_name` (a `ProcessGroup`) the
-    step is data-parallel: the batch is this rank's shard (see the module
-    docstring)."""
+    step is data-parallel: the batch is this rank's shard; with `mesh` (a
+    `parallel.create_mesh` mesh, the state placed by `shard_state`) it is
+    the (data, model) step (see the module docstring)."""
+    reduce_over, share = axis_name, None
+    if mesh is not None:
+        if axis_name is not None:
+            raise ValueError("make_train_step takes axis_name or mesh, not "
+                             "both")
+        if "data" in mesh.shape:
+            reduce_over = mesh.group("data")
+            if mesh.axis_size("data") > 1:
+                axis_name = reduce_over
+        share = model_group(mesh)
     if grad_accum > 1:
         # the contrastive objective is NOT invariant to this split
         warnings.warn(
@@ -244,6 +358,9 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
     def step(text, image, generator=None, keep_idx=None, valid=None, *,
              aug_text=None, aug_image=None, mlm_draws=None, ssl_draws=None):
         optimizer.zero_grad(set_to_none=True)
+        if share is not None:
+            _share_draws(generator if generator is not None else getattr(
+                model, "call_generator", None), share, text.device)
         if grad_accum == 1:
             metrics, bn = forward_backward(
                 text, image, generator, keep_idx, valid, aug_text=aug_text,
@@ -279,8 +396,8 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
                     k: metrics[k] + v for k, v in m.items()}
         grads = [p.grad for g in optimizer.param_groups
                  for p in g["params"] if p.grad is not None]
-        if axis_name is not None:
-            all_reduce_sum_(grads, axis_name)
+        if reduce_over is not None:
+            all_reduce_sum_(grads, reduce_over)
         if grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
             metrics = {k: v / grad_accum for k, v in metrics.items()}
