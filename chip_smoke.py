@@ -7,7 +7,9 @@
 tar -x -C DIR`, whose library is built once and whose fp32 attention core
 forward and backward (phases 6 and 12), fp32 K7 forward and backward
 (phase 12) and fp32 product kernel (phase 19) are timed beside this
-checkout's on the same operands.)
+checkout's on the same operands; an entry point whose arguments differ
+from this checkout's, as the attention ones did before they took a
+dim_head, is not timed.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -218,19 +220,26 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              bound. Phases 8, 11, 15 and 18 check the row kernels'
              launches per step by mode, and phase 11 the ordered sums' by
              regime and width, counted in the library.
- 21 heads    small CLIPs (2 + 2 layers, bf16) whose text heads are 32
-             wide, under 'fused' (the megablock), 'fused' with rotary
-             (K6) and 'flash' (K7), and 128 wide under 'flash': the
-             kernels take a narrower head zero-padded to 64, and K7 in
-             bf16 a head of 128 as two 64-column halves; served and
-             trained one step on the card, every layer launching its
-             kernel and no fallback warning, latents and the first loss
-             against the plain routes'; the K-MEGA, K2, K6 and K7
-             wrappers at dim_head 32 (fp32) against their plain versions
-             at the true width (1e-4 of the largest magnitude), K7's
-             kernels at dim_head 128 (bf16, phase 12's rule) timed beside
-             their plain versions, their bound and SDPA, and K7 at 96
-             (padded to 128). Past the CUDA kernels (text dim_head 128
+ 21 heads    small CLIPs (2 + 2 layers) whose text heads are 32 wide,
+             under 'fused' (the megablock), 'fused' with rotary (K6) and
+             'flash' (K7), 128 wide under 'flash', whose vision heads are
+             80 wide under 'fused', and whose heads are 128 wide in both
+             towers under 'fused', 'fused' with rotary and (fp32)
+             'flash', in bf16 and fp32: the kernels take heads of 64 and
+             128 (two 64-column halves) and a narrower head zero-padded
+             to the next of those; served and trained one step on the
+             card, every layer launching its kernel and no fallback
+             warning, latents and the first loss against the plain
+             routes'; the K-MEGA, K2, K6 and K7 wrappers at dim_head 32
+             (fp32) against their plain versions at the true width (1e-4
+             of the largest magnitude), K7's kernels at dim_head 128
+             (bf16, phase 12's rule) timed beside their plain versions,
+             their bound and SDPA, and K7 at 96 (padded to 128); the
+             128-wide megablock core (256, 257, 4 x 128) and K6 (256,
+             256, causal) in bf16 and fp32 and fp32 K7 (b*h 512, n 256),
+             forward and backward against their plain versions (phase
+             12's rule), timed beside their plain versions, SDPA and
+             their bounds. Past the CUDA kernels (text dim_head 256
              under 'fused', dim 72 with FF inner 288 under 'block') the
              entry point raises ValueError naming the limit, and no plain
              route runs in the kernel's place.
@@ -356,6 +365,15 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              spawned NCCL rank, each loss finite, K5 launched in stage 6,
              K2 and K1 in stage 8, K3, K-FF-s and K5 in stage 9; and
              dryrun_multichip(2) refused with ValueError on one card.
+ 27 vit-h    a CLIP at the widths of OpenCLIP's ViT-H-14.json (vision
+             1280, 16 heads of 80 zero-padded to 128, 224-px images in
+             14-px patches; text 1024, 16 heads of 64, 77 tokens, 49,408
+             ids; latents 1024; the repo's GEGLU FF at 4x), bf16, at full
+             depth (32 + 24 layers): serving at b = 64 (pairs/s, every
+             layer's K-MEGA and K-FF launched), latents at b = 4 against
+             the plain routes' (3e-2), and AdamW steps of K2 and K1 at
+             b = 64 (pairs/s, peak memory, finite losses, launches per
+             step), with no fallback warning.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -363,6 +381,7 @@ nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
 import ctypes
+import importlib.util
 import itertools
 import json
 import math
@@ -527,16 +546,19 @@ def core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2,
             10 * pairs * width)
 
 
-def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2):
+def mega_core_cost(kind, rows_heads, keys_heads, pairs, mask_bytes, it=2,
+                   width=64):
     """core_cost of the megablock's attention core, `it` bytes a stored
-    value: the forward writes the (m, l) pair (8 bytes a row and head) in
-    place of lse; the backward reads q, attnout, the fp32 row cotangent
-    dattn (4 bytes an element) and the pair, and writes dq, dk and dv."""
-    e, e_kv = rows_heads * 64 * it, keys_heads * 64 * it
+    value, heads of `width`: the forward writes the (m, l) pair (8 bytes a
+    row and head) in place of lse; the backward reads q, attnout, the fp32
+    row cotangent dattn (4 bytes an element) and the pair, and writes dq,
+    dk and dv."""
+    e, e_kv = rows_heads * width * it, keys_heads * width * it
     if kind == "fwd":
-        return 2 * e + 2 * e_kv + 8 * rows_heads + mask_bytes, 4 * pairs * 64
-    return (5 * e + rows_heads * 64 * 4 + 2 * e_kv + 8 * rows_heads
-            + mask_bytes, 10 * pairs * 64)
+        return (2 * e + 2 * e_kv + 8 * rows_heads + mask_bytes,
+                4 * pairs * width)
+    return (5 * e + rows_heads * width * 4 + 2 * e_kv + 8 * rows_heads
+            + mask_bytes, 10 * pairs * width)
 
 
 def flash_cost(kind, bh, n, lengths, causal, it=2, width=64):
@@ -775,8 +797,11 @@ def parent_ms(parent, fn, kernel_ms):
     library `parent` (the wrappers bound to it) beside this checkout's
     `kernel_ms`."""
     from xclip_tpu_torch.kernels import _build
-    with mock.patch.object(_build, "library", lambda: parent):
-        ms = cuda_ms(fn)
+    try:
+        with mock.patch.object(_build, "library", lambda: parent):
+            ms = cuda_ms(fn)
+    except ctypes.ArgumentError:
+        return ", parent not timed (its entry point takes other arguments)"
     return f", parent {ms:.3f} ms ({ms / kernel_ms:.2f}x the kernel)"
 
 
@@ -2432,15 +2457,27 @@ def parent_library(parent):
         path = _build.build()
     finally:
         _build.CSRC, _build.BUILD_DIR = saved
-    return typed_library(path)
+    return typed_library(path, parent / "xclip_tpu_torch" / "kernels" /
+                         "_build.py")
 
 
-def typed_library(path):
+def typed_library(path, build_py=None):
     """The kernel library at `path`, loaded, every entry point it has typed
-    as this checkout's."""
+    as this checkout's. With `build_py` (the library's own `_build.py`),
+    an entry point whose arguments there differ from this checkout's is
+    left untyped: a call to it raises ctypes.ArgumentError (the wrappers
+    pass a float) instead of passing shifted arguments."""
     from xclip_tpu_torch.kernels import _build
+    signatures = _build._SIGNATURES
+    if build_py is not None:
+        spec = importlib.util.spec_from_file_location("parent_build",
+                                                      build_py)
+        theirs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(theirs)
+        signatures = {k: v for k, v in signatures.items()
+                      if theirs._SIGNATURES.get(k) == v}
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _build._SIGNATURES.items():
+    for name, argtypes in signatures.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = _build._RESTYPES.get(name,
@@ -2995,36 +3032,48 @@ def expected_rows(ffb, mega, b):
     return {"rows_geglu_recompute": 6 * ff, "rows_ln_ln": 6 * (ff + 2 * mg)}
 
 
-# Phase 21's small CLIPs (2 + 2 layers, 32 tokens, 16 patches), bf16:
-# (label, CLIP kwargs beside HEADS_BASE, routes, launches per serving
-# forward, launches per train step) with text heads other than 64, and
-# (label, CLIP kwargs, routes, the limit's words) past the CUDA kernels.
+# Phase 21's small CLIPs (2 + 2 layers, 32 tokens, 16 patches): (label,
+# CLIP kwargs beside HEADS_BASE, routes, launches per serving forward,
+# launches per train step, dtype) with heads other than 64, and (label,
+# CLIP kwargs, routes, the limit's words) past the CUDA kernels. The
+# cases with heads of 128 in both towers give the 128-wide kernels'
+# launches in the kernels line (WIDE_KERNELS).
 HEADS_BASE = dict(dim_text=128, dim_image=128, dim_latent=64,
                   num_text_tokens=1000, text_enc_depth=2, text_seq_len=32,
                   text_heads=4, visual_enc_depth=2, visual_heads=2,
                   visual_image_size=64, visual_patch_size=16)
 _K1 = {"k1_fwd": 4, "k1_p1": 4, "k1_p2": 4}
+_FUSED = dict(attn_impl="fused", visual_attn_impl="fused",
+              ff_impl="block_stored")
+_MEGA = ({"mega": 4, "kff": 4}, {"k2_fwd": 4, "k2_bwd": 4, **_K1})
+_K6 = ({"mega": 2, "k6_fwd": 2, "kff": 4},
+       {"k2_fwd": 2, "k2_bwd": 2, "k6_fwd": 2, "k6_bwd": 2, **_K1})
+_K7 = ({"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1})
+_WIDE = dict(text_dim_head=128, visual_dim_head=128)
+BF16, F32 = torch.bfloat16, torch.float32
 NARROW_HEADS = [
-    ("text dim_head 32, 'fused'", dict(text_dim_head=32),
-     dict(attn_impl="fused", visual_attn_impl="fused",
-          ff_impl="block_stored"), {"mega": 4, "kff": 4},
-     {"k2_fwd": 4, "k2_bwd": 4, **_K1}),
+    ("text dim_head 32, 'fused'", dict(text_dim_head=32), _FUSED, *_MEGA,
+     BF16),
     ("text dim_head 32, rotary, 'fused' (K6)",
-     dict(text_dim_head=32, text_rotary_pos_emb=True),
-     dict(attn_impl="fused", visual_attn_impl="fused",
-          ff_impl="block_stored"), {"mega": 2, "k6_fwd": 2, "kff": 4},
-     {"k2_fwd": 2, "k2_bwd": 2, "k6_fwd": 2, "k6_bwd": 2, **_K1}),
+     dict(text_dim_head=32, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
     ("text dim_head 32, 'flash'", dict(text_dim_head=32),
-     dict(attn_impl="flash", ff_impl="block_stored"),
-     {"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1}),
+     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, BF16),
     ("text dim_head 128, 'flash'", dict(text_dim_head=128),
-     dict(attn_impl="flash", ff_impl="block_stored"),
-     {"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1}),
+     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, BF16),
+    ("dim_head 128, 'fused'", _WIDE, _FUSED, *_MEGA, BF16),
+    ("visual dim_head 80 (padded to 128), 'fused'", dict(visual_dim_head=80),
+     _FUSED, *_MEGA, BF16),
+    ("dim_head 128, rotary, 'fused' (K6)",
+     dict(_WIDE, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
+    ("fp32 dim_head 128, 'fused'", _WIDE, _FUSED, *_MEGA, F32),
+    ("fp32 dim_head 128, rotary, 'fused' (K6)",
+     dict(_WIDE, text_rotary_pos_emb=True), _FUSED, *_K6, F32),
+    ("fp32 dim_head 128, 'flash'", _WIDE,
+     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, F32),
 ]
 PAST_KERNELS = [
-    ("text dim_head 128, 'fused'", dict(text_dim_head=128),
-     dict(attn_impl="fused", visual_attn_impl="fused",
-          ff_impl="block_stored"), "not 128"),
+    ("text dim_head 256, 'fused'", dict(text_dim_head=256), _FUSED,
+     "not 256"),
     ("text FF inner 288 (dim 72), 'block'", dict(dim_text=72, text_heads=2),
      dict(attn_impl="xla", ff_impl="block"), "not dim 72, inner 288"),
 ]
@@ -3138,33 +3187,204 @@ def narrow_wrappers():
     return lines
 
 
+# The 128-wide kernels alone (phase 21): (key, the NARROW_HEADS case
+# whose serving and train step give the launches, its counter, record
+# name, source, Pallas body replaced), timed at the text tower's shapes
+# with 4 heads of 128 (hd 512, the flagship's 8 x 64)
+WIDE_KERNELS = [
+    ("mega_bf16_fwd", "dim_head 128, 'fused'", "core_fwd",
+     "megablock attention core forward, heads of 128 (two 64-column halves)",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:158"),
+    ("mega_bf16_bwd", "dim_head 128, 'fused'", "core_bwd",
+     "megablock attention core backward (dq, dk/dv), heads of 128",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:396"),
+    ("mega_f32_fwd", "fp32 dim_head 128, 'fused'", "core_fwd",
+     "megablock attention core forward, fp32, heads of 128",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:158"),
+    ("mega_f32_bwd", "fp32 dim_head 128, 'fused'", "core_bwd",
+     "megablock attention core backward (dq, dk/dv), fp32, heads of 128",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_megablock.py:396"),
+    ("k6_bf16_fwd", "dim_head 128, rotary, 'fused' (K6)", "k6_fwd",
+     "K6 attention_core forward, heads of 128",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_block.py:83"),
+    ("k6_bf16_bwd", "dim_head 128, rotary, 'fused' (K6)", "k6_bwd",
+     "K6 attention_core backward (dq, dk/dv), heads of 128",
+     "xclip_tpu_torch/csrc/attention_block_sm90.cuh",
+     "xclip_tpu/kernels/attention_block.py:117"),
+    ("k6_f32_fwd", "fp32 dim_head 128, rotary, 'fused' (K6)", "k6_fwd",
+     "K6 attention_core forward, fp32, heads of 128",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_block.py:83"),
+    ("k6_f32_bwd", "fp32 dim_head 128, rotary, 'fused' (K6)", "k6_bwd",
+     "K6 attention_core backward (dq, dk/dv), fp32, heads of 128",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/attention_block.py:117"),
+    ("k7_f32_fwd", "fp32 dim_head 128, 'flash'", "k7_fwd",
+     "K7 flash_attention forward, fp32, heads of 128: the core's K7 mode",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/flash_attention.py:66"),
+    ("k7_f32_bwd", "fp32 dim_head 128, 'flash'", "k7_bwd",
+     "K7 flash_attention backward (dq, dk/dv), fp32, heads of 128",
+     "xclip_tpu_torch/csrc/attention_core.cuh",
+     "xclip_tpu/kernels/flash_attention.py:134"),
+]
+
+
+def wide_kernels():
+    """Phase 21's 128-wide kernels alone, from a generator of their own:
+    the megablock's core (256, 257, 3 x 512, not causal) and K6 (256, 256,
+    causal), 4 heads of 128 with key pads, in bf16 and fp32, and fp32 K7
+    (b*h 512, n 256, 128, causal, key pads): forward, and backward (the dq
+    and dk/dv kernels), against their plain versions element by element
+    (phase 12's rule), two backward launches bit for bit equal; timed
+    beside their plain versions, SDPA on the same q, k, v and mask (in
+    the same dtype) and their bounds (bf16 by bytes at 3.35 TB/s or bf16
+    FLOPs; fp32 FMAs at 67 TFLOP/s). Returns (errs, ms, costs, library,
+    peaks) keyed as WIDE_KERNELS."""
+    from xclip_tpu_torch.kernels import attention_block as core
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import flash_attention as flash
+    wgen = torch.Generator(device="cuda").manual_seed(211)
+    errs, ms, costs, library, peaks = {}, {}, {}, {}, {}
+    b, heads, d = 256, 4, 128
+    hd, scale = heads * d, d ** -0.5
+
+    def record(key, label, e, kms, cost, sdpa, peak):
+        errs[key], ms[key], costs[key] = e, kms, cost
+        library[key], peaks[key] = sdpa, peak
+        b_ms, b_by = bound(*cost, peak)
+        print(f"  {label} {key[-3:]}: kernel {kms[0]:.4f} ms "
+              f"({kms[0] / sdpa:.2f}x sdpa), plain {kms[1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), sdpa {sdpa:.4f} ms", flush=True)
+
+    for dt in (BF16, F32):
+        tag = "bf16" if dt == BF16 else "f32"
+        peak = BF16_PEAK if dt == BF16 else FP32_PEAK
+        for fam, n, causal in (("mega", 257, False), ("k6", 256, True)):
+            lengths = torch.randint(1, n + 1, (b,), generator=wgen,
+                                    device="cuda").tolist()
+            mask = key_mask(lengths, n)
+            qkv = rand(wgen, b, n, 3 * hd, dtype=dt)
+            static = (heads, d, scale, causal, True)
+            if fam == "mega":
+                fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+                fwd_plain = mega.mega_core_fwd_plain
+                bwd_plain = mega.mega_core_bwd_plain
+                cot, names = rand(wgen, b, n, hd), ("attnout", "sm")
+            else:
+                fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+                fwd_plain = core.attention_core_fwd_plain
+                bwd_plain = core.attention_core_bwd_plain
+                cot, names = rand(wgen, b, n, hd, dtype=dt), ("out", "lse")
+            label = (f"{fam} {tag} ({b}, {n}, 3x{hd}) {heads}x{d} "
+                     f"{'causal ' if causal else ''}key-pad")
+            want = fwd_plain(qkv, mask, *static)
+            e_fwd = compare_elementwise(label, names, fwd(qkv, mask, *static),
+                                        want, dt)
+            bargs = ((qkv, mask, cot, *want) if fam == "mega"
+                     else (qkv, mask, *want, cot))
+            got = bwd(*bargs, *static)
+            if not torch.equal(got, bwd(*bargs, *static)):
+                fail(f"{label}: two backward launches differ")
+            e_bwd = compare_elementwise(label, ("dqkv",), (got,),
+                                        (bwd_plain(*bargs, *static),), dt)
+            del got
+            q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(
+                b, n, heads, d).transpose(1, 2) for i in range(3))
+            sdpa = sdpa_ms(q, k, v, mask, causal, scale,
+                           cot.to(dt).reshape(b, n, heads, d).transpose(1, 2))
+            pairs = heads * valid_pairs(lengths, n, causal)
+            keys = heads * used_keys(lengths, n)
+            cost = mega_core_cost if fam == "mega" else core_cost
+            for kind, e, fn, plain in (
+                    ("fwd", e_fwd, lambda: fwd(qkv, mask, *static),
+                     lambda: fwd_plain(qkv, mask, *static)),
+                    ("bwd", e_bwd, lambda: bwd(*bargs, *static),
+                     lambda: bwd_plain(*bargs, *static))):
+                record(f"{fam}_{tag}_{kind}", label, e,
+                       (cuda_ms(fn), cuda_ms(plain, reps=3, iters=1)),
+                       cost(kind, b * n * heads, keys, pairs, b * n,
+                            qkv.element_size(), width=d),
+                       sdpa[0 if kind == "fwd" else 1], peak)
+            del qkv, cot, want, bargs, q, k, v
+            torch.cuda.empty_cache()
+    # fp32 K7 on heads of 128 (bf16's are timed in narrow_wrappers)
+    bh, n, h = 512, 256, 8
+    lengths = [n // 2 + (37 * i) % (n // 2 + 1) for i in range(bh // h)]
+    per_row = [L for L in lengths for _ in range(h)]
+    mask_bh = key_mask(per_row, n)
+    q, k, v, do = (rand(wgen, bh, n, d, scale=d ** -0.25 if i < 2 else 1.0)
+                   for i in range(4))
+    label = f"K7 f32 (b*h {bh}, n {n}, {d}) causal key-pad"
+    want = flash.flash_attention_fwd_plain(q, k, v, mask_bh, True)
+    e_fwd = compare_elementwise(
+        label, ("out", "lse"), flash.flash_attention_fwd(q, k, v, mask_bh,
+                                                         True), want, F32)
+    bwd_args = (q, k, v, mask_bh, *want, do, True)
+    e_bwd = compare_elementwise(
+        label, ("dq", "dk", "dv"), flash.flash_attention_bwd(*bwd_args),
+        flash.flash_attention_bwd_plain(*bwd_args), F32)
+    b4 = [t.reshape(bh // h, h, n, d) for t in (q, k, v, do)]
+    sdpa = sdpa_ms(*b4[:3], key_mask(lengths, n), True, 1.0, b4[3])
+    for kind, e, fn, plain in (
+            ("fwd", e_fwd,
+             lambda: flash.flash_attention_fwd(q, k, v, mask_bh, True),
+             lambda: flash.flash_attention_fwd_plain(q, k, v, mask_bh,
+                                                     True)),
+            ("bwd", e_bwd, lambda: flash.flash_attention_bwd(*bwd_args),
+             lambda: flash.flash_attention_bwd_plain(*bwd_args))):
+        record(f"k7_f32_{kind}", label, e,
+               (cuda_ms(fn), cuda_ms(plain, reps=3, iters=1)),
+               flash_cost(kind, bh, n, per_row, True, it=4, width=d),
+               sdpa[0 if kind == "fwd" else 1], FP32_PEAK)
+    del q, k, v, do, want, bwd_args, b4
+    torch.cuda.empty_cache()
+    return errs, ms, costs, library, peaks
+
+
 def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
-    """Phase 21: text heads of 32 and 128 (NARROW_HEADS) served and trained
+    """Phase 21: heads of 32, 80 and 128 (NARROW_HEADS) served and trained
     on the card through the entry points, every layer on its kernel and no
     fallback warning; latents and the first loss
     against the plain routes' on the same weights and inputs (phase 4's
-    and phase 11's tolerances); the wrappers alone at dim_head 32; and the
-    shapes past the CUDA kernels (PAST_KERNELS) raising at the entry
-    point."""
-    bf16, tol = torch.bfloat16, LATENT_TOL[torch.bfloat16]
+    and phase 11's tolerances); the wrappers alone at dim_head 32; the
+    128-wide kernels alone (`wide_kernels`); and the shapes past the CUDA
+    kernels (PAST_KERNELS) raising at the entry point. Returns
+    (wide_kernels' results, {case: launches of each counter and the
+    megablock core's over its serving and train step})."""
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    bf16 = torch.bfloat16
     lines = narrow_wrappers()
-    for label, extra, routes, want_serve, want_train in NARROW_HEADS:
+    wide = wide_kernels()
+    cores = {"core_fwd": mega.mega_core_fwd, "core_bwd": mega.mega_core_bwd}
+    every = {**counters, **cores}
+    case_launches = {}
+    for label, extra, routes, want_serve, want_train, dt in NARROW_HEADS:
+        tol = LATENT_TOL[dt]
         gen = torch.Generator(device="cuda").manual_seed(21)
         text = texts(gen, 4, seq=32, vocab=1000)
-        images = rand(gen, 4, 3, 64, 64, dtype=bf16)
+        images = rand(gen, 4, 3, 64, 64, dtype=dt)
         cfg = {**HEADS_BASE, **extra}
-        model = CLIP(**cfg, **routes, param_dtype=bf16,
-                     compute_dtype="bfloat16", device="cuda", seed=21)
-        plain = CLIP(**cfg, **PLAIN_ROUTES, param_dtype=bf16,
-                     compute_dtype="bfloat16", device="cuda")
+        compute = "bfloat16" if dt == bf16 else None
+        model = CLIP(**cfg, **routes, param_dtype=dt, compute_dtype=compute,
+                     device="cuda", seed=21)
+        plain = CLIP(**cfg, **PLAIN_ROUTES, param_dtype=dt,
+                     compute_dtype=compute, device="cuda")
         plain.load_state_dict(model.state_dict())
-        zero_counts(counters)
+        zero_counts(every)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             with torch.no_grad():
                 latents = model(text, images, return_latents=True)
         torch.cuda.synchronize()
-        served = {k: v for k, v in read_counts(counters).items() if v}
+        serve_counts = read_counts(every)
+        served = {k: v for k, v in serve_counts.items()
+                  if v and k not in cores}
         fallbacks = [str(w.message) for w in caught
                      if "falling back to the XLA path" in str(w.message)]
         if fallbacks:
@@ -3182,14 +3402,17 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
         for m in (model, plain):
             step = make_train_step(m, default_optimizer(m.parameters(),
                                                         learning_rate=1e-4))
-            zero_counts(counters)
+            zero_counts(every)
             # the same patch-dropout draw on both routes
             losses.append(step(text, images, generator=torch.Generator(
                 device="cuda").manual_seed(22))["loss"].float().item())
             torch.cuda.synchronize()
             if m is model:
-                trained = {k: v for k, v in read_counts(counters).items()
-                           if v}
+                train_counts = read_counts(every)
+                trained = {k: v for k, v in train_counts.items()
+                           if v and k not in cores}
+        case_launches[label] = {k: serve_counts[k] + train_counts[k]
+                                for k in every}
         if trained != want_train:
             fail(f"{label}: train-step launches {trained}, expected "
                  f"{want_train}")
@@ -3200,9 +3423,11 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
         lines.append(f"{label}: latents {worst:.2e}, loss {losses[0]:.4f} "
                      f"(plain {losses[1]:.4f})")
         print(f"  {label}: serving launches {served}, train-step launches "
-              f"{trained}; latents vs plain routes {worst:.3e} (tol "
-              f"{tol:.0e}); first loss {losses[0]:.4f}, plain routes "
-              f"{losses[1]:.4f} (tol 0.05)", flush=True)
+              f"{trained} (megablock core "
+              f"{case_launches[label]['core_fwd']} / "
+              f"{case_launches[label]['core_bwd']}); latents vs plain routes "
+              f"{worst:.3e} (tol {tol:.0e}); first loss {losses[0]:.4f}, "
+              f"plain routes {losses[1]:.4f} (tol 0.05)", flush=True)
         del model, plain, step
         torch.cuda.empty_cache()
     for label, extra, routes, words in PAST_KERNELS:
@@ -3222,9 +3447,11 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
         else:
             fail(f"{label}: served past the CUDA kernels' limit")
         del model
-    phase(21, "heads", f"{card}: text heads of 32 (padded to 64) and, "
-          "under 'flash', 128 on the kernels; shapes past them raise: "
+    phase(21, "heads", f"{card}: heads of 32 (padded to 64), 80 (padded "
+          "to 128) and 128 on the kernels in both dtypes, the 128-wide "
+          "kernels against their plain versions; shapes past them raise: "
           + "; ".join(lines))
+    return wide, case_launches
 
 
 # phase 22: remat configurations (label, checkpoint_during_training,
@@ -4685,6 +4912,134 @@ def data_pipeline(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     phase(25, "data", f"{card}: " + "; ".join(lines))
 
 
+# ------------------------------------------------------------------- 27
+# A CLIP at the widths of OpenCLIP's ViT-H-14.json in the repo's own terms:
+# vision 1280 wide, 16 heads of 80 (zero-padded to 128 on the kernels),
+# 224-px images in 14-px patches (256 patches and CLS), 32 layers; text
+# 1024 wide, 16 heads of 64, 77 tokens, 49,408 ids, 24 layers; latents
+# 1024. The FF is the repo's GEGLU at 4x (5,120 and 4,096 inner), not
+# OpenCLIP's GELU MLP; FLIP patch dropout the repo's 0.5 in training.
+VIT_H = dict(dim_image=1280, visual_heads=16, visual_dim_head=80,
+             visual_image_size=224, visual_patch_size=14, visual_enc_depth=32,
+             dim_text=1024, text_heads=16, text_dim_head=64, text_seq_len=77,
+             num_text_tokens=49408, text_enc_depth=24, dim_latent=1024)
+VIT_H_ROUTES = dict(attn_impl="fused", visual_attn_impl=None,
+                    ff_impl="block_stored")
+
+
+def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega):
+    """Phase 27: the ViT-H/14-width CLIP (VIT_H), bf16, seed 27, served and
+    trained at full depth (32 + 24 layers) on the kernel routes at b = 64:
+    serving (a warm-up, then 3 timed forwards to latents) with every
+    layer's K-MEGA and K-FF launched (the vision tower's K-MEGA at heads
+    of 128), pairs/s; at b = 4 the latents against the plain routes' on
+    the same weights (bf16 3e-2, as phase 21); then 1 warm-up and 3 timed
+    AdamW steps of K2 and K1 (stored): pairs/s, peak memory, finite
+    losses, the first within 0.5 of ln 64, launches per step; no fallback
+    warning anywhere."""
+    bf16, b = torch.bfloat16, 64
+    depth = VIT_H["visual_enc_depth"] + VIT_H["text_enc_depth"]
+    counters = {"mega": mega.attention_block, "kff": ffb.ff_block,
+                "core_fwd": mega.mega_core_fwd,
+                "core_bwd": mega.mega_core_bwd,
+                "k2_fwd": mega.attention_block_fwd_stored,
+                "k2_bwd": mega.attention_block_bwd,
+                "k1_fwd": ffb.ff_block_fwd_stored,
+                "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2}
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    text = texts(gen, b, seq=77, vocab=49408)
+    images = rand(gen, b, 3, 224, 224, dtype=bf16)
+    t0 = time.perf_counter()
+    model = CLIP(**VIT_H, **VIT_H_ROUTES, param_dtype=bf16,
+                 compute_dtype="bfloat16", device="cuda", seed=27)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(t.numel() for t in model.parameters())
+    hd_pad = VIT_H["visual_heads"] * 128
+    print(f"  ViT-H/14 widths: {params:,} parameters (built in {init_s:.1f} "
+          f"s); depths {VIT_H['visual_enc_depth']} + "
+          f"{VIT_H['text_enc_depth']}; FF the repo's GEGLU at 4x (inner "
+          f"5,120 / 4,096), not OpenCLIP's GELU MLP; vision heads of 80 "
+          f"zero-padded to 128: qkv {3 * hd_pad:,} columns in place of "
+          f"{3 * VIT_H['visual_heads'] * 80:,}", flush=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.no_grad():
+            model(text, images, return_latents=True)
+            reps = 3
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                latents = model(text, images, return_latents=True)
+            end.record()
+            torch.cuda.synchronize()
+        served = read_counts(counters)
+        serve_ms = start.elapsed_time(end) / reps
+        want = {k: 0 for k in counters}
+        want.update(mega=reps * depth, kff=reps * depth,
+                    core_fwd=reps * depth)
+        if served != want:
+            fail(f"ViT-H serving launches {served}, expected {want}")
+        if not all(t.shape == (b, VIT_H["dim_latent"])
+                   and torch.isfinite(t).all() for t in latents):
+            fail("ViT-H latents are not finite (b, 1024)")
+        plain = CLIP(**VIT_H, **PLAIN_ROUTES, param_dtype=bf16,
+                     compute_dtype="bfloat16", device="cuda")
+        plain.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            worst = max((x - y).abs().max().item() for x, y in zip(
+                model(text[:4], images[:4], return_latents=True),
+                plain(text[:4], images[:4], return_latents=True)))
+        del plain
+        torch.cuda.empty_cache()
+        tol = LATENT_TOL[bf16]
+        if not worst <= tol:
+            fail(f"ViT-H latents differ from the plain routes' by "
+                 f"{worst:.3e} > {tol:.0e}")
+        step = make_train_step(model, default_optimizer(model.parameters(),
+                                                        learning_rate=1e-4))
+
+        def run(i):
+            return step(text, images, generator=torch.Generator(
+                device="cuda").manual_seed(270 + i))
+
+        warm, timed = 1, 3
+        step_ms, counts, peak, losses = timed_steps(run, warm, timed,
+                                                    counters)
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back to the XLA path" in str(w.message)]
+    if fallbacks:
+        fail(f"ViT-H: fallback warnings {fallbacks}")
+    check_losses("ViT-H train", losses, b)
+    per_step = {k: v / (warm + timed) for k, v in counts.items()}
+    want = {k: 0 for k in counters}
+    want.update(k2_fwd=depth, k2_bwd=depth, core_fwd=depth, core_bwd=depth,
+                k1_fwd=depth, k1_p1=depth, k1_p2=depth)
+    if per_step != want:
+        fail(f"ViT-H training launches per step {per_step}, expected {want}")
+    print(f"  ViT-H serving b={b}: {b * 1e3 / serve_ms:.1f} pairs/s "
+          f"({serve_ms:.2f} ms a batch), launches over {reps} batches "
+          f"{ {k: v for k, v in served.items() if v} }; latents (b=4) vs "
+          f"plain routes {worst:.3e} (tol {tol:.0e})", flush=True)
+    print(f"  ViT-H training b={b}: {b * 1e3 / step_ms:.1f} pairs/s "
+          f"({step_ms:.2f} ms a step), peak memory {peak:.2f} GiB, losses "
+          + " ".join(f"{v:.4f}" for v in losses.tolist())
+          + f", launches per step { {k: v for k, v in per_step.items() if v} }",
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    phase(27, "vit-h", f"{card}: ViT-H/14-width CLIP (vision 1280, 16 x 80 "
+          f"padded to 128, 257 tokens; text 1024, 16 x 64, 77 tokens), "
+          f"{VIT_H['visual_enc_depth']} + {VIT_H['text_enc_depth']} layers, "
+          f"bf16: serving b={b} {b * 1e3 / serve_ms:.1f} pairs/s (K-MEGA and "
+          f"K-FF every layer), latents vs plain {worst:.2e}; training b={b} "
+          f"{b * 1e3 / step_ms:.1f} pairs/s, peak {peak:.2f} GiB, K2 and K1 "
+          f"{depth} a step, losses finite")
+
+
 def main(argv):
     # an older checkout whose product kernel phase 19 times beside this one's
     parent = None
@@ -5024,7 +5379,8 @@ def main(argv):
     sum_errs, sum_ms, sum_costs, sum_library = reduce_phase(gen, step_rows)
 
     # --------------------------------------------------------------- 21
-    narrow_heads(card, CLIP, default_optimizer, make_train_step, {
+    wide, wide_launches = narrow_heads(
+        card, CLIP, default_optimizer, make_train_step, {
         "mega": mega.attention_block, "kff": ffb.ff_block,
         "k2_fwd": mega.attention_block_fwd_stored,
         "k2_bwd": mega.attention_block_bwd,
@@ -5053,6 +5409,9 @@ def main(argv):
     # --------------------------------------------------------------- 26
     tensor_parallel(card, CLIP, default_optimizer, make_train_step, ffb,
                     mega, stored)
+
+    # --------------------------------------------------------------- 27
+    vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):
@@ -5175,6 +5534,14 @@ def main(argv):
         record["kernels"].append(entry(
             name, source, replaces, shard_launches[key], shard_errs[key],
             shard_ms[key], shard_costs[key], FP32_PEAK, shard_library[key]))
+    # the 128-wide kernels: launches from phase 21's case with heads of 128
+    # in both towers (its serving and train step), times at phase 21's
+    # shapes beside SDPA in the same dtype
+    w_errs, w_ms, w_costs, w_library, w_peaks = wide
+    for key, case, counter, name, source, replaces in WIDE_KERNELS:
+        record["kernels"].append(entry(
+            name, source, replaces, wide_launches[case][counter], w_errs[key],
+            w_ms[key], w_costs[key], w_peaks[key], w_library[key]))
     # no time under the least the card could take: one below its bound was
     # read from a cache the bound does not count
     for k in record["kernels"]:

@@ -314,7 +314,7 @@ def test_attention_block_lean_kernels_flagship_shape(cuda_device,
     monkeypatch.setattr(
         mega, "CHUNK_BYTES",
         mega._build.library().xclip_attention_block_bwd_recompute_workspace(
-            mega.dtype_code(dt), 6, n, dim, heads, int(keep_qkv)))
+            mega.dtype_code(dt), 6, n, dim, heads, 64, int(keep_qkv)))
     assert len(mega.bwd_recompute_spans(b, n, dim, heads, dt, keep_qkv)) == 3
     got = mega.attention_block_fwd_stats(*args, *static, keep_qkv)
     want = mega.attention_block_fwd_stats_plain(*args, *static, keep_qkv)
@@ -682,30 +682,32 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["none", "keypad", "dead", "holes"])
-@pytest.mark.parametrize("n", [37, 200, 256])
+@pytest.mark.parametrize("n", [37, 200, 256, 2048])
 def test_flash_attention_kernels_at_head_width_128(cuda_device, causal,
-                                                   mask_kind, n):
-    """bf16 K7 on heads of 128, two 64-column halves, against the plain
-    versions (phase 12's element rule)."""
+                                                   mask_kind, n, dtype):
+    """K7 on heads of 128, two 64-column halves (bf16: the mma.sync
+    kernels; fp32: the core's K7 mode), against the plain versions
+    (phase 12's element rule), up to 2048 keys."""
     q, k, v, mask, do = _flash_padded(
-        flash_args(n=n, mask_kind=mask_kind, d=128), torch.bfloat16,
+        flash_args(n=n, mask_kind=mask_kind, d=128), getattr(torch, dtype),
         cuda_device)
     got = flash.flash_attention_fwd(q, k, v, mask, causal)
     want = flash.flash_attention_fwd_plain(q, k, v, mask, causal)
-    _assert_elementwise(got, want, "bfloat16", ("out", "lse"))
+    _assert_elementwise(got, want, dtype, ("out", "lse"))
     _assert_elementwise(
         flash.flash_attention_bwd(q, k, v, mask, *want, do, causal),
         flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, causal),
-        "bfloat16", ("dq", "dk", "dv"))
+        dtype, ("dq", "dk", "dv"))
 
 
 @pytest.mark.cuda
 def test_flash_attention_raises_past_its_head_widths(cuda_device):
-    """fp32 K7 takes heads of 64, bf16 of 64 and 128; `flash_attention`
-    pads a narrower head to one of those and raises past the widest."""
-    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 160)):
+    """K7 takes heads of 64 and 128 in both dtypes; `flash_attention` pads
+    a narrower head to one of those and raises past the widest."""
+    for dtype, d in ((torch.float32, 160), (torch.bfloat16, 256)):
         q = torch.zeros(1, 1, 64, d, dtype=dtype, device=cuda_device)
         with pytest.raises(ValueError, match=f"not {d}"):
             flash.flash_attention(q, q, q)
@@ -713,7 +715,7 @@ def test_flash_attention_raises_past_its_head_widths(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
-                                     ("float32", 64)])
+                                     ("float32", 64), ("float32", 128)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", ["holes", "dead"])
 def test_flash_attention_writes_every_element(cuda_device, causal,
@@ -1641,10 +1643,14 @@ NARROW_CLIPS = [  # (CLIP kwargs, routes)
     (dict(text_dim_head=32), dict(attn_impl="flash", ff_impl="block_stored")),
     (dict(text_dim_head=128), dict(attn_impl="flash")),
     (dict(text_dim_head=96), dict(attn_impl="flash")),
+    (dict(text_dim_head=128), dict(attn_impl="fused_recompute",
+                                   ff_impl="block")),
+    (dict(text_dim_head=80, visual_dim_head=80),
+     dict(attn_impl="fused", ff_impl="block_stored")),
 ]
 PAST_CLIPS = [  # (CLIP kwargs, routes, the limit's words)
-    (dict(text_dim_head=128), dict(attn_impl="fused_recompute",
-                                   ff_impl="block"), "not 128"),
+    (dict(text_dim_head=256), dict(attn_impl="fused_recompute",
+                                   ff_impl="block"), "not 256"),
     (dict(dim_text=72, text_heads=2), dict(ff_impl="block"),
      "not dim 72, inner 288"),
 ]
@@ -1665,11 +1671,12 @@ def _small_inputs(device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,routes", NARROW_CLIPS)
 def test_clip_with_narrow_heads_runs_the_kernels(cuda_device, extra, routes):
-    """A small CLIP whose text heads are 32 wide (zero-padded to 64) or,
-    under 'flash', 96 or 128 wide (K7's bf16 kernels take 128 as two
-    64-column halves) serves and trains on the card through its kernels, with no
-    fallback warning, and its latents and loss match the plain routes'
-    (bf16: latents 3e-2, the first loss 0.05)."""
+    """A small CLIP whose text heads are 32 wide (zero-padded to 64), 96 or
+    128 wide (the kernels take 128 as two 64-column halves), or whose heads
+    are 80 wide in both towers (zero-padded to 128) serves and trains on
+    the card through its kernels, with no fallback warning, and its latents
+    and loss match the plain routes' (bf16: latents 3e-2, the first loss
+    0.05)."""
     import warnings
     import xclip_tpu_torch
     from xclip_tpu_torch.train import default_optimizer, make_train_step
@@ -2076,3 +2083,153 @@ def test_loader_batches_reach_the_card_bit_for_bit(cuda_device, image_dtype):
         for image in (g["image"], g["early"]):
             assert torch.equal(image.cpu().view(torch.int16),
                                h["image"].view(torch.int16))
+
+
+# ---------------------------------------------------- heads of 128 (80 padded)
+
+WIDE_CORE_CASES = [  # (n, heads, causal, mask kind)
+    (33, 2, False, "keypad"), (257, 2, True, "dead"), (257, 2, False, "holes"),
+    (256, 1, True, "keypad"), (2048, 1, True, "holes")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["k6", "mega"])
+@pytest.mark.parametrize("n,heads,causal,mask_kind", WIDE_CORE_CASES)
+def test_attention_cores_at_head_width_128(cuda_device, dtype, which, n,
+                                           heads, causal, mask_kind):
+    """K6 and the megablock's core on heads of 128 (two 64-column halves),
+    forward and backward, against their plain versions element by element
+    (phase 12's rule), up to 2048 keys; two backward launches bit for bit
+    equal."""
+    dt = getattr(torch, dtype)
+    qkv, mask, do = to_torch(core_args(b=3, n=n, heads=heads,
+                                       mask_kind=mask_kind, dim_head=128),
+                             dt, cuda_device)
+    static = (heads, 128, 128 ** -0.5, causal, True)
+    if which == "mega":
+        fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+        fwd_plain = mega.mega_core_fwd_plain
+        bwd_plain = mega.mega_core_bwd_plain
+        names, cot = ("attnout", "sm"), do.float()
+    else:
+        fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+        fwd_plain = core.attention_core_fwd_plain
+        bwd_plain = core.attention_core_bwd_plain
+        names, cot = ("out", "lse"), do
+    before = (fwd.launches, bwd.launches)
+    got = fwd(qkv, mask, *static)
+    want = fwd_plain(qkv, mask, *static)
+    _assert_elementwise(got, want, dtype, names)
+    if which == "mega":
+        grads = [bwd(qkv, mask, cot, *want, *static) for _ in range(2)]
+        plain = bwd_plain(qkv, mask, cot, *want, *static)
+    else:
+        grads = [bwd(qkv, mask, *want, cot, *static) for _ in range(2)]
+        plain = bwd_plain(qkv, mask, *want, cot, *static)
+    assert torch.equal(grads[0], grads[1])
+    _assert_elementwise((grads[0],), (plain,), dtype, ("dqkv",))
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", ["keypad", "dead"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_megablock_kernels_at_head_width_128(cuda_device, dtype, mask_kind,
+                                             causal):
+    """K-MEGA, K2 and K3 (both modes) at heads of 128: outputs and every
+    gradient against their plain versions (fp32 1e-4 or two bf16 ulps of
+    each tensor's largest magnitude)."""
+    dt = getattr(torch, dtype)
+    args = to_torch(mega_args(n=70, dim=128, heads=2, dim_head=128,
+                              mask_kind=mask_kind), dt, cuda_device)
+    static = (2, 128, 128 ** -0.5, causal, True)
+    atol = 1e-4 if dtype == "float32" else BF16_ATOL
+    torch.testing.assert_close(
+        mega.attention_block(*args, *static).float(),
+        mega.attention_block_plain(*args, *static).float(), atol=atol, rtol=0)
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    _assert_all_close((out, *stored), (want_out, *want_stored), dtype,
+                      ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = torch.randn(*out.shape, device=cuda_device).to(dt)
+    _assert_all_close(
+        mega.attention_block_bwd(*args, do, want_stored, *static),
+        mega.attention_block_bwd_plain(*args, do, want_stored, *static),
+        dtype, ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out", "dqkv"))
+    for keep_qkv in (False, True):
+        got = mega.attention_block_fwd_stats(*args, *static, keep_qkv)
+        want = mega.attention_block_fwd_stats_plain(*args, *static, keep_qkv)
+        names = ("out", "sm", "ln_stats", "qkv")[:3 + keep_qkv]
+        _assert_all_close(got[:len(names)], want[:len(names)], dtype, names)
+        _, sm, ln_stats, qkv = want
+        _assert_all_close(
+            mega.attention_block_bwd_recompute(*args, do, sm, ln_stats,
+                                               *static, qkv=qkv),
+            mega.attention_block_bwd_recompute_plain(*args, do, sm, ln_stats,
+                                                     *static, qkv=qkv),
+            dtype, ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim_head", [80, 104])
+def test_heads_padded_to_128_match_the_unpadded_plain_versions(cuda_device,
+                                                               dim_head):
+    """The megablock's, K6's and K7's top-level wrappers run heads of 80
+    (ViT-H/14) and 104 (ViT-bigG/14) zero-padded to 128 on the card, fp32:
+    outputs and gradients against the plain versions at the true width on
+    the CPU (1e-4 of the largest magnitude)."""
+    heads, b, n, dim = 2, 2, 45, 128
+    gen = torch.Generator().manual_seed(dim_head)
+    hd = heads * dim_head
+    mask = torch.ones(b, n, dtype=torch.bool)
+    mask[1, 30:] = False
+    scale = dim_head ** -0.5
+    x = torch.randn(b, n, dim, generator=gen)
+    g = 1 + 0.1 * torch.randn(dim, generator=gen)
+    w_qkv = torch.randn(dim, 3 * hd, generator=gen) * dim ** -0.5
+    w_out = torch.randn(hd, dim, generator=gen) * hd ** -0.5
+    qkv = torch.randn(b, n, 3 * hd, generator=gen)
+    q, k, v = (torch.randn(b, heads, n, dim_head, generator=gen)
+               for _ in range(3))
+    q = q * scale
+    results = {}
+    for dev in ("cuda", "cpu"):
+        on = [t.to(dev).requires_grad_(t.is_floating_point()) for t in
+              (x, w_qkv, w_out, qkv, q, k, v)]
+        gg, mm = g.to(dev), mask.to(dev)
+        if dev == "cuda":
+            outs = [mega.attention_block_train(on[0], gg, on[1], on[2], gg,
+                                               mm, heads, dim_head, scale),
+                    mega.attention_block_train_recompute(
+                        on[0], gg, on[1], on[2], gg, mm, heads, dim_head,
+                        scale),
+                    core.attention_core(on[3], mm, heads, dim_head, scale,
+                                        causal=True),
+                    flash.flash_attention(*on[4:], mm, causal=True)]
+        else:
+            def sdpa():
+                s = on[4] @ on[5].transpose(-1, -2)
+                valid = mm[:, None, None, :] & torch.ones(
+                    n, n, dtype=torch.bool).tril()
+                return s.masked_fill(~valid, float("-inf")).softmax(-1) @ on[6]
+            outs = [mega.attention_block_plain(on[0], gg, on[1], on[2], gg,
+                                               mm, heads, dim_head, scale)
+                    for _ in range(2)]
+            outs += [core.attention_core_fwd_plain(on[3], mm, heads, dim_head,
+                                                   scale, True)[0], sdpa()]
+        cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(
+            i)).to(dev) for i, o in enumerate(outs)]
+        leaves = [[on[0], on[1], on[2]], [on[0], on[1], on[2]], [on[3]],
+                  on[4:]]
+        results[dev] = [(o.detach().cpu(), [t.cpu() for t in
+                                            torch.autograd.grad(o, lv, c)])
+                        for o, lv, c in zip(outs, leaves, cot)]
+    for (got, got_g), (want, want_g) in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        for a, w in zip(got_g, want_g):
+            torch.testing.assert_close(a, w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()))

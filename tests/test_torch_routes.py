@@ -11,9 +11,10 @@ plain version. `nn.layers.transformer_routes` decides it from the shapes
 alone, so it is held here without a card, and so are the wrappers'
 predicates (the library's attention length limits stood in for).
 
-Then what the wider shapes run, on the CPU: a head narrower than the
-kernels' 64 runs zero-padded to 64 (`attention_megablock.pad_heads`), held
-to the unpadded plain versions; and the stack at head widths 32 and 128
+Then what the wider shapes run, on the CPU: the kernels take heads of 64
+and 128, and a head narrower than one of those runs zero-padded to it
+(`attention_megablock.pad_heads`), held to the unpadded plain versions;
+and the stack at head widths 32 and 128
 against `transformer_apply` (forward and every gradient, fp32: outputs
 1e-4, gradients rtol 1e-3 with atol 1e-5 of the leaf's largest magnitude,
 as tests/test_torch_fused_ff.py).
@@ -68,16 +69,16 @@ def limits(monkeypatch):
 
 def _cuda_takes_attention(dim, dim_head, n, dtype, training):
     """The CUDA attention wrappers' limits, as documented: dim_head up to
-    64 (narrower heads zero-padded), a block width on the 64 grid up to
-    8192 (None: no block), n up to 2048 in both dtypes, with a backward
-    too."""
-    return (dim_head <= 64 and n <= 2048 and (
+    128 (64 and 128, narrower heads zero-padded to the next of those), a
+    block width on the 64 grid up to 8192 (None: no block), n up to 2048 in
+    both dtypes, with a backward too."""
+    return (dim_head <= 128 and n <= 2048 and (
         dim is None or (dim % 64 == 0 and dim <= MAX_WIDTH)))
 
 
 def _kernel_dim_head(dim_head):
     """The head width the top-level wrappers hand the kernels."""
-    return max(dim_head, mega.DIM_HEAD)
+    return mega.padded_width(dim_head)
 
 
 def _message(warn, requested, reason):
@@ -130,7 +131,15 @@ MEGA_CASES = [  # (attn_impl, dim, heads, dim_head, n, dtype, training)
     ("fused", 512, 8, 64, 2048, F32, True),
     ("fused_recompute", 512, 8, 64, 2049, F32, True),
     ("fused", 72, 2, 64, 257, BF16, True),
+    ("fused", 1280, 16, 80, 257, BF16, False),      # ViT-H/14
+    ("fused", 1280, 16, 80, 257, BF16, True),
+    ("fused_recompute", 1664, 16, 104, 257, BF16, True),  # ViT-bigG/14
+    ("fused", 1024, 4, 256, 257, BF16, True),
 ]
+# towers whose weights alone pass JAX's VMEM budget (24 MB) and whose heads
+# do not tile into K6's 128-lane groups: JAX runs its XLA path there; the
+# port, which does not copy the VMEM gate, runs its megablock
+PAST_VMEM = {(1280, 16, 80), (1664, 16, 104)}
 
 
 @pytest.mark.parametrize("attn_impl,dim,heads,dim_head,n,dtype,training",
@@ -140,13 +149,14 @@ def test_megablock_route_holds_to_jax(limits, attn_impl, dim, heads,
     """Where JAX runs a kernel for a megablock flag without rotary (its
     megablock, or K6 where the megablock's VMEM gate turns it off), the
     port runs its megablock, with no warning, whatever the shape (JAX's
-    VMEM gate is a TPU artefact the port does not copy); on the card its
-    wrappers take a head up to 64 wide (padded), and raise past the CUDA
-    limits instead of giving way."""
+    VMEM gate is a TPU artefact the port does not copy: ViT-H/14's and
+    ViT-bigG/14's towers run it too); on the card its wrappers take a head
+    up to 128 wide (padded to 64 or 128), and raise past the CUDA limits
+    instead of giving way."""
     n_pad = (n + 127) // 128 * 128
     jax_kernel = (jmega.supported(heads, dim_head, dim, n_pad, JDT[dtype])
                   or jab.supported(heads, dim_head))
-    assert jax_kernel
+    assert jax_kernel == ((dim, heads, dim_head) not in PAST_VMEM)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert _routes(attn_impl=attn_impl, ff_impl="xla", dim=dim,
@@ -156,8 +166,8 @@ def test_megablock_route_holds_to_jax(limits, attn_impl, dim, heads,
     assert (reason is None) == _cuda_takes_attention(dim, dim_head, n, dtype,
                                                      training)
     if reason:
-        assert ("dim_head" in reason) == (dim_head > 64)
-        assert ("exceeds" in reason) == (dim_head <= 64 and dim % 64 == 0)
+        assert ("dim_head" in reason) == (dim_head > 128)
+        assert ("exceeds" in reason) == (dim_head <= 128 and dim % 64 == 0)
 
 
 K6_CASES = [  # (heads, dim_head, n, dtype, training)
@@ -165,7 +175,8 @@ K6_CASES = [  # (heads, dim_head, n, dtype, training)
     (4, 128, 256, BF16, True), (3, 64, 256, BF16, False),
     (2, 32, 256, BF16, False), (8, 64, 2049, BF16, False),
     (8, 64, 700, F32, True), (8, 64, 700, F32, False),
-    (8, 64, 2048, F32, True), (8, 64, 2049, F32, False)]
+    (8, 64, 2048, F32, True), (8, 64, 2049, F32, False),
+    (2, 256, 256, BF16, True)]
 
 
 @pytest.mark.parametrize("heads,dim_head,n,dtype,training", K6_CASES)
@@ -198,18 +209,18 @@ def test_k6_route_holds_to_jax(limits, attn_impl, heads, dim_head, n, dtype,
 def test_flash_route_holds_to_jax(dim_head, n):
     """JAX's K7 takes any head width and pads any length, and the port
     routes 'flash' to K7 at every shape; its wrapper on the card takes
-    heads up to 64 at any length, and in bf16 up to 128 (narrower heads
+    heads up to 128 at any length in both dtypes (narrower heads
     zero-padded to 64 or 128)."""
     for rotary in (False, True):
         attn, _, fallbacks = _routes(attn_impl="flash", dim_head=dim_head,
                                      rotary=rotary)
         assert (attn, fallbacks) == ("flash", [])
-    for dt, widest in ((BF16, 128), (F32, 64)):
-        width = flash.padded_width(dim_head, dt)
-        assert width == (64 if dim_head <= 64 else
-                         128 if dim_head <= widest else dim_head)
+    width = flash.padded_width(dim_head)
+    assert width == (64 if dim_head <= 64 else
+                     128 if dim_head <= 128 else dim_head)
+    for dt in (BF16, F32):
         reason = flash.why_not(width, dt)
-        assert (reason is None) == (dim_head <= widest)
+        assert (reason is None) == (dim_head <= 128)
         if reason:
             assert "dim_head 64" in reason and f"not {dim_head}" in reason
 
@@ -282,7 +293,7 @@ def test_fallback_warns_once_per_cause():
     assert len(caught) == 1
 
 
-# ------------------------------------ narrower heads, zero-padded to 64
+# ------------------------- narrower heads, zero-padded to 64 (or 128)
 
 @pytest.mark.parametrize("dim_head", [16, 32, 48])
 def test_padded_heads_match_the_unpadded_plain_versions(dim_head):

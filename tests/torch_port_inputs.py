@@ -64,11 +64,11 @@ def _key_mask(b, n, mask_kind):
     return mask
 
 
-def core_args(b=3, n=33, heads=2, seed=0, mask_kind="keypad"):
-    """K6 inputs: the fused qkv (b, n, 3·heads·64), the key mask and a
-    cotangent of the output (b, n, heads·64)."""
+def core_args(b=3, n=33, heads=2, seed=0, mask_kind="keypad", dim_head=64):
+    """K6 inputs: the fused qkv (b, n, 3·heads·dim_head), the key mask and
+    a cotangent of the output (b, n, heads·dim_head)."""
     npr = np.random.RandomState(seed)
-    hd = heads * 64
+    hd = heads * dim_head
     return (npr.randn(b, n, 3 * hd).astype(np.float32),
             _key_mask(b, n, mask_kind),
             npr.randn(b, n, hd).astype(np.float32))

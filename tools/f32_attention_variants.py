@@ -40,6 +40,11 @@ shipped kernels apart (the profiler's device times); the variants also
 at (16, 1024) and (4, 2048) with whole masked tiles and a dead element,
 K7's at (2, 8, 2304) (checked, not timed). Needs a card and nvcc; prints
 the card and its power limit first.
+
+The "fwd-exchange" variant applies `tools/fwd_exchange.patch`,
+written against the sources as they stood before the kernels took
+heads of 128 (one 64-column tile a head): on today's sources the
+tool stops there, naming the hunk it cannot find.
 """
 
 import re
@@ -68,7 +73,8 @@ SHARED = ("gemm_f32.cu", "gemm_sm90.cu", "rows.cu")     # built once
 VARIANTS = _build.BUILD_DIR.parent / "f32_attention_variants"
 TOOLS = Path(__file__).resolve().parent
 # (variant, [(shipped text, its replacement)], applied in order)
-DQ_BOUNDS = "__launch_bounds__(kBwdThreads, 2)\nattention_bwd_dq_kernel"
+DQ_BOUNDS = ("__launch_bounds__(kBwdThreads, kBlocks<NH>)\n"
+             "attention_bwd_dq_kernel")
 EDITS = {
     "shipped": [],
     "tile-4x8": [("constexpr int kBwdTN = 4;", "constexpr int kBwdTN = 8;")],
@@ -80,7 +86,7 @@ EDITS = {
     # kernel at one block an SM (its registers unbounded)
     "unroll-hi": [("#pragma unroll 1\n  for (int hi = 0; hi < 2; ++hi) {",
                    "#pragma unroll\n  for (int hi = 0; hi < 2; ++hi) {")],
-    "dq-one-block": [(DQ_BOUNDS, DQ_BOUNDS.replace(", 2)", ", 1)"))],
+    "dq-one-block": [(DQ_BOUNDS, DQ_BOUNDS.replace("kBlocks<NH>", "1"))],
     "fwd-exchange": hunks(TOOLS / "fwd_exchange.patch"),
     "fwd-expf": hunks(TOOLS / "fwd_expf.patch"),
 }

@@ -26,6 +26,11 @@ tower's key pads and with full-length captions, at the vision tower's
 commit) its `xclip_tpu_torch/csrc/` is built and timed beside them as the
 variant "parent", bound to the entry points the timed wrappers call. Needs
 a card and nvcc; prints the card and its power limit first.
+
+The "held-rows" and "held-smem" variants apply `tools/held_rows.patch`,
+written against the sources as they stood before the kernels took
+heads of 128 (one 64-column tile a head): on today's sources the
+tool stops there, naming the hunk it cannot find.
 """
 
 import argparse
@@ -49,19 +54,26 @@ SOURCE = "attention_block_sm90.cuh"
 HELD = [(old, new, 1) for old, new in
         hunks(Path(__file__).resolve().parent / "held_rows.patch")]
 SLICED_PRODUCTS = """#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            uint32_t a[4];
-            load_a_k(a, ks, warp * 16, k);
-            mma_abt_k(s, a, k, qt, ncut);  // sᵀ = k . qᵀ
-            load_a_k(a, vs, warp * 16, k);
-            mma_abt_k(dp, a, k, dot, ncut);  // dpᵀ = v . doᵀ
-          }
+          for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int o = hh * K6_TILE;
+              uint32_t a[4];
+              load_a_k(a, ks + o, warp * 16, k);
+              mma_abt_k(s, a, k, qt + o, ncut);  // sᵀ = k . qᵀ
+              load_a_k(a, vs + o, warp * 16, k);
+              mma_abt_k(dp, a, k, dot + o, ncut);  // dpᵀ = v . doᵀ
+            }
 """
-WHOLE_PRODUCTS = """          uint32_t a[4][4];
-          load_a(a, ks, warp * 16);
-          mma_abt(s, a, qt, ncut);
-          load_a(a, vs, warp * 16);
-          mma_abt(dp, a, dot, ncut);
+WHOLE_PRODUCTS = """#pragma unroll
+          for (int hh = 0; hh < NH; ++hh) {
+            const int o = hh * K6_TILE;
+            uint32_t a[4][4];
+            load_a(a, ks + o, warp * 16);
+            mma_abt(s, a, qt + o, ncut);
+            load_a(a, vs + o, warp * 16);
+            mma_abt(dp, a, dot + o, ncut);
+          }
 """
 SLICED_HEAD = """#pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -73,19 +85,28 @@ WHOLE_HEAD = """        {
           for (int c = 0; c < 8; ++c)"""
 SLICED_TAIL = """          uint32_t a[4];
           pack_a_k(a, s, k);  // dv += T(p)ᵀ . do
-          mma_ab_k(dv, a, k, MEGA ? dov + buf * K6_TILE : dot);
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            mma_ab_k(dv[hh], a, k,
+                     (MEGA ? dov + buf * T : dot) + hh * K6_TILE);
           pack_a_k(a, dp, k);  // dk += T(ds)ᵀ . q
-          mma_ab_k(dk, a, k, qt);
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            mma_ab_k(dk[hh], a, k, qt + hh * K6_TILE);
         }
 """
 WHOLE_TAIL = """        }
         uint32_t a[4][4];
         pack_a(a, s);
-        mma_ab(dv, a, MEGA ? dov + buf * K6_TILE : dot, ns);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          mma_ab(dv[hh], a, (MEGA ? dov + buf * T : dot) + hh * K6_TILE, ns);
         pack_a(a, dp);
-        mma_ab(dk, a, qt, ns);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          mma_ab(dk[hh], a, qt + hh * K6_TILE, ns);
 """
-DKV = "__launch_bounds__(K6_THREADS, {})\nk6_bwd_dkv_kernel("
+DKV = "__launch_bounds__(K6_THREADS, NH == 1 ? {} : 2)\nk6_bwd_dkv_kernel("
 # the held scores in shared memory: a column of T * 32 floats a thread
 # after the mask words, and as many blocks an SM as shared memory holds
 HELD_REGS = """struct K6Held {

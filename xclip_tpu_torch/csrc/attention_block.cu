@@ -9,16 +9,17 @@
 // Semantics: scores (q . k) * scale in fp32, -inf on masked and future
 // keys, a dead row uniform over the n real keys (m = 0), l = max(sum p,
 // 1e-30), p / l cast to the storage dtype before p @ v.
-//   * forward: out (b, n, heads*64, T) and the fp32 log-sum-exp per row and
+//   * forward: out (b, n, heads*dh, T) and the fp32 log-sum-exp per row and
 //     head, lse = m + log l (log n on a dead row), (b, n, heads);
-//   * backward: from qkv, out, lse and do (b, n, heads*64, T), p = exp(s -
+//   * backward: from qkv, out, lse and do (b, n, heads*dh, T), p = exp(s -
 //     lse) (1/n on a dead row), delta = sum do * out, dp = do . vᵀ, ds =
 //     T(p (dp - delta) scale), 0 on a dead row; dq = ds . k, dk = dsᵀ . q,
 //     dv = T(p)ᵀ . do, written into dqkv in the fused layout. Two kernels
 //     (query tiles for dq and delta, key tiles for dk and dv), no atomics.
 // The Pallas kernel pads n to 128 and groups two heads into one 128-lane
 // block, TPU artefacts; here a block is one (64-row tile, head, batch
-// element) of the true (b, n, 3*heads*64) tensor.
+// element) of the true (b, n, 3*heads*dh) tensor, dh 64 or 128 (a head of
+// 128 as two 64-column halves).
 //
 // bf16 runs the kernels of attention_block_sm90.cuh in their K6 mode
 // (register-resident mma.sync tiles that skip causal and masked tiles;
@@ -28,19 +29,19 @@
 // in both dtypes (the mask words of 32 key tiles).
 #include "attention_core.cuh"
 
-static bool core_args_ok(int b, int n, int heads) {
-  return b > 0 && n > 0 && heads > 0;
+static bool core_args_ok(int b, int n, int heads, int dh) {
+  return b > 0 && n > 0 && heads > 0 && xclip::k6_halves(dh);
 }
 
-// Returns a cudaError_t code (0 on success). qkv (b*n, 3*heads*64) and out
-// (b*n, heads*64) of the storage dtype, mask (b, n) uint8 (nonzero = valid
-// key), lse (b*n, heads) fp32.
+// Returns a cudaError_t code (0 on success). qkv (b*n, 3*heads*dh) and out
+// (b*n, heads*dh) of the storage dtype, dh 64 or 128, mask (b, n) uint8
+// (nonzero = valid key), lse (b*n, heads) fp32.
 extern "C" int xclip_attention_core_fwd(int dtype, const void* qkv,
                                         const void* mask, void* out,
                                         void* lse, int b, int n, int heads,
-                                        float scale, int causal,
+                                        int dh, float scale, int causal,
                                         int maybe_dead, void* stream) {
-  if (!core_args_ok(b, n, heads) || n > attention_max_n(dtype))
+  if (!core_args_ok(b, n, heads, dh) || n > attention_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -48,24 +49,25 @@ extern "C" int xclip_attention_core_fwd(int dtype, const void* qkv,
     return xclip::launch_k6_fwd<false>(XCLIP_PTR(const xclip::bf16*, qkv), m,
                                        XCLIP_PTR(xclip::bf16*, out),
                                        XCLIP_PTR(float*, lse), b, n, heads,
-                                       scale, causal, maybe_dead, st);
+                                       dh, scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_attention<float>(XCLIP_PTR(const float*, qkv), m,
-                                 XCLIP_PTR(float*, out), b, n, heads, scale,
-                                 causal, maybe_dead, nullptr, st,
+                                 XCLIP_PTR(float*, out), b, n, heads, dh,
+                                 scale, causal, maybe_dead, nullptr, st,
                                  XCLIP_PTR(float*, lse));
 }
 
-// The backward: qkv, out, do (b*n, heads*64) and lse as the forward's;
-// dqkv (b*n, 3*heads*64) of the storage dtype; delta (b*n, heads) fp32
+// The backward: qkv, out, do (b*n, heads*dh) and lse as the forward's;
+// dqkv (b*n, 3*heads*dh) of the storage dtype; delta (b*n, heads) fp32
 // scratch.
 extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
                                         const void* mask, const void* out,
                                         const void* lse, const void* dout,
                                         void* dqkv, void* delta, int b, int n,
-                                        int heads, float scale, int causal,
-                                        int maybe_dead, void* stream) {
-  if (!core_args_ok(b, n, heads) || n > attention_bwd_max_n(dtype))
+                                        int heads, int dh, float scale,
+                                        int causal, int maybe_dead,
+                                        void* stream) {
+  if (!core_args_ok(b, n, heads, dh) || n > attention_bwd_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -75,13 +77,13 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
         XCLIP_PTR(const xclip::bf16*, out), XCLIP_PTR(const float*, lse),
         XCLIP_PTR(const xclip::bf16*, dout), nullptr,
         XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
-        scale, causal, maybe_dead, st);
+        dh, scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_attention_fma_bwd<kK6>(
       XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dout),
       XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
-      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
-      causal, maybe_dead, st);
+      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, dh,
+      scale, causal, maybe_dead, st);
 }
 
 // Blocks an SM of the fp32 backward's kernels, K6's (mode 1) or the

@@ -1,6 +1,7 @@
 // The bf16 attention core of the port: whole-head attention on the fused
-// qkv (b*n x 3*heads*64), forward and backward, in two modes chosen at
-// compile time.
+// qkv (b*n x 3*heads*D), forward and backward, in two modes chosen at
+// compile time, at heads of D = 64 or 128 columns (NH = D / 64 staged
+// 64-column halves, as bf16 K7 takes them: flash_attention_sm90.cuh).
 //   * K6 (MEGA false), in place of the Pallas bodies of
 //     xclip_tpu/kernels/attention_block.py: `_fwd_kernel` (:83) and
 //     `_bwd_kernel` (:117); csrc/attention_block.cu gives the semantics.
@@ -92,6 +93,15 @@
 // Every output element is written (the wrappers' tensors come from
 // torch.empty): a skipped tile leaves its accumulator 0. Rows and keys at
 // or past n read as 0 and are never written.
+// A head of 128 (NH = 2) is two staged 64-column tiles a side: its scores
+// and dp sum the halves' products, and each half keeps its own out, dq, dk
+// and dv accumulator, so the dk/dv kernel holds twice the sums (255
+// registers a thread, two blocks an SM where shared memory allows); the
+// warp's q and do rows are read from shared memory at each use instead of
+// being held (`HeadRows`). In the megablock mode the row's fp32 head slice
+// of dattn (512 bytes) takes the bf16 copies half by half, each half's
+// T(dattn * scale) and T(dattn) in the 256 bytes its own fp32 values held
+// (`dcopy` column 2 D h + 128 hh for half hh).
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -154,18 +164,54 @@ __device__ __forceinline__ bool k6_full(unsigned long long word, int t, int r0,
   return word == ~0ull && !(causal && 64 * t + 63 > r0);
 }
 
+// The warp's 16 rows of a staged head (NH 64-column tiles, tile hh at
+// `tile + hh * K6_TILE`) as the A operand of a . bᵀ over the head: held in
+// registers at NH = 1, read from the tile at each use at NH = 2 (the
+// kernels' accumulators take the registers).
+template <int NH>
+struct HeadRows {
+  const bf16* tile;
+  int r0;
+  __device__ __forceinline__ void load(const bf16* t, int r) {
+    tile = t;
+    r0 = r;
+  }
+  // acc += rows . bᵀ over the first `nc` 8-column chunks
+  __device__ __forceinline__ void abt(float (&acc)[8][4], const bf16* b,
+                                      int nc) const {
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      uint32_t a[4][4];
+      load_a(a, tile + hh * K6_TILE, r0);
+      mma_abt(acc, a, b + hh * K6_TILE, nc);
+    }
+  }
+};
+template <>
+struct HeadRows<1> {
+  uint32_t a[4][4];
+  __device__ __forceinline__ void load(const bf16* t, int r) {
+    load_a(a, t, r);
+  }
+  __device__ __forceinline__ void abt(float (&acc)[8][4], const bf16* b,
+                                      int nc) const {
+    mma_abt(acc, a, b, nc);
+  }
+};
+
 // The warp's scores over key tile t (staged at kt): s = (q . kᵀ) scale
 // over the tile's first `nc` 8-key chunks (the rest hold no key the warp
 // reads, and read -inf); a full tile takes only the scale, elsewhere
 // masked and future keys are -inf.
+template <int NH>
 __device__ __forceinline__ void k6_scores(float (&s)[8][4],
-                                          const uint32_t (&qa)[4][4],
+                                          const HeadRows<NH>& qa,
                                           const bf16* kt, int t,
                                           unsigned long long word, bool full,
                                           int nc, const int (&row)[2],
                                           float scale, int causal) {
   zero_acc(s);
-  mma_abt(s, qa, kt, nc);
+  qa.abt(s, kt, nc);
   if (full) {
 #pragma unroll
     for (int c = 0; c < 8; ++c)
@@ -189,18 +235,19 @@ __device__ __forceinline__ void k6_scores(float (&s)[8][4],
 // passes over the key tiles; the last query tiles, which have the most key
 // tiles when causal, start first. `stats`: K6's lse (b*n x heads); the
 // megablock's sm (b*n x 2*heads), or null to keep none.
-template <bool MEGA>
-__global__ void __launch_bounds__(K6_THREADS, 4)
+template <bool MEGA, int NH>
+__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 4 : 2)
 k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
               bf16* __restrict__ out, float* __restrict__ stats, int n,
               int heads, float scale, int causal, int maybe_dead) {
+  constexpr int D = 64 * NH, T = NH * K6_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + K6_TILE;      // two buffers
-  bf16* vs = ks + 2 * K6_TILE;  // two buffers
-  auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * K6_TILE);
+  bf16* ks = qs + T;      // two buffers
+  bf16* vs = ks + 2 * T;  // two buffers
+  auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * T);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * 64, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
   const long ld = 3L * hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -210,13 +257,19 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   constexpr int END = 128;
   auto stage = [&](int st, int buf) {
     const int t = st & 63;
-    stage_tile_async<K6_THREADS>(ks + buf * K6_TILE, base, ld, hd + h * 64,
-                                 64 * t, n);
-    if (st >= 64)
-      stage_tile_async<K6_THREADS>(vs + buf * K6_TILE, base, ld,
-                                   2 * hd + h * 64, 64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_tile_async<K6_THREADS>(ks + buf * T + hh * K6_TILE, base, ld,
+                                   hd + h * D + 64 * hh, 64 * t, n);
+      if (st >= 64)
+        stage_tile_async<K6_THREADS>(vs + buf * T + hh * K6_TILE, base, ld,
+                                     2 * hd + h * D + 64 * hh, 64 * t, n);
+    }
   };
-  stage_tile_async<K6_THREADS>(qs, base, ld, h * 64, q0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    stage_tile_async<K6_THREADS>(qs + hh * K6_TILE, base, ld,
+                                 h * D + 64 * hh, q0, n);
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
   // a dead row is uniform over every key: its block walks every tile
@@ -251,8 +304,8 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   }
   cp_async_wait<0>();  // q
   __syncthreads();
-  uint32_t qa[4][4];
-  load_a(qa, qs, warp * 16);
+  HeadRows<NH> qa;
+  qa.load(qs, warp * 16);
 
   // pass 1 keeps the running max and sum of each row; then (m, l) are
   // final and the statistics are written; pass 2 accumulates o = T(p /
@@ -277,13 +330,14 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
     }
     rows_final = true;
   };
-  float o[8][4];
-  zero_acc(o);
+  float o[NH][8][4];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) zero_acc(o[hh]);
   tile_walk(
       first_step, END, next, stage,
       [&](int st, int buf) {
         const int t = st & 63;
-        const bf16* kt = ks + buf * K6_TILE;
+        const bf16* kt = ks + buf * T;
         const bool full = k6_full(bits[t], t, r0, causal);
         const int nc = tile_parts(kend - 64 * t, 8);
         float s[8][4];
@@ -333,33 +387,39 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
           }
         uint32_t pa[4][4];
         pack_a(pa, s);
-        mma_ab(o, pa, vs + buf * K6_TILE, ns);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          mma_ab(o[hh], pa, vs + buf * T + hh * K6_TILE, ns);
       });
   if (!rows_final) finish_rows();
-  store_rows(out + (long)bi * n * hd + h * 64, hd, q0, n, qs, warp * 16, o);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    store_rows(out + (long)bi * n * hd + h * D + 64 * hh, hd, q0, n,
+               qs + hh * K6_TILE, warp * 16, o[hh]);
 }
 
 // dq and delta, one block per (64-query tile, head, batch element).
 // `stats`, `dout`: K6's lse and bf16 do, or the megablock's sm and fp32
 // dattn; in megablock mode the kernel also writes dattn's two bf16 copies
-// into `dcopy` (b*n x 2*heads*64, head h at columns 128 h: T(dattn *
-// scale), then T(dattn)), which may alias dattn.
-template <bool MEGA>
-__global__ void __launch_bounds__(K6_THREADS, 3)
+// into `dcopy` (b*n x 2*heads*D; half hh of head h at columns 2 D h + 128
+// hh: T(dattn * scale), then T(dattn)), which may alias dattn.
+template <bool MEGA, int NH>
+__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 3 : 2)
 k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
                  const uint8_t* __restrict__ mask,
                  const bf16* __restrict__ out, const float* __restrict__ stats,
                  const K6Cot<MEGA>* dout, bf16* dcopy,
                  bf16* __restrict__ dqkv, float* __restrict__ delta, int n,
                  int heads, float scale, int causal, int maybe_dead) {
+  constexpr int D = 64 * NH, T = NH * K6_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + K6_TILE;
-  bf16* ks = dos + K6_TILE;     // two buffers
-  bf16* vs = ks + 2 * K6_TILE;  // two buffers
-  auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * K6_TILE);
+  bf16* dos = qs + T;
+  bf16* ks = dos + T;     // two buffers
+  bf16* vs = ks + 2 * T;  // two buffers
+  auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * T);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * 64, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
   const long ld = 3L * hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const bf16* obase = out + (long)bi * n * hd;
@@ -367,15 +427,23 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    stage_tile_async<K6_THREADS>(ks + buf * K6_TILE, base, ld, hd + h * 64,
-                                 64 * t, n);
-    stage_tile_async<K6_THREADS>(vs + buf * K6_TILE, base, ld,
-                                 2 * hd + h * 64, 64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_tile_async<K6_THREADS>(ks + buf * T + hh * K6_TILE, base, ld,
+                                   hd + h * D + 64 * hh, 64 * t, n);
+      stage_tile_async<K6_THREADS>(vs + buf * T + hh * K6_TILE, base, ld,
+                                   2 * hd + h * D + 64 * hh, 64 * t, n);
+    }
   };
-  stage_tile_async<K6_THREADS>(qs, base, ld, h * 64, q0, n);
-  if constexpr (!MEGA)
-    stage_tile_async<K6_THREADS>(dos, dout + (long)bi * n * hd, hd, h * 64,
-                                 q0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    stage_tile_async<K6_THREADS>(qs + hh * K6_TILE, base, ld,
+                                 h * D + 64 * hh, q0, n);
+    if constexpr (!MEGA)
+      stage_tile_async<K6_THREADS>(dos + hh * K6_TILE,
+                                   dout + (long)bi * n * hd, hd,
+                                   h * D + 64 * hh, q0, n);
+  }
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
   // a dead row's ds is 0: only tiles with a valid key up to the diagonal
@@ -409,70 +477,78 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   cp_async_wait<0>();
   __syncthreads();
 
-  // delta: lanes 2r, 2r + 1 take half of row r each. K6: sum do * out from
-  // the staged do. Megablock: scale * sum dattn * attnout from the fp32
-  // rows, which also give the A tile T(dattn * scale) and the bf16 copies.
+  // delta: lanes 2r, 2r + 1 take half of each 64-column half of row r.
+  // K6: sum do * out from the staged do. Megablock: scale * sum dattn *
+  // attnout from the fp32 rows, which also give the A tile T(dattn *
+  // scale) and the bf16 copies, half by half (each half's copies written
+  // over its own fp32 values once the warp has read them).
   float rdelta[2];
   {
-    const int r = warp * 16 + (lane >> 1), d0 = (lane & 1) * 32;
+    const int r = warp * 16 + (lane >> 1);
     const long q = (long)bi * n + q0 + r;
     const bool in = q0 + r < n;
     float acc = 0.f;
-    if constexpr (MEGA) {
-      float dv[32];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 f =
-            in ? *reinterpret_cast<const float4*>(dout + q * hd + h * 64 +
-                                                  d0 + 4 * c)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-        dv[4 * c] = f.x;
-        dv[4 * c + 1] = f.y;
-        dv[4 * c + 2] = f.z;
-        dv[4 * c + 3] = f.w;
-      }
-      if (in) {
-        const bf16* orow = out + q * hd + h * 64 + d0;
+    for (int hh = 0; hh < NH; ++hh) {
+      const int d0 = (lane & 1) * 32, col = h * D + 64 * hh + d0;
+      bf16* dtile = dos + hh * K6_TILE;
+      if constexpr (MEGA) {
+        float dv[32];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float4 f =
+              in ? *reinterpret_cast<const float4*>(dout + q * hd + col +
+                                                    4 * c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          dv[4 * c] = f.x;
+          dv[4 * c + 1] = f.y;
+          dv[4 * c + 2] = f.z;
+          dv[4 * c + 3] = f.w;
+        }
+        if (in) {
+          const bf16* orow = out + q * hd + col;
+#pragma unroll
+          for (int c = 0; c < 32; c += 8) {
+            const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+            const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) acc += dv[c + k] * to_f(op[k]) * scale;
+          }
+        }
+        // the warp's fp32 reads are done before the copies, which may
+        // overwrite them, are written
+        __syncwarp();
+        uint32_t sc[16], un[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          sc[k] = pack_bf16(dv[2 * k] * scale, dv[2 * k + 1] * scale);
+          un[k] = pack_bf16(dv[2 * k], dv[2 * k + 1]);
+        }
+        bf16* crow = dcopy + q * 2 * hd + 2 * D * h + 128 * hh + d0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint4 vsc = make_uint4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
+                                       sc[4 * c + 3]);
+          *reinterpret_cast<uint4*>(dtile + r * LDT + d0 + 8 * c) = vsc;
+          if (in) {
+            *reinterpret_cast<uint4*>(crow + 8 * c) = vsc;
+            *reinterpret_cast<uint4*>(crow + 64 + 8 * c) = make_uint4(
+                un[4 * c], un[4 * c + 1], un[4 * c + 2], un[4 * c + 3]);
+          }
+        }
+        __syncwarp();  // the warp's rows of the A tile
+      } else if (in) {
+        const bf16* orow = obase + (long)(q0 + r) * hd + col;
 #pragma unroll
         for (int c = 0; c < 32; c += 8) {
           const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv =
+              *reinterpret_cast<const uint4*>(dtile + r * LDT + d0 + c);
           const bf16* op = reinterpret_cast<const bf16*>(&ov);
+          const bf16* dp = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-          for (int k = 0; k < 8; ++k) acc += dv[c + k] * to_f(op[k]) * scale;
+          for (int k = 0; k < 8; ++k) acc += to_f(dp[k]) * to_f(op[k]);
         }
-      }
-      // the warp's fp32 reads are done before the copies, which may
-      // overwrite them, are written
-      __syncwarp();
-      uint32_t sc[16], un[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        sc[k] = pack_bf16(dv[2 * k] * scale, dv[2 * k + 1] * scale);
-        un[k] = pack_bf16(dv[2 * k], dv[2 * k + 1]);
-      }
-      bf16* crow = dcopy + q * 2 * hd + 128 * h + d0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint4 vsc = make_uint4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
-                                     sc[4 * c + 3]);
-        *reinterpret_cast<uint4*>(dos + r * LDT + d0 + 8 * c) = vsc;
-        if (in) {
-          *reinterpret_cast<uint4*>(crow + 8 * c) = vsc;
-          *reinterpret_cast<uint4*>(crow + 64 + 8 * c) = make_uint4(
-              un[4 * c], un[4 * c + 1], un[4 * c + 2], un[4 * c + 3]);
-        }
-      }
-      __syncwarp();  // the warp's rows of the A tile
-    } else if (in) {
-      const bf16* orow = obase + (long)(q0 + r) * hd + h * 64 + d0;
-#pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dos + r * LDT + d0 + c);
-        const bf16* op = reinterpret_cast<const bf16*>(&ov);
-        const bf16* dp = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc += to_f(dp[k]) * to_f(op[k]);
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -480,23 +556,24 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
     rdelta[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
     rdelta[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
   }
-  uint32_t qa[4][4], da[4][4];
-  load_a(qa, qs, warp * 16);
-  load_a(da, dos, warp * 16);
+  HeadRows<NH> qa, da;
+  qa.load(qs, warp * 16);
+  da.load(dos, warp * 16);
 
-  float dq[8][4];
-  zero_acc(dq);
+  float dq[NH][8][4];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) zero_acc(dq[hh]);
   tile_walk(
       first, last, next, stage,
       [&](int t, int buf) {
         const int nc = tile_parts(kend - 64 * t, 8);
         if (!live || nc == 0) return;
-        const bf16* kt = ks + buf * K6_TILE;
+        const bf16* kt = ks + buf * T;
         float s[8][4], dp[8][4];
         zero_acc(s);
         zero_acc(dp);
-        mma_abt(s, qa, kt, nc);
-        mma_abt(dp, da, vs + buf * K6_TILE, nc);
+        qa.abt(s, kt, nc);
+        da.abt(dp, vs + buf * T, nc);
         if (k6_full(bits[t], t, r0, causal)) {
 #pragma unroll
           for (int c = 0; c < 8; ++c)
@@ -536,17 +613,23 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
         }
         uint32_t dsa[4][4];
         pack_a(dsa, s);
-        mma_ab(dq, dsa, kt, tile_parts(kend - 64 * t, 16));
+        const int ns = tile_parts(kend - 64 * t, 16);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          mma_ab(dq[hh], dsa, kt + hh * K6_TILE, ns);
       });
-  store_rows(dqkv + (long)bi * n * ld + h * 64, ld, q0, n, qs, warp * 16, dq);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    store_rows(dqkv + (long)bi * n * ld + h * D + 64 * hh, ld, q0, n,
+               qs + hh * K6_TILE, warp * 16, dq[hh]);
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
 // query tiles that reach it. `stats`: K6's lse or the megablock's sm;
 // `dsrc`: K6's do (b*n x hd) or the megablock's `dcopy`, which the dq
 // kernel wrote.
-template <bool MEGA>
-__global__ void __launch_bounds__(K6_THREADS, 3)
+template <bool MEGA, int NH>
+__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 3 : 2)
 k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                   const uint8_t* __restrict__ mask,
                   const float* __restrict__ stats,
@@ -555,31 +638,37 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                   int n, int heads, float scale, int causal, int maybe_dead) {
   // a query tile's row terms: K6 lse, delta; megablock m, l, delta
   constexpr int NS = MEGA ? 3 : 2;
+  constexpr int D = 64 * NH, T = NH * K6_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + K6_TILE;
-  bf16* qs = vs + K6_TILE;       // two buffers
-  bf16* dos = qs + 2 * K6_TILE;  // two buffers: do (megablock: scaled)
-  bf16* dov = dos + 2 * K6_TILE;  // megablock: two buffers of T(dattn)
-  float* rows = reinterpret_cast<float*>(dov + (MEGA ? 2 * K6_TILE : 0));
+  bf16* vs = ks + T;
+  bf16* qs = vs + T;       // two buffers
+  bf16* dos = qs + 2 * T;  // two buffers: do (megablock: scaled)
+  bf16* dov = dos + 2 * T;  // megablock: two buffers of T(dattn)
+  float* rows = reinterpret_cast<float*>(dov + (MEGA ? 2 * T : 0));
   auto* bits = reinterpret_cast<unsigned long long*>(rows + 2 * NS * 64);
   const int kt = blockIdx.x, k0 = 64 * kt, h = blockIdx.y, bi = blockIdx.z;
-  const int hd = heads * 64, tiles = (n + 63) / 64;
+  const int hd = heads * D, tiles = (n + 63) / 64;
   const long ld = 3L * hd, dld = MEGA ? 2L * hd : hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const bf16* dbase = dsrc + (long)bi * n * dld;
-  const int dcol = MEGA ? 128 * h : 64 * h;
+  // half hh of the head's do: K6 at column D h + 64 hh; the megablock's
+  // scaled copy at 2 D h + 128 hh, T(dattn) 64 columns on
+  const int dcol = MEGA ? 2 * D * h : D * h, dstep = MEGA ? 128 : 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    stage_tile_async<K6_THREADS>(qs + buf * K6_TILE, base, ld, h * 64, 64 * t,
-                                 n);
-    stage_tile_async<K6_THREADS>(dos + buf * K6_TILE, dbase, dld, dcol,
-                                 64 * t, n);
-    if (MEGA)
-      stage_tile_async<K6_THREADS>(dov + buf * K6_TILE, dbase, dld, dcol + 64,
-                                   64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_tile_async<K6_THREADS>(qs + buf * T + hh * K6_TILE, base, ld,
+                                   h * D + 64 * hh, 64 * t, n);
+      stage_tile_async<K6_THREADS>(dos + buf * T + hh * K6_TILE, dbase, dld,
+                                   dcol + dstep * hh, 64 * t, n);
+      if (MEGA)
+        stage_tile_async<K6_THREADS>(dov + buf * T + hh * K6_TILE, dbase, dld,
+                                     dcol + dstep * hh + 64, 64 * t, n);
+    }
     // the tile's row terms: K6 lse (threads 0-63) and delta (64-127);
     // megablock m (0-63), l (64-127), then delta (0-63)
     const int c = threadIdx.x & 63, q = 64 * t + c, k = threadIdx.x >> 6;
@@ -595,8 +684,13 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                 (k == 0 ? stats : delta) + r * heads + h, q < n);
     }
   };
-  stage_tile_async<K6_THREADS>(ks, base, ld, hd + h * 64, k0, n);
-  stage_tile_async<K6_THREADS>(vs, base, ld, 2 * hd + h * 64, k0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    stage_tile_async<K6_THREADS>(ks + hh * K6_TILE, base, ld,
+                                 hd + h * D + 64 * hh, k0, n);
+    stage_tile_async<K6_THREADS>(vs + hh * K6_TILE, base, ld,
+                                 2 * hd + h * D + 64 * hh, k0, n);
+  }
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
   const unsigned long long kw = bits[kt];
@@ -625,15 +719,18 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   const float inv_n = 1.f / (float)n;
   const int first = next(-1);
 
-  float dk[8][4], dv[8][4];
-  zero_acc(dk);
-  zero_acc(dv);
+  float dk[NH][8][4], dv[NH][8][4];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    zero_acc(dk[hh]);
+    zero_acc(dv[hh]);
+  }
   tile_walk(
       first, tiles, next, stage,
       [&](int t, int buf) {
         if (!live) return;
-        const bf16* qt = qs + buf * K6_TILE;
-        const bf16* dot = dos + buf * K6_TILE;
+        const bf16* qt = qs + buf * T;
+        const bf16* dot = dos + buf * T;
         const float* tm = rows + buf * NS * 64;  // K6: lse
         const float* tl = tm + 64;               // megablock only
         const float* tdelta = tm + (NS - 1) * 64;
@@ -651,13 +748,16 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
         auto products = [&](auto cut) {
           const int ncut = decltype(cut)::value ? nc : 8;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            uint32_t a[4];
-            load_a_k(a, ks, warp * 16, k);
-            mma_abt_k(s, a, k, qt, ncut);  // sᵀ = k . qᵀ
-            load_a_k(a, vs, warp * 16, k);
-            mma_abt_k(dp, a, k, dot, ncut);  // dpᵀ = v . doᵀ
-          }
+          for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int o = hh * K6_TILE;
+              uint32_t a[4];
+              load_a_k(a, ks + o, warp * 16, k);
+              mma_abt_k(s, a, k, qt + o, ncut);  // sᵀ = k . qᵀ
+              load_a_k(a, vs + o, warp * 16, k);
+              mma_abt_k(dp, a, k, dot + o, ncut);  // dpᵀ = v . doᵀ
+            }
         };
         if (nc < 8)
           products(std::true_type{});
@@ -713,69 +813,99 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
             }
           uint32_t a[4];
           pack_a_k(a, s, k);  // dv += T(p)ᵀ . do
-          mma_ab_k(dv, a, k, MEGA ? dov + buf * K6_TILE : dot);
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            mma_ab_k(dv[hh], a, k,
+                     (MEGA ? dov + buf * T : dot) + hh * K6_TILE);
           pack_a_k(a, dp, k);  // dk += T(ds)ᵀ . q
-          mma_ab_k(dk, a, k, qt);
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            mma_ab_k(dk[hh], a, k, qt + hh * K6_TILE);
         }
       });
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
   __syncthreads();
-  bf16* dst = dqkv + (long)bi * n * ld + h * 64;
-  store_rows(dst + hd, ld, k0, n, ks, warp * 16, dk);
-  store_rows(dst + 2 * hd, ld, k0, n, vs, warp * 16, dv);
+  bf16* dst = dqkv + (long)bi * n * ld + h * D;
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    store_rows(dst + hd + 64 * hh, ld, k0, n, ks + hh * K6_TILE, warp * 16,
+               dk[hh]);
+    store_rows(dst + 2 * hd + 64 * hh, ld, k0, n, vs + hh * K6_TILE,
+               warp * 16, dv[hh]);
+  }
 }
 
+// shared memory of a head of 64 NH columns (megablock dk/dv at NH 1: 8
+// tiles, 75,520 bytes; at NH 2: 149,248)
+template <int NH>
 constexpr size_t k6_fwd_smem() {
-  return 5 * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
+  return 5 * NH * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
 }
+template <int NH>
 constexpr size_t k6_dq_smem() {
-  return 6 * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
+  return 6 * NH * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
 }
-// megablock: 8 tiles, 75,520 bytes
+template <int NH>
 constexpr size_t k6_dkv_smem(bool mega) {
-  return (mega ? 8 : 6) * K6_TILE * sizeof(bf16) +
+  return (mega ? 8 : 6) * NH * K6_TILE * sizeof(bf16) +
          2 * (mega ? 3 : 2) * 64 * sizeof(float) + K6_MAX_TILES * 8;
 }
 
-// out (b*n x hd) and the row statistics (K6: lse, b*n x heads; megablock:
-// sm, b*n x 2*heads, or null) from qkv (b*n x 3hd).
-template <bool MEGA>
-inline int launch_k6_fwd(const bf16* qkv, const uint8_t* mask, bf16* out,
-                         float* stats, int b, int n, int heads, float scale,
-                         int causal, int maybe_dead, cudaStream_t st) {
-  if (n > K6_MAX_N) return (int)cudaErrorInvalidValue;
-  const size_t smem = k6_fwd_smem();
+// The head widths the kernels take: 64 and 128 (NH = 1, 2); 0 otherwise.
+inline int k6_halves(int dh) { return dh == 64 ? 1 : dh == 128 ? 2 : 0; }
+
+template <bool MEGA, int NH>
+inline int launch_k6_fwd_nh(const bf16* qkv, const uint8_t* mask, bf16* out,
+                            float* stats, int b, int n, int heads,
+                            float scale, int causal, int maybe_dead,
+                            cudaStream_t st) {
+  const size_t smem = k6_fwd_smem<NH>();
   cudaError_t e = cudaFuncSetAttribute(
-      k6_fwd_kernel<MEGA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k6_fwd_kernel<MEGA, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  k6_fwd_kernel<MEGA><<<dim3((n + 63) / 64, heads, b), K6_THREADS, smem, st>>>(
-      qkv, mask, out, stats, n, heads, scale, causal, maybe_dead);
+  k6_fwd_kernel<MEGA, NH>
+      <<<dim3((n + 63) / 64, heads, b), K6_THREADS, smem, st>>>(
+          qkv, mask, out, stats, n, heads, scale, causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
+}
+
+// out (b*n x hd) and the row statistics (K6: lse, b*n x heads; megablock:
+// sm, b*n x 2*heads, or null) from qkv (b*n x 3hd), hd = heads * dh, dh 64
+// or 128.
+template <bool MEGA>
+inline int launch_k6_fwd(const bf16* qkv, const uint8_t* mask, bf16* out,
+                         float* stats, int b, int n, int heads, int dh,
+                         float scale, int causal, int maybe_dead,
+                         cudaStream_t st) {
+  if (n > K6_MAX_N || !k6_halves(dh)) return (int)cudaErrorInvalidValue;
+  return (k6_halves(dh) == 1 ? launch_k6_fwd_nh<MEGA, 1>
+                             : launch_k6_fwd_nh<MEGA, 2>)(
+      qkv, mask, out, stats, b, n, heads, scale, causal, maybe_dead, st);
 }
 
 // dqkv (b*n x 3hd) from qkv, out, the statistics and the row cotangent
 // (K6: lse and the bf16 do; megablock: sm and the fp32 dattn, whose bf16
 // copies go to `dcopy`, b*n x 2hd, which may alias dattn); delta (b*n x
 // heads, fp32) is scratch the dq kernel writes and the dk/dv kernel reads.
-template <bool MEGA>
-inline int launch_k6_bwd(const bf16* qkv, const uint8_t* mask, const bf16* out,
-                         const float* stats, const K6Cot<MEGA>* dout,
-                         bf16* dcopy, bf16* dqkv, float* delta, int b, int n,
-                         int heads, float scale, int causal, int maybe_dead,
-                         cudaStream_t st) {
-  if (n > K6_MAX_N) return (int)cudaErrorInvalidValue;
+template <bool MEGA, int NH>
+inline int launch_k6_bwd_nh(const bf16* qkv, const uint8_t* mask,
+                            const bf16* out, const float* stats,
+                            const K6Cot<MEGA>* dout, bf16* dcopy, bf16* dqkv,
+                            float* delta, int b, int n, int heads,
+                            float scale, int causal, int maybe_dead,
+                            cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      k6_bwd_dq_kernel<MEGA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)k6_dq_smem());
+      k6_bwd_dq_kernel<MEGA, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)k6_dq_smem<NH>());
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k6_bwd_dkv_kernel<MEGA>,
+    e = cudaFuncSetAttribute(k6_bwd_dkv_kernel<MEGA, NH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)k6_dkv_smem(MEGA));
+                             (int)k6_dkv_smem<NH>(MEGA));
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n + 63) / 64, heads, b);
-  k6_bwd_dq_kernel<MEGA><<<grid, K6_THREADS, k6_dq_smem(), st>>>(
+  k6_bwd_dq_kernel<MEGA, NH><<<grid, K6_THREADS, k6_dq_smem<NH>(), st>>>(
       qkv, mask, out, stats, dout, dcopy, dqkv, delta, n, heads, scale,
       causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
@@ -784,11 +914,25 @@ inline int launch_k6_bwd(const bf16* qkv, const uint8_t* mask, const bf16* out,
     dsrc = dcopy;
   else
     dsrc = dout;
-  k6_bwd_dkv_kernel<MEGA><<<grid, K6_THREADS, k6_dkv_smem(MEGA), st>>>(
-      qkv, mask, stats, dsrc, delta, dqkv, n, heads, scale, causal,
-      maybe_dead);
+  k6_bwd_dkv_kernel<MEGA, NH>
+      <<<grid, K6_THREADS, k6_dkv_smem<NH>(MEGA), st>>>(
+          qkv, mask, stats, dsrc, delta, dqkv, n, heads, scale, causal,
+          maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
+}
+
+template <bool MEGA>
+inline int launch_k6_bwd(const bf16* qkv, const uint8_t* mask, const bf16* out,
+                         const float* stats, const K6Cot<MEGA>* dout,
+                         bf16* dcopy, bf16* dqkv, float* delta, int b, int n,
+                         int heads, int dh, float scale, int causal,
+                         int maybe_dead, cudaStream_t st) {
+  if (n > K6_MAX_N || !k6_halves(dh)) return (int)cudaErrorInvalidValue;
+  return (k6_halves(dh) == 1 ? launch_k6_bwd_nh<MEGA, 1>
+                             : launch_k6_bwd_nh<MEGA, 2>)(
+      qkv, mask, out, stats, dout, dcopy, dqkv, delta, b, n, heads, scale,
+      causal, maybe_dead, st);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // The attention core of the attention megablock (K-MEGA, K2, K3:
 // csrc/attention_megablock.cu) and of whole-head attention on a fused qkv
 // (K6: csrc/attention_block.cu): softmax(q . kᵀ · scale) · v per (batch
-// element, head) from the (b·n, 3·heads·64) qkv, and its backward; K7's
-// fp32 forward and backward (csrc/flash_attention.cu) run the same kernels
-// in a mode of their own.
+// element, head) from the (b·n, 3·heads·D) qkv, D = 64 or 128, and its
+// backward; K7's fp32 forward and backward (csrc/flash_attention.cu) run
+// the same kernels in a mode of their own.
 //
 // Cast order (as the Pallas kernels): scores are fp32 (q . k) * scale; keys
 // where the mask is 0, and keys past the query when causal, get -inf. With
@@ -11,7 +11,7 @@
 // (uniform weights over the n real keys). l = max(sum p, 1e-30); p / l is
 // cast to the storage dtype before p @ v (fp32 accumulation), and the head
 // outputs are cast to the storage dtype. Head h takes q from columns
-// [h*64, (h+1)*64) of a row, k from hd + h*64 and v from 2*hd + h*64.
+// [h*D, (h+1)*D) of a row, k from hd + h*D and v from 2*hd + h*D.
 //
 // bf16 runs on the mma.sync kernels of attention_block_sm90.cuh: K6 in
 // their K6 mode, the megablock in their megablock mode (launch_attention
@@ -45,8 +45,8 @@
 // is zeroed on dead rows; dq = ds · k, dk = dsᵀ · q, dv = pᵀ · do.
 // K7's mode (kK7), forward and backward, is K6's with scale 1 (its q comes
 // pre-scaled) and no dead-row rule (a K7 row with no valid key has lse =
-// log 1e-30 and p 0 on every key), on separate (b·h, n, 64) q, k, v, out,
-// do and dq, dk, dv (one head, row stride 64) and a (b·h, n) mask, with no
+// log 1e-30 and p 0 on every key), on separate (b·h, n, D) q, k, v, out,
+// do and dq, dk, dv (one head, row stride D) and a (b·h, n) mask, with no
 // length limit: each warp reads a key tile's mask word from global memory
 // as it walks it (mma_tiles.cuh's key_word, next_key_tile) instead of
 // keeping every tile's word in shared memory.
@@ -103,13 +103,20 @@
 // max and sum exchanged through shared memory: tools/fwd_exchange.patch),
 // the forward's expf (tools/fwd_expf.patch), in every mode (K7's too),
 // against the shipped choices (PERF.md).
+//
+// A head of 128 (NH = 2, every mode) is two 64-column halves, each a tile
+// of its own: a score (dp) tile sums the halves' products, and each half
+// keeps its own output sums (o, dq, dk, dv). The head's tiles double, the
+// p / ds tile does not: 11 tiles (176 KB) a forward block, 13 (208 KB) a
+// backward one, under the card's 227 KB a block, so one block an SM, 255
+// registers a thread.
 #pragma once
 
 #include "attention_block_sm90.cuh"
 
 namespace {
 
-constexpr int DH = 64;  // dim_head
+constexpr int DH = 64;  // a tile's columns: a head is DH NH
 
 // The row statistics of query q, head h: the megablock's (m, l) in sm,
 // (b*n) x (2*heads) with m at column h and l at heads + h; K6's lse,
@@ -126,7 +133,7 @@ __device__ __forceinline__ void store_row_stats(float* sm, float* lse, int bi,
 }
 
 // The fp32 kernels' modes: the megablock's (m, l) statistics; K6's lse;
-// K7's lse on separate (b·h, n, 64) tensors, no dead-row rule and no
+// K7's lse on separate (b·h, n, D) tensors, no dead-row rule and no
 // length limit (the mask words read per tile from global memory).
 enum CoreMode : int { kMega = 0, kK6 = 1, kK7 = 2 };
 
@@ -152,11 +159,19 @@ constexpr int kBwdBlocks = kBwdPTiles == 1 ? 2 : 1;  // blocks an SM
 // (true; a few fp32 ulps from expf, well inside the 1e-4 gate), or expf
 // (false). The forward's is always ex2.approx.
 constexpr bool kBwdEx2 = true;
+// shared memory at a head of DH NH columns
+template <int NH = 1>
 constexpr size_t kBwdDqSmem =
-    sizeof(float) * (7 * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
+    sizeof(float) * ((6 * NH + 1) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
+template <int NH = 1>
 constexpr size_t kBwdDkvSmem = sizeof(float) *
-    ((6 + kBwdPTiles) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
-constexpr size_t kFwdSmem = sizeof(float) * 6 * BT + 8 * xclip::K6_MAX_TILES;
+    ((6 * NH + kBwdPTiles) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
+template <int NH = 1>
+constexpr size_t kFwdSmem =
+    sizeof(float) * (5 * NH + 1) * BT + 8 * xclip::K6_MAX_TILES;
+// blocks an SM at NH (two at 64; shared memory allows one at 128)
+template <int NH>
+constexpr int kBlocks = NH == 1 ? 2 : 1;
 
 template <bool EX2>
 __device__ __forceinline__ float core_exp(float x, float m) {
@@ -254,8 +269,8 @@ __device__ __forceinline__ void row_bases(const float* (&base)[8],
 // acc[i][j] = a[4 ty + i] . b[tx + TX j] over the 64 columns (q . kᵀ, do .
 // vᵀ and, in the dk/dv kernel, k . qᵀ, v . doᵀ), for the first NJ column
 // groups j (the rest hold no key or query of the tile and are left
-// alone); one FMA chain an element, in column order.
-template <int NJ, bool RW = false>
+// alone); one FMA chain an element, in column order. ACC: acc += instead.
+template <int NJ, bool RW = false, bool ACC = false>
 __device__ __forceinline__ void tile_abt(float (&acc)[4][kBwdTN],
                                          const float* a, const float* b) {
   constexpr int TX = kBwdTX;
@@ -271,10 +286,12 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][kBwdTN],
 #pragma unroll
     for (int lo = 0; lo < 8; ++lo)
       pb[par][lo] = b + tx * 64 + ((lo ^ swz(tx + TX * par)) << 2);
+  if constexpr (!ACC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
 #pragma unroll 1
   for (int hi = 0; hi < 2; ++hi) {  // halves of the depth
 #pragma unroll
@@ -341,6 +358,15 @@ __device__ __forceinline__ void tile_ab(float (&acc)[4][kBwdTN],
       }
     }
   }
+}
+
+// tile_abt over a head of NH tiles (tile hh at `a + hh * BT`, `b + hh *
+// BT`): the halves' products summed in order.
+template <int NH, int NJ, bool RW = false>
+__device__ __forceinline__ void head_abt(float (&acc)[4][kBwdTN],
+                                         const float* a, const float* b) {
+  tile_abt<NJ, RW>(acc, a, b);
+  if constexpr (NH == 2) tile_abt<NJ, RW, true>(acc, a + BT, b + BT);
 }
 
 // f(integral_constant<k>) for the smallest k in 1..N with k >= m (N if m
@@ -432,9 +458,9 @@ struct KeyTiles {
 // one block per (64-query tile, head, batch element), the last query
 // tiles (the most key tiles when causal) first; the rows' statistics into
 // `stats`: the megablock's (m, l) (kMega; or none, null), K6's lse (kK6)
-// or K7's (kK7: m_safe + log l, one head, q pre-scaled).
-template <int MODE>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+// or K7's (kK7: m_safe + log l, one head, q pre-scaled). Heads of DH NH.
+template <int MODE, int NH>
+__global__ void __launch_bounds__(kBwdThreads, kBlocks<NH>)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, long ld,
                      const uint8_t* __restrict__ mask,
@@ -443,35 +469,40 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int maybe_dead) {
   using namespace xclip;
   constexpr bool RW = true;  // the warp shape: a row's threads in one warp
-  constexpr int TX = kBwdTX;
+  constexpr int TX = kBwdTX, D = DH * NH, HT = NH * BT;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + BT;      // two buffers
-  float* vs = ks + 2 * BT;  // two buffers
-  float* ps = vs + 2 * BT;  // p
+  float* ks = qs + HT;      // two buffers
+  float* vs = ks + 2 * HT;  // two buffers
+  float* ps = vs + 2 * HT;  // p
   auto* bits = reinterpret_cast<unsigned long long*>(ps + BT);
-  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+  if constexpr (MODE == kK7) {  // one head, q pre-scaled
     heads = 1;
-    ld = DH;
+    ld = D;
     scale = 1.f;
     maybe_dead = 0;
   }
   const int tiles = (n + 63) / 64;
   const CoreBlock<MODE> blk(tiles);
   const int q0 = 64 * (tiles - 1 - blk.t), h = blk.h, bi = blk.bi;
-  const int hd = heads * DH;
+  const int hd = heads * D;
   const long rows = (long)bi * n;
   const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
 
   // the walked rows' bases (the head's first column)
-  const float* kb = k + rows * ld + h * DH;
-  const float* vb = v + rows * ld + h * DH;
+  const float* kb = k + rows * ld + h * D;
+  const float* vb = v + rows * ld + h * D;
   auto stage = [&](int t, int buf) {
-    stage_f32(ks + buf * BT, kb, ld, 0, 64 * t, n);
-    stage_f32(vs + buf * BT, vb, ld, 0, 64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
+      stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
+    }
   };
   // q lands with the first key tile's copies (tile_walk)
-  stage_f32(qs, q + rows * ld, ld, h * DH, q0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
   const KeyTiles<MODE> keys(bits, mask + rows, n);
   const int fv = keys.fv;
   // a row below `dead_end` has no valid key (maybe_dead): m = 0 and p = 1
@@ -490,7 +521,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = q0 + 4 * ty;  // the thread's rows r0 + i
 
   // per row: the running max, this thread's share of the running sum
-  float m[4], l[4], o[4][kBwdTN] = {};
+  float m[4], l[4], o[NH][4][kBwdTN] = {};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -509,7 +540,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) mt[i] = -INFINITY;
       if (wrun) {
-        tile_abt<NJ, RW>(s, qs, ks + buf * BT);
+        head_abt<NH, NJ, RW>(s, qs, ks + buf * HT);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -543,12 +574,18 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
           l[i] = l[i] * corr + sum;
 #pragma unroll
-          for (int e = 0; e < kBwdTN; ++e) o[i][e] *= corr;
+          for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+            for (int e = 0; e < kBwdTN; ++e) o[hh][i][e] *= corr;
           m[i] = mn;
         }
       }
       __syncwarp();  // the warp reads only its own rows of p
-      if (wrun) tile_ab<NJ * TX / 4, RW>(o, ps, vs + buf * BT);
+      if (wrun) {
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          tile_ab<NJ * TX / 4, RW>(o[hh], ps, vs + buf * HT + hh * BT);
+      }
     });
   });
   cp_async_wait<0>();  // q has landed even if no tile was walked
@@ -557,7 +594,9 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int e = 0; e < kBwdTN; ++e) o[i][e] /= li;
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int e = 0; e < kBwdTN; ++e) o[hh][i][e] /= li;
     // K7's lse takes m_safe: 0 where the row had no valid key
     const float mi = MODE == kK7 && m[i] == -INFINITY ? 0.f : m[i];
     if (tx == 0 && r0 + i < n)
@@ -565,7 +604,9 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       MODE == kMega ? nullptr : stats, bi, n, r0 + i, h,
                       heads, mi, li);
   }
-  store_tile<RW>(attnout + rows * hd + h * DH, hd, q0, n, o);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    store_tile<RW>(attnout + rows * hd + h * D + DH * hh, hd, q0, n, o[hh]);
 }
 
 // A kernel's shared memory (above the 48 KB default) and the SM's largest
@@ -580,66 +621,80 @@ inline cudaError_t core_setup(const void* kernel, size_t smem) {
   return e;
 }
 
-// fp32: attnout (b*n x heads*64) from q, k, v (row stride ld, head h at
-// column h*64) and the rows' statistics into `stats` (kMega: the
-// megablock's sm, or none; kK6, kK7: lse). The tiles are copied 16 bytes
-// at a time: every pointer 16-byte aligned. kMega, kK6: n at most K6_MAX_N
-// (the mask words); kK7: one head, n a multiple of 64, no dead rows, any
-// length, the mask 8-byte aligned.
-template <int MODE>
-int launch_fma_fwd(const float* q, const float* k, const float* v, long ld,
-                   const uint8_t* mask, float* attnout, float* stats, int b,
-                   int n, int heads, float scale, int causal, int maybe_dead,
-                   cudaStream_t st) {
-  using xclip::aligned16;
-  const dim3 grid = core_grid<MODE>(b, n, heads);
-  const bool shape_ok =
-      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == DH && !maybe_dead
-                  : n <= xclip::K6_MAX_N;
-  if (!shape_ok || !grid.x || ld % 4 || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !aligned16(attnout) ||
-      (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
-    return (int)cudaErrorInvalidValue;
+template <int MODE, int NH>
+int launch_fma_fwd_nh(const float* q, const float* k, const float* v, long ld,
+                      const uint8_t* mask, float* attnout, float* stats,
+                      dim3 grid, int n, int heads, float scale, int causal,
+                      int maybe_dead, cudaStream_t st) {
   const cudaError_t e =
-      core_setup((const void*)attention_fwd_kernel<MODE>, kFwdSmem);
+      core_setup((const void*)attention_fwd_kernel<MODE, NH>, kFwdSmem<NH>);
   if (e != cudaSuccess) return (int)e;
-  attention_fwd_kernel<MODE><<<grid, kBwdThreads, kFwdSmem, st>>>(
+  attention_fwd_kernel<MODE, NH><<<grid, kBwdThreads, kFwdSmem<NH>, st>>>(
       q, k, v, ld, mask, attnout, stats, n, heads, scale, causal,
       maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
-// attnout (b*n x hd, T) from qkv (b*n x 3hd, T); with `sm` the rows' (m,
-// l), with `lse` (fp32 only: bf16 K6 launches its own kernel) their
-// log-sum-exp. fp32: launch_fma_fwd's limits.
+// fp32: attnout (b*n x heads*dh) from q, k, v (row stride ld, head h at
+// column h*dh, dh 64 or 128) and the rows' statistics into `stats`
+// (kMega: the megablock's sm, or none; kK6, kK7: lse). The tiles are
+// copied 16 bytes at a time: every pointer 16-byte aligned. kMega, kK6: n
+// at most K6_MAX_N (the mask words); kK7: one head, ld = dh, n a multiple
+// of 64, no dead rows, any length, the mask 8-byte aligned.
+template <int MODE>
+int launch_fma_fwd(const float* q, const float* k, const float* v, long ld,
+                   const uint8_t* mask, float* attnout, float* stats, int b,
+                   int n, int heads, int dh, float scale, int causal,
+                   int maybe_dead, cudaStream_t st) {
+  using xclip::aligned16;
+  const dim3 grid = core_grid<MODE>(b, n, heads);
+  const int nh = xclip::k6_halves(dh);
+  const bool shape_ok =
+      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == dh && !maybe_dead
+                  : n <= xclip::K6_MAX_N;
+  if (!nh || !shape_ok || !grid.x || ld % 4 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(attnout) ||
+      (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
+    return (int)cudaErrorInvalidValue;
+  return (nh == 1 ? launch_fma_fwd_nh<MODE, 1> : launch_fma_fwd_nh<MODE, 2>)(
+      q, k, v, ld, mask, attnout, stats, grid, n, heads, scale, causal,
+      maybe_dead, st);
+}
+
+// attnout (b*n x hd, T) from qkv (b*n x 3hd, T), hd = heads * dh; with
+// `sm` the rows' (m, l), with `lse` (fp32 only: bf16 K6 launches its own
+// kernel) their log-sum-exp. fp32: launch_fma_fwd's limits.
 template <typename T>
 int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
-                     int n, int heads, float scale, int causal, int maybe_dead,
-                     float* sm, cudaStream_t st, float* lse = nullptr) {
+                     int n, int heads, int dh, float scale, int causal,
+                     int maybe_dead, float* sm, cudaStream_t st,
+                     float* lse = nullptr) {
   if constexpr (std::is_same<T, xclip::bf16>::value) {
     return xclip::launch_k6_fwd<true>(qkv, mask, attnout, sm, b, n, heads,
-                                      scale, causal, maybe_dead, st);
+                                      dh, scale, causal, maybe_dead, st);
   } else {
-    const int hd = heads * DH;
+    const int hd = heads * dh;
     auto* launch = lse ? launch_fma_fwd<kK6> : launch_fma_fwd<kMega>;
     return launch(qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask, attnout,
-                  lse ? lse : sm, b, n, heads, scale, causal, maybe_dead, st);
+                  lse ? lse : sm, b, n, heads, dh, scale, causal, maybe_dead,
+                  st);
   }
 }
 
-// Blocks an SM of the fp32 forward in MODE, as the occupancy calculator
-// gives them for the build's registers and the kernel's shared memory; a
-// negative cudaError_t code on failure. A template, so that only a file
-// calling it builds the forward.
+// Blocks an SM of the fp32 forward in MODE at heads of 64, as the
+// occupancy calculator gives them for the build's registers and the
+// kernel's shared memory; a negative cudaError_t code on failure. A
+// template, so that only a file calling it builds the forward.
 template <int MODE>
 int attention_fwd_blocks() {
-  const void* fwd = (const void*)attention_fwd_kernel<MODE>;
+  const void* fwd = (const void*)attention_fwd_kernel<MODE, 1>;
   int blocks = 0;
-  cudaError_t e = core_setup(fwd, kFwdSmem);
+  cudaError_t e = core_setup(fwd, kFwdSmem<1>);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fwd,
-                                                      kBwdThreads, kFwdSmem);
+                                                      kBwdThreads,
+                                                      kFwdSmem<1>);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
@@ -651,8 +706,9 @@ int attention_fwd_blocks() {
 // hd); `attnout` the forward's attention output (b*n x hd); `stats` the
 // forward's row statistics (K6's and K7's lse; the megablock's (m, l)).
 // Writes delta into its scratch for the dk/dv kernel, dq (row stride ld).
-template <int MODE>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+// Heads of DH NH.
+template <int MODE, int NH>
+__global__ void __launch_bounds__(kBwdThreads, kBlocks<NH>)
 attention_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, long ld,
@@ -665,42 +721,48 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
                         int maybe_dead) {
   using namespace xclip;
   constexpr bool LSE = MODE != kMega;
-  constexpr int TX = kBwdTX;
+  constexpr int TX = kBwdTX, D = DH * NH, HT = NH * BT;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* dos = qs + BT;
-  float* ks = dos + BT;      // two buffers
-  float* vs = ks + 2 * BT;   // two buffers
-  float* dss = vs + 2 * BT;  // ds
+  float* dos = qs + HT;
+  float* ks = dos + HT;      // two buffers
+  float* vs = ks + 2 * HT;   // two buffers
+  float* dss = vs + 2 * HT;  // ds
   // the tile's rows: delta, m (K6, K7: lse) and 1 / l (K6, K7: 1)
   float* rdelta = dss + BT;
   float* rmax = rdelta + 64;
   float* rlinv = rmax + 64;
   auto* bits = reinterpret_cast<unsigned long long*>(rlinv + 64);
-  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+  if constexpr (MODE == kK7) {  // one head, q pre-scaled
     heads = 1;
-    ld = DH;
+    ld = D;
     scale = 1.f;
     maybe_dead = 0;
   }
   const int tiles = (n + 63) / 64;
   const CoreBlock<MODE> blk(tiles);
   const int q0 = 64 * (tiles - 1 - blk.t), h = blk.h, bi = blk.bi;
-  const int hd = heads * DH;
+  const int hd = heads * D;
   const long rows = (long)bi * n;
   const int tx = thr_tx(), ty = thr_ty();
   // the megablock folds the softmax scale into dp and delta, K6 into ds
   const float dscale = LSE ? 1.f : scale;
 
   // the walked rows' bases (the head's first column)
-  const float* kb = k + rows * ld + h * DH;
-  const float* vb = v + rows * ld + h * DH;
+  const float* kb = k + rows * ld + h * D;
+  const float* vb = v + rows * ld + h * D;
   auto stage = [&](int t, int buf) {
-    stage_f32(ks + buf * BT, kb, ld, 0, 64 * t, n);
-    stage_f32(vs + buf * BT, vb, ld, 0, 64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
+      stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
+    }
   };
-  stage_f32(qs, q + rows * ld, ld, h * DH, q0, n);
-  stage_f32(dos, dattn + rows * hd, hd, h * DH, q0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
+    stage_f32(dos + hh * BT, dattn + rows * hd, hd, h * D + DH * hh, q0, n);
+  }
   cp_async_commit();
   const KeyTiles<MODE> keys(bits, mask + rows, n);
   const int fv = keys.fv;
@@ -718,15 +780,19 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
     const int r = threadIdx.x / G, part = threadIdx.x % G, qi = q0 + r;
     float acc = 0.f;
     if (qi < n) {
-      const float* orow = attnout + (rows + qi) * hd + h * DH;
 #pragma unroll
-      for (int c = part * CH; c < (part + 1) * CH; ++c) {
-        const float4 o = *reinterpret_cast<const float4*>(orow + 4 * c);
-        const float4 d = lds4(dos + r * 64 + ((c ^ swz(r)) << 2));
-        acc += d.x * o.x * dscale;
-        acc += d.y * o.y * dscale;
-        acc += d.z * o.z * dscale;
-        acc += d.w * o.w * dscale;
+      for (int hh = 0; hh < NH; ++hh) {
+        const float* orow = attnout + (rows + qi) * hd + h * D + DH * hh;
+        const float* drow = dos + hh * BT + r * 64;
+#pragma unroll
+        for (int c = part * CH; c < (part + 1) * CH; ++c) {
+          const float4 o = *reinterpret_cast<const float4*>(orow + 4 * c);
+          const float4 d = lds4(drow + ((c ^ swz(r)) << 2));
+          acc += d.x * o.x * dscale;
+          acc += d.y * o.y * dscale;
+          acc += d.z * o.z * dscale;
+          acc += d.w * o.w * dscale;
+        }
       }
     }
 #pragma unroll
@@ -751,9 +817,9 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
   const bool wlive = row0 < n;
   const int kend = causal ? min(n, row0 + 16) : n;
 
-  float dqa[4][kBwdTN] = {};
+  float dqa[NH][4][kBwdTN] = {};
   tile_walk(first, last, next, stage, [&](int t, int buf) {
-    const float* kt = ks + buf * BT;
+    const float* kt = ks + buf * HT;
     const unsigned long long word = keys.word(t);
     // the column groups (of TX keys) that hold a key the warp's rows read:
     // up to the tile's last valid key and, causal, the warp's last row
@@ -763,8 +829,8 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
       with_groups<kBwdTN>(groups, [&](auto nj) {
         constexpr int NJ = decltype(nj)::value;
         float s[4][kBwdTN], dp[4][kBwdTN];
-        tile_abt<NJ>(s, qs, kt);
-        tile_abt<NJ>(dp, dos, vs + buf * BT);
+        head_abt<NH, NJ>(s, qs, kt);
+        head_abt<NH, NJ>(dp, dos, vs + buf * HT);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           // the row's terms; a dead row's ds is 0
@@ -793,18 +859,24 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
     // the ds tile)
     if (wlive)
       with_groups<kBwdTN>(groups, [&](auto nj) {
-        tile_ab<decltype(nj)::value * TX / 4>(dqa, dss, kt);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          tile_ab<decltype(nj)::value * TX / 4>(dqa[hh], dss, kt + hh * BT);
       });
   });
-  store_tile(dq + rows * ld + h * DH, ld, q0, n, dqa);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+    store_tile(dq + rows * ld + h * D + DH * hh, ld, q0, n, dqa[hh]);
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
 // query tiles that reach it: from the key tile's on when causal, and
 // every tile holding a dead row (its p = 1/n reaches every key). Operands
-// as the dq kernel's (delta its output); dk, dv with row stride ld.
-template <int MODE>
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+// as the dq kernel's (delta its output); dk, dv with row stride ld. Heads
+// of DH NH.
+template <int MODE, int NH>
+__global__ void __launch_bounds__(kBwdThreads,
+                                  NH == 1 ? kBwdBlocks : kBlocks<NH>)
 attention_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, long ld,
@@ -817,40 +889,46 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
                          int maybe_dead) {
   using namespace xclip;
   constexpr bool LSE = MODE != kMega;
-  constexpr int TX = kBwdTX;
+  constexpr int TX = kBwdTX, D = DH * NH, HT = NH * BT;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + BT;
-  float* qs = vs + BT;        // two buffers
-  float* dos = qs + 2 * BT;   // two buffers
-  float* ps = dos + 2 * BT;   // p, then ds (kBwdPTiles 2: p; ds next)
+  float* vs = ks + HT;
+  float* qs = vs + HT;        // two buffers
+  float* dos = qs + 2 * HT;   // two buffers
+  float* ps = dos + 2 * HT;   // p, then ds (kBwdPTiles 2: p; ds next)
   float* dss = ps + (kBwdPTiles - 1) * BT;
   // the walked query tile's row terms: m (K6, K7: lse), 1 / l (K6: 1; 1/n
   // on a dead row) and delta, 64 each
   float* terms = ps + kBwdPTiles * BT;
   auto* bits = reinterpret_cast<unsigned long long*>(terms + 3 * 64);
-  if constexpr (MODE == kK7) {  // one head of 64, q pre-scaled
+  if constexpr (MODE == kK7) {  // one head, q pre-scaled
     heads = 1;
-    ld = DH;
+    ld = D;
     scale = 1.f;
     maybe_dead = 0;
   }
   const int tiles = (n + 63) / 64;
   const CoreBlock<MODE> blk(tiles);
   const int kt = blk.t, k0 = 64 * kt, h = blk.h, bi = blk.bi;
-  const int hd = heads * DH;
+  const int hd = heads * D;
   const long rows = (long)bi * n;
   const int tx = thr_tx(), ty = thr_ty();
 
   // the walked rows' bases (the head's first column)
-  const float* qb = q + rows * ld + h * DH;
-  const float* db = dattn + rows * hd + h * DH;
+  const float* qb = q + rows * ld + h * D;
+  const float* db = dattn + rows * hd + h * D;
   auto stage = [&](int t, int buf) {
-    stage_f32(qs + buf * BT, qb, ld, 0, 64 * t, n);
-    stage_f32(dos + buf * BT, db, hd, 0, 64 * t, n);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      stage_f32(qs + buf * HT + hh * BT, qb, ld, DH * hh, 64 * t, n);
+      stage_f32(dos + buf * HT + hh * BT, db, hd, DH * hh, 64 * t, n);
+    }
   };
-  stage_f32(ks, k + rows * ld, ld, h * DH, k0, n);
-  stage_f32(vs, v + rows * ld, ld, h * DH, k0, n);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    stage_f32(ks + hh * BT, k + rows * ld, ld, h * D + DH * hh, k0, n);
+    stage_f32(vs + hh * BT, v + rows * ld, ld, h * D + DH * hh, k0, n);
+  }
   cp_async_commit();
   const KeyTiles<MODE> keys(bits, mask + rows, n);
   const int fv = keys.fv;
@@ -901,10 +979,10 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
     if (e < 3 * 64) terms[e] = fetch(first, e);
   }
 
-  float dka[4][kBwdTN] = {}, dva[4][kBwdTN] = {};
+  float dka[NH][4][kBwdTN] = {}, dva[NH][4][kBwdTN] = {};
   tile_walk(first, tiles, next, stage, [&](int t, int buf) {
-    const float* qt = qs + buf * BT;
-    const float* dt = dos + buf * BT;
+    const float* qt = qs + buf * HT;
+    const float* dt = dos + buf * HT;
     const bool wrun = wlive && (wkeys || 64 * t < dead_end);
     const int u = next(t);
     float fetched[FT];
@@ -920,7 +998,7 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
       // doᵀ) into its tile, then dk += dsᵀ . q
       float a[4][kBwdTN];
       if (wrun) {
-        tile_abt<NJ>(a, ks, qt);
+        head_abt<NH, NJ>(a, ks, qt);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -939,10 +1017,14 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
       }
       if constexpr (kBwdPTiles == 1) {
         __syncthreads();
-        if (wrun) tile_ab<NJ * TX / 4>(dva, ps, dt);
+        if (wrun) {
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            tile_ab<NJ * TX / 4>(dva[hh], ps, dt + hh * BT);
+        }
       }
       if (wrun) {
-        tile_abt<NJ>(a, vs, dt);
+        head_abt<NH, NJ>(a, vs, dt);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -970,93 +1052,116 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
         if (e < 3 * 64) terms[e] = fetched[f];
       }
       if (wrun) {
-        if constexpr (kBwdPTiles == 2) tile_ab<NJ * TX / 4>(dva, ps, dt);
-        tile_ab<NJ * TX / 4>(dka, dss, qt);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) {
+          if constexpr (kBwdPTiles == 2)
+            tile_ab<NJ * TX / 4>(dva[hh], ps, dt + hh * BT);
+          tile_ab<NJ * TX / 4>(dka[hh], dss, qt + hh * BT);
+        }
       }
     });
   });
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
-  store_tile(dk + rows * ld + h * DH, ld, k0, n, dka);
-  store_tile(dv + rows * ld + h * DH, ld, k0, n, dva);
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+    store_tile(dk + rows * ld + h * D + DH * hh, ld, k0, n, dka[hh]);
+    store_tile(dv + rows * ld + h * D + DH * hh, ld, k0, n, dva[hh]);
+  }
 }
 
-template <int MODE>
+template <int MODE, int NH = 1>
 cudaError_t attention_bwd_setup() {
-  cudaError_t e =
-      core_setup((const void*)attention_bwd_dq_kernel<MODE>, kBwdDqSmem);
+  cudaError_t e = core_setup((const void*)attention_bwd_dq_kernel<MODE, NH>,
+                             kBwdDqSmem<NH>);
   return e == cudaSuccess
-             ? core_setup((const void*)attention_bwd_dkv_kernel<MODE>,
-                          kBwdDkvSmem)
+             ? core_setup((const void*)attention_bwd_dkv_kernel<MODE, NH>,
+                          kBwdDkvSmem<NH>)
              : e;
 }
 
 // Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel
-// in MODE, as the occupancy calculator gives them for the build's
-// registers and the kernels' shared memory; a negative cudaError_t code on
-// failure.
+// in MODE at heads of 64, as the occupancy calculator gives them for the
+// build's registers and the kernels' shared memory; a negative cudaError_t
+// code on failure.
 template <int MODE>
 int attention_bwd_blocks(int which) {
   int blocks = 0;
   cudaError_t e = attention_bwd_setup<MODE>();
   if (e == cudaSuccess)
     e = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dq_kernel<MODE>, kBwdThreads,
-                         kBwdDqSmem)
+                         &blocks, attention_bwd_dq_kernel<MODE, 1>,
+                         kBwdThreads, kBwdDqSmem<1>)
                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dkv_kernel<MODE>, kBwdThreads,
-                         kBwdDkvSmem);
+                         &blocks, attention_bwd_dkv_kernel<MODE, 1>,
+                         kBwdThreads, kBwdDkvSmem<1>);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-// fp32: dq, dk, dv (row stride ld, head h at column h*64) from q, k, v
-// (the same strides), the row cotangents dattn (b*n x hd), the forward's
-// output attnout (b*n x hd) and row statistics (kK6, kK7: lse; kMega: the
-// megablock's sm); `delta` is b*n x heads scratch (the dq kernel writes
-// it, the dk/dv kernel reads it). The tiles are copied 16 bytes at a time:
-// every pointer 16-byte aligned. kMega, kK6: n at most K6_MAX_N (the mask
-// words); kK7: one head, n a multiple of 64, no dead rows, any length.
-template <int MODE>
-int launch_fma_bwd(const float* q, const float* k, const float* v, long ld,
-                   const uint8_t* mask, const float* dattn,
-                   const float* attnout, const float* stats, float* dq,
-                   float* dk, float* dv, float* delta, int b, int n,
-                   int heads, float scale, int causal, int maybe_dead,
-                   cudaStream_t st) {
-  using xclip::aligned16;
-  const dim3 grid = core_grid<MODE>(b, n, heads);
-  const bool shape_ok =
-      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == DH && !maybe_dead
-                  : n <= xclip::K6_MAX_N;
-  if (!shape_ok || !grid.x || ld % 4 || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dattn) ||
-      !aligned16(attnout) || !aligned16(dq) || !aligned16(dk) ||
-      !aligned16(dv) || (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t ce = attention_bwd_setup<MODE>();
+template <int MODE, int NH>
+int launch_fma_bwd_nh(const float* q, const float* k, const float* v, long ld,
+                      const uint8_t* mask, const float* dattn,
+                      const float* attnout, const float* stats, float* dq,
+                      float* dk, float* dv, float* delta, dim3 grid, int n,
+                      int heads, float scale, int causal, int maybe_dead,
+                      cudaStream_t st) {
+  const cudaError_t ce = attention_bwd_setup<MODE, NH>();
   if (ce != cudaSuccess) return (int)ce;
-  attention_bwd_dq_kernel<MODE><<<grid, kBwdThreads, kBwdDqSmem, st>>>(
+  attention_bwd_dq_kernel<MODE, NH>
+      <<<grid, kBwdThreads, kBwdDqSmem<NH>, st>>>(
           q, k, v, ld, mask, dattn, attnout, stats, dq, delta, n, heads,
           scale, causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
-  attention_bwd_dkv_kernel<MODE><<<grid, kBwdThreads, kBwdDkvSmem, st>>>(
+  attention_bwd_dkv_kernel<MODE, NH>
+      <<<grid, kBwdThreads, kBwdDkvSmem<NH>, st>>>(
           q, k, v, ld, mask, dattn, stats, delta, dk, dv, n, heads, scale,
           causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
   return 0;
 }
 
-// The fused layout's backward (kMega, kK6): dqkv (b*n x 3hd) from qkv and
-// the rest as launch_fma_bwd's.
+// fp32: dq, dk, dv (row stride ld, head h at column h*dh, dh 64 or 128)
+// from q, k, v (the same strides), the row cotangents dattn (b*n x hd), the
+// forward's output attnout (b*n x hd) and row statistics (kK6, kK7: lse;
+// kMega: the megablock's sm); `delta` is b*n x heads scratch (the dq
+// kernel writes it, the dk/dv kernel reads it). The tiles are copied 16
+// bytes at a time: every pointer 16-byte aligned. kMega, kK6: n at most
+// K6_MAX_N (the mask words); kK7: one head, ld = dh, n a multiple of 64,
+// no dead rows, any length.
+template <int MODE>
+int launch_fma_bwd(const float* q, const float* k, const float* v, long ld,
+                   const uint8_t* mask, const float* dattn,
+                   const float* attnout, const float* stats, float* dq,
+                   float* dk, float* dv, float* delta, int b, int n,
+                   int heads, int dh, float scale, int causal, int maybe_dead,
+                   cudaStream_t st) {
+  using xclip::aligned16;
+  const dim3 grid = core_grid<MODE>(b, n, heads);
+  const int nh = xclip::k6_halves(dh);
+  const bool shape_ok =
+      MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == dh && !maybe_dead
+                  : n <= xclip::K6_MAX_N;
+  if (!nh || !shape_ok || !grid.x || ld % 4 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dattn) ||
+      !aligned16(attnout) || !aligned16(dq) || !aligned16(dk) ||
+      !aligned16(dv) || (MODE == kK7 && reinterpret_cast<uintptr_t>(mask) % 8))
+    return (int)cudaErrorInvalidValue;
+  return (nh == 1 ? launch_fma_bwd_nh<MODE, 1> : launch_fma_bwd_nh<MODE, 2>)(
+      q, k, v, ld, mask, dattn, attnout, stats, dq, dk, dv, delta, grid, n,
+      heads, scale, causal, maybe_dead, st);
+}
+
+// The fused layout's backward (kMega, kK6): dqkv (b*n x 3hd), hd = heads *
+// dh, from qkv and the rest as launch_fma_bwd's.
 template <int MODE>
 int launch_attention_fma_bwd(const float* qkv, const uint8_t* mask,
                              const float* dattn, const float* attnout,
                              const float* stats, float* dqkv, float* delta,
-                             int b, int n, int heads, float scale, int causal,
-                             int maybe_dead, cudaStream_t st) {
-  const int hd = heads * DH;
+                             int b, int n, int heads, int dh, float scale,
+                             int causal, int maybe_dead, cudaStream_t st) {
+  const int hd = heads * dh;
   return launch_fma_bwd<MODE>(qkv, qkv + hd, qkv + 2 * hd, 3L * hd, mask,
                               dattn, attnout, stats, dqkv, dqkv + hd,
-                              dqkv + 2 * hd, delta, b, n, heads, scale,
+                              dqkv + 2 * hd, delta, b, n, heads, dh, scale,
                               causal, maybe_dead, st);
 }
 
@@ -1069,17 +1174,17 @@ int launch_attention_fma_bwd(const float* qkv, const uint8_t* mask,
 template <typename T>
 int launch_mega_attention_bwd(const T* qkv, const uint8_t* mask, float* dattn,
                               const T* attnout, const float* sm, T* dqkv,
-                              float* delta, int b, int n, int heads,
+                              float* delta, int b, int n, int heads, int dh,
                               float scale, int causal, int maybe_dead,
                               cudaStream_t st) {
   if constexpr (std::is_same<T, xclip::bf16>::value)
     return xclip::launch_k6_bwd<true>(
         qkv, mask, attnout, sm, dattn, reinterpret_cast<xclip::bf16*>(dattn),
-        dqkv, delta, b, n, heads, scale, causal, maybe_dead, st);
+        dqkv, delta, b, n, heads, dh, scale, causal, maybe_dead, st);
   else
     return launch_attention_fma_bwd<kMega>(qkv, mask, dattn, attnout, sm,
-                                           dqkv, delta, b, n, heads, scale,
-                                           causal, maybe_dead, st);
+                                           dqkv, delta, b, n, heads, dh,
+                                           scale, causal, maybe_dead, st);
 }
 
 // Largest sequence length the forward takes in dtype code `dtype`: the
@@ -1093,9 +1198,14 @@ inline int attention_bwd_max_n(int dtype) { return xclip::K6_MAX_N; }
 
 // the fp32 kernels' blocks an SM: each takes its shared memory and 1 KB
 // the card reserves a block, of the SM's 233,472 bytes
-static_assert(2 * (kFwdSmem + 1024) <= 233472, "two forward blocks an SM");
-static_assert(2 * (kBwdDqSmem + 1024) <= 233472, "two dq blocks an SM");
-static_assert(kBwdBlocks * (kBwdDkvSmem + 1024) <= 233472,
+static_assert(2 * (kFwdSmem<1> + 1024) <= 233472, "two forward blocks an SM");
+static_assert(2 * (kBwdDqSmem<1> + 1024) <= 233472, "two dq blocks an SM");
+static_assert(kBwdBlocks * (kBwdDkvSmem<1> + 1024) <= 233472,
               "the dk/dv kernel's blocks an SM");
+// a head of 128: one block an SM, each under the 232,448 bytes a block may
+// opt in to
+static_assert(kFwdSmem<2> <= 232448 && kBwdDqSmem<2> <= 232448 &&
+                  kBwdDkvSmem<2> <= 232448,
+              "a head of 128 fits one block an SM");
 
 }  // namespace

@@ -56,12 +56,12 @@ template <typename T>
 int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
                         const T* w_out, const T* g_out, const uint8_t* mask,
                         T* out, T* xn, T* qkv, T* attnout, float* proj, int b,
-                        int n, int dim, int heads, float scale, int causal,
-                        int maybe_dead, float eps, cudaStream_t st,
+                        int n, int dim, int heads, int dh, float scale,
+                        int causal, int maybe_dead, float eps, cudaStream_t st,
                         T* proj_s = nullptr, float* sm = nullptr,
                         float* ln_stats = nullptr, long stats_ld = 0) {
   using namespace xclip;
-  const int rows = b * n, hd = heads * DH;
+  const int rows = b * n, hd = heads * dh;
   float* ls = ln_stats;
   const long ld = stats_ld;
   int e;
@@ -70,8 +70,8 @@ int attention_block_fwd(const T* x, const T* g_pre, const T* w_qkv,
     return e;
   if ((e = launch_mm<T, kStore>(xn, w_qkv, nullptr, qkv, rows, 3 * hd, dim, st)))
     return e;
-  if ((e = launch_attention<T>(qkv, mask, attnout, b, n, heads, scale, causal,
-                               maybe_dead, sm, st)))
+  if ((e = launch_attention<T>(qkv, mask, attnout, b, n, heads, dh, scale,
+                               causal, maybe_dead, sm, st)))
     return e;
   if ((e = launch_mm<T, kStoreF32>(attnout, w_out, nullptr, proj, rows, dim,
                                    hd, st)))
@@ -117,9 +117,10 @@ struct MegaBwdBuffers {
   float* part_out;
   float* part_pre;
   float* wpart;
-  MegaBwdBuffers(xclip::Workspace& ws, int b, int n, int dim, int heads) {
+  MegaBwdBuffers(xclip::Workspace& ws, int b, int n, int dim, int heads,
+                 int dh) {
     using namespace xclip;
-    const int rows = b * n, hd = heads * DH;
+    const int rows = b * n, hd = heads * dh;
     const bool tc = std::is_same<T, bf16>::value;
     dproj = ws.take<T>((size_t)rows * dim);
     dattn = ws.take<float>((size_t)rows * hd);
@@ -149,10 +150,10 @@ int attention_block_bwd_core(const T* x, const T* g_pre, const T* w_qkv,
                              long stats_ld, T* dx, T* dqkv, void* dw_qkv,
                              void* dw_out, void* dg_pre, void* dg_out,
                              MegaBwdBuffers<T>& w, int b, int n, int dim,
-                             int heads, float scale, int causal,
+                             int heads, int dh, float scale, int causal,
                              int maybe_dead, int acc, cudaStream_t st) {
   using namespace xclip;
-  const int rows = b * n, hd = heads * DH, nblk = ln_bwd_blocks(rows);
+  const int rows = b * n, hd = heads * dh, nblk = ln_bwd_blocks(rows);
   const long ld = stats_ld;
   int e;
   if ((e = launch_ln_bwd_rows<T, Tp, T, kLnBwd>(
@@ -168,8 +169,8 @@ int attention_block_bwd_core(const T* x, const T* g_pre, const T* w_qkv,
                                  rows, st, acc)))
     return e;
   if ((e = launch_mega_attention_bwd<T>(qkv, mask, w.dattn, attnout, sm, dqkv,
-                                        w.delta, b, n, heads, scale, causal,
-                                        maybe_dead, st)))
+                                        w.delta, b, n, heads, dh, scale,
+                                        causal, maybe_dead, st)))
     return e;
   if ((e = launch_gemm<T, false, true>(dqkv, w_qkv, w.dxn, rows, dim, 3 * hd,
                                        st)))
@@ -191,14 +192,14 @@ int attention_block_bwd(const T* x, const T* g_pre, const T* w_qkv,
                         const T* proj_s, const float* sm,
                         const float* ln_stats, T* dx, T* dqkv, T* dw_qkv,
                         T* dw_out, T* dg_pre, T* dg_out, void* workspace,
-                        int b, int n, int dim, int heads, float scale,
+                        int b, int n, int dim, int heads, int dh, float scale,
                         int causal, int maybe_dead, cudaStream_t st) {
   xclip::Workspace ws(workspace);
-  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  MegaBwdBuffers<T> w(ws, b, n, dim, heads, dh);
   return attention_block_bwd_core<T, T>(
       x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, attnout, proj_s, sm,
       ln_stats, (long)b * n, dx, dqkv, dw_qkv, dw_out, dg_pre, dg_out, w, b,
-      n, dim, heads, scale, causal, maybe_dead, 0, st);
+      n, dim, heads, dh, scale, causal, maybe_dead, 0, st);
 }
 
 // ------------------------------------------------ K3 recompute backward
@@ -234,8 +235,8 @@ struct RecomputeBuffers {
   float* proj;
   T* dqkv;
   RecomputeBuffers(xclip::Workspace& ws, int b, int n, int dim, int heads,
-                   bool keep_qkv) {
-    const size_t rows = (size_t)b * n, hd = (size_t)heads * DH;
+                   int dh, bool keep_qkv) {
+    const size_t rows = (size_t)b * n, hd = (size_t)heads * dh;
     xn = keep_qkv ? nullptr : ws.take<T>(rows * dim);
     qkv = keep_qkv ? nullptr : ws.take<T>(rows * 3 * hd);
     attnout = ws.take<T>(rows * hd);
@@ -250,13 +251,13 @@ int attention_block_bwd_recompute(
     const T* g_out, const uint8_t* mask, const T* dout, const T* kept_qkv,
     const float* sm, const float* ln_stats, long stats_ld, T* dx,
     float* dw_qkv, float* dw_out, float* dg_pre, float* dg_out,
-    void* workspace, int b, int n, int dim, int heads, float scale,
+    void* workspace, int b, int n, int dim, int heads, int dh, float scale,
     int causal, int maybe_dead, float eps, int acc, cudaStream_t st) {
   using namespace xclip;
-  const int rows = b * n, hd = heads * DH;
+  const int rows = b * n, hd = heads * dh;
   Workspace ws(workspace);
-  RecomputeBuffers<T> r(ws, b, n, dim, heads, kept_qkv != nullptr);
-  MegaBwdBuffers<T> w(ws, b, n, dim, heads);
+  RecomputeBuffers<T> r(ws, b, n, dim, heads, dh, kept_qkv != nullptr);
+  MegaBwdBuffers<T> w(ws, b, n, dim, heads, dh);
   const T* qkv = kept_qkv;
   int e;
   if (!qkv) {
@@ -268,7 +269,7 @@ int attention_block_bwd_recompute(
       return e;
     qkv = r.qkv;
   }
-  if ((e = launch_attention<T>(qkv, mask, r.attnout, b, n, heads, scale,
+  if ((e = launch_attention<T>(qkv, mask, r.attnout, b, n, heads, dh, scale,
                                causal, maybe_dead, nullptr, st)))
     return e;
   if ((e = launch_mm<T, kStoreF32>(r.attnout, w_out, nullptr, r.proj, rows,
@@ -277,7 +278,7 @@ int attention_block_bwd_recompute(
   return attention_block_bwd_core<T, float>(
       x, g_pre, w_qkv, w_out, g_out, mask, dout, qkv, r.attnout, r.proj, sm,
       ln_stats, stats_ld, dx, r.dqkv, dw_qkv, dw_out, dg_pre, dg_out, w, b, n,
-      dim, heads, scale, causal, maybe_dead, acc, st);
+      dim, heads, dh, scale, causal, maybe_dead, acc, st);
 }
 
 }  // namespace
@@ -297,32 +298,34 @@ extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
 
 // The attention core alone, as the megablock launches it (step 3 of the
 // forward, the attention launches of the backward), for tests and timing.
-// Returns a cudaError_t code. qkv (b*n, 3*heads*64) and attnout (b*n,
-// heads*64) of the storage dtype, mask (b, n) uint8, sm (b*n, 2*heads)
-// fp32 or null.
+// Returns a cudaError_t code. qkv (b*n, 3*heads*dh) and attnout (b*n,
+// heads*dh) of the storage dtype, dh 64 or 128, mask (b, n) uint8, sm
+// (b*n, 2*heads) fp32 or null.
 extern "C" int xclip_mega_core_fwd(int dtype, const void* qkv,
                                    const void* mask, void* attnout, void* sm,
-                                   int b, int n, int heads, float scale,
-                                   int causal, int maybe_dead, void* stream) {
+                                   int b, int n, int heads, int dh,
+                                   float scale, int causal, int maybe_dead,
+                                   void* stream) {
   if (b <= 0 || n <= 0 || heads <= 0 || n > attention_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   XCLIP_DISPATCH(dtype, launch_attention<T>(
-      XCLIP_PTR(const T*, qkv), m, XCLIP_PTR(T*, attnout), b, n, heads,
+      XCLIP_PTR(const T*, qkv), m, XCLIP_PTR(T*, attnout), b, n, heads, dh,
       scale, causal, maybe_dead, XCLIP_PTR(float*, sm), st));
 }
 
-// Its backward: dqkv (b*n, 3*heads*64) from qkv, the fp32 row cotangents
-// dattn (b*n, heads*64), attnout and sm; delta (b*n, heads) fp32 scratch;
-// in bf16 `dcopy` (b*n, 2*heads*64, bf16) takes dattn's two bf16 copies
+// Its backward: dqkv (b*n, 3*heads*dh) from qkv, the fp32 row cotangents
+// dattn (b*n, heads*dh), attnout and sm; delta (b*n, heads) fp32 scratch;
+// in bf16 `dcopy` (b*n, 2*heads*dh, bf16) takes dattn's two bf16 copies
 // (the megablock passes dattn's own storage), in fp32 it is unused.
 extern "C" int xclip_mega_core_bwd(int dtype, const void* qkv,
                                    const void* mask, const void* dattn,
                                    const void* attnout, const void* sm,
                                    void* dqkv, void* delta, void* dcopy,
-                                   int b, int n, int heads, float scale,
-                                   int causal, int maybe_dead, void* stream) {
+                                   int b, int n, int heads, int dh,
+                                   float scale, int causal, int maybe_dead,
+                                   void* stream) {
   if (b <= 0 || n <= 0 || heads <= 0 || n > attention_bwd_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -333,23 +336,25 @@ extern "C" int xclip_mega_core_bwd(int dtype, const void* qkv,
         XCLIP_PTR(const xclip::bf16*, attnout), XCLIP_PTR(const float*, sm),
         XCLIP_PTR(const float*, dattn), XCLIP_PTR(xclip::bf16*, dcopy),
         XCLIP_PTR(xclip::bf16*, dqkv), XCLIP_PTR(float*, delta), b, n, heads,
-        scale, causal, maybe_dead, st);
+        dh, scale, causal, maybe_dead, st);
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_attention_fma_bwd<kMega>(
       XCLIP_PTR(const float*, qkv), m, XCLIP_PTR(const float*, dattn),
       XCLIP_PTR(const float*, attnout), XCLIP_PTR(const float*, sm),
-      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, scale,
-      causal, maybe_dead, st);
+      XCLIP_PTR(float*, dqkv), XCLIP_PTR(float*, delta), b, n, heads, dh,
+      scale, causal, maybe_dead, st);
 }
 
-static bool mega_args_ok(int dtype, int b, int n, int dim, int heads) {
+static bool mega_args_ok(int dtype, int b, int n, int dim, int heads,
+                         int dh) {
   return !(dim % 64 || b < 0 || n < 0 || heads <= 0 ||
-           n > xclip_attention_block_max_n(dtype));
+           !xclip::k6_halves(dh) || n > xclip_attention_block_max_n(dtype));
 }
 
 // Returns a cudaError_t code (0 on success). x/out are (b, n, dim), mask is
-// (b, n) uint8 (nonzero = valid key); w_qkv (dim, 3*heads*64), w_out
-// (heads*64, dim), gains (dim). Scratch: xn (b*n, dim) and proj (b*n, dim)
+// (b, n) uint8 (nonzero = valid key); w_qkv (dim, 3*heads*dh), w_out
+// (heads*dh, dim), dh 64 or 128, gains (dim). Scratch: xn (b*n, dim) and
+// proj (b*n, dim)
 // fp32; qkv (b*n, 3hd) and attnout (b*n, hd) of the storage dtype, which
 // K2 keeps as residuals (K3 "qkv" keeps qkv). K-MEGA passes null residual
 // pointers; K2 passes proj_s (b*n x dim, dtype), sm (b*n x 2*heads, fp32: m
@@ -360,9 +365,10 @@ extern "C" int xclip_attention_block_fwd(
     const void* w_out, const void* g_out, const void* mask, void* out,
     void* xn, void* qkv, void* attnout, void* proj, void* proj_s, void* sm,
     void* ln_stats, long long stats_ld, int b, int n, int dim, int heads,
-    float scale, int causal, int maybe_dead, float eps, void* stream) {
+    int dh, float scale, int causal, int maybe_dead, float eps,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mega_args_ok(dtype, b, n, dim, heads) ||
+  if (!mega_args_ok(dtype, b, n, dim, heads, dh) ||
       (ln_stats && stats_ld < (long long)b * n))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0) return 0;
@@ -372,7 +378,7 @@ extern "C" int xclip_attention_block_fwd(
       XCLIP_PTR(const T*, w_qkv), XCLIP_PTR(const T*, w_out),
       XCLIP_PTR(const T*, g_out), m, XCLIP_PTR(T*, out), XCLIP_PTR(T*, xn),
       XCLIP_PTR(T*, qkv), XCLIP_PTR(T*, attnout), XCLIP_PTR(float*, proj), b,
-      n, dim, heads, scale, causal, maybe_dead, eps, st,
+      n, dim, heads, dh, scale, causal, maybe_dead, eps, st,
       XCLIP_PTR(T*, proj_s), XCLIP_PTR(float*, sm),
       XCLIP_PTR(float*, ln_stats), (long)stats_ld));
 }
@@ -380,18 +386,18 @@ extern "C" int xclip_attention_block_fwd(
 // Bytes of the workspace the K2 backward takes.
 extern "C" long long xclip_attention_block_bwd_workspace(int dtype, int b,
                                                          int n, int dim,
-                                                         int heads) {
+                                                         int heads, int dh) {
   xclip::Workspace ws(nullptr);
   if (dtype == xclip::kBF16) {
-    MegaBwdBuffers<__nv_bfloat16> sizes(ws, b, n, dim, heads);
+    MegaBwdBuffers<__nv_bfloat16> sizes(ws, b, n, dim, heads, dh);
   } else {
-    MegaBwdBuffers<float> sizes(ws, b, n, dim, heads);
+    MegaBwdBuffers<float> sizes(ws, b, n, dim, heads, dh);
   }
   return (long long)ws.used;
 }
 
 // K2 backward. Inputs as saved by the forward plus dout (b*n x dim);
-// outputs dx (b*n x dim), dqkv (b*n x 3*heads*64), dw_qkv, dw_out, dg_pre,
+// outputs dx (b*n x dim), dqkv (b*n x 3*heads*dh), dw_qkv, dw_out, dg_pre,
 // dg_out, all of the dtype.
 extern "C" int xclip_attention_block_bwd(
     int dtype, const void* x, const void* g_pre, const void* w_qkv,
@@ -399,9 +405,10 @@ extern "C" int xclip_attention_block_bwd(
     const void* qkv, const void* attnout, const void* proj_s, const void* sm,
     const void* ln_stats, void* dx, void* dqkv, void* dw_qkv, void* dw_out,
     void* dg_pre, void* dg_out, void* workspace, int b, int n, int dim,
-    int heads, float scale, int causal, int maybe_dead, void* stream) {
+    int heads, int dh, float scale, int causal, int maybe_dead,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mega_args_ok(dtype, b, n, dim, heads) || b == 0 || n == 0 ||
+  if (!mega_args_ok(dtype, b, n, dim, heads, dh) || b == 0 || n == 0 ||
       n > xclip_attention_block_bwd_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -414,25 +421,25 @@ extern "C" int xclip_attention_block_bwd(
       XCLIP_PTR(const float*, ln_stats), XCLIP_PTR(T*, dx),
       XCLIP_PTR(T*, dqkv), XCLIP_PTR(T*, dw_qkv), XCLIP_PTR(T*, dw_out),
       XCLIP_PTR(T*, dg_pre), XCLIP_PTR(T*, dg_out), workspace, b, n, dim,
-      heads, scale, causal, maybe_dead, st));
+      heads, dh, scale, causal, maybe_dead, st));
 }
 
 // Bytes of the workspace the K3 recompute backward takes for b elements.
 extern "C" long long xclip_attention_block_bwd_recompute_workspace(
-    int dtype, int b, int n, int dim, int heads, int keep_qkv) {
+    int dtype, int b, int n, int dim, int heads, int dh, int keep_qkv) {
   xclip::Workspace ws(nullptr);
   if (dtype == xclip::kBF16) {
-    RecomputeBuffers<__nv_bfloat16> r(ws, b, n, dim, heads, keep_qkv);
-    MegaBwdBuffers<__nv_bfloat16> w(ws, b, n, dim, heads);
+    RecomputeBuffers<__nv_bfloat16> r(ws, b, n, dim, heads, dh, keep_qkv);
+    MegaBwdBuffers<__nv_bfloat16> w(ws, b, n, dim, heads, dh);
   } else {
-    RecomputeBuffers<float> r(ws, b, n, dim, heads, keep_qkv);
-    MegaBwdBuffers<float> w(ws, b, n, dim, heads);
+    RecomputeBuffers<float> r(ws, b, n, dim, heads, dh, keep_qkv);
+    MegaBwdBuffers<float> w(ws, b, n, dim, heads, dh);
   }
   return (long long)ws.used;
 }
 
 // The K3 backward of one chunk of b batch elements: x, dout, dx (b*n x
-// dim), qkv (b*n x 3*heads*64, the forward's, or null to recompute it) and
+// dim), qkv (b*n x 3*heads*dh, the forward's, or null to recompute it) and
 // sm (b*n x 2*heads) of the chunk, its columns of the forward's fp32
 // ln_stats (4 x stats_ld); dw_qkv, dw_out, dg_pre, dg_out fp32, written
 // when acc is 1 and added to when 2.
@@ -441,11 +448,11 @@ extern "C" int xclip_attention_block_bwd_recompute(
     const void* w_out, const void* g_out, const void* mask, const void* dout,
     const void* qkv, const void* sm, const void* ln_stats,
     long long stats_ld, void* dx, void* dw_qkv, void* dw_out, void* dg_pre,
-    void* dg_out, void* workspace, int b, int n, int dim, int heads,
+    void* dg_out, void* workspace, int b, int n, int dim, int heads, int dh,
     float scale, int causal, int maybe_dead, float eps, int acc,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mega_args_ok(dtype, b, n, dim, heads) || b == 0 || n == 0 ||
+  if (!mega_args_ok(dtype, b, n, dim, heads, dh) || b == 0 || n == 0 ||
       n > xclip_attention_block_bwd_max_n(dtype) ||
       stats_ld < (long long)b * n || (acc != 1 && acc != 2))
     return (int)cudaErrorInvalidValue;
@@ -458,5 +465,5 @@ extern "C" int xclip_attention_block_bwd_recompute(
       XCLIP_PTR(const float*, ln_stats), (long)stats_ld, XCLIP_PTR(T*, dx),
       XCLIP_PTR(float*, dw_qkv), XCLIP_PTR(float*, dw_out),
       XCLIP_PTR(float*, dg_pre), XCLIP_PTR(float*, dg_out), workspace, b, n,
-      dim, heads, scale, causal, maybe_dead, eps, acc, st));
+      dim, heads, dh, scale, causal, maybe_dead, eps, acc, st));
 }

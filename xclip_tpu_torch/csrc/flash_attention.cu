@@ -6,7 +6,7 @@
 // whole, so the length has no limit.
 //
 // Shapes: q, k, v, out (bh, n, d) of the storage dtype, q pre-scaled (d
-// 64; in bf16 also 128, a head of two 64-column halves); the
+// 64 or 128, a head of two 64-column halves, in both dtypes); the
 // key mask (bh, n) uint8 (nonzero = valid), already repeated per head; n a
 // multiple of 64 (the wrapper pads, masking the padded keys); lse and
 // delta (bh, n) fp32.
@@ -32,7 +32,7 @@
 // tiles, delta computed in the dq kernel; their note gives the design and
 // what bounds it). fp32 runs the attention core's tiled FMA kernels
 // (attention_core.cuh), forward and backward, in their K7 mode: K6's with
-// scale 1 and no dead-row rule, on the separate (bh, n, 64) tensors, a 1-D
+// scale 1 and no dead-row rule, on the separate (bh, n, d) tensors, a 1-D
 // grid over bh x tiles, each tile's mask word read as it is walked, causal
 // and all-masked tiles skipped, delta computed in the dq kernel, no length
 // limit (that file's note gives the design and what bounds it).
@@ -41,17 +41,17 @@
 
 using xclip::bf16;
 
-// bh and n as the kernels take them: n a multiple of 64, heads of 64 in
-// fp32; bf16 puts the query tiles on its grid's y axis (at most 65,535 of
-// them), fp32 has a 1-D grid over bh x tiles.
+// bh, n and d as the kernels take them: n a multiple of 64, d 64 or 128;
+// bf16 puts the query tiles on its grid's y axis (at most 65,535 of them),
+// fp32 has a 1-D grid over bh x tiles.
 static bool flash_args_ok(int dtype, int bh, int n, int d) {
-  if (bh <= 0 || n <= 0 || n % 64) return false;
-  return dtype == xclip::kF32 ? d == DH : n / 64 <= 65535;
+  if (bh <= 0 || n <= 0 || n % 64 || !xclip::k6_halves(d)) return false;
+  return dtype == xclip::kF32 || n / 64 <= 65535;
 }
 
 // Returns a cudaError_t code (0 on success). q (pre-scaled), k, v, out
-// (bh, n, d) of the storage dtype, d 64 (fp32) or 64 or 128 (bf16); mask
-// (bh, n) uint8; lse (bh, n) fp32.
+// (bh, n, d) of the storage dtype, d 64 or 128; mask (bh, n) uint8; lse
+// (bh, n) fp32.
 extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask, void* out,
                                void* lse, int bh, int n, int d, int causal,
@@ -67,8 +67,8 @@ extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_fma_fwd<kK7>(
       XCLIP_PTR(const float*, q), XCLIP_PTR(const float*, k),
-      XCLIP_PTR(const float*, v), DH, m, XCLIP_PTR(float*, out),
-      XCLIP_PTR(float*, lse), bh, n, 1, 1.f, causal, 0, st);
+      XCLIP_PTR(const float*, v), d, m, XCLIP_PTR(float*, out),
+      XCLIP_PTR(float*, lse), bh, n, 1, d, 1.f, causal, 0, st);
 }
 
 // The backward: q, k, v, mask, lse, d as the forward's; out and dout (bh,
@@ -94,10 +94,10 @@ extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
   if (dtype != xclip::kF32) return (int)cudaErrorInvalidValue;
   return launch_fma_bwd<kK7>(
       XCLIP_PTR(const float*, q), XCLIP_PTR(const float*, k),
-      XCLIP_PTR(const float*, v), DH, m, XCLIP_PTR(const float*, dout),
+      XCLIP_PTR(const float*, v), d, m, XCLIP_PTR(const float*, dout),
       XCLIP_PTR(const float*, out), XCLIP_PTR(const float*, lse),
       XCLIP_PTR(float*, dq), XCLIP_PTR(float*, dk), XCLIP_PTR(float*, dv),
-      XCLIP_PTR(float*, delta), bh, n, 1, 1.f, causal, 0, st);
+      XCLIP_PTR(float*, delta), bh, n, 1, d, 1.f, causal, 0, st);
 }
 
 // Blocks an SM of the fp32 forward in K7's mode; a negative cudaError_t

@@ -44,25 +44,24 @@ _SIGNATURES = {
     "xclip_ff_block_bwd_recompute_workspace": [_I] * 5,
     "xclip_ff_block_bwd_recompute": [_I, *[_P] * 7, _L, *[_P] * 6, _I, _I,
                                      _I, _I, _F, _I, _P],
-    "xclip_attention_block_fwd": [_I, *[_P] * 14, _L, _I, _I, _I, _I, _F, _I,
-                                  _I, _F, _P],
-    "xclip_attention_block_bwd_workspace": [_I, _I, _I, _I, _I],
-    "xclip_attention_block_bwd": [_I, *[_P] * 19, _I, _I, _I, _I, _F, _I, _I,
-                                  _P],
-    "xclip_attention_block_bwd_recompute_workspace": [_I] * 6,
-    "xclip_attention_block_bwd_recompute": [_I, *[_P] * 10, _L, *[_P] * 6, _I,
-                                            _I, _I, _I, _F, _I, _I, _F, _I,
+    "xclip_attention_block_fwd": [_I, *[_P] * 14, _L, *[_I] * 5, _F, _I, _I,
+                                  _F, _P],
+    "xclip_attention_block_bwd_workspace": [_I] * 6,
+    "xclip_attention_block_bwd": [_I, *[_P] * 19, *[_I] * 5, _F, _I, _I, _P],
+    "xclip_attention_block_bwd_recompute_workspace": [_I] * 7,
+    "xclip_attention_block_bwd_recompute": [_I, *[_P] * 10, _L, *[_P] * 6,
+                                            *[_I] * 5, _F, _I, _I, _F, _I,
                                             _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
     "xclip_attention_bwd_blocks": [_I, _I],
     "xclip_attention_fwd_blocks": [_I],
-    "xclip_mega_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
-    "xclip_mega_core_bwd": [_I, *[_P] * 8, _I, _I, _I, _F, _I, _I, _P],
+    "xclip_mega_core_fwd": [_I, *[_P] * 4, *[_I] * 4, _F, _I, _I, _P],
+    "xclip_mega_core_bwd": [_I, *[_P] * 8, *[_I] * 4, _F, _I, _I, _P],
     "xclip_lse_fwd": [*[_P] * 4, *[_I] * 6, _P],
     "xclip_lse_bwd": [*[_P] * 8, *[_I] * 8, _P],
-    "xclip_attention_core_fwd": [_I, *[_P] * 4, _I, _I, _I, _F, _I, _I, _P],
-    "xclip_attention_core_bwd": [_I, *[_P] * 7, _I, _I, _I, _F, _I, _I, _P],
+    "xclip_attention_core_fwd": [_I, *[_P] * 4, *[_I] * 4, _F, _I, _I, _P],
+    "xclip_attention_core_bwd": [_I, *[_P] * 7, *[_I] * 4, _F, _I, _I, _P],
     "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _I, _P],
     "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _I, _P],
     "xclip_flash_fwd_blocks": [],

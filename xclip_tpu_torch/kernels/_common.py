@@ -14,6 +14,10 @@ import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
+# The head widths the attention kernels take (K6, the megablock's core, K7;
+# both dtypes): 64, and 128 as two 64-column halves.
+HEAD_WIDTHS = (64, 128)
+
 # The memory-lean training routes (K-FF-s / K3 forwards, the recompute
 # backwards) take their rows in chunks whose transients (the recomputed
 # activations, the backward's scratch) stay under this many bytes, so a
@@ -90,6 +94,15 @@ def ln_bwd(dy, xhat, inv, g32):
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
     return inv * (dxhat - m1 - xhat * m2), dg
+
+
+def padded_width(dim_head: int) -> int:
+    """The kernel width a head of `dim_head` runs at: the narrowest of
+    HEAD_WIDTHS that holds it, zero-padded (exact: the zero columns of q
+    and k add nothing to q·kᵀ, those of v nothing to the output, and their
+    gradients are dropped); `dim_head` itself past the widest (the kernels'
+    `why_not` refuses it)."""
+    return next((w for w in HEAD_WIDTHS if dim_head <= w), dim_head)
 
 
 def dot32(a, b):

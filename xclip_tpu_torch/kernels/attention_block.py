@@ -28,8 +28,10 @@ length limit is the megablock's, `attention_megablock.seq_len_limit` (2048
 in both dtypes, the kernels' mask words, in training too),
 and so is the predicate of what the kernels take,
 `attention_megablock.why_not` with no block width. The kernels take heads
-of 64; `attention_core` runs a narrower head on them zero-padded to 64
-(`attention_megablock.pad_heads`, exact). Every wrapper takes its kernel
+of 64 and 128 (two 64-column halves); `attention_core` runs a narrower
+head on them zero-padded to the next of those
+(`attention_megablock.pad_heads`, exact: 80 runs at 128). Every wrapper
+takes its kernel
 for CUDA tensors and its plain version for CPU tensors; it never falls back
 from one to the other.
 The Pallas kernel's padding to 128 rows and two-head groups are TPU
@@ -41,8 +43,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import check_kernel_args, dot32, dtype_code, route, stream_ptr
-from .attention_megablock import DIM_HEAD
+from ._common import (check_kernel_args, dot32, dtype_code, padded_width,
+                      route, stream_ptr)
 from .attention_megablock import _check_core as _check
 from .attention_megablock import (_heads, _softmax_parts, pad_heads,
                                   unpad_heads)
@@ -122,9 +124,8 @@ def attention_core_fwd(qkv, mask, heads, dim_head, scale, causal=False,
     with torch.cuda.device(dev):  # launch on the tensors' card
         err = _build.library().xclip_attention_core_fwd(
             dtype_code(dt), qkv.data_ptr(), mask_u8.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, n, heads, float(scale),
-            int(causal),
-            int(maybe_dead), stream_ptr(dev))
+            out.data_ptr(), lse.data_ptr(), b, n, heads, dim_head,
+            float(scale), int(causal), int(maybe_dead), stream_ptr(dev))
     _build.check(err, "xclip_attention_core_fwd")
     attention_core_fwd.launches += 1
     return out, lse
@@ -154,8 +155,8 @@ def attention_core_bwd(qkv, mask, out, lse, dout, heads, dim_head, scale,
         err = _build.library().xclip_attention_core_bwd(
             dtype_code(dt), qkv.data_ptr(), mask_u8.data_ptr(),
             out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            delta.data_ptr(), b, n, heads, float(scale), int(causal),
-            int(maybe_dead), stream_ptr(dev))
+            delta.data_ptr(), b, n, heads, dim_head, float(scale),
+            int(causal), int(maybe_dead), stream_ptr(dev))
     _build.check(err, "xclip_attention_core_bwd")
     attention_core_bwd.launches += 1
     return dqkv
@@ -190,9 +191,10 @@ def attention_core(qkv, mask, heads, dim_head, scale, causal=False,
     """qkv: (b, n, 3·heads·dim_head); mask: (b, n) bool, True = a valid key.
     Returns (b, n, heads·dim_head) in qkv.dtype, differentiable in qkv.
     `maybe_dead=False` may be passed when every row has a valid key."""
-    if dim_head < DIM_HEAD:
+    width = padded_width(dim_head)
+    if width != dim_head:
         return unpad_heads(attention_core(
-            pad_heads(qkv, dim_head), mask, heads, DIM_HEAD, scale, causal,
+            pad_heads(qkv, dim_head), mask, heads, width, scale, causal,
             maybe_dead), dim_head)
     training = torch.is_grad_enabled() and qkv.requires_grad
     return AttentionCore.apply(qkv.contiguous(), mask, heads, dim_head, scale,

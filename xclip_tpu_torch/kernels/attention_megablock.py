@@ -36,9 +36,11 @@ The CUDA kernels are `csrc/attention_megablock.cu`; its source notes give
 the designs, what bounds them on the card and which intermediates cross
 HBM. The attention core runs in bf16 on the megablock mode of K6's
 mma.sync kernels (`csrc/attention_block_sm90.cuh`), in fp32 on the FMA
-core of `csrc/attention_core.cuh`. Every wrapper takes its kernel for CUDA
-tensors and its plain version for CPU tensors; it never falls back from
-one to the other. The Pallas version's 128/16-row alignment and transposed
+core of `csrc/attention_core.cuh`, at heads of 64 and 128 (two 64-column
+halves); a narrower head runs zero-padded to the next of those
+(`pad_heads`). Every wrapper takes its kernel for CUDA tensors and its
+plain version for CPU tensors; it never falls back from one to the
+other. The Pallas version's 128/16-row alignment and transposed
 stats layout are TPU artefacts: the kernels work on the true (b, n, ·)
 shapes.
 """
@@ -49,12 +51,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import (CHUNK_BYTES, KERNEL_DTYPES, check_kernel_args,
-                      chunk_spans, dot32, dtype_code, eps_for, ln_bwd,
-                      ln_stats_fp32, refuse_grad, route, stream_ptr)
+from ._common import (CHUNK_BYTES, HEAD_WIDTHS, KERNEL_DTYPES,
+                      check_kernel_args, chunk_spans, dot32, dtype_code,
+                      eps_for, ln_bwd, ln_stats_fp32, padded_width,
+                      refuse_grad, route, stream_ptr)
 from .rows import MAX_WIDTH
 
-DIM_HEAD = 64  # the only head width the kernels take (narrower: pad_heads)
+DIM_HEAD = HEAD_WIDTHS[0]   # the narrowest head width the kernels take
 
 
 def _heads(t, b, n, heads, dim_head):
@@ -211,21 +214,24 @@ def seq_len_limit(dtype, training=False) -> int:
 
 def pad_heads(t, dim_head, dim=-1):
     """`t` with each head slice of `dim_head` along `dim` (q, k and v's
-    heads, or the heads alone) zero-padded to DIM_HEAD: a head narrower than
-    the kernels' runs on them so. Exact: the zero columns of q and k add
-    nothing to q·kᵀ, those of v and of w_out's rows add nothing to the
-    output, and their gradients are dropped by autograd (the scale stays
-    the caller's)."""
+    heads, or the heads alone) zero-padded to `padded_width(dim_head)`: a
+    head narrower than a kernel width runs on the kernels so (80 → 128).
+    Exact: the zero columns of q and k add nothing to q·kᵀ, those of v and
+    of w_out's rows add nothing to the output, and their gradients are
+    dropped by autograd (the scale stays the caller's). Padding the weights
+    widens the megablock's qkv and out products by the padding too."""
     t = t.movedim(dim, -1)
     lead = t.shape[:-1]
-    t = F.pad(t.reshape(*lead, -1, dim_head), (0, DIM_HEAD - dim_head))
+    t = F.pad(t.reshape(*lead, -1, dim_head),
+              (0, padded_width(dim_head) - dim_head))
     return t.reshape(*lead, -1).movedim(-1, dim).contiguous()
 
 
 def unpad_heads(t, dim_head):
     """The inverse of `pad_heads` along the last dimension."""
     lead = t.shape[:-1]
-    return t.reshape(*lead, -1, DIM_HEAD)[..., :dim_head].reshape(*lead, -1)
+    return t.reshape(*lead, -1, padded_width(dim_head))[
+        ..., :dim_head].reshape(*lead, -1)
 
 
 def why_not(dim, heads, dim_head, n, dtype, training=False):
@@ -236,9 +242,10 @@ def why_not(dim, heads, dim_head, n, dtype, training=False):
     if dtype not in KERNEL_DTYPES:
         return (f"the CUDA attention kernels take float32 or bfloat16, not "
                 f"{dtype}")
-    if dim_head != DIM_HEAD:
-        return (f"the CUDA attention kernels take dim_head {DIM_HEAD} (up to "
-                f"{DIM_HEAD} zero-padded), not {dim_head}")
+    if dim_head not in HEAD_WIDTHS:
+        return (f"the CUDA attention kernels take dim_head "
+                f"{' or '.join(map(str, HEAD_WIDTHS))} (narrower "
+                f"zero-padded), not {dim_head}")
     if dim is not None and (dim % 64 or dim > MAX_WIDTH):
         return (f"the CUDA megablock takes dim a multiple of 64 up to "
                 f"{MAX_WIDTH}, not {dim}")
@@ -300,7 +307,7 @@ def _fwd_kernel(name, tensors, mask, heads, dim_head, scale, causal,
         err = _build.library().xclip_attention_block_fwd(
             dtype_code(dt), *(t.data_ptr() for t in (
                 *tensors, mask_u8, out, xn, qkv, attnout, proj)),
-            *residual_ptrs, rows, b, n, dim, heads, float(scale),
+            *residual_ptrs, rows, b, n, dim, heads, dim_head, float(scale),
             int(causal), int(maybe_dead), eps_for(dt), stream_ptr(dev))
     _build.check(err, "xclip_attention_block_fwd")
     mega_core_fwd.launches += 1
@@ -314,11 +321,11 @@ def attention_block(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
     Returns x + LN(W_out · attention(LN(x)·W_qkv)) in x.dtype. Forward only:
     training goes through `attention_block_train`. `maybe_dead=False` may
     be passed when every row has a valid key."""
-    if dim_head < DIM_HEAD:
+    if padded_width(dim_head) != dim_head:
         return attention_block(x, g_pre, pad_heads(w_qkv, dim_head),
                                pad_heads(w_out, dim_head, 0),
-                               g_out, mask, heads, DIM_HEAD, scale, causal,
-                               maybe_dead)
+                               g_out, mask, heads, padded_width(dim_head),
+                               scale, causal, maybe_dead)
     tensors = (x, g_pre, w_qkv, w_out, g_out)
     refuse_grad("attention_block", tensors, "attention_block_train")
     if not route("attention_block", tensors + (mask,)):
@@ -422,14 +429,15 @@ def attention_block_bwd(x, g_pre, w_qkv, w_out, g_out, mask, dout, stored,
     dg_pre = torch.empty_like(g_pre)
     dg_out = torch.empty_like(g_out)
     ws = torch.empty(lib.xclip_attention_block_bwd_workspace(
-        dtype_code(dt), b, n, dim, heads), dtype=torch.uint8, device=dev)
+        dtype_code(dt), b, n, dim, heads, dim_head), dtype=torch.uint8,
+        device=dev)
     with torch.cuda.device(dev):
         err = lib.xclip_attention_block_bwd(
             dtype_code(dt), *(t.data_ptr() for t in (
                 x, g_pre, w_qkv, w_out, g_out, mask_u8, dout, *stored, dx,
                 dqkv, dw_qkv, dw_out, dg_pre, dg_out, ws)),
-            b, n, dim, heads, float(scale), int(causal), int(maybe_dead),
-            stream_ptr(dev))
+            b, n, dim, heads, dim_head, float(scale), int(causal),
+            int(maybe_dead), stream_ptr(dev))
     _build.check(err, "xclip_attention_block_bwd")
     attention_block_bwd.launches += 1
     mega_core_bwd.launches += 1
@@ -467,32 +475,34 @@ def attention_block_train(x, g_pre, w_qkv, w_out, g_out, mask, heads,
     """x + LN(W_out · attention(LN(x)·W_qkv)) with the stored backward;
     differentiable in the five tensors. Same arguments as
     `attention_block`."""
-    if dim_head < DIM_HEAD:
+    if padded_width(dim_head) != dim_head:
         w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
-        dim_head = DIM_HEAD
+        dim_head = padded_width(dim_head)
     return AttentionBlock.apply(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                                 dim_head, scale, causal, maybe_dead)
 
 
 # ------------------------------------------------------------ K3
 
-def fwd_stats_spans(b, n, dim, heads, dtype, keep_qkv):
+def fwd_stats_spans(b, n, dim, heads, dtype, keep_qkv, dim_head=DIM_HEAD):
     """K3's forward batch chunks: [(start, stop), ...] of batch elements
     whose scratch (`_fwd_scratch`) stays under CHUNK_BYTES."""
     return chunk_spans(b, lambda k: sum(
-        t.nbytes for t in _fwd_scratch(k * n, dim, heads * DIM_HEAD, dtype,
+        t.nbytes for t in _fwd_scratch(k * n, dim, heads * dim_head, dtype,
                                        "meta", keep_qkv) if t is not None),
         CHUNK_BYTES)
 
 
-def bwd_recompute_spans(b, n, dim, heads, dtype, keep_qkv):
+def bwd_recompute_spans(b, n, dim, heads, dtype, keep_qkv,
+                        dim_head=DIM_HEAD):
     """K3's backward batch chunks: [(start, stop), ...] of batch elements
     whose workspace (the CUDA entry point's query) stays under
     CHUNK_BYTES. Needs the built library."""
     lib = _build.library()
     return chunk_spans(
         b, lambda k: lib.xclip_attention_block_bwd_recompute_workspace(
-            dtype_code(dtype), k, n, dim, heads, int(keep_qkv)), CHUNK_BYTES)
+            dtype_code(dtype), k, n, dim, heads, dim_head, int(keep_qkv)),
+        CHUNK_BYTES)
 
 
 def attention_block_fwd_stats_plain(x, g_pre, w_qkv, w_out, g_out, mask,
@@ -528,7 +538,7 @@ def attention_block_fwd_stats(x, g_pre, w_qkv, w_out, g_out, mask, heads,
     ln_stats = torch.empty((4, rows), dtype=torch.float32, device=dev)
     kept = (torch.empty((rows, 3 * hd), dtype=dt, device=dev)
             if keep_qkv else None)
-    spans = fwd_stats_spans(b, n, dim, heads, dt, keep_qkv)
+    spans = fwd_stats_spans(b, n, dim, heads, dt, keep_qkv, dim_head)
     xn, qkv, attnout, proj = _fwd_scratch(spans[0][1] * n if spans else 0,
                                           dim, hd, dt, dev, keep_qkv)
     lib = _build.library()
@@ -542,8 +552,8 @@ def attention_block_fwd_stats(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                 (kept[r:] if keep_qkv else qkv).data_ptr(),
                 attnout.data_ptr(), proj.data_ptr(), None,
                 sm[r:].data_ptr(), ln_stats[0, r:].data_ptr(), rows, e - s, n,
-                dim, heads, float(scale), int(causal), int(maybe_dead),
-                eps_for(dt), stream_ptr(dev))
+                dim, heads, dim_head, float(scale), int(causal),
+                int(maybe_dead), eps_for(dt), stream_ptr(dev))
             _build.check(err, "xclip_attention_block_fwd")
     attention_block_fwd_stats.launches += 1
     mega_core_fwd.launches += 1
@@ -592,7 +602,8 @@ def attention_block_bwd_recompute(x, g_pre, w_qkv, w_out, g_out, mask, dout,
                       x.dtype)
     check_kernel_args("attention_block_bwd_recompute", (sm, ln_stats),
                       torch.float32)
-    spans = bwd_recompute_spans(b, n, dim, heads, x.dtype, qkv is not None)
+    spans = bwd_recompute_spans(b, n, dim, heads, x.dtype, qkv is not None,
+                                dim_head)
     dev, dt = x.device, x.dtype
     rows = b * n
     mask_u8 = mask.to(torch.uint8).contiguous()
@@ -601,8 +612,8 @@ def attention_block_bwd_recompute(x, g_pre, w_qkv, w_out, g_out, mask, dout,
             for shape in ((dim, 3 * hd), (hd, dim), (dim,), (dim,))]
     lib = _build.library()
     ws = torch.empty(lib.xclip_attention_block_bwd_recompute_workspace(
-        dtype_code(dt), spans[0][1], n, dim, heads, qkv is not None),
-        dtype=torch.uint8, device=dev)
+        dtype_code(dt), spans[0][1], n, dim, heads, dim_head,
+        qkv is not None), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         for k, (s, e) in enumerate(spans):
             r = s * n
@@ -612,7 +623,7 @@ def attention_block_bwd_recompute(x, g_pre, w_qkv, w_out, g_out, mask, dout,
                 dout[s:].data_ptr(), qkv[r:].data_ptr() if kept else None,
                 sm[r:].data_ptr(), ln_stats[0, r:].data_ptr(), rows,
                 dx[s:].data_ptr(), *(t.data_ptr() for t in sums),
-                ws.data_ptr(), e - s, n, dim, heads, float(scale),
+                ws.data_ptr(), e - s, n, dim, heads, dim_head, float(scale),
                 int(causal), int(maybe_dead), eps_for(dt), 1 if k == 0 else 2,
                 stream_ptr(dev))
             _build.check(err, "xclip_attention_block_bwd_recompute")
@@ -659,9 +670,9 @@ def attention_block_train_recompute(x, g_pre, w_qkv, w_out, g_out, mask,
     """x + LN(W_out · attention(LN(x)·W_qkv)) keeping only row statistics
     (and qkv with `keep_qkv`) for the recompute backward; differentiable in
     the five tensors. Same arguments as `attention_block`."""
-    if dim_head < DIM_HEAD:
+    if padded_width(dim_head) != dim_head:
         w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
-        dim_head = DIM_HEAD
+        dim_head = padded_width(dim_head)
     return AttentionBlockRecompute.apply(x, g_pre, w_qkv, w_out, g_out, mask,
                                          heads, dim_head, scale, causal,
                                          maybe_dead, keep_qkv)
@@ -704,8 +715,8 @@ def mega_core_fwd(qkv, mask, heads, dim_head, scale, causal=False,
     with torch.cuda.device(dev):
         err = _build.library().xclip_mega_core_fwd(
             dtype_code(dt), qkv.data_ptr(), mask_u8.data_ptr(),
-            attnout.data_ptr(), sm.data_ptr(), b, n, heads, float(scale),
-            int(causal), int(maybe_dead), stream_ptr(dev))
+            attnout.data_ptr(), sm.data_ptr(), b, n, heads, dim_head,
+            float(scale), int(causal), int(maybe_dead), stream_ptr(dev))
     _build.check(err, "xclip_mega_core_fwd")
     mega_core_fwd.launches += 1
     return attnout, sm
@@ -746,7 +757,8 @@ def mega_core_bwd(qkv, mask, dattn, attnout, sm, heads, dim_head, scale,
             dattn.data_ptr(), attnout.data_ptr(), sm.data_ptr(),
             dqkv.data_ptr(), delta.data_ptr(),
             None if dcopy is None else dcopy.data_ptr(), b, n, heads,
-            float(scale), int(causal), int(maybe_dead), stream_ptr(dev))
+            dim_head, float(scale), int(causal), int(maybe_dead),
+            stream_ptr(dev))
     _build.check(err, "xclip_mega_core_bwd")
     mega_core_bwd.launches += 1
     return dqkv

@@ -27,10 +27,12 @@ and backward, on the attention core's tiled FMA kernels
 (`csrc/attention_core.cuh`) in their K7 mode (K6's with scale 1 and no
 dead-row rule, lse = m_safe + log l, any length). Every kernel skips
 causal and all-masked key tiles, and every backward computes Δ in its dq
-kernel. Their source notes give the design and what bounds it. The kernels take 16-byte aligned tensors (`flash_attention` hands them
-fresh ones). They take heads of 64, and in bf16 of 128 (two 64-column
-halves); `flash_attention` runs a narrower head on them zero-padded to the
-next of those (`padded_width`). The plain versions follow the Pallas kernels' rounding points;
+kernel. Their source notes give the design and what bounds it. The
+kernels take 16-byte aligned tensors (`flash_attention` hands them fresh
+ones). They take heads of 64 and 128 (two 64-column halves) in both
+dtypes; `flash_attention` runs a narrower head on them zero-padded to the
+next of those (`_common.padded_width`, the attention kernels' one rule).
+The plain versions follow the Pallas kernels' rounding points;
 the forward's online softmax rounds p against the running max, so its key
 block is a rounding point too: the plain forward takes it as `block_k`,
 `KERNEL_BLOCK` by default (the kernels' tile; the tests set the Pallas
@@ -44,13 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import (KERNEL_DTYPES, check_kernel_args, dot32, dtype_code,
-                      route, stream_ptr)
+from ._common import (HEAD_WIDTHS, KERNEL_DTYPES, check_kernel_args, dot32,
+                      dtype_code, padded_width, route, stream_ptr)
 
 KERNEL_BLOCK = 64   # the kernels' query and key tiles, the sequence
                     # multiple they take
-DIM_HEAD = 64       # the kernels' head width (bf16: also twice it;
-                    # narrower heads zero-padded by `flash_attention`)
 NEG_INF = float("-inf")
 
 
@@ -106,21 +106,6 @@ def flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal=False):
             dot32(p.to(do.dtype).transpose(-1, -2), do).to(v.dtype))
 
 
-def kernel_widths(dtype):
-    """The head widths the CUDA kernels take in `dtype`: 64, and in bf16
-    also 128 (a head of two 64-column halves)."""
-    return (DIM_HEAD, 2 * DIM_HEAD) if dtype == torch.bfloat16 else (DIM_HEAD,)
-
-
-def padded_width(dim_head, dtype):
-    """The kernel width `flash_attention` runs a head of `dim_head` at: the
-    narrowest in `kernel_widths` that holds it, zero-padded (exact: the
-    zero columns add nothing to q·kᵀ, and the output's are sliced off);
-    `dim_head` itself past the widest."""
-    return next((w for w in kernel_widths(dtype) if dim_head <= w),
-                dim_head)
-
-
 def why_not(dim_head, dtype):
     """Why the CUDA kernels cannot take heads of `dim_head` in `dtype`
     (None if they can); any sequence runs, padded to the kernels' tile
@@ -128,10 +113,9 @@ def why_not(dim_head, dtype):
     (`padded_width`). The wrappers raise on it before any launch."""
     if dtype not in KERNEL_DTYPES:
         return f"the CUDA flash kernels take float32 or bfloat16, not {dtype}"
-    widths = kernel_widths(dtype)
-    if dim_head not in widths:
+    if dim_head not in HEAD_WIDTHS:
         return (f"the CUDA flash kernels take dim_head "
-                f"{' or '.join(map(str, widths))} in {dtype} (narrower "
+                f"{' or '.join(map(str, HEAD_WIDTHS))} (narrower "
                 f"zero-padded), not {dim_head}")
     return None
 
@@ -249,7 +233,7 @@ def flash_attention(q, k, v, mask=None, causal=False):
     """q, k, v: (b, h, n, d) with q pre-scaled; mask: (b, n) key validity.
     Returns (b, h, n, d) in q's dtype, differentiable in q, k, v."""
     b, h, n, d = q.shape
-    width = padded_width(d, q.dtype)
+    width = padded_width(d)
     if width != d:  # zero-padded heads
         return flash_attention(*(F.pad(t, (0, width - d))
                                  for t in (q, k, v)), mask, causal)[..., :d]

@@ -44,8 +44,10 @@ decides it from the shapes and, in training, the dropout rates. Everywhere
 else a kernel flag takes its kernel: on the card the CUDA wrapper launches
 it or raises (`why_not` in each kernel module names the limit), and never
 gives way to the plain version; on the CPU every kernel route runs its
-plain version. A head narrower than the attention kernels' 64 runs on them
-zero-padded to 64 (`attention_megablock.pad_heads`).
+plain version. The attention kernels take heads of 64 and 128 (two
+64-column halves); a narrower head runs on them zero-padded to the next of
+those (`attention_megablock.pad_heads`: ViT-H/14's 80 at 128), and a wider
+one raises on the card.
 
 Tensor parallelism (`parallel.shard_params`, `Transformer.model_group`):
 on the plain route a layer holds its heads' q, k and v columns of
