@@ -238,8 +238,10 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              128-wide megablock core (256, 257, 4 x 128) and K6 (256,
              256, causal) in bf16 and fp32 and fp32 K7 (b*h 512, n 256),
              forward and backward against their plain versions (phase
-             12's rule), timed beside their plain versions, SDPA and
-             their bounds. Past the CUDA kernels (text dim_head 256
+             12's rule), two launches bit for bit, timed beside their
+             plain versions, SDPA and their bounds; the fp32 kernels'
+             blocks and warps an SM at 128 (16 warps, one block of two
+             256-thread halves). Past the CUDA kernels (text dim_head 256
              under 'fused', dim 72 with FF inner 288 under 'block') the
              entry point raises ValueError naming the limit, and no plain
              route runs in the kernel's place.
@@ -3241,7 +3243,10 @@ def wide_kernels():
     causal), 4 heads of 128 with key pads, in bf16 and fp32, and fp32 K7
     (b*h 512, n 256, 128, causal, key pads): forward, and backward (the dq
     and dk/dv kernels), against their plain versions element by element
-    (phase 12's rule), two backward launches bit for bit equal; timed
+    (phase 12's rule), two backward launches (fp32: and two forward
+    launches) bit for bit equal; the fp32 kernels' blocks and warps an SM
+    at heads of 128 (one block of two 256-thread halves: 16 warps, as two
+    blocks at 64); timed
     beside their plain versions, SDPA on the same q, k, v and mask (in
     the same dtype) and their bounds (bf16 by bytes at 3.35 TB/s or bf16
     FLOPs; fp32 FMAs at 67 TFLOP/s). Returns (errs, ms, costs, library,
@@ -3249,10 +3254,26 @@ def wide_kernels():
     from xclip_tpu_torch.kernels import attention_block as core
     from xclip_tpu_torch.kernels import attention_megablock as mega
     from xclip_tpu_torch.kernels import flash_attention as flash
+    from xclip_tpu_torch.kernels import _build
     wgen = torch.Generator(device="cuda").manual_seed(211)
     errs, ms, costs, library, peaks = {}, {}, {}, {}, {}
     b, heads, d = 256, 4, 128
     hd, scale = heads * d, d ** -0.5
+    lib = _build.library()
+    for mode, name in ((0, "megablock"), (1, "K6"), (2, "K7")):
+        blocks = ((lib.xclip_flash_fwd_blocks(d),
+                   *(lib.xclip_flash_bwd_blocks(w, d) for w in (0, 1)))
+                  if mode == 2 else
+                  (lib.xclip_attention_fwd_blocks(mode, d),
+                   *(lib.xclip_attention_bwd_blocks(mode, w, d)
+                     for w in (0, 1))))
+        print(f"  fp32 {name} at heads of {d}, blocks (warps) an SM: "
+              + ", ".join(f"{k} {n} ({16 * n})" for k, n in
+                          zip(("forward", "dq", "dk/dv"), blocks)),
+              flush=True)
+        if blocks != (1, 1, 1):
+            fail(f"fp32 {name} at heads of {d}: blocks an SM {blocks}, "
+                 "not one 512-thread block (16 warps)")
 
     def record(key, label, e, kms, cost, sdpa, peak):
         errs[key], ms[key], costs[key] = e, kms, cost
@@ -3284,8 +3305,11 @@ def wide_kernels():
             label = (f"{fam} {tag} ({b}, {n}, 3x{hd}) {heads}x{d} "
                      f"{'causal ' if causal else ''}key-pad")
             want = fwd_plain(qkv, mask, *static)
-            e_fwd = compare_elementwise(label, names, fwd(qkv, mask, *static),
-                                        want, dt)
+            got = fwd(qkv, mask, *static)
+            if dt == F32 and not all(map(torch.equal, got,
+                                         fwd(qkv, mask, *static))):
+                fail(f"{label}: two forward launches differ")
+            e_fwd = compare_elementwise(label, names, got, want, dt)
             bargs = ((qkv, mask, cot, *want) if fam == "mega"
                      else (qkv, mask, *want, cot))
             got = bwd(*bargs, *static)
@@ -3322,13 +3346,17 @@ def wide_kernels():
                    for i in range(4))
     label = f"K7 f32 (b*h {bh}, n {n}, {d}) causal key-pad"
     want = flash.flash_attention_fwd_plain(q, k, v, mask_bh, True)
-    e_fwd = compare_elementwise(
-        label, ("out", "lse"), flash.flash_attention_fwd(q, k, v, mask_bh,
-                                                         True), want, F32)
     bwd_args = (q, k, v, mask_bh, *want, do, True)
+    got = [(flash.flash_attention_fwd(q, k, v, mask_bh, True),
+            flash.flash_attention_bwd(*bwd_args)) for _ in range(2)]
+    for i, which in enumerate(("forward", "backward")):
+        if not all(map(torch.equal, got[0][i], got[1][i])):
+            fail(f"{label}: two {which} launches differ")
+    e_fwd = compare_elementwise(label, ("out", "lse"), got[0][0], want, F32)
     e_bwd = compare_elementwise(
-        label, ("dq", "dk", "dv"), flash.flash_attention_bwd(*bwd_args),
+        label, ("dq", "dk", "dv"), got[0][1],
         flash.flash_attention_bwd_plain(*bwd_args), F32)
+    del got
     b4 = [t.reshape(bh // h, h, n, d) for t in (q, k, v, do)]
     sdpa = sdpa_ms(*b4[:3], key_mask(lengths, n), True, 1.0, b4[3])
     for kind, e, fn, plain in (

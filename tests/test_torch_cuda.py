@@ -2233,3 +2233,60 @@ def test_heads_padded_to_128_match_the_unpadded_plain_versions(cuda_device,
         for a, w in zip(got_g, want_g):
             torch.testing.assert_close(a, w, rtol=0,
                                        atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_attention_kernels_hold_16_warps_an_sm(cuda_device, d):
+    """The fp32 core's forward, dq and dk/dv kernels hold 16 warps an SM in
+    every mode (the megablock's, K6's and K7's), as the occupancy
+    calculator gives them for the build's registers and shared memory: two
+    256-thread blocks at heads of 64, one block of two 256-thread halves
+    (a 64-column half each) at 128."""
+    lib = flash._build.library()
+    block_warps = 8 * (d // 64)
+    blocks = {("k7", "fwd"): lib.xclip_flash_fwd_blocks(d)}
+    for which, name in ((0, "dq"), (1, "dkv")):
+        blocks["k7", name] = lib.xclip_flash_bwd_blocks(which, d)
+    for mode, kind in ((0, "mega"), (1, "k6")):
+        blocks[kind, "fwd"] = lib.xclip_attention_fwd_blocks(mode, d)
+        for which, name in ((0, "dq"), (1, "dkv")):
+            blocks[kind, name] = lib.xclip_attention_bwd_blocks(mode, which,
+                                                                d)
+    warps = {key: b * block_warps for key, b in blocks.items()}
+    assert warps == dict.fromkeys(blocks, 16), blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mega", "k6", "k7"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_attention_at_head_width_128_is_deterministic(cuda_device, kind,
+                                                          causal):
+    """Two launches of the fp32 kernels at heads of 128 (the forward and
+    the dq and dk/dv pair) agree bit for bit in every mode, with whole
+    masked key tiles and a dead row (K7: a row with no valid key)."""
+    if kind == "k7":
+        args = flash_args(b=4, n=257, mask_kind="holes", d=128)
+        args[3][-1] = False
+        q, k, v, mask, do = _flash_padded(args, torch.float32, cuda_device)
+        runs = []
+        for _ in range(2):
+            out, lse = flash.flash_attention_fwd(q, k, v, mask, causal)
+            runs.append((out, lse, *flash.flash_attention_bwd(
+                q, k, v, mask, out, lse, do, causal)))
+    else:
+        qkv, mask, do = to_torch(core_args(b=4, n=257, heads=2,
+                                           mask_kind="holes", dim_head=128),
+                                 torch.float32, cuda_device)
+        mask[-1] = False
+        static = (2, 128, 128 ** -0.5, causal, True)
+        runs = []
+        for _ in range(2):
+            if kind == "mega":
+                fwd = mega.mega_core_fwd(qkv, mask, *static)
+                bwd = mega.mega_core_bwd(qkv, mask, do, *fwd, *static)
+            else:
+                fwd = core.attention_core_fwd(qkv, mask, *static)
+                bwd = core.attention_core_bwd(qkv, mask, *fwd, do, *static)
+            runs.append((*fwd, bwd))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -12,20 +12,29 @@ an SM: `kBwdPTiles` 1), the backward's exponential (ex2.approx: `kBwdEx2`
 true), the unrolling of a product's depth (two halves of 8 unrolled
 steps), the dq kernel's register budget (two blocks an SM); the forward
 always takes a row's 16 threads in one warp (its running max and sum by
-shuffles) and ex2.approx. The variants: "tile-4x8" (4 x 8 sums a thread,
+shuffles) and ex2.approx. At heads of 128 a block is two 256-thread
+halves, a 64-column half each (16 warps an SM). The variants: "tile-4x8" (4 x 8 sums a thread,
 128 threads, forward and backward), "one-block" (p and ds in a tile each,
 one dk/dv block an SM), "expf" (the backward's exponential), "unroll-hi"
 (the whole depth unrolled), "dq-one-block", "fwd-exchange" (the
 forward's rows over two warps, as the backward's, their max and sum
 exchanged through shared memory: two more block barriers a key tile;
-`tools/fwd_exchange.patch`) and "fwd-expf" (the forward's exponential,
-`tools/fwd_expf.patch`). Each is an edited copy of `csrc/`
+`tools/fwd_exchange.patch`), "fwd-expf" (the forward's exponential,
+`tools/fwd_expf.patch`), and at heads of 128 "nh2-one-block" (the
+design this one replaced: 256 threads holding both halves' sums, one
+block and 8 warps an SM; `tools/nh2_one_block.patch`) and "nh2-cluster"
+(the forward as a cluster of two 256-thread blocks, a column half each,
+the partial scores read through distributed shared memory, two blocks
+an SM; the backward as shipped; `tools/nh2_cluster.patch`) and
+"nh2-rows" (the backward's two inner block barriers a tile as named
+barriers of the four warps holding the same rows, the dk/dv kernel's
+row terms double-buffered; `tools/nh2_rows.patch`). Each is an edited copy of `csrc/`
 under `build/f32_attention_variants/`, of which attention_block.cu,
 attention_megablock.cu and flash_attention.cu are compiled with ptxas -v
 (the fp32 kernels' registers and spills printed) and linked with the
 shipped gemm_f32.cu, gemm_sm90.cu and rows.cu (built once); the occupancy
-calculator gives each kernel's blocks an SM, and cuobjdump its instruction
-mix. With `--parent DIR` (a checkout unpacked there, e.g. `git archive
+calculator gives each kernel's blocks and warps an SM at heads of 64 and
+128, and cuobjdump its instruction mix. With `--parent DIR` (a checkout unpacked there, e.g. `git archive
 HEAD | tar -x -C DIR`; one whose fp32 K7 dq kernel computes Δ, as this
 checkout's wrappers expect) that checkout's library is built too and its
 fp32 kernels timed beside them. Each library is checked against the plain versions
@@ -36,9 +45,13 @@ core's (256, 257) with the text tower's key pads, one SimSiam pass's (256,
 33), K6's (256, 256) causal with key pads and K7's at phase 12's text
 shape (256, 8, 256, 64) causal with key pads (forward and backward),
 beside the plain version, SDPA in fp32 and the 67 TFLOP/s bound, and the
-shipped kernels apart (the profiler's device times); the variants also
-at (16, 1024) and (4, 2048) with whole masked tiles and a dead element,
-K7's at (2, 8, 2304) (checked, not timed). Needs a card and nvcc; prints
+shipped kernels apart (the profiler's device times); the same at
+chip_smoke.py phase 21's shapes with heads of 128: the megablock core's
+(256, 257, 4 x 128) and K6's (256, 256, 4 x 128) causal with key pads,
+K7's (64, 8, 256, 128) causal with its key pads; the variants also at
+(16, 1024) and (4, 2048) with whole masked tiles and a dead element,
+K7's at (2, 8, 2304), and at heads of 128 K6's (16, 1024) and K7's (2,
+8, 2304) so (checked, not timed). Needs a card and nvcc; prints
 the card and its power limit first.
 
 The "fwd-exchange" variant applies `tools/fwd_exchange.patch`,
@@ -73,7 +86,7 @@ SHARED = ("gemm_f32.cu", "gemm_sm90.cu", "rows.cu")     # built once
 VARIANTS = _build.BUILD_DIR.parent / "f32_attention_variants"
 TOOLS = Path(__file__).resolve().parent
 # (variant, [(shipped text, its replacement)], applied in order)
-DQ_BOUNDS = ("__launch_bounds__(kBwdThreads, kBlocks<NH>)\n"
+DQ_BOUNDS = ("__launch_bounds__(kThreads<NH>, kBlocks<NH>)\n"
              "attention_bwd_dq_kernel")
 EDITS = {
     "shipped": [],
@@ -89,9 +102,21 @@ EDITS = {
     "dq-one-block": [(DQ_BOUNDS, DQ_BOUNDS.replace("kBlocks<NH>", "1"))],
     "fwd-exchange": hunks(TOOLS / "fwd_exchange.patch"),
     "fwd-expf": hunks(TOOLS / "fwd_expf.patch"),
+    # heads of 128 as one 256-thread block holding both halves' sums, one
+    # block (8 warps) an SM
+    "nh2-one-block": hunks(TOOLS / "nh2_one_block.patch"),
+    # the forward at heads of 128 as a cluster of two 256-thread blocks, a
+    # column half each, the partial scores exchanged through distributed
+    # shared memory (two blocks an SM)
+    "nh2-cluster": hunks(TOOLS / "nh2_cluster.patch"),
+    # the backward's inner block barriers at heads of 128 as named barriers
+    # of the four warps holding the same rows (the dk/dv kernel's row terms
+    # double-buffered)
+    "nh2-rows": hunks(TOOLS / "nh2_rows.patch"),
 }
 F32 = torch.float32
-KERNELS = r"(attention_(?:fwd|bwd_dq|bwd_dkv)_kernel)IL[bi](\d)E"
+# the kernels' mangled names: mode (0 megablock, 1 K6, 2 K7) and NH
+KERNELS = r"(attention_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d)ELi(\d)E"
 
 
 def variant_csrc(name):
@@ -124,7 +149,7 @@ def resources(name, src, out):
     for line in out.splitlines():
         m = re.search(r"entry function '\S*" + KERNELS, line)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            kernel = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and kernel:
@@ -147,7 +172,7 @@ def sass_mix(name, lib):
     for line in out.splitlines():
         m = re.search(r"Function : \S*" + KERNELS, line)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            kernel = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
             counts[kernel] = {}
             continue
         if "Function :" in line:
@@ -193,18 +218,27 @@ def build_all(names):
                        check=True)
         libs[name] = cs.typed_library(lib)
         sass_mix(name, lib)
-        built = libs[name]
-        core_blocks = [(built.xclip_attention_fwd_blocks(mode),
-                        *(built.xclip_attention_bwd_blocks(mode, which)
-                          for which in (0, 1))) for mode in (1, 0)]
-        k7_blocks = [built.xclip_flash_fwd_blocks(),
-                     *(built.xclip_flash_bwd_blocks(which)
-                       for which in (0, 1))]
-        print(f"{name:12s} blocks an SM (occupancy calculator): K6 forward "
-              "{}, dq {}, dk/dv {}; megablock forward {}, dq {}, dk/dv {}; "
-              "K7 forward {}, dq {}, dk/dv {}".format(
-                  *core_blocks[0], *core_blocks[1], *k7_blocks), flush=True)
+        occupancy(name, libs[name])
     return libs
+
+
+def occupancy(name, lib):
+    """Print the fp32 kernels' blocks and warps an SM (the occupancy
+    calculator's, for the build's registers and shared memory) at heads of
+    64 and 128, in each mode: a block is 256 threads a 64-column half (the
+    one-block variant's 256 at either width)."""
+    for d in (64, 128):
+        warps = 8 if name == "nh2-one-block" else 8 * (d // 64)
+        blocks = [(lib.xclip_attention_fwd_blocks(mode, d),
+                   *(lib.xclip_attention_bwd_blocks(mode, which, d)
+                     for which in (0, 1))) for mode in (1, 0)]
+        blocks.append((lib.xclip_flash_fwd_blocks(d),
+                       *(lib.xclip_flash_bwd_blocks(which, d)
+                         for which in (0, 1))))
+        print(f"{name:12s} heads of {d}, blocks (warps) an SM: " + "; ".join(
+            f"{mode} forward {f} ({f * warps}), dq {q} ({q * warps}), "
+            f"dk/dv {kv} ({kv * warps})" for mode, (f, q, kv) in
+            zip(("K6", "megablock", "K7"), blocks)), flush=True)
 
 
 def holes_mask(g, b, n):
@@ -222,22 +256,24 @@ def holes_mask(g, b, n):
 class Case:
     """One shape: kind "mega" (the megablock's core, its fp32 dattn and
     (attnout, sm)), "k6" (its do and (out, lse)) or "k7" (K7's kernels on
-    the (b·h, n, 64) tensors its wrapper hands them, q pre-scaled); `fwd`
-    the plain forward's outputs."""
+    the (b·h, n, d) tensors its wrapper hands them, q pre-scaled), `heads`
+    heads of d (hd 512); `fwd` the plain forward's outputs."""
 
-    def __init__(self, label, kind, b, n, causal, dead, mask, timed, g):
+    def __init__(self, label, kind, b, n, causal, dead, mask, timed, g,
+                 d=64):
         self.label, self.kind, self.b, self.n = label, kind, b, n
         self.causal, self.mask, self.timed = causal, mask, timed
+        self.d, self.heads = d, 512 // d
         if kind == "k7":
-            q, k, v, do = (cs.rand(g, b, 8, n, 64) for _ in range(4))
-            self.heads4 = (q * 0.125, k, v, do)
+            self.heads = 8
+            q, k, v, do = (cs.rand(g, b, 8, n, d) for _ in range(4))
+            self.heads4 = (q * d ** -0.5, k, v, do)
             (q, k, v, do), self.mask_bh = flash.pad_flat(self.heads4, mask)
             self.flat = (q, k, v, do)
             self.fwd = flash.flash_attention_fwd_plain(q, k, v, self.mask_bh,
                                                        causal)
             return
-        scale = 64 ** -0.5 if kind == "mega" else 0.125
-        self.static = (8, 64, scale, causal, dead)
+        self.static = (self.heads, d, d ** -0.5, causal, dead)
         self.qkv = cs.rand(g, b, n, 3 * 512)
         self.cot = cs.rand(g, b, n, 512)
         self.fwd = self.forward(plain=True)
@@ -274,30 +310,40 @@ class Case:
 
     def cost(self, which):
         lengths = self.mask.sum(-1).tolist()
+        h = self.heads
         if self.kind == "k7":
-            lengths_bh = [L for L in lengths for _ in range(8)]
-            return cs.flash_cost(which, self.b * 8, self.n, lengths_bh,
-                                 self.causal, 4)
-        pairs = 8 * cs.valid_pairs(lengths, self.n, self.causal)
-        keys = 8 * cs.used_keys(lengths, self.n)
+            lengths_bh = [L for L in lengths for _ in range(h)]
+            return cs.flash_cost(which, self.b * h, self.n, lengths_bh,
+                                 self.causal, 4, width=self.d)
+        pairs = h * cs.valid_pairs(lengths, self.n, self.causal)
+        keys = h * cs.used_keys(lengths, self.n)
         fn = cs.mega_core_cost if self.kind == "mega" else cs.core_cost
-        return fn(which, self.b * self.n * 8, keys, pairs, self.b * self.n, 4)
+        return fn(which, self.b * self.n * h, keys, pairs, self.b * self.n, 4,
+                  width=self.d)
 
     def sdpa(self):
         """SDPA fp32 (forward, backward) ms on the same q, k, v and mask."""
         if self.kind == "k7":
             q, k, v, do = self.heads4
             return cs.sdpa_ms(q, k, v, self.mask, self.causal, 1.0, do)[:2]
-        q, k, v = (cs._heads_of(self.qkv, i) for i in range(3))
+        b, n, h, d = self.b, self.n, self.heads, self.d
+        q, k, v, do = (t[..., i * 512:(i + 1) * 512].reshape(
+            b, n, h, d).transpose(1, 2) for t, i in (
+                (self.qkv, 0), (self.qkv, 1), (self.qkv, 2), (self.cot, 0)))
         return cs.sdpa_ms(q, k, v, self.mask, self.causal, self.static[2],
-                          cs._heads_of(self.cot, 0))[:2]
+                          do)[:2]
 
 
 def cases():
     """The shapes: the megablock's core at the text tower's (256, 257) with
     key pads and at one SimSiam pass's (256, 33), K6's (256, 256) causal
-    with key pads, K7's at (256, 8, 256) causal with key pads (timed); the megablock's and K6's at (16, 1024) and (4, 2048), K7's at
-    (2, 2304), with holes and a dead element (checked)."""
+    with key pads, K7's at (256, 8, 256) causal with key pads (timed); the
+    megablock's and K6's at (16, 1024) and (4, 2048), K7's at (2, 2304),
+    with holes and a dead element (checked). At heads of 128 (timed),
+    chip_smoke.py's phase 21 shapes: the megablock's core at (256, 257, 4
+    x 128) and K6's at (256, 256, 4 x 128) causal, key pads, and K7's at
+    (b·h 512, n 256, 128) causal with its key pads; K6's and K7's with
+    holes and a dead element (checked)."""
     lgen = torch.Generator().manual_seed(6)
     pads = (torch.randint(4, 257, (256,), generator=lgen) + 1).tolist()
     g = torch.Generator(device="cuda").manual_seed(19)
@@ -327,6 +373,20 @@ def cases():
             ("K7 (2, 8, 2304, 64) causal holes, dead", "k7", 2, 2304, True,
              False, holes_mask(g, 2, 2304), False)):
         out.append(Case(label, kind, b, n, causal, dead, mask, timed, g))
+    k7_lengths = [128 + (37 * i) % 129 for i in range(64)]   # phase 21's
+    for label, kind, b, n, causal, dead, mask, timed in (
+            ("megablock (256, 257, 4x128) key-pad", "mega", 256, 257, False,
+             True, cs.key_mask(lengths(256, 257), 257), True),
+            ("K6 (256, 256, 4x128) causal key-pad", "k6", 256, 256, True,
+             True, cs.key_mask(lengths(256, 256), 256), True),
+            ("K7 (64, 8, 256, 128) causal key-pad", "k7", 64, 256, True,
+             False, cs.key_mask(k7_lengths, 256), True),
+            ("K6 (16, 1024, 4x128) causal holes, dead", "k6", 16, 1024, True,
+             True, holes_mask(g, 16, 1024), False),
+            ("K7 (2, 8, 2304, 128) causal holes, dead", "k7", 2, 2304, True,
+             False, holes_mask(g, 2, 2304), False)):
+        out.append(Case(label, kind, b, n, causal, dead, mask, timed, g,
+                        d=128))
     return out
 
 

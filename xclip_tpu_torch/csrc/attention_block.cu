@@ -86,16 +86,17 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
       scale, causal, maybe_dead, st);
 }
 
-// Blocks an SM of the fp32 backward's kernels, K6's (mode 1) or the
-// megablock's (mode 0): dq (`which` 0) or dk/dv (1); a negative
-// cudaError_t code on failure.
-extern "C" int xclip_attention_bwd_blocks(int mode, int which) {
-  return mode == kK6 ? attention_bwd_blocks<kK6>(which)
-                     : attention_bwd_blocks<kMega>(which);
+// Blocks an SM of the fp32 backward's kernels at head width dh (64: 256
+// threads a block; 128: 512), K6's (mode 1) or the megablock's (mode 0):
+// dq (`which` 0) or dk/dv (1); a negative cudaError_t code on failure.
+extern "C" int xclip_attention_bwd_blocks(int mode, int which, int dh) {
+  return mode == kK6 ? attention_blocks<kK6>(which, dh)
+                     : attention_blocks<kMega>(which, dh);
 }
 
-// Blocks an SM of the fp32 forward, K6's (lse 1) or the megablock's (lse
-// 0); a negative cudaError_t code on failure.
-extern "C" int xclip_attention_fwd_blocks(int lse) {
-  return lse ? attention_fwd_blocks<kK6>() : attention_fwd_blocks<kMega>();
+// Blocks an SM of the fp32 forward at head width dh (as the backward's),
+// K6's (lse 1) or the megablock's (lse 0); a negative cudaError_t code on
+// failure.
+extern "C" int xclip_attention_fwd_blocks(int lse, int dh) {
+  return lse ? attention_blocks<kK6>(-1, dh) : attention_blocks<kMega>(-1, dh);
 }

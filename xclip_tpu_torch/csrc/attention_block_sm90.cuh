@@ -138,11 +138,12 @@ __device__ __forceinline__ float k6_norm(float p, float l, float linv) {
 // One 64-bit word per 64-key tile of the batch element's mask (bit c: key
 // 64 t + c < n is valid), into `bits`; returns the first valid key (n if
 // none). Ends with the block synchronised. THREADS: the block's threads
-// (the fp32 core's backward also reads its mask so).
+// (the fp32 core's backward also reads its mask so), `warp` the calling
+// warp's index among them.
 template <int THREADS = K6_THREADS>
 __device__ int k6_key_tiles(unsigned long long* bits, const uint8_t* mrow,
-                            int n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                            int n, int warp = threadIdx.x >> 5) {
+  const int lane = threadIdx.x & 31;
   const int tiles = (n + 63) / 64;
   for (int t = warp; t < tiles; t += THREADS / 32) {
     const int j = 64 * t + lane;

@@ -105,11 +105,28 @@
 // against the shipped choices (PERF.md).
 //
 // A head of 128 (NH = 2, every mode) is two 64-column halves, each a tile
-// of its own: a score (dp) tile sums the halves' products, and each half
-// keeps its own output sums (o, dq, dk, dv). The head's tiles double, the
-// p / ds tile does not: 11 tiles (176 KB) a forward block, 13 (208 KB) a
-// backward one, under the card's 227 KB a block, so one block an SM, 255
-// registers a thread.
+// of its own, and a block of two 256-thread halves (threadIdx.y), each the
+// NH = 1 thread layout and owning one column half of the outputs, so that
+// a thread's sums stay at NH = 1's 4 x 4 of each product and 128
+// registers, and an SM holds one 512-thread block: 16 warps, as two
+// blocks at 64. Each half stages its own columns of the operands.
+//   * forward: each half's warp computes its half's partial scores, the
+//     two warps holding the same rows exchange them through a tile each
+//     (a named barrier of the pair), and both add s0 + s1 (the same bits
+//     in either), so both form the same row max, sum and p; each writes p
+//     over the partial it read and multiplies it by its own v columns: 12
+//     tiles (192 KB);
+//   * backward: the dq kernel's half 0 makes s = q . kᵀ and half 1 dp = do
+//     . vᵀ, each over the whole head in one chain (the gradients bit for
+//     bit those of the one-block design this replaced); dp reaches half 0
+//     through the ds tile, where half 0 writes ds over it; each half then
+//     adds ds . k of its columns: 13 tiles (208 KB). The dk/dv kernel's
+//     half 0 makes p into the p tile, half 1 dpᵀ into the ds tile, half 0
+//     forms ds there, and each half keeps its columns of dv and dk: 14
+//     tiles (224 KB).
+// tools/f32_attention_variants.py times the one-block design it replaces
+// (256 threads holding both halves' sums, 8 warps an SM:
+// tools/nh2_one_block.patch) against it at heads of 128 (PERF.md).
 #pragma once
 
 #include "attention_block_sm90.cuh"
@@ -159,17 +176,25 @@ constexpr int kBwdBlocks = kBwdPTiles == 1 ? 2 : 1;  // blocks an SM
 // (true; a few fp32 ulps from expf, well inside the 1e-4 gate), or expf
 // (false). The forward's is always ex2.approx.
 constexpr bool kBwdEx2 = true;
+// The dk/dv kernel's p and ds tiles at a head of DH NH: at 128 always two
+// (p; dp from the other half, then ds).
+template <int NH>
+constexpr int kDkvPTiles = NH == 1 ? kBwdPTiles : 2;
 // shared memory at a head of DH NH columns
 template <int NH = 1>
 constexpr size_t kBwdDqSmem =
     sizeof(float) * ((6 * NH + 1) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
 template <int NH = 1>
 constexpr size_t kBwdDkvSmem = sizeof(float) *
-    ((6 * NH + kBwdPTiles) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
+    ((6 * NH + kDkvPTiles<NH>) * BT + 3 * 64) + 8 * xclip::K6_MAX_TILES;
 template <int NH = 1>
 constexpr size_t kFwdSmem =
-    sizeof(float) * (5 * NH + 1) * BT + 8 * xclip::K6_MAX_TILES;
-// blocks an SM at NH (two at 64; shared memory allows one at 128)
+    sizeof(float) * 6 * NH * BT + 8 * xclip::K6_MAX_TILES;
+// a block's threads at NH: a 256-thread half a 64-column half (threadIdx.y)
+template <int NH>
+constexpr int kThreads = kBwdThreads * NH;
+// blocks an SM at NH: 16 warps either way (two at 64; one of 512 threads
+// at 128)
 template <int NH>
 constexpr int kBlocks = NH == 1 ? 2 : 1;
 
@@ -361,12 +386,34 @@ __device__ __forceinline__ void tile_ab(float (&acc)[4][kBwdTN],
 }
 
 // tile_abt over a head of NH tiles (tile hh at `a + hh * BT`, `b + hh *
-// BT`): the halves' products summed in order.
+// BT`): one FMA chain an element over the halves in order (NH 2: a loop,
+// one half's row pointers live at a time).
 template <int NH, int NJ, bool RW = false>
 __device__ __forceinline__ void head_abt(float (&acc)[4][kBwdTN],
                                          const float* a, const float* b) {
-  tile_abt<NJ, RW>(acc, a, b);
-  if constexpr (NH == 2) tile_abt<NJ, RW, true>(acc, a + BT, b + BT);
+  if constexpr (NH == 1) {
+    tile_abt<NJ, RW>(acc, a, b);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int half = 0; half < NH; ++half)
+      tile_abt<NJ, RW, true>(acc, a + half * BT, b + half * BT);
+  }
+}
+
+// At NH = 2: warp w of each half (the two warps holding the same rows of
+// every product) meet at named barrier 1 + w.
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + (threadIdx.x >> 5)) : "memory");
+}
+
+// The thread's half of the head at NH (threadIdx.y; 0 at NH = 1).
+template <int NH>
+__device__ __forceinline__ int head_half() {
+  return NH == 1 ? 0 : (int)threadIdx.y;
 }
 
 // f(integral_constant<k>) for the smallest k in 1..N with k >= m (N if m
@@ -423,7 +470,8 @@ __device__ __forceinline__ void row_reduce(float (&v)[4], Op op) {
 // tiles), and its first valid key; else (kK7, n a multiple of 64) each
 // tile's word read by each warp from global memory as it walks it, and the
 // next tile with a valid key found so (no length limit, no dead rows).
-template <int MODE>
+// The words are read by the block's kThreads<NH> threads.
+template <int MODE, int NH = 1>
 struct KeyTiles {
   static constexpr bool WORDS = MODE != kK7;
   const uint8_t* mrow;
@@ -432,7 +480,11 @@ struct KeyTiles {
   __device__ __forceinline__ KeyTiles(unsigned long long* b,
                                       const uint8_t* m, int n)
       : mrow(m), bits(b), fv(n) {
-    if constexpr (WORDS) fv = xclip::k6_key_tiles<kBwdThreads>(bits, m, n);
+    if constexpr (WORDS && NH == 1)
+      fv = xclip::k6_key_tiles<kBwdThreads>(bits, m, n);
+    else if constexpr (WORDS)
+      fv = xclip::k6_key_tiles<kThreads<NH>>(
+          bits, m, n, (threadIdx.x >> 5) + kBwdThreads / 32 * threadIdx.y);
   }
   __device__ __forceinline__ unsigned long long word(int t) const {
     if constexpr (WORDS)
@@ -458,9 +510,10 @@ struct KeyTiles {
 // one block per (64-query tile, head, batch element), the last query
 // tiles (the most key tiles when causal) first; the rows' statistics into
 // `stats`: the megablock's (m, l) (kMega; or none, null), K6's lse (kK6)
-// or K7's (kK7: m_safe + log l, one head, q pre-scaled). Heads of DH NH.
+// or K7's (kK7: m_safe + log l, one head, q pre-scaled). Heads of DH NH,
+// kThreads<NH> threads.
 template <int MODE, int NH>
-__global__ void __launch_bounds__(kBwdThreads, kBlocks<NH>)
+__global__ void __launch_bounds__(kThreads<NH>, kBlocks<NH>)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, long ld,
                      const uint8_t* __restrict__ mask,
@@ -474,8 +527,10 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = qs + HT;      // two buffers
   float* vs = ks + 2 * HT;  // two buffers
-  float* ps = vs + 2 * HT;  // p
-  auto* bits = reinterpret_cast<unsigned long long*>(ps + BT);
+  // p; NH 2: tile hh takes half hh's partial scores, then the other
+  // half's p
+  float* ps = vs + 2 * HT;
+  auto* bits = reinterpret_cast<unsigned long long*>(ps + NH * BT);
   if constexpr (MODE == kK7) {  // one head, q pre-scaled
     heads = 1;
     ld = D;
@@ -488,22 +543,20 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hd = heads * D;
   const long rows = (long)bi * n;
   const int tx = thr_tx<RW>(), ty = thr_ty<RW>();
+  // the thread's column half: its q, k, v and o columns; its p tile
+  const int hh = head_half<NH>();
+  float* pt = ps + (NH - 1 - hh) * BT;
 
   // the walked rows' bases (the head's first column)
   const float* kb = k + rows * ld + h * D;
   const float* vb = v + rows * ld + h * D;
   auto stage = [&](int t, int buf) {
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) {
-      stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
-      stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
-    }
+    stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
+    stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
   };
   // q lands with the first key tile's copies (tile_walk)
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh)
-    stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
-  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
+  const KeyTiles<MODE, NH> keys(bits, mask + rows, n);
   const int fv = keys.fv;
   // a row below `dead_end` has no valid key (maybe_dead): m = 0 and p = 1
   // on every real key, so a block holding one walks every key tile
@@ -521,7 +574,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = q0 + 4 * ty;  // the thread's rows r0 + i
 
   // per row: the running max, this thread's share of the running sum
-  float m[4], l[4], o[NH][4][kBwdTN] = {};
+  float m[4], l[4], o[4][kBwdTN] = {};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -540,7 +593,21 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) mt[i] = -INFINITY;
       if (wrun) {
-        head_abt<NH, NJ, RW>(s, qs, ks + buf * HT);
+        tile_abt<NJ, RW>(s, qs + hh * BT, ks + buf * HT + hh * BT);
+        if constexpr (NH == 2) {
+          // the head's scores: each half adds the other's partial, the
+          // same s0 + s1 in both (the pair's warps see the same cols)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              tile_at<RW>(ps + hh * BT, i, j) = s[i][j];
+          pair_sync();
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) s[i][j] += tile_at<RW>(pt, i, j);
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -570,22 +637,16 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             : r0 + i < dead_end ? 1.f
                                                 : k6_exp(x, mn);
             sum += p;
-            tile_at<RW>(ps, i, j) = p;
+            tile_at<RW>(pt, i, j) = p;  // NH 2: over the partial read
           }
           l[i] = l[i] * corr + sum;
 #pragma unroll
-          for (int hh = 0; hh < NH; ++hh)
-#pragma unroll
-            for (int e = 0; e < kBwdTN; ++e) o[hh][i][e] *= corr;
+          for (int e = 0; e < kBwdTN; ++e) o[i][e] *= corr;
           m[i] = mn;
         }
       }
       __syncwarp();  // the warp reads only its own rows of p
-      if (wrun) {
-#pragma unroll
-        for (int hh = 0; hh < NH; ++hh)
-          tile_ab<NJ * TX / 4, RW>(o[hh], ps, vs + buf * HT + hh * BT);
-      }
+      if (wrun) tile_ab<NJ * TX / 4, RW>(o, pt, vs + buf * HT + hh * BT);
     });
   });
   cp_async_wait<0>();  // q has landed even if no tile was walked
@@ -594,19 +655,15 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int hh = 0; hh < NH; ++hh)
-#pragma unroll
-      for (int e = 0; e < kBwdTN; ++e) o[hh][i][e] /= li;
+    for (int e = 0; e < kBwdTN; ++e) o[i][e] /= li;
     // K7's lse takes m_safe: 0 where the row had no valid key
     const float mi = MODE == kK7 && m[i] == -INFINITY ? 0.f : m[i];
-    if (tx == 0 && r0 + i < n)
+    if (tx == 0 && hh == 0 && r0 + i < n)
       store_row_stats(MODE == kMega ? stats : nullptr,
                       MODE == kMega ? nullptr : stats, bi, n, r0 + i, h,
                       heads, mi, li);
   }
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh)
-    store_tile<RW>(attnout + rows * hd + h * D + DH * hh, hd, q0, n, o[hh]);
+  store_tile<RW>(attnout + rows * hd + h * D + DH * hh, hd, q0, n, o);
 }
 
 // A kernel's shared memory (above the 48 KB default) and the SM's largest
@@ -629,7 +686,8 @@ int launch_fma_fwd_nh(const float* q, const float* k, const float* v, long ld,
   const cudaError_t e =
       core_setup((const void*)attention_fwd_kernel<MODE, NH>, kFwdSmem<NH>);
   if (e != cudaSuccess) return (int)e;
-  attention_fwd_kernel<MODE, NH><<<grid, kBwdThreads, kFwdSmem<NH>, st>>>(
+  attention_fwd_kernel<MODE, NH>
+      <<<grid, dim3(kBwdThreads, NH), kFwdSmem<NH>, st>>>(
       q, k, v, ld, mask, attnout, stats, n, heads, scale, causal,
       maybe_dead);
   XCLIP_CHECK_LAUNCH();
@@ -682,19 +740,20 @@ int launch_attention(const T* qkv, const uint8_t* mask, T* attnout, int b,
   }
 }
 
-// Blocks an SM of the fp32 forward in MODE at heads of 64, as the
-// occupancy calculator gives them for the build's registers and the
-// kernel's shared memory; a negative cudaError_t code on failure. A
-// template, so that only a file calling it builds the forward.
-template <int MODE>
+// Blocks an SM of the fp32 forward in MODE at heads of DH NH (blocks of
+// kThreads<NH> threads), as the occupancy calculator gives them for the
+// build's registers and the kernel's shared memory; a negative
+// cudaError_t code on failure. A template, so that only a file calling it
+// builds the forward.
+template <int MODE, int NH>
 int attention_fwd_blocks() {
-  const void* fwd = (const void*)attention_fwd_kernel<MODE, 1>;
+  const void* fwd = (const void*)attention_fwd_kernel<MODE, NH>;
   int blocks = 0;
-  cudaError_t e = core_setup(fwd, kFwdSmem<1>);
+  cudaError_t e = core_setup(fwd, kFwdSmem<NH>);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fwd,
-                                                      kBwdThreads,
-                                                      kFwdSmem<1>);
+                                                      kThreads<NH>,
+                                                      kFwdSmem<NH>);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
@@ -706,9 +765,9 @@ int attention_fwd_blocks() {
 // hd); `attnout` the forward's attention output (b*n x hd); `stats` the
 // forward's row statistics (K6's and K7's lse; the megablock's (m, l)).
 // Writes delta into its scratch for the dk/dv kernel, dq (row stride ld).
-// Heads of DH NH.
+// Heads of DH NH, kThreads<NH> threads.
 template <int MODE, int NH>
-__global__ void __launch_bounds__(kBwdThreads, kBlocks<NH>)
+__global__ void __launch_bounds__(kThreads<NH>, kBlocks<NH>)
 attention_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, long ld,
@@ -747,24 +806,20 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
   const int tx = thr_tx(), ty = thr_ty();
   // the megablock folds the softmax scale into dp and delta, K6 into ds
   const float dscale = LSE ? 1.f : scale;
+  // the thread's column half: the operand columns it stages, its dq's
+  const int hh = head_half<NH>();
 
   // the walked rows' bases (the head's first column)
   const float* kb = k + rows * ld + h * D;
   const float* vb = v + rows * ld + h * D;
   auto stage = [&](int t, int buf) {
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) {
-      stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
-      stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
-    }
+    stage_f32(ks + buf * HT + hh * BT, kb, ld, DH * hh, 64 * t, n);
+    stage_f32(vs + buf * HT + hh * BT, vb, ld, DH * hh, 64 * t, n);
   };
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
-    stage_f32(dos + hh * BT, dattn + rows * hd, hd, h * D + DH * hh, q0, n);
-  }
+  stage_f32(qs + hh * BT, q + rows * ld, ld, h * D + DH * hh, q0, n);
+  stage_f32(dos + hh * BT, dattn + rows * hd, hd, h * D + DH * hh, q0, n);
   cp_async_commit();
-  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  const KeyTiles<MODE, NH> keys(bits, mask + rows, n);
   const int fv = keys.fv;
   // a dead row's ds is 0: only key tiles with a valid key up to the
   // diagonal
@@ -774,16 +829,17 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
   cp_async_wait<0>();  // q, do
   __syncthreads();
   // delta = Σ do · out (the megablock: scale Σ dattn · attnout), G threads
-  // a row, in column order within a thread, then summed over the G
-  {
+  // a row, in column order within a thread, then summed over the G (NH 2:
+  // half 0's threads)
+  if (hh == 0) {
     constexpr int G = kBwdThreads / 64, CH = 16 / G;
     const int r = threadIdx.x / G, part = threadIdx.x % G, qi = q0 + r;
     float acc = 0.f;
     if (qi < n) {
 #pragma unroll
-      for (int hh = 0; hh < NH; ++hh) {
-        const float* orow = attnout + (rows + qi) * hd + h * D + DH * hh;
-        const float* drow = dos + hh * BT + r * 64;
+      for (int half = 0; half < NH; ++half) {
+        const float* orow = attnout + (rows + qi) * hd + h * D + DH * half;
+        const float* drow = dos + half * BT + r * 64;
 #pragma unroll
         for (int c = part * CH; c < (part + 1) * CH; ++c) {
           const float4 o = *reinterpret_cast<const float4*>(orow + 4 * c);
@@ -817,9 +873,10 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
   const bool wlive = row0 < n;
   const int kend = causal ? min(n, row0 + 16) : n;
 
-  float dqa[NH][4][kBwdTN] = {};
+  float dqa[4][kBwdTN] = {};
   tile_walk(first, last, next, stage, [&](int t, int buf) {
     const float* kt = ks + buf * HT;
+    const float* vt = vs + buf * HT;
     const unsigned long long word = keys.word(t);
     // the column groups (of TX keys) that hold a key the warp's rows read:
     // up to the tile's last valid key and, causal, the warp's last row
@@ -829,8 +886,22 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
       with_groups<kBwdTN>(groups, [&](auto nj) {
         constexpr int NJ = decltype(nj)::value;
         float s[4][kBwdTN], dp[4][kBwdTN];
-        head_abt<NH, NJ>(s, qs, kt);
-        head_abt<NH, NJ>(dp, dos, vs + buf * HT);
+        if constexpr (NH == 1) {
+          head_abt<NH, NJ>(s, qs, kt);
+          head_abt<NH, NJ>(dp, dos, vt);
+        } else {
+          // half 0 makes s, half 1 dp into s (each over the whole head);
+          // dp reaches half 0 through the ds tile, where half 0 puts ds
+          head_abt<NH, NJ>(s, hh ? dos : qs, hh ? vt : kt);
+          if (hh) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j) tile_at(dss, i, j) = s[i][j];
+          }
+          pair_sync();
+          if (hh) return;
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           // the row's terms; a dead row's ds is 0
@@ -847,35 +918,31 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
             if (valid) {
               float p = core_exp<kBwdEx2>(s[i][j] * scale, rm);
               if (!LSE) p *= rl;
-              ds = LSE ? p * (dp[i][j] - rd) * scale
-                       : p * (dp[i][j] * scale - rd);
+              const float dpv = NH == 1 ? dp[i][j] : tile_at(dss, i, j);
+              ds = LSE ? p * (dpv - rd) * scale : p * (dpv * scale - rd);
             }
             tile_at(dss, i, j) = ds;
           }
         }
       });
     __syncthreads();
-    // dq += ds . k over the same keys (the warp reads only its own rows of
-    // the ds tile)
+    // dq += ds . k over the same keys (the warp reads only its rows of the
+    // ds tile; NH 2: its half's columns of k)
     if (wlive)
       with_groups<kBwdTN>(groups, [&](auto nj) {
-#pragma unroll
-        for (int hh = 0; hh < NH; ++hh)
-          tile_ab<decltype(nj)::value * TX / 4>(dqa[hh], dss, kt + hh * BT);
+        tile_ab<decltype(nj)::value * TX / 4>(dqa, dss, kt + hh * BT);
       });
   });
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh)
-    store_tile(dq + rows * ld + h * D + DH * hh, ld, q0, n, dqa[hh]);
+  store_tile(dq + rows * ld + h * D + DH * hh, ld, q0, n, dqa);
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
 // query tiles that reach it: from the key tile's on when causal, and
 // every tile holding a dead row (its p = 1/n reaches every key). Operands
 // as the dq kernel's (delta its output); dk, dv with row stride ld. Heads
-// of DH NH.
+// of DH NH, kThreads<NH> threads.
 template <int MODE, int NH>
-__global__ void __launch_bounds__(kBwdThreads,
+__global__ void __launch_bounds__(kThreads<NH>,
                                   NH == 1 ? kBwdBlocks : kBlocks<NH>)
 attention_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -895,11 +962,13 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
   float* vs = ks + HT;
   float* qs = vs + HT;        // two buffers
   float* dos = qs + 2 * HT;   // two buffers
-  float* ps = dos + 2 * HT;   // p, then ds (kBwdPTiles 2: p; ds next)
-  float* dss = ps + (kBwdPTiles - 1) * BT;
+  // p, then ds (two tiles: p; ds next, NH 2 after dp)
+  constexpr int PT = kDkvPTiles<NH>;
+  float* ps = dos + 2 * HT;
+  float* dss = ps + (PT - 1) * BT;
   // the walked query tile's row terms: m (K6, K7: lse), 1 / l (K6: 1; 1/n
   // on a dead row) and delta, 64 each
-  float* terms = ps + kBwdPTiles * BT;
+  float* terms = ps + PT * BT;
   auto* bits = reinterpret_cast<unsigned long long*>(terms + 3 * 64);
   if constexpr (MODE == kK7) {  // one head, q pre-scaled
     heads = 1;
@@ -913,24 +982,21 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
   const int hd = heads * D;
   const long rows = (long)bi * n;
   const int tx = thr_tx(), ty = thr_ty();
+  // the thread's column half: the operand columns it stages, its dk's and
+  // dv's
+  const int hh = head_half<NH>();
 
   // the walked rows' bases (the head's first column)
   const float* qb = q + rows * ld + h * D;
   const float* db = dattn + rows * hd + h * D;
   auto stage = [&](int t, int buf) {
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) {
-      stage_f32(qs + buf * HT + hh * BT, qb, ld, DH * hh, 64 * t, n);
-      stage_f32(dos + buf * HT + hh * BT, db, hd, DH * hh, 64 * t, n);
-    }
+    stage_f32(qs + buf * HT + hh * BT, qb, ld, DH * hh, 64 * t, n);
+    stage_f32(dos + buf * HT + hh * BT, db, hd, DH * hh, 64 * t, n);
   };
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    stage_f32(ks + hh * BT, k + rows * ld, ld, h * D + DH * hh, k0, n);
-    stage_f32(vs + hh * BT, v + rows * ld, ld, h * D + DH * hh, k0, n);
-  }
+  stage_f32(ks + hh * BT, k + rows * ld, ld, h * D + DH * hh, k0, n);
+  stage_f32(vs + hh * BT, v + rows * ld, ld, h * D + DH * hh, k0, n);
   cp_async_commit();
-  const KeyTiles<MODE> keys(bits, mask + rows, n);
+  const KeyTiles<MODE, NH> keys(bits, mask + rows, n);
   const int fv = keys.fv;
   const unsigned long long kw = keys.word(kt);
   // queries below `dead_end` are dead rows
@@ -959,8 +1025,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
   const bool wkeys = (kw >> warp_row0()) & 0xffffull;
   const float inv_n = 1.f / (float)n;
   // term e = 64 w + c (w < 3) is term w of query c of tile u, fetched from
-  // global memory by thread e % kBwdThreads: the next tile's during a tile,
-  // stored once the tile's own are read
+  // global memory by thread e % kBwdThreads (NH 2: of half 0): the next
+  // tile's during a tile, stored once the tile's own are read
   constexpr int FT = (3 * 64 + kBwdThreads - 1) / kBwdThreads;  // a thread
   auto fetch = [&](int u, int e) {
     const int w = e >> 6, qi = 64 * u + (e & 63);
@@ -973,37 +1039,45 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
     return LSE ? (qi < dead_end ? inv_n : 1.f)
                : 1.f / stats[row * 2 * heads + heads + h];
   };
+  if (hh == 0) {
 #pragma unroll
-  for (int f = 0; f < FT; ++f) {
-    const int e = threadIdx.x + f * kBwdThreads;
-    if (e < 3 * 64) terms[e] = fetch(first, e);
+    for (int f = 0; f < FT; ++f) {
+      const int e = threadIdx.x + f * kBwdThreads;
+      if (e < 3 * 64) terms[e] = fetch(first, e);
+    }
   }
 
-  float dka[NH][4][kBwdTN] = {}, dva[NH][4][kBwdTN] = {};
+  float dka[4][kBwdTN] = {}, dva[4][kBwdTN] = {};
   tile_walk(first, tiles, next, stage, [&](int t, int buf) {
     const float* qt = qs + buf * HT;
     const float* dt = dos + buf * HT;
     const bool wrun = wlive && (wkeys || 64 * t < dead_end);
     const int u = next(t);
     float fetched[FT];
+    if (hh == 0) {
 #pragma unroll
-    for (int f = 0; f < FT; ++f)
-      fetched[f] = fetch(u, threadIdx.x + f * kBwdThreads);
+      for (int f = 0; f < FT; ++f)
+        fetched[f] = fetch(u, threadIdx.x + f * kBwdThreads);
+    }
     with_groups<kBwdTN>((n - 64 * t + TX - 1) / TX, [&](auto nj) {
       constexpr int NJ = decltype(nj)::value;
       const float* cm = terms;
       const float* clinv = terms + 64;
       const float* cd = terms + 128;
-      // p (sᵀ = k . qᵀ) into its tile, then dv += pᵀ . do; ds (dpᵀ = v .
-      // doᵀ) into its tile, then dk += dsᵀ . q
+      // p (sᵀ = k . qᵀ) into its tile (NH 2: half 0's; half 1 makes dpᵀ =
+      // v . doᵀ into the ds tile meanwhile, each over the whole head)
       float a[4][kBwdTN];
       if (wrun) {
-        head_abt<NH, NJ>(a, ks, qt);
+        head_abt<NH, NJ>(a, hh ? vs : ks, hh ? dt : qt);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             const int c = tx + TX * j, qi = 64 * t + c;
+            if (hh) {
+              tile_at(dss, i, j) = a[i][j];
+              continue;
+            }
             float num;
             if (qi < dead_end) {
               num = klive[i] ? 1.f : 0.f;  // uniform over the n keys
@@ -1015,58 +1089,73 @@ attention_bwd_dkv_kernel(const float* __restrict__ q,
             tile_at(ps, i, j) = num * clinv[c];
           }
       }
-      if constexpr (kBwdPTiles == 1) {
-        __syncthreads();
+      if constexpr (NH == 1) {
+        // dv += pᵀ . do; ds (dpᵀ = v . doᵀ) into its tile, then dk += dsᵀ
+        // . q
+        if constexpr (kBwdPTiles == 1) {
+          __syncthreads();
+          if (wrun) tile_ab<NJ * TX / 4>(dva, ps, dt);
+        }
+        if (wrun) {
+          head_abt<NH, NJ>(a, vs, dt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              const int c = tx + TX * j, qi = 64 * t + c;
+              const float p = tile_at(ps, i, j);  // this thread's own
+              float ds = 0.f;
+              if (qi >= dead_end && p != 0.f)
+                ds = LSE ? p * (a[i][j] - cd[c]) * scale
+                         : p * (a[i][j] * scale - cd[c]);
+              a[i][j] = ds;
+            }
+        }
+        if constexpr (kBwdPTiles == 1) __syncthreads();  // p read
         if (wrun) {
 #pragma unroll
-          for (int hh = 0; hh < NH; ++hh)
-            tile_ab<NJ * TX / 4>(dva[hh], ps, dt + hh * BT);
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) tile_at(dss, i, j) = a[i][j];
+        }
+      } else {
+        // half 0 puts ds over dpᵀ (p read back: no sums live across the
+        // barrier); each half adds pᵀ . do and dsᵀ . q of its columns
+        __syncthreads();  // p and dpᵀ in their tiles
+        if (wrun && hh == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              const int c = tx + TX * j, qi = 64 * t + c;
+              const float p = tile_at(ps, i, j), dp = tile_at(dss, i, j);
+              float ds = 0.f;
+              if (qi >= dead_end && p != 0.f)
+                ds = LSE ? p * (dp - cd[c]) * scale
+                         : p * (dp * scale - cd[c]);
+              tile_at(dss, i, j) = ds;
+            }
+        }
+        if (wrun) tile_ab<NJ * TX / 4>(dva, ps, dt + hh * BT);
+      }
+      __syncthreads();  // ds made; the tile's terms read
+      if (hh == 0) {
+#pragma unroll
+        for (int f = 0; f < FT; ++f) {
+          const int e = threadIdx.x + f * kBwdThreads;
+          if (e < 3 * 64) terms[e] = fetched[f];
         }
       }
       if (wrun) {
-        head_abt<NH, NJ>(a, vs, dt);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            const int c = tx + TX * j, qi = 64 * t + c;
-            const float p = tile_at(ps, i, j);  // this thread's own
-            float ds = 0.f;
-            if (qi >= dead_end && p != 0.f)
-              ds = LSE ? p * (a[i][j] - cd[c]) * scale
-                       : p * (a[i][j] * scale - cd[c]);
-            a[i][j] = ds;
-          }
-      }
-      if constexpr (kBwdPTiles == 1) __syncthreads();  // p read
-      if (wrun) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) tile_at(dss, i, j) = a[i][j];
-      }
-      __syncthreads();  // the tile's terms read
-#pragma unroll
-      for (int f = 0; f < FT; ++f) {
-        const int e = threadIdx.x + f * kBwdThreads;
-        if (e < 3 * 64) terms[e] = fetched[f];
-      }
-      if (wrun) {
-#pragma unroll
-        for (int hh = 0; hh < NH; ++hh) {
-          if constexpr (kBwdPTiles == 2)
-            tile_ab<NJ * TX / 4>(dva[hh], ps, dt + hh * BT);
-          tile_ab<NJ * TX / 4>(dka[hh], dss, qt + hh * BT);
-        }
+        if constexpr (NH == 1 && kBwdPTiles == 2)
+          tile_ab<NJ * TX / 4>(dva, ps, dt);
+        tile_ab<NJ * TX / 4>(dka, dss, qt + hh * BT);
       }
     });
   });
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    store_tile(dk + rows * ld + h * D + DH * hh, ld, k0, n, dka[hh]);
-    store_tile(dv + rows * ld + h * D + DH * hh, ld, k0, n, dva[hh]);
-  }
+  store_tile(dk + rows * ld + h * D + DH * hh, ld, k0, n, dka);
+  store_tile(dv + rows * ld + h * D + DH * hh, ld, k0, n, dva);
 }
 
 template <int MODE, int NH = 1>
@@ -1080,21 +1169,34 @@ cudaError_t attention_bwd_setup() {
 }
 
 // Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel
-// in MODE at heads of 64, as the occupancy calculator gives them for the
-// build's registers and the kernels' shared memory; a negative cudaError_t
-// code on failure.
-template <int MODE>
+// in MODE at heads of DH NH (blocks of kThreads<NH> threads), as the
+// occupancy calculator gives them for the build's registers and the
+// kernels' shared memory; a negative cudaError_t code on failure.
+template <int MODE, int NH>
 int attention_bwd_blocks(int which) {
   int blocks = 0;
-  cudaError_t e = attention_bwd_setup<MODE>();
+  cudaError_t e = attention_bwd_setup<MODE, NH>();
   if (e == cudaSuccess)
     e = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dq_kernel<MODE, 1>,
-                         kBwdThreads, kBwdDqSmem<1>)
+                         &blocks, attention_bwd_dq_kernel<MODE, NH>,
+                         kThreads<NH>, kBwdDqSmem<NH>)
                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, attention_bwd_dkv_kernel<MODE, 1>,
-                         kBwdThreads, kBwdDkvSmem<1>);
+                         &blocks, attention_bwd_dkv_kernel<MODE, NH>,
+                         kThreads<NH>, kBwdDkvSmem<NH>);
   return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// The fp32 kernels' blocks an SM at head width dh (64 or 128): the
+// forward's (`which` -1), the dq kernel's (0) or the dk/dv kernel's (1).
+template <int MODE>
+int attention_blocks(int which, int dh) {
+  const int nh = xclip::k6_halves(dh);
+  if (!nh) return -(int)cudaErrorInvalidValue;
+  if (which < 0)
+    return nh == 1 ? attention_fwd_blocks<MODE, 1>()
+                   : attention_fwd_blocks<MODE, 2>();
+  return nh == 1 ? attention_bwd_blocks<MODE, 1>(which)
+                 : attention_bwd_blocks<MODE, 2>(which);
 }
 
 template <int MODE, int NH>
@@ -1107,12 +1209,12 @@ int launch_fma_bwd_nh(const float* q, const float* k, const float* v, long ld,
   const cudaError_t ce = attention_bwd_setup<MODE, NH>();
   if (ce != cudaSuccess) return (int)ce;
   attention_bwd_dq_kernel<MODE, NH>
-      <<<grid, kBwdThreads, kBwdDqSmem<NH>, st>>>(
+      <<<grid, dim3(kBwdThreads, NH), kBwdDqSmem<NH>, st>>>(
           q, k, v, ld, mask, dattn, attnout, stats, dq, delta, n, heads,
           scale, causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
   attention_bwd_dkv_kernel<MODE, NH>
-      <<<grid, kBwdThreads, kBwdDkvSmem<NH>, st>>>(
+      <<<grid, dim3(kBwdThreads, NH), kBwdDkvSmem<NH>, st>>>(
           q, k, v, ld, mask, dattn, stats, delta, dk, dv, n, heads, scale,
           causal, maybe_dead);
   XCLIP_CHECK_LAUNCH();
@@ -1202,8 +1304,8 @@ static_assert(2 * (kFwdSmem<1> + 1024) <= 233472, "two forward blocks an SM");
 static_assert(2 * (kBwdDqSmem<1> + 1024) <= 233472, "two dq blocks an SM");
 static_assert(kBwdBlocks * (kBwdDkvSmem<1> + 1024) <= 233472,
               "the dk/dv kernel's blocks an SM");
-// a head of 128: one block an SM, each under the 232,448 bytes a block may
-// opt in to
+// a head of 128: one 512-thread block an SM, each under the 232,448 bytes
+// a block may opt in to
 static_assert(kFwdSmem<2> <= 232448 && kBwdDqSmem<2> <= 232448 &&
                   kBwdDkvSmem<2> <= 232448,
               "a head of 128 fits one block an SM");

@@ -100,12 +100,15 @@ extern "C" int xclip_flash_bwd(int dtype, const void* q, const void* k,
       XCLIP_PTR(float*, delta), bh, n, 1, d, 1.f, causal, 0, st);
 }
 
-// Blocks an SM of the fp32 forward in K7's mode; a negative cudaError_t
-// code on failure.
-extern "C" int xclip_flash_fwd_blocks() { return attention_fwd_blocks<kK7>(); }
+// Blocks an SM of the fp32 forward in K7's mode at head width d (64: 256
+// threads a block; 128: 512); a negative cudaError_t code on failure.
+extern "C" int xclip_flash_fwd_blocks(int d) {
+  return attention_blocks<kK7>(-1, d);
+}
 
 // Blocks an SM of the fp32 backward's dq (`which` 0) or dk/dv (1) kernel
-// in K7's mode; a negative cudaError_t code on failure.
-extern "C" int xclip_flash_bwd_blocks(int which) {
-  return attention_bwd_blocks<kK7>(which);
+// in K7's mode at head width d (as the forward's); a negative cudaError_t
+// code on failure.
+extern "C" int xclip_flash_bwd_blocks(int which, int d) {
+  return attention_blocks<kK7>(which, d);
 }

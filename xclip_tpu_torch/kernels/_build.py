@@ -54,8 +54,8 @@ _SIGNATURES = {
                                             _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
-    "xclip_attention_bwd_blocks": [_I, _I],
-    "xclip_attention_fwd_blocks": [_I],
+    "xclip_attention_bwd_blocks": [_I, _I, _I],
+    "xclip_attention_fwd_blocks": [_I, _I],
     "xclip_mega_core_fwd": [_I, *[_P] * 4, *[_I] * 4, _F, _I, _I, _P],
     "xclip_mega_core_bwd": [_I, *[_P] * 8, *[_I] * 4, _F, _I, _I, _P],
     "xclip_lse_fwd": [*[_P] * 4, *[_I] * 6, _P],
@@ -64,8 +64,8 @@ _SIGNATURES = {
     "xclip_attention_core_bwd": [_I, *[_P] * 7, *[_I] * 4, _F, _I, _I, _P],
     "xclip_flash_fwd": [_I, *[_P] * 6, _I, _I, _I, _I, _P],
     "xclip_flash_bwd": [_I, *[_P] * 11, _I, _I, _I, _I, _P],
-    "xclip_flash_fwd_blocks": [],
-    "xclip_flash_bwd_blocks": [_I],
+    "xclip_flash_fwd_blocks": [_I],
+    "xclip_flash_bwd_blocks": [_I, _I],
     "xclip_mm": [_I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P],
     "xclip_mm_split": [_I] * 5,
     "xclip_mm_launches": [_I, _I, _I],
