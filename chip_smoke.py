@@ -618,6 +618,28 @@ def device_ms(fn, calls=20):
     fail("device_ms: the profiler saw no kernel in five profiles")
 
 
+def backward_split(fn, calls=10):
+    """(dq, dk/dv) device ms per call of an attention backward `fn`: its
+    kernels' durations from the profiler, by name, over `calls` calls (the
+    first profile only warms the profiler up, as device_ms's)."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = [0.0, 0.0]
+        for e in device_events(prof):
+            for i, key in enumerate(("bwd_dq", "bwd_dkv")):
+                if key in e.name:
+                    parts[i] += e.time_range.end - e.time_range.start
+        if attempt > 0 and all(parts):
+            return parts[0] / calls / 1e3, parts[1] / calls / 1e3
+    fail("backward_split: the profiler saw no dq and dk/dv kernels")
+
+
 def graph_ms(fn, calls, reps=5):
     """The device's time per call of `fn`, ms, from `calls` calls captured
     into one CUDA graph and replayed `reps` times back to back between two
@@ -3237,6 +3259,12 @@ WIDE_KERNELS = [
 ]
 
 
+# warps an SM each bf16 kernel at heads of 128 (K6's and the megablock's
+# forward, dq and dk/dv) is built for: two blocks of four (phase 21 fails
+# under them)
+WIDE_BF16_WARPS = 8
+
+
 def wide_kernels():
     """Phase 21's 128-wide kernels alone, from a generator of their own:
     the megablock's core (256, 257, 3 x 512, not causal) and K6 (256, 256,
@@ -3246,7 +3274,8 @@ def wide_kernels():
     (phase 12's rule), two backward launches (fp32: and two forward
     launches) bit for bit equal; the fp32 kernels' blocks and warps an SM
     at heads of 128 (one block of two 256-thread halves: 16 warps, as two
-    blocks at 64); timed
+    blocks at 64), and the bf16 kernels' (at least WIDE_BF16_WARPS); the
+    backward's dq and dk/dv kernels timed apart on the device; timed
     beside their plain versions, SDPA on the same q, k, v and mask (in
     the same dtype) and their bounds (bf16 by bytes at 3.35 TB/s or bf16
     FLOPs; fp32 FMAs at 67 TFLOP/s). Returns (errs, ms, costs, library,
@@ -3264,8 +3293,8 @@ def wide_kernels():
         blocks = ((lib.xclip_flash_fwd_blocks(d),
                    *(lib.xclip_flash_bwd_blocks(w, d) for w in (0, 1)))
                   if mode == 2 else
-                  (lib.xclip_attention_fwd_blocks(mode, d),
-                   *(lib.xclip_attention_bwd_blocks(mode, w, d)
+                  (lib.xclip_attention_fwd_blocks(0, mode, d, 0),
+                   *(lib.xclip_attention_bwd_blocks(0, mode, w, d, 0)
                      for w in (0, 1))))
         print(f"  fp32 {name} at heads of {d}, blocks (warps) an SM: "
               + ", ".join(f"{k} {n} ({16 * n})" for k, n in
@@ -3274,6 +3303,22 @@ def wide_kernels():
         if blocks != (1, 1, 1):
             fail(f"fp32 {name} at heads of {d}: blocks an SM {blocks}, "
                  "not one 512-thread block (16 warps)")
+    # the bf16 kernels at 128 as their launches configure them: K6's and
+    # the megablock's forward, dq and dk/dv, each at least the warps an SM
+    # its design is built for
+    for mode, name in ((0, "megablock"), (1, "K6")):
+        res = [(lib.xclip_attention_fwd_blocks(1, mode, d, 0),
+                lib.xclip_attention_fwd_blocks(1, mode, d, 1)),
+               *((lib.xclip_attention_bwd_blocks(1, mode, w, d, 0),
+                  lib.xclip_attention_bwd_blocks(1, mode, w, d, 1))
+                 for w in (0, 1))]
+        print(f"  bf16 {name} at heads of {d}, blocks (warps) an SM: "
+              + ", ".join(f"{k} {nb} ({nw})" for k, (nb, nw) in
+                          zip(("forward", "dq", "dk/dv"), res)), flush=True)
+        for k, (nb, nw) in zip(("forward", "dq", "dk/dv"), res):
+            if nw < WIDE_BF16_WARPS:
+                fail(f"bf16 {name} {k} at heads of {d}: {nb} blocks, {nw} "
+                     f"warps an SM, under its design's {WIDE_BF16_WARPS}")
 
     def record(key, label, e, kms, cost, sdpa, peak):
         errs[key], ms[key], costs[key] = e, kms, cost
@@ -3335,6 +3380,10 @@ def wide_kernels():
                        cost(kind, b * n * heads, keys, pairs, b * n,
                             qkv.element_size(), width=d),
                        sdpa[0 if kind == "fwd" else 1], peak)
+            # the backward's two kernels apart, on the device's clock
+            split = backward_split(lambda: bwd(*bargs, *static))
+            print(f"  {label} bwd: dq {split[0]:.4f} ms, dk/dv "
+                  f"{split[1]:.4f} ms (device)", flush=True)
             del qkv, cot, want, bargs, q, k, v
             torch.cuda.empty_cache()
     # fp32 K7 on heads of 128 (bf16's are timed in narrow_wrappers)

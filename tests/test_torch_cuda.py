@@ -2089,7 +2089,10 @@ def test_loader_batches_reach_the_card_bit_for_bit(cuda_device, image_dtype):
 
 WIDE_CORE_CASES = [  # (n, heads, causal, mask kind)
     (33, 2, False, "keypad"), (257, 2, True, "dead"), (257, 2, False, "holes"),
-    (256, 1, True, "keypad"), (2048, 1, True, "holes")]
+    (256, 1, True, "keypad"), (2048, 1, True, "holes"),
+    # b = 3: a TMA box of 64 rows crosses into the next batch element's rows
+    # unless the 3-D map clips it; a single key is a whole tile
+    (1, 2, False, "keypad"), (64, 2, True, "dead"), (65, 2, False, "holes")]
 
 
 @pytest.mark.cuda
@@ -2130,6 +2133,110 @@ def test_attention_cores_at_head_width_128(cuda_device, dtype, which, n,
     assert torch.equal(grads[0], grads[1])
     _assert_elementwise((grads[0],), (plain,), dtype, ("dqkv",))
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+WIDE_STATIC = (2, 128, 128 ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k6", "mega"])
+@pytest.mark.parametrize("n,causal,mask_kind",
+                         [(257, False, "dead"), (200, True, "holes"),
+                          (1, False, "keypad")])
+def test_wide_bf16_forward_launches_agree_bit_for_bit(cuda_device, which, n,
+                                                      causal, mask_kind):
+    """The bf16 forward at heads of 128, K6's and the megablock's: two
+    launches on the same inputs give the same bits (no atomics, a fixed
+    order of every sum)."""
+    qkv, mask, _ = to_torch(core_args(b=3, n=n, heads=2, mask_kind=mask_kind,
+                                      dim_head=128), torch.bfloat16,
+                            cuda_device)
+    fwd = core.attention_core_fwd if which == "k6" else mega.mega_core_fwd
+    before = fwd.launches
+    first = fwd(qkv, mask, *WIDE_STATIC, causal, True)
+    second = fwd(qkv, mask, *WIDE_STATIC, causal, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert fwd.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,causal,mask_kind",
+                         [(257, False, "dead"), (70, True, "keypad")])
+def test_mega_core_bwd_at_128_with_copies_over_dattn(cuda_device, n, causal,
+                                                     mask_kind):
+    """The bf16 megablock core's backward at heads of 128 with dattn's two
+    bf16 copies written over dattn's own storage (`dcopy` aliasing dattn,
+    as K2 and K3 call it): the dqkv of a separate `dcopy` bit for bit, and
+    the plain version's element by element."""
+    b, heads = 3, 2
+    qkv, mask, do = to_torch(core_args(b=b, n=n, heads=heads,
+                                       mask_kind=mask_kind, dim_head=128),
+                             torch.bfloat16, cuda_device)
+    static = (*WIDE_STATIC, causal, True)
+    attnout, sm = mega.mega_core_fwd(qkv, mask, *static)
+    dattn = do.float()
+    want = mega.mega_core_bwd(qkv, mask, dattn, attnout, sm, *static)
+    scratch = dattn.clone()
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b, n, heads), dtype=torch.float32,
+                        device=cuda_device)
+    mask_u8 = mask.to(torch.uint8).contiguous()
+    err = mega._build.library().xclip_mega_core_bwd(
+        1, qkv.data_ptr(), mask_u8.data_ptr(), scratch.data_ptr(),
+        attnout.data_ptr(), sm.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+        scratch.data_ptr(), b, n, heads, 128, float(WIDE_STATIC[2]),
+        int(causal), 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, want)
+    _assert_elementwise(
+        (dqkv,), (mega.mega_core_bwd_plain(qkv, mask, dattn, attnout, sm,
+                                           *static),),
+        "bfloat16", ("dqkv",))
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose base lies one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k6", "mega"])
+@pytest.mark.parametrize("off", ["qkv", "cotangent"])
+def test_wide_bf16_kernels_refuse_a_view_tma_cannot_take(cuda_device, which,
+                                                         off):
+    """A contiguous qkv (or backward cotangent) view whose base is not
+    16-byte aligned (TMA boxes and 16-byte copies cannot start there)
+    raises ValueError naming the limit, forward and backward, and launches
+    nothing."""
+    qkv, mask, do = to_torch(core_args(b=2, n=40, heads=2, dim_head=128),
+                             torch.bfloat16, cuda_device)
+    static = (*WIDE_STATIC, False, True)
+    if which == "k6":
+        fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+        out, stats = fwd(qkv, mask, *static)
+        cot = do
+    else:
+        fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+        out, stats = fwd(qkv, mask, *static)
+        cot = do.float()
+    q_in = _misaligned(qkv) if off == "qkv" else qkv
+    if off == "cotangent":
+        cot = _misaligned(cot)
+    bwd_args = ((q_in, mask, out, stats, cot) if which == "k6"
+                else (q_in, mask, cot, out, stats))
+    before = (fwd.launches, bwd.launches)
+    if off == "qkv":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fwd(q_in, mask, *static)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bwd(*bwd_args, *static)
+    assert (fwd.launches, bwd.launches) == before
 
 
 @pytest.mark.cuda
@@ -2249,12 +2356,30 @@ def test_f32_attention_kernels_hold_16_warps_an_sm(cuda_device, d):
     for which, name in ((0, "dq"), (1, "dkv")):
         blocks["k7", name] = lib.xclip_flash_bwd_blocks(which, d)
     for mode, kind in ((0, "mega"), (1, "k6")):
-        blocks[kind, "fwd"] = lib.xclip_attention_fwd_blocks(mode, d)
+        blocks[kind, "fwd"] = lib.xclip_attention_fwd_blocks(0, mode, d, 0)
         for which, name in ((0, "dq"), (1, "dkv")):
-            blocks[kind, name] = lib.xclip_attention_bwd_blocks(mode, which,
-                                                                d)
+            blocks[kind, name] = lib.xclip_attention_bwd_blocks(0, mode, which,
+                                                                d, 0)
     warps = {key: b * block_warps for key, b in blocks.items()}
     assert warps == dict.fromkeys(blocks, 16), blocks
+
+
+@pytest.mark.cuda
+def test_bf16_attention_kernels_hold_8_warps_an_sm_at_128(cuda_device):
+    """The bf16 forward, dq and dk/dv kernels at heads of 128 hold the 8
+    warps an SM their designs are built for, K6's and the megablock's: two
+    one-warpgroup wgmma blocks (forward, dq), two 4-warp blocks (dk/dv; the
+    megablock's with one buffer of do and of T(dattn))."""
+    lib = flash._build.library()
+    got = {}
+    for mode, kind in ((0, "mega"), (1, "k6")):
+        got[kind, "fwd"] = (lib.xclip_attention_fwd_blocks(1, mode, 128, 0),
+                            lib.xclip_attention_fwd_blocks(1, mode, 128, 1))
+        for which, name in ((0, "dq"), (1, "dkv")):
+            got[kind, name] = tuple(
+                lib.xclip_attention_bwd_blocks(1, mode, which, 128, w)
+                for w in (0, 1))
+    assert got == dict.fromkeys(got, (2, 8)), got
 
 
 @pytest.mark.cuda

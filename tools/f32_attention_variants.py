@@ -229,8 +229,8 @@ def occupancy(name, lib):
     one-block variant's 256 at either width)."""
     for d in (64, 128):
         warps = 8 if name == "nh2-one-block" else 8 * (d // 64)
-        blocks = [(lib.xclip_attention_fwd_blocks(mode, d),
-                   *(lib.xclip_attention_bwd_blocks(mode, which, d)
+        blocks = [(lib.xclip_attention_fwd_blocks(0, mode, d, 0),
+                   *(lib.xclip_attention_bwd_blocks(0, mode, which, d, 0)
                      for which in (0, 1))) for mode in (1, 0)]
         blocks.append((lib.xclip_flash_fwd_blocks(d),
                        *(lib.xclip_flash_bwd_blocks(which, d)

@@ -22,9 +22,10 @@
 // 128 as two 64-column halves).
 //
 // bf16 runs the kernels of attention_block_sm90.cuh in their K6 mode
-// (register-resident mma.sync tiles that skip causal and masked tiles;
-// their notes give the design and what bounds it), which the attention
-// megablock's bf16 core shares. fp32 runs the megablock's FMA core
+// (register-resident mma.sync tiles at heads of 64, a TMA-fed wgmma forward
+// and dq kernel at 128; all skip causal and masked tiles; their notes give
+// the design and what bounds it), which the attention megablock's bf16
+// core shares. fp32 runs the megablock's FMA core
 // (attention_core.cuh). The length limit is the megablock's own, n <= 2048
 // in both dtypes (the mask words of 32 key tiles).
 #include "attention_core.cuh"
@@ -86,17 +87,31 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
       scale, causal, maybe_dead, st);
 }
 
-// Blocks an SM of the fp32 backward's kernels at head width dh (64: 256
-// threads a block; 128: 512), K6's (mode 1) or the megablock's (mode 0):
-// dq (`which` 0) or dk/dv (1); a negative cudaError_t code on failure.
-extern "C" int xclip_attention_bwd_blocks(int mode, int which, int dh) {
-  return mode == kK6 ? attention_blocks<kK6>(which, dh)
-                     : attention_blocks<kMega>(which, dh);
+// Blocks an SM (with `warps` nonzero: warps an SM) of the backward's
+// kernels of dtype code `dtype` at head width dh, K6's (mode 1) or the
+// megablock's (mode 0): dq (`which` 0) or dk/dv (1), as their launches
+// configure them (fp32 at 64: 256 threads a block, at 128: 512; bf16:
+// attention_block_sm90.cuh's kernel at that width); a negative cudaError_t
+// code on failure.
+extern "C" int xclip_attention_bwd_blocks(int dtype, int mode, int which,
+                                          int dh, int warps) {
+  if (dtype == xclip::kBF16)
+    return mode == kK6 ? xclip::k6_blocks<false>(which, dh, warps)
+                       : xclip::k6_blocks<true>(which, dh, warps);
+  if (dtype != xclip::kF32) return -(int)cudaErrorInvalidValue;
+  const int blocks = mode == kK6 ? attention_blocks<kK6>(which, dh)
+                                 : attention_blocks<kMega>(which, dh);
+  return warps && blocks > 0 ? blocks * 8 * xclip::k6_halves(dh) : blocks;
 }
 
-// Blocks an SM of the fp32 forward at head width dh (as the backward's),
-// K6's (lse 1) or the megablock's (lse 0); a negative cudaError_t code on
-// failure.
-extern "C" int xclip_attention_fwd_blocks(int lse, int dh) {
-  return lse ? attention_blocks<kK6>(-1, dh) : attention_blocks<kMega>(-1, dh);
+// The same for the forward, K6's (lse 1) or the megablock's (lse 0).
+extern "C" int xclip_attention_fwd_blocks(int dtype, int lse, int dh,
+                                          int warps) {
+  if (dtype == xclip::kBF16)
+    return lse ? xclip::k6_blocks<false>(-1, dh, warps)
+               : xclip::k6_blocks<true>(-1, dh, warps);
+  if (dtype != xclip::kF32) return -(int)cudaErrorInvalidValue;
+  const int blocks = lse ? attention_blocks<kK6>(-1, dh)
+                         : attention_blocks<kMega>(-1, dh);
+  return warps && blocks > 0 ? blocks * 8 * xclip::k6_halves(dh) : blocks;
 }

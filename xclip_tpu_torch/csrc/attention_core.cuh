@@ -13,7 +13,7 @@
 // outputs are cast to the storage dtype. Head h takes q from columns
 // [h*D, (h+1)*D) of a row, k from hd + h*D and v from 2*hd + h*D.
 //
-// bf16 runs on the mma.sync kernels of attention_block_sm90.cuh: K6 in
+// bf16 runs on the kernels of attention_block_sm90.cuh: K6 in
 // their K6 mode, the megablock in their megablock mode (launch_attention
 // and launch_mega_attention_bwd below); their notes give the design and
 // what bounds it. What follows is the fp32 path, which the tests, the fp32

@@ -28,14 +28,15 @@
 //   3. attention (launch_attention, attention_core.cuh): bf16 on the
 //      megablock mode of attention_block_sm90.cuh's forward, one block per
 //      (64-query tile, head, batch element), two passes over the 64-key
-//      tiles on register-resident mma.sync tiles, causal and all-masked
-//      key tiles skipped; fp32 on the FMA core              (b*n x hd, T)
+//      tiles (heads of 64 on register-resident mma.sync tiles, of 128 on
+//      TMA-fed wgmma), causal and all-masked key tiles skipped; fp32 on
+//      the FMA core                                         (b*n x hd, T)
 //   4. mm: proj = attnout @ w_out                            (b*n x dim, fp32)
 //   5. ln_rows with residual: out = T(LN_gout(proj)) + x     (b*n x dim, T)
 //
 // What bounds it on the card: the qkv and output products (on the
-// TMA-fed wgmma kernel, gemm_sm90.cu) and the attention (on the mma.sync
-// kernels, whose notes give their bound). HBM round-trips a later PR removes first: qkv (b*n x 3hd) and
+// TMA-fed wgmma kernel, gemm_sm90.cu) and the attention (on the kernels
+// of attention_block_sm90.cuh, whose notes give their bound). HBM round-trips a later PR removes first: qkv (b*n x 3hd) and
 // the fp32 proj, then xn and attnout.
 #include "attention_core.cuh"
 

@@ -54,8 +54,8 @@ _SIGNATURES = {
                                             _P],
     "xclip_attention_block_max_n": [_I],
     "xclip_attention_block_bwd_max_n": [_I],
-    "xclip_attention_bwd_blocks": [_I, _I, _I],
-    "xclip_attention_fwd_blocks": [_I, _I],
+    "xclip_attention_bwd_blocks": [_I] * 5,
+    "xclip_attention_fwd_blocks": [_I] * 4,
     "xclip_mega_core_fwd": [_I, *[_P] * 4, *[_I] * 4, _F, _I, _I, _P],
     "xclip_mega_core_bwd": [_I, *[_P] * 8, *[_I] * 4, _F, _I, _I, _P],
     "xclip_lse_fwd": [*[_P] * 4, *[_I] * 6, _P],

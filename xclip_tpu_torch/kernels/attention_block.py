@@ -20,10 +20,11 @@ The text tower runs it when rotary embeddings turn the megablock off
   T(p)ᵀ·do.
 
 The CUDA kernels are `csrc/attention_block.cu`: bf16 on the K6 mode of
-`csrc/attention_block_sm90.cuh` (register-resident mma.sync tiles that
-skip causal and all-masked tiles; its source notes give the design and
-what bounds it), whose megablock mode runs the attention megablock's
-core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
+`csrc/attention_block_sm90.cuh` (register-resident mma.sync tiles at
+heads of 64; at 128 a TMA-fed wgmma forward and dq kernel beside a 4-warp
+mma.sync dk/dv kernel; all skip causal and all-masked tiles; its source
+notes give the design and what bounds it), whose megablock mode runs the
+attention megablock's core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
 length limit is the megablock's, `attention_megablock.seq_len_limit` (2048
 in both dtypes, the kernels' mask words, in training too),
 and so is the predicate of what the kernels take,
@@ -147,6 +148,9 @@ def attention_core_bwd(qkv, mask, out, lse, dout, heads, dim_head, scale,
             or lse.shape != (b, n, heads):
         raise ValueError("attention_core_bwd: inconsistent shapes "
                          f"{[tuple(t.shape) for t in (qkv, out, lse, dout)]}")
+    if out.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("attention_core_bwd: the kernels take a 16-byte "
+                         "aligned out and do")
     dev, dt = qkv.device, qkv.dtype
     mask_u8 = mask.to(torch.uint8).contiguous()
     dqkv = torch.empty_like(qkv)

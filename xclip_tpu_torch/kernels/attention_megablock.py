@@ -35,7 +35,8 @@
 The CUDA kernels are `csrc/attention_megablock.cu`; its source notes give
 the designs, what bounds them on the card and which intermediates cross
 HBM. The attention core runs in bf16 on the megablock mode of K6's
-mma.sync kernels (`csrc/attention_block_sm90.cuh`), in fp32 on the FMA
+kernels (`csrc/attention_block_sm90.cuh`: mma.sync at heads of 64, wgmma
+forward and dq at 128), in fp32 on the FMA
 core of `csrc/attention_core.cuh`, at heads of 64 and 128 (two 64-column
 halves); a narrower head runs zero-padded to the next of those
 (`pad_heads`). Every wrapper takes its kernel for CUDA tensors and its
@@ -743,6 +744,9 @@ def mega_core_bwd(qkv, mask, dattn, attnout, sm, heads, dim_head, scale,
             or sm.shape != (b, n, 2 * heads)):
         raise ValueError("mega_core_bwd: inconsistent shapes "
                          f"{[tuple(t.shape) for t in (qkv, dattn, attnout, sm)]}")
+    if dattn.data_ptr() % 16 or attnout.data_ptr() % 16:
+        raise ValueError("mega_core_bwd: the kernels take a 16-byte aligned "
+                         "dattn and attnout")
     dev, dt = qkv.device, qkv.dtype
     mask_u8 = mask.to(torch.uint8).contiguous()
     dqkv = torch.empty_like(qkv)
