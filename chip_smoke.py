@@ -366,7 +366,12 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              dryrun_multichip(1, device="cuda"): JAX's nine stages in a
              spawned NCCL rank, each loss finite, K5 launched in stage 6,
              K2 and K1 in stage 8, K3, K-FF-s and K5 in stage 9; and
-             dryrun_multichip(2) refused with ValueError on one card.
+             dryrun_multichip(2) refused with ValueError on one card;
+             (c) the (1, 1) mesh's state after (a)'s step saved by the
+             collective save_checkpoint over the NCCL group and restored
+             into a fresh model with no mesh, parameters, AdamW moments
+             and count bit for bit, and that model's save restored into a
+             fresh model placed on the (1, 1) mesh, bit for bit.
  27 vit-h    a CLIP at the widths of OpenCLIP's ViT-H-14.json (vision
              1280, 16 heads of 80 zero-padded to 128, 224-px images in
              14-px patches; text 1024, 16 heads of 64, 77 tokens, 49,408
@@ -376,6 +381,21 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              the plain routes' (3e-2), and AdamW steps of K2 and K1 at
              b = 64 (pairs/s, peak memory, finite losses, launches per
              step), with no fallback warning.
+ 28 examples the port's examples on the card: (a) the training example
+             (xclip_tpu_torch.examples.train: dim 128, depth 2 + 2, 64-px
+             images in 16-px patches, the 49,408-id vocabulary, bf16,
+             TextImageLoader with 2 workers and bf16 images on the card,
+             AdamW warmup-cosine) for 300 steps on the kernel routes
+             (attn_impl 'fused' in both towers, ff_impl 'block_stored',
+             loss_impl 'fused'): launches a step of K2, K1 and K5, none 0
+             and no fallback warning; cl_loss at the first and last step,
+             zero-shot top-1 over the 16 class prompts at init and after
+             the run beside the JAX package's 0.816 on a TPU v5e
+             (docs/RUN.md), pairs/s and seconds; the loss must fall, top-1
+             rise, and the checkpoint restored into a fresh CLIP give the
+             trained model's zero-shot logits bit for bit; (b) the
+             zero-shot example (xclip_tpu_torch.examples.zero_shot): a
+             (3, 128) classifier and a finite top-1.
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the HBM rate and its FLOPs over the peak rate of
 their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
@@ -4658,6 +4678,10 @@ def tensor_parallel(card, CLIP, default_optimizer, make_train_step, ffb,
                  f"{rate['without a mesh']:.1f}, phase 8 "
                  f"{b * 1e3 / phase8[0]:.1f}), {got['nbytes']} bytes of "
                  "parameters and moments")
+    # (c) --------------------------------------------------------------
+    # `model` and `opt` are the (1, 1) mesh's, after (a)'s timed steps
+    lines.append(checkpoint_both_ways(CLIP, default_optimizer, mesh, model,
+                                      opt, os.path.join(store, "ckpt")))
     del runs, base, got, model, opt, step
     dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4688,6 +4712,126 @@ def tensor_parallel(card, CLIP, default_optimizer, make_train_step, ffb,
                                         res["launches"][k].items())
                      for k in want))
     phase(26, "tensor-parallel", f"{card}: " + "; ".join(lines))
+
+
+def checkpoint_both_ways(CLIP, default_optimizer, mesh, meshed, meshed_opt,
+                         path):
+    """Phase 26 (c): the collective save of a model and AdamW placed on the
+    (1, 1) `mesh` restored into a fresh pair with no mesh, and the fresh
+    pair's save restored into another placed on `mesh`: parameters,
+    moments and count bit for bit both ways."""
+    from xclip_tpu_torch.train import (restore_checkpoint, save_checkpoint,
+                                       shard_state)
+
+    def fresh(on_mesh):
+        m = CLIP(**FLAGSHIP, **KERNEL_ROUTES, param_dtype=torch.bfloat16,
+                 compute_dtype="bfloat16", device="cuda", seed=5)
+        o = default_optimizer(m.parameters(), learning_rate=1e-4)
+        if on_mesh:
+            shard_state(m, o, mesh)
+        return m, o
+
+    def differ(a, ao, b, bo):
+        pairs = list(zip(a.named_parameters(), b.parameters()))
+        bad = [n for (n, p), q in pairs if not torch.equal(p, q)]
+        bad += [f"{n} {k}" for (n, p), q in pairs for k in ("mu", "nu")
+                if not torch.equal(ao.state[p][k], bo.state[q][k])]
+        return bad + (["count"] if ao.count != bo.count else [])
+
+    t0 = time.perf_counter()
+    count = meshed_opt.count
+    save_checkpoint(path, meshed, meshed_opt, step=count)
+    plain, plain_opt = fresh(False)
+    got = restore_checkpoint(path, plain, plain_opt)
+    bad = differ(meshed, meshed_opt, plain, plain_opt)
+    if got != count or bad:
+        fail(f"the (1, 1) mesh's checkpoint restored with no mesh: step "
+             f"{got}, not bit for bit: {bad[:8]}")
+    save_checkpoint(path, plain, plain_opt, step=count)
+    back, back_opt = fresh(True)
+    restore_checkpoint(path, back, back_opt)
+    bad = differ(plain, plain_opt, back, back_opt)
+    if bad:
+        fail(f"a checkpoint with no mesh restored on the (1, 1) mesh: not "
+             f"bit for bit: {bad[:8]}")
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    n = sum(1 for _ in meshed.parameters())
+    print(f"  checkpoint of the (1, 1) mesh's state ({size / 2 ** 20:.1f} "
+          f"MiB): saved collectively over NCCL, restored with no mesh and "
+          f"back onto the mesh, {n} parameters, {2 * n} moments and the "
+          f"count bit for bit both ways ({seconds:.1f} s)", flush=True)
+    return ("checkpoint (1, 1) mesh -> no mesh -> (1, 1) mesh bit for bit "
+            f"({size / 2 ** 20:.1f} MiB)")
+
+
+def examples_phase(card, ffb, mega, lse5, steps=300):
+    """Phase 28: the port's training example on the kernel routes for
+    `steps` steps, and the zero-shot example."""
+    import tempfile
+    from xclip_tpu_torch.examples import train, zero_shot
+    counters = {"k2_fwd": mega.attention_block_fwd_stored,
+                "k2_bwd": mega.attention_block_bwd,
+                "k1_fwd": ffb.ff_block_fwd_stored,
+                "k1_p1": ffb.ff_block_bwd_p1, "k1_p2": ffb.ff_block_bwd_p2,
+                "k5_fwd": lse5.streaming_lse_fwd,
+                "k5_bwd": lse5.streaming_lse_bwd}
+    work = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        zero_counts(counters)
+        out = train.main(steps, os.path.join(work, "metrics.jsonl"),
+                         device="cuda",
+                         checkpoint_path=os.path.join(work, "ckpt"),
+                         attn_impl="fused", ff_impl="block_stored",
+                         loss_impl="fused")
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+    seconds = time.perf_counter() - t0
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back to the XLA path" in str(w.message)]
+    if fallbacks:
+        fail(f"examples: fallback warnings {fallbacks}")
+    per_step = {k: v / steps for k, v in counts.items()}
+    if min(counts.values()) < 1:
+        fail(f"examples: a kernel was not launched: {counts}")
+    first, last = out["first"]["cl_loss"], out["last"]["cl_loss"]
+    if not last < first:
+        fail(f"examples: cl_loss {first:.4f} -> {last:.4f} did not fall")
+    if not out["top1"] > out["top1_init"]:
+        fail(f"examples: zero-shot top-1 {out['top1_init']:.3f} -> "
+             f"{out['top1']:.3f} did not rise")
+    if not out["restored_equal"]:
+        fail("examples: the restored checkpoint's zero-shot logits differ")
+    with open(out["metrics_path"]) as f:
+        logged = sum(1 for _ in f)
+    print(f"  {card}: training example, {steps} steps at b=64 bf16 on K2, "
+          f"K1 and K5: cl_loss {first:.4f} (first step) -> {last:.4f} "
+          f"(last), zero-shot top-1 {out['top1_init']:.3f} -> "
+          f"{out['top1']:.3f} (the JAX package's example on a TPU v5e, "
+          f"docs/RUN.md: 0.027 -> 0.816 in 300 steps; an accuracy, no "
+          f"time of this card); {out['pairs_per_s']:.1f} pairs/s over "
+          f"steps 2-{steps} ({out['seconds']:.1f} s, loader included), "
+          f"{seconds:.1f} s in all with the evals and the checkpoint; "
+          f"launches a step {per_step}; {logged} lines of metrics; the "
+          f"restored checkpoint's logits bit for bit", flush=True)
+    classifier, acc = zero_shot.main(device="cuda")
+    if tuple(classifier.shape) != (3, 128) or not (
+            torch.isfinite(classifier).all() and 0.0 <= acc["top1"] <= 1.0):
+        fail(f"zero-shot example: classifier {tuple(classifier.shape)}, "
+             f"top-1 {acc}")
+    phase(28, "examples", f"{card}: training example {steps} steps bf16 "
+          f"(K2 {per_step['k2_fwd']:g}/{per_step['k2_bwd']:g}, K1 "
+          f"{per_step['k1_fwd']:g}/{per_step['k1_p1']:g}/"
+          f"{per_step['k1_p2']:g}, K5 {per_step['k5_fwd']:g}/"
+          f"{per_step['k5_bwd']:g} a step): cl_loss {first:.4f} -> "
+          f"{last:.4f}, zero-shot top-1 {out['top1_init']:.3f} -> "
+          f"{out['top1']:.3f} (JAX on a TPU v5e: 0.816), "
+          f"{out['pairs_per_s']:.1f} pairs/s, checkpoint restored bit for "
+          f"bit; zero-shot example classifier (3, 128), top-1 "
+          f"{acc['top1']:.3f}")
+    return out
 
 
 GOLDEN_TOKENS = GOLDEN.with_name("torch_port_golden_tokens.npz")
@@ -5489,6 +5633,9 @@ def main(argv):
 
     # --------------------------------------------------------------- 27
     vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega)
+
+    # --------------------------------------------------------------- 28
+    examples_phase(card, ffb, mega, lse5)
 
     def entry(name, source, replaces, launches, err, kms, cost, peak,
               library_ms=None):

@@ -24,6 +24,7 @@ from xclip_tpu_torch.kernels import attention_block as core
 from xclip_tpu_torch.kernels import flash_attention as flash
 
 from torch_port_inputs import core_args, flash_args
+import torch_one_thread  # noqa: F401
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
 

@@ -40,6 +40,7 @@ from xclip_tpu_torch.kernels import rows as rows_mod
 
 from torch_port_inputs import (BF16_ATOL, _key_mask, core_args, ff_args,
                                flash_args, mega_args, to_torch)
+import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -34,6 +34,7 @@ from test_torch_distributed import (WORLD, check_grads, check_losses,
                                     rank_results, shard_map_loss)
 from torch_dist_worker import flat_tree, spawn
 from torch_objectives_draws import jax_mlm_draws, jax_ssl_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

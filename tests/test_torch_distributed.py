@@ -33,6 +33,7 @@ from xclip_tpu.train import shard_batch as jax_shard_batch
 from xclip_tpu_torch.convert import numpy_params
 
 from torch_dist_worker import flat_tree, spawn
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

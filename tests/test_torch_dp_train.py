@@ -26,6 +26,7 @@ from xclip_tpu.train import trainer as jtrainer
 from test_torch_distributed import (WORLD, global_batch, jax_clip,
                                     loss_case, rank_results)
 from torch_dist_worker import flat_tree, spawn
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

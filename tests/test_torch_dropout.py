@@ -32,6 +32,7 @@ from xclip_tpu_torch.nn.text import TextTransformer
 from xclip_tpu_torch.nn.vision import VisionTransformer
 
 from test_torch_train import TINY, _inputs, _tree_close, jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -16,6 +16,7 @@ import torch
 from xclip_tpu.parallel import create_mesh
 
 from xclip_tpu_torch.dryrun import dryrun_multichip
+import torch_one_thread  # noqa: F401
 
 # `__graft_entry__.py:242-292`, on a (2, 2) mesh
 STAGES = ["full_train_step(dp2xtp2)", "aux_train_step(dp2)",

@@ -48,6 +48,7 @@ from xclip_tpu_torch.kernels import flash_attention as flash
 
 from test_torch_megablock_core import _f32_cuts, _mask, _tile_bits, _walks
 from torch_port_inputs import core_args, flash_args, mega_args
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

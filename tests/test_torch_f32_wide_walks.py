@@ -43,6 +43,7 @@ from xclip_tpu_torch.kernels import flash_attention as flash
 from test_torch_f32_walks import _k7_scores, _nonzero_p, _walk
 from test_torch_megablock_core import _f32_cuts, _mask
 from torch_port_inputs import core_args, flash_args, mega_args
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

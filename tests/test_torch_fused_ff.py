@@ -32,6 +32,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 from test_torch_train import _inputs, _pair, _tree_close, jax_keep_idx
 from test_torch_train_kernels import _ulps2
 from torch_port_inputs import to_np
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -22,6 +22,7 @@ import torch
 import xclip_tpu_torch
 from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from xclip_tpu_torch.train import default_optimizer, make_train_step
+import torch_one_thread  # noqa: F401
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
 GOLDEN_ROTARY = GOLDEN.with_name("torch_port_golden_rotary.npz")

@@ -27,6 +27,7 @@ from xclip_tpu_torch.convert import to_jax_tree
 from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 from test_torch_train import _inputs, _pair, _tree_close, jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

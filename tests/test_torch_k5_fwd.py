@@ -21,6 +21,7 @@ import torch
 
 from xclip_tpu.kernels import fused_infonce as jlse
 from xclip_tpu_torch.kernels import fused_infonce as lse5
+import torch_one_thread  # noqa: F401
 
 
 def _ranged_fwd(x, y, span, row_offset=0, decoupled=False):

@@ -24,6 +24,7 @@ from xclip_tpu_torch.kernels import fused_ff_block as ffb
 
 from torch_port_inputs import BF16_ATOL, to_np, to_torch, ff_args as _ff_args, \
     mega_args as _mega_args
+import torch_one_thread  # noqa: F401
 
 
 def _jax(args, dtype):

@@ -25,6 +25,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 from xclip_tpu_torch.nn.core import layer_norm
 from xclip_tpu_torch.nn.text import TextTransformer
 from xclip_tpu_torch.nn.vision import VisionTransformer
+import torch_one_thread  # noqa: F401
 
 CFG = dict(dim_text=128, dim_image=128, dim_latent=64, num_text_tokens=50,
            text_enc_depth=2, text_seq_len=8, text_heads=2,

@@ -37,6 +37,7 @@ from xclip_tpu_torch.kernels._common import chunk_spans
 from xclip_tpu_torch.objectives.contrastive import clip_contrastive_loss
 
 from torch_port_inputs import ff_args, mega_args, to_np, to_torch
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

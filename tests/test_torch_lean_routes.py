@@ -24,6 +24,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 
 from test_torch_lean_train import _inputs, _pair, _tree_close
 from test_torch_train import jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -41,7 +42,7 @@ def _check_training_matches_jax(**flags):
         return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
                                  return_loss=True, rng=rng, training=True)
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
                  return_loss=True, keep_idx=jax_keep_idx(rng, 2, 9, 0.5))
     loss.backward()

@@ -30,6 +30,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 from test_torch_train import TINY, _inputs, _tree_close, jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -22,6 +22,7 @@ from xclip_tpu.kernels.fused_ff_block import _gelu_val_grad
 from xclip_tpu_torch.kernels import matmul
 from xclip_tpu_torch.kernels._common import dot32
 from xclip_tpu_torch.kernels.fused_ff_block import ROW_BLOCK
+import torch_one_thread  # noqa: F401
 
 
 def _bf16(npr, *shape, scale=1.0):

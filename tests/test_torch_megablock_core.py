@@ -38,6 +38,7 @@ from xclip_tpu_torch.kernels import attention_block as core
 from xclip_tpu_torch.kernels import attention_megablock as mega
 
 from torch_port_inputs import _key_mask, core_args, mega_args, to_torch
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

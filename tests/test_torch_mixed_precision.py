@@ -27,6 +27,7 @@ from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from test_torch_objectives import (KERNEL_ROUTES, PLAIN_ROUTES, TINY,
                                    _ssl_pair, inputs, leaves)
 from torch_objectives_draws import jax_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

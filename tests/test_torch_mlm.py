@@ -24,6 +24,7 @@ from xclip_tpu_torch.nn.text import TextTransformer
 from xclip_tpu_torch.objectives import mlm as tmlm
 
 from torch_objectives_draws import jax_mlm_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -21,6 +21,7 @@ from xclip_tpu import eval as jeval
 import xclip_tpu_torch
 from xclip_tpu_torch import eval as teval
 from xclip_tpu_torch.convert import load_jax_params, numpy_params
+import torch_one_thread  # noqa: F401
 
 TINY = dict(dim_text=64, dim_image=64, dim_latent=64, num_text_tokens=100,
             text_enc_depth=2, text_seq_len=16, text_heads=2,

@@ -36,6 +36,7 @@ from xclip_tpu_torch.objectives import contrastive as tcon
 from xclip_tpu_torch.objectives import ssl as tssl
 
 from torch_objectives_draws import jax_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

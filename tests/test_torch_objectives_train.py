@@ -30,6 +30,7 @@ from xclip_tpu_torch.train import (default_optimizer, make_train_step,
 
 from test_torch_objectives import ALL, TINY, inputs, leaves, make_pair
 from torch_objectives_draws import jax_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -16,6 +16,7 @@ from xclip_tpu_torch import utils
 from xclip_tpu_torch.train import MetricsLogger
 
 from test_torch_train import TINY
+import torch_one_thread  # noqa: F401
 
 
 def _metrics(i):

@@ -34,6 +34,7 @@ from xclip_tpu_torch.train import (CheckpointManager, default_optimizer,
                                    make_train_step)
 
 from test_torch_train import _tree_close
+import torch_one_thread  # noqa: F401
 
 JAX_TOK = JaxTokenizer()
 PORT_TOK = SimpleTokenizer()

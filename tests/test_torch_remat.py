@@ -22,6 +22,7 @@ from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from xclip_tpu_torch.nn import layers as tlayers
 
 from test_torch_train import TINY, _inputs, _tree_close, jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

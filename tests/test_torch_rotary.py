@@ -35,6 +35,7 @@ from xclip_tpu_torch.nn.text import TextTransformer
 from xclip_tpu_torch.train import default_optimizer, make_train_step
 
 from test_torch_train import _tree_close, jax_keep_idx
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -241,7 +242,7 @@ def test_rotary_clip_loss_and_grads_match(route):
         return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
                                  return_loss=True, rng=rng, training=True)
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
                  return_loss=True, keep_idx=jax_keep_idx(rng, 4, 9, 0.5))
     loss.backward()

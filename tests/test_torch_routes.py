@@ -42,6 +42,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 from xclip_tpu_torch.objectives import contrastive as tcon
 
 from test_torch_train import _tree_close
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

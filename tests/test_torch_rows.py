@@ -35,6 +35,7 @@ from xclip_tpu.kernels import fused_ff_block as jffb
 from xclip_tpu.nn import core as jcore
 from xclip_tpu_torch.kernels import rows as rk
 from xclip_tpu_torch.kernels.matmul import ordered_sum
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

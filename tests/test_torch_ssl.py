@@ -31,6 +31,7 @@ from xclip_tpu_torch.objectives import augment as taug
 from xclip_tpu_torch.objectives import ssl as tssl
 
 from torch_objectives_draws import jax_augment_draws, jax_ssl_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -307,7 +308,8 @@ def test_mlps_match_jax(kind):
         out = japply(p, jnp.asarray(x), True, upd, "p/")
         return (out * cot).sum(), upd
 
-    (want, jupd), jgrads = jax.value_and_grad(loss, has_aux=True)(jp)
+    (want, jupd), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jp)
     tupd = {}
     got = (module(torch.from_numpy(x), True, tupd, "p/")
            * torch.from_numpy(cot)).sum()
@@ -397,6 +399,8 @@ def test_ssl_matches_jax(kind, hidden_layer):
                            rng=rng, training=True, attn_impl=attn,
                            return_bn_updates=True)
 
+    # eager, as jitting moves one of SimCLR's 16.7M projector gradients
+    # past the rule (a 1.1e-4 difference at a 2.1e-3 element)
     (want, jbn), jgrads = jax.value_and_grad(loss, has_aux=True)(
         {"head": hp, "tower": tp})
     draws = jax_ssl_draws(rng, kind, 6, 16, 0.5)

@@ -31,6 +31,7 @@ from xclip_tpu_torch.train import default_optimizer, make_train_step
 from test_torch_train import _inputs, _pair, _tree_close, jax_keep_idx
 from test_torch_train_kernels import _close, _close_grad, _cot
 from torch_port_inputs import ff_args, to_torch
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -30,6 +30,7 @@ from hypothesis import given, settings, strategies as st
 from xclip_tpu.data.tokenizer import SimpleTokenizer as JaxTokenizer
 from xclip_tpu_torch.data.tokenizer import SimpleTokenizer
 from xclip_tpu_torch.native import fast_bpe
+import torch_one_thread  # noqa: F401
 
 JT = importlib.import_module("xclip_tpu.data.tokenizer")
 PT = importlib.import_module("xclip_tpu_torch.data.tokenizer")

@@ -43,6 +43,7 @@ from xclip_tpu_torch.parallel import param_spec
 from test_torch_distributed import MOCK, global_batch, rank_results
 from torch_dist_worker import flat_tree, spawn
 from torch_objectives_draws import jax_draws
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -199,30 +200,36 @@ def _check(results, want):
             np.testing.assert_allclose(
                 float(res[f"metric:{k}"]), float(metrics[k]), rtol=1e-5,
                 atol=1e-5, err_msg=f"rank {r} {k}")
-        got = {}
-        for tag, tree in (("param", params), ("mu", mu), ("nu", nu)):
-            got[tag] = {k[len(tag) + 1:]: v for k, v in res.items()
-                        if k.startswith(tag + ":")}
-            # JAX keeps moments of the BatchNorm statistics, zeros here
-            extra = tree.keys() - got[tag].keys() if tag != "param" \
-                else set()
-            assert all(k.endswith((".mean", ".var")) and not tree[k].any()
-                       for k in extra), extra
-            assert got[tag].keys() == tree.keys() - extra
-        for k, w in params.items():
-            keep = np.ones(w.shape, bool)
-            if k in got["mu"]:
-                np.testing.assert_allclose(got["mu"][k], mu[k], rtol=0,
-                                           atol=2e-6, err_msg=f"mu {k}")
-                np.testing.assert_allclose(got["nu"][k], nu[k], rtol=0,
-                                           atol=2e-6, err_msg=f"nu {k}")
-                keep = (np.abs(got["mu"][k] - mu[k])
-                        <= 0.01 * np.abs(mu[k]))
-                assert (keep.all() or np.abs(mu[k][~keep]).max()
-                        <= 1e-3 * np.abs(mu[k]).max()), k
-            np.testing.assert_allclose(
-                got["param"][k][keep], w[keep], rtol=0, atol=2e-6,
-                err_msg=f"rank {r} param {k}")
+        check_state(res, params, mu, nu, f"rank {r}")
+
+
+def check_state(res, params, mu, nu, where=""):
+    """`_check`'s rule for the parameters and both moments of one result
+    (`param:`, `mu:`, `nu:` keys) against flat trees."""
+    got = {}
+    for tag, tree in (("param", params), ("mu", mu), ("nu", nu)):
+        got[tag] = {k[len(tag) + 1:]: v for k, v in res.items()
+                    if k.startswith(tag + ":")}
+        # JAX keeps moments of the BatchNorm statistics, zeros here
+        extra = tree.keys() - got[tag].keys() if tag != "param" \
+            else set()
+        assert all(k.endswith((".mean", ".var")) and not tree[k].any()
+                   for k in extra), extra
+        assert got[tag].keys() == tree.keys() - extra
+    for k, w in params.items():
+        keep = np.ones(w.shape, bool)
+        if k in got["mu"]:
+            np.testing.assert_allclose(got["mu"][k], mu[k], rtol=0,
+                                       atol=2e-6, err_msg=f"mu {k}")
+            np.testing.assert_allclose(got["nu"][k], nu[k], rtol=0,
+                                       atol=2e-6, err_msg=f"nu {k}")
+            keep = (np.abs(got["mu"][k] - mu[k])
+                    <= 0.01 * np.abs(mu[k]))
+            assert (keep.all() or np.abs(mu[k][~keep]).max()
+                    <= 1e-3 * np.abs(mu[k]).max()), k
+        np.testing.assert_allclose(
+            got["param"][k][keep], w[keep], rtol=0, atol=2e-6,
+            err_msg=f"{where} param {k}")
 
 
 def _sharded_count(res, tag):

@@ -33,6 +33,7 @@ from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from xclip_tpu_torch.nn import layers as tlayers
 from xclip_tpu_torch.train import (default_optimizer, make_train_step,
                                    warmup_cosine_lr)
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -102,7 +103,7 @@ def test_loss_and_grads_match_jax(flags):
         return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
                                  return_loss=True, rng=rng, training=True)
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     keep = jax_keep_idx(rng, 4, 9, 0.5)
     loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
                  return_loss=True, keep_idx=keep)
@@ -202,7 +203,7 @@ def _fp32_loss_and_grads(jclip32, params, text, image, rng):
     def loss_fn(p):
         return jclip32.model.apply(p, jnp.asarray(text), jnp.asarray(image),
                                    return_loss=True, rng=rng, training=True)
-    return jax.value_and_grad(loss_fn)(
+    return jax.jit(jax.value_and_grad(loss_fn))(
         jax.tree.map(lambda x: x.astype(jnp.float32), params))
 
 
@@ -215,7 +216,7 @@ def test_bf16_loss_and_grads_match_jax():
         return jclip.model.apply(p, jnp.asarray(text), jnp.asarray(image),
                                  return_loss=True, rng=rng, training=True)
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     ref_loss, ref_grads = _fp32_loss_and_grads(jclip32, params, text, image,
                                                rng)
     loss = tclip(torch.from_numpy(text), torch.from_numpy(image),
@@ -381,7 +382,7 @@ def test_unported_training_options_raise():
                 rng=rng, training=True,
                 **{k: (jnp.asarray(v),) for k, v in kw.items()})
 
-        want, want_grads = jax.value_and_grad(loss_fn)(params)
+        want, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
         tclip.zero_grad(set_to_none=True)
         loss = tclip(torch.from_numpy(npt), torch.from_numpy(npi),
                      return_loss=True, keep_idx=jax_keep_idx(rng, 2, 9, 0.5),

@@ -30,6 +30,7 @@ from xclip_tpu_torch.kernels import attention_megablock as mega
 from xclip_tpu_torch.kernels import fused_ff_block as ffb
 
 from torch_port_inputs import ff_args, mega_args, to_np, to_torch
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -42,6 +42,7 @@ from xclip_tpu_torch.nn import layers as tlayers
 
 from test_torch_train import _inputs, _pair, _tree_close, jax_keep_idx
 from torch_port_inputs import core_args, flash_args
+import torch_one_thread  # noqa: F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -449,3 +449,181 @@ def tp_stack(case, group):
                 g = gather_tensor(g, p.sharding)
             out[f"{tag}:grad:{name}"] = g.numpy()
     return out
+
+
+# ------------------------------------------- checkpoints of a sharded state
+
+def _ckpt_model(case, mesh_shape):
+    """The case's CLIP and AdamW, placed by `shard_state` on a mesh of
+    `mesh_shape` over every rank (None: no mesh); (clip, opt, mesh)."""
+    from xclip_tpu_torch.parallel import create_mesh
+    from xclip_tpu_torch.train import default_optimizer, shard_state
+    clip = _clip(case)
+    opt = default_optimizer(clip.parameters(), **case["optimizer"])
+    mesh = None
+    if mesh_shape is not None:
+        mesh = create_mesh(tuple(mesh_shape))
+        shard_state(clip, opt, mesh)
+    return clip, opt, mesh
+
+
+def _ckpt_step(case, clip, opt, mesh, step):
+    """Step `step` (1-based) of the case's run, JAX's draws of that step
+    replayed: this rank's rows of the batch and of the patch indices."""
+    from xclip_tpu_torch.train import make_train_step, shard_batch
+    b = case["batch"]
+    text, image = (torch.from_numpy(b[k]) for k in ("text", "image"))
+    keep = torch.from_numpy(case["keep_idx"][step - 1])
+    if mesh is not None:
+        text, image, keep = shard_batch((text, image, keep), mesh)
+    kw = {} if mesh is None else {"mesh": mesh}
+    return make_train_step(clip, opt, **kw)(text, image, keep_idx=keep)
+
+
+def _ckpt_state(clip, opt, tag=""):
+    """The metrics-free state in JAX's layout: {"<tag>param:<leaf>": ...,
+    "<tag>mu:<leaf>": ..., "<tag>nu:<leaf>": ...} and AdamW's count."""
+    from xclip_tpu_torch.convert import to_jax_tree
+    # copies: an fp32 CPU parameter's numpy view follows later steps
+    out = {f"{tag}param:{k}": v.copy() for k, v in
+           flat_tree(to_jax_tree(clip)).items()}
+    out.update({f"{tag}{k}": v.copy() for k, v in
+                _moments(clip, opt).items()})
+    out[f"{tag}count"] = opt.count
+    return out
+
+
+def _counting_saves():
+    """A patch of `torch.save` that counts this process's calls."""
+    from unittest import mock
+    calls = []
+    real = torch.save
+
+    def save(obj, f, *a, **kw):
+        calls.append(str(f))
+        return real(obj, f, *a, **kw)
+    return mock.patch.object(torch, "save", save), calls
+
+
+def _shards_match(clip, opt, path):
+    """Whether each sharded parameter and both its moments on this rank are
+    `shard_tensor` of the file's whole tensor, bit for bit; and how many
+    parameters are sharded."""
+    from xclip_tpu_torch.parallel.sharding import is_sharded, shard_tensor
+    state = torch.load(path, weights_only=True)
+    index = {id(p): i for i, p in enumerate(clip.parameters())}
+    ok, sharded = True, 0
+    for name, p in clip.named_parameters():
+        if not is_sharded(p):
+            ok &= torch.equal(p.detach(), state["model"][name])
+            continue
+        sharded += 1
+        ok &= torch.equal(p.detach(),
+                          shard_tensor(state["model"][name], p.sharding))
+        saved = state["optimizer"]["state"][index[id(p)]]
+        for k in ("mu", "nu"):
+            ok &= torch.equal(opt.state[p][k],
+                              shard_tensor(saved[k], p.sharding))
+    return bool(ok), sharded
+
+
+def ckpt_run(case, group):
+    """The uninterrupted run on a 2 × 2 mesh: two steps, a collective save
+    (the `torch.save` calls of this rank counted), the state the save saw,
+    then the third step."""
+    from xclip_tpu_torch.train import save_checkpoint
+    clip, opt, mesh = _ckpt_model(case, (2, 2))
+    for s in (1, 2):
+        _ckpt_step(case, clip, opt, mesh, s)
+    patch, calls = _counting_saves()
+    with patch:
+        save_checkpoint(case["path"], clip, opt, step=2)
+    out = _ckpt_state(clip, opt, "saved:")
+    out["saves"] = len(calls)
+    metrics = _ckpt_step(case, clip, opt, mesh, 3)
+    out.update({f"metric:{k}": v.item() for k, v in metrics.items()})
+    out.update(_ckpt_state(clip, opt))
+    return out
+
+
+def ckpt_restore(case, group):
+    """A fresh CLIP and AdamW (other weights) on `case["mesh"]` (None: no
+    mesh) restored from the 2 × 2 run's file: the step and count it gave,
+    whether each rank's shards are the file's, then the third step."""
+    from xclip_tpu_torch.train import restore_checkpoint
+    clip, opt, mesh = _ckpt_model(dict(case, tree=case["fresh_tree"]),
+                                  case["mesh"])
+    saved_step = restore_checkpoint(case["path"], clip, opt)
+    ok, sharded = _shards_match(clip, opt, case["path"])
+    out = {"step": saved_step, "restored_count": opt.count,
+           "shards_match": ok,
+           "sharded": sharded}
+    metrics = _ckpt_step(case, clip, opt, mesh, 3)
+    out.update({f"metric:{k}": v.item() for k, v in metrics.items()})
+    out.update(_ckpt_state(clip, opt))
+    return out
+
+
+def ckpt_into_mesh(case, group):
+    """A model with no mesh saved (collective: rank 0 writes), restored
+    into a model placed by `shard_state` on a 2 × 2 mesh: its shards, and
+    the tree gathered back."""
+    from xclip_tpu_torch.train import restore_checkpoint, save_checkpoint
+    clip, opt, _ = _ckpt_model(case, None)
+    _ckpt_step(case, clip, opt, None, 1)
+    patch, calls = _counting_saves()
+    with patch:
+        save_checkpoint(case["path"], clip, opt, step=1)
+    want = _ckpt_state(clip, opt)
+    sharded, sopt, _ = _ckpt_model(dict(case, tree=case["fresh_tree"]),
+                                   (2, 2))
+    step = restore_checkpoint(case["path"], sharded, sopt)
+    ok, n = _shards_match(sharded, sopt, case["path"])
+    got = _ckpt_state(sharded, sopt)
+    return {"step": step, "saves": len(calls), "shards_match": ok,
+            "sharded": n,
+            "same_tree": got.keys() == want.keys() and all(
+                np.array_equal(got[k], want[k]) for k in want)}
+
+
+def ckpt_manager(case, group):
+    """`CheckpointManager(keep=1)` under a 2 × 2 mesh: two steps each
+    saved with a loader sidecar (this rank's `torch.save` calls counted),
+    the files left, then `restore_latest` into a fresh model on (4, 1)."""
+    from xclip_tpu_torch.train import CheckpointManager
+    clip, opt, mesh = _ckpt_model(case, (2, 2))
+    manager = CheckpointManager(case["path"], keep=1)
+    patch, calls = _counting_saves()
+    with patch:
+        for s in (1, 2):
+            _ckpt_step(case, clip, opt, mesh, s)
+            manager.save(s, clip, opt, loader_state={"epoch": 0,
+                                                     "batch_index": s})
+    files = sorted(os.listdir(case["path"]))
+    want = _ckpt_state(clip, opt)
+    fresh, fopt, _ = _ckpt_model(dict(case, tree=case["fresh_tree"]),
+                                 (4, 1))
+    step = manager.restore_latest(fresh, fopt)
+    got = _ckpt_state(fresh, fopt)
+    return {"saves": len(calls), "files": np.array(files), "step": step,
+            "loader_batch": manager.loader_state()["batch_index"],
+            "same_tree": got.keys() == want.keys() and all(
+                np.array_equal(got[k], want[k]) for k in want)}
+
+
+def ckpt_mismatch(case, group):
+    """A file whose `case["leaf"]` has one column too many, restored into
+    a model on a 2 × 2 mesh: what every rank raises."""
+    from xclip_tpu_torch.train import restore_checkpoint
+    if dist.get_rank() == 0:
+        state = torch.load(case["source"], weights_only=True)
+        w = state["model"][case["leaf"]]
+        state["model"][case["leaf"]] = torch.cat([w, w[:, :1]], dim=1)
+        torch.save(state, case["path"])
+    dist.barrier()
+    clip, opt, _ = _ckpt_model(case, (2, 2))
+    try:
+        restore_checkpoint(case["path"], clip, opt)
+    except Exception as e:   # what is raised is the result
+        return {"type": type(e).__name__, "message": str(e)}
+    return {"type": "", "message": ""}

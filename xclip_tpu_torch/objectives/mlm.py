@@ -127,7 +127,7 @@ class MLM(nn.Module):
         logits = self.to_logits(embedding)[:, 1:]   # the CLS dropped
         keep = labels != self.pad_token_id
         total = F.cross_entropy(logits.float().flatten(0, 1),
-                                labels.flatten(), reduction="sum",
+                                labels.flatten().long(), reduction="sum",
                                 ignore_index=self.pad_token_id)
         count = keep.sum().clamp(min=1)
         return (total / count).to(embedding.dtype)

@@ -12,6 +12,15 @@ of `xclip_tpu/train/resilience.py`:
 
 The model and optimizer are restored in place, as PyTorch keeps its state
 in them.
+
+Under a process group of more than one rank, `CheckpointManager.save` and
+`restore_latest` are collective, as Orbax's manager is: every rank calls
+them. A save gathers the sharded tensors on every rank
+(`checkpoint.save_checkpoint`); global rank 0 alone writes the step file
+and the loader sidecar, and drops old steps and what interrupted saves
+left; every rank then waits at a barrier. `restore_latest` reads the
+newest step after a barrier, so every rank restores the same one, each
+into its own shards.
 """
 
 from __future__ import annotations
@@ -27,7 +36,18 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import _world, restore_checkpoint, save_checkpoint
+
+
+def _barrier():
+    if _world() > 1:
+        torch.distributed.barrier()
+
+
+def _writer() -> bool:
+    """Whether this process writes the files: global rank 0, or the one
+    process where there is no process group."""
+    return _world() == 1 or torch.distributed.get_rank() == 0
 
 
 class CheckpointManager:
@@ -65,9 +85,16 @@ class CheckpointManager:
              loader_state: Optional[dict] = None) -> str:
         """`loader_state`: the `'loader_state'` dict of the last batch
         consumed, kept as a JSON sidecar so that a restart resumes the data
-        order where it left off (`loader_state()` reads it back)."""
+        order where it left off (`loader_state()` reads it back).
+        Collective under a process group (see the module docstring)."""
         path = os.path.join(self.directory, f"step_{step}")
         save_checkpoint(path, model, optimizer, step)
+        if _writer():
+            self._write_sidecar_and_clean(step, path, loader_state)
+        _barrier()
+        return path
+
+    def _write_sidecar_and_clean(self, step, path, loader_state):
         if loader_state is not None:
             tmp = path + ".loader.json.tmp"
             with open(tmp, "w") as f:
@@ -87,12 +114,13 @@ class CheckpointManager:
                     os.remove(os.path.join(self.directory, name))
                 except FileNotFoundError:
                     pass
-        return path
 
     def restore_latest(self, model, optimizer=None) -> Optional[int]:
         """Restore the newest checkpoint into `model` (and `optimizer`) in
         place and return its step; None, touching nothing, when there is
-        none yet."""
+        none yet. Under a process group every rank calls it and restores
+        the step that is newest once all have arrived."""
+        _barrier()
         files = self._step_files()
         if not files:
             return None
