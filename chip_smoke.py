@@ -9,7 +9,10 @@ forward and backward (phases 6 and 12), fp32 K7 forward and backward
 (phase 12) and fp32 product kernel (phase 19) are timed beside this
 checkout's on the same operands; an entry point whose arguments differ
 from this checkout's, as the attention ones did before they took a
-dim_head, is not timed.)
+dim_head, is not timed. Phase 27's model is first run by both checkouts
+in turns, parent, this, this, parent, each run a process of its own, with
+a profiled step: pairs/s, peak memory, device busy time and the kernels
+that moved.)
 
 Builds the port's CUDA kernels from `xclip_tpu_torch/csrc/` and drives its
 main paths at the flagship width (dim 512, 6 + 6 layers, 257-row text,
@@ -223,14 +226,23 @@ One line per phase; any failure exits non-zero, and nothing is caught.
  21 heads    small CLIPs (2 + 2 layers) whose text heads are 32 wide,
              under 'fused' (the megablock), 'fused' with rotary (K6) and
              'flash' (K7), 128 wide under 'flash', whose vision heads are
-             80 wide under 'fused', and whose heads are 128 wide in both
+             4 x 80 wide under 'fused' (and 2 x 80, which the megablock
+             takes padded to 96: 160 columns are off its 64-column grid),
+             whose heads are 128 wide in both
              towers under 'fused', 'fused' with rotary and (fp32)
-             'flash', in bf16 and fp32: the kernels take heads of 64 and
-             128 (two 64-column halves) and a narrower head zero-padded
-             to the next of those; served and trained one step on the
-             card, every layer launching its kernel and no fallback
-             warning, latents and the first loss against the plain
-             routes'; the K-MEGA, K2, K6 and K7 wrappers at dim_head 32
+             'flash', whose text heads are 256 and vision heads 192 wide
+             under 'fused', text heads 256 wide under 'fused' with
+             rotary, and text heads 192 and vision heads 256 wide under
+             'flash': the bf16 kernels take every head at its true width
+             (a multiple of 8 up to 256, ⌈d / 64⌉ 64-column halves), the
+             fp32 ones 64 and 128; served and trained one step on the
+             card, every layer launching its kernel (counted by head
+             width), no pad_heads call (the 2 x 80 case: two a
+             megablock forward, 80 to 96) and no fallback warning, latents
+             and the first loss against the plain routes'; the flagship
+             with 2 x 256 heads in both towers, bf16, b = 256, served once
+             and one train step through K2 and K1; the K-MEGA, K2, K6 and
+             K7 wrappers at dim_head 32
              (fp32) against their plain versions at the true width (1e-4
              of the largest magnitude), K7's kernels at dim_head 128
              (bf16, phase 12's rule) timed beside their plain versions,
@@ -241,10 +253,16 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              12's rule), two launches bit for bit, timed beside their
              plain versions, SDPA and their bounds; the fp32 kernels'
              blocks and warps an SM at 128 (16 warps, one block of two
-             256-thread halves). Past the CUDA kernels (text dim_head 256
-             under 'fused', dim 72 with FF inner 288 under 'block') the
-             entry point raises ValueError naming the limit, and no plain
-             route runs in the kernel's place.
+             256-thread halves); K6 (256, 256, causal), the megablock core
+             (256, 257) and K7 (b*h 512, n 256, causal), bf16, at heads of
+             192 and 256 (2 heads in K6 and the core), forward and
+             backward against their plain versions (phase 12's rule), two
+             backward launches bit for bit, timed beside their plain
+             versions, SDPA in bf16 and their bounds. Past the CUDA
+             kernels (bf16 text dim_head 264 and fp32 192 under 'fused',
+             dim 72 with FF inner 288 under 'block') the entry point
+             raises ValueError naming the limit, and no plain route runs
+             in the kernel's place.
  22 train-surface  the training surface on the flagship, bf16, from phase
              8's weights and inputs: (a) the stored route (K2, K1) at
              b = 256 under checkpoint_during_training with remat_policy
@@ -373,14 +391,20 @@ One line per phase; any failure exits non-zero, and nothing is caught.
              and count bit for bit, and that model's save restored into a
              fresh model placed on the (1, 1) mesh, bit for bit.
  27 vit-h    a CLIP at the widths of OpenCLIP's ViT-H-14.json (vision
-             1280, 16 heads of 80 zero-padded to 128, 224-px images in
-             14-px patches; text 1024, 16 heads of 64, 77 tokens, 49,408
-             ids; latents 1024; the repo's GEGLU FF at 4x), bf16, at full
+             1280, 16 heads of 80 at their true width, the megablock's
+             qkv product 3,840 columns and no pad_heads call, 224-px
+             images in 14-px patches; text 1024, 16 heads of 64, 77
+             tokens, 49,408 ids; latents 1024; the repo's GEGLU FF at
+             4x), bf16, at full
              depth (32 + 24 layers): serving at b = 64 (pairs/s, every
              layer's K-MEGA and K-FF launched), latents at b = 4 against
              the plain routes' (3e-2), and AdamW steps of K2 and K1 at
              b = 64 (pairs/s, peak memory, finite losses, launches per
-             step), with no fallback warning.
+             step), with no fallback warning; with --parent first the
+             model by the older checkout and this one in turns (parent,
+             this, this, parent, a process each): pairs/s, peak memory,
+             a profiled step's device busy time and the kernels that
+             moved, and each side's medians.
  28 examples the port's examples on the card: (a) the training example
              (xclip_tpu_torch.examples.train: dim 128, depth 2 + 2, 64-px
              images in 16-px patches, the 49,408-id vocabulary, bf16,
@@ -402,6 +426,8 @@ their type, NVIDIA H100 SXM data-sheet peaks at 700 W), the card line as
 nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
+import collections
+import contextlib
 import ctypes
 import importlib.util
 import itertools
@@ -3095,31 +3121,46 @@ _K6 = ({"mega": 2, "k6_fwd": 2, "kff": 4},
 _K7 = ({"k7_fwd": 4, "kff": 4}, {"k7_fwd": 4, "k7_bwd": 4, **_K1})
 _WIDE = dict(text_dim_head=128, visual_dim_head=128)
 BF16, F32 = torch.bfloat16, torch.float32
+_FLASH = dict(attn_impl="flash", ff_impl="block_stored")
 NARROW_HEADS = [
-    ("text dim_head 32, 'fused'", dict(text_dim_head=32), _FUSED, *_MEGA,
-     BF16),
-    ("text dim_head 32, rotary, 'fused' (K6)",
-     dict(text_dim_head=32, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
-    ("text dim_head 32, 'flash'", dict(text_dim_head=32),
-     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, BF16),
-    ("text dim_head 128, 'flash'", dict(text_dim_head=128),
-     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, BF16),
-    ("dim_head 128, 'fused'", _WIDE, _FUSED, *_MEGA, BF16),
-    ("visual dim_head 80 (padded to 128), 'fused'", dict(visual_dim_head=80),
+    ("text dim_head 32 (true width), 'fused'", dict(text_dim_head=32),
      _FUSED, *_MEGA, BF16),
+    ("text dim_head 32 (true width), rotary, 'fused' (K6)",
+     dict(text_dim_head=32, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
+    ("text dim_head 32 (true width), 'flash'", dict(text_dim_head=32),
+     _FLASH, *_K7, BF16),
+    ("text dim_head 128, 'flash'", dict(text_dim_head=128), _FLASH, *_K7,
+     BF16),
+    ("dim_head 128, 'fused'", _WIDE, _FUSED, *_MEGA, BF16),
+    ("visual 4 x dim_head 80 (true width), 'fused'",
+     dict(visual_dim_head=80, visual_heads=4), _FUSED, *_MEGA, BF16),
+    ("visual 2 x dim_head 80 (padded to 96), 'fused'",
+     dict(visual_dim_head=80), _FUSED, *_MEGA, BF16),
+    ("text dim_head 256, visual 192, 'fused'",
+     dict(text_dim_head=256, visual_dim_head=192), _FUSED, *_MEGA, BF16),
+    ("text dim_head 256, rotary, 'fused' (K6)",
+     dict(text_dim_head=256, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
+    ("text dim_head 192, visual 256, 'flash'",
+     dict(text_dim_head=192, visual_dim_head=256), _FLASH, *_K7, BF16),
     ("dim_head 128, rotary, 'fused' (K6)",
      dict(_WIDE, text_rotary_pos_emb=True), _FUSED, *_K6, BF16),
     ("fp32 dim_head 128, 'fused'", _WIDE, _FUSED, *_MEGA, F32),
     ("fp32 dim_head 128, rotary, 'fused' (K6)",
      dict(_WIDE, text_rotary_pos_emb=True), _FUSED, *_K6, F32),
-    ("fp32 dim_head 128, 'flash'", _WIDE,
-     dict(attn_impl="flash", ff_impl="block_stored"), *_K7, F32),
+    ("fp32 dim_head 128, 'flash'", _WIDE, _FLASH, *_K7, F32),
 ]
-PAST_KERNELS = [
-    ("text dim_head 256, 'fused'", dict(text_dim_head=256), _FUSED,
-     "not 256"),
+# The NARROW_HEADS cases whose heads the megablock takes only padded (2
+# heads of 80 are 160 columns, off its 64-column grid): label → (dim_head,
+# the width `pad_heads` gives them). Every other case runs its heads as
+# they are, with no `pad_heads` call.
+PADDED_HEADS = {"visual 2 x dim_head 80 (padded to 96), 'fused'": (80, 96)}
+PAST_KERNELS = [  # (label, CLIP kwargs, routes, the limit's words, dtype)
+    ("text dim_head 264, 'fused'", dict(text_dim_head=264), _FUSED,
+     "not 264", BF16),
+    ("fp32 text dim_head 192, 'fused'", dict(text_dim_head=192), _FUSED,
+     "not 192", F32),
     ("text FF inner 288 (dim 72), 'block'", dict(dim_text=72, text_heads=2),
-     dict(attn_impl="xla", ff_impl="block"), "not dim 72, inner 288"),
+     dict(attn_impl="xla", ff_impl="block"), "not dim 72, inner 288", BF16),
 ]
 
 
@@ -3444,24 +3485,306 @@ def wide_kernels():
     return errs, ms, costs, library, peaks
 
 
+# The bf16 kernels at heads of 192 and 256 (three and four 64-column
+# halves), alone (phase 21): (key, the NARROW_HEADS case whose serving and
+# train step give the launches, record name, source, Pallas body replaced);
+# launches counted by head width (`width_spies`). K6 at 192 is timed and
+# printed but not recorded: JAX's routing sends heads of 192 to its XLA
+# path (not a multiple of 128), so no main path launches it.
+_TRUE_WIDTH_FAMILIES = {  # family: (title, source, Pallas bodies)
+    "mega": ("megablock attention core", "attention_block_sm90.cuh",
+             ("attention_megablock.py:158", "attention_megablock.py:396")),
+    "k6": ("K6 attention_core", "attention_block_sm90.cuh",
+           ("attention_block.py:83", "attention_block.py:117")),
+    "k7": ("K7 flash_attention", "flash_attention_sm90.cuh",
+           ("flash_attention.py:66", "flash_attention.py:134")),
+}
+TRUE_WIDTH_KERNELS = [
+    (f"{fam}_{d}_{kind}", case,
+     f"{_TRUE_WIDTH_FAMILIES[fam][0]} "
+     f"{'forward' if kind == 'fwd' else 'backward (dq, dk/dv)'}, bf16 "
+     f"heads of {d} ({d // 64} halves)",
+     f"xclip_tpu_torch/csrc/{_TRUE_WIDTH_FAMILIES[fam][1]}",
+     f"xclip_tpu/kernels/{_TRUE_WIDTH_FAMILIES[fam][2][kind == 'bwd']}")
+    for fam, d, case in (
+        ("mega", 256, "text dim_head 256, visual 192, 'fused'"),
+        ("mega", 192, "text dim_head 256, visual 192, 'fused'"),
+        ("k6", 256, "text dim_head 256, rotary, 'fused' (K6)"),
+        ("k7", 256, "text dim_head 192, visual 256, 'flash'"),
+        ("k7", 192, "text dim_head 192, visual 256, 'flash'"))
+    for kind in ("fwd", "bwd")]
+# the wrappers' checks whose calls are one launch each: (family, kind)
+WIDTH_CHECKS = {
+    "attention_block": ("mega", "fwd"),
+    "attention_block_fwd_stored": ("mega", "fwd"),
+    "attention_block_bwd": ("mega", "bwd"),
+    "attention_core_fwd": ("k6", "fwd"), "attention_core_bwd": ("k6", "bwd"),
+    "flash_attention_fwd": ("k7", "fwd"), "flash_attention_bwd": ("k7", "bwd"),
+}
+
+
+def width_spies(widths, pads):
+    """Patches that count each attention wrapper's launches by head width
+    into `widths` ((family, kind, width) → launches) and record each
+    `pad_heads` call's dim_head into `pads`."""
+    from xclip_tpu_torch.kernels import attention_block as core
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import flash_attention as flash
+
+    def counting(check, width_of):
+        def spy(name, *a, **kw):
+            if name in WIDTH_CHECKS:
+                widths[(*WIDTH_CHECKS[name], width_of(a))] += 1
+            return check(name, *a, **kw)
+        return spy
+
+    pad_heads = mega.pad_heads
+
+    def spy_pad(*a, **kw):
+        pads.append(a[1])
+        return pad_heads(*a, **kw)
+
+    return [mock.patch.object(mega, "_check", counting(mega._check,
+                                                       lambda a: a[3])),
+            mock.patch.object(core, "_check", counting(core._check,
+                                                       lambda a: a[3])),
+            mock.patch.object(flash, "_check", counting(
+                flash._check, lambda a: a[0][0].shape[-1])),
+            mock.patch.object(mega, "pad_heads", spy_pad),
+            mock.patch.object(core, "pad_heads", spy_pad)]
+
+
+def true_width_kernels():
+    """Phase 21's bf16 kernels at heads of 192 and 256, from a generator of
+    their own: K6 (256, 256, 2 x d, causal), the megablock's core (256,
+    257, 2 x d, not causal), both with key pads, and K7 (b*h 512, n 256, d,
+    causal, key pads): forward and backward against their plain versions
+    element by element (phase 12's rule), two backward launches bit for bit
+    equal, each kernel's blocks (warps) an SM; timed beside the plain
+    version, SDPA in bf16 on the same q, k, v and mask, and the bound.
+    Returns (errs, ms, costs, library) keyed as TRUE_WIDTH_KERNELS (K6 at
+    192 too)."""
+    from xclip_tpu_torch.kernels import attention_block as core
+    from xclip_tpu_torch.kernels import attention_megablock as mega
+    from xclip_tpu_torch.kernels import flash_attention as flash
+    from xclip_tpu_torch.kernels import _build
+    tgen = torch.Generator(device="cuda").manual_seed(212)
+    lib = _build.library()
+    errs, ms, costs, library = {}, {}, {}, {}
+    b, heads = 256, 2
+    for d in (192, 256):
+        for mode, name in ((0, "megablock"), (1, "K6")):
+            res = [(lib.xclip_attention_fwd_blocks(1, mode, d, 0),
+                    lib.xclip_attention_fwd_blocks(1, mode, d, 1)),
+                   *((lib.xclip_attention_bwd_blocks(1, mode, w, d, 0),
+                      lib.xclip_attention_bwd_blocks(1, mode, w, d, 1))
+                     for w in (0, 1))]
+            print(f"  bf16 {name} at heads of {d}, blocks (warps) an SM: "
+                  + ", ".join(f"{k} {nb} ({nw})" for k, (nb, nw) in
+                              zip(("forward", "dq", "dk/dv"), res)),
+                  flush=True)
+            if any(nb < 1 for nb, _ in res):
+                fail(f"bf16 {name} at heads of {d}: blocks an SM {res}")
+        hd, scale = heads * d, d ** -0.5
+        for fam, n, causal in (("mega", 257, False), ("k6", 256, True)):
+            lengths = torch.randint(1, n + 1, (b,), generator=tgen,
+                                    device="cuda").tolist()
+            mask = key_mask(lengths, n)
+            qkv = rand(tgen, b, n, 3 * hd, dtype=BF16)
+            static = (heads, d, scale, causal, True)
+            if fam == "mega":
+                fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+                fwd_plain = mega.mega_core_fwd_plain
+                bwd_plain = mega.mega_core_bwd_plain
+                cot, names = rand(tgen, b, n, hd), ("attnout", "sm")
+            else:
+                fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+                fwd_plain = core.attention_core_fwd_plain
+                bwd_plain = core.attention_core_bwd_plain
+                cot, names = rand(tgen, b, n, hd, dtype=BF16), ("out", "lse")
+            label = (f"{fam} bf16 ({b}, {n}, 3x{hd}) {heads}x{d} "
+                     f"{'causal ' if causal else ''}key-pad")
+            want = fwd_plain(qkv, mask, *static)
+            e_fwd = compare_elementwise(label, names, fwd(qkv, mask, *static),
+                                        want, BF16)
+            bargs = ((qkv, mask, cot, *want) if fam == "mega"
+                     else (qkv, mask, *want, cot))
+            got = bwd(*bargs, *static)
+            if not torch.equal(got, bwd(*bargs, *static)):
+                fail(f"{label}: two backward launches differ")
+            e_bwd = compare_elementwise(label, ("dqkv",), (got,),
+                                        (bwd_plain(*bargs, *static),), BF16)
+            del got
+            q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(
+                b, n, heads, d).transpose(1, 2) for i in range(3))
+            sdpa = sdpa_ms(q, k, v, mask, causal, scale,
+                           cot.to(BF16).reshape(b, n, heads, d)
+                           .transpose(1, 2))
+            pairs = heads * valid_pairs(lengths, n, causal)
+            keys = heads * used_keys(lengths, n)
+            cost = mega_core_cost if fam == "mega" else core_cost
+            for kind, e, fn, plain in (
+                    ("fwd", e_fwd, lambda: fwd(qkv, mask, *static),
+                     lambda: fwd_plain(qkv, mask, *static)),
+                    ("bwd", e_bwd, lambda: bwd(*bargs, *static),
+                     lambda: bwd_plain(*bargs, *static))):
+                key = f"{fam}_{d}_{kind}"
+                errs[key] = e
+                ms[key] = (cuda_ms(fn), cuda_ms(plain, reps=3, iters=1))
+                costs[key] = cost(kind, b * n * heads, keys, pairs, b * n,
+                                  2, width=d)
+                library[key] = sdpa[0 if kind == "fwd" else 1]
+            del qkv, cot, want, bargs, q, k, v
+            torch.cuda.empty_cache()
+        # K7 at (b*h 512, n 256, d), causal with key pads
+        bh, n, h = 512, 256, 8
+        lengths = [n // 2 + (37 * i) % (n // 2 + 1) for i in range(bh // h)]
+        per_row = [L for L in lengths for _ in range(h)]
+        mask_bh = key_mask(per_row, n)
+        q, k, v, do = (rand(tgen, bh, n, d, scale=d ** -0.25 if i < 2
+                            else 1.0, dtype=BF16) for i in range(4))
+        label = f"K7 bf16 (b*h {bh}, n {n}, {d}) causal key-pad"
+        want = flash.flash_attention_fwd_plain(q, k, v, mask_bh, True)
+        e_fwd = compare_elementwise(label, ("out", "lse"),
+                                    flash.flash_attention_fwd(q, k, v,
+                                                              mask_bh, True),
+                                    want, BF16)
+        bwd_args = (q, k, v, mask_bh, *want, do, True)
+        got = flash.flash_attention_bwd(*bwd_args)
+        if not all(map(torch.equal, got, flash.flash_attention_bwd(
+                *bwd_args))):
+            fail(f"{label}: two backward launches differ")
+        e_bwd = compare_elementwise(label, ("dq", "dk", "dv"), got,
+                                    flash.flash_attention_bwd_plain(
+                                        *bwd_args), BF16)
+        del got
+        b4 = [t.reshape(bh // h, h, n, d) for t in (q, k, v, do)]
+        sdpa = sdpa_ms(*b4[:3], key_mask(lengths, n), True, 1.0, b4[3])
+        for kind, e, fn, plain in (
+                ("fwd", e_fwd,
+                 lambda: flash.flash_attention_fwd(q, k, v, mask_bh, True),
+                 lambda: flash.flash_attention_fwd_plain(q, k, v, mask_bh,
+                                                         True)),
+                ("bwd", e_bwd, lambda: flash.flash_attention_bwd(*bwd_args),
+                 lambda: flash.flash_attention_bwd_plain(*bwd_args))):
+            key = f"k7_{d}_{kind}"
+            errs[key] = e
+            ms[key] = (cuda_ms(fn), cuda_ms(plain, reps=3, iters=1))
+            costs[key] = flash_cost(kind, bh, n, per_row, True, width=d)
+            library[key] = sdpa[0 if kind == "fwd" else 1]
+        del q, k, v, do, want, bwd_args, b4
+        torch.cuda.empty_cache()
+    for key in sorted(ms):
+        b_ms, b_by = bound(*costs[key])
+        kms, sdpa = ms[key][0], library[key]
+        print(f"  {key} bf16: kernel {kms:.4f} ms ({kms / sdpa:.2f}x sdpa),"
+              f" plain {ms[key][1]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"sdpa {sdpa:.4f} ms", flush=True)
+    return errs, ms, costs, library
+
+
+def flagship_wide_heads(CLIP, default_optimizer, make_train_step, counters):
+    """Phase 21's full-width case: the flagship (dim 512, 6 + 6 layers, 256
+    tokens) with its 512 head columns as 2 x 256 in both towers, bf16, on
+    the megablock ('fused' in both towers) and the stored FF block, at b =
+    256: served once (K-MEGA and K-FF every layer, finite latents) and one
+    train step (K2 and K1 every layer, the loss within 0.5 of ln 256), no
+    pad_heads call → a line."""
+    b = 256
+    gen = torch.Generator(device="cuda").manual_seed(213)
+    text, images = texts(gen, b), rand(gen, b, 3, 256, 256, dtype=BF16)
+    cfg = {**FLAGSHIP, "text_heads": 2, "text_dim_head": 256,
+           "visual_heads": 2, "visual_dim_head": 256}
+    model = CLIP(**cfg, **_FUSED, param_dtype=BF16, compute_dtype="bfloat16",
+                 device="cuda", seed=213)
+    depth = cfg["text_enc_depth"] + cfg["visual_enc_depth"]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        latents = model(text, images, return_latents=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    served = {k: v for k, v in read_counts(counters).items() if v}
+    if served != {"mega": depth, "kff": depth}:
+        fail(f"flagship 2 x 256: serving launches {served}")
+    if not all(t.shape == (b, 512) and torch.isfinite(t).all()
+               for t in latents):
+        fail("flagship 2 x 256: latents are not finite (b, 512)")
+    step = make_train_step(model, default_optimizer(model.parameters(),
+                                                    learning_rate=1e-4))
+    step_ms, counts, peak, losses = timed_steps(
+        lambda i: step(text, images, generator=torch.Generator(
+            device="cuda").manual_seed(214)), 0, 1, counters)
+    trained = {k: v for k, v in counts.items() if v}
+    want = {k: depth for k in ("k2_fwd", "k2_bwd", "k1_fwd", "k1_p1",
+                               "k1_p2")}
+    if trained != want:
+        fail(f"flagship 2 x 256: train-step launches {trained}, expected "
+             f"{want}")
+    check_losses("flagship 2 x 256", losses, b)
+    del model, step
+    torch.cuda.empty_cache()
+    line = (f"flagship 2 x 256 (b {b}): served once in {serve_s * 1e3:.1f} "
+            f"ms, one step {step_ms:.1f} ms ({b * 1e3 / step_ms:.1f} pairs/s,"
+            f" the first, with its set-up), peak {peak:.2f} GiB, loss "
+            f"{losses[0].item():.4f}, K2 and K1 {depth} a step")
+    print(f"  {line}", flush=True)
+    return line
+
+
+def check_pads(label, widths, pads):
+    """Fail unless phase 21's case `label` called `pad_heads` as
+    PADDED_HEADS says: never where its heads run as they are; where they
+    are padded, at their dim_head only, twice (w_qkv, w_out) for each
+    megablock forward, none of which ran at the unpadded width → words
+    for the case's line."""
+    if label not in PADDED_HEADS:
+        if pads:
+            fail(f"{label}: pad_heads ran at dim_head {sorted(set(pads))}, "
+                 "a width its kernels take as it is")
+        return "no pad_heads call"
+    d, width = PADDED_HEADS[label]
+    forwards = widths[("mega", "fwd", width)]
+    if (set(pads) != {d} or len(pads) != 2 * forwards
+            or any(w == d for *_, w in widths)):
+        fail(f"{label}: pad_heads ran {len(pads)} times at dim_head "
+             f"{sorted(set(pads))} for {forwards} megablock forwards at "
+             f"{width}, launches by width {dict(widths)}")
+    return (f"pad_heads {len(pads)} times, {d} to {width}, 2 a megablock "
+            "forward")
+
+
 def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
-    """Phase 21: heads of 32, 80 and 128 (NARROW_HEADS) served and trained
-    on the card through the entry points, every layer on its kernel and no
-    fallback warning; latents and the first loss
-    against the plain routes' on the same weights and inputs (phase 4's
-    and phase 11's tolerances); the wrappers alone at dim_head 32; the
-    128-wide kernels alone (`wide_kernels`); and the shapes past the CUDA
-    kernels (PAST_KERNELS) raising at the entry point. Returns
-    (wide_kernels' results, {case: launches of each counter and the
-    megablock core's over its serving and train step})."""
+    """Phase 21: heads of 32, 80, 128, 192 and 256 (NARROW_HEADS) served
+    and trained on the card through the entry points, every layer on its
+    kernel, no fallback warning and no `pad_heads` call where the case's
+    heads are a width its kernels take as they are (the one case that
+    pads, 2 heads of 80 to 96, calls it as `check_pads` says); latents and
+    the first
+    loss against the plain routes' on the same weights and inputs (phase
+    4's and phase 11's tolerances); the wrappers alone at dim_head 32; the
+    128-wide kernels alone (`wide_kernels`), the 192- and 256-wide ones
+    (`true_width_kernels`) and the flagship with 2 x 256 heads
+    (`flagship_wide_heads`); and the shapes past the CUDA kernels
+    (PAST_KERNELS) raising at the entry point. Returns (wide_kernels'
+    results, {case: launches of each counter and the megablock core's over
+    its serving and train step}, true_width_kernels' results, {case:
+    launches by (family, kind, head width)})."""
     from xclip_tpu_torch.kernels import attention_megablock as mega
     bf16 = torch.bfloat16
     lines = narrow_wrappers()
     wide = wide_kernels()
+    true_width = true_width_kernels()
     cores = {"core_fwd": mega.mega_core_fwd, "core_bwd": mega.mega_core_bwd}
     every = {**counters, **cores}
-    case_launches = {}
+    lines.append(flagship_wide_heads(CLIP, default_optimizer,
+                                     make_train_step, counters))
+    case_launches, case_widths = {}, {}
+    widths, pads = collections.Counter(), []
     for label, extra, routes, want_serve, want_train, dt in NARROW_HEADS:
+        widths.clear()
+        pads.clear()
         tol = LATENT_TOL[dt]
         gen = torch.Generator(device="cuda").manual_seed(21)
         text = texts(gen, 4, seq=32, vocab=1000)
@@ -3474,12 +3797,15 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
                      compute_dtype=compute, device="cuda")
         plain.load_state_dict(model.state_dict())
         zero_counts(every)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            with torch.no_grad():
-                latents = model(text, images, return_latents=True)
-        torch.cuda.synchronize()
-        serve_counts = read_counts(every)
+        with contextlib.ExitStack() as spies:
+            for spy in width_spies(widths, pads):
+                spies.enter_context(spy)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with torch.no_grad():
+                    latents = model(text, images, return_latents=True)
+            torch.cuda.synchronize()
+            serve_counts = read_counts(every)
         served = {k: v for k, v in serve_counts.items()
                   if v and k not in cores}
         fallbacks = [str(w.message) for w in caught
@@ -3500,16 +3826,22 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
             step = make_train_step(m, default_optimizer(m.parameters(),
                                                         learning_rate=1e-4))
             zero_counts(every)
-            # the same patch-dropout draw on both routes
-            losses.append(step(text, images, generator=torch.Generator(
-                device="cuda").manual_seed(22))["loss"].float().item())
-            torch.cuda.synchronize()
+            with contextlib.ExitStack() as spies:
+                if m is model:
+                    for spy in width_spies(widths, pads):
+                        spies.enter_context(spy)
+                # the same patch-dropout draw on both routes
+                losses.append(step(text, images, generator=torch.Generator(
+                    device="cuda").manual_seed(22))["loss"].float().item())
+                torch.cuda.synchronize()
             if m is model:
                 train_counts = read_counts(every)
                 trained = {k: v for k, v in train_counts.items()
                            if v and k not in cores}
         case_launches[label] = {k: serve_counts[k] + train_counts[k]
                                 for k in every}
+        case_widths[label] = dict(widths)
+        padded = check_pads(label, widths, pads)
         if trained != want_train:
             fail(f"{label}: train-step launches {trained}, expected "
                  f"{want_train}")
@@ -3522,19 +3854,22 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
         print(f"  {label}: serving launches {served}, train-step launches "
               f"{trained} (megablock core "
               f"{case_launches[label]['core_fwd']} / "
-              f"{case_launches[label]['core_bwd']}); latents vs plain routes "
-              f"{worst:.3e} (tol {tol:.0e}); first loss {losses[0]:.4f}, "
-              f"plain routes {losses[1]:.4f} (tol 0.05)", flush=True)
+              f"{case_launches[label]['core_bwd']}; by width "
+              f"{ {k: v for k, v in sorted(widths.items())} }); {padded}; "
+              f"latents vs plain routes {worst:.3e} (tol {tol:.0e}); "
+              f"first loss {losses[0]:.4f}, plain routes {losses[1]:.4f} "
+              "(tol 0.05)", flush=True)
         del model, plain, step
         torch.cuda.empty_cache()
-    for label, extra, routes, words in PAST_KERNELS:
+    for label, extra, routes, words, dt in PAST_KERNELS:
         gen = torch.Generator(device="cuda").manual_seed(21)
-        model = CLIP(**{**HEADS_BASE, **extra}, **routes, param_dtype=bf16,
-                     compute_dtype="bfloat16", device="cuda", seed=21)
+        model = CLIP(**{**HEADS_BASE, **extra}, **routes, param_dtype=dt,
+                     compute_dtype="bfloat16" if dt == bf16 else None,
+                     device="cuda", seed=21)
         try:
             with torch.no_grad():
                 model(texts(gen, 4, seq=32, vocab=1000),
-                      rand(gen, 4, 3, 64, 64, dtype=bf16),
+                      rand(gen, 4, 3, 64, 64, dtype=dt),
                       return_latents=True)
         except ValueError as e:
             if words not in str(e):
@@ -3544,11 +3879,16 @@ def narrow_heads(card, CLIP, default_optimizer, make_train_step, counters):
         else:
             fail(f"{label}: served past the CUDA kernels' limit")
         del model
-    phase(21, "heads", f"{card}: heads of 32 (padded to 64), 80 (padded "
-          "to 128) and 128 on the kernels in both dtypes, the 128-wide "
-          "kernels against their plain versions; shapes past them raise: "
-          + "; ".join(lines))
-    return wide, case_launches
+    for key, case, *_ in TRUE_WIDTH_KERNELS:
+        fam, d, kind = key.split("_")
+        if not case_widths[case].get((fam, kind, int(d))):
+            fail(f"{case}: no {fam} {kind} launch at heads of {d}")
+    phase(21, "heads", f"{card}: bf16 heads of 32, 80, 192 and 256 at their "
+          "true width and 128 in both dtypes on the kernels, no pad_heads "
+          "call but 2 x 80's to 96; the 128-, 192- and 256-wide kernels "
+          "against their plain "
+          "versions; shapes past them raise: " + "; ".join(lines))
+    return wide, case_launches, true_width, case_widths
 
 
 # phase 22: remat configurations (label, checkpoint_during_training,
@@ -5148,16 +5488,118 @@ VIT_H_ROUTES = dict(attn_impl="fused", visual_attn_impl=None,
                     ff_impl="block_stored")
 
 
-def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega):
+# one run of phase 27's model in a process of its own, from the root of
+# the checkout whose `xclip_tpu_torch` it runs (argv[1]), measured by the
+# `vit_h_turn` of this file (argv[2])
+VIT_H_TURN = """
+import importlib.util, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smoke.vit_h_turn()
+"""
+
+
+def vit_h_turn():
+    """One run of phase 27's model (VIT_H on its kernel routes, bf16, seed
+    27, b = 64) by the `xclip_tpu_torch` first on sys.path: 1 + 3 served
+    batches (CUDA events over the 3), 1 + 3 AdamW steps (CUDA events over
+    the 3, peak memory over all 4), then one step profiled after a warm-up
+    one: its device busy ms, idle share and device ms by kernel. Prints
+    one JSON line."""
+    from xclip_tpu_torch import CLIP
+    from xclip_tpu_torch.train import default_optimizer, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, b = torch.bfloat16, 64
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    text = texts(gen, b, seq=77, vocab=49408)
+    images = rand(gen, b, 3, 224, 224, dtype=bf16)
+    model = CLIP(**VIT_H, **VIT_H_ROUTES, param_dtype=bf16,
+                 compute_dtype="bfloat16", device="cuda", seed=27)
+    with torch.no_grad():
+        model(text, images, return_latents=True)
+        serve_ms = cuda_ms(lambda: model(text, images, return_latents=True),
+                           reps=1, iters=3)
+    step = make_train_step(model, default_optimizer(model.parameters(),
+                                                    learning_rate=1e-4))
+
+    def run(i):
+        return step(text, images, generator=torch.Generator(
+            device="cuda").manual_seed(270 + i))
+
+    step_ms, _, peak, losses = timed_steps(run, 1, 3, {})
+    (idle, busy, window), (_, kernels) = profile_step(run, 4)
+    print(json.dumps({
+        "serve": b * 1e3 / serve_ms, "train": b * 1e3 / step_ms,
+        "peak": peak, "idle": idle, "busy_ms": busy, "window_ms": window,
+        "loss": losses[0].item(),
+        "kernels": {name: [ms, count] for ms, count, name in kernels}}))
+
+
+def vit_h_turns(parent):
+    """Phase 27's model run by the older checkout at `parent` and by this
+    one in turns, parent, this, this, parent, each run a process of its
+    own (`vit_h_turn`: neither side inherits the other's allocator, and
+    neither always runs first). Prints a line a run, the kernels whose
+    device time a step moved most between the two sides' means, and each
+    side's medians."""
+    sides = {"parent": parent, "this": ROOT}
+    results = {name: [] for name in sides}
+    for turn, name in enumerate(("parent", "this", "this", "parent")):
+        run = subprocess.run(
+            [sys.executable, "-c", VIT_H_TURN, str(sides[name]),
+             str(Path(__file__).resolve())], cwd=sides[name],
+            capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            fail(f"phase 27's {name} run exited {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        r = json.loads(run.stdout.strip().splitlines()[-1])
+        results[name].append(r)
+        print(f"  turn {turn} {name:6s}: serving {r['serve']:.1f} pairs/s, "
+              f"training {r['train']:.1f} pairs/s, peak {r['peak']:.2f} GiB,"
+              f" profiled step busy {r['busy_ms']:.2f} of "
+              f"{r['window_ms']:.2f} ms (idle {r['idle']:.4f}), first loss "
+              f"{r['loss']:.4f}", flush=True)
+    means = {name: collections.Counter() for name in sides}
+    for name, runs in results.items():
+        for r in runs:
+            for kernel, (ms, _) in r["kernels"].items():
+                means[name][kernel] += ms / len(runs)
+    moved = sorted(set(means["parent"]) | set(means["this"]),
+                   key=lambda k: -abs(means["this"][k] - means["parent"][k]))
+    for kernel in moved[:12]:
+        p, t = means["parent"][kernel], means["this"][kernel]
+        print(f"  {t - p:+8.2f} ms a step: {kernel[:110]} (parent {p:.2f}, "
+              f"this {t:.2f})", flush=True)
+    for name, runs in results.items():
+        print(f"  median {name}: serving "
+              f"{statistics.median(r['serve'] for r in runs):.1f} pairs/s, "
+              f"training {statistics.median(r['train'] for r in runs):.1f} "
+              f"pairs/s, peak {statistics.median(r['peak'] for r in runs):.2f}"
+              f" GiB, device busy "
+              f"{statistics.median(r['busy_ms'] for r in runs):.2f} ms a step",
+              flush=True)
+
+
+def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega,
+          parent=None):
     """Phase 27: the ViT-H/14-width CLIP (VIT_H), bf16, seed 27, served and
     trained at full depth (32 + 24 layers) on the kernel routes at b = 64:
     serving (a warm-up, then 3 timed forwards to latents) with every
-    layer's K-MEGA and K-FF launched (the vision tower's K-MEGA at heads
-    of 128), pairs/s; at b = 4 the latents against the plain routes' on
-    the same weights (bf16 3e-2, as phase 21); then 1 warm-up and 3 timed
-    AdamW steps of K2 and K1 (stored): pairs/s, peak memory, finite
-    losses, the first within 0.5 of ln 64, launches per step; no fallback
-    warning anywhere."""
+    layer's K-MEGA and K-FF launched (the vision tower's K-MEGA at its
+    heads' true width of 80, qkv 3,840 columns, with no pad_heads call),
+    pairs/s; at b = 4 the latents against the plain routes' on the same
+    weights (bf16 3e-2, as phase 21); then 1 warm-up and 3 timed AdamW
+    steps of K2 and K1 (stored): pairs/s, peak memory, finite losses, the
+    first within 0.5 of ln 64, launches per step; no fallback warning
+    anywhere. With `parent` (an older checkout) the model is first run by
+    both checkouts in turns (`vit_h_turns`)."""
+    from xclip_tpu_torch.kernels._common import kernel_width
+    if parent is not None:
+        torch.cuda.empty_cache()
+        vit_h_turns(parent)
     bf16, b = torch.bfloat16, 64
     depth = VIT_H["visual_enc_depth"] + VIT_H["text_enc_depth"]
     counters = {"mega": mega.attention_block, "kff": ffb.ff_block,
@@ -5176,14 +5618,22 @@ def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params = sum(t.numel() for t in model.parameters())
-    hd_pad = VIT_H["visual_heads"] * 128
+    width = kernel_width(VIT_H["visual_dim_head"], bf16,
+                         VIT_H["visual_heads"])
+    if width != VIT_H["visual_dim_head"]:
+        fail(f"ViT-H vision heads of 80 run at {width}")
     print(f"  ViT-H/14 widths: {params:,} parameters (built in {init_s:.1f} "
           f"s); depths {VIT_H['visual_enc_depth']} + "
           f"{VIT_H['text_enc_depth']}; FF the repo's GEGLU at 4x (inner "
-          f"5,120 / 4,096), not OpenCLIP's GELU MLP; vision heads of 80 "
-          f"zero-padded to 128: qkv {3 * hd_pad:,} columns in place of "
-          f"{3 * VIT_H['visual_heads'] * 80:,}", flush=True)
-    with warnings.catch_warnings(record=True) as caught:
+          f"5,120 / 4,096), not OpenCLIP's GELU MLP; vision heads of 80 at "
+          f"their true width: the megablock's qkv product "
+          f"{3 * VIT_H['visual_heads'] * width:,} columns, its out product "
+          f"{VIT_H['visual_heads'] * width:,} rows", flush=True)
+    widths, pads = collections.Counter(), []
+    with contextlib.ExitStack() as spies, \
+            warnings.catch_warnings(record=True) as caught:
+        for spy in width_spies(widths, pads):
+            spies.enter_context(spy)
         warnings.simplefilter("always")
         with torch.no_grad():
             model(text, images, return_latents=True)
@@ -5234,6 +5684,10 @@ def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega):
                  if "falling back to the XLA path" in str(w.message)]
     if fallbacks:
         fail(f"ViT-H: fallback warnings {fallbacks}")
+    if pads:
+        fail(f"ViT-H: pad_heads ran at dim_head {sorted(set(pads))}")
+    if not widths[("mega", "fwd", 80)]:
+        fail(f"ViT-H: no megablock launch at heads of 80: {dict(widths)}")
     check_losses("ViT-H train", losses, b)
     per_step = {k: v / (warm + timed) for k, v in counts.items()}
     want = {k: 0 for k in counters}
@@ -5253,7 +5707,7 @@ def vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega):
     del model, step
     torch.cuda.empty_cache()
     phase(27, "vit-h", f"{card}: ViT-H/14-width CLIP (vision 1280, 16 x 80 "
-          f"padded to 128, 257 tokens; text 1024, 16 x 64, 77 tokens), "
+          f"at the true width, 257 tokens; text 1024, 16 x 64, 77 tokens), "
           f"{VIT_H['visual_enc_depth']} + {VIT_H['text_enc_depth']} layers, "
           f"bf16: serving b={b} {b * 1e3 / serve_ms:.1f} pairs/s (K-MEGA and "
           f"K-FF every layer), latents vs plain {worst:.2e}; training b={b} "
@@ -5600,7 +6054,7 @@ def main(argv):
     sum_errs, sum_ms, sum_costs, sum_library = reduce_phase(gen, step_rows)
 
     # --------------------------------------------------------------- 21
-    wide, wide_launches = narrow_heads(
+    wide, wide_launches, true_width, width_launches = narrow_heads(
         card, CLIP, default_optimizer, make_train_step, {
         "mega": mega.attention_block, "kff": ffb.ff_block,
         "k2_fwd": mega.attention_block_fwd_stored,
@@ -5632,7 +6086,7 @@ def main(argv):
                     mega, stored)
 
     # --------------------------------------------------------------- 27
-    vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega)
+    vit_h(card, CLIP, default_optimizer, make_train_step, ffb, mega, parent)
 
     # --------------------------------------------------------------- 28
     examples_phase(card, ffb, mega, lse5)
@@ -5766,6 +6220,16 @@ def main(argv):
         record["kernels"].append(entry(
             name, source, replaces, wide_launches[case][counter], w_errs[key],
             w_ms[key], w_costs[key], w_peaks[key], w_library[key]))
+    # the 192- and 256-wide bf16 kernels: launches at their width from
+    # phase 21's case (its serving and train step), times at phase 21's
+    # text shapes beside SDPA in bf16
+    t_errs, t_ms, t_costs, t_library = true_width
+    for key, case, name, source, replaces in TRUE_WIDTH_KERNELS:
+        fam, d, kind = key.split("_")
+        record["kernels"].append(entry(
+            name, source, replaces,
+            width_launches[case].get((fam, kind, int(d)), 0), t_errs[key],
+            t_ms[key], t_costs[key], BF16_PEAK, t_library[key]))
     # no time under the least the card could take: one below its bound was
     # read from a cache the bound does not count
     for k in record["kernels"]:

@@ -517,12 +517,13 @@ def test_lean_backwards_are_deterministic(cuda_device):
 
 # ------------------------------------------ rotary text tower: K6 and K7
 
-def _assert_elementwise(got, want, dtype, names):
+def _assert_elementwise(got, want, dtype, names, width=64):
     """K6, K7 and the megablock's core element by element: fp32 outputs
     and every fp32 statistic (lse; the megablock's m and l) within 1e-4 of
     the tensor's largest magnitude; bf16
     outputs within two bf16 ulps of the element plus 3e-2 of the RMS of
-    its head row (64 features) plus 1e-2 of the tensor's RMS (a flipped
+    its head row (`width` features, 64 unless a test names its head's
+    width) plus 1e-2 of the tensor's RMS (a flipped
     bf16 rounding of a p or ds term moves a sum by up to 2^-7 of that
     term, as large as the row where few keys are valid); every output
     within 1e-3 relative Frobenius error."""
@@ -534,7 +535,7 @@ def _assert_elementwise(got, want, dtype, names):
         if dtype == "float32" or fp32:
             tol = 1e-4 * max(1.0, float(w.abs().max()))
         else:
-            rows = w.reshape(-1, 64)
+            rows = w.reshape(-1, width)
             ulp = torch.exp2(torch.floor(torch.log2(
                 rows.abs().clamp_min(2.0 ** -126))) - 7)
             tol = (2 * ulp + 3e-2 * rows.pow(2).mean(-1, keepdim=True).sqrt()
@@ -706,9 +707,10 @@ def test_flash_attention_kernels_at_head_width_128(cuda_device, causal,
 
 @pytest.mark.cuda
 def test_flash_attention_raises_past_its_head_widths(cuda_device):
-    """K7 takes heads of 64 and 128 in both dtypes; `flash_attention` pads
-    a narrower head to one of those and raises past the widest."""
-    for dtype, d in ((torch.float32, 160), (torch.bfloat16, 256)):
+    """K7 takes bf16 heads at their true width up to 256 and fp32 heads of
+    64 and 128; `flash_attention` pads another head to its kernel width
+    and raises past the widest."""
+    for dtype, d in ((torch.float32, 192), (torch.bfloat16, 264)):
         q = torch.zeros(1, 1, 64, d, dtype=dtype, device=cuda_device)
         with pytest.raises(ValueError, match=f"not {d}"):
             flash.flash_attention(q, q, q)
@@ -1648,12 +1650,21 @@ NARROW_CLIPS = [  # (CLIP kwargs, routes)
                                    ff_impl="block")),
     (dict(text_dim_head=80, visual_dim_head=80),
      dict(attn_impl="fused", ff_impl="block_stored")),
+    (dict(text_dim_head=256, visual_dim_head=192),
+     dict(attn_impl="fused", ff_impl="block_stored")),
+    (dict(text_dim_head=256, text_rotary_pos_emb=True),
+     dict(attn_impl="fused", ff_impl="block_stored")),
+    (dict(text_dim_head=192, visual_dim_head=256),
+     dict(attn_impl="flash", ff_impl="block_stored")),
 ]
-PAST_CLIPS = [  # (CLIP kwargs, routes, the limit's words)
-    (dict(text_dim_head=256), dict(attn_impl="fused_recompute",
-                                   ff_impl="block"), "not 256"),
+PAST_CLIPS = [  # (CLIP kwargs, routes, the limit's words, dtype)
+    (dict(text_dim_head=264), dict(attn_impl="fused_recompute",
+                                   ff_impl="block"), "not 264",
+     torch.bfloat16),
+    (dict(text_dim_head=192), dict(attn_impl="fused", ff_impl="block"),
+     "not 192", torch.float32),
     (dict(dim_text=72, text_heads=2), dict(ff_impl="block"),
-     "not dim 72, inner 288"),
+     "not dim 72, inner 288", torch.bfloat16),
 ]
 SMALL_CLIP = dict(dim_text=128, dim_image=128, dim_latent=64,
                   num_text_tokens=1000, text_enc_depth=2, text_seq_len=32,
@@ -1672,12 +1683,12 @@ def _small_inputs(device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,routes", NARROW_CLIPS)
 def test_clip_with_narrow_heads_runs_the_kernels(cuda_device, extra, routes):
-    """A small CLIP whose text heads are 32 wide (zero-padded to 64), 96 or
-    128 wide (the kernels take 128 as two 64-column halves), or whose heads
-    are 80 wide in both towers (zero-padded to 128) serves and trains on
-    the card through its kernels, with no fallback warning, and its latents
-    and loss match the plain routes' (bf16: latents 3e-2, the first loss
-    0.05)."""
+    """A small CLIP whose text heads are 32, 96, 128 or 256 wide, or whose
+    heads are 80, 192 or 256 wide in a tower (the bf16 kernels take each at
+    its true width, as ⌈d / 64⌉ 64-column halves) serves and trains on the
+    card through its kernels (the megablock, K6 with rotary, K7), with no
+    fallback warning, and its latents and loss match the plain routes'
+    (bf16: latents 3e-2, the first loss 0.05)."""
     import warnings
     import xclip_tpu_torch
     from xclip_tpu_torch.train import default_optimizer, make_train_step
@@ -1711,16 +1722,19 @@ def test_clip_with_narrow_heads_runs_the_kernels(cuda_device, extra, routes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("extra,routes,words", PAST_CLIPS)
-def test_clip_past_the_kernels_raises(cuda_device, extra, routes, words):
-    """Where the CUDA kernels cannot take a shape the JAX package runs,
-    the entry point raises naming the limit; no plain route runs in the
-    kernel's place."""
+@pytest.mark.parametrize("extra,routes,words,dtype", PAST_CLIPS)
+def test_clip_past_the_kernels_raises(cuda_device, extra, routes, words,
+                                      dtype):
+    """Where the CUDA kernels cannot take a shape the JAX package runs
+    (bf16 heads past 256, fp32 heads past 128), the entry point raises
+    naming the limit; no plain route runs in the kernel's place."""
     import xclip_tpu_torch
     text, images = _small_inputs(cuda_device, 5)
-    model = xclip_tpu_torch.CLIP(**{**SMALL_CLIP, **extra}, **routes,
-                                 param_dtype=torch.bfloat16,
-                                 compute_dtype="bfloat16", seed=5)
+    model = xclip_tpu_torch.CLIP(
+        **{**SMALL_CLIP, **extra}, **routes, param_dtype=dtype,
+        compute_dtype="bfloat16" if dtype == torch.bfloat16 else None,
+        seed=5)
+    images = images.to(dtype)
     with pytest.raises(ValueError, match=words):
         with torch.no_grad():
             model(text, images, return_latents=True)
@@ -2285,8 +2299,9 @@ def test_megablock_kernels_at_head_width_128(cuda_device, dtype, mask_kind,
 @pytest.mark.parametrize("dim_head", [80, 104])
 def test_heads_padded_to_128_match_the_unpadded_plain_versions(cuda_device,
                                                                dim_head):
-    """The megablock's, K6's and K7's top-level wrappers run heads of 80
-    (ViT-H/14) and 104 (ViT-bigG/14) zero-padded to 128 on the card, fp32:
+    """The megablock's, K6's and K7's top-level wrappers run fp32 heads of
+    80 (ViT-H/14) and 104 (ViT-bigG/14) zero-padded to 128 on the card (in
+    bf16 they run at the true width: test_bf16_attention_at_true_width):
     outputs and gradients against the plain versions at the true width on
     the CPU (1e-4 of the largest magnitude)."""
     heads, b, n, dim = 2, 2, 45, 128
@@ -2416,3 +2431,131 @@ def test_f32_attention_at_head_width_128_is_deterministic(cuda_device, kind,
                 bwd = core.attention_core_bwd(qkv, mask, *fwd, do, *static)
             runs.append((*fwd, bwd))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ------------------------------------- bf16 heads at their true width
+
+# widths of every half count: one (32), two (72 to 128: the wgmma forward
+# and dq), three (192) and four (256); 72, 80, 88 and 104 end in a partial
+# half whose columns past d the kernels zero-fill in shared memory
+TRUE_WIDTHS = [32, 72, 80, 88, 104, 192, 256]
+TRUE_WIDTH_CASES = [  # (n, causal, mask kind)
+    (70, True, "keypad"), (257, False, "dead"), (200, True, "holes")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k6", "mega", "k7"])
+@pytest.mark.parametrize("d", TRUE_WIDTHS)
+@pytest.mark.parametrize("n,causal,mask_kind", TRUE_WIDTH_CASES)
+def test_bf16_attention_at_true_width(cuda_device, which, d, n, causal,
+                                      mask_kind):
+    """K6, the megablock's core and K7 in bf16 on heads of d columns read
+    at their true strides (no padding), forward and every gradient, with
+    key pads, dead rows, whole masked key tiles and causal masks, against
+    their plain versions element by element (phase 12's rule over the
+    head's d features); the wrappers launch once each."""
+    bf = torch.bfloat16
+    if which == "k7":
+        q, k, v, mask, do = _flash_padded(
+            flash_args(b=3, h=2, n=n, mask_kind=mask_kind, d=d), bf,
+            cuda_device)
+        fwd, bwd = flash.flash_attention_fwd, flash.flash_attention_bwd
+        before = (fwd.launches, bwd.launches)
+        got = fwd(q, k, v, mask, causal)
+        want = flash.flash_attention_fwd_plain(q, k, v, mask, causal)
+        _assert_elementwise(got, want, "bfloat16", ("out", "lse"), d)
+        _assert_elementwise(
+            bwd(q, k, v, mask, *want, do, causal),
+            flash.flash_attention_bwd_plain(q, k, v, mask, *want, do, causal),
+            "bfloat16", ("dq", "dk", "dv"), d)
+        assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+        return
+    heads = 2
+    qkv, mask, do = to_torch(core_args(b=3, n=n, heads=heads,
+                                       mask_kind=mask_kind, dim_head=d),
+                             bf, cuda_device)
+    static = (heads, d, d ** -0.5, causal, True)
+    if which == "mega":
+        fwd, bwd = mega.mega_core_fwd, mega.mega_core_bwd
+        fwd_plain = mega.mega_core_fwd_plain
+        bwd_plain = mega.mega_core_bwd_plain
+        names, cot = ("attnout", "sm"), do.float()
+    else:
+        fwd, bwd = core.attention_core_fwd, core.attention_core_bwd
+        fwd_plain = core.attention_core_fwd_plain
+        bwd_plain = core.attention_core_bwd_plain
+        names, cot = ("out", "lse"), do
+    before = (fwd.launches, bwd.launches)
+    got = fwd(qkv, mask, *static)
+    want = fwd_plain(qkv, mask, *static)
+    _assert_elementwise(got, want, "bfloat16", names, d)
+    bargs = ((qkv, mask, cot, *want) if which == "mega"
+             else (qkv, mask, *want, cot))
+    grads = [bwd(*bargs, *static) for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+    _assert_elementwise((grads[0],), (bwd_plain(*bargs, *static),),
+                        "bfloat16", ("dqkv",), d)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,d", [(4, 80), (8, 72), (2, 192), (1, 256)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_megablock_kernels_at_true_width(cuda_device, heads, d, causal):
+    """K-MEGA, K2 and K3 (both modes) in bf16 on heads of d columns whose
+    heads fill the product kernel's 64-column grid (qkv 3·heads·d columns,
+    out heads·d rows), with dead rows: outputs and every gradient against
+    their plain versions at the same width (two bf16 ulps of each tensor's
+    largest magnitude); `pad_heads` never runs."""
+    bf = torch.bfloat16
+    args = to_torch(mega_args(n=70, dim=128, heads=heads, dim_head=d,
+                              mask_kind="dead"), bf, cuda_device)
+    static = (heads, d, d ** -0.5, causal, True)
+    assert kcommon.kernel_width(d, bf, heads) == d
+    torch.testing.assert_close(
+        mega.attention_block(*args, *static).float(),
+        mega.attention_block_plain(*args, *static).float(), atol=BF16_ATOL,
+        rtol=0)
+    out, stored = mega.attention_block_fwd_stored(*args, *static)
+    want_out, want_stored = mega.attention_block_fwd_stored_plain(*args,
+                                                                  *static)
+    assert stored[0].shape[-1] == 3 * heads * d
+    _assert_all_close((out, *stored), (want_out, *want_stored), "bfloat16",
+                      ("out", "qkv", "attnout", "proj", "sm", "ln_stats"))
+    do = torch.randn(*out.shape, device=cuda_device).to(bf)
+    _assert_all_close(
+        mega.attention_block_bwd(*args, do, want_stored, *static),
+        mega.attention_block_bwd_plain(*args, do, want_stored, *static),
+        "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out", "dqkv"))
+    for keep_qkv in (False, True):
+        got = mega.attention_block_fwd_stats(*args, *static, keep_qkv)
+        want = mega.attention_block_fwd_stats_plain(*args, *static, keep_qkv)
+        names = ("out", "sm", "ln_stats", "qkv")[:3 + keep_qkv]
+        _assert_all_close(got[:len(names)], want[:len(names)], "bfloat16",
+                          names)
+        _, sm, ln_stats, qkv = want
+        _assert_all_close(
+            mega.attention_block_bwd_recompute(*args, do, sm, ln_stats,
+                                               *static, qkv=qkv),
+            mega.attention_block_bwd_recompute_plain(*args, do, sm, ln_stats,
+                                                     *static, qkv=qkv),
+            "bfloat16", ("dx", "dg_pre", "dw_qkv", "dw_out", "dg_out"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+def test_bf16_attention_kernels_at_three_and_four_halves_fit(cuda_device, d):
+    """The bf16 forward, dq and dk/dv kernels at three and four 64-column
+    halves launch as configured, K6's and the megablock's: one block an SM
+    each (the dk/dv kernel two groups of four warps, 8 warps)."""
+    lib = flash._build.library()
+    got = {}
+    for mode, kind in ((0, "mega"), (1, "k6")):
+        got[kind, "fwd"] = (lib.xclip_attention_fwd_blocks(1, mode, d, 0),
+                            lib.xclip_attention_fwd_blocks(1, mode, d, 1))
+        for which, name in ((0, "dq"), (1, "dkv")):
+            got[kind, name] = tuple(
+                lib.xclip_attention_bwd_blocks(1, mode, which, d, w)
+                for w in (0, 1))
+    want = {key: (1, 8 if key[1] == "dkv" else 4) for key in got}
+    assert got == want, got

@@ -11,7 +11,8 @@ plain version. `nn.layers.transformer_routes` decides it from the shapes
 alone, so it is held here without a card, and so are the wrappers'
 predicates (the library's attention length limits stood in for).
 
-Then what the wider shapes run, on the CPU: the kernels take heads of 64
+Then what the wider shapes run, on the CPU: the bf16 kernels take a head
+at its true width (any multiple of 8 up to 256), the fp32 ones heads of 64
 and 128, and a head narrower than one of those runs zero-padded to it
 (`attention_megablock.pad_heads`), held to the unpadded plain versions;
 and the stack at head widths 32 and 128
@@ -34,6 +35,7 @@ from xclip_tpu.kernels import fused_ff_block as jffb
 from xclip_tpu.nn import layers as jlayers
 from xclip_tpu_torch.convert import load_jax_params, numpy_params, to_jax_tree
 from xclip_tpu_torch.kernels import attention_block as k6
+from xclip_tpu_torch.kernels._common import kernel_width
 from xclip_tpu_torch.kernels import attention_megablock as mega
 from xclip_tpu_torch.kernels import flash_attention as flash
 from xclip_tpu_torch.kernels import fused_ff as k8
@@ -68,18 +70,25 @@ def limits(monkeypatch):
     monkeypatch.setattr(mega._build, "library", _Limits)
 
 
+def _head_limit(dtype):
+    """The widest head the CUDA attention kernels take in `dtype`."""
+    return 256 if dtype == BF16 else 128
+
+
 def _cuda_takes_attention(dim, dim_head, n, dtype, training):
     """The CUDA attention wrappers' limits, as documented: dim_head up to
-    128 (64 and 128, narrower heads zero-padded to the next of those), a
-    block width on the 64 grid up to 8192 (None: no block), n up to 2048 in
-    both dtypes, with a backward too."""
-    return (dim_head <= 128 and n <= 2048 and (
+    256 in bf16 (at the true width, or the next multiple of 8 whose heads
+    fill the 64-column grid) and 128 in fp32 (64 and 128, narrower heads
+    zero-padded to the next of those), a block width on the 64 grid up to
+    8192 (None: no block), n up to 2048 in both dtypes, with a backward
+    too."""
+    return (dim_head <= _head_limit(dtype) and n <= 2048 and (
         dim is None or (dim % 64 == 0 and dim <= MAX_WIDTH)))
 
 
-def _kernel_dim_head(dim_head):
+def _kernel_dim_head(dim_head, dtype, heads=None):
     """The head width the top-level wrappers hand the kernels."""
-    return mega.padded_width(dim_head)
+    return kernel_width(dim_head, dtype, heads)
 
 
 def _message(warn, requested, reason):
@@ -152,8 +161,8 @@ def test_megablock_route_holds_to_jax(limits, attn_impl, dim, heads,
     port runs its megablock, with no warning, whatever the shape (JAX's
     VMEM gate is a TPU artefact the port does not copy: ViT-H/14's and
     ViT-bigG/14's towers run it too); on the card its wrappers take a head
-    up to 128 wide (padded to 64 or 128), and raise past the CUDA limits
-    instead of giving way."""
+    up to 256 wide in bf16 (at its true width) and 128 in fp32 (padded to
+    64 or 128), and raise past the CUDA limits instead of giving way."""
     n_pad = (n + 127) // 128 * 128
     jax_kernel = (jmega.supported(heads, dim_head, dim, n_pad, JDT[dtype])
                   or jab.supported(heads, dim_head))
@@ -162,13 +171,14 @@ def test_megablock_route_holds_to_jax(limits, attn_impl, dim, heads,
         warnings.simplefilter("error")
         assert _routes(attn_impl=attn_impl, ff_impl="xla", dim=dim,
                        heads=heads, dim_head=dim_head) == ("mega", "xla", [])
-    reason = mega.why_not(dim, heads, _kernel_dim_head(dim_head), n, dtype,
-                          training)
+    reason = mega.why_not(dim, heads, _kernel_dim_head(dim_head, dtype, heads),
+                          n, dtype, training)
     assert (reason is None) == _cuda_takes_attention(dim, dim_head, n, dtype,
                                                      training)
     if reason:
-        assert ("dim_head" in reason) == (dim_head > 128)
-        assert ("exceeds" in reason) == (dim_head <= 128 and dim % 64 == 0)
+        limit = _head_limit(dtype)
+        assert ("dim_head" in reason) == (dim_head > limit)
+        assert ("exceeds" in reason) == (dim_head <= limit and dim % 64 == 0)
 
 
 K6_CASES = [  # (heads, dim_head, n, dtype, training)
@@ -199,8 +209,8 @@ def test_k6_route_holds_to_jax(limits, attn_impl, heads, dim_head, n, dtype,
         assert fallbacks == []
     for fallback in fallbacks:
         _same_words(fallback)
-    reason = mega.why_not(None, heads, _kernel_dim_head(dim_head), n, dtype,
-                          training)
+    reason = mega.why_not(None, heads, _kernel_dim_head(dim_head, dtype), n,
+                          dtype, training)
     assert (reason is None) == _cuda_takes_attention(None, dim_head, n, dtype,
                                                      training)
 
@@ -210,18 +220,19 @@ def test_k6_route_holds_to_jax(limits, attn_impl, heads, dim_head, n, dtype,
 def test_flash_route_holds_to_jax(dim_head, n):
     """JAX's K7 takes any head width and pads any length, and the port
     routes 'flash' to K7 at every shape; its wrapper on the card takes
-    heads up to 128 at any length in both dtypes (narrower heads
-    zero-padded to 64 or 128)."""
+    heads at any length, in bf16 at their true width up to 256, in fp32 up
+    to 128 (narrower heads zero-padded to 64 or 128)."""
     for rotary in (False, True):
         attn, _, fallbacks = _routes(attn_impl="flash", dim_head=dim_head,
                                      rotary=rotary)
         assert (attn, fallbacks) == ("flash", [])
-    width = flash.padded_width(dim_head)
-    assert width == (64 if dim_head <= 64 else
-                     128 if dim_head <= 128 else dim_head)
     for dt in (BF16, F32):
+        width = kernel_width(dim_head, dt)
+        assert width == (dim_head if dt == BF16 else
+                         64 if dim_head <= 64 else
+                         128 if dim_head <= 128 else dim_head)
         reason = flash.why_not(width, dt)
-        assert (reason is None) == (dim_head <= 128)
+        assert (reason is None) == (dim_head <= _head_limit(dt))
         if reason:
             assert "dim_head 64" in reason and f"not {dim_head}" in reason
 

@@ -1,11 +1,13 @@
 """Heads wider than 64 in the port's attention kernels against the JAX
 package, on the CPU.
 
-The kernels take heads of 64 and 128 (two 64-column halves); the
-top-level wrappers zero-pad a head of 65 to 127 columns to 128
-(`attention_megablock.pad_heads`), so ViT-H/14's 80 runs at 128. Here the
-wrappers run their plain versions (the padding included), held to JAX's
-Pallas bodies in interpret mode on the same numpy-seeded inputs, fp32:
+The fp32 kernels take heads of 64 and 128 (two 64-column halves); the
+top-level wrappers zero-pad an fp32 head of 65 to 127 columns to 128
+(`attention_megablock.pad_heads`, `_common.kernel_width`), so fp32's 80
+runs at 128 (bf16 runs it at its true width:
+`tests/test_torch_head_widths.py`). Here the wrappers run their plain
+versions (the padding included), held to JAX's Pallas bodies in
+interpret mode on the same numpy-seeded inputs, fp32:
 
 * K-MEGA, K2 (`store_qkv=True`), K2 keeping only qkv (`store_qkv="qkv"`,
   the port's K3 qkv mode) and K3 (recompute) at (heads 2, dim_head 80) and
@@ -15,7 +17,8 @@ Pallas bodies in interpret mode on the same numpy-seeded inputs, fp32:
 * fp32 K7 at 128;
 * a tiny CLIP with `visual_dim_head=80` and `text_dim_head=128`, carried
   over by `convert`: the loss and every gradient;
-* `pad_heads` at 80 → 128 against the plain versions at the true width.
+* `pad_heads` at 80 → 128 (fp32) against the plain versions at the true
+  width.
 
 Tolerances: outputs 1e-5 absolute (`tests/test_torch_attention_cores.py`;
 the megablock's too, tighter than the 1e-4 of

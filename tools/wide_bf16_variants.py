@@ -11,13 +11,10 @@ warps of mma.sync, the megablock's with one buffer of do and of T(dattn)
 (its notes give the design). Each variant is an edited copy of `csrc/`
 built into its own directory under `build/` (all at once, a process
 each): "shipped" as the sources stand; "rows128", the forward on blocks
-of two warpgroups (128 query rows) sharing each staged key tile;
-"fwd-pairs", the forward on 8-warp mma.sync blocks whose warp pairs share
-16 rows and exchange partial scores (`tools/nh2_fwd_pairs.patch`);
-"dkv-pairs", K6's and the megablock's dk/dv on 8-warp blocks whose warp
-pairs share 16 keys (`tools/nh2_dkv_pairs.patch`); "first-tile", key tile
-0 loaded by TMA before the mask words are read (`tools/nh2_first_tile.patch`).
-With `--parent DIR` (a checkout of another commit) its
+of two warpgroups (128 query rows) sharing each staged key tile. (The
+variants on mma.sync warp pairs and the early first key tile lost to
+the shipped kernels, `PERF.md` §6, and were retired once the kernels
+took heads at their true width.) With `--parent DIR` (a checkout of another commit) its
 `xclip_tpu_torch/csrc/` is built and timed beside them as "parent", bound
 to the entry points the timed wrappers call.
 
@@ -33,7 +30,7 @@ full-length captions; at the 64-wide shapes K6 (256, 256, 8 x 64) and the
 megablock's (256, 257, 8 x 64), whose kernels the designs leave alone;
 and bf16 K7 at (b*h 512, 256, 128) causal. SDPA bf16 is timed once a
 shape. Needs a card and nvcc; prints the card and its power limit first
-(about nine minutes for the five variants and a parent).
+(a few minutes for the two variants and a parent).
 """
 
 import argparse
@@ -46,27 +43,18 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "tools"))
 import chip_smoke as cs  # noqa: E402
-from rows_variants import hunks  # noqa: E402
 from xclip_tpu_torch.kernels import _build  # noqa: E402
 from xclip_tpu_torch.kernels import attention_block as core  # noqa: E402
 from xclip_tpu_torch.kernels import attention_megablock as mega  # noqa: E402
 from xclip_tpu_torch.kernels import flash_attention as flash  # noqa: E402
 
 SOURCE = "attention_block_sm90.cuh"
-TOOLS = Path(__file__).resolve().parent
 ROWS = "constexpr int K6_WG_ROWS = {};"
 # (variant, [(shipped text, its replacement, occurrences)])
 EDITS = {
     "shipped": [],
     "rows128": [(ROWS.format(64), ROWS.format(128), 1)],
-    "fwd-pairs": [(old, new, 1)
-                  for old, new in hunks(TOOLS / "nh2_fwd_pairs.patch")],
-    "dkv-pairs": [(old, new, 1)
-                  for old, new in hunks(TOOLS / "nh2_dkv_pairs.patch")],
-    "first-tile": [(old, new, 1)
-                   for old, new in hunks(TOOLS / "nh2_first_tile.patch")],
 }
 # the entry points the timed wrappers call: all an older checkout's library
 # must have

@@ -18,31 +18,34 @@
 //     (query tiles for dq and delta, key tiles for dk and dv), no atomics.
 // The Pallas kernel pads n to 128 and groups two heads into one 128-lane
 // block, TPU artefacts; here a block is one (64-row tile, head, batch
-// element) of the true (b, n, 3*heads*dh) tensor, dh 64 or 128 (a head of
-// 128 as two 64-column halves).
+// element) of the true (b, n, 3*heads*dh) tensor: in bf16 dh any multiple
+// of 8 up to 256, read at its true width as ⌈dh / 64⌉ 64-column halves; in
+// fp32 dh 64 or 128.
 //
 // bf16 runs the kernels of attention_block_sm90.cuh in their K6 mode
-// (register-resident mma.sync tiles at heads of 64, a TMA-fed wgmma forward
-// and dq kernel at 128; all skip causal and masked tiles; their notes give
-// the design and what bounds it), which the attention megablock's bf16
-// core shares. fp32 runs the megablock's FMA core
+// (register-resident mma.sync tiles at one, three and four halves, a
+// TMA-fed wgmma forward and dq kernel at two; all skip causal and masked
+// tiles; their notes give the design and what bounds it), which the
+// attention megablock's bf16 core shares. fp32 runs the megablock's FMA core
 // (attention_core.cuh). The length limit is the megablock's own, n <= 2048
 // in both dtypes (the mask words of 32 key tiles).
 #include "attention_core.cuh"
 
-static bool core_args_ok(int b, int n, int heads, int dh) {
-  return b > 0 && n > 0 && heads > 0 && xclip::k6_halves(dh);
+static bool core_args_ok(int dtype, int b, int n, int heads, int dh) {
+  return b > 0 && n > 0 && heads > 0 &&
+         (dtype == xclip::kBF16 ? xclip::bf16_halves(dh)
+                                : xclip::f32_halves(dh));
 }
 
 // Returns a cudaError_t code (0 on success). qkv (b*n, 3*heads*dh) and out
-// (b*n, heads*dh) of the storage dtype, dh 64 or 128, mask (b, n) uint8
+// (b*n, heads*dh) of the storage dtype (dh: core_args_ok), mask (b, n) uint8
 // (nonzero = valid key), lse (b*n, heads) fp32.
 extern "C" int xclip_attention_core_fwd(int dtype, const void* qkv,
                                         const void* mask, void* out,
                                         void* lse, int b, int n, int heads,
                                         int dh, float scale, int causal,
                                         int maybe_dead, void* stream) {
-  if (!core_args_ok(b, n, heads, dh) || n > attention_max_n(dtype))
+  if (!core_args_ok(dtype, b, n, heads, dh) || n > attention_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -68,7 +71,8 @@ extern "C" int xclip_attention_core_bwd(int dtype, const void* qkv,
                                         int heads, int dh, float scale,
                                         int causal, int maybe_dead,
                                         void* stream) {
-  if (!core_args_ok(b, n, heads, dh) || n > attention_bwd_max_n(dtype))
+  if (!core_args_ok(dtype, b, n, heads, dh) ||
+      n > attention_bwd_max_n(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -101,7 +105,7 @@ extern "C" int xclip_attention_bwd_blocks(int dtype, int mode, int which,
   if (dtype != xclip::kF32) return -(int)cudaErrorInvalidValue;
   const int blocks = mode == kK6 ? attention_blocks<kK6>(which, dh)
                                  : attention_blocks<kMega>(which, dh);
-  return warps && blocks > 0 ? blocks * 8 * xclip::k6_halves(dh) : blocks;
+  return warps && blocks > 0 ? blocks * 8 * xclip::f32_halves(dh) : blocks;
 }
 
 // The same for the forward, K6's (lse 1) or the megablock's (lse 0).
@@ -113,5 +117,5 @@ extern "C" int xclip_attention_fwd_blocks(int dtype, int lse, int dh,
   if (dtype != xclip::kF32) return -(int)cudaErrorInvalidValue;
   const int blocks = lse ? attention_blocks<kK6>(-1, dh)
                          : attention_blocks<kMega>(-1, dh);
-  return warps && blocks > 0 ? blocks * 8 * xclip::k6_halves(dh) : blocks;
+  return warps && blocks > 0 ? blocks * 8 * xclip::f32_halves(dh) : blocks;
 }

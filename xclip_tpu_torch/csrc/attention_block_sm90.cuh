@@ -1,7 +1,8 @@
 // The bf16 attention core of the port: whole-head attention on the fused
-// qkv (b*n x 3*heads*D), forward and backward, in two modes chosen at
-// compile time, at heads of D = 64 or 128 columns (NH = D / 64 staged
-// 64-column halves, as bf16 K7 takes them: flash_attention_sm90.cuh).
+// qkv (b*n x 3*heads*dh), forward and backward, in two modes chosen at
+// compile time, at a head's true width dh, any multiple of 8 up to 256
+// (NH = ⌈dh / 64⌉ staged 64-column halves, as bf16 K7 takes them:
+// flash_attention_sm90.cuh).
 //   * K6 (MEGA false), in place of the Pallas bodies of
 //     xclip_tpu/kernels/attention_block.py: `_fwd_kernel` (:83) and
 //     `_bwd_kernel` (:117); csrc/attention_block.cu gives the semantics.
@@ -112,16 +113,31 @@
 //     bytes), the megablock's with one buffer of do and one of T(dattn),
 //     staged once the tile before has been read (112,384 bytes): two
 //     blocks, 8 warps an SM, where the double-buffered kernel held one.
-// tools/wide_bf16_variants.py times these against the 4-warp kernels they
-// replace (--parent), 128 query rows a forward block, the forward on
-// 8-warp mma.sync blocks whose warp pairs share 16 rows and exchange
-// partial scores (tools/nh2_fwd_pairs.patch), dk/dv on 8-warp blocks whose
-// warp pairs share 16 keys (tools/nh2_dkv_pairs.patch) and key tile 0
-// loaded before the mask words are read (tools/nh2_first_tile.patch):
-// PERF.md. In the megablock mode the row's fp32 head slice of dattn (512
+// tools/wide_bf16_variants.py times these against an older checkout's
+// (--parent) and 128 query rows a forward block; the forward and dk/dv on
+// 8-warp mma.sync blocks of warp pairs and key tile 0 loaded before the
+// mask words were timed too and lost (PERF.md). In the megablock mode the
+// row's fp32 head slice of dattn (512
 // bytes) takes the bf16 copies half by half, each half's T(dattn * scale)
 // and T(dattn) in the 256 bytes its own fp32 values held (`dcopy` column
 // 2 D h + 128 hh for half hh).
+// A head is read at its true width dh:
+// q, k, v, out and do at their real strides (3 heads dh, heads dh), the
+// last half's columns past dh zero in shared memory (cp.async with a
+// source size of 0; the wgmma kernels' TMA boxes from a 4-D map over (b,
+// n, slot, dh) whose extent dh reads 0 past it), and only columns below
+// dh stored. A partial half of w columns keeps its dattn copies in w + w
+// bf16 slots (column 2 dh h + 128 hh, T(dattn) w on). At three and four
+// halves (dh 136 to 256) every kernel is mma.sync, one block an SM: the
+// forward and dq hold every half's accumulator and read q (and do) from
+// shared memory a 16-deep slice at a time; the dk/dv kernel runs two
+// groups of four warps on the same 16-key slabs, each recomputing s and
+// dp over the whole head and keeping dk and dv for two halves (a thread
+// holding all four halves' would need 256 fp32). A head of whole halves at
+// one or two (64, 128: the widths the kernels were tuned at) runs an
+// instance with dh a compile-time constant (`FULL`, `by_width`): read at
+// run time, the width's address arithmetic and guards cost those kernels
+// 3-17 % (tools/wide_bf16_variants.py --parent).
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -192,10 +208,34 @@ __device__ __forceinline__ bool k6_full(unsigned long long word, int t, int r0,
 }
 
 // The warp's 16 rows of a staged head as the A operand of a . bᵀ over the
-// head, held in registers: a head of 64 (at 128 the wgmma kernels read q
-// and do from shared memory by descriptor).
+// head: read again from the staged halves by ldmatrix a 16-deep slice at a
+// time (the mma.sync kernels at NH 3 and 4, where the halves' output
+// accumulators take the registers; at 128 the wgmma kernels read q and do
+// from shared memory by descriptor), or held in registers at a head of
+// one half.
 template <int NH>
-struct HeadRows;
+struct HeadRows {
+  const bf16* t;
+  int r;
+  __device__ __forceinline__ void load(const bf16* tile, int r0) {
+    t = tile;
+    r = r0;
+  }
+  __device__ __forceinline__ void abt(float (&acc)[8][4], const bf16* b,
+                                      int nc) const {
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t a[4];
+        load_a_k(a, t + hh * K6_TILE, r, k);
+        if (nc >= 8)
+          mma_abt_k(acc, a, k, b + hh * K6_TILE);
+        else
+          mma_abt_k(acc, a, k, b + hh * K6_TILE, nc);
+      }
+  }
+};
 template <>
 struct HeadRows<1> {
   uint32_t a[4][4];
@@ -250,23 +290,26 @@ __device__ __forceinline__ void k6_scores(float (&s)[8][4],
   k6_mask(s, t, word, full, row, scale, causal);
 }
 
-// Forward at heads of 64, one block per (64-query tile, head, batch
-// element), in two passes over the key tiles; the last query tiles, which
-// have the most key tiles when causal, start first. `stats`: K6's lse (b*n x heads); the
+// Forward at heads of one half (dh up to 64) or of three or four (136 to
+// 256), one block per (64-query tile, head, batch element), in two passes
+// over the key tiles; the last query tiles, which have the most key tiles
+// when causal, start first. `stats`: K6's lse (b*n x heads); the
 // megablock's sm (b*n x 2*heads), or null to keep none.
-template <bool MEGA, int NH>
-__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 4 : 2)
+template <bool MEGA, int NH, bool FULL>
+__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 4 : 1)
 k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
               bf16* __restrict__ out, float* __restrict__ stats, int n,
-              int heads, float scale, int causal, int maybe_dead) {
-  constexpr int D = 64 * NH, T = NH * K6_TILE;
+              int heads, int dh_arg, float scale, int causal,
+              int maybe_dead) {
+  const int dh = FULL ? 64 * NH : dh_arg;  // whole halves fold it in
+  constexpr int T = NH * K6_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + T;      // two buffers
   bf16* vs = ks + 2 * T;  // two buffers
   auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * T);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * dh, tiles = (n + 63) / 64;
   const long ld = 3L * hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -279,16 +322,18 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
       stage_tile_async<K6_THREADS>(ks + buf * T + hh * K6_TILE, base, ld,
-                                   hd + h * D + 64 * hh, 64 * t, n);
+                                   hd + h * dh + 64 * hh, 64 * t, n,
+                                   dh - 64 * hh);
       if (st >= 64)
         stage_tile_async<K6_THREADS>(vs + buf * T + hh * K6_TILE, base, ld,
-                                     2 * hd + h * D + 64 * hh, 64 * t, n);
+                                     2 * hd + h * dh + 64 * hh, 64 * t, n,
+                                     dh - 64 * hh);
     }
   };
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh)
     stage_tile_async<K6_THREADS>(qs + hh * K6_TILE, base, ld,
-                                 h * D + 64 * hh, q0, n);
+                                 h * dh + 64 * hh, q0, n, dh - 64 * hh);
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
   // a dead row is uniform over every key: its block walks every tile
@@ -413,25 +458,29 @@ k6_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
   if (!rows_final) finish_rows();
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh)
-    store_rows(out + (long)bi * n * hd + h * D + 64 * hh, hd, q0, n,
-               qs + hh * K6_TILE, warp * 16, o[hh]);
+    store_rows(out + (long)bi * n * hd + h * dh + 64 * hh, hd, q0, n,
+               qs + hh * K6_TILE, warp * 16, o[hh], dh - 64 * hh);
 }
 
-// dq and delta at heads of 64, one block per (64-query tile, head, batch
-// element).
+// dq and delta at heads of one half or of three or four, one block per
+// (64-query tile, head, batch element).
 // `stats`, `dout`: K6's lse and bf16 do, or the megablock's sm and fp32
 // dattn; in megablock mode the kernel also writes dattn's two bf16 copies
-// into `dcopy` (b*n x 2*heads*D; half hh of head h at columns 2 D h + 128
-// hh: T(dattn * scale), then T(dattn)), which may alias dattn.
-template <bool MEGA, int NH>
-__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 3 : 2)
+// into `dcopy` (b*n x 2*heads*dh; half hh of head h, w = min(64, dh - 64
+// hh) columns, at column 2 dh h + 128 hh: T(dattn * scale), then T(dattn)
+// w columns on, in the 2 w bf16 its own w fp32 values held), which may
+// alias dattn.
+template <bool MEGA, int NH, bool FULL>
+__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 3 : 1)
 k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
                  const uint8_t* __restrict__ mask,
                  const bf16* __restrict__ out, const float* __restrict__ stats,
                  const K6Cot<MEGA>* dout, bf16* dcopy,
                  bf16* __restrict__ dqkv, float* __restrict__ delta, int n,
-                 int heads, float scale, int causal, int maybe_dead) {
-  constexpr int D = 64 * NH, T = NH * K6_TILE;
+                 int heads, int dh_arg, float scale, int causal,
+                 int maybe_dead) {
+  const int dh = FULL ? 64 * NH : dh_arg;  // whole halves fold it in
+  constexpr int T = NH * K6_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + T;
@@ -439,7 +488,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   bf16* vs = ks + 2 * T;  // two buffers
   auto* bits = reinterpret_cast<unsigned long long*>(vs + 2 * T);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * dh, tiles = (n + 63) / 64;
   const long ld = 3L * hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const bf16* obase = out + (long)bi * n * hd;
@@ -450,19 +499,21 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
       stage_tile_async<K6_THREADS>(ks + buf * T + hh * K6_TILE, base, ld,
-                                   hd + h * D + 64 * hh, 64 * t, n);
+                                   hd + h * dh + 64 * hh, 64 * t, n,
+                                   dh - 64 * hh);
       stage_tile_async<K6_THREADS>(vs + buf * T + hh * K6_TILE, base, ld,
-                                   2 * hd + h * D + 64 * hh, 64 * t, n);
+                                   2 * hd + h * dh + 64 * hh, 64 * t, n,
+                                   dh - 64 * hh);
     }
   };
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh) {
     stage_tile_async<K6_THREADS>(qs + hh * K6_TILE, base, ld,
-                                 h * D + 64 * hh, q0, n);
+                                 h * dh + 64 * hh, q0, n, dh - 64 * hh);
     if constexpr (!MEGA)
       stage_tile_async<K6_THREADS>(dos + hh * K6_TILE,
                                    dout + (long)bi * n * hd, hd,
-                                   h * D + 64 * hh, q0, n);
+                                   h * dh + 64 * hh, q0, n, dh - 64 * hh);
   }
   cp_async_commit();
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
@@ -497,10 +548,11 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
   cp_async_wait<0>();
   __syncthreads();
 
-  // delta: lanes 2r, 2r + 1 take half of each 64-column half of row r.
-  // K6: sum do * out from the staged do. Megablock: scale * sum dattn *
-  // attnout from the fp32 rows, which also give the A tile T(dattn *
-  // scale) and the bf16 copies, half by half (each half's copies written
+  // delta: lanes 2r, 2r + 1 take half of each 64-column half of row r,
+  // 8 columns at a time up to the head's true width. K6: sum do * out from
+  // the staged do. Megablock: scale * sum dattn * attnout from the fp32
+  // rows, which also give the A tile T(dattn * scale) (0 past the true
+  // width) and the bf16 copies, half by half (each half's copies written
   // over its own fp32 values once the warp has read them).
   float rdelta[2];
   {
@@ -510,16 +562,18 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
     float acc = 0.f;
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
-      const int d0 = (lane & 1) * 32, col = h * D + 64 * hh + d0;
+      const int d0 = (lane & 1) * 32, col = h * dh + 64 * hh + d0;
+      const int w = min(64, dh - 64 * hh);  // the half's true columns
       bf16* dtile = dos + hh * K6_TILE;
       if constexpr (MEGA) {
         float dv[32];
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const float4 f =
-              in ? *reinterpret_cast<const float4*>(dout + q * hd + col +
-                                                    4 * c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+              in && d0 + 8 * (c >> 1) < w
+                  ? *reinterpret_cast<const float4*>(dout + q * hd + col +
+                                                     4 * c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
           dv[4 * c] = f.x;
           dv[4 * c + 1] = f.y;
           dv[4 * c + 2] = f.z;
@@ -529,7 +583,7 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
           const bf16* orow = out + q * hd + col;
 #pragma unroll
           for (int c = 0; c < 32; c += 8) {
-            const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+            const uint4 ov = load16_if(orow + c, d0 + c < w);
             const bf16* op = reinterpret_cast<const bf16*>(&ov);
 #pragma unroll
             for (int k = 0; k < 8; ++k) acc += dv[c + k] * to_f(op[k]) * scale;
@@ -544,15 +598,15 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
           sc[k] = pack_bf16(dv[2 * k] * scale, dv[2 * k + 1] * scale);
           un[k] = pack_bf16(dv[2 * k], dv[2 * k + 1]);
         }
-        bf16* crow = dcopy + q * 2 * hd + 2 * D * h + 128 * hh + d0;
+        bf16* crow = dcopy + q * 2 * hd + 2 * dh * h + 128 * hh + d0;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const uint4 vsc = make_uint4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
                                        sc[4 * c + 3]);
           *reinterpret_cast<uint4*>(dtile + r * LDT + d0 + 8 * c) = vsc;
-          if (in) {
+          if (in && d0 + 8 * c < w) {
             *reinterpret_cast<uint4*>(crow + 8 * c) = vsc;
-            *reinterpret_cast<uint4*>(crow + 64 + 8 * c) = make_uint4(
+            *reinterpret_cast<uint4*>(crow + w + 8 * c) = make_uint4(
                 un[4 * c], un[4 * c + 1], un[4 * c + 2], un[4 * c + 3]);
           }
         }
@@ -561,7 +615,8 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
         const bf16* orow = obase + (long)(q0 + r) * hd + col;
 #pragma unroll
         for (int c = 0; c < 32; c += 8) {
-          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          // the staged do is 0 past the true width
+          const uint4 ov = load16_if(orow + c, d0 + c < w);
           const uint4 dv =
               *reinterpret_cast<const uint4*>(dtile + r * LDT + d0 + c);
           const bf16* op = reinterpret_cast<const bf16*>(&ov);
@@ -631,37 +686,53 @@ k6_bwd_dq_kernel(const bf16* __restrict__ qkv,
               }
             }
         }
-        uint32_t dsa[4][4];
-        pack_a(dsa, s);
         const int ns = tile_parts(kend - 64 * t, 16);
+        if constexpr (NH == 1) {
+          uint32_t dsa[4][4];
+          pack_a(dsa, s);
+          mma_ab(dq[0], dsa, kt, ns);
+        } else {
+          // ds into the halves' products a 16-wide slice at a time
 #pragma unroll
-        for (int hh = 0; hh < NH; ++hh)
-          mma_ab(dq[hh], dsa, kt + hh * K6_TILE, ns);
+          for (int k = 0; k < 4; ++k) {
+            if (k >= ns) break;
+            uint32_t a[4];
+            pack_a_k(a, s, k);
+#pragma unroll
+            for (int hh = 0; hh < NH; ++hh)
+              mma_ab_k(dq[hh], a, k, kt + hh * K6_TILE);
+          }
+        }
       });
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh)
-    store_rows(dqkv + (long)bi * n * ld + h * D + 64 * hh, ld, q0, n,
-               qs + hh * K6_TILE, warp * 16, dq[hh]);
+    store_rows(dqkv + (long)bi * n * ld + h * dh + 64 * hh, ld, q0, n,
+               qs + hh * K6_TILE, warp * 16, dq[hh], dh - 64 * hh);
 }
 
 // dk and dv, one block per (64-key tile, head, batch element), over the
 // query tiles that reach it. `stats`: K6's lse or the megablock's sm;
 // `dsrc`: K6's do (b*n x hd) or the megablock's `dcopy`, which the dq
 // kernel wrote.
-template <bool MEGA, int NH>
-__global__ void __launch_bounds__(K6_THREADS, NH == 1 ? 3 : 2)
+template <bool MEGA, int NH, bool FULL>
+__global__ void __launch_bounds__(K6_THREADS * dkv_groups(NH),
+                                  NH == 1 ? 3 : NH == 2 ? 2 : 1)
 k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                   const uint8_t* __restrict__ mask,
                   const float* __restrict__ stats,
                   const bf16* __restrict__ dsrc,
                   const float* __restrict__ delta, bf16* __restrict__ dqkv,
-                  int n, int heads, float scale, int causal, int maybe_dead) {
+                  int n, int heads, int dh_arg, float scale, int causal,
+                  int maybe_dead) {
+  const int dh = FULL ? 64 * NH : dh_arg;  // whole halves fold it in
   // a query tile's row terms: K6 lse, delta; megablock m, l, delta
   constexpr int NS = MEGA ? 3 : 2;
-  constexpr int D = 64 * NH, T = NH * K6_TILE;
-  // the megablock at 128: one buffer of do and one of T(dattn), so that two
-  // blocks fit an SM
-  constexpr bool LEAN = MEGA && NH == 2;
+  constexpr int T = NH * K6_TILE;
+  constexpr int CG = dkv_groups(NH), THREADS = K6_THREADS * CG;
+  constexpr int NO = NH / CG + NH % CG;  // halves of dk, dv a group keeps
+  // the megablock past one half: one buffer of do and one of T(dattn), so
+  // that two blocks fit an SM at 128 and one at 256
+  constexpr bool LEAN = MEGA && NH >= 2;
   constexpr int DB = LEAN ? 1 : 2;  // buffers of do and T(dattn)
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
@@ -672,29 +743,21 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   float* rows = reinterpret_cast<float*>(dov + (MEGA ? DB * T : 0));
   auto* bits = reinterpret_cast<unsigned long long*>(rows + 2 * NS * 64);
   const int kt = blockIdx.x, k0 = 64 * kt, h = blockIdx.y, bi = blockIdx.z;
-  const int hd = heads * D, tiles = (n + 63) / 64;
+  const int hd = heads * dh, tiles = (n + 63) / 64;
   const long ld = 3L * hd, dld = MEGA ? 2L * hd : hd;
   const bf16* base = qkv + (long)bi * n * ld;
   const bf16* dbase = dsrc + (long)bi * n * dld;
-  // half hh of the head's do: K6 at column D h + 64 hh; the megablock's
-  // scaled copy at 2 D h + 128 hh, T(dattn) 64 columns on
-  const int dcol = MEGA ? 2 * D * h : D * h, dstep = MEGA ? 128 : 64;
+  // half hh of the head's do: K6 at column dh h + 64 hh; the megablock's
+  // scaled copy at 2 dh h + 128 hh, T(dattn) the half's width on
+  const int dcol = MEGA ? 2 * dh * h : dh * h, dstep = MEGA ? 128 : 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slab = warp & 3, cg = warp >> 2;  // 16 keys; the group
   const int g = lane >> 2, tq = lane & 3;
 
-  auto stage = [&](int t, int buf) {
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) {
-      stage_tile_async<K6_THREADS>(qs + buf * T + hh * K6_TILE, base, ld,
-                                   h * D + 64 * hh, 64 * t, n);
-      stage_tile_async<K6_THREADS>(dos + buf * T + hh * K6_TILE, dbase, dld,
-                                   dcol + dstep * hh, 64 * t, n);
-      if (MEGA)
-        stage_tile_async<K6_THREADS>(dov + buf * T + hh * K6_TILE, dbase, dld,
-                                     dcol + dstep * hh + 64, 64 * t, n);
-    }
-    // the tile's row terms: K6 lse (threads 0-63) and delta (64-127);
-    // megablock m (0-63), l (64-127), then delta (0-63)
+  // the tile's row terms: K6 lse (threads 0-63) and delta (64-127);
+  // megablock m (0-63), l (64-127), then delta (0-63)
+  auto stage_rows = [&](int t, int buf) {
+    if (threadIdx.x >= K6_THREADS) return;
     const int c = threadIdx.x & 63, q = 64 * t + c, k = threadIdx.x >> 6;
     const long r = q < n ? (long)bi * n + q : 0;
     if (MEGA) {
@@ -708,15 +771,37 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                 (k == 0 ? stats : delta) + r * heads + h, q < n);
     }
   };
+  auto stage_q = [&](int t, int buf) {
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+      stage_tile_async<THREADS>(qs + buf * T + hh * K6_TILE, base, ld,
+                                h * dh + 64 * hh, 64 * t, n, dh - 64 * hh);
+    stage_rows(t, buf);
+  };
+  auto stage_do = [&](int t, int buf) {
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      const int w = min(64, dh - 64 * hh);
+      stage_tile_async<THREADS>(dos + buf * T + hh * K6_TILE, dbase, dld,
+                                dcol + dstep * hh, 64 * t, n, w);
+      if (MEGA)
+        stage_tile_async<THREADS>(dov + buf * T + hh * K6_TILE, dbase, dld,
+                                  dcol + dstep * hh + w, 64 * t, n, w);
+    }
+  };
+  auto stage = [&](int t, int buf) {
+    stage_q(t, buf);
+    stage_do(t, buf);
+  };
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh) {
-    stage_tile_async<K6_THREADS>(ks + hh * K6_TILE, base, ld,
-                                 hd + h * D + 64 * hh, k0, n);
-    stage_tile_async<K6_THREADS>(vs + hh * K6_TILE, base, ld,
-                                 2 * hd + h * D + 64 * hh, k0, n);
+    stage_tile_async<THREADS>(ks + hh * K6_TILE, base, ld,
+                              hd + h * dh + 64 * hh, k0, n, dh - 64 * hh);
+    stage_tile_async<THREADS>(vs + hh * K6_TILE, base, ld,
+                              2 * hd + h * dh + 64 * hh, k0, n, dh - 64 * hh);
   }
   cp_async_commit();
-  const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
+  const int fv = k6_key_tiles<THREADS>(bits, mask + (long)bi * n, n);
   const unsigned long long kw = bits[kt];
   // queries below `dead_end` are dead rows: their p = 1/n reaches every key
   const int dead_end =
@@ -729,25 +814,25 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   // the warp's 16 keys: none at or past n runs a product; all valid makes
   // a query tile full where every query is valid, live and (causal) at or
   // past them
-  const int kw0 = k0 + warp * 16;
+  const int kw0 = k0 + slab * 16;
   const bool live = kw0 < n;
-  const bool keys_full = ((kw >> (warp * 16)) & 0xffffull) == 0xffffull;
+  const bool keys_full = ((kw >> (slab * 16)) & 0xffffull) == 0xffffull;
   int key[2];
   bool kvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int c = warp * 16 + g + 8 * i;
+    const int c = slab * 16 + g + 8 * i;
     key[i] = k0 + c;
     kvalid[i] = (kw >> c) & 1ull;
   }
   const float inv_n = 1.f / (float)n;
   const int first = next(-1);
 
-  float dk[NH][8][4], dv[NH][8][4];
+  float dk[NO][8][4], dv[NO][8][4];
 #pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    zero_acc(dk[hh]);
-    zero_acc(dv[hh]);
+  for (int j = 0; j < NO; ++j) {
+    zero_acc(dk[j]);
+    zero_acc(dv[j]);
   }
   auto body = [&](int t, int buf) {
         if (!live) return;
@@ -776,9 +861,9 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
             for (int k = 0; k < 4; ++k) {
               const int o = hh * K6_TILE;
               uint32_t a[4];
-              load_a_k(a, ks + o, warp * 16, k);
+              load_a_k(a, ks + o, slab * 16, k);
               mma_abt_k(s, a, k, qt + o, ncut);  // sᵀ = k . qᵀ
-              load_a_k(a, vs + o, warp * 16, k);
+              load_a_k(a, vs + o, slab * 16, k);
               mma_abt_k(dp, a, k, dot + o, ncut);  // dpᵀ = v . doᵀ
             }
         };
@@ -834,47 +919,31 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
                 dp[c][e] = ds;
               }
             }
+          // the group's halves: dv += T(p)ᵀ . do, dk += T(ds)ᵀ . q
           uint32_t a[4];
-          pack_a_k(a, s, k);  // dv += T(p)ᵀ . do
+          pack_a_k(a, s, k);
 #pragma unroll
-          for (int hh = 0; hh < NH; ++hh)
-            mma_ab_k(dv[hh], a, k,
-                     (MEGA ? dov + dbuf * T : dot) + hh * K6_TILE);
-          pack_a_k(a, dp, k);  // dk += T(ds)ᵀ . q
+          for (int j = 0; j < NO; ++j) {
+            const int hh = cg * NO + j;
+            if (hh < NH)
+              mma_ab_k(dv[j], a, k,
+                       (MEGA ? dov + dbuf * T : dot) + hh * K6_TILE);
+          }
+          pack_a_k(a, dp, k);
 #pragma unroll
-          for (int hh = 0; hh < NH; ++hh)
-            mma_ab_k(dk[hh], a, k, qt + hh * K6_TILE);
+          for (int j = 0; j < NO; ++j) {
+            const int hh = cg * NO + j;
+            if (hh < NH) mma_ab_k(dk[j], a, k, qt + hh * K6_TILE);
+          }
         }
       };
   if constexpr (LEAN) {
     // q and the row terms one tile ahead as tile_walk stages them; do and
     // T(dattn) into their one buffer once the tile before has been read
-    auto stage_q = [&](int t, int buf) {
-#pragma unroll
-      for (int hh = 0; hh < NH; ++hh)
-        stage_tile_async<K6_THREADS>(qs + buf * T + hh * K6_TILE, base, ld,
-                                     h * D + 64 * hh, 64 * t, n);
-      const int c = threadIdx.x & 63, q = 64 * t + c, k = threadIdx.x >> 6;
-      const long r = q < n ? (long)bi * n + q : 0;
-      cp_async4(rows + (buf * NS + k) * 64 + c,
-                stats + r * 2 * heads + k * heads + h, q < n);
-      if (k == 0)
-        cp_async4(rows + (buf * NS + 2) * 64 + c, delta + r * heads + h,
-                  q < n);
-    };
-    auto stage_do = [&](int t) {
-#pragma unroll
-      for (int hh = 0; hh < NH; ++hh) {
-        stage_tile_async<K6_THREADS>(dos + hh * K6_TILE, dbase, dld,
-                                     dcol + dstep * hh, 64 * t, n);
-        stage_tile_async<K6_THREADS>(dov + hh * K6_TILE, dbase, dld,
-                                     dcol + dstep * hh + 64, 64 * t, n);
-      }
-    };
     int t = first, buf = 0;
     if (t < tiles) {
       stage_q(t, 0);
-      stage_do(t);
+      stage_do(t, 0);
     }
     cp_async_commit();
     while (t < tiles) {
@@ -885,7 +954,7 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
       __syncthreads();
       body(t, buf);
       __syncthreads();
-      if (u < tiles) stage_do(u);
+      if (u < tiles) stage_do(u, 0);
       cp_async_commit();
       t = u;
       buf ^= 1;
@@ -895,13 +964,15 @@ k6_bwd_dkv_kernel(const bf16* __restrict__ qkv,
   }
   cp_async_wait<0>();  // k and v have landed even if no tile was walked
   __syncthreads();
-  bf16* dst = dqkv + (long)bi * n * ld + h * D;
+  bf16* dst = dqkv + (long)bi * n * ld + h * dh;
 #pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    store_rows(dst + hd + 64 * hh, ld, k0, n, ks + hh * K6_TILE, warp * 16,
-               dk[hh]);
+  for (int j = 0; j < NO; ++j) {
+    const int hh = cg * NO + j;
+    if (hh >= NH) break;
+    store_rows(dst + hd + 64 * hh, ld, k0, n, ks + hh * K6_TILE, slab * 16,
+               dk[j], dh - 64 * hh);
     store_rows(dst + 2 * hd + 64 * hh, ld, k0, n, vs + hh * K6_TILE,
-               warp * 16, dv[hh]);
+               slab * 16, dv[j], dh - 64 * hh);
   }
 }
 
@@ -953,10 +1024,11 @@ __device__ __forceinline__ void wgmma_o128(float (&d)[64],
 
 #undef K6_ACC8
 
-// The forward at heads of 128 on wgmma, one block of WG warpgroups per
-// (64 WG-query tile, head, batch element), the walk, cuts and statistics of
-// k6_fwd_kernel. Thread 0 loads by TMA (a 3-D map over (b, n, 3 hd), which
-// zero-fills rows past n of each batch element) q once and the walk's key
+// The forward at heads of two halves (72 to 128 columns) on wgmma, one
+// block of WG warpgroups per (64 WG-query tile, head, batch element), the
+// walk, cuts and statistics of k6_fwd_kernel. Thread 0 loads by TMA (a 4-D
+// map over (b, n, 3 heads, dh), which zero-fills rows past n of each batch
+// element and a head's columns past dh) q once and the walk's key
 // tiles one step ahead into a ring of two stages (k; in pass 2 k and v),
 // each completing on its mbarrier, 128-byte swizzled as wgmma reads them.
 // s = q . kᵀ is eight m64n64k16 products from shared memory (no q
@@ -965,13 +1037,13 @@ __device__ __forceinline__ void wgmma_o128(float (&d)[64],
 // warpgroup reads. The accumulator of m64nN is mma.sync's a warp: warp w holds
 // rows 16 w + g and + 8, columns 8 c + 2 tq + {0, 1}, so the masks, the
 // quad reductions and the statistics are k6_fwd_kernel's.
-template <bool MEGA, int WG>
+template <bool MEGA, int WG, bool FULL>
 __global__ void __launch_bounds__(K6_THREADS * WG, WG == 1 ? 2 : 1)
 k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
                  const uint8_t* __restrict__ mask, bf16* __restrict__ out,
-                 float* __restrict__ stats, int n, int heads, float scale,
-                 int causal, int maybe_dead) {
-  constexpr int D = 128;
+                 float* __restrict__ stats, int n, int heads, int dh_arg,
+                 float scale, int causal, int maybe_dead) {
+  const int dh = FULL ? 128 : dh_arg;  // whole halves fold it in
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to them
   unsigned char* smem =
@@ -982,7 +1054,7 @@ k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   auto* bits = reinterpret_cast<unsigned long long*>(bar + 3);
   const CUtensorMap* map = &qkv_map;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64 * WG, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * dh, tiles = (n + 63) / 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, tq = lane & 3;
@@ -996,8 +1068,8 @@ k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     for (int w = 0; w < WG; ++w)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        tma_load_3d(smem + (2 * w + hh) * kPanel, map, &bar[0],
-                    h * D + 64 * hh, q0 + 64 * w, bi);
+        tma_load_4d(smem + (2 * w + hh) * kPanel, map, &bar[0], 64 * hh, h,
+                    q0 + 64 * w, bi);
   }
   const int fv = k6_key_tiles<K6_THREADS * WG>(bits, mask + (long)bi * n, n);
   const bool dead_block = maybe_dead && (causal ? fv > q0 : fv >= n);
@@ -1021,11 +1093,11 @@ k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     mbar_expect_tx(&bar[1 + s], (st >= 64 ? 4 : 2) * kPanel);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      tma_load_3d(ring + (4 * s + hh) * kPanel, map, &bar[1 + s],
-                  hd + h * D + 64 * hh, 64 * t, bi);
+      tma_load_4d(ring + (4 * s + hh) * kPanel, map, &bar[1 + s], 64 * hh,
+                  heads + h, 64 * t, bi);
       if (st >= 64)
-        tma_load_3d(ring + (4 * s + 2 + hh) * kPanel, map, &bar[1 + s],
-                    2 * hd + h * D + 64 * hh, 64 * t, bi);
+        tma_load_4d(ring + (4 * s + 2 + hh) * kPanel, map, &bar[1 + s],
+                    64 * hh, 2 * heads + h, 64 * t, bi);
     }
   };
   uint32_t parity = 0;  // bit s: the phase stage s completes next
@@ -1165,11 +1237,12 @@ k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   bf16* stage = reinterpret_cast<bf16*>(ring);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    store_rows(out + (long)bi * n * hd + h * D + 64 * hh, hd, q0 + 64 * wg, n,
-               stage + (2 * wg + hh) * K6_TILE, (warp & 3) * 16, o[hh]);
+    store_rows(out + (long)bi * n * hd + h * dh + 64 * hh, hd, q0 + 64 * wg,
+               n, stage + (2 * wg + hh) * K6_TILE, (warp & 3) * 16, o[hh],
+               dh - 64 * hh);
 }
 
-// dq and delta at heads of 128 on wgmma, one block of one warpgroup per
+// dq and delta at heads of two halves on wgmma, one block of one warpgroup per
 // (64-query tile, head, batch element), the walk, cuts and row terms of
 // k6_bwd_dq_kernel. Thread 0 loads by TMA q (and K6's do) once and the
 // walk's k and v tiles one ahead into a ring of two stages; in megablock
@@ -1179,7 +1252,7 @@ k6_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
 // eight m64n64k16 products each from shared memory; dq += T(ds) . k is
 // m64n128k16 with ds from registers and k MN-major, over the 16-key
 // slices some row of the block reads.
-template <bool MEGA>
+template <bool MEGA, bool FULL>
 __global__ void __launch_bounds__(K6_THREADS, 2)
 k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
                     const __grid_constant__ CUtensorMap do_map,
@@ -1187,9 +1260,9 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
                     const bf16* __restrict__ out,
                     const float* __restrict__ stats, const K6Cot<MEGA>* dout,
                     bf16* dcopy, bf16* __restrict__ dqkv,
-                    float* __restrict__ delta, int n, int heads, float scale,
-                    int causal, int maybe_dead) {
-  constexpr int D = 128;
+                    float* __restrict__ delta, int n, int heads, int dh_arg,
+                    float scale, int causal, int maybe_dead) {
+  const int dh = FULL ? 128 : dh_arg;  // whole halves fold it in
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -1200,7 +1273,7 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   const CUtensorMap* qmap = &qkv_map;
   const CUtensorMap* dmap = &do_map;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y;
-  const int bi = blockIdx.z, hd = heads * D, tiles = (n + 63) / 64;
+  const int bi = blockIdx.z, hd = heads * dh, tiles = (n + 63) / 64;
   const long ld = 3L * hd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -1212,11 +1285,9 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     mbar_expect_tx(&bar[0], (MEGA ? 2 : 4) * kPanel);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      tma_load_3d(smem + hh * kPanel, qmap, &bar[0], h * D + 64 * hh, q0,
-                  bi);
+      tma_load_4d(smem + hh * kPanel, qmap, &bar[0], 64 * hh, h, q0, bi);
       if (!MEGA)
-        tma_load_3d(dos + hh * kPanel, dmap, &bar[0], h * D + 64 * hh, q0,
-                    bi);
+        tma_load_4d(dos + hh * kPanel, dmap, &bar[0], 64 * hh, h, q0, bi);
     }
   }
   const int fv = k6_key_tiles(bits, mask + (long)bi * n, n);
@@ -1232,10 +1303,10 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     mbar_expect_tx(&bar[1 + s], 4 * kPanel);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      tma_load_3d(ring + (4 * s + hh) * kPanel, qmap, &bar[1 + s],
-                  hd + h * D + 64 * hh, 64 * t, bi);
-      tma_load_3d(ring + (4 * s + 2 + hh) * kPanel, qmap, &bar[1 + s],
-                  2 * hd + h * D + 64 * hh, 64 * t, bi);
+      tma_load_4d(ring + (4 * s + hh) * kPanel, qmap, &bar[1 + s], 64 * hh,
+                  heads + h, 64 * t, bi);
+      tma_load_4d(ring + (4 * s + 2 + hh) * kPanel, qmap, &bar[1 + s],
+                  64 * hh, 2 * heads + h, 64 * t, bi);
     }
   };
   uint32_t parity = 0;  // bit s: the phase stage s completes next
@@ -1262,10 +1333,10 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   }
 
   // delta as k6_bwd_dq_kernel's: lanes 2r, 2r + 1 take half of each
-  // 64-column half of row r; K6 reads do from global memory, the megablock
-  // its fp32 rows, which also give the A tile (16-byte chunk c of a
-  // panel's row r at chunk c ^ (r % 8), the 128-byte swizzle) and the
-  // bf16 copies
+  // 64-column half of row r up to the true width; K6 reads do from global
+  // memory, the megablock its fp32 rows, which also give the A tile
+  // (16-byte chunk c of a panel's row r at chunk c ^ (r % 8), the 128-byte
+  // swizzle; 0 past the true width) and the bf16 copies
   float rdelta[2];
   {
     const int r = warp * 16 + (lane >> 1);
@@ -1274,15 +1345,17 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     float acc = 0.f;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int d0 = (lane & 1) * 32, col = h * D + 64 * hh + d0;
+      const int d0 = (lane & 1) * 32, col = h * dh + 64 * hh + d0;
+      const int w = min(64, dh - 64 * hh);  // the half's true columns
       if constexpr (MEGA) {
         float dv[32];
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const float4 f =
-              in ? *reinterpret_cast<const float4*>(dout + q * hd + col +
-                                                    4 * c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+              in && d0 + 8 * (c >> 1) < w
+                  ? *reinterpret_cast<const float4*>(dout + q * hd + col +
+                                                     4 * c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
           dv[4 * c] = f.x;
           dv[4 * c + 1] = f.y;
           dv[4 * c + 2] = f.z;
@@ -1292,7 +1365,7 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
           const bf16* orow = out + q * hd + col;
 #pragma unroll
           for (int c = 0; c < 32; c += 8) {
-            const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+            const uint4 ov = load16_if(orow + c, d0 + c < w);
             const bf16* op = reinterpret_cast<const bf16*>(&ov);
 #pragma unroll
             for (int k = 0; k < 8; ++k) acc += dv[c + k] * to_f(op[k]) * scale;
@@ -1307,7 +1380,7 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
           sc[k] = pack_bf16(dv[2 * k] * scale, dv[2 * k + 1] * scale);
           un[k] = pack_bf16(dv[2 * k], dv[2 * k + 1]);
         }
-        bf16* crow = dcopy + q * 2 * hd + 2 * D * h + 128 * hh + d0;
+        bf16* crow = dcopy + q * 2 * hd + 2 * dh * h + 128 * hh + d0;
         unsigned char* arow = dos + hh * kPanel + r * 128;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -1315,9 +1388,9 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
                                        sc[4 * c + 3]);
           *reinterpret_cast<uint4*>(
               arow + ((((d0 >> 3) + c) ^ (r & 7)) << 4)) = vsc;
-          if (in) {
+          if (in && d0 + 8 * c < w) {
             *reinterpret_cast<uint4*>(crow + 8 * c) = vsc;
-            *reinterpret_cast<uint4*>(crow + 64 + 8 * c) = make_uint4(
+            *reinterpret_cast<uint4*>(crow + w + 8 * c) = make_uint4(
                 un[4 * c], un[4 * c + 1], un[4 * c + 2], un[4 * c + 3]);
           }
         }
@@ -1326,8 +1399,8 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
         const bf16* drow = dout + q * hd + col;
 #pragma unroll
         for (int c = 0; c < 32; c += 8) {
-          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const uint4 ov = load16_if(orow + c, d0 + c < w);
+          const uint4 dv = load16_if(drow + c, d0 + c < w);
           const bf16* op = reinterpret_cast<const bf16*>(&ov);
           const bf16* dp = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
@@ -1441,13 +1514,13 @@ k6_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   bf16* stage = reinterpret_cast<bf16*>(ring);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    store_rows(dqkv + (long)bi * n * ld + h * D + 64 * hh, ld, q0, n,
-               stage + hh * K6_TILE, warp * 16, dq[hh]);
+    store_rows(dqkv + (long)bi * n * ld + h * dh + 64 * hh, ld, q0, n,
+               stage + hh * K6_TILE, warp * 16, dq[hh], dh - 64 * hh);
 }
 
-// shared memory of a head of 64 NH columns (megablock dk/dv at NH 1: 8
-// tiles, 75,520 bytes; at NH 2: 149,248, or 112,384 with one buffer of
-// do and of T(dattn))
+// shared memory of a head of NH 64-column halves (megablock dk/dv at NH 1:
+// 8 tiles, 75,520 bytes; at NH 2: 112,384 with one buffer of do and of
+// T(dattn); at NH 4: 24 tiles, 222,976)
 template <int NH>
 constexpr size_t k6_fwd_smem() {
   return 5 * NH * K6_TILE * sizeof(bf16) + K6_MAX_TILES * 8;
@@ -1458,7 +1531,7 @@ constexpr size_t k6_dq_smem() {
 }
 template <int NH>
 constexpr size_t k6_dkv_smem(bool mega) {
-  const int db = mega && NH == 2 ? 1 : 2;
+  const int db = mega && NH >= 2 ? 1 : 2;
   return (mega ? 4 + 2 * db : 6) * NH * K6_TILE * sizeof(bf16) +
          2 * (mega ? 3 : 2) * 64 * sizeof(float) + K6_MAX_TILES * 8;
 }
@@ -1473,9 +1546,17 @@ constexpr size_t k6_fwd_wg_smem() {
 constexpr size_t k6_dq_wg_smem() {
   return 1024 + 12 * kPanel + 3 * 8 + K6_MAX_TILES * 8;
 }
-
-// The head widths the kernels take: 64 and 128 (NH = 1, 2); 0 otherwise.
-inline int k6_halves(int dh) { return dh == 64 ? 1 : dh == 128 ? 2 : 0; }
+// every kernel under the 232,448 bytes a block may opt in to; at four
+// halves the dk/dv kernel only with one buffer of the megablock's do and
+// T(dattn) (two would take 294,912 bytes)
+static_assert(k6_fwd_smem<4>() <= 232448 && k6_dq_smem<4>() <= 232448,
+              "the forward and dq kernels at four halves fit a block");
+static_assert(k6_dkv_smem<4>(false) <= 232448 &&
+                  k6_dkv_smem<4>(true) <= 232448,
+              "the dk/dv kernels at four halves fit a block");
+static_assert(k6_fwd_wg_smem<K6_WG_ROWS / 64>() <= 232448 &&
+                  k6_dq_wg_smem() <= 232448,
+              "the wgmma kernels fit a block");
 
 // Allow a kernel its dynamic shared memory; the cudaError_t.
 template <typename K>
@@ -1485,49 +1566,78 @@ inline cudaError_t k6_allow(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// A 4-D map over the (b, n, slots, dh) view of a row-major (b*n x slots*dh)
+// matrix (qkv: 3 heads slots; K6's do: heads), each box one slot's 64
+// columns at 64 . hh by 64 rows, 128-byte swizzled: rows past n of each
+// batch element and a head's columns past dh read 0. dh a multiple of 8
+// (the slot stride of 2 dh bytes a multiple of 16).
+inline bool encode_head_map(CUtensorMap* map, const bf16* base, int dh,
+                            int slots, int n, int b) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn || reinterpret_cast<uintptr_t>(base) % 16 || dh % 8) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)slots,
+                              (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)slots * dh * 2,
+                                 (cuuint64_t)n * slots * dh * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<bf16*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <bool MEGA, int NH>
 inline int launch_k6_fwd_nh(const bf16* qkv, const uint8_t* mask, bf16* out,
-                            float* stats, int b, int n, int heads,
+                            float* stats, int b, int n, int heads, int dh,
                             float scale, int causal, int maybe_dead,
                             cudaStream_t st) {
-  if constexpr (NH == 2) {
-    // a 3-D map over (b, n, 3 hd): rows past n of each batch element read 0
-    constexpr int WG = K6_WG_ROWS / 64;
-    CUtensorMap map;
-    if (!encode_map(&map, qkv, false, n, 3L * heads * 128, 3L * heads * 128,
-                    64, b))
-      return (int)cudaErrorInvalidValue;
-    const cudaError_t e =
-        k6_allow(k6_fwd_wg_kernel<MEGA, WG>, k6_fwd_wg_smem<WG>());
-    if (e != cudaSuccess) return (int)e;
-    k6_fwd_wg_kernel<MEGA, WG>
-        <<<dim3((n + 64 * WG - 1) / (64 * WG), heads, b), K6_THREADS * WG,
-           k6_fwd_wg_smem<WG>(), st>>>(map, mask, out, stats, n, heads,
-                                       scale, causal, maybe_dead);
-  } else {
-    const cudaError_t e = k6_allow(k6_fwd_kernel<MEGA, NH>, k6_fwd_smem<NH>());
-    if (e != cudaSuccess) return (int)e;
-    k6_fwd_kernel<MEGA, NH>
-        <<<dim3((n + 63) / 64, heads, b), K6_THREADS, k6_fwd_smem<NH>(),
-           st>>>(qkv, mask, out, stats, n, heads, scale, causal,
-                 maybe_dead);
-  }
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+  return by_width<NH>(dh, [&](auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    if constexpr (NH == 2) {
+      constexpr int WG = K6_WG_ROWS / 64;
+      CUtensorMap map;
+      if (!encode_head_map(&map, qkv, dh, 3 * heads, n, b))
+        return (int)cudaErrorInvalidValue;
+      auto* kernel = k6_fwd_wg_kernel<MEGA, WG, FULL>;
+      const cudaError_t e = k6_allow(kernel, k6_fwd_wg_smem<WG>());
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<dim3((n + 64 * WG - 1) / (64 * WG), heads, b),
+               K6_THREADS * WG, k6_fwd_wg_smem<WG>(), st>>>(
+          map, mask, out, stats, n, heads, dh, scale, causal, maybe_dead);
+    } else {
+      auto* kernel = k6_fwd_kernel<MEGA, NH, FULL>;
+      const cudaError_t e = k6_allow(kernel, k6_fwd_smem<NH>());
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<dim3((n + 63) / 64, heads, b), K6_THREADS, k6_fwd_smem<NH>(),
+               st>>>(qkv, mask, out, stats, n, heads, dh, scale, causal,
+                     maybe_dead);
+    }
+    XCLIP_CHECK_LAUNCH();
+    return 0;
+  });
 }
 
 // out (b*n x hd) and the row statistics (K6: lse, b*n x heads; megablock:
-// sm, b*n x 2*heads, or null) from qkv (b*n x 3hd), hd = heads * dh, dh 64
-// or 128.
+// sm, b*n x 2*heads, or null) from qkv (b*n x 3hd), hd = heads * dh, dh a
+// width bf16_halves takes.
 template <bool MEGA>
 inline int launch_k6_fwd(const bf16* qkv, const uint8_t* mask, bf16* out,
                          float* stats, int b, int n, int heads, int dh,
                          float scale, int causal, int maybe_dead,
                          cudaStream_t st) {
-  if (n > K6_MAX_N || !k6_halves(dh)) return (int)cudaErrorInvalidValue;
-  return (k6_halves(dh) == 1 ? launch_k6_fwd_nh<MEGA, 1>
-                             : launch_k6_fwd_nh<MEGA, 2>)(
-      qkv, mask, out, stats, b, n, heads, scale, causal, maybe_dead, st);
+  auto* launch = launch_k6_fwd_nh<MEGA, 1>;
+  switch (n > K6_MAX_N ? 0 : bf16_halves(dh)) {
+    case 1: break;
+    case 2: launch = launch_k6_fwd_nh<MEGA, 2>; break;
+    case 3: launch = launch_k6_fwd_nh<MEGA, 3>; break;
+    case 4: launch = launch_k6_fwd_nh<MEGA, 4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(qkv, mask, out, stats, b, n, heads, dh, scale, causal,
+                maybe_dead, st);
 }
 
 // dqkv (b*n x 3hd) from qkv, out, the statistics and the row cotangent
@@ -1538,47 +1648,52 @@ template <bool MEGA, int NH>
 inline int launch_k6_bwd_nh(const bf16* qkv, const uint8_t* mask,
                             const bf16* out, const float* stats,
                             const K6Cot<MEGA>* dout, bf16* dcopy, bf16* dqkv,
-                            float* delta, int b, int n, int heads,
+                            float* delta, int b, int n, int heads, int dh,
                             float scale, int causal, int maybe_dead,
                             cudaStream_t st) {
-  const dim3 grid((n + 63) / 64, heads, b);
-  cudaError_t e;
-  if constexpr (NH == 2) {
-    // 3-D maps over (b, n, 3 hd) and K6's do (b, n, hd)
-    CUtensorMap qmap, dmap;
-    if (!encode_map(&qmap, qkv, false, n, 3L * heads * 128, 3L * heads * 128,
-                    64, b))
-      return (int)cudaErrorInvalidValue;
-    dmap = qmap;
-    if (!MEGA && !encode_map(&dmap, dout, false, n, heads * 128L,
-                             heads * 128L, 64, b))
-      return (int)cudaErrorInvalidValue;
-    e = k6_allow(k6_bwd_dq_wg_kernel<MEGA>, k6_dq_wg_smem());
+  return by_width<NH>(dh, [&](auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    const dim3 grid((n + 63) / 64, heads, b);
+    cudaError_t e;
+    if constexpr (NH == 2) {
+      // 4-D maps over qkv (3 heads slots) and K6's do (heads)
+      CUtensorMap qmap, dmap;
+      if (!encode_head_map(&qmap, qkv, dh, 3 * heads, n, b))
+        return (int)cudaErrorInvalidValue;
+      dmap = qmap;
+      if (!MEGA &&
+          !encode_head_map(&dmap, reinterpret_cast<const bf16*>(dout), dh,
+                           heads, n, b))
+        return (int)cudaErrorInvalidValue;
+      auto* kernel = k6_bwd_dq_wg_kernel<MEGA, FULL>;
+      e = k6_allow(kernel, k6_dq_wg_smem());
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, K6_THREADS, k6_dq_wg_smem(), st>>>(
+          qmap, dmap, mask, out, stats, dout, dcopy, dqkv, delta, n, heads,
+          dh, scale, causal, maybe_dead);
+    } else {
+      auto* kernel = k6_bwd_dq_kernel<MEGA, NH, FULL>;
+      e = k6_allow(kernel, k6_dq_smem<NH>());
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, K6_THREADS, k6_dq_smem<NH>(), st>>>(
+          qkv, mask, out, stats, dout, dcopy, dqkv, delta, n, heads, dh,
+          scale, causal, maybe_dead);
+    }
+    XCLIP_CHECK_LAUNCH();
+    const bf16* dsrc;
+    if constexpr (MEGA)
+      dsrc = dcopy;
+    else
+      dsrc = dout;
+    auto* kernel = k6_bwd_dkv_kernel<MEGA, NH, FULL>;
+    e = k6_allow(kernel, k6_dkv_smem<NH>(MEGA));
     if (e != cudaSuccess) return (int)e;
-    k6_bwd_dq_wg_kernel<MEGA><<<grid, K6_THREADS, k6_dq_wg_smem(), st>>>(
-        qmap, dmap, mask, out, stats, dout, dcopy, dqkv, delta, n, heads,
-        scale, causal, maybe_dead);
-  } else {
-    e = k6_allow(k6_bwd_dq_kernel<MEGA, NH>, k6_dq_smem<NH>());
-    if (e != cudaSuccess) return (int)e;
-    k6_bwd_dq_kernel<MEGA, NH><<<grid, K6_THREADS, k6_dq_smem<NH>(), st>>>(
-        qkv, mask, out, stats, dout, dcopy, dqkv, delta, n, heads, scale,
-        causal, maybe_dead);
-  }
-  XCLIP_CHECK_LAUNCH();
-  const bf16* dsrc;
-  if constexpr (MEGA)
-    dsrc = dcopy;
-  else
-    dsrc = dout;
-  e = k6_allow(k6_bwd_dkv_kernel<MEGA, NH>, k6_dkv_smem<NH>(MEGA));
-  if (e != cudaSuccess) return (int)e;
-  k6_bwd_dkv_kernel<MEGA, NH>
-      <<<grid, K6_THREADS, k6_dkv_smem<NH>(MEGA), st>>>(
-          qkv, mask, stats, dsrc, delta, dqkv, n, heads, scale, causal,
-          maybe_dead);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+    kernel<<<grid, K6_THREADS * dkv_groups(NH), k6_dkv_smem<NH>(MEGA),
+             st>>>(qkv, mask, stats, dsrc, delta, dqkv, n, heads, dh, scale,
+                   causal, maybe_dead);
+    XCLIP_CHECK_LAUNCH();
+    return 0;
+  });
 }
 
 template <bool MEGA>
@@ -1587,11 +1702,16 @@ inline int launch_k6_bwd(const bf16* qkv, const uint8_t* mask, const bf16* out,
                          bf16* dcopy, bf16* dqkv, float* delta, int b, int n,
                          int heads, int dh, float scale, int causal,
                          int maybe_dead, cudaStream_t st) {
-  if (n > K6_MAX_N || !k6_halves(dh)) return (int)cudaErrorInvalidValue;
-  return (k6_halves(dh) == 1 ? launch_k6_bwd_nh<MEGA, 1>
-                             : launch_k6_bwd_nh<MEGA, 2>)(
-      qkv, mask, out, stats, dout, dcopy, dqkv, delta, b, n, heads, scale,
-      causal, maybe_dead, st);
+  auto* launch = launch_k6_bwd_nh<MEGA, 1>;
+  switch (n > K6_MAX_N ? 0 : bf16_halves(dh)) {
+    case 1: break;
+    case 2: launch = launch_k6_bwd_nh<MEGA, 2>; break;
+    case 3: launch = launch_k6_bwd_nh<MEGA, 3>; break;
+    case 4: launch = launch_k6_bwd_nh<MEGA, 4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(qkv, mask, out, stats, dout, dcopy, dqkv, delta, b, n, heads,
+                dh, scale, causal, maybe_dead, st);
 }
 
 // Blocks (warps with `warps`) an SM of a bf16 kernel at head width dh, as
@@ -1609,32 +1729,40 @@ inline int k6_resident(K kernel, int threads, size_t smem, bool warps) {
   return warps ? blocks * threads / 32 : blocks;
 }
 template <bool MEGA, int NH>
-inline int k6_blocks_nh(int which, bool warps) {
-  if (which < 0) {
-    if constexpr (NH == 2)
-      return k6_resident(k6_fwd_wg_kernel<MEGA, K6_WG_ROWS / 64>,
-                         K6_WG_ROWS * 2, k6_fwd_wg_smem<K6_WG_ROWS / 64>(),
-                         warps);
-    else
-      return k6_resident(k6_fwd_kernel<MEGA, NH>, K6_THREADS,
-                         k6_fwd_smem<NH>(), warps);
-  }
-  if (which == 0) {
-    if constexpr (NH == 2)
-      return k6_resident(k6_bwd_dq_wg_kernel<MEGA>, K6_THREADS,
-                         k6_dq_wg_smem(), warps);
-    else
-      return k6_resident(k6_bwd_dq_kernel<MEGA, NH>, K6_THREADS,
-                         k6_dq_smem<NH>(), warps);
-  }
-  return k6_resident(k6_bwd_dkv_kernel<MEGA, NH>, K6_THREADS,
-                     k6_dkv_smem<NH>(MEGA), warps);
+inline int k6_blocks_nh(int which, int dh, bool warps) {
+  return by_width<NH>(dh, [&](auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    if (which < 0) {
+      if constexpr (NH == 2)
+        return k6_resident(k6_fwd_wg_kernel<MEGA, K6_WG_ROWS / 64, FULL>,
+                           K6_WG_ROWS * 2, k6_fwd_wg_smem<K6_WG_ROWS / 64>(),
+                           warps);
+      else
+        return k6_resident(k6_fwd_kernel<MEGA, NH, FULL>, K6_THREADS,
+                           k6_fwd_smem<NH>(), warps);
+    }
+    if (which == 0) {
+      if constexpr (NH == 2)
+        return k6_resident(k6_bwd_dq_wg_kernel<MEGA, FULL>, K6_THREADS,
+                           k6_dq_wg_smem(), warps);
+      else
+        return k6_resident(k6_bwd_dq_kernel<MEGA, NH, FULL>, K6_THREADS,
+                           k6_dq_smem<NH>(), warps);
+    }
+    return k6_resident(k6_bwd_dkv_kernel<MEGA, NH, FULL>,
+                       K6_THREADS * dkv_groups(NH), k6_dkv_smem<NH>(MEGA),
+                       warps);
+  });
 }
 template <bool MEGA>
 inline int k6_blocks(int which, int dh, bool warps) {
-  if (!k6_halves(dh)) return -(int)cudaErrorInvalidValue;
-  return k6_halves(dh) == 1 ? k6_blocks_nh<MEGA, 1>(which, warps)
-                            : k6_blocks_nh<MEGA, 2>(which, warps);
+  switch (bf16_halves(dh)) {
+    case 1: return k6_blocks_nh<MEGA, 1>(which, dh, warps);
+    case 2: return k6_blocks_nh<MEGA, 2>(which, dh, warps);
+    case 3: return k6_blocks_nh<MEGA, 3>(which, dh, warps);
+    case 4: return k6_blocks_nh<MEGA, 4>(which, dh, warps);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

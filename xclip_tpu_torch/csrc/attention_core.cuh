@@ -707,7 +707,7 @@ int launch_fma_fwd(const float* q, const float* k, const float* v, long ld,
                    int maybe_dead, cudaStream_t st) {
   using xclip::aligned16;
   const dim3 grid = core_grid<MODE>(b, n, heads);
-  const int nh = xclip::k6_halves(dh);
+  const int nh = xclip::f32_halves(dh);
   const bool shape_ok =
       MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == dh && !maybe_dead
                   : n <= xclip::K6_MAX_N;
@@ -1190,7 +1190,7 @@ int attention_bwd_blocks(int which) {
 // forward's (`which` -1), the dq kernel's (0) or the dk/dv kernel's (1).
 template <int MODE>
 int attention_blocks(int which, int dh) {
-  const int nh = xclip::k6_halves(dh);
+  const int nh = xclip::f32_halves(dh);
   if (!nh) return -(int)cudaErrorInvalidValue;
   if (which < 0)
     return nh == 1 ? attention_fwd_blocks<MODE, 1>()
@@ -1238,7 +1238,7 @@ int launch_fma_bwd(const float* q, const float* k, const float* v, long ld,
                    cudaStream_t st) {
   using xclip::aligned16;
   const dim3 grid = core_grid<MODE>(b, n, heads);
-  const int nh = xclip::k6_halves(dh);
+  const int nh = xclip::f32_halves(dh);
   const bool shape_ok =
       MODE == kK7 ? n % 64 == 0 && heads == 1 && ld == dh && !maybe_dead
                   : n <= xclip::K6_MAX_N;

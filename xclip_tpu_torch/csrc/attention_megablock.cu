@@ -300,7 +300,8 @@ extern "C" int xclip_attention_block_bwd_max_n(int dtype) {
 // The attention core alone, as the megablock launches it (step 3 of the
 // forward, the attention launches of the backward), for tests and timing.
 // Returns a cudaError_t code. qkv (b*n, 3*heads*dh) and attnout (b*n,
-// heads*dh) of the storage dtype, dh 64 or 128, mask (b, n) uint8, sm
+// heads*dh) of the storage dtype (bf16: dh a multiple of 8 up to 256;
+// fp32: 64 or 128), mask (b, n) uint8, sm
 // (b*n, 2*heads) fp32 or null.
 extern "C" int xclip_mega_core_fwd(int dtype, const void* qkv,
                                    const void* mask, void* attnout, void* sm,
@@ -346,15 +347,21 @@ extern "C" int xclip_mega_core_bwd(int dtype, const void* qkv,
       scale, causal, maybe_dead, st);
 }
 
+// dim and the heads' width heads * dh on the product kernel's 64-column
+// grid; dh as the attention kernels take it (bf16: bf16_halves, fp32:
+// f32_halves).
 static bool mega_args_ok(int dtype, int b, int n, int dim, int heads,
                          int dh) {
-  return !(dim % 64 || b < 0 || n < 0 || heads <= 0 ||
-           !xclip::k6_halves(dh) || n > xclip_attention_block_max_n(dtype));
+  const bool dh_ok = dtype == xclip::kBF16 ? xclip::bf16_halves(dh) != 0
+                                           : xclip::f32_halves(dh) != 0;
+  return !(dim % 64 || b < 0 || n < 0 || heads <= 0 || !dh_ok ||
+           (heads * dh) % 64 || n > xclip_attention_block_max_n(dtype));
 }
 
 // Returns a cudaError_t code (0 on success). x/out are (b, n, dim), mask is
 // (b, n) uint8 (nonzero = valid key); w_qkv (dim, 3*heads*dh), w_out
-// (heads*dh, dim), dh 64 or 128, gains (dim). Scratch: xn (b*n, dim) and
+// (heads*dh, dim), dh and heads as mega_args_ok takes them, gains (dim).
+// Scratch: xn (b*n, dim) and
 // proj (b*n, dim)
 // fp32; qkv (b*n, 3hd) and attnout (b*n, hd) of the storage dtype, which
 // K2 keeps as residuals (K3 "qkv" keeps qkv). K-MEGA passes null residual

@@ -6,7 +6,8 @@
 // whole, so the length has no limit.
 //
 // Shapes: q, k, v, out (bh, n, d) of the storage dtype, q pre-scaled (d
-// 64 or 128, a head of two 64-column halves, in both dtypes); the
+// in bf16 any multiple of 8 up to 256, read at its true width as ⌈d / 64⌉
+// 64-column halves; in fp32 64 or 128); the
 // key mask (bh, n) uint8 (nonzero = valid), already repeated per head; n a
 // multiple of 64 (the wrapper pads, masking the padded keys); lse and
 // delta (bh, n) fp32.
@@ -41,16 +42,19 @@
 
 using xclip::bf16;
 
-// bh, n and d as the kernels take them: n a multiple of 64, d 64 or 128;
-// bf16 puts the query tiles on its grid's y axis (at most 65,535 of them),
-// fp32 has a 1-D grid over bh x tiles.
+// bh, n and d as the kernels take them: n a multiple of 64, d as
+// bf16_halves (bf16) or f32_halves (fp32) takes it; bf16 puts the query
+// tiles on its grid's y axis (at most 65,535 of them), fp32 has a 1-D grid
+// over bh x tiles.
 static bool flash_args_ok(int dtype, int bh, int n, int d) {
-  if (bh <= 0 || n <= 0 || n % 64 || !xclip::k6_halves(d)) return false;
+  if (bh <= 0 || n <= 0 || n % 64) return false;
+  if (!(dtype == xclip::kBF16 ? xclip::bf16_halves(d) : xclip::f32_halves(d)))
+    return false;
   return dtype == xclip::kF32 || n / 64 <= 65535;
 }
 
 // Returns a cudaError_t code (0 on success). q (pre-scaled), k, v, out
-// (bh, n, d) of the storage dtype, d 64 or 128; mask (bh, n) uint8; lse
+// (bh, n, d) of the storage dtype (d: flash_args_ok); mask (bh, n) uint8; lse
 // (bh, n) fp32.
 extern "C" int xclip_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, const void* mask, void* out,

@@ -65,6 +65,15 @@
 // SM under its bound), dq 157 and dk/dv 168 (3 blocks an SM each, under
 // their bounds, as K6's), no spill in any. tools/k7_variants.py times the
 // query-tile order and the exp against their alternatives.
+//
+// A head of d columns (any multiple of 8 up to 256) is NH = ⌈d / 64⌉
+// staged 64-column halves, read at the tensors' true row stride d: the
+// columns of the last half past d are zero in shared memory (cp.async with
+// a source size of 0) and are never stored. At three and four halves the
+// forward and dq kernels hold every half's accumulator (one block an SM),
+// and the dk/dv kernel runs two groups of four warps on the same 16-key
+// slabs, each recomputing s and dp over the whole head and keeping dk and
+// dv for two halves (each thread's dk and dv for four would be 256 fp32).
 #pragma once
 
 #include "mma_tiles.cuh"
@@ -93,40 +102,42 @@ struct K7Block {
   }
 };
 
-// A head of D = 64 NH columns is NH staged 64-column tiles (NH = 1 or 2):
-// its scores sum the halves' products, and each half keeps its own output
-// accumulator. Tile h of a staged side sits at `tiles + h * K7_TILE`.
-template <int NH>
+// A head of d columns is NH staged 64-column tiles: its scores sum the
+// halves' products, and each half keeps its own output accumulator. Tile h
+// of a staged side sits at `tiles + h * K7_TILE`; rows of d columns, the
+// last tile's columns past d zero.
+template <int NH, int THREADS = K7_THREADS>
 __device__ __forceinline__ void k7_stage(bf16* tiles, const bf16* src,
-                                         int r0, int n) {
+                                         int r0, int n, int d) {
 #pragma unroll
   for (int h = 0; h < NH; ++h)
-    stage_tile_async<K7_THREADS>(tiles + h * K7_TILE, src, 64 * NH, 64 * h,
-                                 r0, n);
+    stage_tile_async<THREADS>(tiles + h * K7_TILE, src, d, 64 * h, r0, n,
+                              d - 64 * h);
 }
 
-// acc += a . bᵀ over the whole head: a's NH tiles (the warp's rows) against
-// b's NH tiles
+// acc += a . bᵀ over the whole head: a's NH tiles (rows r0 to r0 + 16)
+// against b's NH tiles
 template <int NH>
 __device__ __forceinline__ void k7_abt(float (&acc)[8][4], const bf16* a,
-                                       const bf16* b) {
-  const int warp = threadIdx.x >> 5;
+                                       const bf16* b, int r0) {
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
     uint32_t f[4][4];
-    load_a(f, a + h * K7_TILE, warp * 16);
+    load_a(f, a + h * K7_TILE, r0);
     mma_abt(acc, f, b + h * K7_TILE);
   }
 }
 
 // Forward, one block per (bh row, 64-query tile).
-template <int NH>
-__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 4 : 2)
+template <int NH, bool FULL>
+__global__ void __launch_bounds__(K7_THREADS,
+                                  NH == 1 ? 4 : NH == 2 ? 2 : 1)
 k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
               bf16* __restrict__ out, float* __restrict__ lse, int n,
-              int causal) {
-  constexpr int D = 64 * NH, T = NH * K7_TILE;
+              int d_arg, int causal) {
+  const int d = FULL ? 64 * NH : d_arg;  // whole halves fold it in
+  constexpr int T = NH * K7_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + T;      // two buffers
@@ -134,17 +145,17 @@ k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles = n / 64;
   const K7Block blk(tiles, causal);
   const int qt = blk.t, q0 = 64 * qt;
-  const long base = blk.bh * n * D;
+  const long base = blk.bh * n * d;
   const uint8_t* mrow = mask + blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n);
-    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n);
+    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n, d);
+    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n, d);
   };
   // q lands with the first key tile
-  k7_stage<NH>(qs, q + base, q0, n);
+  k7_stage<NH>(qs, q + base, q0, n, d);
   const int last = causal ? qt + 1 : tiles;
   auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
   const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows in the tile
@@ -159,7 +170,7 @@ k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool diag = causal && t == qt;  // the only tile with future keys
     float s[8][4];
     zero_acc(s);
-    k7_abt<NH>(s, qs, ks + buf * T);
+    k7_abt<NH>(s, qs, ks + buf * T, warp * 16);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mt = -INFINITY;
@@ -213,18 +224,20 @@ k7_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 #pragma unroll
   for (int h = 0; h < NH; ++h)
-    store_rows(out + base + 64 * h, D, q0, n, qs + h * K7_TILE, warp * 16,
-               o[h]);
+    store_rows(out + base + 64 * h, d, q0, n, qs + h * K7_TILE, warp * 16,
+               o[h], d - 64 * h);
 }
 
 // dq and delta, one block per (bh row, 64-query tile).
-template <int NH>
-__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 3 : 2)
+template <int NH, bool FULL>
+__global__ void __launch_bounds__(K7_THREADS,
+                                  NH == 1 ? 3 : NH == 2 ? 2 : 1)
 k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                  const bf16* __restrict__ out, const float* __restrict__ lse,
                  const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                 float* __restrict__ delta, int n, int causal) {
+                 float* __restrict__ delta, int n, int d_arg, int causal) {
+  const int d = FULL ? 64 * NH : d_arg;  // whole halves fold it in
   constexpr int D = 64 * NH, T = NH * K7_TILE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -234,18 +247,18 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles = n / 64;
   const K7Block blk(tiles, causal);
   const int qt = blk.t, q0 = 64 * qt;
-  const long base = blk.bh * n * D, rows = blk.bh * n + q0;
+  const long base = blk.bh * n * d, rows = blk.bh * n + q0;
   const uint8_t* mrow = mask + blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
 
   auto stage = [&](int t, int buf) {
-    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n);
-    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n);
+    k7_stage<NH>(ks + buf * T, k + base, 64 * t, n, d);
+    k7_stage<NH>(vs + buf * T, v + base, 64 * t, n, d);
   };
   // q and dO land with the first key tile
-  k7_stage<NH>(qs, q + base, q0, n);
-  k7_stage<NH>(dos, dout + base, q0, n);
+  k7_stage<NH>(qs, q + base, q0, n, d);
+  k7_stage<NH>(dos, dout + base, q0, n, d);
   const int last = causal ? qt + 1 : tiles;
   auto next = [&](int t) { return next_key_tile(mrow, t + 1, last); };
   const int first = next(-1);
@@ -254,16 +267,17 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) rlse[i] = lse[rows + r[i]];
 
-  // delta = sum dO * out in fp32: lanes 2j, 2j + 1 take half of row
-  // warp * 16 + j each, from global memory while the tiles load
+  // delta = sum dO * out in fp32: lanes 2j, 2j + 1 take half of the
+  // halves' columns of row warp * 16 + j each (those below d), from global
+  // memory while the tiles load
   {
-    const long off =
-        (rows + warp * 16 + (lane >> 1)) * D + (lane & 1) * (D / 2);
+    const int c0 = (lane & 1) * (D / 2);
+    const long off = (rows + warp * 16 + (lane >> 1)) * d + c0;
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < D / 2; c += 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(out + off + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
+      const uint4 ov = load16_if(out + off + c, c0 + c < d);
+      const uint4 dv = load16_if(dout + off + c, c0 + c < d);
       const bf16* op = reinterpret_cast<const bf16*>(&ov);
       const bf16* dp = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
@@ -284,9 +298,9 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* kt = ks + buf * T;
     float s[8][4], dp[8][4];
     zero_acc(s);
-    k7_abt<NH>(s, qs, kt);
+    k7_abt<NH>(s, qs, kt, warp * 16);
     zero_acc(dp);
-    k7_abt<NH>(dp, dos, vs + buf * T);
+    k7_abt<NH>(dp, dos, vs + buf * T, warp * 16);
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -297,32 +311,48 @@ k7_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = valid ? k7_exp(s[c][e] - rlse[i]) : 0.f;
         s[c][e] = p * (dp[c][e] - rdelta[i]);
       }
-    uint32_t a[4][4];
-    pack_a(a, s);
+    if constexpr (NH <= 2) {
+      uint32_t a[4][4];
+      pack_a(a, s);
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
-      mma_ab(dqa[h], a, kt + h * K7_TILE);  // dq += T(ds) . k
+      for (int h = 0; h < NH; ++h)
+        mma_ab(dqa[h], a, kt + h * K7_TILE);  // dq += T(ds) . k
+    } else {
+      // ds into the halves' products a 16-wide slice at a time
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        pack_a_k(a, s, kk);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          mma_ab_k(dqa[h], a, kk, kt + h * K7_TILE);
+      }
+    }
   });
   cp_async_wait<0>();  // q, dO have landed even if no tile was walked
   __syncthreads();
 #pragma unroll
   for (int h = 0; h < NH; ++h)
-    store_rows(dq + base + 64 * h, D, q0, n, qs + h * K7_TILE, warp * 16,
-               dqa[h]);
+    store_rows(dq + base + 64 * h, d, q0, n, qs + h * K7_TILE, warp * 16,
+               dqa[h], d - 64 * h);
 }
 
 // dk and dv, one block per (bh row, 64-key tile), over the query tiles
 // that see it.
-template <int NH>
-__global__ void __launch_bounds__(K7_THREADS, NH == 1 ? 3 : 1)
+template <int NH, bool FULL>
+__global__ void __launch_bounds__(K7_THREADS * dkv_groups(NH),
+                                  NH == 1 ? 3 : 1)
 k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v,
                   const uint8_t* __restrict__ mask,
                   const float* __restrict__ lse,
                   const bf16* __restrict__ dout,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int n, int causal) {
-  constexpr int D = 64 * NH, T = NH * K7_TILE;
+                  bf16* __restrict__ dv, int n, int d_arg, int causal) {
+  const int d = FULL ? 64 * NH : d_arg;  // whole halves fold it in
+  constexpr int T = NH * K7_TILE;
+  constexpr int CG = dkv_groups(NH), THREADS = K7_THREADS * CG;
+  constexpr int NO = NH / CG + NH % CG;  // halves of dk, dv a group keeps
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + T;
@@ -332,40 +362,43 @@ k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles = n / 64;
   const K7Block blk(tiles, false);
   const int kt = blk.t, k0 = 64 * kt;
-  const long base = blk.bh * n * D, rows = blk.bh * n;
+  const long base = blk.bh * n * d, rows = blk.bh * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slab = warp & 3, cg = warp >> 2;  // 16 keys; the group
   const int g = lane >> 2, tq = lane & 3;
 
   const unsigned long long kw = key_word(mask + rows + k0);
   if (kw == 0) {  // no valid key: no query reaches the tile
-    for (int c = threadIdx.x; c < 64 * D / 8; c += K7_THREADS) {
-      const long o = base + (long)(k0 + c / (D / 8)) * D + (c % (D / 8)) * 8;
+    for (int c = threadIdx.x; c < 64 * d / 8; c += THREADS) {
+      const long o = base + (long)(k0 + c / (d / 8)) * d + (c % (d / 8)) * 8;
       *reinterpret_cast<uint4*>(dk + o) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(dv + o) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
   auto stage = [&](int t, int buf) {
-    k7_stage<NH>(qs + buf * T, q + base, 64 * t, n);
-    k7_stage<NH>(dos + buf * T, dout + base, 64 * t, n);
+    k7_stage<NH, THREADS>(qs + buf * T, q + base, 64 * t, n, d);
+    k7_stage<NH, THREADS>(dos + buf * T, dout + base, 64 * t, n, d);
     // lse (threads 0-63) and delta (64-127) of the tile's queries
-    const int c = threadIdx.x & 63;
-    cp_async4(stats + (buf * 2 + (threadIdx.x >> 6)) * 64 + c,
-              (threadIdx.x < 64 ? lse : delta) + rows + 64 * t + c, true);
+    if (threadIdx.x < K7_THREADS) {
+      const int c = threadIdx.x & 63;
+      cp_async4(stats + (buf * 2 + (threadIdx.x >> 6)) * 64 + c,
+                (threadIdx.x < 64 ? lse : delta) + rows + 64 * t + c, true);
+    }
   };
   // k and v land with the first query tile
-  k7_stage<NH>(ks, k + base, k0, n);
-  k7_stage<NH>(vs, v + base, k0, n);
-  const int r[2] = {warp * 16 + g, warp * 16 + g + 8};  // keys in the tile
+  k7_stage<NH, THREADS>(ks, k + base, k0, n, d);
+  k7_stage<NH, THREADS>(vs, v + base, k0, n, d);
+  const int r[2] = {slab * 16 + g, slab * 16 + g + 8};  // keys in the tile
   bool kvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) kvalid[i] = (kw >> r[i]) & 1ull;
 
-  float dka[NH][8][4], dva[NH][8][4];
+  float dka[NO][8][4], dva[NO][8][4];
 #pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    zero_acc(dka[h]);
-    zero_acc(dva[h]);
+  for (int j = 0; j < NO; ++j) {
+    zero_acc(dka[j]);
+    zero_acc(dva[j]);
   }
   // causal: query tiles before the key tile see none of its keys
   tile_walk(causal ? kt : 0, tiles, [](int t) { return t + 1; }, stage,
@@ -377,9 +410,9 @@ k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* tdelta = tlse + 64;
     float s[8][4], dp[8][4];
     zero_acc(s);
-    k7_abt<NH>(s, ks, qt);  // sᵀ = k . qᵀ
+    k7_abt<NH>(s, ks, qt, slab * 16);  // sᵀ = k . qᵀ
     zero_acc(dp);
-    k7_abt<NH>(dp, vs, dot);  // dpᵀ = v . dOᵀ
+    k7_abt<NH>(dp, vs, dot, slab * 16);  // dpᵀ = v . dOᵀ
 #pragma unroll
     for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -390,24 +423,44 @@ k7_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[c][e] = p;
         dp[c][e] = p * (dp[c][e] - tdelta[col]);
       }
-    uint32_t a[4][4];
-    pack_a(a, s);
+    if constexpr (NH <= 2) {
+      uint32_t a[4][4];
+      pack_a(a, s);
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
-      mma_ab(dva[h], a, dot + h * K7_TILE);  // dv += T(p)ᵀ . dO
-    pack_a(a, dp);
+      for (int h = 0; h < NH; ++h)
+        mma_ab(dva[h], a, dot + h * K7_TILE);  // dv += T(p)ᵀ . dO
+      pack_a(a, dp);
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
-      mma_ab(dka[h], a, qt + h * K7_TILE);  // dk += T(ds)ᵀ . q
+      for (int h = 0; h < NH; ++h)
+        mma_ab(dka[h], a, qt + h * K7_TILE);  // dk += T(ds)ᵀ . q
+    } else {
+      // the group's halves, p and ds a 16-wide slice at a time
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        pack_a_k(a, s, kk);
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+          if (cg * NO + j < NH)
+            mma_ab_k(dva[j], a, kk, dot + (cg * NO + j) * K7_TILE);
+        pack_a_k(a, dp, kk);
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+          if (cg * NO + j < NH)
+            mma_ab_k(dka[j], a, kk, qt + (cg * NO + j) * K7_TILE);
+      }
+    }
   });
   cp_async_wait<0>();
   __syncthreads();
 #pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    store_rows(dk + base + 64 * h, D, k0, n, ks + h * K7_TILE, warp * 16,
-               dka[h]);
-    store_rows(dv + base + 64 * h, D, k0, n, vs + h * K7_TILE, warp * 16,
-               dva[h]);
+  for (int j = 0; j < NO; ++j) {
+    const int h = cg * NO + j;
+    if (h >= NH) break;
+    store_rows(dk + base + 64 * h, d, k0, n, ks + h * K7_TILE, slab * 16,
+               dka[j], d - 64 * h);
+    store_rows(dv + base + 64 * h, d, k0, n, vs + h * K7_TILE, slab * 16,
+               dva[j], d - 64 * h);
   }
 }
 
@@ -419,6 +472,10 @@ template <int NH>
 constexpr size_t k7_dkv_smem() {
   return 6 * NH * K7_TILE * sizeof(bf16) + 4 * 64 * sizeof(float);
 }
+// four halves fit the 232,448 bytes a block may opt in to
+static_assert(k7_fwd_smem<4>() <= 232448 && k7_dq_smem<4>() <= 232448 &&
+                  k7_dkv_smem<4>() <= 232448,
+              "K7's kernels at four halves fit a block");
 
 // the 1-D grid of bh x n/64 blocks, 0 when it exceeds the grid's x limit
 inline unsigned k7_blocks(int bh, int n) {
@@ -435,45 +492,58 @@ cudaError_t k7_allow_smem(K kernel, size_t bytes) {
 template <int NH>
 int launch_k7_fwd_nh(const bf16* q, const bf16* k, const bf16* v,
                      const uint8_t* mask, bf16* out, float* lse,
-                     unsigned blocks, int n, int causal, cudaStream_t st) {
-  cudaError_t e = k7_allow_smem(k7_fwd_kernel<NH>, k7_fwd_smem<NH>());
-  if (e != cudaSuccess) return (int)e;
-  k7_fwd_kernel<NH><<<blocks, K7_THREADS, k7_fwd_smem<NH>(), st>>>(
-      q, k, v, mask, out, lse, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+                     unsigned blocks, int n, int d, int causal,
+                     cudaStream_t st) {
+  return by_width<NH>(d, [&](auto full) {
+    auto* kernel = k7_fwd_kernel<NH, decltype(full)::value>;
+    cudaError_t e = k7_allow_smem(kernel, k7_fwd_smem<NH>());
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, K7_THREADS, k7_fwd_smem<NH>(), st>>>(
+        q, k, v, mask, out, lse, n, d, causal);
+    XCLIP_CHECK_LAUNCH();
+    return 0;
+  });
 }
 
 template <int NH>
 int launch_k7_bwd_nh(const bf16* q, const bf16* k, const bf16* v,
                      const uint8_t* mask, const bf16* out, const float* lse,
                      const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
-                     float* delta, unsigned blocks, int n, int causal,
+                     float* delta, unsigned blocks, int n, int d, int causal,
                      cudaStream_t st) {
-  cudaError_t e = k7_allow_smem(k7_bwd_dq_kernel<NH>, k7_dq_smem<NH>());
-  if (e == cudaSuccess)
-    e = k7_allow_smem(k7_bwd_dkv_kernel<NH>, k7_dkv_smem<NH>());
-  if (e != cudaSuccess) return (int)e;
-  k7_bwd_dq_kernel<NH><<<blocks, K7_THREADS, k7_dq_smem<NH>(), st>>>(
-      q, k, v, mask, out, lse, dout, dq, delta, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  k7_bwd_dkv_kernel<NH><<<blocks, K7_THREADS, k7_dkv_smem<NH>(), st>>>(
-      q, k, v, mask, lse, dout, delta, dk, dv, n, causal);
-  XCLIP_CHECK_LAUNCH();
-  return 0;
+  return by_width<NH>(d, [&](auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    auto* dq_kernel = k7_bwd_dq_kernel<NH, FULL>;
+    auto* dkv_kernel = k7_bwd_dkv_kernel<NH, FULL>;
+    cudaError_t e = k7_allow_smem(dq_kernel, k7_dq_smem<NH>());
+    if (e == cudaSuccess) e = k7_allow_smem(dkv_kernel, k7_dkv_smem<NH>());
+    if (e != cudaSuccess) return (int)e;
+    dq_kernel<<<blocks, K7_THREADS, k7_dq_smem<NH>(), st>>>(
+        q, k, v, mask, out, lse, dout, dq, delta, n, d, causal);
+    XCLIP_CHECK_LAUNCH();
+    dkv_kernel<<<blocks, K7_THREADS * dkv_groups(NH), k7_dkv_smem<NH>(),
+                 st>>>(q, k, v, mask, lse, dout, delta, dk, dv, n, d, causal);
+    XCLIP_CHECK_LAUNCH();
+    return 0;
+  });
 }
 
 // out (bh, n, d) and lse (bh, n) fp32 from q (pre-scaled), k, v (bh, n,
-// d) and the key mask (bh, n) uint8; n a multiple of 64, d 64 or 128.
+// d) and the key mask (bh, n) uint8; n a multiple of 64, d a width
+// bf16_halves takes (a multiple of 8 up to 256).
 inline int launch_k7_fwd(const bf16* q, const bf16* k, const bf16* v,
                          const uint8_t* mask, bf16* out, float* lse, int bh,
                          int n, int d, int causal, cudaStream_t st) {
   const unsigned blocks = k7_blocks(bh, n);
-  if (!blocks || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
-  return d == 64 ? launch_k7_fwd_nh<1>(q, k, v, mask, out, lse, blocks, n,
-                                       causal, st)
-                 : launch_k7_fwd_nh<2>(q, k, v, mask, out, lse, blocks, n,
-                                       causal, st);
+  auto* launch = launch_k7_fwd_nh<1>;
+  switch (blocks ? bf16_halves(d) : 0) {
+    case 1: break;
+    case 2: launch = launch_k7_fwd_nh<2>; break;
+    case 3: launch = launch_k7_fwd_nh<3>; break;
+    case 4: launch = launch_k7_fwd_nh<4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(q, k, v, mask, out, lse, blocks, n, d, causal, st);
 }
 
 // dq, dk, dv (bh, n, d) from the forward's inputs, out, lse and dout;
@@ -485,11 +555,16 @@ inline int launch_k7_bwd(const bf16* q, const bf16* k, const bf16* v,
                          bf16* dk, bf16* dv, float* delta, int bh, int n,
                          int d, int causal, cudaStream_t st) {
   const unsigned blocks = k7_blocks(bh, n);
-  if (!blocks || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
-  return d == 64 ? launch_k7_bwd_nh<1>(q, k, v, mask, out, lse, dout, dq, dk,
-                                       dv, delta, blocks, n, causal, st)
-                 : launch_k7_bwd_nh<2>(q, k, v, mask, out, lse, dout, dq, dk,
-                                       dv, delta, blocks, n, causal, st);
+  auto* launch = launch_k7_bwd_nh<1>;
+  switch (blocks ? bf16_halves(d) : 0) {
+    case 1: break;
+    case 2: launch = launch_k7_bwd_nh<2>; break;
+    case 3: launch = launch_k7_bwd_nh<3>; break;
+    case 4: launch = launch_k7_bwd_nh<4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(q, k, v, mask, out, lse, dout, dq, dk, dv, delta, blocks, n,
+                d, causal, st);
 }
 
 }  // namespace

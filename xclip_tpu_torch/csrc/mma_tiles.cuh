@@ -175,14 +175,16 @@ __device__ __forceinline__ int tile_parts(int cols, int unit) {
 
 // Stage rows [r0, r0 + 64) of the 64 bf16 columns at `col` of a row-major
 // matrix (row stride ld) into a tile, by cp.async from all of the block's
-// `threads` threads; rows at or past n read as 0. The caller commits.
+// `threads` threads; rows at or past n, and the tile's columns at or past
+// `cols` (a multiple of 8: a head's last half past its true width), read
+// as 0. The caller commits.
 template <int threads>
 __device__ __forceinline__ void stage_tile_async(bf16* tile, const bf16* src,
                                                  long ld, int col, int r0,
-                                                 int n) {
+                                                 int n, int cols = 64) {
   for (int c = threadIdx.x; c < 64 * 8; c += threads) {
     const int r = c >> 3, d = (c & 7) * 8;
-    const bool in = r0 + r < n;
+    const bool in = r0 + r < n && d < cols;
     cp_async16(tile + r * LDT + d, src + (in ? (long)(r0 + r) * ld + col + d : 0),
                in);
   }
@@ -191,10 +193,11 @@ __device__ __forceinline__ void stage_tile_async(bf16* tile, const bf16* src,
 // Write the warp's 16 rows [r0, r0 + 16) of the accumulator, rounded to
 // bf16, through its own rows of a staged tile (`stage`, which no other
 // warp reads) to rows q0 + r0 + i < n of dst (row stride ld, 16-byte
-// stores of 64 columns).
+// stores of the first `cols` of the 64 columns, a multiple of 8).
 __device__ __forceinline__ void store_rows(bf16* dst, long ld, int q0, int n,
                                            bf16* stage, int r0,
-                                           const float (&acc)[8][4]) {
+                                           const float (&acc)[8][4],
+                                           int cols = 64) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   __syncwarp();
 #pragma unroll
@@ -208,7 +211,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, long ld, int q0, int n,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = lane + 32 * i, r = r0 + (c >> 3), d = (c & 7) * 8;
-    if (q0 + r < n)
+    if (q0 + r < n && d < cols)
       *reinterpret_cast<uint4*>(dst + (long)(q0 + r) * ld + d) =
           *reinterpret_cast<const uint4*>(stage + r * LDT + d);
   }
@@ -300,6 +303,51 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ------------------------------------------------------------ head widths
+//
+// A head of dh columns is NH = ⌈dh / 64⌉ staged 64-column halves. The bf16
+// kernels (K6, the megablock's core, K7) read it at its true width, the
+// columns of the last half past dh zero in shared memory and never stored;
+// the fp32 FMA core (attention_core.cuh) takes whole halves at one or two.
+
+constexpr int BF16_MAX_DH = 256;  // the widest head the bf16 kernels take
+
+// The halves of a bf16 head: dh a multiple of 8 from 8 to BF16_MAX_DH; 0
+// otherwise.
+inline int bf16_halves(int dh) {
+  return dh % 8 == 0 && dh >= 8 && dh <= BF16_MAX_DH ? (dh + 63) / 64 : 0;
+}
+
+// The halves of an fp32 head: 64 and 128 (NH = 1, 2); 0 otherwise.
+inline int f32_halves(int dh) { return dh == 64 ? 1 : dh == 128 ? 2 : 0; }
+
+// Launch a kernel of a head of NH halves as `run` does with FULL true
+// where dh is whole halves (dh = 64 NH) at one or two halves: the widths
+// the kernels were tuned at (64, 128) then run with dh folded into the
+// code. Three and four halves, and partial ones, read dh at run time.
+template <int NH, typename Run>
+inline int by_width(int dh, Run run) {
+  if constexpr (NH <= 2)
+    if (dh == 64 * NH) return run(std::true_type{});
+  return run(std::false_type{});
+}
+
+// Warp groups of a dk/dv kernel (K6's, the megablock's, K7's): at heads of
+// three or four halves each thread cannot hold every half's dk and dv (2 x
+// 16 x 64 NH / 32 fp32), so two groups of four warps share the 16-key
+// slabs, each recomputing s and dp over the whole head and keeping dk and
+// dv for two halves.
+__host__ __device__ constexpr int dkv_groups(int nh) {
+  return nh > 2 ? 2 : 1;
+}
+
+// 16 bytes from global memory where `ok`, zeros elsewhere: the dq
+// prologues' loads past a head's true width, predicated rather than
+// branched around so that a row's loads issue together.
+__device__ __forceinline__ uint4 load16_if(const bf16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
 }  // namespace

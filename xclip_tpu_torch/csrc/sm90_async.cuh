@@ -4,8 +4,9 @@
 // wgmma shared-memory descriptors of 128-byte-swizzled tiles and the
 // wgmma group fences, and the host's tensor-map encoder (taken through
 // cudaGetDriverEntryPoint, so the library needs no -lcuda). The bf16
-// product kernel (gemm_sm90.cu) and the bf16 attention forward at heads of
-// 128 (attention_block_sm90.cuh) are built from these.
+// product kernel (gemm_sm90.cu) and the bf16 attention forward and dq at
+// heads of two 64-column halves (attention_block_sm90.cuh) are built from
+// these.
 #pragma once
 
 #include <cuda.h>
@@ -67,16 +68,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// a (64-column, 64-row, 1) box of a 3-D map at (col, row, z) into shared
-// memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int col, int row,
-                                            int z) {
+// a (64-column, 1, 64-row, 1) box of a 4-D map at (col, slot, row, z) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int slot,
+                                            int row, int z) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"(z)
+      "r"(slot), "r"(row), "r"(z)
       : "memory");
 }
 

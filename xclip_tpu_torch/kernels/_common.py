@@ -14,9 +14,11 @@ import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-# The head widths the attention kernels take (K6, the megablock's core, K7;
-# both dtypes): 64, and 128 as two 64-column halves.
-HEAD_WIDTHS = (64, 128)
+# The head widths the attention kernels take (K6, the megablock's core,
+# K7): in bf16 any multiple of 8 up to BF16_MAX_HEAD, read at its true width
+# as ⌈dim_head / 64⌉ 64-column halves; in fp32 the FMA core's 64 and 128.
+BF16_MAX_HEAD = 256
+F32_HEAD_WIDTHS = (64, 128)
 
 # The memory-lean training routes (K-FF-s / K3 forwards, the recompute
 # backwards) take their rows in chunks whose transients (the recomputed
@@ -96,13 +98,49 @@ def ln_bwd(dy, xhat, inv, g32):
     return inv * (dxhat - m1 - xhat * m2), dg
 
 
-def padded_width(dim_head: int) -> int:
-    """The kernel width a head of `dim_head` runs at: the narrowest of
-    HEAD_WIDTHS that holds it, zero-padded (exact: the zero columns of q
-    and k add nothing to q·kᵀ, those of v nothing to the output, and their
-    gradients are dropped); `dim_head` itself past the widest (the kernels'
-    `why_not` refuses it)."""
-    return next((w for w in HEAD_WIDTHS if dim_head <= w), dim_head)
+def takes_width(dim_head: int, dtype, heads=None) -> bool:
+    """Whether the attention kernels take heads of `dim_head` in `dtype` as
+    they are: bf16 a multiple of 8 from 8 to BF16_MAX_HEAD (with `heads`,
+    the megablock's, heads·dim_head also on the product kernel's 64-column
+    grid: its qkv columns and out rows); fp32 one of F32_HEAD_WIDTHS."""
+    if dtype == torch.bfloat16:
+        return (dim_head % 8 == 0 and 8 <= dim_head <= BF16_MAX_HEAD
+                and (heads is None or heads * dim_head % 64 == 0))
+    return dim_head in F32_HEAD_WIDTHS
+
+
+def kernel_width(dim_head: int, dtype, heads=None) -> int:
+    """The width a head of `dim_head` runs at on the attention kernels in
+    `dtype` (with `heads`, the megablock's): `dim_head` itself where
+    `takes_width` holds, else the narrowest width above it that does (bf16:
+    the next multiple of 8 whose heads fill the 64-column grid; fp32: 64 or
+    128), zero-padded by the wrappers (exact: the zero columns of q and k
+    add nothing to q·kᵀ, those of v nothing to the output, and their
+    gradients are dropped). A head wider than any kernel takes (bf16 past
+    BF16_MAX_HEAD, fp32 past 128) keeps its width: the CPU's plain versions
+    run it, as JAX's bodies do, and the kernels' `why_not` refuses it on
+    the card. Depends on the dtype and shapes alone, so the CPU's plain
+    versions run at the card's width."""
+    limit = BF16_MAX_HEAD if dtype == torch.bfloat16 else F32_HEAD_WIDTHS[-1]
+    if dim_head > limit:
+        return dim_head
+    if dtype != torch.bfloat16:
+        return next(w for w in F32_HEAD_WIDTHS if dim_head <= w)
+    # a multiple of 64 fills the grid at any heads, so this ends by 256
+    width = max(8, -(-dim_head // 8) * 8)
+    while not takes_width(width, dtype, heads):
+        width += 8
+    return width
+
+
+def width_words(dtype, megablock=False) -> str:
+    """The head widths the attention kernels take in `dtype`, in words."""
+    if dtype == torch.bfloat16:
+        return (f"bf16 dim_head a multiple of 8 up to {BF16_MAX_HEAD}"
+                + (" with heads·dim_head a multiple of 64" if megablock
+                   else ""))
+    return (f"fp32 dim_head {' or '.join(map(str, F32_HEAD_WIDTHS))} "
+            f"(narrower zero-padded)")
 
 
 def dot32(a, b):

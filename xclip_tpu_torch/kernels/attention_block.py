@@ -21,18 +21,20 @@ The text tower runs it when rotary embeddings turn the megablock off
 
 The CUDA kernels are `csrc/attention_block.cu`: bf16 on the K6 mode of
 `csrc/attention_block_sm90.cuh` (register-resident mma.sync tiles at
-heads of 64; at 128 a TMA-fed wgmma forward and dq kernel beside a 4-warp
-mma.sync dk/dv kernel; all skip causal and all-masked tiles; its source
+heads of one, three and four 64-column halves; at two a TMA-fed wgmma
+forward and dq kernel beside a 4-warp mma.sync dk/dv kernel; all skip
+causal and all-masked tiles; its source
 notes give the design and what bounds it), whose megablock mode runs the
 attention megablock's core; fp32 on the megablock's FMA core (`csrc/attention_core.cuh`). The
 length limit is the megablock's, `attention_megablock.seq_len_limit` (2048
 in both dtypes, the kernels' mask words, in training too),
 and so is the predicate of what the kernels take,
-`attention_megablock.why_not` with no block width. The kernels take heads
-of 64 and 128 (two 64-column halves); `attention_core` runs a narrower
-head on them zero-padded to the next of those
-(`attention_megablock.pad_heads`, exact: 80 runs at 128). Every wrapper
-takes its kernel
+`attention_megablock.why_not` with no block width. The bf16 kernels take a
+head at its true width, any multiple of 8 up to 256 (⌈dim_head / 64⌉
+64-column halves, the last zero-filled on chip: 80 runs at 80), the fp32
+ones heads of 64 and 128; `attention_core` runs any other head zero-padded
+to its `_common.kernel_width` (`attention_megablock.pad_heads`, exact:
+fp32's 80 runs at 128). Every wrapper takes its kernel
 for CUDA tensors and its plain version for CPU tensors; it never falls back
 from one to the other.
 The Pallas kernel's padding to 128 rows and two-head groups are TPU
@@ -44,7 +46,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import (check_kernel_args, dot32, dtype_code, padded_width,
+from ._common import (check_kernel_args, dot32, dtype_code, kernel_width,
                       route, stream_ptr)
 from .attention_megablock import _check_core as _check
 from .attention_megablock import (_heads, _softmax_parts, pad_heads,
@@ -195,11 +197,11 @@ def attention_core(qkv, mask, heads, dim_head, scale, causal=False,
     """qkv: (b, n, 3·heads·dim_head); mask: (b, n) bool, True = a valid key.
     Returns (b, n, heads·dim_head) in qkv.dtype, differentiable in qkv.
     `maybe_dead=False` may be passed when every row has a valid key."""
-    width = padded_width(dim_head)
+    width = kernel_width(dim_head, qkv.dtype)
     if width != dim_head:
         return unpad_heads(attention_core(
-            pad_heads(qkv, dim_head), mask, heads, width, scale, causal,
-            maybe_dead), dim_head)
+            pad_heads(qkv, dim_head, width=width), mask, heads, width, scale,
+            causal, maybe_dead), dim_head, width)
     training = torch.is_grad_enabled() and qkv.requires_grad
     return AttentionCore.apply(qkv.contiguous(), mask, heads, dim_head, scale,
                                causal, maybe_dead, training)

@@ -35,11 +35,13 @@
 The CUDA kernels are `csrc/attention_megablock.cu`; its source notes give
 the designs, what bounds them on the card and which intermediates cross
 HBM. The attention core runs in bf16 on the megablock mode of K6's
-kernels (`csrc/attention_block_sm90.cuh`: mma.sync at heads of 64, wgmma
-forward and dq at 128), in fp32 on the FMA
-core of `csrc/attention_core.cuh`, at heads of 64 and 128 (two 64-column
-halves); a narrower head runs zero-padded to the next of those
-(`pad_heads`). Every wrapper takes its kernel for CUDA tensors and its
+kernels (`csrc/attention_block_sm90.cuh`: mma.sync at one, three and four
+64-column halves, wgmma forward and dq at two) at a head's true width, any
+multiple of 8 up to 256 whose heads fill the product kernel's 64-column
+grid (ViT-H/14's 16 x 80: qkv 3,840 columns); in fp32 on the FMA core of
+`csrc/attention_core.cuh` at heads of 64 and 128. Any other head runs
+zero-padded to the width `_common.kernel_width` gives (`pad_heads`).
+Every wrapper takes its kernel for CUDA tensors and its
 plain version for CPU tensors; it never falls back from one to the
 other. The Pallas version's 128/16-row alignment and transposed
 stats layout are TPU artefacts: the kernels work on the true (b, n, ·)
@@ -52,13 +54,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import (CHUNK_BYTES, HEAD_WIDTHS, KERNEL_DTYPES,
-                      check_kernel_args, chunk_spans, dot32, dtype_code,
-                      eps_for, ln_bwd, ln_stats_fp32, padded_width,
-                      refuse_grad, route, stream_ptr)
+from ._common import (CHUNK_BYTES, KERNEL_DTYPES, check_kernel_args,
+                      chunk_spans, dot32, dtype_code, eps_for, kernel_width,
+                      ln_bwd, ln_stats_fp32, refuse_grad, route, stream_ptr,
+                      takes_width, width_words)
 from .rows import MAX_WIDTH
 
-DIM_HEAD = HEAD_WIDTHS[0]   # the narrowest head width the kernels take
+DIM_HEAD = 64   # the flagship's head width, the chunk helpers' default
 
 
 def _heads(t, b, n, heads, dim_head):
@@ -213,40 +215,43 @@ def seq_len_limit(dtype, training=False) -> int:
             else max_seq_len(dtype))
 
 
-def pad_heads(t, dim_head, dim=-1):
+def pad_heads(t, dim_head, dim=-1, width=None):
     """`t` with each head slice of `dim_head` along `dim` (q, k and v's
-    heads, or the heads alone) zero-padded to `padded_width(dim_head)`: a
-    head narrower than a kernel width runs on the kernels so (80 → 128).
-    Exact: the zero columns of q and k add nothing to q·kᵀ, those of v and
-    of w_out's rows add nothing to the output, and their gradients are
-    dropped by autograd (the scale stays the caller's). Padding the weights
-    widens the megablock's qkv and out products by the padding too."""
+    heads, or the heads alone) zero-padded to `width`, by default the
+    head's `kernel_width` in t's dtype (the megablock's wrappers pass the
+    one its heads give): where the kernels do not take a head as it is it
+    runs so (fp32's 80 → 128, bf16's 100 → 104). Exact: the zero columns
+    of q and k add nothing to q·kᵀ, those of v and of w_out's rows add
+    nothing to the output, and their gradients are dropped by autograd
+    (the scale stays the caller's). Padding the weights widens the
+    megablock's qkv and out products by the padding too."""
+    width = width or kernel_width(dim_head, t.dtype)
     t = t.movedim(dim, -1)
     lead = t.shape[:-1]
-    t = F.pad(t.reshape(*lead, -1, dim_head),
-              (0, padded_width(dim_head) - dim_head))
+    t = F.pad(t.reshape(*lead, -1, dim_head), (0, width - dim_head))
     return t.reshape(*lead, -1).movedim(-1, dim).contiguous()
 
 
-def unpad_heads(t, dim_head):
+def unpad_heads(t, dim_head, width=None):
     """The inverse of `pad_heads` along the last dimension."""
+    width = width or kernel_width(dim_head, t.dtype)
     lead = t.shape[:-1]
-    return t.reshape(*lead, -1, padded_width(dim_head))[
-        ..., :dim_head].reshape(*lead, -1)
+    return t.reshape(*lead, -1, width)[..., :dim_head].reshape(*lead, -1)
 
 
 def why_not(dim, heads, dim_head, n, dtype, training=False):
     """Why the CUDA kernels cannot take this megablock (`dim` its width) or,
     with `dim` None, this attention core (K6's, the megablock's alone): a
     sentence naming the limit, or None when they can. The wrappers raise on
-    it before any launch (the top-level ones pad a narrower head first)."""
+    it before any launch (the top-level ones pad a head to its
+    `kernel_width` first)."""
     if dtype not in KERNEL_DTYPES:
         return (f"the CUDA attention kernels take float32 or bfloat16, not "
                 f"{dtype}")
-    if dim_head not in HEAD_WIDTHS:
-        return (f"the CUDA attention kernels take dim_head "
-                f"{' or '.join(map(str, HEAD_WIDTHS))} (narrower "
-                f"zero-padded), not {dim_head}")
+    if not takes_width(dim_head, dtype, None if dim is None else heads):
+        return (f"the CUDA attention kernels take "
+                f"{width_words(dtype, dim is not None)}, not {dim_head}"
+                + (f" ({heads} heads)" if dim is not None else ""))
     if dim is not None and (dim % 64 or dim > MAX_WIDTH):
         return (f"the CUDA megablock takes dim a multiple of 64 up to "
                 f"{MAX_WIDTH}, not {dim}")
@@ -322,11 +327,13 @@ def attention_block(x, g_pre, w_qkv, w_out, g_out, mask, heads, dim_head,
     Returns x + LN(W_out · attention(LN(x)·W_qkv)) in x.dtype. Forward only:
     training goes through `attention_block_train`. `maybe_dead=False` may
     be passed when every row has a valid key."""
-    if padded_width(dim_head) != dim_head:
-        return attention_block(x, g_pre, pad_heads(w_qkv, dim_head),
-                               pad_heads(w_out, dim_head, 0),
-                               g_out, mask, heads, padded_width(dim_head),
-                               scale, causal, maybe_dead)
+    width = kernel_width(dim_head, x.dtype, heads)
+    if width != dim_head:
+        return attention_block(x, g_pre,
+                               pad_heads(w_qkv, dim_head, width=width),
+                               pad_heads(w_out, dim_head, 0, width),
+                               g_out, mask, heads, width, scale, causal,
+                               maybe_dead)
     tensors = (x, g_pre, w_qkv, w_out, g_out)
     refuse_grad("attention_block", tensors, "attention_block_train")
     if not route("attention_block", tensors + (mask,)):
@@ -476,9 +483,11 @@ def attention_block_train(x, g_pre, w_qkv, w_out, g_out, mask, heads,
     """x + LN(W_out · attention(LN(x)·W_qkv)) with the stored backward;
     differentiable in the five tensors. Same arguments as
     `attention_block`."""
-    if padded_width(dim_head) != dim_head:
-        w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
-        dim_head = padded_width(dim_head)
+    width = kernel_width(dim_head, x.dtype, heads)
+    if width != dim_head:
+        w_qkv = pad_heads(w_qkv, dim_head, width=width)
+        w_out = pad_heads(w_out, dim_head, 0, width)
+        dim_head = width
     return AttentionBlock.apply(x, g_pre, w_qkv, w_out, g_out, mask, heads,
                                 dim_head, scale, causal, maybe_dead)
 
@@ -671,9 +680,11 @@ def attention_block_train_recompute(x, g_pre, w_qkv, w_out, g_out, mask,
     """x + LN(W_out · attention(LN(x)·W_qkv)) keeping only row statistics
     (and qkv with `keep_qkv`) for the recompute backward; differentiable in
     the five tensors. Same arguments as `attention_block`."""
-    if padded_width(dim_head) != dim_head:
-        w_qkv, w_out = pad_heads(w_qkv, dim_head), pad_heads(w_out, dim_head, 0)
-        dim_head = padded_width(dim_head)
+    width = kernel_width(dim_head, x.dtype, heads)
+    if width != dim_head:
+        w_qkv = pad_heads(w_qkv, dim_head, width=width)
+        w_out = pad_heads(w_out, dim_head, 0, width)
+        dim_head = width
     return AttentionBlockRecompute.apply(x, g_pre, w_qkv, w_out, g_out, mask,
                                          heads, dim_head, scale, causal,
                                          maybe_dead, keep_qkv)

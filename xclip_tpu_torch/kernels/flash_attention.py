@@ -29,9 +29,10 @@ dead-row rule, lse = m_safe + log l, any length). Every kernel skips
 causal and all-masked key tiles, and every backward computes Δ in its dq
 kernel. Their source notes give the design and what bounds it. The
 kernels take 16-byte aligned tensors (`flash_attention` hands them fresh
-ones). They take heads of 64 and 128 (two 64-column halves) in both
-dtypes; `flash_attention` runs a narrower head on them zero-padded to the
-next of those (`_common.padded_width`, the attention kernels' one rule).
+ones). In bf16 they take a head at its true width, any multiple of 8 up
+to 256 (⌈d / 64⌉ 64-column halves), in fp32 heads of 64 and 128;
+`flash_attention` runs any other head zero-padded to its
+`_common.kernel_width` (the attention kernels' one rule).
 The plain versions follow the Pallas kernels' rounding points;
 the forward's online softmax rounds p against the running max, so its key
 block is a rounding point too: the plain forward takes it as `block_k`,
@@ -46,8 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import (HEAD_WIDTHS, KERNEL_DTYPES, check_kernel_args, dot32,
-                      dtype_code, padded_width, route, stream_ptr)
+from ._common import (KERNEL_DTYPES, check_kernel_args, dot32, dtype_code,
+                      kernel_width, route, stream_ptr, takes_width,
+                      width_words)
 
 KERNEL_BLOCK = 64   # the kernels' query and key tiles, the sequence
                     # multiple they take
@@ -109,14 +111,13 @@ def flash_attention_bwd_plain(q, k, v, mask, out, lse, do, causal=False):
 def why_not(dim_head, dtype):
     """Why the CUDA kernels cannot take heads of `dim_head` in `dtype`
     (None if they can); any sequence runs, padded to the kernels' tile
-    (`pad_flat`), and a narrower head padded to a kernel width
-    (`padded_width`). The wrappers raise on it before any launch."""
+    (`pad_flat`), and another head padded to its `kernel_width`. The
+    wrappers raise on it before any launch."""
     if dtype not in KERNEL_DTYPES:
         return f"the CUDA flash kernels take float32 or bfloat16, not {dtype}"
-    if dim_head not in HEAD_WIDTHS:
-        return (f"the CUDA flash kernels take dim_head "
-                f"{' or '.join(map(str, HEAD_WIDTHS))} (narrower "
-                f"zero-padded), not {dim_head}")
+    if not takes_width(dim_head, dtype):
+        return (f"the CUDA flash kernels take {width_words(dtype)}, not "
+                f"{dim_head}")
     return None
 
 
@@ -233,7 +234,7 @@ def flash_attention(q, k, v, mask=None, causal=False):
     """q, k, v: (b, h, n, d) with q pre-scaled; mask: (b, n) key validity.
     Returns (b, h, n, d) in q's dtype, differentiable in q, k, v."""
     b, h, n, d = q.shape
-    width = padded_width(d)
+    width = kernel_width(d, q.dtype)
     if width != d:  # zero-padded heads
         return flash_attention(*(F.pad(t, (0, width - d))
                                  for t in (q, k, v)), mask, causal)[..., :d]

@@ -44,10 +44,11 @@ decides it from the shapes and, in training, the dropout rates. Everywhere
 else a kernel flag takes its kernel: on the card the CUDA wrapper launches
 it or raises (`why_not` in each kernel module names the limit), and never
 gives way to the plain version; on the CPU every kernel route runs its
-plain version. The attention kernels take heads of 64 and 128 (two
-64-column halves); a narrower head runs on them zero-padded to the next of
-those (`attention_megablock.pad_heads`: ViT-H/14's 80 at 128), and a wider
-one raises on the card.
+plain version. The bf16 attention kernels take a head at its true width,
+any multiple of 8 up to 256 (ViT-H/14's 80 at 80), the fp32 ones heads of
+64 and 128; another head runs on them zero-padded to its
+`kernels._common.kernel_width` (`attention_megablock.pad_heads`: fp32's 80
+at 128), and a head wider than the kernels take raises on the card.
 
 Tensor parallelism (`parallel.shard_params`, `Transformer.model_group`):
 on the plain route a layer holds its heads' q, k and v columns of
